@@ -26,6 +26,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, varanneal_tpu_torch\n"
             "import varanneal_tpu_torch.kernels.ag\n"
             "import varanneal_tpu_torch.kernels._build\n"
+            "import varanneal_tpu_torch.kernels.solve\n"
+            "import varanneal_tpu_torch.bench\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -8,8 +8,10 @@ recorded, not retried. The JAX package runs the rungs under ``lax.scan``;
 PyTorch runs eagerly, so here they are a loop whose carry is the batch of
 decision vectors.
 
-``rf_max``/``rf_min``, ``aggregate_repeats``, the other inner solvers and
-``rung_solver`` wait for later slices (ROADMAP.md).
+``rung_solver`` replaces the inner minimizer, as in the JAX ladder (the
+whole-rung kernel K2, ``kernels.solve.make_rung_solver``). ``rf_max``/
+``rf_min``, ``aggregate_repeats`` and the other inner solvers wait for
+later slices (ROADMAP.md).
 """
 
 from typing import NamedTuple, Optional
@@ -47,14 +49,18 @@ def rung_rf(rf0, alpha, beta, dtype):
 
 def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
                lower=None, upper=None, opts: Optional[LBFGSOptions] = None,
-               store_paths: bool = True, device=None) -> LadderResult:
+               store_paths: bool = True, rung_solver=None,
+               device=None) -> LadderResult:
     """Run the annealing ladder from the initial decision vectors ``XP0``
     ((B, n_dof), or (n_dof,) for one member, whose records then drop the
     batch axis). ``action`` is batched (``ops.action.make_action`` or
     ``kernels.ag.make_action_ag``); an action that carries its own
     ``value_and_grad`` is evaluated through it, so the fused kernel's
-    single launch serves every evaluation. ``device=None`` means the CUDA
-    card."""
+    single launch serves every evaluation. ``rung_solver``: optional
+    ``solve(XP, rf) -> LBFGSResult`` replacing the inner minimizer
+    entirely (``kernels.solve.make_rung_solver``: one launch per rung);
+    the records still come from ``action_parts`` at its minimizer.
+    ``device=None`` means the CUDA card."""
     opts = opts or LBFGSOptions()
     if lower is not None or upper is not None:
         raise NotImplementedError(
@@ -72,8 +78,11 @@ def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
         rf = rung_rf(rf0, alpha, beta, XP.dtype)
         rf_t = rf if isinstance(rf, float) else torch.as_tensor(
             rf, device=device).to(XP.dtype)
-        res = lbfgs_minimize(lambda z: vag(z, rf_t), XP, opts=opts,
-                             device=device)
+        if rung_solver is not None:
+            res = rung_solver(XP, rf_t)
+        else:
+            res = lbfgs_minimize(lambda z: vag(z, rf_t), XP, opts=opts,
+                                 device=device)
         XP = res.x
         with torch.no_grad():
             A, me, fe = action_parts(XP, rf_t)

@@ -1,7 +1,7 @@
 // Lorenz-96 vector field and its transposed Jacobian product, as device
-// functions shared by the port's CUDA kernels (the action+gradient kernel
-// in ag_kernel.cu now; the whole-rung and whole-ladder solve kernels
-// next). The formulas are those of native/valib.cpp (l96_f, l96_jtv),
+// functions shared by the port's CUDA kernels (through the block routine
+// of l96_ag_block.cuh: the action+gradient kernel in ag_kernel.cu and the
+// whole-rung and whole-ladder solve kernels in solve_kernel.cu). The formulas are those of native/valib.cpp (l96_f, l96_jtv),
 // which the test suite checks against jax.grad:
 //
 //   f_d(x)        = (x_{d+1} - x_{d-2}) x_{d-1} - x_d + F
