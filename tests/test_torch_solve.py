@@ -63,14 +63,16 @@ SHORT = dict(maxiter=30, m=5, pgtol=1e-4, ftol=1e-6)
 @pytest.mark.parametrize("dtype,xtol", [(np.float32, 2e-4),
                                         (np.float64, 1e-8)])
 def test_rung_solver_matches_jax(problem, dtype, xtol):
-    """Short solves (one converged, two stopped at maxiter) from
-    data-informed draws at three rungs of the bench's ladder: identical
-    niter, nfev and status. f32: f to 1e-4 relative and x to 2e-4
-    absolute (the bound tests/test_solve_pallas.py holds the JAX kernel
-    to against its own XLA loop); f64: x to 1e-8 relative. The rungs
-    between (β 15-20 here) are flat along the unobserved components: the
-    counts and f still agree there, but f32 iterates stopped at pgtol
-    1e-4 differ by up to 5e-3, so x is compared where it is determined."""
+    """Short solves (converged and stopped at maxiter) from data-informed
+    draws at five rungs of the bench's ladder: identical niter, nfev and
+    status. f32: f to 1e-4 relative and x to 2e-4 absolute (the bound
+    tests/test_solve_pallas.py holds the JAX kernel to against its own
+    XLA loop); f64: x to 1e-8 relative. β 15 and 20 are flat along the
+    unobserved components, and an f32 solve stopped at pgtol 1e-4 ends
+    there as far from the f64 solve of the same inputs (up to 1.2e-3 in
+    f) as from the other f32 solve: f32 f is held there to the larger of
+    1e-4 and the JAX f32 solve's own distance from the port's f64 solve,
+    and f32 x is compared only at the other rungs."""
     tw, sj, st = problem
     rng = np.random.default_rng(0)
     X0 = random_ensemble_inits(st, 2, seed=5, dtype=dtype)
@@ -78,10 +80,13 @@ def test_rung_solver_matches_jax(problem, dtype, xtol):
     rf0 = dtype(4e-6 * tw["RM"])
     jsolve = solve_pallas.make_rung_solver(sj, OptsJax(**SHORT))
     psolve = solve.make_rung_solver(st, LBFGSOptions(**SHORT), device="cpu")
-    for beta in (0, 30, 60):
+    flat = (15, 20)
+    for beta in (0, *flat, 30, 60):
         rf = rung_rf(rf0, 1.5, beta, torch.float32 if dtype == np.float32
                      else torch.float64)
         rp = psolve(torch.tensor(X0), rf)
+        if dtype == np.float32 and beta in flat:
+            f64 = psolve(torch.tensor(X0, dtype=torch.float64), rf).f
         for b in range(2):
             rj = jsolve(jnp.asarray(X0[b]), dtype(rf))
             assert int(rp.niter[b]) == int(rj.niter) > 0
@@ -89,9 +94,15 @@ def test_rung_solver_matches_jax(problem, dtype, xtol):
             assert int(rp.status[b]) == int(rj.status)
             xj = np.asarray(rj.x)
             if dtype == np.float32:
+                ftol = 1e-4
+                if beta in flat:
+                    ftol = max(ftol, abs(float(rj.f) - float(f64[b]))
+                               / abs(float(f64[b])))
+                else:
+                    np.testing.assert_allclose(rp.x[b].numpy(), xj,
+                                               atol=xtol)
                 np.testing.assert_allclose(float(rp.f[b]), float(rj.f),
-                                           rtol=1e-4)
-                np.testing.assert_allclose(rp.x[b].numpy(), xj, atol=xtol)
+                                           rtol=ftol)
             else:
                 scale = max(np.abs(xj).max(), 1.0)
                 np.testing.assert_allclose(rp.x[b].numpy() / scale,
@@ -182,8 +193,7 @@ def test_envelope(problem):
                 make()
 
 
-@pytest.mark.parametrize("extra", [{}, dict(BENCH_SOLVER="fused",
-                                             BENCH_TAIL64_TIMED="1")])
+@pytest.mark.parametrize("extra", [{}, dict(BENCH_SOLVER="fused")])
 def test_bench_main_cpu(capsys, extra):
     env = dict(BENCH_NBETA="3", BENCH_MAXITER="20", BENCH_TAIL64="1",
                **extra)

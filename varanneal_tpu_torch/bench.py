@@ -22,12 +22,12 @@ Env knobs, as bench.py's where the port has the path:
   make_ladder_solver``); ``fused`` one launch of K2 per rung through the
   ladder's ``rung_solver`` hook; ``xla`` the generic batched L-BFGS loop
   over the action of ``BENCH_ENGINE``;
-- ``BENCH_ENGINE=auto|ag|xla`` (``auto`` and ``ag``: K1; ``xla``: the
-  autograd action), ``BENCH_DTYPE=f32|f64``, ``BENCH_NINIT`` (default 1),
-  ``BENCH_NBETA`` (101), ``BENCH_MAXITER`` (500), ``BENCH_DIRECTION``
-  (auto), ``BENCH_M`` (5), ``BENCH_MAXLS`` (20), ``BENCH_TAIL64`` (20),
-  ``BENCH_TAIL64_TIMED=1`` (the tail inside the timed section, whose
-  nfev it then reports, as bench.py's legacy two-phase mode).
+- ``BENCH_ENGINE=auto|ag|xla`` (``ag``: K1; ``xla``: the autograd
+  action; ``auto``: the autograd action, which the reference's
+  ``select_action`` picks at D=20), ``BENCH_DTYPE=f32|f64``,
+  ``BENCH_NINIT`` (default 1), ``BENCH_NBETA`` (101), ``BENCH_MAXITER``
+  (500), ``BENCH_DIRECTION`` (auto), ``BENCH_M`` (5), ``BENCH_MAXLS``
+  (20), ``BENCH_TAIL64`` (20).
 
 ``BENCH_ENGINE=pallas``, ``BENCH_PACK>1`` and ``BENCH_INNER=lm`` wait for
 the ports of K6, K8 and ``opt/lm`` (ROADMAP.md) and raise
@@ -103,6 +103,10 @@ def main(device=None, env=None):
         raise _waits("BENCH_INNER=lm (opt/lm)")
     if engine not in ("auto", "ag", "xla"):
         raise ValueError(f"unknown BENCH_ENGINE {engine!r}")
+    if engine == "auto":
+        # the reference's select_action takes K1 only from D >= 256
+        # (ag_preferred); the bench's D is 20
+        engine = "xla"
     if bench_solver not in ("ladder", "fused", "xla"):
         raise ValueError(f"unknown BENCH_SOLVER {bench_solver!r}")
 
@@ -150,7 +154,6 @@ def main(device=None, env=None):
                                              dtype=np_dt), device=device)
 
     tail64 = int(env.get("BENCH_TAIL64", "20"))
-    tail_timed = env.get("BENCH_TAIL64_TIMED") == "1"
     tail_fn = None
     if tail64 > 0 and dtype == torch.float32:
         act64, parts64 = ag.make_action_ag(spec, device=device,
@@ -186,21 +189,14 @@ def main(device=None, env=None):
             launches[k] += n - before[k]
         return r
 
-    res = ladder_call()                 # warm: builds and loads the kernels
-    if tail_fn is not None and tail_timed:
-        tail_fn(res.XP)
-    tail = None
+    ladder_call()                       # warm: builds and loads the kernels
     t0 = time.perf_counter()
     res = ladder_call()
-    if tail_fn is not None and tail_timed:
-        tail = tail_fn(res.XP)
-        sync()
     wall = time.perf_counter() - t0
 
     per_init = wall / n_init
-    nfev = int((tail if tail is not None else res).nfev.sum())
-    if tail_fn is not None and not tail_timed:
-        tail = tail_fn(res.XP)
+    nfev = int(res.nfev.sum())
+    tail = tail_fn(res.XP) if tail_fn is not None else None
     final_a_tail64 = (float(tail.A[:, -1].mean()) if tail is not None
                       else None)
     out = {

@@ -132,6 +132,14 @@ def _roll(x, k):
     return torch.roll(x, k, dims=-1)
 
 
+def measurement_error(X, c: AgConsts):
+    """The misfit x_obs - Y on the observed entries of ``X`` (B, N, D)
+    and ME = me_norm · Σ W (x_obs - Y)² per member (B,)."""
+    diff = X[:, c.obs_rows][:, :, c.lidx.long()] - c.Y
+    me = torch.sum(c.W * diff * diff, dim=(1, 2))
+    return diff, _scalar(c.me_norm, X.dtype) * me
+
+
 def ag_reference(XP, rf, c: AgConsts):
     """Plain PyTorch action and gradient with the kernel's hand adjoint.
     ``XP`` (B, n_dof) -> (A (B,), dA/dXP (B, n_dof))."""
@@ -151,9 +159,8 @@ def ag_reference(XP, rf, c: AgConsts):
     r = X[:, 1:] - X[:, :-1] - hh * (f[:, :-1] + f[:, 1:])
     fe = torch.sum(r * r, dim=(1, 2))
     sr = torch.sum(r, dim=(1, 2))
-    diff = X[:, c.obs_rows][:, :, c.lidx.long()] - c.Y
-    me = torch.sum(c.W * diff * diff, dim=(1, 2))
-    A = me_norm * me + fe_norm * (rf * fe)
+    diff, me = measurement_error(X, c)
+    A = me + fe_norm * (rf * fe)
 
     # adjoint: gX_n = 2c [r_{n-1} - r_n - (h/2) J(x_n)^T (r_{n-1} + r_n)]
     zero = torch.zeros_like(r[:, :1])

@@ -90,16 +90,6 @@ def solve_reference(XP, rf, c: ag.AgConsts, opts: LBFGSOptions):
                           device=XP.device)
 
 
-def _measurement_error(XP, c: ag.AgConsts):
-    """me_norm · Σ W (x_obs - Y)² per member, in K1's layout of the data:
-    the record the ladder kernel keeps beside A."""
-    B = XP.shape[0]
-    X = XP[:, : c.n_state].reshape(B, c.N, c.D)
-    diff = X[:, c.obs_rows][:, :, c.lidx.long()] - c.Y
-    me = torch.sum(c.W * diff * diff, dim=(1, 2))
-    return ag._scalar(c.me_norm, XP.dtype) * me
-
-
 _RECORDS = ("A", "ME", "FE", "pgnorm", "niter", "nfev", "status")
 
 
@@ -110,7 +100,8 @@ def ladder_reference(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions):
     for rf in rfs:
         res = solve_reference(XP, float(rf), c, opts)
         XP = res.x
-        me = _measurement_error(XP, c)
+        _, me = ag.measurement_error(
+            XP[:, : c.n_state].reshape(-1, c.N, c.D), c)
         for k, v in (("A", res.f), ("ME", me), ("FE", res.f - me),
                      ("pgnorm", res.pgnorm), ("niter", res.niter),
                      ("nfev", res.nfev), ("status", res.status)):
