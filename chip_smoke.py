@@ -7,10 +7,10 @@ timed on its own line:
 
 1. device: the card's name, count, power limit, the torch and nvcc
    versions; no CUDA device -> exit 1 before any result is printed;
-2. build: K1 (kernels/csrc/ag_kernel.cu) and K2/K3
-   (kernels/csrc/solve_kernel.cu), one nvcc each, started together, into
-   plain-C shared libraries, with nvcc's -Xptxas -v report (registers,
-   spills, shared memory);
+2. build: K1 (kernels/csrc/ag_kernel.cu), K2/K3
+   (kernels/csrc/solve_kernel.cu) and K7a/K7b (kernels/csrc/dir_kernel.cu),
+   one nvcc each, started together, into plain-C shared libraries, with
+   nvcc's -Xptxas -v report (registers, spills, shared memory);
 3. K1 against its plain PyTorch version on the card at the main path's
    shape (Lorenz-96 D=20, N=161, L=8, B=4; data-informed draws from numpy
    seed 0; rf at β = 0, 50, 100): f64 to 1e-12 and f32 to 2e-5 relative;
@@ -64,14 +64,64 @@ timed on its own line:
    ladder call of that path (the same inputs, outside the counted runs)
    is timed by CUDA events and run under torch.profiler, in a child
    process (``chip_smoke.py --profile-k3``): the device's busy share and
-   K3's device time.
+   K3's device time;
+10. K7a and K7b against their plain versions in f32 at the main path's
+   n_dof (3,221), m=5 and m=7, four members a launch, every (head, hlen)
+   of the circular history: the direction within 2e-5 of its max|d|
+   (tests/test_dir_pallas.py's bound for the Pallas step kernel) or, where
+   larger, twice the plain f32 version's own error against f64 on the same
+   inputs, but never more than 7.2e-5 (at n = 3,221 and m = 7 that error
+   reaches 3.5e-5 of max|d|, 4x the elementwise 2e-6 + 2e-5·|d| the
+   Pallas direction test uses at n = 37; tests/test_torch_dir.py holds it
+   under 3.6e-5; how many directions pass that elementwise bound is
+   printed),
+   history rows and max|g| within 1e-6 relative, Σ|g| within 1e-5,
+   good/head/hlen exact, a
+   member with run = 0 left bit-identical, repeats bit-identical; both
+   kernels and their plain versions timed with CUDA events at m=5 with a
+   full history;
+11. the fused generic loop on the main path: phase 5's ladder (B=4, 101
+   f32 rungs, K1's action) with ``direction`` left at ``auto``, which on
+   the card resolves to the fused loop: K7b's launches equal the loop's
+   iterations (per rung the most any member made), K7a's are 0 and K1's
+   at least the slowest member's evaluations per rung; then the 20-rung
+   f64 tail, whose final_A_tail64 of member 0 must lie within 1e-2
+   relative of 16.284792. The first 50 iterations of rung 60 from phase
+   5's rung-59 minimizer run again in a child process
+   (``chip_smoke.py --profile-loops``) under torch.profiler, through the
+   generic compact loop and through the fused loop: wall, device busy
+   share and K7b's device time per iteration;
+12. K2's bounded branch against its plain version: short solves (maxiter
+   30) at β 0/50/100 from phase 3's draws in the box states (-6, 6),
+   F (3, 6): in f64 identical niter/nfev/status and x within 1e-8
+   relative; in f32 identical counts and f within 2e-3 relative
+   (F32_BOUNDED_F_TOL), with the readings that limit rests on printed:
+   over six draws and β 0/25/50/75/100, the plain version's card-vs-CPU
+   spread, the kernel's distance from it, and each one's distance from
+   the f64 solve (the kernel's at most twice the plain version's); every
+   x feasible, some component at a bound, repeats bit-identical; then
+   phase 4's f64 10-rung ladder (4 members from near the truth, rf0 = RM,
+   pgtol 1e-8, ftol off)
+   in that box through K2's hook, through the plain version and through
+   the generic projection loop: A within 1e-8 relative at every mutually
+   converged rung;
+13. the facade on the card: varanneal_tpu_torch.Annealer runs the README's
+   Quick start (the twin's data, D=20, L=8, N=161, β 0..100, α=1.5,
+   RF0 = 4e-6·RM, Pidx=[0], the bench's opt_args, float32) with bounds
+   states (-10, 10), F (2, 12): solver='auto' must take K2, 101 launches
+   and no generic loop; then solver='generic' on the first 20 rungs runs
+   the projection loop, with K7a launches and no K7b launch; records of
+   the right shapes, exit flags in {0, 1, 2}, every path feasible, some
+   component at a bound, and save_paths / save_params /
+   save_action_errors into a temporary directory (paths (101, 161, 21)).
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, times,
 bound; K3's ms and bound are those of phase 8's three-rung launch, and
-main_ms / main_bound_ms those of its 101-rung launch on the new path)
-and the result line {"ok": true, "device": {...}}. Any failure raises,
-and the script exits non-zero before that line.
+main_ms / main_bound_ms those of its 101-rung launch on the new path;
+K2's bounded_* those of phase 12's f32 bounded short solves) and the
+result line {"ok": true, "device": {...}}. Any failure raises, and the
+script exits non-zero before that line.
 """
 
 import contextlib
@@ -81,6 +131,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,9 +146,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # final_A_tail64 of bench.py's single init: JAX on a TPU v5e
 # (BENCH_r05.json), an accuracy anchor and not a time
 JAX_FINAL_A_TAIL64 = 16.284792
+# phase 12's limit on K2 bounded f32 f against the plain version: 3x the
+# largest reading of the kernel (6.9e-4) and of the plain version's
+# card-vs-CPU spread over six draws and five rungs (6.7e-4) on the H100
+F32_BOUNDED_F_TOL = 2e-3
 
 MAIN = dict(D=20, N_data=161, n_obs=8, B=4, n_beta=101, alpha=1.5,
             tail=20)
+# the box of phase 12 (tests/test_solve_pallas.py's) and of the facade
+BOX_TEST = [(-6.0, 6.0)] * 20 + [(3.0, 6.0)]
+BOX_FACADE = [(-10.0, 10.0)] * 20 + [(2.0, 12.0)]
 
 
 def device_us(evt):
@@ -160,6 +218,55 @@ def solve_bound(spec, dtype, B, launches, nfev, niter, m, rungs):
     return t_ops, "operations", nbytes, nops
 
 
+def bound_of(nbytes, nops, dtype=torch.float32):
+    """(ms, bound_by): the larger of bytes over HBM's rate and operations
+    over the card's rate for ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dir_work(B, n, m):
+    """Bytes and operations of one K7a launch: the 2m history rows and g
+    read once, d written once (f32), head/hlen read; the Gram's m² +
+    m(m+1)/2 + 2m dot products (2 operations an entry each) and the
+    contraction over 2m rows plus γg (2 per row and entry, and 2)."""
+    nbytes = B * ((2 * m + 1) * n * 4 + n * 4 + 8)
+    gram = m * m + m * (m + 1) // 2 + 2 * m
+    nops = B * (2 * gram * n + (4 * m + 2) * n)
+    return nbytes, nops
+
+
+def step_work(B, n, m, n_good):
+    """Bytes and operations of one K7b launch: x and g old and new read, s
+    and y written into the history of the ``n_good`` members whose pair
+    passes the gate, d and the scalar row written, plus the direction (see
+    dir_work, whose g read is g_new's, and whose two history rows at head
+    are not read for those ``n_good`` members: the kernel overwrites them
+    with s and y, which it already holds); the gate pass costs 13
+    operations an entry (s, y, sᵀy, sᵀs, yᵀy, Σ|g|, Σg², max|g|)."""
+    nbytes_d, nops_d = dir_work(B, n, m)
+    nbytes = (B * 4 * n * 4 + n_good * 2 * n * 4 + nbytes_d - B * n * 4
+              - n_good * 2 * n * 4 + B * (7 * 4 + 4 * 2 + 4 * 2))
+    return nbytes, nops_d + B * 13 * n
+
+
+def member_draws(spec, tw, seed):
+    """MAIN["B"] data-informed points (numpy ``seed``): states N(2, 2)
+    with the observed components at the data plus N(0, 0.3) noise, F
+    N(4, 1); (B, n_dof)."""
+    from varanneal_tpu_torch.ops import pack
+    rng = np.random.default_rng(seed)
+    draws = []
+    for _ in range(MAIN["B"]):
+        X = rng.normal(2.0, 2.0, (spec.N_f, spec.D))
+        rows = np.arange(spec.N_data) * spec.obs_stride
+        X[np.ix_(rows, np.asarray(spec.Lidx))] = tw["Y"] + rng.normal(
+            0, 0.3, tw["Y"].shape)
+        draws.append(pack(spec, X, np.array([4.0 + rng.normal()])))
+    return np.stack(draws)
+
+
 def main_problem():
     """The main path's twin, spec and rf0 (BASELINE config #1)."""
     from varanneal_tpu_torch.models import lorenz96
@@ -210,6 +317,47 @@ def profile_k3():
     return 0
 
 
+def profile_loops(path):
+    """The first 50 iterations of rung 60 from the rung-59 minimizers in
+    ``path`` (4 members, f32, K1's action), through the generic compact
+    loop and through the fused loop (direction auto, which takes K7b on
+    the card), each under torch.profiler after one warm run; prints one
+    JSON line. A process of its own, as profile_k3."""
+    from varanneal_tpu_torch.anneal.ladder import rung_rf
+    from varanneal_tpu_torch.kernels import ag
+    from varanneal_tpu_torch.opt import LBFGSOptions, lbfgs_minimize
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tw, spec, rf0 = main_problem()
+    xp = torch.load(path).to(dev)
+    action, _ = ag.make_action_ag(spec, device=dev, dtype=torch.float32)
+    vag = action.value_and_grad
+    rf = rung_rf(np.float32(rf0), MAIN["alpha"], 60, torch.float32)
+    out = {}
+    for direction in ("compact", "auto"):
+        opts = LBFGSOptions(m=5, maxiter=50, maxls=20, pgtol=1e-4,
+                            ftol=1e-6, direction=direction)
+        lbfgs_minimize(lambda z: vag(z, rf), xp, opts=opts, device=dev)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t_p = time.perf_counter()
+            r = lbfgs_minimize(lambda z: vag(z, rf), xp, opts=opts,
+                               device=dev)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t_p) * 1e6
+        rows = [(device_us(e), e.count, e.key) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[direction] = dict(
+            wall_us=wall_us, busy_us=sum(x[0] for x in rows),
+            k1_us=sum(x[0] for x in rows if "l96_ag_trap" in x[2]),
+            k7b_us=sum(x[0] for x in rows if "step_kernel" in x[2]),
+            kernels=sum(x[1] for x in rows),
+            niter=int(r.niter.max()), nfev=int(r.nfev.max()))
+    print(json.dumps(out))
+    return 0
+
+
 def phase(name, t0):
     print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -226,6 +374,8 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from varanneal_tpu_torch.kernels import _build, ag, solve
+    from varanneal_tpu_torch.kernels import dir as kdir
+    from varanneal_tpu_torch.api import Annealer, build_bounds
     from varanneal_tpu_torch.ops import make_action, pack
     from varanneal_tpu_torch.ops import value_and_grad
     from varanneal_tpu_torch.opt import LBFGSOptions, lbfgs_minimize
@@ -252,13 +402,13 @@ def main():
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["ag_kernel", "solve_kernel"])
+    built = _build.build(["ag_kernel", "solve_kernel", "dir_kernel"])
     for b in built.values():
         print(f"nvcc build of {b.path.name}: {b.seconds:.2f} s "
-              "(the two builds run in parallel)")
+              "(the three builds run in parallel)")
         for line in b.log.splitlines():
-            if ("Compiling entry" in line or "Used" in line
-                    or "bytes stack frame" in line):
+            if ("Compiling entry" in line or "Function properties" in line
+                    or "Used" in line or "bytes stack frame" in line):
                 print(f"ptxas {b.name}:", line.strip())
     phase("2 build", t0)
 
@@ -266,15 +416,7 @@ def main():
 
     # ---- 3. kernel vs plain at the main path's shape -----------------------
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    draws = []
-    for _ in range(MAIN["B"]):
-        X = rng.normal(2.0, 2.0, (spec.N_f, spec.D))
-        rows = np.arange(spec.N_data) * spec.obs_stride
-        X[np.ix_(rows, np.asarray(spec.Lidx))] = tw["Y"] + rng.normal(
-            0, 0.3, tw["Y"].shape)
-        draws.append(pack(spec, X, np.array([4.0 + rng.normal()])))
-    draws = np.stack(draws)
+    draws = member_draws(spec, tw, 0)
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
         c = ag.ag_consts(spec, dev, dtype)
         Z = torch.tensor(draws, dtype=dtype, device=dev)
@@ -728,10 +870,501 @@ def main():
         paths[solver_name] = (run, counts)
 
     phase("9 new path (bench ladder, fused) and profile", t0)
+
+    # ---- 10. K7a and K7b vs their plain versions ------------------------
+    t0 = time.perf_counter()
+    n = spec.n_dof
+    rng = np.random.default_rng(10)
+
+    def histories(m, pairs):
+        H = np.zeros((len(pairs), 2 * m, n), np.float32)
+        for b, (head, hlen) in enumerate(pairs):
+            for j in range(hlen):
+                slot = (head - hlen + j) % m
+                sv = rng.normal(size=n)
+                H[b, slot], H[b, m + slot] = sv, rng.normal(size=n) * 0.3 + sv
+        return torch.tensor(H, device=dev)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32, device=dev)
+
+    def dir_err(d_k, d_p, d_64):
+        """(kernel's error, its bound), each relative to the member's
+        max|d|: the bound is 2e-5 (tests/test_dir_pallas.py's for K7b) or
+        twice the plain f32 version's own error against f64 on the same
+        inputs, whichever is larger, and never more than 7.2e-5 (twice
+        the 3.6e-5 that tests/test_torch_dir.py holds that error under at
+        this n and m = 7 on the CPU)."""
+        s_p = torch.amax(torch.abs(d_p), dim=1).double()
+        e_k = torch.amax(torch.abs(d_k - d_p), dim=1).double() / s_p
+        w = torch.amax(torch.abs(d_p.double() - d_64), dim=1) / torch.amax(
+            torch.abs(d_64), dim=1)
+        return e_k, torch.clamp(2.0 * w, min=2e-5, max=7.2e-5)
+
+    err_k7a = err_k7b = 0.0
+    rel_k7 = [0.0, 0.0]     # worst error / bound of K7a, K7b
+    n_el = 0                # members past the elementwise 2e-6 + 2e-5|d|
+    n_pairs = 0
+    for m in (5, 7):
+        pairs = [(h, l) for h in range(m) for l in range(m + 1)]
+        for i in range(0, len(pairs), MAIN["B"]):
+            batch = pairs[i:i + MAIN["B"]]
+            B = len(batch)
+            H = histories(m, batch)
+            hd, hl = i32([p[0] for p in batch]), i32([p[1] for p in batch])
+            g = f32(rng.normal(size=(B, n)))
+            d_k = kdir.compact_dir_kernel(g, H, hd, hl)
+            torch.cuda.synchronize()
+            d_p = kdir.compact_dir_reference(g, H, hd, hl)
+            d_64 = kdir.compact_dir_reference(g.double(), H.double(), hd, hl)
+            err = torch.abs(d_k - d_p)
+            err_k7a = max(err_k7a, float(err.max()))
+            n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(dim=1).sum())
+            e_k, bnd = dir_err(d_k, d_p, d_64)
+            rel_k7[0] = max(rel_k7[0], float((e_k / bnd).max()))
+            check(bool(torch.all(e_k <= bnd)),
+                  f"K7a disagrees with its plain version at m={m}, "
+                  f"(head, hlen) in {batch}: {e_k.tolist()} vs {bnd.tolist()}")
+            check(torch.equal(d_k, kdir.compact_dir_kernel(g, H, hd, hl)),
+                  "K7a repeated launch is not bit-identical")
+
+            x_old, g_old = f32(rng.normal(size=(B, n))), g
+            x_new = x_old + f32(0.1 * rng.normal(size=(B, n)))
+            g_new = g_old + f32(0.1 * rng.normal(size=(B, n)))
+            if B > 3:           # a flat pair: the gate must refuse it
+                x_new[3] = x_old[3] + 1e-12
+                g_new[3] = g_old[3]
+            ls_ok = torch.tensor([True, False, True, True][:B], device=dev)
+            run = torch.tensor([True, True, False, True][:B], device=dev)
+            vecs = (x_old, x_new, g_old, g_new)
+            Hk, hk, lk = H.clone(), hd.clone(), hl.clone()
+            Hp, hp, lp = H.clone(), hd.clone(), hl.clone()
+            d_k, sc_k = kdir.fused_step_kernel(Hk, *vecs, hk, lk, ls_ok,
+                                               run)
+            torch.cuda.synchronize()
+            d_p, sc_p = kdir.fused_step_reference(Hp, *vecs, hp, lp, ls_ok,
+                                                  run)
+            d_64, _ = kdir.fused_step_reference(
+                H.double(), *(v.double() for v in vecs), hd.clone(),
+                hl.clone(), ls_ok, run)
+            err = torch.abs(d_k - d_p)
+            err_k7b = max(err_k7b, float(err.max()),
+                          float(torch.abs(Hk - Hp).max()))
+            n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(dim=1).sum())
+            e_k, bnd = dir_err(d_k[run], d_p[run], d_64[run])
+            rel_k7[1] = max(rel_k7[1], float((e_k / bnd).max()))
+            ok = (torch.equal(hk, hp) and torch.equal(lk, lp)
+                  and torch.equal(sc_k[:, [0, 3, 4]], sc_p[:, [0, 3, 4]])
+                  and bool(torch.all(torch.abs(Hk - Hp)
+                                     <= 1e-6 * torch.abs(Hp)))
+                  and bool(torch.all(torch.abs(sc_k[:, 1] - sc_p[:, 1])
+                                     <= 1e-6 * torch.abs(sc_p[:, 1])))
+                  and bool(torch.all(torch.abs(sc_k[:, 2] - sc_p[:, 2])
+                                     <= 1e-5 * torch.abs(sc_p[:, 2])))
+                  and bool(torch.all(e_k <= bnd))
+                  and torch.equal(d_k[~run], d_p[~run]))
+            check(ok, f"K7b disagrees with its plain version at m={m}, "
+                  f"(head, hlen) in {batch}: good/head/hlen "
+                  f"{sc_k[:, [0, 3, 4]].tolist()} vs "
+                  f"{sc_p[:, [0, 3, 4]].tolist()}")
+            if B > 2:
+                check(torch.equal(Hk[2], H[2]) and int(hk[2]) == int(hd[2])
+                      and int(lk[2]) == int(hl[2]),
+                      "K7b touched a member whose loop had ended")
+            if B > 3:
+                check(float(sc_k[3, 0]) == 0.0, "K7b took a flat pair")
+            Hk2, hk2, lk2 = H.clone(), hd.clone(), hl.clone()
+            d_k2, sc_k2 = kdir.fused_step_kernel(Hk2, *vecs, hk2, lk2,
+                                                 ls_ok, run)
+            check(torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
+                  and torch.equal(Hk, Hk2),
+                  "K7b repeated launch is not bit-identical")
+            n_pairs += B
+    print(f"K7a/K7b f32 vs plain at n={n}, m=5 and 7, {n_pairs} (head, "
+          f"hlen) cases: max abs err K7a {err_k7a:.3e}, K7b {err_k7b:.3e}; "
+          f"error / bound, relative to max|d|, K7a {rel_k7[0]:.3f}, K7b "
+          f"{rel_k7[1]:.3f} (bound: 2e-5, or twice the plain f32 version's "
+          f"own error against f64, at most 7.2e-5); {n_el} of the "
+          f"{2 * n_pairs} directions past the elementwise 2e-6 + "
+          f"2e-5|d|; good/head/hlen exact, "
+          f"ended member untouched, repeats bit-identical")
+    m = 5
+    H = histories(m, [(2, m)] * MAIN["B"])
+    hd, hl = i32([2] * MAIN["B"]), i32([m] * MAIN["B"])
+    g = f32(rng.normal(size=(MAIN["B"], n)))
+    ms_k7a = events_ms(lambda: kdir.compact_dir_kernel(g, H, hd, hl))
+    ms_p7a = events_ms(lambda: kdir.compact_dir_reference(g, H, hd, hl),
+                       n=200)
+    x_old = f32(rng.normal(size=(MAIN["B"], n)))
+    x_new = x_old + f32(0.1 * rng.normal(size=(MAIN["B"], n)))
+    g_new = g + f32(0.1 * rng.normal(size=(MAIN["B"], n)))
+    ones = torch.ones(MAIN["B"], dtype=torch.bool, device=dev)
+    Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
+    ms_k7b = events_ms(lambda: kdir.fused_step_kernel(
+        Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones))
+    Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
+    ms_p7b = events_ms(lambda: kdir.fused_step_reference(
+        Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones), n=200)
+    b7a = dir_work(MAIN["B"], n, m)
+    b7b = step_work(MAIN["B"], n, m, MAIN["B"])
+    bound_k7a, bound_k7b = bound_of(*b7a), bound_of(*b7b)
+    print(f"K7a f32 (B=4, n={n}, m=5, full history): {ms_k7a:.5f} ms a "
+          f"launch, plain {ms_p7a:.5f} ms (CUDA events); bound "
+          f"{bound_k7a[0]:.3e} ms ({bound_k7a[1]}: {b7a[0]} bytes, "
+          f"{b7a[1]} operations)")
+    print(f"K7b f32 (the same, every pair taken): {ms_k7b:.5f} ms a launch,"
+          f" plain {ms_p7b:.5f} ms; bound {bound_k7b[0]:.3e} ms "
+          f"({bound_k7b[1]}: {b7b[0]} bytes, {b7b[1]} operations)")
+    phase("10 K7a/K7b vs plain", t0)
+
+    # ---- 11. the fused generic loop on the main path --------------------
+    t0 = time.perf_counter()
+    opts_f = LBFGSOptions(m=5, maxiter=500, maxls=20, pgtol=1e-4, ftol=1e-6)
+    check(kdir.dir_supported(xp0, opts_f.m),
+          "direction='auto' would not take the kernels on the main path")
+    ladder_f = make_ensemble_ladder(
+        action, parts, np.arange(MAIN["n_beta"]), np.float32(rf0),
+        MAIN["alpha"], opts=opts_f, store_paths=False, device=dev)
+    ag.LAUNCHES = kdir.STEP_LAUNCHES = kdir.DIR_LAUNCHES = 0
+    t_lad = time.perf_counter()
+    res_f = ladder_f(xp0)
+    torch.cuda.synchronize()
+    wall_fused = time.perf_counter() - t_lad
+    launch_f = dict(k1=ag.LAUNCHES, k7b=kdir.STEP_LAUNCHES,
+                    k7a=kdir.DIR_LAUNCHES)
+    niter_f = res_f.niter.cpu().numpy()
+    nfev_f = res_f.nfev.cpu().numpy()
+    loop_iters = int(niter_f.max(axis=0).sum())
+    loop_iters5 = int(res.niter.cpu().numpy().max(axis=0).sum())
+    lockstep_f = int(nfev_f.max(axis=0).sum())
+    t_tail = time.perf_counter()
+    tail_f = run_ladder(act64, parts64a, res_f.XP.double(),
+                        np.arange(MAIN["n_beta"] - MAIN["tail"],
+                                  MAIN["n_beta"]), rf0, MAIN["alpha"],
+                        opts=opts64, store_paths=False, device=dev)
+    torch.cuda.synchronize()
+    wall_tail_f = time.perf_counter() - t_tail
+    A_tf = tail_f.A.cpu().numpy()
+    fa_f = float(A_tf[0, -1])
+    rel_f = abs(fa_f - JAX_FINAL_A_TAIL64) / JAX_FINAL_A_TAIL64
+    print(f"fused loop f32 ladder: {MAIN['n_beta']} rungs x {MAIN['B']} "
+          f"members in {wall_fused:.2f} s; loop iterations {loop_iters}; "
+          f"total nfev {int(nfev_f.sum())}, per-rung max over members "
+          f"summed {lockstep_f}; launches {launch_f}; statuses per code "
+          f"0..3 {np.bincount(res_f.status.cpu().numpy().ravel(), minlength=4).tolist()}")
+    print(f"fused loop vs phase 5's compact loop (same inputs, this card): "
+          f"{1e3 * wall_fused / loop_iters:.3f} vs "
+          f"{1e3 * wall_f32 / loop_iters5:.3f} ms a loop iteration, "
+          f"{1e3 * wall_fused / lockstep_f:.3f} vs "
+          f"{1e3 * wall_f32 / lockstep_nfev:.3f} ms a K1 launch "
+          f"({loop_iters} vs {loop_iters5} iterations)")
+    print(f"fused loop f64 tail: {MAIN['tail']} rungs in {wall_tail_f:.2f} "
+          f"s; final_A_tail64 member 0 {fa_f:.6f} vs JAX "
+          f"{JAX_FINAL_A_TAIL64:.6f} (rel {rel_f:.3e}, bound 1e-2); "
+          "members " + ", ".join(f"{a:.6f}" for a in A_tf[:, -1]))
+    check(launch_f["k7b"] == loop_iters > 0,
+          f"K7b launches {launch_f['k7b']} != loop iterations {loop_iters}")
+    check(launch_f["k7a"] == 0, "the fused loop launched K7a")
+    check(launch_f["k1"] >= lockstep_f, "the fused loop skipped K1")
+    check(bool(torch.isfinite(res_f.A).all())
+          and bool(np.isfinite(A_tf).all()), "fused loop: non-finite A")
+    check(rel_f <= 1e-2, f"fused loop: final_A_tail64 {fa_f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        start = os.path.join(tmp, "rung59.pt")
+        torch.save(res.paths[:, 59].contiguous().cpu(), start)
+        child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--profile-loops", start],
+                               capture_output=True, text=True, timeout=600,
+                               cwd=ROOT)
+    check(child.returncode == 0, "the loop profile failed:\n" + child.stdout
+          + child.stderr)
+    pl = json.loads(child.stdout.strip().splitlines()[-1])
+    for nm, r in pl.items():
+        print(f"profiled (child process), rung 60, 50 iterations, "
+              f"direction={nm}: {r['niter']} iterations, {r['nfev']} "
+              f"evaluations of the slowest member; wall "
+              f"{r['wall_us'] / 1e3:.1f} ms ({r['wall_us'] / 1e3 / r['niter']:.3f} "
+              f"ms an iteration), device busy {r['busy_us'] / 1e3:.2f} ms "
+              f"({100 * r['busy_us'] / r['wall_us']:.1f} %), K1 "
+              f"{r['k1_us'] / 1e3:.2f} ms, K7b {r['k7b_us'] / 1e3:.3f} ms; "
+              f"{r['kernels']} device kernels")
+    check(pl["auto"]["k7b_us"] > 0, "torch.profiler recorded no K7b time")
+    phase("11 fused generic loop", t0)
+
+    # ---- 12. K2's bounded branch vs its plain version --------------------
+    t0 = time.perf_counter()
+    lo64, hi64 = (torch.tensor(b, device=dev)
+                  for b in build_bounds(spec, BOX_TEST, np.float64))
+    lo32, hi32 = lo64.float(), hi64.float()
+    err_k2b = 0.0
+    at_bound = 0
+    for beta in betas_s:
+        rf = rung_rf(rf0, MAIN["alpha"], beta, torch.float64)
+        rk = solve.solve_kernel(Z64, rf, c64m, opts_s, lo64, hi64)
+        torch.cuda.synchronize()
+        rp = solve.solve_reference(Z64, rf, c64m, opts_s, lo64, hi64)
+        scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
+        rel = float(torch.max(torch.abs(rk.x - rp.x) / scale))
+        err_k2b = max(err_k2b, float(torch.max(torch.abs(rk.x - rp.x))))
+        feas = bool(((rk.x >= lo64) & (rk.x <= hi64)).all())
+        n_at = int(((rk.x == lo64) | (rk.x == hi64)).sum())
+        print(f"K2 bounded f64 short solve beta={beta}: niter "
+              f"{rk.niter.tolist()} / plain {rp.niter.tolist()}; nfev "
+              f"{rk.nfev.tolist()} / {rp.nfev.tolist()}; status "
+              f"{rk.status.tolist()} / {rp.status.tolist()}; x rel err "
+              f"{rel:.3e} (bound 1e-8); feasible {feas}, {n_at} components "
+              f"at a bound")
+        check(all(torch.equal(u, v) for u, v in
+                  zip((rk.niter, rk.nfev, rk.status),
+                      (rp.niter, rp.nfev, rp.status))),
+              f"K2 bounded f64 counts differ at beta={beta}")
+        at_bound += n_at
+        check(rel <= 1e-8 and feas,
+              f"K2 bounded f64 disagrees or is infeasible at beta={beta}")
+        rk2 = solve.solve_kernel(Z64, rf, c64m, opts_s, lo64, hi64)
+        check(all(torch.equal(u, v) for u, v in zip(rk, rk2)),
+              "K2 bounded repeated launch is not bit-identical")
+    check(at_bound > 0, "no bounded solve ended with a component at a bound")
+    # The f32 bounded short solve is decided by rounding: a component at a
+    # bound is frozen or free on the sign of its gradient, so two correct
+    # f32 solves part after a few iterations (both lie up to ~4e-2 from
+    # the f64 solve of the same problem), and more so than unbounded ones.
+    # The kernel is held on phase 3's draws at β 0/50/100 to identical
+    # counts and f within F32_BOUNDED_F_TOL, a fixed limit set from
+    # readings printed here: the plain version's card-vs-CPU spread (the
+    # same arithmetic summed in another order) over six draws and five
+    # rungs, and the kernel's distance from the plain version. On the
+    # other draws the kernel is read, not held to that limit, and held
+    # to be no farther from the f64 solve than twice the plain version.
+    lo_c, hi_c = lo32.cpu(), hi32.cpu()
+    ms_k2b, ms_p2b, work_k2b = [], [], [0, 0]
+    rd = dict(cc=0.0, kp=0.0, kp_main=0.0, k64=0.0, p64=0.0, n=0,
+              counts_differ=0)
+    for seed in range(6):
+        Zs = Z32 if seed == 0 else torch.tensor(
+            member_draws(spec, tw, seed), dtype=torch.float32, device=dev)
+        for beta in (0, 25, 50, 75, 100):
+            rf = rung_rf(np.float32(rf0), MAIN["alpha"], beta, torch.float32)
+            rk = solve.solve_kernel(Zs, rf, c32, opts_s, lo32, hi32)
+            torch.cuda.synchronize()
+            t_p = time.perf_counter()
+            rp = solve.solve_reference(Zs, rf, c32, opts_s, lo32, hi32)
+            torch.cuda.synchronize()
+            t_p = (time.perf_counter() - t_p) * 1e3
+            rc = solve.solve_reference(Zs.cpu(), rf, c32_cpu, opts_s, lo_c,
+                                       hi_c)
+            r64 = solve.solve_reference(
+                Zs.double(), rung_rf(rf0, MAIN["alpha"], beta,
+                                     torch.float64), c64m, opts_s, lo64,
+                hi64)
+            cc = float(torch.max(torch.abs(rp.f.cpu() - rc.f)
+                                 / torch.abs(rc.f)))
+            rel = float(torch.max(torch.abs(rk.f - rp.f) / torch.abs(rp.f)))
+            same = all(torch.equal(u, v) for u, v in
+                       zip((rk.niter, rk.nfev, rk.status),
+                           (rp.niter, rp.nfev, rp.status)))
+            check(all(torch.equal(u.cpu(), v) for u, v in
+                      zip((rp.niter, rp.nfev, rp.status),
+                          (rc.niter, rc.nfev, rc.status))),
+                  f"f32 bounded plain solve on the card and on the CPU "
+                  f"differ in counts at seed {seed}, beta={beta}")
+            check(bool(((rk.x >= lo32) & (rk.x <= hi32)).all()),
+                  f"K2 bounded f32 infeasible at seed {seed}, beta={beta}")
+            rd["cc"], rd["kp"] = max(rd["cc"], cc), max(rd["kp"], rel)
+            rd["k64"] = max(rd["k64"], float(torch.max(
+                torch.abs(rk.f.double() - r64.f) / torch.abs(r64.f))))
+            rd["p64"] = max(rd["p64"], float(torch.max(
+                torch.abs(rp.f.double() - r64.f) / torch.abs(r64.f))))
+            rd["n"] += 1
+            rd["counts_differ"] += int(not same)
+            if seed > 0 or beta not in betas_s:
+                continue
+            rd["kp_main"] = max(rd["kp_main"], rel)
+            print(f"K2 bounded f32 short solve beta={beta}: f rel err "
+                  f"{rel:.3e} (bound {F32_BOUNDED_F_TOL:g}), plain on the "
+                  f"card vs on the CPU {cc:.3e}; niter {rk.niter.tolist()} "
+                  f"/ plain {rp.niter.tolist()}; nfev {rk.nfev.tolist()} / "
+                  f"{rp.nfev.tolist()}; status {rk.status.tolist()} / "
+                  f"{rp.status.tolist()}")
+            check(rel <= F32_BOUNDED_F_TOL and same,
+                  f"K2 bounded f32 disagrees with its plain version at "
+                  f"beta={beta}")
+            ms_p2b.append(t_p)
+            ms_k2b.append(events_ms(lambda: solve.solve_kernel(
+                Zs, rf, c32, opts_s, lo32, hi32), n=5))
+            work_k2b[0] += int(rk.nfev.sum())
+            work_k2b[1] += int(rk.niter.sum())
+    print(f"K2 bounded f32 readings over 6 draws x 5 rungs (β 0/25/50/75/"
+          f"100): plain card vs CPU f up to {rd['cc']:.3e}; kernel vs plain "
+          f"f up to {rd['kp']:.3e} (phase 3's draws at β 0/50/100: "
+          f"{rd['kp_main']:.3e}); counts differ in {rd['counts_differ']} of "
+          f"{rd['n']} batches; f from the f64 solve up to {rd['k64']:.3e} "
+          f"(kernel) and {rd['p64']:.3e} (plain)")
+    check(rd["k64"] <= 2.0 * rd["p64"],
+          "K2 bounded f32 lies farther from the f64 solve than twice the "
+          "plain version")
+    ms_k2b = float(np.mean(ms_k2b))
+    ms_p2b = float(np.mean(ms_p2b))
+    bound_k2b = solve_bound(spec, torch.float32, MAIN["B"], len(betas_s),
+                            work_k2b[0], work_k2b[1], opts_s.m, rungs=1)
+    print(f"K2 bounded f32 (B=4, maxiter 30, one rung a launch): "
+          f"{ms_k2b:.4f} ms a launch (CUDA events), plain {ms_p2b:.4f} ms; "
+          f"bound {bound_k2b[0]:.3e} ms ({bound_k2b[1]}: {bound_k2b[2]} "
+          f"bytes, {bound_k2b[3]} operations per launch)")
+
+    def plain_bounded(XP, rf):
+        return solve.solve_reference(XP, rf, c64m, opts_t, lo64, hi64)
+
+    lo_np, hi_np = (b.cpu().numpy() for b in (lo64, hi64))
+    runs = {}
+    for nm, kw in (
+            ("K2 via the hook", dict(rung_solver=solve.make_rung_solver(
+                spec, opts_t, lower=lo_np, upper=hi_np, device=dev))),
+            ("plain", dict(rung_solver=plain_bounded)),
+            ("generic projection loop", dict(lower=lo_np, upper=hi_np))):
+        t_l = time.perf_counter()
+        runs[nm] = make_ensemble_ladder(
+            act64k, parts64, np.arange(10), float(tw["RM"]), MAIN["alpha"],
+            opts=opts_t, store_paths=True, device=dev, **kw)(xp4)
+        torch.cuda.synchronize()
+        r = runs[nm]
+        print(f"f64 bounded 10-rung ladder ({MAIN['B']} members) through "
+              f"{nm}: {time.perf_counter() - t_l:.2f} s, statuses per code "
+              f"0..3 {np.bincount(r.status.cpu().numpy().ravel(), minlength=4).tolist()}, "
+              f"niter {int(r.niter.sum())}")
+        check(bool(((r.paths >= lo64) & (r.paths <= hi64)).all()),
+              f"bounded ladder through {nm}: infeasible path")
+    ok_pl = runs["plain"].status.cpu().numpy() <= 1
+    A_pl = runs["plain"].A.cpu().numpy()
+    for nm in ("K2 via the hook", "generic projection loop"):
+        both = ok_pl & (runs[nm].status.cpu().numpy() <= 1)
+        rel = np.abs(runs[nm].A.cpu().numpy() - A_pl) / np.abs(A_pl)
+        print(f"f64 bounded 10-rung ladder {nm} vs plain: mutually "
+              f"converged rungs {int(both.sum())}/{both.size}; max rel A "
+              f"difference {rel[both].max():.3e} (bound 1e-8)")
+        check(both.mean() >= 0.8, f"{nm}: too few converged rungs")
+        check(np.all(rel[both] <= 1e-8),
+              f"f64 bounded ladder through {nm} disagrees: {rel}")
+    phase("12 K2 bounded vs plain", t0)
+
+    # ---- 13. the facade on the card ---------------------------------------
+    t0 = time.perf_counter()
+    from varanneal_tpu_torch.models import lorenz96
+    X0q = random_ensemble_inits(spec, 1, seed=3)[0, : spec.n_state].reshape(
+        spec.N_f, spec.D)
+    quick = dict(P0=np.array([4.0]), alpha=MAIN["alpha"], RM=tw["RM"],
+                 RF0=4e-6 * tw["RM"], Lidx=list(tw["Lidx"]), Pidx=[0],
+                 disc="trapezoid", bounds=BOX_FACADE,
+                 opt_args=dict(maxiter=500, maxcor=5, maxls=20, gtol=1e-4,
+                               ftol=1e-6), dtype=torch.float32)
+    lo_f, hi_f = build_bounds(spec, BOX_FACADE, np.float32)
+
+    def counts():
+        return dict(k1=ag.LAUNCHES, k2=solve.RUNG_LAUNCHES,
+                    k3=solve.LADDER_LAUNCHES, k7a=kdir.DIR_LAUNCHES,
+                    k7b=kdir.STEP_LAUNCHES)
+
+    facade = {}
+    for label, solver_name, betas_q in (
+            ("auto", "auto", np.arange(MAIN["n_beta"])),
+            ("generic", "generic", np.arange(20)),
+            ("auto, 20 rungs", "auto", np.arange(20))):
+        ann = Annealer(device=dev)
+        ann.set_model(lorenz96, MAIN["D"])
+        ann.set_data(tw["Y"], t=tw["t"])
+        ag.LAUNCHES = solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
+        kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
+        t_a = time.perf_counter()
+        ann.anneal(X0q, beta_array=betas_q, solver=solver_name, **quick)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t_a
+        cnt = counts()
+        paths_q = ann.minpaths
+        n_at = int(((paths_q == lo_f) | (paths_q == hi_f)).sum())
+        print(f"facade {label}: {len(betas_q)} rungs in "
+              f"{wall_a:.2f} s; launches {cnt}; total nfev "
+              f"{int(ann.nfev_array.sum())}, niter "
+              f"{int(ann.niter_array.sum())}; exit flags per code 0..2 "
+              f"{np.bincount(ann.exitflags, minlength=3).tolist()}; "
+              f"{n_at} path entries at a bound; final A "
+              f"{float(ann.A_array[-1]):.6f}, F {float(ann.minpaths_P[-1, 0]):.4f}")
+        check(ann.A_array.shape == (len(betas_q),)
+              and ann.minpaths.shape == (len(betas_q), spec.n_dof)
+              and ann.A_array.dtype == np.float32,
+              f"facade {label}: record shapes")
+        check(set(np.unique(ann.exitflags).tolist()) <= {0, 1, 2},
+              f"facade {label}: exit flags {ann.exitflags}")
+        check(bool(np.all((paths_q >= lo_f) & (paths_q <= hi_f))),
+              f"facade {label}: infeasible path")
+        check(n_at > 0, f"facade {label}: no component at a bound")
+        check(bool(np.isfinite(ann.A_array).all()),
+              f"facade {label}: non-finite A")
+        facade[label] = (ann, cnt, wall_a)
+    cnt = facade["auto"][1]
+    check(cnt["k2"] == MAIN["n_beta"] and cnt["k7a"] == 0
+          and cnt["k7b"] == 0 and cnt["k1"] == 0 and cnt["k3"] == 0,
+          f"solver='auto' did not run through K2 alone: {cnt}")
+    cnt = facade["generic"][1]
+    check(cnt["k7a"] > 0 and cnt["k7b"] == 0 and cnt["k2"] == 0,
+          f"solver='generic' did not run the projection loop through K7a: "
+          f"{cnt}")
+    check(facade["auto, 20 rungs"][1]["k2"] == 20,
+          "solver='auto' on 20 rungs did not take K2")
+    w_k2, w_gen = facade["auto, 20 rungs"][2], facade["generic"][2]
+    print(f"facade, the first 20 rungs, bounded, f32, one init: K2 "
+          f"{w_k2:.3f} s, generic projection loop {w_gen:.3f} s "
+          f"({w_gen / w_k2:.1f}x)")
+    # the low rungs barely move; rungs 60..69 from the facade's rung-59
+    # minimizer are where the solves work: the facade's two paths there,
+    # as anneal runs them (its action, options, bounds and rung values)
+    from varanneal_tpu_torch.kernels.fe import select_action
+    from varanneal_tpu_torch.api import make_lbfgs_options
+    act_q, parts_q = select_action(spec, 0.0, dtype=torch.float32,
+                                   device=dev)
+    opts_q = make_lbfgs_options(quick["opt_args"], np.float32)
+    xp59 = torch.tensor(facade["auto"][0].minpaths[59], device=dev)
+    mid = {}
+    for nm, kw in (("K2", dict(rung_solver=solve.make_rung_solver(
+            spec, opts_q, lower=lo_f, upper=hi_f, device=dev))),
+                   ("generic projection loop", {})):
+        kdir.DIR_LAUNCHES = solve.RUNG_LAUNCHES = 0
+        t_m = time.perf_counter()
+        r = run_ladder(act_q, parts_q, xp59, np.arange(60, 70),
+                       np.float32(4e-6 * tw["RM"]), MAIN["alpha"],
+                       lower=lo_f, upper=hi_f, opts=opts_q,
+                       store_paths=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        mid[nm] = (time.perf_counter() - t_m, r)
+        print(f"rungs 60..69 from the facade's rung-59 minimizer through "
+              f"{nm}: {mid[nm][0]:.3f} s, niter {int(r.niter.sum())}, nfev "
+              f"{int(r.nfev.sum())}, K2 launches {solve.RUNG_LAUNCHES}, "
+              f"K7a launches {kdir.DIR_LAUNCHES}; A at rung 69 "
+              f"{float(r.A[-1]):.6f}")
+    print(f"K2 against the generic loop, rungs 60..69: "
+          f"{mid['generic projection loop'][0] / mid['K2'][0]:.1f}x")
+    ann = facade["auto"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        shapes = {}
+        for nm in ("paths", "params", "action_errors"):
+            for ext in (".npy", ".dat"):
+                f = os.path.join(tmp, nm + ext)
+                getattr(ann, "save_" + nm)(f)
+                shapes[nm + ext] = (np.load(f) if ext == ".npy"
+                                    else np.loadtxt(f)).shape
+    print(f"facade files: {shapes}")
+    check(shapes["paths.npy"] == (MAIN["n_beta"], spec.N_f, spec.D + 1)
+          and shapes["params.npy"] == (MAIN["n_beta"], 1)
+          and shapes["action_errors.dat"] == (MAIN["n_beta"], 4),
+          f"facade file shapes {shapes}")
+    phase("13 facade", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
     src_solve = "varanneal_tpu_torch/kernels/csrc/solve_kernel.cu"
+    src_dir = "varanneal_tpu_torch/kernels/csrc/dir_kernel.cu"
     print(json.dumps({"kernels": [dict(
         name="l96_ag_trap",
         source="varanneal_tpu_torch/kernels/csrc/ag_kernel.cu",
@@ -742,13 +1375,26 @@ def main():
              replaces="varanneal_tpu/kernels/solve_pallas.py:676",
              launches=paths["fused"][1]["rung"], max_abs_err=err_k2,
              ms=ms_k2, plain_ms=ms_p2, bound_ms=bound_k2[0],
-             bound_by=bound_k2[1], **line),
+             bound_by=bound_k2[1], bounded_launches=facade["auto"][1]["k2"],
+             bounded_max_abs_err=err_k2b, bounded_ms=ms_k2b,
+             bounded_plain_ms=ms_p2b, bounded_bound_ms=bound_k2b[0],
+             bounded_bound_by=bound_k2b[1], **line),
         dict(name="l96_ladder", source=src_solve,
              replaces="varanneal_tpu/kernels/solve_pallas.py:951",
              launches=paths["ladder"][1]["ladder"], max_abs_err=err_k3,
              ms=ms_k3, plain_ms=ms_p3, bound_ms=bound_k3[0],
              bound_by=bound_k3[1], main_ms=pk["ms"],
-             main_bound_ms=bound_main[0], **line)]}))
+             main_bound_ms=bound_main[0], **line),
+        dict(name="compact_dir", source=src_dir,
+             replaces="varanneal_tpu/kernels/dir_pallas.py:172",
+             launches=facade["generic"][1]["k7a"], max_abs_err=err_k7a,
+             ms=ms_k7a, plain_ms=ms_p7a, bound_ms=bound_k7a[0],
+             bound_by=bound_k7a[1], **line),
+        dict(name="fused_step", source=src_dir,
+             replaces="varanneal_tpu/kernels/dir_pallas.py:184",
+             launches=launch_f["k7b"], max_abs_err=err_k7b, ms=ms_k7b,
+             plain_ms=ms_p7b, bound_ms=bound_k7b[0],
+             bound_by=bound_k7b[1], **line)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -759,4 +1405,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--profile-k3"]:
         sys.path.insert(0, ROOT)
         sys.exit(profile_k3())
+    if sys.argv[1:2] == ["--profile-loops"] and len(sys.argv) == 3:
+        sys.path.insert(0, ROOT)
+        sys.exit(profile_loops(sys.argv[2]))
     sys.exit(main())

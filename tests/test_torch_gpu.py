@@ -1,12 +1,16 @@
-"""K1, K2 and K3 on the card. K1, the nvcc-built CUDA kernel
+"""K1, K2, K3, K7a and K7b on the card. K1, the nvcc-built CUDA kernel
 (kernels/csrc/ag_kernel.cu), against its plain PyTorch version at the
 main path's shape (Lorenz-96 D=20, N=161, L=8, B=4), f64 to 1e-12 and
 f32 to 2e-5 relative (the card sums in another order than the plain
 version); its launch count, its autograd Function, and a short f64
 ladder through it. K2 and K3 (kernels/csrc/solve_kernel.cu) against
 their plain versions in f64: the same niter, nfev and status on short
-solves, the same actions over a short ladder, and bit-identical repeats.
-Run on a machine with a card:
+solves, the same actions over a short ladder, and bit-identical repeats;
+K2's bounded branch likewise, and feasible. K7a and K7b
+(kernels/csrc/dir_kernel.cu) against their plain versions at the main
+shape (n = 3,221, m = 5) at every (head, hlen), within the bounds of
+tests/test_dir_pallas.py, with repeats bit-identical and an ended member
+left untouched. Run on a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
@@ -22,7 +26,9 @@ import pytest
 import torch
 
 from varanneal_tpu_torch.anneal.ladder import rung_rf
+from varanneal_tpu_torch.api import build_bounds
 from varanneal_tpu_torch.kernels import ag, solve
+from varanneal_tpu_torch.kernels import dir as kdir
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec, pack
 from varanneal_tpu_torch.opt import LBFGSOptions
@@ -169,3 +175,118 @@ def test_ladder_kernel_matches_plain(cuda):
     xk2, rk2 = lad(xp0, rfs)
     assert torch.equal(xk, xk2)
     assert all(torch.equal(rk[k], rk2[k]) for k in rk)
+
+
+def test_bounded_rung_solve_kernel_matches_plain(cuda):
+    """K2's bounded branch in f64 on short solves (maxiter 30) in the box
+    states (-6, 6), F (3, 6) at three rungs: identical niter, nfev and
+    status, x to 1e-8 relative, every x feasible and some component at a
+    bound; a second launch gives the same bits."""
+    spec, tw = _main_spec()
+    c = ag.ag_consts(spec, cuda, torch.float64)
+    Z = torch.tensor(_draw(spec, tw, 4), device=cuda)
+    lo, hi = (torch.tensor(b, device=cuda) for b in build_bounds(
+        spec, [(-6.0, 6.0)] * 20 + [(3.0, 6.0)], np.float64))
+    opts = LBFGSOptions(maxiter=30, m=5, pgtol=1e-4, ftol=1e-6)
+    for beta in (0, 50, 100):
+        rf = rung_rf(4e-6 * tw["RM"], 1.5, beta, torch.float64)
+        rk = solve.solve_kernel(Z, rf, c, opts, lo, hi)
+        torch.cuda.synchronize()
+        rp = solve.solve_reference(Z, rf, c, opts, lo, hi)
+        for k in ("niter", "nfev", "status"):
+            assert torch.equal(getattr(rk, k), getattr(rp, k)), k
+        scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
+        assert torch.all(torch.abs(rk.x - rp.x) <= 1e-8 * scale)
+        assert bool(((rk.x >= lo) & (rk.x <= hi)).all())
+        assert bool(((rk.x == lo) | (rk.x == hi)).any())
+        r2 = solve.solve_kernel(Z, rf, c, opts, lo, hi)
+        assert all(torch.equal(u, v) for u, v in zip(rk, r2))
+
+
+def _histories(rng, m, pairs, n, dev):
+    H = np.zeros((len(pairs), 2 * m, n), np.float32)
+    for b, (head, hlen) in enumerate(pairs):
+        for j in range(hlen):
+            slot = (head - hlen + j) % m
+            s = rng.normal(size=n)
+            H[b, slot], H[b, m + slot] = s, rng.normal(size=n) * 0.3 + s
+    return torch.tensor(H, device=dev)
+
+
+def _dir_close(d_k, d_p, d_64):
+    """Each member's direction within 2e-5 of its max|d|
+    (tests/test_dir_pallas.py's bound for the step kernel) or, where
+    larger, twice the plain f32 version's own error against f64 on the
+    same inputs, capped at 7.2e-5: at n = 3,221 and m = 7 that error
+    reaches 3.5e-5 of max|d|, and tests/test_torch_dir.py holds it under
+    3.6e-5 over 40 seeded batches on the CPU."""
+    s_p = torch.amax(torch.abs(d_p), dim=1).double()
+    e_k = torch.amax(torch.abs(d_k - d_p), dim=1).double() / s_p
+    w = torch.amax(torch.abs(d_p.double() - d_64), dim=1) / torch.amax(
+        torch.abs(d_64), dim=1)
+    return bool(torch.all(e_k <= torch.clamp(2.0 * w, min=2e-5,
+                                             max=7.2e-5)))
+
+
+@pytest.mark.parametrize("m", [5, 7])
+def test_dir_kernels_match_plain(cuda, m):
+    """K7a and K7b at n = 3,221 for every (head, hlen) of an m-history,
+    four members a launch, inputs from a seeded NumPy generator: the
+    direction as _dir_close says, history rows and max|g| rtol 1e-6, Σ|g|
+    rtol 1e-5, good/head/hlen exact; repeats bit-identical; a member with
+    run = 0 left as it was."""
+    n = 3221
+    rng = np.random.default_rng(m)
+    pairs = [(h, l) for h in range(m) for l in range(m + 1)]
+    for i in range(0, len(pairs), 4):
+        batch = pairs[i:i + 4]
+        B = len(batch)
+        H = _histories(rng, m, batch, n, cuda)
+        hd = torch.tensor([p[0] for p in batch], dtype=torch.int32,
+                          device=cuda)
+        hl = torch.tensor([p[1] for p in batch], dtype=torch.int32,
+                          device=cuda)
+        g = torch.tensor(rng.normal(size=(B, n)), dtype=torch.float32,
+                         device=cuda)
+        d_k = kdir.compact_dir_kernel(g, H, hd, hl)
+        torch.cuda.synchronize()
+        d_p = kdir.compact_dir_reference(g, H, hd, hl)
+        d_64 = kdir.compact_dir_reference(g.double(), H.double(), hd, hl)
+        assert _dir_close(d_k, d_p, d_64)
+        assert torch.equal(d_k, kdir.compact_dir_kernel(g, H, hd, hl))
+
+        x_old, g_old, dx, dg = (
+            torch.tensor(rng.normal(size=(B, n)), dtype=torch.float32,
+                         device=cuda) for _ in range(4))
+        x_new = x_old + 0.1 * dx
+        g_new = g_old + 0.1 * dg
+        ls_ok = torch.tensor([True, False, True, True][:B], device=cuda)
+        run = torch.tensor([True, True, False, True][:B], device=cuda)
+        args = (x_old, x_new, g_old, g_new)
+        Hk, hk, lk = H.clone(), hd.clone(), hl.clone()
+        Hp, hp, lp = H.clone(), hd.clone(), hl.clone()
+        d_k, sc_k = kdir.fused_step_kernel(Hk, *args, hk, lk, ls_ok, run)
+        torch.cuda.synchronize()
+        d_p, sc_p = kdir.fused_step_reference(Hp, *args, hp, lp, ls_ok,
+                                              run)
+        d_64, _ = kdir.fused_step_reference(
+            H.double(), *(a.double() for a in args), hd.clone(), hl.clone(),
+            ls_ok, run)
+        assert torch.equal(hk, hp) and torch.equal(lk, lp)
+        assert torch.equal(sc_k[:, [0, 3, 4]], sc_p[:, [0, 3, 4]])
+        assert torch.all(torch.abs(Hk - Hp) <= 1e-6 * torch.abs(Hp))
+        torch.testing.assert_close(sc_k[:, 1], sc_p[:, 1], rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(sc_k[:, 2], sc_p[:, 2], rtol=1e-5,
+                                   atol=0)
+        assert _dir_close(d_k[run], d_p[run], d_64[run])
+        assert torch.equal(d_k[~run], d_p[~run])
+        if B > 2:                      # member 2 has ended: untouched
+            assert torch.equal(Hk[2], H[2])
+            assert (int(hk[2]), int(lk[2])) == (int(hd[2]), int(hl[2]))
+        Hk2, hk2, lk2 = H.clone(), hd.clone(), hl.clone()
+        d_k2, sc_k2 = kdir.fused_step_kernel(Hk2, *args, hk2, lk2, ls_ok,
+                                             run)
+        assert torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
+        assert torch.equal(Hk, Hk2)
+

@@ -27,6 +27,10 @@ def test_import_leaves_jax_out():
             "import varanneal_tpu_torch.kernels.ag\n"
             "import varanneal_tpu_torch.kernels._build\n"
             "import varanneal_tpu_torch.kernels.solve\n"
+            "import varanneal_tpu_torch.kernels.dir\n"
+            "import varanneal_tpu_torch.kernels.fe\n"
+            "import varanneal_tpu_torch.api, varanneal_tpu_torch.io\n"
+            "import varanneal_tpu_torch.va_ode\n"
             "import varanneal_tpu_torch.bench\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"

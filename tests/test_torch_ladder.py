@@ -3,7 +3,9 @@ parallel/ensemble.make_ensemble_ladder) against the JAX ladder and the
 SciPy L-BFGS-B oracle ladder, in f64: the action at every mutually
 converged rung to 1e-8 relative (the pattern of
 tests/test_ladder_integration.py). The fused-kernel action (on the CPU, its
-plain version) drives the same ladder to the same actions."""
+plain version) drives the same ladder to the same actions. The rung values
+equal the JAX ladder's exactly, and a bounded ladder with rf caps and
+floors matches the JAX one."""
 
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from varanneal_tpu.ops import make_action as make_action_jax
 from varanneal_tpu.opt import LBFGSOptions as OptsJax
 
 from varanneal_tpu_torch.anneal import run_ladder
+from varanneal_tpu_torch.anneal.ladder import rung_rf
+from varanneal_tpu_torch.api import build_bounds
 from varanneal_tpu_torch.kernels.ag import make_action_ag
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec, make_action, value_and_grad
@@ -25,6 +29,8 @@ from varanneal_tpu_torch.opt import LBFGSOptions
 from varanneal_tpu_torch.parallel import make_ensemble_ladder
 from tests.oracle import scipy_ladder
 from tests.test_ladder_integration import make_twin
+from tests.test_torch_bounded import L96_BOX, _l96_problem
+from varanneal_tpu_torch.twin import lorenz96_twin
 
 BETAS = np.arange(6)
 ALPHA, RF0 = 1.9, 1e-3
@@ -107,3 +113,50 @@ def test_ag_action_drives_the_same_ladder(problem):
     assert res.A.shape == (len(BETAS),) and res.paths is None
     _assert_converged_match(res.A.numpy(), res.status.numpy(),
                             lad.A[1].numpy(), lad.status[1].numpy() <= 1)
+
+
+@pytest.mark.parametrize("dtype,tdtype", [(jnp.float32, torch.float32),
+                                          (jnp.float64, torch.float64)])
+def test_rung_rf_matches_xla(dtype, tdtype):
+    """rung_rf equals the JAX expression rf0 · α^β exactly (==) at every β
+    of the bench's ladder, 0..100, at the bench's rf0 = f32(4e-6·RM)."""
+    rf0 = np.float32(4e-6 * lorenz96_twin(D=20, N_data=161, n_obs=8)["RM"])
+    ref = np.asarray(jnp.asarray(rf0, dtype) * jnp.asarray(1.5, dtype)
+                     ** jnp.arange(101, dtype=dtype), np.float64)
+    got = np.array([rung_rf(rf0, 1.5, b, tdtype) for b in range(101)])
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_bounded_ladder_rf_caps_matches_jax():
+    """A bounded f64 ladder (β 0..4, rf0 1e-2, α 1.9) with a per-component
+    rf cap and floor, through the port's ladder and JAX run_ladder
+    (generic projection loop, each with its own action): the action at
+    every mutually converged rung to 1e-8 relative, 5e-8 at the flat β = 0
+    rung (tests/test_ladder_integration.py's rule); every path
+    feasible."""
+    spec_j, spec_t, X0 = _l96_problem()
+    lo, hi = build_bounds(spec_t, L96_BOX, np.float64)
+    N1, D = spec_t.N_f - 1, spec_t.D
+    rf_max = np.full((N1, D), np.inf)
+    rf_max[:, 2] = 0.03          # caps component 2 from β = 2
+    rf_min = np.zeros((N1, D))
+    rf_min[:, 4] = 0.05          # floors component 4 up to β = 2
+    kw = dict(maxiter=20000, pgtol=1e-10, ftol=float(np.finfo(float).eps))
+    betas = np.arange(5)
+    act_j, parts_j = make_action_jax(spec_j)
+    rj = jax.jit(jax.vmap(lambda z: run_ladder_jax(
+        act_j, parts_j, z, betas, 1e-2, 1.9, lower=jnp.asarray(lo),
+        upper=jnp.asarray(hi), opts=OptsJax(**kw), rf_max=rf_max,
+        rf_min=rf_min)))(jnp.asarray(X0[1:2]))
+    act, parts = make_action(spec_t, device="cpu")
+    rt = run_ladder(act, parts, torch.tensor(X0[1:2]), betas, 1e-2, 1.9,
+                    lower=lo, upper=hi, opts=LBFGSOptions(**kw),
+                    rf_max=rf_max, rf_min=rf_min, device="cpu")
+    A, A_j = rt.A.numpy(), np.asarray(rj.A)
+    both = (rt.status.numpy() <= 1) & (np.asarray(rj.status) <= 1)
+    assert both.mean() >= 0.8
+    rel = np.abs(A - A_j) / np.abs(A_j)
+    tol = np.broadcast_to(np.where(betas == 0, 5e-8, 1e-8), A.shape)
+    assert np.all(rel[both] <= tol[both]), rel
+    paths = rt.paths.numpy()
+    assert np.all(paths >= lo) and np.all(paths <= hi)

@@ -123,10 +123,17 @@ def test_ended_members_stay_frozen():
 
 
 def test_waiting_paths_raise():
+    """The subspace L-BFGS-B (opt/lbfgsb.py) waits for a later slice: with
+    bounds, bounded_algo='subspace' raises; an unknown direction or
+    bounded_algo is refused."""
     x0 = torch.zeros(2, 3, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lbfgs_minimize(_rosen_vag_torch, x0, lower=-torch.ones(3),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                       device="cpu",
+                       opts=LBFGSOptions(bounded_algo="subspace"))
+    with pytest.raises(ValueError):
         lbfgs_minimize(_rosen_vag_torch, x0, device="cpu",
-                       opts=LBFGSOptions(direction="compact_pallas"))
+                       opts=LBFGSOptions(direction="qr"))
+    with pytest.raises(ValueError):
+        lbfgs_minimize(_rosen_vag_torch, x0, device="cpu",
+                       opts=LBFGSOptions(bounded_algo="box"))

@@ -171,13 +171,13 @@ def test_envelope(problem):
     assert solve.solve_supported(st, 1.0, opts)
     assert solve.solve_supported(st, 1.0, opts, dtype=torch.float64)
     assert solve.ladder_supported(st, 1.0, opts, n_rungs=101)
-    assert not solve.solve_supported(st, 1.0, opts, bounded=True)
     assert not solve.solve_supported(st, np.ones((st.N_f, st.D)), opts)
     assert not solve.solve_supported(st, 1.0, LBFGSOptions(m=17))
     assert not solve.ladder_supported(st, 1.0, opts, n_rungs=0)
     lo = np.full(st.n_dof, -10.0)
-    with pytest.raises(NotImplementedError):
-        solve.make_rung_solver(st, opts, lower=lo, device="cpu")
+    assert callable(solve.make_rung_solver(st, opts, lower=lo, device="cpu"))
+    with pytest.raises(ValueError):            # bounds not (n_dof,)
+        solve.make_rung_solver(st, opts, lower=lo[:-1], device="cpu")
     with pytest.raises(ValueError):
         solve.make_rung_solver(st, LBFGSOptions(m=17), device="cpu")
     s = solve.make_rung_solver(st, opts, device="cpu")
@@ -211,9 +211,31 @@ def test_bench_main_cpu(capsys, extra):
     assert tuple(run.res.A.shape) == (1, 3)
 
 
-@pytest.mark.parametrize("knob", [dict(BENCH_ENGINE="pallas"),
-                                  dict(BENCH_PACK="2"),
-                                  dict(BENCH_INNER="lm")])
-def test_bench_waiting_paths_raise(knob):
-    with pytest.raises(NotImplementedError):
-        bench.main(device="cpu", env=dict(BENCH_NBETA="1", **knob))
+@pytest.mark.parametrize("knob,raises", [
+    (dict(BENCH_ENGINE="pallas", BENCH_SOLVER="xla"), True),
+    (dict(BENCH_PACK="2", BENCH_NINIT="2"), True),
+    (dict(BENCH_INNER="lm", BENCH_SOLVER="xla"), True),
+    (dict(BENCH_ENGINE="pallas", BENCH_SOLVER="fused"), True),
+    (dict(BENCH_ENGINE="pallas", BENCH_PACK="2"), True),
+    (dict(BENCH_PACK="2", BENCH_NINIT="2", BENCH_SOLVER="fused"), True),
+    (dict(BENCH_ENGINE="pallas"), False),
+    (dict(BENCH_INNER="lm"), False),
+    (dict(BENCH_INNER="lm", BENCH_SOLVER="fused"), False),
+    (dict(BENCH_PACK="2"), False),
+    (dict(BENCH_PACK="2", BENCH_NINIT="2", BENCH_SOLVER="xla"), False)])
+def test_bench_waiting_paths_raise(knob, raises):
+    """A knob raises only where bench.py would take a path the port does
+    not have yet (K6, K8, opt/lm); elsewhere bench.py ignores it, and so
+    does the port. BENCH_PACK>1 with one init moves a ladder run onto K2
+    per rung, as in bench.py."""
+    env = dict(BENCH_NBETA="1", BENCH_MAXITER="5", BENCH_TAIL64="0",
+               **knob)
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bench.main(device="cpu", env=env)
+        return
+    from varanneal_tpu_torch import bench as b
+    run = b.main(device="cpu", env=env)
+    assert np.isfinite(run.out["value"])
+    n_init = int(knob.get("BENCH_NINIT", "1"))
+    assert tuple(run.res.A.shape) == (n_init, 1)

@@ -16,4 +16,6 @@ plain PyTorch path. ROADMAP.md lists what is ported and what waits.
 __version__ = "0.1.0"
 
 from varanneal_tpu_torch import models, ops, opt, anneal, parallel  # noqa: F401
+from varanneal_tpu_torch import io, va_ode  # noqa: F401
+from varanneal_tpu_torch.api import Annealer  # noqa: F401
 from varanneal_tpu_torch.twin import lorenz96_twin  # noqa: F401

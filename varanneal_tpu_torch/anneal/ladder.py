@@ -9,11 +9,14 @@ PyTorch runs eagerly, so here they are a loop whose carry is the batch of
 decision vectors.
 
 ``rung_solver`` replaces the inner minimizer, as in the JAX ladder (the
-whole-rung kernel K2, ``kernels.solve.make_rung_solver``). ``rf_max``/
-``rf_min``, ``aggregate_repeats`` and the other inner solvers wait for
-later slices (ROADMAP.md).
+whole-rung kernel K2, ``kernels.solve.make_rung_solver``). Box bounds
+run the bounded L-BFGS (``opt.lbfgs``, projection algorithm), and
+``rf_max``/``rf_min`` cap and floor each rung's precision.
+``aggregate_repeats``, ``LadderResult.snapshot`` and the other inner
+solvers wait for later slices (ROADMAP.md).
 """
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -36,21 +39,29 @@ class LadderResult(NamedTuple):
     paths: Optional[torch.Tensor]   # (B, Nbeta, n_dof) if stored
 
 
-def rung_rf(rf0, alpha, beta, dtype):
-    """RF0·α^β computed on the host in ``dtype``, as the JAX ladder
-    computes it from ``dtype`` operands. Returns a Python float for a
-    scalar RF0, else a float64 NumPy array rounded to ``dtype``."""
+def rung_rf(rf0, alpha, beta, dtype, rf_min=None, rf_max=None):
+    """RF(β) = min(max(RF0·α^β, rf_min), rf_max) in ``dtype`` on the host,
+    the cap applied last. α^β is computed in double precision and rounded
+    to ``dtype`` before the product, which gives the values XLA's
+    ``rf0 * alpha ** beta`` gives on ``dtype`` operands on the CPU (the
+    JAX ladder, ``varanneal_tpu/anneal/ladder.py``): held equal at every
+    β of the bench's 0..100 in f32 and f64 by
+    ``tests/test_torch_ladder.py``. Returns a Python float for a scalar
+    result, else a float64 NumPy array of ``dtype``-rounded values."""
     np_dt = np.float32 if dtype == torch.float32 else np.float64
-    rf = (np.asarray(rf0, np_dt)
-          * np.asarray(alpha, np_dt) ** np.asarray(beta, np_dt))
+    rf = np.asarray(rf0, np_dt) * np_dt(math.pow(float(alpha), float(beta)))
+    if rf_min is not None:
+        rf = np.maximum(rf, np.asarray(rf_min, np_dt))
+    if rf_max is not None:
+        rf = np.minimum(rf, np.asarray(rf_max, np_dt))
     rf = np.asarray(rf, np_dt)
     return float(rf) if rf.ndim == 0 else rf.astype(np.float64)
 
 
 def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
                lower=None, upper=None, opts: Optional[LBFGSOptions] = None,
-               store_paths: bool = True, rung_solver=None,
-               device=None) -> LadderResult:
+               store_paths: bool = True, rf_max=None, rf_min=None,
+               rung_solver=None, device=None) -> LadderResult:
     """Run the annealing ladder from the initial decision vectors ``XP0``
     ((B, n_dof), or (n_dof,) for one member, whose records then drop the
     batch axis). ``action`` is batched (``ops.action.make_action`` or
@@ -59,13 +70,13 @@ def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
     single launch serves every evaluation. ``rung_solver``: optional
     ``solve(XP, rf) -> LBFGSResult`` replacing the inner minimizer
     entirely (``kernels.solve.make_rung_solver``: one launch per rung);
-    the records still come from ``action_parts`` at its minimizer.
+    the records still come from ``action_parts`` at its minimizer (a
+    bounded rung solver carries its own bounds). ``lower``/``upper``: flat
+    (n_dof,) box bounds (``api.build_bounds``), ±inf for a free side.
+    ``rf_max``/``rf_min``: per-component cap and floor on RF(β), shaped
+    like ``rf0`` or broadcastable against it (see :func:`rung_rf`).
     ``device=None`` means the CUDA card."""
     opts = opts or LBFGSOptions()
-    if lower is not None or upper is not None:
-        raise NotImplementedError(
-            "bounded ladders wait for a later slice of the port; see "
-            "ROADMAP.md")
     device = resolve_device(device)
     XP = torch.as_tensor(XP0).to(device)
     one = XP.ndim == 1
@@ -75,14 +86,15 @@ def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
     recs = {k: [] for k in ("A", "ME", "FE", "status", "niter", "nfev",
                             "pgnorm", "paths")}
     for beta in np.asarray(betas).reshape(-1):
-        rf = rung_rf(rf0, alpha, beta, XP.dtype)
+        rf = rung_rf(rf0, alpha, beta, XP.dtype, rf_min=rf_min,
+                     rf_max=rf_max)
         rf_t = rf if isinstance(rf, float) else torch.as_tensor(
             rf, device=device).to(XP.dtype)
         if rung_solver is not None:
             res = rung_solver(XP, rf_t)
         else:
-            res = lbfgs_minimize(lambda z: vag(z, rf_t), XP, opts=opts,
-                                 device=device)
+            res = lbfgs_minimize(lambda z: vag(z, rf_t), XP, lower=lower,
+                                 upper=upper, opts=opts, device=device)
         XP = res.x
         with torch.no_grad():
             A, me, fe = action_parts(XP, rf_t)

@@ -1,0 +1,371 @@
+"""Annealer facade — the reference-compatible public surface, on the card.
+
+Counterpart of ``varanneal_tpu/api.py`` (``make_lbfgs_options``,
+``build_bounds``, ``Annealer``: set_model / set_data / set_data_fromfile
+/ anneal / minpaths_X / minpaths_P / save_paths / save_params /
+save_action_errors), with the same kwarg vocabulary, the same records
+and the same files. ``anneal`` runs the ladder (``anneal.run_ladder``)
+with the rung solver that ``kernels.solve.pick_rung_solver`` picks: with
+the default ``method='L-BFGS-B'`` and ``solver='auto'`` on the card,
+the whole-rung kernel K2 (bounded or not) inside its envelope, else the
+generic L-BFGS loop over the action of ``kernels.fe.select_action``.
+
+The device is the constructor's: ``Annealer(device=None)`` means the
+CUDA card and raises without one; ``Annealer(device="cpu")`` runs the
+plain PyTorch path, where ``solver='auto'`` takes the generic loop, as
+the JAX facade does off the TPU. ``anneal``'s signature stays the
+reference's.
+
+What waits for later slices (ROADMAP.md) raises NotImplementedError
+naming its item: ``method`` LM/GN/TNC/CG/NCG (§1 item 6),
+``checkpoint_path=``, ``repeats > 1`` and ``snapshot_beta=``
+(``anneal/checkpoint.py``, §1 item 4), ``compensated=True`` (K4, §1 item
+3), ``engine='pallas'`` (K6) and ``bounded_algo='subspace'`` with bounds
+(``opt/lbfgsb.py``, §1 item 1).
+
+Exit flags are mapped to SciPy-like codes: 0 converged (pgtol or ftol),
+1 maxiter exhausted, 2 line-search failure.
+"""
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from varanneal_tpu_torch import io as vio
+from varanneal_tpu_torch._device import resolve_device
+from varanneal_tpu_torch.anneal.ladder import run_ladder
+from varanneal_tpu_torch.kernels.fe import select_action
+from varanneal_tpu_torch.kernels.solve import pick_rung_solver
+from varanneal_tpu_torch.ops.action import pack
+from varanneal_tpu_torch.ops.spec import (_insert_midpoints, _interp_grid,
+                                          build_spec, canonical_R)
+from varanneal_tpu_torch.opt.lbfgs import LBFGSOptions
+
+_STATUS_TO_SCIPY = np.array([0, 0, 1, 2])  # CONV_GRAD/CONV_FTOL/MAXITER/LS_FAIL
+
+
+def _np_dtype(dtype):
+    """float32 or float64 as NumPy's dtype, from a torch or NumPy dtype."""
+    if isinstance(dtype, torch.dtype):
+        dtype = {torch.float32: np.float32,
+                 torch.float64: np.float64}.get(dtype)
+        if dtype is None:
+            raise ValueError("dtype must be float32 or float64")
+    dtype = np.dtype(dtype)
+    if dtype not in (np.float32, np.float64):
+        raise ValueError("dtype must be float32 or float64")
+    return dtype
+
+
+def _waits(what, item):
+    return NotImplementedError(
+        f"{what} waits for a later slice of the port; see ROADMAP.md, "
+        f"'Modules still to port', {item}")
+
+
+def make_lbfgs_options(opt_args: Optional[dict],
+                       dtype=np.float64) -> LBFGSOptions:
+    """Map a reference-style ``opt_args`` dict (SciPy minimize options) onto
+    LBFGSOptions. Accepts maxiter, maxcor/m, maxls, gtol/pgtol, ftol, factr,
+    direction and bounded_algo.
+
+    When running in float32, the f64-calibrated default tolerances are
+    unresolvable (the solver would stop on round-off immediately), so
+    unspecified ftol/pgtol get f32 floors (1e-6 / 1e-4).
+    """
+    opt_args = dict(opt_args or {})
+    kw = {}
+    if _np_dtype(dtype) == np.float32:
+        kw["ftol"] = 1e-6
+        kw["pgtol"] = 1e-4
+    if "maxiter" in opt_args:
+        kw["maxiter"] = int(opt_args.pop("maxiter"))
+    if "maxcor" in opt_args:
+        kw["m"] = int(opt_args.pop("maxcor"))
+    if "m" in opt_args:
+        kw["m"] = int(opt_args.pop("m"))
+    if "maxls" in opt_args:
+        kw["maxls"] = int(opt_args.pop("maxls"))
+    if "gtol" in opt_args:
+        kw["pgtol"] = float(opt_args.pop("gtol"))
+    if "pgtol" in opt_args:
+        kw["pgtol"] = float(opt_args.pop("pgtol"))
+    if "factr" in opt_args:
+        kw["ftol"] = float(opt_args.pop("factr")) * np.finfo(np.float64).eps
+    if "ftol" in opt_args:
+        kw["ftol"] = float(opt_args.pop("ftol"))
+    if "direction" in opt_args:
+        kw["direction"] = str(opt_args.pop("direction"))
+    if "bounded_algo" in opt_args:
+        kw["bounded_algo"] = str(opt_args.pop("bounded_algo"))
+    opt_args.pop("maxfun", None)   # accepted, unused (nfev tracked per solve)
+    opt_args.pop("disp", None)
+    if opt_args:
+        raise ValueError(f"unsupported opt_args: {sorted(opt_args)}")
+    return LBFGSOptions(**kw)
+
+
+def build_bounds(spec, bounds, dtype):
+    """Replicate per-variable bounds over every time index (reference bounds
+    semantics, SURVEY.md §2): ``bounds`` is a list of D (lo, hi) pairs for
+    the state variables followed by NPest pairs for the estimated
+    parameters, None for a free side. Returns flat (lower, upper) NumPy
+    arrays, ±inf where free, or (None, None)."""
+    if bounds is None:
+        return None, None
+    dtype = _np_dtype(dtype)
+    bounds = list(bounds)
+    if len(bounds) != spec.D + spec.NPest:
+        raise ValueError(
+            f"bounds must have D + NPest = {spec.D + spec.NPest} entries, "
+            f"got {len(bounds)}")
+    inf = np.inf
+    lo = np.array([(-inf if b[0] is None else b[0]) for b in bounds], dtype)
+    hi = np.array([(inf if b[1] is None else b[1]) for b in bounds], dtype)
+    lower = np.tile(lo[: spec.D], spec.N_f)
+    upper = np.tile(hi[: spec.D], spec.N_f)
+    if spec.NPest:
+        rep = spec.N_f if spec.time_dep_p else 1
+        lower = np.concatenate([lower, np.tile(lo[spec.D:], rep)])
+        upper = np.concatenate([upper, np.tile(hi[spec.D:], rep)])
+    return lower, upper
+
+
+class Annealer:
+    """Variational annealing driver for ODE problems (reference-compatible).
+
+    Usage matches the reference::
+
+        ann = Annealer()                        # device=None: the card
+        ann.set_model(f, D)
+        ann.set_data(data, t=t)                 # data: (N, L) observations
+        ann.anneal(X0, P0, alpha, beta_array, RM, RF0, Lidx, Pidx, ...)
+        ann.save_paths("paths.npy")
+    """
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self.f = None
+        self.D = None
+        self.data = None
+        self.t_data = None
+        self.stim = None
+        self.annealing_run = False
+
+    # ------------------------------------------------------------------
+    def set_model(self, f, D):
+        """Store the vector field f(t, x, p) (a PyTorch function, vectorized
+        over time, as ``varanneal_tpu_torch.models``' are) and the state
+        dimension D."""
+        self.f = f
+        self.D = int(D)
+
+    def set_data(self, data, stim=None, t=None, nstart=0, N=None):
+        """Window and store the observation series.
+
+        ``data``: (N_total, L) observed values; ``t``: (N_total,) times
+        (required); ``stim``: optional (N_total,) or (N_total, S) stimulus;
+        ``nstart``/``N``: window selection (reference semantics)."""
+        data = np.asarray(data, dtype=np.float64)
+        if data.ndim == 1:
+            data = data[:, None]
+        if t is None:
+            raise ValueError("set_data requires t (time array)")
+        t = np.asarray(t, dtype=np.float64)
+        N = data.shape[0] - nstart if N is None else int(N)
+        sl = slice(nstart, nstart + N)
+        self.data = data[sl]
+        self.t_data = t[sl]
+        if stim is not None:
+            stim = np.asarray(stim, dtype=np.float64)
+            if stim.ndim == 1:
+                stim = stim[:, None]
+            self.stim = stim[sl]
+        else:
+            self.stim = None
+
+    def set_data_fromfile(self, data_file, stim_file=None, nstart=0, N=None):
+        """Load data from file; column 0 is time, remaining columns are the
+        observed variables (reference convention [M])."""
+        raw = vio.load_data(data_file)
+        stim = None
+        if stim_file is not None:
+            sraw = vio.load_data(stim_file)
+            stim = sraw[:, 1:] if sraw.ndim == 2 else sraw
+        self.set_data(raw[:, 1:], stim=stim, t=raw[:, 0], nstart=nstart, N=N)
+
+    # ------------------------------------------------------------------
+    def anneal(self, X0, P0, alpha, beta_array, RM, RF0, Lidx, Pidx=None,
+               dt_model=None, init_to_data=True, action="A_gaussian",
+               disc="trapezoid", method="L-BFGS-B", bounds=None,
+               opt_args=None, adolcID=0, dtype=None, track_paths=True,
+               verbose=False, checkpoint_path=None, checkpoint_every=10,
+               resume=True, R_time_dependent=None, engine="auto",
+               repeats=1, snapshot_beta=None, checkpoint_meta=None,
+               compensated=False, RF_max=None, RF_min=None,
+               solver="auto"):
+        """Run the full precision-annealing ladder.
+
+        The reference's signature (``varanneal_tpu/api.py ::
+        Annealer.anneal``), on this Annealer's device. ``dtype``: float32
+        or float64 (torch or NumPy); None means
+        ``torch.get_default_dtype()``. ``engine``: 'auto', 'xla', 'ag' (see
+        ``kernels.fe.select_action``). ``RF_max``/``RF_min``: per-component
+        cap and floor on RF(β) = max(min(RF0·α^β, RF_max), RF_min), the
+        same shapes as RF0. ``solver``: 'auto' (the whole-rung kernel K2
+        where ``kernels.solve.solve_preferred`` holds, else the generic
+        loop), 'generic' or 'fused' (K2 wherever ``solve_supported`` holds,
+        else a warning and the generic loop). The kwargs of the module
+        docstring's list raise NotImplementedError; ``checkpoint_every``,
+        ``resume`` and ``checkpoint_meta`` only act with
+        ``checkpoint_path``."""
+        if self.f is None or self.data is None:
+            raise RuntimeError("call set_model and set_data before anneal")
+        if action != "A_gaussian":
+            raise ValueError("only action='A_gaussian' is supported")
+        if method not in ("L-BFGS-B", "LBFGS", "LM", "GN", "CG", "NCG",
+                          "TNC"):
+            raise ValueError(f"unsupported method {method!r}")
+        if method not in ("L-BFGS-B", "LBFGS"):
+            raise _waits(f"method={method!r} (opt/lm, opt/tnc, opt/ncg)",
+                         "item 6")
+        if checkpoint_path is not None:
+            raise _waits("checkpoint_path= (anneal/checkpoint.py)", "item 4")
+        if int(repeats) > 1:
+            raise _waits("repeats > 1 (anneal/checkpoint.py)", "item 4")
+        if snapshot_beta is not None:
+            raise _waits("snapshot_beta= (anneal/checkpoint.py)", "item 4")
+        if compensated:
+            raise _waits("compensated=True (ops.action.comp_sum and K4)",
+                         "item 3")
+        del adolcID, checkpoint_every, resume, checkpoint_meta
+        dtype = _np_dtype(torch.get_default_dtype() if dtype is None
+                          else dtype)
+        tdtype = torch.float32 if dtype == np.float32 else torch.float64
+        device = self.device
+
+        P0 = np.asarray(P0, dtype=np.float64)
+        spec = build_spec(
+            self.f, self.D, self.data, self.t_data, Lidx, RM, disc=disc,
+            P=P0, pidx=Pidx, stim=self.stim, dt_model=dt_model,
+            R_time_dependent=R_time_dependent)
+        self.spec = spec
+
+        # ---- initial path on the model grid --------------------------
+        X0 = np.array(X0, dtype=np.float64, copy=True)
+        nskip = spec.obs_stride if disc != "SimpsonHermite" else (
+            spec.obs_stride // 2)
+        N_base = (spec.N_data - 1) * nskip + 1
+        if X0.shape == (spec.N_data, spec.D) and N_base != spec.N_data:
+            X0 = _interp_grid(X0, N_base)
+        if X0.shape != (N_base, spec.D):
+            raise ValueError(
+                f"X0 must have shape ({spec.N_data},{spec.D}) or "
+                f"({N_base},{spec.D}), got {X0.shape}")
+        if init_to_data:
+            X0[::nskip, np.asarray(spec.Lidx)] = spec.Y
+        if disc == "SimpsonHermite":
+            X0 = _insert_midpoints(X0)
+
+        XP0 = np.asarray(pack(spec, X0), dtype=dtype)
+
+        def canon(R, name):
+            return canonical_R(R, spec.N_f - 1, spec.D, name,
+                               time_dependent=R_time_dependent).astype(dtype)
+
+        rf0 = canon(RF0, "RF0")
+        rf_max = None if RF_max is None else canon(RF_max, "RF_max")
+        rf_min = None if RF_min is None else canon(RF_min, "RF_min")
+        lower, upper = build_bounds(spec, bounds, dtype)
+        opt_args = dict(opt_args or {})
+        opt_args.pop("cg_iters", None)     # the LM/TNC inner-CG depth
+        opts = make_lbfgs_options(opt_args, dtype)
+        betas = np.asarray(beta_array, dtype=dtype)
+
+        act, parts = select_action(spec, rf0, engine=engine, dtype=tdtype,
+                                   device=device)
+        # the kernel takes a scalar rf: gate on the shape the rungs' rf
+        # takes once the caps and floors are applied
+        rf_shape = np.broadcast(*(r for r in (rf0, rf_max, rf_min)
+                                  if r is not None))
+        rf_gate = rf0 if rf_shape.ndim == 0 else np.zeros(rf_shape.shape)
+        rung_solver = pick_rung_solver(
+            spec, rf_gate, opts, solver=solver, lower=lower, upper=upper,
+            dtype=tdtype, compensated=compensated, engine=engine,
+            method=method, device=device)
+
+        t0 = time.time()
+        res = run_ladder(act, parts, torch.as_tensor(XP0, device=device),
+                         betas, rf0, float(alpha), lower=lower, upper=upper,
+                         opts=opts, store_paths=track_paths, rf_max=rf_max,
+                         rf_min=rf_min, rung_solver=rung_solver,
+                         device=device)
+        res = type(res)(*(None if v is None else v.detach().cpu().numpy()
+                          for v in res))
+        t1 = time.time()
+        if verbose:
+            tot_nfev = int(res.nfev.sum())
+            print(f"[varanneal_tpu_torch] ladder of {len(betas)} beta "
+                  f"steps: {t1 - t0:.3f} s wall (incl. kernel builds on "
+                  f"first use), {tot_nfev} action+grad evals")
+
+        # ---- store results (reference attribute names) ----------------
+        self.beta_array = np.asarray(beta_array)
+        self.alpha = float(alpha)
+        self.A_array = res.A
+        self.me_array = res.ME
+        self.fe_array = res.FE
+        self.exitflags = _STATUS_TO_SCIPY[res.status]
+        self.niter_array = res.niter
+        self.nfev_array = res.nfev
+        self.pgnorm_array = res.pgnorm
+        self.XP_final = res.XP
+        self.XP_snapshot = None
+        if track_paths:
+            self.minpaths = res.paths
+        else:
+            self.minpaths = res.XP[None, :]
+        self.annealing_run = True
+        self.anneal_wall_s = t1 - t0
+        return res
+
+    # ------------------------------------------------------------------
+    def _check_run(self):
+        if not self.annealing_run:
+            raise RuntimeError("run anneal() first")
+
+    @property
+    def minpaths_X(self):
+        self._check_run()
+        spec = self.spec
+        return self.minpaths[:, : spec.n_state].reshape(
+            -1, spec.N_f, spec.D)
+
+    @property
+    def minpaths_P(self):
+        self._check_run()
+        spec = self.spec
+        if not spec.NPest:
+            return np.zeros((self.minpaths.shape[0], 0))
+        pest = self.minpaths[:, spec.n_state:]
+        if spec.time_dep_p:
+            return pest.reshape(-1, spec.N_f, spec.NPest)
+        return pest
+
+    def save_paths(self, filename):
+        self._check_run()
+        return vio.save_paths(filename, self.minpaths_X,
+                              np.asarray(self.spec.t_f))
+
+    def save_params(self, filename):
+        self._check_run()
+        return vio.save_params(filename, self.minpaths_P,
+                               np.asarray(self.spec.t_f))
+
+    def save_action_errors(self, filename):
+        self._check_run()
+        return vio.save_action_errors(
+            filename, self.beta_array, self.A_array, self.me_array,
+            self.fe_array)

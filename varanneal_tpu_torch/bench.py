@@ -23,17 +23,23 @@ Env knobs, as bench.py's where the port has the path:
   ladder's ``rung_solver`` hook; ``xla`` the generic batched L-BFGS loop
   over the action of ``BENCH_ENGINE``;
 - ``BENCH_ENGINE=auto|ag|xla`` (``ag``: K1; ``xla``: the autograd
-  action; ``auto``: the autograd action, which the reference's
-  ``select_action`` picks at D=20), ``BENCH_DTYPE=f32|f64``,
-  ``BENCH_NINIT`` (default 1), ``BENCH_NBETA`` (101), ``BENCH_MAXITER``
-  (500), ``BENCH_DIRECTION`` (auto), ``BENCH_M`` (5), ``BENCH_MAXLS``
-  (20), ``BENCH_TAIL64`` (20).
+  action; ``auto``: ``kernels.fe.select_action``'s policy, the autograd
+  action at D=20), ``BENCH_DTYPE=f32|f64``, ``BENCH_NINIT`` (default 1),
+  ``BENCH_NBETA`` (101), ``BENCH_MAXITER`` (500), ``BENCH_DIRECTION``
+  (auto), ``BENCH_M`` (5), ``BENCH_MAXLS`` (20), ``BENCH_TAIL64`` (20);
+- ``BENCH_PACK=k``: as in bench.py, k > 1 with ``BENCH_NINIT > 1`` takes
+  the packed-member kernel under ``fused``/``ladder``; with one init a
+  ``ladder`` run then goes through K2 per rung instead of K3.
 
-``BENCH_ENGINE=pallas``, ``BENCH_PACK>1`` and ``BENCH_INNER=lm`` wait for
-the ports of K6, K8 and ``opt/lm`` (ROADMAP.md) and raise
-NotImplementedError. bench.py's CPU fallback has no counterpart: without
-a card the run fails and exits non-zero. ``main(device="cpu")`` runs the
-plain versions on the CPU, for tests.
+Where bench.py would take a path the port does not have yet, the run
+raises NotImplementedError (ROADMAP.md): ``BENCH_ENGINE=pallas`` (K6)
+when the action is evaluated (``xla`` and ``fused``, and ``ladder`` when
+it runs per rung), ``BENCH_PACK>1`` with ``BENCH_NINIT>1`` under
+``fused``/``ladder`` (K8), ``BENCH_INNER=lm`` under ``xla`` (``opt/lm``);
+elsewhere bench.py ignores these knobs and so does the port. bench.py's
+CPU fallback has no counterpart: without a card the run fails and exits
+non-zero. ``main(device="cpu")`` runs the plain versions on the CPU, for
+tests.
 """
 
 import json
@@ -50,8 +56,9 @@ from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.anneal import run_ladder
 from varanneal_tpu_torch.anneal.ladder import rung_rf
 from varanneal_tpu_torch.kernels import ag, solve
+from varanneal_tpu_torch.kernels.fe import select_action
 from varanneal_tpu_torch.models import lorenz96
-from varanneal_tpu_torch.ops import build_spec, make_action
+from varanneal_tpu_torch.ops import build_spec
 from varanneal_tpu_torch.opt import LBFGSOptions
 from varanneal_tpu_torch.parallel import (make_ensemble_ladder,
                                           random_ensemble_inits)
@@ -94,21 +101,23 @@ def main(device=None, env=None):
     n_beta = int(env.get("BENCH_NBETA", "101"))
     maxiter = int(env.get("BENCH_MAXITER", "500"))
     engine = env.get("BENCH_ENGINE", "auto")
+    if env.get("BENCH_PALLAS") == "1":
+        engine = "pallas"
     bench_solver = env.get("BENCH_SOLVER", "ladder")
-    if engine == "pallas" or env.get("BENCH_PALLAS") == "1":
-        raise _waits("BENCH_ENGINE=pallas (the time-blocked FE kernels, K6)")
-    if int(env.get("BENCH_PACK", "1")) > 1:
-        raise _waits("BENCH_PACK>1 (the packed-member solve kernel, K8)")
-    if env.get("BENCH_INNER", "lbfgs") == "lm":
-        raise _waits("BENCH_INNER=lm (opt/lm)")
-    if engine not in ("auto", "ag", "xla"):
+    if engine not in ("auto", "ag", "xla", "pallas"):
         raise ValueError(f"unknown BENCH_ENGINE {engine!r}")
-    if engine == "auto":
-        # the reference's select_action takes K1 only from D >= 256
-        # (ag_preferred); the bench's D is 20
-        engine = "xla"
     if bench_solver not in ("ladder", "fused", "xla"):
         raise ValueError(f"unknown BENCH_SOLVER {bench_solver!r}")
+    pack = int(env.get("BENCH_PACK", "1"))
+    if bench_solver in ("ladder", "fused") and pack > 1 and n_init > 1:
+        raise _waits("BENCH_PACK>1 with BENCH_NINIT>1 (the packed-member "
+                     "solve kernel, K8)")
+    if bench_solver == "xla" and env.get("BENCH_INNER", "lbfgs") == "lm":
+        raise _waits("BENCH_INNER=lm (opt/lm)")
+    if bench_solver == "ladder" and pack > 1:
+        bench_solver = "fused"     # bench.py: K2 per rung, not K3
+    if engine == "pallas" and bench_solver != "ladder":
+        raise _waits("BENCH_ENGINE=pallas (the time-blocked FE kernels, K6)")
 
     tw = lorenz96_twin(D=20, N_data=161, n_obs=8)
     spec = build_spec(lorenz96, 20, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
@@ -133,11 +142,8 @@ def main(device=None, env=None):
             xpo, recs = lad(xp, rfs)
             return SimpleNamespace(XP=xpo, **recs)
     else:
-        if engine == "xla":
-            action, parts = make_action(spec, device=device)
-        else:
-            action, parts = ag.make_action_ag(spec, device=device,
-                                              dtype=dtype)
+        action, parts = select_action(spec, float(rf0), engine=engine,
+                                      dtype=dtype, device=device)
         kw = {}
         if bench_solver == "fused":
             if not solve.solve_supported(spec, float(rf0), opts,

@@ -5,12 +5,23 @@
 // Replaces varanneal_tpu/kernels/solve_pallas.py::_solve_kernel (K2,
 // launched by _solve_batched) and ::_ladder_kernel (K3, launched by
 // _ladder_batched), whose shared body _solve_one is transcribed here as
-// solve_one for the unbounded case: the two-loop direction over a
-// circular m-history, the strong-Wolfe bracket/zoom line search with
-// cubic interpolation, the curvature-gated history write and the
-// statuses 0 pgtol, 1 ftol, 2 maxiter, 3 line-search failure. Each
-// evaluation is the block routine l96_ag_block (l96_ag_block.cuh), the
-// body of K1, so the solve computes K1's function.
+// solve_one: the two-loop direction over a circular m-history, the
+// strong-Wolfe bracket/zoom line search with cubic interpolation, the
+// curvature-gated history write and the statuses 0 pgtol, 1 ftol,
+// 2 maxiter, 3 line-search failure. Each evaluation is the block routine
+// l96_ag_block (l96_ag_block.cuh), the body of K1, so the solve computes
+// K1's function.
+//
+// K2's bounded branch (solve_one<T, true>, _solve_one with bnd_vals set:
+// the projection algorithm of opt/lbfgs.py) takes box bounds lo/hi (+-inf
+// for a free side) from global memory, per member or shared: the start
+// projected into the box; components at a bound (within 1e-12, added in
+// T) whose gradient pushes out frozen out of the direction (the two-loop
+// recursion on the masked gradient, the direction masked, -g_free on
+// non-descent); Armijo backtracking along the projected path P(x + a d)
+// against g0·(P(x + a d) - x), halving, nfev = trials, strict decrease,
+// the step rejected on failure; pgtol on the projected gradient
+// x - P(x - g). K3 stays unbounded, as in the JAX package.
 //
 // The port's flat layout: a member's decision vector is its n_dof =
 // N*D (+1 when F is estimated) values, as K1 reads them. The TPU kernel's
@@ -30,8 +41,9 @@
 // allocates: (5 + 2m) * n_dof values, 193 KB in f32 at the main shape
 // (n_dof = 3,221, m = 5), which stays in the 50 MB L2. Shared memory holds
 // only the evaluation's residuals and the reduction partials (K1's
-// layout). Keeping the vectors on chip, or spreading a member over a
-// cluster of blocks, is later work.
+// layout); the bounds too stay in global memory, so the bounded branch
+// needs no more shared memory than the unbounded one. Keeping the vectors
+// on chip, or spreading a member over a cluster of blocks, is later work.
 //
 // What bounds it on the card: per member the solve is a chain of
 // thousands of evaluations and block reductions, each dependent on the
@@ -90,6 +102,27 @@ __device__ __forceinline__ T clip(T x, T lo, T hi) {   // jnp.clip
     return nanmin(nanmax(x, lo), hi);
 }
 
+// Box bounds of one member (n_dof values each), or nullptr when unbounded.
+template <typename T>
+struct Box {
+    const T* lo;
+    const T* hi;
+};
+
+// The projection algorithm's active set: at a bound (within 1e-12, added
+// in T, as _solve_one's eps_b) with the gradient pushing out of the box.
+template <typename T>
+__device__ __forceinline__ bool frozen(T x, T g, T lo, T hi) {
+    const T eps = T(1e-12);
+    return ((x <= lo + eps) && (g > T(0))) || ((x >= hi - eps) && (g < T(0)));
+}
+
+// x - P(x - g), SciPy's projected gradient component.
+template <typename T>
+__device__ __forceinline__ T proj_grad(T x, T g, T lo, T hi) {
+    return x - clip(x - g, lo, hi);
+}
+
 template <typename T>
 struct SolveOpts {
     int m, maxiter, maxls;
@@ -121,6 +154,14 @@ struct Bufs {
     T* S;       // (m, n) steps
     T* Y;       // (m, n) gradient differences
 };
+
+// 1 where entry k of the member's current point is free, 0 where frozen
+// (the mask _solve_one multiplies by).
+template <typename T>
+__device__ __forceinline__ T free_of(const Bufs<T>& w, const Box<T>& bx,
+                                     int k) {
+    return frozen(w.x[k], w.g[k], bx.lo[k], bx.hi[k]) ? T(0) : T(1);
+}
 
 // Block-wide fixed-order reduction of K values: entries [0, first_max)
 // are sums, the rest NaN-propagating maxima. Every thread gets the totals.
@@ -302,15 +343,55 @@ __device__ LineSearch<T> line_search(const L96Problem<T>& p, T rf,
     return r;
 }
 
+// _solve_one.proj_ls: Armijo backtracking along the projected path from
+// w.x along w.d, the trial point P(x + a d) in w.xt and its gradient in
+// w.gt. ok: the last trial decreased f enough (it is then the new
+// point); nfev counts every trial, the first included.
+template <typename T>
+__device__ LineSearch<T> proj_line_search(const L96Problem<T>& p, T rf,
+                                          const SolveOpts<T>& o,
+                                          const Bufs<T>& w, const Box<T>& bx,
+                                          T f0, T me0, T a_init,
+                                          const Smem<T>& sm) {
+    const int n = p.n_dof;
+    T a = a_init;
+    T f_a, me_a, gdx;
+    int i = 0;
+    bool ok = false;
+    do {
+        if (i > 0) a = T(0.5) * a;
+        for (int k = threadIdx.x; k < n; k += kThreads)
+            w.xt[k] = clip(w.x[k] + a * w.d[k], bx.lo[k], bx.hi[k]);
+        evaluate(p, w.xt, rf, w.gt, sm, f_a, me_a);
+        T v[1] = {T(0)};
+        for (int k = threadIdx.x; k < n; k += kThreads)
+            v[0] += w.g[k] * (w.xt[k] - w.x[k]);
+        block_reduce(v, 1, sm.red);
+        gdx = v[0];
+        i += 1;
+        ok = (f_a <= f0 + o.c1 * gdx) && is_finite(f_a) && (f_a < f0);
+    } while (!ok && i < o.maxls);
+    LineSearch<T> r;
+    r.ok = ok;
+    r.nfev = i;
+    r.a = a;
+    r.f = ok ? f_a : f0;
+    r.me = ok ? me_a : me0;
+    return r;
+}
+
 // The two-loop recursion over the circular history, newest to oldest,
 // into d, with the fall back to -g on a non-descent direction. Slots
 // k >= hlen are skipped: _solve_one weights them by valid = 0 and they
-// hold zeros, so they change nothing.
-template <typename T>
-__device__ void direction(const Bufs<T>& w, int n, int m, int head,
-                          int hlen, T* red) {
+// hold zeros, so they change nothing. Bounded: the recursion runs on the
+// masked gradient g_free = g * free, d is masked the same way, and the
+// descent test and the fall back use g_free.
+template <typename T, bool kBounded>
+__device__ void direction(const Bufs<T>& w, const Box<T>& bx, int n, int m,
+                          int head, int hlen, T* red) {
     T* q = w.d;
-    for (int k = threadIdx.x; k < n; k += kThreads) q[k] = w.g[k];
+    for (int k = threadIdx.x; k < n; k += kThreads)
+        q[k] = kBounded ? w.g[k] * free_of(w, bx, k) : w.g[k];
     T alpha[kMaxM], rho[kMaxM];
     T sy_n = T(0), yy_n = T(0);
     for (int j = 0; j < hlen; ++j) {
@@ -345,12 +426,19 @@ __device__ void direction(const Bufs<T>& w, int n, int m, int head,
     }
     T v[1] = {T(0)};
     for (int k = threadIdx.x; k < n; k += kThreads) {
-        q[k] = -q[k];
-        v[0] += q[k] * w.g[k];
+        if (kBounded) {
+            const T fr = free_of(w, bx, k);
+            q[k] = -q[k] * fr;
+            v[0] += q[k] * (w.g[k] * fr);
+        } else {
+            q[k] = -q[k];
+            v[0] += q[k] * w.g[k];
+        }
     }
     block_reduce(v, 1, red);
     if (v[0] >= T(0) || !is_finite(v[0]))
-        for (int k = threadIdx.x; k < n; k += kThreads) w.d[k] = -w.g[k];
+        for (int k = threadIdx.x; k < n; k += kThreads)
+            w.d[k] = kBounded ? -(w.g[k] * free_of(w, bx, k)) : -w.g[k];
 }
 
 template <typename T>
@@ -359,25 +447,37 @@ struct SolveResult {
     int niter, nfev, status;
 };
 
-// _solve_one (solve_pallas.py) for the unbounded case: minimize the
-// action at rf from w.x, leaving the minimizer in w.x and its gradient in
-// w.g (the pointers may swap on the way). A fresh history every call.
-template <typename T>
+// _solve_one (solve_pallas.py): minimize the action at rf from w.x,
+// leaving the minimizer in w.x and its gradient in w.g (the pointers may
+// swap on the way), inside the box bx when kBounded. A fresh history
+// every call.
+template <typename T, bool kBounded>
 __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
                                                  T rf, const SolveOpts<T>& o,
-                                                 Bufs<T>& w,
+                                                 Bufs<T>& w, const Box<T>& bx,
                                                  const Smem<T>& sm) {
     const int n = p.n_dof;
     const int m = o.m;
     SolveResult<T> r;
+    if (kBounded) {                    // a feasible start
+        for (int k = threadIdx.x; k < n; k += kThreads)
+            w.x[k] = clip(w.x[k], bx.lo[k], bx.hi[k]);
+    }
     evaluate(p, w.x, rf, w.g, sm, r.f, r.me);
-    T v0[3] = {T(0), T(0), T(0)};      // sum g^2, sum |g|, max |g|
+    // sum g^2 (unbounded), sum |g|, max |projected g|
+    T v0[3] = {T(0), T(0), T(0)};
     for (int k = threadIdx.x; k < n; k += kThreads) {
         const T gk = w.g[k];
-        w.d[k] = -gk;
-        v0[0] += gk * gk;
+        if (kBounded) {
+            w.d[k] = -gk * free_of(w, bx, k);
+            v0[2] = nanmax(v0[2], fabs(proj_grad(w.x[k], gk, bx.lo[k],
+                                                 bx.hi[k])));
+        } else {
+            w.d[k] = -gk;
+            v0[0] += gk * gk;
+            v0[2] = nanmax(v0[2], fabs(gk));
+        }
         v0[1] += fabs(gk);
-        v0[2] = nanmax(v0[2], fabs(gk));
     }
     block_reduce(v0, 2, sm.red);
     T dphi0 = -v0[0];
@@ -392,8 +492,11 @@ __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
     while (!done && r.niter < o.maxiter) {
         const T a_init = hlen == 0
             ? nanmin(T(1), T(1) / nanmax(gnorm1, T(1e-30))) : T(1);
-        const LineSearch<T> ls = line_search(p, rf, o, w, r.f, r.me, dphi0,
-                                             a_init, sm);
+        const LineSearch<T> ls =
+            kBounded ? proj_line_search(p, rf, o, w, bx, r.f, r.me, a_init,
+                                        sm)
+                     : line_search(p, rf, o, w, r.f, r.me, dphi0, a_init,
+                                   sm);
         // the new point: the trial buffers when a step was taken
         const T* xn = ls.ok ? w.xt : w.x;
         const T* gn = ls.ok ? w.gt : w.g;
@@ -405,7 +508,9 @@ __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
             v[1] += s * s;
             v[2] += y * y;
             v[3] += fabs(gn[k]);
-            v[4] = nanmax(v[4], fabs(gn[k]));
+            v[4] = nanmax(v[4], fabs(kBounded ? proj_grad(xn[k], gn[k],
+                                                          bx.lo[k], bx.hi[k])
+                                              : gn[k]));
         }
         block_reduce(v, 4, sm.red);
         const T sy = v[0];
@@ -441,8 +546,8 @@ __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
         r.niter += 1;
         r.nfev += ls.nfev;
         if (!done && r.niter < o.maxiter) {
-            direction(w, n, m, head, hlen, sm.red);
-            dphi0 = block_dot(w.g, w.d, n, sm.red);
+            direction<T, kBounded>(w, bx, n, m, head, hlen, sm.red);
+            if (!kBounded) dphi0 = block_dot(w.g, w.d, n, sm.red);
         }
     }
     return r;
@@ -463,10 +568,12 @@ __device__ Smem<T> carve_smem(unsigned char* raw, int N, int D) {
 }
 
 // K2: one rung, one block per member. Writes x, g, fp = [f, pgnorm] and
-// cnt = [niter, nfev, status] per member.
-template <typename T>
+// cnt = [niter, nfev, status] per member. Bounded: lo/hi hold the bounds,
+// bnd_stride apart per member (0: shared by every member).
+template <typename T, bool kBounded>
 __global__ void __launch_bounds__(kThreads) l96_solve_kernel(
         L96Problem<T> p, SolveOpts<T> o, T rf, const T* __restrict__ XP,
+        const T* __restrict__ lo, const T* __restrict__ hi, int bnd_stride,
         T* __restrict__ work, T* __restrict__ X_out, T* __restrict__ G_out,
         T* __restrict__ fp_out, int* __restrict__ cnt_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -474,9 +581,12 @@ __global__ void __launch_bounds__(kThreads) l96_solve_kernel(
     const int n = p.n_dof;
     const int b = blockIdx.x;
     Bufs<T> w = member_bufs(work, n, o.m);
+    const Box<T> bx = kBounded
+        ? Box<T>{lo + (size_t)b * bnd_stride, hi + (size_t)b * bnd_stride}
+        : Box<T>{nullptr, nullptr};
     for (int k = threadIdx.x; k < n; k += kThreads)
         w.x[k] = XP[(size_t)b * n + k];
-    const SolveResult<T> r = solve_one(p, rf, o, w, sm);
+    const SolveResult<T> r = solve_one<T, kBounded>(p, rf, o, w, bx, sm);
     for (int k = threadIdx.x; k < n; k += kThreads) {
         X_out[(size_t)b * n + k] = w.x[k];
         G_out[(size_t)b * n + k] = w.g[k];
@@ -506,8 +616,10 @@ __global__ void __launch_bounds__(kThreads) l96_ladder_kernel(
     Bufs<T> w = member_bufs(work, n, o.m);
     for (int k = threadIdx.x; k < n; k += kThreads)
         w.x[k] = XP[(size_t)b * n + k];
+    const Box<T> none{nullptr, nullptr};
     for (int j = 0; j < k_rungs; ++j) {
-        const SolveResult<T> r = solve_one(p, rfs[j], o, w, sm);
+        const SolveResult<T> r = solve_one<T, false>(p, rfs[j], o, w, none,
+                                                     sm);
         if (threadIdx.x == 0) {
             const size_t row = ((size_t)b * k_rungs + j) * 3;
             rec[row] = r.f;
@@ -549,27 +661,50 @@ cudaError_t opt_in(K kernel, size_t smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T, bool kBounded>
+int launch_solve_kernel(const L96Problem<T>& p, const SolveOpts<T>& o,
+                        double rf, const void* XP, const void* lo,
+                        const void* hi, int bnd_stride, void* work,
+                        void* X_out, void* G_out, void* fp_out,
+                        void* cnt_out, int B, size_t smem, void* stream) {
+    const cudaError_t e = opt_in(l96_solve_kernel<T, kBounded>, smem);
+    if (e != cudaSuccess) return (int)e;
+    l96_solve_kernel<T, kBounded>
+        <<<B, kThreads, smem, (cudaStream_t)stream>>>(
+            p, o, (T)rf, static_cast<const T*>(XP),
+            static_cast<const T*>(lo), static_cast<const T*>(hi),
+            bnd_stride, static_cast<T*>(work), static_cast<T*>(X_out),
+            static_cast<T*>(G_out), static_cast<T*>(fp_out),
+            static_cast<int*>(cnt_out));
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_solve(const void* XP, int B, int n_dof, int N, int D, int pslot,
                  double F_fixed, const void* Y, const void* W,
                  const void* lidx, const void* lpos, int N_data, int L,
                  int obs_stride, double h, double me_norm, double fe_norm,
                  int m, int maxiter, int maxls, double c1, double c2,
-                 double pgtol, double ftol, double rf, void* work,
-                 void* X_out, void* G_out, void* fp_out, void* cnt_out,
-                 void* stream) {
+                 double pgtol, double ftol, double rf, const void* lo,
+                 const void* hi, int bnd_stride, void* work, void* X_out,
+                 void* G_out, void* fp_out, void* cnt_out, void* stream) {
     if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
+    if ((lo == nullptr) != (hi == nullptr))
+        return (int)cudaErrorInvalidValue;
     const size_t smem = solve_smem_elems(N, D) * sizeof(T);
-    const cudaError_t e = opt_in(l96_solve_kernel<T>, smem);
-    if (e != cudaSuccess) return (int)e;
-    l96_solve_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        problem<T>(n_dof, N, D, pslot, F_fixed, Y, W, lidx, lpos, N_data,
-                   L, obs_stride, h, me_norm, fe_norm),
-        solve_opts<T>(m, maxiter, maxls, c1, c2, pgtol, ftol), (T)rf,
-        static_cast<const T*>(XP), static_cast<T*>(work),
-        static_cast<T*>(X_out), static_cast<T*>(G_out),
-        static_cast<T*>(fp_out), static_cast<int*>(cnt_out));
-    return (int)cudaGetLastError();
+    const L96Problem<T> p = problem<T>(n_dof, N, D, pslot, F_fixed, Y, W,
+                                       lidx, lpos, N_data, L, obs_stride, h,
+                                       me_norm, fe_norm);
+    const SolveOpts<T> o = solve_opts<T>(m, maxiter, maxls, c1, c2, pgtol,
+                                         ftol);
+    return lo ? launch_solve_kernel<T, true>(p, o, rf, XP, lo, hi,
+                                             bnd_stride, work, X_out, G_out,
+                                             fp_out, cnt_out, B, smem,
+                                             stream)
+              : launch_solve_kernel<T, false>(p, o, rf, XP, lo, hi,
+                                              bnd_stride, work, X_out, G_out,
+                                              fp_out, cnt_out, B, smem,
+                                              stream);
 }
 
 template <typename T>
@@ -601,10 +736,12 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = cudaSuccess). Pointers
 // are device pointers. XP, X_out, G_out are (B, n_dof) row-major; Y/W
-// (N_data, L); lidx (L,) and lpos (D,) int32; work (B, (5 + 2m) n_dof)
-// scratch; fp_out (B, 2) [f, pgnorm] and cnt_out (B, 3) int32 [niter,
-// nfev, status]; rfs (k,); rec (B, k, 3) [A, ME, pgnorm] and rec_i
-// (B, k, 3) int32 [niter, nfev, status].
+// (N_data, L); lidx (L,) and lpos (D,) int32; lo/hi (n_dof,) or
+// (B, n_dof) box bounds (bnd_stride 0 or n_dof), both NULL for an
+// unbounded solve; work (B, (5 + 2m) n_dof) scratch; fp_out (B, 2)
+// [f, pgnorm] and cnt_out (B, 3) int32 [niter, nfev, status]; rfs (k,);
+// rec (B, k, 3) [A, ME, pgnorm] and rec_i (B, k, 3) int32 [niter, nfev,
+// status].
 #define VA_SOLVE_ARGS                                                       \
     const void *XP, int B, int n_dof, int N, int D, int pslot,             \
         double F_fixed, const void *Y, const void *W, const void *lidx,    \
@@ -616,18 +753,20 @@ extern "C" {
         obs_stride, h, me_norm, fe_norm, m, maxiter, maxls, c1, c2, pgtol, \
         ftol
 
-int va_l96_solve_f32(VA_SOLVE_ARGS, double rf, void* work, void* X_out,
+int va_l96_solve_f32(VA_SOLVE_ARGS, double rf, const void* lo,
+                     const void* hi, int bnd_stride, void* work, void* X_out,
                      void* G_out, void* fp_out, void* cnt_out,
                      void* stream) {
-    return launch_solve<float>(VA_SOLVE_PASS, rf, work, X_out, G_out,
-                               fp_out, cnt_out, stream);
+    return launch_solve<float>(VA_SOLVE_PASS, rf, lo, hi, bnd_stride, work,
+                               X_out, G_out, fp_out, cnt_out, stream);
 }
 
-int va_l96_solve_f64(VA_SOLVE_ARGS, double rf, void* work, void* X_out,
+int va_l96_solve_f64(VA_SOLVE_ARGS, double rf, const void* lo,
+                     const void* hi, int bnd_stride, void* work, void* X_out,
                      void* G_out, void* fp_out, void* cnt_out,
                      void* stream) {
-    return launch_solve<double>(VA_SOLVE_PASS, rf, work, X_out, G_out,
-                                fp_out, cnt_out, stream);
+    return launch_solve<double>(VA_SOLVE_PASS, rf, lo, hi, bnd_stride, work,
+                                X_out, G_out, fp_out, cnt_out, stream);
 }
 
 int va_l96_ladder_f32(VA_SOLVE_ARGS, const void* rfs, int k_rungs,

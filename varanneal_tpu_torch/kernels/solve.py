@@ -1,21 +1,25 @@
-"""K2 and K3: the whole unbounded L-BFGS rung solve, and a whole
-warm-started ladder of rungs, each in one launch.
+"""K2 and K3: the whole L-BFGS rung solve (unbounded, or bounded by the
+projection algorithm), and a whole warm-started ladder of unbounded
+rungs, each in one launch.
 
 Counterpart of ``varanneal_tpu/kernels/solve_pallas.py``
-(``solve_supported``, ``ladder_supported``, ``make_rung_solver``,
-``make_ladder_solver``) for the unbounded, scalar-rf case, whose
-``_solve_kernel`` and ``_ladder_kernel`` this replaces on the card with
-the hand-written CUDA kernels in ``csrc/solve_kernel.cu`` (the source
-notes what bounds them and what their design does about it). Beside the
-kernels this module holds:
+(``solve_supported``, ``ladder_supported``, ``solve_preferred``,
+``pick_rung_solver``, ``make_rung_solver``, ``make_ladder_solver``) for
+the scalar-rf case, whose ``_solve_kernel`` and ``_ladder_kernel`` this
+replaces on the card with the hand-written CUDA kernels in
+``csrc/solve_kernel.cu`` (the source notes what bounds them and what
+their design does about it). Beside the kernels this module holds:
 
 - :func:`solve_reference` and :func:`ladder_reference`, the plain
   versions: the port's batched ``opt/lbfgs.lbfgs_minimize`` with
-  ``direction='two_loop'`` over K1's plain ``ag_reference``, and its loop
-  over rungs with the same records;
+  ``direction='two_loop'`` (with bounds, its projection algorithm) over
+  K1's plain ``ag_reference``, and its loop over rungs with the same
+  records;
 - :data:`RUNG_LAUNCHES` and :data:`LADDER_LAUNCHES`, plain counts of
   kernel launches;
-- :func:`solve_supported` and :func:`ladder_supported`, the envelope.
+- :func:`solve_supported` and :func:`ladder_supported`, the envelope,
+  and :func:`solve_preferred` and :func:`pick_rung_solver`, the policy
+  of the facade's ``solver=``.
 
 A solver takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches its kernel or raises; it never falls back.
@@ -33,6 +37,7 @@ finite inputs).
 
 import ctypes
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -59,14 +64,14 @@ def _smem_bytes(N_f, D, dtype):
 
 
 def solve_supported(spec: ProblemSpec, rf, opts: LBFGSOptions,
-                    dtype=torch.float32, bounded=False) -> bool:
-    """The rung-solve kernel's envelope: K1's (:func:`ag.ag_supported`),
-    unbounded, scalar rf, 1 <= m <= :data:`MAX_M`, and one block's shared
-    memory (K1's residuals plus the solver's reduction partials) within
-    the H100's 227 KB. The vectors and the history live in global memory,
-    so n_dof itself is not limited."""
-    return (not bounded
-            and np.ndim(rf) == 0
+                    dtype=torch.float32) -> bool:
+    """The rung-solve kernel's envelope, bounded or not: K1's
+    (:func:`ag.ag_supported`), scalar rf, 1 <= m <= :data:`MAX_M`, and one
+    block's shared memory (K1's residuals plus the solver's reduction
+    partials) within the H100's 227 KB. The vectors, the history and the
+    bounds live in global memory, so n_dof itself is not limited and a
+    bounded solve needs no more shared memory than an unbounded one."""
+    return (np.ndim(rf) == 0
             and 1 <= opts.m <= MAX_M
             and opts.maxls >= 1
             and ag.ag_supported(spec, 0.0, dtype)
@@ -81,12 +86,16 @@ def ladder_supported(spec: ProblemSpec, rf, opts: LBFGSOptions,
     return n_rungs >= 1 and solve_supported(spec, rf, opts, dtype=dtype)
 
 
-def solve_reference(XP, rf, c: ag.AgConsts, opts: LBFGSOptions):
+def solve_reference(XP, rf, c: ag.AgConsts, opts: LBFGSOptions,
+                    lower=None, upper=None):
     """Plain PyTorch rung solve: the batched two-loop L-BFGS over K1's
-    plain action and gradient. ``XP`` (B, n_dof) -> LBFGSResult."""
+    plain action and gradient, with bounds its projection algorithm.
+    ``XP`` (B, n_dof) -> LBFGSResult."""
     return lbfgs_minimize(lambda z: ag.ag_reference(z, rf, c), XP,
-                          opts=dataclasses.replace(opts,
-                                                   direction="two_loop"),
+                          lower=lower, upper=upper,
+                          opts=dataclasses.replace(
+                              opts, direction="two_loop",
+                              bounded_algo="projection"),
                           device=XP.device)
 
 
@@ -118,7 +127,7 @@ def _lib():
                   I, I, I, Dbl, Dbl, Dbl, Dbl]
         for fn in (lib.va_l96_solve_f32, lib.va_l96_solve_f64):
             fn.restype = I
-            fn.argtypes = common + [Dbl, P, P, P, P, P, P]
+            fn.argtypes = common + [Dbl, P, P, I, P, P, P, P, P, P]
         for fn in (lib.va_l96_ladder_f32, lib.va_l96_ladder_f64):
             fn.restype = I
             fn.argtypes = common + [P, I, P, P, P, P, P]
@@ -160,16 +169,39 @@ def _workspace(XP, opts):
                        dtype=XP.dtype, device=XP.device)
 
 
-def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions):
+def _check_bounds(lower, upper, XP):
+    """Both bounds as contiguous tensors of XP's dtype on its device,
+    (n_dof,) or (B, n_dof); (None, None) when unbounded."""
+    if lower is None and upper is None:
+        return None, None
+    out = []
+    for v, fill in ((lower, -np.inf), (upper, np.inf)):
+        t = (torch.full(XP.shape[1:], fill, dtype=XP.dtype,
+                        device=XP.device) if v is None
+             else torch.as_tensor(v).to(device=XP.device, dtype=XP.dtype))
+        if tuple(t.shape) not in (tuple(XP.shape[1:]), tuple(XP.shape)):
+            raise ValueError(f"bounds must be (n_dof,) or (B, n_dof) = "
+                             f"{tuple(XP.shape)}; got {tuple(t.shape)}")
+        out.append(t.contiguous())
+    return tuple(out)
+
+
+def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
+                 upper=None):
     """Launch K2 on ``XP`` (B, n_dof), a CUDA tensor of ``c``'s dtype on
-    ``c``'s device: one block per member solves the rung at scalar ``rf``.
-    Returns an LBFGSResult on PyTorch's current stream, without
-    synchronizing. Raises on anything the kernel does not take and on a
-    refused launch."""
+    ``c``'s device: one block per member solves the rung at scalar ``rf``,
+    inside the box ``lower``/``upper`` ((n_dof,) or (B, n_dof), ±inf for a
+    free side) when given. Returns an LBFGSResult on PyTorch's current
+    stream, without synchronizing. Raises on anything the kernel does not
+    take and on a refused launch."""
     global RUNG_LAUNCHES
     _check_input(XP, c, opts)
     XP = XP.contiguous()
     B = XP.shape[0]
+    lo, hi = _check_bounds(lower, upper, XP)
+    bnd = ((None, None, 0) if lo is None else
+           (lo.data_ptr(), hi.data_ptr(), XP.shape[1] if lo.ndim == 2
+            else 0))
     X = torch.empty_like(XP)
     G = torch.empty_like(XP)
     fp = torch.empty(B, 2, dtype=XP.dtype, device=XP.device)
@@ -181,9 +213,9 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions):
               else lib.va_l96_solve_f64)
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*_common_args(XP, c, opts), float(rf), work.data_ptr(),
-                    X.data_ptr(), G.data_ptr(), fp.data_ptr(),
-                    cnt.data_ptr(), stream)
+            rc = fn(*_common_args(XP, c, opts), float(rf), *bnd,
+                    work.data_ptr(), X.data_ptr(), G.data_ptr(),
+                    fp.data_ptr(), cnt.data_ptr(), stream)
         _raise_on(rc, lib, "rung-solve")
         RUNG_LAUNCHES += 1
     return LBFGSResult(x=X, f=fp[:, 0], g=G, niter=cnt[:, 0],
@@ -240,11 +272,7 @@ class _Consts:
         return self._by_dtype[dtype]
 
 
-def _check_envelope(spec, rf, opts, lower, upper):
-    if lower is not None or upper is not None:
-        raise NotImplementedError(
-            "the bounded (projection) solve kernel waits for the port of "
-            "opt/lbfgs's projection algorithm; see ROADMAP.md")
+def _check_envelope(spec, rf, opts):
     if np.ndim(rf) != 0:
         raise ValueError("the solve kernels take a scalar rf only")
     if not any(solve_supported(spec, rf, opts, dtype=dt)
@@ -257,24 +285,106 @@ def make_rung_solver(spec: ProblemSpec, opts: LBFGSOptions, lower=None,
                      upper=None, device=None):
     """Build ``solve(XP, rf) -> LBFGSResult`` running the whole L-BFGS
     rung solve in one launch (one block per member of ``XP`` (B, n_dof)):
-    the ``rung_solver=`` hook of ``anneal.run_ladder``. ``device=None``
-    means the CUDA card. Raises outside :func:`solve_supported`."""
-    _check_envelope(spec, 0.0, opts, lower, upper)
+    the ``rung_solver=`` hook of ``anneal.run_ladder``. ``lower``/
+    ``upper``: flat (n_dof,) bounds as ``api.build_bounds`` gives them
+    (a missing side and ±inf entries are free); the kernel then runs the
+    projection algorithm. ``device=None`` means the CUDA card. Raises
+    outside :func:`solve_supported`."""
+    _check_envelope(spec, 0.0, opts)
     consts = _Consts(spec, resolve_device(device))
+    box = None
+    if lower is not None or upper is not None:
+        n = spec.n_dof
+        box = tuple(np.full(n, fill) if v is None
+                    else np.asarray(v, np.float64).reshape(-1)
+                    for v, fill in ((lower, -np.inf), (upper, np.inf)))
+        if any(b.shape != (n,) for b in box):
+            raise ValueError(f"bounds must be flat (n_dof,) = ({n},)")
+    box_t = {}
+
+    def bounds(XP):
+        if box is None:
+            return None, None
+        if XP.dtype not in box_t:
+            box_t[XP.dtype] = tuple(
+                torch.as_tensor(b, device=consts.device).to(XP.dtype)
+                for b in box)
+        return box_t[XP.dtype]
 
     def solve(XP, rf):
         if np.ndim(rf) != 0:
             raise ValueError("the rung-solve kernel takes a scalar rf only")
         c = consts(XP.dtype)
+        lo, hi = bounds(XP)
         if XP.device.type == "cpu":
             if XP.device != c.device:
                 raise ValueError(f"XP is on {XP.device}; the solver is on "
                                  f"{c.device}")
-            return solve_reference(XP, float(rf), c, opts)
-        return solve_kernel(XP, float(rf), c, opts)
+            return solve_reference(XP, float(rf), c, opts, lo, hi)
+        return solve_kernel(XP, float(rf), c, opts, lo, hi)
 
     solve.consts = consts
     return solve
+
+
+#: The reference's cap on the padded grid (N_pad <= 1024) for
+#: ``solver='auto'``: where it measured the whole-solve kernel at least at
+#: parity with the generic loop on the TPU. Kept as the reference's
+#: policy; the H100 measurement at larger N is queued (ROADMAP.md).
+PREFERRED_MAX_N_PAD = 1024
+
+
+def solve_preferred(spec: ProblemSpec, rf, opts: LBFGSOptions,
+                    dtype=torch.float32, device=None) -> bool:
+    """``solver='auto'`` takes the rung-solve kernel: on the card, inside
+    :func:`solve_supported`, with the grid padded to 8 rows at most
+    :data:`PREFERRED_MAX_N_PAD` (the reference's policy). False off the
+    card, as the reference's is off the TPU."""
+    return (resolve_device(device).type == "cuda"
+            and solve_supported(spec, rf, opts, dtype=dtype)
+            and -(-spec.N_f // 8) * 8 <= PREFERRED_MAX_N_PAD)
+
+
+def pick_rung_solver(spec: ProblemSpec, rf0, opts: LBFGSOptions, *,
+                     solver="auto", lower=None, upper=None,
+                     dtype=torch.float32, compensated=False, engine="auto",
+                     method="L-BFGS-B", device=None):
+    """The facade's ``solver=`` gate (``solve_pallas.pick_rung_solver``,
+    same policy): returns a rung solver (:func:`make_rung_solver`) or None
+    for the generic loop.
+
+    - ``'auto'``: the kernel inside :func:`solve_preferred`, for method
+      L-BFGS-B/LBFGS, not compensated; an explicit engine other than
+      ``'auto'``/``'ag'`` or ``bounded_algo='subspace'`` with bounds pins
+      the generic loop;
+    - ``'fused'``: the kernel wherever :func:`solve_supported` holds (on
+      the CPU its plain version), else a warning and the generic loop;
+    - ``'generic'``: always None."""
+    if solver not in ("auto", "generic", "fused"):
+        raise ValueError(f"solver must be auto/generic/fused, got "
+                         f"{solver!r}")
+    if solver == "generic":
+        return None
+    if solver == "auto":
+        ok = solve_preferred(spec, rf0, opts, dtype=dtype, device=device)
+    else:
+        ok = solve_supported(spec, rf0, opts, dtype=dtype)
+    ok = ok and method in ("L-BFGS-B", "LBFGS") and not compensated
+    if ok and solver == "auto" and engine not in ("auto", "ag"):
+        ok = False
+    if (ok and (lower is not None or upper is not None)
+            and opts.bounded_algo == "subspace"):
+        ok = False
+    if ok:
+        return make_rung_solver(spec, opts, lower=lower, upper=upper,
+                                device=device)
+    if solver == "fused":
+        warnings.warn(
+            "solver='fused' unsupported for this problem (model / disc / "
+            "rf shape / dtype / shared-memory envelope / compensated / "
+            "explicit subspace bounds); using the generic solver",
+            stacklevel=3)
+    return None
 
 
 def make_ladder_solver(spec: ProblemSpec, opts: LBFGSOptions, n_rungs: int,
@@ -286,7 +396,7 @@ def make_ladder_solver(spec: ProblemSpec, opts: LBFGSOptions, n_rungs: int,
     dict of (B, n_rungs) tensors A, ME, FE = A - ME, pgnorm, niter, nfev,
     status, A being the action at the rung's minimizer. ``device=None``
     means the CUDA card. Raises outside :func:`ladder_supported`."""
-    _check_envelope(spec, 0.0, opts, None, None)
+    _check_envelope(spec, 0.0, opts)
     k = int(n_rungs)
     if k < 1:
         raise ValueError("n_rungs must be at least 1")

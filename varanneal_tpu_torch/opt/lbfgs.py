@@ -1,8 +1,10 @@
-"""Batched unbounded L-BFGS in PyTorch, one member per row.
+"""Batched L-BFGS in PyTorch, one member per row, with box bounds.
 
 Counterpart of ``varanneal_tpu/opt/lbfgs.py`` (``LBFGSOptions``,
-``LBFGSResult``, ``_cubic_min``, ``_wolfe_line_search``, ``_two_loop``,
-``_compact_dir``, ``lbfgs_minimize``) on its unbounded path.
+``LBFGSResult``, ``_project``, ``_proj_grad``, ``_cubic_min``,
+``_wolfe_line_search``, ``_projected_backtracking_ls``, ``_two_loop``,
+``_compact_dir``, ``_lbfgs_fused_loop``, ``lbfgs_minimize``): the
+unbounded loop, the bounded ``projection`` algorithm and the fused loop.
 
 The JAX solver ``vmap``s a ``lax.while_loop`` over ensemble members. Here
 the members are the rows of ``(B, n)`` tensors and every loop carries a
@@ -15,10 +17,24 @@ and ignored. So per member the iterates, ``niter``, ``nfev`` and
 ``status`` are those of the JAX solver.
 
 Statuses: 0 pgtol-converged, 1 ftol-converged, 2 maxiter, 3 line-search
-failure or NaN. ``direction='auto'`` resolves to ``'compact'``, as the JAX
-solver does off the TPU. The bounded ``projection`` and ``subspace``
-algorithms, the fused Pallas step (``_lbfgs_fused_loop``) and the other
-inner solvers wait for later slices (ROADMAP.md).
+failure or NaN.
+
+Bounds (``lower``/``upper``, ±inf for a free side) run the projection
+algorithm (``bounded_algo='auto'`` resolves to it, as in the JAX
+package): a feasible start, components at a bound with the gradient
+pushing out frozen out of the direction, Armijo backtracking along the
+projected path P(x + a d), and pgtol on SciPy's projected gradient
+x - P(x - g). ``bounded_algo='subspace'`` (``opt/lbfgsb.py``) waits for
+a later slice (ROADMAP.md).
+
+``direction='auto'`` resolves to ``'compact_pallas'`` where
+``kernels.dir.dir_supported`` holds (f32 on the card, the reference's
+envelope), else to ``'compact'``, as the JAX solver does off the TPU.
+``'compact_pallas'`` runs the direction kernel K7a in the bounded loop
+and, unbounded, the fused loop: one launch of the step kernel K7b per
+iteration (history write, curvature gate, norms and next direction). An
+explicit ``'compact_pallas'`` on CPU tensors runs the kernels' plain
+versions, outside that envelope ``'compact'``.
 
 The vectors (x, g, directions, history) live on the device; the
 per-member scalars and flags of both loops live on the host, so each
@@ -46,10 +62,13 @@ class LBFGSOptions:
     maxls: int = 30
     c1: float = 1e-4            # Armijo constant
     c2: float = 0.9             # curvature constant
-    # 'auto' (-> 'compact'), 'compact' (Byrd–Nocedal–Schnabel compact
-    # form) or 'two_loop' (classic recursion); 'compact_pallas' waits
-    # for the port of kernels/dir_pallas.py
+    # 'auto' (-> 'compact_pallas' where kernels.dir.dir_supported holds,
+    # else 'compact'), 'compact' (Byrd–Nocedal–Schnabel compact form),
+    # 'two_loop' (classic recursion) or 'compact_pallas' (K7a/K7b)
     direction: str = "auto"
+    # bound handling: 'auto' (-> 'projection'), 'projection' (active-set
+    # freeze + projected-path Armijo); 'subspace' waits for opt/lbfgsb.py
+    bounded_algo: str = "auto"
 
 
 class LBFGSResult(NamedTuple):
@@ -292,48 +311,226 @@ def _compact_dir(g, H, rho, head, hlen, m):
     return -1.0 * (gamma[:, None] * g + Hq)
 
 
-def _pgnorm(x, g, big):
-    """Max-norm of SciPy's projected gradient x - P(x - g). Without bounds
-    P only clips at the dtype's largest value, but x - (x - g) still
-    rounds; the JAX solver tests pgtol on exactly this, so the port does
-    too and the two agree on every status."""
-    return torch.amax(torch.abs(x - torch.clamp(x - g, -big, big)), dim=-1)
+def _pgnorm(x, g, lo, hi):
+    """Max-norm of SciPy's projected gradient x - P(x - g), P the clip to
+    [lo, hi]. Without bounds P only clips at the dtype's largest value,
+    but x - (x - g) still rounds; the JAX solver tests pgtol on exactly
+    this, so the port does too and the two agree on every status."""
+    return torch.amax(torch.abs(x - torch.clamp(x - g, lo, hi)), dim=-1)
+
+
+def _frozen(x, g, lo, hi):
+    """The active set of the projection algorithm: components at a bound
+    (within 1e-12, added in the dtype) whose gradient pushes out of the
+    box."""
+    return (((x <= lo + 1e-12) & (g > 0))
+            | ((x >= hi - 1e-12) & (g < 0)))
+
+
+def _projected_backtracking_ls(vag, x, d, f0, g0, a_init, lo, hi, opts,
+                               run):
+    """Armijo backtracking along the projected path P(x + a d), for the
+    members where ``run`` holds: sufficient decrease against
+    g0·(P(x + a d) - x), the step halved until it holds or ``maxls``
+    trials are spent. ``f0`` and ``a_init`` live on the host. Returns
+    (x_new, f_new, g_new, nfev, ok); a member whose search fails keeps
+    x, f0 and g0."""
+    dev = x.device
+    c1 = opts.c1
+
+    def trial(a):
+        return torch.clamp(x + a.to(dev)[:, None] * d, lo, hi)
+
+    def armijo(f_a, gdx):
+        return (f_a <= f0 + c1 * gdx) & torch.isfinite(f_a) & (f_a < f0)
+
+    a = a_init.clone()
+    i = torch.ones(run.shape, dtype=torch.int32)
+    x_a = trial(a)
+    f_dev, g_a = vag(x_a)
+    f_a, gdx = _host(f_dev, _dot(g0, x_a - x))
+    while True:
+        act = run & ~armijo(f_a, gdx) & (i < opts.maxls)
+        if not bool(act.any()):
+            break
+        a = torch.where(act, 0.5 * a, a)
+        x_n = trial(a)
+        f_dev, g_n = vag(x_n)
+        f_n, gdx_n = _host(f_dev, _dot(g0, x_n - x))
+        act_d = act.to(dev)[:, None]
+        x_a = torch.where(act_d, x_n, x_a)
+        g_a = torch.where(act_d, g_n, g_a)
+        f_a = torch.where(act, f_n, f_a)
+        gdx = torch.where(act, gdx_n, gdx)
+        i = i + act.to(torch.int32)
+    ok = armijo(f_a, gdx)
+    ok_d = ok.to(dev)[:, None]
+    return (torch.where(ok_d, x_a, x), torch.where(ok, f_a, f0),
+            torch.where(ok_d, g_a, g0), i, ok)
+
+
+def _resolve_direction(opts, x):
+    """``opts.direction`` as this solve runs it (see the module
+    docstring)."""
+    from varanneal_tpu_torch.kernels import dir as kdir
+    direction = opts.direction
+    if direction == "auto":
+        return ("compact_pallas" if kdir.dir_supported(x, opts.m)
+                else "compact")
+    if direction == "compact_pallas":
+        return ("compact_pallas"
+                if kdir.dir_predicate(x.shape[-1], opts.m, x.dtype)
+                else "compact")
+    if direction not in ("compact", "two_loop"):
+        raise ValueError(f"unknown direction {opts.direction!r}")
+    return direction
+
+
+def _bounds(bound, fill, x):
+    """A user bound (None, NumPy or tensor, broadcastable to x) as a
+    tensor of x's dtype on its device; None becomes ``fill``."""
+    if bound is None:
+        return torch.full(x.shape[-1:], fill, dtype=x.dtype,
+                          device=x.device)
+    return torch.as_tensor(bound).to(device=x.device, dtype=x.dtype)
+
+
+def _end_iteration(opts, run, ls_ok, ls_nfev, pgn, x, x_new, g, g_new, f,
+                   f_new, niter, nfev, status, done):
+    """The stopping rules and the lockstep freeze, shared by both loops:
+    the status of each running member from its new gradient norm ``pgn``,
+    its line search and its relative decrease; the new point taken where
+    the line search held (the old one kept where it failed); ended members
+    left as they were. Returns (x, g, f, niter, nfev, status, done)."""
+    fail = ~ls_ok
+    take = run & ~fail
+    df = f - f_new
+    fden = torch.clamp_min(torch.maximum(torch.abs(f), torch.abs(f_new)),
+                           1.0)
+    conv_g = pgn <= opts.pgtol
+    conv_f = df <= opts.ftol * fden
+    new_status = torch.where(
+        conv_g, CONV_GRAD,
+        torch.where(fail, LS_FAIL,
+                    torch.where(conv_f, CONV_FTOL, MAXITER))).to(torch.int32)
+    take_d = take.to(x.device)[:, None]
+    return (torch.where(take_d, x_new, x), torch.where(take_d, g_new, g),
+            torch.where(take, f_new, f), niter + run.to(torch.int32),
+            nfev + torch.where(run, ls_nfev, 0),
+            torch.where(run, new_status, status),
+            torch.where(run, conv_g | conv_f | fail, done))
+
+
+def _fused_loop(value_and_grad, x, opts):
+    """Unbounded L-BFGS with one launch of the step kernel K7b
+    (``kernels.dir.fused_step``) per iteration: the port of
+    ``_lbfgs_fused_loop``. Where it differs from the generic loop, as the
+    JAX fused loop does: x0 is not clamped to the dtype's range; the first
+    direction is -g0; the curvature gate is ``sy > 1e-10·sqrt(s2·y2)``
+    rather than ``sqrt(ss)·sqrt(yy)``; K7b's γ takes max(yᵀy, 1e-30), as
+    the Pallas kernel does (its plain version keeps ``_compact_dir``'s
+    1e-300); pgtol and the final pgnorm use max|g| rather than
+    the projected gradient; and the next direction comes from the
+    updated history at g_new with -g_new on non-descent. K7b also
+    returns the next line search's g·d, so an iteration reads its scalars
+    from the card in one copy after the line search."""
+    from varanneal_tpu_torch.kernels import dir as kdir
+    device = x.device
+    dtype = x.dtype
+    B, n = x.shape
+    m = opts.m
+    big = torch.finfo(dtype).max
+
+    f_dev, g = value_and_grad(x)
+    d = -1.0 * g
+    f, pg0, gnorm1, dphi0 = _host(f_dev, torch.amax(torch.abs(g), dim=-1),
+                                  torch.sum(torch.abs(g), dim=-1), _dot(g, d))
+    H = torch.zeros(B, 2 * m, n, dtype=dtype, device=device)
+    head = torch.zeros(B, dtype=torch.int32, device=device)
+    hlen = torch.zeros(B, dtype=torch.int32, device=device)
+    hlen_h = torch.zeros(B, dtype=torch.long)
+    niter = torch.zeros(B, dtype=torch.int32)
+    nfev = torch.ones(B, dtype=torch.int32)
+    done = pg0 <= opts.pgtol
+    status = torch.where(done, CONV_GRAD, MAXITER).to(torch.int32)
+
+    while True:
+        run = ~done & (niter < opts.maxiter)
+        if not bool(run.any()):
+            break
+        a_init = torch.where(
+            hlen_h == 0,
+            torch.clamp_max(1.0 / torch.clamp_min(gnorm1, 1e-300), 1.0),
+            torch.ones_like(gnorm1))
+        a, f_new, g_new, ls_nfev, ls_ok = _wolfe_line_search(
+            value_and_grad, x, d, f, g, dphi0, a_init, big, opts, run)
+        x_new = x + a.to(device)[:, None] * d
+        d_next, sc = kdir.fused_step(H, x, x_new, g, g_new, head, hlen,
+                                     ls_ok, run)
+        _, pgn, gn1, _, hl, _, dphi = sc.cpu().unbind(1)
+
+        d = torch.where(run.to(device)[:, None], d_next, d)
+        gnorm1 = torch.where(run, gn1, gnorm1)
+        dphi0 = torch.where(run, dphi, dphi0)
+        hlen_h = torch.where(run, hl.to(torch.long), hlen_h)
+        x, g, f, niter, nfev, status, done = _end_iteration(
+            opts, run, ls_ok, ls_nfev, pgn, x, x_new, g, g_new, f, f_new,
+            niter, nfev, status, done)
+
+    return LBFGSResult(x=x, f=f.to(device), g=g, niter=niter.to(device),
+                       nfev=nfev.to(device), status=status.to(device),
+                       pgnorm=torch.amax(torch.abs(g), dim=-1))
 
 
 def lbfgs_minimize(value_and_grad, x0, *, lower=None, upper=None,
                    opts: Optional[LBFGSOptions] = None,
                    device=None) -> LBFGSResult:
     """Minimize each row of ``x0`` ((B, n), or (n,) for one member) given
-    ``value_and_grad(x) -> (f (B,), g (B, n))``. ``device=None`` means the
-    CUDA card. See the module docstring for the semantics."""
+    ``value_and_grad(x) -> (f (B,), g (B, n))``, optionally subject to
+    ``lower <= x <= upper`` (flat (n,) or (B, n) bounds, ±inf for a free
+    side). ``device=None`` means the CUDA card. See the module docstring
+    for the semantics."""
     opts = opts or LBFGSOptions()
-    if lower is not None or upper is not None:
-        raise NotImplementedError("bounded L-BFGS " + _WAITS)
-    direction = "compact" if opts.direction == "auto" else opts.direction
-    if direction == "compact_pallas":
+    algo = "projection" if opts.bounded_algo == "auto" else opts.bounded_algo
+    if algo not in ("projection", "subspace"):
+        raise ValueError(f"unknown bounded_algo {opts.bounded_algo!r}")
+    bounded = lower is not None or upper is not None
+    if bounded and algo == "subspace":
         raise NotImplementedError(
-            "direction='compact_pallas' (kernel K7) " + _WAITS)
-    if direction not in ("compact", "two_loop"):
-        raise ValueError(f"unknown direction {opts.direction!r}")
-    dir_fn = _compact_dir if direction == "compact" else _two_loop
+            "bounded_algo='subspace' (opt/lbfgsb.py) " + _WAITS)
     device = resolve_device(device)
 
     x = torch.as_tensor(x0).to(device)
     one = x.ndim == 1
     if one:
         x = x[None]
+    direction = _resolve_direction(opts, x)
+    if direction == "compact_pallas" and not bounded:
+        res = _fused_loop(value_and_grad, x, opts)
+        return LBFGSResult(*(t[0] for t in res)) if one else res
+    if direction == "compact_pallas":
+        from varanneal_tpu_torch.kernels import dir as kdir
+
+        def dir_fn(g, H, rho, head, hlen, m):
+            return kdir.compact_dir(g, H, head, hlen)
+    else:
+        dir_fn = _compact_dir if direction == "compact" else _two_loop
     dtype = x.dtype
     B, n = x.shape
     m = opts.m
     big = torch.finfo(dtype).max
     rows = torch.arange(B, device=device)
+    if bounded:
+        lo, hi = _bounds(lower, -big, x), _bounds(upper, big, x)
+    else:
+        lo, hi = -big, big
 
     # vectors (x, g, d, history) stay on the device; the per-member
     # scalars and flags live on the host, where each of the solver's many
     # small updates costs far less than a device launch
-    x = torch.clamp(x, -big, big)
+    x = torch.clamp(x, lo, hi)
     f_dev, g = value_and_grad(x)
-    f, pg0 = _host(f_dev, _pgnorm(x, g, big))
+    f, pg0 = _host(f_dev, _pgnorm(x, g, lo, hi))
     H = torch.zeros(B, 2 * m, n, dtype=dtype, device=device)
     rho = torch.zeros(B, m, dtype=dtype, device=device)
     head = torch.zeros(B, dtype=torch.long)
@@ -348,31 +545,42 @@ def lbfgs_minimize(value_and_grad, x0, *, lower=None, upper=None,
         if not bool(run.any()):
             break
         head_d, hlen_d = torch.stack([head, hlen]).to(device)
-        d = dir_fn(g, H, rho, head_d, hlen_d, m)
+        if bounded:
+            # bound-active components frozen out of the direction
+            act = _frozen(x, g, lo, hi)
+            g_free = torch.where(act, 0.0, g)
+            d = torch.where(act, 0.0, dir_fn(g_free, H, rho, head_d,
+                                             hlen_d, m))
+        else:
+            g_free = g
+            d = dir_fn(g, H, rho, head_d, hlen_d, m)
         descent = _dot(g, d)
         bad_dir = (descent >= 0) | ~torch.isfinite(descent)
-        d = torch.where(bad_dir[:, None], -1.0 * g, d)
+        d = torch.where(bad_dir[:, None], -1.0 * g_free, d)
 
         gnorm1, dphi0 = _host(torch.sum(torch.abs(g), dim=-1), _dot(g, d))
         a_init = torch.where(
             hlen == 0,
             torch.clamp_max(1.0 / torch.clamp_min(gnorm1, 1e-300), 1.0),
             torch.ones_like(gnorm1))
-        a, f_new, g_new, ls_nfev, ls_ok = _wolfe_line_search(
-            value_and_grad, x, d, f, g, dphi0, a_init, big, opts, run)
-        x_new = x + a.to(device)[:, None] * d
+        if bounded:
+            x_new, f_new, g_new, ls_nfev, ls_ok = \
+                _projected_backtracking_ls(value_and_grad, x, d, f, g,
+                                           a_init, lo, hi, opts, run)
+        else:
+            a, f_new, g_new, ls_nfev, ls_ok = _wolfe_line_search(
+                value_and_grad, x, d, f, g, dphi0, a_init, big, opts, run)
+            x_new = x + a.to(device)[:, None] * d
 
         # history update (skip on tiny curvature)
         sv = x_new - x
         yv = g_new - g
         sy_d = _dot(sv, yv)
         sy, ss, yy, pgn = _host(sy_d, _dot(sv, sv), _dot(yv, yv),
-                                _pgnorm(x_new, g_new, big))
+                                _pgnorm(x_new, g_new, lo, hi))
         good = run & ls_ok & (sy > 1e-10 * torch.sqrt(ss) * torch.sqrt(yy)) \
             & (sy > 0)
-        fail = ~ls_ok
-        take = run & ~fail
-        good_d, take_d = torch.stack([good, take]).to(device)
+        good_d = good.to(device)
         gk = good_d[:, None]
         H[rows, head_d] = torch.where(gk, sv, H[rows, head_d])
         H[rows, m + head_d] = torch.where(gk, yv, H[rows, m + head_d])
@@ -381,30 +589,13 @@ def lbfgs_minimize(value_and_grad, x0, *, lower=None, upper=None,
         head = torch.where(good, (head + 1) % m, head)
         hlen = torch.where(good, torch.clamp_max(hlen + 1, m), hlen)
 
-        # termination
-        df = f - f_new
-        fden = torch.clamp_min(torch.maximum(torch.abs(f),
-                                             torch.abs(f_new)), 1.0)
-        conv_g = pgn <= opts.pgtol
-        conv_f = df <= opts.ftol * fden
-        new_status = torch.where(
-            conv_g, CONV_GRAD,
-            torch.where(fail, LS_FAIL,
-                        torch.where(conv_f, CONV_FTOL, MAXITER))).to(
-            torch.int32)
-
-        # keep the old point on line-search failure; freeze ended members
-        x = torch.where(take_d[:, None], x_new, x)
-        g = torch.where(take_d[:, None], g_new, g)
-        f = torch.where(take, f_new, f)
-        niter = niter + run.to(torch.int32)
-        nfev = nfev + torch.where(run, ls_nfev, 0)
-        status = torch.where(run, new_status, status)
-        done = torch.where(run, conv_g | conv_f | fail, done)
+        x, g, f, niter, nfev, status, done = _end_iteration(
+            opts, run, ls_ok, ls_nfev, pgn, x, x_new, g, g_new, f, f_new,
+            niter, nfev, status, done)
 
     res = LBFGSResult(x=x, f=f.to(device), g=g, niter=niter.to(device),
                       nfev=nfev.to(device), status=status.to(device),
-                      pgnorm=_pgnorm(x, g, big))
+                      pgnorm=_pgnorm(x, g, lo, hi))
     if one:
         res = LBFGSResult(*(t[0] for t in res))
     return res
