@@ -7,7 +7,7 @@ timed on its own line:
 
 1. device: the card's name, count, power limit, the torch and nvcc
    versions; no CUDA device -> exit 1 before any result is printed;
-2. build: K1 (kernels/csrc/ag_kernel.cu), K2/K3
+2. build: K1 and K4 (kernels/csrc/ag_kernel.cu), K2/K3
    (kernels/csrc/solve_kernel.cu) and K7a/K7b (kernels/csrc/dir_kernel.cu),
    one nvcc each, started together, into plain-C shared libraries, with
    nvcc's -Xptxas -v report (registers, spills, shared memory);
@@ -113,11 +113,45 @@ timed on its own line:
    the projection loop, with K7a launches and no K7b launch; records of
    the right shapes, exit flags in {0, 1, 2}, every path feasible, some
    component at a bound, and save_paths / save_params /
-   save_action_errors into a temporary directory (paths (101, 161, 21)).
+   save_action_errors into a temporary directory (paths (101, 161, 21));
+14. K4 (the compensated entry of ag_kernel.cu) against its plain version
+   at the main path's shape (phase 3's draws, f32), at rf of β 0, 50, 100
+   and at rf = 4e6, with torch's default dtype float64 (the f64 combine):
+   the combined value within 2e-6 relative of the plain version's, the
+   gradient within K1's 2e-5 and bit-equal to K1's (and K4's plain value
+   to K1's) on the same input, repeats bit-identical; at rf = 4e6 every
+   member's combined value no farther from the f64 action of the same
+   point than K1's f32 value, and within 1e-5 of it; K4 and its plain
+   version timed with CUDA events, K4's device time by torch.profiler,
+   its bound (K1's plus a TwoSum per term and the (B, 6) row);
+15. the runner in process: ``varanneal_tpu_torch.__main__.main([cfg,
+   "--f32"])`` on the Quick start problem (the twin's data written with
+   time in column 0, X0 member 0 of the bench's init, 101 rungs, α 1.5,
+   RF0 = 4e-6·RM, F estimated, the bench's opt_args, ``compensated:
+   true, engine: "ag"``, a checkpoint every 10 rungs and a snapshot at
+   rung 60), all files in a temporary directory: the three files of the
+   right shapes and finite, K4's launches equal to the ladder's total
+   nfev (one member, one evaluation a launch), no launch of K1, K2 or K3
+   (the records come from the compensated autograd action), the snapshot
+   bit-equal to the rung-59 minimizer; then the checkpoint cut back to
+   dispatch 90 and the runner run again: it resumes there, and rungs
+   90..100 and the final state are bit-identical to the uninterrupted
+   run's; its wall time per loop iteration beside phase 11's;
+16. the facade with torch's default dtype float64 and dtype float32,
+   ``compensated=True`` through ``engine='ag'`` (K4) and ``'auto'`` (the
+   compensated autograd action): β 0..4 at maxiter 20 and β 60..61 at
+   maxiter 5 from the Quick start's init, A within 1e-4 relative between
+   the two engines and float64 records;
+17. the subspace L-BFGS-B (``bounded_algo='subspace'``): phase 12's f64
+   short solves in its box through K1 f64 on the card and the plain
+   version on the CPU: identical niter, nfev and status, x within 1e-8
+   relative, feasible; its time per iteration.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, times,
-bound; K3's ms and bound are those of phase 8's three-rung launch, and
+bound; K4's launches are phase 15's first run's, its ms, device_ms,
+plain_ms and bound phase 14's; K3's ms and bound are those of phase 8's
+three-rung launch, and
 main_ms / main_bound_ms those of its 101-rung launch on the new path;
 K2's bounded_* those of phase 12's f32 bounded short solves) and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
@@ -1055,6 +1089,7 @@ def main():
           f"total nfev {int(nfev_f.sum())}, per-rung max over members "
           f"summed {lockstep_f}; launches {launch_f}; statuses per code "
           f"0..3 {np.bincount(res_f.status.cpu().numpy().ravel(), minlength=4).tolist()}")
+    ms_iter_fused = 1e3 * wall_fused / loop_iters
     print(f"fused loop vs phase 5's compact loop (same inputs, this card): "
           f"{1e3 * wall_fused / loop_iters:.3f} vs "
           f"{1e3 * wall_f32 / loop_iters5:.3f} ms a loop iteration, "
@@ -1360,6 +1395,276 @@ def main():
           and shapes["action_errors.dat"] == (MAIN["n_beta"], 4),
           f"facade file shapes {shapes}")
     phase("13 facade", t0)
+    # ---- 14. K4 against its plain version ---------------------------------
+    t0 = time.perf_counter()
+    c4 = ag.ag_consts(spec, dev, torch.float32, compensated=True)
+    c64a = ag.ag_consts(spec, dev, torch.float64)
+    rfs14 = [float(np.float32(rf0 * MAIN["alpha"] ** b)) for b in (0, 50, 100)]
+    rfs14.append(float(np.float32(4e6)))
+    err_k4 = 0.0
+    old_dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)      # the f64 combine
+    try:
+        for rf in rfs14:
+            A4, G4, C4 = ag.ag_kernel(Z32, rf, c4, compensated=True)
+            A1, G1 = ag.ag_kernel(Z32, rf, c32)
+            torch.cuda.synchronize()
+            _, G_r, C_r = ag.ag_reference(Z32, rf, c4, compensated=True)
+            v4, v_r = ag.combine(C4, rf, c4), ag.combine(C_r, rf, c4)
+            rel_v = float(torch.max(torch.abs(v4 - v_r) / torch.abs(v_r)))
+            scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+            rel_g = float(torch.max(torch.abs(G4 - G_r) / scale))
+            err_k4 = max(err_k4, float(torch.max(torch.abs(v4 - v_r))),
+                         float(torch.max(torch.abs(G4 - G_r))))
+            same_k1 = torch.equal(G4, G1) and torch.equal(A4, A1)
+            rep4 = ag.ag_kernel(Z32, rf, c4, compensated=True)
+            again = all(torch.equal(u, w) for u, w in zip(rep4,
+                                                          (A4, G4, C4)))
+            ref64 = ag.ag_reference(Z32.double(), rf, c64a)[0]
+            e4 = torch.abs(v4 - ref64)
+            e1 = torch.abs(A1.double() - ref64)
+            print(f"K4 f32 rf={rf:.6g}: combined value rel err vs plain "
+                  f"{rel_v:.3e} (bound 2e-6), gradient rel err {rel_g:.3e} "
+                  f"(bound 2e-5), value and gradient bit-equal to K1's "
+                  f"{same_k1}, repeat bit-identical {again}; distance from "
+                  f"the f64 action, relative, K4 "
+                  + ", ".join(f"{x:.3e}" for x in (e4 / ref64).tolist())
+                  + " vs K1 " + ", ".join(f"{x:.3e}" for x in
+                                          (e1 / ref64).tolist()))
+            check(rel_v <= 2e-6 and rel_g <= 2e-5,
+                  f"K4 disagrees with its plain version at rf={rf}")
+            check(same_k1, f"K4's value or gradient differs from K1's at "
+                           f"rf={rf}")
+            check(again, "K4 repeated launch is not bit-identical")
+            check(v4.dtype == torch.float64, "K4's combine is not float64")
+            if rf == rfs14[-1]:
+                check(bool(torch.all(e4 <= e1))
+                      and bool(torch.all(e4 <= 1e-5 * torch.abs(ref64))),
+                      "K4 is not closer to the f64 action than K1 at "
+                      "rf=4e6")
+        rf_t4 = rfs14[1]
+        ms_k4 = events_ms(lambda: ag.ag_kernel(Z32, rf_t4, c4,
+                                               compensated=True))
+        ms_p4 = events_ms(lambda: ag.ag_reference(Z32, rf_t4, c4,
+                                                  compensated=True), n=200)
+    finally:
+        torch.set_default_dtype(old_dt)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            ag.ag_kernel(Z32, rf_t4, c4, compensated=True)
+        torch.cuda.synchronize()
+    k4_dev = [(device_us(e), e.count) for e in prof.key_averages()
+              if "l96_ag_trap_comp" in e.key]
+    dev_k4 = (k4_dev[0][0] / k4_dev[0][1] / 1e3
+              if k4_dev and k4_dev[0][0] > 0 else None)
+    # K1's bytes plus the (B, 6) row out; K1's operations plus a TwoSum
+    # per term (6 rounded adds) and its product: 7 per FE term (r·r), 8
+    # per ME term ((W·diff)·diff)
+    nbytes_k4 = nbytes + B * 6 * 4
+    nops_k4 = nops + B * (7 * (N - 1) * D + 8 * n_obs)
+    bound_k4 = bound_of(nbytes_k4, nops_k4)
+    print(f"K4 f32 B={MAIN['B']}: kernel {ms_k4:.5f} ms/launch, plain "
+          f"{ms_p4:.5f} ms (CUDA events), device time per launch "
+          + (f"{dev_k4:.5f} ms (torch.profiler)" if dev_k4 is not None
+             else "not measured (no device events)")
+          + f"; K1 {ms_kernel:.5f} ms/launch in phase 3; bound {nbytes_k4} "
+          f"bytes, {nops_k4} operations -> {bound_k4[0]:.3e} ms "
+          f"({bound_k4[1]})")
+    phase("14 K4 vs plain", t0)
+
+    # ---- 15. the runner, in process --------------------------------------
+    t0 = time.perf_counter()
+    from varanneal_tpu_torch import __main__ as runner
+
+    def zero_counts():
+        ag.LAUNCHES = ag.COMP_LAUNCHES = 0
+        solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
+        kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
+
+    def run_counts():
+        return dict(k1=ag.LAUNCHES, k4=ag.COMP_LAUNCHES,
+                    k2=solve.RUNG_LAUNCHES, k3=solve.LADDER_LAUNCHES,
+                    k7a=kdir.DIR_LAUNCHES, k7b=kdir.STEP_LAUNCHES)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "data.npy"),
+                np.column_stack([tw["t"], tw["Y"]]))
+        np.save(os.path.join(tmp, "x0.npy"), X0q)
+        ck = os.path.join(tmp, "ladder.npz")
+        out = os.path.join(tmp, "run")
+        cfg = dict(
+            model={"name": "lorenz96", "D": MAIN["D"]},
+            data={"file": os.path.join(tmp, "data.npy")},
+            X0=os.path.join(tmp, "x0.npy"), P0=[4.0], out=out,
+            alpha=MAIN["alpha"], beta_array={"stop": MAIN["n_beta"]},
+            RM=float(tw["RM"]), RF0=float(4e-6 * tw["RM"]),
+            Lidx=[int(i) for i in tw["Lidx"]], Pidx=[0],
+            compensated=True, engine="ag", checkpoint_path=ck,
+            checkpoint_every=10, snapshot_beta=60,
+            opt_args=dict(maxiter=500, m=5, maxls=20, gtol=1e-4,
+                          ftol=1e-6))
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+
+        def run_main():
+            zero_counts()
+            buf = io.StringIO()
+            t_r = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = runner.main([cfg_path, "--f32"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_r
+            check(rc == 0, f"the runner returned {rc}")
+            files = (np.load(out + "_paths.npy"),
+                     np.load(out + "_params.npy"),
+                     np.loadtxt(out + "_action_errors.dat"))
+            with np.load(ck) as z:
+                ckp = {k: z[k] for k in z.files}
+            return wall, run_counts(), files, ckp, buf.getvalue()
+
+        wall_r, cnt_r, files_r, ck_r, log_r = run_main()
+        paths_r, params_r, ae_r = files_r
+        nfev_r = int(ck_r["nfev"].sum())
+        niter_r = int(ck_r["niter"].sum())
+        check(niter_r > 0, "runner: no rung took an iteration")
+        print(f"runner: {MAIN['n_beta']} rungs, one member, f32, "
+              f"compensated, engine ag, in {wall_r:.2f} s; total niter "
+              f"{niter_r}, nfev {nfev_r}; launches {cnt_r}; "
+              f"{1e3 * wall_r / niter_r:.3f} ms a loop iteration (phase "
+              f"11's fused loop, 4 members: {ms_iter_fused:.3f} ms); "
+              f"statuses per code 0..3 "
+              f"{np.bincount(ck_r['status'], minlength=4).tolist()}; "
+              f"final A {ae_r[-1, 1]:.6f}, F {params_r[-1, -1]:.4f}")
+        print("runner log, last lines: "
+              + " | ".join(log_r.strip().splitlines()[-3:]))
+        check(paths_r.shape == (MAIN["n_beta"], spec.N_f, spec.D + 1)
+              and params_r.shape[0] == MAIN["n_beta"]
+              and ae_r.shape == (MAIN["n_beta"], 4),
+              f"runner file shapes {paths_r.shape} {params_r.shape} "
+              f"{ae_r.shape}")
+        check(all(np.isfinite(a).all() for a in files_r),
+              "runner: non-finite values in its files")
+        check(cnt_r["k4"] == nfev_r > 0,
+              f"K4 launches {cnt_r['k4']} != the ladder's nfev {nfev_r}")
+        check(cnt_r["k1"] == 0 and cnt_r["k2"] == 0 and cnt_r["k3"] == 0,
+              f"the runner launched K1, K2 or K3: {cnt_r}")
+        check(np.array_equal(ck_r["snap0"], ck_r["path0"][59]),
+              "runner: the snapshot is not the rung-59 minimizer")
+        check(int(ck_r["next_idx"]) == MAIN["n_beta"],
+              "runner: the checkpoint did not reach the last rung")
+        # cut the checkpoint back to dispatch 90 and resume
+        cut = dict(ck_r)
+        for k in ("A", "ME", "FE", "status", "niter", "nfev", "pgnorm"):
+            cut[k] = ck_r[k][:90]
+        cut["path0"] = ck_r["path0"][:90]
+        cut["xp0"] = ck_r["path0"][89]
+        cut["next_idx"] = np.asarray(90)
+        np.savez(ck, **cut)
+        wall_s, cnt_s, files_s, ck_s, log_s = run_main()
+        nfev_s = int(ck_s["nfev"][90:].sum())
+        same = (all(np.array_equal(a[90:], b[90:])
+                    for a, b in zip(files_s, files_r))
+                and np.array_equal(ck_s["xp0"], ck_r["xp0"])
+                and all(np.array_equal(ck_s[k], ck_r[k]) for k in
+                        ("A", "nfev", "niter", "status", "path0", "snap0")))
+        print(f"runner resumed at dispatch 90: rungs 90..100 in "
+              f"{wall_s:.2f} s, nfev {nfev_s}, launches {cnt_s}; rungs "
+              f"90..100 and XP_final bit-identical to the uninterrupted "
+              f"run: {same}")
+        check("resuming at dispatch index 90" in log_s,
+              "the runner did not resume from the checkpoint")
+        check(same, "the resumed run differs from the uninterrupted one")
+        check(cnt_s["k4"] == nfev_s, "resume: K4 launches != its nfev")
+    phase("15 runner", t0)
+
+    # ---- 16. the facade, f64 combine --------------------------------------
+    t0 = time.perf_counter()
+    # β 0..4 at maxiter 20 (tests/test_ag_pallas.py's facade check): from
+    # the Quick start's init every rung there stops at its first gradient
+    # test, so the two engines' values are compared where they start;
+    # rungs 60..61 at maxiter 5 compare them along the first iterations of
+    # working solves, before the f32 iterates of the two engines part
+    old_dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for betas16, it16 in ((np.arange(5), 20), (np.arange(60, 62), 5)):
+            facade16 = {}
+            for eng in ("ag", "auto"):
+                ann = Annealer(device=dev)
+                ann.set_model(lorenz96, MAIN["D"])
+                ann.set_data(tw["Y"], t=tw["t"])
+                zero_counts()
+                ann.anneal(X0q, np.array([4.0]), MAIN["alpha"], betas16,
+                           tw["RM"], 4e-6 * tw["RM"], list(tw["Lidx"]), [0],
+                           opt_args=dict(maxiter=it16, m=5),
+                           compensated=True, dtype=torch.float32,
+                           engine=eng)
+                torch.cuda.synchronize()
+                facade16[eng] = (ann.A_array, ann.nfev_array, run_counts())
+            A_ag, A_auto = facade16["ag"][0], facade16["auto"][0]
+            rel16 = float(np.max(np.abs(A_ag - A_auto) / np.abs(A_auto)))
+            print(f"facade compensated, f32, f64 combine, beta "
+                  f"{betas16[0]}..{betas16[-1]}, maxiter {it16}: A "
+                  f"engine='ag' " + ", ".join(f"{a:.8g}" for a in A_ag)
+                  + " (nfev " + ", ".join(map(str, facade16["ag"][1]))
+                  + "); engine='auto' "
+                  + ", ".join(f"{a:.8g}" for a in A_auto)
+                  + " (nfev " + ", ".join(map(str, facade16["auto"][1]))
+                  + f"); max rel diff {rel16:.3e} (bound 1e-4); launches "
+                  f"ag {facade16['ag'][2]}, auto {facade16['auto'][2]}")
+            check(A_ag.dtype == np.float64 and A_auto.dtype == np.float64,
+                  "facade: the compensated records are not float64")
+            check(rel16 <= 1e-4, "facade: engine='ag' and 'auto' disagree")
+            check(facade16["ag"][2]["k4"] > 0
+                  and facade16["auto"][2]["k4"] == 0,
+                  "facade: K4 launched on the wrong engine")
+    finally:
+        torch.set_default_dtype(old_dt)
+    phase("16 facade f64 combine", t0)
+
+    # ---- 17. the subspace L-BFGS-B on the card and on the CPU -------------
+    t0 = time.perf_counter()
+    opts17 = LBFGSOptions(maxiter=30, m=5, pgtol=1e-4, ftol=1e-6,
+                          bounded_algo="subspace")
+    cpu = torch.device("cpu")
+    c64c = ag.ag_consts(spec, cpu, torch.float64)
+    lo_c, hi_c = lo64.cpu(), hi64.cpu()
+    t17 = 0.0
+    it17 = 0
+    for beta in betas_s:
+        rf = rung_rf(rf0, MAIN["alpha"], beta, torch.float64)
+        t_s = time.perf_counter()
+        rg = lbfgs_minimize(lambda z: ag.action_and_grad(z, rf, c64a), Z64,
+                            lower=lo64, upper=hi64, opts=opts17, device=dev)
+        torch.cuda.synchronize()
+        t17 += time.perf_counter() - t_s
+        it17 += int(rg.niter.max())
+        rc_ = lbfgs_minimize(lambda z: ag.action_and_grad(z, rf, c64c),
+                             Z64.cpu(), lower=lo_c, upper=hi_c, opts=opts17,
+                             device=cpu)
+        scale = torch.amax(torch.abs(rc_.x), dim=1, keepdim=True)
+        rel = float(torch.max(torch.abs(rg.x.cpu() - rc_.x) / scale))
+        feas = bool(((rg.x >= lo64) & (rg.x <= hi64)).all())
+        n_at = int(((rg.x == lo64) | (rg.x == hi64)).sum())
+        print(f"subspace L-BFGS-B f64 short solve beta={beta}: niter "
+              f"{rg.niter.tolist()} / CPU {rc_.niter.tolist()}; nfev "
+              f"{rg.nfev.tolist()} / {rc_.nfev.tolist()}; status "
+              f"{rg.status.tolist()} / {rc_.status.tolist()}; x rel err "
+              f"{rel:.3e} (bound 1e-8); feasible {feas}, {n_at} components "
+              f"at a bound")
+        check(all(torch.equal(u.cpu(), v) for u, v in
+                  zip((rg.niter, rg.nfev, rg.status),
+                      (rc_.niter, rc_.nfev, rc_.status))),
+              f"subspace L-BFGS-B counts differ card vs CPU at beta={beta}")
+        check(rel <= 1e-8 and feas,
+              f"subspace L-BFGS-B card vs CPU disagree at beta={beta}")
+    print(f"subspace L-BFGS-B on the card, {MAIN['B']} members through K1 "
+          f"f64: {1e3 * t17 / it17:.3f} ms an iteration ({it17} "
+          f"iterations of the slowest member over three solves)")
+    phase("17 subspace L-BFGS-B", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -1394,7 +1699,13 @@ def main():
              replaces="varanneal_tpu/kernels/dir_pallas.py:184",
              launches=launch_f["k7b"], max_abs_err=err_k7b, ms=ms_k7b,
              plain_ms=ms_p7b, bound_ms=bound_k7b[0],
-             bound_by=bound_k7b[1], **line)]}))
+             bound_by=bound_k7b[1], **line),
+        dict(name="l96_ag_trap_comp",
+             source="varanneal_tpu_torch/kernels/csrc/ag_kernel.cu",
+             replaces="varanneal_tpu/kernels/ag_pallas.py:336",
+             launches=cnt_r["k4"], max_abs_err=err_k4, ms=ms_k4,
+             device_ms=dev_k4, plain_ms=ms_p4, bound_ms=bound_k4[0],
+             bound_by=bound_k4[1], **line)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

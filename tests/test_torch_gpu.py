@@ -1,9 +1,11 @@
-"""K1, K2, K3, K7a and K7b on the card. K1, the nvcc-built CUDA kernel
+"""K1, K4, K2, K3, K7a and K7b on the card. K1, the nvcc-built CUDA kernel
 (kernels/csrc/ag_kernel.cu), against its plain PyTorch version at the
 main path's shape (Lorenz-96 D=20, N=161, L=8, B=4), f64 to 1e-12 and
 f32 to 2e-5 relative (the card sums in another order than the plain
 version); its launch count, its autograd Function, and a short f64
-ladder through it. K2 and K3 (kernels/csrc/solve_kernel.cu) against
+ladder through it. K4, the compensated entry of the same source: its
+combined value within 2e-6 (f32; 1e-12 in f64) of the plain version's,
+its gradient bit-equal to K1's. K2 and K3 (kernels/csrc/solve_kernel.cu) against
 their plain versions in f64: the same niter, nfev and status on short
 solves, the same actions over a short ladder, and bit-identical repeats;
 K2's bounded branch likewise, and feasible. K7a and K7b
@@ -82,6 +84,37 @@ def test_kernel_matches_plain(cuda, dtype, tol):
         assert torch.all(torch.abs(G - G_r) <= tol * scale)
         A2, G2 = ag.ag_kernel(Z, rf, c)           # no atomics: repeatable
         assert torch.equal(A, A2) and torch.equal(G, G2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-6)])
+def test_comp_kernel_matches_plain(cuda, dtype, tol):
+    """K4: the combined value (float64 combine) within ``tol`` relative of
+    its plain version's, the gradient bit-equal to K1's on the same
+    input, one count per launch, repeats bit-identical."""
+    spec, tw = _main_spec()
+    c = ag.ag_consts(spec, cuda, dtype, compensated=True)
+    Z = torch.tensor(_draw(spec, tw, 4), dtype=dtype, device=cuda)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for beta in (0, 50, 100):
+            rf = float(4e-6 * tw["RM"] * 1.5 ** beta)
+            n0 = ag.COMP_LAUNCHES
+            A, G, C = ag.ag_kernel(Z, rf, c, compensated=True)
+            torch.cuda.synchronize()
+            assert ag.COMP_LAUNCHES == n0 + 1
+            A1, G1 = ag.ag_kernel(Z, rf, c)
+            assert torch.equal(A, A1) and torch.equal(G, G1)
+            A_r, _, C_r = ag.ag_reference(Z, rf, c, compensated=True)
+            v, v_r = ag.combine(C, rf, c), ag.combine(C_r, rf, c)
+            assert v.dtype == torch.float64
+            assert torch.all(torch.abs(v - v_r) <= tol * torch.abs(v_r))
+            A2, G2, C2 = ag.ag_kernel(Z, rf, c, compensated=True)
+            assert torch.equal(C, C2) and torch.equal(G, G2)
+            assert torch.all(C[:, 4:] == 0)
+    finally:
+        torch.set_default_dtype(old)
 
 
 def test_autograd_and_dispatch(cuda):

@@ -32,6 +32,10 @@ def test_import_leaves_jax_out():
             "import varanneal_tpu_torch.api, varanneal_tpu_torch.io\n"
             "import varanneal_tpu_torch.va_ode\n"
             "import varanneal_tpu_torch.bench\n"
+            "import varanneal_tpu_torch.anneal.checkpoint\n"
+            "import varanneal_tpu_torch.opt.lbfgsb\n"
+            "import varanneal_tpu_torch.config\n"
+            "import varanneal_tpu_torch.__main__\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -123,14 +123,15 @@ def test_ended_members_stay_frozen():
 
 
 def test_waiting_paths_raise():
-    """The subspace L-BFGS-B (opt/lbfgsb.py) waits for a later slice: with
-    bounds, bounded_algo='subspace' raises; an unknown direction or
-    bounded_algo is refused."""
+    """With bounds, bounded_algo='subspace' runs the subspace L-BFGS-B
+    (opt/lbfgsb.py; it raised until that module was ported); an unknown
+    direction or bounded_algo is refused."""
     x0 = torch.zeros(2, 3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lbfgs_minimize(_rosen_vag_torch, x0, lower=-torch.ones(3),
-                       device="cpu",
-                       opts=LBFGSOptions(bounded_algo="subspace"))
+    res = lbfgs_minimize(_rosen_vag_torch, x0, lower=-torch.ones(3),
+                         device="cpu",
+                         opts=LBFGSOptions(bounded_algo="subspace"))
+    assert res.x.shape == (2, 3) and bool(torch.all(res.x >= -1.0))
+    assert bool(torch.all(res.niter > 0))
     with pytest.raises(ValueError):
         lbfgs_minimize(_rosen_vag_torch, x0, device="cpu",
                        opts=LBFGSOptions(direction="qr"))

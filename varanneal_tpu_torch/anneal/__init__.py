@@ -1,5 +1,8 @@
 """Precision-annealing ladder."""
 
-from varanneal_tpu_torch.anneal.ladder import run_ladder, LadderResult
+from varanneal_tpu_torch.anneal.ladder import (run_ladder, LadderResult,
+                                               aggregate_repeats)
+from varanneal_tpu_torch.anneal.checkpoint import run_ladder_checkpointed
 
-__all__ = ["run_ladder", "LadderResult"]
+__all__ = ["run_ladder", "LadderResult", "aggregate_repeats",
+           "run_ladder_checkpointed"]

@@ -10,9 +10,10 @@ decision vectors.
 
 ``rung_solver`` replaces the inner minimizer, as in the JAX ladder (the
 whole-rung kernel K2, ``kernels.solve.make_rung_solver``). Box bounds
-run the bounded L-BFGS (``opt.lbfgs``, projection algorithm), and
-``rf_max``/``rf_min`` cap and floor each rung's precision.
-``aggregate_repeats``, ``LadderResult.snapshot`` and the other inner
+run the bounded L-BFGS (``opt.lbfgs``), and ``rf_max``/``rf_min`` cap
+and floor each rung's precision. :func:`aggregate_repeats` collapses the
+per-dispatch records of a ladder whose rungs were re-minimized several
+times (``anneal/checkpoint.py``) to per-rung records. The other inner
 solvers wait for later slices (ROADMAP.md).
 """
 
@@ -37,6 +38,36 @@ class LadderResult(NamedTuple):
     nfev: torch.Tensor      # (B, Nbeta) action+grad evaluations
     pgnorm: torch.Tensor    # (B, Nbeta)
     paths: Optional[torch.Tensor]   # (B, Nbeta, n_dof) if stored
+    snapshot: Optional[torch.Tensor] = None   # decision vectors after
+    #                         ``snapshot_beta`` rungs (anneal/checkpoint.py)
+
+
+def aggregate_repeats(res: LadderResult, n_rung: int, repeats: int,
+                      rec_ax: int = 0) -> LadderResult:
+    """Collapse per-dispatch records (each rung re-minimized ``repeats``
+    times, warm-started) to per-rung records, the β axis of the records
+    being ``rec_ax`` (1 for a batch of members): A/ME/FE/status/pgnorm
+    and the paths take each rung's last repeat, niter/nfev sum over its
+    repeats."""
+    if repeats == 1:
+        return res
+
+    def _reshape(a):
+        shp = (tuple(a.shape[:rec_ax]) + (n_rung, repeats)
+               + tuple(a.shape[rec_ax + 1:]))
+        return a.reshape(shp)
+
+    def _last(a):
+        return _reshape(a).select(rec_ax + 1, repeats - 1)
+
+    def _sum(a):
+        return _reshape(a).sum(dim=rec_ax + 1, dtype=a.dtype)
+
+    paths = None if res.paths is None else _last(res.paths)
+    return res._replace(
+        A=_last(res.A), ME=_last(res.ME), FE=_last(res.FE),
+        status=_last(res.status), pgnorm=_last(res.pgnorm),
+        niter=_sum(res.niter), nfev=_sum(res.nfev), paths=paths)
 
 
 def rung_rf(rf0, alpha, beta, dtype, rf_min=None, rf_max=None):

@@ -9,6 +9,13 @@ with the rung solver that ``kernels.solve.pick_rung_solver`` picks: with
 the default ``method='L-BFGS-B'`` and ``solver='auto'`` on the card,
 the whole-rung kernel K2 (bounded or not) inside its envelope, else the
 generic L-BFGS loop over the action of ``kernels.fe.select_action``.
+``compensated=True`` sums the action with the two-float tree
+(``ops.action.comp_sum``): ``engine='ag'`` through K4
+(``kernels.ag.make_action_ag(compensated=True)``), otherwise the
+compensated autograd action, always on the generic loop.
+``checkpoint_path=``, ``repeats > 1`` and ``snapshot_beta=`` run the
+ladder through ``anneal.checkpoint.run_ladder_checkpointed``, and the
+snapshot is stored as ``XP_snapshot``.
 
 The device is the constructor's: ``Annealer(device=None)`` means the
 CUDA card and raises without one; ``Annealer(device="cpu")`` runs the
@@ -17,11 +24,8 @@ the JAX facade does off the TPU. ``anneal``'s signature stays the
 reference's.
 
 What waits for later slices (ROADMAP.md) raises NotImplementedError
-naming its item: ``method`` LM/GN/TNC/CG/NCG (§1 item 6),
-``checkpoint_path=``, ``repeats > 1`` and ``snapshot_beta=``
-(``anneal/checkpoint.py``, §1 item 4), ``compensated=True`` (K4, §1 item
-3), ``engine='pallas'`` (K6) and ``bounded_algo='subspace'`` with bounds
-(``opt/lbfgsb.py``, §1 item 1).
+naming its item: ``method`` LM/GN/TNC/CG/NCG (§1 item 6) and
+``engine='pallas'`` (K6).
 
 Exit flags are mapped to SciPy-like codes: 0 converged (pgtol or ftol),
 1 maxiter exhausted, 2 line-search failure.
@@ -35,10 +39,12 @@ import torch
 
 from varanneal_tpu_torch import io as vio
 from varanneal_tpu_torch._device import resolve_device
+from varanneal_tpu_torch.anneal.checkpoint import run_ladder_checkpointed
 from varanneal_tpu_torch.anneal.ladder import run_ladder
+from varanneal_tpu_torch.kernels import ag
 from varanneal_tpu_torch.kernels.fe import select_action
 from varanneal_tpu_torch.kernels.solve import pick_rung_solver
-from varanneal_tpu_torch.ops.action import pack
+from varanneal_tpu_torch.ops.action import make_action, pack
 from varanneal_tpu_torch.ops.spec import (_insert_midpoints, _interp_grid,
                                           build_spec, canonical_R)
 from varanneal_tpu_torch.opt.lbfgs import LBFGSOptions
@@ -217,10 +223,11 @@ class Annealer:
         same shapes as RF0. ``solver``: 'auto' (the whole-rung kernel K2
         where ``kernels.solve.solve_preferred`` holds, else the generic
         loop), 'generic' or 'fused' (K2 wherever ``solve_supported`` holds,
-        else a warning and the generic loop). The kwargs of the module
-        docstring's list raise NotImplementedError; ``checkpoint_every``,
-        ``resume`` and ``checkpoint_meta`` only act with
-        ``checkpoint_path``."""
+        else a warning and the generic loop). ``compensated``,
+        ``checkpoint_path``/``checkpoint_every``/``resume``, ``repeats``,
+        ``snapshot_beta`` and ``checkpoint_meta`` act as the reference's
+        (see the module docstring). The kwargs of the module docstring's
+        list raise NotImplementedError."""
         if self.f is None or self.data is None:
             raise RuntimeError("call set_model and set_data before anneal")
         if action != "A_gaussian":
@@ -231,16 +238,7 @@ class Annealer:
         if method not in ("L-BFGS-B", "LBFGS"):
             raise _waits(f"method={method!r} (opt/lm, opt/tnc, opt/ncg)",
                          "item 6")
-        if checkpoint_path is not None:
-            raise _waits("checkpoint_path= (anneal/checkpoint.py)", "item 4")
-        if int(repeats) > 1:
-            raise _waits("repeats > 1 (anneal/checkpoint.py)", "item 4")
-        if snapshot_beta is not None:
-            raise _waits("snapshot_beta= (anneal/checkpoint.py)", "item 4")
-        if compensated:
-            raise _waits("compensated=True (ops.action.comp_sum and K4)",
-                         "item 3")
-        del adolcID, checkpoint_every, resume, checkpoint_meta
+        del adolcID
         dtype = _np_dtype(torch.get_default_dtype() if dtype is None
                           else dtype)
         tdtype = torch.float32 if dtype == np.float32 else torch.float64
@@ -284,24 +282,55 @@ class Annealer:
         opts = make_lbfgs_options(opt_args, dtype)
         betas = np.asarray(beta_array, dtype=dtype)
 
-        act, parts = select_action(spec, rf0, engine=engine, dtype=tdtype,
-                                   device=device)
-        # the kernel takes a scalar rf: gate on the shape the rungs' rf
+        # the kernels take a scalar rf: gate on the shape the rungs' rf
         # takes once the caps and floors are applied
         rf_shape = np.broadcast(*(r for r in (rf0, rf_max, rf_min)
                                   if r is not None))
         rf_gate = rf0 if rf_shape.ndim == 0 else np.zeros(rf_shape.shape)
+        if compensated:
+            if engine == "pallas":
+                raise ValueError(
+                    "compensated=True is implemented on the XLA engine and "
+                    "the whole-problem 'ag' kernel (in-kernel two-float "
+                    "reductions), not the blocked FE kernel")
+            if engine == "ag":
+                if not ag.ag_supported(spec, rf_gate, tdtype,
+                                       compensated=True):
+                    raise ValueError(
+                        "engine='ag' unsupported for this problem (disc/rf/"
+                        "RM shape/time-dep params/shared memory); the "
+                        "compensated XLA engine (engine='auto') serves it")
+                act, parts = ag.make_action_ag(spec, device=device,
+                                               dtype=tdtype,
+                                               compensated=True)
+                act.engine = "ag"
+            else:
+                act, parts = make_action(spec, device=device,
+                                         compensated=True)
+                act.engine = "xla"
+        else:
+            act, parts = select_action(spec, rf0, engine=engine,
+                                       dtype=tdtype, device=device)
         rung_solver = pick_rung_solver(
             spec, rf_gate, opts, solver=solver, lower=lower, upper=upper,
             dtype=tdtype, compensated=compensated, engine=engine,
             method=method, device=device)
 
         t0 = time.time()
-        res = run_ladder(act, parts, torch.as_tensor(XP0, device=device),
-                         betas, rf0, float(alpha), lower=lower, upper=upper,
-                         opts=opts, store_paths=track_paths, rf_max=rf_max,
-                         rf_min=rf_min, rung_solver=rung_solver,
-                         device=device)
+        repeats = max(1, int(repeats))
+        xp0 = torch.as_tensor(XP0, device=device)
+        kw = dict(lower=lower, upper=upper, opts=opts,
+                  store_paths=track_paths, rf_max=rf_max, rf_min=rf_min,
+                  rung_solver=rung_solver, device=device)
+        if (checkpoint_path is not None or repeats > 1
+                or snapshot_beta is not None):
+            res = run_ladder_checkpointed(
+                act, parts, xp0, betas, rf0, float(alpha),
+                ckpt_path=checkpoint_path, save_every=checkpoint_every,
+                resume=resume, verbose=verbose, repeats=repeats,
+                snapshot_beta=snapshot_beta, meta=checkpoint_meta, **kw)
+        else:
+            res = run_ladder(act, parts, xp0, betas, rf0, float(alpha), **kw)
         res = type(res)(*(None if v is None else v.detach().cpu().numpy()
                           for v in res))
         t1 = time.time()
@@ -322,7 +351,7 @@ class Annealer:
         self.nfev_array = res.nfev
         self.pgnorm_array = res.pgnorm
         self.XP_final = res.XP
-        self.XP_snapshot = None
+        self.XP_snapshot = res.snapshot
         if track_paths:
             self.minpaths = res.paths
         else:

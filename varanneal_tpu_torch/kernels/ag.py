@@ -1,16 +1,26 @@
-"""K1: the fused Lorenz-96 action + gradient, one launch per evaluation.
+"""K1 and K4: the fused Lorenz-96 action + gradient, one launch per
+evaluation, plain (K1) or with compensated sums (K4).
 
 Counterpart of ``varanneal_tpu/kernels/ag_pallas.py`` (``ag_supported``,
-``embed_consts``, ``make_action_ag``), whose ``_ag_kernel`` this replaces
-on the card with the hand-written CUDA kernel in ``csrc/ag_kernel.cu``
-(the source notes what bounds it and what its design does about that).
-Beside the kernel this module holds:
+``embed_consts``, ``make_action_ag``, ``_combine``), whose ``_ag_kernel``
+this replaces on the card with the hand-written CUDA kernels in
+``csrc/ag_kernel.cu`` (the source notes what bounds them and what their
+design does about that). K4 is ``_ag_kernel(comp=True)``: K1's value and
+gradient plus a (B, 6) row of two-float sums of the ME terms and of the
+unweighted FE terms, which :func:`combine` joins and scales in the combine
+dtype of ``ops.action`` (float64 for an f32 path when torch's default
+dtype is float64), so that ``make_action_ag(compensated=True)`` returns
+the compensated action's value with K1's f32 gradient. Beside the kernels
+this module holds:
 
 - :func:`ag_reference`, a plain PyTorch version that spells out the same
   hand adjoint (f, Jᵀv, the two-residual gradient) rather than calling
   autograd, so the CPU tests check the arithmetic the CUDA code does;
-- :data:`LAUNCHES`, a plain count of kernel launches;
-- :func:`ag_supported`, the kernel's envelope.
+  with ``compensated=True`` it also returns K4's row, the same terms
+  summed by ``ops.action.comp_sum_pair``;
+- :data:`LAUNCHES` (K1) and :data:`COMP_LAUNCHES` (K4), plain counts of
+  kernel launches;
+- :func:`ag_supported`, the kernels' envelope.
 
 :func:`action_and_grad` takes the plain version only for tensors on the
 CPU. For a CUDA tensor it launches the kernel or raises; it never falls
@@ -28,8 +38,10 @@ from varanneal_tpu_torch.models.lorenz import lorenz96
 from varanneal_tpu_torch.ops import action as _action
 from varanneal_tpu_torch.ops.spec import ProblemSpec
 
-#: Kernel launches so far; each successful launch adds one.
+#: K1 launches so far; each successful launch adds one.
 LAUNCHES = 0
+#: K4 (compensated) launches so far; each successful launch adds one.
+COMP_LAUNCHES = 0
 
 #: Shared memory one H100 block can opt into (227 KB).
 SMEM_LIMIT = 232448
@@ -37,9 +49,11 @@ _THREADS = 256          # kThreads in csrc/ag_kernel.cu
 _DTYPES = (torch.float32, torch.float64)
 
 
-def _smem_bytes(N_f, D, dtype):
-    return ((N_f - 1) * D + 3 * (_THREADS // 32)) * (
-        torch.finfo(dtype).bits // 8)
+def _smem_bytes(N_f, D, dtype, compensated=False):
+    """l96_ag_smem_elems in bytes: the residuals and the reduction
+    partials, with K4's (hi, lo) partials when ``compensated``."""
+    parts = (7 if compensated else 3) * (_THREADS // 32)
+    return ((N_f - 1) * D + parts) * (torch.finfo(dtype).bits // 8)
 
 
 def _uniform_grid(spec: ProblemSpec) -> bool:
@@ -48,12 +62,13 @@ def _uniform_grid(spec: ProblemSpec) -> bool:
     return bool(np.allclose(t_f, ref, rtol=1e-12, atol=1e-9))
 
 
-def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32) -> bool:
-    """The kernel's envelope: trapezoid rule, Lorenz-96 (the port's
+def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
+                 compensated=False) -> bool:
+    """The kernels' envelope: trapezoid rule, Lorenz-96 (the port's
     ``models.lorenz.lorenz96``) with constant parameters and no stimulus,
     F estimated or fixed, scalar rf, scalar or (N_data, L) RM, a uniform
     grid, f32 or f64, and the (N_f-1, D) residuals fitting in one block's
-    shared memory."""
+    shared memory (with K4's partials when ``compensated``)."""
     NP = spec.NP
     return (spec.disc == "trapezoid"
             and spec.f is lorenz96
@@ -66,7 +81,8 @@ def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32) -> bool:
             and np.ndim(spec.RM) in (0, 2)
             and dtype in _DTYPES
             and _uniform_grid(spec)
-            and _smem_bytes(spec.N_f, spec.D, dtype) <= SMEM_LIMIT)
+            and _smem_bytes(spec.N_f, spec.D, dtype,
+                            compensated) <= SMEM_LIMIT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +111,10 @@ class AgConsts:
     dtype: torch.dtype
 
 
-def ag_consts(spec: ProblemSpec, device, dtype) -> AgConsts:
+def ag_consts(spec: ProblemSpec, device, dtype,
+              compensated=False) -> AgConsts:
     """Build :class:`AgConsts` for ``spec`` (which must be supported)."""
-    if not ag_supported(spec, 0.0, dtype):
+    if not ag_supported(spec, 0.0, dtype, compensated):
         raise ValueError("problem outside the ag kernel's envelope (see "
                          "ag_supported); use ops.action.make_action")
     L = spec.L
@@ -140,9 +157,12 @@ def measurement_error(X, c: AgConsts):
     return diff, _scalar(c.me_norm, X.dtype) * me
 
 
-def ag_reference(XP, rf, c: AgConsts):
+def ag_reference(XP, rf, c: AgConsts, compensated=False):
     """Plain PyTorch action and gradient with the kernel's hand adjoint.
-    ``XP`` (B, n_dof) -> (A (B,), dA/dXP (B, n_dof))."""
+    ``XP`` (B, n_dof) -> (A (B,), dA/dXP (B, n_dof)); with
+    ``compensated`` also K4's row (B, 6): the two-float sums
+    [me_hi, me_lo, fe_hi, fe_lo, 0, 0] of the ME terms (W·diff)·diff and
+    of the unweighted FE terms r·r, by ``ops.action.comp_sum_pair``."""
     B = XP.shape[0]
     dt = XP.dtype
     X = XP[:, : c.n_state].reshape(B, c.N, c.D)
@@ -178,7 +198,26 @@ def ag_reference(XP, rf, c: AgConsts):
     parts = [gX.reshape(B, c.n_state)]
     if c.pslot >= 0:
         parts.append((-c2 * h * sr)[:, None])
-    return A, torch.cat(parts, dim=1)
+    G = torch.cat(parts, dim=1)
+    if not compensated:
+        return A, G
+    me_hi, me_lo = _action.comp_sum_pair(c.W * diff * diff, 2)
+    fe_hi, fe_lo = _action.comp_sum_pair(r * r, 2)
+    z = torch.zeros_like(me_hi)
+    return A, G, torch.stack([me_hi, me_lo, fe_hi, fe_lo, z, z], dim=1)
+
+
+def combine(C, rf, c: AgConsts):
+    """The compensated action from K4's rows ``C`` (B, 6), the reference's
+    ``_combine``: me = (c0 + c1)·me_norm, fe = rf·(c2 + c3 + c4 + c5),
+    A = me + fe·fe_norm, in ``ops.action.combine_dtype`` of C's dtype, rf
+    rounded to C's dtype first as the kernel receives it."""
+    dt = _action.combine_dtype(C.dtype)
+    rf = _scalar(rf, C.dtype)
+    C = C.to(dt)
+    me = (C[:, 0] + C[:, 1]) * c.me_norm
+    fe = rf * (C[:, 2] + C[:, 3] + C[:, 4] + C[:, 5])
+    return me + fe * c.fe_norm
 
 
 def _lib():
@@ -186,22 +225,27 @@ def _lib():
     lib = _build.load("ag_kernel").lib
     if not getattr(lib, "_va_typed", False):
         P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        args = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl,
+                Dbl, Dbl, P, P]
         for fn in (lib.va_l96_ag_trap_f32, lib.va_l96_ag_trap_f64):
             fn.restype = I
-            fn.argtypes = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I,
-                           Dbl, Dbl, Dbl, Dbl, P, P, P]
+            fn.argtypes = args + [P]
+        for fn in (lib.va_l96_ag_trap_comp_f32, lib.va_l96_ag_trap_comp_f64):
+            fn.restype = I
+            fn.argtypes = args + [P, P]
         lib.va_cuda_error_string.restype = ctypes.c_char_p
         lib.va_cuda_error_string.argtypes = [I]
         lib._va_typed = True
     return lib
 
 
-def ag_kernel(XP, rf, c: AgConsts):
-    """Launch the CUDA kernel on ``XP`` (B, n_dof), a contiguous CUDA
-    tensor of ``c``'s dtype on ``c``'s device. Returns (A, dA/dXP) on
-    PyTorch's current stream, without synchronizing. Raises on anything
-    the kernel does not take and on a refused launch."""
-    global LAUNCHES
+def ag_kernel(XP, rf, c: AgConsts, compensated=False):
+    """Launch K1 (K4 when ``compensated``) on ``XP`` (B, n_dof), a
+    contiguous CUDA tensor of ``c``'s dtype on ``c``'s device. Returns
+    (A, dA/dXP), and K4's (B, 6) row when ``compensated``, on PyTorch's
+    current stream, without synchronizing. Raises on anything the kernel
+    does not take and on a refused launch."""
+    global LAUNCHES, COMP_LAUNCHES
     if XP.device.type != "cuda" or XP.device != c.device:
         raise ValueError(f"XP is on {XP.device}; the kernel's constants "
                          f"are on {c.device}")
@@ -212,29 +256,40 @@ def ag_kernel(XP, rf, c: AgConsts):
     B = XP.shape[0]
     A = torch.empty(B, dtype=c.dtype, device=XP.device)
     G = torch.empty_like(XP)
+    C = (torch.empty(B, 6, dtype=c.dtype, device=XP.device) if compensated
+         else None)
     if B == 0:
-        return A, G
+        return (A, G, C) if compensated else (A, G)
     lib = _lib()
-    fn = (lib.va_l96_ag_trap_f32 if c.dtype == torch.float32
-          else lib.va_l96_ag_trap_f64)
+    f32 = c.dtype == torch.float32
+    if compensated:
+        fn = (lib.va_l96_ag_trap_comp_f32 if f32
+              else lib.va_l96_ag_trap_comp_f64)
+        outs = (A.data_ptr(), G.data_ptr(), C.data_ptr())
+    else:
+        fn = lib.va_l96_ag_trap_f32 if f32 else lib.va_l96_ag_trap_f64
+        outs = (A.data_ptr(), G.data_ptr())
     with torch.cuda.device(XP.device):
         stream = torch.cuda.current_stream(XP.device).cuda_stream
         rc = fn(XP.data_ptr(), B, c.n_dof, c.N, c.D, c.pslot, c.F_fixed,
                 c.Y.data_ptr(), c.W.data_ptr(), c.lidx.data_ptr(),
                 c.lpos.data_ptr(), c.N_data, c.L, c.obs_stride, c.h,
-                float(rf), c.me_norm, c.fe_norm, A.data_ptr(),
-                G.data_ptr(), stream)
+                float(rf), c.me_norm, c.fe_norm, *outs, stream)
     if rc != 0:
         raise RuntimeError(
             f"ag kernel launch failed: cudaError {rc} "
             f"({lib.va_cuda_error_string(rc).decode()})")
+    if compensated:
+        COMP_LAUNCHES += 1
+        return A, G, C
     LAUNCHES += 1
     return A, G
 
 
-def action_and_grad(XP, rf, c: AgConsts):
+def action_and_grad(XP, rf, c: AgConsts, compensated=False):
     """(A, dA/dXP) for ``XP`` (..., n_dof): the plain version for a CPU
-    tensor, the kernel for a CUDA tensor."""
+    tensor, the kernel for a CUDA tensor. ``compensated``: K4, and A is
+    the combined value (:func:`combine`), the gradient K1's."""
     if np.ndim(rf) != 0:
         raise ValueError("the ag kernel takes a scalar rf only")
     lead = tuple(XP.shape[:-1])
@@ -243,45 +298,55 @@ def action_and_grad(XP, rf, c: AgConsts):
         if XP.device != c.device:
             raise ValueError(f"XP is on {XP.device}; the constants are on "
                              f"{c.device}")
-        A, G = ag_reference(XP2, rf, c)
+        out = ag_reference(XP2, rf, c, compensated)
     else:
-        A, G = ag_kernel(XP2, rf, c)
+        out = ag_kernel(XP2, rf, c, compensated)
+    A, G = out[0], out[1]
+    if compensated:
+        A = combine(out[2], rf, c)
     return A.reshape(lead), G.reshape(lead + (c.n_dof,))
 
 
 class _AgAction(torch.autograd.Function):
     """The action with the kernel's gradient saved by the forward; the
-    backward only scales it (``ag_pallas.py``'s ``action_bwd``)."""
+    backward only scales it, the incoming gradient cast to the kernel's
+    dtype first (``ag_pallas.py``'s ``action_bwd``)."""
 
     @staticmethod
-    def forward(ctx, XP, rf, c):
-        A, G = action_and_grad(XP, rf, c)
+    def forward(ctx, XP, rf, c, compensated):
+        A, G = action_and_grad(XP, rf, c, compensated)
         ctx.save_for_backward(G)
         return A
 
     @staticmethod
     def backward(ctx, gA):
         (G,) = ctx.saved_tensors
-        return gA[..., None] * G, None, None
+        return gA.to(G.dtype)[..., None] * G, None, None, None
 
 
-def make_action_ag(spec: ProblemSpec, device=None, dtype=torch.float32):
+def make_action_ag(spec: ProblemSpec, device=None, dtype=torch.float32,
+                   compensated=False):
     """Build ``(action, action_parts)`` with the fused kernel.
     ``action(XP, rf)`` is differentiable by autograd and carries
     ``action.value_and_grad(XP, rf) -> (A, dA/dXP)``, one launch for both,
     which the solver calls directly. ``action_parts`` is the plain action
-    (``ops.action``), used once per rung for the records. ``device=None``
-    means the CUDA card. Raises ValueError outside :func:`ag_supported`."""
+    (``ops.action``), used once per rung for the records.
+    ``compensated=True`` runs K4: the value is the compensated action's,
+    in ``ops.action.combine_dtype(dtype)``, the gradient K1's; the records
+    come from the compensated autograd action, as in the reference.
+    ``device=None`` means the CUDA card. Raises ValueError outside
+    :func:`ag_supported`."""
     device = resolve_device(device)
-    c = ag_consts(spec, device, dtype)
+    comp = bool(compensated)
+    c = ag_consts(spec, device, dtype, comp)
 
     def action(XP, rf):
-        return _AgAction.apply(XP, rf, c)
+        return _AgAction.apply(XP, rf, c, comp)
 
     def value_and_grad(XP, rf):
-        return action_and_grad(XP, rf, c)
+        return action_and_grad(XP, rf, c, comp)
 
     action.value_and_grad = value_and_grad
     action.consts = c
-    _, parts = _action.make_action(spec, device=device)
+    _, parts = _action.make_action(spec, device=device, compensated=comp)
     return action, parts

@@ -32,6 +32,21 @@
 // (per-thread strided partials, a warp shuffle tree, then thread 0 over
 // the warps in order), with no atomics: repeated launches give
 // bit-identical results.
+//
+// K4, the compensated entry (va_l96_ag_trap_comp_*), replaces the same
+// Pallas kernel with comp=True (ag_pallas.py::_ag_kernel's comp branch and
+// comp_sum_block). It is K1 plus a (B, 6) row of two-float sums
+// [me_hi, me_lo, fe1_hi, fe1_lo, fe2_hi, fe2_lo] of the ME terms and of
+// the unweighted FE terms r^2, which the wrapper joins in f64 and scales
+// by rf and the norms (ag.py::combine), so that an f32 action keeps an
+// ~f64-accurate value at high rf. Its plain value and gradient are K1's,
+// bit for bit (the same block routine; the gradient rides the plain
+// forward, as in the reference). Bound as K1: per term it adds a TwoSum
+// (6 rounded operations and a product), ~8 operations per state entry on
+// top of K1's ~40, and 48 bytes a member of output; it stays bound by
+// launch latency and the block's serial depth. The per-thread pairs are
+// joined down a warp shuffle tree and then over the warps in order by
+// thread 0, with no atomics, so repeats are bit-identical.
 
 #include <cuda_runtime.h>
 
@@ -57,27 +72,58 @@ __global__ void __launch_bounds__(kThreads) l96_ag_trap_kernel(
                            reinterpret_cast<T*>(smem_raw), A_out + b);
 }
 
+// K4: K1 plus the (B, 6) row of two-float sums (see the note above).
 template <typename T>
+__global__ void __launch_bounds__(kThreads) l96_ag_trap_comp_kernel(
+        const T* __restrict__ XP, int n_dof, int N, int D, int pslot,
+        T F_fixed, const T* __restrict__ Y, const T* __restrict__ W,
+        const int* __restrict__ lidx, const int* __restrict__ lpos,
+        int N_data, int L, int obs_stride, T h, T rf, T me_norm, T fe_norm,
+        T* __restrict__ A_out, T* __restrict__ G_out,
+        T* __restrict__ C_out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const L96Problem<T> p{n_dof, N, D, pslot, F_fixed, Y, W, lidx, lpos,
+                          N_data, L, obs_stride, h, me_norm, fe_norm};
+    const int b = blockIdx.x;
+    l96_ag_block<T, false, true>(p, XP + (size_t)b * n_dof, rf,
+                                 G_out + (size_t)b * n_dof,
+                                 reinterpret_cast<T*>(smem_raw), A_out + b,
+                                 C_out + (size_t)b * 6);
+}
+
+template <typename T, bool kComp>
 int launch(const void* XP, int B, int n_dof, int N, int D, int pslot,
            double F_fixed, const void* Y, const void* W, const void* lidx,
            const void* lpos, int N_data, int L, int obs_stride, double h,
            double rf, double me_norm, double fe_norm, void* A_out,
-           void* G_out, void* stream) {
-    const size_t smem = l96_ag_smem_elems(N, D) * sizeof(T);
+           void* G_out, void* C_out, void* stream) {
+    const size_t smem = l96_ag_smem_elems(N, D, kComp) * sizeof(T);
+    const void* fn = kComp ? (const void*)l96_ag_trap_comp_kernel<T>
+                           : (const void*)l96_ag_trap_kernel<T>;
     if (smem > 48 * 1024) {
         // above 48 KB only as opted-in dynamic shared memory; a launch
         // without the opt-in is refused and never runs
         const cudaError_t e = cudaFuncSetAttribute(
-            l96_ag_trap_kernel<T>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    l96_ag_trap_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        static_cast<const T*>(XP), n_dof, N, D, pslot, (T)F_fixed,
-        static_cast<const T*>(Y), static_cast<const T*>(W),
-        static_cast<const int*>(lidx), static_cast<const int*>(lpos),
-        N_data, L, obs_stride, (T)h, (T)rf, (T)me_norm, (T)fe_norm,
-        static_cast<T*>(A_out), static_cast<T*>(G_out));
+    if constexpr (kComp) {
+        l96_ag_trap_comp_kernel<T>
+            <<<B, kThreads, smem, (cudaStream_t)stream>>>(
+                static_cast<const T*>(XP), n_dof, N, D, pslot, (T)F_fixed,
+                static_cast<const T*>(Y), static_cast<const T*>(W),
+                static_cast<const int*>(lidx), static_cast<const int*>(lpos),
+                N_data, L, obs_stride, (T)h, (T)rf, (T)me_norm, (T)fe_norm,
+                static_cast<T*>(A_out), static_cast<T*>(G_out),
+                static_cast<T*>(C_out));
+    } else {
+        l96_ag_trap_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+            static_cast<const T*>(XP), n_dof, N, D, pslot, (T)F_fixed,
+            static_cast<const T*>(Y), static_cast<const T*>(W),
+            static_cast<const int*>(lidx), static_cast<const int*>(lpos),
+            N_data, L, obs_stride, (T)h, (T)rf, (T)me_norm, (T)fe_norm,
+            static_cast<T*>(A_out), static_cast<T*>(G_out));
+    }
     return (int)cudaGetLastError();
 }
 
@@ -94,9 +140,10 @@ int va_l96_ag_trap_f32(const void* XP, int B, int n_dof, int N, int D,
                        int N_data, int L, int obs_stride, double h,
                        double rf, double me_norm, double fe_norm,
                        void* A_out, void* G_out, void* stream) {
-    return launch<float>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W, lidx,
-                         lpos, N_data, L, obs_stride, h, rf, me_norm,
-                         fe_norm, A_out, G_out, stream);
+    return launch<float, false>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
+                                lidx, lpos, N_data, L, obs_stride, h, rf,
+                                me_norm, fe_norm, A_out, G_out, nullptr,
+                                stream);
 }
 
 int va_l96_ag_trap_f64(const void* XP, int B, int n_dof, int N, int D,
@@ -105,9 +152,37 @@ int va_l96_ag_trap_f64(const void* XP, int B, int n_dof, int N, int D,
                        int N_data, int L, int obs_stride, double h,
                        double rf, double me_norm, double fe_norm,
                        void* A_out, void* G_out, void* stream) {
-    return launch<double>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W, lidx,
-                          lpos, N_data, L, obs_stride, h, rf, me_norm,
-                          fe_norm, A_out, G_out, stream);
+    return launch<double, false>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
+                                 lidx, lpos, N_data, L, obs_stride, h, rf,
+                                 me_norm, fe_norm, A_out, G_out, nullptr,
+                                 stream);
+}
+
+// K4: the same arguments plus C_out, (B, 6) of the kernel's dtype.
+int va_l96_ag_trap_comp_f32(const void* XP, int B, int n_dof, int N, int D,
+                            int pslot, double F_fixed, const void* Y,
+                            const void* W, const void* lidx,
+                            const void* lpos, int N_data, int L,
+                            int obs_stride, double h, double rf,
+                            double me_norm, double fe_norm, void* A_out,
+                            void* G_out, void* C_out, void* stream) {
+    return launch<float, true>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
+                               lidx, lpos, N_data, L, obs_stride, h, rf,
+                               me_norm, fe_norm, A_out, G_out, C_out,
+                               stream);
+}
+
+int va_l96_ag_trap_comp_f64(const void* XP, int B, int n_dof, int N, int D,
+                            int pslot, double F_fixed, const void* Y,
+                            const void* W, const void* lidx,
+                            const void* lpos, int N_data, int L,
+                            int obs_stride, double h, double rf,
+                            double me_norm, double fe_norm, void* A_out,
+                            void* G_out, void* C_out, void* stream) {
+    return launch<double, true>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
+                                lidx, lpos, N_data, L, obs_stride, h, rf,
+                                me_norm, fe_norm, A_out, G_out, C_out,
+                                stream);
 }
 
 const char* va_cuda_error_string(int code) {

@@ -12,6 +12,16 @@
 // Sums are reduced in a fixed order (per-thread strided partials, a warp
 // shuffle tree, then thread 0 over the warps in order), with no atomics:
 // repeated calls give bit-identical results.
+//
+// With kComp (K4, ag_kernel.cu's compensated entry) the routine also
+// returns the two-float (hi, lo) sums of the unweighted terms: the ME terms
+// (W (x_obs - Y)) (x_obs - Y) and the FE terms r^2. The caller joins and
+// scales them (rf, the norms) in a wider dtype. Every add and subtract of
+// that arithmetic is an explicit round-to-nearest intrinsic and every
+// product of a term one too, so that nvcc can neither contract a product
+// into the following add (its default -fmad=true) nor reorder: TwoSum is
+// exact only so. The plain value and the gradient are computed exactly as
+// without kComp.
 #pragma once
 
 #include "l96_ag.cuh"
@@ -48,10 +58,55 @@ __device__ __forceinline__ T warp_sum(T v) {
     return v;
 }
 
+// Round-to-nearest add, subtract and multiply that are never fused or
+// reordered.
+__device__ __forceinline__ float add_rn(float a, float b) {
+    return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+    return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+    return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+    return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+    return __dmul_rn(a, b);
+}
+
+// (hi, lo) += (b, lo_b) by Knuth's TwoSum: s + e == hi + b exactly, and
+// lo becomes (lo + lo_b) + e, the step of the reference's tree
+// (varanneal_tpu/ops/action.py::comp_sum).
+template <typename T>
+__device__ __forceinline__ void two_join(T& hi, T& lo, T b, T lo_b) {
+    const T s = add_rn(hi, b);
+    const T bb = sub_rn(s, hi);
+    const T e = add_rn(sub_rn(hi, sub_rn(s, bb)), sub_rn(b, bb));
+    hi = s;
+    lo = add_rn(add_rn(lo, lo_b), e);
+}
+
+// The warp's (hi, lo) pairs joined down a shuffle tree into lane 0.
+template <typename T>
+__device__ __forceinline__ void warp_two_sum(T& hi, T& lo) {
+    for (int o = 16; o > 0; o >>= 1) {
+        const T h2 = __shfl_down_sync(0xffffffffu, hi, o);
+        const T l2 = __shfl_down_sync(0xffffffffu, lo, o);
+        two_join(hi, lo, h2, l2);
+    }
+}
+
 // Shared memory the routine needs: the (N-1)*D residuals and 3*kAgWarps
-// reduction partials, in elements of T.
-__host__ __device__ inline size_t l96_ag_smem_elems(int N, int D) {
-    return (size_t)(N - 1) * D + 3 * kAgWarps;
+// reduction partials, plus 4*kAgWarps (hi, lo) partials with kComp, in
+// elements of T.
+__host__ __device__ inline size_t l96_ag_smem_elems(int N, int D,
+                                                    bool comp = false) {
+    return (size_t)(N - 1) * D + (comp ? 7 : 3) * kAgWarps;
 }
 
 // Action and gradient of the member at x (n_dof values, read from global
@@ -59,12 +114,17 @@ __host__ __device__ inline size_t l96_ag_smem_elems(int N, int D) {
 // of the block calls it. Writes the gradient to g (n_dof values) and, from
 // thread 0, out[0] = A and, when kWithMe, out[1] = me_norm * sum W
 // (x_obs - Y)^2 (the normalized measurement error, which the ladder kernel
-// records). smem: l96_ag_smem_elems(N, D) elements.
+// records). With kComp, thread 0 also writes comp[0..5] = [me_hi, me_lo,
+// fe1_hi, fe1_lo, fe2_hi, fe2_lo], the two-float sums of the ME terms and
+// of the unweighted FE terms (fe2, the Hermite plane of the reference's
+// Simpson-Hermite layout, is zero for the trapezoid rule).
+// smem: l96_ag_smem_elems(N, D, kComp) elements.
 // Thread 0 writes g[pslot] and out last: a caller that reads them from
 // another thread synchronizes first.
-template <typename T, bool kWithMe>
+template <typename T, bool kWithMe, bool kComp = false>
 __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
-                             T* __restrict__ g, T* smem, T* out) {
+                             T* __restrict__ g, T* smem, T* out,
+                             T* comp = nullptr) {
     const int N = p.N, D = p.D;
     T* r = smem;                                    // (N-1)*D residuals
     const int n_res = (N - 1) * D;
@@ -73,7 +133,10 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
     const T hh = p.h / T(2);
 
     // pass 1: residuals into shared memory, partial sums of FE, sum r, ME
+    // (and, with kComp, the per-thread two-float sums of the terms)
     T fe = T(0), sr = T(0), me = T(0);
+    [[maybe_unused]] T me_hi = T(0), me_lo = T(0), fe_hi = T(0),
+                       fe_lo = T(0);
     for (int i = threadIdx.x; i < n_res; i += kAgThreads) {
         const int n = i / D;
         const int d = i - n * D;
@@ -84,12 +147,17 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
         r[i] = rr;
         fe += rr * rr;
         sr += rr;
+        if constexpr (kComp) two_join(fe_hi, fe_lo, mul_rn(rr, rr), T(0));
     }
     for (int i = threadIdx.x; i < p.N_data * p.L; i += kAgThreads) {
         const int k = i / p.L;
         const int l = i - k * p.L;
         const T diff = x[(size_t)k * p.obs_stride * D + p.lidx[l]] - p.Y[i];
         me += p.W[i] * diff * diff;
+        if constexpr (kComp) {
+            two_join(me_hi, me_lo, mul_rn(mul_rn(p.W[i], diff), diff),
+                     T(0));
+        }
     }
 
     // fixed-order block reduction of the three sums
@@ -102,6 +170,17 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
         red[warp] = fe;
         red[kAgWarps + warp] = sr;
         red[2 * kAgWarps + warp] = me;
+    }
+    if constexpr (kComp) {
+        warp_two_sum(me_hi, me_lo);
+        warp_two_sum(fe_hi, fe_lo);
+        if (lane == 0) {
+            T* cr = red + 3 * kAgWarps;
+            cr[warp] = me_hi;
+            cr[kAgWarps + warp] = me_lo;
+            cr[2 * kAgWarps + warp] = fe_hi;
+            cr[3 * kAgWarps + warp] = fe_lo;
+        }
     }
     __syncthreads();   // residuals and partials complete
 
@@ -135,5 +214,21 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
         out[0] = p.me_norm * me_t + p.fe_norm * (rf * fe_t);
         if (kWithMe) out[1] = p.me_norm * me_t;
         if (p.pslot >= 0) g[p.pslot] = -c2 * p.h * sr_t;
+        if constexpr (kComp) {
+            // the warps' pairs joined in order
+            const T* cr = red + 3 * kAgWarps;
+            T mh = cr[0], ml = cr[kAgWarps];
+            T fh = cr[2 * kAgWarps], fl = cr[3 * kAgWarps];
+            for (int w = 1; w < kAgWarps; ++w) {
+                two_join(mh, ml, cr[w], cr[kAgWarps + w]);
+                two_join(fh, fl, cr[2 * kAgWarps + w], cr[3 * kAgWarps + w]);
+            }
+            comp[0] = mh;
+            comp[1] = ml;
+            comp[2] = fh;
+            comp[3] = fl;
+            comp[4] = T(0);
+            comp[5] = T(0);
+        }
     }
 }

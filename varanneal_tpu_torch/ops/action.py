@@ -16,8 +16,25 @@ weight the Simpson residuals and odd rows the Hermite ones.
 The decision vector is batched: ``XP`` is ``(..., n_dof)`` and the action
 returns one value per leading index. In the port this action serves the
 per-rung records (``action_parts``), the f64 tail and every problem
-outside the fused kernel's envelope (``kernels/ag.py``). The compensated
-(two-float) sums and the structured-tree variants wait for a later slice.
+outside the fused kernel's envelope (``kernels/ag.py``). The
+structured-tree variants wait for a later slice.
+
+``compensated=True`` sums the ME and FE quadratic terms with
+:func:`comp_sum`, the reference's two-float tree: each member's terms are
+raveled, an odd length is zero-padded, and the halves are added pairwise
+while the exact round-off of every add is carried in a parallel ``lo``
+stream. All elementwise work stays in the decision vector's dtype; only
+the final (hi, lo) pair is joined in the *combine dtype*:
+
+- an f64 decision path combines in float64;
+- an f32 decision path combines in float64 when
+  ``torch.get_default_dtype()`` is float64 (the port's counterpart of the
+  reference's ``jax_enable_x64``, which ``Annealer.anneal(dtype=None)``
+  and the runner without ``--f32`` also read), and in float32 otherwise.
+
+So with float64 as torch's default, a compensated f32 action returns
+float64 values (and float32 gradients): the solver keeps those values in
+their own dtype and x in float32 (``opt/lbfgs.py``).
 """
 
 import dataclasses
@@ -76,40 +93,98 @@ def unpack(spec: ProblemSpec, XP):
     return X, P
 
 
-def _quad(R, d):
+def combine_dtype(dtype):
+    """The dtype in which a compensated sum joins its (hi, lo) pair (see
+    the module docstring)."""
+    if dtype == torch.float32 and torch.get_default_dtype() == torch.float64:
+        return torch.float64
+    return dtype
+
+
+def _two_sum(a, b):
+    """Knuth TwoSum: s + e == a + b exactly (s = fl(a+b), e = the
+    round-off), elementwise."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def comp_sum_pair(x, ndim):
+    """The two-float sum (hi, lo) of the last ``ndim`` axes of ``x``, one
+    pair per leading index, in x's dtype: the reference's tree
+    (``varanneal_tpu/ops/action.py::comp_sum``) run on each leading index
+    at once."""
+    lead = tuple(x.shape[: x.ndim - ndim])
+    hi = x.reshape(lead + (-1,))
+    lo = torch.zeros_like(hi)
+    while hi.shape[-1] > 1:
+        n = hi.shape[-1]
+        if n % 2:
+            z = hi.new_zeros(lead + (1,))
+            hi = torch.cat([hi, z], dim=-1)
+            lo = torch.cat([lo, z], dim=-1)
+            n += 1
+        h1, h2 = hi[..., : n // 2], hi[..., n // 2:]
+        l1, l2 = lo[..., : n // 2], lo[..., n // 2:]
+        hi, e = _two_sum(h1, h2)
+        lo = l1 + l2 + e
+    return hi[..., 0], lo[..., 0]
+
+
+def comp_sum(x, ndim=None):
+    """Compensated sum of the last ``ndim`` axes of ``x`` (all of them by
+    default), joined in :func:`combine_dtype`."""
+    hi, lo = comp_sum_pair(x, x.ndim if ndim is None else ndim)
+    dt = combine_dtype(x.dtype)
+    return hi.to(dt) + lo.to(dt)
+
+
+def _sum2(x, compensated):
+    """Sum over the last two axes, plain or compensated."""
+    if compensated:
+        return comp_sum(x, 2)
+    return torch.sum(x, dim=(-2, -1))
+
+
+def _quad(R, d, compensated=False):
     """Quadratic contraction of R against residual rows d (..., N, K),
     summed over the last two axes: scalar -> R * sum(d^2); (N, K) ->
-    sum(R * d^2); (N, K, K) -> sum_n d_n . R_n . d_n."""
+    sum(R * d^2); (N, K, K) -> sum_n d_n . R_n . d_n. ``compensated``:
+    the terms are formed elementwise (for (N, K, K), the einsum before the
+    sum, as the reference does) and summed by :func:`comp_sum`."""
     if not isinstance(R, torch.Tensor) or R.ndim == 0:
-        return R * torch.sum(d * d, dim=(-2, -1))
+        return R * _sum2(d * d, compensated)
     if R.ndim == 2:
-        return torch.sum(R * d * d, dim=(-2, -1))
+        return _sum2(R * d * d, compensated)
+    if compensated:
+        return comp_sum(torch.einsum("...nk,nkl->...nl", d, R) * d, 2)
     return torch.einsum("...nk,nkl,...nl->...", d, R, d)
 
 
-def measurement_error(spec: ProblemSpec, X):
+def measurement_error(spec: ProblemSpec, X, compensated=False):
     """ME = (1/(L*N_data)) * quad(RM, x_obs - Y); ``spec``'s arrays must be
     tensors on X's device (see :func:`device_spec`)."""
     x_obs = X[..., :: spec.obs_stride, :][..., : spec.N_data, :]
     x_obs = x_obs[..., list(spec.Lidx)]
     diff = x_obs - spec.Y
-    return _quad(spec.RM, diff) / (spec.L * spec.N_data)
+    return _quad(spec.RM, diff, compensated) / (spec.L * spec.N_data)
 
 
-def model_error(spec: ProblemSpec, X, P, rf):
+def model_error(spec: ProblemSpec, X, P, rf, compensated=False):
     """FE = (1/(D*(N_f-1))) * quad(rf, residual rows)."""
     res = model_residuals(spec, X, P)
     if spec.disc == "SimpsonHermite":
         simpson, hermite = res
         if not isinstance(rf, torch.Tensor) or rf.ndim == 0:
-            ferr = rf * (torch.sum(simpson * simpson, dim=(-2, -1))
-                         + torch.sum(hermite * hermite, dim=(-2, -1)))
+            ferr = rf * (_sum2(simpson * simpson, compensated)
+                         + _sum2(hermite * hermite, compensated))
         else:
             M = (spec.N_f - 1) // 2
-            ferr = (_quad(rf[: 2 * M: 2], simpson)
-                    + _quad(rf[1: 2 * M: 2], hermite))
+            ferr = (_quad(rf[: 2 * M: 2], simpson, compensated)
+                    + _quad(rf[1: 2 * M: 2], hermite, compensated))
     else:
-        ferr = _quad(rf, res)
+        ferr = _quad(rf, res, compensated)
     return ferr / (spec.D * (spec.N_f - 1))
 
 
@@ -137,11 +212,13 @@ def rf_arg(rf, dtype, device):
     return torch.as_tensor(arr, device=device).to(dtype)
 
 
-def make_action(spec: ProblemSpec, device=None):
+def make_action(spec: ProblemSpec, device=None, compensated=False):
     """Build ``(action, action_parts)`` on the flat batched decision vector:
     ``action(XP, rf) -> A`` and ``action_parts(XP, rf) -> (A, ME, FE)``,
     each of shape ``XP.shape[:-1]``. Gradients come from torch autograd
-    (see :func:`value_and_grad`). ``device=None`` means the CUDA card."""
+    (see :func:`value_and_grad`). ``compensated=True`` sums with
+    :func:`comp_sum` and returns values in :func:`combine_dtype`.
+    ``device=None`` means the CUDA card."""
     device = resolve_device(device)
     cache = {}
 
@@ -155,8 +232,9 @@ def make_action(spec: ProblemSpec, device=None):
             raise ValueError(f"XP is on {XP.device}, the action on {device}")
         sp = consts(XP.dtype)
         X, P = unpack(sp, XP)
-        me = measurement_error(sp, X)
-        fe = model_error(sp, X, P, rf_arg(rf, XP.dtype, device))
+        me = measurement_error(sp, X, compensated)
+        fe = model_error(sp, X, P, rf_arg(rf, XP.dtype, device),
+                         compensated)
         return me + fe, me, fe
 
     def action(XP, rf):

@@ -24,8 +24,9 @@ algorithm (``bounded_algo='auto'`` resolves to it, as in the JAX
 package): a feasible start, components at a bound with the gradient
 pushing out frozen out of the direction, Armijo backtracking along the
 projected path P(x + a d), and pgtol on SciPy's projected gradient
-x - P(x - g). ``bounded_algo='subspace'`` (``opt/lbfgsb.py``) waits for
-a later slice (ROADMAP.md).
+x - P(x - g). ``bounded_algo='subspace'`` with bounds runs the subspace
+L-BFGS-B (generalized Cauchy point and subspace minimization,
+``opt/lbfgsb.py``).
 
 ``direction='auto'`` resolves to ``'compact_pallas'`` where
 ``kernels.dir.dir_supported`` holds (f32 on the card, the reference's
@@ -42,6 +43,13 @@ line-search step costs one device-to-host transfer and a handful of
 launches rather than a launch per scalar update. History buffers are
 updated in place where the mask allows; the caller's ``x0`` is never
 written.
+
+The objective's values may be float64 while x is float32 (a compensated
+f32 action, ``ops.action.combine_dtype``). Then, as in the JAX solver, f
+and the line searches' step lengths and Armijo/Wolfe comparisons are kept
+in f's dtype, the directional derivatives are cast up to it, and every
+update of x casts the step back to x's dtype (the JAX package's
+``_axpy``): the action is never evaluated on a float64 x.
 """
 
 import dataclasses
@@ -67,7 +75,8 @@ class LBFGSOptions:
     # 'two_loop' (classic recursion) or 'compact_pallas' (K7a/K7b)
     direction: str = "auto"
     # bound handling: 'auto' (-> 'projection'), 'projection' (active-set
-    # freeze + projected-path Armijo); 'subspace' waits for opt/lbfgsb.py
+    # freeze + projected-path Armijo), 'subspace' (GCP + subspace
+    # minimization, opt/lbfgsb.py)
     bounded_algo: str = "auto"
 
 
@@ -84,9 +93,6 @@ class LBFGSResult(NamedTuple):
 
 # status codes
 CONV_GRAD, CONV_FTOL, MAXITER, LS_FAIL = 0, 1, 2, 3
-
-_WAITS = ("waits for a later slice of the port; see ROADMAP.md, "
-          "'Modules still to port'")
 
 
 def _dot(a, b):
@@ -106,24 +112,42 @@ def _cubic_min(a, fa, dfa, b, fb, dfb):
 
 
 def _host(*vals):
-    """Per-member (B,) device values, copied to the host in one transfer."""
-    return tuple(torch.stack(vals).cpu())
+    """Per-member (B,) device values, copied to the host in one transfer,
+    each in its own dtype: values of mixed dtype (a float64 f beside
+    float32 scalars) cross as float64 and are cast back, exactly."""
+    dts = [v.dtype for v in vals]
+    if len(set(dts)) == 1:
+        return tuple(torch.stack(vals).cpu())
+    wide = torch.stack([v.to(torch.float64) for v in vals]).cpu()
+    return tuple(w.to(dt) for w, dt in zip(wide, dts))
+
+
+def _step(x, a, d):
+    """x + a d per row, the host step lengths ``a`` cast to x's dtype on
+    its device (the JAX package's ``_axpy``)."""
+    return x + a.to(device=x.device, dtype=x.dtype)[:, None] * d
 
 
 def _wolfe_line_search(vag, x, d, f0, g0, dphi0, a_init, a_max, opts, run):
     """Strong-Wolfe line search along rows d from rows x, for the members
-    where ``run`` holds. ``vag(x) -> (f, g)``. The per-member scalars
+    where ``run`` holds. ``vag(x) -> (f, g)``. ``a_max``: the step cap, a
+    float or one per member on the host. The per-member scalars
     (``f0``, ``dphi0``, ``a_init``, ``run`` and the state below) live on
-    the host; ``x``, ``d``, ``g0`` on the device. Returns
-    (a_star, f_star, g_star, nfev, ok), one entry per member."""
+    the host; ``x``, ``d``, ``g0`` on the device. The step lengths, slopes
+    and comparisons are in f0's dtype, as the JAX line search keeps them.
+    Returns (a_star, f_star, g_star, nfev, ok), one entry per member."""
     dev = x.device
     c1, c2 = opts.c1, opts.c2
+    ft = f0.dtype
+    dphi0 = dphi0.to(ft)
+    if torch.is_tensor(a_max):
+        a_max = a_max.to(ft)
     zero = torch.zeros_like(f0)
     s = dict(
         zoom=torch.zeros_like(run), done=torch.zeros_like(run),
         failed=torch.zeros_like(run),
         i=torch.zeros(run.shape, dtype=torch.int32),
-        a=torch.clamp_max(a_init, a_max),
+        a=torch.clamp_max(a_init.to(ft), a_max),
         a_prev=zero, f_prev=f0, d_prev=dphi0,
         a_lo=zero, f_lo=f0, d_lo=dphi0,
         a_hi=zero, f_hi=f0, d_hi=dphi0,
@@ -135,8 +159,9 @@ def _wolfe_line_search(vag, x, d, f0, g0, dphi0, a_init, a_max, opts, run):
         if not bool(act.any()):
             break
         a = s["a"]
-        f_dev, g_a = vag(x + a.to(dev)[:, None] * d)
+        f_dev, g_a = vag(_step(x, a, d))
         f_a, dphi_a = _host(f_dev, _dot(g_a, d))
+        dphi_a = dphi_a.to(ft)
         i = s["i"] + 1
         armijo_fail = f_a > f0 + c1 * a * dphi0
         nan_bad = ~torch.isfinite(f_a)
@@ -208,7 +233,7 @@ def _wolfe_line_search(vag, x, d, f0, g0, dphi0, a_init, a_max, opts, run):
     ok = done | have_lo
     f_l, g_l = f0, g0
     if bool((run & ~done & have_lo).any()):
-        f_dev, g_l = vag(x + s["a_lo"].to(dev)[:, None] * d)
+        f_dev, g_l = vag(_step(x, s["a_lo"], d))
         f_l = f_dev.cpu()
     a_star = torch.where(done, s["a_star"],
                          torch.where(have_lo, s["a_lo"], zero))
@@ -332,23 +357,25 @@ def _projected_backtracking_ls(vag, x, d, f0, g0, a_init, lo, hi, opts,
     """Armijo backtracking along the projected path P(x + a d), for the
     members where ``run`` holds: sufficient decrease against
     g0·(P(x + a d) - x), the step halved until it holds or ``maxls``
-    trials are spent. ``f0`` and ``a_init`` live on the host. Returns
-    (x_new, f_new, g_new, nfev, ok); a member whose search fails keeps
-    x, f0 and g0."""
+    trials are spent. ``f0`` and ``a_init`` live on the host; the step
+    and the test are in f0's dtype. Returns (x_new, f_new, g_new, nfev,
+    ok); a member whose search fails keeps x, f0 and g0."""
     dev = x.device
     c1 = opts.c1
+    ft = f0.dtype
 
     def trial(a):
-        return torch.clamp(x + a.to(dev)[:, None] * d, lo, hi)
+        return torch.clamp(_step(x, a, d), lo, hi)
 
     def armijo(f_a, gdx):
         return (f_a <= f0 + c1 * gdx) & torch.isfinite(f_a) & (f_a < f0)
 
-    a = a_init.clone()
+    a = a_init.to(ft, copy=True)
     i = torch.ones(run.shape, dtype=torch.int32)
     x_a = trial(a)
     f_dev, g_a = vag(x_a)
     f_a, gdx = _host(f_dev, _dot(g0, x_a - x))
+    gdx = gdx.to(ft)
     while True:
         act = run & ~armijo(f_a, gdx) & (i < opts.maxls)
         if not bool(act.any()):
@@ -357,6 +384,7 @@ def _projected_backtracking_ls(vag, x, d, f0, g0, a_init, lo, hi, opts,
         x_n = trial(a)
         f_dev, g_n = vag(x_n)
         f_n, gdx_n = _host(f_dev, _dot(g0, x_n - x))
+        gdx_n = gdx_n.to(ft)
         act_d = act.to(dev)[:, None]
         x_a = torch.where(act_d, x_n, x_a)
         g_a = torch.where(act_d, g_n, g_a)
@@ -464,7 +492,7 @@ def _fused_loop(value_and_grad, x, opts):
             torch.ones_like(gnorm1))
         a, f_new, g_new, ls_nfev, ls_ok = _wolfe_line_search(
             value_and_grad, x, d, f, g, dphi0, a_init, big, opts, run)
-        x_new = x + a.to(device)[:, None] * d
+        x_new = _step(x, a, d)
         d_next, sc = kdir.fused_step(H, x, x_new, g, g_new, head, hlen,
                                      ls_ok, run)
         _, pgn, gn1, _, hl, _, dphi = sc.cpu().unbind(1)
@@ -496,8 +524,9 @@ def lbfgs_minimize(value_and_grad, x0, *, lower=None, upper=None,
         raise ValueError(f"unknown bounded_algo {opts.bounded_algo!r}")
     bounded = lower is not None or upper is not None
     if bounded and algo == "subspace":
-        raise NotImplementedError(
-            "bounded_algo='subspace' (opt/lbfgsb.py) " + _WAITS)
+        from varanneal_tpu_torch.opt.lbfgsb import lbfgsb_minimize
+        return lbfgsb_minimize(value_and_grad, x0, lower=lower,
+                               upper=upper, opts=opts, device=device)
     device = resolve_device(device)
 
     x = torch.as_tensor(x0).to(device)
@@ -570,7 +599,7 @@ def lbfgs_minimize(value_and_grad, x0, *, lower=None, upper=None,
         else:
             a, f_new, g_new, ls_nfev, ls_ok = _wolfe_line_search(
                 value_and_grad, x, d, f, g, dphi0, a_init, big, opts, run)
-            x_new = x + a.to(device)[:, None] * d
+            x_new = _step(x, a, d)
 
         # history update (skip on tiny curvature)
         sv = x_new - x
