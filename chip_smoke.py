@@ -8,9 +8,10 @@ timed on its own line:
 1. device: the card's name, count, power limit, the torch and nvcc
    versions; no CUDA device -> exit 1 before any result is printed;
 2. build: K1 and K4 (kernels/csrc/ag_kernel.cu), K2/K3
-   (kernels/csrc/solve_kernel.cu) and K7a/K7b (kernels/csrc/dir_kernel.cu),
-   one nvcc each, started together, into plain-C shared libraries, with
-   nvcc's -Xptxas -v report (registers, spills, shared memory);
+   (kernels/csrc/solve_kernel.cu), K7a/K7b (kernels/csrc/dir_kernel.cu)
+   and K6 (kernels/csrc/fe_kernel.cu), one nvcc each, started together,
+   into plain-C shared libraries, with nvcc's -Xptxas -v report
+   (registers, spills, shared memory);
 3. K1 against its plain PyTorch version on the card at the main path's
    shape (Lorenz-96 D=20, N=161, L=8, B=4; data-informed draws from numpy
    seed 0; rf at β = 0, 50, 100): f64 to 1e-12 and f32 to 2e-5 relative;
@@ -60,7 +61,9 @@ timed on its own line:
    ladder call and no K1 launch during the f32 ladders; records (4, 101)
    and finite; final_A_tail64 of member 0 within 1e-2 relative of
    16.284792 (JAX on a TPU v5e, an accuracy anchor); then the same with
-   BENCH_SOLVER=fused (101 K2 launches per call). Before both, one K3
+   BENCH_SOLVER=fused (101 K2 launches per call), whose f32 ladder must
+   equal K3's bit for bit, so it runs no f64 tail of its own (the tail
+   would repeat K3's). Before both, one K3
    ladder call of that path (the same inputs, outside the counted runs)
    is timed by CUDA events and run under torch.profiler, in a child
    process (``chip_smoke.py --profile-k3``): the device's busy share and
@@ -145,7 +148,38 @@ timed on its own line:
 17. the subspace L-BFGS-B (``bounded_algo='subspace'``): phase 12's f64
    short solves in its box through K1 f64 on the card and the plain
    version on the CPU: identical niter, nfev and status, x within 1e-8
-   relative, feasible; its time per iteration.
+   relative, feasible; its time per iteration;
+18. K6's four kernels (kernels/csrc/fe_kernel.cu) against their plain
+   versions on the card, at data-informed draws (phase 3's pattern, numpy
+   seed 0) and the rf of beta 0, 30, 60, scalar and (N_f-1, D): config
+   #1's shape (D=20, N=161, B=4) under euler, trapezoid and forwardmap,
+   config #2's (D=100, N_f=241, Hermite–Simpson, B=8) and config #5's
+   width (D=400, trapezoid, B=4), each in f64 (value 1e-12 relative,
+   gradient 1e-12 of max|g|) and f32 (2e-5, K1's limits), repeats
+   bit-identical; each kernel at its path's shape (one member, f32)
+   timed by CUDA events and by torch.profiler, beside its plain version,
+   its bound, and the autograd action's value+grad (the yardstick);
+19. an f64 10-rung ladder at config #2 (B=2, from near the twin's truth,
+   rf0 = RM, pgtol 1e-8) through K6 and through the autograd action: A
+   within 1e-8 relative at every mutually converged rung;
+20. the facade at BASELINE config #2 as examples/lorenz96_d100_sh.py runs
+   it (engine='pallas', f32, 61 rungs, maxiter 800, one init): K6's
+   Hermite–Simpson forward and backward launched at least once per
+   evaluation, no other kernel but K7b (whose launches equal the
+   iterations where the loop is the fused one; the example's m = 10 lies
+   outside K7b's 2m + 1 <= 16, so the compact loop runs and K7b stays at
+   0), records (61,) finite, exit flags in {0, 1, 2}; its wall time, ms
+   an iteration, F and the interior RMSE printed, not held (one init
+   sits at the observability boundary); then the example's ensemble, B=8
+   members in f64 for rungs 0..9 through run_ladder_checkpointed with a
+   checkpoint every 2 rungs: K6 launched at least once per evaluation of
+   the slowest member per rung;
+21. the bench with BENCH_ENGINE=pallas: BENCH_SOLVER=xla (B=1, 101
+   rungs, the fused loop, then the 20-rung f64 tail through K1 f64):
+   final_A_tail64 within 1e-2 relative of 16.284792, K6's one-step
+   kernels launched and K1 not during the f32 ladders; then
+   BENCH_SOLVER=fused: 101 K2 launches a call and K6's forward only for
+   the records.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, times,
@@ -153,7 +187,10 @@ bound; K4's launches are phase 15's first run's, its ms, device_ms,
 plain_ms and bound phase 14's; K3's ms and bound are those of phase 8's
 three-rung launch, and
 main_ms / main_bound_ms those of its 101-rung launch on the new path;
-K2's bounded_* those of phase 12's f32 bounded short solves) and the
+K2's bounded_* those of phase 12's f32 bounded short solves; K6's
+launches those of its path, phase 21's xla bench for the one-step kernels
+and phase 20's facade for the Hermite–Simpson ones, its times phase
+18's) and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero before that line.
 """
@@ -187,6 +224,11 @@ F32_BOUNDED_F_TOL = 2e-3
 
 MAIN = dict(D=20, N_data=161, n_obs=8, B=4, n_beta=101, alpha=1.5,
             tail=20)
+# BASELINE config #2 as examples/lorenz96_d100_sh.py runs it: Lorenz-96
+# D=100, 40 observed, sigma 1, N_data=121 under Hermite–Simpson, 61 rungs
+# at alpha 1.6 from RF0 = 1e-4, maxiter 800 (m stays the default 10)
+CONF2 = dict(D=100, N_data=121, n_obs=40, sigma=1.0, n_beta=61, alpha=1.6,
+             rf0=1e-4, maxiter=800, B=8)
 # the box of phase 12 (tests/test_solve_pallas.py's) and of the facade
 BOX_TEST = [(-6.0, 6.0)] * 20 + [(3.0, 6.0)]
 BOX_FACADE = [(-10.0, 10.0)] * 20 + [(2.0, 12.0)]
@@ -252,6 +294,11 @@ def solve_bound(spec, dtype, B, launches, nfev, niter, m, rungs):
     return t_ops, "operations", nbytes, nops
 
 
+def _scalar_rf(v, dtype):
+    """A Python float rounded to ``dtype``."""
+    return float(torch.tensor(float(v), dtype=dtype))
+
+
 def bound_of(nbytes, nops, dtype=torch.float32):
     """(ms, bound_by): the larger of bytes over HBM's rate and operations
     over the card's rate for ``dtype``."""
@@ -285,14 +332,14 @@ def step_work(B, n, m, n_good):
     return nbytes, nops_d + B * 13 * n
 
 
-def member_draws(spec, tw, seed):
-    """MAIN["B"] data-informed points (numpy ``seed``): states N(2, 2)
-    with the observed components at the data plus N(0, 0.3) noise, F
-    N(4, 1); (B, n_dof)."""
+def member_draws(spec, tw, seed, B=None):
+    """B (default MAIN["B"]) data-informed points (numpy ``seed``): states
+    N(2, 2) with the observed components at the data plus N(0, 0.3)
+    noise, F N(4, 1); (B, n_dof)."""
     from varanneal_tpu_torch.ops import pack
     rng = np.random.default_rng(seed)
     draws = []
-    for _ in range(MAIN["B"]):
+    for _ in range(MAIN["B"] if B is None else B):
         X = rng.normal(2.0, 2.0, (spec.N_f, spec.D))
         rows = np.arange(spec.N_data) * spec.obs_stride
         X[np.ix_(rows, np.asarray(spec.Lidx))] = tw["Y"] + rng.normal(
@@ -312,6 +359,52 @@ def main_problem():
                       tw["RM"], disc="trapezoid", P=np.array([4.0]),
                       pidx=[0])
     return tw, spec, 4e-6 * tw["RM"]
+
+
+def config2_problem():
+    """BASELINE config #2 as examples/lorenz96_d100_sh.py builds it: the
+    twin (D=100, N_data=121, 40 observed, sigma 1) and its
+    Hermite–Simpson spec (N_f = 241, F estimated from 4.0)."""
+    from varanneal_tpu_torch.models import lorenz96
+    from varanneal_tpu_torch.ops import build_spec
+    from varanneal_tpu_torch.twin import lorenz96_twin
+    tw = lorenz96_twin(D=CONF2["D"], N_data=CONF2["N_data"],
+                       n_obs=CONF2["n_obs"], sigma=CONF2["sigma"])
+    spec = build_spec(lorenz96, CONF2["D"], tw["Y"], tw["t"], tw["Lidx"],
+                      tw["RM"], disc="SimpsonHermite", P=np.array([4.0]),
+                      pidx=[0])
+    return tw, spec
+
+
+def fe_work(kernel, c, B, diag):
+    """Bytes and operations of one launch of K6's ``kernel`` on B members
+    (``c``: the kernels' constants): X and F read once, an (N_f-1, D) rf
+    read once when ``diag``, the outputs written once; the kernel's
+    arithmetic, a Lorenz-96 f being 4 operations and Jᵀv 7. One-step
+    forward, per residual entry: the residual (trapezoid 12, euler 7,
+    forwardmap 5), then 2 to square and sum (3 with a weight row);
+    backward, per gradient entry: the residual, 1 to weight it, 3 for v,
+    1 to sum it, 7 for Jᵀv, 3 for the row. Hermite–Simpson, per interval
+    entry: forward three f, 6 each for S and H, 6 to weight and sum (30);
+    backward 36 for v0, vm, v1 and their sum, then S and H again and the
+    triplet (54)."""
+    s = torch.finfo(c.dtype).bits // 8
+    n_x = B * c.N_f * c.D
+    nbytes = n_x * s + B * s + int(diag) * (c.N_f - 1) * c.D * s
+    res = {"trapezoid": 12, "euler": 7, "forwardmap": 5}.get(c.disc, 0)
+    if kernel == "onestep_fwd":
+        nbytes += B * c.n_fwd_blocks * s
+        nops = B * (c.N_f - 1) * c.D * (res + 2 + int(diag))
+    elif kernel == "onestep_bwd":
+        nbytes += n_x * s + B * c.n_bwd_blocks * s
+        nops = B * c.N_f * c.D * (res + 15)
+    elif kernel == "sh_fwd":
+        nbytes += B * c.n_fwd_blocks * s
+        nops = B * c.M * c.D * 30
+    else:
+        nbytes += 3 * B * c.M * c.D * s + B * c.n_bwd_blocks * s
+        nops = B * c.M * c.D * 90
+    return nbytes, nops
 
 
 def profile_k3():
@@ -407,10 +500,14 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from varanneal_tpu_torch.kernels import _build, ag, solve
+    from varanneal_tpu_torch.kernels import _build, ag, fe, solve
     from varanneal_tpu_torch.kernels import dir as kdir
-    from varanneal_tpu_torch.api import Annealer, build_bounds
-    from varanneal_tpu_torch.ops import make_action, pack
+    from varanneal_tpu_torch.api import (Annealer, build_bounds,
+                                         make_lbfgs_options)
+    from varanneal_tpu_torch.anneal import run_ladder_checkpointed
+    from varanneal_tpu_torch.ops import build_spec, make_action, pack
+    from varanneal_tpu_torch.ops.spec import _insert_midpoints
+    from varanneal_tpu_torch.twin import lorenz96_twin
     from varanneal_tpu_torch.ops import value_and_grad
     from varanneal_tpu_torch.opt import LBFGSOptions, lbfgs_minimize
     from varanneal_tpu_torch.anneal import run_ladder
@@ -436,10 +533,11 @@ def main():
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["ag_kernel", "solve_kernel", "dir_kernel"])
+    built = _build.build(["ag_kernel", "solve_kernel", "dir_kernel",
+                          "fe_kernel"])
     for b in built.values():
         print(f"nvcc build of {b.path.name}: {b.seconds:.2f} s "
-              "(the three builds run in parallel)")
+              "(the four builds run in parallel)")
         for line in b.log.splitlines():
             if ("Compiling entry" in line or "Function properties" in line
                     or "Used" in line or "bytes stack frame" in line):
@@ -859,9 +957,11 @@ def main():
           f"operations)")
     from varanneal_tpu_torch import bench
     paths = {}
-    for solver_name, want in (("ladder", dict(ladder=1, rung=0)),
-                              ("fused", dict(ladder=0,
-                                             rung=MAIN["n_beta"]))):
+    # the fused path's f32 ladder must be K3's bit for bit (one solve_one
+    # in both kernels), so its f64 tail would be K3's: it runs no tail
+    for solver_name, want, tail64 in (
+            ("ladder", dict(ladder=1, rung=0), str(MAIN["tail"])),
+            ("fused", dict(ladder=0, rung=MAIN["n_beta"]), "0")):
         ag.LAUNCHES = 0
         solve.LADDER_LAUNCHES = 0
         solve.RUNG_LAUNCHES = 0
@@ -869,23 +969,32 @@ def main():
         with contextlib.redirect_stdout(buf_out), \
                 contextlib.redirect_stderr(buf_err):
             run = bench.main(device=dev, env=dict(
-                BENCH_SOLVER=solver_name, BENCH_NINIT=str(MAIN["B"])))
+                BENCH_SOLVER=solver_name, BENCH_NINIT=str(MAIN["B"]),
+                BENCH_TAIL64=tail64))
         counts = dict(ag=ag.LAUNCHES, ladder=solve.LADDER_LAUNCHES,
                       rung=solve.RUNG_LAUNCHES)
         print(f"bench {solver_name}: " + buf_out.getvalue().strip())
         print(f"bench {solver_name}: " + buf_err.getvalue().strip())
-        A_t = run.tail.A.cpu().numpy()
-        fa0 = float(A_t[0, -1])
-        rel = abs(fa0 - JAX_FINAL_A_TAIL64) / JAX_FINAL_A_TAIL64
+        if run.tail is not None:
+            A_t = run.tail.A.cpu().numpy()
+            fa0 = float(A_t[0, -1])
+            rel = abs(fa0 - JAX_FINAL_A_TAIL64) / JAX_FINAL_A_TAIL64
+            tail_msg = (f"final_A_tail64 member 0 {fa0:.6f} vs JAX "
+                        f"{JAX_FINAL_A_TAIL64:.6f} (rel {rel:.3e}, bound "
+                        "1e-2); members "
+                        + ", ".join(f"{a:.6f}" for a in A_t[:, -1]))
+        else:
+            same = torch.equal(run.res.XP, paths["ladder"][0].res.XP)
+            tail_msg = (f"f32 ladder bit-identical to the ladder kernel's "
+                        f"(whose tail is checked above): {same}")
+            check(same, f"bench {solver_name}: its f32 ladder differs from "
+                  "the ladder kernel's")
         stat = np.bincount(run.res.status.cpu().numpy().ravel(), minlength=4)
         print(f"new path {solver_name}: timed f32 ladder call "
               f"{run.wall:.4f} s for {MAIN['B']} members; total nfev "
               f"{run.total_nfev}; statuses per code 0..3 {stat.tolist()}; "
               f"launches in the {run.calls} ladder calls: "
-              f"{run.launches}, after the tail: {counts}; final_A_tail64 "
-              f"member 0 {fa0:.6f} vs JAX {JAX_FINAL_A_TAIL64:.6f} (rel "
-              f"{rel:.3e}, bound 1e-2); members "
-              + ", ".join(f"{a:.6f}" for a in A_t[:, -1]))
+              f"{run.launches}, after the tail: {counts}; " + tail_msg)
         check(run.launches["ladder"] == want["ladder"] * run.calls
               and run.launches["rung"] == want["rung"] * run.calls
               and run.launches["ag"] == 0,
@@ -897,9 +1006,10 @@ def main():
             check(bool(torch.isfinite(getattr(run.res, nm).double()).all()),
                   f"bench {solver_name}: non-finite {nm}")
         check(bool(torch.isfinite(run.res.XP).all())
-              and bool(np.isfinite(A_t).all()),
+              and (run.tail is None or bool(np.isfinite(A_t).all())),
               f"bench {solver_name}: non-finite XP or tail")
-        check(rel <= 1e-2, f"bench {solver_name}: final_A_tail64 {fa0} vs "
+        check(run.tail is None or rel <= 1e-2,
+              f"bench {solver_name}: final_A_tail64 vs "
               f"{JAX_FINAL_A_TAIL64}")
         paths[solver_name] = (run, counts)
 
@@ -1482,11 +1592,16 @@ def main():
         ag.LAUNCHES = ag.COMP_LAUNCHES = 0
         solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
         kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
+        fe.FWD_LAUNCHES = fe.BWD_LAUNCHES = 0
+        fe.SH_FWD_LAUNCHES = fe.SH_BWD_LAUNCHES = 0
 
     def run_counts():
         return dict(k1=ag.LAUNCHES, k4=ag.COMP_LAUNCHES,
                     k2=solve.RUNG_LAUNCHES, k3=solve.LADDER_LAUNCHES,
-                    k7a=kdir.DIR_LAUNCHES, k7b=kdir.STEP_LAUNCHES)
+                    k7a=kdir.DIR_LAUNCHES, k7b=kdir.STEP_LAUNCHES,
+                    k6_fwd=fe.FWD_LAUNCHES, k6_bwd=fe.BWD_LAUNCHES,
+                    k6_sh_fwd=fe.SH_FWD_LAUNCHES,
+                    k6_sh_bwd=fe.SH_BWD_LAUNCHES)
 
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "data.npy"),
@@ -1665,6 +1780,312 @@ def main():
           f"f64: {1e3 * t17 / it17:.3f} ms an iteration ({it17} "
           f"iterations of the slowest member over three solves)")
     phase("17 subspace L-BFGS-B", t0)
+
+    # ---- 18. K6 against its plain version ---------------------------------
+    t0 = time.perf_counter()
+    tw2, spec2 = config2_problem()
+    tw5 = lorenz96_twin(D=400, N_data=MAIN["N_data"], n_obs=100)
+    spec5 = build_spec(lorenz96, 400, tw5["Y"], tw5["t"], tw5["Lidx"],
+                       tw5["RM"], disc="trapezoid", P=np.array([4.0]),
+                       pidx=[0])
+    both = (torch.float64, torch.float32)
+    # (spec, twin, rf0, alpha, B, dtypes): config #1's data under the three
+    # one-step discs, config #2's shape, config #5's width
+    cases18 = [(dataclasses.replace(spec, disc=d), tw, float(rf0),
+                MAIN["alpha"], MAIN["B"], both)
+               for d in ("euler", "trapezoid", "forwardmap")]
+    cases18 += [(spec2, tw2, CONF2["rf0"], CONF2["alpha"], CONF2["B"], both),
+                (spec5, tw5, 4e-6 * tw5["RM"], MAIN["alpha"], 4, both)]
+    err18 = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_bwd=0.0)
+    rng18 = np.random.default_rng(18)
+
+    def plain_k6(X, pest, rf, c):
+        """K6's plain versions on the same (card) tensors."""
+        if c.sh:
+            out = fe.sh_bwd_reference(X, pest, rf, c)
+            return (fe.sh_fwd_reference(X, pest, rf, c),
+                    fe.sh_join(*out[:3], c), out[3])
+        return (fe.onestep_fwd_reference(X, pest, rf, c),
+                *fe.onestep_bwd_reference(X, pest, rf, c))
+
+    for sp, tw_, rf0_, alpha_, B_, dtypes in cases18:
+        draws18 = member_draws(sp, tw_, 0, B_)
+        W18 = rng18.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
+        kf, kb = (("sh_fwd", "sh_bwd") if sp.disc == "SimpsonHermite"
+                  else ("onestep_fwd", "onestep_bwd"))
+        for dtype in dtypes:
+            tol = 1e-12 if dtype == torch.float64 else 2e-5
+            c = fe.fe_consts(sp, dtype, dev, block_n=64)
+            Z = torch.tensor(draws18, dtype=dtype, device=dev)
+            X = Z[:, : sp.n_state].reshape(B_, sp.N_f, sp.D)
+            pest = Z[:, sp.n_state:]
+            worst = [0.0, 0.0]
+            for beta in (0, 30, 60):
+                rf_b = _scalar_rf(rf0_ * alpha_ ** beta, dtype)
+                for rf in (rf_b, torch.tensor(W18 * rf_b, dtype=dtype,
+                                              device=dev)):
+                    p_k = fe.fe_partials(X, pest, rf, c)
+                    g_k, gp_k = fe.fe_adjoint(X, pest, rf, c)
+                    torch.cuda.synchronize()
+                    p_r, g_r, gp_r = plain_k6(X, pest, rf, c)
+                    v_k, v_r = p_k.sum(1), p_r.sum(1)
+                    gF_k, gF_r = gp_k.sum(1), gp_r.sum(1)
+                    scale = torch.maximum(
+                        torch.amax(torch.abs(g_r), dim=(1, 2)),
+                        torch.abs(gF_r))
+                    rel_v = float(torch.max(torch.abs(v_k - v_r)
+                                            / torch.abs(v_r)))
+                    rel_g = float(torch.max(torch.maximum(
+                        torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
+                        torch.abs(gF_k - gF_r)) / scale))
+                    worst = [max(worst[0], rel_v), max(worst[1], rel_g)]
+                    err18[kf] = max(err18[kf],
+                                    float(torch.max(torch.abs(p_k - p_r))))
+                    err18[kb] = max(err18[kb],
+                                    float(torch.max(torch.abs(g_k - g_r))),
+                                    float(torch.max(torch.abs(gp_k - gp_r))))
+                    check(rel_v <= tol and rel_g <= tol,
+                          f"K6 {sp.disc} D={sp.D} {dtype} disagrees with "
+                          f"its plain version at beta={beta}: value "
+                          f"{rel_v:.3e}, gradient {rel_g:.3e}")
+                    check(torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
+                          and torch.equal(g_k,
+                                          fe.fe_adjoint(X, pest, rf, c)[0]),
+                          f"K6 {sp.disc} {dtype}: a repeat is not "
+                          "bit-identical")
+            print(f"K6 {sp.disc} D={sp.D} N_f={sp.N_f} B={B_} "
+                  f"{str(dtype)[6:]}, rows a block {c.bn_fwd}/{c.bn_bwd} "
+                  f"(forward/backward), scalar and (N_f-1, D) rf at beta 0, "
+                  f"30, 60: value rel err {worst[0]:.3e}, gradient rel err "
+                  f"{worst[1]:.3e} of max|g| (bound {tol:g}); repeats "
+                  f"bit-identical")
+
+    # times at the paths' shape (one member, f32, scalar rf of beta 30,
+    # rows a block as select_action builds them), against the bound, the
+    # plain versions and the autograd action's value+grad (the yardstick;
+    # no one PyTorch call computes K6's function)
+    k6 = {}
+    for sp, tw_, rf0_, alpha_, kf, kb, fk, fp in (
+            (spec, tw, float(rf0), MAIN["alpha"], "onestep_fwd",
+             "onestep_bwd", fe.onestep_fwd_kernel, fe.onestep_bwd_kernel),
+            (spec2, tw2, CONF2["rf0"], CONF2["alpha"], "sh_fwd", "sh_bwd",
+             fe.sh_fwd_kernel, fe.sh_bwd_kernel)):
+        c = fe.fe_consts(sp, torch.float32, dev, block_n=64)
+        Z1 = torch.tensor(member_draws(sp, tw_, 0, 1), dtype=torch.float32,
+                          device=dev)
+        X1 = Z1[:, : sp.n_state].reshape(1, sp.N_f, sp.D)
+        p1 = Z1[:, sp.n_state:]
+        rf1 = _scalar_rf(rf0_ * alpha_ ** 30, torch.float32)
+        ref_f = fe.sh_fwd_reference if c.sh else fe.onestep_fwd_reference
+        ref_b = fe.sh_bwd_reference if c.sh else fe.onestep_bwd_reference
+        vag_x = value_and_grad(make_action(sp, device=dev)[0])
+        vag_k6 = value_and_grad(fe.make_action_pallas(sp, block_n=64,
+                                                      device=dev)[0])
+        ms_ag = events_ms(lambda: vag_x(Z1, rf1), n=200)
+        ms_k6a = events_ms(lambda: vag_k6(Z1, rf1), n=200)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(200):
+                fk(X1, p1, rf1, c)
+                fp(X1, p1, rf1, c)
+            torch.cuda.synchronize()
+        for kern, fn_k, fn_p in ((kf, fk, ref_f), (kb, fp, ref_b)):
+            rows = [(device_us(e), e.count) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and f"fe_{kern}" in e.key]
+            w = fe_work(kern, c, 1, False)
+            k6[kern] = dict(
+                ms=events_ms(lambda: fn_k(X1, p1, rf1, c)),
+                plain_ms=events_ms(lambda: fn_p(X1, p1, rf1, c), n=200),
+                device_ms=(rows[0][0] / rows[0][1] / 1e3
+                           if rows and rows[0][0] > 0 else None),
+                bound=bound_of(*w), work=w, autograd_ms=ms_ag,
+                action_ms=ms_k6a)
+            r = k6[kern]
+            print(f"K6 {kern} f32 ({sp.disc}, D={sp.D}, N_f={sp.N_f}, one "
+                  f"member, {c.n_fwd_blocks if kern == kf else c.n_bwd_blocks}"
+                  f" blocks): {r['ms']:.5f} ms a launch (CUDA events), "
+                  f"device time "
+                  + (f"{r['device_ms']:.5f} ms (torch.profiler)"
+                     if r["device_ms"] is not None
+                     else "not measured (no device events)")
+                  + f"; plain {r['plain_ms']:.5f} ms; bound "
+                  f"{r['bound'][0]:.3e} ms ({r['bound'][1]}: {w[0]} bytes, "
+                  f"{w[1]} operations)")
+        print(f"K6 action value+grad ({sp.disc}, one member, f32): "
+              f"{ms_k6a:.5f} ms; the autograd action's {ms_ag:.5f} ms "
+              "(CUDA events, 200 calls each)")
+    phase("18 K6 vs plain", t0)
+
+    # ---- 19. f64 ladder at config #2: K6 vs the autograd action ------------
+    t0 = time.perf_counter()
+    rng19 = np.random.default_rng(1)
+    xp19 = torch.tensor(np.stack([pack(
+        spec2, _insert_midpoints(tw2["traj"] + 0.3 * rng19.normal(
+            size=tw2["traj"].shape)),
+        np.array([tw2["F"] + 0.5 * rng19.normal()])) for _ in range(2)]),
+        device=dev)
+    runs19, walls19 = [], []
+    zero_counts()
+    for mk in (fe.make_action_pallas, make_action):
+        a19, p19 = mk(spec2, device=dev)
+        t_19 = time.perf_counter()
+        runs19.append(make_ensemble_ladder(
+            a19, p19, np.arange(10), float(tw2["RM"]), CONF2["alpha"],
+            opts=opts_t, device=dev)(xp19))
+        torch.cuda.synchronize()
+        walls19.append(time.perf_counter() - t_19)
+    cnt19 = run_counts()
+    st_k, st_p = runs19[0].status.cpu().numpy(), runs19[1].status.cpu().numpy()
+    A_k19, A_p19 = runs19[0].A.cpu().numpy(), runs19[1].A.cpu().numpy()
+    both19 = (st_k <= 1) & (st_p <= 1)
+    rel19 = np.where(both19, np.abs(A_k19 - A_p19) / np.abs(A_p19), 0.0)
+    print(f"f64 ladder at config #2 (10 rungs, 2 members from near the "
+          f"truth, rf0 = RM, pgtol 1e-8): mutually converged rungs "
+          f"{int(both19.sum())}/{both19.size}; max rel A difference "
+          f"{rel19.max():.3e} (bound 1e-8); niter K6 "
+          f"{runs19[0].niter.sum().item()}, autograd "
+          f"{runs19[1].niter.sum().item()}; wall {walls19[0]:.2f} s vs "
+          f"{walls19[1]:.2f} s; launches {cnt19}")
+    check(both19.mean() >= 0.8, f"too few converged rungs: {st_k} {st_p}")
+    check(np.all(rel19 <= 1e-8),
+          f"f64 ladder through K6 disagrees: {rel19}")
+    check(cnt19["k6_sh_bwd"] > 0, "the f64 ladder did not launch K6")
+    phase("19 f64 ladder K6 vs autograd", t0)
+
+    # ---- 20. the facade at config #2 (path a), then the ensemble (path b) --
+    t0 = time.perf_counter()
+    ann20 = Annealer(device=dev)
+    ann20.set_model(lorenz96, CONF2["D"])
+    ann20.set_data(tw2["Y"], t=tw2["t"])
+    X0_20 = np.random.default_rng(1).uniform(-10, 10, size=(
+        CONF2["N_data"], CONF2["D"]))
+    zero_counts()
+    t_20 = time.perf_counter()
+    ann20.anneal(X0_20, np.array([4.0]), alpha=CONF2["alpha"],
+                 beta_array=np.arange(CONF2["n_beta"]), RM=tw2["RM"],
+                 RF0=CONF2["rf0"], Lidx=tw2["Lidx"], Pidx=[0],
+                 disc="SimpsonHermite",
+                 opt_args=dict(maxiter=CONF2["maxiter"]),
+                 dtype=torch.float32, engine="pallas")
+    torch.cuda.synchronize()
+    wall20 = time.perf_counter() - t_20
+    cnt20 = run_counts()
+    nfev20 = int(ann20.nfev_array.sum())
+    niter20 = int(ann20.niter_array.sum())
+    F20 = float(ann20.minpaths_P[-1, 0])
+    err20 = ann20.minpaths_X[-1][::2] - tw2["traj"]
+    n0, n1 = CONF2["N_data"] // 5, CONF2["N_data"] - CONF2["N_data"] // 5
+    unobs = np.setdiff1d(np.arange(CONF2["D"]), np.asarray(tw2["Lidx"]))
+    rmse_obs = float(np.sqrt(np.mean(err20[n0:n1][:, tw2["Lidx"]] ** 2)))
+    rmse_unobs = float(np.sqrt(np.mean(err20[n0:n1][:, unobs] ** 2)))
+    # the example's opt_args leave m at 10, outside K7b's envelope
+    # (2m + 1 <= 16, the reference's policy): the compact loop runs
+    fused20 = kdir.dir_predicate(spec2.n_dof, 10, torch.float32)
+    print(f"facade at config #2 (engine='pallas', f32, {CONF2['n_beta']} "
+          f"rungs, maxiter {CONF2['maxiter']}, one init): wall "
+          f"{wall20:.2f} s; niter {niter20}, nfev {nfev20}; "
+          f"{1e3 * wall20 / max(niter20, 1):.3f} ms a loop iteration "
+          f"({'fused' if fused20 else 'compact'} loop); F = {F20:.4f} "
+          f"(truth {tw2['F']}); interior RMSE obs {rmse_obs:.3f} / unobs "
+          f"{rmse_unobs:.3f} (noise {tw2['sigma']}); final A "
+          f"{float(ann20.A_array[-1]):.6g}; exit flags per code 0..2 "
+          f"{np.bincount(ann20.exitflags, minlength=3).tolist()}; "
+          f"launches {cnt20}")
+    check(ann20.A_array.shape == (CONF2["n_beta"],)
+          and bool(np.isfinite(ann20.A_array).all()),
+          "facade at config #2: records not (61,) and finite")
+    check(set(np.unique(ann20.exitflags)) <= {0, 1, 2},
+          f"facade at config #2: exit flags {ann20.exitflags}")
+    check(cnt20["k6_sh_fwd"] >= nfev20 > 0 and cnt20["k6_sh_bwd"] >= nfev20,
+          f"facade at config #2 did not evaluate through K6: {cnt20}, "
+          f"nfev {nfev20}")
+    check(cnt20["k7b"] == (niter20 if fused20 else 0)
+          and cnt20["k7a"] == 0,
+          f"facade at config #2: K7 launches {cnt20}, niter {niter20}")
+    check(all(cnt20[k] == 0 for k in ("k1", "k2", "k3", "k4", "k6_fwd",
+                                      "k6_bwd")),
+          f"facade at config #2 launched another kernel: {cnt20}")
+    # path (b): the example's run_ensemble, B=8 members, first 10 rungs, a
+    # checkpoint every 2 (float64, as the example's x64 run)
+    act_b, parts_b = fe.select_action(spec2, CONF2["rf0"], engine="pallas",
+                                      dtype=torch.float64, device=dev)
+    xp_b = torch.tensor(random_ensemble_inits(spec2, CONF2["B"], seed=1),
+                        device=dev)
+    zero_counts()
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_b = os.path.join(tmp, "ensemble.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            res_b = run_ladder_checkpointed(
+                act_b, parts_b, xp_b, np.arange(10),
+                np.float64(CONF2["rf0"]), CONF2["alpha"],
+                opts=LBFGSOptions(maxiter=CONF2["maxiter"]),
+                store_paths=False, batched=True, ckpt_path=ck_b,
+                save_every=2, meta=dict(ninit=CONF2["B"], seed=1),
+                verbose=True, device=dev)
+        torch.cuda.synchronize()
+        with np.load(ck_b) as z:
+            ck_next = int(z["next_idx"])
+    wall_b = time.perf_counter() - t_b
+    cnt_b = run_counts()
+    lock_b = int(res_b.nfev.max(dim=0).values.sum())
+    print(f"ensemble at config #2 (B={CONF2['B']}, rungs 0..9, f64, "
+          f"checkpointed every 2): wall {wall_b:.2f} s; nfev per member "
+          f"{res_b.nfev.sum(dim=1).tolist()}, per-rung max over members "
+          f"summed {lock_b}; final A per member "
+          + ", ".join(f"{a:.6g}" for a in res_b.A[:, -1].tolist())
+          + f"; launches {cnt_b}")
+    check(tuple(res_b.A.shape) == (CONF2["B"], 10)
+          and bool(torch.isfinite(res_b.A).all()) and ck_next == 10,
+          "ensemble at config #2: records or checkpoint wrong")
+    check(cnt_b["k6_sh_bwd"] >= lock_b > 0
+          and cnt_b["k6_sh_fwd"] >= lock_b + 10,
+          f"ensemble at config #2: K6 launches {cnt_b} for {lock_b} "
+          "evaluations of the slowest members")
+    phase("20 facade and ensemble at config #2", t0)
+
+    # ---- 21. the bench with BENCH_ENGINE=pallas ----------------------------
+    t0 = time.perf_counter()
+    bench21 = {}
+    for solver_name, tail in (("xla", "20"), ("fused", "0")):
+        buf_out, buf_err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf_out), \
+                contextlib.redirect_stderr(buf_err):
+            run = bench.main(device=dev, env=dict(
+                BENCH_SOLVER=solver_name, BENCH_ENGINE="pallas",
+                BENCH_TAIL64=tail))
+        print(f"bench pallas {solver_name}: " + buf_out.getvalue().strip())
+        print(f"bench pallas {solver_name}: " + buf_err.getvalue().strip())
+        L = run.launches
+        niter21 = int(run.res.niter.sum())
+        print(f"bench pallas {solver_name}: timed f32 ladder {run.wall:.3f} "
+              f"s, one member, {niter21} iterations "
+              f"({1e3 * run.wall / max(niter21, 1):.3f} ms an iteration), "
+              f"total nfev {run.total_nfev}; launches in the {run.calls} "
+              f"ladder calls {L}")
+        check(tuple(run.res.A.shape) == (1, MAIN["n_beta"])
+              and bool(torch.isfinite(run.res.A).all()),
+              f"bench pallas {solver_name}: records")
+        check(L["ag"] == 0 and L["ladder"] == 0,
+              f"bench pallas {solver_name} launched K1 or K3: {L}")
+        if solver_name == "xla":
+            fa = run.out["final_A_tail64"]
+            rel21 = abs(fa - JAX_FINAL_A_TAIL64) / JAX_FINAL_A_TAIL64
+            print(f"bench pallas xla: final_A_tail64 {fa:.6f} vs JAX "
+                  f"{JAX_FINAL_A_TAIL64:.6f} (rel {rel21:.3e}, bound 1e-2)")
+            check(L["fe_fwd"] > 0 and L["fe_bwd"] > 0 and L["rung"] == 0,
+                  f"bench pallas xla did not run through K6: {L}")
+            check(rel21 <= 1e-2, f"bench pallas xla: final_A_tail64 {fa}")
+        else:
+            check(L["rung"] == MAIN["n_beta"] * run.calls
+                  and L["fe_fwd"] == MAIN["n_beta"] * run.calls
+                  and L["fe_bwd"] == 0,
+                  f"bench pallas fused: K2 a rung and K6 for the records "
+                  f"only, got {L}")
+        bench21[solver_name] = run
+    phase("21 bench pallas", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -1705,7 +2126,21 @@ def main():
              replaces="varanneal_tpu/kernels/ag_pallas.py:336",
              launches=cnt_r["k4"], max_abs_err=err_k4, ms=ms_k4,
              device_ms=dev_k4, plain_ms=ms_p4, bound_ms=bound_k4[0],
-             bound_by=bound_k4[1], **line)]}))
+             bound_by=bound_k4[1], **line)] + [dict(
+        name=f"fe_{kern}",
+        source="varanneal_tpu_torch/kernels/csrc/fe_kernel.cu",
+        replaces=f"varanneal_tpu/kernels/fe_pallas.py:{rep}",
+        replaces_also=[f"varanneal_tpu/kernels/fe_pallas.py:{r}"
+                       for r in also],
+        launches=n, max_abs_err=err18[kern], ms=k6[kern]["ms"],
+        device_ms=k6[kern]["device_ms"], plain_ms=k6[kern]["plain_ms"],
+        bound_ms=k6[kern]["bound"][0], bound_by=k6[kern]["bound"][1],
+        autograd_ms=k6[kern]["autograd_ms"], **line)
+        for kern, rep, also, n in (
+            ("onestep_fwd", 138, (156,), bench21["xla"].launches["fe_fwd"]),
+            ("onestep_bwd", 187, (), bench21["xla"].launches["fe_bwd"]),
+            ("sh_fwd", 238, (472,), cnt20["k6_sh_fwd"]),
+            ("sh_bwd", 260, (502,), cnt20["k6_sh_bwd"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

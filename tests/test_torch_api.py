@@ -191,9 +191,10 @@ def test_build_bounds_matches_jax():
 
 
 # the kwargs that raised until the checkpointed ladder, the compensated
-# sums and the subspace L-BFGS-B were ported; they now run
+# sums, the subspace L-BFGS-B and the FE kernels (K6) were ported; they
+# now run
 _LANDED = ({"checkpoint_path"}, {"repeats"}, {"snapshot_beta"},
-           {"compensated"}, {"bounds", "opt_args"})
+           {"compensated"}, {"bounds", "opt_args"}, {"engine"})
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -253,7 +254,8 @@ def test_facade_surface(tmp_path):
 def test_select_action_policy(monkeypatch):
     """engine='auto' takes K1 only in the reference's regime (a one-step
     disc, D >= 256, f32, on the card), raises where the reference would
-    run a kernel the port lacks, and is the autograd action below it."""
+    run a kernel the port lacks, and is the autograd action below it;
+    engine='pallas' takes K6."""
     X0, Y, t = _twin()
     st = build_spec(lorenz96, D, Y, t, LIDX, 6.25, P=np.array([6.0]),
                     pidx=[0])
@@ -262,8 +264,8 @@ def test_select_action_policy(monkeypatch):
     act, _ = fe.select_action(st, 0.01, engine="ag", device="cpu",
                               dtype=torch.float64)
     assert act.engine == "ag"
-    with pytest.raises(NotImplementedError, match="K6"):
-        fe.select_action(st, 0.01, engine="pallas", device="cpu")
+    act, _ = fe.select_action(st, 0.01, engine="pallas", device="cpu")
+    assert act.engine == "pallas"
     with pytest.raises(ValueError):
         fe.select_action(st, 0.01, engine="fast", device="cpu")
     st_e = build_spec(lorenz96, D, Y, t, LIDX, 6.25, P=np.array([6.0]),
@@ -280,7 +282,9 @@ def test_select_action_policy(monkeypatch):
     assert not fe.ag_preferred(big("trapezoid"), 0.01, torch.float64)
     assert not fe.ag_preferred(st, 0.01)
     assert not fe.ag_preferred(big("SimpsonHermite"), 0.01)
-    with pytest.raises(NotImplementedError, match="K6"):
+    # the reference's ag_supported holds at euler, so the reference runs
+    # K1 there, which the port's K1 does not cover yet
+    with pytest.raises(NotImplementedError, match="K1"):
         fe.select_action(big("euler"), 0.01)
 
 

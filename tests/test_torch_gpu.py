@@ -1,4 +1,4 @@
-"""K1, K4, K2, K3, K7a and K7b on the card. K1, the nvcc-built CUDA kernel
+"""K1, K4, K2, K3, K7a, K7b and K6 on the card. K1, the nvcc-built CUDA kernel
 (kernels/csrc/ag_kernel.cu), against its plain PyTorch version at the
 main path's shape (Lorenz-96 D=20, N=161, L=8, B=4), f64 to 1e-12 and
 f32 to 2e-5 relative (the card sums in another order than the plain
@@ -12,7 +12,10 @@ K2's bounded branch likewise, and feasible. K7a and K7b
 (kernels/csrc/dir_kernel.cu) against their plain versions at the main
 shape (n = 3,221, m = 5) at every (head, hlen), within the bounds of
 tests/test_dir_pallas.py, with repeats bit-identical and an ended member
-left untouched. Run on a machine with a card:
+left untouched. K6 (kernels/csrc/fe_kernel.cu), its four kernels against
+their plain versions at configs #1, #2 and #5's shapes (f64 1e-12, f32
+2e-5), and engine='pallas' through autograd on the card. Run on a machine
+with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
@@ -23,16 +26,18 @@ Without a card each test skips inside the test (the decision is never
 made at import time, so every pytest-xdist worker collects the same
 tests)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from varanneal_tpu_torch.anneal.ladder import rung_rf
 from varanneal_tpu_torch.api import build_bounds
-from varanneal_tpu_torch.kernels import ag, solve
+from varanneal_tpu_torch.kernels import ag, fe, solve
 from varanneal_tpu_torch.kernels import dir as kdir
 from varanneal_tpu_torch.models import lorenz96
-from varanneal_tpu_torch.ops import build_spec, pack
+from varanneal_tpu_torch.ops import build_spec, make_action, pack
 from varanneal_tpu_torch.opt import LBFGSOptions
 from varanneal_tpu_torch.parallel import make_ensemble_ladder
 from varanneal_tpu_torch.twin import lorenz96_twin
@@ -323,3 +328,89 @@ def test_dir_kernels_match_plain(cuda, m):
         assert torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
         assert torch.equal(Hk, Hk2)
 
+
+
+def _fe_specs():
+    """BASELINE config #1's data under the three one-step discs, config
+    #2's shape (D=100, N_data=121, Hermite–Simpson) and config #5's width
+    (D=400, trapezoid)."""
+    spec, tw = _main_spec()
+    out = [(dataclasses.replace(spec, disc=d), 4)
+           for d in ("euler", "trapezoid", "forwardmap")]
+    tw2 = lorenz96_twin(D=100, N_data=121, n_obs=40, sigma=1.0)
+    out.append((build_spec(lorenz96, 100, tw2["Y"], tw2["t"], tw2["Lidx"],
+                           tw2["RM"], disc="SimpsonHermite",
+                           P=np.array([4.0]), pidx=[0]), 8))
+    tw5 = lorenz96_twin(D=400, N_data=161, n_obs=100)
+    out.append((build_spec(lorenz96, 400, tw5["Y"], tw5["t"], tw5["Lidx"],
+                           tw5["RM"], disc="trapezoid", P=np.array([4.0]),
+                           pidx=[0]), 4))
+    return out
+
+
+def _k6_launches():
+    return (fe.FWD_LAUNCHES + fe.BWD_LAUNCHES + fe.SH_FWD_LAUNCHES
+            + fe.SH_BWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_fe_kernels_match_plain(cuda, dtype, tol):
+    """K6's four kernels against their plain versions: the value (the
+    partials' sum) within tol relative, the gradient rows and F's
+    gradient within tol of max|g|, scalar and (N_f-1, D) rf; one launch
+    each; repeats bit-identical."""
+    rng = np.random.default_rng(0)
+    for spec, B in _fe_specs():
+        c = fe.fe_consts(spec, dtype, cuda, block_n=64)
+        X = torch.tensor(rng.normal(2.0, 2.0, (B, spec.N_f, spec.D)),
+                         dtype=dtype, device=cuda)
+        pest = torch.tensor(4.0 + rng.normal(size=(B, 1)), dtype=dtype,
+                            device=cuda)
+        for rf in (1e-2, torch.tensor(rng.uniform(
+                0.5, 2.0, (spec.N_f - 1, spec.D)) * 1e-2, dtype=dtype,
+                device=cuda)):
+            n0 = _k6_launches()
+            p_k = fe.fe_partials(X, pest, rf, c)
+            g_k, gp_k = fe.fe_adjoint(X, pest, rf, c)
+            torch.cuda.synchronize()
+            assert _k6_launches() == n0 + 2
+            Xc, pc = X.cpu(), pest.cpu()
+            rc = rf.cpu() if isinstance(rf, torch.Tensor) else rf
+            cc = dataclasses.replace(c, device=torch.device("cpu"))
+            p_r = fe.fe_partials(Xc, pc, rc, cc)
+            g_r, gp_r = fe.fe_adjoint(Xc, pc, rc, cc)
+            v_k, v_r = p_k.sum(1).cpu(), p_r.sum(1)
+            assert float(torch.max(torch.abs(v_k - v_r) / v_r.abs())) <= tol
+            s = torch.amax(torch.abs(g_r), dim=(1, 2))
+            assert float(torch.max(torch.amax(torch.abs(
+                g_k.cpu() - g_r), dim=(1, 2)) / s)) <= tol
+            assert float(torch.max(torch.abs(
+                gp_k.sum(1).cpu() - gp_r.sum(1)) / s)) <= tol
+            assert torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
+            assert torch.equal(g_k, fe.fe_adjoint(X, pest, rf, c)[0])
+
+
+def test_fe_action_on_the_card(cuda):
+    """engine='pallas' on the card: K6 forward and backward once an
+    evaluation, the action's value and gradient within 1e-12 of the
+    autograd action's in f64 (config #2's shape, two members)."""
+    spec = _fe_specs()[3][0]
+    act, parts = fe.select_action(spec, 1e-3, engine="pallas",
+                                  dtype=torch.float64, device=cuda)
+    assert act.engine == "pallas"
+    act_x, _ = make_action(spec, device=cuda)
+    XP = torch.tensor(np.random.default_rng(3).normal(
+        size=(2, spec.n_dof)), device=cuda)
+    n0 = (fe.SH_FWD_LAUNCHES, fe.SH_BWD_LAUNCHES)
+    x = XP.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(act(x, 1e-3).sum(), x)
+    assert (fe.SH_FWD_LAUNCHES, fe.SH_BWD_LAUNCHES) == (n0[0] + 1,
+                                                         n0[1] + 1)
+    x2 = XP.clone().requires_grad_(True)
+    A_x = act_x(x2, 1e-3)
+    (g_x,) = torch.autograd.grad(A_x.sum(), x2)
+    torch.testing.assert_close(act(XP, 1e-3), A_x.detach(), rtol=1e-12,
+                               atol=0)
+    assert float(torch.max(torch.abs(g - g_x))
+                 / torch.max(torch.abs(g_x))) <= 1e-12

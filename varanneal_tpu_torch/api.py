@@ -13,6 +13,10 @@ generic L-BFGS loop over the action of ``kernels.fe.select_action``.
 (``ops.action.comp_sum``): ``engine='ag'`` through K4
 (``kernels.ag.make_action_ag(compensated=True)``), otherwise the
 compensated autograd action, always on the generic loop.
+``engine='pallas'`` evaluates the action through the time-blocked FE
+kernels K6 (``kernels.fe.make_action_pallas``, any of the four discs) on
+the generic loop: under ``solver='auto'`` an explicit engine other than
+``'ag'`` pins the generic loop, as in the reference.
 ``checkpoint_path=``, ``repeats > 1`` and ``snapshot_beta=`` run the
 ladder through ``anneal.checkpoint.run_ladder_checkpointed``, and the
 snapshot is stored as ``XP_snapshot``.
@@ -24,8 +28,9 @@ the JAX facade does off the TPU. ``anneal``'s signature stays the
 reference's.
 
 What waits for later slices (ROADMAP.md) raises NotImplementedError
-naming its item: ``method`` LM/GN/TNC/CG/NCG (§1 item 6) and
-``engine='pallas'`` (K6).
+naming its item: ``method`` LM/GN/TNC/CG/NCG (§1 item 6), and
+``engine='pallas'`` for a problem outside K6's envelope (another model,
+§1 item 8, or a stimulus, §1 item 5).
 
 Exit flags are mapped to SciPy-like codes: 0 converged (pgtol or ftol),
 1 maxiter exhausted, 2 line-search failure.
@@ -217,10 +222,10 @@ class Annealer:
         The reference's signature (``varanneal_tpu/api.py ::
         Annealer.anneal``), on this Annealer's device. ``dtype``: float32
         or float64 (torch or NumPy); None means
-        ``torch.get_default_dtype()``. ``engine``: 'auto', 'xla', 'ag' (see
-        ``kernels.fe.select_action``). ``RF_max``/``RF_min``: per-component
-        cap and floor on RF(β) = max(min(RF0·α^β, RF_max), RF_min), the
-        same shapes as RF0. ``solver``: 'auto' (the whole-rung kernel K2
+        ``torch.get_default_dtype()``. ``engine``: 'auto', 'xla', 'ag',
+        'pallas' (see ``kernels.fe.select_action``). ``RF_max``/``RF_min``:
+        per-component cap and floor on RF(β) = max(min(RF0·α^β, RF_max),
+        RF_min), the same shapes as RF0. ``solver``: 'auto' (the whole-rung kernel K2
         where ``kernels.solve.solve_preferred`` holds, else the generic
         loop), 'generic' or 'fused' (K2 wherever ``solve_supported`` holds,
         else a warning and the generic loop). ``compensated``,

@@ -22,21 +22,26 @@ Env knobs, as bench.py's where the port has the path:
   make_ladder_solver``); ``fused`` one launch of K2 per rung through the
   ladder's ``rung_solver`` hook; ``xla`` the generic batched L-BFGS loop
   over the action of ``BENCH_ENGINE``;
-- ``BENCH_ENGINE=auto|ag|xla`` (``ag``: K1; ``xla``: the autograd
-  action; ``auto``: ``kernels.fe.select_action``'s policy, the autograd
-  action at D=20), ``BENCH_DTYPE=f32|f64``, ``BENCH_NINIT`` (default 1),
+- ``BENCH_ENGINE=auto|ag|xla|pallas`` (``ag``: K1; ``xla``: the autograd
+  action; ``pallas`` or ``BENCH_PALLAS=1``: the time-blocked FE kernels
+  K6, trapezoid forward and backward with a scalar rf, through
+  ``kernels.fe.select_action(engine='pallas')``; ``auto``: that
+  function's policy, the autograd action at D=20),
+  ``BENCH_DTYPE=f32|f64``, ``BENCH_NINIT`` (default 1),
   ``BENCH_NBETA`` (101), ``BENCH_MAXITER`` (500), ``BENCH_DIRECTION``
   (auto), ``BENCH_M`` (5), ``BENCH_MAXLS`` (20), ``BENCH_TAIL64`` (20);
 - ``BENCH_PACK=k``: as in bench.py, k > 1 with ``BENCH_NINIT > 1`` takes
   the packed-member kernel under ``fused``/``ladder``; with one init a
   ``ladder`` run then goes through K2 per rung instead of K3.
 
+The engine is read where the action is evaluated: every evaluation
+under ``xla``, and the per-rung records under ``fused`` (and ``ladder``
+when it runs per rung); K3 under ``ladder`` evaluates in its own launch.
 Where bench.py would take a path the port does not have yet, the run
-raises NotImplementedError (ROADMAP.md): ``BENCH_ENGINE=pallas`` (K6)
-when the action is evaluated (``xla`` and ``fused``, and ``ladder`` when
-it runs per rung), ``BENCH_PACK>1`` with ``BENCH_NINIT>1`` under
-``fused``/``ladder`` (K8), ``BENCH_INNER=lm`` under ``xla`` (``opt/lm``);
-elsewhere bench.py ignores these knobs and so does the port. bench.py's
+raises NotImplementedError (ROADMAP.md): ``BENCH_PACK>1`` with
+``BENCH_NINIT>1`` under ``fused``/``ladder`` (K8), ``BENCH_INNER=lm``
+under ``xla`` (``opt/lm``); elsewhere bench.py ignores these knobs and so
+does the port. bench.py's
 CPU fallback has no counterpart: without a card the run fails and exits
 non-zero. ``main(device="cpu")`` runs the plain versions on the CPU, for
 tests.
@@ -55,8 +60,7 @@ import torch
 from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.anneal import run_ladder
 from varanneal_tpu_torch.anneal.ladder import rung_rf
-from varanneal_tpu_torch.kernels import ag, solve
-from varanneal_tpu_torch.kernels.fe import select_action
+from varanneal_tpu_torch.kernels import ag, fe, solve
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec
 from varanneal_tpu_torch.opt import LBFGSOptions
@@ -116,8 +120,6 @@ def main(device=None, env=None):
         raise _waits("BENCH_INNER=lm (opt/lm)")
     if bench_solver == "ladder" and pack > 1:
         bench_solver = "fused"     # bench.py: K2 per rung, not K3
-    if engine == "pallas" and bench_solver != "ladder":
-        raise _waits("BENCH_ENGINE=pallas (the time-blocked FE kernels, K6)")
 
     tw = lorenz96_twin(D=20, N_data=161, n_obs=8)
     spec = build_spec(lorenz96, 20, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
@@ -142,7 +144,7 @@ def main(device=None, env=None):
             xpo, recs = lad(xp, rfs)
             return SimpleNamespace(XP=xpo, **recs)
     else:
-        action, parts = select_action(spec, float(rf0), engine=engine,
+        action, parts = fe.select_action(spec, float(rf0), engine=engine,
                                       dtype=dtype, device=device)
         kw = {}
         if bench_solver == "fused":
@@ -181,11 +183,13 @@ def main(device=None, env=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    launches = dict(ag=0, rung=0, ladder=0)
+    launches = dict(ag=0, rung=0, ladder=0, fe_fwd=0, fe_bwd=0)
 
     def counts():
         return dict(ag=ag.LAUNCHES, rung=solve.RUNG_LAUNCHES,
-                    ladder=solve.LADDER_LAUNCHES)
+                    ladder=solve.LADDER_LAUNCHES,
+                    fe_fwd=fe.FWD_LAUNCHES + fe.SH_FWD_LAUNCHES,
+                    fe_bwd=fe.BWD_LAUNCHES + fe.SH_BWD_LAUNCHES)
 
     def ladder_call():
         before = counts()

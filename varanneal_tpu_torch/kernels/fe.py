@@ -1,29 +1,64 @@
-"""The action engine policy: which implementation of the action the facade
-and the bench evaluate.
+"""K6, the time-blocked model-error (FE) kernels, and the action engine
+policy: which implementation of the action the facade, the runner and
+the bench evaluate.
 
-Counterpart of ``varanneal_tpu/kernels/fe_pallas.py``'s
-``ag_preferred`` and ``select_action`` (and of the part of
-``pallas_preferred`` that decides where the time-blocked FE kernels, K6,
-would run). The engines:
+Counterpart of ``varanneal_tpu/kernels/fe_pallas.py`` (``fe_supported``,
+``make_fe_pallas``, ``make_action_pallas``, ``pallas_preferred``,
+``ag_preferred``, ``select_action``). Its seven ``pallas_call`` sites are
+replaced on the card by the four hand-written CUDA kernels of
+``csrc/fe_kernel.cu`` (the source notes what bounds them and what their
+design does about that):
+
+- ``fe_onestep_fwd`` (K6a, ``_kern_scalar``/``_kern_diag``): per-block
+  partial sums of rf ⊙ r² for euler, trapezoid and forwardmap;
+- ``fe_onestep_bwd`` (K6b, ``_kern_bwd``): the hand-written adjoint, the
+  gradient rows and F's per-block partials;
+- ``fe_sh_fwd`` and ``fe_sh_bwd`` (K6c ``_kern_sh_fwd``/``_kern_sh_bwd``
+  and K6d, their batched-grid forms): Hermite–Simpson over blocks of
+  intervals, the backward as the (g_e0, g_m, g_e1) triplet that
+  :func:`sh_join` adds into the gradient by node, as the reference does.
+
+Every kernel runs on a (time block, member) grid, so B = 1 is K6c and
+B > 1 is K6d. Beside each kernel is its plain PyTorch version
+(``*_reference``), which returns the same per-block partials and spells
+out the same hand adjoint (Lorenz-96's f and Jᵀv on ``torch.roll``); the
+CPU path and the tests use them, and a wrapper takes its plain version
+only for tensors on the CPU: on a CUDA tensor it launches its kernel or
+raises. Each wrapper counts its launches (:data:`FWD_LAUNCHES`,
+:data:`BWD_LAUNCHES`, :data:`SH_FWD_LAUNCHES`, :data:`SH_BWD_LAUNCHES`).
+
+:func:`make_fe_pallas` returns ``fe(X, pest, rf)``, a
+``torch.autograd.Function`` whose forward is one launch and whose
+backward is one launch, scaled by 2·g/norm as the reference's
+``custom_vjp``; :func:`make_action_pallas` keeps ME in plain PyTorch.
+
+The engines of :func:`select_action`:
 
 - ``'xla'``: the autograd action (``ops.action.make_action``);
 - ``'ag'``: K1, the fused action+gradient kernel
-  (``kernels.ag.make_action_ag``), forced; raises outside its envelope;
-- ``'pallas'``: the time-blocked FE kernels (K6), which wait for a later
-  slice of the port (ROADMAP.md): raises NotImplementedError;
-- ``'auto'``: K1 only in the reference's measured-win regime (a one-step
-  disc, D >= 256, float32, on the card); the autograd action below it.
-  Inside that regime, where the reference would take a kernel that the
-  port does not have yet (K1 for another disc or model, or K6), it
-  raises NotImplementedError rather than quietly taking the autograd
-  action.
+  (``kernels.ag.make_action_ag``), forced; ValueError outside its
+  envelope;
+- ``'pallas'``: K6 (:func:`make_action_pallas`), forced; ValueError where
+  the reference's :func:`fe_supported` fails, NotImplementedError where
+  the reference runs K6 but the port's envelope
+  (:func:`fe_kernel_supported`) does not hold;
+- ``'auto'``: the reference's split. Inside its measured-win regime (the
+  card, float32, a one-step disc, D >= 256): K1 wherever the reference's
+  ``ag_supported`` holds (:func:`reference_ag_supported`), else K6 where
+  :func:`pallas_preferred` holds, each raising NotImplementedError where
+  the port's kernel does not cover the problem yet; the autograd action
+  everywhere else. No kernel is quietly replaced by another.
 """
+
+import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.kernels import ag
+from varanneal_tpu_torch.models.lorenz import lorenz96
 from varanneal_tpu_torch.ops import action as _action
 from varanneal_tpu_torch.ops.spec import ProblemSpec
 
@@ -31,6 +66,125 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 #: its Pallas engines won from D = 256 on, and lost below.
 AUTO_MIN_D = 256
 _ONE_STEP = ("euler", "trapezoid", "forwardmap")
+_DISCS = _ONE_STEP + ("SimpsonHermite",)
+_DISC_CODE = {"euler": 0, "trapezoid": 1, "forwardmap": 2}
+_DTYPES = (torch.float32, torch.float64)
+
+#: Launches so far of fe_onestep_fwd (K6a), fe_onestep_bwd (K6b),
+#: fe_sh_fwd and fe_sh_bwd (K6c/K6d); each successful launch adds one.
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+SH_FWD_LAUNCHES = 0
+SH_BWD_LAUNCHES = 0
+
+#: Shared memory a block uses without opting in; above it the kernel opts
+#: in, up to ``ag.SMEM_LIMIT`` (227 KB).
+SMEM_DEFAULT = 48 * 1024
+_WARPS = 8                  # kWarps in csrc/fe_kernel.cu (256 threads)
+#: Staged rows of D values a block holds, per kernel, at bn rows (or
+#: intervals) a block: x rows plus the backward's wr and v rows.
+_SMEM_ROWS = {"onestep_fwd": lambda bn: bn + 1,
+              "onestep_bwd": lambda bn: 3 * bn + 3,
+              "sh_fwd": lambda bn: 2 * bn + 1,
+              "sh_bwd": lambda bn: 5 * bn + 1}
+
+
+# ---------------------------------------------------------------------------
+# predicates: the reference's and the port's envelope
+# ---------------------------------------------------------------------------
+
+def _grid_dt(spec: ProblemSpec) -> float:
+    """Model-grid row spacing: dt for one-step discs, dt/2 under
+    Hermite–Simpson (the doubled grid)."""
+    return spec.dt / 2.0 if spec.disc == "SimpsonHermite" else spec.dt
+
+
+def _uniform_grid(spec: ProblemSpec) -> bool:
+    t_f = np.asarray(spec.t_f)
+    ref = t_f[0] + _grid_dt(spec) * np.arange(t_f.shape[0])
+    return bool(np.allclose(t_f, ref, rtol=1e-12, atol=1e-9))
+
+
+def fe_supported(spec: ProblemSpec, rf) -> bool:
+    """The reference's predicate (``fe_pallas.fe_supported``): any of the
+    four discs, constant parameters, scalar or (N_f-1, D) rf, a uniform
+    grid."""
+    return (spec.disc in _DISCS
+            and not spec.time_dep_p
+            and np.ndim(rf) in (0, 2)
+            and _uniform_grid(spec))
+
+
+def _pad_to(v, mult):
+    return -(-v // mult) * mult
+
+
+def reference_ag_supported(spec: ProblemSpec, rf,
+                           dtype=torch.float32) -> bool:
+    """The reference's K1 predicate (``ag_pallas.ag_supported``): any of
+    the four discs, constant parameters, float32, scalar or (N_f-1, D) rf,
+    scalar or (N_data, L) RM, a uniform grid, and the padded state
+    (rows to 8, components to 128 lanes) at most 2²¹ values. Where it
+    holds, the reference's ``engine='auto'`` takes K1 inside the regime."""
+    return (spec.disc in _DISCS
+            and not spec.time_dep_p
+            and dtype == torch.float32
+            and np.ndim(rf) in (0, 2)
+            and np.ndim(spec.RM) in (0, 2)
+            and _uniform_grid(spec)
+            and _pad_to(spec.N_f, 8) * _pad_to(spec.D, 128) <= 2 ** 21)
+
+
+def _smem_bytes(kernel: str, bn: int, D: int, dtype) -> int:
+    return ((_SMEM_ROWS[kernel](bn) * D + _WARPS)
+            * (torch.finfo(dtype).bits // 8))
+
+
+def _kernels_of(disc):
+    if disc == "SimpsonHermite":
+        return ("sh_fwd", "sh_bwd")
+    return ("onestep_fwd", "onestep_bwd")
+
+
+def rows_per_block(kernel: str, n_rows: int, D: int, dtype,
+                   block_n: int) -> int:
+    """Rows (intervals under Hermite–Simpson) a block of ``kernel`` takes:
+    ``block_n``, cut to the rows there are (rounded up to 8, at least 8,
+    as the reference's ``block_n``), then cut by 8 at a time, not below 8,
+    until the staged rows fit in :data:`SMEM_DEFAULT`; where even 8 rows
+    do not, the kernel opts in to more (up to ``ag.SMEM_LIMIT``,
+    :func:`fe_kernel_supported`)."""
+    bn = max(1, min(int(block_n), max(8, _pad_to(n_rows, 8))))
+    while bn > 8 and _smem_bytes(kernel, bn, D, dtype) > SMEM_DEFAULT:
+        bn = max(8, bn - 8)
+    return bn
+
+
+def fe_kernel_supported(spec: ProblemSpec, rf=0.0,
+                        dtype=torch.float32) -> bool:
+    """The port's K6 envelope: Lorenz-96 (the port's
+    ``models.lorenz.lorenz96``, D >= 4) without a stimulus, constant
+    parameters with NP == 1 and F estimated or fixed, any of the four
+    discs, scalar or (N_f-1, D) rf, a uniform grid, float32 or float64,
+    and 8 rows a block of every kernel of the disc within one block's
+    shared memory (``ag.SMEM_LIMIT``): D up to 708 in float64 and 1,417 in
+    float32 under Hermite–Simpson (its backward stages 41 rows), 1,075 and
+    2,152 for the one-step discs (27 rows)."""
+    rf_nd = np.ndim(rf)
+    return (spec.f is lorenz96
+            and spec.D >= 4
+            and spec.stim_f is None
+            and not spec.time_dep_p
+            and spec.NP == 1
+            and spec.pidx in ((), (0,))
+            and spec.disc in _DISCS
+            and (spec.disc != "SimpsonHermite" or spec.N_f % 2 == 1)
+            and rf_nd in (0, 2)
+            and (rf_nd == 0 or np.shape(rf) == (spec.N_f - 1, spec.D))
+            and dtype in _DTYPES
+            and _uniform_grid(spec)
+            and all(_smem_bytes(k, 8, spec.D, dtype) <= ag.SMEM_LIMIT
+                    for k in _kernels_of(spec.disc)))
 
 
 def _in_regime(spec: ProblemSpec, dtype, device) -> bool:
@@ -42,33 +196,47 @@ def _in_regime(spec: ProblemSpec, dtype, device) -> bool:
 
 def ag_preferred(spec: ProblemSpec, rf, dtype=torch.float32,
                  device=None) -> bool:
-    """``engine='auto'`` takes K1: the reference's regime (a one-step disc,
-    D >= :data:`AUTO_MIN_D`, float32, on the card) and K1's envelope."""
+    """The reference's ``ag_preferred``: ``engine='auto'`` takes K1 (the
+    regime: a one-step disc, D >= :data:`AUTO_MIN_D`, float32, on the
+    card; and :func:`reference_ag_supported`)."""
     return (_in_regime(spec, dtype, device)
-            and ag.ag_supported(spec, rf, dtype))
+            and reference_ag_supported(spec, rf, dtype))
 
 
-def _reference_takes_kernel(spec: ProblemSpec, rf) -> bool:
-    """Inside the regime the reference runs a kernel (its K1, or K6 through
-    ``pallas_preferred``) wherever ``fe_supported`` holds: constant
-    parameters, scalar or (N-1, D) rf, a uniform grid."""
-    return (not spec.time_dep_p and np.ndim(rf) in (0, 2)
-            and ag._uniform_grid(spec))
+def pallas_preferred(spec: ProblemSpec, rf, dtype=torch.float32,
+                     device=None) -> bool:
+    """The reference's ``pallas_preferred`` (``fe_pallas.py:892-909``):
+    the regime and :func:`fe_supported`. Hermite–Simpson stays opt-in,
+    as does everything off the card."""
+    return _in_regime(spec, dtype, device) and fe_supported(spec, rf)
+
+
+def _k6_waits(spec: ProblemSpec):
+    item = ("§1 item 5 (the NaKL path, with the stimulus)"
+            if spec.stim_f is not None else "§1 item 8 (other models)")
+    return NotImplementedError(
+        "the time-blocked FE kernels K6 take Lorenz-96 without a stimulus, "
+        "constant parameters, NP == 1, float32 or float64 "
+        "(kernels.fe.fe_kernel_supported); the reference runs K6 here, "
+        f"which waits for a later slice of the port: see ROADMAP.md, {item}")
 
 
 def select_action(spec: ProblemSpec, rf, engine: str = "auto",
-                  dtype=torch.float32, device=None):
+                  dtype=torch.float32, device=None, block_n: int = 64,
+                  pallas_backward: bool = True):
     """``(action, action_parts)`` of the chosen engine (see the module
     docstring), with ``action.engine`` set to the engine taken.
-    ``device=None`` means the CUDA card."""
+    ``block_n``/``pallas_backward``: K6's, as the reference's
+    ``select_action`` passes them. ``device=None`` means the CUDA card."""
     if engine not in ("auto", "xla", "pallas", "ag"):
         raise ValueError(
             f"engine must be auto/xla/pallas/ag, got {engine!r}")
     device = resolve_device(device)
-    if engine == "pallas":
-        raise NotImplementedError(
-            "engine='pallas' (the time-blocked FE kernels, K6) waits for a "
-            "later slice of the port; see ROADMAP.md")
+    if engine == "pallas" and not fe_supported(spec, rf):
+        raise ValueError(
+            "engine='pallas' unsupported for this problem (time-dependent "
+            "parameters / rf rank / non-uniform grid; see "
+            "kernels.fe.fe_supported)")
     if engine == "ag" and not ag.ag_supported(spec, rf, dtype):
         raise ValueError(
             "engine='ag' unsupported for this problem (K1 takes Lorenz-96 "
@@ -77,19 +245,549 @@ def select_action(spec: ProblemSpec, rf, engine: str = "auto",
             "kernels.ag.ag_supported)")
     if engine == "auto":
         if ag_preferred(spec, rf, dtype, device):
+            if not ag.ag_supported(spec, rf, dtype):
+                raise NotImplementedError(
+                    "engine='auto' at D >= 256 in float32 on the card: the "
+                    "reference runs its whole-problem kernel K1 here; the "
+                    "port's K1 takes Lorenz-96 with the trapezoid rule and "
+                    f"a scalar rf only (this problem: disc {spec.disc!r}, "
+                    f"rf rank {np.ndim(rf)}), and its widening waits for a "
+                    "later slice: see ROADMAP.md §2 (K1) and §1 items 5 "
+                    "and 8; pass engine='xla' for the autograd action")
             engine = "ag"
-        elif (_in_regime(spec, dtype, device)
-              and _reference_takes_kernel(spec, rf)):
-            raise NotImplementedError(
-                "engine='auto' at D >= 256 in float32 on the card: the "
-                "reference runs its fused kernels here (K1 for this disc "
-                "and model, or the FE kernels K6), which wait for a later "
-                "slice of the port (ROADMAP.md); pass engine='xla' for "
-                "the autograd action")
+        elif pallas_preferred(spec, rf, dtype, device):
+            engine = "pallas"
+    if engine == "pallas" and not fe_kernel_supported(spec, rf, dtype):
+        raise _k6_waits(spec)
     if engine == "ag":
         act, parts = ag.make_action_ag(spec, device=device, dtype=dtype)
+    elif engine == "pallas":
+        act, parts = make_action_pallas(spec, block_n=block_n,
+                                        pallas_backward=pallas_backward,
+                                        device=device)
     else:
         act, parts = _action.make_action(spec, device=device)
         engine = "xla"
     act.engine = engine
     return act, parts
+
+
+# ---------------------------------------------------------------------------
+# the kernels' constants and their plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FeConsts:
+    """K6's constants for one problem, dtype and device. ``bn_fwd`` and
+    ``bn_bwd`` are rows a block (intervals under Hermite–Simpson)."""
+    disc: str
+    N_f: int
+    D: int
+    M: int                  # Hermite–Simpson intervals, (N_f - 1) // 2
+    n_pest: int             # 1 when F is estimated, else 0
+    F_fixed: float
+    h: float
+    norm: float             # D · (N_f - 1)
+    bn_fwd: int
+    bn_bwd: int
+    dtype: torch.dtype
+    device: torch.device
+
+    @property
+    def sh(self) -> bool:
+        return self.disc == "SimpsonHermite"
+
+    @property
+    def n_fwd_blocks(self) -> int:
+        rows = self.M if self.sh else self.N_f - 1
+        return -(-rows // self.bn_fwd)
+
+    @property
+    def n_bwd_blocks(self) -> int:
+        rows = self.M if self.sh else self.N_f
+        return -(-rows // self.bn_bwd)
+
+    def coeffs(self):
+        """The disc's constants as the reference forms them, each a Python
+        float: (hc, a1, c0, c1) for a one-step disc (hc = h/2 for the
+        trapezoid rule, h for euler; ``_disc_coeffs``), (h/6, h/8, 4h/6)
+        under Hermite–Simpson."""
+        h = self.h
+        if self.sh:
+            return h / 6.0, h / 8.0, 4.0 * h / 6.0
+        if self.disc == "trapezoid":
+            return h / 2.0, 1.0, h / 2.0, h / 2.0
+        if self.disc == "euler":
+            return h, 1.0, 0.0, h
+        return 0.0, 0.0, 0.0, 1.0           # forwardmap
+
+
+def fe_consts(spec: ProblemSpec, dtype, device, block_n: int = 512
+              ) -> FeConsts:
+    """:class:`FeConsts` for ``spec`` (which must lie in
+    :func:`fe_kernel_supported` for ``dtype``)."""
+    if not fe_kernel_supported(spec, 0.0, dtype):
+        raise ValueError("problem outside K6's envelope (see "
+                         "kernels.fe.fe_kernel_supported); use "
+                         "ops.action.make_action")
+    sh = spec.disc == "SimpsonHermite"
+    M = (spec.N_f - 1) // 2 if sh else 0
+    fwd, bwd = _kernels_of(spec.disc)
+    return FeConsts(
+        disc=spec.disc, N_f=spec.N_f, D=spec.D, M=M, n_pest=spec.NPest,
+        F_fixed=float(np.asarray(spec.P_base)[0]), h=float(spec.dt),
+        norm=spec.D * (spec.N_f - 1),
+        bn_fwd=rows_per_block(fwd, M if sh else spec.N_f - 1, spec.D,
+                              dtype, block_n),
+        bn_bwd=rows_per_block(bwd, M if sh else spec.N_f, spec.D, dtype,
+                              block_n),
+        dtype=dtype, device=resolve_device(device))
+
+
+def _scalar(v, dtype):
+    """A Python float rounded to ``dtype``, as the kernel receives it."""
+    return float(torch.tensor(float(v), dtype=dtype))
+
+
+def _roll(x, k):
+    return torch.roll(x, k, dims=-1)
+
+
+def _l96(X, F):
+    """Lorenz-96's f on every row of X (..., D): l96_f."""
+    return (_roll(X, -1) - _roll(X, 2)) * _roll(X, 1) - X + F
+
+
+def _l96_jtv(X, v):
+    """(J(x)ᵀ v) on every row: l96_jtv."""
+    return (_roll(X, 2) * _roll(v, 1)
+            + (_roll(X, -2) - _roll(X, 1)) * _roll(v, -1)
+            - _roll(X, -1) * _roll(v, -2)
+            - v)
+
+
+def _F(pest, c: FeConsts, dtype):
+    if c.n_pest:
+        return pest[:, :1].reshape(-1, 1, 1)
+    return _scalar(c.F_fixed, dtype)
+
+
+def _block_sums(t, bn):
+    """(B, R, D) -> (B, ceil(R / bn)): the sum over each block of bn
+    rows."""
+    B, R, D = t.shape
+    nb = -(-R // bn)
+    if nb * bn > R:
+        t = torch.cat([t, t.new_zeros(B, nb * bn - R, D)], dim=1)
+    return t.reshape(B, nb, bn * D).sum(dim=2)
+
+
+def _onestep_residuals(X, pest, c: FeConsts):
+    dt = X.dtype
+    fX = _l96(X, _F(pest, c, dt))
+    hc = _scalar(c.coeffs()[0], dt)
+    if c.disc == "trapezoid":
+        return X[:, 1:] - X[:, :-1] - hc * (fX[:, :-1] + fX[:, 1:])
+    if c.disc == "euler":
+        return X[:, 1:] - X[:, :-1] - hc * fX[:, :-1]
+    return X[:, 1:] - fX[:, :-1]
+
+
+def onestep_fwd_reference(X, pest, rf, c: FeConsts):
+    """Plain version of fe_onestep_fwd: X (B, N_f, D), pest (B, NPest), rf
+    a float or an (N_f-1, D) tensor -> partials (B, n_fwd_blocks)."""
+    r = _onestep_residuals(X, pest, c)
+    if isinstance(rf, torch.Tensor):
+        return _block_sums(rf * r * r, c.bn_fwd)
+    return _scalar(rf, X.dtype) * _block_sums(r * r, c.bn_fwd)
+
+
+def onestep_bwd_reference(X, pest, rf, c: FeConsts):
+    """Plain version of fe_onestep_bwd: the unscaled gradient rows
+    gx_m = wr_{m-1} - a1 wr_m - J(x_m)ᵀ v_m (B, N_f, D), with wr the
+    weighted residuals (zero before the first row and after the last) and
+    v_m = c0 wr_{m-1} + c1 wr_m, and F's partials -Σ v per block of
+    bn_bwd rows (B, n_bwd_blocks)."""
+    dt = X.dtype
+    _, a1, c0, c1 = (_scalar(v, dt) for v in c.coeffs())
+    r = _onestep_residuals(X, pest, c)
+    wr = (rf if isinstance(rf, torch.Tensor) else _scalar(rf, dt)) * r
+    z = torch.zeros_like(wr[:, :1])
+    wr_prev = torch.cat([z, wr], dim=1)
+    wr_cur = torch.cat([wr, z], dim=1)
+    v = c0 * wr_prev + c1 * wr_cur
+    gx = wr_prev - a1 * wr_cur - _l96_jtv(X, v)
+    return gx, -_block_sums(v, c.bn_bwd)
+
+
+def _sh_parts(X, pest, rf, c: FeConsts):
+    dt = X.dtype
+    h6, h8, _ = (_scalar(v, dt) for v in c.coeffs())
+    M = c.M
+    fX = _l96(X, _F(pest, c, dt))
+    xe0, xm, xe1 = X[:, 0:2 * M:2], X[:, 1:2 * M:2], X[:, 2:2 * M + 1:2]
+    f0, fm, f1 = fX[:, 0:2 * M:2], fX[:, 1:2 * M:2], fX[:, 2:2 * M + 1:2]
+    S = xe1 - xe0 - h6 * (f0 + 4.0 * fm + f1)
+    H = xm - 0.5 * (xe0 + xe1) - h8 * (f0 - f1)
+    if isinstance(rf, torch.Tensor):
+        ws, wh = rf[0:2 * M:2], rf[1:2 * M:2]
+    else:
+        ws = wh = _scalar(rf, dt)
+    return (xe0, xm, xe1), S, H, ws, wh
+
+
+def sh_fwd_reference(X, pest, rf, c: FeConsts):
+    """Plain version of fe_sh_fwd: partials Σ ws S² + wh H² per block of
+    bn_fwd intervals (B, n_fwd_blocks)."""
+    _, S, H, ws, wh = _sh_parts(X, pest, rf, c)
+    return _block_sums(ws * S * S + wh * H * H, c.bn_fwd)
+
+
+def sh_bwd_reference(X, pest, rf, c: FeConsts):
+    """Plain version of fe_sh_bwd: the unscaled triplet (g_e0, g_m, g_e1),
+    each (B, M, D), and F's partials Σ (v0 + vm + v1) per block of bn_bwd
+    intervals (B, n_bwd_blocks)."""
+    dt = X.dtype
+    h6, h8, h46 = (_scalar(v, dt) for v in c.coeffs())
+    (xe0, xm, xe1), S, H, ws, wh = _sh_parts(X, pest, rf, c)
+    WS, WH = ws * S, wh * H
+    v0 = -h6 * WS - h8 * WH
+    vm = -h46 * WS
+    v1 = -h6 * WS + h8 * WH
+    ge0 = -WS - 0.5 * WH + _l96_jtv(xe0, v0)
+    gm = WH + _l96_jtv(xm, vm)
+    ge1 = WS - 0.5 * WH + _l96_jtv(xe1, v1)
+    return ge0, gm, ge1, _block_sums(v0 + vm + v1, c.bn_bwd)
+
+
+def sh_join(ge0, gm, ge1, c: FeConsts):
+    """The gradient rows (B, N_f, D) from the triplet: even node j gets
+    g_e0[j] + g_e1[j-1], midpoint 2k+1 gets g_m[k] (the reference's
+    shift-add, ``fe_pallas.py:664-670``)."""
+    gx = ge0.new_empty(ge0.shape[0], c.N_f, c.D)
+    ev = gx[:, 0::2]
+    ev[:, :c.M] = ge0
+    ev[:, c.M] = 0.0
+    ev[:, 1:] += ge1
+    gx[:, 1::2] = gm
+    return gx
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    from varanneal_tpu_torch.kernels import _build
+    lib = _build.load("fe_kernel").lib
+    if not getattr(lib, "_va_typed", False):
+        P, I, LL, Dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_double)
+        common = [P, LL, P, LL, Dbl, P, Dbl, I, I, I]
+        for t in ("f32", "f64"):
+            fn = getattr(lib, f"va_fe_onestep_fwd_{t}")
+            fn.argtypes = [I, I] + common + [Dbl, I, P, P]
+            fn = getattr(lib, f"va_fe_onestep_bwd_{t}")
+            fn.argtypes = [I, I] + common + [Dbl, Dbl, Dbl, Dbl, I, P, P, P]
+            fn = getattr(lib, f"va_fe_sh_fwd_{t}")
+            fn.argtypes = [I] + common + [Dbl, Dbl, I, P, P]
+            fn = getattr(lib, f"va_fe_sh_bwd_{t}")
+            fn.argtypes = [I] + common + [Dbl, Dbl, Dbl, I, P, P, P, P, P]
+            for k in ("onestep_fwd", "onestep_bwd", "sh_fwd", "sh_bwd"):
+                getattr(lib, f"va_fe_{k}_{t}").restype = I
+        lib.va_fe_error_string.restype = ctypes.c_char_p
+        lib.va_fe_error_string.argtypes = [I]
+        lib._va_typed = True
+    return lib
+
+
+def _launch_args(X, pest, rf, c: FeConsts):
+    """Check the inputs of a kernel launch and return (X, B, diag, the
+    launch's leading arguments)."""
+    if X.device.type != "cuda" or X.device != c.device:
+        raise ValueError(f"X is on {X.device}; the kernel's constants are "
+                         f"on {c.device}")
+    if X.dtype != c.dtype or X.ndim != 3 or tuple(X.shape[1:]) != (c.N_f,
+                                                                   c.D):
+        raise ValueError(f"X must be (B, {c.N_f}, {c.D}) {c.dtype}; got "
+                         f"{tuple(X.shape)} {X.dtype}")
+    if X.stride(2) != 1 or X.stride(1) != c.D:
+        X = X.contiguous()
+    B = X.shape[0]
+    p_ptr, p_bs = None, 0
+    if c.n_pest:
+        if (pest is None or tuple(pest.shape) != (B, 1)
+                or pest.dtype != c.dtype or pest.device != X.device):
+            raise ValueError(f"pest must be ({B}, 1) {c.dtype} on "
+                             f"{X.device}")
+        p_ptr, p_bs = pest.data_ptr(), pest.stride(0)
+    diag = isinstance(rf, torch.Tensor)
+    if diag:
+        if (tuple(rf.shape) != (c.N_f - 1, c.D) or rf.dtype != c.dtype
+                or rf.device != X.device or not rf.is_contiguous()):
+            raise ValueError(f"rf must be a scalar or a contiguous "
+                             f"({c.N_f - 1}, {c.D}) {c.dtype} tensor on "
+                             f"{X.device}")
+        rf_ptr, rf_s = rf.data_ptr(), 0.0
+    else:
+        rf_ptr, rf_s = None, float(rf)
+    rows = c.M if c.sh else c.N_f
+    return X, B, int(diag), (X.data_ptr(), X.stride(0), p_ptr, p_bs,
+                             c.F_fixed, rf_ptr, rf_s, B, rows, c.D)
+
+
+def _call(X, fn, name, *args):
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed: cudaError {rc} "
+            f"({_lib().va_fe_error_string(rc).decode()})")
+
+
+def _fn(kind, c: FeConsts):
+    return getattr(_lib(), f"va_fe_{kind}_"
+                   + ("f32" if c.dtype == torch.float32 else "f64"))
+
+
+def _check_disc(c: FeConsts, want_sh: bool, name: str):
+    if c.sh != want_sh:
+        raise ValueError(f"{name} does not take the {c.disc!r} disc")
+
+
+def onestep_fwd_kernel(X, pest, rf, c: FeConsts):
+    """Launch fe_onestep_fwd (K6a) on X (B, N_f, D), a CUDA tensor of c's
+    dtype whose rows are contiguous; returns the partials (B,
+    n_fwd_blocks) on PyTorch's current stream, without synchronizing.
+    Raises on anything the kernel does not take and on a refused
+    launch."""
+    global FWD_LAUNCHES
+    _check_disc(c, False, "fe_onestep_fwd")
+    X, B, diag, common = _launch_args(X, pest, rf, c)
+    out = torch.empty(B, c.n_fwd_blocks, dtype=c.dtype, device=X.device)
+    if B == 0:
+        return out
+    _call(X, _fn("onestep_fwd", c), "fe_onestep_fwd", _DISC_CODE[c.disc],
+          diag, *common, c.coeffs()[0], c.bn_fwd, out.data_ptr())
+    FWD_LAUNCHES += 1
+    return out
+
+
+def onestep_bwd_kernel(X, pest, rf, c: FeConsts):
+    """Launch fe_onestep_bwd (K6b): returns (gx (B, N_f, D), F's partials
+    (B, n_bwd_blocks)), unscaled, as :func:`onestep_bwd_reference`."""
+    global BWD_LAUNCHES
+    _check_disc(c, False, "fe_onestep_bwd")
+    X, B, diag, common = _launch_args(X, pest, rf, c)
+    gx = torch.empty(B, c.N_f, c.D, dtype=c.dtype, device=X.device)
+    gp = torch.empty(B, c.n_bwd_blocks, dtype=c.dtype, device=X.device)
+    if B == 0:
+        return gx, gp
+    _call(X, _fn("onestep_bwd", c), "fe_onestep_bwd", _DISC_CODE[c.disc],
+          diag, *common, *c.coeffs(), c.bn_bwd, gx.data_ptr(),
+          gp.data_ptr())
+    BWD_LAUNCHES += 1
+    return gx, gp
+
+
+def sh_fwd_kernel(X, pest, rf, c: FeConsts):
+    """Launch fe_sh_fwd (K6c, K6d for B > 1): returns the partials (B,
+    n_fwd_blocks)."""
+    global SH_FWD_LAUNCHES
+    _check_disc(c, True, "fe_sh_fwd")
+    X, B, diag, common = _launch_args(X, pest, rf, c)
+    out = torch.empty(B, c.n_fwd_blocks, dtype=c.dtype, device=X.device)
+    if B == 0:
+        return out
+    h6, h8, _ = c.coeffs()
+    _call(X, _fn("sh_fwd", c), "fe_sh_fwd", diag, *common, h6, h8,
+          c.bn_fwd, out.data_ptr())
+    SH_FWD_LAUNCHES += 1
+    return out
+
+
+def sh_bwd_kernel(X, pest, rf, c: FeConsts):
+    """Launch fe_sh_bwd (K6c, K6d for B > 1): returns the unscaled triplet
+    (g_e0, g_m, g_e1), each (B, M, D), and F's partials (B,
+    n_bwd_blocks), as :func:`sh_bwd_reference`."""
+    global SH_BWD_LAUNCHES
+    _check_disc(c, True, "fe_sh_bwd")
+    X, B, diag, common = _launch_args(X, pest, rf, c)
+    trip = [torch.empty(B, c.M, c.D, dtype=c.dtype, device=X.device)
+            for _ in range(3)]
+    gp = torch.empty(B, c.n_bwd_blocks, dtype=c.dtype, device=X.device)
+    if B == 0:
+        return (*trip, gp)
+    _call(X, _fn("sh_bwd", c), "fe_sh_bwd", diag, *common, *c.coeffs(),
+          c.bn_bwd, *(t.data_ptr() for t in trip), gp.data_ptr())
+    SH_BWD_LAUNCHES += 1
+    return (*trip, gp)
+
+
+def fe_partials(X, pest, rf, c: FeConsts):
+    """The forward's per-block partials (B, n_fwd_blocks): the plain
+    version for a CPU tensor, the kernel for a CUDA tensor."""
+    if X.device.type == "cpu":
+        if X.device != c.device:
+            raise ValueError(f"X is on {X.device}; the constants are on "
+                             f"{c.device}")
+        return (sh_fwd_reference if c.sh else onestep_fwd_reference)(
+            X, pest, rf, c)
+    return (sh_fwd_kernel if c.sh else onestep_fwd_kernel)(X, pest, rf, c)
+
+
+def fe_adjoint(X, pest, rf, c: FeConsts):
+    """The backward's unscaled gradient rows (B, N_f, D) and F's partials
+    (B, n_bwd_blocks): the plain version for a CPU tensor, the kernel for
+    a CUDA tensor; under Hermite–Simpson the triplet joined by node."""
+    if X.device.type == "cpu":
+        if X.device != c.device:
+            raise ValueError(f"X is on {X.device}; the constants are on "
+                             f"{c.device}")
+        fn = sh_bwd_reference if c.sh else onestep_bwd_reference
+    else:
+        fn = sh_bwd_kernel if c.sh else onestep_bwd_kernel
+    out = fn(X, pest, rf, c)
+    if c.sh:
+        return sh_join(*out[:3], c), out[3]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fe(X, pest, rf) and the action
+# ---------------------------------------------------------------------------
+
+def _rf_value(rf):
+    """rf as the kernels take it: an (N_f-1, D) tensor (detached), else a
+    Python float."""
+    if isinstance(rf, torch.Tensor) and rf.ndim == 2:
+        return rf.detach()
+    return float(rf)
+
+
+class _FE(torch.autograd.Function):
+    """FE per member: the forward is one launch (the partials summed and
+    divided by norm, as the reference's ``jnp.sum(partials) / norm``); the
+    backward one launch, scaled by 2·g/norm. rf's gradient follows the
+    reference's rule: FE/rf for a scalar rf, through the plain model error
+    for an (N_f-1, D) rf, only when rf requires it. ``plain(X, pest, rf)``
+    is the plain model error (``ops.action.model_error``), which
+    ``pallas_backward=False`` differentiates with autograd instead."""
+
+    @staticmethod
+    def forward(ctx, X, pest, rf, c, pallas_backward, plain):
+        val = fe_partials(X, pest, _rf_value(rf), c).sum(dim=1) / c.norm
+        ctx.c, ctx.pb, ctx.plain, ctx.rf = c, pallas_backward, plain, rf
+        ctx.save_for_backward(X, pest, val)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        X, pest, val = ctx.saved_tensors
+        c, rf = ctx.c, ctx.rf
+        rf_k = _rf_value(rf)
+        gx = gpest = grf = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            if ctx.pb:
+                g_rows, gp = fe_adjoint(X, pest, rf_k, c)
+                scale = 2.0 * g / c.norm
+                gx = scale[:, None, None] * g_rows
+                gpest = (scale * gp.sum(dim=1))[:, None] if c.n_pest \
+                    else torch.zeros_like(pest)
+            else:
+                with torch.enable_grad():
+                    Xd = X.detach().requires_grad_(True)
+                    pd = pest.detach().requires_grad_(True)
+                    gx, gpest = torch.autograd.grad(
+                        ctx.plain(Xd, pd, rf_k), (Xd, pd), grad_outputs=g,
+                        allow_unused=True)
+                if gpest is None:
+                    gpest = torch.zeros_like(pest)
+        if ctx.needs_input_grad[2]:
+            if rf.ndim == 0:
+                # FE is linear in a scalar rf: dFE/drf = FE / rf, for free
+                grf = torch.sum(g * val / rf.detach())
+            else:
+                with torch.enable_grad():
+                    rd = rf.detach().requires_grad_(True)
+                    (grf,) = torch.autograd.grad(
+                        ctx.plain(X, pest, rd), rd, grad_outputs=g)
+        return gx, gpest, grf, None, None, None
+
+
+def make_fe_pallas(spec: ProblemSpec, block_n: int = 512,
+                   pallas_backward: bool = True, device=None):
+    """``fe(X, pest, rf) -> FE`` through K6, batched over the leading dims
+    of ``X`` (..., N_f, D) and ``pest`` (..., NPest); ``rf`` a Python
+    float, a 0-d tensor or an (N_f-1, D) tensor shared by the batch.
+    Differentiable by autograd (see :class:`_FE`). ``block_n``: the most
+    rows a block (:func:`rows_per_block`). ``device=None`` means the CUDA
+    card. Raises ValueError outside :func:`fe_kernel_supported`."""
+    device = resolve_device(device)
+    if not fe_kernel_supported(spec, 0.0, torch.float32):
+        raise ValueError("problem outside K6's envelope (see "
+                         "kernels.fe.fe_kernel_supported)")
+    consts, specs = {}, {}
+
+    def c_of(dtype):
+        if dtype not in consts:
+            consts[dtype] = fe_consts(spec, dtype, device, block_n)
+            specs[dtype] = _action.device_spec(spec, device, dtype)
+        return consts[dtype]
+
+    def plain(X, pest, rf):
+        sp = specs[X.dtype]
+        return _action.model_error(sp, X, _action.merge_params(sp, pest),
+                                   rf)
+
+    def fe(X, pest, rf):
+        c = c_of(X.dtype)
+        lead = tuple(X.shape[:-2])
+        X3 = X.reshape((-1, c.N_f, c.D))
+        pest2 = pest.expand(lead + (spec.NPest,)).reshape(
+            X3.shape[0], spec.NPest)
+        if isinstance(rf, torch.Tensor):
+            if rf.ndim == 2:
+                rf = rf.to(device=X.device, dtype=X.dtype).contiguous()
+            elif rf.ndim != 0:
+                raise ValueError("rf must be a scalar or (N_f-1, D)")
+            elif not rf.requires_grad:
+                rf = float(rf)
+        out = _FE.apply(X3, pest2, rf, c, pallas_backward, plain)
+        return out.reshape(lead)
+
+    return fe
+
+
+def make_action_pallas(spec: ProblemSpec, block_n: int = 512,
+                       pallas_backward: bool = True, device=None):
+    """``(action, action_parts)`` with K6's FE and ME in plain PyTorch (the
+    reference keeps ME in XLA: a cheap strided gather), the contract of
+    ``ops.action.make_action``, ``action.engine = 'pallas'``. The records
+    (``action_parts``) evaluate K6's forward too. ``device=None`` means
+    the CUDA card. Raises ValueError outside :func:`fe_kernel_supported`
+    (:func:`select_action` raises first, naming what waits)."""
+    device = resolve_device(device)
+    fe = make_fe_pallas(spec, block_n=block_n,
+                        pallas_backward=pallas_backward, device=device)
+    specs = {}
+
+    def action_parts(XP, rf):
+        if XP.device != device:
+            raise ValueError(f"XP is on {XP.device}, the action on {device}")
+        if XP.dtype not in specs:
+            specs[XP.dtype] = _action.device_spec(spec, device, XP.dtype)
+        sp = specs[XP.dtype]
+        lead = tuple(XP.shape[:-1])
+        X = XP[..., : spec.n_state].reshape(lead + (spec.N_f, spec.D))
+        me = _action.measurement_error(sp, X)
+        fe_v = fe(X, XP[..., spec.n_state:],
+                  _action.rf_arg(rf, XP.dtype, device))
+        return me + fe_v, me, fe_v
+
+    def action(XP, rf):
+        return action_parts(XP, rf)[0]
+
+    action.engine = "pallas"
+    return action, action_parts
