@@ -8,8 +8,9 @@ timed on its own line:
 1. device: the card's name, count, power limit, the torch and nvcc
    versions; no CUDA device -> exit 1 before any result is printed;
 2. build: K1 and K4 (kernels/csrc/ag_kernel.cu), K2/K3
-   (kernels/csrc/solve_kernel.cu), K7a/K7b (kernels/csrc/dir_kernel.cu)
-   and K6 (kernels/csrc/fe_kernel.cu), one nvcc each, started together,
+   (kernels/csrc/solve_kernel.cu), K7a/K7b (kernels/csrc/dir_kernel.cu),
+   K6 (kernels/csrc/fe_kernel.cu), K5 (kernels/csrc/agt_kernel.cu) and
+   K8 (kernels/csrc/pack_kernel.cu), one nvcc each, started together,
    into plain-C shared libraries, with nvcc's -Xptxas -v report
    (registers, spills, shared memory);
 3. K1 against its plain PyTorch version on the card at the main path's
@@ -82,7 +83,7 @@ timed on its own line:
    good/head/hlen exact, a
    member with run = 0 left bit-identical, repeats bit-identical; both
    kernels and their plain versions timed with CUDA events at m=5 with a
-   full history;
+   full history, K7a also by torch.profiler;
 11. the fused generic loop on the main path: phase 5's ladder (B=4, 101
    f32 rungs, K1's action) with ``direction`` left at ``auto``, which on
    the card resolves to the fused loop: K7b's launches equal the loop's
@@ -158,7 +159,8 @@ timed on its own line:
    gradient 1e-12 of max|g|) and f32 (2e-5, K1's limits), repeats
    bit-identical; each kernel at its path's shape (one member, f32)
    timed by CUDA events and by torch.profiler, beside its plain version,
-   its bound, and the autograd action's value+grad (the yardstick);
+   its bound, and the autograd action's value+grad (the yardstick); the
+   Hermite–Simpson kernels also at B=8 in f64 (K6d, the ensemble's path);
 19. an f64 10-rung ladder at config #2 (B=2, from near the twin's truth,
    rf0 = RM, pgtol 1e-8) through K6 and through the autograd action: A
    within 1e-8 relative at every mutually converged rung;
@@ -179,10 +181,43 @@ timed on its own line:
    final_A_tail64 within 1e-2 relative of 16.284792, K6's one-step
    kernels launched and K1 not during the f32 ladders; then
    BENCH_SOLVER=fused: 101 K2 launches a call and K6's forward only for
-   the records.
+   the records;
+22. K5 (kernels/csrc/agt_kernel.cu) against its plain version at config
+   #1's shape (B=4, phase 3's draws) under the trapezoid rule, Euler and
+   a forward map, at observation stride 2 and at D=64 (trapezoid), each
+   with a scalar and an (N_f-1, D) rf at the rf of beta 0, 50, 100, in
+   f64 (1e-12) and f32 (2e-5), value and gradient over max|g|, repeats
+   bit-identical; its times by CUDA events and torch.profiler beside its
+   bound, its plain version, K1 and the autograd action on the same input;
+23. the K5 ladder: config #1, one member (member 0 of phase 5's inits),
+   101 f32 rungs through the fused loop over make_action_ag_t (K5 and
+   K7b), then the 20-rung f64 tail through K5 in f64: final_A_tail64
+   within 1e-2 relative of 16.284792, K5 launched at least once an
+   evaluation, K7b once an iteration, no K1-K4 or K8 launch; K5 at the
+   ladder's minimizers of rungs 0, 60 and 100 within 4x the plain f32
+   version's error against f64 (phase 6's rule);
+24. K8 (kernels/csrc/pack_kernel.cu) against K2 and its plain version:
+   phase 8's short solves at (B, pack) = (4, 2), (5, 2), (6, 3), (4, 4)
+   in f64 (identical counts, x within 1e-8) and f32 (identical counts, f
+   within 1e-4 or twice the plain version's card-vs-CPU spread), bit for
+   bit equal to K2 where the group is K2's 256 threads (packs of 2); in
+   phase 12's box at pack 2 (f32 f within 2e-3), bit for bit K2 bounded's;
+   one launch a call; the built kernels' registers and local memory; its
+   time at packs 2 and 4 beside K2's, its plain version and its bound;
+25. the bench with BENCH_PACK: BENCH_PACK=2 BENCH_NINIT=4 (ladder, 101 K8
+   launches a call, no K1-K3 launch; at G = 256 its f32 ladder must equal
+   phase 9's K2 ladder bit for bit, so no tail), BENCH_PACK=4 with the
+   tail (final_A_tail64 within 1e-2 of 16.284792); then, printed and not
+   held, K2 against K8 at packs 2 and 4 at benchmarks/pack_ab.py's scale
+   (B=64, maxiter 150, 101 rungs), in s/init.
 
 The last two lines are one JSON object per kernel (name, route, source,
-the TPU kernel it replaces, launches on its path, max abs error, times,
+the TPU kernel it replaces, launches on its path, max abs error, max
+relative error on the scale its phase checks (value relative, gradient
+over max|g|, solve x or f relative, direction over max|d|; for K1 and
+K5 their draws' in phases 3 and 22, and beside it minimizer_err_ratio,
+phase 6's and 23's scale at the ladder's minimizers: the kernel's error
+against f64 over the plain f32 version's, bound 4), times,
 bound; K4's launches are phase 15's first run's, its ms, device_ms,
 plain_ms and bound phase 14's; K3's ms and bound are those of phase 8's
 three-rung launch, and
@@ -190,7 +225,9 @@ main_ms / main_bound_ms those of its 101-rung launch on the new path;
 K2's bounded_* those of phase 12's f32 bounded short solves; K6's
 launches those of its path, phase 21's xla bench for the one-step kernels
 and phase 20's facade for the Hermite–Simpson ones, its times phase
-18's) and the
+18's, with K6d's batched_* at B=8 in f64 and the ensemble's launches;
+K5's launches phase 23's, its times phase 22's; K8's launches phase 25's
+BENCH_PACK=2 run's, its times phase 24's) and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero before that line.
 """
@@ -297,6 +334,13 @@ def solve_bound(spec, dtype, B, launches, nfev, niter, m, rungs):
 def _scalar_rf(v, dtype):
     """A Python float rounded to ``dtype``."""
     return float(torch.tensor(float(v), dtype=dtype))
+
+
+def err_ratio(errs):
+    """Phase 6's scale: the f32 kernel's error against the f64 value over
+    the plain f32 version's, for A and for the gradient (errs = [kernel
+    A, plain A, kernel g, plain g], each against f64); the bound is 4."""
+    return max(errs[0] / max(errs[1], 1e-300), errs[2] / max(errs[3], 1e-300))
 
 
 def bound_of(nbytes, nops, dtype=torch.float32):
@@ -407,6 +451,26 @@ def fe_work(kernel, c, B, diag):
     return nbytes, nops
 
 
+def agt_work(spec, disc, B, diag):
+    """Bytes and operations of one K5 launch on B members: X read once, Y
+    and W, lidx and lpos read once, an (N_f-1, D) rf read once when
+    ``diag``, A and the gradient written once; per residual entry the
+    residual (trapezoid 12, euler 7, forwardmap 5: fe_work's counts), 1 to
+    weight it with a diagonal rf and 3 for the two sums, 4 per observation
+    for ME; per state entry Jᵀv (7), 1 to sum v's two rows (trapezoid)
+    and 4 for the row's combination, 5 per observation for ME's
+    gradient."""
+    s = 4
+    n_obs = spec.N_data * spec.L
+    nbytes = (2 * B * spec.n_dof * s + 2 * n_obs * s + 4 * (spec.L + spec.D)
+              + B * s + int(diag) * (spec.N_f - 1) * spec.D * s)
+    res = {"trapezoid": 12, "euler": 7, "forwardmap": 5}[disc]
+    nops = B * ((spec.N_f - 1) * spec.D * (res + 3 + int(diag))
+                + spec.N_f * spec.D * (11 + int(disc == "trapezoid"))
+                + 9 * n_obs)
+    return nbytes, nops
+
+
 def profile_k3():
     """One K3 call of the new path (f32, every rung, B members from
     random_ensemble_inits(seed=3)), timed by CUDA events and run again
@@ -485,6 +549,59 @@ def profile_loops(path):
     return 0
 
 
+def _ptxas_lines(log):
+    """The -Xptxas -v report's lines that describe code (registers,
+    barriers, spills, stack), each with the function's name dropped, in
+    order; and the names."""
+    lines, names = [], []
+    for ln in log.splitlines():
+        body = ln.split(":", 1)[-1].strip()
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            names.append(body)
+        elif "Used" in ln or "bytes stack frame" in ln:
+            lines.append(body)
+    return lines, names
+
+
+def ptxas_diff(other):
+    """Build ag_kernel.cu (K1, K4) and solve_kernel.cu (K2, K3) of this
+    checkout and of the checkout at ``other`` with the port's nvcc flags,
+    and compare their -Xptxas -v reports: per source, the lines of
+    registers, barriers, spills and stack frames, in order, names dropped
+    (a template argument added to a __device__ function changes its
+    mangled name, not its code). Prints both and one JSON line; returns 0
+    when every source's lines are identical."""
+    from varanneal_tpu_torch.kernels import _build
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name in ("ag_kernel", "solve_kernel"):
+            for tag, root in (("this", ROOT), ("other", other)):
+                src = os.path.join(root, "varanneal_tpu_torch", "kernels",
+                                   "csrc", name + ".cu")
+                cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                       os.path.join(tmp, f"{name}-{tag}.so"), src]
+                procs[(name, tag)] = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+        logs = {}
+        for key, proc in procs.items():
+            so, se = proc.communicate()
+            check(proc.returncode == 0, f"nvcc failed for {key}:\n{se}")
+            logs[key] = _ptxas_lines(so + se)
+    for name in ("ag_kernel", "solve_kernel"):
+        (a, na), (b, nb) = logs[(name, "this")], logs[(name, "other")]
+        for tag, lines, names in (("this", a, na), ("other", b, nb)):
+            print(f"ptxas {name} ({tag}): {len(names)} functions")
+            for ln in lines:
+                print(f"  {ln}")
+        result[name] = dict(identical=a == b,
+                            same_multiset=sorted(a) == sorted(b),
+                            lines=len(a))
+    print(json.dumps(result))
+    return 0 if all(r["identical"] for r in result.values()) else 1
+
+
 def phase(name, t0):
     print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -500,7 +617,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from varanneal_tpu_torch.kernels import _build, ag, fe, solve
+    from varanneal_tpu_torch.kernels import _build, ag, fe, solve, solve_pack
     from varanneal_tpu_torch.kernels import dir as kdir
     from varanneal_tpu_torch.api import (Annealer, build_bounds,
                                          make_lbfgs_options)
@@ -534,10 +651,10 @@ def main():
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build(["ag_kernel", "solve_kernel", "dir_kernel",
-                          "fe_kernel"])
+                          "fe_kernel", "agt_kernel", "pack_kernel"])
     for b in built.values():
         print(f"nvcc build of {b.path.name}: {b.seconds:.2f} s "
-              "(the four builds run in parallel)")
+              "(the six builds run in parallel)")
         for line in b.log.splitlines():
             if ("Compiling entry" in line or "Function properties" in line
                     or "Used" in line or "bytes stack frame" in line):
@@ -549,6 +666,7 @@ def main():
     # ---- 3. kernel vs plain at the main path's shape -----------------------
     t0 = time.perf_counter()
     draws = member_draws(spec, tw, 0)
+    rel_k1 = 0.0        # the kernels line's max_rel_err of K1
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
         c = ag.ag_consts(spec, dev, dtype)
         Z = torch.tensor(draws, dtype=dtype, device=dev)
@@ -560,6 +678,7 @@ def main():
             rel_a = float(torch.max(torch.abs(A - A_r) / torch.abs(A_r)))
             scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
             rel_g = float(torch.max(torch.abs(G - G_r) / scale))
+            rel_k1 = max(rel_k1, rel_a, rel_g)
             print(f"K1 {str(dtype)[6:]} beta={beta}: A rel err {rel_a:.3e},"
                   f" gradient rel err {rel_g:.3e} (bound {tol:g})")
             check(rel_a <= tol and rel_g <= tol,
@@ -723,7 +842,7 @@ def main():
     # the kernel's f32 error is judged against the exact (f64) value on
     # the same inputs: within 4x the plain f32 version's own error.
     c64m = ag.ag_consts(spec, dev, torch.float64)
-    max_abs = 0.0
+    max_abs = ratio_k1 = 0.0
     for k in (0, 60, MAIN["n_beta"] - 1):
         rf_k = rung_rf(np.float32(rf0), MAIN["alpha"], k, torch.float32)
         XP_k = res.paths[:, k].contiguous()
@@ -735,6 +854,7 @@ def main():
         err = max(float(torch.max(torch.abs(A - A_r))),
                   float(torch.max(torch.abs(G - G_r))))
         max_abs = max(max_abs, err)
+        ratio_k1 = max(ratio_k1, err_ratio(errs))
         print(f"K1 f32 at the main path's minimizer of rung {k}: max abs "
               f"err vs plain {err:.3e}; error vs f64, kernel / plain f32: "
               f"A {errs[0]:.3e} / {errs[1]:.3e}, gradient {errs[2]:.3e} / "
@@ -781,6 +901,7 @@ def main():
     betas_s = (0, 50, 100)
     Z64 = torch.tensor(draws, dtype=torch.float64, device=dev)
     err_k2 = 0.0
+    rel_k2 = rel_k3 = 0.0   # the kernels line's max_rel_err of K2, K3
     for beta in betas_s:
         rf = rung_rf(rf0, MAIN["alpha"], beta, torch.float64)
         rk = solve.solve_kernel(Z64, rf, c64m, opts_s)
@@ -790,16 +911,17 @@ def main():
         torch.cuda.synchronize()
         rp = solve.solve_reference(Z64, rf, c64m, opts_s)
         scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
-        rel_k2 = float(torch.max(torch.abs(rk.x - rp.x) / scale))
-        rel_k3 = float(torch.max(torch.abs(x3 - rp.x) / scale))
+        rel2 = float(torch.max(torch.abs(rk.x - rp.x) / scale))
+        rel3 = float(torch.max(torch.abs(x3 - rp.x) / scale))
+        rel_k2, rel_k3 = max(rel_k2, rel2), max(rel_k3, rel3)
         err_k2 = max(err_k2, float(torch.max(torch.abs(rk.x - rp.x))))
         print(f"K2/K3 f64 short solve beta={beta}: niter {rk.niter.tolist()}"
               f" / {rec3['niter'][:, 0].tolist()} / plain "
               f"{rp.niter.tolist()}; nfev {rk.nfev.tolist()} / "
               f"{rec3['nfev'][:, 0].tolist()} / {rp.nfev.tolist()}; status "
               f"{rk.status.tolist()} / {rec3['status'][:, 0].tolist()} / "
-              f"{rp.status.tolist()}; x rel err K2 {rel_k2:.3e}, K3 "
-              f"{rel_k3:.3e} (bound 1e-8); K3 bit-identical to K2: "
+              f"{rp.status.tolist()}; x rel err K2 {rel2:.3e}, K3 "
+              f"{rel3:.3e} (bound 1e-8); K3 bit-identical to K2: "
               f"{torch.equal(x3, rk.x)}")
         for nm, got in (("K2", (rk.niter, rk.nfev, rk.status)),
                         ("K3", (rec3["niter"][:, 0], rec3["nfev"][:, 0],
@@ -808,7 +930,7 @@ def main():
                       zip(got, (rp.niter, rp.nfev, rp.status))),
                   f"{nm} f64 counts differ from the plain version at "
                   f"beta={beta}")
-        check(rel_k2 <= 1e-8 and rel_k3 <= 1e-8,
+        check(rel2 <= 1e-8 and rel3 <= 1e-8,
               f"K2/K3 f64 x differs from the plain version at beta={beta}")
         rk2 = solve.solve_kernel(Z64, rf, c64m, opts_s)
         check(all(torch.equal(u, v) for u, v in zip(rk, rk2)),
@@ -851,6 +973,7 @@ def main():
         rel = d / np.abs(A_pl)
         if nm == "K3":
             err_k3 = float(d[both].max())
+            rel_k3 = max(rel_k3, float(rel[both].max()))
         print(f"f64 10-rung ladder {nm} vs plain: mutually converged rungs "
               f"{int(both.sum())}/{both.size}; max rel A difference "
               f"{rel[both].max():.3e} (bound 1e-8)")
@@ -897,6 +1020,10 @@ def main():
                               (rec3["niter"][:, 0], rec3["nfev"][:, 0],
                                rec3["status"][:, 0]))):
             rel = float(torch.max(torch.abs(f_x - rp.f) / torch.abs(rp.f)))
+            if nm == "K2":
+                rel_k2 = max(rel_k2, rel)
+            else:
+                rel_k3 = max(rel_k3, rel)
             print(f"{nm} f32 short solve beta={beta}: f rel err {rel:.3e}, "
                   f"plain on the card vs on the CPU {wit:.3e} (bound "
                   f"{f_bound:.3e}); niter {cnt[0].tolist()} / plain "
@@ -1050,6 +1177,7 @@ def main():
 
     err_k7a = err_k7b = 0.0
     rel_k7 = [0.0, 0.0]     # worst error / bound of K7a, K7b
+    e_k7 = [0.0, 0.0]       # worst error relative to max|d| of K7a, K7b
     n_el = 0                # members past the elementwise 2e-6 + 2e-5|d|
     n_pairs = 0
     for m in (5, 7):
@@ -1069,6 +1197,7 @@ def main():
             n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(dim=1).sum())
             e_k, bnd = dir_err(d_k, d_p, d_64)
             rel_k7[0] = max(rel_k7[0], float((e_k / bnd).max()))
+            e_k7[0] = max(e_k7[0], float(e_k.max()))
             check(bool(torch.all(e_k <= bnd)),
                   f"K7a disagrees with its plain version at m={m}, "
                   f"(head, hlen) in {batch}: {e_k.tolist()} vs {bnd.tolist()}")
@@ -1100,6 +1229,7 @@ def main():
             n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(dim=1).sum())
             e_k, bnd = dir_err(d_k[run], d_p[run], d_64[run])
             rel_k7[1] = max(rel_k7[1], float((e_k / bnd).max()))
+            e_k7[1] = max(e_k7[1], float(e_k.max()))
             ok = (torch.equal(hk, hp) and torch.equal(lk, lp)
                   and torch.equal(sc_k[:, [0, 3, 4]], sc_p[:, [0, 3, 4]])
                   and bool(torch.all(torch.abs(Hk - Hp)
@@ -1140,6 +1270,17 @@ def main():
     hd, hl = i32([2] * MAIN["B"]), i32([m] * MAIN["B"])
     g = f32(rng.normal(size=(MAIN["B"], n)))
     ms_k7a = events_ms(lambda: kdir.compact_dir_kernel(g, H, hd, hl))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            kdir.compact_dir_kernel(g, H, hd, hl)
+        torch.cuda.synchronize()
+    k7a_dev = [(device_us(e), e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "dir_kernel" in e.key]
+    dev_k7a = (k7a_dev[0][0] / k7a_dev[0][1] / 1e3
+               if k7a_dev and k7a_dev[0][0] > 0 else None)
     ms_p7a = events_ms(lambda: kdir.compact_dir_reference(g, H, hd, hl),
                        n=200)
     x_old = f32(rng.normal(size=(MAIN["B"], n)))
@@ -1156,7 +1297,9 @@ def main():
     b7b = step_work(MAIN["B"], n, m, MAIN["B"])
     bound_k7a, bound_k7b = bound_of(*b7a), bound_of(*b7b)
     print(f"K7a f32 (B=4, n={n}, m=5, full history): {ms_k7a:.5f} ms a "
-          f"launch, plain {ms_p7a:.5f} ms (CUDA events); bound "
+          f"launch, plain {ms_p7a:.5f} ms (CUDA events), device time "
+          + (f"{dev_k7a:.5f} ms (torch.profiler)" if dev_k7a is not None
+             else "not measured (no device events)") + "; bound "
           f"{bound_k7a[0]:.3e} ms ({bound_k7a[1]}: {b7a[0]} bytes, "
           f"{b7a[1]} operations)")
     print(f"K7b f32 (the same, every pair taken): {ms_k7b:.5f} ms a launch,"
@@ -1245,6 +1388,7 @@ def main():
                   for b in build_bounds(spec, BOX_TEST, np.float64))
     lo32, hi32 = lo64.float(), hi64.float()
     err_k2b = 0.0
+    rel_k2b = 0.0           # the kernels line's bounded_max_rel_err
     at_bound = 0
     for beta in betas_s:
         rf = rung_rf(rf0, MAIN["alpha"], beta, torch.float64)
@@ -1254,6 +1398,7 @@ def main():
         scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
         rel = float(torch.max(torch.abs(rk.x - rp.x) / scale))
         err_k2b = max(err_k2b, float(torch.max(torch.abs(rk.x - rp.x))))
+        rel_k2b = max(rel_k2b, rel)
         feas = bool(((rk.x >= lo64) & (rk.x <= hi64)).all())
         n_at = int(((rk.x == lo64) | (rk.x == hi64)).sum())
         print(f"K2 bounded f64 short solve beta={beta}: niter "
@@ -1328,6 +1473,7 @@ def main():
             if seed > 0 or beta not in betas_s:
                 continue
             rd["kp_main"] = max(rd["kp_main"], rel)
+            rel_k2b = max(rel_k2b, rel)
             print(f"K2 bounded f32 short solve beta={beta}: f rel err "
                   f"{rel:.3e} (bound {F32_BOUNDED_F_TOL:g}), plain on the "
                   f"card vs on the CPU {cc:.3e}; niter {rk.niter.tolist()} "
@@ -1511,7 +1657,7 @@ def main():
     c64a = ag.ag_consts(spec, dev, torch.float64)
     rfs14 = [float(np.float32(rf0 * MAIN["alpha"] ** b)) for b in (0, 50, 100)]
     rfs14.append(float(np.float32(4e6)))
-    err_k4 = 0.0
+    err_k4 = rel_k4 = 0.0
     old_dt = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)      # the f64 combine
     try:
@@ -1526,6 +1672,7 @@ def main():
             rel_g = float(torch.max(torch.abs(G4 - G_r) / scale))
             err_k4 = max(err_k4, float(torch.max(torch.abs(v4 - v_r))),
                          float(torch.max(torch.abs(G4 - G_r))))
+            rel_k4 = max(rel_k4, rel_v, rel_g)
             same_k1 = torch.equal(G4, G1) and torch.equal(A4, A1)
             rep4 = ag.ag_kernel(Z32, rf, c4, compensated=True)
             again = all(torch.equal(u, w) for u, w in zip(rep4,
@@ -1589,15 +1736,17 @@ def main():
     from varanneal_tpu_torch import __main__ as runner
 
     def zero_counts():
-        ag.LAUNCHES = ag.COMP_LAUNCHES = 0
+        ag.LAUNCHES = ag.COMP_LAUNCHES = ag.AGT_LAUNCHES = 0
+        solve_pack.PACK_LAUNCHES = 0
         solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
         kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
         fe.FWD_LAUNCHES = fe.BWD_LAUNCHES = 0
         fe.SH_FWD_LAUNCHES = fe.SH_BWD_LAUNCHES = 0
 
     def run_counts():
-        return dict(k1=ag.LAUNCHES, k4=ag.COMP_LAUNCHES,
+        return dict(k1=ag.LAUNCHES, k4=ag.COMP_LAUNCHES, k5=ag.AGT_LAUNCHES,
                     k2=solve.RUNG_LAUNCHES, k3=solve.LADDER_LAUNCHES,
+                    k8=solve_pack.PACK_LAUNCHES,
                     k7a=kdir.DIR_LAUNCHES, k7b=kdir.STEP_LAUNCHES,
                     k6_fwd=fe.FWD_LAUNCHES, k6_bwd=fe.BWD_LAUNCHES,
                     k6_sh_fwd=fe.SH_FWD_LAUNCHES,
@@ -1797,6 +1946,7 @@ def main():
     cases18 += [(spec2, tw2, CONF2["rf0"], CONF2["alpha"], CONF2["B"], both),
                 (spec5, tw5, 4e-6 * tw5["RM"], MAIN["alpha"], 4, both)]
     err18 = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_bwd=0.0)
+    rel18 = dict(err18)     # value (forward) and gradient (backward) rel
     rng18 = np.random.default_rng(18)
 
     def plain_k6(X, pest, rf, c):
@@ -1839,6 +1989,8 @@ def main():
                         torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
                         torch.abs(gF_k - gF_r)) / scale))
                     worst = [max(worst[0], rel_v), max(worst[1], rel_g)]
+                    rel18[kf] = max(rel18[kf], rel_v)
+                    rel18[kb] = max(rel18[kb], rel_g)
                     err18[kf] = max(err18[kf],
                                     float(torch.max(torch.abs(p_k - p_r))))
                     err18[kb] = max(err18[kb],
@@ -1916,6 +2068,45 @@ def main():
         print(f"K6 action value+grad ({sp.disc}, one member, f32): "
               f"{ms_k6a:.5f} ms; the autograd action's {ms_ag:.5f} ms "
               "(CUDA events, 200 calls each)")
+    # K6d: the Hermite–Simpson kernels on a batch (the ensemble's path,
+    # phase 20's B=8 in f64), at the shape phase 18 checks them
+    c8 = fe.fe_consts(spec2, torch.float64, dev, block_n=64)
+    Z8 = torch.tensor(member_draws(spec2, tw2, 0, CONF2["B"]),
+                      dtype=torch.float64, device=dev)
+    X8 = Z8[:, : spec2.n_state].reshape(CONF2["B"], spec2.N_f, spec2.D)
+    p8 = Z8[:, spec2.n_state:]
+    rf8 = _scalar_rf(CONF2["rf0"] * CONF2["alpha"] ** 30, torch.float64)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            fe.sh_fwd_kernel(X8, p8, rf8, c8)
+            fe.sh_bwd_kernel(X8, p8, rf8, c8)
+        torch.cuda.synchronize()
+    k6d = {}
+    for kern, fn_k, fn_p in (("sh_fwd", fe.sh_fwd_kernel,
+                              fe.sh_fwd_reference),
+                             ("sh_bwd", fe.sh_bwd_kernel,
+                              fe.sh_bwd_reference)):
+        rows = [(device_us(e), e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and f"fe_{kern}" in e.key]
+        w = fe_work(kern, c8, CONF2["B"], False)
+        k6d[kern] = dict(
+            ms=events_ms(lambda: fn_k(X8, p8, rf8, c8)),
+            plain_ms=events_ms(lambda: fn_p(X8, p8, rf8, c8), n=200),
+            device_ms=(rows[0][0] / rows[0][1] / 1e3
+                       if rows and rows[0][0] > 0 else None),
+            bound=bound_of(*w, dtype=torch.float64))
+        r = k6d[kern]
+        print(f"K6d {kern} f64 (Hermite–Simpson, D={spec2.D}, "
+              f"N_f={spec2.N_f}, B={CONF2['B']}): {r['ms']:.5f} ms a launch "
+              "(CUDA events), device time "
+              + (f"{r['device_ms']:.5f} ms (torch.profiler)"
+                 if r["device_ms"] is not None
+                 else "not measured (no device events)")
+              + f"; plain {r['plain_ms']:.5f} ms; bound {r['bound'][0]:.3e}"
+              f" ms ({r['bound'][1]}: {w[0]} bytes, {w[1]} operations)")
     phase("18 K6 vs plain", t0)
 
     # ---- 19. f64 ladder at config #2: K6 vs the autograd action ------------
@@ -2086,61 +2277,436 @@ def main():
                   f"only, got {L}")
         bench21[solver_name] = run
     phase("21 bench pallas", t0)
+
+    # ---- 22. K5 against its plain version ---------------------------------
+    t0 = time.perf_counter()
+    # (spec, twin, label): config #1's data under the three one-step rules,
+    # observations every second model row, and the envelope's D = 64
+    dt1 = float(tw["t"][1] - tw["t"][0])
+    tw64 = lorenz96_twin(D=64, N_data=MAIN["N_data"], n_obs=16)
+    cases22 = [(dataclasses.replace(spec, disc=d), tw, d)
+               for d in ("trapezoid", "euler", "forwardmap")]
+    cases22 += [(build_spec(lorenz96, MAIN["D"], tw["Y"], tw["t"],
+                            tw["Lidx"], tw["RM"], disc="trapezoid",
+                            P=np.array([4.0]), pidx=[0], dt_model=dt1 / 2),
+                 tw, "trapezoid, obs_stride 2"),
+                (build_spec(lorenz96, 64, tw64["Y"], tw64["t"],
+                            tw64["Lidx"], tw64["RM"], disc="trapezoid",
+                            P=np.array([4.0]), pidx=[0]),
+                 tw64, "trapezoid, D=64")]
+    check(cases22[3][0].obs_stride == 2, "phase 22: stride-2 spec")
+    err_k5 = rel_k5 = 0.0
+    rng22 = np.random.default_rng(22)
+    for sp, tw_, label in cases22:
+        check(ag.agt_supported(sp, 1.0, torch.float32)
+              and ag.agt_supported(sp, 1.0, torch.float64),
+              f"phase 22: {label} outside K5's envelope")
+        Zs = member_draws(sp, tw_, 0)
+        W22 = rng22.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
+        for dtype in (torch.float64, torch.float32):
+            tol = 1e-12 if dtype == torch.float64 else 2e-5
+            c = ag.agt_consts(sp, dev, dtype)
+            Z = torch.tensor(Zs, dtype=dtype, device=dev)
+            worst = 0.0
+            for beta in (0, 50, 100):
+                rf_b = float(rf0 * MAIN["alpha"] ** beta)
+                for rf in (rf_b, torch.tensor(W22 * rf_b, dtype=dtype,
+                                              device=dev)):
+                    A, G = ag.agt_kernel(Z, rf, c)
+                    torch.cuda.synchronize()
+                    A_r, G_r = ag.agt_reference(Z, rf, c)
+                    scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+                    rel = max(float(torch.max(torch.abs(A - A_r)
+                                              / torch.abs(A_r))),
+                              float(torch.max(torch.abs(G - G_r) / scale)))
+                    worst = max(worst, rel)
+                    err_k5 = max(err_k5, float(torch.max(torch.abs(A - A_r))),
+                                 float(torch.max(torch.abs(G - G_r))))
+                    check(rel <= tol, f"K5 {label} {dtype} disagrees with "
+                          f"its plain version at beta={beta}: {rel:.3e}")
+                    A2, G2 = ag.agt_kernel(Z, rf, c)
+                    check(torch.equal(A, A2) and torch.equal(G, G2),
+                          f"K5 {label} {dtype}: a repeat is not "
+                          "bit-identical")
+            rel_k5 = max(rel_k5, worst)
+            print(f"K5 {label} D={sp.D} N_f={sp.N_f} B={MAIN['B']} "
+                  f"{str(dtype)[6:]}, scalar and (N_f-1, D) rf at beta 0, "
+                  f"50, 100: worst rel err {worst:.3e} (value, and gradient "
+                  f"of max|g|; bound {tol:g}); repeats bit-identical")
+    # times at the main path's shape (trapezoid, f32, B=4, phase 3's draws,
+    # the rf of beta 50), against K1 and the autograd action on the same
+    # input, and the (N_f-1, D) rf's
+    c5 = ag.agt_consts(spec, dev, torch.float32)
+    W5 = torch.tensor(rng22.uniform(0.5, 2.0, (spec.N_f - 1, spec.D)) * rf_t,
+                      dtype=torch.float32, device=dev)
+    k5 = {}
+    for kind, rf in (("scalar", rf_t), ("diag", W5)):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(200):
+                ag.agt_kernel(Z32, rf, c5)
+            torch.cuda.synchronize()
+        rows = [(device_us(e), e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "l96_agt" in e.key]
+        w = agt_work(spec, "trapezoid", MAIN["B"], kind == "diag")
+        k5[kind] = dict(
+            ms=events_ms(lambda: ag.agt_kernel(Z32, rf, c5)),
+            plain_ms=events_ms(lambda: ag.agt_reference(Z32, rf, c5), n=200),
+            device_ms=(rows[0][0] / rows[0][1] / 1e3
+                       if rows and rows[0][0] > 0 else None),
+            bound=bound_of(*w), work=w)
+    ms_k1_22 = events_ms(lambda: ag.ag_kernel(Z32, rf_t, c32))
+    ms_ag_22 = events_ms(lambda: vag32(Z32, rf_t), n=200)
+    for kind, r in k5.items():
+        print(f"K5 f32 trapezoid, {kind} rf, B={MAIN['B']}: {r['ms']:.5f} ms "
+              "a launch (CUDA events), device time "
+              + (f"{r['device_ms']:.5f} ms (torch.profiler)"
+                 if r["device_ms"] is not None
+                 else "not measured (no device events)")
+              + f"; plain {r['plain_ms']:.5f} ms; bound {r['bound'][0]:.3e} "
+              f"ms ({r['bound'][1]}: {r['work'][0]} bytes, {r['work'][1]} "
+              f"operations)")
+    print(f"yardsticks on the same input: K1 {ms_k1_22:.5f} ms a launch, the "
+          f"autograd action's value+grad {ms_ag_22:.5f} ms (CUDA events)")
+    phase("22 K5 vs plain", t0)
+
+    # ---- 23. the K5 ladder -------------------------------------------------
+    t0 = time.perf_counter()
+    act5, parts5 = ag.make_action_ag_t(spec, device=dev, dtype=torch.float32)
+    act5d, parts5d = ag.make_action_ag_t(spec, device=dev,
+                                         dtype=torch.float64)
+    xp23 = xp0[:1].contiguous()        # member 0: bench.py's single init
+    check(kdir.dir_supported(xp23, opts_f.m),
+          "phase 23: direction='auto' would not take the fused loop")
+    ladder23 = make_ensemble_ladder(
+        act5, parts5, np.arange(MAIN["n_beta"]), np.float32(rf0),
+        MAIN["alpha"], opts=opts_f, store_paths=True, device=dev)
+    zero_counts()
+    t_23 = time.perf_counter()
+    res23 = ladder23(xp23)
+    torch.cuda.synchronize()
+    wall23 = time.perf_counter() - t_23
+    cnt23 = run_counts()
+    nfev23 = int(res23.nfev.sum())
+    niter23 = int(res23.niter.sum())
+    t_tail = time.perf_counter()
+    tail23 = run_ladder(act5d, parts5d, res23.XP.double(),
+                        np.arange(MAIN["n_beta"] - MAIN["tail"],
+                                  MAIN["n_beta"]), rf0, MAIN["alpha"],
+                        opts=opts64, store_paths=False, device=dev)
+    torch.cuda.synchronize()
+    wall23t = time.perf_counter() - t_tail
+    fa23 = float(tail23.A[0, -1])
+    rel23 = abs(fa23 - JAX_FINAL_A_TAIL64) / JAX_FINAL_A_TAIL64
+    print(f"K5 ladder: {MAIN['n_beta']} f32 rungs, one member, the fused "
+          f"loop over make_action_ag_t: {wall23:.2f} s, niter {niter23}, "
+          f"nfev {nfev23}, {1e3 * wall23 / niter23:.3f} ms a loop iteration "
+          f"(phase 11's fused loop over K1, 4 members: {ms_iter_fused:.3f} "
+          f"ms; phase 15's runner over K4, one member: "
+          f"{1e3 * wall_r / niter_r:.3f} ms); launches {cnt23}; f64 tail "
+          f"through K5 in f64: {MAIN['tail']} rungs in {wall23t:.2f} s, "
+          f"final_A_tail64 {fa23:.6f} vs JAX {JAX_FINAL_A_TAIL64:.6f} (rel "
+          f"{rel23:.3e}, bound 1e-2)")
+    check(cnt23["k5"] >= nfev23 > 0,
+          f"the K5 ladder did not evaluate through K5: {cnt23}, nfev {nfev23}")
+    check(cnt23["k7b"] == niter23,
+          f"the K5 ladder's loop is not the fused one: {cnt23}, niter "
+          f"{niter23}")
+    check(all(cnt23[k] == 0 for k in ("k1", "k2", "k3", "k4", "k8")),
+          f"the K5 ladder launched another kernel: {cnt23}")
+    check(bool(torch.isfinite(res23.A).all())
+          and bool(torch.isfinite(tail23.A).all()), "K5 ladder: non-finite A")
+    check(rel23 <= 1e-2, f"K5 ladder: final_A_tail64 {fa23}")
+    c5d = ag.agt_consts(spec, dev, torch.float64)
+    ratio_k5 = 0.0
+    for k in (0, 60, MAIN["n_beta"] - 1):
+        rf_k = rung_rf(np.float32(rf0), MAIN["alpha"], k, torch.float32)
+        XP_k = res23.paths[:, k].contiguous()
+        A, G = ag.agt_kernel(XP_k, rf_k, c5)
+        A_r, G_r = ag.agt_reference(XP_k, rf_k, c5)
+        A_x, G_x = ag.agt_reference(XP_k.double(), rf_k, c5d)
+        errs = [float(torch.max(torch.abs(u.double() - ex)))
+                for u, ex in ((A, A_x), (A_r, A_x), (G, G_x), (G_r, G_x))]
+        err_k5 = max(err_k5, float(torch.max(torch.abs(A - A_r))),
+                     float(torch.max(torch.abs(G - G_r))))
+        ratio_k5 = max(ratio_k5, err_ratio(errs))
+        print(f"K5 f32 at the K5 ladder's minimizer of rung {k}: error vs "
+              f"f64, kernel / plain f32: A {errs[0]:.3e} / {errs[1]:.3e}, "
+              f"gradient {errs[2]:.3e} / {errs[3]:.3e} (bound 4x plain)")
+        check(errs[0] <= 4.0 * errs[1] and errs[2] <= 4.0 * errs[3],
+              f"K5 disagrees with its plain version at rung {k}")
+    phase("23 K5 ladder", t0)
+
+    # ---- 24. K8 against K2 and against its plain version ------------------
+    t0 = time.perf_counter()
+    pack_attrs = {}
+    for G_ in solve_pack.GROUPS:
+        for dtype in (torch.float32, torch.float64):
+            for bd in (False, True):
+                a = solve_pack.kernel_attrs(G_, dtype, bd)
+                pack_attrs[(G_, str(dtype)[6:], bd)] = a
+                print(f"K8 kernel G={G_} {str(dtype)[6:]} "
+                      f"{'bounded' if bd else 'unbounded'}: {a['regs']} "
+                      f"registers, {a['local_bytes']} bytes of local memory "
+                      f"(spills and stack), at most {a['max_threads']} "
+                      "threads a block")
+    err_k8 = rel_k8 = 0.0
+    n8 = 0                  # K8 launches of this phase
+    for dtype in (torch.float64, torch.float32):
+        c = ag.ag_consts(spec, dev, dtype)
+        c_cpu = ag.ag_consts(spec, "cpu", dtype)
+        for B_, kp in ((4, 2), (5, 2), (6, 3), (4, 4)):
+            G_ = solve_pack.pack_group(kp)
+            check(solve_pack.pack_supported(spec, 1.0, opts_s, kp, dtype,
+                                            device=dev),
+                  f"pack {kp} outside K8's envelope")
+            Z = torch.tensor(member_draws(spec, tw, 0, B_), dtype=dtype,
+                             device=dev)
+            for beta in betas_s:
+                rf = rung_rf(rf0 if dtype == torch.float64
+                             else np.float32(rf0), MAIN["alpha"], beta, dtype)
+                before = solve_pack.PACK_LAUNCHES
+                r8 = solve_pack.pack_kernel(Z, rf, c, opts_s, kp)
+                torch.cuda.synchronize()
+                check(solve_pack.PACK_LAUNCHES == before + 1,
+                      "K8 took more than one launch a call")
+                n8 += 1
+                r2 = solve.solve_kernel(Z, rf, c, opts_s)
+                rp = solve_pack.pack_reference(Z, rf, c, opts_s, kp)
+                same = all(torch.equal(u, v) for u, v in
+                           zip((r8.niter, r8.nfev, r8.status),
+                               (rp.niter, rp.nfev, rp.status)))
+                bit2 = all(torch.equal(u, v) for u, v in zip(r8, r2))
+                err_k8 = max(err_k8, float(torch.max(torch.abs(r8.x - rp.x))))
+                if dtype == torch.float64:
+                    scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
+                    rel = float(torch.max(torch.abs(r8.x - rp.x) / scale))
+                    bound8, what = 1e-8, "x"
+                else:
+                    rel = float(torch.max(torch.abs(r8.f - rp.f)
+                                          / torch.abs(rp.f)))
+                    rc = solve.solve_reference(Z.cpu(), rf, c_cpu, opts_s)
+                    wit = float(torch.max(torch.abs(rp.f.cpu() - rc.f)
+                                          / torch.abs(rc.f)))
+                    bound8, what = max(1e-4, 2.0 * wit), "f"
+                rel_k8 = max(rel_k8, rel)
+                print(f"K8 {str(dtype)[6:]} B={B_} pack={kp} G={G_} "
+                      f"beta={beta}: {what} rel err vs plain {rel:.3e} "
+                      f"(bound {bound8:.3e}); counts as plain {same}; "
+                      f"bit-identical to K2 {bit2}; niter "
+                      f"{r8.niter.tolist()}")
+                check(same and rel <= bound8,
+                      f"K8 {dtype} B={B_} pack={kp} disagrees with its "
+                      f"plain version at beta={beta}")
+                check(bit2 or G_ != 256,
+                      f"K8 at G=256 differs from K2 at B={B_} pack={kp}")
+    # bounded, phase 12's box, pack 2
+    for dtype, lo_, hi_, c in ((torch.float64, lo64, hi64, c64m),
+                               (torch.float32, lo32, hi32, c32)):
+        Z = Z64 if dtype == torch.float64 else Z32
+        for beta in betas_s:
+            rf = rung_rf(rf0 if dtype == torch.float64 else np.float32(rf0),
+                         MAIN["alpha"], beta, dtype)
+            r8 = solve_pack.pack_kernel(Z, rf, c, opts_s, 2, lo_, hi_)
+            torch.cuda.synchronize()
+            n8 += 1
+            r2 = solve.solve_kernel(Z, rf, c, opts_s, lo_, hi_)
+            rp = solve_pack.pack_reference(Z, rf, c, opts_s, 2, lo_, hi_)
+            same = all(torch.equal(u, v) for u, v in
+                       zip((r8.niter, r8.nfev, r8.status),
+                           (rp.niter, rp.nfev, rp.status)))
+            bit2 = all(torch.equal(u, v) for u, v in zip(r8, r2))
+            feas = bool(((r8.x >= lo_) & (r8.x <= hi_)).all())
+            if dtype == torch.float64:
+                scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
+                rel = float(torch.max(torch.abs(r8.x - rp.x) / scale))
+                bound8, what = 1e-8, "x"
+            else:
+                rel = float(torch.max(torch.abs(r8.f - rp.f)
+                                      / torch.abs(rp.f)))
+                bound8, what = F32_BOUNDED_F_TOL, "f"
+            rel_k8 = max(rel_k8, rel)
+            print(f"K8 bounded {str(dtype)[6:]} B={MAIN['B']} pack=2 "
+                  f"beta={beta}: {what} rel err vs plain {rel:.3e} (bound "
+                  f"{bound8:g}); counts as plain {same}; bit-identical to K2 "
+                  f"bounded {bit2}; feasible {feas}")
+            check(same and rel <= bound8 and feas and bit2,
+                  f"K8 bounded {dtype} disagrees at beta={beta}")
+    # times: the short solves at the rf of beta 50, f32, B=4
+    rf24 = rung_rf(np.float32(rf0), MAIN["alpha"], 50, torch.float32)
+    ms8 = {kp: events_ms(lambda: solve_pack.pack_kernel(
+        Z32, rf24, c32, opts_s, kp), n=5, warm=2) for kp in (2, 4)}
+    ms_k2_24 = events_ms(lambda: solve.solve_kernel(Z32, rf24, c32, opts_s),
+                         n=5, warm=2)
+    t_p = time.perf_counter()
+    r24 = solve_pack.pack_reference(Z32, rf24, c32, opts_s, 2)
+    torch.cuda.synchronize()
+    ms_p8 = (time.perf_counter() - t_p) * 1e3
+    bound_k8 = solve_bound(spec, torch.float32, MAIN["B"], 1,
+                           int(r24.nfev.sum()), int(r24.niter.sum()),
+                           opts_s.m, rungs=1)
+    print(f"K8 f32 short solves (B=4, maxiter 30, the rf of beta 50): pack 2 "
+          f"{ms8[2]:.4f} ms, pack 4 {ms8[4]:.4f} ms a launch, K2 "
+          f"{ms_k2_24:.4f} ms (CUDA events); plain {ms_p8:.4f} ms; bound "
+          f"{bound_k8[0]:.3e} ms ({bound_k8[1]}: {bound_k8[2]} bytes, "
+          f"{bound_k8[3]} operations)")
+    phase("24 K8 vs K2 and plain", t0)
+
+    # ---- 25. the bench with BENCH_PACK -------------------------------------
+    t0 = time.perf_counter()
+    bench25 = {}
+    for kp, tail in ((2, "0"), (4, str(MAIN["tail"]))):
+        buf_out, buf_err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf_out), \
+                contextlib.redirect_stderr(buf_err):
+            run = bench.main(device=dev, env=dict(
+                BENCH_SOLVER="ladder", BENCH_PACK=str(kp),
+                BENCH_NINIT=str(MAIN["B"]), BENCH_TAIL64=tail))
+        L = run.launches
+        print(f"bench BENCH_PACK={kp}: " + buf_out.getvalue().strip())
+        print(f"bench BENCH_PACK={kp}: " + buf_err.getvalue().strip())
+        print(f"bench BENCH_PACK={kp}: timed f32 ladder {run.wall:.4f} s for "
+              f"{MAIN['B']} members, total nfev {run.total_nfev}; launches "
+              f"in the {run.calls} ladder calls {L}")
+        check(L["pack"] == MAIN["n_beta"] * run.calls and L["rung"] == 0
+              and L["ladder"] == 0 and L["ag"] == 0,
+              f"bench BENCH_PACK={kp} did not run through K8 alone: {L}")
+        check(tuple(run.res.A.shape) == (MAIN["B"], MAIN["n_beta"])
+              and bool(torch.isfinite(run.res.A).all())
+              and bool(torch.isfinite(run.res.XP).all()),
+              f"bench BENCH_PACK={kp}: records")
+        if solve_pack.pack_group(kp) == 256:
+            ref = paths["fused"][0].res
+            same = all(torch.equal(getattr(run.res, k), getattr(ref, k))
+                       for k in ("XP", "A", "niter", "nfev", "status"))
+            print(f"bench BENCH_PACK={kp} (G=256): f32 ladder bit-identical "
+                  f"to phase 9's K2 fused ladder: {same}")
+            check(same, f"bench BENCH_PACK={kp}: its f32 ladder differs from "
+                  "K2's")
+        else:
+            fa = float(run.tail.A[0, -1])
+            rel25 = abs(fa - JAX_FINAL_A_TAIL64) / JAX_FINAL_A_TAIL64
+            print(f"bench BENCH_PACK={kp}: final_A_tail64 member 0 {fa:.6f} "
+                  f"vs JAX {JAX_FINAL_A_TAIL64:.6f} (rel {rel25:.3e}, bound "
+                  "1e-2)")
+            check(rel25 <= 1e-2, f"bench BENCH_PACK={kp}: final_A_tail64 {fa}")
+        bench25[kp] = run
+    # packing against K2 at pack_ab.py's scale (B=64, maxiter 150, 101
+    # rungs): printed, not held
+    ab = {}
+    for kp in (1, 2, 4):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            run = bench.main(device=dev, env=dict(
+                BENCH_SOLVER="fused", BENCH_PACK=str(kp), BENCH_NINIT="64",
+                BENCH_MAXITER="150", BENCH_TAIL64="0"))
+        ab[kp] = (run.out["value"], run.total_nfev, run.launches)
+    print("pack A/B at B=64, maxiter 150, 101 f32 rungs (s/init, total nfev):"
+          + "; ".join(f" {'K2' if kp == 1 else f'K8 pack {kp}'} "
+                      f"{v[0]:.6f} s/init, nfev {v[1]}"
+                      for kp, v in ab.items())
+          + f"; K8 against K2: pack 2 {ab[1][0] / ab[2][0]:.3f}x, pack 4 "
+          f"{ab[1][0] / ab[4][0]:.3f}x")
+    check(ab[1][2]["rung"] > 0 and ab[2][2]["pack"] > 0
+          and ab[4][2]["pack"] > 0, f"pack A/B launches {ab}")
+    phase("25 bench BENCH_PACK", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
     src_solve = "varanneal_tpu_torch/kernels/csrc/solve_kernel.cu"
     src_dir = "varanneal_tpu_torch/kernels/csrc/dir_kernel.cu"
-    print(json.dumps({"kernels": [dict(
-        name="l96_ag_trap",
-        source="varanneal_tpu_torch/kernels/csrc/ag_kernel.cu",
-        replaces="varanneal_tpu/kernels/ag_pallas.py:279",
-        launches=launches, max_abs_err=max_abs, ms=ms_kernel,
-        plain_ms=ms_plain, bound_ms=bound_ms, bound_by=bound_by, **line),
+    kernels = [
+        dict(name="l96_ag_trap",
+             source="varanneal_tpu_torch/kernels/csrc/ag_kernel.cu",
+             replaces="varanneal_tpu/kernels/ag_pallas.py:279",
+             launches=launches, max_abs_err=max_abs, max_rel_err=rel_k1,
+             minimizer_err_ratio=ratio_k1, ms=ms_kernel, plain_ms=ms_plain,
+             bound_ms=bound_ms, bound_by=bound_by, **line),
         dict(name="l96_solve", source=src_solve,
              replaces="varanneal_tpu/kernels/solve_pallas.py:676",
              launches=paths["fused"][1]["rung"], max_abs_err=err_k2,
-             ms=ms_k2, plain_ms=ms_p2, bound_ms=bound_k2[0],
-             bound_by=bound_k2[1], bounded_launches=facade["auto"][1]["k2"],
-             bounded_max_abs_err=err_k2b, bounded_ms=ms_k2b,
-             bounded_plain_ms=ms_p2b, bounded_bound_ms=bound_k2b[0],
-             bounded_bound_by=bound_k2b[1], **line),
+             max_rel_err=rel_k2, ms=ms_k2, plain_ms=ms_p2,
+             bound_ms=bound_k2[0], bound_by=bound_k2[1],
+             bounded_launches=facade["auto"][1]["k2"],
+             bounded_max_abs_err=err_k2b, bounded_max_rel_err=rel_k2b,
+             bounded_ms=ms_k2b, bounded_plain_ms=ms_p2b,
+             bounded_bound_ms=bound_k2b[0], bounded_bound_by=bound_k2b[1],
+             **line),
         dict(name="l96_ladder", source=src_solve,
              replaces="varanneal_tpu/kernels/solve_pallas.py:951",
              launches=paths["ladder"][1]["ladder"], max_abs_err=err_k3,
-             ms=ms_k3, plain_ms=ms_p3, bound_ms=bound_k3[0],
-             bound_by=bound_k3[1], main_ms=pk["ms"],
+             max_rel_err=rel_k3, ms=ms_k3, plain_ms=ms_p3,
+             bound_ms=bound_k3[0], bound_by=bound_k3[1], main_ms=pk["ms"],
              main_bound_ms=bound_main[0], **line),
         dict(name="compact_dir", source=src_dir,
              replaces="varanneal_tpu/kernels/dir_pallas.py:172",
              launches=facade["generic"][1]["k7a"], max_abs_err=err_k7a,
-             ms=ms_k7a, plain_ms=ms_p7a, bound_ms=bound_k7a[0],
-             bound_by=bound_k7a[1], **line),
+             max_rel_err=e_k7[0], ms=ms_k7a, device_ms=dev_k7a,
+             plain_ms=ms_p7a, bound_ms=bound_k7a[0], bound_by=bound_k7a[1],
+             **line),
         dict(name="fused_step", source=src_dir,
              replaces="varanneal_tpu/kernels/dir_pallas.py:184",
-             launches=launch_f["k7b"], max_abs_err=err_k7b, ms=ms_k7b,
-             plain_ms=ms_p7b, bound_ms=bound_k7b[0],
-             bound_by=bound_k7b[1], **line),
+             launches=launch_f["k7b"], max_abs_err=err_k7b,
+             max_rel_err=e_k7[1], ms=ms_k7b, plain_ms=ms_p7b,
+             bound_ms=bound_k7b[0], bound_by=bound_k7b[1], **line),
         dict(name="l96_ag_trap_comp",
              source="varanneal_tpu_torch/kernels/csrc/ag_kernel.cu",
              replaces="varanneal_tpu/kernels/ag_pallas.py:336",
-             launches=cnt_r["k4"], max_abs_err=err_k4, ms=ms_k4,
-             device_ms=dev_k4, plain_ms=ms_p4, bound_ms=bound_k4[0],
-             bound_by=bound_k4[1], **line)] + [dict(
-        name=f"fe_{kern}",
-        source="varanneal_tpu_torch/kernels/csrc/fe_kernel.cu",
-        replaces=f"varanneal_tpu/kernels/fe_pallas.py:{rep}",
-        replaces_also=[f"varanneal_tpu/kernels/fe_pallas.py:{r}"
-                       for r in also],
-        launches=n, max_abs_err=err18[kern], ms=k6[kern]["ms"],
-        device_ms=k6[kern]["device_ms"], plain_ms=k6[kern]["plain_ms"],
-        bound_ms=k6[kern]["bound"][0], bound_by=k6[kern]["bound"][1],
-        autograd_ms=k6[kern]["autograd_ms"], **line)
-        for kern, rep, also, n in (
+             launches=cnt_r["k4"], max_abs_err=err_k4, max_rel_err=rel_k4,
+             ms=ms_k4, device_ms=dev_k4, plain_ms=ms_p4,
+             bound_ms=bound_k4[0], bound_by=bound_k4[1], **line)]
+    for kern, rep, also, n in (
             ("onestep_fwd", 138, (156,), bench21["xla"].launches["fe_fwd"]),
             ("onestep_bwd", 187, (), bench21["xla"].launches["fe_bwd"]),
             ("sh_fwd", 238, (472,), cnt20["k6_sh_fwd"]),
-            ("sh_bwd", 260, (502,), cnt20["k6_sh_bwd"]))]}))
+            ("sh_bwd", 260, (502,), cnt20["k6_sh_bwd"])):
+        e = dict(
+            name=f"fe_{kern}",
+            source="varanneal_tpu_torch/kernels/csrc/fe_kernel.cu",
+            replaces=f"varanneal_tpu/kernels/fe_pallas.py:{rep}",
+            replaces_also=[f"varanneal_tpu/kernels/fe_pallas.py:{r}"
+                           for r in also],
+            launches=n, max_abs_err=err18[kern], max_rel_err=rel18[kern],
+            ms=k6[kern]["ms"], device_ms=k6[kern]["device_ms"],
+            plain_ms=k6[kern]["plain_ms"], bound_ms=k6[kern]["bound"][0],
+            bound_by=k6[kern]["bound"][1],
+            autograd_ms=k6[kern]["autograd_ms"], **line)
+        if kern in k6d:         # K6d: B=8, f64, the ensemble's launches
+            e.update(batched_launches=cnt_b[f"k6_{kern}"],
+                     batched_ms=k6d[kern]["ms"],
+                     batched_device_ms=k6d[kern]["device_ms"],
+                     batched_plain_ms=k6d[kern]["plain_ms"],
+                     batched_bound_ms=k6d[kern]["bound"][0],
+                     batched_bound_by=k6d[kern]["bound"][1])
+        kernels.append(e)
+    kernels.append(dict(
+        name="l96_agt",
+        source="varanneal_tpu_torch/kernels/csrc/agt_kernel.cu",
+        replaces="varanneal_tpu/kernels/ag_pallas.py:643",
+        replaces_also=["varanneal_tpu/kernels/ag_pallas.py:743"],
+        launches=cnt23["k5"], max_abs_err=err_k5, max_rel_err=rel_k5,
+        minimizer_err_ratio=ratio_k5, ms=k5["scalar"]["ms"],
+        device_ms=k5["scalar"]["device_ms"],
+        plain_ms=k5["scalar"]["plain_ms"], bound_ms=k5["scalar"]["bound"][0],
+        bound_by=k5["scalar"]["bound"][1], diag_ms=k5["diag"]["ms"],
+        diag_device_ms=k5["diag"]["device_ms"],
+        diag_bound_ms=k5["diag"]["bound"][0], k1_ms=ms_k1_22,
+        autograd_ms=ms_ag_22, **line))
+    kernels.append(dict(
+        name="l96_pack_solve",
+        source="varanneal_tpu_torch/kernels/csrc/pack_kernel.cu",
+        replaces="varanneal_tpu/kernels/solve_pack_pallas.py:126",
+        replaces_also=["varanneal_tpu/kernels/solve_pack_pallas.py:682"],
+        launches=bench25[2].launches["pack"], max_abs_err=err_k8,
+        max_rel_err=rel_k8, ms=ms8[2], plain_ms=ms_p8,
+        bound_ms=bound_k8[0], bound_by=bound_k8[1], pack4_ms=ms8[4],
+        k2_ms=ms_k2_24, registers={f"G{g}_{d}{'_bounded' if bd else ''}":
+                                   [a["regs"], a["local_bytes"]]
+                                   for (g, d, bd), a in pack_attrs.items()},
+        **line))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -2154,4 +2720,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--profile-loops"] and len(sys.argv) == 3:
         sys.path.insert(0, ROOT)
         sys.exit(profile_loops(sys.argv[2]))
+    if sys.argv[1:2] == ["--ptxas-diff"] and len(sys.argv) == 3:
+        sys.path.insert(0, ROOT)
+        sys.exit(ptxas_diff(sys.argv[2]))
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""K1, K4, K2, K3, K7a, K7b and K6 on the card. K1, the nvcc-built CUDA kernel
-(kernels/csrc/ag_kernel.cu), against its plain PyTorch version at the
+"""K1, K4, K2, K3, K7a, K7b, K6, K5 and K8 on the card. K1, the nvcc-built
+CUDA kernel (kernels/csrc/ag_kernel.cu), against its plain PyTorch version at the
 main path's shape (Lorenz-96 D=20, N=161, L=8, B=4), f64 to 1e-12 and
 f32 to 2e-5 relative (the card sums in another order than the plain
 version); its launch count, its autograd Function, and a short f64
@@ -14,8 +14,11 @@ shape (n = 3,221, m = 5) at every (head, hlen), within the bounds of
 tests/test_dir_pallas.py, with repeats bit-identical and an ended member
 left untouched. K6 (kernels/csrc/fe_kernel.cu), its four kernels against
 their plain versions at configs #1, #2 and #5's shapes (f64 1e-12, f32
-2e-5), and engine='pallas' through autograd on the card. Run on a machine
-with a card:
+2e-5), and engine='pallas' through autograd on the card. K5
+(kernels/csrc/agt_kernel.cu) against its plain version over the three
+one-step rules × scalar and (N_f-1, D) rf (f64 1e-12, f32 2e-5), and K8
+(kernels/csrc/pack_kernel.cu) against K2, bit for bit at pack 2, and
+against its plain version at pack 3. Run on a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
@@ -34,7 +37,7 @@ import torch
 
 from varanneal_tpu_torch.anneal.ladder import rung_rf
 from varanneal_tpu_torch.api import build_bounds
-from varanneal_tpu_torch.kernels import ag, fe, solve
+from varanneal_tpu_torch.kernels import ag, fe, solve, solve_pack
 from varanneal_tpu_torch.kernels import dir as kdir
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec, make_action, pack
@@ -414,3 +417,62 @@ def test_fe_action_on_the_card(cuda):
                                atol=0)
     assert float(torch.max(torch.abs(g - g_x))
                  / torch.max(torch.abs(g_x))) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_agt_kernel_matches_plain(cuda, dtype, tol):
+    """K5 (kernels/csrc/agt_kernel.cu) against its plain version at the main
+    path's shape, the three one-step rules × scalar and (N_f-1, D) rf:
+    value within tol relative, gradient within tol of max|g|; one launch
+    a call and bit-identical repeats."""
+    spec, tw = _main_spec()
+    Z = torch.tensor(_draw(spec, tw, 4), dtype=dtype, device=cuda)
+    W = np.random.default_rng(5).uniform(0.5, 2.0, (spec.N_f - 1, spec.D))
+    for disc in ("trapezoid", "euler", "forwardmap"):
+        c = ag.agt_consts(dataclasses.replace(spec, disc=disc), cuda, dtype)
+        for rf in (3.0, torch.tensor(3.0 * W, dtype=dtype, device=cuda)):
+            n0 = ag.AGT_LAUNCHES
+            A, G = ag.agt_kernel(Z, rf, c)
+            torch.cuda.synchronize()
+            assert ag.AGT_LAUNCHES == n0 + 1
+            A_r, G_r = ag.agt_reference(Z, rf, c)
+            assert float(torch.max(torch.abs(A - A_r) / torch.abs(A_r))) <= tol
+            scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+            assert float(torch.max(torch.abs(G - G_r) / scale)) <= tol
+            A2, G2 = ag.agt_kernel(Z, rf, c)
+            assert torch.equal(A, A2) and torch.equal(G, G2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pack_kernel_matches_k2(cuda, dtype):
+    """K8 (kernels/csrc/pack_kernel.cu): one launch a call; at pack 2
+    (G = 256) bit-identical to K2, the batch of 5 padded, unbounded and in
+    phase 12's box; at pack 3 (G = 128) K2's counts, f64 x within 1e-8
+    and f32 f within 1e-4 relative of the plain version's."""
+    spec, tw = _main_spec()
+    c = ag.ag_consts(spec, cuda, dtype)
+    opts = LBFGSOptions(maxiter=30, m=5, pgtol=1e-4, ftol=1e-6)
+    Z = torch.tensor(_draw(spec, tw, 5), dtype=dtype, device=cuda)
+    rf = rung_rf(4e-6 * tw["RM"], 1.5, 50, dtype)
+    lo, hi = (torch.tensor(b, dtype=dtype, device=cuda) for b in build_bounds(
+        spec, [(-6.0, 6.0)] * 20 + [(3.0, 6.0)], np.float64))
+    for box in ((None, None), (lo, hi)):
+        n0 = solve_pack.PACK_LAUNCHES
+        r8 = solve_pack.pack_kernel(Z, rf, c, opts, 2, *box)
+        torch.cuda.synchronize()
+        assert solve_pack.PACK_LAUNCHES == n0 + 1
+        r2 = solve.solve_kernel(Z, rf, c, opts, *box)
+        assert all(torch.equal(u, v) for u, v in zip(r8, r2))
+    r3 = solve_pack.pack_kernel(Z, rf, c, opts, 3)
+    rp = solve_pack.pack_reference(Z, rf, c, opts, 3)
+    for k in ("niter", "nfev", "status"):
+        assert torch.equal(getattr(r3, k), getattr(rp, k))
+    if dtype == torch.float64:
+        scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
+        assert float(torch.max(torch.abs(r3.x - rp.x) / scale)) <= 1e-8
+    else:
+        assert float(torch.max(torch.abs(r3.f - rp.f)
+                               / torch.abs(rp.f))) <= 1e-4
+    assert solve_pack.pack_supported(spec, 1.0, opts, 4, dtype, device=cuda)
+    assert solve_pack.kernel_attrs(128, dtype)["max_threads"] >= 512

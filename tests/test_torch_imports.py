@@ -27,6 +27,7 @@ def test_import_leaves_jax_out():
             "import varanneal_tpu_torch.kernels.ag\n"
             "import varanneal_tpu_torch.kernels._build\n"
             "import varanneal_tpu_torch.kernels.solve\n"
+            "import varanneal_tpu_torch.kernels.solve_pack\n"
             "import varanneal_tpu_torch.kernels.dir\n"
             "import varanneal_tpu_torch.kernels.fe\n"
             "import varanneal_tpu_torch.api, varanneal_tpu_torch.io\n"

@@ -213,11 +213,11 @@ def test_bench_main_cpu(capsys, extra):
 
 @pytest.mark.parametrize("knob,raises", [
     (dict(BENCH_ENGINE="pallas", BENCH_SOLVER="xla"), False),
-    (dict(BENCH_PACK="2", BENCH_NINIT="2"), True),
+    (dict(BENCH_PACK="2", BENCH_NINIT="2"), False),
     (dict(BENCH_INNER="lm", BENCH_SOLVER="xla"), True),
     (dict(BENCH_ENGINE="pallas", BENCH_SOLVER="fused"), False),
     (dict(BENCH_ENGINE="pallas", BENCH_PACK="2"), False),
-    (dict(BENCH_PACK="2", BENCH_NINIT="2", BENCH_SOLVER="fused"), True),
+    (dict(BENCH_PACK="2", BENCH_NINIT="2", BENCH_SOLVER="fused"), False),
     (dict(BENCH_ENGINE="pallas"), False),
     (dict(BENCH_INNER="lm"), False),
     (dict(BENCH_INNER="lm", BENCH_SOLVER="fused"), False),
@@ -225,10 +225,11 @@ def test_bench_main_cpu(capsys, extra):
     (dict(BENCH_PACK="2", BENCH_NINIT="2", BENCH_SOLVER="xla"), False)])
 def test_bench_waiting_paths_raise(knob, raises):
     """A knob raises only where bench.py would take a path the port does
-    not have yet (K8, opt/lm); elsewhere bench.py ignores it, and so does
+    not have yet (opt/lm); elsewhere bench.py ignores it, and so does
     the port. BENCH_ENGINE=pallas runs K6 wherever the action is
     evaluated. BENCH_PACK>1 with one init moves a ladder run onto K2 per
-    rung, as in bench.py."""
+    rung, as in bench.py; with several inits it runs the packed solver
+    (K8) under ladder and fused."""
     env = dict(BENCH_NBETA="1", BENCH_MAXITER="5", BENCH_TAIL64="0",
                **knob)
     if raises:

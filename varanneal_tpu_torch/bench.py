@@ -31,17 +31,19 @@ Env knobs, as bench.py's where the port has the path:
   ``BENCH_NBETA`` (101), ``BENCH_MAXITER`` (500), ``BENCH_DIRECTION``
   (auto), ``BENCH_M`` (5), ``BENCH_MAXLS`` (20), ``BENCH_TAIL64`` (20);
 - ``BENCH_PACK=k``: as in bench.py, k > 1 with ``BENCH_NINIT > 1`` takes
-  the packed-member kernel under ``fused``/``ladder``; with one init a
-  ``ladder`` run then goes through K2 per rung instead of K3.
+  the packed-member kernel K8 (``kernels.solve_pack.
+  make_packed_rung_solver``, one launch a rung) under ``fused``/``ladder``
+  where ``solve_pack.pack_supported`` holds, else prints bench.py's note
+  ``# BENCH_PACK unsupported here; k=1 fused`` on stderr and takes K2;
+  with one init a ``ladder`` run goes through K2 per rung instead of K3.
 
 The engine is read where the action is evaluated: every evaluation
 under ``xla``, and the per-rung records under ``fused`` (and ``ladder``
 when it runs per rung); K3 under ``ladder`` evaluates in its own launch.
 Where bench.py would take a path the port does not have yet, the run
-raises NotImplementedError (ROADMAP.md): ``BENCH_PACK>1`` with
-``BENCH_NINIT>1`` under ``fused``/``ladder`` (K8), ``BENCH_INNER=lm``
-under ``xla`` (``opt/lm``); elsewhere bench.py ignores these knobs and so
-does the port. bench.py's
+raises NotImplementedError (ROADMAP.md): ``BENCH_INNER=lm`` under ``xla``
+(``opt/lm``); elsewhere bench.py ignores the knob and so does the port.
+bench.py's
 CPU fallback has no counterpart: without a card the run fails and exits
 non-zero. ``main(device="cpu")`` runs the plain versions on the CPU, for
 tests.
@@ -60,7 +62,7 @@ import torch
 from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.anneal import run_ladder
 from varanneal_tpu_torch.anneal.ladder import rung_rf
-from varanneal_tpu_torch.kernels import ag, fe, solve
+from varanneal_tpu_torch.kernels import ag, fe, solve, solve_pack
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec
 from varanneal_tpu_torch.opt import LBFGSOptions
@@ -113,9 +115,6 @@ def main(device=None, env=None):
     if bench_solver not in ("ladder", "fused", "xla"):
         raise ValueError(f"unknown BENCH_SOLVER {bench_solver!r}")
     pack = int(env.get("BENCH_PACK", "1"))
-    if bench_solver in ("ladder", "fused") and pack > 1 and n_init > 1:
-        raise _waits("BENCH_PACK>1 with BENCH_NINIT>1 (the packed-member "
-                     "solve kernel, K8)")
     if bench_solver == "xla" and env.get("BENCH_INNER", "lbfgs") == "lm":
         raise _waits("BENCH_INNER=lm (opt/lm)")
     if bench_solver == "ladder" and pack > 1:
@@ -131,6 +130,15 @@ def main(device=None, env=None):
                         direction=direction,
                         m=int(env.get("BENCH_M", "5")),
                         maxls=int(env.get("BENCH_MAXLS", "20")))
+    pack_solver = None
+    if bench_solver == "fused" and pack > 1 and n_init > 1:
+        if solve_pack.pack_supported(spec, float(rf0), opts, pack,
+                                     dtype=dtype, device=device):
+            pack_solver = solve_pack.make_packed_rung_solver(
+                spec, opts, pack, device=device)
+        else:
+            print("# BENCH_PACK unsupported here; k=1 fused",
+                  file=sys.stderr)
 
     if bench_solver == "ladder":
         if not solve.ladder_supported(spec, float(rf0), opts, dtype=dtype,
@@ -147,7 +155,9 @@ def main(device=None, env=None):
         action, parts = fe.select_action(spec, float(rf0), engine=engine,
                                       dtype=dtype, device=device)
         kw = {}
-        if bench_solver == "fused":
+        if pack_solver is not None:
+            kw = dict(rung_solver=pack_solver)
+        elif bench_solver == "fused":
             if not solve.solve_supported(spec, float(rf0), opts,
                                          dtype=dtype):
                 raise ValueError("BENCH_SOLVER=fused: the problem is "
@@ -183,11 +193,12 @@ def main(device=None, env=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    launches = dict(ag=0, rung=0, ladder=0, fe_fwd=0, fe_bwd=0)
+    launches = dict(ag=0, rung=0, ladder=0, pack=0, fe_fwd=0, fe_bwd=0)
 
     def counts():
         return dict(ag=ag.LAUNCHES, rung=solve.RUNG_LAUNCHES,
                     ladder=solve.LADDER_LAUNCHES,
+                    pack=solve_pack.PACK_LAUNCHES,
                     fe_fwd=fe.FWD_LAUNCHES + fe.SH_FWD_LAUNCHES,
                     fe_bwd=fe.BWD_LAUNCHES + fe.SH_BWD_LAUNCHES)
 

@@ -1,5 +1,6 @@
-"""K1 and K4: the fused Lorenz-96 action + gradient, one launch per
-evaluation, plain (K1) or with compensated sums (K4).
+"""K1, K4 and K5: the fused Lorenz-96 action + gradient, one launch per
+evaluation: K1 (trapezoid, scalar rf), K4 (K1 with compensated sums) and
+K5 (small D, three one-step rules, scalar or (N_f-1, D) rf).
 
 Counterpart of ``varanneal_tpu/kernels/ag_pallas.py`` (``ag_supported``,
 ``embed_consts``, ``make_action_ag``, ``_combine``), whose ``_ag_kernel``
@@ -10,21 +11,29 @@ gradient plus a (B, 6) row of two-float sums of the ME terms and of the
 unweighted FE terms, which :func:`combine` joins and scales in the combine
 dtype of ``ops.action`` (float64 for an f32 path when torch's default
 dtype is float64), so that ``make_action_ag(compensated=True)`` returns
-the compensated action's value with K1's f32 gradient. Beside the kernels
-this module holds:
+the compensated action's value with K1's f32 gradient. K5 replaces
+``_agt_kernel`` (``make_action_ag_t``, the reference's transposed-layout
+kernel for D <= 64) with ``csrc/agt_kernel.cu``: the action of
+``ops.action.make_action`` under the trapezoid rule, Euler or a forward map
+with a scalar or (N_f-1, D) rf, observations at every ``obs_stride``-th
+model row (the reference's K5 puts them at rows 0..N_data-1 and takes
+Hermite–Simpson for a forward map: ROADMAP.md §3; the port follows the
+XLA action). Beside the kernels this module holds:
 
 - :func:`ag_reference`, a plain PyTorch version that spells out the same
   hand adjoint (f, Jᵀv, the two-residual gradient) rather than calling
   autograd, so the CPU tests check the arithmetic the CUDA code does;
   with ``compensated=True`` it also returns K4's row, the same terms
   summed by ``ops.action.comp_sum_pair``;
-- :data:`LAUNCHES` (K1) and :data:`COMP_LAUNCHES` (K4), plain counts of
-  kernel launches;
-- :func:`ag_supported`, the kernels' envelope.
+- :func:`agt_reference`, K5's plain version, the same hand adjoint per
+  discretization;
+- :data:`LAUNCHES` (K1), :data:`COMP_LAUNCHES` (K4) and
+  :data:`AGT_LAUNCHES` (K5), plain counts of kernel launches;
+- :func:`ag_supported` and :func:`agt_supported`, the kernels' envelopes.
 
-:func:`action_and_grad` takes the plain version only for tensors on the
-CPU. For a CUDA tensor it launches the kernel or raises; it never falls
-back.
+:func:`action_and_grad` and :func:`action_and_grad_t` take the plain
+version only for tensors on the CPU. For a CUDA tensor they launch the
+kernel or raise; they never fall back.
 """
 
 import ctypes
@@ -42,6 +51,13 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 LAUNCHES = 0
 #: K4 (compensated) launches so far; each successful launch adds one.
 COMP_LAUNCHES = 0
+#: K5 (one-step, small D) launches so far; each successful launch adds one.
+AGT_LAUNCHES = 0
+
+#: K5's discretizations and their codes in csrc/agt_kernel.cu.
+AGT_DISCS = {"trapezoid": 0, "euler": 1, "forwardmap": 2}
+#: K5's largest D (the reference's small-D limit).
+AGT_MAX_D = 64
 
 #: Shared memory one H100 block can opt into (227 KB).
 SMEM_LIMIT = 232448
@@ -54,6 +70,13 @@ def _smem_bytes(N_f, D, dtype, compensated=False):
     partials, with K4's (hi, lo) partials when ``compensated``."""
     parts = (7 if compensated else 3) * (_THREADS // 32)
     return ((N_f - 1) * D + parts) * (torch.finfo(dtype).bits // 8)
+
+
+def _agt_smem_bytes(N_f, D, dtype):
+    """l96_agt_smem_elems in bytes: the weighted residuals and the
+    reduction partials."""
+    return ((N_f - 1) * D + 3 * (_THREADS // 32)) * (
+        torch.finfo(dtype).bits // 8)
 
 
 def _uniform_grid(spec: ProblemSpec) -> bool:
@@ -85,6 +108,29 @@ def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
                             compensated) <= SMEM_LIMIT)
 
 
+def agt_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32) -> bool:
+    """K5's envelope: Lorenz-96 (the port's ``models.lorenz.lorenz96``)
+    with 4 <= D <= :data:`AGT_MAX_D`, the trapezoid rule, Euler or a
+    forward map (Hermite–Simpson refused), no stimulus, constant
+    parameters with NP == 1, rf scalar or (N_f-1, D), RM scalar or
+    (N_data, L), any uniform observation stride, a uniform grid, f32 or
+    f64, and the weighted residuals fitting in one block's shared memory.
+    A per-member (B, N_f-1, D) rf is outside it."""
+    return (spec.disc in AGT_DISCS
+            and spec.f is lorenz96
+            and 4 <= spec.D <= AGT_MAX_D
+            and not spec.time_dep_p
+            and spec.stim_f is None
+            and spec.NP == 1
+            and spec.pidx in ((), (0,))
+            and (np.ndim(rf) == 0
+                 or np.shape(rf) == (spec.N_f - 1, spec.D))
+            and np.ndim(spec.RM) in (0, 2)
+            and dtype in _DTYPES
+            and _uniform_grid(spec)
+            and _agt_smem_bytes(spec.N_f, spec.D, dtype) <= SMEM_LIMIT)
+
+
 @dataclasses.dataclass(frozen=True)
 class AgConsts:
     """The kernel's constants for one problem, on one device and dtype
@@ -109,6 +155,7 @@ class AgConsts:
     obs_rows: torch.Tensor  # (N_data,) int64 observed model rows
     device: torch.device
     dtype: torch.dtype
+    disc: str = "trapezoid"
 
 
 def ag_consts(spec: ProblemSpec, device, dtype,
@@ -117,6 +164,19 @@ def ag_consts(spec: ProblemSpec, device, dtype,
     if not ag_supported(spec, 0.0, dtype, compensated):
         raise ValueError("problem outside the ag kernel's envelope (see "
                          "ag_supported); use ops.action.make_action")
+    return _consts(spec, device, dtype)
+
+
+def agt_consts(spec: ProblemSpec, device, dtype) -> AgConsts:
+    """K5's :class:`AgConsts` for ``spec`` (inside :func:`agt_supported`
+    for a scalar rf), ``disc`` naming its discretization."""
+    if not agt_supported(spec, 0.0, dtype):
+        raise ValueError("problem outside K5's envelope (see "
+                         "agt_supported); use ops.action.make_action")
+    return _consts(spec, device, dtype)
+
+
+def _consts(spec, device, dtype):
     L = spec.L
     RM = np.asarray(spec.RM, np.float64)
     W = np.broadcast_to(RM, (spec.N_data, L)) if RM.ndim == 0 else RM
@@ -137,7 +197,7 @@ def ag_consts(spec: ProblemSpec, device, dtype,
         lidx=t(np.asarray(spec.Lidx, np.int32), torch.int32),
         lpos=t(lpos, torch.int32),
         obs_rows=t(np.arange(spec.N_data) * spec.obs_stride, torch.int64),
-        device=resolve_device(device), dtype=dtype)
+        device=resolve_device(device), dtype=dtype, disc=spec.disc)
 
 
 def _scalar(v, dtype):
@@ -308,20 +368,21 @@ def action_and_grad(XP, rf, c: AgConsts, compensated=False):
 
 
 class _AgAction(torch.autograd.Function):
-    """The action with the kernel's gradient saved by the forward; the
-    backward only scales it, the incoming gradient cast to the kernel's
-    dtype first (``ag_pallas.py``'s ``action_bwd``)."""
+    """The action with the kernel's gradient saved by the forward (``vag``
+    gives both in one launch); the backward only scales it, the incoming
+    gradient cast to the kernel's dtype first (``ag_pallas.py``'s
+    ``action_bwd``). rf gets no gradient, as in the reference."""
 
     @staticmethod
-    def forward(ctx, XP, rf, c, compensated):
-        A, G = action_and_grad(XP, rf, c, compensated)
+    def forward(ctx, XP, rf, vag):
+        A, G = vag(XP, rf)
         ctx.save_for_backward(G)
         return A
 
     @staticmethod
     def backward(ctx, gA):
         (G,) = ctx.saved_tensors
-        return gA.to(G.dtype)[..., None] * G, None, None, None
+        return gA.to(G.dtype)[..., None] * G, None, None
 
 
 def make_action_ag(spec: ProblemSpec, device=None, dtype=torch.float32,
@@ -340,13 +401,187 @@ def make_action_ag(spec: ProblemSpec, device=None, dtype=torch.float32,
     comp = bool(compensated)
     c = ag_consts(spec, device, dtype, comp)
 
-    def action(XP, rf):
-        return _AgAction.apply(XP, rf, c, comp)
-
     def value_and_grad(XP, rf):
         return action_and_grad(XP, rf, c, comp)
+
+    def action(XP, rf):
+        return _AgAction.apply(XP, rf, value_and_grad)
 
     action.value_and_grad = value_and_grad
     action.consts = c
     _, parts = _action.make_action(spec, device=device, compensated=comp)
+    return action, parts
+
+
+# ---------------------------------------------------------------------------
+# K5: the one-step action at small D (make_action_ag_t)
+# ---------------------------------------------------------------------------
+
+def _agt_rf(rf, c: AgConsts):
+    """(scalar, None) for a scalar rf, else (0.0, the (N_f-1, D) rf as a
+    contiguous tensor of c's dtype on c's device). Raises for any other
+    shape: a per-member (B, N_f-1, D) rf is outside K5."""
+    if isinstance(rf, torch.Tensor) and rf.ndim == 0:
+        return float(rf), None
+    if not isinstance(rf, torch.Tensor):
+        arr = np.asarray(rf, dtype=np.float64)
+        if arr.ndim == 0:
+            return float(arr), None
+        rf = torch.as_tensor(arr)
+    if tuple(rf.shape) != (c.N - 1, c.D):
+        raise ValueError(f"K5 takes a scalar or an (N_f-1, D) = "
+                         f"({c.N - 1}, {c.D}) rf; got {tuple(rf.shape)}")
+    return 0.0, rf.to(device=c.device, dtype=c.dtype).contiguous()
+
+
+def agt_reference(XP, rf, c: AgConsts):
+    """K5's plain PyTorch version, with the kernel's hand adjoint for
+    ``c.disc``. ``XP`` (B, n_dof), ``rf`` scalar or (N_f-1, D) ->
+    (A (B,), dA/dXP (B, n_dof))."""
+    B = XP.shape[0]
+    dt = XP.dtype
+    rf_s, rfd = _agt_rf(rf, c)
+    X = XP[:, : c.n_state].reshape(B, c.N, c.D)
+    F = (XP[:, c.pslot].reshape(B, 1, 1) if c.pslot >= 0
+         else _scalar(c.F_fixed, dt))
+    h = _scalar(c.h, dt)
+    hh = _scalar(h / 2.0, dt)
+    me_norm = _scalar(c.me_norm, dt)
+    fe_norm = _scalar(c.fe_norm, dt)
+
+    f = (_roll(X, -1) - _roll(X, 2)) * _roll(X, 1) - X + F
+    if c.disc == "trapezoid":
+        r = X[:, 1:] - X[:, :-1] - hh * (f[:, :-1] + f[:, 1:])
+    elif c.disc == "euler":
+        r = X[:, 1:] - X[:, :-1] - h * f[:, :-1]
+    else:
+        r = X[:, 1:] - f[:, :-1]
+    q = r if rfd is None else rfd * r            # w_n r_n
+    fe = torch.sum(q * r, dim=(1, 2))
+    sw = torch.sum(q, dim=(1, 2))
+    diff, me = measurement_error(X, c)
+    if rfd is None:
+        rf_s = _scalar(rf_s, dt)
+        A = me + fe_norm * (rf_s * fe)
+        c2 = 2.0 * fe_norm * rf_s
+    else:
+        A = me + fe_norm * fe
+        c2 = 2.0 * fe_norm
+
+    # adjoint: gX_n = 2c [q_{n-1} - q_n - k J(x_n)^T v_n] (see the .cuh)
+    zero = torch.zeros_like(q[:, :1])
+    qp = torch.cat([zero, q], dim=1)          # q_{n-1}, zero at n = 0
+    qc = torch.cat([q, zero], dim=1)          # q_n, zero at n = N-1
+    v = qp + qc if c.disc == "trapezoid" else qc
+    jtv = (_roll(X, 2) * _roll(v, 1)
+           + (_roll(X, -2) - _roll(X, 1)) * _roll(v, -1)
+           - _roll(X, -1) * _roll(v, -2)
+           - v)
+    if c.disc == "trapezoid":
+        gX = c2 * (qp - qc - hh * jtv)
+    elif c.disc == "euler":
+        gX = c2 * (qp - qc - h * jtv)
+    else:
+        gX = c2 * (qp - jtv)
+    gX[:, c.obs_rows[:, None], c.lidx.long()[None, :]] += (
+        2.0 * me_norm * c.W * diff)
+    parts = [gX.reshape(B, c.n_state)]
+    if c.pslot >= 0:
+        dF = -c2 * sw if c.disc == "forwardmap" else -c2 * h * sw
+        parts.append(dF[:, None])
+    return A, torch.cat(parts, dim=1)
+
+
+def _agt_lib():
+    from varanneal_tpu_torch.kernels import _build
+    lib = _build.load("agt_kernel").lib
+    if not getattr(lib, "_va_typed", False):
+        P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for fn in (lib.va_l96_agt_f32, lib.va_l96_agt_f64):
+            fn.restype = I
+            fn.argtypes = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl,
+                           Dbl, Dbl, I, Dbl, P, P, P, P]
+        lib.va_cuda_error_string.restype = ctypes.c_char_p
+        lib.va_cuda_error_string.argtypes = [I]
+        lib._va_typed = True
+    return lib
+
+
+def agt_kernel(XP, rf, c: AgConsts):
+    """Launch K5 on ``XP`` (B, n_dof), a contiguous CUDA tensor of ``c``'s
+    dtype on ``c``'s device, at a scalar or (N_f-1, D) rf. Returns
+    (A, dA/dXP) on PyTorch's current stream, without synchronizing.
+    Raises on anything the kernel does not take and on a refused
+    launch."""
+    global AGT_LAUNCHES
+    if c.disc not in AGT_DISCS:
+        raise ValueError(f"K5 does not take disc {c.disc!r}")
+    if XP.device.type != "cuda" or XP.device != c.device:
+        raise ValueError(f"XP is on {XP.device}; the kernel's constants "
+                         f"are on {c.device}")
+    if XP.dtype != c.dtype or XP.ndim != 2 or XP.shape[1] != c.n_dof:
+        raise ValueError(f"XP must be (B, {c.n_dof}) {c.dtype}; got "
+                         f"{tuple(XP.shape)} {XP.dtype}")
+    rf_s, rfd = _agt_rf(rf, c)
+    XP = XP.contiguous()
+    B = XP.shape[0]
+    A = torch.empty(B, dtype=c.dtype, device=XP.device)
+    G = torch.empty_like(XP)
+    if B == 0:
+        return A, G
+    lib = _agt_lib()
+    fn = lib.va_l96_agt_f32 if c.dtype == torch.float32 else \
+        lib.va_l96_agt_f64
+    with torch.cuda.device(XP.device):
+        stream = torch.cuda.current_stream(XP.device).cuda_stream
+        rc = fn(XP.data_ptr(), B, c.n_dof, c.N, c.D, c.pslot, c.F_fixed,
+                c.Y.data_ptr(), c.W.data_ptr(), c.lidx.data_ptr(),
+                c.lpos.data_ptr(), c.N_data, c.L, c.obs_stride, c.h,
+                c.me_norm, c.fe_norm, AGT_DISCS[c.disc], rf_s,
+                None if rfd is None else rfd.data_ptr(), A.data_ptr(),
+                G.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"K5 launch failed: cudaError {rc} "
+            f"({lib.va_cuda_error_string(rc).decode()})")
+    AGT_LAUNCHES += 1
+    return A, G
+
+
+def action_and_grad_t(XP, rf, c: AgConsts):
+    """(A, dA/dXP) for ``XP`` (..., n_dof) through K5: the plain version
+    for a CPU tensor, the kernel for a CUDA tensor."""
+    lead = tuple(XP.shape[:-1])
+    XP2 = XP.reshape(-1, c.n_dof)
+    if XP.device.type == "cpu":
+        if XP.device != c.device:
+            raise ValueError(f"XP is on {XP.device}; the constants are on "
+                             f"{c.device}")
+        A, G = agt_reference(XP2, rf, c)
+    else:
+        A, G = agt_kernel(XP2, rf, c)
+    return A.reshape(lead), G.reshape(lead + (c.n_dof,))
+
+
+def make_action_ag_t(spec: ProblemSpec, device=None, dtype=torch.float32):
+    """Build ``(action, action_parts)`` with K5, the counterpart of the
+    reference's ``make_action_ag_t`` and with :func:`make_action_ag`'s
+    contract: ``action(XP, rf)`` is differentiable by autograd and carries
+    ``action.value_and_grad(XP, rf) -> (A, dA/dXP)``, one launch for both,
+    and ``action.consts``; ``action_parts`` is the plain action
+    (``ops.action``) for the records. rf is a scalar or (N_f-1, D).
+    ``device=None`` means the CUDA card. Raises ValueError outside
+    :func:`agt_supported`."""
+    device = resolve_device(device)
+    c = agt_consts(spec, device, dtype)
+
+    def value_and_grad(XP, rf):
+        return action_and_grad_t(XP, rf, c)
+
+    def action(XP, rf):
+        return _AgAction.apply(XP, rf, value_and_grad)
+
+    action.value_and_grad = value_and_grad
+    action.consts = c
+    _, parts = _action.make_action(spec, device=device)
     return action, parts

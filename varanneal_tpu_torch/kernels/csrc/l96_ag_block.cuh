@@ -1,7 +1,10 @@
 // The Lorenz-96 trapezoid action and its full gradient for one ensemble
-// member, computed by one whole thread block of kAgThreads threads. K1
-// (ag_kernel.cu) is a thin __global__ around it; the whole-solve kernels
-// (solve_kernel.cu) call it once per evaluation inside their L-BFGS loop.
+// member, computed by one group of threads: by default the whole thread
+// block of kAgThreads threads (BlockGroup). K1 (ag_kernel.cu) is a thin
+// __global__ around it; the whole-solve kernels (solve_kernel.cu) call it
+// once per evaluation inside their L-BFGS loop; the packed solve kernel
+// (pack_kernel.cu) gives each member of a pack a warp-aligned WarpGroup of
+// the block, with its own named barrier.
 //
 //   r_n  = x_{n+1} - x_n - (h/2)(f(x_n) + f(x_{n+1})),  n < N-1
 //   A    = me_norm * sum W (x_obs - Y)^2 + fe_norm * rf * sum r^2
@@ -28,6 +31,38 @@
 
 constexpr int kAgThreads = 256;
 constexpr int kAgWarps = kAgThreads / 32;
+
+// The threads that compute one member, as a policy of static members: the
+// thread's rank in its group, the group's size and warps, and the barrier
+// that synchronizes the group alone. The whole block is K1-K4's policy
+// and compiles to the code they had before groups existed (the ranks are
+// unsigned, as threadIdx.x is: as int, the warp index's shift turned
+// arithmetic and nvcc gave K3 f32 one more register).
+struct BlockGroup {
+    static constexpr int kSize = kAgThreads;
+    static constexpr int kWarps = kAgWarps;
+    static __device__ __forceinline__ unsigned rank() { return threadIdx.x; }
+    static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+
+// G consecutive threads of the block (G a multiple of 32, so every warp
+// lies in one group): group threadIdx.x / G, synchronized by the named
+// barrier 1 + that index (barrier 0 is __syncthreads'), counting G
+// threads. Groups never wait for each other.
+template <int G>
+struct WarpGroup {
+    static_assert(G % 32 == 0 && G >= 32 && G <= 1024, "warp-aligned G");
+    static constexpr int kSize = G;
+    static constexpr int kWarps = G / 32;
+    static __device__ __forceinline__ unsigned id() { return threadIdx.x / G; }
+    static __device__ __forceinline__ unsigned rank() {
+        return threadIdx.x % G;
+    }
+    static __device__ __forceinline__ void sync() {
+        asm volatile("bar.sync %0, %1;" : : "r"(id() + 1), "n"(G)
+                     : "memory");
+    }
+};
 
 // The problem's constants, shared by every member.
 template <typename T>
@@ -101,34 +136,36 @@ __device__ __forceinline__ void warp_two_sum(T& hi, T& lo) {
     }
 }
 
-// Shared memory the routine needs: the (N-1)*D residuals and 3*kAgWarps
-// reduction partials, plus 4*kAgWarps (hi, lo) partials with kComp, in
-// elements of T.
+// Shared memory the routine needs: the (N-1)*D residuals and 3*warps
+// reduction partials, plus 4*warps (hi, lo) partials with kComp, in
+// elements of T; warps is the group's (kAgWarps for the whole block).
 __host__ __device__ inline size_t l96_ag_smem_elems(int N, int D,
-                                                    bool comp = false) {
-    return (size_t)(N - 1) * D + (comp ? 7 : 3) * kAgWarps;
+                                                    bool comp = false,
+                                                    int warps = kAgWarps) {
+    return (size_t)(N - 1) * D + (comp ? 7 : 3) * warps;
 }
 
 // Action and gradient of the member at x (n_dof values, read from global
 // memory by every thread, neighbours included) at scalar rf. Every thread
-// of the block calls it. Writes the gradient to g (n_dof values) and, from
-// thread 0, out[0] = A and, when kWithMe, out[1] = me_norm * sum W
+// of the group Grp calls it. Writes the gradient to g (n_dof values) and,
+// from rank 0, out[0] = A and, when kWithMe, out[1] = me_norm * sum W
 // (x_obs - Y)^2 (the normalized measurement error, which the ladder kernel
-// records). With kComp, thread 0 also writes comp[0..5] = [me_hi, me_lo,
+// records). With kComp, rank 0 also writes comp[0..5] = [me_hi, me_lo,
 // fe1_hi, fe1_lo, fe2_hi, fe2_lo], the two-float sums of the ME terms and
 // of the unweighted FE terms (fe2, the Hermite plane of the reference's
 // Simpson-Hermite layout, is zero for the trapezoid rule).
-// smem: l96_ag_smem_elems(N, D, kComp) elements.
-// Thread 0 writes g[pslot] and out last: a caller that reads them from
-// another thread synchronizes first.
-template <typename T, bool kWithMe, bool kComp = false>
+// smem: l96_ag_smem_elems(N, D, kComp, Grp::kWarps) elements, the group's
+// own. Rank 0 writes g[pslot] and out last: a caller that reads them from
+// another thread synchronizes the group first.
+template <typename T, bool kWithMe, bool kComp = false,
+          typename Grp = BlockGroup>
 __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
                              T* __restrict__ g, T* smem, T* out,
                              T* comp = nullptr) {
     const int N = p.N, D = p.D;
     T* r = smem;                                    // (N-1)*D residuals
     const int n_res = (N - 1) * D;
-    T* red = r + n_res;                             // 3 * kAgWarps partials
+    T* red = r + n_res;                             // 3 * warps partials
     const T F = p.pslot >= 0 ? x[p.pslot] : p.F_fixed;
     const T hh = p.h / T(2);
 
@@ -137,7 +174,7 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
     T fe = T(0), sr = T(0), me = T(0);
     [[maybe_unused]] T me_hi = T(0), me_lo = T(0), fe_hi = T(0),
                        fe_lo = T(0);
-    for (int i = threadIdx.x; i < n_res; i += kAgThreads) {
+    for (int i = Grp::rank(); i < n_res; i += Grp::kSize) {
         const int n = i / D;
         const int d = i - n * D;
         const T* x0 = x + (size_t)n * D;
@@ -149,7 +186,7 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
         sr += rr;
         if constexpr (kComp) two_join(fe_hi, fe_lo, mul_rn(rr, rr), T(0));
     }
-    for (int i = threadIdx.x; i < p.N_data * p.L; i += kAgThreads) {
+    for (int i = Grp::rank(); i < p.N_data * p.L; i += Grp::kSize) {
         const int k = i / p.L;
         const int l = i - k * p.L;
         const T diff = x[(size_t)k * p.obs_stride * D + p.lidx[l]] - p.Y[i];
@@ -164,29 +201,29 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
     fe = warp_sum(fe);
     sr = warp_sum(sr);
     me = warp_sum(me);
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+    const int lane = Grp::rank() & 31;
+    const int warp = Grp::rank() >> 5;
     if (lane == 0) {
         red[warp] = fe;
-        red[kAgWarps + warp] = sr;
-        red[2 * kAgWarps + warp] = me;
+        red[Grp::kWarps + warp] = sr;
+        red[2 * Grp::kWarps + warp] = me;
     }
     if constexpr (kComp) {
         warp_two_sum(me_hi, me_lo);
         warp_two_sum(fe_hi, fe_lo);
         if (lane == 0) {
-            T* cr = red + 3 * kAgWarps;
+            T* cr = red + 3 * Grp::kWarps;
             cr[warp] = me_hi;
-            cr[kAgWarps + warp] = me_lo;
-            cr[2 * kAgWarps + warp] = fe_hi;
-            cr[3 * kAgWarps + warp] = fe_lo;
+            cr[Grp::kWarps + warp] = me_lo;
+            cr[2 * Grp::kWarps + warp] = fe_hi;
+            cr[3 * Grp::kWarps + warp] = fe_lo;
         }
     }
-    __syncthreads();   // residuals and partials complete
+    Grp::sync();   // residuals and partials complete
 
     // pass 2: the gradient of every state entry from the shared residuals
     const T c2 = T(2) * p.fe_norm * rf;
-    for (int i = threadIdx.x; i < N * D; i += kAgThreads) {
+    for (int i = Grp::rank(); i < N * D; i += Grp::kSize) {
         const int n = i / D;
         const int d = i - n * D;
         const T* rp = n > 0 ? r + (size_t)(n - 1) * D : nullptr;
@@ -204,24 +241,25 @@ __device__ void l96_ag_block(const L96Problem<T>& p, const T* x, T rf,
         g[i] = gx;
     }
 
-    if (threadIdx.x == 0) {
+    if (Grp::rank() == 0) {
         T fe_t = T(0), sr_t = T(0), me_t = T(0);
-        for (int w = 0; w < kAgWarps; ++w) {
+        for (int w = 0; w < Grp::kWarps; ++w) {
             fe_t += red[w];
-            sr_t += red[kAgWarps + w];
-            me_t += red[2 * kAgWarps + w];
+            sr_t += red[Grp::kWarps + w];
+            me_t += red[2 * Grp::kWarps + w];
         }
         out[0] = p.me_norm * me_t + p.fe_norm * (rf * fe_t);
         if (kWithMe) out[1] = p.me_norm * me_t;
         if (p.pslot >= 0) g[p.pslot] = -c2 * p.h * sr_t;
         if constexpr (kComp) {
             // the warps' pairs joined in order
-            const T* cr = red + 3 * kAgWarps;
-            T mh = cr[0], ml = cr[kAgWarps];
-            T fh = cr[2 * kAgWarps], fl = cr[3 * kAgWarps];
-            for (int w = 1; w < kAgWarps; ++w) {
-                two_join(mh, ml, cr[w], cr[kAgWarps + w]);
-                two_join(fh, fl, cr[2 * kAgWarps + w], cr[3 * kAgWarps + w]);
+            const T* cr = red + 3 * Grp::kWarps;
+            T mh = cr[0], ml = cr[Grp::kWarps];
+            T fh = cr[2 * Grp::kWarps], fl = cr[3 * Grp::kWarps];
+            for (int w = 1; w < Grp::kWarps; ++w) {
+                two_join(mh, ml, cr[w], cr[Grp::kWarps + w]);
+                two_join(fh, fl, cr[2 * Grp::kWarps + w],
+                         cr[3 * Grp::kWarps + w]);
             }
             comp[0] = mh;
             comp[1] = ml;

@@ -53,13 +53,15 @@ RUNG_LAUNCHES = 0
 #: Launches of the ladder kernel (K3) so far.
 LADDER_LAUNCHES = 0
 
-#: Largest history the kernels take (kMaxM in csrc/solve_kernel.cu).
+#: Largest history the kernels take (kMaxM in csrc/l96_solve.cuh).
 MAX_M = 16
-_RED = 5 * (ag._THREADS // 32) + 2   # the solver's partials and outputs
 
 
-def _smem_bytes(N_f, D, dtype):
-    return ag._smem_bytes(N_f, D, dtype) + _RED * (
+def _smem_bytes(N_f, D, dtype, warps=ag._THREADS // 32):
+    """solve_smem_elems in bytes: K1's residuals and partials, the
+    solver's 5 partials a warp and the evaluation's 2 outputs, for a
+    group of ``warps`` warps (the whole block by default)."""
+    return ((N_f - 1) * D + (3 + 5) * warps + 2) * (
         torch.finfo(dtype).bits // 8)
 
 
@@ -281,17 +283,11 @@ def _check_envelope(spec, rf, opts):
                          "solve_supported); use opt.lbfgs_minimize")
 
 
-def make_rung_solver(spec: ProblemSpec, opts: LBFGSOptions, lower=None,
-                     upper=None, device=None):
-    """Build ``solve(XP, rf) -> LBFGSResult`` running the whole L-BFGS
-    rung solve in one launch (one block per member of ``XP`` (B, n_dof)):
-    the ``rung_solver=`` hook of ``anneal.run_ladder``. ``lower``/
-    ``upper``: flat (n_dof,) bounds as ``api.build_bounds`` gives them
-    (a missing side and ±inf entries are free); the kernel then runs the
-    projection algorithm. ``device=None`` means the CUDA card. Raises
-    outside :func:`solve_supported`."""
-    _check_envelope(spec, 0.0, opts)
-    consts = _Consts(spec, resolve_device(device))
+def flat_bounds(spec: ProblemSpec, lower, upper, device):
+    """``bounds(XP) -> (lo, hi)``: flat (n_dof,) bounds (a missing side
+    and ±inf entries free) as tensors of XP's dtype on ``device``, made
+    once per dtype; (None, None) when both are None. Raises unless each
+    given bound is flat (n_dof,)."""
     box = None
     if lower is not None or upper is not None:
         n = spec.n_dof
@@ -307,9 +303,24 @@ def make_rung_solver(spec: ProblemSpec, opts: LBFGSOptions, lower=None,
             return None, None
         if XP.dtype not in box_t:
             box_t[XP.dtype] = tuple(
-                torch.as_tensor(b, device=consts.device).to(XP.dtype)
-                for b in box)
+                torch.as_tensor(b, device=device).to(XP.dtype) for b in box)
         return box_t[XP.dtype]
+
+    return bounds
+
+
+def make_rung_solver(spec: ProblemSpec, opts: LBFGSOptions, lower=None,
+                     upper=None, device=None):
+    """Build ``solve(XP, rf) -> LBFGSResult`` running the whole L-BFGS
+    rung solve in one launch (one block per member of ``XP`` (B, n_dof)):
+    the ``rung_solver=`` hook of ``anneal.run_ladder``. ``lower``/
+    ``upper``: flat (n_dof,) bounds as ``api.build_bounds`` gives them
+    (a missing side and ±inf entries are free); the kernel then runs the
+    projection algorithm. ``device=None`` means the CUDA card. Raises
+    outside :func:`solve_supported`."""
+    _check_envelope(spec, 0.0, opts)
+    consts = _Consts(spec, resolve_device(device))
+    bounds = flat_bounds(spec, lower, upper, consts.device)
 
     def solve(XP, rf):
         if np.ndim(rf) != 0:
