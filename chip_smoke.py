@@ -12,7 +12,9 @@ timed on its own line:
    K6 (kernels/csrc/fe_kernel.cu), K5 (kernels/csrc/agt_kernel.cu) and
    K8 (kernels/csrc/pack_kernel.cu), one nvcc each, started together,
    into plain-C shared libraries, with nvcc's -Xptxas -v report
-   (registers, spills, shared memory);
+   (registers, spills, shared memory); with them a measuring build of
+   solve_kernel.cu that counts the group barriers its kernels pass
+   (-DVA_COUNT_BARRIERS; phase 9);
 3. K1 against its plain PyTorch version on the card at the main path's
    shape (Lorenz-96 D=20, N=161, L=8, B=4; data-informed draws from numpy
    seed 0; rf at β = 0, 50, 100): f64 to 1e-12 and f32 to 2e-5 relative;
@@ -54,7 +56,12 @@ timed on its own line:
    round-off), within twice what it moves: the plain version on the CPU
    is that witness (f32 iterates are not compared); K2, K3 (the three
    rungs warm-started in one launch) and their plain versions timed on
-   them;
+   them; the layouts kernels/solve.plan_layout gives at the main shape
+   (f32 and f64, with and without the box), each held to the shared
+   memory the kernel computes for it, and the built K2/K3 kernels'
+   registers and local memory (cudaFuncGetAttributes); K2 on these
+   solves at B=4 and at B=264 (two members an SM) in the planner's, the
+   global and the on-chip layout, printed and not held;
 9. the new path, bench.py's default as the port runs it
    (varanneal_tpu_torch.bench.main, BENCH_SOLVER=ladder, B=4 from
    random_ensemble_inits(seed=3), member 0 being bench.py's single
@@ -64,11 +71,18 @@ timed on its own line:
    16.284792 (JAX on a TPU v5e, an accuracy anchor); then the same with
    BENCH_SOLVER=fused (101 K2 launches per call), whose f32 ladder must
    equal K3's bit for bit, so it runs no f64 tail of its own (the tail
-   would repeat K3's). Before both, one K3
+   would repeat K3's); each K2 launch of the fused run is timed by CUDA
+   events around it (K2's time a launch on its path, and over the
+   slowest member's nfev of each rung, its time an evaluation). Before
+   both, one K3
    ladder call of that path (the same inputs, outside the counted runs)
    is timed by CUDA events and run under torch.profiler, in a child
    process (``chip_smoke.py --profile-k3``): the device's busy share and
-   K3's device time;
+   K3's device time. After both, K3's 101-rung ladder and the fused
+   path's 101 warm-started K2 launches run again on the bench's inputs
+   through the barrier-counting build, which must give the shipped
+   build's bits: its count of group barriers over the members'
+   iterations is each kernel's barriers_per_iteration (measured);
 10. K7a and K7b against their plain versions in f32 at the main path's
    n_dof (3,221), m=5 and m=7, four members a launch, every (head, hlen)
    of the circular history: the direction within 2e-5 of its max|d|
@@ -118,6 +132,8 @@ timed on its own line:
    the right shapes, exit flags in {0, 1, 2}, every path feasible, some
    component at a bound, and save_paths / save_params /
    save_action_errors into a temporary directory (paths (101, 161, 21));
+   each K2 launch of the solver='auto' run timed by CUDA events around
+   it (K2 bounded's time a launch on its path);
 14. K4 (the compensated entry of ag_kernel.cu) against its plain version
    at the main path's shape (phase 3's draws, f32), at rf of β 0, 50, 100
    and at rf = 4e6, with torch's default dtype float64 (the f64 combine):
@@ -207,9 +223,10 @@ timed on its own line:
 25. the bench with BENCH_PACK: BENCH_PACK=2 BENCH_NINIT=4 (ladder, 101 K8
    launches a call, no K1-K3 launch; at G = 256 its f32 ladder must equal
    phase 9's K2 ladder bit for bit, so no tail), BENCH_PACK=4 with the
-   tail (final_A_tail64 within 1e-2 of 16.284792); then, printed and not
-   held, K2 against K8 at packs 2 and 4 at benchmarks/pack_ab.py's scale
-   (B=64, maxiter 150, 101 rungs), in s/init.
+   tail (final_A_tail64 within 1e-2 of 16.284792), each K8 launch of the
+   BENCH_PACK=2 run timed by CUDA events around it; then, printed and
+   not held, K2 against K8 at packs 2 and 4 at benchmarks/pack_ab.py's
+   scale (B=64, maxiter 150, 101 rungs), in s/init.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -222,7 +239,14 @@ bound; K4's launches are phase 15's first run's, its ms, device_ms,
 plain_ms and bound phase 14's; K3's ms and bound are those of phase 8's
 three-rung launch, and
 main_ms / main_bound_ms those of its 101-rung launch on the new path;
-K2's bounded_* those of phase 12's f32 bounded short solves; K6's
+K2's bounded_* those of phase 12's f32 bounded short solves; K2's, K3's
+and K8's main_ms a launch's time on the path whose launches they count
+(phases 9, 13 and 25; K2's bounded_main_ms the facade's) and
+us_per_eval that over the slowest member's evaluations; K2's and K3's
+layout and smem_bytes the planner's at the main shape in f32, registers
+[registers, local bytes] per build, barriers_per_iteration phase 9's
+measured count, and K2's short_b4_ms / short_b264_ms phase 8's
+times in the three layouts; K6's
 launches those of its path, phase 21's xla bench for the one-step kernels
 and phase 20's facade for the Hermite–Simpson ones, its times phase
 18's, with K6d's batched_* at B=8 in f64 and the ensemble's launches;
@@ -293,6 +317,68 @@ def events_ms(fn, n=1000, warm=20):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+@contextlib.contextmanager
+def launch_events(mod, attr):
+    """While in the block, every call of ``mod.attr`` (a kernel's wrapper,
+    which launches once a call) is timed on the card by CUDA events
+    recorded around it; yields the list of (start, stop) pairs."""
+    fn = getattr(mod, attr)
+    pairs = []
+
+    def timed(*a, **k):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        r = fn(*a, **k)
+        stop.record()
+        pairs.append((start, stop))
+        return r
+
+    setattr(mod, attr, timed)
+    try:
+        yield pairs
+    finally:
+        setattr(mod, attr, fn)
+
+
+def events_total_ms(pairs):
+    """The summed time of launch_events' pairs, in ms."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def per_launch(pairs, nfev, calls):
+    """(ms a launch, µs an evaluation) of a kernel launched once a rung on
+    a ladder path, from launch_events' pairs over ``calls`` identical
+    ladder calls: the evaluations are the slowest member's of each rung
+    (``nfev``, (B, rungs) or (rungs,)), which the launch waits for."""
+    total = events_total_ms(pairs)
+    worst = torch.as_tensor(nfev).reshape(-1, np.shape(nfev)[-1]).amax(
+        dim=0).sum().item()
+    return total / len(pairs), 1e3 * total / (calls * worst)
+
+
+def count_barriers(lib, fn):
+    """(``fn()``, the group barriers its launches passed): ``fn`` runs with
+    the solve wrappers on ``lib``, the measuring build of solve_kernel.cu
+    (-DVA_COUNT_BARRIERS, phase 2), whose count is reset before and read
+    after."""
+    import ctypes
+    from varanneal_tpu_torch.kernels import solve
+    n = ctypes.c_ulonglong(0)
+    check(lib.va_barriers_read(ctypes.byref(n), 1) == 0,
+          "resetting the barrier count failed")
+    old = solve._lib
+    solve._lib = lambda: lib
+    try:
+        out = fn()
+    finally:
+        solve._lib = old
+    check(lib.va_barriers_read(ctypes.byref(n), 0) == 0,
+          "reading the barrier count failed")
+    return out, n.value
 
 
 def k1_ops(spec):
@@ -563,6 +649,15 @@ def _ptxas_lines(log):
     return lines, names
 
 
+def _nvcc(src, out, defines=()):
+    """One nvcc of ``src`` into the library ``out`` with the port's flags
+    (-Xptxas -v included) and ``defines``, started (a Popen)."""
+    from varanneal_tpu_torch.kernels import _build
+    return subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, *defines,
+                             "-o", out, src], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
 def ptxas_diff(other):
     """Build ag_kernel.cu (K1, K4) and solve_kernel.cu (K2, K3) of this
     checkout and of the checkout at ``other`` with the port's nvcc flags,
@@ -570,8 +665,10 @@ def ptxas_diff(other):
     registers, barriers, spills and stack frames, in order, names dropped
     (a template argument added to a __device__ function changes its
     mangled name, not its code). Prints both and one JSON line; returns 0
-    when every source's lines are identical."""
-    from varanneal_tpu_torch.kernels import _build
+    when every source's lines are identical. Against a checkout from
+    before K2/K3's redesign for the card (the layout argument, one barrier
+    a reduction, fewer reductions), solve_kernel.cu is expected to differ;
+    ag_kernel.cu is not."""
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
@@ -579,11 +676,8 @@ def ptxas_diff(other):
             for tag, root in (("this", ROOT), ("other", other)):
                 src = os.path.join(root, "varanneal_tpu_torch", "kernels",
                                    "csrc", name + ".cu")
-                cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
-                       os.path.join(tmp, f"{name}-{tag}.so"), src]
-                procs[(name, tag)] = subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                    text=True)
+                procs[(name, tag)] = _nvcc(
+                    src, os.path.join(tmp, f"{name}-{tag}.so"))
         logs = {}
         for key, proc in procs.items():
             so, se = proc.communicate()
@@ -650,6 +744,12 @@ def main():
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
+    # the measuring build of K2/K3 (group barriers counted; phase 9),
+    # started with the six
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    bar_path = str(_build.BUILD_DIR / "libsolve_kernel-barriers.so")
+    bar_proc = _nvcc(str(_build.CSRC / "solve_kernel.cu"), bar_path,
+                     ("-DVA_COUNT_BARRIERS",))
     built = _build.build(["ag_kernel", "solve_kernel", "dir_kernel",
                           "fe_kernel", "agt_kernel", "pack_kernel"])
     for b in built.values():
@@ -659,6 +759,16 @@ def main():
             if ("Compiling entry" in line or "Function properties" in line
                     or "Used" in line or "bytes stack frame" in line):
                 print(f"ptxas {b.name}:", line.strip())
+    bar_err = bar_proc.communicate()[1]
+    check(bar_proc.returncode == 0,
+          f"nvcc failed for the barrier-counting build:\n{bar_err}")
+    import ctypes
+    bar_lib = solve.typed(ctypes.CDLL(bar_path))
+    bar_lib.va_barriers_read.restype = ctypes.c_int
+    bar_lib.va_barriers_read.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    print(f"nvcc build of {os.path.basename(bar_path)} (K2/K3 counting "
+          f"group barriers): {time.perf_counter() - t0:.2f} s")
     phase("2 build", t0)
 
     tw, spec, rf0 = main_problem()
@@ -1057,6 +1167,57 @@ def main():
           f"{ms_k3:.4f} ms a launch, plain {ms_p3:.4f} ms; bound "
           f"{bound_k3[0]:.3e} ms ({bound_k3[1]}: {bound_k3[2]} bytes, "
           f"{bound_k3[3]} operations)")
+    # the layouts the planner gives at the main shape, as the kernels
+    # compute their shared memory, and the built kernels' attributes
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slib = solve._lib()
+    layouts = {}
+    for dt in (torch.float32, torch.float64):
+        for bd in (False, True):
+            lay = solve.plan_layout(spec.N_f, spec.D, spec.n_dof, 5, dt, bd,
+                                    MAIN["B"], sms)
+            smem_c = slib.va_l96_solve_smem(spec.N_f, spec.D, spec.n_dof, 5,
+                                            lay.flags,
+                                            int(dt == torch.float64))
+            check(smem_c == lay.smem_bytes,
+                  f"the planner's shared memory {lay.smem_bytes} differs "
+                  f"from the kernel's {smem_c} ({dt}, bounded {bd})")
+            layouts[(str(dt)[6:], bd)] = lay
+    k23_attrs = {f"{nm}_{str(dt)[6:]}{'_bounded' if bd else ''}":
+                 solve.kernel_attrs(nm == "K3", dt, bd,
+                                    layouts[(str(dt)[6:], bd)].flags)
+                 for nm, bds in (("K2", (False, True)), ("K3", (False,)))
+                 for dt in (torch.float32, torch.float64) for bd in bds}
+    k23_attrs["K2_float32_global"] = solve.kernel_attrs(False, torch.float32,
+                                                        False, 0)
+    print("K2/K3 layouts at the main shape (m=5; flags 1 vectors, 2 "
+          "history, 4 box on chip): " + "; ".join(
+              f"{d}{' bounded' if bd else ''} flags {lay.flags}, "
+              f"{lay.smem_bytes} B of shared memory, workspace "
+              f"{lay.work_elems} values a member"
+              for (d, bd), lay in layouts.items()))
+    print("K2/K3 kernels (cudaFuncGetAttributes): " + "; ".join(
+        f"{k} {a['regs']} registers, {a['local_bytes']} B local memory"
+        for k, a in k23_attrs.items()))
+    # K2 on phase 8's short solves at B=4 and at B=264 (two members an
+    # SM), in both layouts: printed, not held
+    rf50 = rfs_s[1]
+    k2_wide = {}
+    for B_ in (MAIN["B"], 264):
+        Zw = Z32 if B_ == MAIN["B"] else torch.tensor(
+            member_draws(spec, tw, 0, B_), dtype=torch.float32, device=dev)
+        plan = solve.plan_layout(spec.N_f, spec.D, spec.n_dof, 5,
+                                 torch.float32, False, B_, sms).flags
+        for nm, lay in (("planner", None), ("global", 0),
+                        ("on chip", solve.VECTORS | solve.HISTORY)):
+            k2_wide[(B_, nm)] = events_ms(lambda: solve.solve_kernel(
+                Zw, rf50, c32, opts_s, _layout=lay), n=5, warm=2)
+        print(f"K2 f32 short solves (maxiter 30, the rf of beta 50) at "
+              f"B={B_}: planner's layout (flags {plan}) "
+              f"{k2_wide[(B_, 'planner')]:.4f} ms, global "
+              f"{k2_wide[(B_, 'global')]:.4f} ms, on chip "
+              f"{k2_wide[(B_, 'on chip')]:.4f} ms a launch (CUDA events; "
+              "printed, not held)")
     phase("8 K2/K3 vs plain f32 and times", t0)
 
     # ---- 9. the new path: the port's bench, K3 then K2 ----------------------
@@ -1094,10 +1255,13 @@ def main():
         solve.RUNG_LAUNCHES = 0
         buf_out, buf_err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(buf_out), \
-                contextlib.redirect_stderr(buf_err):
+                contextlib.redirect_stderr(buf_err), \
+                launch_events(solve, "solve_kernel") as ev_k2:
             run = bench.main(device=dev, env=dict(
                 BENCH_SOLVER=solver_name, BENCH_NINIT=str(MAIN["B"]),
                 BENCH_TAIL64=tail64))
+        if solver_name == "fused":      # K2's time a launch on its path
+            k2_main = per_launch(ev_k2, run.res.nfev, run.calls)
         counts = dict(ag=ag.LAUNCHES, ladder=solve.LADDER_LAUNCHES,
                       rung=solve.RUNG_LAUNCHES)
         print(f"bench {solver_name}: " + buf_out.getvalue().strip())
@@ -1139,7 +1303,54 @@ def main():
               f"bench {solver_name}: final_A_tail64 vs "
               f"{JAX_FINAL_A_TAIL64}")
         paths[solver_name] = (run, counts)
+    k3_us_eval = 1e3 * pk["ms"] / max(pk["nfev"])
+    print(f"K3 on its path: {pk['ms']:.3f} ms a launch, "
+          f"{k3_us_eval:.3f} us an evaluation and its iteration (the "
+          f"slowest member's nfev, {max(pk['nfev'])}); K2 on the fused "
+          f"path: {k2_main[0]:.4f} ms a launch, {k2_main[1]:.3f} us an "
+          f"evaluation (CUDA events around each of its "
+          f"{paths['fused'][0].launches['rung']} launches, the slowest "
+          f"member's nfev of each rung)")
 
+    # group barriers an iteration, measured: K3's 101-rung ladder and the
+    # fused path's 101 warm-started K2 launches on the bench's inputs,
+    # through the barrier-counting build (phase 2), whose X and records
+    # must be the shipped build's bits; the count over the members'
+    # iterations, each rung's first evaluation and extra line-search
+    # trials included
+    opts_b = LBFGSOptions(m=5, maxiter=500, maxls=20, pgtol=1e-4,
+                          ftol=1e-6)
+    xp_b = torch.tensor(random_ensemble_inits(spec, MAIN["B"], seed=3,
+                                              dtype=np.float32), device=dev)
+    rfs_b = torch.tensor([rung_rf(np.float32(rf0), MAIN["alpha"], b,
+                                  torch.float32)
+                          for b in range(MAIN["n_beta"])], device=dev)
+
+    def k3_run():
+        X, r = solve.ladder_kernel(xp_b, rfs_b, c32, opts_b)
+        return [X] + [r[k] for k in sorted(r)]
+
+    def k2_run():
+        x, out = xp_b, []
+        for rf in rfs_b.tolist():
+            r = solve.solve_kernel(x, rf, c32, opts_b)
+            x = r.x
+            out += [r.f, r.niter, r.nfev, r.status]
+        return [x] + out
+
+    barriers = {}
+    for nm, run_fn in (("K3", k3_run), ("K2", k2_run)):
+        ref_b = run_fn()
+        got_b, n_bar = count_barriers(bar_lib, run_fn)
+        check(all(torch.equal(u, v) for u, v in zip(got_b, ref_b)),
+              f"{nm}: the barrier-counting build's results differ from "
+              "the shipped build's")
+        iters = int(sum(int(t.sum()) for t in (
+            [ref_b[5]] if nm == "K3" else ref_b[2::4])))
+        barriers[nm] = n_bar / iters
+        print(f"{nm} group barriers on the main path (measured, f32, "
+              f"m=5): {n_bar} over {iters} iterations of {MAIN['B']} "
+              f"members, {barriers[nm]:.4f} an iteration")
     phase("9 new path (bench ladder, fused) and profile", t0)
 
     # ---- 10. K7a and K7b vs their plain versions ------------------------
@@ -1569,9 +1780,12 @@ def main():
         ag.LAUNCHES = solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
         kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
         t_a = time.perf_counter()
-        ann.anneal(X0q, beta_array=betas_q, solver=solver_name, **quick)
+        with launch_events(solve, "solve_kernel") as ev_q:
+            ann.anneal(X0q, beta_array=betas_q, solver=solver_name, **quick)
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t_a
+        if label == "auto":     # K2 bounded's time a launch on its path
+            k2b_main = per_launch(ev_q, ann.nfev_array, 1)
         cnt = counts()
         paths_q = ann.minpaths
         n_at = int(((paths_q == lo_f) | (paths_q == hi_f)).sum())
@@ -1604,6 +1818,9 @@ def main():
           f"{cnt}")
     check(facade["auto, 20 rungs"][1]["k2"] == 20,
           "solver='auto' on 20 rungs did not take K2")
+    print(f"K2 bounded on the facade's path: {k2b_main[0]:.4f} ms a launch, "
+          f"{k2b_main[1]:.3f} us an evaluation (CUDA events around each of "
+          f"its {MAIN['n_beta']} launches)")
     w_k2, w_gen = facade["auto, 20 rungs"][2], facade["generic"][2]
     print(f"facade, the first 20 rungs, bounded, f32, one init: K2 "
           f"{w_k2:.3f} s, generic projection loop {w_gen:.3f} s "
@@ -2560,10 +2777,13 @@ def main():
     for kp, tail in ((2, "0"), (4, str(MAIN["tail"]))):
         buf_out, buf_err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(buf_out), \
-                contextlib.redirect_stderr(buf_err):
+                contextlib.redirect_stderr(buf_err), \
+                launch_events(solve_pack, "pack_kernel") as ev_k8:
             run = bench.main(device=dev, env=dict(
                 BENCH_SOLVER="ladder", BENCH_PACK=str(kp),
                 BENCH_NINIT=str(MAIN["B"]), BENCH_TAIL64=tail))
+        if kp == 2:             # K8's time a launch on its path
+            k8_main = per_launch(ev_k8, run.res.nfev, run.calls)
         L = run.launches
         print(f"bench BENCH_PACK={kp}: " + buf_out.getvalue().strip())
         print(f"bench BENCH_PACK={kp}: " + buf_err.getvalue().strip())
@@ -2593,6 +2813,9 @@ def main():
                   "1e-2)")
             check(rel25 <= 1e-2, f"bench BENCH_PACK={kp}: final_A_tail64 {fa}")
         bench25[kp] = run
+    print(f"K8 on its path (BENCH_PACK=2): {k8_main[0]:.4f} ms a launch, "
+          f"{k8_main[1]:.3f} us an evaluation (CUDA events around each "
+          "launch)")
     # packing against K2 at pack_ab.py's scale (B=64, maxiter 150, 101
     # rungs): printed, not held
     ab = {}
@@ -2629,17 +2852,35 @@ def main():
              launches=paths["fused"][1]["rung"], max_abs_err=err_k2,
              max_rel_err=rel_k2, ms=ms_k2, plain_ms=ms_p2,
              bound_ms=bound_k2[0], bound_by=bound_k2[1],
+             main_ms=k2_main[0], us_per_eval=k2_main[1],
              bounded_launches=facade["auto"][1]["k2"],
              bounded_max_abs_err=err_k2b, bounded_max_rel_err=rel_k2b,
              bounded_ms=ms_k2b, bounded_plain_ms=ms_p2b,
              bounded_bound_ms=bound_k2b[0], bounded_bound_by=bound_k2b[1],
+             bounded_main_ms=k2b_main[0], bounded_us_per_eval=k2b_main[1],
+             layout=layouts[("float32", False)].flags,
+             smem_bytes=layouts[("float32", False)].smem_bytes,
+             bounded_layout=layouts[("float32", True)].flags,
+             bounded_smem_bytes=layouts[("float32", True)].smem_bytes,
+             registers={k: [a["regs"], a["local_bytes"]]
+                        for k, a in k23_attrs.items() if k[:2] == "K2"},
+             barriers_per_iteration=barriers["K2"],
+             short_b264_ms={nm: k2_wide[(264, nm)]
+                            for nm in ("planner", "global", "on chip")},
+             short_b4_ms={nm: k2_wide[(MAIN["B"], nm)]
+                          for nm in ("planner", "global", "on chip")},
              **line),
         dict(name="l96_ladder", source=src_solve,
              replaces="varanneal_tpu/kernels/solve_pallas.py:951",
              launches=paths["ladder"][1]["ladder"], max_abs_err=err_k3,
              max_rel_err=rel_k3, ms=ms_k3, plain_ms=ms_p3,
              bound_ms=bound_k3[0], bound_by=bound_k3[1], main_ms=pk["ms"],
-             main_bound_ms=bound_main[0], **line),
+             main_bound_ms=bound_main[0], us_per_eval=k3_us_eval,
+             layout=layouts[("float32", False)].flags,
+             smem_bytes=layouts[("float32", False)].smem_bytes,
+             registers={k: [a["regs"], a["local_bytes"]]
+                        for k, a in k23_attrs.items() if k[:2] == "K3"},
+             barriers_per_iteration=barriers["K3"], **line),
         dict(name="compact_dir", source=src_dir,
              replaces="varanneal_tpu/kernels/dir_pallas.py:172",
              launches=facade["generic"][1]["k7a"], max_abs_err=err_k7a,
@@ -2701,6 +2942,7 @@ def main():
         replaces_also=["varanneal_tpu/kernels/solve_pack_pallas.py:682"],
         launches=bench25[2].launches["pack"], max_abs_err=err_k8,
         max_rel_err=rel_k8, ms=ms8[2], plain_ms=ms_p8,
+        main_ms=k8_main[0], us_per_eval=k8_main[1],
         bound_ms=bound_k8[0], bound_by=bound_k8[1], pack4_ms=ms8[4],
         k2_ms=ms_k2_24, registers={f"G{g}_{d}{'_bounded' if bd else ''}":
                                    [a["regs"], a["local_bytes"]]

@@ -8,7 +8,8 @@ combined value within 2e-6 (f32; 1e-12 in f64) of the plain version's,
 its gradient bit-equal to K1's. K2 and K3 (kernels/csrc/solve_kernel.cu) against
 their plain versions in f64: the same niter, nfev and status on short
 solves, the same actions over a short ladder, and bit-identical repeats;
-K2's bounded branch likewise, and feasible. K7a and K7b
+K2's bounded branch likewise, and feasible; both bit-identical in every
+layout of a member's vectors (shared or global memory). K7a and K7b
 (kernels/csrc/dir_kernel.cu) against their plain versions at the main
 shape (n = 3,221, m = 5) at every (head, hlen), within the bounds of
 tests/test_dir_pallas.py, with repeats bit-identical and an ended member
@@ -216,6 +217,46 @@ def test_ladder_kernel_matches_plain(cuda):
     xk2, rk2 = lad(xp0, rfs)
     assert torch.equal(xk, xk2)
     assert all(torch.equal(rk[k], rk2[k]) for k in rk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_layouts_bit_identical(cuda, dtype):
+    """K2 (unbounded and in a box) and K3 give the same bits in every
+    layout the kernels take (a member's vectors, history and box in
+    shared memory or in the global workspace), the planner's included;
+    the kernel's shared memory is the planner's, and a layout that does
+    not fit is refused, not run."""
+    spec, tw = _main_spec()
+    c = ag.ag_consts(spec, cuda, dtype)
+    Z = torch.tensor(_draw(spec, tw, 3), dtype=dtype, device=cuda)
+    opts = LBFGSOptions(maxiter=20, m=5, pgtol=1e-4, ftol=1e-6)
+    lo, hi = (torch.tensor(b, dtype=dtype, device=cuda) for b in build_bounds(
+        spec, [(-6.0, 6.0)] * 20 + [(3.0, 6.0)], np.float64))
+    rf = rung_rf(4e-6 * tw["RM"], 1.5, 50, dtype)
+    rfs = torch.tensor([rf, 2 * rf], dtype=dtype, device=cuda)
+    V, H, BX = solve.VECTORS, solve.HISTORY, solve.BOUNDS
+    lib = solve._lib()
+    runs = {}
+    for flags in (None, 0, V, H, V | H, V | H | BX, V | BX):
+        lay = solve.layout_of(flags or 0, spec.N_f, spec.D, spec.n_dof, 5,
+                              dtype, True)
+        assert lib.va_l96_solve_smem(spec.N_f, spec.D, spec.n_dof, 5,
+                                     lay.flags, int(dtype == torch.float64)
+                                     ) == lay.smem_bytes
+        if lay.smem_bytes > ag.SMEM_LIMIT:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                solve.solve_kernel(Z, rf, c, opts, lo, hi, _layout=flags)
+            continue
+        out = [*solve.solve_kernel(Z, rf, c, opts, lo, hi, _layout=flags)]
+        if flags is None or not flags & BX:
+            out += [*solve.solve_kernel(Z, rf, c, opts, _layout=flags)]
+            x, r = solve.ladder_kernel(Z, rfs, c, opts, _layout=flags)
+            out += [x] + [r[k] for k in sorted(r)]
+        runs[flags] = out
+    torch.cuda.synchronize()
+    for flags, out in runs.items():
+        ref = runs[0] if flags is None or not flags & BX else runs[0][:7]
+        assert all(torch.equal(u, v) for u, v in zip(out, ref)), flags
 
 
 def test_bounded_rung_solve_kernel_matches_plain(cuda):

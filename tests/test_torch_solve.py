@@ -241,3 +241,152 @@ def test_bench_waiting_paths_raise(knob, raises):
     assert np.isfinite(run.out["value"])
     n_init = int(knob.get("BENCH_NINIT", "1"))
     assert tuple(run.res.A.shape) == (n_init, 1)
+
+
+# ---- the layout planner of K2/K3 (kernels/solve.plan_layout) -------------
+
+V, H, BX = solve.VECTORS, solve.HISTORY, solve.BOUNDS
+SMS = 132           # the H100's SMs, given to the planner explicitly here
+
+
+def _spec_of(st, N_f, D):
+    """The CPU problem's spec at another (N_f, D): the predicates read only
+    the shape, the model, the rule and the grid's spacing."""
+    return dataclasses.replace(st, N_f=N_f, D=D)
+
+
+@pytest.mark.parametrize("dtype,m,bounded,B,N_f,D,flags", [
+    (torch.float32, 5, False, 4, 161, 20, V | H),       # the main shape
+    (torch.float32, 5, True, 4, 161, 20, V | H | BX),   # the Quick start
+    (torch.float64, 5, False, 4, 161, 20, V),
+    (torch.float64, 5, True, 4, 161, 20, V | BX),
+    (torch.float32, 5, False, 132, 161, 20, V | H),
+    (torch.float32, 5, False, 133, 161, 20, 0),         # above one an SM
+    (torch.float32, 5, True, 264, 161, 20, 0),
+    (torch.float32, 10, False, 1, 241, 100, 0),         # config #2's size
+    (torch.float32, 10, True, 1, 241, 100, 0),
+    (torch.float64, 16, True, 2, 41, 20, V | BX),
+    (torch.float32, 16, False, 8, 41, 20, V | H),
+    (torch.float32, 16, True, 8, 41, 20, V | H | BX),
+    (torch.float64, 1, False, 1, 2, 4, V | H)])
+def test_plan_layout(dtype, m, bounded, B, N_f, D, flags):
+    """Each group goes on chip whole, in the order vectors, history, box,
+    where it fits in what the groups before it left; within the block's
+    227 KB; the global layout above one member an SM; the workspace holds
+    exactly the groups off chip."""
+    n = N_f * D + 1
+    size = torch.finfo(dtype).bits // 8
+    lay = solve.plan_layout(N_f, D, n, m, dtype, bounded, B, SMS)
+    assert lay.flags == flags
+    assert lay.smem_bytes <= ag.SMEM_LIMIT
+    assert lay == solve.layout_of(flags, N_f, D, n, m, dtype, bounded)
+    groups = [(V, 5 * n), (H, 2 * m * n + 2 * m)] + (
+        [(BX, 2 * n)] if bounded else [])
+    used = solve._smem_bytes(N_f, D, dtype)
+    work = 0
+    for flag, elems in groups:
+        if flags & flag:
+            used += elems * size
+        else:       # it did not fit where it came, or the batch is too big
+            assert B > SMS or used + elems * size > ag.SMEM_LIMIT
+            work += elems if flag != BX else 0
+    assert lay.smem_bytes == used and lay.work_elems == work
+
+
+def test_launch_layout_given_flags(problem):
+    """A launch given the flags takes that layout; the box's flag counts
+    only for a bounded launch's workspace and shared memory."""
+    tw, sj, st = problem
+    c = ag.ag_consts(st, "cpu", torch.float32)
+    opts = LBFGSOptions(m=5)
+    XP = torch.zeros(3, st.n_dof)
+    for flags in (0, V, V | H):
+        assert solve.launch_layout(XP, c, opts, False, flags) == \
+            solve.layout_of(flags, st.N_f, st.D, st.n_dof, 5, torch.float32,
+                            False)
+    lay = solve.launch_layout(XP, c, opts, True, V | BX)
+    assert lay.work_elems == 2 * 5 * st.n_dof + 10
+    assert lay.smem_bytes == (solve._smem_bytes(st.N_f, st.D, torch.float32)
+                              + 7 * st.n_dof * 4)
+
+
+def _csrc(name):
+    import pathlib
+    return (pathlib.Path(solve.__file__).parent / "csrc" / name).read_text()
+
+
+def test_constants_match_the_source():
+    """The partials count, the history cap and the layout's flags that the
+    wrapper's shared-memory and workspace sizes use are the kernels'
+    (csrc/l96_solve.cuh), read from the source."""
+    import re
+    src = _csrc("l96_solve.cuh")
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kMaxRed") == solve.MAX_RED
+    assert const("kMaxM") == solve.MAX_M
+    assert (const("kVectorsOnChip"), const("kHistoryOnChip"),
+            const("kBoundsOnChip")) == (V, H, BX)
+    # where the solver's area is the larger, the size is its partials
+    warps = ag._THREADS // 32
+    assert solve._smem_bytes(2, 4, torch.float32) == (
+        2 * const("kMaxRed") * warps + const("kMaxM") + 2) * 4
+    assert solve._smem_bytes(161, 20, torch.float64, warps=2) == (
+        160 * 20 + 3 * 2 + 2) * 8
+
+
+def _parent_solve_ok(spec, opts, dtype):
+    """The first port's solve envelope, written out: K1's, scalar rf,
+    1 <= m <= 16, maxls >= 1, and K1's residuals and partials, the
+    solver's 5 partials a warp and 2 outputs within 227 KB."""
+    size = torch.finfo(dtype).bits // 8
+    return (1 <= opts.m <= 16 and opts.maxls >= 1
+            and ag.ag_supported(spec, 0.0, dtype)
+            and ((spec.N_f - 1) * spec.D + 8 * 8 + 2) * size
+            <= ag.SMEM_LIMIT)
+
+
+def _parent_pack_ok(spec, opts, dtype, pack):
+    """The first port's K8 envelope on the CPU, written out."""
+    from varanneal_tpu_torch.kernels import solve_pack
+    G = solve_pack.pack_group(pack)
+    size = torch.finfo(dtype).bits // 8
+    return (G is not None and 1 <= opts.m <= 8 and opts.maxls >= 1
+            and ag.ag_supported(spec, 0.0, dtype)
+            and pack * ((spec.N_f - 1) * spec.D + 8 * (G // 32) + 2) * size
+            <= ag.SMEM_LIMIT and pack * G <= 512)
+
+
+def test_envelope_kept(problem):
+    """solve_supported, ladder_supported and pack_supported give the first
+    port's truth values over a grid of shapes, and never refuse what it
+    accepted: at the edge of the limit the solver's partials, which now
+    share the evaluation's area, leave room for a few more residuals."""
+    from varanneal_tpu_torch.kernels import solve_pack
+    tw, sj, st = problem
+    for dtype in (torch.float32, torch.float64):
+        for D in (4, 20, 64, 100, 400, 708, 1000, 4096):
+            for N_f in (2, 41, 161, 241, 1001, 3000, 14000):
+                sp = _spec_of(st, N_f, D)
+                for m in (1, 5, 8, 16, 17):
+                    opts = LBFGSOptions(m=m)
+                    want = _parent_solve_ok(sp, opts, dtype)
+                    assert solve.solve_supported(sp, 1.0, opts, dtype) == want
+                    assert solve.ladder_supported(sp, 1.0, opts, dtype,
+                                                  n_rungs=3) == want
+                for pack in range(1, 10):
+                    opts = LBFGSOptions(m=5)
+                    assert solve_pack.pack_supported(
+                        sp, 1.0, opts, pack, dtype, device="cpu") == \
+                        _parent_pack_ok(sp, opts, dtype, pack)
+        # the edge: the largest residual count the first port accepted,
+        # and the next ones
+        size = torch.finfo(dtype).bits // 8
+        top = ag.SMEM_LIMIT // size - 66          # (N_f - 1) * D at most
+        for extra in (0, 4, 8, 12):
+            sp = _spec_of(st, (top - top % 4 + extra) // 4 + 1, 4)
+            if _parent_solve_ok(sp, LBFGSOptions(m=5), dtype):
+                assert solve.solve_supported(sp, 1.0, LBFGSOptions(m=5),
+                                             dtype)

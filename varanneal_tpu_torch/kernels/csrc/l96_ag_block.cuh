@@ -32,6 +32,18 @@
 constexpr int kAgThreads = 256;
 constexpr int kAgWarps = kAgThreads / 32;
 
+// A measuring build (-DVA_COUNT_BARRIERS; chip_smoke.py builds
+// solve_kernel.cu so to count the solve's barriers an iteration) counts
+// every group barrier once, by the group's rank 0. The kernels as built
+// for use count nothing.
+#ifdef VA_COUNT_BARRIERS
+__device__ unsigned long long va_barriers;
+#define VA_COUNT_BARRIER(rank) \
+    if ((rank) == 0) atomicAdd(&va_barriers, 1ull)
+#else
+#define VA_COUNT_BARRIER(rank)
+#endif
+
 // The threads that compute one member, as a policy of static members: the
 // thread's rank in its group, the group's size and warps, and the barrier
 // that synchronizes the group alone. The whole block is K1-K4's policy
@@ -42,7 +54,10 @@ struct BlockGroup {
     static constexpr int kSize = kAgThreads;
     static constexpr int kWarps = kAgWarps;
     static __device__ __forceinline__ unsigned rank() { return threadIdx.x; }
-    static __device__ __forceinline__ void sync() { __syncthreads(); }
+    static __device__ __forceinline__ void sync() {
+        VA_COUNT_BARRIER(threadIdx.x);
+        __syncthreads();
+    }
 };
 
 // G consecutive threads of the block (G a multiple of 32, so every warp
@@ -59,6 +74,7 @@ struct WarpGroup {
         return threadIdx.x % G;
     }
     static __device__ __forceinline__ void sync() {
+        VA_COUNT_BARRIER(rank());
         asm volatile("bar.sync %0, %1;" : : "r"(id() + 1), "n"(G)
                      : "memory");
     }

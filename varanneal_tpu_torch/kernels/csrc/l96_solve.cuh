@@ -7,11 +7,45 @@
 // Every function here is generic over the group policy Grp of
 // l96_ag_block.cuh: the thread's rank and the group's size stand where
 // threadIdx.x and the block's size stood, and Grp::sync() where
-// __syncthreads() stood, so that a whole-block instantiation is the code
-// K2 and K3 had before groups existed. Control flow is group-uniform:
-// every thread of a group takes every branch together, and groups never
-// wait for each other (a member that finishes early leaves its group's
-// threads idle, not the pack's).
+// __syncthreads() stood. Control flow is group-uniform: every thread of a
+// group takes every branch together, and groups never wait for each other
+// (a member that finishes early leaves its group's threads idle, not the
+// pack's).
+//
+// The serial chain of an iteration, and what this body does about it. A
+// member's solve is a chain of evaluations and group reductions, each
+// waiting on the last; its time is the chain's latency, not bytes or
+// operations. Per iteration (m = 5, a full history, one line-search
+// trial) the chain holds 16 group barriers: 3 in the evaluation, 1 for
+// the trial's directional derivative, 1 for the post-step sums, and 11 in
+// the two-loop direction (one reduction a pair and loop, one for the
+// descent test). To get there from the 31 of the first port:
+//
+// - one barrier per reduction: block_reduce alternates between two
+//   partials areas, so a reduction never waits for the readers of the
+//   last one (they have passed this reduction's barrier before the area
+//   is written again);
+// - the descent test's sum is the next line search's dphi0 (the same
+//   products in the same order); on the fall back to -g, dphi0 = -sum g^2,
+//   carried by the post-step reduction;
+// - s.y and y.y of each history pair are the post-step reduction's, kept
+//   per slot (Bufs::sy, yy) when the pair is written, so the two-loop's
+//   first loop reduces s.q alone;
+// - alpha and the partials live in the evaluation's shared area, which is
+//   dead between evaluations, not in thread-local arrays;
+// - each pass over the vectors applies one pair's update to q and
+//   accumulates the next pair's dot in the same loop;
+// - where a pass reads global memory, it loads kChunkGlobal entries
+//   before it stores any (chunked_pass).
+//
+// Every sum keeps the order and the reduction tree of the first port
+// (per-thread strided partials, a warp shuffle tree, the warps in order),
+// so the results are bit for bit the same. The compact direction (all 2m
+// dots in one reduction) would change every f32 sum and is not used.
+// nvcc's FMA contraction is part of the arithmetic: beta is rounded apart
+// from alpha - beta because the first port's loop rounded it apart.
+// Where a member's vectors live (shared or global memory) is the kernels'
+// layout argument.
 
 #pragma once
 
@@ -22,8 +56,16 @@
 
 namespace {
 
-constexpr int kMaxRed = 5;     // most values one group reduction carries
+constexpr int kMaxRed = 6;     // most values one group reduction carries
 constexpr int kMaxM = 16;      // largest history (the wrapper's envelope)
+
+// The layout's flags: the groups of a member's vectors kept in shared
+// memory (kernels/solve.py::plan_layout chooses them); the rest lives in
+// the member's global workspace (the bounds: in the caller's arrays).
+constexpr int kVectorsOnChip = 1;   // x, g, d, the trial x and g
+constexpr int kHistoryOnChip = 2;   // S, Y and their s.y, y.y
+constexpr int kBoundsOnChip = 4;    // lo, hi (K2 bounded)
+constexpr int kLayoutFlags = 7;
 
 // CONV_GRAD, CONV_FTOL, MAXITER, LS_FAIL of opt/lbfgs.py
 constexpr int kConvGrad = 0, kConvFtol = 1, kMaxIter = 2, kLsFail = 3;
@@ -86,22 +128,36 @@ struct SolveOpts {
     T c1, c2, pgtol, ftol;
 };
 
-// Shared memory of one solving group: the evaluation's area, the solver's
-// reduction partials and the evaluation's two outputs (A, ME).
+// Shared memory of one solving group: `ag`, the evaluation's area (K1's
+// residuals and partials), which the solver reuses between evaluations
+// for its two reduction-partials areas (kMaxRed values a warp each) and
+// the two-loop's alpha (kMaxM values): evaluate() starts and ends with a
+// barrier, so nothing there outlives an evaluation or a direction. `out`:
+// the evaluation's two outputs (A, ME). `turn`: the partials area the
+// group's next reduction writes.
 template <typename T>
 struct Smem {
     T* ag;
-    T* red;
     T* out;
+    int turn;
 };
 
+// A group's area in elements: the evaluation's or the solver's, whichever
+// is larger, and the two outputs.
 __host__ __device__ inline size_t solve_smem_elems(int N, int D,
                                                    int warps = kAgWarps) {
-    return l96_ag_smem_elems(N, D, false, warps) + kMaxRed * warps + 2;
+    const size_t ev = l96_ag_smem_elems(N, D, false, warps);
+    const size_t solver = (size_t)2 * kMaxRed * warps + kMaxM;
+    return (ev > solver ? ev : solver) + 2;
 }
 
-// A member's vectors in its workspace. x/xt and g/gt swap roles when a
-// step is taken, so the pointers travel with the solve.
+template <typename Grp, typename T>
+__device__ __forceinline__ Smem<T> group_smem(T* s, int N, int D) {
+    return Smem<T>{s, s + solve_smem_elems(N, D, Grp::kWarps) - 2, 0};
+}
+
+// A member's vectors. x/xt and g/gt swap roles when a step is taken, so
+// the pointers travel with the solve.
 template <typename T>
 struct Bufs {
     T* x;
@@ -111,7 +167,63 @@ struct Bufs {
     T* gt;      // gradient at the trial point
     T* S;       // (m, n) steps
     T* Y;       // (m, n) gradient differences
+    T* sy;      // (m,) s.y of each pair, as the post-step reduction summed it
+    T* yy;      // (m,) y.y of each pair
 };
+
+// Elements of each group of a member's vectors.
+__host__ __device__ inline size_t vectors_elems(int n) {
+    return (size_t)5 * n;
+}
+__host__ __device__ inline size_t history_elems(int n, int m) {
+    return (size_t)2 * m * n + 2 * m;
+}
+__host__ __device__ inline size_t bounds_elems(int n) {
+    return (size_t)2 * n;
+}
+
+// A member's global workspace in elements: the groups `layout` leaves off
+// chip.
+__host__ __device__ inline size_t work_elems(int n, int m, int layout) {
+    return ((layout & kVectorsOnChip) ? 0 : vectors_elems(n))
+           + ((layout & kHistoryOnChip) ? 0 : history_elems(n, m));
+}
+
+// Shared memory of one whole-block member in elements under `layout`: the
+// group's area, then the groups on chip, in the order vectors, history,
+// bounds.
+__host__ __device__ inline size_t layout_smem_elems(int N, int D, int n,
+                                                    int m, int layout) {
+    return solve_smem_elems(N, D)
+           + ((layout & kVectorsOnChip) ? vectors_elems(n) : 0)
+           + ((layout & kHistoryOnChip) ? history_elems(n, m) : 0)
+           + ((layout & kBoundsOnChip) ? bounds_elems(n) : 0);
+}
+
+// The member's vectors, each group at `chip` (shared memory past the
+// group's area, in layout_smem_elems' order) or in its workspace `work`,
+// as `layout` says.
+template <typename T>
+__device__ Bufs<T> member_bufs(T* chip, T* work, int n, int m, int layout) {
+    T* v = work;
+    if (layout & kVectorsOnChip) {
+        v = chip;
+        chip += vectors_elems(n);
+    } else {
+        work += vectors_elems(n);
+    }
+    T* h = (layout & kHistoryOnChip) ? chip : work;
+    T* sy = h + (size_t)2 * m * n;
+    return Bufs<T>{v, v + n, v + 2 * n, v + 3 * n, v + 4 * n,
+                   h, h + (size_t)m * n, sy, sy + m};
+}
+
+// Where the bounds go on chip: past the vectors and history that are there.
+template <typename T>
+__device__ T* chip_bounds(T* chip, int n, int m, int layout) {
+    return chip + ((layout & kVectorsOnChip) ? vectors_elems(n) : 0)
+           + ((layout & kHistoryOnChip) ? history_elems(n, m) : 0);
+}
 
 // 1 where entry k of the member's current point is free, 0 where frozen
 // (the mask _solve_one multiplies by).
@@ -121,11 +233,73 @@ __device__ __forceinline__ T free_of(const Bufs<T>& w, const Box<T>& bx,
     return frozen(w.x[k], w.g[k], bx.lo[k], bx.hi[k]) ? T(0) : T(1);
 }
 
+// A vector pass over the thread's entries, kChunk at a time: every load
+// of a chunk first (load(k), in the order of k), then apply(k, loaded) in
+// the order of k, so the sums a pass carries see the entries in the order
+// of a plain strided loop. A pass that stores (q, the trial point, the
+// history) would otherwise wait for each entry's loads before the next
+// entry's: the compiler does not move a load above a store through a
+// pointer that may alias it. So the entries of a chunk wait one memory
+// latency together. That pays where a pass reads global memory; where a
+// member's vectors and history are all in shared memory the latency is
+// short, and the chunk's registers cost more than it saves (chunk_of).
+constexpr int kChunkGlobal = 4;
+
+__host__ __device__ inline int chunk_of(int layout) {
+    return ((layout & kVectorsOnChip) && (layout & kHistoryOnChip))
+               ? 1 : kChunkGlobal;
+}
+
+template <typename T, int K>
+struct Vals {
+    T v[K];
+};
+
+template <typename Grp, int kChunk, typename Load, typename Apply>
+__device__ __forceinline__ void chunked_pass(int n, Load load, Apply apply) {
+    using L = decltype(load(0));
+    for (int k0 = Grp::rank(); k0 < n; k0 += kChunk * Grp::kSize) {
+        L got[kChunk];
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+            const int k = k0 + u * Grp::kSize;
+            if (k < n) got[u] = load(k);
+        }
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+            const int k = k0 + u * Grp::kSize;
+            if (k < n) apply(k, got[u]);
+        }
+    }
+}
+
+// The trial point x + a d into xt (clipped into the box when bounded).
+template <typename Grp, bool kBounded, int kChunk, typename T>
+__device__ __forceinline__ void trial_point(const Bufs<T>& w,
+                                            const Box<T>& bx, int n, T a) {
+    chunked_pass<Grp, kChunk>(
+        n,
+        [&](int k) {
+            return Vals<T, 4>{{w.x[k], w.d[k], kBounded ? bx.lo[k] : T(0),
+                               kBounded ? bx.hi[k] : T(0)}};
+        },
+        [&](int k, const Vals<T, 4>& l) {
+            const T t = l.v[0] + a * l.v[1];
+            w.xt[k] = kBounded ? clip(t, l.v[2], l.v[3]) : t;
+        });
+}
+
 // Group-wide fixed-order reduction of K values: entries [0, first_max)
 // are sums, the rest NaN-propagating maxima. Every thread of the group
-// gets the totals.
+// gets the totals. The partials go to the area of sm.turn, and the next
+// reduction takes the other: a thread reads this area only before it
+// reaches the group's next barrier, and nothing writes the area again
+// before the barrier after that.
 template <typename Grp, typename T, int K>
-__device__ void block_reduce(T (&v)[K], int first_max, T* red) {
+__device__ __forceinline__ void block_reduce(T (&v)[K], int first_max,
+                                             Smem<T>& sm) {
+    T* red = sm.ag + sm.turn * (kMaxRed * Grp::kWarps);
+    sm.turn ^= 1;
     const int lane = Grp::rank() & 31;
     const int warp = Grp::rank() >> 5;
 #pragma unroll
@@ -145,24 +319,24 @@ __device__ void block_reduce(T (&v)[K], int first_max, T* red) {
                               : nanmax(t, red[k * Grp::kWarps + w]);
         v[k] = t;
     }
-    Grp::sync();          // partials read: the next reduction may write
 }
 
 template <typename Grp, typename T>
 __device__ __forceinline__ T block_dot(const T* a, const T* b, int n,
-                                       T* red) {
+                                       Smem<T>& sm) {
     T v[1] = {T(0)};
     for (int i = Grp::rank(); i < n; i += Grp::kSize) v[0] += a[i] * b[i];
-    block_reduce<Grp>(v, 1, red);
+    block_reduce<Grp>(v, 1, sm);
     return v[0];
 }
 
 // f and ME at x, gradient into g. The leading barrier makes every
 // thread's writes to x visible (the routine reads neighbours) and frees
-// the shared areas; the trailing one publishes g[pslot] and the outputs.
+// the shared area; the trailing one publishes g[pslot] and the outputs.
 template <typename Grp, typename T>
-__device__ void evaluate(const L96Problem<T>& p, const T* x, T rf, T* g,
-                         const Smem<T>& sm, T& f, T& me) {
+__device__ __forceinline__ void evaluate(const L96Problem<T>& p, const T* x,
+                                         T rf, T* g, const Smem<T>& sm, T& f,
+                                         T& me) {
     Grp::sync();
     l96_ag_block<T, true, false, Grp>(p, x, rf, g, sm.ag, sm.out);
     Grp::sync();
@@ -192,11 +366,10 @@ struct LineSearch {
 
 // The strong-Wolfe bracket/zoom line search of _solve_one.line_search
 // (solve_pallas.py), one evaluation per step, along d from x.
-template <typename Grp, typename T>
-__device__ LineSearch<T> line_search(const L96Problem<T>& p, T rf,
-                                     const SolveOpts<T>& o, const Bufs<T>& w,
-                                     T f0, T me0, T dphi0, T a_init,
-                                     const Smem<T>& sm) {
+template <typename Grp, int kChunk, typename T>
+__device__ __forceinline__ LineSearch<T> line_search(
+        const L96Problem<T>& p, T rf, const SolveOpts<T>& o,
+        const Bufs<T>& w, T f0, T me0, T dphi0, T a_init, Smem<T>& sm) {
     const int n = p.n_dof;
     const T big = big_value<T>();
     int stage = 0, i = 0;
@@ -208,11 +381,10 @@ __device__ LineSearch<T> line_search(const L96Problem<T>& p, T rf,
     T a_star = T(0), f_star = f0, me_star = me0;
 
     while (!(done || failed) && i < o.maxls) {
-        for (int k = Grp::rank(); k < n; k += Grp::kSize)
-            w.xt[k] = w.x[k] + a * w.d[k];
+        trial_point<Grp, false, kChunk>(w, Box<T>{nullptr, nullptr}, n, a);
         T f_a, me_a;
         evaluate<Grp>(p, w.xt, rf, w.gt, sm, f_a, me_a);
-        const T dphi_a = block_dot<Grp>(w.gt, w.d, n, sm.red);
+        const T dphi_a = block_dot<Grp>(w.gt, w.d, n, sm);
         i += 1;
         const bool armijo_fail = f_a > f0 + o.c1 * a * dphi0;
         const bool nan_bad = !is_finite(f_a);
@@ -293,8 +465,7 @@ __device__ LineSearch<T> line_search(const L96Problem<T>& p, T rf,
         r.f = f_star;
         r.me = me_star;
     } else if (have_lo) {
-        for (int k = Grp::rank(); k < n; k += Grp::kSize)
-            w.xt[k] = w.x[k] + a_lo * w.d[k];
+        trial_point<Grp, false, kChunk>(w, Box<T>{nullptr, nullptr}, n, a_lo);
         evaluate<Grp>(p, w.xt, rf, w.gt, sm, r.f, r.me);
         r.a = a_lo;
         r.nfev = i + 1;
@@ -306,12 +477,11 @@ __device__ LineSearch<T> line_search(const L96Problem<T>& p, T rf,
 // w.x along w.d, the trial point P(x + a d) in w.xt and its gradient in
 // w.gt. ok: the last trial decreased f enough (it is then the new
 // point); nfev counts every trial, the first included.
-template <typename Grp, typename T>
-__device__ LineSearch<T> proj_line_search(const L96Problem<T>& p, T rf,
-                                          const SolveOpts<T>& o,
-                                          const Bufs<T>& w, const Box<T>& bx,
-                                          T f0, T me0, T a_init,
-                                          const Smem<T>& sm) {
+template <typename Grp, int kChunk, typename T>
+__device__ __forceinline__ LineSearch<T> proj_line_search(
+        const L96Problem<T>& p, T rf, const SolveOpts<T>& o,
+        const Bufs<T>& w, const Box<T>& bx, T f0, T me0, T a_init,
+        Smem<T>& sm) {
     const int n = p.n_dof;
     T a = a_init;
     T f_a, me_a, gdx;
@@ -319,13 +489,12 @@ __device__ LineSearch<T> proj_line_search(const L96Problem<T>& p, T rf,
     bool ok = false;
     do {
         if (i > 0) a = T(0.5) * a;
-        for (int k = Grp::rank(); k < n; k += Grp::kSize)
-            w.xt[k] = clip(w.x[k] + a * w.d[k], bx.lo[k], bx.hi[k]);
+        trial_point<Grp, true, kChunk>(w, bx, n, a);
         evaluate<Grp>(p, w.xt, rf, w.gt, sm, f_a, me_a);
         T v[1] = {T(0)};
         for (int k = Grp::rank(); k < n; k += Grp::kSize)
             v[0] += w.g[k] * (w.xt[k] - w.x[k]);
-        block_reduce<Grp>(v, 1, sm.red);
+        block_reduce<Grp>(v, 1, sm);
         gdx = v[0];
         i += 1;
         ok = (f_a <= f0 + o.c1 * gdx) && is_finite(f_a) && (f_a < f0);
@@ -339,65 +508,119 @@ __device__ LineSearch<T> proj_line_search(const L96Problem<T>& p, T rf,
     return r;
 }
 
+// Slot of the j-th newest pair of the circular history.
+__device__ __forceinline__ int pair_slot(int head, int j, int m) {
+    return ((head - 1 - j) % m + m) % m;
+}
+
 // The two-loop recursion over the circular history, newest to oldest,
 // into d, with the fall back to -g on a non-descent direction. Slots
 // k >= hlen are skipped: _solve_one weights them by valid = 0 and they
 // hold zeros, so they change nothing. Bounded: the recursion runs on the
 // masked gradient g_free = g * free, d is masked the same way, and the
-// descent test and the fall back use g_free.
-template <typename Grp, bool kBounded, typename T>
-__device__ void direction(const Bufs<T>& w, const Box<T>& bx, int n, int m,
-                          int head, int hlen, T* red) {
+// descent test and the fall back use g_free. Returns the descent test's
+// sum d.g (d.g_free bounded) before any fall back.
+//
+// Each pass applies the last pair's update to q and sums the next pair's
+// dot with the updated entry, in the same per-thread order as separate
+// passes would: pass j of the first loop sets q (g, or q - alpha y of
+// pair j-1) and sums s_j.q; the second loop's first pass finishes the
+// first loop and scales by gamma, the next ones add (alpha - beta) s;
+// the last pass negates q into d and sums the descent test. A pair's s.y
+// is read before its pass, off the barrier's path: from `fresh_sy` for
+// the pair written this iteration (`fresh`, at the newest slot; rank 0's
+// copy of it is not yet visible), else from w.sy, written iterations and
+// barriers ago. beta is rounded before alpha - beta, as the first port's
+// loop rounded it (a product nvcc fused into the subtraction would
+// change the bits).
+template <typename Grp, bool kBounded, int kChunk, typename T>
+__device__ __forceinline__ T direction(const Bufs<T>& w, const Box<T>& bx,
+                                       int n, int m, int head, int hlen,
+                                       bool fresh, T fresh_sy, T fresh_yy,
+                                       Smem<T>& sm) {
     T* q = w.d;
-    for (int k = Grp::rank(); k < n; k += Grp::kSize)
-        q[k] = kBounded ? w.g[k] * free_of(w, bx, k) : w.g[k];
-    T alpha[kMaxM], rho[kMaxM];
-    T sy_n = T(0), yy_n = T(0);
+    T* alpha = sm.ag + 2 * kMaxRed * Grp::kWarps;   // written by rank 0
+    // the pending update of q: q - a_up * y_up (first loop), or
+    // q + a_up * y_up (second loop, y_up being s and a_up alpha - beta)
+    T a_up = T(0);
+    const T* y_up = nullptr;
     for (int j = 0; j < hlen; ++j) {
-        const int idx = ((head - 1 - j) % m + m) % m;
-        const T* s = w.S + (size_t)idx * n;
-        const T* y = w.Y + (size_t)idx * n;
-        T v[3] = {T(0), T(0), T(0)};
-        for (int k = Grp::rank(); k < n; k += Grp::kSize) {
-            v[0] += s[k] * y[k];
-            v[1] += s[k] * q[k];
-            v[2] += y[k] * y[k];
-        }
-        block_reduce<Grp>(v, 3, red);
-        rho[j] = T(1) / nanmax(v[0], T(1e-30));
-        alpha[j] = rho[j] * v[1];
-        if (j == 0) {
-            sy_n = v[0];
-            yy_n = v[2];
-        }
-        for (int k = Grp::rank(); k < n; k += Grp::kSize)
-            q[k] = q[k] - alpha[j] * y[k];
+        const int sl = pair_slot(head, j, m);
+        const T* s = w.S + (size_t)sl * n;
+        const T sy = (j == 0 && fresh) ? fresh_sy : w.sy[sl];
+        T v[1] = {T(0)};
+        chunked_pass<Grp, kChunk>(
+            n,
+            [&](int k) {
+                // j = 0: g (masked) in place of q
+                return Vals<T, 3>{{
+                    j == 0 ? (kBounded ? w.g[k] * free_of(w, bx, k) : w.g[k])
+                           : q[k],
+                    j == 0 ? T(0) : y_up[k], s[k]}};
+            },
+            [&](int k, const Vals<T, 3>& l) {
+                const T qk = j == 0 ? l.v[0] : l.v[0] - a_up * l.v[1];
+                q[k] = qk;
+                v[0] += l.v[2] * qk;
+            });
+        block_reduce<Grp>(v, 1, sm);
+        const T rho = T(1) / nanmax(sy, T(1e-30));
+        a_up = rho * v[0];
+        y_up = w.Y + (size_t)sl * n;
+        if (Grp::rank() == 0) alpha[j] = a_up;
     }
-    const T gamma = hlen > 0 ? sy_n / nanmax(yy_n, T(1e-30)) : T(1);
-    for (int k = Grp::rank(); k < n; k += Grp::kSize) q[k] = gamma * q[k];
+    T gamma = T(1);
+    if (hlen > 0) {
+        const int sl = pair_slot(head, 0, m);
+        gamma = (fresh ? fresh_sy : w.sy[sl])
+                / nanmax(fresh ? fresh_yy : w.yy[sl], T(1e-30));
+    }
     for (int j = hlen - 1; j >= 0; --j) {
-        const int idx = ((head - 1 - j) % m + m) % m;
-        const T* s = w.S + (size_t)idx * n;
-        const T* y = w.Y + (size_t)idx * n;
-        const T beta = rho[j] * block_dot<Grp>(y, q, n, red);
-        for (int k = Grp::rank(); k < n; k += Grp::kSize)
-            q[k] = q[k] + (alpha[j] - beta) * s[k];
+        const int sl = pair_slot(head, j, m);
+        const T* y = w.Y + (size_t)sl * n;
+        const T sy = (j == 0 && fresh) ? fresh_sy : w.sy[sl];
+        T v[1] = {T(0)};
+        chunked_pass<Grp, kChunk>(
+            n,
+            [&](int k) { return Vals<T, 3>{{q[k], y_up[k], y[k]}}; },
+            [&](int k, const Vals<T, 3>& l) {
+                const T qk = j == hlen - 1
+                    ? gamma * (l.v[0] - a_up * l.v[1])
+                    : l.v[0] + a_up * l.v[1];
+                q[k] = qk;
+                v[0] += l.v[2] * qk;
+            });
+        block_reduce<Grp>(v, 1, sm);
+        const T beta = mul_rn(T(1) / nanmax(sy, T(1e-30)), v[0]);
+        a_up = alpha[j] - beta;
+        y_up = w.S + (size_t)sl * n;
     }
     T v[1] = {T(0)};
-    for (int k = Grp::rank(); k < n; k += Grp::kSize) {
-        if (kBounded) {
-            const T fr = free_of(w, bx, k);
-            q[k] = -q[k] * fr;
-            v[0] += q[k] * (w.g[k] * fr);
-        } else {
-            q[k] = -q[k];
-            v[0] += q[k] * w.g[k];
-        }
-    }
-    block_reduce<Grp>(v, 1, red);
+    chunked_pass<Grp, kChunk>(
+        n,
+        [&](int k) {
+            return Vals<T, 4>{{hlen > 0 ? q[k] : T(0),
+                               hlen > 0 ? y_up[k] : T(0), w.g[k],
+                               kBounded ? free_of(w, bx, k) : T(1)}};
+        },
+        [&](int k, const Vals<T, 4>& l) {
+            const T g = l.v[2];
+            T qk = hlen > 0 ? l.v[0] + a_up * l.v[1]
+                            : gamma * (kBounded ? g * l.v[3] : g);
+            if (kBounded) {
+                qk = -qk * l.v[3];
+                v[0] += qk * (g * l.v[3]);
+            } else {
+                qk = -qk;
+                v[0] += qk * g;
+            }
+            q[k] = qk;
+        });
+    block_reduce<Grp>(v, 1, sm);
     if (v[0] >= T(0) || !is_finite(v[0]))
         for (int k = Grp::rank(); k < n; k += Grp::kSize)
             w.d[k] = kBounded ? -(w.g[k] * free_of(w, bx, k)) : -w.g[k];
+    return v[0];
 }
 
 template <typename T>
@@ -409,12 +632,13 @@ struct SolveResult {
 // _solve_one (solve_pallas.py): minimize the action at rf from w.x,
 // leaving the minimizer in w.x and its gradient in w.g (the pointers may
 // swap on the way), inside the box bx when kBounded. A fresh history
-// every call.
-template <typename Grp, bool kBounded, typename T>
+// every call. kChunk: the entries a vector pass loads together
+// (chunk_of the layout).
+template <typename Grp, bool kBounded, int kChunk, typename T>
 __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
                                                  T rf, const SolveOpts<T>& o,
                                                  Bufs<T>& w, const Box<T>& bx,
-                                                 const Smem<T>& sm) {
+                                                 Smem<T> sm) {
     const int n = p.n_dof;
     const int m = o.m;
     SolveResult<T> r;
@@ -438,7 +662,7 @@ __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
         }
         v0[1] += fabs(gk);
     }
-    block_reduce<Grp>(v0, 2, sm.red);
+    block_reduce<Grp>(v0, 2, sm);
     T dphi0 = -v0[0];
     T gnorm1 = v0[1];
     r.pgnorm = v0[2];
@@ -447,19 +671,24 @@ __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
     r.niter = 0;
     r.nfev = 1;
     int head = 0, hlen = 0;
+    // the post-step sums: sy s2 y2 |gn|_1, then gn.gn where the fall back
+    // to -g takes dphi0 from it, then |gn|_max
+    constexpr int kPost = kBounded ? 5 : 6;
 
     while (!done && r.niter < o.maxiter) {
         const T a_init = hlen == 0
             ? nanmin(T(1), T(1) / nanmax(gnorm1, T(1e-30))) : T(1);
         const LineSearch<T> ls =
-            kBounded ? proj_line_search<Grp>(p, rf, o, w, bx, r.f, r.me,
-                                             a_init, sm)
-                     : line_search<Grp>(p, rf, o, w, r.f, r.me, dphi0,
-                                        a_init, sm);
+            kBounded ? proj_line_search<Grp, kChunk>(p, rf, o, w, bx, r.f,
+                                                     r.me, a_init, sm)
+                     : line_search<Grp, kChunk>(p, rf, o, w, r.f, r.me,
+                                                dphi0, a_init, sm);
         // the new point: the trial buffers when a step was taken
         const T* xn = ls.ok ? w.xt : w.x;
         const T* gn = ls.ok ? w.gt : w.g;
-        T v[5] = {T(0), T(0), T(0), T(0), T(0)};  // sy s2 y2 |gn|_1 |gn|_max
+        T v[kPost];
+#pragma unroll
+        for (int i = 0; i < kPost; ++i) v[i] = T(0);
         for (int k = Grp::rank(); k < n; k += Grp::kSize) {
             const T s = xn[k] - w.x[k];
             const T y = gn[k] - w.g[k];
@@ -467,25 +696,37 @@ __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
             v[1] += s * s;
             v[2] += y * y;
             v[3] += fabs(gn[k]);
-            v[4] = nanmax(v[4], fabs(kBounded ? proj_grad(xn[k], gn[k],
-                                                          bx.lo[k], bx.hi[k])
-                                              : gn[k]));
+            if constexpr (!kBounded) v[4] += gn[k] * gn[k];
+            v[kPost - 1] = nanmax(v[kPost - 1],
+                                  fabs(kBounded ? proj_grad(xn[k], gn[k],
+                                                            bx.lo[k],
+                                                            bx.hi[k])
+                                                : gn[k]));
         }
-        block_reduce<Grp>(v, 4, sm.red);
+        block_reduce<Grp>(v, kPost - 1, sm);
         const T sy = v[0];
         const bool good = ls.ok && (sy > T(1e-10) * sqrt(v[1] * v[2]))
                           && (sy > T(0));
         if (good) {
             T* S = w.S + (size_t)head * n;
             T* Y = w.Y + (size_t)head * n;
-            for (int k = Grp::rank(); k < n; k += Grp::kSize) {
-                S[k] = xn[k] - w.x[k];
-                Y[k] = gn[k] - w.g[k];
+            chunked_pass<Grp, kChunk>(
+                n,
+                [&](int k) {
+                    return Vals<T, 4>{{xn[k], w.x[k], gn[k], w.g[k]}};
+                },
+                [&](int k, const Vals<T, 4>& l) {
+                    S[k] = l.v[0] - l.v[1];
+                    Y[k] = l.v[2] - l.v[3];
+                });
+            if (Grp::rank() == 0) {
+                w.sy[head] = v[0];
+                w.yy[head] = v[2];
             }
             head = (head + 1) % m;
             hlen = min(hlen + 1, m);
         }
-        const T pgn = v[4];
+        const T pgn = v[kPost - 1];
         const T df = r.f - ls.f;
         const T fden = nanmax(nanmax(fabs(r.f), fabs(ls.f)), T(1));
         const bool conv_g = pgn <= o.pgtol;
@@ -505,8 +746,12 @@ __device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
         r.niter += 1;
         r.nfev += ls.nfev;
         if (!done && r.niter < o.maxiter) {
-            direction<Grp, kBounded>(w, bx, n, m, head, hlen, sm.red);
-            if (!kBounded) dphi0 = block_dot<Grp>(w.g, w.d, n, sm.red);
+            const T dg = direction<Grp, kBounded, kChunk>(
+                w, bx, n, m, head, hlen, good, v[0], v[2], sm);
+            // d.g of the direction, or of -g: -sum g^2 rounds to the
+            // negation of sum g.(-g), the same products and order
+            if constexpr (!kBounded)
+                dphi0 = (dg >= T(0) || !is_finite(dg)) ? -v[4] : dg;
         }
     }
     return r;

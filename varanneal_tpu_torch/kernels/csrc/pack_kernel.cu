@@ -30,16 +30,19 @@
 // are summed in another order, and the outputs differ from K2's by
 // rounding only.
 //
-// Memory: each group has its own shared area (K1's residuals, the
-// evaluation's and the solver's reduction partials and outputs:
-// solve_smem_elems(N, D, G / 32) values), so a pack needs k times one
-// member's; each member's vectors and history live in its own slice of the
-// global workspace, (5 + 2m) n_dof values, as in K2. The wrapper pads a
+// Memory: each group has its own shared area (K1's residuals and
+// partials, reused between evaluations for the solver's partials and
+// alpha, and the outputs: solve_smem_elems(N, D, G / 32) values), so a
+// pack needs k times one member's; each member's vectors and history live
+// in its own slice of the global workspace, work_elems(n_dof, m, 0)
+// values, as in K2's global layout (K2 and K3 keep them in shared memory
+// where they fit; a pack's layout is not redesigned). The wrapper pads a
 // batch to a multiple of the pack by repeating the last member and drops
 // the padding's outputs (the reference's semantics).
 //
 // What bounds it on the card: as K2, the serial depth of each member's
-// chain of evaluations and group reductions (L2 latency and barriers),
+// chain of evaluations and group reductions (L2 latency and barriers, one
+// a reduction, as l96_solve.cuh says),
 // far from bytes or operations; a pack puts k such chains on one SM
 // instead of k SMs, so it can only be faster than K2 where the card has
 // more members than SMs, or where the chains' latencies overlap well.
@@ -71,17 +74,16 @@ __global__ void __launch_bounds__(kPackMaxThreads) l96_pack_kernel(
     if (b >= B) return;             // no barrier is shared across groups
     T* s = reinterpret_cast<T*>(smem_raw)
            + (size_t)Grp::id() * solve_smem_elems(p.N, p.D, Grp::kWarps);
-    T* red = s + l96_ag_smem_elems(p.N, p.D, false, Grp::kWarps);
-    const Smem<T> sm{s, red, red + kMaxRed * Grp::kWarps};
+    const Smem<T> sm = group_smem<Grp>(s, p.N, p.D);
     const int n = p.n_dof;
-    T* base = work + (size_t)b * (5 + 2 * o.m) * n;
-    Bufs<T> w{base, base + n, base + 2 * n, base + 3 * n, base + 4 * n,
-              base + 5 * n, base + (5 + (size_t)o.m) * n};
+    Bufs<T> w = member_bufs(s, work + (size_t)b * work_elems(n, o.m, 0), n,
+                            o.m, 0);
     const Box<T> bx = kBounded
         ? Box<T>{lo + (size_t)b * bnd_stride, hi + (size_t)b * bnd_stride}
         : Box<T>{nullptr, nullptr};
     for (int k = Grp::rank(); k < n; k += G) w.x[k] = XP[(size_t)b * n + k];
-    const SolveResult<T> r = solve_one<Grp, kBounded>(p, rf, o, w, bx, sm);
+    const SolveResult<T> r =
+        solve_one<Grp, kBounded, kChunkGlobal>(p, rf, o, w, bx, sm);
     for (int k = Grp::rank(); k < n; k += G) {
         X_out[(size_t)b * n + k] = w.x[k];
         G_out[(size_t)b * n + k] = w.g[k];
@@ -196,8 +198,10 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = cudaSuccess). The
 // arguments are K2's (solve_kernel.cu) plus the pack and the group size
-// G (256, 128 or 64, pack * G <= 512); B members, padded by the caller to
-// a multiple of the pack or not (members from B on are not computed).
+// G (256, 128 or 64, pack * G <= 512), without K2's layout (every vector
+// in the workspace, (B, work_elems(n_dof, m, 0))); B members, padded by
+// the caller to a multiple of the pack or not (members from B on are not
+// computed).
 int va_l96_pack_f32(VA_SOLVE_ARGS, int pack, int G, double rf,
                     const void* lo, const void* hi, int bnd_stride,
                     void* work, void* X_out, void* G_out, void* fp_out,

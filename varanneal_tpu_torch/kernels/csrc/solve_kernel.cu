@@ -36,25 +36,41 @@
 // by part of the block. Vector passes touch only the thread's own strided
 // entries; only the evaluation reads neighbours, after a barrier.
 //
-// Memory: a member's vectors (x, g, d, the trial x and g) and its m-pair
-// history live in a per-member global workspace that the wrapper
-// allocates: (5 + 2m) * n_dof values, 193 KB in f32 at the main shape
-// (n_dof = 3,221, m = 5), which stays in the 50 MB L2. Shared memory holds
-// only the evaluation's residuals and the reduction partials (K1's
-// layout); the bounds too stay in global memory, so the bounded branch
-// needs no more shared memory than the unbounded one. Keeping the vectors
-// on chip, or spreading a member over a cluster of blocks, is later work.
+// Memory: a member's vectors (x, g, d, the trial x and g), its m-pair
+// history (S, Y and the pairs' s.y, y.y) and, bounded, its box go to
+// shared memory where they fit, each group whole or not at all, in that
+// order of priority; the rest lives in a per-member global workspace.
+// The wrapper's planner (kernels/solve.py::plan_layout) chooses the
+// layout from the shape, the dtype and the batch and passes it as an
+// argument: at the main shape in f32 (n_dof = 3,221, m = 5) everything is
+// on chip, 206 KB of the 227 KB a block may have (232 KB with the box, the
+// facade's Quick start); in f64 the vectors and the box, not the history.
+// A block that large leaves one block an SM where the global layout fits
+// two, so above one member per SM the planner keeps the global layout,
+// which runs the batch in one wave. Shared memory also holds the
+// evaluation's area, which the solver reuses between evaluations for its
+// reduction partials and the two-loop's alpha (l96_solve.cuh). Each
+// layout runs its own instantiation: with everything on chip the vector
+// passes load one entry at a time; where they read global memory they
+// load kChunkGlobal entries together (more registers, one latency a
+// chunk), and in the global layout the kernel keeps to 128 registers so
+// that two blocks share an SM.
 //
 // What bounds it on the card: per member the solve is a chain of
-// thousands of evaluations and block reductions, each dependent on the
-// last. The bytes (every vector pass re-reads n_dof values from L2) and
-// operations are far below the card's rates; one block per member on
-// B of the 132 SMs makes the kernel bound by that serial depth (latency
-// of L2 loads and __syncthreads), not by bytes or operations.
+// thousands of evaluations and group reductions, each dependent on the
+// last. The bytes and operations are far below the card's rates; one
+// block per member on B of the 132 SMs makes the kernel bound by that
+// serial depth: the latency of the vector passes (shared memory where the
+// layout puts the vectors on chip, else L1/L2) and of the barriers, 16 an
+// iteration at m = 5 against the first port's 31 (l96_solve.cuh says
+// which went), of which the evaluation keeps 3. At the main shape the
+// evaluation (K1's routine and its barriers) is now about half of an
+// iteration (PERF.md §6).
 //
 // Sums are reduced in a fixed order with no atomics: a repeated launch on
-// the same inputs gives bit-identical outputs. solve_one is not inlined,
-// so K2 and K3 run the same machine code for a rung.
+// the same inputs gives bit-identical outputs, whatever the layout.
+// solve_one is not inlined, so K2 and K3 run the same machine code for a
+// rung.
 //
 // The body (solve_one and what it calls) lives in l96_solve.cuh, generic
 // over the group of threads that solves a member; K2 and K3 instantiate
@@ -69,41 +85,52 @@ namespace {
 
 constexpr int kThreads = kAgThreads;
 
-template <typename T>
-__device__ Bufs<T> member_bufs(T* work, int n, int m) {
-    T* base = work + (size_t)blockIdx.x * (5 + 2 * m) * n;
-    return Bufs<T>{base, base + n, base + 2 * n, base + 3 * n, base + 4 * n,
-                   base + 5 * n, base + (5 + (size_t)m) * n};
-}
-
-template <typename T>
-__device__ Smem<T> carve_smem(unsigned char* raw, int N, int D) {
-    T* s = reinterpret_cast<T*>(raw);
-    T* red = s + l96_ag_smem_elems(N, D);
-    return Smem<T>{s, red, red + kMaxRed * kAgWarps};
-}
-
 // K2: one rung, one block per member. Writes x, g, fp = [f, pgnorm] and
 // cnt = [niter, nfev, status] per member. Bounded: lo/hi hold the bounds,
 // bnd_stride apart per member (0: shared by every member).
-template <typename T, bool kBounded>
-__global__ void __launch_bounds__(kThreads) l96_solve_kernel(
-        L96Problem<T> p, SolveOpts<T> o, T rf, const T* __restrict__ XP,
-        const T* __restrict__ lo, const T* __restrict__ hi, int bnd_stride,
-        T* __restrict__ work, T* __restrict__ X_out, T* __restrict__ G_out,
+// Blocks an SM a kernel keeps registers for: two in the global layout,
+// whose shared memory lets two members share an SM (128 registers a
+// thread); one where vectors are on chip (plan_layout puts them there
+// only at one member an SM at most, and their shared memory leaves the SM
+// to one block). Each (chunk, blocks) pair a layout takes is its own
+// instantiation: (1, 1) all on chip, (kChunkGlobal, 1) part on chip,
+// (kChunkGlobal, 2) none.
+int min_blocks_of(int layout) { return layout == 0 ? 2 : 1; }
+
+template <typename T, bool kBounded, int kChunk, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) l96_solve_kernel(
+        L96Problem<T> p, SolveOpts<T> o, T rf, int layout,
+        const T* __restrict__ XP, const T* __restrict__ lo,
+        const T* __restrict__ hi, int bnd_stride, T* __restrict__ work,
+        T* __restrict__ X_out, T* __restrict__ G_out,
         T* __restrict__ fp_out, int* __restrict__ cnt_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const Smem<T> sm = carve_smem<T>(smem_raw, p.N, p.D);
+    T* s = reinterpret_cast<T*>(smem_raw);
+    const Smem<T> sm = group_smem<BlockGroup>(s, p.N, p.D);
+    T* chip = s + solve_smem_elems(p.N, p.D);
     const int n = p.n_dof;
     const int b = blockIdx.x;
-    Bufs<T> w = member_bufs(work, n, o.m);
-    const Box<T> bx = kBounded
-        ? Box<T>{lo + (size_t)b * bnd_stride, hi + (size_t)b * bnd_stride}
-        : Box<T>{nullptr, nullptr};
+    Bufs<T> w = member_bufs(
+        chip, work + (size_t)b * work_elems(n, o.m, layout), n, o.m, layout);
+    Box<T> bx{nullptr, nullptr};
+    if (kBounded) {
+        const T* lo_b = lo + (size_t)b * bnd_stride;
+        const T* hi_b = hi + (size_t)b * bnd_stride;
+        if (layout & kBoundsOnChip) {      // each thread its own entries
+            T* lc = chip_bounds(chip, n, o.m, layout);
+            for (int k = threadIdx.x; k < n; k += kThreads) {
+                lc[k] = lo_b[k];
+                lc[n + k] = hi_b[k];
+            }
+            bx = Box<T>{lc, lc + n};
+        } else {
+            bx = Box<T>{lo_b, hi_b};
+        }
+    }
     for (int k = threadIdx.x; k < n; k += kThreads)
         w.x[k] = XP[(size_t)b * n + k];
     const SolveResult<T> r =
-        solve_one<BlockGroup, kBounded>(p, rf, o, w, bx, sm);
+        solve_one<BlockGroup, kBounded, kChunk>(p, rf, o, w, bx, sm);
     for (int k = threadIdx.x; k < n; k += kThreads) {
         X_out[(size_t)b * n + k] = w.x[k];
         G_out[(size_t)b * n + k] = w.g[k];
@@ -120,23 +147,26 @@ __global__ void __launch_bounds__(kThreads) l96_solve_kernel(
 // K3: k warm-started rungs at rfs[0..k), one block per member. Writes the
 // final x and per rung rec = [A, ME, pgnorm], rec_i = [niter, nfev,
 // status], each (B, k, 3).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) l96_ladder_kernel(
-        L96Problem<T> p, SolveOpts<T> o, const T* __restrict__ rfs, int k_rungs,
-        const T* __restrict__ XP, T* __restrict__ work,
-        T* __restrict__ X_out, T* __restrict__ rec,
+template <typename T, int kChunk, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) l96_ladder_kernel(
+        L96Problem<T> p, SolveOpts<T> o, int layout,
+        const T* __restrict__ rfs, int k_rungs, const T* __restrict__ XP,
+        T* __restrict__ work, T* __restrict__ X_out, T* __restrict__ rec,
         int* __restrict__ rec_i) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const Smem<T> sm = carve_smem<T>(smem_raw, p.N, p.D);
+    T* s = reinterpret_cast<T*>(smem_raw);
+    const Smem<T> sm = group_smem<BlockGroup>(s, p.N, p.D);
     const int n = p.n_dof;
     const int b = blockIdx.x;
-    Bufs<T> w = member_bufs(work, n, o.m);
+    Bufs<T> w = member_bufs(s + solve_smem_elems(p.N, p.D),
+                            work + (size_t)b * work_elems(n, o.m, layout),
+                            n, o.m, layout);
     for (int k = threadIdx.x; k < n; k += kThreads)
         w.x[k] = XP[(size_t)b * n + k];
     const Box<T> none{nullptr, nullptr};
     for (int j = 0; j < k_rungs; ++j) {
         const SolveResult<T> r =
-            solve_one<BlockGroup, false>(p, rfs[j], o, w, none, sm);
+            solve_one<BlockGroup, false, kChunk>(p, rfs[j], o, w, none, sm);
         if (threadIdx.x == 0) {
             const size_t row = ((size_t)b * k_rungs + j) * 3;
             rec[row] = r.f;
@@ -151,22 +181,48 @@ __global__ void __launch_bounds__(kThreads) l96_ladder_kernel(
         X_out[(size_t)b * n + k] = w.x[k];
 }
 
-template <typename T, bool kBounded>
+template <typename T, bool kBounded, int kChunk, int kMinBlocks>
 int launch_solve_kernel(const L96Problem<T>& p, const SolveOpts<T>& o,
-                        double rf, const void* XP, const void* lo,
-                        const void* hi, int bnd_stride, void* work,
-                        void* X_out, void* G_out, void* fp_out,
+                        double rf, int layout, const void* XP,
+                        const void* lo, const void* hi, int bnd_stride,
+                        void* work, void* X_out, void* G_out, void* fp_out,
                         void* cnt_out, int B, size_t smem, void* stream) {
-    const cudaError_t e = opt_in(l96_solve_kernel<T, kBounded>, smem);
+    const cudaError_t e =
+        opt_in(l96_solve_kernel<T, kBounded, kChunk, kMinBlocks>, smem);
     if (e != cudaSuccess) return (int)e;
-    l96_solve_kernel<T, kBounded>
+    l96_solve_kernel<T, kBounded, kChunk, kMinBlocks>
         <<<B, kThreads, smem, (cudaStream_t)stream>>>(
-            p, o, (T)rf, static_cast<const T*>(XP),
+            p, o, (T)rf, layout, static_cast<const T*>(XP),
             static_cast<const T*>(lo), static_cast<const T*>(hi),
             bnd_stride, static_cast<T*>(work), static_cast<T*>(X_out),
             static_cast<T*>(G_out), static_cast<T*>(fp_out),
             static_cast<int*>(cnt_out));
     return (int)cudaGetLastError();
+}
+
+template <typename T, bool kBounded>
+int launch_solve_kernel(const L96Problem<T>& p, const SolveOpts<T>& o,
+                        double rf, int layout, const void* XP,
+                        const void* lo, const void* hi, int bnd_stride,
+                        void* work, void* X_out, void* G_out, void* fp_out,
+                        void* cnt_out, int B, size_t smem, void* stream) {
+    if (chunk_of(layout) == 1)
+        return launch_solve_kernel<T, kBounded, 1, 1>(
+            p, o, rf, layout, XP, lo, hi, bnd_stride, work, X_out, G_out,
+            fp_out, cnt_out, B, smem, stream);
+    if (min_blocks_of(layout) == 1)
+        return launch_solve_kernel<T, kBounded, kChunkGlobal, 1>(
+            p, o, rf, layout, XP, lo, hi, bnd_stride, work, X_out, G_out,
+            fp_out, cnt_out, B, smem, stream);
+    return launch_solve_kernel<T, kBounded, kChunkGlobal, 2>(
+        p, o, rf, layout, XP, lo, hi, bnd_stride, work, X_out, G_out,
+        fp_out, cnt_out, B, smem, stream);
+}
+
+// The layout's flags are known ones, and the box on chip only with a box.
+bool layout_ok(int layout, bool bounded) {
+    return (layout & ~kLayoutFlags) == 0
+           && (bounded || !(layout & kBoundsOnChip));
 }
 
 template <typename T>
@@ -175,26 +231,45 @@ int launch_solve(const void* XP, int B, int n_dof, int N, int D, int pslot,
                  const void* lidx, const void* lpos, int N_data, int L,
                  int obs_stride, double h, double me_norm, double fe_norm,
                  int m, int maxiter, int maxls, double c1, double c2,
-                 double pgtol, double ftol, double rf, const void* lo,
-                 const void* hi, int bnd_stride, void* work, void* X_out,
-                 void* G_out, void* fp_out, void* cnt_out, void* stream) {
-    if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
-    if ((lo == nullptr) != (hi == nullptr))
+                 double pgtol, double ftol, int layout, double rf,
+                 const void* lo, const void* hi, int bnd_stride, void* work,
+                 void* X_out, void* G_out, void* fp_out, void* cnt_out,
+                 void* stream) {
+    if (m < 1 || m > kMaxM || (lo == nullptr) != (hi == nullptr)
+            || !layout_ok(layout, lo != nullptr))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = solve_smem_elems(N, D) * sizeof(T);
+    const size_t smem =
+        layout_smem_elems(N, D, n_dof, m, layout) * sizeof(T);
     const L96Problem<T> p = problem<T>(n_dof, N, D, pslot, F_fixed, Y, W,
                                        lidx, lpos, N_data, L, obs_stride, h,
                                        me_norm, fe_norm);
     const SolveOpts<T> o = solve_opts<T>(m, maxiter, maxls, c1, c2, pgtol,
                                          ftol);
-    return lo ? launch_solve_kernel<T, true>(p, o, rf, XP, lo, hi,
+    return lo ? launch_solve_kernel<T, true>(p, o, rf, layout, XP, lo, hi,
                                              bnd_stride, work, X_out, G_out,
                                              fp_out, cnt_out, B, smem,
                                              stream)
-              : launch_solve_kernel<T, false>(p, o, rf, XP, lo, hi,
+              : launch_solve_kernel<T, false>(p, o, rf, layout, XP, lo, hi,
                                               bnd_stride, work, X_out, G_out,
                                               fp_out, cnt_out, B, smem,
                                               stream);
+}
+
+template <typename T, int kChunk, int kMinBlocks>
+int launch_ladder_kernel(const L96Problem<T>& p, const SolveOpts<T>& o,
+                         int layout, const void* rfs, int k_rungs,
+                         const void* XP, void* work, void* X_out, void* rec,
+                         void* rec_i, int B, size_t smem, void* stream) {
+    const cudaError_t e =
+        opt_in(l96_ladder_kernel<T, kChunk, kMinBlocks>, smem);
+    if (e != cudaSuccess) return (int)e;
+    l96_ladder_kernel<T, kChunk, kMinBlocks>
+        <<<B, kThreads, smem, (cudaStream_t)stream>>>(
+            p, o, layout, static_cast<const T*>(rfs), k_rungs,
+            static_cast<const T*>(XP), static_cast<T*>(work),
+            static_cast<T*>(X_out), static_cast<T*>(rec),
+            static_cast<int*>(rec_i));
+    return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -203,67 +278,140 @@ int launch_ladder(const void* XP, int B, int n_dof, int N, int D, int pslot,
                   const void* lidx, const void* lpos, int N_data, int L,
                   int obs_stride, double h, double me_norm, double fe_norm,
                   int m, int maxiter, int maxls, double c1, double c2,
-                  double pgtol, double ftol, const void* rfs, int k_rungs,
-                  void* work, void* X_out, void* rec, void* rec_i,
-                  void* stream) {
-    if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
-    const size_t smem = solve_smem_elems(N, D) * sizeof(T);
-    const cudaError_t e = opt_in(l96_ladder_kernel<T>, smem);
-    if (e != cudaSuccess) return (int)e;
-    l96_ladder_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        problem<T>(n_dof, N, D, pslot, F_fixed, Y, W, lidx, lpos, N_data,
-                   L, obs_stride, h, me_norm, fe_norm),
-        solve_opts<T>(m, maxiter, maxls, c1, c2, pgtol, ftol),
-        static_cast<const T*>(rfs), k_rungs, static_cast<const T*>(XP),
-        static_cast<T*>(work), static_cast<T*>(X_out),
-        static_cast<T*>(rec), static_cast<int*>(rec_i));
-    return (int)cudaGetLastError();
+                  double pgtol, double ftol, int layout, const void* rfs,
+                  int k_rungs, void* work, void* X_out, void* rec,
+                  void* rec_i, void* stream) {
+    if (m < 1 || m > kMaxM || !layout_ok(layout, false))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        layout_smem_elems(N, D, n_dof, m, layout) * sizeof(T);
+    const L96Problem<T> p = problem<T>(n_dof, N, D, pslot, F_fixed, Y, W,
+                                       lidx, lpos, N_data, L, obs_stride, h,
+                                       me_norm, fe_norm);
+    const SolveOpts<T> o = solve_opts<T>(m, maxiter, maxls, c1, c2, pgtol,
+                                         ftol);
+    if (chunk_of(layout) == 1)
+        return launch_ladder_kernel<T, 1, 1>(p, o, layout, rfs, k_rungs, XP,
+                                             work, X_out, rec, rec_i, B,
+                                             smem, stream);
+    if (min_blocks_of(layout) == 1)
+        return launch_ladder_kernel<T, kChunkGlobal, 1>(
+            p, o, layout, rfs, k_rungs, XP, work, X_out, rec, rec_i, B,
+            smem, stream);
+    return launch_ladder_kernel<T, kChunkGlobal, 2>(
+        p, o, layout, rfs, k_rungs, XP, work, X_out, rec, rec_i, B, smem,
+        stream);
+}
+
+template <int kChunk, int kMinBlocks>
+const void* solve_fn(int ladder, int f64, int bounded) {
+    if (ladder)
+        return f64 ? (const void*)l96_ladder_kernel<double, kChunk, kMinBlocks>
+                   : (const void*)l96_ladder_kernel<float, kChunk, kMinBlocks>;
+    if (f64)
+        return bounded
+            ? (const void*)l96_solve_kernel<double, true, kChunk, kMinBlocks>
+            : (const void*)l96_solve_kernel<double, false, kChunk, kMinBlocks>;
+    return bounded
+        ? (const void*)l96_solve_kernel<float, true, kChunk, kMinBlocks>
+        : (const void*)l96_solve_kernel<float, false, kChunk, kMinBlocks>;
+}
+
+// The kernel a launch of (ladder, f64, bounded) under `layout` runs: K3
+// or K2, in the layout's instantiation.
+const void* solve_fn(int ladder, int f64, int bounded, int layout) {
+    if (chunk_of(layout) == 1) return solve_fn<1, 1>(ladder, f64, bounded);
+    if (min_blocks_of(layout) == 1)
+        return solve_fn<kChunkGlobal, 1>(ladder, f64, bounded);
+    return solve_fn<kChunkGlobal, 2>(ladder, f64, bounded);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 = cudaSuccess). Pointers
-// are device pointers. XP, X_out, G_out are (B, n_dof) row-major; Y/W
-// (N_data, L); lidx (L,) and lpos (D,) int32; lo/hi (n_dof,) or
-// (B, n_dof) box bounds (bnd_stride 0 or n_dof), both NULL for an
-// unbounded solve; work (B, (5 + 2m) n_dof) scratch; fp_out (B, 2)
-// [f, pgnorm] and cnt_out (B, 3) int32 [niter, nfev, status]; rfs (k,);
-// rec (B, k, 3) [A, ME, pgnorm] and rec_i (B, k, 3) int32 [niter, nfev,
-// status].
-int va_l96_solve_f32(VA_SOLVE_ARGS, double rf, const void* lo,
+// Each launch returns the cudaError_t of the launch (0 = cudaSuccess).
+// Pointers are device pointers. XP, X_out, G_out are (B, n_dof)
+// row-major; Y/W (N_data, L); lidx (L,) and lpos (D,) int32; layout the
+// flags of the groups kept on chip (1 vectors, 2 history, 4 box; see
+// l96_solve.cuh); lo/hi (n_dof,) or (B, n_dof) box bounds (bnd_stride 0
+// or n_dof), both NULL for an unbounded solve; work (B, work_elems(n_dof,
+// m, layout)) scratch (l96_solve.cuh); fp_out (B, 2) [f, pgnorm] and cnt_out
+// (B, 3) int32 [niter, nfev, status]; rfs (k,); rec (B, k, 3) [A, ME,
+// pgnorm] and rec_i (B, k, 3) int32 [niter, nfev, status].
+int va_l96_solve_f32(VA_SOLVE_ARGS, int layout, double rf, const void* lo,
                      const void* hi, int bnd_stride, void* work, void* X_out,
                      void* G_out, void* fp_out, void* cnt_out,
                      void* stream) {
-    return launch_solve<float>(VA_SOLVE_PASS, rf, lo, hi, bnd_stride, work,
-                               X_out, G_out, fp_out, cnt_out, stream);
+    return launch_solve<float>(VA_SOLVE_PASS, layout, rf, lo, hi,
+                               bnd_stride, work, X_out, G_out, fp_out,
+                               cnt_out, stream);
 }
 
-int va_l96_solve_f64(VA_SOLVE_ARGS, double rf, const void* lo,
+int va_l96_solve_f64(VA_SOLVE_ARGS, int layout, double rf, const void* lo,
                      const void* hi, int bnd_stride, void* work, void* X_out,
                      void* G_out, void* fp_out, void* cnt_out,
                      void* stream) {
-    return launch_solve<double>(VA_SOLVE_PASS, rf, lo, hi, bnd_stride, work,
-                                X_out, G_out, fp_out, cnt_out, stream);
+    return launch_solve<double>(VA_SOLVE_PASS, layout, rf, lo, hi,
+                                bnd_stride, work, X_out, G_out, fp_out,
+                                cnt_out, stream);
 }
 
-int va_l96_ladder_f32(VA_SOLVE_ARGS, const void* rfs, int k_rungs,
-                      void* work, void* X_out, void* rec, void* rec_i,
-                      void* stream) {
-    return launch_ladder<float>(VA_SOLVE_PASS, rfs, k_rungs, work, X_out,
-                                rec, rec_i, stream);
+int va_l96_ladder_f32(VA_SOLVE_ARGS, int layout, const void* rfs,
+                      int k_rungs, void* work, void* X_out, void* rec,
+                      void* rec_i, void* stream) {
+    return launch_ladder<float>(VA_SOLVE_PASS, layout, rfs, k_rungs, work,
+                                X_out, rec, rec_i, stream);
 }
 
-int va_l96_ladder_f64(VA_SOLVE_ARGS, const void* rfs, int k_rungs,
-                      void* work, void* X_out, void* rec, void* rec_i,
-                      void* stream) {
-    return launch_ladder<double>(VA_SOLVE_PASS, rfs, k_rungs, work, X_out,
-                                 rec, rec_i, stream);
+int va_l96_ladder_f64(VA_SOLVE_ARGS, int layout, const void* rfs,
+                      int k_rungs, void* work, void* X_out, void* rec,
+                      void* rec_i, void* stream) {
+    return launch_ladder<double>(VA_SOLVE_PASS, layout, rfs, k_rungs, work,
+                                 X_out, rec, rec_i, stream);
+}
+
+// A launch's dynamic shared memory in bytes under `layout`, as the
+// launches compute it.
+long long va_l96_solve_smem(int N, int D, int n_dof, int m, int layout,
+                            int f64) {
+    return (long long)(layout_smem_elems(N, D, n_dof, m, layout)
+                       * (f64 ? sizeof(double) : sizeof(float)));
+}
+
+// The attributes of the built kernel that a launch of (ladder, f64,
+// bounded) under `layout` runs: out = [registers a thread, local memory a
+// thread in bytes (spills and stack), the most threads a block can
+// launch with, the threads a launch takes].
+int va_l96_solve_attrs(int ladder, int f64, int bounded, int layout,
+                       int* out) {
+    cudaFuncAttributes a;
+    const cudaError_t e =
+        cudaFuncGetAttributes(&a, solve_fn(ladder, f64, bounded, layout));
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = a.maxThreadsPerBlock;
+    out[3] = kThreads;
+    return 0;
 }
 
 const char* va_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
+
+#ifdef VA_COUNT_BARRIERS
+// The measuring build's count (l96_ag_block.cuh) into *out, after the
+// device's work so far; reset: start it again from 0.
+int va_barriers_read(unsigned long long* out, int reset) {
+    cudaError_t e = cudaDeviceSynchronize();
+    if (e == cudaSuccess)
+        e = cudaMemcpyFromSymbol(out, va_barriers, sizeof *out);
+    const unsigned long long zero = 0;
+    if (e == cudaSuccess && reset)
+        e = cudaMemcpyToSymbol(va_barriers, &zero, sizeof zero);
+    return (int)e;
+}
+#endif
 
 }  // extern "C"

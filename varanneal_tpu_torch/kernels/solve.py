@@ -19,7 +19,10 @@ their design does about it). Beside the kernels this module holds:
   kernel launches;
 - :func:`solve_supported` and :func:`ladder_supported`, the envelope,
   and :func:`solve_preferred` and :func:`pick_rung_solver`, the policy
-  of the facade's ``solver=``.
+  of the facade's ``solver=``;
+- :func:`plan_layout`, which puts a member's vectors in shared memory
+  where they fit (the kernels' layout argument), and
+  :func:`kernel_attrs`, the built kernels' registers and local memory.
 
 A solver takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches its kernel or raises; it never falls back.
@@ -55,23 +58,86 @@ LADDER_LAUNCHES = 0
 
 #: Largest history the kernels take (kMaxM in csrc/l96_solve.cuh).
 MAX_M = 16
+#: Most values one reduction of the solver carries (kMaxRed).
+MAX_RED = 6
+
+#: The layout's flags (kVectorsOnChip, kHistoryOnChip, kBoundsOnChip in
+#: csrc/l96_solve.cuh): the groups of a member's vectors in shared memory.
+VECTORS, HISTORY, BOUNDS = 1, 2, 4
 
 
 def _smem_bytes(N_f, D, dtype, warps=ag._THREADS // 32):
-    """solve_smem_elems in bytes: K1's residuals and partials, the
-    solver's 5 partials a warp and the evaluation's 2 outputs, for a
-    group of ``warps`` warps (the whole block by default)."""
-    return ((N_f - 1) * D + (3 + 5) * warps + 2) * (
-        torch.finfo(dtype).bits // 8)
+    """solve_smem_elems in bytes, one group of ``warps`` warps (the whole
+    block by default): the evaluation's area (K1's residuals and 3
+    partials a warp) or, where larger, the solver's, which reuses it
+    between evaluations (two areas of :data:`MAX_RED` partials a warp and
+    :data:`MAX_M` alphas), and the evaluation's 2 outputs."""
+    return (max((N_f - 1) * D + 3 * warps, 2 * MAX_RED * warps + MAX_M)
+            + 2) * (torch.finfo(dtype).bits // 8)
+
+
+def _groups(n_dof, m, bounded):
+    """The groups of a member's vectors in the planner's order, with their
+    sizes in elements: x, g, d and the trial x and g; the history S, Y and
+    its per-pair s·y, y·y; the box."""
+    return ((VECTORS, 5 * n_dof), (HISTORY, 2 * m * n_dof + 2 * m)) + (
+        ((BOUNDS, 2 * n_dof),) if bounded else ())
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a launch keeps each member's vectors: ``flags``, the groups
+    in shared memory; ``smem_bytes``, the block's dynamic shared memory;
+    ``work_elems``, a member's global workspace in elements (the groups
+    off chip; the box stays in the caller's arrays)."""
+    flags: int
+    smem_bytes: int
+    work_elems: int
+
+
+def layout_of(flags, N_f, D, n_dof, m, dtype, bounded) -> Layout:
+    """The :class:`Layout` with the groups of ``flags`` on chip."""
+    size = torch.finfo(dtype).bits // 8
+    smem, work = _smem_bytes(N_f, D, dtype), 0
+    for flag, elems in _groups(n_dof, m, bounded):
+        if flags & flag:
+            smem += elems * size
+        elif flag != BOUNDS:
+            work += elems
+    return Layout(flags, smem, work)
+
+
+def plan_layout(N_f, D, n_dof, m, dtype, bounded, B, sm_count) -> Layout:
+    """The layout of a K2/K3 launch of ``B`` members on a card of
+    ``sm_count`` SMs. With at most one member an SM, each group of
+    :func:`_groups` in turn goes to shared memory if it fits whole in
+    what the ones before it left of the block's 227 KB
+    (:data:`ag.SMEM_LIMIT`). Above that the global layout: a block of
+    ~200 KB leaves one block an SM where the global layout fits two, so
+    the batch would run in two waves instead of one. Measured on the
+    H100 (PERF.md §6), the global layout is 1.1–1.3x faster at
+    B = 133–200, but the on-chip layout is 7–8 % faster at B = 264 and
+    528, which this rule gives up (ROADMAP.md §2 queues a rule by
+    waves)."""
+    size = torch.finfo(dtype).bits // 8
+    smem = _smem_bytes(N_f, D, dtype)
+    flags = 0
+    if B <= sm_count:
+        for flag, elems in _groups(n_dof, m, bounded):
+            if smem + elems * size <= ag.SMEM_LIMIT:
+                flags |= flag
+                smem += elems * size
+    return layout_of(flags, N_f, D, n_dof, m, dtype, bounded)
 
 
 def solve_supported(spec: ProblemSpec, rf, opts: LBFGSOptions,
                     dtype=torch.float32) -> bool:
     """The rung-solve kernel's envelope, bounded or not: K1's
     (:func:`ag.ag_supported`), scalar rf, 1 <= m <= :data:`MAX_M`, and one
-    block's shared memory (K1's residuals plus the solver's reduction
-    partials) within the H100's 227 KB. The vectors, the history and the
-    bounds live in global memory, so n_dof itself is not limited and a
+    block's shared memory in the global layout (the evaluation's area,
+    which the solver's partials share) within the H100's 227 KB. The
+    vectors, the history and the bounds go to shared memory only where
+    they fit (:func:`plan_layout`), so n_dof itself is not limited and a
     bounded solve needs no more shared memory than an unbounded one."""
     return (np.ndim(rf) == 0
             and 1 <= opts.m <= MAX_M
@@ -120,23 +186,49 @@ def ladder_reference(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions):
     return XP, {k: torch.stack(v, dim=1) for k, v in recs.items()}
 
 
-def _lib():
-    from varanneal_tpu_torch.kernels import _build
-    lib = _build.load("solve_kernel").lib
+def typed(lib):
+    """``lib`` (a ctypes library built from csrc/solve_kernel.cu) with its
+    functions' argument and result types set."""
     if not getattr(lib, "_va_typed", False):
         P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         common = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl, Dbl,
                   I, I, I, Dbl, Dbl, Dbl, Dbl]
         for fn in (lib.va_l96_solve_f32, lib.va_l96_solve_f64):
             fn.restype = I
-            fn.argtypes = common + [Dbl, P, P, I, P, P, P, P, P, P]
+            fn.argtypes = common + [I, Dbl, P, P, I, P, P, P, P, P, P]
         for fn in (lib.va_l96_ladder_f32, lib.va_l96_ladder_f64):
             fn.restype = I
-            fn.argtypes = common + [P, I, P, P, P, P, P]
+            fn.argtypes = common + [I, P, I, P, P, P, P, P]
+        lib.va_l96_solve_smem.restype = ctypes.c_longlong
+        lib.va_l96_solve_smem.argtypes = [I, I, I, I, I, I]
+        lib.va_l96_solve_attrs.restype = I
+        lib.va_l96_solve_attrs.argtypes = [I, I, I, I, P]
         lib.va_cuda_error_string.restype = ctypes.c_char_p
         lib.va_cuda_error_string.argtypes = [I]
         lib._va_typed = True
     return lib
+
+
+def _lib():
+    from varanneal_tpu_torch.kernels import _build
+    return typed(_build.load("solve_kernel").lib)
+
+
+def kernel_attrs(ladder: bool, dtype=torch.float32, bounded=False,
+                 layout=0) -> dict:
+    """The attributes of the built kernel, K3 (``ladder``) or K2, that a
+    launch under the layout's flags ``layout`` runs (building it at first
+    use; needs the card): registers a thread, local memory a thread in
+    bytes (spills and stack), the most threads a block can launch with,
+    and the threads a launch takes."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    rc = lib.va_l96_solve_attrs(int(bool(ladder)),
+                                int(dtype == torch.float64),
+                                int(bool(bounded)), int(layout), out)
+    _raise_on(rc, lib, "cudaFuncGetAttributes of the solve")
+    return dict(regs=out[0], local_bytes=out[1], max_threads=out[2],
+                threads=out[3])
 
 
 def _check_input(XP, c: ag.AgConsts, opts: LBFGSOptions):
@@ -166,9 +258,25 @@ def _raise_on(rc, lib, what):
             f"({lib.va_cuda_error_string(rc).decode()})")
 
 
-def _workspace(XP, opts):
-    return torch.empty(XP.shape[0], (5 + 2 * opts.m) * XP.shape[1],
+def _workspace(XP, layout: Layout):
+    """Each member's global workspace: what ``layout`` leaves off chip
+    (at least one element, so that the pointer is valid)."""
+    return torch.empty(XP.shape[0], max(layout.work_elems, 1),
                        dtype=XP.dtype, device=XP.device)
+
+
+def launch_layout(XP, c: ag.AgConsts, opts: LBFGSOptions, bounded=False,
+                  layout=None) -> Layout:
+    """The layout of a launch on ``XP``: :func:`plan_layout`'s on the card
+    that holds it, or, for tests and measurements, the one with the flags
+    ``layout``."""
+    B, n = XP.shape
+    if layout is None:
+        sms = torch.cuda.get_device_properties(
+            XP.device).multi_processor_count
+        layout = plan_layout(c.N, c.D, n, opts.m, XP.dtype, bounded, B,
+                             sms).flags
+    return layout_of(int(layout), c.N, c.D, n, opts.m, XP.dtype, bounded)
 
 
 def _check_bounds(lower, upper, XP):
@@ -189,13 +297,15 @@ def _check_bounds(lower, upper, XP):
 
 
 def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
-                 upper=None):
+                 upper=None, _layout=None):
     """Launch K2 on ``XP`` (B, n_dof), a CUDA tensor of ``c``'s dtype on
     ``c``'s device: one block per member solves the rung at scalar ``rf``,
     inside the box ``lower``/``upper`` ((n_dof,) or (B, n_dof), ±inf for a
-    free side) when given. Returns an LBFGSResult on PyTorch's current
-    stream, without synchronizing. Raises on anything the kernel does not
-    take and on a refused launch."""
+    free side) when given, in :func:`plan_layout`'s layout (``_layout``:
+    other flags, for tests and measurements; the results are the same
+    bits in every layout). Returns an LBFGSResult on PyTorch's current stream, without
+    synchronizing. Raises on anything the kernel does not take and on a
+    refused launch."""
     global RUNG_LAUNCHES
     _check_input(XP, c, opts)
     XP = XP.contiguous()
@@ -209,13 +319,14 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
     fp = torch.empty(B, 2, dtype=XP.dtype, device=XP.device)
     cnt = torch.empty(B, 3, dtype=torch.int32, device=XP.device)
     if B:
-        work = _workspace(XP, opts)
+        lay = launch_layout(XP, c, opts, lo is not None, _layout)
+        work = _workspace(XP, lay)
         lib = _lib()
         fn = (lib.va_l96_solve_f32 if c.dtype == torch.float32
               else lib.va_l96_solve_f64)
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*_common_args(XP, c, opts), float(rf), *bnd,
+            rc = fn(*_common_args(XP, c, opts), lay.flags, float(rf), *bnd,
                     work.data_ptr(), X.data_ptr(), G.data_ptr(),
                     fp.data_ptr(), cnt.data_ptr(), stream)
         _raise_on(rc, lib, "rung-solve")
@@ -224,11 +335,13 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
                        nfev=cnt[:, 1], status=cnt[:, 2], pgnorm=fp[:, 1])
 
 
-def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions):
+def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions,
+                  _layout=None):
     """Launch K3 on ``XP`` (B, n_dof): one block per member runs every
     rung of ``rfs`` (k,) (a tensor of ``c``'s dtype on its device),
-    warm-started. Returns (XP_out, records) on PyTorch's current stream,
-    without synchronizing."""
+    warm-started. ``_layout`` as for :func:`solve_kernel`. Returns
+    (XP_out, records) on PyTorch's current stream, without
+    synchronizing."""
     global LADDER_LAUNCHES
     _check_input(XP, c, opts)
     if (rfs.dtype != c.dtype or rfs.device != c.device or rfs.ndim != 1
@@ -242,13 +355,14 @@ def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions):
     rec = torch.empty(B, k, 3, dtype=XP.dtype, device=XP.device)
     rec_i = torch.empty(B, k, 3, dtype=torch.int32, device=XP.device)
     if B:
-        work = _workspace(XP, opts)
+        lay = launch_layout(XP, c, opts, False, _layout)
+        work = _workspace(XP, lay)
         lib = _lib()
         fn = (lib.va_l96_ladder_f32 if c.dtype == torch.float32
               else lib.va_l96_ladder_f64)
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*_common_args(XP, c, opts), rfs.data_ptr(), k,
+            rc = fn(*_common_args(XP, c, opts), lay.flags, rfs.data_ptr(), k,
                     work.data_ptr(), X.data_ptr(), rec.data_ptr(),
                     rec_i.data_ptr(), stream)
         _raise_on(rc, lib, "ladder")

@@ -58,8 +58,10 @@ def pack_group(pack: int):
 
 
 def smem_bytes(spec: ProblemSpec, dtype, pack: int) -> int:
-    """Shared memory of one pack block: ``pack`` groups' residuals and
-    partials, each one member's of :func:`pack_group`'s warps."""
+    """Shared memory of one pack block: ``pack`` groups' areas (the
+    evaluation's, shared with the solver's partials), each one member's of
+    :func:`pack_group`'s warps. Every vector stays in the global
+    workspace (K2's global layout)."""
     return pack * solve._smem_bytes(spec.N_f, spec.D, dtype,
                                     pack_group(pack) // 32)
 
@@ -175,7 +177,8 @@ def pack_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
     fp = torch.empty(Bp, 2, dtype=XP.dtype, device=XP.device)
     cnt = torch.empty(Bp, 3, dtype=torch.int32, device=XP.device)
     if Bp:
-        work = solve._workspace(XPp, opts)
+        work = solve._workspace(XPp, solve.layout_of(
+            0, c.N, c.D, c.n_dof, opts.m, XP.dtype, lo is not None))
         lib = _lib()
         fn = (lib.va_l96_pack_f32 if c.dtype == torch.float32
               else lib.va_l96_pack_f64)

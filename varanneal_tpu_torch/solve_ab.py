@@ -1,0 +1,214 @@
+"""K2 and K3 of this checkout against another checkout's, on one card, in
+turns: the same bits, and the times.
+
+    python3 -m varanneal_tpu_torch.solve_ab OTHER_CHECKOUT OUT_DIR
+
+``OTHER_CHECKOUT`` is the root of another checkout of the repo, e.g. the
+parent commit unpacked by ``git archive`` into the git-ignored
+``scratch_archive/``. Each turn is a child process that imports one
+checkout's ``varanneal_tpu_torch`` and drives only its public wrappers
+(``kernels.solve.ladder_kernel`` and ``solve_kernel``, in the layout that
+checkout's planner gives), so the two checkouts' kernel interfaces may
+differ. The turns run other, this, this, other. Each child builds its
+inputs from fixed seeds, as chip_smoke.py does, at the main path's shape
+(Lorenz-96 D=20, N_data=161, L=8, n_dof 3,221), and runs:
+
+- the bench's f32 101-rung ladder (K3, B=4, m=5, maxiter 500), then a
+  20-rung f64 tail from its end (K3);
+- chip_smoke.py phase 8's and phase 12's short solves (maxiter 30, rf at
+  β 0, 50, 100, f32 and f64): K2 unbounded, K3 with one rung and K2 in
+  the box (-6, 6), F (3, 6);
+- the fused path: 101 warm-started K2 launches from the ladder's start;
+  and the facade's Quick start: 101 K2 launches in its box, one member;
+- phase 8's short solves at β 50 at B = 4 and at B = 264 (two members an
+  SM of an H100).
+
+Each child saves every result and its CUDA-event times in ``OUT_DIR``.
+This process holds every turn's results, inputs included, to the first
+turn's bits, prints the times of both checkouts, and prints last one JSON
+object. The exit code is 0 when every result is bit-identical.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+D, N_DATA, N_OBS, ALPHA, N_BETA, TAIL = 20, 161, 8, 1.5, 101, 20
+BOX_TEST = (-6.0, 6.0, 3.0, 6.0)        # states lo/hi, F lo/hi
+BOX_FACADE = (-10.0, 10.0, 2.0, 12.0)
+
+
+def _events_ms(fn, n):
+    """Mean time of ``fn`` in ms by CUDA events over ``n`` calls, after
+    one call to warm up."""
+    fn()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def child(checkout, out):
+    """One turn: the checkout's wrappers on the inputs; saves
+    {"results": {name: [tensor, ...]}, "ms": {name: float}} to ``out``."""
+    sys.path.insert(0, checkout)
+    from varanneal_tpu_torch.anneal.ladder import rung_rf
+    from varanneal_tpu_torch.kernels import ag, solve
+    from varanneal_tpu_torch.models import lorenz96
+    from varanneal_tpu_torch.ops import build_spec, pack
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    from varanneal_tpu_torch.parallel import random_ensemble_inits
+    from varanneal_tpu_torch.twin import lorenz96_twin
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tw = lorenz96_twin(D=D, N_data=N_DATA, n_obs=N_OBS)
+    spec = build_spec(lorenz96, D, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                      disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    rf0 = 4e-6 * tw["RM"]
+    c = {dt: ag.ag_consts(spec, dev, dt)
+         for dt in (torch.float32, torch.float64)}
+
+    def draws(B, dt):      # chip_smoke.member_draws(spec, tw, 0, B)
+        rng = np.random.default_rng(0)
+        rows = np.arange(spec.N_data) * spec.obs_stride
+        out = []
+        for _ in range(B):
+            X = rng.normal(2.0, 2.0, (spec.N_f, spec.D))
+            X[np.ix_(rows, np.asarray(spec.Lidx))] = tw["Y"] + rng.normal(
+                0, 0.3, tw["Y"].shape)
+            out.append(pack(spec, X, np.array([4.0 + rng.normal()])))
+        return torch.tensor(np.stack(out), dtype=dt, device=dev)
+
+    def box(b, dt):
+        n = spec.n_dof
+        return tuple(torch.tensor([v] * (n - 1) + [f], dtype=dt, device=dev)
+                     for v, f in ((b[0], b[2]), (b[1], b[3])))
+
+    def as_list(r):          # an LBFGSResult or (X, records)
+        if isinstance(r, tuple) and isinstance(r[1], dict):
+            return [r[0]] + [r[1][k] for k in sorted(r[1])]
+        return [r.x, r.f, r.g, r.niter, r.nfev, r.status, r.pgnorm]
+
+    opts = LBFGSOptions(m=5, maxiter=500, maxls=20, pgtol=1e-4, ftol=1e-6)
+    opts64 = LBFGSOptions(m=5, maxiter=2000, maxls=20, pgtol=1e-8,
+                          ftol=2.22e-9)
+    opts_s = LBFGSOptions(maxiter=30, m=5, pgtol=1e-4, ftol=1e-6)
+    f32, f64 = torch.float32, torch.float64
+    rf0_32 = np.float32(rf0)
+    rfs = [rung_rf(rf0_32, ALPHA, b, f32) for b in range(N_BETA)]
+    rfs_t = torch.tensor(rfs, device=dev)
+    rfs64 = torch.tensor([rung_rf(np.float64(rf0_32), ALPHA, b, f64)
+                          for b in range(N_BETA - TAIL, N_BETA)],
+                         dtype=f64, device=dev)
+    xp0 = torch.tensor(random_ensemble_inits(spec, 4, seed=3,
+                                             dtype=np.float32), device=dev)
+    res = {"inputs": [xp0, rfs_t, rfs64, draws(264, f32)]}
+    ms = {}
+
+    def k3_main():
+        return solve.ladder_kernel(xp0, rfs_t, c[f32], opts)
+
+    res["K3 f32 ladder"] = as_list(k3_main())
+    ms["K3 f32 101-rung launch"] = _events_ms(k3_main, 2)
+    x64 = res["K3 f32 ladder"][0].double()
+    res["K3 f64 tail"] = as_list(solve.ladder_kernel(x64, rfs64, c[f64],
+                                                     opts64))
+    for dt in (f32, f64):
+        Z = draws(4, dt)
+        lo, hi = box(BOX_TEST, dt)
+        for beta in (0, 50, 100):
+            rf = rung_rf(rf0_32 if dt == f32 else rf0, ALPHA, beta, dt)
+            tag = f"{str(dt)[6:]} beta {beta}"
+            rft = torch.tensor([rf], dtype=dt, device=dev)
+            res[f"K2 short {tag}"] = as_list(
+                solve.solve_kernel(Z, rf, c[dt], opts_s))
+            res[f"K3 short {tag}"] = as_list(
+                solve.ladder_kernel(Z, rft, c[dt], opts_s))
+            res[f"K2 bounded short {tag}"] = as_list(
+                solve.solve_kernel(Z, rf, c[dt], opts_s, lo, hi))
+
+    def chain(XP, lo=None, hi=None):
+        x, out = XP, []
+        for rf in rfs:
+            r = solve.solve_kernel(x, rf, c[f32], opts, lo, hi)
+            x = r.x
+            out += [r.f, r.niter, r.nfev, r.status]
+        return [x] + out
+
+    box_q = box(BOX_FACADE, f32)
+    for tag, args in (("fused", (xp0,)), ("bounded", (xp0[:1], *box_q))):
+        res[f"K2 {tag} chain"] = chain(*args)
+        ms[f"K2 {tag} a launch"] = _events_ms(lambda: chain(*args),
+                                              2) / N_BETA
+    rf50 = rung_rf(rf0_32, ALPHA, 50, f32)
+    for B in (4, 264):
+        Z = draws(B, f32)
+        res[f"K2 short B={B}"] = as_list(
+            solve.solve_kernel(Z, rf50, c[f32], opts_s))
+        ms[f"K2 short solves B={B}"] = _events_ms(
+            lambda: solve.solve_kernel(Z, rf50, c[f32], opts_s), 4)
+    torch.cuda.synchronize()
+    nfev = res["K3 f32 ladder"][4]
+    ms["K3 us an evaluation"] = (1e3 * ms["K3 f32 101-rung launch"]
+                                 / int(nfev.sum(dim=1).max()))
+    torch.save({"results": {k: [t.cpu() for t in v]
+                            for k, v in res.items()}, "ms": ms}, out)
+    return 0
+
+
+def main(argv):
+    other, out_dir = (os.path.abspath(a) for a in argv)
+    os.makedirs(out_dir, exist_ok=True)
+    turns = [("other", other), ("this", ROOT), ("this", ROOT),
+             ("other", other)]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    got = []
+    for i, (tag, root) in enumerate(turns):
+        path = os.path.join(out_dir, f"turn{i}_{tag}.pt")
+        # -P: the script's own directory does not go on sys.path, so the
+        # child imports the package of ``root`` alone
+        proc = subprocess.run([sys.executable, "-P", __file__, "--child",
+                               root, path], capture_output=True, text=True,
+                              timeout=1200)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr)
+            raise SystemExit(f"solve_ab: the {tag} turn failed")
+        got.append((tag, torch.load(path)))
+    ref = got[0][1]["results"]
+    bits = {}
+    for i, (tag, g) in enumerate(got[1:], 1):
+        for k, v in g["results"].items():
+            bits[f"turn {i} ({tag}): {k}"] = (
+                len(v) == len(ref[k])
+                and all(torch.equal(a, b) for a, b in zip(v, ref[k])))
+    ms = {tag: {k: float(np.mean([g["ms"][k] for t, g in got if t == tag]))
+                for k in got[0][1]["ms"]} for tag in ("other", "this")}
+    for k in ms["this"]:
+        print(f"{k}: other {ms['other'][k]:.4f}, this {ms['this'][k]:.4f}"
+              f" ({ms['other'][k] / ms['this'][k]:.3f}x)")
+    print("DIFFERENT from the first turn: "
+          + (", ".join(k for k, v in bits.items() if not v) or "none"))
+    ok = all(bits.values())
+    print(json.dumps(dict(card=smi, all_bit_identical=ok, checks=len(bits),
+                          ms=ms, runs={f"{i} {t}": g["ms"]
+                                       for i, (t, g) in enumerate(got)})))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"] and len(sys.argv) == 4:
+        sys.exit(child(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) != 3:
+        raise SystemExit(__doc__)
+    sys.exit(main(sys.argv[1:]))
