@@ -17,9 +17,11 @@ timed on its own line:
    (-DVA_COUNT_BARRIERS; phase 9);
 3. K1 against its plain PyTorch version on the card at the main path's
    shape (Lorenz-96 D=20, N=161, L=8, B=4; data-informed draws from numpy
-   seed 0; rf at β = 0, 50, 100): f64 to 1e-12 and f32 to 2e-5 relative;
-   then 1000 launches each of the kernel, the plain version and the
-   autograd action's value+grad, timed with CUDA events;
+   seed 0; rf at β = 0, 50, 100) and at BASELINE config #5's width (D=400,
+   160 observed, B=4, β 0, 25, 50): f64 to 1e-12 and f32 to 2e-5
+   relative; then 1000 launches each of the kernel, the plain version and
+   the autograd action's value+grad, timed with CUDA events, and the
+   kernel at D=400;
 4. an f64 10-rung ladder (B=2, from near the twin's truth, rf0 = RM,
    every rung solved to pgtol 1e-8) through the kernel and through the
    plain version: the action at every mutually converged rung must agree
@@ -61,7 +63,10 @@ timed on its own line:
    memory the kernel computes for it, and the built K2/K3 kernels'
    registers and local memory (cudaFuncGetAttributes); K2 on these
    solves at B=4 and at B=264 (two members an SM) in the planner's, the
-   global and the on-chip layout, printed and not held;
+   global and the on-chip layout, printed and not held; then K2 and K3
+   short solves at config #5's width (D=400, B=4, maxiter 30, β 0, 25,
+   50) against the plain version on the card: identical niter, nfev and
+   status, f64 x within 1e-8, f32 f within the gate above;
 9. the new path, bench.py's default as the port runs it
    (varanneal_tpu_torch.bench.main, BENCH_SOLVER=ladder, B=4 from
    random_ensemble_inits(seed=3), member 0 being bench.py's single
@@ -82,7 +87,9 @@ timed on its own line:
    path's 101 warm-started K2 launches run again on the bench's inputs
    through the barrier-counting build, which must give the shipped
    build's bits: its count of group barriers over the members'
-   iterations is each kernel's barriers_per_iteration (measured);
+   iterations is each kernel's barriers_per_iteration (measured); and K2
+   at maxiter 0 (one evaluation and one reduction a member) must count
+   2 group barriers for the evaluation;
 10. K7a and K7b against their plain versions in f32 at the main path's
    n_dof (3,221), m=5 and m=7, four members a launch, every (head, hlen)
    of the circular history: the direction within 2e-5 of its max|d|
@@ -143,7 +150,9 @@ timed on its own line:
    member's combined value no farther from the f64 action of the same
    point than K1's f32 value, and within 1e-5 of it; K4 and its plain
    version timed with CUDA events, K4's device time by torch.profiler,
-   its bound (K1's plus a TwoSum per term and the (B, 6) row);
+   its bound (K1's plus a TwoSum per term and the (B, 6) row); at
+   config #5's width (D=400, B=4, f32 and f64) the combined value within
+   2e-6 (f64 1e-12) and value and gradient bit-equal to K1's;
 15. the runner in process: ``varanneal_tpu_torch.__main__.main([cfg,
    "--f32"])`` on the Quick start problem (the twin's data written with
    time in column 0, X0 member 0 of the bench's init, 101 rungs, α 1.5,
@@ -218,15 +227,27 @@ timed on its own line:
    within 1e-4 or twice the plain version's card-vs-CPU spread), bit for
    bit equal to K2 where the group is K2's 256 threads (packs of 2); in
    phase 12's box at pack 2 (f32 f within 2e-3), bit for bit K2 bounded's;
-   one launch a call; the built kernels' registers and local memory; its
-   time at packs 2 and 4 beside K2's, its plain version and its bound;
+   one launch a call; at config #5's width (D=400, B=4, pack 2, f32 and
+   f64) bit for bit K2's; the built kernels' registers and local memory;
+   its time at packs 2 and 4 beside K2's, its plain version and its
+   bound;
 25. the bench with BENCH_PACK: BENCH_PACK=2 BENCH_NINIT=4 (ladder, 101 K8
    launches a call, no K1-K3 launch; at G = 256 its f32 ladder must equal
    phase 9's K2 ladder bit for bit, so no tail), BENCH_PACK=4 with the
    tail (final_A_tail64 within 1e-2 of 16.284792), each K8 launch of the
    BENCH_PACK=2 run timed by CUDA events around it; then, printed and
    not held, K2 against K8 at packs 2 and 4 at benchmarks/pack_ab.py's
-   scale (B=64, maxiter 150, 101 rungs), in s/init.
+   scale (B=64, maxiter 150, 101 rungs), in s/init;
+26. BASELINE config #5 as examples/ensemble_sweep.py runs it in full
+   (CONF5: 1024 members from random_ensemble_inits(seed=12), Lorenz-96
+   D=400, N_data=161, 160 observed, trapezoid, F estimated, f32, rf0 =
+   4e-6·RM, α 1.5, m 5, maxiter 300, pgtol 1e-4, ftol 1e-6, 51 rungs in
+   calls of 17, warm-started): fe.select_action(engine='auto') must take
+   K1's engine 'ag', solve.pick_rung_solver(solver='auto') K2's rung
+   solver, and parallel.make_ensemble_ladder runs the ladder with one K2
+   launch a rung (each timed by CUDA events around it); every record
+   finite, every status in {0, 1, 2}; its wall time, ms an init, total
+   nfev and the final action's percentiles printed.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -251,7 +272,11 @@ launches those of its path, phase 21's xla bench for the one-step kernels
 and phase 20's facade for the Hermite–Simpson ones, its times phase
 18's, with K6d's batched_* at B=8 in f64 and the ensemble's launches;
 K5's launches phase 23's, its times phase 22's; K8's launches phase 25's
-BENCH_PACK=2 run's, its times phase 24's) and the
+BENCH_PACK=2 run's, its times phase 24's; K1's, K2's, K3's and K4's
+d400_max_rel_err their phase's check at D=400, K1's d400_ms and K2's
+d400_short_ms phases 3's and 8's times there, K2's
+barriers_per_evaluation phase 9's and its config5 phase 26's numbers)
+and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero before that line.
 """
@@ -290,6 +315,13 @@ MAIN = dict(D=20, N_data=161, n_obs=8, B=4, n_beta=101, alpha=1.5,
 # at alpha 1.6 from RF0 = 1e-4, maxiter 800 (m stays the default 10)
 CONF2 = dict(D=100, N_data=121, n_obs=40, sigma=1.0, n_beta=61, alpha=1.6,
              rf0=1e-4, maxiter=800, B=8)
+# BASELINE config #5 as examples/ensemble_sweep.py runs it in full: 1024
+# members (random_ensemble_inits, seed 12) of Lorenz-96 D=400, N_data=161,
+# 160 observed, trapezoid, F estimated from 4.0, f32, rf0 = 4e-6·RM,
+# alpha 1.5, 51 rungs in calls of 17 warm-started rungs, m=5, maxiter 300,
+# pgtol 1e-4, ftol 1e-6
+CONF5 = dict(D=400, N_data=161, n_obs=160, B=1024, seed=12, n_beta=51,
+             chunk=17, alpha=1.5, maxiter=300)
 # the box of phase 12 (tests/test_solve_pallas.py's) and of the facade
 BOX_TEST = [(-6.0, 6.0)] * 20 + [(3.0, 6.0)]
 BOX_FACADE = [(-10.0, 10.0)] * 20 + [(2.0, 12.0)]
@@ -506,6 +538,21 @@ def config2_problem():
     return tw, spec
 
 
+def config5_problem():
+    """BASELINE config #5's twin and spec (examples/ensemble_sweep.py's
+    full configuration: D=400, N_data=161, 160 observed, trapezoid, F
+    estimated from 4.0)."""
+    from varanneal_tpu_torch.models import lorenz96
+    from varanneal_tpu_torch.ops import build_spec
+    from varanneal_tpu_torch.twin import lorenz96_twin
+    tw = lorenz96_twin(D=CONF5["D"], N_data=CONF5["N_data"],
+                       n_obs=CONF5["n_obs"])
+    spec = build_spec(lorenz96, CONF5["D"], tw["Y"], tw["t"], tw["Lidx"],
+                      tw["RM"], disc="trapezoid", P=np.array([4.0]),
+                      pidx=[0])
+    return tw, spec
+
+
 def fe_work(kernel, c, B, diag):
     """Bytes and operations of one launch of K6's ``kernel`` on B members
     (``c``: the kernels' constants): X and F read once, an (N_f-1, D) rf
@@ -555,6 +602,84 @@ def agt_work(spec, disc, B, diag):
                 + spec.N_f * spec.D * (11 + int(disc == "trapezoid"))
                 + 9 * n_obs)
     return nbytes, nops
+
+
+def config5_ladder(dev, tw, spec):
+    """Phase 26: BASELINE config #5 through the entries a user calls, as
+    examples/ensemble_sweep.py runs it: ``fe.select_action(engine='auto')``
+    must take K1's engine and ``solve.pick_rung_solver(solver='auto')``
+    K2's rung solver; ``parallel.make_ensemble_ladder`` then runs the 51
+    rungs over the 1024 members in calls of 17 warm-started rungs, one K2
+    launch a rung (each timed by CUDA events around it). Every record
+    finite, every status in {0, 1, 2}. Returns the phase's numbers."""
+    from varanneal_tpu_torch.kernels import ag, fe, solve
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    from varanneal_tpu_torch.parallel import (make_ensemble_ladder,
+                                              random_ensemble_inits)
+    check((spec.D, spec.N_data, spec.L) == (CONF5["D"], CONF5["N_data"],
+                                            CONF5["n_obs"]),
+          f"config #5: the problem is not config #5's: D {spec.D}, "
+          f"N_data {spec.N_data}, {spec.L} observed")
+    opts = LBFGSOptions(m=5, maxiter=CONF5["maxiter"], pgtol=1e-4,
+                        ftol=1e-6)
+    rf0 = np.float32(4e-6 * tw["RM"])
+    act, parts = fe.select_action(spec, rf0, engine="auto",
+                                  dtype=torch.float32, device=dev)
+    check(act.engine == "ag", f"config #5: engine='auto' took "
+          f"{act.engine!r}, not K1's 'ag'")
+    rung = solve.pick_rung_solver(spec, rf0, opts, solver="auto",
+                                  dtype=torch.float32, device=dev)
+    check(rung is not None, "config #5: solver='auto' took the generic "
+          "loop, not K2")
+    xp = torch.tensor(random_ensemble_inits(spec, CONF5["B"],
+                                            seed=CONF5["seed"],
+                                            dtype=np.float32), device=dev)
+    betas = np.arange(CONF5["n_beta"])
+    ag.LAUNCHES = solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
+    recs = []
+    with launch_events(solve, "solve_kernel") as ev:
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        for lo in range(0, CONF5["n_beta"], CONF5["chunk"]):
+            r = make_ensemble_ladder(
+                act, parts, betas[lo:lo + CONF5["chunk"]], rf0,
+                CONF5["alpha"], opts=opts, rung_solver=rung,
+                device=dev)(xp)
+            xp = r.XP
+            recs.append(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+    launches = dict(rung=solve.RUNG_LAUNCHES, ladder=solve.LADDER_LAUNCHES,
+                    ag=ag.LAUNCHES)
+    A, nfev, status = (torch.cat([getattr(r, k) for r in recs], dim=1)
+                       for k in ("A", "nfev", "status"))
+    ms_launch, us_eval = per_launch(ev, nfev, 1)
+    final = A[:, -1].cpu().numpy()
+    qs = np.percentile(final, [0, 25, 50, 75, 100])
+    n_best = int(np.sum(final <= qs[0] * 1.01 + 1e-12))
+    codes = np.bincount(status.cpu().numpy().ravel(), minlength=4)
+    out = dict(wall_s=wall, ms_per_init=1e3 * wall / CONF5["B"],
+               nfev=int(nfev.sum()), launches=launches, ms=ms_launch,
+               us_per_eval=us_eval, percentiles=qs.tolist(), n_best=n_best,
+               maxiter=CONF5["maxiter"])
+    print(f"config #5 (D={spec.D}, N={spec.N_f}, {CONF5['B']} members, "
+          f"{CONF5['n_beta']} rungs in calls of {CONF5['chunk']}, maxiter "
+          f"{CONF5['maxiter']}; engine {act.engine}, K2): wall {wall:.2f} s,"
+          f" {out['ms_per_init']:.3f} ms/init/ladder, total nfev "
+          f"{out['nfev']}; K2 {ms_launch:.3f} ms a launch, {us_eval:.3f} us "
+          f"an evaluation of the slowest member; launches {launches}; "
+          f"statuses per code 0..3 {codes.tolist()}; final action "
+          f"percentiles [min/25/50/75/max] "
+          + ", ".join(f"{q:.4f}" for q in qs)
+          + f"; {n_best}/{CONF5['B']} members at the lowest level")
+    check(launches["rung"] == CONF5["n_beta"] and launches["ladder"] == 0,
+          f"config #5: not one K2 launch a rung: {launches}")
+    check(tuple(A.shape) == (CONF5["B"], CONF5["n_beta"])
+          and bool(torch.isfinite(A).all())
+          and bool(torch.isfinite(xp).all()),
+          "config #5: records or endpoints not finite")
+    check(codes[3] == 0, f"config #5: line-search failures {codes.tolist()}")
+    return out
 
 
 def profile_k3():
@@ -794,6 +919,34 @@ def main():
             check(rel_a <= tol and rel_g <= tol,
                   f"K1 {dtype} disagrees with its plain version at "
                   f"beta={beta}")
+    # config #5's width (the wide walk), B=4, rf of beta 0, 25, 50
+    tw5, spec5 = config5_problem()
+    draws5 = member_draws(spec5, tw5, 0)
+    rel_k1_d400 = 0.0
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
+        c = ag.ag_consts(spec5, dev, dtype)
+        Z = torch.tensor(draws5, dtype=dtype, device=dev)
+        for beta in (0, 25, 50):
+            rf = float(4e-6 * tw5["RM"] * MAIN["alpha"] ** beta)
+            A, G = ag.ag_kernel(Z, rf, c)
+            torch.cuda.synchronize()
+            A_r, G_r = ag.ag_reference(Z, rf, c)
+            rel_a = float(torch.max(torch.abs(A - A_r) / torch.abs(A_r)))
+            scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+            rel_g = float(torch.max(torch.abs(G - G_r) / scale))
+            rel_k1_d400 = max(rel_k1_d400, rel_a, rel_g)
+            print(f"K1 D=400 {str(dtype)[6:]} beta={beta}: A rel err "
+                  f"{rel_a:.3e}, gradient rel err {rel_g:.3e} (bound "
+                  f"{tol:g})")
+            check(rel_a <= tol and rel_g <= tol,
+                  f"K1 D=400 {dtype} disagrees with its plain version at "
+                  f"beta={beta}")
+    c5_32 = ag.ag_consts(spec5, dev, torch.float32)
+    Z5_32 = torch.tensor(draws5, dtype=torch.float32, device=dev)
+    rf5 = float(np.float32(4e-6 * tw5["RM"] * MAIN["alpha"] ** 25))
+    ms_k1_d400 = events_ms(lambda: ag.ag_kernel(Z5_32, rf5, c5_32), n=200)
+    print(f"K1 D=400 f32 B={MAIN['B']}: kernel {ms_k1_d400:.5f} ms/launch "
+          "(CUDA events, 200 calls)")
 
     c32 = ag.ag_consts(spec, dev, torch.float32)
     Z32 = torch.tensor(draws, dtype=torch.float32, device=dev)
@@ -1174,9 +1327,9 @@ def main():
     layouts = {}
     for dt in (torch.float32, torch.float64):
         for bd in (False, True):
-            lay = solve.plan_layout(spec.N_f, spec.D, spec.n_dof, 5, dt, bd,
+            lay = solve.plan_layout(spec.D, spec.n_dof, 5, dt, bd,
                                     MAIN["B"], sms)
-            smem_c = slib.va_l96_solve_smem(spec.N_f, spec.D, spec.n_dof, 5,
+            smem_c = slib.va_l96_solve_smem(spec.D, spec.n_dof, 5,
                                             lay.flags,
                                             int(dt == torch.float64))
             check(smem_c == lay.smem_bytes,
@@ -1191,7 +1344,7 @@ def main():
     k23_attrs["K2_float32_global"] = solve.kernel_attrs(False, torch.float32,
                                                         False, 0)
     print("K2/K3 layouts at the main shape (m=5; flags 1 vectors, 2 "
-          "history, 4 box on chip): " + "; ".join(
+          "history, 4 box on chip, 8 the rings off chip): " + "; ".join(
               f"{d}{' bounded' if bd else ''} flags {lay.flags}, "
               f"{lay.smem_bytes} B of shared memory, workspace "
               f"{lay.work_elems} values a member"
@@ -1206,8 +1359,8 @@ def main():
     for B_ in (MAIN["B"], 264):
         Zw = Z32 if B_ == MAIN["B"] else torch.tensor(
             member_draws(spec, tw, 0, B_), dtype=torch.float32, device=dev)
-        plan = solve.plan_layout(spec.N_f, spec.D, spec.n_dof, 5,
-                                 torch.float32, False, B_, sms).flags
+        plan = solve.plan_layout(spec.D, spec.n_dof, 5, torch.float32,
+                                 False, B_, sms).flags
         for nm, lay in (("planner", None), ("global", 0),
                         ("on chip", solve.VECTORS | solve.HISTORY)):
             k2_wide[(B_, nm)] = events_ms(lambda: solve.solve_kernel(
@@ -1218,6 +1371,59 @@ def main():
               f"{k2_wide[(B_, 'global')]:.4f} ms, on chip "
               f"{k2_wide[(B_, 'on chip')]:.4f} ms a launch (CUDA events; "
               "printed, not held)")
+    # config #5's width: K2 and K3 (one rung) short solves at D=400, B=4,
+    # rf of beta 0, 25, 50, against the plain version on the card:
+    # identical counts; f64 x within 1e-8, f32 f within the gate above
+    # (1e-4, or twice the plain version's card-vs-CPU spread)
+    rel_d400 = {"K2": 0.0, "K3": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        c = ag.ag_consts(spec5, dev, dtype)
+        c_cpu = ag.ag_consts(spec5, "cpu", dtype)
+        Z = torch.tensor(draws5, dtype=dtype, device=dev)
+        for beta in (0, 25, 50):
+            rf = rung_rf(4e-6 * tw5["RM"] if dtype == torch.float64
+                         else np.float32(4e-6 * tw5["RM"]), MAIN["alpha"],
+                         beta, dtype)
+            rk = solve.solve_kernel(Z, rf, c, opts_s)
+            x3, rec3_5 = solve.ladder_kernel(
+                Z, torch.tensor([rf], dtype=dtype, device=dev), c, opts_s)
+            rp = solve.solve_reference(Z, rf, c, opts_s)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                rc = solve.solve_reference(Z.cpu(), rf, c_cpu, opts_s)
+                wit = float(torch.max(torch.abs(rp.f.cpu() - rc.f)
+                                      / torch.abs(rc.f)))
+                bound5, what = max(1e-4, 2.0 * wit), "f"
+            else:
+                bound5, what = 1e-8, "x"
+            for nm, x_, f_x, cnt in (
+                    ("K2", rk.x, rk.f, (rk.niter, rk.nfev, rk.status)),
+                    ("K3", x3, rec3_5["A"][:, 0],
+                     (rec3_5["niter"][:, 0], rec3_5["nfev"][:, 0],
+                      rec3_5["status"][:, 0]))):
+                if dtype == torch.float32:
+                    rel = float(torch.max(torch.abs(f_x - rp.f)
+                                          / torch.abs(rp.f)))
+                else:
+                    scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
+                    rel = float(torch.max(torch.abs(x_ - rp.x) / scale))
+                rel_d400[nm] = max(rel_d400[nm], rel)
+                same = all(torch.equal(u, v) for u, v in
+                           zip(cnt, (rp.niter, rp.nfev, rp.status)))
+                print(f"{nm} D=400 {str(dtype)[6:]} short solve beta={beta}"
+                      f": {what} rel err {rel:.3e} (bound {bound5:.3e}); "
+                      f"counts as plain {same}; niter {cnt[0].tolist()}, "
+                      f"nfev {cnt[1].tolist()}, status {cnt[2].tolist()}")
+                check(same and rel <= bound5,
+                      f"{nm} D=400 {dtype} disagrees with its plain version "
+                      f"at beta={beta}")
+    rf5_25 = rung_rf(np.float32(4e-6 * tw5["RM"]), MAIN["alpha"], 25,
+                     torch.float32)
+    ms_k2_d400 = events_ms(lambda: solve.solve_kernel(Z5_32, rf5_25, c5_32,
+                                                      opts_s), n=4, warm=1)
+    print(f"K2 D=400 f32 short solves (B=4, maxiter 30, the rf of beta 25):"
+          f" {ms_k2_d400:.4f} ms a launch (CUDA events); layout flags "
+          + str(solve.launch_layout(Z5_32, c5_32, opts_s).flags))
     phase("8 K2/K3 vs plain f32 and times", t0)
 
     # ---- 9. the new path: the port's bench, K3 then K2 ----------------------
@@ -1351,6 +1557,17 @@ def main():
         print(f"{nm} group barriers on the main path (measured, f32, "
               f"m=5): {n_bar} over {iters} iterations of {MAIN['B']} "
               f"members, {barriers[nm]:.4f} an iteration")
+    # one evaluation's barriers: K2 at maxiter 0 runs the start's
+    # evaluation and one reduction (the gradient's norms) a member
+    opts_0 = dataclasses.replace(opts_b, maxiter=0)
+    _, n_bar0 = count_barriers(bar_lib, lambda: solve.solve_kernel(
+        xp_b, float(rfs_b[0]), c32, opts_0))
+    eval_barriers = n_bar0 / MAIN["B"] - 1
+    print(f"group barriers of one evaluation (K2 at maxiter 0: "
+          f"{n_bar0} over {MAIN['B']} members, less the one reduction): "
+          f"{eval_barriers:g}")
+    check(eval_barriers == 2, f"an evaluation passed {eval_barriers} group "
+          "barriers, not 2")
     phase("9 new path (bench ladder, fused) and profile", t0)
 
     # ---- 10. K7a and K7b vs their plain versions ------------------------
@@ -1874,7 +2091,7 @@ def main():
     c64a = ag.ag_consts(spec, dev, torch.float64)
     rfs14 = [float(np.float32(rf0 * MAIN["alpha"] ** b)) for b in (0, 50, 100)]
     rfs14.append(float(np.float32(4e6)))
-    err_k4 = rel_k4 = 0.0
+    err_k4 = rel_k4 = rel_k4_d400 = 0.0
     old_dt = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)      # the f64 combine
     try:
@@ -1916,6 +2133,28 @@ def main():
                       and bool(torch.all(e4 <= 1e-5 * torch.abs(ref64))),
                       "K4 is not closer to the f64 action than K1 at "
                       "rf=4e6")
+        # config #5's width: K4's combined value against its plain
+        # version's, its value and gradient K1's bits
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-6)):
+            c5k4 = ag.ag_consts(spec5, dev, dtype, compensated=True)
+            Z = torch.tensor(draws5, dtype=dtype, device=dev)
+            for beta in (0, 25, 50):
+                rf = float(np.float32(4e-6 * tw5["RM"] * MAIN["alpha"]
+                                      ** beta))
+                A4, G4, C4 = ag.ag_kernel(Z, rf, c5k4, compensated=True)
+                A1, G1 = ag.ag_kernel(Z, rf, c5k4)
+                _, _, C_r = ag.ag_reference(Z, rf, c5k4, compensated=True)
+                v4 = ag.combine(C4, rf, c5k4)
+                v_r = ag.combine(C_r, rf, c5k4)
+                rel_v = float(torch.max(torch.abs(v4 - v_r)
+                                        / torch.abs(v_r)))
+                same_k1 = torch.equal(G4, G1) and torch.equal(A4, A1)
+                rel_k4_d400 = max(rel_k4_d400, rel_v)
+                print(f"K4 D=400 {str(dtype)[6:]} beta={beta}: combined "
+                      f"value rel err vs plain {rel_v:.3e} (bound {tol:g}); "
+                      f"value and gradient bit-equal to K1's {same_k1}")
+                check(rel_v <= tol and same_k1,
+                      f"K4 D=400 {dtype} disagrees at beta={beta}")
         rf_t4 = rfs14[1]
         ms_k4 = events_ms(lambda: ag.ag_kernel(Z32, rf_t4, c4,
                                                compensated=True))
@@ -2150,10 +2389,12 @@ def main():
     # ---- 18. K6 against its plain version ---------------------------------
     t0 = time.perf_counter()
     tw2, spec2 = config2_problem()
-    tw5 = lorenz96_twin(D=400, N_data=MAIN["N_data"], n_obs=100)
-    spec5 = build_spec(lorenz96, 400, tw5["Y"], tw5["t"], tw5["Lidx"],
-                       tw5["RM"], disc="trapezoid", P=np.array([4.0]),
-                       pidx=[0])
+    # config #5's width with 100 observed (phase 18's own problem: the
+    # names tw5/spec5 keep config #5 itself for phases 24 and 26)
+    tw18 = lorenz96_twin(D=400, N_data=MAIN["N_data"], n_obs=100)
+    spec18 = build_spec(lorenz96, 400, tw18["Y"], tw18["t"], tw18["Lidx"],
+                        tw18["RM"], disc="trapezoid", P=np.array([4.0]),
+                        pidx=[0])
     both = (torch.float64, torch.float32)
     # (spec, twin, rf0, alpha, B, dtypes): config #1's data under the three
     # one-step discs, config #2's shape, config #5's width
@@ -2161,7 +2402,7 @@ def main():
                 MAIN["alpha"], MAIN["B"], both)
                for d in ("euler", "trapezoid", "forwardmap")]
     cases18 += [(spec2, tw2, CONF2["rf0"], CONF2["alpha"], CONF2["B"], both),
-                (spec5, tw5, 4e-6 * tw5["RM"], MAIN["alpha"], 4, both)]
+                (spec18, tw18, 4e-6 * tw18["RM"], MAIN["alpha"], 4, both)]
     err18 = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_bwd=0.0)
     rel18 = dict(err18)     # value (forward) and gradient (backward) rel
     rng18 = np.random.default_rng(18)
@@ -2751,6 +2992,26 @@ def main():
                   f"bounded {bit2}; feasible {feas}")
             check(same and rel <= bound8 and feas and bit2,
                   f"K8 bounded {dtype} disagrees at beta={beta}")
+    # config #5's width, pack 2 (G = 256): K2's bits and the plain
+    # version's counts
+    for dtype in (torch.float64, torch.float32):
+        c = ag.ag_consts(spec5, dev, dtype)
+        Z = torch.tensor(draws5, dtype=dtype, device=dev)
+        rf = rung_rf(np.float32(4e-6 * tw5["RM"]), MAIN["alpha"], 25, dtype)
+        r8 = solve_pack.pack_kernel(Z, rf, c, opts_s, 2)
+        r2 = solve.solve_kernel(Z, rf, c, opts_s)
+        rp = solve_pack.pack_reference(Z, rf, c, opts_s, 2)
+        torch.cuda.synchronize()
+        n8 += 1
+        bit2 = all(torch.equal(u, v) for u, v in zip(r8, r2))
+        same = all(torch.equal(u, v) for u, v in
+                   zip((r8.niter, r8.nfev, r8.status),
+                       (rp.niter, rp.nfev, rp.status)))
+        print(f"K8 D=400 {str(dtype)[6:]} B={MAIN['B']} pack=2 beta=25: "
+              f"bit-identical to K2 {bit2}; counts as plain {same}; niter "
+              f"{r8.niter.tolist()}")
+        check(bit2 and same, f"K8 D=400 {dtype} differs from K2 or from "
+              "its plain version's counts")
     # times: the short solves at the rf of beta 50, f32, B=4
     rf24 = rung_rf(np.float32(rf0), MAIN["alpha"], 50, torch.float32)
     ms8 = {kp: events_ms(lambda: solve_pack.pack_kernel(
@@ -2835,6 +3096,11 @@ def main():
     check(ab[1][2]["rung"] > 0 and ab[2][2]["pack"] > 0
           and ab[4][2]["pack"] > 0, f"pack A/B launches {ab}")
     phase("25 bench BENCH_PACK", t0)
+
+    # ---- 26. BASELINE config #5 through K1's engine and K2 -----------------
+    t0 = time.perf_counter()
+    out26 = config5_ladder(dev, tw5, spec5)
+    phase("26 config #5", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -2846,7 +3112,8 @@ def main():
              replaces="varanneal_tpu/kernels/ag_pallas.py:279",
              launches=launches, max_abs_err=max_abs, max_rel_err=rel_k1,
              minimizer_err_ratio=ratio_k1, ms=ms_kernel, plain_ms=ms_plain,
-             bound_ms=bound_ms, bound_by=bound_by, **line),
+             bound_ms=bound_ms, bound_by=bound_by,
+             d400_max_rel_err=rel_k1_d400, d400_ms=ms_k1_d400, **line),
         dict(name="l96_solve", source=src_solve,
              replaces="varanneal_tpu/kernels/solve_pallas.py:676",
              launches=paths["fused"][1]["rung"], max_abs_err=err_k2,
@@ -2865,6 +3132,9 @@ def main():
              registers={k: [a["regs"], a["local_bytes"]]
                         for k, a in k23_attrs.items() if k[:2] == "K2"},
              barriers_per_iteration=barriers["K2"],
+             barriers_per_evaluation=eval_barriers,
+             d400_max_rel_err=rel_d400["K2"], d400_short_ms=ms_k2_d400,
+             config5=out26,
              short_b264_ms={nm: k2_wide[(264, nm)]
                             for nm in ("planner", "global", "on chip")},
              short_b4_ms={nm: k2_wide[(MAIN["B"], nm)]
@@ -2880,7 +3150,8 @@ def main():
              smem_bytes=layouts[("float32", False)].smem_bytes,
              registers={k: [a["regs"], a["local_bytes"]]
                         for k, a in k23_attrs.items() if k[:2] == "K3"},
-             barriers_per_iteration=barriers["K3"], **line),
+             barriers_per_iteration=barriers["K3"],
+             d400_max_rel_err=rel_d400["K3"], **line),
         dict(name="compact_dir", source=src_dir,
              replaces="varanneal_tpu/kernels/dir_pallas.py:172",
              launches=facade["generic"][1]["k7a"], max_abs_err=err_k7a,
@@ -2897,7 +3168,8 @@ def main():
              replaces="varanneal_tpu/kernels/ag_pallas.py:336",
              launches=cnt_r["k4"], max_abs_err=err_k4, max_rel_err=rel_k4,
              ms=ms_k4, device_ms=dev_k4, plain_ms=ms_p4,
-             bound_ms=bound_k4[0], bound_by=bound_k4[1], **line)]
+             bound_ms=bound_k4[0], bound_by=bound_k4[1],
+             d400_max_rel_err=rel_k4_d400, **line)]
     for kern, rep, also, n in (
             ("onestep_fwd", 138, (156,), bench21["xla"].launches["fe_fwd"]),
             ("onestep_bwd", 187, (), bench21["xla"].launches["fe_bwd"]),

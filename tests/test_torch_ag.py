@@ -6,6 +6,8 @@ native C++ analytic gradient (1e-12). Also: the wrapper's envelope, its
 CPU dispatch and its autograd Function. The CUDA launch itself is checked
 on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -96,6 +98,31 @@ def test_reference_matches_jax_action_f64(RM, pidx, dt_model):
                                    rtol=0, atol=1e-12)
 
 
+def test_reference_matches_jax_action_d400_f64():
+    """K1's plain version at BASELINE config #5's width (D = 400, 160
+    observed) on a short grid (N_data = 9) against the XLA action in
+    float64, to 1e-12: the shape the first port's K1 refused."""
+    rng = np.random.default_rng(6)
+    tw = lorenz96_twin(D=400, N_data=9, n_obs=160, spin=300)
+    kw = dict(disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    sj = build_spec_jax(lorenz96_jax, 400, tw["Y"], tw["t"], tw["Lidx"],
+                        tw["RM"], **kw)
+    st = build_spec(lorenz96, 400, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                    **kw)
+    assert ag.ag_supported(st, 1.0, torch.float64)
+    Z = _draw(st, tw, rng, 2)
+    act_j, _ = make_action_jax(sj)
+    c = ag.ag_consts(st, "cpu", torch.float64)
+    for rf in (1e-3, 3.0, 1e4):
+        vj, gj = map(np.asarray, jax.vmap(jax.value_and_grad(
+            lambda u: act_j(u, rf)))(jnp.asarray(Z)))
+        vt, gt = ag.ag_reference(torch.tensor(Z), rf, c)
+        np.testing.assert_allclose(vt.numpy(), vj, rtol=1e-12)
+        scale = np.abs(gj).max(axis=-1, keepdims=True)
+        np.testing.assert_allclose(gt.numpy() / scale, gj / scale,
+                                   rtol=0, atol=1e-12)
+
+
 def test_reference_matches_native_cpp():
     if not native.available():
         pytest.skip("native C++ oracle does not build here (no g++)")
@@ -158,13 +185,48 @@ def test_envelope():
         assert not ag.ag_supported(sp, 1.0)
         with pytest.raises(ValueError, match="envelope"):
             ag.make_action_ag(sp, device="cpu")
-    # shared memory: (N_f - 1) * D residuals must fit one block's 227 KB
+    # shared memory bounds nothing: the first port refused this f64 shape
+    # ((N_f - 1) * D residuals past 227 KB); the walk's rings, 6 rows of D
+    # a warp, fit on chip up to D = 604 in f64 and go to a workspace
+    # beyond
     N = 1500
     big = build_spec(lorenz96, 20, rng.normal(size=(N, 8)),
                      0.025 * np.arange(N), Lidx, 4.0, **kw)
     assert ag.ag_supported(big, 1.0, torch.float32)
-    assert not ag.ag_supported(big, 1.0, torch.float64)
+    assert ag.ag_supported(big, 1.0, torch.float64)
+    assert ag.ring_on_chip(604, torch.float64)
+    assert not ag.ring_on_chip(605, torch.float64)
+    assert not ag.ring_on_chip(1210, torch.float32, compensated=True)
+    assert ag.ring_on_chip(1210, torch.float32)
+    assert not ag.ring_on_chip(1211, torch.float32)
     # the plain action serves every problem outside the envelope
     a, _ = make_action(others[0], device="cpu")
     assert torch.isfinite(a(torch.zeros(1, others[0].n_dof,
                                         dtype=torch.float64), 1.0)).all()
+
+
+def test_refusal_names_the_condition():
+    """ag_refusal says which condition of the envelope a problem fails,
+    the size ceiling with the values it needs and the limit; inside the
+    envelope it is None, at any N and D (no shared-memory bound)."""
+    sj, st, tw = _specs(N=21)
+    assert ag.ag_refusal(st, 1.0) is None
+    kw = dict(P=np.array([4.0]), pidx=[0])
+    Y, t, Lidx = tw["Y"], tw["t"], tw["Lidx"]
+    euler = build_spec(lorenz96, 20, Y, t, Lidx, 4.0, disc="euler", **kw)
+    assert "disc 'euler'" in ag.ag_refusal(euler, 1.0)
+    assert "rf rank 2" in ag.ag_refusal(st, np.ones((st.N_f - 1, st.D)))
+    l63 = build_spec(lorenz63, 3, Y[:, :2], t, [0, 1], 4.0,
+                     disc="trapezoid", P=np.array([10.0, 28.0, 8 / 3]),
+                     pidx=[0])
+    assert "model" in ag.ag_refusal(l63, 1.0)
+    assert "float16" in ag.ag_refusal(st, 1.0, torch.float16)
+    for N_f, D in ((2, 60000), (161, 400), (14000, 4096)):
+        wide = dataclasses.replace(st, N_f=N_f, D=D)
+        assert ag.ag_refusal(wide, 1.0, torch.float64) is None
+    huge = dataclasses.replace(st, N_f=2 ** 22, D=512)
+    why = ag.ag_refusal(huge, 1.0)
+    assert why.startswith("size") and f"{huge.n_dof:,}" in why
+    assert f"{ag.MAX_N_DOF:,}" in why
+    with pytest.raises(ValueError, match="32-bit index range"):
+        ag.make_action_ag(huge, device="cpu")

@@ -288,6 +288,114 @@ def test_select_action_policy(monkeypatch):
         fe.select_action(big("euler"), 0.01)
 
 
+def test_config5_takes_k1_and_k2(monkeypatch):
+    """BASELINE config #5's shape (Lorenz-96 D=400, N=161, 160 observed,
+    trapezoid, F estimated, f32; examples/ensemble_sweep.py) with the
+    regime decided as on the card: engine='auto' takes K1 (the first port
+    raised here, naming the disc and rf rank though shared memory refused
+    it), solver='auto' takes K2, and the planner keeps 1024 members in the
+    global layout with the rings on chip. A problem past the kernels'
+    32-bit index range is refused, its size named."""
+    from varanneal_tpu_torch.kernels import ag
+    from varanneal_tpu_torch.twin import lorenz96_twin
+    tw = lorenz96_twin(D=400, N_data=161, n_obs=160)
+    st = build_spec(lorenz96, 400, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                    disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    rf0 = 4e-6 * tw["RM"]
+    card = lambda d=None: torch.device("cuda", 0)          # noqa: E731
+    monkeypatch.setattr(fe, "resolve_device", card)
+    monkeypatch.setattr(solve, "resolve_device", card)
+    # K1's constants would go to the card: the engine is what is checked
+    monkeypatch.setattr(ag, "make_action_ag",
+                        lambda spec, device=None, dtype=None:
+                        (lambda *a: None, None))
+    assert ag.ag_refusal(st, rf0, torch.float32) is None
+    act, _ = fe.select_action(st, rf0, "auto", torch.float32)
+    assert act.engine == "ag"
+    opts = LBFGSOptions(maxiter=300, m=5, pgtol=1e-4, ftol=1e-6)
+    assert solve.solve_preferred(st, rf0, opts)
+    assert callable(solve.pick_rung_solver(st, rf0, opts, solver="auto"))
+    lay = solve.plan_layout(st.D, st.n_dof, 5, torch.float32, False, 1024,
+                            132)
+    assert lay.flags == 0 and lay.smem_bytes == solve._smem_bytes(
+        400, torch.float32)
+    huge = dataclasses.replace(st, N_f=2 ** 22, D=512)
+    assert huge.n_dof > ag.MAX_N_DOF
+    with pytest.raises(ValueError, match="32-bit index range"):
+        fe.select_action(huge, rf0, "ag", torch.float32)
+    with pytest.warns(UserWarning, match="32-bit index range"):
+        assert solve.pick_rung_solver(huge, rf0, opts,
+                                      solver="fused") is None
+
+
+def test_config5_problem_matches_jax():
+    """BASELINE config #5's problem is the JAX package's: the twin
+    (lorenz96_twin(D=400, N_data=161, n_obs=160)), the spec built from it
+    and the 1024 members of random_ensemble_inits(seed=12), in f32 and
+    f64, are equal entry for entry."""
+    from varanneal_tpu.ops import build_spec as build_spec_jax
+    from varanneal_tpu.parallel import random_ensemble_inits as inits_jax
+    from varanneal_tpu.twin import lorenz96_twin as twin_jax
+    from varanneal_tpu_torch.parallel import random_ensemble_inits
+    from varanneal_tpu_torch.twin import lorenz96_twin
+    tj = twin_jax(D=400, N_data=161, n_obs=160)
+    tt = lorenz96_twin(D=400, N_data=161, n_obs=160)
+    assert sorted(tj) == sorted(tt)
+    for k in tj:
+        np.testing.assert_array_equal(np.asarray(tt[k]), np.asarray(tj[k]))
+    kw = dict(disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    sj = build_spec_jax(lorenz96_jax, 400, tj["Y"], tj["t"], tj["Lidx"],
+                        tj["RM"], **kw)
+    st = build_spec(lorenz96, 400, tt["Y"], tt["t"], tt["Lidx"], tt["RM"],
+                    **kw)
+    for k in ("Y", "Lidx", "RM", "P_base", "pidx", "N_f", "N_data",
+              "obs_stride", "n_dof", "dt", "disc"):
+        np.testing.assert_array_equal(np.asarray(getattr(st, k)),
+                                      np.asarray(getattr(sj, k)))
+    for dt in (np.float32, np.float64):
+        xj = np.asarray(inits_jax(sj, 1024, seed=12, dtype=dt))
+        xt = random_ensemble_inits(st, 1024, seed=12, dtype=dt)
+        assert xt.dtype == xj.dtype and xt.shape == (1024, st.n_dof)
+        np.testing.assert_array_equal(xt, xj)
+
+
+def test_config5_short_ladder_matches_jax():
+    """A short warm-started f64 ladder at config #5's full shape (D=400,
+    N=161, 160 observed), two seed-12 members, rungs 0..2 (pgtol 1e-8,
+    ftol 2.2e-9), through both packages' generic L-BFGS loops and their
+    autograd actions: the same niter and status, A within 1e-10. (From
+    rung 3, where a rung takes 50+ iterations and stops on ftol, the two
+    f64 loops part at round-off and stop elsewhere.)"""
+    from varanneal_tpu.anneal import run_ladder as run_ladder_jax
+    from varanneal_tpu.ops import build_spec as build_spec_jax
+    from varanneal_tpu.ops import make_action as make_action_jax
+    from varanneal_tpu.opt import LBFGSOptions as OptsJax
+    from varanneal_tpu.parallel import random_ensemble_inits as inits_jax
+    from varanneal_tpu.twin import lorenz96_twin as twin_jax
+    from varanneal_tpu_torch.anneal import run_ladder
+    from varanneal_tpu_torch.ops import make_action
+    kw = dict(maxiter=200, m=5, pgtol=1e-8, ftol=2.2e-9)
+    tw = twin_jax(D=400, N_data=161, n_obs=160)
+    args = (400, tw["Y"], tw["t"], tw["Lidx"], tw["RM"])
+    spec_kw = dict(disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    sj = build_spec_jax(lorenz96_jax, *args, **spec_kw)
+    st = build_spec(lorenz96, *args, **spec_kw)
+    rf0 = 4e-6 * tw["RM"]
+    xp = inits_jax(sj, 2, seed=12)
+    aj, pj = make_action_jax(sj)
+    rj = jax.vmap(lambda x: run_ladder_jax(
+        aj, pj, x, jax.numpy.arange(3, dtype=jax.numpy.float64), rf0, 1.5,
+        opts=OptsJax(**kw), store_paths=False))(jax.numpy.asarray(xp))
+    at, pt = make_action(st, device="cpu")
+    rt = run_ladder(at, pt, torch.tensor(xp), np.arange(3), rf0, 1.5,
+                    opts=LBFGSOptions(**kw), device="cpu")
+    np.testing.assert_array_equal(rt.niter.numpy(), np.asarray(rj.niter))
+    np.testing.assert_array_equal(rt.status.numpy(), np.asarray(rj.status))
+    assert int(rt.niter.sum()) > 10
+    np.testing.assert_allclose(rt.A.numpy(), np.asarray(rj.A), rtol=1e-10,
+                               atol=0)
+
+
 def test_pick_rung_solver_policy(monkeypatch):
     """solver='auto' takes K2 only on the card (solve_preferred, with the
     reference's N_pad <= 1024 cap); 'fused' forces it wherever

@@ -2,14 +2,17 @@
 CUDA kernel (kernels/csrc/ag_kernel.cu), against its plain PyTorch version at the
 main path's shape (Lorenz-96 D=20, N=161, L=8, B=4), f64 to 1e-12 and
 f32 to 2e-5 relative (the card sums in another order than the plain
-version); its launch count, its autograd Function, and a short f64
-ladder through it. K4, the compensated entry of the same source: its
+version); at BASELINE config #5's width (D=400, K4 with it), and at the
+first D whose rings of rows leave shared memory for a workspace; its
+launch count, its autograd Function, and a short f64 ladder through it.
+K4, the compensated entry of the same source: its
 combined value within 2e-6 (f32; 1e-12 in f64) of the plain version's,
 its gradient bit-equal to K1's. K2 and K3 (kernels/csrc/solve_kernel.cu) against
 their plain versions in f64: the same niter, nfev and status on short
 solves, the same actions over a short ladder, and bit-identical repeats;
 K2's bounded branch likewise, and feasible; both bit-identical in every
-layout of a member's vectors (shared or global memory). K7a and K7b
+layout of a member's vectors and of the evaluation's rings (shared or
+global memory). K7a and K7b
 (kernels/csrc/dir_kernel.cu) against their plain versions at the main
 shape (n = 3,221, m = 5) at every (head, hlen), within the bounds of
 tests/test_dir_pallas.py, with repeats bit-identical and an ended member
@@ -93,6 +96,51 @@ def test_kernel_matches_plain(cuda, dtype, tol):
         assert torch.all(torch.abs(G - G_r) <= tol * scale)
         A2, G2 = ag.ag_kernel(Z, rf, c)           # no atomics: repeatable
         assert torch.equal(A, A2) and torch.equal(G, G2)
+
+
+def _wide_spec(D, N_data, n_obs):
+    tw = lorenz96_twin(D=D, N_data=N_data, n_obs=n_obs, spin=300)
+    spec = build_spec(lorenz96, D, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                      disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    return spec, tw
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_kernel_matches_plain_d400(cuda, dtype, tol):
+    """K1 and K4 at BASELINE config #5's width (D = 400, N = 161, 160
+    observed; the wide walk) against the plain version, K4's gradient
+    bit-equal to K1's."""
+    spec, tw = _wide_spec(400, 161, 160)
+    c = ag.ag_consts(spec, cuda, dtype)
+    Z = torch.tensor(_draw(spec, tw, 4), dtype=dtype, device=cuda)
+    for beta in (0, 25, 50):
+        rf = float(4e-6 * tw["RM"] * 1.5 ** beta)
+        A, G = ag.ag_kernel(Z, rf, c)
+        A4, G4, _ = ag.ag_kernel(Z, rf, c, compensated=True)
+        A_r, G_r = ag.ag_reference(Z, rf, c)
+        assert torch.all(torch.abs(A - A_r) <= tol * torch.abs(A_r))
+        scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+        assert torch.all(torch.abs(G - G_r) <= tol * scale)
+        assert torch.equal(G, G4) and torch.equal(A, A4)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float64, 605),
+                                     (torch.float32, 1211)])
+def test_envelope_edge(cuda, dtype, D):
+    """The first D whose rings do not fit in shared memory: K1 takes them
+    in a workspace and matches its plain version (f64 1e-12, f32 2e-5);
+    one D less keeps them on chip."""
+    assert not ag.ring_on_chip(D, dtype) and ag.ring_on_chip(D - 1, dtype)
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+    spec, tw = _wide_spec(D, 5, 40)
+    c = ag.ag_consts(spec, cuda, dtype)
+    Z = torch.tensor(_draw(spec, tw, 3), dtype=dtype, device=cuda)
+    A, G = ag.ag_kernel(Z, 37.5, c)
+    A_r, G_r = ag.ag_reference(Z, 37.5, c)
+    assert torch.all(torch.abs(A - A_r) <= tol * torch.abs(A_r))
+    scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+    assert torch.all(torch.abs(G - G_r) <= tol * scale)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
@@ -234,14 +282,13 @@ def test_solve_layouts_bit_identical(cuda, dtype):
         spec, [(-6.0, 6.0)] * 20 + [(3.0, 6.0)], np.float64))
     rf = rung_rf(4e-6 * tw["RM"], 1.5, 50, dtype)
     rfs = torch.tensor([rf, 2 * rf], dtype=dtype, device=cuda)
-    V, H, BX = solve.VECTORS, solve.HISTORY, solve.BOUNDS
+    V, H, BX, R = solve.VECTORS, solve.HISTORY, solve.BOUNDS, solve.RING_OFF
     lib = solve._lib()
     runs = {}
-    for flags in (None, 0, V, H, V | H, V | H | BX, V | BX):
-        lay = solve.layout_of(flags or 0, spec.N_f, spec.D, spec.n_dof, 5,
-                              dtype, True)
-        assert lib.va_l96_solve_smem(spec.N_f, spec.D, spec.n_dof, 5,
-                                     lay.flags, int(dtype == torch.float64)
+    for flags in (None, 0, V, H, V | H, V | H | BX, V | BX, R, V | H | R):
+        lay = solve.layout_of(flags or 0, spec.D, spec.n_dof, 5, dtype, True)
+        assert lib.va_l96_solve_smem(spec.D, spec.n_dof, 5, lay.flags,
+                                     int(dtype == torch.float64)
                                      ) == lay.smem_bytes
         if lay.smem_bytes > ag.SMEM_LIMIT:
             with pytest.raises(RuntimeError, match="launch failed"):
@@ -257,6 +304,57 @@ def test_solve_layouts_bit_identical(cuda, dtype):
     for flags, out in runs.items():
         ref = runs[0] if flags is None or not flags & BX else runs[0][:7]
         assert all(torch.equal(u, v) for u, v in zip(out, ref)), flags
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_layouts_bit_identical_wide_walk(cuda, dtype):
+    """The same at D = 40 (N_data = 9), where the evaluation takes the
+    wide walk with its ring of rows: K2 and K3 give the same bits with x
+    in the workspace (staged into the ring) or in shared memory, and with
+    the ring on chip or in the workspace past the off-chip groups."""
+    spec, tw = _wide_spec(40, 9, 16)
+    c = ag.ag_consts(spec, cuda, dtype)
+    Z = torch.tensor(_draw(spec, tw, 3), dtype=dtype, device=cuda)
+    opts = LBFGSOptions(maxiter=20, m=5, pgtol=1e-4, ftol=1e-6)
+    rf = rung_rf(4e-6 * tw["RM"], 1.5, 25, dtype)
+    rfs = torch.tensor([rf, 2 * rf], dtype=dtype, device=cuda)
+    V, H, R = solve.VECTORS, solve.HISTORY, solve.RING_OFF
+    runs = {}
+    for flags in (None, 0, V, V | H, R, V | R, V | H | R):
+        lay = solve.layout_of(flags or 0, spec.D, spec.n_dof, 5, dtype,
+                              False)
+        assert lay.smem_bytes <= ag.SMEM_LIMIT
+        out = [*solve.solve_kernel(Z, rf, c, opts, _layout=flags)]
+        x, r = solve.ladder_kernel(Z, rfs, c, opts, _layout=flags)
+        runs[flags] = out + [x] + [r[k] for k in sorted(r)]
+    torch.cuda.synchronize()
+    assert int(runs[0][3].sum()) > 0                 # niter: it iterated
+    for flags, out in runs.items():
+        assert all(torch.equal(u, v) for u, v in zip(out, runs[0])), flags
+
+
+def test_refused_launch_leaves_no_error(cuda):
+    """A launch refused for its shared memory (K2 and K3 in f64 with the
+    vectors and the history on chip at D = 20) raises, and the next launch,
+    one that needs no opt-in, runs: the refusal's error is not reported
+    again by it."""
+    spec, tw = _main_spec()
+    c = ag.ag_consts(spec, cuda, torch.float64)
+    Z = torch.tensor(_draw(spec, tw, 2), device=cuda)
+    opts = LBFGSOptions(maxiter=5, m=5, pgtol=1e-4, ftol=1e-6)
+    rf = rung_rf(4e-6 * tw["RM"], 1.5, 25, torch.float64)
+    rfs = torch.tensor([rf], dtype=torch.float64, device=cuda)
+    VH = solve.VECTORS | solve.HISTORY
+    assert solve.layout_of(VH, spec.D, spec.n_dof, 5, torch.float64,
+                           False).smem_bytes > ag.SMEM_LIMIT
+    with pytest.raises(RuntimeError, match="launch failed"):
+        solve.solve_kernel(Z, rf, c, opts, _layout=VH)
+    r = solve.solve_kernel(Z, rf, c, opts, _layout=0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        solve.ladder_kernel(Z, rfs, c, opts, _layout=VH)
+    x, _ = solve.ladder_kernel(Z, rfs, c, opts, _layout=0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(r.f).all()) and bool(torch.isfinite(x).all())
 
 
 def test_bounded_rung_solve_kernel_matches_plain(cuda):

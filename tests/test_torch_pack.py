@@ -180,15 +180,26 @@ def test_envelope(problem):
         st, np.ones((st.N_f - 1, st.D)), opts, 2, device=CPU)
     assert not solve_pack.pack_supported(
         dataclasses.replace(st, disc="euler"), 1.0, opts, 2, device=CPU)
-    # shared memory: eight f64 groups of N = 241 rows pass 227 KB
-    tw2 = lorenz96_twin(D=20, N_data=241, n_obs=8)
-    big = build_spec(lorenz96, 20, tw2["Y"], tw2["t"], tw2["Lidx"],
+    # shared memory: eight f64 groups' rings at D = 400 pass 227 KB, so
+    # they go to the members' workspaces (the first port refused every
+    # pack whose (N_f - 1) * D residuals passed it); a pack of one keeps
+    # its rings on chip; past the 32-bit index range the pack is refused
+    tw2 = lorenz96_twin(D=400, N_data=9, n_obs=8)
+    big = build_spec(lorenz96, 400, tw2["Y"], tw2["t"], tw2["Lidx"],
                      tw2["RM"], P=np.array([4.0]), pidx=[0])
     assert solve_pack.smem_bytes(big, torch.float64, 8) > ag.SMEM_LIMIT
-    assert not solve_pack.pack_supported(big, 1.0, opts, 8, torch.float64,
+    assert solve_pack.smem_bytes(big, torch.float64, 8, ring=False) \
+        <= ag.SMEM_LIMIT
+    assert solve_pack.pack_layout(big, torch.float64, 8) == solve.RING_OFF
+    assert solve_pack.pack_layout(big, torch.float64, 1) == 0
+    for k in (1, 4, 8):
+        assert solve_pack.pack_supported(big, 1.0, opts, k, torch.float64,
                                          device=CPU)
-    assert solve_pack.pack_supported(big, 1.0, opts, 4, torch.float64,
-                                     device=CPU)
+    c = ag.ag_consts(big, CPU, torch.float64)
+    assert solve_pack.work_elems(c, 5, 8, solve.RING_OFF) == (
+        15 * big.n_dof + 10 + ag.ring_elems(400, 2))
+    huge = dataclasses.replace(st, N_f=2 ** 22, D=512)
+    assert not solve_pack.pack_supported(huge, 1.0, opts, 2, device=CPU)
     with pytest.raises(ValueError):
         solve_pack.make_packed_rung_solver(st, opts, 9, device=CPU)
     s = solve_pack.make_packed_rung_solver(st, opts, 2, device=CPU)
@@ -199,6 +210,25 @@ def test_envelope(problem):
             solve_pack.make_packed_rung_solver(st, opts, 2)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             solve_pack.pack_supported(st, 1.0, opts, 2)
+
+
+def test_block_groups():
+    """At G = 256 (packs of 1 and 2) a block holds one member, so that it
+    keeps K2's 255 registers a thread; at G = 128 and 64 the pack's
+    groups share a block. Shared memory is counted for a block's groups,
+    so a pack of 2 needs one member's."""
+    assert [solve_pack.block_groups(k) for k in range(1, 9)] == [
+        1, 1, 3, 4, 5, 6, 7, 8]
+    tw = lorenz96_twin(D=400, N_data=9, n_obs=8)
+    big = build_spec(lorenz96, 400, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                     P=np.array([4.0]), pidx=[0])
+    for dt in (torch.float32, torch.float64):
+        one = solve._smem_bytes(400, dt, 8)
+        assert solve_pack.smem_bytes(big, dt, 1) == one
+        assert solve_pack.smem_bytes(big, dt, 2) == one
+        assert solve_pack.smem_bytes(big, dt, 3) == 3 * solve._smem_bytes(
+            400, dt, 4)
+        assert solve_pack.pack_layout(big, dt, 2) == 0
 
 
 def test_bench_pack(capsys):

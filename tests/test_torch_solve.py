@@ -245,7 +245,7 @@ def test_bench_waiting_paths_raise(knob, raises):
 
 # ---- the layout planner of K2/K3 (kernels/solve.plan_layout) -------------
 
-V, H, BX = solve.VECTORS, solve.HISTORY, solve.BOUNDS
+V, H, BX, R = solve.VECTORS, solve.HISTORY, solve.BOUNDS, solve.RING_OFF
 SMS = 132           # the H100's SMs, given to the planner explicitly here
 
 
@@ -264,26 +264,33 @@ def _spec_of(st, N_f, D):
     (torch.float32, 5, False, 133, 161, 20, 0),         # above one an SM
     (torch.float32, 5, True, 264, 161, 20, 0),
     (torch.float32, 10, False, 1, 241, 100, 0),         # config #2's size
-    (torch.float32, 10, True, 1, 241, 100, 0),
+    (torch.float32, 10, True, 1, 241, 100, BX),      # room the rings left
     (torch.float64, 16, True, 2, 41, 20, V | BX),
     (torch.float32, 16, False, 8, 41, 20, V | H),
     (torch.float32, 16, True, 8, 41, 20, V | H | BX),
-    (torch.float64, 1, False, 1, 2, 4, V | H)])
+    (torch.float64, 1, False, 1, 2, 4, V | H),
+    (torch.float32, 5, False, 1024, 161, 400, 0),       # config #5
+    (torch.float64, 5, False, 1024, 161, 400, 0),
+    (torch.float32, 5, False, 4, 2, 4000, R | V),       # rings off chip
+    (torch.float64, 5, True, 4, 3, 1207, R | V | BX)])
 def test_plan_layout(dtype, m, bounded, B, N_f, D, flags):
-    """Each group goes on chip whole, in the order vectors, history, box,
-    where it fits in what the groups before it left; within the block's
-    227 KB; the global layout above one member an SM; the workspace holds
-    exactly the groups off chip."""
+    """The rings on chip where they fit, else in the workspace; then each
+    group goes on chip whole, in the order vectors, history, box, where
+    it fits in what the groups before it left; within the block's 227 KB;
+    the global layout above one member an SM; the workspace holds exactly
+    the groups off chip (and the rings under R)."""
     n = N_f * D + 1
     size = torch.finfo(dtype).bits // 8
-    lay = solve.plan_layout(N_f, D, n, m, dtype, bounded, B, SMS)
+    lay = solve.plan_layout(D, n, m, dtype, bounded, B, SMS)
     assert lay.flags == flags
     assert lay.smem_bytes <= ag.SMEM_LIMIT
-    assert lay == solve.layout_of(flags, N_f, D, n, m, dtype, bounded)
+    assert lay == solve.layout_of(flags, D, n, m, dtype, bounded)
     groups = [(V, 5 * n), (H, 2 * m * n + 2 * m)] + (
         [(BX, 2 * n)] if bounded else [])
-    used = solve._smem_bytes(N_f, D, dtype)
-    work = 0
+    ring_off = bool(flags & R)
+    assert ring_off == (solve._smem_bytes(D, dtype) > ag.SMEM_LIMIT)
+    used = solve._smem_bytes(D, dtype, ring=not ring_off)
+    work = ag.ring_elems(D) if ring_off else 0
     for flag, elems in groups:
         if flags & flag:
             used += elems * size
@@ -302,11 +309,10 @@ def test_launch_layout_given_flags(problem):
     XP = torch.zeros(3, st.n_dof)
     for flags in (0, V, V | H):
         assert solve.launch_layout(XP, c, opts, False, flags) == \
-            solve.layout_of(flags, st.N_f, st.D, st.n_dof, 5, torch.float32,
-                            False)
+            solve.layout_of(flags, st.D, st.n_dof, 5, torch.float32, False)
     lay = solve.launch_layout(XP, c, opts, True, V | BX)
     assert lay.work_elems == 2 * 5 * st.n_dof + 10
-    assert lay.smem_bytes == (solve._smem_bytes(st.N_f, st.D, torch.float32)
+    assert lay.smem_bytes == (solve._smem_bytes(st.D, torch.float32)
                               + 7 * st.n_dof * 4)
 
 
@@ -316,11 +322,12 @@ def _csrc(name):
 
 
 def test_constants_match_the_source():
-    """The partials count, the history cap and the layout's flags that the
-    wrapper's shared-memory and workspace sizes use are the kernels'
-    (csrc/l96_solve.cuh), read from the source."""
+    """The partials count, the history cap, the layout's flags and the
+    rings that the wrappers' shared-memory and workspace sizes use are the
+    kernels' (csrc/l96_solve.cuh, csrc/l96_ag_block.cuh), read from the
+    source."""
     import re
-    src = _csrc("l96_solve.cuh")
+    src = _csrc("l96_solve.cuh") + _csrc("l96_ag_block.cuh")
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
@@ -328,13 +335,20 @@ def test_constants_match_the_source():
     assert const("kMaxRed") == solve.MAX_RED
     assert const("kMaxM") == solve.MAX_M
     assert (const("kVectorsOnChip"), const("kHistoryOnChip"),
-            const("kBoundsOnChip")) == (V, H, BX)
-    # where the solver's area is the larger, the size is its partials
+            const("kBoundsOnChip"), const("kRingOffChip")) == (V, H, BX, R)
+    assert const("kRingRows") == ag.RING_ROWS
+    assert (const("kAgSums"), const("kAgCompSums")) == (ag.AG_SUMS,
+                                                       ag.AG_COMP_SUMS)
+    # the group's area: two partials areas, alpha and the rings, not N
     warps = ag._THREADS // 32
-    assert solve._smem_bytes(2, 4, torch.float32) == (
-        2 * const("kMaxRed") * warps + const("kMaxM") + 2) * 4
-    assert solve._smem_bytes(161, 20, torch.float64, warps=2) == (
-        160 * 20 + 3 * 2 + 2) * 8
+    assert solve._smem_bytes(4, torch.float32) == (
+        2 * const("kMaxRed") * warps + const("kMaxM")
+        + const("kRingRows") * 4 * warps) * 4
+    assert solve._smem_bytes(20, torch.float64, warps=2) == (
+        2 * const("kMaxRed") * 2 + const("kMaxM")
+        + const("kRingRows") * 20 * 2) * 8
+    assert ag._smem_bytes(400, torch.float32, compensated=True) == (
+        const("kAgCompSums") * warps + const("kRingRows") * 400 * warps) * 4
 
 
 def _parent_solve_ok(spec, opts, dtype):
@@ -360,10 +374,13 @@ def _parent_pack_ok(spec, opts, dtype, pack):
 
 
 def test_envelope_kept(problem):
-    """solve_supported, ladder_supported and pack_supported give the first
-    port's truth values over a grid of shapes, and never refuse what it
-    accepted: at the edge of the limit the solver's partials, which now
-    share the evaluation's area, leave room for a few more residuals."""
+    """solve_supported, ladder_supported and pack_supported accept every
+    shape the first port accepted, over a grid of shapes and at the edge
+    of its limit; shared memory no longer bounds them (the evaluation
+    keeps rings of 6 rows of D a warp, in the workspace where they do not
+    fit), so over the grid they hold wherever m does; and they accept
+    BASELINE config #5's shape (N_f = 161, D = 400), which the first port
+    refused, in float32 and float64."""
     from varanneal_tpu_torch.kernels import solve_pack
     tw, sj, st = problem
     for dtype in (torch.float32, torch.float64):
@@ -372,15 +389,26 @@ def test_envelope_kept(problem):
                 sp = _spec_of(st, N_f, D)
                 for m in (1, 5, 8, 16, 17):
                     opts = LBFGSOptions(m=m)
-                    want = _parent_solve_ok(sp, opts, dtype)
-                    assert solve.solve_supported(sp, 1.0, opts, dtype) == want
+                    got = solve.solve_supported(sp, 1.0, opts, dtype)
+                    assert got or not _parent_solve_ok(sp, opts, dtype)
+                    assert got == (m <= 16)
                     assert solve.ladder_supported(sp, 1.0, opts, dtype,
-                                                  n_rungs=3) == want
+                                                  n_rungs=3) == got
                 for pack in range(1, 10):
                     opts = LBFGSOptions(m=5)
-                    assert solve_pack.pack_supported(
-                        sp, 1.0, opts, pack, dtype, device="cpu") == \
-                        _parent_pack_ok(sp, opts, dtype, pack)
+                    got = solve_pack.pack_supported(sp, 1.0, opts, pack,
+                                                    dtype, device="cpu")
+                    assert got or not _parent_pack_ok(sp, opts, dtype, pack)
+                    assert got == (pack <= 8)
+        sp5 = _spec_of(st, 161, 400)                # config #5's shape
+        opts = LBFGSOptions(m=5)
+        assert not _parent_solve_ok(sp5, opts, dtype)
+        assert ag.ag_supported(sp5, 0.0, dtype)
+        assert ag.ag_supported(sp5, 0.0, dtype, compensated=True)
+        assert solve.solve_supported(sp5, 1.0, opts, dtype)
+        assert solve.ladder_supported(sp5, 1.0, opts, dtype, n_rungs=17)
+        assert solve_pack.pack_supported(sp5, 1.0, opts, 2, dtype,
+                                         device="cpu")
         # the edge: the largest residual count the first port accepted,
         # and the next ones
         size = torch.finfo(dtype).bits // 8

@@ -29,7 +29,8 @@ XLA action). Beside the kernels this module holds:
   discretization;
 - :data:`LAUNCHES` (K1), :data:`COMP_LAUNCHES` (K4) and
   :data:`AGT_LAUNCHES` (K5), plain counts of kernel launches;
-- :func:`ag_supported` and :func:`agt_supported`, the kernels' envelopes.
+- :func:`ag_supported` and :func:`agt_supported`, the kernels' envelopes,
+  and :func:`ag_refusal`, the condition K1's envelope fails, in words.
 
 :func:`action_and_grad` and :func:`action_and_grad_t` take the plain
 version only for tensors on the CPU. For a CUDA tensor they launch the
@@ -62,14 +63,39 @@ AGT_MAX_D = 64
 #: Shared memory one H100 block can opt into (227 KB).
 SMEM_LIMIT = 232448
 _THREADS = 256          # kThreads in csrc/ag_kernel.cu
+_WARPS = _THREADS // 32
 _DTYPES = (torch.float32, torch.float64)
+#: Rows of a warp's ring in the block routine (kRingRows in
+#: csrc/l96_ag_block.cuh).
+RING_ROWS = 6
+#: The routine's sums a warp, plain and with K4's (hi, lo) pairs
+#: (kAgSums, kAgCompSums).
+AG_SUMS, AG_COMP_SUMS = 3, 7
+#: Most values of a member's decision vector: the kernels index it with
+#: 32-bit ints.
+MAX_N_DOF = 2**31 - 1
 
 
-def _smem_bytes(N_f, D, dtype, compensated=False):
-    """l96_ag_smem_elems in bytes: the residuals and the reduction
-    partials, with K4's (hi, lo) partials when ``compensated``."""
-    parts = (7 if compensated else 3) * (_THREADS // 32)
-    return ((N_f - 1) * D + parts) * (torch.finfo(dtype).bits // 8)
+def ring_elems(D, warps=_WARPS):
+    """l96_ag_ring_elems: the rings of a group of ``warps`` warps, in
+    elements (``RING_ROWS`` rows of D a warp; not N)."""
+    return RING_ROWS * D * warps
+
+
+def _smem_bytes(D, dtype, compensated=False):
+    """l96_ag_smem_elems in bytes: the warps' partials (with K4's (hi, lo)
+    partials when ``compensated``) and their rings. It does not grow with
+    N."""
+    parts = (AG_COMP_SUMS if compensated else AG_SUMS) * _WARPS
+    return (parts + ring_elems(D)) * (torch.finfo(dtype).bits // 8)
+
+
+def ring_on_chip(D, dtype, compensated=False) -> bool:
+    """Whether K1/K4's rings fit in a block's shared memory with the
+    partials (D up to 1,210 in float32 and 604 in float64, 1,209 and
+    604 with K4's partials); where they do not, the wrapper passes a
+    workspace of :func:`ring_elems` a member."""
+    return _smem_bytes(D, dtype, compensated) <= SMEM_LIMIT
 
 
 def _agt_smem_bytes(N_f, D, dtype):
@@ -85,27 +111,54 @@ def _uniform_grid(spec: ProblemSpec) -> bool:
     return bool(np.allclose(t_f, ref, rtol=1e-12, atol=1e-9))
 
 
+def ag_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
+               compensated=False):
+    """The first condition of :func:`ag_supported` that ``spec`` fails, in
+    words, or None inside the envelope. ``compensated`` (K4) asks for
+    nothing more: its larger partials only move the rings off chip
+    sooner."""
+    del compensated
+    if spec.disc != "trapezoid":
+        return f"disc {spec.disc!r} (K1 takes the trapezoid rule)"
+    if spec.f is not lorenz96:
+        return (f"model {getattr(spec.f, '__name__', spec.f)!r} (K1 takes "
+                f"Lorenz-96, models.lorenz.lorenz96)")
+    if spec.D < 4:
+        return f"D = {spec.D} (Lorenz-96 needs D >= 4)"
+    if (spec.time_dep_p or spec.stim_f is not None or spec.NP != 1
+            or spec.pidx not in ((), (0,))):
+        return ("parameters (K1 takes the one constant F, estimated or "
+                "fixed, and no stimulus)")
+    if np.ndim(rf) != 0:
+        return f"rf rank {np.ndim(rf)} (K1 takes a scalar rf)"
+    if np.ndim(spec.RM) not in (0, 2):
+        return (f"RM rank {np.ndim(spec.RM)} (K1 takes a scalar or "
+                f"(N_data, L) RM)")
+    if dtype not in _DTYPES:
+        return f"dtype {dtype} (K1 takes float32 or float64)"
+    if not _uniform_grid(spec):
+        return "a non-uniform time grid"
+    if len(set(np.asarray(spec.Lidx).tolist())) != spec.L:
+        return "repeated observed columns in Lidx"
+    if spec.n_dof > MAX_N_DOF:
+        return (f"size: n_dof = {spec.n_dof:,} values, above the kernels' "
+                f"32-bit index range of {MAX_N_DOF:,}")
+    return None
+
+
 def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
                  compensated=False) -> bool:
     """The kernels' envelope: trapezoid rule, Lorenz-96 (the port's
     ``models.lorenz.lorenz96``) with constant parameters and no stimulus,
-    F estimated or fixed, scalar rf, scalar or (N_data, L) RM, a uniform
-    grid, f32 or f64, and the (N_f-1, D) residuals fitting in one block's
-    shared memory (with K4's partials when ``compensated``)."""
-    NP = spec.NP
-    return (spec.disc == "trapezoid"
-            and spec.f is lorenz96
-            and spec.D >= 4
-            and not spec.time_dep_p
-            and spec.stim_f is None
-            and NP == 1
-            and spec.pidx in ((), (0,))
-            and np.ndim(rf) == 0
-            and np.ndim(spec.RM) in (0, 2)
-            and dtype in _DTYPES
-            and _uniform_grid(spec)
-            and _smem_bytes(spec.N_f, spec.D, dtype,
-                            compensated) <= SMEM_LIMIT)
+    F estimated or fixed, scalar rf, scalar or (N_data, L) RM, distinct
+    observed columns, a uniform grid, f32 or f64, and at most
+    :data:`MAX_N_DOF` values a member. Shared memory bounds nothing: the
+    routine walks the path in time and keeps 6 rows of D a warp, on chip
+    where they fit (:func:`ring_on_chip`) and else in a workspace, so N
+    and D are free up to the index range (the reference's K1 stops at 2²¹
+    padded values). :func:`ag_refusal` names the condition a problem
+    fails."""
+    return ag_refusal(spec, rf, dtype, compensated) is None
 
 
 def agt_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32) -> bool:
@@ -161,9 +214,10 @@ class AgConsts:
 def ag_consts(spec: ProblemSpec, device, dtype,
               compensated=False) -> AgConsts:
     """Build :class:`AgConsts` for ``spec`` (which must be supported)."""
-    if not ag_supported(spec, 0.0, dtype, compensated):
-        raise ValueError("problem outside the ag kernel's envelope (see "
-                         "ag_supported); use ops.action.make_action")
+    why = ag_refusal(spec, 0.0, dtype, compensated)
+    if why is not None:
+        raise ValueError(f"problem outside the ag kernel's envelope: {why} "
+                         f"(see ag_supported); use ops.action.make_action")
     return _consts(spec, device, dtype)
 
 
@@ -286,7 +340,7 @@ def _lib():
     if not getattr(lib, "_va_typed", False):
         P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         args = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl,
-                Dbl, Dbl, P, P]
+                Dbl, Dbl, P, P, P]
         for fn in (lib.va_l96_ag_trap_f32, lib.va_l96_ag_trap_f64):
             fn.restype = I
             fn.argtypes = args + [P]
@@ -322,6 +376,10 @@ def ag_kernel(XP, rf, c: AgConsts, compensated=False):
         return (A, G, C) if compensated else (A, G)
     lib = _lib()
     f32 = c.dtype == torch.float32
+    # the rings in a workspace where they do not fit on chip (NULL: there)
+    work = (None if ring_on_chip(c.D, c.dtype, compensated)
+            else torch.empty(B, ring_elems(c.D), dtype=c.dtype,
+                             device=XP.device))
     if compensated:
         fn = (lib.va_l96_ag_trap_comp_f32 if f32
               else lib.va_l96_ag_trap_comp_f64)
@@ -334,7 +392,8 @@ def ag_kernel(XP, rf, c: AgConsts, compensated=False):
         rc = fn(XP.data_ptr(), B, c.n_dof, c.N, c.D, c.pslot, c.F_fixed,
                 c.Y.data_ptr(), c.W.data_ptr(), c.lidx.data_ptr(),
                 c.lpos.data_ptr(), c.N_data, c.L, c.obs_stride, c.h,
-                float(rf), c.me_norm, c.fe_norm, *outs, stream)
+                float(rf), c.me_norm, c.fe_norm,
+                None if work is None else work.data_ptr(), *outs, stream)
     if rc != 0:
         raise RuntimeError(
             f"ag kernel launch failed: cudaError {rc} "

@@ -21,17 +21,21 @@
 // the kernel is bound by launch latency and by the serial depth inside one
 // block, not by bytes or operations. The design keeps that depth short:
 // one launch gives value and gradient (the L-BFGS loop calls no
-// autograd), the residuals stay in shared memory between the two passes
-// (X is read from global memory through L1, never copied or padded), and
-// the three sums are reduced once with warp shuffles. The whole-solve
-// kernels (solve_kernel.cu) keep whole L-BFGS solves inside one launch
-// and so escape the per-evaluation launch cost.
+// autograd), and the block routine walks the path in time, each warp over
+// its own rows with its lanes over the columns, so that no residual array
+// and no block barrier stand between the residuals and the gradient; the
+// warps' three sums meet at the one barrier of the launch. The
+// whole-solve kernels (solve_kernel.cu) keep whole L-BFGS solves inside
+// one launch and so escape the per-evaluation launch cost.
 //
 // The body is the block routine l96_ag_block (l96_ag_block.cuh), which the
-// whole-solve kernels share. Sums are reduced in a fixed order
-// (per-thread strided partials, a warp shuffle tree, then thread 0 over
-// the warps in order), with no atomics: repeated launches give
-// bit-identical results.
+// whole-solve kernels share. Sums are reduced in a fixed order (per-lane
+// partials along the walk, a warp shuffle tree, then the warps in order),
+// with no atomics: repeated launches give bit-identical results. Shared
+// memory holds the warps' partials and their rings of rows
+// (l96_ag_smem_elems: 6 rows of D a warp, whatever N); where the rings
+// do not fit in the block's 227 KB (D above 1,210 in f32, 604 in f64)
+// they live in a workspace the wrapper passes, one per member.
 //
 // K4, the compensated entry (va_l96_ag_trap_comp_*), replaces the same
 // Pallas kernel with comp=True (ag_pallas.py::_ag_kernel's comp branch and
@@ -44,7 +48,7 @@
 // forward, as in the reference). Bound as K1: per term it adds a TwoSum
 // (6 rounded operations and a product), ~8 operations per state entry on
 // top of K1's ~40, and 48 bytes a member of output; it stays bound by
-// launch latency and the block's serial depth. The per-thread pairs are
+// launch latency and the block's serial depth. The per-lane pairs are
 // joined down a warp shuffle tree and then over the warps in order by
 // thread 0, with no atomics, so repeats are bit-identical.
 
@@ -56,20 +60,32 @@ namespace {
 
 constexpr int kThreads = kAgThreads;
 
+// Member b's rings: in shared memory past the partials, or in its slice of
+// the workspace (work != nullptr).
+template <typename T>
+__device__ __forceinline__ T* ring_of(T* red, T* work, int D, bool comp,
+                                      int b) {
+    return work ? work + (size_t)b * l96_ag_ring_elems(D)
+                : red + l96_ag_red_elems(comp);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) l96_ag_trap_kernel(
         const T* __restrict__ XP, int n_dof, int N, int D, int pslot,
         T F_fixed, const T* __restrict__ Y, const T* __restrict__ W,
         const int* __restrict__ lidx, const int* __restrict__ lpos,
         int N_data, int L, int obs_stride, T h, T rf, T me_norm, T fe_norm,
-        T* __restrict__ A_out, T* __restrict__ G_out) {
+        T* __restrict__ work, T* __restrict__ A_out,
+        T* __restrict__ G_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const L96Problem<T> p{n_dof, N, D, pslot, F_fixed, Y, W, lidx, lpos,
                           N_data, L, obs_stride, h, me_norm, fe_norm};
     const int b = blockIdx.x;
-    l96_ag_block<T, false>(p, XP + (size_t)b * n_dof, rf,
-                           G_out + (size_t)b * n_dof,
-                           reinterpret_cast<T*>(smem_raw), A_out + b);
+    T* red = reinterpret_cast<T*>(smem_raw);
+    const AgSums<T> s = l96_ag_block<T>(
+        p, XP + (size_t)b * n_dof, rf, G_out + (size_t)b * n_dof,
+        ring_of(red, work, D, false, b), red);
+    if (threadIdx.x == 0) A_out[b] = s.A;
 }
 
 // K4: K1 plus the (B, 6) row of two-float sums (see the note above).
@@ -79,33 +95,39 @@ __global__ void __launch_bounds__(kThreads) l96_ag_trap_comp_kernel(
         T F_fixed, const T* __restrict__ Y, const T* __restrict__ W,
         const int* __restrict__ lidx, const int* __restrict__ lpos,
         int N_data, int L, int obs_stride, T h, T rf, T me_norm, T fe_norm,
-        T* __restrict__ A_out, T* __restrict__ G_out,
-        T* __restrict__ C_out) {
+        T* __restrict__ work, T* __restrict__ A_out,
+        T* __restrict__ G_out, T* __restrict__ C_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const L96Problem<T> p{n_dof, N, D, pslot, F_fixed, Y, W, lidx, lpos,
                           N_data, L, obs_stride, h, me_norm, fe_norm};
     const int b = blockIdx.x;
-    l96_ag_block<T, false, true>(p, XP + (size_t)b * n_dof, rf,
-                                 G_out + (size_t)b * n_dof,
-                                 reinterpret_cast<T*>(smem_raw), A_out + b,
-                                 C_out + (size_t)b * 6);
+    T* red = reinterpret_cast<T*>(smem_raw);
+    const AgSums<T> s = l96_ag_block<T, true>(
+        p, XP + (size_t)b * n_dof, rf, G_out + (size_t)b * n_dof,
+        ring_of(red, work, D, true, b), red, C_out + (size_t)b * 6);
+    if (threadIdx.x == 0) A_out[b] = s.A;
 }
 
 template <typename T, bool kComp>
 int launch(const void* XP, int B, int n_dof, int N, int D, int pslot,
            double F_fixed, const void* Y, const void* W, const void* lidx,
            const void* lpos, int N_data, int L, int obs_stride, double h,
-           double rf, double me_norm, double fe_norm, void* A_out,
-           void* G_out, void* C_out, void* stream) {
-    const size_t smem = l96_ag_smem_elems(N, D, kComp) * sizeof(T);
+           double rf, double me_norm, double fe_norm, void* work,
+           void* A_out, void* G_out, void* C_out, void* stream) {
+    const size_t smem = (work ? l96_ag_red_elems(kComp)
+                              : l96_ag_smem_elems(D, kComp)) * sizeof(T);
     const void* fn = kComp ? (const void*)l96_ag_trap_comp_kernel<T>
                            : (const void*)l96_ag_trap_kernel<T>;
     if (smem > 48 * 1024) {
         // above 48 KB only as opted-in dynamic shared memory; a launch
-        // without the opt-in is refused and never runs
+        // without the opt-in is refused and never runs (its error read
+        // back, so that the next launch does not report it again)
         const cudaError_t e = cudaFuncSetAttribute(
             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
     }
     if constexpr (kComp) {
         l96_ag_trap_comp_kernel<T>
@@ -114,15 +136,16 @@ int launch(const void* XP, int B, int n_dof, int N, int D, int pslot,
                 static_cast<const T*>(Y), static_cast<const T*>(W),
                 static_cast<const int*>(lidx), static_cast<const int*>(lpos),
                 N_data, L, obs_stride, (T)h, (T)rf, (T)me_norm, (T)fe_norm,
-                static_cast<T*>(A_out), static_cast<T*>(G_out),
-                static_cast<T*>(C_out));
+                static_cast<T*>(work), static_cast<T*>(A_out),
+                static_cast<T*>(G_out), static_cast<T*>(C_out));
     } else {
         l96_ag_trap_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
             static_cast<const T*>(XP), n_dof, N, D, pslot, (T)F_fixed,
             static_cast<const T*>(Y), static_cast<const T*>(W),
             static_cast<const int*>(lidx), static_cast<const int*>(lpos),
             N_data, L, obs_stride, (T)h, (T)rf, (T)me_norm, (T)fe_norm,
-            static_cast<T*>(A_out), static_cast<T*>(G_out));
+            static_cast<T*>(work), static_cast<T*>(A_out),
+            static_cast<T*>(G_out));
     }
     return (int)cudaGetLastError();
 }
@@ -133,17 +156,19 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = cudaSuccess). Pointers
 // are device pointers; XP/G_out are (B, n_dof) row-major, Y/W (N_data, L),
-// lidx (L,) and lpos (D,) int32 (lpos[d] = position of d in lidx, or -1).
+// lidx (L,) and lpos (D,) int32 (lpos[d] = position of d in lidx, or -1);
+// work: NULL (the rings in shared memory) or (B, l96_ag_ring_elems(D))
+// of the kernel's dtype, where they do not fit there.
 int va_l96_ag_trap_f32(const void* XP, int B, int n_dof, int N, int D,
                        int pslot, double F_fixed, const void* Y,
                        const void* W, const void* lidx, const void* lpos,
                        int N_data, int L, int obs_stride, double h,
                        double rf, double me_norm, double fe_norm,
-                       void* A_out, void* G_out, void* stream) {
+                       void* work, void* A_out, void* G_out, void* stream) {
     return launch<float, false>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
                                 lidx, lpos, N_data, L, obs_stride, h, rf,
-                                me_norm, fe_norm, A_out, G_out, nullptr,
-                                stream);
+                                me_norm, fe_norm, work, A_out, G_out,
+                                nullptr, stream);
 }
 
 int va_l96_ag_trap_f64(const void* XP, int B, int n_dof, int N, int D,
@@ -151,11 +176,11 @@ int va_l96_ag_trap_f64(const void* XP, int B, int n_dof, int N, int D,
                        const void* W, const void* lidx, const void* lpos,
                        int N_data, int L, int obs_stride, double h,
                        double rf, double me_norm, double fe_norm,
-                       void* A_out, void* G_out, void* stream) {
+                       void* work, void* A_out, void* G_out, void* stream) {
     return launch<double, false>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
                                  lidx, lpos, N_data, L, obs_stride, h, rf,
-                                 me_norm, fe_norm, A_out, G_out, nullptr,
-                                 stream);
+                                 me_norm, fe_norm, work, A_out, G_out,
+                                 nullptr, stream);
 }
 
 // K4: the same arguments plus C_out, (B, 6) of the kernel's dtype.
@@ -164,11 +189,12 @@ int va_l96_ag_trap_comp_f32(const void* XP, int B, int n_dof, int N, int D,
                             const void* W, const void* lidx,
                             const void* lpos, int N_data, int L,
                             int obs_stride, double h, double rf,
-                            double me_norm, double fe_norm, void* A_out,
-                            void* G_out, void* C_out, void* stream) {
+                            double me_norm, double fe_norm, void* work,
+                            void* A_out, void* G_out, void* C_out,
+                            void* stream) {
     return launch<float, true>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
                                lidx, lpos, N_data, L, obs_stride, h, rf,
-                               me_norm, fe_norm, A_out, G_out, C_out,
+                               me_norm, fe_norm, work, A_out, G_out, C_out,
                                stream);
 }
 
@@ -177,12 +203,13 @@ int va_l96_ag_trap_comp_f64(const void* XP, int B, int n_dof, int N, int D,
                             const void* W, const void* lidx,
                             const void* lpos, int N_data, int L,
                             int obs_stride, double h, double rf,
-                            double me_norm, double fe_norm, void* A_out,
-                            void* G_out, void* C_out, void* stream) {
+                            double me_norm, double fe_norm, void* work,
+                            void* A_out, void* G_out, void* C_out,
+                            void* stream) {
     return launch<double, true>(XP, B, n_dof, N, D, pslot, F_fixed, Y, W,
                                 lidx, lpos, N_data, L, obs_stride, h, rf,
-                                me_norm, fe_norm, A_out, G_out, C_out,
-                                stream);
+                                me_norm, fe_norm, work, A_out, G_out,
+                                C_out, stream);
 }
 
 const char* va_cuda_error_string(int code) {

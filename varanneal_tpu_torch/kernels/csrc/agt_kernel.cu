@@ -52,11 +52,15 @@ int launch_k(const AgtProblem<T>& p, int B, const void* XP, double rf,
     const size_t smem = l96_agt_smem_elems(p.N, p.D) * sizeof(T);
     if (smem > 48 * 1024) {
         // above 48 KB only as opted-in dynamic shared memory; a launch
-        // without the opt-in is refused and never runs
+        // without the opt-in is refused and never runs (its error read
+        // back, so that the next launch does not report it again)
         const cudaError_t e = cudaFuncSetAttribute(
             l96_agt_kernel<T, kDisc, kDiag>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
     }
     l96_agt_kernel<T, kDisc, kDiag>
         <<<B, kAgtThreads, smem, (cudaStream_t)stream>>>(

@@ -353,9 +353,14 @@ template <typename K, typename... Args>
 int launch(K kernel, int n_blocks, int B, size_t smem, void* stream,
            Args... args) {
     if (smem > 48 * 1024) {
+        // a refusal's error read back, so that the next launch does not
+        // report it again
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
     }
     kernel<<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
         args...);

@@ -16,10 +16,12 @@
 // member's solve is a chain of evaluations and group reductions, each
 // waiting on the last; its time is the chain's latency, not bytes or
 // operations. Per iteration (m = 5, a full history, one line-search
-// trial) the chain holds 16 group barriers: 3 in the evaluation, 1 for
-// the trial's directional derivative, 1 for the post-step sums, and 11 in
-// the two-loop direction (one reduction a pair and loop, one for the
-// descent test). To get there from the 31 of the first port:
+// trial) the chain holds 15 group barriers: 2 in the evaluation (the
+// leading one, after other threads wrote x, and the routine's one, which
+// publishes its partials), 1 for the trial's directional derivative, 1
+// for the post-step sums, and 11 in the two-loop direction (one reduction
+// a pair and loop, one for the descent test). To get there from the 31 of
+// the first port:
 //
 // - one barrier per reduction: block_reduce alternates between two
 //   partials areas, so a reduction never waits for the readers of the
@@ -31,17 +33,22 @@
 // - s.y and y.y of each history pair are the post-step reduction's, kept
 //   per slot (Bufs::sy, yy) when the pair is written, so the two-loop's
 //   first loop reduces s.q alone;
-// - alpha and the partials live in the evaluation's shared area, which is
-//   dead between evaluations, not in thread-local arrays;
+// - the evaluation's partials are a reduction's: they alternate with the
+//   solver's between the same two areas, so no trailing barrier frees
+//   them, and every thread gets f and ME from them in registers;
+// - alpha lives in shared memory, not in thread-local arrays;
 // - each pass over the vectors applies one pair's update to q and
 //   accumulates the next pair's dot in the same loop;
 // - where a pass reads global memory, it loads kChunkGlobal entries
 //   before it stores any (chunked_pass).
 //
-// Every sum keeps the order and the reduction tree of the first port
-// (per-thread strided partials, a warp shuffle tree, the warps in order),
-// so the results are bit for bit the same. The compact direction (all 2m
-// dots in one reduction) would change every f32 sum and is not used.
+// Every sum of the solver keeps the order and the reduction tree of the
+// first port (per-thread strided partials, a warp shuffle tree, the warps
+// in order). The evaluation's own sums (FE, sum r, ME) are summed along
+// its walk in time (l96_ag_block.cuh), in another order than the first
+// port's, so an f32 solve parts from the first port's by the rounding of
+// those sums. The compact direction (all 2m dots in one reduction) would
+// change every f32 sum of the solver and is not used.
 // nvcc's FMA contraction is part of the arithmetic: beta is rounded apart
 // from alpha - beta because the first port's loop rounded it apart.
 // Where a member's vectors live (shared or global memory) is the kernels'
@@ -61,11 +68,14 @@ constexpr int kMaxM = 16;      // largest history (the wrapper's envelope)
 
 // The layout's flags: the groups of a member's vectors kept in shared
 // memory (kernels/solve.py::plan_layout chooses them); the rest lives in
-// the member's global workspace (the bounds: in the caller's arrays).
+// the member's global workspace (the bounds: in the caller's arrays). The
+// evaluation's ring of rows is on chip unless kRingOffChip moves it to the
+// workspace, where it does not fit in shared memory.
 constexpr int kVectorsOnChip = 1;   // x, g, d, the trial x and g
 constexpr int kHistoryOnChip = 2;   // S, Y and their s.y, y.y
 constexpr int kBoundsOnChip = 4;    // lo, hi (K2 bounded)
-constexpr int kLayoutFlags = 7;
+constexpr int kRingOffChip = 8;     // the warps' rings (l96_ag_block.cuh)
+constexpr int kLayoutFlags = 15;
 
 // CONV_GRAD, CONV_FTOL, MAXITER, LS_FAIL of opt/lbfgs.py
 constexpr int kConvGrad = 0, kConvFtol = 1, kMaxIter = 2, kLsFail = 3;
@@ -128,32 +138,34 @@ struct SolveOpts {
     T c1, c2, pgtol, ftol;
 };
 
-// Shared memory of one solving group: `ag`, the evaluation's area (K1's
-// residuals and partials), which the solver reuses between evaluations
-// for its two reduction-partials areas (kMaxRed values a warp each) and
-// the two-loop's alpha (kMaxM values): evaluate() starts and ends with a
-// barrier, so nothing there outlives an evaluation or a direction. `out`:
-// the evaluation's two outputs (A, ME). `turn`: the partials area the
-// group's next reduction writes.
+// Shared memory of one solving group: `red`, two reduction-partials
+// areas (kMaxRed values a warp each; the evaluation's partials take one
+// as a reduction's do) and the two-loop's alpha (kMaxM values); `ring`,
+// the evaluation's rings of rows (in shared memory, or in the member's
+// workspace under kRingOffChip). `turn`: the partials area the group's
+// next reduction writes.
 template <typename T>
 struct Smem {
-    T* ag;
-    T* out;
+    T* red;
+    T* ring;
     int turn;
 };
 
-// A group's area in elements: the evaluation's or the solver's, whichever
-// is larger, and the two outputs.
-__host__ __device__ inline size_t solve_smem_elems(int N, int D,
-                                                   int warps = kAgWarps) {
-    const size_t ev = l96_ag_smem_elems(N, D, false, warps);
-    const size_t solver = (size_t)2 * kMaxRed * warps + kMaxM;
-    return (ev > solver ? ev : solver) + 2;
+static_assert(kAgSums <= kMaxRed, "the evaluation's sums fit an area");
+
+// The group's area in elements before its ring: the two partials areas
+// and alpha.
+__host__ __device__ inline size_t solve_base_elems(int warps = kAgWarps) {
+    return (size_t)2 * kMaxRed * warps + kMaxM;
 }
 
-template <typename Grp, typename T>
-__device__ __forceinline__ Smem<T> group_smem(T* s, int N, int D) {
-    return Smem<T>{s, s + solve_smem_elems(N, D, Grp::kWarps) - 2, 0};
+// A group's area in elements: the base and, on chip, its rings. It does
+// not grow with N.
+__host__ __device__ inline size_t solve_smem_elems(int D,
+                                                   int warps = kAgWarps,
+                                                   bool ring = true) {
+    return solve_base_elems(warps)
+           + (ring ? l96_ag_ring_elems(D, warps) : 0);
 }
 
 // A member's vectors. x/xt and g/gt swap roles when a step is taken, so
@@ -183,18 +195,20 @@ __host__ __device__ inline size_t bounds_elems(int n) {
 }
 
 // A member's global workspace in elements: the groups `layout` leaves off
-// chip.
-__host__ __device__ inline size_t work_elems(int n, int m, int layout) {
+// chip, then, under kRingOffChip, the rings of its group of `warps` warps.
+__host__ __device__ inline size_t work_elems(int n, int m, int D, int layout,
+                                             int warps = kAgWarps) {
     return ((layout & kVectorsOnChip) ? 0 : vectors_elems(n))
-           + ((layout & kHistoryOnChip) ? 0 : history_elems(n, m));
+           + ((layout & kHistoryOnChip) ? 0 : history_elems(n, m))
+           + ((layout & kRingOffChip) ? l96_ag_ring_elems(D, warps) : 0);
 }
 
 // Shared memory of one whole-block member in elements under `layout`: the
 // group's area, then the groups on chip, in the order vectors, history,
 // bounds.
-__host__ __device__ inline size_t layout_smem_elems(int N, int D, int n,
-                                                    int m, int layout) {
-    return solve_smem_elems(N, D)
+__host__ __device__ inline size_t layout_smem_elems(int D, int n, int m,
+                                                    int layout) {
+    return solve_smem_elems(D, kAgWarps, !(layout & kRingOffChip))
            + ((layout & kVectorsOnChip) ? vectors_elems(n) : 0)
            + ((layout & kHistoryOnChip) ? history_elems(n, m) : 0)
            + ((layout & kBoundsOnChip) ? bounds_elems(n) : 0);
@@ -216,6 +230,18 @@ __device__ Bufs<T> member_bufs(T* chip, T* work, int n, int m, int layout) {
     T* sy = h + (size_t)2 * m * n;
     return Bufs<T>{v, v + n, v + 2 * n, v + 3 * n, v + 4 * n,
                    h, h + (size_t)m * n, sy, sy + m};
+}
+
+// The shared memory of a group of `warps` warps at s: its base area, then
+// its rings there, or in the member's workspace `work` past the groups
+// `layout` leaves off chip.
+template <typename T>
+__device__ Smem<T> group_smem(T* s, T* work, int n, int m, int D, int layout,
+                              int warps = kAgWarps) {
+    T* ring = (layout & kRingOffChip)
+        ? work + work_elems(n, m, D, layout & ~kRingOffChip, warps)
+        : s + solve_base_elems(warps);
+    return Smem<T>{s, ring, 0};
 }
 
 // Where the bounds go on chip: past the vectors and history that are there.
@@ -249,11 +275,6 @@ __host__ __device__ inline int chunk_of(int layout) {
     return ((layout & kVectorsOnChip) && (layout & kHistoryOnChip))
                ? 1 : kChunkGlobal;
 }
-
-template <typename T, int K>
-struct Vals {
-    T v[K];
-};
 
 template <typename Grp, int kChunk, typename Load, typename Apply>
 __device__ __forceinline__ void chunked_pass(int n, Load load, Apply apply) {
@@ -298,7 +319,7 @@ __device__ __forceinline__ void trial_point(const Bufs<T>& w,
 template <typename Grp, typename T, int K>
 __device__ __forceinline__ void block_reduce(T (&v)[K], int first_max,
                                              Smem<T>& sm) {
-    T* red = sm.ag + sm.turn * (kMaxRed * Grp::kWarps);
+    T* red = sm.red + sm.turn * (kMaxRed * Grp::kWarps);
     sm.turn ^= 1;
     const int lane = Grp::rank() & 31;
     const int warp = Grp::rank() >> 5;
@@ -331,17 +352,22 @@ __device__ __forceinline__ T block_dot(const T* a, const T* b, int n,
 }
 
 // f and ME at x, gradient into g. The leading barrier makes every
-// thread's writes to x visible (the routine reads neighbours) and frees
-// the shared area; the trailing one publishes g[pslot] and the outputs.
+// thread's writes to x visible (the routine reads neighbours across
+// threads) and ends every read of the rings; the routine's own barrier
+// publishes its partials, which take the partials area of sm.turn as a
+// reduction does. g[pslot] is written by the thread that owns it in the
+// vector passes, so no trailing barrier is needed.
 template <typename Grp, typename T>
 __device__ __forceinline__ void evaluate(const L96Problem<T>& p, const T* x,
-                                         T rf, T* g, const Smem<T>& sm, T& f,
+                                         T rf, T* g, Smem<T>& sm, T& f,
                                          T& me) {
     Grp::sync();
-    l96_ag_block<T, true, false, Grp>(p, x, rf, g, sm.ag, sm.out);
-    Grp::sync();
-    f = sm.out[0];
-    me = sm.out[1];
+    T* red = sm.red + sm.turn * (kMaxRed * Grp::kWarps);
+    sm.turn ^= 1;
+    const AgSums<T> s =
+        l96_ag_block<T, false, Grp>(p, x, rf, g, sm.ring, red);
+    f = s.A;
+    me = s.me;
 }
 
 // _cubic_min: minimizer of the cubic Hermite interpolant on [a, b], with
@@ -539,7 +565,7 @@ __device__ __forceinline__ T direction(const Bufs<T>& w, const Box<T>& bx,
                                        bool fresh, T fresh_sy, T fresh_yy,
                                        Smem<T>& sm) {
     T* q = w.d;
-    T* alpha = sm.ag + 2 * kMaxRed * Grp::kWarps;   // written by rank 0
+    T* alpha = sm.red + 2 * kMaxRed * Grp::kWarps;  // written by rank 0
     // the pending update of q: q - a_up * y_up (first loop), or
     // q + a_up * y_up (second loop, y_up being s and a_up alpha - beta)
     T a_up = T(0);
@@ -776,12 +802,15 @@ SolveOpts<T> solve_opts(int m, int maxiter, int maxls, double c1, double c2,
 }
 
 // Dynamic shared memory above 48 KB needs the opt-in; a launch without it
-// is refused and never runs.
+// is refused and never runs. A refusal's error is read back here, or the
+// next launch's cudaGetLastError would report it again.
 template <typename K>
 cudaError_t opt_in(K kernel, size_t smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(
+    const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) cudaGetLastError();
+    return e;
 }
 
 }  // namespace

@@ -19,24 +19,30 @@
 // named barrier (bar.sync 1 + group, G): a __syncthreads() there would
 // deadlock once the groups' control flow parts.
 //
-// Groups and registers. The whole-rung kernel K2 runs one member on 256
-// threads with up to 128 registers each. A block holds at most 65,536
-// registers, so a pack block is kept within kPackMaxThreads = 512 threads
-// (__launch_bounds__(512): at most 128 registers a thread, K2's budget):
-// G = 256 for packs of 1 or 2, 128 for 3 or 4, 64 for 5 to 8 (the
-// wrapper's choice, solve_pack.pack_group). At G = 256 a member's
+// Groups and registers. G = 256 for packs of 1 or 2, 128 for 3 or 4, 64
+// for 5 to 8 (the wrapper's choice, solve_pack.pack_group). A block holds
+// at most 65,536 registers: k groups of G threads in one block would give
+// each thread at most 65,536 / (k G), and at 128 (k G = 512) the solver
+// and the evaluation's walk spill. So at G = 256 a block holds one group
+// (__launch_bounds__(256, 1), up to 255 registers a thread, as K2 and K3
+// have) and a pack of 2 is two blocks; at G = 128 and 64 a block holds
+// the pack's groups within kPackMaxThreads = 512 threads
+// (__launch_bounds__(512, 1): 128 registers a thread; without the 1, nvcc
+// held the kernel to 64), and spills (PERF.md §6). At G = 256 a member's
 // arithmetic, its reduction order included, is K2's, so its outputs equal
 // K2's bit for bit; at smaller G the strided partials and the warp tree
 // are summed in another order, and the outputs differ from K2's by
 // rounding only.
 //
-// Memory: each group has its own shared area (K1's residuals and
-// partials, reused between evaluations for the solver's partials and
-// alpha, and the outputs: solve_smem_elems(N, D, G / 32) values), so a
-// pack needs k times one member's; each member's vectors and history live
-// in its own slice of the global workspace, work_elems(n_dof, m, 0)
-// values, as in K2's global layout (K2 and K3 keep them in shared memory
-// where they fit; a pack's layout is not redesigned). The wrapper pads a
+// Memory: each group of a block has its own shared area (the solver's two
+// partials areas, which the evaluation's partials share, alpha, and the
+// evaluation's rings of rows: solve_smem_elems(D, G / 32) values), so a
+// block needs its groups' times one member's; where they do not fit in
+// 227 KB (layout 8, kRingOffChip) the rings go to the members' workspaces.
+// Each member's vectors and history live in its own slice of the global
+// workspace, work_elems(n_dof, m, D, layout, G / 32) values, as in K2's
+// global layout (K2 and K3 keep them in shared memory where they fit; a
+// pack's layout is not redesigned). The wrapper pads a
 // batch to a multiple of the pack by repeating the last member and drops
 // the padding's outputs (the reference's semantics).
 //
@@ -57,27 +63,43 @@ namespace {
 
 constexpr int kPackMaxThreads = 512;
 
-// K8: blockIdx.x's pack of `pack` members, member blockIdx.x * pack +
-// the thread's group; outputs as K2's (x, g, fp = [f, pgnorm], cnt =
-// [niter, nfev, status]) for members below B. Bounded: lo/hi hold the
-// bounds, bnd_stride apart per member (0: shared by every member).
+// Threads a block of group size G may have: one group at G = 256, else
+// kPackMaxThreads (the kernel's launch bound).
+template <int G>
+constexpr int block_threads() {
+    return G == 256 ? 256 : kPackMaxThreads;
+}
+
+// Groups a block holds for a pack of `pack` at group size G.
+inline int block_groups(int G, int pack) {
+    return G == 256 ? 1 : pack;
+}
+
+// K8: blockIdx.x's `groups` members, member blockIdx.x * groups + the
+// thread's group; outputs as K2's (x, g, fp = [f, pgnorm], cnt = [niter,
+// nfev, status]) for members below B. Bounded: lo/hi hold the bounds,
+// bnd_stride apart per member (0: shared by every member).
 template <typename T, int G, bool kBounded>
-__global__ void __launch_bounds__(kPackMaxThreads) l96_pack_kernel(
-        L96Problem<T> p, SolveOpts<T> o, T rf, int pack, int B,
+__global__ void __launch_bounds__(block_threads<G>(), 1) l96_pack_kernel(
+        L96Problem<T> p, SolveOpts<T> o, T rf, int groups, int layout, int B,
         const T* __restrict__ XP, const T* __restrict__ lo,
         const T* __restrict__ hi, int bnd_stride, T* __restrict__ work,
         T* __restrict__ X_out, T* __restrict__ G_out,
         T* __restrict__ fp_out, int* __restrict__ cnt_out) {
     using Grp = WarpGroup<G>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int b = blockIdx.x * pack + Grp::id();
+    const int b = blockIdx.x * groups + Grp::id();
     if (b >= B) return;             // no barrier is shared across groups
-    T* s = reinterpret_cast<T*>(smem_raw)
-           + (size_t)Grp::id() * solve_smem_elems(p.N, p.D, Grp::kWarps);
-    const Smem<T> sm = group_smem<Grp>(s, p.N, p.D);
     const int n = p.n_dof;
-    Bufs<T> w = member_bufs(s, work + (size_t)b * work_elems(n, o.m, 0), n,
-                            o.m, 0);
+    T* s = reinterpret_cast<T*>(smem_raw)
+           + (size_t)Grp::id()
+                 * solve_smem_elems(p.D, Grp::kWarps,
+                                    !(layout & kRingOffChip));
+    T* work_b = work + (size_t)b * work_elems(n, o.m, p.D, layout,
+                                              Grp::kWarps);
+    const Smem<T> sm = group_smem(s, work_b, n, o.m, p.D, layout,
+                                  Grp::kWarps);
+    Bufs<T> w = member_bufs(s, work_b, n, o.m, 0);
     const Box<T> bx = kBounded
         ? Box<T>{lo + (size_t)b * bnd_stride, hi + (size_t)b * bnd_stride}
         : Box<T>{nullptr, nullptr};
@@ -118,13 +140,15 @@ const void* pack_fn_for(int G, bool bounded) {
 
 template <typename T, int G, bool kBounded>
 void launch_g(const L96Problem<T>& p, const SolveOpts<T>& o, double rf,
-              int pack, int B, const void* XP, const void* lo,
+              int pack, int layout, int B, const void* XP, const void* lo,
               const void* hi, int bnd_stride, void* work, void* X_out,
               void* G_out, void* fp_out, void* cnt_out, size_t smem,
               void* stream) {
+    const int groups = block_groups(G, pack);
     l96_pack_kernel<T, G, kBounded>
-        <<<(B + pack - 1) / pack, pack * G, smem, (cudaStream_t)stream>>>(
-            p, o, (T)rf, pack, B, static_cast<const T*>(XP),
+        <<<(B + groups - 1) / groups, groups * G, smem,
+           (cudaStream_t)stream>>>(
+            p, o, (T)rf, groups, layout, B, static_cast<const T*>(XP),
             static_cast<const T*>(lo), static_cast<const T*>(hi),
             bnd_stride, static_cast<T*>(work), static_cast<T*>(X_out),
             static_cast<T*>(G_out), static_cast<T*>(fp_out),
@@ -133,19 +157,19 @@ void launch_g(const L96Problem<T>& p, const SolveOpts<T>& o, double rf,
 
 template <typename T, int G>
 void launch_bounded(bool bounded, const L96Problem<T>& p,
-                    const SolveOpts<T>& o, double rf, int pack, int B,
-                    const void* XP, const void* lo, const void* hi,
+                    const SolveOpts<T>& o, double rf, int pack, int layout,
+                    int B, const void* XP, const void* lo, const void* hi,
                     int bnd_stride, void* work, void* X_out, void* G_out,
                     void* fp_out, void* cnt_out, size_t smem,
                     void* stream) {
     if (bounded)
-        launch_g<T, G, true>(p, o, rf, pack, B, XP, lo, hi, bnd_stride,
-                             work, X_out, G_out, fp_out, cnt_out, smem,
-                             stream);
+        launch_g<T, G, true>(p, o, rf, pack, layout, B, XP, lo, hi,
+                             bnd_stride, work, X_out, G_out, fp_out,
+                             cnt_out, smem, stream);
     else
-        launch_g<T, G, false>(p, o, rf, pack, B, XP, lo, hi, bnd_stride,
-                              work, X_out, G_out, fp_out, cnt_out, smem,
-                              stream);
+        launch_g<T, G, false>(p, o, rf, pack, layout, B, XP, lo, hi,
+                              bnd_stride, work, X_out, G_out, fp_out,
+                              cnt_out, smem, stream);
 }
 
 template <typename T>
@@ -154,18 +178,20 @@ int launch_pack(const void* XP, int B, int n_dof, int N, int D, int pslot,
                 const void* lidx, const void* lpos, int N_data, int L,
                 int obs_stride, double h, double me_norm, double fe_norm,
                 int m, int maxiter, int maxls, double c1, double c2,
-                double pgtol, double ftol, int pack, int G, double rf,
-                const void* lo, const void* hi, int bnd_stride, void* work,
-                void* X_out, void* G_out, void* fp_out, void* cnt_out,
-                void* stream) {
+                double pgtol, double ftol, int pack, int G, int layout,
+                double rf, const void* lo, const void* hi, int bnd_stride,
+                void* work, void* X_out, void* G_out, void* fp_out,
+                void* cnt_out, void* stream) {
     const bool bounded = lo != nullptr;
     const void* fn = pack_fn_for<T>(G, bounded);
     if (m < 1 || m > kMaxM || fn == nullptr || pack < 1
             || pack * G > kPackMaxThreads
-            || (lo == nullptr) != (hi == nullptr))
+            || (lo == nullptr) != (hi == nullptr)
+            || (layout & ~kRingOffChip) != 0)
         return (int)cudaErrorInvalidValue;
     const size_t smem =
-        (size_t)pack * solve_smem_elems(N, D, G / 32) * sizeof(T);
+        (size_t)block_groups(G, pack)
+        * solve_smem_elems(D, G / 32, !(layout & kRingOffChip)) * sizeof(T);
     const cudaError_t e = opt_in(fn, smem);
     if (e != cudaSuccess) return (int)e;
     const L96Problem<T> p = problem<T>(n_dof, N, D, pslot, F_fixed, Y, W,
@@ -175,19 +201,19 @@ int launch_pack(const void* XP, int B, int n_dof, int N, int D, int pslot,
                                          ftol);
     switch (G) {
         case 256:
-            launch_bounded<T, 256>(bounded, p, o, rf, pack, B, XP, lo, hi,
-                                   bnd_stride, work, X_out, G_out, fp_out,
-                                   cnt_out, smem, stream);
+            launch_bounded<T, 256>(bounded, p, o, rf, pack, layout, B, XP,
+                                   lo, hi, bnd_stride, work, X_out, G_out,
+                                   fp_out, cnt_out, smem, stream);
             break;
         case 128:
-            launch_bounded<T, 128>(bounded, p, o, rf, pack, B, XP, lo, hi,
-                                   bnd_stride, work, X_out, G_out, fp_out,
-                                   cnt_out, smem, stream);
+            launch_bounded<T, 128>(bounded, p, o, rf, pack, layout, B, XP,
+                                   lo, hi, bnd_stride, work, X_out, G_out,
+                                   fp_out, cnt_out, smem, stream);
             break;
         default:
-            launch_bounded<T, 64>(bounded, p, o, rf, pack, B, XP, lo, hi,
-                                  bnd_stride, work, X_out, G_out, fp_out,
-                                  cnt_out, smem, stream);
+            launch_bounded<T, 64>(bounded, p, o, rf, pack, layout, B, XP,
+                                  lo, hi, bnd_stride, work, X_out, G_out,
+                                  fp_out, cnt_out, smem, stream);
     }
     return (int)cudaGetLastError();
 }
@@ -198,24 +224,25 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = cudaSuccess). The
 // arguments are K2's (solve_kernel.cu) plus the pack and the group size
-// G (256, 128 or 64, pack * G <= 512), without K2's layout (every vector
-// in the workspace, (B, work_elems(n_dof, m, 0))); B members, padded by
-// the caller to a multiple of the pack or not (members from B on are not
-// computed).
-int va_l96_pack_f32(VA_SOLVE_ARGS, int pack, int G, double rf,
+// G (256, 128 or 64, pack * G <= 512; at G = 256 one member a block),
+// with a layout of 0 or 8 (every vector in the workspace, and with 8 the
+// evaluation's rings too: (B, work_elems(n_dof, m, D, layout, G / 32)));
+// B members, padded by the caller to a multiple of the pack or not
+// (members from B on are not computed).
+int va_l96_pack_f32(VA_SOLVE_ARGS, int pack, int G, int layout, double rf,
                     const void* lo, const void* hi, int bnd_stride,
                     void* work, void* X_out, void* G_out, void* fp_out,
                     void* cnt_out, void* stream) {
-    return launch_pack<float>(VA_SOLVE_PASS, pack, G, rf, lo, hi,
+    return launch_pack<float>(VA_SOLVE_PASS, pack, G, layout, rf, lo, hi,
                               bnd_stride, work, X_out, G_out, fp_out,
                               cnt_out, stream);
 }
 
-int va_l96_pack_f64(VA_SOLVE_ARGS, int pack, int G, double rf,
+int va_l96_pack_f64(VA_SOLVE_ARGS, int pack, int G, int layout, double rf,
                     const void* lo, const void* hi, int bnd_stride,
                     void* work, void* X_out, void* G_out, void* fp_out,
                     void* cnt_out, void* stream) {
-    return launch_pack<double>(VA_SOLVE_PASS, pack, G, rf, lo, hi,
+    return launch_pack<double>(VA_SOLVE_PASS, pack, G, layout, rf, lo, hi,
                                bnd_stride, work, X_out, G_out, fp_out,
                                cnt_out, stream);
 }

@@ -43,29 +43,30 @@
 // The wrapper's planner (kernels/solve.py::plan_layout) chooses the
 // layout from the shape, the dtype and the batch and passes it as an
 // argument: at the main shape in f32 (n_dof = 3,221, m = 5) everything is
-// on chip, 206 KB of the 227 KB a block may have (232 KB with the box, the
+// on chip, 196 KB of the 227 KB a block may have (221 KB with the box, the
 // facade's Quick start); in f64 the vectors and the box, not the history.
-// A block that large leaves one block an SM where the global layout fits
-// two, so above one member per SM the planner keeps the global layout,
-// which runs the batch in one wave. Shared memory also holds the
-// evaluation's area, which the solver reuses between evaluations for its
-// reduction partials and the two-loop's alpha (l96_solve.cuh). Each
+// Above one member per SM the planner keeps the global layout (a rule
+// set when that layout ran two blocks an SM; with the evaluation's walk
+// every layout takes one block's registers, PERF.md §6). Shared
+// memory also holds the group's
+// own area: two reduction-partials areas, which the evaluation's partials
+// share, the two-loop's alpha and the evaluation's rings of rows, 3 rows
+// of D a warp (l96_solve.cuh; the rings go to the workspace, layout flag
+// 8, where they do not fit on chip). Each
 // layout runs its own instantiation: with everything on chip the vector
 // passes load one entry at a time; where they read global memory they
 // load kChunkGlobal entries together (more registers, one latency a
-// chunk), and in the global layout the kernel keeps to 128 registers so
-// that two blocks share an SM.
+// chunk).
 //
 // What bounds it on the card: per member the solve is a chain of
 // thousands of evaluations and group reductions, each dependent on the
 // last. The bytes and operations are far below the card's rates; one
 // block per member on B of the 132 SMs makes the kernel bound by that
 // serial depth: the latency of the vector passes (shared memory where the
-// layout puts the vectors on chip, else L1/L2) and of the barriers, 16 an
+// layout puts the vectors on chip, else L1/L2) and of the barriers, 15 an
 // iteration at m = 5 against the first port's 31 (l96_solve.cuh says
-// which went), of which the evaluation keeps 3. At the main shape the
-// evaluation (K1's routine and its barriers) is now about half of an
-// iteration (PERF.md §6).
+// which went), of which the evaluation keeps 2. The evaluation itself is
+// K1's walk in time (l96_ag_block.cuh), one warp a range of rows.
 //
 // Sums are reduced in a fixed order with no atomics: a repeated launch on
 // the same inputs gives bit-identical outputs, whatever the layout.
@@ -88,17 +89,13 @@ constexpr int kThreads = kAgThreads;
 // K2: one rung, one block per member. Writes x, g, fp = [f, pgnorm] and
 // cnt = [niter, nfev, status] per member. Bounded: lo/hi hold the bounds,
 // bnd_stride apart per member (0: shared by every member).
-// Blocks an SM a kernel keeps registers for: two in the global layout,
-// whose shared memory lets two members share an SM (128 registers a
-// thread); one where vectors are on chip (plan_layout puts them there
-// only at one member an SM at most, and their shared memory leaves the SM
-// to one block). Each (chunk, blocks) pair a layout takes is its own
-// instantiation: (1, 1) all on chip, (kChunkGlobal, 1) part on chip,
-// (kChunkGlobal, 2) none.
-int min_blocks_of(int layout) { return layout == 0 ? 2 : 1; }
-
-template <typename T, bool kBounded, int kChunk, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) l96_solve_kernel(
+// Each chunk a layout takes is its own instantiation: 1 all on chip,
+// kChunkGlobal otherwise. Every instantiation has the registers of one
+// block an SM: held to 128 for two blocks an SM (the global layout's
+// shared memory would allow two), the evaluation's walk and the solver
+// spilled, and the global layout ran slower at B = 264 (PERF.md §6).
+template <typename T, bool kBounded, int kChunk>
+__global__ void __launch_bounds__(kThreads) l96_solve_kernel(
         L96Problem<T> p, SolveOpts<T> o, T rf, int layout,
         const T* __restrict__ XP, const T* __restrict__ lo,
         const T* __restrict__ hi, int bnd_stride, T* __restrict__ work,
@@ -106,12 +103,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) l96_solve_kernel(
         T* __restrict__ fp_out, int* __restrict__ cnt_out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
-    const Smem<T> sm = group_smem<BlockGroup>(s, p.N, p.D);
-    T* chip = s + solve_smem_elems(p.N, p.D);
     const int n = p.n_dof;
     const int b = blockIdx.x;
-    Bufs<T> w = member_bufs(
-        chip, work + (size_t)b * work_elems(n, o.m, layout), n, o.m, layout);
+    T* work_b = work + (size_t)b * work_elems(n, o.m, p.D, layout);
+    const Smem<T> sm = group_smem(s, work_b, n, o.m, p.D, layout);
+    T* chip =
+        s + solve_smem_elems(p.D, kAgWarps, !(layout & kRingOffChip));
+    Bufs<T> w = member_bufs(chip, work_b, n, o.m, layout);
     Box<T> bx{nullptr, nullptr};
     if (kBounded) {
         const T* lo_b = lo + (size_t)b * bnd_stride;
@@ -147,20 +145,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) l96_solve_kernel(
 // K3: k warm-started rungs at rfs[0..k), one block per member. Writes the
 // final x and per rung rec = [A, ME, pgnorm], rec_i = [niter, nfev,
 // status], each (B, k, 3).
-template <typename T, int kChunk, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) l96_ladder_kernel(
+template <typename T, int kChunk>
+__global__ void __launch_bounds__(kThreads) l96_ladder_kernel(
         L96Problem<T> p, SolveOpts<T> o, int layout,
         const T* __restrict__ rfs, int k_rungs, const T* __restrict__ XP,
         T* __restrict__ work, T* __restrict__ X_out, T* __restrict__ rec,
         int* __restrict__ rec_i) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s = reinterpret_cast<T*>(smem_raw);
-    const Smem<T> sm = group_smem<BlockGroup>(s, p.N, p.D);
     const int n = p.n_dof;
     const int b = blockIdx.x;
-    Bufs<T> w = member_bufs(s + solve_smem_elems(p.N, p.D),
-                            work + (size_t)b * work_elems(n, o.m, layout),
-                            n, o.m, layout);
+    T* work_b = work + (size_t)b * work_elems(n, o.m, p.D, layout);
+    const Smem<T> sm = group_smem(s, work_b, n, o.m, p.D, layout);
+    Bufs<T> w = member_bufs(
+        s + solve_smem_elems(p.D, kAgWarps, !(layout & kRingOffChip)), work_b,
+        n, o.m, layout);
     for (int k = threadIdx.x; k < n; k += kThreads)
         w.x[k] = XP[(size_t)b * n + k];
     const Box<T> none{nullptr, nullptr};
@@ -181,16 +180,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) l96_ladder_kernel(
         X_out[(size_t)b * n + k] = w.x[k];
 }
 
-template <typename T, bool kBounded, int kChunk, int kMinBlocks>
+template <typename T, bool kBounded, int kChunk>
 int launch_solve_kernel(const L96Problem<T>& p, const SolveOpts<T>& o,
                         double rf, int layout, const void* XP,
                         const void* lo, const void* hi, int bnd_stride,
                         void* work, void* X_out, void* G_out, void* fp_out,
                         void* cnt_out, int B, size_t smem, void* stream) {
     const cudaError_t e =
-        opt_in(l96_solve_kernel<T, kBounded, kChunk, kMinBlocks>, smem);
+        opt_in(l96_solve_kernel<T, kBounded, kChunk>, smem);
     if (e != cudaSuccess) return (int)e;
-    l96_solve_kernel<T, kBounded, kChunk, kMinBlocks>
+    l96_solve_kernel<T, kBounded, kChunk>
         <<<B, kThreads, smem, (cudaStream_t)stream>>>(
             p, o, (T)rf, layout, static_cast<const T*>(XP),
             static_cast<const T*>(lo), static_cast<const T*>(hi),
@@ -207,14 +206,10 @@ int launch_solve_kernel(const L96Problem<T>& p, const SolveOpts<T>& o,
                         void* work, void* X_out, void* G_out, void* fp_out,
                         void* cnt_out, int B, size_t smem, void* stream) {
     if (chunk_of(layout) == 1)
-        return launch_solve_kernel<T, kBounded, 1, 1>(
+        return launch_solve_kernel<T, kBounded, 1>(
             p, o, rf, layout, XP, lo, hi, bnd_stride, work, X_out, G_out,
             fp_out, cnt_out, B, smem, stream);
-    if (min_blocks_of(layout) == 1)
-        return launch_solve_kernel<T, kBounded, kChunkGlobal, 1>(
-            p, o, rf, layout, XP, lo, hi, bnd_stride, work, X_out, G_out,
-            fp_out, cnt_out, B, smem, stream);
-    return launch_solve_kernel<T, kBounded, kChunkGlobal, 2>(
+    return launch_solve_kernel<T, kBounded, kChunkGlobal>(
         p, o, rf, layout, XP, lo, hi, bnd_stride, work, X_out, G_out,
         fp_out, cnt_out, B, smem, stream);
 }
@@ -239,7 +234,7 @@ int launch_solve(const void* XP, int B, int n_dof, int N, int D, int pslot,
             || !layout_ok(layout, lo != nullptr))
         return (int)cudaErrorInvalidValue;
     const size_t smem =
-        layout_smem_elems(N, D, n_dof, m, layout) * sizeof(T);
+        layout_smem_elems(D, n_dof, m, layout) * sizeof(T);
     const L96Problem<T> p = problem<T>(n_dof, N, D, pslot, F_fixed, Y, W,
                                        lidx, lpos, N_data, L, obs_stride, h,
                                        me_norm, fe_norm);
@@ -255,15 +250,14 @@ int launch_solve(const void* XP, int B, int n_dof, int N, int D, int pslot,
                                               stream);
 }
 
-template <typename T, int kChunk, int kMinBlocks>
+template <typename T, int kChunk>
 int launch_ladder_kernel(const L96Problem<T>& p, const SolveOpts<T>& o,
                          int layout, const void* rfs, int k_rungs,
                          const void* XP, void* work, void* X_out, void* rec,
                          void* rec_i, int B, size_t smem, void* stream) {
-    const cudaError_t e =
-        opt_in(l96_ladder_kernel<T, kChunk, kMinBlocks>, smem);
+    const cudaError_t e = opt_in(l96_ladder_kernel<T, kChunk>, smem);
     if (e != cudaSuccess) return (int)e;
-    l96_ladder_kernel<T, kChunk, kMinBlocks>
+    l96_ladder_kernel<T, kChunk>
         <<<B, kThreads, smem, (cudaStream_t)stream>>>(
             p, o, layout, static_cast<const T*>(rfs), k_rungs,
             static_cast<const T*>(XP), static_cast<T*>(work),
@@ -284,46 +278,39 @@ int launch_ladder(const void* XP, int B, int n_dof, int N, int D, int pslot,
     if (m < 1 || m > kMaxM || !layout_ok(layout, false))
         return (int)cudaErrorInvalidValue;
     const size_t smem =
-        layout_smem_elems(N, D, n_dof, m, layout) * sizeof(T);
+        layout_smem_elems(D, n_dof, m, layout) * sizeof(T);
     const L96Problem<T> p = problem<T>(n_dof, N, D, pslot, F_fixed, Y, W,
                                        lidx, lpos, N_data, L, obs_stride, h,
                                        me_norm, fe_norm);
     const SolveOpts<T> o = solve_opts<T>(m, maxiter, maxls, c1, c2, pgtol,
                                          ftol);
     if (chunk_of(layout) == 1)
-        return launch_ladder_kernel<T, 1, 1>(p, o, layout, rfs, k_rungs, XP,
-                                             work, X_out, rec, rec_i, B,
-                                             smem, stream);
-    if (min_blocks_of(layout) == 1)
-        return launch_ladder_kernel<T, kChunkGlobal, 1>(
-            p, o, layout, rfs, k_rungs, XP, work, X_out, rec, rec_i, B,
-            smem, stream);
-    return launch_ladder_kernel<T, kChunkGlobal, 2>(
+        return launch_ladder_kernel<T, 1>(p, o, layout, rfs, k_rungs, XP,
+                                          work, X_out, rec, rec_i, B, smem,
+                                          stream);
+    return launch_ladder_kernel<T, kChunkGlobal>(
         p, o, layout, rfs, k_rungs, XP, work, X_out, rec, rec_i, B, smem,
         stream);
 }
 
-template <int kChunk, int kMinBlocks>
+template <int kChunk>
 const void* solve_fn(int ladder, int f64, int bounded) {
     if (ladder)
-        return f64 ? (const void*)l96_ladder_kernel<double, kChunk, kMinBlocks>
-                   : (const void*)l96_ladder_kernel<float, kChunk, kMinBlocks>;
+        return f64 ? (const void*)l96_ladder_kernel<double, kChunk>
+                   : (const void*)l96_ladder_kernel<float, kChunk>;
     if (f64)
-        return bounded
-            ? (const void*)l96_solve_kernel<double, true, kChunk, kMinBlocks>
-            : (const void*)l96_solve_kernel<double, false, kChunk, kMinBlocks>;
-    return bounded
-        ? (const void*)l96_solve_kernel<float, true, kChunk, kMinBlocks>
-        : (const void*)l96_solve_kernel<float, false, kChunk, kMinBlocks>;
+        return bounded ? (const void*)l96_solve_kernel<double, true, kChunk>
+                       : (const void*)l96_solve_kernel<double, false, kChunk>;
+    return bounded ? (const void*)l96_solve_kernel<float, true, kChunk>
+                   : (const void*)l96_solve_kernel<float, false, kChunk>;
 }
 
 // The kernel a launch of (ladder, f64, bounded) under `layout` runs: K3
 // or K2, in the layout's instantiation.
 const void* solve_fn(int ladder, int f64, int bounded, int layout) {
-    if (chunk_of(layout) == 1) return solve_fn<1, 1>(ladder, f64, bounded);
-    if (min_blocks_of(layout) == 1)
-        return solve_fn<kChunkGlobal, 1>(ladder, f64, bounded);
-    return solve_fn<kChunkGlobal, 2>(ladder, f64, bounded);
+    return chunk_of(layout) == 1 ? solve_fn<1>(ladder, f64, bounded)
+                                 : solve_fn<kChunkGlobal>(ladder, f64,
+                                                          bounded);
 }
 
 }  // namespace
@@ -333,10 +320,11 @@ extern "C" {
 // Each launch returns the cudaError_t of the launch (0 = cudaSuccess).
 // Pointers are device pointers. XP, X_out, G_out are (B, n_dof)
 // row-major; Y/W (N_data, L); lidx (L,) and lpos (D,) int32; layout the
-// flags of the groups kept on chip (1 vectors, 2 history, 4 box; see
-// l96_solve.cuh); lo/hi (n_dof,) or (B, n_dof) box bounds (bnd_stride 0
-// or n_dof), both NULL for an unbounded solve; work (B, work_elems(n_dof,
-// m, layout)) scratch (l96_solve.cuh); fp_out (B, 2) [f, pgnorm] and cnt_out
+// flags of the groups kept on chip (1 vectors, 2 history, 4 box) and 8,
+// the evaluation's rings in the workspace (see l96_solve.cuh); lo/hi
+// (n_dof,) or (B, n_dof) box bounds (bnd_stride 0 or n_dof), both NULL
+// for an unbounded solve; work (B, work_elems(n_dof, m, D, layout))
+// scratch (l96_solve.cuh); fp_out (B, 2) [f, pgnorm] and cnt_out
 // (B, 3) int32 [niter, nfev, status]; rfs (k,); rec (B, k, 3) [A, ME,
 // pgnorm] and rec_i (B, k, 3) int32 [niter, nfev, status].
 int va_l96_solve_f32(VA_SOLVE_ARGS, int layout, double rf, const void* lo,
@@ -373,9 +361,8 @@ int va_l96_ladder_f64(VA_SOLVE_ARGS, int layout, const void* rfs,
 
 // A launch's dynamic shared memory in bytes under `layout`, as the
 // launches compute it.
-long long va_l96_solve_smem(int N, int D, int n_dof, int m, int layout,
-                            int f64) {
-    return (long long)(layout_smem_elems(N, D, n_dof, m, layout)
+long long va_l96_solve_smem(int D, int n_dof, int m, int layout, int f64) {
+    return (long long)(layout_smem_elems(D, n_dof, m, layout)
                        * (f64 ? sizeof(double) : sizeof(float)));
 }
 

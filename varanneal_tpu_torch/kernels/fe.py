@@ -237,23 +237,21 @@ def select_action(spec: ProblemSpec, rf, engine: str = "auto",
             "engine='pallas' unsupported for this problem (time-dependent "
             "parameters / rf rank / non-uniform grid; see "
             "kernels.fe.fe_supported)")
-    if engine == "ag" and not ag.ag_supported(spec, rf, dtype):
+    why = ag.ag_refusal(spec, rf, dtype)
+    if engine == "ag" and why is not None:
         raise ValueError(
-            "engine='ag' unsupported for this problem (K1 takes Lorenz-96 "
-            "with the trapezoid rule, constant parameters, scalar rf, "
-            "scalar or (N_data, L) RM, float32 or float64; see "
+            f"engine='ag' unsupported for this problem: {why} (see "
             "kernels.ag.ag_supported)")
     if engine == "auto":
         if ag_preferred(spec, rf, dtype, device):
-            if not ag.ag_supported(spec, rf, dtype):
+            if why is not None:
                 raise NotImplementedError(
                     "engine='auto' at D >= 256 in float32 on the card: the "
-                    "reference runs its whole-problem kernel K1 here; the "
-                    "port's K1 takes Lorenz-96 with the trapezoid rule and "
-                    f"a scalar rf only (this problem: disc {spec.disc!r}, "
-                    f"rf rank {np.ndim(rf)}), and its widening waits for a "
-                    "later slice: see ROADMAP.md §2 (K1) and §1 items 5 "
-                    "and 8; pass engine='xla' for the autograd action")
+                    "reference runs its whole-problem kernel K1 here, and "
+                    f"the port's K1 refuses this problem: {why}. Its "
+                    "widening waits for a later slice: see ROADMAP.md §2a "
+                    "item 2 and §1 items 5 and 8; pass engine='xla' for "
+                    "the autograd action")
             engine = "ag"
         elif pallas_preferred(spec, rf, dtype, device):
             engine = "pallas"

@@ -62,18 +62,20 @@ MAX_M = 16
 MAX_RED = 6
 
 #: The layout's flags (kVectorsOnChip, kHistoryOnChip, kBoundsOnChip in
-#: csrc/l96_solve.cuh): the groups of a member's vectors in shared memory.
-VECTORS, HISTORY, BOUNDS = 1, 2, 4
+#: csrc/l96_solve.cuh): the groups of a member's vectors in shared memory;
+#: and RING_OFF (kRingOffChip), the evaluation's rings in the workspace.
+VECTORS, HISTORY, BOUNDS, RING_OFF = 1, 2, 4, 8
 
 
-def _smem_bytes(N_f, D, dtype, warps=ag._THREADS // 32):
+def _smem_bytes(D, dtype, warps=ag._WARPS, ring=True):
     """solve_smem_elems in bytes, one group of ``warps`` warps (the whole
-    block by default): the evaluation's area (K1's residuals and 3
-    partials a warp) or, where larger, the solver's, which reuses it
-    between evaluations (two areas of :data:`MAX_RED` partials a warp and
-    :data:`MAX_M` alphas), and the evaluation's 2 outputs."""
-    return (max((N_f - 1) * D + 3 * warps, 2 * MAX_RED * warps + MAX_M)
-            + 2) * (torch.finfo(dtype).bits // 8)
+    block by default): two areas of :data:`MAX_RED` partials a warp,
+    which the evaluation's partials share, :data:`MAX_M` alphas and, with
+    ``ring``, the evaluation's rings (``ag.ring_elems``). It does not grow
+    with N."""
+    return (2 * MAX_RED * warps + MAX_M
+            + (ag.ring_elems(D, warps) if ring else 0)) * (
+                torch.finfo(dtype).bits // 8)
 
 
 def _groups(n_dof, m, bounded):
@@ -87,18 +89,21 @@ def _groups(n_dof, m, bounded):
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Where a launch keeps each member's vectors: ``flags``, the groups
-    in shared memory; ``smem_bytes``, the block's dynamic shared memory;
-    ``work_elems``, a member's global workspace in elements (the groups
-    off chip; the box stays in the caller's arrays)."""
+    in shared memory (and RING_OFF); ``smem_bytes``, the block's dynamic
+    shared memory; ``work_elems``, a member's global workspace in
+    elements (the groups off chip, then the rings under RING_OFF; the box
+    stays in the caller's arrays)."""
     flags: int
     smem_bytes: int
     work_elems: int
 
 
-def layout_of(flags, N_f, D, n_dof, m, dtype, bounded) -> Layout:
+def layout_of(flags, D, n_dof, m, dtype, bounded) -> Layout:
     """The :class:`Layout` with the groups of ``flags`` on chip."""
     size = torch.finfo(dtype).bits // 8
-    smem, work = _smem_bytes(N_f, D, dtype), 0
+    ring_off = bool(flags & RING_OFF)
+    smem = _smem_bytes(D, dtype, ring=not ring_off)
+    work = ag.ring_elems(D) if ring_off else 0
     for flag, elems in _groups(n_dof, m, bounded):
         if flags & flag:
             smem += elems * size
@@ -107,43 +112,53 @@ def layout_of(flags, N_f, D, n_dof, m, dtype, bounded) -> Layout:
     return Layout(flags, smem, work)
 
 
-def plan_layout(N_f, D, n_dof, m, dtype, bounded, B, sm_count) -> Layout:
+def plan_layout(D, n_dof, m, dtype, bounded, B, sm_count) -> Layout:
     """The layout of a K2/K3 launch of ``B`` members on a card of
-    ``sm_count`` SMs. With at most one member an SM, each group of
-    :func:`_groups` in turn goes to shared memory if it fits whole in
-    what the ones before it left of the block's 227 KB
-    (:data:`ag.SMEM_LIMIT`). Above that the global layout: a block of
-    ~200 KB leaves one block an SM where the global layout fits two, so
-    the batch would run in two waves instead of one. Measured on the
-    H100 (PERF.md §6), the global layout is 1.1–1.3x faster at
-    B = 133–200, but the on-chip layout is 7–8 % faster at B = 264 and
-    528, which this rule gives up (ROADMAP.md §2 queues a rule by
-    waves)."""
+    ``sm_count`` SMs. The evaluation's rings stay on chip where they fit
+    in the block's 227 KB (:data:`ag.SMEM_LIMIT`; D up to 1,208 in
+    float32 and 603 in float64), else RING_OFF. Then, with at most one
+    member an SM, each group of :func:`_groups` in turn goes to shared
+    memory if it fits whole in what the ones before it left. Above that
+    the global layout: the rule was set when that layout ran two blocks
+    an SM where a block of ~200 KB runs one, and was then 1.1–1.3x faster
+    at B = 133–200 and 7–8 % slower at B = 264 and 528. With the
+    evaluation's walk every layout takes one block's registers, and at
+    B = 264 the on-chip layout was the faster (PERF.md §6); ROADMAP.md §2
+    queues the rule's revision."""
     size = torch.finfo(dtype).bits // 8
-    smem = _smem_bytes(N_f, D, dtype)
-    flags = 0
+    flags = 0 if _smem_bytes(D, dtype) <= ag.SMEM_LIMIT else RING_OFF
+    smem = _smem_bytes(D, dtype, ring=not flags)
     if B <= sm_count:
         for flag, elems in _groups(n_dof, m, bounded):
             if smem + elems * size <= ag.SMEM_LIMIT:
                 flags |= flag
                 smem += elems * size
-    return layout_of(flags, N_f, D, n_dof, m, dtype, bounded)
+    return layout_of(flags, D, n_dof, m, dtype, bounded)
+
+
+def solve_refusal(spec: ProblemSpec, rf, opts: LBFGSOptions,
+                  dtype=torch.float32):
+    """The first condition of :func:`solve_supported` that fails, in
+    words, or None inside the envelope."""
+    if np.ndim(rf) != 0:
+        return f"rf rank {np.ndim(rf)} (the solve kernels take a scalar rf)"
+    if not 1 <= opts.m <= MAX_M:
+        return f"m = {opts.m} (the solve kernels take 1 <= m <= {MAX_M})"
+    if opts.maxls < 1:
+        return f"maxls = {opts.maxls} (at least 1)"
+    return ag.ag_refusal(spec, 0.0, dtype)
 
 
 def solve_supported(spec: ProblemSpec, rf, opts: LBFGSOptions,
                     dtype=torch.float32) -> bool:
     """The rung-solve kernel's envelope, bounded or not: K1's
-    (:func:`ag.ag_supported`), scalar rf, 1 <= m <= :data:`MAX_M`, and one
-    block's shared memory in the global layout (the evaluation's area,
-    which the solver's partials share) within the H100's 227 KB. The
-    vectors, the history and the bounds go to shared memory only where
-    they fit (:func:`plan_layout`), so n_dof itself is not limited and a
-    bounded solve needs no more shared memory than an unbounded one."""
-    return (np.ndim(rf) == 0
-            and 1 <= opts.m <= MAX_M
-            and opts.maxls >= 1
-            and ag.ag_supported(spec, 0.0, dtype)
-            and _smem_bytes(spec.N_f, spec.D, dtype) <= ag.SMEM_LIMIT)
+    (:func:`ag.ag_supported`), scalar rf, 1 <= m <= :data:`MAX_M` and
+    maxls >= 1. Shared memory bounds nothing: the group's own area is 112
+    values plus the evaluation's rings, which go to the workspace where
+    they do not fit, and the vectors, the history and the bounds go to
+    shared memory only where they fit (:func:`plan_layout`).
+    :func:`solve_refusal` names the condition a problem fails."""
+    return solve_refusal(spec, rf, opts, dtype) is None
 
 
 def ladder_supported(spec: ProblemSpec, rf, opts: LBFGSOptions,
@@ -200,7 +215,7 @@ def typed(lib):
             fn.restype = I
             fn.argtypes = common + [I, P, I, P, P, P, P, P]
         lib.va_l96_solve_smem.restype = ctypes.c_longlong
-        lib.va_l96_solve_smem.argtypes = [I, I, I, I, I, I]
+        lib.va_l96_solve_smem.argtypes = [I, I, I, I, I]
         lib.va_l96_solve_attrs.restype = I
         lib.va_l96_solve_attrs.argtypes = [I, I, I, I, P]
         lib.va_cuda_error_string.restype = ctypes.c_char_p
@@ -274,9 +289,9 @@ def launch_layout(XP, c: ag.AgConsts, opts: LBFGSOptions, bounded=False,
     if layout is None:
         sms = torch.cuda.get_device_properties(
             XP.device).multi_processor_count
-        layout = plan_layout(c.N, c.D, n, opts.m, XP.dtype, bounded, B,
+        layout = plan_layout(c.D, n, opts.m, XP.dtype, bounded, B,
                              sms).flags
-    return layout_of(int(layout), c.N, c.D, n, opts.m, XP.dtype, bounded)
+    return layout_of(int(layout), c.D, n, opts.m, XP.dtype, bounded)
 
 
 def _check_bounds(lower, upper, XP):
@@ -393,8 +408,9 @@ def _check_envelope(spec, rf, opts):
         raise ValueError("the solve kernels take a scalar rf only")
     if not any(solve_supported(spec, rf, opts, dtype=dt)
                for dt in ag._DTYPES):
-        raise ValueError("problem outside the solve kernels' envelope (see "
-                         "solve_supported); use opt.lbfgs_minimize")
+        raise ValueError(f"problem outside the solve kernels' envelope: "
+                         f"{solve_refusal(spec, rf, opts)} (see "
+                         f"solve_supported); use opt.lbfgs_minimize")
 
 
 def flat_bounds(spec: ProblemSpec, lower, upper, device):
@@ -504,11 +520,14 @@ def pick_rung_solver(spec: ProblemSpec, rf0, opts: LBFGSOptions, *,
         return make_rung_solver(spec, opts, lower=lower, upper=upper,
                                 device=device)
     if solver == "fused":
+        why = (solve_refusal(spec, rf0, opts, dtype)
+               or ("compensated" if compensated else None)
+               or (f"method {method!r}"
+                   if method not in ("L-BFGS-B", "LBFGS") else None)
+               or "bounded_algo='subspace' with bounds")
         warnings.warn(
-            "solver='fused' unsupported for this problem (model / disc / "
-            "rf shape / dtype / shared-memory envelope / compensated / "
-            "explicit subspace bounds); using the generic solver",
-            stacklevel=3)
+            f"solver='fused' unsupported for this problem: {why}; using "
+            f"the generic solver", stacklevel=3)
     return None
 
 

@@ -1,5 +1,6 @@
 """K8: the packed-member whole rung solve, ``pack`` members a launch's
-block, each solved by its own warp-aligned group of threads.
+block (one a block at packs of 1 and 2, see :func:`block_groups`), each
+solved by its own warp-aligned group of threads.
 
 Counterpart of ``varanneal_tpu/kernels/solve_pack_pallas.py``
 (``pack_supported``, ``make_packed_rung_solver``), whose ``_pack_kernel``
@@ -38,8 +39,8 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 #: Launches of the packed solve kernel (K8) so far.
 PACK_LAUNCHES = 0
 
-#: Threads a pack block may have (kPackMaxThreads in csrc/pack_kernel.cu:
-#: its __launch_bounds__, which keeps 128 registers a thread).
+#: Threads a pack may have (kPackMaxThreads in csrc/pack_kernel.cu: the
+#: launch bound of its blocks at G = 128 and 64, 128 registers a thread).
 PACK_MAX_THREADS = 512
 #: Group sizes the kernel is built for, largest first.
 GROUPS = (256, 128, 64)
@@ -57,13 +58,38 @@ def pack_group(pack: int):
     return None
 
 
-def smem_bytes(spec: ProblemSpec, dtype, pack: int) -> int:
-    """Shared memory of one pack block: ``pack`` groups' areas (the
-    evaluation's, shared with the solver's partials), each one member's of
-    :func:`pack_group`'s warps. Every vector stays in the global
-    workspace (K2's global layout)."""
-    return pack * solve._smem_bytes(spec.N_f, spec.D, dtype,
-                                    pack_group(pack) // 32)
+def block_groups(pack: int) -> int:
+    """Groups (members) a block holds for a pack of ``pack``: one at G =
+    256, where a block of one group keeps K2's 255 registers a thread
+    (``block_groups`` in csrc/pack_kernel.cu), else the pack's."""
+    return 1 if pack_group(pack) == 256 else pack
+
+
+def smem_bytes(spec: ProblemSpec, dtype, pack: int, ring=True) -> int:
+    """Shared memory of one block of a pack of ``pack``: its
+    :func:`block_groups` groups' areas (the solver's partials, which the
+    evaluation's share, and alpha), each one member's of
+    :func:`pack_group`'s warps, with their rings when ``ring``. Every
+    vector stays in the global workspace (K2's global layout)."""
+    return block_groups(pack) * solve._smem_bytes(
+        spec.D, dtype, pack_group(pack) // 32, ring)
+
+
+def pack_layout(spec: ProblemSpec, dtype, pack: int) -> int:
+    """The layout flag of a pack launch: 0, or ``solve.RING_OFF`` where
+    a block's groups' rings do not fit in 227 KB with their areas (the
+    rings then go to the members' workspaces)."""
+    return (0 if smem_bytes(spec, dtype, pack) <= ag.SMEM_LIMIT
+            else solve.RING_OFF)
+
+
+def work_elems(c: ag.AgConsts, m: int, pack: int, flags: int) -> int:
+    """A member's workspace in elements: its vectors and history
+    (work_elems(n, m, D, layout, G / 32) of csrc/l96_solve.cuh) and, under
+    RING_OFF, its group's rings."""
+    return ((5 + 2 * m) * c.n_dof + 2 * m
+            + (ag.ring_elems(c.D, pack_group(pack) // 32)
+               if flags & solve.RING_OFF else 0))
 
 
 def _lib():
@@ -75,7 +101,8 @@ def _lib():
                   I, I, I, Dbl, Dbl, Dbl, Dbl]
         for fn in (lib.va_l96_pack_f32, lib.va_l96_pack_f64):
             fn.restype = I
-            fn.argtypes = common + [I, I, Dbl, P, P, I, P, P, P, P, P, P]
+            fn.argtypes = common + [I, I, I, Dbl, P, P, I, P, P, P, P, P,
+                                    P]
         lib.va_l96_pack_attrs.restype = I
         lib.va_l96_pack_attrs.argtypes = [I, I, I, P]
         lib.va_cuda_error_string.restype = ctypes.c_char_p
@@ -105,19 +132,21 @@ def pack_supported(spec: ProblemSpec, rf, opts: LBFGSOptions, pack: int,
     """The packed kernel's envelope, with the reference's policy: pack >=
     1, m <= :data:`MAX_M` (and maxls >= 1), a scalar rf and K1's envelope
     (:func:`ag.ag_supported`). The TPU's VMEM model becomes the card's
-    limits: pack · G threads within what the built kernel can launch
-    (``cudaFuncGetAttributes``' maxThreadsPerBlock, read on the card; on
-    the CPU, where the plain version runs, the kernel's launch bound) and
-    the ``pack`` groups' shared memory within the H100's 227 KB. False
-    outside it; it does not raise. ``device=None`` means the card."""
+    limit: a block's threads (:func:`block_groups` · G) within what the
+    built kernel can launch (``cudaFuncGetAttributes``'
+    maxThreadsPerBlock, read on the card; on the CPU, where the plain
+    version runs, the kernel's launch bound).
+    Shared memory bounds nothing: the groups' rings go to the workspace
+    where they do not fit (:func:`pack_layout`). False outside it; it does
+    not raise. ``device=None`` means the card."""
     G = pack_group(pack)
     if (G is None or not 1 <= opts.m <= MAX_M or opts.maxls < 1
-            or np.ndim(rf) != 0 or not ag.ag_supported(spec, 0.0, dtype)
-            or smem_bytes(spec, dtype, pack) > ag.SMEM_LIMIT):
+            or np.ndim(rf) != 0 or not ag.ag_supported(spec, 0.0, dtype)):
         return False
     if resolve_device(device).type != "cuda":
         return pack * G <= PACK_MAX_THREADS
-    return pack * G <= kernel_attrs(G, dtype, bounded)["max_threads"]
+    return (block_groups(pack) * G
+            <= kernel_attrs(G, dtype, bounded)["max_threads"])
 
 
 def _pad(t, pad):
@@ -149,8 +178,9 @@ def pack_reference(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
 def pack_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
                 lower=None, upper=None):
     """Launch K8 on ``XP`` (B, n_dof), a CUDA tensor of ``c``'s dtype on
-    ``c``'s device: the batch padded to a multiple of ``pack``, one block
-    a pack, one group of :func:`pack_group` threads a member, at scalar
+    ``c``'s device: the batch padded to a multiple of ``pack``, one group
+    of :func:`pack_group` threads a member, :func:`block_groups` groups a
+    block, at scalar
     ``rf``, inside the box ``lower``/``upper`` ((n_dof,) or (B, n_dof))
     when given. Returns the B members' LBFGSResult on PyTorch's current
     stream, without synchronizing. Raises on anything the kernel does not
@@ -177,14 +207,15 @@ def pack_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
     fp = torch.empty(Bp, 2, dtype=XP.dtype, device=XP.device)
     cnt = torch.empty(Bp, 3, dtype=torch.int32, device=XP.device)
     if Bp:
-        work = solve._workspace(XPp, solve.layout_of(
-            0, c.N, c.D, c.n_dof, opts.m, XP.dtype, lo is not None))
+        flags = pack_layout(c, XP.dtype, pack)
+        work = torch.empty(Bp, work_elems(c, opts.m, pack, flags),
+                           dtype=XP.dtype, device=XP.device)
         lib = _lib()
         fn = (lib.va_l96_pack_f32 if c.dtype == torch.float32
               else lib.va_l96_pack_f64)
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*solve._common_args(XPp, c, opts), int(pack), G,
+            rc = fn(*solve._common_args(XPp, c, opts), int(pack), G, flags,
                     float(rf), *bnd, work.data_ptr(), X.data_ptr(),
                     Gr.data_ptr(), fp.data_ptr(), cnt.data_ptr(), stream)
         solve._raise_on(rc, lib, "packed-solve")

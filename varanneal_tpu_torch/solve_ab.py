@@ -1,5 +1,6 @@
 """K2 and K3 of this checkout against another checkout's, on one card, in
-turns: the same bits, and the times.
+turns: each checkout's repeats bit for bit, the two checkouts' results
+side by side, and the times.
 
     python3 -m varanneal_tpu_torch.solve_ab OTHER_CHECKOUT OUT_DIR
 
@@ -21,12 +22,23 @@ inputs from fixed seeds, as chip_smoke.py does, at the main path's shape
 - the fused path: 101 warm-started K2 launches from the ladder's start;
   and the facade's Quick start: 101 K2 launches in its box, one member;
 - phase 8's short solves at β 50 at B = 4 and at B = 264 (two members an
-  SM of an H100).
+  SM of an H100);
+- short solves at BASELINE config #5's width (D = 400, N_data = 161, 160
+  observed, B = 4, maxiter 30, β 0, 25, 50, f32 and f64): K2 and K3 with
+  one rung, and their times at β 25 in f32. The other checkout may
+  refuse the shape (its envelope's ValueError), which is recorded; any
+  error of this checkout's kernels there fails the run.
 
 Each child saves every result and its CUDA-event times in ``OUT_DIR``.
-This process holds every turn's results, inputs included, to the first
-turn's bits, prints the times of both checkouts, and prints last one JSON
-object. The exit code is 0 when every result is bit-identical.
+This process holds each turn's results, inputs included, to the first
+turn of the same checkout bit for bit (the exit code is 0 when all
+are). Between the two checkouts it reports, without failing, which
+results differ in their bits and by how much: the differences in niter,
+nfev and status, the largest relative difference of each float result
+(f, A, x), and the bench's final_A_tail64 (member 0's action after the
+f64 tail) of each; a checkout may change the evaluation's f32 sums by
+design. It prints the times of both checkouts and last one JSON
+object.
 """
 
 import json
@@ -155,6 +167,39 @@ def child(checkout, out):
             solve.solve_kernel(Z, rf50, c[f32], opts_s))
         ms[f"K2 short solves B={B}"] = _events_ms(
             lambda: solve.solve_kernel(Z, rf50, c[f32], opts_s), 4)
+    # config #5's width; a checkout whose kernels refuse it records that
+    tw5 = lorenz96_twin(D=400, N_data=N_DATA, n_obs=160)
+    spec5 = build_spec(lorenz96, 400, tw5["Y"], tw5["t"], tw5["Lidx"],
+                       tw5["RM"], disc="trapezoid", P=np.array([4.0]),
+                       pidx=[0])
+    rng = np.random.default_rng(0)
+    Z5 = np.stack([pack(spec5, rng.normal(2.0, 2.0, (N_DATA, 400)),
+                        np.array([4.0 + rng.normal()])) for _ in range(4)])
+    res["D=400 inputs"] = [torch.tensor(Z5)]
+    # only the other checkout may refuse the shape, and only by the
+    # envelope's ValueError; any error of this checkout fails the turn
+    mine = os.path.realpath(checkout) == os.path.realpath(ROOT)
+    try:
+        for dt in (f32, f64):
+            c5 = ag.ag_consts(spec5, dev, dt)
+            Z = torch.tensor(Z5, dtype=dt, device=dev)
+            for beta in (0, 25, 50):
+                rf = rung_rf(4e-6 * tw5["RM"], ALPHA, beta, dt)
+                rft = torch.tensor([rf], dtype=dt, device=dev)
+                tag = f"D=400 {str(dt)[6:]} beta {beta}"
+                res[f"K2 short {tag}"] = as_list(
+                    solve.solve_kernel(Z, rf, c5, opts_s))
+                res[f"K3 short {tag}"] = as_list(
+                    solve.ladder_kernel(Z, rft, c5, opts_s))
+                if dt == f32 and beta == 25:
+                    ms["K2 short solves D=400"] = _events_ms(
+                        lambda: solve.solve_kernel(Z, rf, c5, opts_s), 4)
+        torch.cuda.synchronize()
+    except ValueError as e:
+        if mine:
+            raise
+        res["D=400 refused"] = [torch.tensor([1])]
+        print(f"D=400: {e}")
     torch.cuda.synchronize()
     nfev = res["K3 f32 ladder"][4]
     ms["K3 us an evaluation"] = (1e3 * ms["K3 f32 101-rung launch"]
@@ -185,25 +230,70 @@ def main(argv):
             print(proc.stdout + proc.stderr)
             raise SystemExit(f"solve_ab: the {tag} turn failed")
         got.append((tag, torch.load(path)))
-    ref = got[0][1]["results"]
+    first = {tag: got[turns.index((tag, root))][1]["results"]
+             for tag, root in turns}
     bits = {}
-    for i, (tag, g) in enumerate(got[1:], 1):
+    for i, (tag, g) in enumerate(got):
+        if g["results"] is first[tag]:
+            continue
         for k, v in g["results"].items():
+            ref = first[tag].get(k)
             bits[f"turn {i} ({tag}): {k}"] = (
-                len(v) == len(ref[k])
-                and all(torch.equal(a, b) for a, b in zip(v, ref[k])))
+                ref is not None and len(v) == len(ref)
+                and all(torch.equal(a, b) for a, b in zip(v, ref)))
+    diffs = {k: _difference(first["other"][k], v)
+             for k, v in first["this"].items() if k in first["other"]}
+    only = sorted(set(first["this"]) ^ set(first["other"]))
     ms = {tag: {k: float(np.mean([g["ms"][k] for t, g in got if t == tag]))
-                for k in got[0][1]["ms"]} for tag in ("other", "this")}
+                for k in next(g["ms"] for t, g in got if t == tag)}
+          for tag in ("other", "this")}
     for k in ms["this"]:
-        print(f"{k}: other {ms['other'][k]:.4f}, this {ms['this'][k]:.4f}"
-              f" ({ms['other'][k] / ms['this'][k]:.3f}x)")
-    print("DIFFERENT from the first turn: "
+        o = ms["other"].get(k)
+        print(f"{k}: other "
+              + (f"{o:.4f}" if o is not None else "not run")
+              + f", this {ms['this'][k]:.4f}"
+              + (f" ({o / ms['this'][k]:.3f}x)" if o is not None else ""))
+    tails = {tag: float(first[tag]["K3 f64 tail"][1][0, -1])
+             for tag in ("other", "this")}
+    print(f"final_A_tail64 (member 0): other {tails['other']:.6f}, this "
+          f"{tails['this']:.6f}")
+    print("this against other, bit-identical: "
+          + (", ".join(k for k, d in diffs.items() if d is None) or "none"))
+    for k, d in diffs.items():
+        if d is not None:
+            print(f"this against other, {k}: {d}")
+    if only:
+        print("in one checkout only: " + ", ".join(only))
+    print("DIFFERENT from the same checkout's first turn: "
           + (", ".join(k for k, v in bits.items() if not v) or "none"))
     ok = all(bits.values())
-    print(json.dumps(dict(card=smi, all_bit_identical=ok, checks=len(bits),
-                          ms=ms, runs={f"{i} {t}": g["ms"]
-                                       for i, (t, g) in enumerate(got)})))
+    print(json.dumps(dict(card=smi, repeats_bit_identical=ok,
+                          checks=len(bits), final_A_tail64=tails,
+                          this_vs_other=diffs,
+                          only_in_one=only, ms=ms,
+                          runs={f"{i} {t}": g["ms"]
+                                for i, (t, g) in enumerate(got)})))
     return 0 if ok else 1
+
+
+def _difference(a, b):
+    """None where the lists of tensors ``a`` and ``b`` are bit-identical;
+    else, per position that differs, the integer results' summed
+    difference and number of differing entries, or the float results'
+    largest difference relative to the largest magnitude of ``a``."""
+    if len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b)):
+        return None
+    out = {}
+    for i, (u, v) in enumerate(zip(a, b)):
+        if torch.equal(u, v):
+            continue
+        if u.is_floating_point():
+            scale = float(u.abs().max()) or 1.0
+            out[i] = f"max rel {float((v - u).abs().max()) / scale:.3e}"
+        else:
+            out[i] = (f"sum {int(v.sum()) - int(u.sum()):+d}, "
+                      f"{int((u != v).sum())} entries differ")
+    return out
 
 
 if __name__ == "__main__":
