@@ -186,6 +186,14 @@ timed on its own line:
    timed by CUDA events and by torch.profiler, beside its plain version,
    its bound, and the autograd action's value+grad (the yardstick); the
    Hermite–Simpson kernels also at B=8 in f64 (K6d, the ensemble's path);
+   then K6 on NaKL with its stimulus (BASELINE config #3's twin): the
+   hand-written f, Jᵀv and parameter adjoint of csrc/nakl.cuh against the
+   plain versions (the torch model and torch.func.vjp) under
+   Hermite–Simpson at N_f = 6,001 (B=1, and B=4, 8 and 64: phase 27b's
+   polish and screen batches) and the one-step discs
+   at N_f = 3,001, with Pidx [1..5], all 18 parameters and the 18 in the
+   log model, f64 (1e-12) and f32 (2e-5), scalar and (N_f-1, 4) rf,
+   repeats bit-identical; timed at phase 27's shapes;
 19. an f64 10-rung ladder at config #2 (B=2, from near the twin's truth,
    rf0 = RM, pgtol 1e-8) through K6 and through the autograd action: A
    within 1e-8 relative at every mutually converged rung;
@@ -247,7 +255,22 @@ timed on its own line:
    solver, and parallel.make_ensemble_ladder runs the ladder with one K2
    launch a rung (each timed by CUDA events around it); every record
    finite, every status in {0, 1, 2}; its wall time, ms an init, total
-   nfev and the final action's percentiles printed.
+   nfev and the final action's percentiles printed;
+27. BASELINE config #3 (CONF3): (a) examples/nakl.py's problem (NaKL,
+   N=3001, N_f = 6,001, the stimulus, Pidx [1..5], the boxes, RF0 1e-5,
+   alpha 1.6, maxiter 5000, f64) through the facade with
+   engine='pallas' (K6c) over its first 24 of 81 rungs and with
+   engine='xla' over the first 10: K6c launched at least once an
+   evaluation, no other kernel, A within 1e-8 at the first 10 rungs
+   where both converged; walls, nfev and the estimates printed; (b)
+   workflow.estimate on examples/nakl_ensemble.py's default campaign
+   (B=64 from nakl_ensemble_inits(seed 3), rf0 1e-5·[1, 1e3, 1e3, 1e3],
+   the f32 projection screen cut to 12 of 61 rungs with the snapshot at
+   rung 8, the f64 polish of the top 4 up 2 extra rungs at the
+   example's maxiter 2000), its action from
+   fe.select_action(engine='pallas'): K6d and K7a launched, a checkpoint
+   after every chunk, phase 1 resumed from its checkpoint after rung 4
+   bit-identical, the best member's parameters printed.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -270,7 +293,12 @@ measured count, and K2's short_b4_ms / short_b264_ms phase 8's
 times in the three layouts; K6's
 launches those of its path, phase 21's xla bench for the one-step kernels
 and phase 20's facade for the Hermite–Simpson ones, its times phase
-18's, with K6d's batched_* at B=8 in f64 and the ensemble's launches;
+18's, with K6d's batched_* at B=8 in f64 and the ensemble's launches,
+and the one-step kernels' nakl_* their NaKL errors and times (phase
+18); fe_sh_fwd_nakl / fe_sh_bwd_nakl are K6c/K6d on NaKL, their
+launches phase 27a's (batched_launches 27b's), their errors phase 18's
+NaKL checks and their times phase 18's at 27a's shape (f64, B=1;
+batched_* the screen's f32, B=64);
 K5's launches phase 23's, its times phase 22's; K8's launches phase 25's
 BENCH_PACK=2 run's, its times phase 24's; K1's, K2's, K3's and K4's
 d400_max_rel_err their phase's check at D=400, K1's d400_ms and K2's
@@ -322,6 +350,31 @@ CONF2 = dict(D=100, N_data=121, n_obs=40, sigma=1.0, n_beta=61, alpha=1.6,
 # pgtol 1e-4, ftol 1e-6
 CONF5 = dict(D=400, N_data=161, n_obs=160, B=1024, seed=12, n_beta=51,
              chunk=17, alpha=1.5, maxiter=300)
+# BASELINE config #3 as examples/nakl.py runs it: NaKL (D=4, 19
+# parameters), V observed, nakl_twin(N=3001, dt=0.04, sigma=1, seed=7),
+# Hermite–Simpson (N_f = 6,001), Pidx [1..5] from the example's wrong
+# guesses, its boxes, RM = 1/sigma^2, RF0 = 1e-5, alpha 1.6, 81 rungs,
+# maxiter 5000, f64 (phase 27a runs the first rungs_a through K6c and
+# holds the autograd action's first rungs_held to them); and
+# examples/nakl_ensemble.py's default campaign (phase 27b): its bipolar
+# twin (seed 7, seg 75, -25..60), the nakl_param_boxes boxes of Pidx
+# [1..5], B = 64 members from nakl_ensemble_inits(default_rng(3)), rf0 =
+# 1e-5·[1, 1e3, 1e3, 1e3] over (N_f-1, 4), alpha 1.6, an f32 screen on
+# the projection algorithm (m 5, maxiter 400, pgtol 1e-4, ftol 1e-6,
+# chunks of 2 rungs; 61 rungs, snapshot at rung 40, cut to rungs_b and
+# snap_b) and the f64 polish of the top 4 (maxiter 2000, not cut;
+# pgtol 1e-10, ftol 1e-14) from the snapshot up 10 extra
+# rungs (cut to extra_b)
+CONF3 = dict(N=3001, dt=0.04, sigma=1.0, seed=7, alpha=1.6, rf0=1e-5,
+             n_beta=81, rungs_a=24, rungs_held=10, maxiter_a=5000,
+             P0=[80.0, 40.0, 30.0, -60.0, 0.5],
+             bounds=[(-150.0, 70.0), (0.0, 1.0), (0.0, 1.0), (0.0, 1.0),
+                     (50.0, 200.0), (20.0, 80.0), (5.0, 60.0),
+                     (-100.0, -50.0), (0.05, 1.0)],
+             B=64, ens_seed=3, n_beta_b=61, rungs_b=12, snap_b=8,
+             extra_b=2, maxiter_b=400, polish_maxiter=2000, polish_top=4,
+             gate_rf_scale=1000.0)
+PIDX3 = [1, 2, 3, 4, 5]
 # the box of phase 12 (tests/test_solve_pallas.py's) and of the facade
 BOX_TEST = [(-6.0, 6.0)] * 20 + [(3.0, 6.0)]
 BOX_FACADE = [(-10.0, 10.0)] * 20 + [(2.0, 12.0)]
@@ -553,34 +606,463 @@ def config5_problem():
     return tw, spec
 
 
+def config3_problem(disc="SimpsonHermite", pidx=PIDX3, log=False, tw=None):
+    """BASELINE config #3's twin and a spec of it as examples/nakl.py
+    builds them (V observed, RM = 1/sigma^2, the stimulus), under ``disc``
+    with ``pidx`` estimated; ``log``: the model of
+    nakl_log_model(NAKL_TAU_IDX + NAKL_G_IDX). ``tw`` reuses a twin."""
+    from varanneal_tpu_torch.models import (NAKL_G_IDX, NAKL_TAU_IDX,
+                                            nakl_log_model)
+    from varanneal_tpu_torch.ops import build_spec
+    from varanneal_tpu_torch.twin import nakl_twin
+    if tw is None:
+        tw = nakl_twin(N=CONF3["N"], dt=CONF3["dt"], sigma=CONF3["sigma"],
+                       seed=CONF3["seed"])
+    f, P = nakl_log_model(NAKL_TAU_IDX + NAKL_G_IDX if log else ())
+    spec = build_spec(f, 4, tw["V"], tw["t"], [0], 1.0 / tw["sigma"] ** 2,
+                      disc=disc, P=P, pidx=list(pidx), stim=tw["stim"])
+    return tw, spec
+
+
+def model_grid_v(spec, tw):
+    """The data voltage on the model grid (linear in between), as
+    examples/nakl_ensemble.py slaves its initial paths to it."""
+    n = tw["V"].shape[0]
+    return np.interp(np.arange(spec.N_f) * (n - 1) / (spec.N_f - 1),
+                     np.arange(n), tw["V"][:, 0])
+
+
+def nakl_draws(spec, tw, B, seed, log=False, dtype=np.float64):
+    """B campaign-style points (nakl_ensemble_inits from
+    default_rng(seed)): the data voltage, steady-state gates with jitter,
+    parameters uniform in the nakl_param_boxes boxes of spec.pidx (on the
+    log scale for ``log``); (B, n_dof)."""
+    from varanneal_tpu_torch.models import (nakl_ensemble_inits,
+                                            nakl_param_boxes)
+    pb, _ = nakl_param_boxes(spec.pidx, log_tau=log, log_g=log)
+    return nakl_ensemble_inits(np.random.default_rng(seed), B, pb,
+                               [model_grid_v(spec, tw)], pidx=spec.pidx,
+                               dtype=dtype)
+
+
+def plain_k6(X, pest, rf, c):
+    """K6's plain versions on the same (card) tensors: the forward's
+    partials, the gradient rows and the full parameter gradient (B, NP),
+    as fe.fe_partials and fe.fe_adjoint return them."""
+    from varanneal_tpu_torch.kernels import fe
+    P = fe.full_params(pest, c)
+    if c.sh:
+        out = fe.sh_bwd_reference(X, pest, rf, c)
+        return (fe.sh_fwd_reference(X, pest, rf, c),
+                fe.sh_join(*out[:3], c), fe.param_grad(out[3], P, c))
+    g, gp = fe.onestep_bwd_reference(X, pest, rf, c)
+    return (fe.onestep_fwd_reference(X, pest, rf, c), g,
+            fe.param_grad(gp, P, c))
+
+
+def k6_times(fk, fp, ref_f, ref_b, X, pest, rf, c, kf, kb):
+    """Each of K6's two kernels of a disc at one shape: ms a launch by
+    CUDA events (1000 launches), device ms by torch.profiler (200), the
+    plain version's ms (200), and the bound (fe_work)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            fk(X, pest, rf, c)
+            fp(X, pest, rf, c)
+        torch.cuda.synchronize()
+    out = {}
+    for kern, fn_k, fn_p in ((kf, fk, ref_f), (kb, fp, ref_b)):
+        rows = [(device_us(e), e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and f"fe_{kern}" in e.key]
+        w = fe_work(kern, c, X.shape[0], isinstance(rf, torch.Tensor))
+        out[kern] = dict(
+            ms=events_ms(lambda: fn_k(X, pest, rf, c)),
+            plain_ms=events_ms(lambda: fn_p(X, pest, rf, c), n=200),
+            device_ms=(rows[0][0] / rows[0][1] / 1e3
+                       if rows and rows[0][0] > 0 else None),
+            bound=bound_of(*w, dtype=c.dtype), work=w)
+    return out
+
+
+def k6_nakl(dev, tw3):
+    """Phase 18's NaKL part: K6 on config #3's twin against its plain
+    versions on the card: Hermite–Simpson at N_f = 6,001 (K6c, B=1; K6d,
+    B=4, 8 and CONF3['B']: phase 27b's polish and screen batches), the
+    one-step discs at N_f = 3,001 (B=2), each with Pidx [1..5],
+    all 18 estimated and the 18 in the log model, f64 (1e-12) and f32
+    (2e-5) on the value and on the gradient over max|g| (states and
+    parameters), scalar and (N_f-1, 4) rf (the campaign's 1e-5·[1, 1e3,
+    1e3, 1e3]) at beta 0 and 30, repeats bit-identical; then the kernels
+    timed at their paths' shapes. Returns (max abs errors, max relative
+    errors, times), keyed by kernel."""
+    from varanneal_tpu_torch.kernels import fe
+    err = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_bwd=0.0)
+    rel = dict(err)
+    rf_dir = np.array([1.0, 1e3, 1e3, 1e3])
+    variants = ((PIDX3, False), (list(range(1, 19)), False),
+                (list(range(1, 19)), True))
+    for disc, B in (("SimpsonHermite", 1), ("SimpsonHermite", 4),
+                    ("SimpsonHermite", 8), ("SimpsonHermite", CONF3["B"]),
+                    ("trapezoid", 2), ("euler", 2), ("forwardmap", 2)):
+        kf, kb = (("sh_fwd", "sh_bwd") if disc == "SimpsonHermite"
+                  else ("onestep_fwd", "onestep_bwd"))
+        for pidx, log in variants:
+            _, sp = config3_problem(disc, pidx, log, tw=tw3)
+            draws = nakl_draws(sp, tw3, B, 18, log)
+            for dtype in (torch.float64, torch.float32):
+                tol = 1e-12 if dtype == torch.float64 else 2e-5
+                c = fe.fe_consts(sp, dtype, dev, block_n=64)
+                Z = torch.tensor(draws, dtype=dtype, device=dev)
+                X = Z[:, : sp.n_state].reshape(B, sp.N_f, sp.D)
+                pest = Z[:, sp.n_state:]
+                worst = [0.0, 0.0]
+                for beta in (0, 30):
+                    rf_b = _scalar_rf(CONF3["rf0"] * CONF3["alpha"] ** beta,
+                                      dtype)
+                    for rf in (rf_b, torch.tensor(np.broadcast_to(
+                            rf_dir * rf_b, (sp.N_f - 1, 4)).copy(),
+                            dtype=dtype, device=dev)):
+                        p_k = fe.fe_partials(X, pest, rf, c)
+                        g_k, gp_k = fe.fe_adjoint(X, pest, rf, c)
+                        torch.cuda.synchronize()
+                        p_r, g_r, gp_r = plain_k6(X, pest, rf, c)
+                        v_k, v_r = p_k.sum(1), p_r.sum(1)
+                        rel_v = float(torch.max(torch.abs(v_k - v_r)
+                                                / torch.abs(v_r)))
+                        scale = torch.maximum(
+                            torch.amax(torch.abs(g_r), dim=(1, 2)),
+                            torch.amax(torch.abs(gp_r), dim=1))
+                        rel_g = float(torch.max(torch.maximum(
+                            torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
+                            torch.amax(torch.abs(gp_k - gp_r), dim=1))
+                            / scale))
+                        worst = [max(worst[0], rel_v), max(worst[1], rel_g)]
+                        rel[kf] = max(rel[kf], rel_v)
+                        rel[kb] = max(rel[kb], rel_g)
+                        err[kf] = max(err[kf],
+                                      float(torch.max(torch.abs(p_k - p_r))))
+                        err[kb] = max(
+                            err[kb], float(torch.max(torch.abs(g_k - g_r))),
+                            float(torch.max(torch.abs(gp_k - gp_r))))
+                        check(rel_v <= tol and rel_g <= tol,
+                              f"K6 NaKL {disc} B={B} {len(pidx)} estimated"
+                              f"{' (log)' if log else ''} {dtype} disagrees "
+                              f"with its plain version at beta={beta}: "
+                              f"value {rel_v:.3e}, gradient {rel_g:.3e}")
+                        again = fe.fe_adjoint(X, pest, rf, c)
+                        check(torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
+                              and torch.equal(g_k, again[0])
+                              and torch.equal(gp_k, again[1]),
+                              f"K6 NaKL {disc} {dtype}: a repeat is not "
+                              "bit-identical")
+                print(f"K6 NaKL {disc} N_f={sp.N_f} B={B}, {len(pidx)} "
+                      f"estimated{' in the log model' if log else ''}, "
+                      f"{str(dtype)[6:]}, rows a block {c.bn_fwd}/"
+                      f"{c.bn_bwd}, scalar and (N_f-1, 4) rf at beta 0, 30: "
+                      f"value rel err {worst[0]:.3e}, gradient rel err "
+                      f"{worst[1]:.3e} of max|g| (bound {tol:g}); repeats "
+                      "bit-identical")
+    # times at the paths' shapes: phase 27a's K6c (f64, B=1), phase 27b's
+    # screen through K6d (f32, B=64) and a one-step disc (trapezoid, f32,
+    # B=1), Pidx [1..5], scalar rf of beta 30
+    times = {}
+    for tag, disc, dtype, B in (("path", "SimpsonHermite", torch.float64, 1),
+                                ("batched", "SimpsonHermite", torch.float32,
+                                 CONF3["B"]),
+                                ("onestep", "trapezoid", torch.float32, 1)):
+        _, sp = config3_problem(disc, tw=tw3)
+        c = fe.fe_consts(sp, dtype, dev, block_n=64)
+        Z = torch.tensor(nakl_draws(sp, tw3, B, 27), dtype=dtype, device=dev)
+        X = Z[:, : sp.n_state].reshape(B, sp.N_f, sp.D)
+        pest = Z[:, sp.n_state:]
+        rf = _scalar_rf(CONF3["rf0"] * CONF3["alpha"] ** 30, dtype)
+        if c.sh:
+            t = k6_times(fe.sh_fwd_kernel, fe.sh_bwd_kernel,
+                         fe.sh_fwd_reference, fe.sh_bwd_reference, X, pest,
+                         rf, c, "sh_fwd", "sh_bwd")
+        else:
+            t = k6_times(fe.onestep_fwd_kernel, fe.onestep_bwd_kernel,
+                         fe.onestep_fwd_reference, fe.onestep_bwd_reference,
+                         X, pest, rf, c, "onestep_fwd", "onestep_bwd")
+        times[tag] = t
+        for kern, r in t.items():
+            w = r["work"]
+            nb = c.n_fwd_blocks if "fwd" in kern else c.n_bwd_blocks
+            print(f"K6 NaKL {kern} {str(dtype)[6:]} ({disc}, N_f={sp.N_f}, "
+                  f"B={B}, {nb} blocks): {r['ms']:.5f} ms a launch (CUDA "
+                  "events), "
+                  "device time "
+                  + (f"{r['device_ms']:.5f} ms (torch.profiler)"
+                     if r["device_ms"] is not None
+                     else "not measured (no device events)")
+                  + f"; plain {r['plain_ms']:.5f} ms; bound "
+                  f"{r['bound'][0]:.3e} ms ({r['bound'][1]}: {w[0]} bytes, "
+                  f"{w[1]} operations)")
+    return err, rel, times
+
+
+def config3_facade(dev, tw3, zero_counts, run_counts):
+    """Phase 27a: examples/nakl.py's problem through the facade in f64,
+    Annealer(device) with engine='pallas' (K6c) over its first
+    CONF3['rungs_a'] rungs and engine='xla' (the autograd action) over its
+    first CONF3['rungs_held']: records finite, exit flags in {0, 1, 2},
+    K6c launched at least once an evaluation on the K6 run and never on
+    the autograd run, no other kernel of the port (the f64 projection
+    loop launches no K7a), and A within 1e-8 relative at every rung of the
+    first CONF3['rungs_held'] where both runs converged (at least 80 % of
+    them). Later rungs are not held: from rung 11 the two f64 runs part at
+    round-off (25 iterations a rung of a stiff problem) and stop, at the
+    example's pgtol (the facade's floor, 1e-4), at other points of a flat
+    valley. Returns the phase's numbers."""
+    from varanneal_tpu_torch.api import Annealer
+    from varanneal_tpu_torch.models import NAKL_P_TRUE, NAKL_PNAMES, nakl
+    n_held = CONF3["rungs_held"]
+    print(f"config #3 cut (phase 27a): rungs 0..{CONF3['rungs_a'] - 1} of "
+          f"{CONF3['n_beta']} through K6c, 0..{n_held - 1} through the "
+          f"autograd action; maxiter {CONF3['maxiter_a']} (not cut); "
+          f"N={CONF3['N']}, D=4, Pidx {PIDX3}, the stimulus and the boxes "
+          "as the example's")
+    N = CONF3["N"]
+    P0 = np.asarray(NAKL_P_TRUE, float).copy()
+    P0[PIDX3] = CONF3["P0"]
+    X0 = np.column_stack([tw3["V"][:, 0], np.full(N, 0.5), np.full(N, 0.5),
+                          np.full(N, 0.5)])
+    runs = {}
+    for engine, n_rung in (("pallas", CONF3["rungs_a"]), ("xla", n_held)):
+        ann = Annealer(device=dev)
+        ann.set_model(nakl, 4)
+        ann.set_data(tw3["V"], stim=tw3["stim"], t=tw3["t"])
+        zero_counts()
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        ann.anneal(X0, P0, alpha=CONF3["alpha"],
+                   beta_array=np.arange(n_rung), RM=1.0 / tw3["sigma"] ** 2,
+                   RF0=CONF3["rf0"], Lidx=[0], Pidx=PIDX3,
+                   disc="SimpsonHermite", bounds=CONF3["bounds"],
+                   opt_args=dict(maxiter=CONF3["maxiter_a"]),
+                   dtype=torch.float64, engine=engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_a
+        cnt = run_counts()
+        nfev = int(ann.nfev_array.sum())
+        niter = int(ann.niter_array.sum())
+        p_est = ann.minpaths_P[-1]
+        runs[engine] = dict(ann=ann, wall=wall, cnt=cnt, nfev=nfev,
+                            niter=niter)
+        print(f"config #3 facade, engine={engine!r} (f64, {n_rung} rungs): "
+              f"wall {wall:.2f} s; niter {niter}, nfev {nfev}, "
+              f"{1e3 * wall / max(niter, 1):.3f} ms a loop iteration; exit "
+              "flags per code 0..2 "
+              f"{np.bincount(ann.exitflags, minlength=3).tolist()}; niter "
+              f"per rung {ann.niter_array.tolist()}; final A "
+              f"{float(ann.A_array[-1]):.6g}; launches {cnt}; estimates "
+              + ", ".join(f"{NAKL_PNAMES[pi]} {p_est[j]:.4f} (truth "
+                          f"{NAKL_P_TRUE[pi]})"
+                          for j, pi in enumerate(PIDX3)))
+        check(ann.A_array.shape == (n_rung,)
+              and bool(np.isfinite(ann.A_array).all())
+              and set(np.unique(ann.exitflags)) <= {0, 1, 2},
+              f"config #3 facade ({engine}): records or exit flags")
+        others = [k for k in cnt if k not in ("k6_sh_fwd", "k6_sh_bwd")]
+        check(all(cnt[k] == 0 for k in others),
+              f"config #3 facade ({engine}) launched another kernel: {cnt}")
+    ck, cx = runs["pallas"]["cnt"], runs["xla"]["cnt"]
+    check(ck["k6_sh_fwd"] >= runs["pallas"]["nfev"] > 0
+          and ck["k6_sh_bwd"] >= runs["pallas"]["nfev"],
+          f"config #3 facade did not evaluate through K6c: {ck}")
+    check(cx["k6_sh_fwd"] == 0 and cx["k6_sh_bwd"] == 0,
+          f"config #3 facade (xla) launched K6: {cx}")
+    ax, ak = runs["xla"]["ann"], runs["pallas"]["ann"]
+    ek, Ak = ak.exitflags[:n_held], ak.A_array[:n_held]
+    conv = (ax.exitflags == 0) & (ek == 0)
+    rel = np.where(conv, np.abs(Ak - ax.A_array) / np.abs(ax.A_array), 0.0)
+    print(f"config #3 facade, K6c vs the autograd action over rungs "
+          f"0..{n_held - 1}: mutually converged rungs {int(conv.sum())}/"
+          f"{n_held}; max rel A difference there {rel.max():.3e} (bound "
+          "1e-8)")
+    check(conv.mean() >= 0.8, f"config #3 facade: too few converged rungs "
+          f"{ax.exitflags} {ek}")
+    check(np.all(rel <= 1e-8), f"config #3 facade: K6c and the autograd "
+          f"action disagree: {rel}")
+    return dict(
+        {f"{e}_{k}": runs[e][k] for e in runs
+         for k in ("wall", "nfev", "niter")},
+        launches=ck, rungs=CONF3["rungs_a"], rungs_held=n_held,
+        max_rel_A=float(rel.max()), converged=int(conv.sum()))
+
+
+def config3_campaign(dev, zero_counts, run_counts):
+    """Phase 27b: workflow.estimate on examples/nakl_ensemble.py's default
+    problem, built as the example builds it, with its action from
+    fe.select_action(engine='pallas'): the f32 screen of B=64 members
+    (K6d and, through the projection loop, K7a), the snapshot, and the f64
+    polish of the top 4 (K6d in f64). Checks the launches, a checkpoint
+    after every chunk, phase 1 resumed from its checkpoint after rung 4
+    giving the same bits, finite records; prints the best member's
+    parameters against the truth. Returns the phase's numbers."""
+    from varanneal_tpu_torch import workflow
+    from varanneal_tpu_torch.anneal import checkpoint as ckmod
+    from varanneal_tpu_torch.api import build_bounds
+    from varanneal_tpu_torch.kernels import fe
+    from varanneal_tpu_torch.models import (NAKL_P_TRUE, NAKL_PNAMES,
+                                            NAKL_STATE_BOUNDS,
+                                            nakl_ensemble_inits,
+                                            nakl_log_model,
+                                            nakl_param_boxes)
+    from varanneal_tpu_torch.ops import build_spec
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    from varanneal_tpu_torch.twin import nakl_twin
+    n_beta, snap, extra = CONF3["rungs_b"], CONF3["snap_b"], CONF3["extra_b"]
+    print(f"config #3 cut (phase 27b): screen rungs 0..{n_beta - 1} of "
+          f"{CONF3['n_beta_b']}, snapshot at rung {snap} (the example's "
+          f"{CONF3['n_beta_b'] - 21}), polish {extra} extra rungs (10); "
+          f"the polish's maxiter {CONF3['polish_maxiter']}, the screen's "
+          f"maxiter {CONF3['maxiter_b']} and B={CONF3['B']} not cut")
+    tw = nakl_twin(N=CONF3["N"], dt=CONF3["dt"], sigma=CONF3["sigma"],
+                   seed=CONF3["seed"], seg=75, i_min=-25.0, i_max=60.0)
+    pbounds, log_idx = nakl_param_boxes(PIDX3)
+    model_f, P_base = nakl_log_model(log_idx)
+    bounds = list(NAKL_STATE_BOUNDS) + list(pbounds)
+    rf_dir = np.array([1.0, CONF3["gate_rf_scale"], CONF3["gate_rf_scale"],
+                       CONF3["gate_rf_scale"]])
+
+    def make_problem(dtype):
+        spec = build_spec(model_f, 4, tw["V"].astype(dtype), tw["t"], [0],
+                          1.0, disc="SimpsonHermite", P=P_base, pidx=PIDX3,
+                          stim=tw["stim"])
+        rf0 = np.broadcast_to(CONF3["rf0"] * rf_dir, (spec.N_f - 1, 4))
+        act, parts = fe.select_action(
+            spec, rf0, engine="pallas",
+            dtype=torch.float32 if dtype == np.float32 else torch.float64,
+            device=dev)
+        lo, hi = build_bounds(spec, bounds, dtype)
+        return act, parts, lo, hi, spec
+
+    act32, parts32, lo32, hi32, spec = make_problem(np.float32)
+    check(act32.engine == "pallas", "config #3 campaign: not K6's engine")
+    xp0 = nakl_ensemble_inits(np.random.default_rng(CONF3["ens_seed"]),
+                              CONF3["B"], pbounds,
+                              [model_grid_v(spec, tw)], pidx=PIDX3,
+                              dtype=np.float32)
+    rf0 = np.ascontiguousarray(np.broadcast_to(
+        CONF3["rf0"] * rf_dir, (spec.N_f - 1, 4))).astype(np.float32)
+    betas = np.arange(n_beta, dtype=np.float32)
+    opts = LBFGSOptions(maxiter=CONF3["maxiter_b"], m=5, pgtol=1e-4,
+                        ftol=1e-6, bounded_algo="projection")
+    opts64 = LBFGSOptions(maxiter=CONF3["polish_maxiter"], pgtol=1e-10,
+                          ftol=1e-14, bounded_algo="projection")
+    meta = dict(N=CONF3["N"], n_beta=n_beta, seed=CONF3["ens_seed"],
+                ninit=CONF3["B"], gate_rf_scale=CONF3["gate_rf_scale"])
+    writes, kept = [], {}
+    real_save = ckmod._atomic_savez
+
+    def spy(path, **arrays):
+        name = os.path.basename(path)
+        writes.append((name, int(arrays["next_idx"])))
+        if name.endswith("_p1_ckpt.npz") and int(arrays["next_idx"]) == 4:
+            kept.update(arrays)
+        real_save(path, **arrays)
+
+    ckmod._atomic_savez = spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            stem = os.path.join(tmp, "c3")
+            zero_counts()
+            torch.cuda.synchronize()
+            t_e = time.perf_counter()
+            res = workflow.estimate(
+                make_problem, xp0, betas, rf0, CONF3["alpha"], n_params=5,
+                opts=opts, snapshot_beta=snap, polish_top=CONF3["polish_top"],
+                polish_batch=CONF3["polish_top"], polish_opts=opts64,
+                polish_extra_betas=extra, checkpoint_stem=stem, save_every=2,
+                meta=meta, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_e
+            cnt = run_counts()
+            p1_writes = [i for nm, i in writes if nm == "c3_p1_ckpt.npz"]
+            pol_writes = [i for nm, i in writes if nm == "c3_pol_ckpt.npz"]
+            # phase 1 again from its checkpoint after rung 4
+            np.savez(stem + "_p1_ckpt.npz", **kept)
+            t_r = time.perf_counter()
+            r1b = workflow.phase1(
+                act32, parts32, xp0, betas, rf0, CONF3["alpha"], lower=lo32,
+                upper=hi32, opts=opts, snapshot_beta=snap,
+                checkpoint_stem=stem, save_every=2, meta=meta, spec=spec,
+                device=dev)
+            torch.cuda.synchronize()
+            wall_r = time.perf_counter() - t_r
+    finally:
+        ckmod._atomic_savez = real_save
+    r1, r2 = res.phase1, res.polish
+    p_best = res.best[spec.n_state:spec.n_state + 5]
+    codes = np.bincount(r1.status.ravel(), minlength=4)
+    print(f"config #3 campaign (workflow.estimate, B={CONF3['B']} f32 "
+          f"screen of {n_beta} rungs, snapshot at {snap}, f64 polish of the "
+          f"top {CONF3['polish_top']} over {r2.A.shape[1]} rungs): wall "
+          f"{wall:.2f} s; screen nfev {int(r1.nfev.sum())} (statuses per "
+          f"code 0..3 {codes.tolist()}); launches {cnt}; checkpoints after "
+          f"each chunk: phase 1 at dispatches {p1_writes}, polish at "
+          f"{pol_writes}; best member {res.best_member}, polished A "
+          f"{res.best_A:.6g}; estimates "
+          + ", ".join(f"{NAKL_PNAMES[pi]} {p_best[j]:.4f} (truth "
+                      f"{NAKL_P_TRUE[pi]})" for j, pi in enumerate(PIDX3))
+          + f"; phase 1 resumed from rung 4 in {wall_r:.2f} s")
+    check(cnt["k6_sh_fwd"] > 0 and cnt["k6_sh_bwd"] > 0 and cnt["k7a"] > 0,
+          f"config #3 campaign: K6d or K7a not launched: {cnt}")
+    check(all(cnt[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k8",
+                                    "k6_fwd", "k6_bwd")),
+          f"config #3 campaign launched another kernel: {cnt}")
+    n_chunks = len(range(0, snap, 2)) + len(range(snap, n_beta, 2))
+    check(len(p1_writes) == n_chunks and p1_writes[-1] == n_beta
+          and pol_writes[-1] == r2.A.shape[1],
+          f"config #3 campaign: checkpoints {writes}")
+    check(np.array_equal(r1b.A, r1.A) and np.array_equal(r1b.XP, r1.XP)
+          and np.array_equal(r1b.snapshot, r1.snapshot),
+          "config #3 campaign: phase 1 resumed from its checkpoint differs")
+    check(np.all(np.isfinite(r1.A)) and np.all(np.isfinite(r2.A))
+          and np.isfinite(res.best_A),
+          "config #3 campaign: records not finite")
+    return dict(wall=wall, wall_resume=wall_r, nfev=int(r1.nfev.sum()),
+                launches=cnt, best_A=res.best_A,
+                p_best=[float(v) for v in p_best])
+
+
 def fe_work(kernel, c, B, diag):
     """Bytes and operations of one launch of K6's ``kernel`` on B members
-    (``c``: the kernels' constants): X and F read once, an (N_f-1, D) rf
-    read once when ``diag``, the outputs written once; the kernel's
-    arithmetic, a Lorenz-96 f being 4 operations and Jᵀv 7. One-step
-    forward, per residual entry: the residual (trapezoid 12, euler 7,
-    forwardmap 5), then 2 to square and sum (3 with a weight row);
-    backward, per gradient entry: the residual, 1 to weight it, 3 for v,
-    1 to sum it, 7 for Jᵀv, 3 for the row. Hermite–Simpson, per interval
-    entry: forward three f, 6 each for S and H, 6 to weight and sum (30);
-    backward 36 for v0, vm, v1 and their sum, then S and H again and the
-    triplet (54)."""
+    (``c``: the kernels' constants): X and the parameter rows read once,
+    the stimulus (NaKL) and an (N_f-1, D) rf read once when present, the
+    outputs written once; the kernel's arithmetic, counted per entry from
+    the model's f, Jᵀv and parameter adjoint a component (Lorenz-96 4, 7
+    and 1; NaKL about 12, 28 and 23, a tanh counted as one operation, so
+    that the bound stays a lower one). One-step forward, per residual
+    entry: the residual (trapezoid 2f + 4, euler f + 3, forwardmap f + 1),
+    then 2 to square and sum (3 with a weight row); backward, per gradient
+    entry: the residual, 1 to weight it, 3 for v, the adjoint, Jᵀv and 3
+    for the row. Hermite–Simpson, per interval entry: forward three f, 6
+    each for S and H, 6 to weight and sum (3f + 18); backward the same
+    twice (S and H again in the second pass), 9 for v0, vm, v1 and their
+    weights, three adjoints, three Jᵀv and 9 for the triplet."""
     s = torch.finfo(c.dtype).bits // 8
+    f, jtv, ptv = (4, 7, 1) if c.model == "l96" else (12, 28, 23)
     n_x = B * c.N_f * c.D
-    nbytes = n_x * s + B * s + int(diag) * (c.N_f - 1) * c.D * s
-    res = {"trapezoid": 12, "euler": 7, "forwardmap": 5}.get(c.disc, 0)
+    nbytes = (n_x * s + B * c.NP * s + int(diag) * (c.N_f - 1) * c.D * s
+              + int(c.stim is not None) * c.N_f * s)
+    res = {"trapezoid": 2 * f + 4, "euler": f + 3,
+           "forwardmap": f + 1}.get(c.disc, 0)
     if kernel == "onestep_fwd":
         nbytes += B * c.n_fwd_blocks * s
         nops = B * (c.N_f - 1) * c.D * (res + 2 + int(diag))
     elif kernel == "onestep_bwd":
-        nbytes += n_x * s + B * c.n_bwd_blocks * s
-        nops = B * c.N_f * c.D * (res + 15)
+        nbytes += n_x * s + B * c.NP * c.n_bwd_blocks * s
+        nops = B * c.N_f * c.D * (res + 7 + ptv + jtv)
     elif kernel == "sh_fwd":
         nbytes += B * c.n_fwd_blocks * s
-        nops = B * c.M * c.D * 30
+        nops = B * c.M * c.D * (3 * f + 18)
     else:
-        nbytes += 3 * B * c.M * c.D * s + B * c.n_bwd_blocks * s
-        nops = B * c.M * c.D * 90
+        nbytes += 3 * B * c.M * c.D * s + B * c.NP * c.n_bwd_blocks * s
+        nops = B * c.M * c.D * (2 * (3 * f + 12) + 18 + 3 * (ptv + jtv))
     return nbytes, nops
 
 
@@ -2407,15 +2889,6 @@ def main():
     rel18 = dict(err18)     # value (forward) and gradient (backward) rel
     rng18 = np.random.default_rng(18)
 
-    def plain_k6(X, pest, rf, c):
-        """K6's plain versions on the same (card) tensors."""
-        if c.sh:
-            out = fe.sh_bwd_reference(X, pest, rf, c)
-            return (fe.sh_fwd_reference(X, pest, rf, c),
-                    fe.sh_join(*out[:3], c), out[3])
-        return (fe.onestep_fwd_reference(X, pest, rf, c),
-                *fe.onestep_bwd_reference(X, pest, rf, c))
-
     for sp, tw_, rf0_, alpha_, B_, dtypes in cases18:
         draws18 = member_draws(sp, tw_, 0, B_)
         W18 = rng18.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
@@ -2475,44 +2948,29 @@ def main():
     # plain versions and the autograd action's value+grad (the yardstick;
     # no one PyTorch call computes K6's function)
     k6 = {}
-    for sp, tw_, rf0_, alpha_, kf, kb, fk, fp in (
+    for sp, tw_, rf0_, alpha_, kf, kb, fk, fp, ref_f, ref_b in (
             (spec, tw, float(rf0), MAIN["alpha"], "onestep_fwd",
-             "onestep_bwd", fe.onestep_fwd_kernel, fe.onestep_bwd_kernel),
+             "onestep_bwd", fe.onestep_fwd_kernel, fe.onestep_bwd_kernel,
+             fe.onestep_fwd_reference, fe.onestep_bwd_reference),
             (spec2, tw2, CONF2["rf0"], CONF2["alpha"], "sh_fwd", "sh_bwd",
-             fe.sh_fwd_kernel, fe.sh_bwd_kernel)):
+             fe.sh_fwd_kernel, fe.sh_bwd_kernel, fe.sh_fwd_reference,
+             fe.sh_bwd_reference)):
         c = fe.fe_consts(sp, torch.float32, dev, block_n=64)
         Z1 = torch.tensor(member_draws(sp, tw_, 0, 1), dtype=torch.float32,
                           device=dev)
         X1 = Z1[:, : sp.n_state].reshape(1, sp.N_f, sp.D)
         p1 = Z1[:, sp.n_state:]
         rf1 = _scalar_rf(rf0_ * alpha_ ** 30, torch.float32)
-        ref_f = fe.sh_fwd_reference if c.sh else fe.onestep_fwd_reference
-        ref_b = fe.sh_bwd_reference if c.sh else fe.onestep_bwd_reference
         vag_x = value_and_grad(make_action(sp, device=dev)[0])
         vag_k6 = value_and_grad(fe.make_action_pallas(sp, block_n=64,
                                                       device=dev)[0])
         ms_ag = events_ms(lambda: vag_x(Z1, rf1), n=200)
         ms_k6a = events_ms(lambda: vag_k6(Z1, rf1), n=200)
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(200):
-                fk(X1, p1, rf1, c)
-                fp(X1, p1, rf1, c)
-            torch.cuda.synchronize()
-        for kern, fn_k, fn_p in ((kf, fk, ref_f), (kb, fp, ref_b)):
-            rows = [(device_us(e), e.count) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and f"fe_{kern}" in e.key]
-            w = fe_work(kern, c, 1, False)
-            k6[kern] = dict(
-                ms=events_ms(lambda: fn_k(X1, p1, rf1, c)),
-                plain_ms=events_ms(lambda: fn_p(X1, p1, rf1, c), n=200),
-                device_ms=(rows[0][0] / rows[0][1] / 1e3
-                           if rows and rows[0][0] > 0 else None),
-                bound=bound_of(*w), work=w, autograd_ms=ms_ag,
-                action_ms=ms_k6a)
-            r = k6[kern]
+        t = k6_times(fk, fp, ref_f, ref_b, X1, p1, rf1, c, kf, kb)
+        for kern, r in t.items():
+            r.update(autograd_ms=ms_ag, action_ms=ms_k6a)
+            k6[kern] = r
+            w = r["work"]
             print(f"K6 {kern} f32 ({sp.disc}, D={sp.D}, N_f={sp.N_f}, one "
                   f"member, {c.n_fwd_blocks if kern == kf else c.n_bwd_blocks}"
                   f" blocks): {r['ms']:.5f} ms a launch (CUDA events), "
@@ -2534,29 +2992,10 @@ def main():
     X8 = Z8[:, : spec2.n_state].reshape(CONF2["B"], spec2.N_f, spec2.D)
     p8 = Z8[:, spec2.n_state:]
     rf8 = _scalar_rf(CONF2["rf0"] * CONF2["alpha"] ** 30, torch.float64)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(200):
-            fe.sh_fwd_kernel(X8, p8, rf8, c8)
-            fe.sh_bwd_kernel(X8, p8, rf8, c8)
-        torch.cuda.synchronize()
-    k6d = {}
-    for kern, fn_k, fn_p in (("sh_fwd", fe.sh_fwd_kernel,
-                              fe.sh_fwd_reference),
-                             ("sh_bwd", fe.sh_bwd_kernel,
-                              fe.sh_bwd_reference)):
-        rows = [(device_us(e), e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and f"fe_{kern}" in e.key]
-        w = fe_work(kern, c8, CONF2["B"], False)
-        k6d[kern] = dict(
-            ms=events_ms(lambda: fn_k(X8, p8, rf8, c8)),
-            plain_ms=events_ms(lambda: fn_p(X8, p8, rf8, c8), n=200),
-            device_ms=(rows[0][0] / rows[0][1] / 1e3
-                       if rows and rows[0][0] > 0 else None),
-            bound=bound_of(*w, dtype=torch.float64))
-        r = k6d[kern]
+    k6d = k6_times(fe.sh_fwd_kernel, fe.sh_bwd_kernel, fe.sh_fwd_reference,
+                   fe.sh_bwd_reference, X8, p8, rf8, c8, "sh_fwd", "sh_bwd")
+    for kern, r in k6d.items():
+        w = r["work"]
         print(f"K6d {kern} f64 (Hermite–Simpson, D={spec2.D}, "
               f"N_f={spec2.N_f}, B={CONF2['B']}): {r['ms']:.5f} ms a launch "
               "(CUDA events), device time "
@@ -2565,6 +3004,9 @@ def main():
                  else "not measured (no device events)")
               + f"; plain {r['plain_ms']:.5f} ms; bound {r['bound'][0]:.3e}"
               f" ms ({r['bound'][1]}: {w[0]} bytes, {w[1]} operations)")
+    # NaKL on config #3's twin (the example's; phase 27a runs it too)
+    tw3, _ = config3_problem()
+    err18n, rel18n, k6n = k6_nakl(dev, tw3)
     phase("18 K6 vs plain", t0)
 
     # ---- 19. f64 ladder at config #2: K6 vs the autograd action ------------
@@ -3101,6 +3543,14 @@ def main():
     t0 = time.perf_counter()
     out26 = config5_ladder(dev, tw5, spec5)
     phase("26 config #5", t0)
+
+    # ---- 27. BASELINE config #3: the facade, then the staged workflow -----
+    t0 = time.perf_counter()
+    out27a = config3_facade(dev, tw3, zero_counts, run_counts)
+    phase("27a config #3 facade", t0)
+    t0 = time.perf_counter()
+    out27b = config3_campaign(dev, zero_counts, run_counts)
+    phase("27 config #3", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -3193,7 +3643,33 @@ def main():
                      batched_plain_ms=k6d[kern]["plain_ms"],
                      batched_bound_ms=k6d[kern]["bound"][0],
                      batched_bound_by=k6d[kern]["bound"][1])
+        else:                   # NaKL's one-step instantiations (phase 18)
+            t = k6n["onestep"][kern]
+            e.update(nakl_max_abs_err=err18n[kern],
+                     nakl_max_rel_err=rel18n[kern], nakl_ms=t["ms"],
+                     nakl_device_ms=t["device_ms"],
+                     nakl_plain_ms=t["plain_ms"],
+                     nakl_bound_ms=t["bound"][0],
+                     nakl_bound_by=t["bound"][1])
         kernels.append(e)
+    # K6c/K6d on NaKL with the stimulus (config #3): launches of phase
+    # 27a's facade (K6c, f64, B=1) and 27b's campaign (K6d), times phase
+    # 18's at those shapes (batched_*: the screen's f32 B=64)
+    for kern, rep, also in (("sh_fwd", 238, 472), ("sh_bwd", 260, 502)):
+        t, tb = k6n["path"][kern], k6n["batched"][kern]
+        kernels.append(dict(
+            name=f"fe_{kern}_nakl", model="nakl",
+            source="varanneal_tpu_torch/kernels/csrc/fe_kernel.cu",
+            replaces=f"varanneal_tpu/kernels/fe_pallas.py:{rep}",
+            replaces_also=[f"varanneal_tpu/kernels/fe_pallas.py:{also}"],
+            launches=out27a["launches"][f"k6_{kern}"],
+            max_abs_err=err18n[kern], max_rel_err=rel18n[kern],
+            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound"][0], bound_by=t["bound"][1],
+            batched_launches=out27b["launches"][f"k6_{kern}"],
+            batched_ms=tb["ms"], batched_device_ms=tb["device_ms"],
+            batched_plain_ms=tb["plain_ms"], batched_bound_ms=tb["bound"][0],
+            batched_bound_by=tb["bound"][1], **line))
     kernels.append(dict(
         name="l96_agt",
         source="varanneal_tpu_torch/kernels/csrc/agt_kernel.cu",

@@ -140,7 +140,7 @@ def test_runner_in_process_compensated_checkpointed(tmp_path):
         np.loadtxt(tmp_path / "run_action_errors.dat"), out[1])
 
 
-@pytest.mark.parametrize("name", ["nakl", "colpitts"])
+@pytest.mark.parametrize("name", ["colpitts"])
 def test_runner_waiting_models_raise(name, tmp_path):
     _data(tmp_path)
     cfg = dict(model={"name": name, "D": 4},

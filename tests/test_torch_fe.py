@@ -244,7 +244,8 @@ def test_select_action_pallas_policy(monkeypatch):
     """engine='pallas': K6 on Lorenz-96; ValueError where the reference's
     fe_supported fails (time-dependent parameters, a non-uniform grid);
     NotImplementedError naming ROADMAP.md where the reference runs K6 but
-    the port's envelope does not hold (another model, a stimulus).
+    the port's envelope does not hold (another model; Lorenz-96 with a
+    stimulus, the condition named).
     engine='auto' decided as on the card: K1 where the reference's
     ag_supported holds, K6 where it fails and pallas_preferred holds."""
     _, st, rng = _specs("SimpsonHermite", 23)
@@ -266,7 +267,7 @@ def test_select_action_pallas_policy(monkeypatch):
                       P=np.array([10.0, 28.0, 8 / 3]), pidx=[0])
     stim = build_spec(lorenz96, 6, Y, t, [0, 2], 4.0, P=np.array([8.0]),
                       pidx=[0], stim=np.ones((N, 1)))
-    for bad, item in ((st63, "item 8"), (stim, "item 5")):
+    for bad, item in ((st63, "item 8"), (stim, "with a stimulus")):
         with pytest.raises(NotImplementedError, match=item):
             fe.select_action(bad, 1e-2, engine="pallas", device="cpu")
     # engine='auto' as the card decides it (the actions are built lazily,

@@ -519,7 +519,7 @@ def test_fe_kernels_match_plain(cuda, dtype, tol):
             assert _k6_launches() == n0 + 2
             Xc, pc = X.cpu(), pest.cpu()
             rc = rf.cpu() if isinstance(rf, torch.Tensor) else rf
-            cc = dataclasses.replace(c, device=torch.device("cpu"))
+            cc = fe.fe_consts(spec, dtype, "cpu", block_n=64)
             p_r = fe.fe_partials(Xc, pc, rc, cc)
             g_r, gp_r = fe.fe_adjoint(Xc, pc, rc, cc)
             v_k, v_r = p_k.sum(1).cpu(), p_r.sum(1)
@@ -531,6 +531,66 @@ def test_fe_kernels_match_plain(cuda, dtype, tol):
                 gp_k.sum(1).cpu() - gp_r.sum(1)) / s)) <= tol
             assert torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
             assert torch.equal(g_k, fe.fe_adjoint(X, pest, rf, c)[0])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_fe_nakl_kernels_match_plain(cuda, dtype, tol):
+    """K6 on NaKL with its stimulus (BASELINE config #3's twin, cut to
+    N=601): the four discs, Pidx [1..5] and the 18 in the log model,
+    scalar and (N_f-1, 4) rf, the kernels against their plain versions
+    (the torch model, torch.func.vjp) on the CPU: the value within tol
+    relative, the gradient rows and the full parameter gradient within
+    tol of max|g|; one launch each; repeats bit-identical."""
+    from varanneal_tpu_torch.models import (NAKL_G_IDX, NAKL_TAU_IDX,
+                                            nakl_log_model, nakl_ss_gates)
+    from varanneal_tpu_torch.twin import nakl_twin
+    tw = nakl_twin(N=601, dt=0.04, sigma=1.0, seed=7)
+    rng = np.random.default_rng(5)
+    for disc in ("euler", "trapezoid", "forwardmap", "SimpsonHermite"):
+        for pidx, log_idx in (([1, 2, 3, 4, 5], ()),
+                              (list(range(1, 19)),
+                               NAKL_TAU_IDX + NAKL_G_IDX)):
+            f, P = nakl_log_model(log_idx)
+            spec = build_spec(f, 4, tw["V"], tw["t"], [0], 1.0, disc=disc,
+                              P=P, pidx=pidx, stim=tw["stim"])
+            c = fe.fe_consts(spec, dtype, cuda, block_n=64)
+            B = 3
+            V = np.interp(np.arange(spec.N_f) * 600 / (spec.N_f - 1),
+                          np.arange(601), tw["V"][:, 0])
+            g = np.stack(nakl_ss_gates(V), axis=-1)
+            X = torch.tensor(np.concatenate(
+                [np.broadcast_to(V[:, None], (B, spec.N_f, 1)),
+                 np.clip(g + 0.05 * rng.normal(size=(B, spec.N_f, 3)), 0,
+                         1)], axis=-1), dtype=dtype, device=cuda)
+            pb = np.asarray(P)[pidx]
+            pest = torch.tensor(pb + 0.05 * np.abs(pb) * rng.normal(
+                size=(B, len(pidx))), dtype=dtype, device=cuda)
+            for rf in (1e-3, torch.tensor(np.broadcast_to(
+                    1e-3 * np.array([1.0, 1e3, 1e3, 1e3]),
+                    (spec.N_f - 1, 4)).copy(), dtype=dtype, device=cuda)):
+                n0 = _k6_launches()
+                p_k = fe.fe_partials(X, pest, rf, c)
+                g_k, gp_k = fe.fe_adjoint(X, pest, rf, c)
+                torch.cuda.synchronize()
+                assert _k6_launches() == n0 + 2
+                rc = rf.cpu() if isinstance(rf, torch.Tensor) else rf
+                cc = fe.fe_consts(spec, dtype, "cpu", block_n=64)
+                p_r = fe.fe_partials(X.cpu(), pest.cpu(), rc, cc)
+                g_r, gp_r = fe.fe_adjoint(X.cpu(), pest.cpu(), rc, cc)
+                v_k, v_r = p_k.sum(1).cpu(), p_r.sum(1)
+                assert float(torch.max(torch.abs(v_k - v_r)
+                                       / v_r.abs())) <= tol
+                s = torch.maximum(torch.amax(torch.abs(g_r), dim=(1, 2)),
+                                  torch.amax(torch.abs(gp_r), dim=1))
+                assert float(torch.max(torch.amax(torch.abs(
+                    g_k.cpu() - g_r), dim=(1, 2)) / s)) <= tol
+                assert float(torch.max(torch.amax(torch.abs(
+                    gp_k.cpu() - gp_r), dim=1) / s)) <= tol
+                again = fe.fe_adjoint(X, pest, rf, c)
+                assert torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
+                assert torch.equal(g_k, again[0])
+                assert torch.equal(gp_k, again[1])
 
 
 def test_fe_action_on_the_card(cuda):

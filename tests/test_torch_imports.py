@@ -37,6 +37,10 @@ def test_import_leaves_jax_out():
             "import varanneal_tpu_torch.opt.lbfgsb\n"
             "import varanneal_tpu_torch.config\n"
             "import varanneal_tpu_torch.__main__\n"
+            "import varanneal_tpu_torch.workflow\n"
+            "import varanneal_tpu_torch.ops.multi\n"
+            "import varanneal_tpu_torch.models.nakl\n"
+            "import varanneal_tpu_torch.parallel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -4,8 +4,8 @@
 The counterpart of ``python -m varanneal_tpu`` (``varanneal_tpu/__main__.py``)
 on the port. The JSON config holds the ``AnnealConfig`` fields plus:
 
-  "model":  {"name": one of the port's models ("lorenz96", "lorenz63"),
-             "D": state dimension};
+  "model":  {"name": one of the port's models ("lorenz96", "lorenz63",
+             "nakl"), "D": state dimension};
   "data":   {"file": "...", "stim_file": "...", "nstart": 0, "N": null}
             (``set_data_fromfile`` semantics: column 0 is time);
   "X0":     optional .npy path for the initial path (default: zeros, with
@@ -31,8 +31,7 @@ import torch
 
 # models named in the reference's runner that the port has not yet, with
 # their ROADMAP.md items
-_WAITING_MODELS = {"nakl": "§1 item 5 (the NaKL / campaign path)",
-                   "colpitts": "§1 item 8 (models/colpitts.py)"}
+_WAITING_MODELS = {"colpitts": "§1 item 8 (models/colpitts.py)"}
 
 
 def main(argv=None):

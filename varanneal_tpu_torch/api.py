@@ -14,7 +14,8 @@ generic L-BFGS loop over the action of ``kernels.fe.select_action``.
 (``kernels.ag.make_action_ag(compensated=True)``), otherwise the
 compensated autograd action, always on the generic loop.
 ``engine='pallas'`` evaluates the action through the time-blocked FE
-kernels K6 (``kernels.fe.make_action_pallas``, any of the four discs) on
+kernels K6 (``kernels.fe.make_action_pallas``, any of the four discs;
+Lorenz-96, or NaKL with its stimulus) on
 the generic loop: under ``solver='auto'`` an explicit engine other than
 ``'ag'`` pins the generic loop, as in the reference.
 ``checkpoint_path=``, ``repeats > 1`` and ``snapshot_beta=`` run the
@@ -29,8 +30,8 @@ reference's.
 
 What waits for later slices (ROADMAP.md) raises NotImplementedError
 naming its item: ``method`` LM/GN/TNC/CG/NCG (§1 item 6), and
-``engine='pallas'`` for a problem outside K6's envelope (another model,
-§1 item 8, or a stimulus, §1 item 5).
+``engine='pallas'`` for a problem outside K6's envelope (a model other
+than Lorenz-96 and NaKL, §1 item 8; the error names the condition).
 
 Exit flags are mapped to SciPy-like codes: 0 converged (pgtol or ftol),
 1 maxiter exhausted, 2 line-search failure.

@@ -28,7 +28,8 @@
 //   partial (block)         rf · Σ r²  (scalar rf)  or  Σ rf ⊙ r²
 //   adjoint (_disc_coeffs)  wr_n = w_n r_n, v_m = c0 wr_{m-1} + c1 wr_m,
 //                           gx_m = wr_{m-1} - a1 wr_m - J(x_m)ᵀ v_m,
-//                           gF partial = -Σ v  (∂f_d/∂F = 1)
+//                           gp partial = -Σ_m F_p(x_m)ᵀ v_m (F_p the
+//                           model's parameter Jacobian; Lorenz-96: -Σ v)
 //   Hermite–Simpson         S = x_{2k+2} - x_{2k} - (h/6)(f0 + 4 fm + f1),
 //                           H = x_{2k+1} - (x_{2k} + x_{2k+2})/2
 //                               - (h/8)(f0 - f1),
@@ -37,7 +38,7 @@
 //                           g_e1 = WS - WH/2 + J1ᵀ v1 (WS = ws S,
 //                           WH = wh H, v0 = -(h/6)WS - (h/8)WH,
 //                           vm = -(4h/6)WS, v1 = -(h/6)WS + (h/8)WH),
-//                           gF partial = Σ (v0 + vm + v1).
+//                           gp partial = Σ F_p0ᵀ v0 + F_pmᵀ vm + F_p1ᵀ v1.
 //
 // The wrapper (kernels/fe.py) sums the partials over blocks and scales
 // them, and joins the Hermite–Simpson triplet into the gradient by node
@@ -47,8 +48,10 @@
 //
 // What bounds it on the card: each kernel reads X once (N_f·D values a
 // member) plus rf, and writes a partial a block (forward) or the gradient
-// (backward); ~15-60 operations an entry. At BASELINE config #2 (D=100,
-// N_f=241, one member) that is ~100-300 KB and ~1 MFLOP a launch: well
+// (backward); ~15-60 operations an entry for Lorenz-96, ~2-4x that for
+// NaKL (a tanh and a division a gate). At BASELINE config #2 (D=100,
+// N_f=241, one member) that is ~100-300 KB and ~1 MFLOP a launch, at
+// config #3 (NaKL, D=4, N_f=6,001) ~100-300 KB and ~2 MFLOP: well
 // under a microsecond at the card's rates, below the few microseconds a
 // launch costs. So the kernels are bound by launch latency and by the
 // serial depth of one block (stage, one or two passes, one reduction);
@@ -60,11 +63,22 @@
 //
 // The model is a template parameter with f, the transposed Jacobian
 // product and the parameter adjoint written by hand (no autodiff on the
-// card); L96 uses l96_ag.cuh's functions unchanged.
+// card): L96 uses l96_ag.cuh's functions unchanged, NaKL nakl.cuh's. A
+// model reads its parameter row p (kNP values: the wrapper merges the
+// estimated values into the fixed ones and, for a log-space model,
+// exponentiates them, so the kernel always sees the linear parameters)
+// and the stimulus of its model-grid row (I; 0 without a stimulus), and
+// adds its parameter partials Σ_d df_d/dp_j v_d into kNP per-thread
+// accumulators, reduced in a fixed order per block (gp: (B, kNP, blocks)).
+// Lorenz-96 (kNP = 1) keeps F in a register, read from global memory, and
+// its arithmetic is the one of the L96-only kernels, bit for bit; NaKL
+// stages its 19 parameters and the stimulus rows of the block in shared
+// memory.
 
 #include <cuda_runtime.h>
 
 #include "l96_ag.cuh"
+#include "nakl.cuh"
 
 namespace {
 
@@ -72,20 +86,57 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 enum Disc { kEuler = 0, kTrapezoid = 1, kForwardmap = 2 };
+enum ModelId { kL96 = 0, kNaKL = 1 };
 
-// Lorenz-96 with p = [F]: ∂f_d/∂F = 1, so F's adjoint is Σ_d v_d.
+// Lorenz-96 with p = [F]: df_d/dF = 1, so F's adjoint is Σ_d v_d.
 struct L96 {
+    static constexpr int kNP = 1;
+    static constexpr bool kStim = false;
     template <typename T>
-    __device__ static T f(const T* x, int d, int D, T F) {
-        return l96_f(x, d, D, F);
+    __device__ static T f(const T* x, int d, int D, const T* p, T) {
+        return l96_f(x, d, D, p[0]);
     }
     template <typename T, typename V>
-    __device__ static T jtv(const T* x, const V& v, int e, int D) {
+    __device__ static T jtv(const T* x, const V& v, int e, int D,
+                            const T*) {
         return l96_jtv(x, v, e, D);
     }
     template <typename T>
-    __device__ static T pbar_term(T v_d) { return v_d; }
+    __device__ static void ptv(const T*, int, int, const T*, T, T v_d,
+                               T* acc) {
+        acc[0] += v_d;
+    }
 };
+
+// NaKL (D = 4, 19 parameters, the stimulus as the injected current).
+struct NaKL {
+    static constexpr int kNP = nakl::kNP;
+    static constexpr bool kStim = true;
+    template <typename T>
+    __device__ static T f(const T* x, int d, int, const T* p, T I) {
+        return nakl_f(x, d, p, I);
+    }
+    template <typename T, typename V>
+    __device__ static T jtv(const T* x, const V& v, int e, int,
+                            const T* p) {
+        return nakl_jtv(x, v, e, p);
+    }
+    template <typename T>
+    __device__ static void ptv(const T* x, int d, int, const T* p, T I,
+                               T v_d, T* acc) {
+        nakl_ptv(x, d, p, I, v_d, acc);
+    }
+};
+
+// Shared memory a block takes besides its rows of D values: the
+// reduction's kWarps slots per parameter partial, the parameter row
+// when it is staged (kNP > 1) and one stimulus value per staged row.
+template <typename Model>
+__host__ __device__ constexpr size_t extra_vals(int stim_rows) {
+    return (size_t)kWarps * Model::kNP
+           + (Model::kNP > 1 ? Model::kNP : 0)
+           + (Model::kStim ? stim_rows : 0);
+}
 
 // Block-wide sum in a fixed order: a warp shuffle tree, then thread 0
 // adds the warps' sums in order. The result is valid on thread 0.
@@ -102,20 +153,75 @@ __device__ T block_sum(T v, T* red) {
     return s;
 }
 
-template <typename T>
-__device__ __forceinline__ T param_F(const T* pest, long long p_bs,
-                                     T F_fixed) {
-    return pest ? pest[(size_t)blockIdx.y * p_bs] : F_fixed;
+// block_sum of N values at once (red: N·kWarps); out valid on thread 0.
+template <typename T, int N>
+__device__ void block_sum_n(T* v, T* red, T* out) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        for (int o = 16; o > 0; o >>= 1) {
+            v[j] += __shfl_down_sync(0xffffffffu, v[j], o);
+        }
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) red[j * kWarps + warp] = v[j];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            T s = T(0);
+            for (int w = 0; w < kWarps; ++w) s += red[j * kWarps + w];
+            out[j] = s;
+        }
+    }
 }
 
-// One-step residual of component d from rows x0 = x_n, x1 = x_{n+1}; hc is
-// h/2 (trapezoid), h (euler), unused (forwardmap).
+// The block's parameter row and stimulus rows. Lorenz-96 reads F from
+// global memory (p points at its row of P); NaKL copies its row to sp
+// and its n_rows stimulus values from model-grid row row0 on to ss (0
+// where stim is null or the row lies outside 0 .. n_grid - 1). The
+// caller's barrier after staging x covers these copies.
+template <typename T, typename Model>
+__device__ __forceinline__ const T* stage_params(
+        const T* __restrict__ P, long long p_bs, const T* __restrict__ stim,
+        int row0, int n_rows, int n_grid, T* sp, T* ss) {
+    const T* prow = P + (size_t)blockIdx.y * p_bs;
+    if constexpr (Model::kNP > 1) {
+        for (int j = threadIdx.x; j < Model::kNP; j += kThreads) {
+            sp[j] = prow[j];
+        }
+        prow = sp;
+    }
+    if constexpr (Model::kStim) {
+        for (int j = threadIdx.x; j < n_rows; j += kThreads) {
+            const int r = row0 + j;
+            ss[j] = (stim && r >= 0 && r < n_grid) ? stim[r] : T(0);
+        }
+    }
+    return prow;
+}
+
+template <typename Model, typename T>
+__device__ __forceinline__ T stim_of(const T* ss, int j) {
+    if constexpr (Model::kStim) {
+        return ss[j];
+    } else {
+        return T(0);
+    }
+}
+
+// One-step residual of component d from rows x0 = x_n, x1 = x_{n+1} (with
+// their currents s0, s1); hc is h/2 (trapezoid), h (euler), unused
+// (forwardmap).
 template <typename T, typename Model, int kDisc>
 __device__ __forceinline__ T onestep_residual(const T* x0, const T* x1,
-                                              int d, int D, T F, T hc) {
-    const T f0 = Model::f(x0, d, D, F);
+                                              int d, int D, const T* p,
+                                              T s0, T s1, T hc) {
+    const T f0 = Model::f(x0, d, D, p, s0);
     if constexpr (kDisc == kTrapezoid) {
-        return x1[d] - x0[d] - hc * (f0 + Model::f(x1, d, D, F));
+        return x1[d] - x0[d] - hc * (f0 + Model::f(x1, d, D, p, s1));
     } else if constexpr (kDisc == kEuler) {
         return x1[d] - x0[d] - hc * f0;
     } else {
@@ -124,32 +230,44 @@ __device__ __forceinline__ T onestep_residual(const T* x0, const T* x1,
 }
 
 // Hermite–Simpson residual pair of component d on one interval (rows
-// xe0, xm = xe0 + D, xe1 = xe0 + 2D).
+// xe0, xm = xe0 + D, xe1 = xe0 + 2D; currents s[0], s[1], s[2]).
 template <typename T, typename Model>
 __device__ __forceinline__ void sh_residuals(const T* xe0, int d, int D,
-                                             T F, T h6, T h8, T* S, T* H) {
+                                             const T* p, const T* s, T h6,
+                                             T h8, T* S, T* H) {
     const T* xm = xe0 + D;
     const T* xe1 = xm + D;
-    const T f0 = Model::f(xe0, d, D, F);
-    const T fm = Model::f(xm, d, D, F);
-    const T f1 = Model::f(xe1, d, D, F);
+    const T f0 = Model::f(xe0, d, D, p, s[0]);
+    const T fm = Model::f(xm, d, D, p, s[1]);
+    const T f1 = Model::f(xe1, d, D, p, s[2]);
     *S = xe1[d] - xe0[d] - h6 * (f0 + T(4) * fm + f1);
     *H = xm[d] - T(0.5) * (xe0[d] + xe1[d]) - h8 * (f0 - f1);
+}
+
+template <typename Model, typename T>
+__device__ __forceinline__ void sh_stims(const T* ss, int kk, T* s) {
+    s[0] = stim_of<Model>(ss, 2 * kk);
+    s[1] = stim_of<Model>(ss, 2 * kk + 1);
+    s[2] = stim_of<Model>(ss, 2 * kk + 2);
 }
 
 // K6a. Block i of member b: residual rows [i·bn, min(i·bn + bn, N_f - 1)),
 // staged rows i·bn .. i·bn + nr (nr + 1 rows). partials: (B, gridDim.x).
 template <typename T, typename Model, int kDisc, bool kDiagRf>
 __global__ void __launch_bounds__(kThreads) fe_onestep_fwd(
-        const T* __restrict__ X, long long x_bs, const T* __restrict__ pest,
-        long long p_bs, T F_fixed, const T* __restrict__ rf, T rf_s,
-        int N_f, int D, T hc, int bn, T* __restrict__ partials) {
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int N_f, int D, T hc, int bn,
+        T* __restrict__ partials) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sx = reinterpret_cast<T*>(smem_raw);           // (bn + 1) * D
-    T* red = sx + (size_t)(bn + 1) * D;                // kWarps
+    T* red = sx + (size_t)(bn + 1) * D;                // kWarps * kNP
+    T* sp = red + kWarps * Model::kNP;                 // kNP (NaKL)
+    T* ss = sp + (Model::kNP > 1 ? Model::kNP : 0);    // bn + 1 (NaKL)
     const int r0 = blockIdx.x * bn;
     const int nr = min(bn, N_f - 1 - r0);
-    const T F = param_F(pest, p_bs, F_fixed);
+    const T* p = stage_params<T, Model>(P, p_bs, stim, r0, nr + 1, N_f,
+                                        sp, ss);
     const T* xb = X + (size_t)blockIdx.y * x_bs + (size_t)r0 * D;
     for (int j = threadIdx.x; j < (nr + 1) * D; j += kThreads) sx[j] = xb[j];
     __syncthreads();
@@ -157,8 +275,9 @@ __global__ void __launch_bounds__(kThreads) fe_onestep_fwd(
     for (int j = threadIdx.x; j < nr * D; j += kThreads) {
         const int row = j / D, d = j - row * D;
         const T* x0 = sx + (size_t)row * D;
-        const T r = onestep_residual<T, Model, kDisc>(x0, x0 + D, d, D, F,
-                                                      hc);
+        const T r = onestep_residual<T, Model, kDisc>(
+            x0, x0 + D, d, D, p, stim_of<Model>(ss, row),
+            stim_of<Model>(ss, row + 1), hc);
         if constexpr (kDiagRf) {
             acc += rf[(size_t)r0 * D + j] * r * r;
         } else {
@@ -176,21 +295,26 @@ __global__ void __launch_bounds__(kThreads) fe_onestep_fwd(
 // Shared memory holds x rows m0 - 1 .. m0 + nm (row j <-> x_{m0-1+j}),
 // wr rows (row j <-> w r of residual m0 - 1 + j, zero outside
 // 0 .. N_f - 2) and v rows (row j <-> v_{m0+j}). gx: (B, N_f, D)
-// contiguous; gp: (B, gridDim.x), the block's partial -Σ v.
+// contiguous; gp: (B, kNP, gridDim.x), the block's partials
+// -Σ_m F_p(x_m)ᵀ v_m.
 template <typename T, typename Model, int kDisc, bool kDiagRf>
 __global__ void __launch_bounds__(kThreads) fe_onestep_bwd(
-        const T* __restrict__ X, long long x_bs, const T* __restrict__ pest,
-        long long p_bs, T F_fixed, const T* __restrict__ rf, T rf_s,
-        int N_f, int D, T hc, T a1, T c0, T c1, int bn,
-        T* __restrict__ gx, T* __restrict__ gp) {
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int N_f, int D, T hc, T a1, T c0,
+        T c1, int bn, T* __restrict__ gx, T* __restrict__ gp) {
+    constexpr int NP = Model::kNP;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sx = reinterpret_cast<T*>(smem_raw);           // (bn + 2) * D
     T* wr = sx + (size_t)(bn + 2) * D;                 // (bn + 1) * D
     T* sv = wr + (size_t)(bn + 1) * D;                 // bn * D
-    T* red = sv + (size_t)bn * D;                      // kWarps
+    T* red = sv + (size_t)bn * D;                      // kWarps * kNP
+    T* sp = red + kWarps * NP;                         // kNP (NaKL)
+    T* ss = sp + (NP > 1 ? NP : 0);                    // bn + 2 (NaKL)
     const int m0 = blockIdx.x * bn;
     const int nm = min(bn, N_f - m0);
-    const T F = param_F(pest, p_bs, F_fixed);
+    const T* p = stage_params<T, Model>(P, p_bs, stim, m0 - 1, nm + 2, N_f,
+                                        sp, ss);
     const T* xb = X + (size_t)blockIdx.y * x_bs;
     for (int j = threadIdx.x; j < (nm + 2) * D; j += kThreads) {
         const int row = m0 - 1 + j / D;
@@ -203,18 +327,23 @@ __global__ void __launch_bounds__(kThreads) fe_onestep_bwd(
         T w = T(0);
         if (q >= 0 && q <= N_f - 2) {
             const T* x0 = sx + (size_t)row * D;
-            const T r = onestep_residual<T, Model, kDisc>(x0, x0 + D, d, D,
-                                                          F, hc);
+            const T r = onestep_residual<T, Model, kDisc>(
+                x0, x0 + D, d, D, p, stim_of<Model>(ss, row),
+                stim_of<Model>(ss, row + 1), hc);
             w = (kDiagRf ? rf[(size_t)q * D + d] : rf_s) * r;
         }
         wr[j] = w;
     }
     __syncthreads();
-    T acc = T(0);
+    T acc[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) acc[k] = T(0);
     for (int j = threadIdx.x; j < nm * D; j += kThreads) {
+        const int row = j / D, d = j - row * D;
         const T v = c0 * wr[j] + c1 * wr[j + D];
         sv[j] = v;
-        acc += Model::pbar_term(v);
+        Model::ptv(sx + (size_t)(row + 1) * D, d, D, p,
+                   stim_of<Model>(ss, row + 1), v, acc);
     }
     // every row's v is read at other components by Jᵀv: a block barrier
     __syncthreads();
@@ -223,12 +352,16 @@ __global__ void __launch_bounds__(kThreads) fe_onestep_bwd(
         const int row = j / D, e = j - row * D;
         const T* vrow = sv + (size_t)row * D;
         const T jt = Model::jtv(sx + (size_t)(row + 1) * D,
-                                [vrow](int k) { return vrow[k]; }, e, D);
+                                [vrow](int k) { return vrow[k]; }, e, D, p);
         gxb[j] = wr[j] - a1 * wr[j + D] - jt;
     }
-    const T s = block_sum(acc, red);
+    T s[NP];
+    block_sum_n<T, NP>(acc, red, s);
     if (threadIdx.x == 0) {
-        gp[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = -s;
+        for (int k = 0; k < NP; ++k) {
+            gp[((size_t)blockIdx.y * NP + k) * gridDim.x + blockIdx.x] =
+                -s[k];
+        }
     }
 }
 
@@ -237,15 +370,19 @@ __global__ void __launch_bounds__(kThreads) fe_onestep_bwd(
 // row 2k, wh = row 2k + 1. partials: (B, gridDim.x).
 template <typename T, typename Model, bool kDiagRf>
 __global__ void __launch_bounds__(kThreads) fe_sh_fwd(
-        const T* __restrict__ X, long long x_bs, const T* __restrict__ pest,
-        long long p_bs, T F_fixed, const T* __restrict__ rf, T rf_s, int M,
-        int D, T h6, T h8, int bk, T* __restrict__ partials) {
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int M, int D, T h6, T h8, int bk,
+        T* __restrict__ partials) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sx = reinterpret_cast<T*>(smem_raw);           // (2 bk + 1) * D
-    T* red = sx + (size_t)(2 * bk + 1) * D;            // kWarps
+    T* red = sx + (size_t)(2 * bk + 1) * D;            // kWarps * kNP
+    T* sp = red + kWarps * Model::kNP;                 // kNP (NaKL)
+    T* ss = sp + (Model::kNP > 1 ? Model::kNP : 0);    // 2 bk + 1 (NaKL)
     const int k0 = blockIdx.x * bk;
     const int nk = min(bk, M - k0);
-    const T F = param_F(pest, p_bs, F_fixed);
+    const T* p = stage_params<T, Model>(P, p_bs, stim, 2 * k0, 2 * nk + 1,
+                                        2 * M + 1, sp, ss);
     const T* xb = X + (size_t)blockIdx.y * x_bs + (size_t)2 * k0 * D;
     for (int j = threadIdx.x; j < (2 * nk + 1) * D; j += kThreads) {
         sx[j] = xb[j];
@@ -254,9 +391,10 @@ __global__ void __launch_bounds__(kThreads) fe_sh_fwd(
     T acc = T(0);
     for (int j = threadIdx.x; j < nk * D; j += kThreads) {
         const int kk = j / D, d = j - kk * D;
-        T S, H;
-        sh_residuals<T, Model>(sx + (size_t)2 * kk * D, d, D, F, h6, h8, &S,
-                               &H);
+        T S, H, st[3];
+        sh_stims<Model>(ss, kk, st);
+        sh_residuals<T, Model>(sx + (size_t)2 * kk * D, d, D, p, st, h6, h8,
+                               &S, &H);
         T ws = rf_s, wh = rf_s;
         if constexpr (kDiagRf) {
             const size_t at = (size_t)2 * (k0 + kk) * D + d;
@@ -272,25 +410,31 @@ __global__ void __launch_bounds__(kThreads) fe_sh_fwd(
 }
 
 // K6c/K6d backward: the triplet (g_e0, g_m, g_e1), each (B, M, D)
-// contiguous, and gp (B, gridDim.x), the block's partial Σ (v0 + vm + v1).
-// Pass 1 writes v0, vm, v1 to shared memory; pass 2, after a block
-// barrier (Jᵀv reads v at other components), recomputes S and H from the
-// staged rows and forms the triplet.
+// contiguous, and gp (B, kNP, gridDim.x), the block's partials
+// Σ (F_p(x_e0)ᵀ v0 + F_p(x_m)ᵀ vm + F_p(x_e1)ᵀ v1). Pass 1 writes v0, vm,
+// v1 to shared memory; pass 2, after a block barrier (Jᵀv reads v at
+// other components), recomputes S and H from the staged rows and forms
+// the triplet.
 template <typename T, typename Model, bool kDiagRf>
 __global__ void __launch_bounds__(kThreads) fe_sh_bwd(
-        const T* __restrict__ X, long long x_bs, const T* __restrict__ pest,
-        long long p_bs, T F_fixed, const T* __restrict__ rf, T rf_s, int M,
-        int D, T h6, T h8, T h46, int bk, T* __restrict__ ge0,
-        T* __restrict__ gm, T* __restrict__ ge1, T* __restrict__ gp) {
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int M, int D, T h6, T h8, T h46,
+        int bk, T* __restrict__ ge0, T* __restrict__ gm, T* __restrict__ ge1,
+        T* __restrict__ gp) {
+    constexpr int NP = Model::kNP;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sx = reinterpret_cast<T*>(smem_raw);           // (2 bk + 1) * D
     T* v0 = sx + (size_t)(2 * bk + 1) * D;             // bk * D each
     T* vm = v0 + (size_t)bk * D;
     T* v1 = vm + (size_t)bk * D;
-    T* red = v1 + (size_t)bk * D;                      // kWarps
+    T* red = v1 + (size_t)bk * D;                      // kWarps * kNP
+    T* sp = red + kWarps * NP;                         // kNP (NaKL)
+    T* ss = sp + (NP > 1 ? NP : 0);                    // 2 bk + 1 (NaKL)
     const int k0 = blockIdx.x * bk;
     const int nk = min(bk, M - k0);
-    const T F = param_F(pest, p_bs, F_fixed);
+    const T* p = stage_params<T, Model>(P, p_bs, stim, 2 * k0, 2 * nk + 1,
+                                        2 * M + 1, sp, ss);
     const T* xb = X + (size_t)blockIdx.y * x_bs + (size_t)2 * k0 * D;
     for (int j = threadIdx.x; j < (2 * nk + 1) * D; j += kThreads) {
         sx[j] = xb[j];
@@ -305,12 +449,15 @@ __global__ void __launch_bounds__(kThreads) fe_sh_bwd(
             *wh = rf[at + D];
         }
     };
-    T acc = T(0);
+    T acc[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) acc[k] = T(0);
     for (int j = threadIdx.x; j < nk * D; j += kThreads) {
         const int kk = j / D, d = j - kk * D;
-        T S, H, ws, wh;
-        sh_residuals<T, Model>(sx + (size_t)2 * kk * D, d, D, F, h6, h8, &S,
-                               &H);
+        const T* xe0 = sx + (size_t)2 * kk * D;
+        T S, H, ws, wh, st[3];
+        sh_stims<Model>(ss, kk, st);
+        sh_residuals<T, Model>(xe0, d, D, p, st, h6, h8, &S, &H);
         weights(kk, d, &ws, &wh);
         const T WS = ws * S, WH = wh * H;
         const T a = -h6 * WS - h8 * WH;
@@ -319,31 +466,46 @@ __global__ void __launch_bounds__(kThreads) fe_sh_bwd(
         v0[j] = a;
         vm[j] = b;
         v1[j] = c;
-        acc += Model::pbar_term(a) + Model::pbar_term(b) + Model::pbar_term(c);
+        // the interval's three terms summed first, then added: for
+        // Lorenz-96 acc += (a + b) + c, as the L96-only kernel did
+        T t[NP];
+#pragma unroll
+        for (int k = 0; k < NP; ++k) t[k] = T(0);
+        Model::ptv(xe0, d, D, p, st[0], a, t);
+        Model::ptv(xe0 + D, d, D, p, st[1], b, t);
+        Model::ptv(xe0 + 2 * D, d, D, p, st[2], c, t);
+#pragma unroll
+        for (int k = 0; k < NP; ++k) acc[k] += t[k];
     }
     __syncthreads();
     const size_t out0 = (size_t)blockIdx.y * M * D + (size_t)k0 * D;
     for (int j = threadIdx.x; j < nk * D; j += kThreads) {
         const int kk = j / D, e = j - kk * D;
         const T* xe0 = sx + (size_t)2 * kk * D;
-        T S, H, ws, wh;
-        sh_residuals<T, Model>(xe0, e, D, F, h6, h8, &S, &H);
+        T S, H, ws, wh, st[3];
+        sh_stims<Model>(ss, kk, st);
+        sh_residuals<T, Model>(xe0, e, D, p, st, h6, h8, &S, &H);
         weights(kk, e, &ws, &wh);
         const T WS = ws * S, WH = wh * H;
         const T* r0 = v0 + (size_t)kk * D;
         const T* rm = vm + (size_t)kk * D;
         const T* r1 = v1 + (size_t)kk * D;
         ge0[out0 + j] = -WS - T(0.5) * WH
-                        + Model::jtv(xe0, [r0](int k) { return r0[k]; }, e, D);
-        gm[out0 + j] = WH + Model::jtv(xe0 + D, [rm](int k) { return rm[k]; },
-                                       e, D);
+                        + Model::jtv(xe0, [r0](int k) { return r0[k]; }, e,
+                                     D, p);
+        gm[out0 + j] = WH + Model::jtv(xe0 + D,
+                                       [rm](int k) { return rm[k]; }, e, D,
+                                       p);
         ge1[out0 + j] = WS - T(0.5) * WH
                         + Model::jtv(xe0 + 2 * D,
-                                     [r1](int k) { return r1[k]; }, e, D);
+                                     [r1](int k) { return r1[k]; }, e, D, p);
     }
-    const T s = block_sum(acc, red);
+    T s[NP];
+    block_sum_n<T, NP>(acc, red, s);
     if (threadIdx.x == 0) {
-        gp[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
+        for (int k = 0; k < NP; ++k) {
+            gp[((size_t)blockIdx.y * NP + k) * gridDim.x + blockIdx.x] = s[k];
+        }
     }
 }
 
@@ -367,74 +529,88 @@ int launch(K kernel, int n_blocks, int B, size_t smem, void* stream,
     return (int)cudaGetLastError();
 }
 
-template <typename T, int kDisc, bool kDiag>
-int onestep_fwd(const void* X, long long x_bs, const void* pest,
-                long long p_bs, double F_fixed, const void* rf, double rf_s,
-                int B, int N_f, int D, double hc, int bn, void* partials,
+template <typename T, typename Model, int kDisc, bool kDiag>
+int onestep_fwd(const void* X, long long x_bs, const void* P, long long p_bs,
+                const void* stim, const void* rf, double rf_s, int B,
+                int N_f, int D, double hc, int bn, void* partials,
                 void* stream) {
     const int n_blocks = (N_f - 1 + bn - 1) / bn;
-    const size_t smem = ((size_t)(bn + 1) * D + kWarps) * sizeof(T);
-    return launch(fe_onestep_fwd<T, L96, kDisc, kDiag>, n_blocks, B, smem,
+    const size_t smem = ((size_t)(bn + 1) * D + extra_vals<Model>(bn + 1))
+                        * sizeof(T);
+    return launch(fe_onestep_fwd<T, Model, kDisc, kDiag>, n_blocks, B, smem,
                   stream, static_cast<const T*>(X), x_bs,
-                  static_cast<const T*>(pest), p_bs, (T)F_fixed,
-                  static_cast<const T*>(rf), (T)rf_s, N_f, D, (T)hc, bn,
-                  static_cast<T*>(partials));
+                  static_cast<const T*>(P), p_bs,
+                  static_cast<const T*>(stim), static_cast<const T*>(rf),
+                  (T)rf_s, N_f, D, (T)hc, bn, static_cast<T*>(partials));
 }
 
-template <typename T, int kDisc, bool kDiag>
-int onestep_bwd(const void* X, long long x_bs, const void* pest,
-                long long p_bs, double F_fixed, const void* rf, double rf_s,
-                int B, int N_f, int D, double hc, double a1, double c0,
-                double c1, int bn, void* gx, void* gp, void* stream) {
+template <typename T, typename Model, int kDisc, bool kDiag>
+int onestep_bwd(const void* X, long long x_bs, const void* P, long long p_bs,
+                const void* stim, const void* rf, double rf_s, int B,
+                int N_f, int D, double hc, double a1, double c0, double c1,
+                int bn, void* gx, void* gp, void* stream) {
     const int n_blocks = (N_f + bn - 1) / bn;
-    const size_t smem = ((size_t)(3 * bn + 3) * D + kWarps) * sizeof(T);
-    return launch(fe_onestep_bwd<T, L96, kDisc, kDiag>, n_blocks, B, smem,
+    const size_t smem = ((size_t)(3 * bn + 3) * D
+                         + extra_vals<Model>(bn + 2)) * sizeof(T);
+    return launch(fe_onestep_bwd<T, Model, kDisc, kDiag>, n_blocks, B, smem,
                   stream, static_cast<const T*>(X), x_bs,
-                  static_cast<const T*>(pest), p_bs, (T)F_fixed,
-                  static_cast<const T*>(rf), (T)rf_s, N_f, D, (T)hc, (T)a1,
-                  (T)c0, (T)c1, bn, static_cast<T*>(gx),
-                  static_cast<T*>(gp));
+                  static_cast<const T*>(P), p_bs,
+                  static_cast<const T*>(stim), static_cast<const T*>(rf),
+                  (T)rf_s, N_f, D, (T)hc, (T)a1, (T)c0, (T)c1, bn,
+                  static_cast<T*>(gx), static_cast<T*>(gp));
 }
 
-template <typename T, bool kDiag>
-int sh_fwd(const void* X, long long x_bs, const void* pest, long long p_bs,
-           double F_fixed, const void* rf, double rf_s, int B, int M, int D,
-           double h6, double h8, int bk, void* partials, void* stream) {
+template <typename T, typename Model, bool kDiag>
+int sh_fwd(const void* X, long long x_bs, const void* P, long long p_bs,
+           const void* stim, const void* rf, double rf_s, int B, int M,
+           int D, double h6, double h8, int bk, void* partials,
+           void* stream) {
     const int n_blocks = (M + bk - 1) / bk;
-    const size_t smem = ((size_t)(2 * bk + 1) * D + kWarps) * sizeof(T);
-    return launch(fe_sh_fwd<T, L96, kDiag>, n_blocks, B, smem, stream,
-                  static_cast<const T*>(X), x_bs,
-                  static_cast<const T*>(pest), p_bs, (T)F_fixed,
-                  static_cast<const T*>(rf), (T)rf_s, M, D, (T)h6, (T)h8, bk,
-                  static_cast<T*>(partials));
+    const size_t smem = ((size_t)(2 * bk + 1) * D
+                         + extra_vals<Model>(2 * bk + 1)) * sizeof(T);
+    return launch(fe_sh_fwd<T, Model, kDiag>, n_blocks, B, smem, stream,
+                  static_cast<const T*>(X), x_bs, static_cast<const T*>(P),
+                  p_bs, static_cast<const T*>(stim),
+                  static_cast<const T*>(rf), (T)rf_s, M, D, (T)h6, (T)h8,
+                  bk, static_cast<T*>(partials));
 }
 
-template <typename T, bool kDiag>
-int sh_bwd(const void* X, long long x_bs, const void* pest, long long p_bs,
-           double F_fixed, const void* rf, double rf_s, int B, int M, int D,
-           double h6, double h8, double h46, int bk, void* ge0, void* gm,
-           void* ge1, void* gp, void* stream) {
+template <typename T, typename Model, bool kDiag>
+int sh_bwd(const void* X, long long x_bs, const void* P, long long p_bs,
+           const void* stim, const void* rf, double rf_s, int B, int M,
+           int D, double h6, double h8, double h46, int bk, void* ge0,
+           void* gm, void* ge1, void* gp, void* stream) {
     const int n_blocks = (M + bk - 1) / bk;
-    const size_t smem = ((size_t)(5 * bk + 1) * D + kWarps) * sizeof(T);
-    return launch(fe_sh_bwd<T, L96, kDiag>, n_blocks, B, smem, stream,
-                  static_cast<const T*>(X), x_bs,
-                  static_cast<const T*>(pest), p_bs, (T)F_fixed,
+    const size_t smem = ((size_t)(5 * bk + 1) * D
+                         + extra_vals<Model>(2 * bk + 1)) * sizeof(T);
+    return launch(fe_sh_bwd<T, Model, kDiag>, n_blocks, B, smem, stream,
+                  static_cast<const T*>(X), x_bs, static_cast<const T*>(P),
+                  p_bs, static_cast<const T*>(stim),
                   static_cast<const T*>(rf), (T)rf_s, M, D, (T)h6, (T)h8,
                   (T)h46, bk, static_cast<T*>(ge0), static_cast<T*>(gm),
                   static_cast<T*>(ge1), static_cast<T*>(gp));
 }
 
-constexpr int kBadDisc = (int)cudaErrorInvalidValue;
+constexpr int kBadArg = (int)cudaErrorInvalidValue;
 
-template <typename T>
-int onestep_fwd_any(int disc, int diag, const void* X, long long x_bs,
-                    const void* pest, long long p_bs, double F_fixed,
-                    const void* rf, double rf_s, int B, int N_f, int D,
-                    double hc, int bn, void* partials, void* stream) {
+// The (model, disc, rf form) instantiation a call names; kBadArg for an
+// unknown code.
+#define VA_MODELS(CALL)                                                     \
+    switch (model) {                                                        \
+        case kL96: CALL(L96);                                               \
+        case kNaKL: CALL(NaKL);                                             \
+        default: return kBadArg;                                            \
+    }
+
+template <typename T, typename Model>
+int onestep_fwd_disc(int disc, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
+                     const void* rf, double rf_s, int B, int N_f, int D,
+                     double hc, int bn, void* partials, void* stream) {
 #define VA_FWD(DISC, DIAG)                                                  \
-    return onestep_fwd<T, DISC, DIAG>(X, x_bs, pest, p_bs, F_fixed, rf,     \
-                                      rf_s, B, N_f, D, hc, bn, partials,    \
-                                      stream)
+    return onestep_fwd<T, Model, DISC, DIAG>(X, x_bs, P, p_bs, stim, rf,    \
+                                             rf_s, B, N_f, D, hc, bn,       \
+                                             partials, stream)
     switch (disc * 2 + (diag ? 1 : 0)) {
         case kEuler * 2: VA_FWD(kEuler, false);
         case kEuler * 2 + 1: VA_FWD(kEuler, true);
@@ -442,21 +618,21 @@ int onestep_fwd_any(int disc, int diag, const void* X, long long x_bs,
         case kTrapezoid * 2 + 1: VA_FWD(kTrapezoid, true);
         case kForwardmap * 2: VA_FWD(kForwardmap, false);
         case kForwardmap * 2 + 1: VA_FWD(kForwardmap, true);
-        default: return kBadDisc;
+        default: return kBadArg;
     }
 #undef VA_FWD
 }
 
-template <typename T>
-int onestep_bwd_any(int disc, int diag, const void* X, long long x_bs,
-                    const void* pest, long long p_bs, double F_fixed,
-                    const void* rf, double rf_s, int B, int N_f, int D,
-                    double hc, double a1, double c0, double c1, int bn,
-                    void* gx, void* gp, void* stream) {
+template <typename T, typename Model>
+int onestep_bwd_disc(int disc, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
+                     const void* rf, double rf_s, int B, int N_f, int D,
+                     double hc, double a1, double c0, double c1, int bn,
+                     void* gx, void* gp, void* stream) {
 #define VA_BWD(DISC, DIAG)                                                  \
-    return onestep_bwd<T, DISC, DIAG>(X, x_bs, pest, p_bs, F_fixed, rf,     \
-                                      rf_s, B, N_f, D, hc, a1, c0, c1, bn,  \
-                                      gx, gp, stream)
+    return onestep_bwd<T, Model, DISC, DIAG>(X, x_bs, P, p_bs, stim, rf,    \
+                                             rf_s, B, N_f, D, hc, a1, c0,   \
+                                             c1, bn, gx, gp, stream)
     switch (disc * 2 + (diag ? 1 : 0)) {
         case kEuler * 2: VA_BWD(kEuler, false);
         case kEuler * 2 + 1: VA_BWD(kEuler, true);
@@ -464,110 +640,164 @@ int onestep_bwd_any(int disc, int diag, const void* X, long long x_bs,
         case kTrapezoid * 2 + 1: VA_BWD(kTrapezoid, true);
         case kForwardmap * 2: VA_BWD(kForwardmap, false);
         case kForwardmap * 2 + 1: VA_BWD(kForwardmap, true);
-        default: return kBadDisc;
+        default: return kBadArg;
     }
 #undef VA_BWD
 }
+
+template <typename T>
+int onestep_fwd_any(int model, int disc, int diag, const void* X,
+                    long long x_bs, const void* P, long long p_bs,
+                    const void* stim, const void* rf, double rf_s, int B,
+                    int N_f, int D, double hc, int bn, void* partials,
+                    void* stream) {
+#define VA_CALL(M)                                                          \
+    return onestep_fwd_disc<T, M>(disc, diag, X, x_bs, P, p_bs, stim, rf,   \
+                                  rf_s, B, N_f, D, hc, bn, partials, stream)
+    VA_MODELS(VA_CALL)
+#undef VA_CALL
+}
+
+template <typename T>
+int onestep_bwd_any(int model, int disc, int diag, const void* X,
+                    long long x_bs, const void* P, long long p_bs,
+                    const void* stim, const void* rf, double rf_s, int B,
+                    int N_f, int D, double hc, double a1, double c0,
+                    double c1, int bn, void* gx, void* gp, void* stream) {
+#define VA_CALL(M)                                                          \
+    return onestep_bwd_disc<T, M>(disc, diag, X, x_bs, P, p_bs, stim, rf,   \
+                                  rf_s, B, N_f, D, hc, a1, c0, c1, bn, gx,  \
+                                  gp, stream)
+    VA_MODELS(VA_CALL)
+#undef VA_CALL
+}
+
+template <typename T>
+int sh_fwd_any(int model, int diag, const void* X, long long x_bs,
+               const void* P, long long p_bs, const void* stim,
+               const void* rf, double rf_s, int B, int M, int D, double h6,
+               double h8, int bk, void* partials, void* stream) {
+#define VA_CALL(M_)                                                         \
+    return diag ? sh_fwd<T, M_, true>(X, x_bs, P, p_bs, stim, rf, rf_s, B,  \
+                                      M, D, h6, h8, bk, partials, stream)   \
+                : sh_fwd<T, M_, false>(X, x_bs, P, p_bs, stim, rf, rf_s, B, \
+                                       M, D, h6, h8, bk, partials, stream)
+    VA_MODELS(VA_CALL)
+#undef VA_CALL
+}
+
+template <typename T>
+int sh_bwd_any(int model, int diag, const void* X, long long x_bs,
+               const void* P, long long p_bs, const void* stim,
+               const void* rf, double rf_s, int B, int M, int D, double h6,
+               double h8, double h46, int bk, void* ge0, void* gm,
+               void* ge1, void* gp, void* stream) {
+#define VA_CALL(M_)                                                         \
+    return diag ? sh_bwd<T, M_, true>(X, x_bs, P, p_bs, stim, rf, rf_s, B,  \
+                                      M, D, h6, h8, h46, bk, ge0, gm, ge1,  \
+                                      gp, stream)                           \
+                : sh_bwd<T, M_, false>(X, x_bs, P, p_bs, stim, rf, rf_s, B, \
+                                       M, D, h6, h8, h46, bk, ge0, gm, ge1, \
+                                       gp, stream)
+    VA_MODELS(VA_CALL)
+#undef VA_CALL
+}
+
+#undef VA_MODELS
 
 }  // namespace
 
 extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = cudaSuccess). Pointers
-// are device pointers. X: member b's (N_f, D) state rows start at
-// X + b·x_bs, rows contiguous; pest: F at pest[b·p_bs], or null for
-// F = F_fixed; rf: (N_f - 1, D) contiguous for diag = 1, else null and
-// rf_s the scalar. disc: 0 euler, 1 trapezoid, 2 forwardmap. bn (bk):
-// rows (intervals) a block; the wrapper sizes the outputs for
-// ceil(rows / bn) blocks.
+// are device pointers. model: 0 Lorenz-96 (1 parameter), 1 NaKL (D = 4,
+// 19 parameters). X: member b's (N_f, D) state rows start at X + b·x_bs,
+// rows contiguous; P: member b's full (linear) parameter row at P + b·p_bs
+// (p_bs = 0: one row for every member); stim: the (N_f,) injected current
+// on the model grid, or null (NaKL only; Lorenz-96 ignores it); rf:
+// (N_f - 1, D) contiguous for diag = 1, else null and rf_s the scalar.
+// disc: 0 euler, 1 trapezoid, 2 forwardmap. bn (bk): rows (intervals) a
+// block; the wrapper sizes the outputs for ceil(rows / bn) blocks, gp as
+// (B, NP, blocks).
 
-int va_fe_onestep_fwd_f32(int disc, int diag, const void* X, long long x_bs,
-                          const void* pest, long long p_bs, double F_fixed,
-                          const void* rf, double rf_s, int B, int N_f, int D,
-                          double hc, int bn, void* partials, void* stream) {
-    return onestep_fwd_any<float>(disc, diag, X, x_bs, pest, p_bs, F_fixed,
+int va_fe_onestep_fwd_f32(int model, int disc, int diag, const void* X,
+                          long long x_bs, const void* P, long long p_bs,
+                          const void* stim, const void* rf, double rf_s,
+                          int B, int N_f, int D, double hc, int bn,
+                          void* partials, void* stream) {
+    return onestep_fwd_any<float>(model, disc, diag, X, x_bs, P, p_bs, stim,
                                   rf, rf_s, B, N_f, D, hc, bn, partials,
                                   stream);
 }
 
-int va_fe_onestep_fwd_f64(int disc, int diag, const void* X, long long x_bs,
-                          const void* pest, long long p_bs, double F_fixed,
-                          const void* rf, double rf_s, int B, int N_f, int D,
-                          double hc, int bn, void* partials, void* stream) {
-    return onestep_fwd_any<double>(disc, diag, X, x_bs, pest, p_bs, F_fixed,
-                                   rf, rf_s, B, N_f, D, hc, bn, partials,
-                                   stream);
+int va_fe_onestep_fwd_f64(int model, int disc, int diag, const void* X,
+                          long long x_bs, const void* P, long long p_bs,
+                          const void* stim, const void* rf, double rf_s,
+                          int B, int N_f, int D, double hc, int bn,
+                          void* partials, void* stream) {
+    return onestep_fwd_any<double>(model, disc, diag, X, x_bs, P, p_bs,
+                                   stim, rf, rf_s, B, N_f, D, hc, bn,
+                                   partials, stream);
 }
 
-int va_fe_onestep_bwd_f32(int disc, int diag, const void* X, long long x_bs,
-                          const void* pest, long long p_bs, double F_fixed,
-                          const void* rf, double rf_s, int B, int N_f, int D,
-                          double hc, double a1, double c0, double c1, int bn,
-                          void* gx, void* gp, void* stream) {
-    return onestep_bwd_any<float>(disc, diag, X, x_bs, pest, p_bs, F_fixed,
+int va_fe_onestep_bwd_f32(int model, int disc, int diag, const void* X,
+                          long long x_bs, const void* P, long long p_bs,
+                          const void* stim, const void* rf, double rf_s,
+                          int B, int N_f, int D, double hc, double a1,
+                          double c0, double c1, int bn, void* gx, void* gp,
+                          void* stream) {
+    return onestep_bwd_any<float>(model, disc, diag, X, x_bs, P, p_bs, stim,
                                   rf, rf_s, B, N_f, D, hc, a1, c0, c1, bn,
                                   gx, gp, stream);
 }
 
-int va_fe_onestep_bwd_f64(int disc, int diag, const void* X, long long x_bs,
-                          const void* pest, long long p_bs, double F_fixed,
-                          const void* rf, double rf_s, int B, int N_f, int D,
-                          double hc, double a1, double c0, double c1, int bn,
-                          void* gx, void* gp, void* stream) {
-    return onestep_bwd_any<double>(disc, diag, X, x_bs, pest, p_bs, F_fixed,
-                                   rf, rf_s, B, N_f, D, hc, a1, c0, c1, bn,
-                                   gx, gp, stream);
+int va_fe_onestep_bwd_f64(int model, int disc, int diag, const void* X,
+                          long long x_bs, const void* P, long long p_bs,
+                          const void* stim, const void* rf, double rf_s,
+                          int B, int N_f, int D, double hc, double a1,
+                          double c0, double c1, int bn, void* gx, void* gp,
+                          void* stream) {
+    return onestep_bwd_any<double>(model, disc, diag, X, x_bs, P, p_bs,
+                                   stim, rf, rf_s, B, N_f, D, hc, a1, c0, c1,
+                                   bn, gx, gp, stream);
 }
 
-int va_fe_sh_fwd_f32(int diag, const void* X, long long x_bs,
-                     const void* pest, long long p_bs, double F_fixed,
+int va_fe_sh_fwd_f32(int model, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int M, int D,
                      double h6, double h8, int bk, void* partials,
                      void* stream) {
-    return diag ? sh_fwd<float, true>(X, x_bs, pest, p_bs, F_fixed, rf, rf_s,
-                                      B, M, D, h6, h8, bk, partials, stream)
-                : sh_fwd<float, false>(X, x_bs, pest, p_bs, F_fixed, rf,
-                                       rf_s, B, M, D, h6, h8, bk, partials,
-                                       stream);
+    return sh_fwd_any<float>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
+                             B, M, D, h6, h8, bk, partials, stream);
 }
 
-int va_fe_sh_fwd_f64(int diag, const void* X, long long x_bs,
-                     const void* pest, long long p_bs, double F_fixed,
+int va_fe_sh_fwd_f64(int model, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int M, int D,
                      double h6, double h8, int bk, void* partials,
                      void* stream) {
-    return diag ? sh_fwd<double, true>(X, x_bs, pest, p_bs, F_fixed, rf,
-                                       rf_s, B, M, D, h6, h8, bk, partials,
-                                       stream)
-                : sh_fwd<double, false>(X, x_bs, pest, p_bs, F_fixed, rf,
-                                        rf_s, B, M, D, h6, h8, bk, partials,
-                                        stream);
+    return sh_fwd_any<double>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
+                              B, M, D, h6, h8, bk, partials, stream);
 }
 
-int va_fe_sh_bwd_f32(int diag, const void* X, long long x_bs,
-                     const void* pest, long long p_bs, double F_fixed,
+int va_fe_sh_bwd_f32(int model, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int M, int D,
                      double h6, double h8, double h46, int bk, void* ge0,
                      void* gm, void* ge1, void* gp, void* stream) {
-    return diag ? sh_bwd<float, true>(X, x_bs, pest, p_bs, F_fixed, rf, rf_s,
-                                      B, M, D, h6, h8, h46, bk, ge0, gm, ge1,
-                                      gp, stream)
-                : sh_bwd<float, false>(X, x_bs, pest, p_bs, F_fixed, rf,
-                                       rf_s, B, M, D, h6, h8, h46, bk, ge0,
-                                       gm, ge1, gp, stream);
+    return sh_bwd_any<float>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
+                             B, M, D, h6, h8, h46, bk, ge0, gm, ge1, gp,
+                             stream);
 }
 
-int va_fe_sh_bwd_f64(int diag, const void* X, long long x_bs,
-                     const void* pest, long long p_bs, double F_fixed,
+int va_fe_sh_bwd_f64(int model, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int M, int D,
                      double h6, double h8, double h46, int bk, void* ge0,
                      void* gm, void* ge1, void* gp, void* stream) {
-    return diag ? sh_bwd<double, true>(X, x_bs, pest, p_bs, F_fixed, rf,
-                                       rf_s, B, M, D, h6, h8, h46, bk, ge0,
-                                       gm, ge1, gp, stream)
-                : sh_bwd<double, false>(X, x_bs, pest, p_bs, F_fixed, rf,
-                                        rf_s, B, M, D, h6, h8, h46, bk, ge0,
-                                        gm, ge1, gp, stream);
+    return sh_bwd_any<double>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
+                              B, M, D, h6, h8, h46, bk, ge0, gm, ge1, gp,
+                              stream);
 }
 
 const char* va_fe_error_string(int code) {

@@ -12,20 +12,30 @@ design does about that):
 - ``fe_onestep_fwd`` (K6a, ``_kern_scalar``/``_kern_diag``): per-block
   partial sums of rf ⊙ r² for euler, trapezoid and forwardmap;
 - ``fe_onestep_bwd`` (K6b, ``_kern_bwd``): the hand-written adjoint, the
-  gradient rows and F's per-block partials;
+  gradient rows and the parameters' per-block partials;
 - ``fe_sh_fwd`` and ``fe_sh_bwd`` (K6c ``_kern_sh_fwd``/``_kern_sh_bwd``
   and K6d, their batched-grid forms): Hermite–Simpson over blocks of
   intervals, the backward as the (g_e0, g_m, g_e1) triplet that
   :func:`sh_join` adds into the gradient by node, as the reference does.
 
 Every kernel runs on a (time block, member) grid, so B = 1 is K6c and
-B > 1 is K6d. Beside each kernel is its plain PyTorch version
-(``*_reference``), which returns the same per-block partials and spells
-out the same hand adjoint (Lorenz-96's f and Jᵀv on ``torch.roll``); the
-CPU path and the tests use them, and a wrapper takes its plain version
-only for tensors on the CPU: on a CUDA tensor it launches its kernel or
-raises. Each wrapper counts its launches (:data:`FWD_LAUNCHES`,
-:data:`BWD_LAUNCHES`, :data:`SH_FWD_LAUNCHES`, :data:`SH_BWD_LAUNCHES`).
+B > 1 is K6d. The kernels take two models, each with f, Jᵀv and the
+parameter adjoint written by hand: Lorenz-96 (``models.lorenz.lorenz96``)
+and NaKL (``models.nakl.nakl``, or a log-space model of
+``models.nakl.nakl_log_model``; ``csrc/nakl.cuh``) with its stimulus.
+The wrapper merges the estimated values into the fixed parameters
+(:func:`full_params`, the reference's ``_merge``), exponentiates a log
+model's coordinates before the launch and applies the chain rule to
+their gradient after it, so a kernel always sees linear parameters.
+Beside each kernel is its plain PyTorch version (``*_reference``), which
+returns the same per-block partials: for Lorenz-96 it spells out the same
+hand adjoint on ``torch.roll``, for NaKL it evaluates the port's torch
+``nakl`` and takes the adjoint with ``torch.func.vjp``, a derivation
+independent of the hand-written one. The CPU path and the tests use them,
+and a wrapper takes its plain version only for tensors on the CPU: on a
+CUDA tensor it launches its kernel or raises. Each wrapper counts its
+launches (:data:`FWD_LAUNCHES`, :data:`BWD_LAUNCHES`,
+:data:`SH_FWD_LAUNCHES`, :data:`SH_BWD_LAUNCHES`).
 
 :func:`make_fe_pallas` returns ``fe(X, pest, rf)``, a
 ``torch.autograd.Function`` whose forward is one launch and whose
@@ -52,6 +62,7 @@ The engines of :func:`select_action`:
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -59,6 +70,7 @@ import torch
 from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.kernels import ag
 from varanneal_tpu_torch.models.lorenz import lorenz96
+from varanneal_tpu_torch.models.nakl import nakl
 from varanneal_tpu_torch.ops import action as _action
 from varanneal_tpu_torch.ops.spec import ProblemSpec
 
@@ -68,6 +80,10 @@ AUTO_MIN_D = 256
 _ONE_STEP = ("euler", "trapezoid", "forwardmap")
 _DISCS = _ONE_STEP + ("SimpsonHermite",)
 _DISC_CODE = {"euler": 0, "trapezoid": 1, "forwardmap": 2}
+#: The kernels' models (``ModelId`` in csrc/fe_kernel.cu) and their
+#: parameter counts.
+_MODEL_CODE = {"l96": 0, "nakl": 1}
+_MODEL_NP = {"l96": 1, "nakl": 19}
 _DTYPES = (torch.float32, torch.float64)
 
 #: Launches so far of fe_onestep_fwd (K6a), fe_onestep_bwd (K6b),
@@ -87,6 +103,11 @@ _SMEM_ROWS = {"onestep_fwd": lambda bn: bn + 1,
               "onestep_bwd": lambda bn: 3 * bn + 3,
               "sh_fwd": lambda bn: 2 * bn + 1,
               "sh_bwd": lambda bn: 5 * bn + 1}
+#: Model-grid rows whose stimulus a block stages (NaKL).
+_STIM_ROWS = {"onestep_fwd": lambda bn: bn + 1,
+              "onestep_bwd": lambda bn: bn + 2,
+              "sh_fwd": lambda bn: 2 * bn + 1,
+              "sh_bwd": lambda bn: 2 * bn + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -135,8 +156,16 @@ def reference_ag_supported(spec: ProblemSpec, rf,
             and _pad_to(spec.N_f, 8) * _pad_to(spec.D, 128) <= 2 ** 21)
 
 
-def _smem_bytes(kernel: str, bn: int, D: int, dtype) -> int:
-    return ((_SMEM_ROWS[kernel](bn) * D + _WARPS)
+def _smem_bytes(kernel: str, bn: int, D: int, dtype, model="l96") -> int:
+    """Bytes of shared memory a block of ``kernel`` takes (``extra_vals``
+    in csrc/fe_kernel.cu): its staged rows, the reduction's slots per
+    parameter partial and, for NaKL, the parameter row and the stimulus
+    rows."""
+    NP = _MODEL_NP[model]
+    extra = _WARPS * NP
+    if model == "nakl":
+        extra += NP + _STIM_ROWS[kernel](bn)
+    return ((_SMEM_ROWS[kernel](bn) * D + extra)
             * (torch.finfo(dtype).bits // 8))
 
 
@@ -147,7 +176,7 @@ def _kernels_of(disc):
 
 
 def rows_per_block(kernel: str, n_rows: int, D: int, dtype,
-                   block_n: int) -> int:
+                   block_n: int, model="l96") -> int:
     """Rows (intervals under Hermite–Simpson) a block of ``kernel`` takes:
     ``block_n``, cut to the rows there are (rounded up to 8, at least 8,
     as the reference's ``block_n``), then cut by 8 at a time, not below 8,
@@ -155,36 +184,97 @@ def rows_per_block(kernel: str, n_rows: int, D: int, dtype,
     do not, the kernel opts in to more (up to ``ag.SMEM_LIMIT``,
     :func:`fe_kernel_supported`)."""
     bn = max(1, min(int(block_n), max(8, _pad_to(n_rows, 8))))
-    while bn > 8 and _smem_bytes(kernel, bn, D, dtype) > SMEM_DEFAULT:
+    while bn > 8 and _smem_bytes(kernel, bn, D, dtype,
+                                 model) > SMEM_DEFAULT:
         bn = max(8, bn - 8)
     return bn
 
 
+def model_of(f):
+    """``(model, log_idx)`` of a vector field the kernels take: ('l96', ())
+    for ``lorenz96``, ('nakl', ()) for ``nakl``, ('nakl', log_idx) for a
+    model of ``nakl_log_model``; None for any other."""
+    if f is lorenz96:
+        return "l96", ()
+    if f is nakl:
+        return "nakl", ()
+    log_idx = getattr(f, "log_idx", None)
+    if getattr(f, "base", None) is nakl and isinstance(log_idx, tuple):
+        return "nakl", log_idx
+    return None
+
+
+def fe_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
+    """Why the port's K6 does not take this problem (the condition named),
+    or None where it does (:func:`fe_kernel_supported`)."""
+    m = model_of(spec.f)
+    if m is None:
+        return ("the model is neither Lorenz-96 (models.lorenz96) nor NaKL "
+                "(models.nakl or a model of models.nakl_log_model)")
+    model, log_idx = m
+    if model == "l96":
+        if spec.D < 4:
+            return f"Lorenz-96 with D = {spec.D} < 4"
+        if spec.stim_f is not None:
+            return "Lorenz-96 with a stimulus"
+        if spec.NP != 1 or spec.pidx not in ((), (0,)):
+            return (f"Lorenz-96 with NP = {spec.NP}, pidx {spec.pidx} (the "
+                    "kernels take p = [F])")
+    else:
+        if spec.D != 4:
+            return f"NaKL with D = {spec.D} (its state is [V, m, h, n])"
+        if spec.NP != 19:
+            return f"NaKL with NP = {spec.NP} (it has 19 parameters)"
+        if (len(set(spec.pidx)) != len(spec.pidx)
+                or not all(0 <= j < 19 for j in spec.pidx)):
+            return f"NaKL with pidx {spec.pidx}"
+        if not all(0 <= j < 19 for j in log_idx):
+            return f"NaKL with log coordinates {log_idx}"
+        if spec.stim_f is not None and (
+                np.ndim(spec.stim_f) != 2
+                or np.shape(spec.stim_f)[0] != spec.N_f
+                or np.shape(spec.stim_f)[1] < 1):
+            return (f"a stimulus of shape {np.shape(spec.stim_f)} (the "
+                    f"kernels read column 0 of ({spec.N_f}, S))")
+    if spec.time_dep_p:
+        return "time-dependent parameters"
+    if spec.disc not in _DISCS:
+        return f"disc {spec.disc!r}"
+    if spec.disc == "SimpsonHermite" and spec.N_f % 2 != 1:
+        return f"Hermite–Simpson with an even N_f = {spec.N_f}"
+    rf_nd = np.ndim(rf)
+    if rf_nd not in (0, 2) or (rf_nd == 2 and np.shape(rf) != (
+            spec.N_f - 1, spec.D)):
+        return (f"rf of shape {np.shape(rf)} (scalar or "
+                f"({spec.N_f - 1}, {spec.D}))")
+    if dtype not in _DTYPES:
+        return f"dtype {dtype}"
+    if not _uniform_grid(spec):
+        return "a non-uniform time grid"
+    if not all(_smem_bytes(k, 8, spec.D, dtype, model) <= ag.SMEM_LIMIT
+               for k in _kernels_of(spec.disc)):
+        return (f"D = {spec.D}: 8 rows a block exceed one block's shared "
+                "memory")
+    return None
+
+
 def fe_kernel_supported(spec: ProblemSpec, rf=0.0,
                         dtype=torch.float32) -> bool:
-    """The port's K6 envelope: Lorenz-96 (the port's
-    ``models.lorenz.lorenz96``, D >= 4) without a stimulus, constant
-    parameters with NP == 1 and F estimated or fixed, any of the four
-    discs, scalar or (N_f-1, D) rf, a uniform grid, float32 or float64,
-    and 8 rows a block of every kernel of the disc within one block's
-    shared memory (``ag.SMEM_LIMIT``): D up to 708 in float64 and 1,417 in
-    float32 under Hermite–Simpson (its backward stages 41 rows), 1,075 and
-    2,152 for the one-step discs (27 rows)."""
-    rf_nd = np.ndim(rf)
-    return (spec.f is lorenz96
-            and spec.D >= 4
-            and spec.stim_f is None
-            and not spec.time_dep_p
-            and spec.NP == 1
-            and spec.pidx in ((), (0,))
-            and spec.disc in _DISCS
-            and (spec.disc != "SimpsonHermite" or spec.N_f % 2 == 1)
-            and rf_nd in (0, 2)
-            and (rf_nd == 0 or np.shape(rf) == (spec.N_f - 1, spec.D))
-            and dtype in _DTYPES
-            and _uniform_grid(spec)
-            and all(_smem_bytes(k, 8, spec.D, dtype) <= ag.SMEM_LIMIT
-                    for k in _kernels_of(spec.disc)))
+    """The port's K6 envelope (:func:`fe_refusal` names what fails):
+
+    - Lorenz-96 (``models.lorenz.lorenz96``, D >= 4) without a stimulus,
+      NP == 1 with F estimated or fixed;
+    - NaKL (``models.nakl.nakl`` or a model of ``nakl_log_model``, D = 4,
+      NP = 19, any ``pidx``), with or without a stimulus (column 0 of an
+      (N_f, S) ``stim_f``);
+
+    and for both: constant parameters, any of the four discs, scalar or
+    (N_f-1, D) rf, a uniform grid, float32 or float64, and 8 rows a block
+    of every kernel of the disc within one block's shared memory
+    (``ag.SMEM_LIMIT``): for Lorenz-96 D up to 708 in float64 and 1,417
+    in float32 under Hermite–Simpson (its backward stages 41 rows), 1,075
+    and 2,152 for the one-step discs (27 rows)."""
+    return fe_refusal(spec, rf, dtype) is None
 
 
 def _in_regime(spec: ProblemSpec, dtype, device) -> bool:
@@ -211,14 +301,12 @@ def pallas_preferred(spec: ProblemSpec, rf, dtype=torch.float32,
     return _in_regime(spec, dtype, device) and fe_supported(spec, rf)
 
 
-def _k6_waits(spec: ProblemSpec):
-    item = ("§1 item 5 (the NaKL path, with the stimulus)"
-            if spec.stim_f is not None else "§1 item 8 (other models)")
+def _k6_waits(spec: ProblemSpec, rf, dtype):
     return NotImplementedError(
-        "the time-blocked FE kernels K6 take Lorenz-96 without a stimulus, "
-        "constant parameters, NP == 1, float32 or float64 "
-        "(kernels.fe.fe_kernel_supported); the reference runs K6 here, "
-        f"which waits for a later slice of the port: see ROADMAP.md, {item}")
+        "the time-blocked FE kernels K6 do not take this problem: "
+        f"{fe_refusal(spec, rf, dtype)} (kernels.fe.fe_kernel_supported); "
+        "the reference runs K6 here, which waits for a later slice of the "
+        "port: see ROADMAP.md, §1 item 8 (other models)")
 
 
 def select_action(spec: ProblemSpec, rf, engine: str = "auto",
@@ -256,7 +344,7 @@ def select_action(spec: ProblemSpec, rf, engine: str = "auto",
         elif pallas_preferred(spec, rf, dtype, device):
             engine = "pallas"
     if engine == "pallas" and not fe_kernel_supported(spec, rf, dtype):
-        raise _k6_waits(spec)
+        raise _k6_waits(spec, rf, dtype)
     if engine == "ag":
         act, parts = ag.make_action_ag(spec, device=device, dtype=dtype)
     elif engine == "pallas":
@@ -277,23 +365,50 @@ def select_action(spec: ProblemSpec, rf, engine: str = "auto",
 @dataclasses.dataclass(frozen=True)
 class FeConsts:
     """K6's constants for one problem, dtype and device. ``bn_fwd`` and
-    ``bn_bwd`` are rows a block (intervals under Hermite–Simpson)."""
+    ``bn_bwd`` are rows a block (intervals under Hermite–Simpson).
+    ``P_base`` holds the full parameter vector on the estimation scale
+    (log coordinates logged). The tensors, made once on ``device`` by
+    :func:`fe_consts`: ``P_lin`` the (NP,) parameters on the linear scale
+    (log coordinates exponentiated), ``stim`` the (N_f,) injected current
+    or None, ``pidx_t`` the estimated indices, ``log_mask`` (NP,) and
+    ``pest_log`` (NPest,) the log coordinates (None without any)."""
     disc: str
     N_f: int
     D: int
     M: int                  # Hermite–Simpson intervals, (N_f - 1) // 2
-    n_pest: int             # 1 when F is estimated, else 0
-    F_fixed: float
+    model: str              # 'l96' or 'nakl'
+    pidx: tuple             # estimated parameters (indices into NP)
+    log_idx: tuple          # coordinates estimated in log space
+    P_base: tuple           # (NP,) floats
     h: float
     norm: float             # D · (N_f - 1)
     bn_fwd: int
     bn_bwd: int
     dtype: torch.dtype
     device: torch.device
+    P_lin: torch.Tensor = dataclasses.field(compare=False, repr=False)
+    stim: Optional[torch.Tensor] = dataclasses.field(compare=False,
+                                                     repr=False)
+    pidx_t: torch.Tensor = dataclasses.field(compare=False, repr=False)
+    log_mask: Optional[torch.Tensor] = dataclasses.field(compare=False,
+                                                         repr=False)
+    pest_log: Optional[torch.Tensor] = dataclasses.field(compare=False,
+                                                         repr=False)
 
     @property
     def sh(self) -> bool:
         return self.disc == "SimpsonHermite"
+
+    @property
+    def NP(self) -> int:
+        return len(self.P_base)
+
+    @property
+    def direct(self) -> bool:
+        """Whether the estimated values are the parameter rows themselves
+        (every parameter estimated, in order, none in log space): the
+        kernels then read ``pest`` with no merge."""
+        return self.pidx == tuple(range(self.NP)) and not self.log_idx
 
     @property
     def n_fwd_blocks(self) -> int:
@@ -323,23 +438,92 @@ class FeConsts:
 def fe_consts(spec: ProblemSpec, dtype, device, block_n: int = 512
               ) -> FeConsts:
     """:class:`FeConsts` for ``spec`` (which must lie in
-    :func:`fe_kernel_supported` for ``dtype``)."""
-    if not fe_kernel_supported(spec, 0.0, dtype):
-        raise ValueError("problem outside K6's envelope (see "
+    :func:`fe_kernel_supported` for ``dtype``), its tensors on
+    ``device``."""
+    why = fe_refusal(spec, 0.0, dtype)
+    if why is not None:
+        raise ValueError(f"problem outside K6's envelope: {why} (see "
                          "kernels.fe.fe_kernel_supported); use "
                          "ops.action.make_action")
+    model, log_idx = model_of(spec.f)
+    device = resolve_device(device)
     sh = spec.disc == "SimpsonHermite"
     M = (spec.N_f - 1) // 2 if sh else 0
     fwd, bwd = _kernels_of(spec.disc)
+    P_base = tuple(float(v) for v in np.asarray(spec.P_base))
+    pidx, log_idx = tuple(spec.pidx), tuple(log_idx)
+
+    def on_dev(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    log_mask = pest_log = None
+    P_lin = on_dev(np.asarray(P_base, np.float64))
+    if log_idx:
+        log_mask = on_dev([j in log_idx for j in range(len(P_base))],
+                          torch.bool)
+        P_lin = torch.where(log_mask, torch.exp(P_lin), P_lin)
+        if any(j in log_idx for j in pidx):
+            pest_log = on_dev([j in log_idx for j in pidx], torch.bool)
     return FeConsts(
-        disc=spec.disc, N_f=spec.N_f, D=spec.D, M=M, n_pest=spec.NPest,
-        F_fixed=float(np.asarray(spec.P_base)[0]), h=float(spec.dt),
+        disc=spec.disc, N_f=spec.N_f, D=spec.D, M=M, model=model,
+        pidx=pidx, log_idx=log_idx, P_base=P_base, h=float(spec.dt),
         norm=spec.D * (spec.N_f - 1),
         bn_fwd=rows_per_block(fwd, M if sh else spec.N_f - 1, spec.D,
-                              dtype, block_n),
+                              dtype, block_n, model),
         bn_bwd=rows_per_block(bwd, M if sh else spec.N_f, spec.D, dtype,
-                              block_n),
-        dtype=dtype, device=resolve_device(device))
+                              block_n, model),
+        dtype=dtype, device=device, P_lin=P_lin,
+        stim=(None if spec.stim_f is None else on_dev(
+            np.asarray(spec.stim_f, np.float64)[:, 0])),
+        pidx_t=on_dev(np.asarray(pidx, np.int64), torch.long),
+        log_mask=log_mask, pest_log=pest_log)
+
+
+def full_params(pest, c: FeConsts):
+    """The parameter rows, (B, NP) in ``pest``'s dtype: the estimated
+    values ``pest`` (B, NPest) merged into the fixed ones at ``pidx`` (the
+    reference's ``_merge``), a log model's coordinates exponentiated
+    (linear parameters). ``pest`` itself where :attr:`FeConsts.direct`
+    holds, ``P_lin`` broadcast where nothing is estimated."""
+    if c.direct:
+        return pest
+    B = pest.shape[0]
+    P_lin = c.P_lin.to(pest.dtype)
+    if not c.pidx:
+        return P_lin.expand(B, c.NP)
+    v = pest if c.pest_log is None else torch.where(
+        c.pest_log, torch.exp(pest), pest)
+    return P_lin.expand(B, c.NP).clone().index_copy_(1, c.pidx_t, v)
+
+
+def param_rows(pest, c: FeConsts):
+    """(P, row stride) as the kernels read the parameter rows: ``pest``
+    with its own stride where :attr:`FeConsts.direct` holds, ``P_lin``
+    with stride 0 where nothing is estimated, else the merged rows of
+    :func:`full_params`."""
+    if not c.pidx:
+        return c.P_lin, 0
+    P = full_params(pest, c)
+    if c.NP > 1 and P.stride(1) != 1:
+        P = P.contiguous()
+    return P, P.stride(0)
+
+
+def param_grad(gp, P, c: FeConsts):
+    """The gradient over the full estimation-scale parameter vector (B, NP)
+    from the kernels' per-block partials ``gp`` (B, NP, blocks), summed
+    over blocks in order; a log coordinate's gradient times its linear
+    value ``P`` (:func:`full_params`), the chain rule through exp."""
+    g = gp.sum(dim=-1)
+    if c.log_mask is not None:
+        g = torch.where(c.log_mask, g * P, g)
+    return g
+
+
+def pest_grad(g, c: FeConsts):
+    """The gradient over the estimated values (B, NPest) from the full one
+    (B, NP): its columns at ``pidx``."""
+    return g if c.direct else g.index_select(1, c.pidx_t)
 
 
 def _scalar(v, dtype):
@@ -364,10 +548,34 @@ def _l96_jtv(X, v):
             - v)
 
 
-def _F(pest, c: FeConsts, dtype):
-    if c.n_pest:
-        return pest[:, :1].reshape(-1, 1, 1)
-    return _scalar(c.F_fixed, dtype)
+def _stim_rows(c: FeConsts, X, sl):
+    """The injected current of model-grid rows ``sl`` as an (R, 1) tensor
+    on X's device, or None without a stimulus."""
+    return None if c.stim is None else c.stim.to(X.dtype)[sl, None]
+
+
+def _nakl_rows(X, P, stim):
+    """The port's torch ``nakl`` on rows X (B, R, 4) with parameter rows P
+    (B, NP) or (B, R, NP) and currents ``stim`` (R, 1) or None."""
+    Pr = P[:, None, :] if P.ndim == 2 else P
+    return nakl(None, X, Pr if stim is None else (Pr, stim))
+
+
+def _fX(X, P, c: FeConsts, sl=slice(None)):
+    """f on the rows X (B, R, D) (model-grid rows ``sl``)."""
+    if c.model == "l96":
+        return _l96(X, P[:, :1].reshape(-1, 1, 1))
+    return _nakl_rows(X, P, _stim_rows(c, X, sl))
+
+
+def _nakl_vjp(X, P, v, c: FeConsts, sl):
+    """(J(x)ᵀ v per row (B, R, D), the rows' parameter adjoints
+    Σ_d df_d/dp v_d (B, R, NP)) of NaKL at rows X (model-grid rows
+    ``sl``), by torch.func.vjp of the torch model."""
+    stim = _stim_rows(c, X, sl)
+    Pr = P[:, None, :].expand(X.shape[0], X.shape[1], P.shape[-1])
+    _, vjp = torch.func.vjp(lambda x, p: _nakl_rows(x, p, stim), X, Pr)
+    return vjp(v)
 
 
 def _block_sums(t, bn):
@@ -380,9 +588,15 @@ def _block_sums(t, bn):
     return t.reshape(B, nb, bn * D).sum(dim=2)
 
 
-def _onestep_residuals(X, pest, c: FeConsts):
+def _block_param_sums(pbar, bn):
+    """(B, R, NP) row adjoints -> (B, NP, ceil(R / bn)) per-block sums."""
+    return torch.stack([_block_sums(pbar[..., j:j + 1], bn)
+                        for j in range(pbar.shape[-1])], dim=1)
+
+
+def _onestep_residuals(X, P, c: FeConsts):
     dt = X.dtype
-    fX = _l96(X, _F(pest, c, dt))
+    fX = _fX(X, P, c)
     hc = _scalar(c.coeffs()[0], dt)
     if c.disc == "trapezoid":
         return X[:, 1:] - X[:, :-1] - hc * (fX[:, :-1] + fX[:, 1:])
@@ -394,7 +608,7 @@ def _onestep_residuals(X, pest, c: FeConsts):
 def onestep_fwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_onestep_fwd: X (B, N_f, D), pest (B, NPest), rf
     a float or an (N_f-1, D) tensor -> partials (B, n_fwd_blocks)."""
-    r = _onestep_residuals(X, pest, c)
+    r = _onestep_residuals(X, full_params(pest, c), c)
     if isinstance(rf, torch.Tensor):
         return _block_sums(rf * r * r, c.bn_fwd)
     return _scalar(rf, X.dtype) * _block_sums(r * r, c.bn_fwd)
@@ -404,25 +618,30 @@ def onestep_bwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_onestep_bwd: the unscaled gradient rows
     gx_m = wr_{m-1} - a1 wr_m - J(x_m)ᵀ v_m (B, N_f, D), with wr the
     weighted residuals (zero before the first row and after the last) and
-    v_m = c0 wr_{m-1} + c1 wr_m, and F's partials -Σ v per block of
-    bn_bwd rows (B, n_bwd_blocks)."""
+    v_m = c0 wr_{m-1} + c1 wr_m, and the parameters' partials
+    -Σ_m F_p(x_m)ᵀ v_m per block of bn_bwd rows (B, NP, n_bwd_blocks)."""
     dt = X.dtype
     _, a1, c0, c1 = (_scalar(v, dt) for v in c.coeffs())
-    r = _onestep_residuals(X, pest, c)
+    P = full_params(pest, c)
+    r = _onestep_residuals(X, P, c)
     wr = (rf if isinstance(rf, torch.Tensor) else _scalar(rf, dt)) * r
     z = torch.zeros_like(wr[:, :1])
     wr_prev = torch.cat([z, wr], dim=1)
     wr_cur = torch.cat([wr, z], dim=1)
     v = c0 * wr_prev + c1 * wr_cur
-    gx = wr_prev - a1 * wr_cur - _l96_jtv(X, v)
-    return gx, -_block_sums(v, c.bn_bwd)
+    if c.model == "l96":
+        gx = wr_prev - a1 * wr_cur - _l96_jtv(X, v)
+        return gx, -_block_sums(v, c.bn_bwd)[:, None, :]
+    jtv, pbar = _nakl_vjp(X, P, v, c, slice(None))
+    return (wr_prev - a1 * wr_cur - jtv,
+            -_block_param_sums(pbar, c.bn_bwd))
 
 
-def _sh_parts(X, pest, rf, c: FeConsts):
+def _sh_parts(X, P, rf, c: FeConsts):
     dt = X.dtype
     h6, h8, _ = (_scalar(v, dt) for v in c.coeffs())
     M = c.M
-    fX = _l96(X, _F(pest, c, dt))
+    fX = _fX(X, P, c)
     xe0, xm, xe1 = X[:, 0:2 * M:2], X[:, 1:2 * M:2], X[:, 2:2 * M + 1:2]
     f0, fm, f1 = fX[:, 0:2 * M:2], fX[:, 1:2 * M:2], fX[:, 2:2 * M + 1:2]
     S = xe1 - xe0 - h6 * (f0 + 4.0 * fm + f1)
@@ -437,25 +656,35 @@ def _sh_parts(X, pest, rf, c: FeConsts):
 def sh_fwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_sh_fwd: partials Σ ws S² + wh H² per block of
     bn_fwd intervals (B, n_fwd_blocks)."""
-    _, S, H, ws, wh = _sh_parts(X, pest, rf, c)
+    _, S, H, ws, wh = _sh_parts(X, full_params(pest, c), rf, c)
     return _block_sums(ws * S * S + wh * H * H, c.bn_fwd)
 
 
 def sh_bwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_sh_bwd: the unscaled triplet (g_e0, g_m, g_e1),
-    each (B, M, D), and F's partials Σ (v0 + vm + v1) per block of bn_bwd
-    intervals (B, n_bwd_blocks)."""
+    each (B, M, D), and the parameters' partials
+    Σ (F_p0ᵀ v0 + F_pmᵀ vm + F_p1ᵀ v1) per block of bn_bwd intervals
+    (B, NP, n_bwd_blocks)."""
     dt = X.dtype
     h6, h8, h46 = (_scalar(v, dt) for v in c.coeffs())
-    (xe0, xm, xe1), S, H, ws, wh = _sh_parts(X, pest, rf, c)
+    P = full_params(pest, c)
+    (xe0, xm, xe1), S, H, ws, wh = _sh_parts(X, P, rf, c)
     WS, WH = ws * S, wh * H
     v0 = -h6 * WS - h8 * WH
     vm = -h46 * WS
     v1 = -h6 * WS + h8 * WH
-    ge0 = -WS - 0.5 * WH + _l96_jtv(xe0, v0)
-    gm = WH + _l96_jtv(xm, vm)
-    ge1 = WS - 0.5 * WH + _l96_jtv(xe1, v1)
-    return ge0, gm, ge1, _block_sums(v0 + vm + v1, c.bn_bwd)
+    if c.model == "l96":
+        ge0 = -WS - 0.5 * WH + _l96_jtv(xe0, v0)
+        gm = WH + _l96_jtv(xm, vm)
+        ge1 = WS - 0.5 * WH + _l96_jtv(xe1, v1)
+        return (ge0, gm, ge1,
+                _block_sums(v0 + vm + v1, c.bn_bwd)[:, None, :])
+    M = c.M
+    j0, p0 = _nakl_vjp(xe0, P, v0, c, slice(0, 2 * M, 2))
+    jm, pm = _nakl_vjp(xm, P, vm, c, slice(1, 2 * M, 2))
+    j1, p1 = _nakl_vjp(xe1, P, v1, c, slice(2, 2 * M + 1, 2))
+    return (-WS - 0.5 * WH + j0, WH + jm, WS - 0.5 * WH + j1,
+            _block_param_sums(p0 + pm + p1, c.bn_bwd))
 
 
 def sh_join(ge0, gm, ge1, c: FeConsts):
@@ -481,16 +710,18 @@ def _lib():
     if not getattr(lib, "_va_typed", False):
         P, I, LL, Dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        common = [P, LL, P, LL, Dbl, P, Dbl, I, I, I]
+        common = [P, LL, P, LL, P, P, Dbl, I, I, I]
         for t in ("f32", "f64"):
             fn = getattr(lib, f"va_fe_onestep_fwd_{t}")
-            fn.argtypes = [I, I] + common + [Dbl, I, P, P]
+            fn.argtypes = [I, I, I] + common + [Dbl, I, P, P]
             fn = getattr(lib, f"va_fe_onestep_bwd_{t}")
-            fn.argtypes = [I, I] + common + [Dbl, Dbl, Dbl, Dbl, I, P, P, P]
+            fn.argtypes = [I, I, I] + common + [Dbl, Dbl, Dbl, Dbl, I, P, P,
+                                                P]
             fn = getattr(lib, f"va_fe_sh_fwd_{t}")
-            fn.argtypes = [I] + common + [Dbl, Dbl, I, P, P]
+            fn.argtypes = [I, I] + common + [Dbl, Dbl, I, P, P]
             fn = getattr(lib, f"va_fe_sh_bwd_{t}")
-            fn.argtypes = [I] + common + [Dbl, Dbl, Dbl, I, P, P, P, P, P]
+            fn.argtypes = [I, I] + common + [Dbl, Dbl, Dbl, I, P, P, P, P,
+                                             P]
             for k in ("onestep_fwd", "onestep_bwd", "sh_fwd", "sh_bwd"):
                 getattr(lib, f"va_fe_{k}_{t}").restype = I
         lib.va_fe_error_string.restype = ctypes.c_char_p
@@ -501,7 +732,8 @@ def _lib():
 
 def _launch_args(X, pest, rf, c: FeConsts):
     """Check the inputs of a kernel launch and return (X, B, diag, the
-    launch's leading arguments)."""
+    launch's leading arguments, the parameter rows P); P must stay alive
+    until the launch is queued."""
     if X.device.type != "cuda" or X.device != c.device:
         raise ValueError(f"X is on {X.device}; the kernel's constants are "
                          f"on {c.device}")
@@ -512,13 +744,12 @@ def _launch_args(X, pest, rf, c: FeConsts):
     if X.stride(2) != 1 or X.stride(1) != c.D:
         X = X.contiguous()
     B = X.shape[0]
-    p_ptr, p_bs = None, 0
-    if c.n_pest:
-        if (pest is None or tuple(pest.shape) != (B, 1)
-                or pest.dtype != c.dtype or pest.device != X.device):
-            raise ValueError(f"pest must be ({B}, 1) {c.dtype} on "
-                             f"{X.device}")
-        p_ptr, p_bs = pest.data_ptr(), pest.stride(0)
+    npest = len(c.pidx)
+    if (pest is None or tuple(pest.shape) != (B, npest)
+            or pest.dtype != c.dtype or pest.device != X.device):
+        raise ValueError(f"pest must be ({B}, {npest}) {c.dtype} on "
+                         f"{X.device}")
+    P, p_bs = param_rows(pest, c)
     diag = isinstance(rf, torch.Tensor)
     if diag:
         if (tuple(rf.shape) != (c.N_f - 1, c.D) or rf.dtype != c.dtype
@@ -530,8 +761,9 @@ def _launch_args(X, pest, rf, c: FeConsts):
     else:
         rf_ptr, rf_s = None, float(rf)
     rows = c.M if c.sh else c.N_f
-    return X, B, int(diag), (X.data_ptr(), X.stride(0), p_ptr, p_bs,
-                             c.F_fixed, rf_ptr, rf_s, B, rows, c.D)
+    return X, B, int(diag), (X.data_ptr(), X.stride(0), P.data_ptr(), p_bs,
+                             None if c.stim is None else c.stim.data_ptr(),
+                             rf_ptr, rf_s, B, rows, c.D), P
 
 
 def _call(X, fn, name, *args):
@@ -556,35 +788,38 @@ def _check_disc(c: FeConsts, want_sh: bool, name: str):
 
 def onestep_fwd_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_onestep_fwd (K6a) on X (B, N_f, D), a CUDA tensor of c's
-    dtype whose rows are contiguous; returns the partials (B,
-    n_fwd_blocks) on PyTorch's current stream, without synchronizing.
-    Raises on anything the kernel does not take and on a refused
-    launch."""
+    dtype whose rows are contiguous, and pest (B, NPest); returns the
+    partials (B, n_fwd_blocks) on PyTorch's current stream, without
+    synchronizing. Raises on anything the kernel does not take and on a
+    refused launch."""
     global FWD_LAUNCHES
     _check_disc(c, False, "fe_onestep_fwd")
-    X, B, diag, common = _launch_args(X, pest, rf, c)
+    X, B, diag, common, _P = _launch_args(X, pest, rf, c)
     out = torch.empty(B, c.n_fwd_blocks, dtype=c.dtype, device=X.device)
     if B == 0:
         return out
-    _call(X, _fn("onestep_fwd", c), "fe_onestep_fwd", _DISC_CODE[c.disc],
-          diag, *common, c.coeffs()[0], c.bn_fwd, out.data_ptr())
+    _call(X, _fn("onestep_fwd", c), "fe_onestep_fwd", _MODEL_CODE[c.model],
+          _DISC_CODE[c.disc], diag, *common, c.coeffs()[0], c.bn_fwd,
+          out.data_ptr())
     FWD_LAUNCHES += 1
     return out
 
 
 def onestep_bwd_kernel(X, pest, rf, c: FeConsts):
-    """Launch fe_onestep_bwd (K6b): returns (gx (B, N_f, D), F's partials
-    (B, n_bwd_blocks)), unscaled, as :func:`onestep_bwd_reference`."""
+    """Launch fe_onestep_bwd (K6b): returns (gx (B, N_f, D), the
+    parameters' partials (B, NP, n_bwd_blocks)), unscaled, as
+    :func:`onestep_bwd_reference`."""
     global BWD_LAUNCHES
     _check_disc(c, False, "fe_onestep_bwd")
-    X, B, diag, common = _launch_args(X, pest, rf, c)
+    X, B, diag, common, _P = _launch_args(X, pest, rf, c)
     gx = torch.empty(B, c.N_f, c.D, dtype=c.dtype, device=X.device)
-    gp = torch.empty(B, c.n_bwd_blocks, dtype=c.dtype, device=X.device)
+    gp = torch.empty(B, c.NP, c.n_bwd_blocks, dtype=c.dtype,
+                     device=X.device)
     if B == 0:
         return gx, gp
-    _call(X, _fn("onestep_bwd", c), "fe_onestep_bwd", _DISC_CODE[c.disc],
-          diag, *common, *c.coeffs(), c.bn_bwd, gx.data_ptr(),
-          gp.data_ptr())
+    _call(X, _fn("onestep_bwd", c), "fe_onestep_bwd", _MODEL_CODE[c.model],
+          _DISC_CODE[c.disc], diag, *common, *c.coeffs(), c.bn_bwd,
+          gx.data_ptr(), gp.data_ptr())
     BWD_LAUNCHES += 1
     return gx, gp
 
@@ -594,31 +829,33 @@ def sh_fwd_kernel(X, pest, rf, c: FeConsts):
     n_fwd_blocks)."""
     global SH_FWD_LAUNCHES
     _check_disc(c, True, "fe_sh_fwd")
-    X, B, diag, common = _launch_args(X, pest, rf, c)
+    X, B, diag, common, _P = _launch_args(X, pest, rf, c)
     out = torch.empty(B, c.n_fwd_blocks, dtype=c.dtype, device=X.device)
     if B == 0:
         return out
     h6, h8, _ = c.coeffs()
-    _call(X, _fn("sh_fwd", c), "fe_sh_fwd", diag, *common, h6, h8,
-          c.bn_fwd, out.data_ptr())
+    _call(X, _fn("sh_fwd", c), "fe_sh_fwd", _MODEL_CODE[c.model], diag,
+          *common, h6, h8, c.bn_fwd, out.data_ptr())
     SH_FWD_LAUNCHES += 1
     return out
 
 
 def sh_bwd_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_sh_bwd (K6c, K6d for B > 1): returns the unscaled triplet
-    (g_e0, g_m, g_e1), each (B, M, D), and F's partials (B,
-    n_bwd_blocks), as :func:`sh_bwd_reference`."""
+    (g_e0, g_m, g_e1), each (B, M, D), and the parameters' partials (B,
+    NP, n_bwd_blocks), as :func:`sh_bwd_reference`."""
     global SH_BWD_LAUNCHES
     _check_disc(c, True, "fe_sh_bwd")
-    X, B, diag, common = _launch_args(X, pest, rf, c)
+    X, B, diag, common, _P = _launch_args(X, pest, rf, c)
     trip = [torch.empty(B, c.M, c.D, dtype=c.dtype, device=X.device)
             for _ in range(3)]
-    gp = torch.empty(B, c.n_bwd_blocks, dtype=c.dtype, device=X.device)
+    gp = torch.empty(B, c.NP, c.n_bwd_blocks, dtype=c.dtype,
+                     device=X.device)
     if B == 0:
         return (*trip, gp)
-    _call(X, _fn("sh_bwd", c), "fe_sh_bwd", diag, *common, *c.coeffs(),
-          c.bn_bwd, *(t.data_ptr() for t in trip), gp.data_ptr())
+    _call(X, _fn("sh_bwd", c), "fe_sh_bwd", _MODEL_CODE[c.model], diag,
+          *common, *c.coeffs(), c.bn_bwd, *(t.data_ptr() for t in trip),
+          gp.data_ptr())
     SH_BWD_LAUNCHES += 1
     return (*trip, gp)
 
@@ -636,9 +873,11 @@ def fe_partials(X, pest, rf, c: FeConsts):
 
 
 def fe_adjoint(X, pest, rf, c: FeConsts):
-    """The backward's unscaled gradient rows (B, N_f, D) and F's partials
-    (B, n_bwd_blocks): the plain version for a CPU tensor, the kernel for
-    a CUDA tensor; under Hermite–Simpson the triplet joined by node."""
+    """The backward's unscaled gradient rows (B, N_f, D) and the gradient
+    over the full estimation-scale parameter vector (B, NP)
+    (:func:`param_grad`): the plain version for a CPU tensor, the kernel
+    for a CUDA tensor; under Hermite–Simpson the triplet joined by
+    node."""
     if X.device.type == "cpu":
         if X.device != c.device:
             raise ValueError(f"X is on {X.device}; the constants are on "
@@ -647,9 +886,11 @@ def fe_adjoint(X, pest, rf, c: FeConsts):
     else:
         fn = sh_bwd_kernel if c.sh else onestep_bwd_kernel
     out = fn(X, pest, rf, c)
+    P = full_params(pest, c) if c.log_idx else None
+    gp = param_grad(out[-1], P, c)
     if c.sh:
-        return sh_join(*out[:3], c), out[3]
-    return out
+        return sh_join(*out[:3], c), gp
+    return out[0], gp
 
 
 # ---------------------------------------------------------------------------
@@ -691,8 +932,8 @@ class _FE(torch.autograd.Function):
                 g_rows, gp = fe_adjoint(X, pest, rf_k, c)
                 scale = 2.0 * g / c.norm
                 gx = scale[:, None, None] * g_rows
-                gpest = (scale * gp.sum(dim=1))[:, None] if c.n_pest \
-                    else torch.zeros_like(pest)
+                gpest = (scale[:, None] * pest_grad(gp, c) if c.pidx
+                         else torch.zeros_like(pest))
             else:
                 with torch.enable_grad():
                     Xd = X.detach().requires_grad_(True)

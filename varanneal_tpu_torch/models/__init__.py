@@ -2,5 +2,12 @@
 ``varanneal_tpu/models``)."""
 
 from varanneal_tpu_torch.models.lorenz import lorenz96, lorenz63
+from varanneal_tpu_torch.models.nakl import (
+    nakl, nakl_param_boxes, nakl_log_model, nakl_ss_gates,
+    nakl_ensemble_inits, NAKL_P_TRUE, NAKL_PNAMES, NAKL_PBOUNDS,
+    NAKL_STATE_BOUNDS, NAKL_TAU_IDX, NAKL_G_IDX)
 
-__all__ = ["lorenz96", "lorenz63"]
+__all__ = ["lorenz96", "lorenz63", "nakl", "nakl_param_boxes",
+           "nakl_log_model", "nakl_ss_gates", "nakl_ensemble_inits",
+           "NAKL_P_TRUE", "NAKL_PNAMES", "NAKL_PBOUNDS",
+           "NAKL_STATE_BOUNDS", "NAKL_TAU_IDX", "NAKL_G_IDX"]

@@ -209,26 +209,35 @@ def child(checkout, out):
     return 0
 
 
-def main(argv):
-    other, out_dir = (os.path.abspath(a) for a in argv)
+def run_turns(script, other, out_dir, rounds=1):
+    """Run ``script --child ROOT PATH`` for the turns other, this, this,
+    other (``rounds`` times over) and compare them: each turn's results
+    against its checkout's first turn bit for bit, this checkout's first
+    turn against the other's. Prints the card and both checkouts' mean
+    times; returns a dict of the card, the first turns' results
+    (``first``), the repeats' verdicts (``bits``), the differences
+    (``diffs``), the results only one checkout has (``only``), the mean
+    times (``ms``) and each turn's times (``runs``)."""
+    other, out_dir = os.path.abspath(other), os.path.abspath(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     turns = [("other", other), ("this", ROOT), ("this", ROOT),
-             ("other", other)]
+             ("other", other)] * rounds
+    stem = os.path.splitext(os.path.basename(script))[0]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi)
     got = []
     for i, (tag, root) in enumerate(turns):
-        path = os.path.join(out_dir, f"turn{i}_{tag}.pt")
+        path = os.path.join(out_dir, f"{stem}_turn{i}_{tag}.pt")
         # -P: the script's own directory does not go on sys.path, so the
         # child imports the package of ``root`` alone
-        proc = subprocess.run([sys.executable, "-P", __file__, "--child",
+        proc = subprocess.run([sys.executable, "-P", script, "--child",
                                root, path], capture_output=True, text=True,
                               timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr)
-            raise SystemExit(f"solve_ab: the {tag} turn failed")
+            raise SystemExit(f"{stem}: the {tag} turn failed")
         got.append((tag, torch.load(path)))
     first = {tag: got[turns.index((tag, root))][1]["results"]
              for tag, root in turns}
@@ -253,27 +262,42 @@ def main(argv):
               + (f"{o:.4f}" if o is not None else "not run")
               + f", this {ms['this'][k]:.4f}"
               + (f" ({o / ms['this'][k]:.3f}x)" if o is not None else ""))
-    tails = {tag: float(first[tag]["K3 f64 tail"][1][0, -1])
+    return dict(card=smi, first=first, bits=bits, diffs=diffs, only=only,
+                ms=ms, runs={f"{i} {t}": g["ms"]
+                             for i, (t, g) in enumerate(got)})
+
+
+def report(r, **extra):
+    """Print which results the two checkouts share bit for bit, how the
+    others differ, and which repeats differ from their first turn, then
+    one JSON line (with ``extra``); returns the exit code: 0 when every
+    repeat is bit-identical."""
+    print("this against other, bit-identical: "
+          + (", ".join(k for k, d in r["diffs"].items() if d is None)
+             or "none"))
+    for k, d in r["diffs"].items():
+        if d is not None:
+            print(f"this against other, {k}: {d}")
+    if r["only"]:
+        print("in one checkout only: " + ", ".join(r["only"]))
+    print("DIFFERENT from the same checkout's first turn: "
+          + (", ".join(k for k, v in r["bits"].items() if not v)
+             or "none"))
+    ok = all(r["bits"].values())
+    print(json.dumps(dict(card=r["card"], repeats_bit_identical=ok,
+                          checks=len(r["bits"]), **extra,
+                          this_vs_other=r["diffs"], only_in_one=r["only"],
+                          ms=r["ms"], runs=r["runs"])))
+    return 0 if ok else 1
+
+
+def main(argv):
+    r = run_turns(__file__, *argv)
+    tails = {tag: float(r["first"][tag]["K3 f64 tail"][1][0, -1])
              for tag in ("other", "this")}
     print(f"final_A_tail64 (member 0): other {tails['other']:.6f}, this "
           f"{tails['this']:.6f}")
-    print("this against other, bit-identical: "
-          + (", ".join(k for k, d in diffs.items() if d is None) or "none"))
-    for k, d in diffs.items():
-        if d is not None:
-            print(f"this against other, {k}: {d}")
-    if only:
-        print("in one checkout only: " + ", ".join(only))
-    print("DIFFERENT from the same checkout's first turn: "
-          + (", ".join(k for k, v in bits.items() if not v) or "none"))
-    ok = all(bits.values())
-    print(json.dumps(dict(card=smi, repeats_bit_identical=ok,
-                          checks=len(bits), final_A_tail64=tails,
-                          this_vs_other=diffs,
-                          only_in_one=only, ms=ms,
-                          runs={f"{i} {t}": g["ms"]
-                                for i, (t, g) in enumerate(got)})))
-    return 0 if ok else 1
+    return report(r, final_A_tail64=tails)
 
 
 def _difference(a, b):

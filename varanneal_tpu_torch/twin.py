@@ -1,11 +1,11 @@
 """Twin-experiment data for the port (NumPy only).
 
-A copy of the Lorenz-96 part of ``varanneal_tpu/twin.py`` (``rk4_path``,
-``_rk4_np``, ``lorenz96_twin``), so that a seed gives bit-identical data in
-both packages without the port importing the JAX package. Data generation
-is a host-side loop of tiny steps, so it stays NumPy: the torch model is
-never called from it. The NaKL and Colpitts twins wait for the port of
-their models.
+A copy of the Lorenz-96 and NaKL parts of ``varanneal_tpu/twin.py``
+(``rk4_path``, ``_rk4_np``, ``lorenz96_twin``, ``nakl_np_single``,
+``nakl_twin``), so that a seed gives bit-identical data in both packages
+without the port importing the JAX package. Data generation is a
+host-side loop of tiny steps, so it stays NumPy: the torch model is never
+called from it. The Colpitts twin waits for the port of its model.
 """
 
 import numpy as np
@@ -14,6 +14,24 @@ import numpy as np
 def lorenz96_np(x, F):
     """NumPy Lorenz-96 tendency for a single state vector (D,)."""
     return ((np.roll(x, -1) - np.roll(x, 2)) * np.roll(x, 1) - x + F)
+
+
+def nakl_np_single(x, p, I):
+    """NumPy NaKL tendency for a single state [V, m, h, n]; p as in
+    models.nakl; I = injected current."""
+    (Cm, gNa, ENa, gK, EK, gL, EL,
+     vm, dvm, tm0, tm1, vh, dvh, th0, th1, vn, dvn, tn0, tn1) = p[:19]
+    V, m, h, n = x
+
+    def gate(a, va, dva, ta0, ta1):
+        th = np.tanh((V - va) / dva)
+        return (0.5 * (1 + th) - a) / (ta0 + ta1 * (1 - th * th))
+
+    dV = (gNa * m ** 3 * h * (ENa - V) + gK * n ** 4 * (EK - V)
+          + gL * (EL - V) + I) / Cm
+    return np.array([dV, gate(m, vm, dvm, tm0, tm1),
+                     gate(h, vh, dvh, th0, th1),
+                     gate(n, vn, dvn, tn0, tn1)])
 
 
 def rk4_path(f, x0, dt, n_steps, p, stim=None, t0=0.0):
@@ -82,3 +100,35 @@ def lorenz96_twin(D=20, N_data=161, dt=0.025, F=8.17, sigma=0.5,
     t = dt * np.arange(N_data)
     return dict(traj=traj, Y=Y, t=t, Lidx=Lidx, RM=1.0 / sigma ** 2,
                 sigma=sigma, F=F, dt=dt)
+
+
+def nakl_twin(N=3001, dt=0.04, sigma=1.0, seed=7, seg=150, i_max=35.0,
+              i_min=0.0, sub=10):
+    """NaKL twin data (BASELINE config #3): random-step injected current,
+    truth integrated ``sub``x finer than the data grid and subsampled so
+    the data is a near-exact ODE solution. Returns dict(traj, V, stim, t,
+    sigma). ``i_min < 0`` gives a bipolar drive that probes the I–V curve
+    across a wider voltage range."""
+    from varanneal_tpu_torch.models.nakl import NAKL_P_TRUE
+
+    rng = np.random.default_rng(seed)
+    t = dt * np.arange(N)
+    steps = rng.uniform(i_min, i_max, size=N // seg + 2)
+    stim = np.interp(np.arange(N), np.arange(len(steps)) * seg, steps)
+    stim_f = np.interp(np.arange(N * sub) / sub, np.arange(N), stim)
+    p = np.asarray(NAKL_P_TRUE)
+    x = np.array([-65.0, 0.1, 0.6, 0.3])
+    out = [x.copy()]
+    h = dt / sub
+    for i in range((N - 1) * sub):
+        I = stim_f[i]
+        fnp = lambda xx: nakl_np_single(xx, p, I)      # noqa: E731
+        k1 = fnp(x)
+        k2 = fnp(x + h / 2 * k1)
+        k3 = fnp(x + h / 2 * k2)
+        k4 = fnp(x + h * k3)
+        x = x + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        out.append(x.copy())
+    traj = np.asarray(out)[::sub]
+    V = traj[:, 0:1] + sigma * rng.normal(size=(N, 1))
+    return dict(traj=traj, V=V, stim=stim, t=t, sigma=sigma)
