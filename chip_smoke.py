@@ -175,40 +175,45 @@ timed on its own line:
    short solves in its box through K1 f64 on the card and the plain
    version on the CPU: identical niter, nfev and status, x within 1e-8
    relative, feasible; its time per iteration;
-18. K6's four kernels (kernels/csrc/fe_kernel.cu) against their plain
-   versions on the card, at data-informed draws (phase 3's pattern, numpy
-   seed 0) and the rf of beta 0, 30, 60, scalar and (N_f-1, D): config
-   #1's shape (D=20, N=161, B=4) under euler, trapezoid and forwardmap,
-   config #2's (D=100, N_f=241, Hermite–Simpson, B=8) and config #5's
-   width (D=400, trapezoid, B=4), each in f64 (value 1e-12 relative,
-   gradient 1e-12 of max|g|) and f32 (2e-5, K1's limits), repeats
-   bit-identical; each kernel at its path's shape (one member, f32)
-   timed by CUDA events and by torch.profiler, beside its plain version,
-   its bound, and the autograd action's value+grad (the yardstick); the
-   Hermite–Simpson kernels also at B=8 in f64 (K6d, the ensemble's path);
-   then K6 on NaKL with its stimulus (BASELINE config #3's twin): the
-   hand-written f, Jᵀv and parameter adjoint of csrc/nakl.cuh against the
-   plain versions (the torch model and torch.func.vjp) under
-   Hermite–Simpson at N_f = 6,001 (B=1, and B=4, 8 and 64: phase 27b's
-   polish and screen batches) and the one-step discs
+18. K6's kernels (kernels/csrc/fe_kernel.cu: the one-step pair, and
+   Hermite–Simpson's forward and fused value-and-gradient launch, which
+   also serves autograd's backward) against their plain versions on the card, at data-informed
+   draws (phase 3's pattern, numpy seed 0) and the rf of beta 0, 30, 60,
+   scalar and (N_f-1, D): config #1's shape (D=20, N=161, B=4) under
+   euler, trapezoid and forwardmap, config #2's (D=100, N_f=241,
+   Hermite–Simpson, B=8) and config #5's width (D=400, trapezoid, B=4),
+   each in f64 (value 1e-12 relative, gradient 1e-12 of max|g|) and f32
+   (2e-5, K1's limits), repeats bit-identical; each kernel at its path's
+   shape (one member, f32) timed by CUDA events and by torch.profiler,
+   beside its plain version, its bound, and the autograd action's
+   value+grad (the yardstick); the Hermite–Simpson kernels also at B=8 in
+   f64 (K6d, the ensemble's path); then K6 on NaKL with its stimulus
+   (BASELINE config #3's twin): the hand-written f, Jᵀv and parameter
+   adjoint of csrc/nakl.cuh against the plain versions (the torch model
+   and torch.func.vjp) under Hermite–Simpson at N_f = 6,001 (B=1, and B=4,
+   8 and 64: phase 27b's polish and screen batches) and the one-step discs
    at N_f = 3,001, with Pidx [1..5], all 18 parameters and the 18 in the
    log model, f64 (1e-12) and f32 (2e-5), scalar and (N_f-1, 4) rf,
-   repeats bit-identical; timed at phase 27's shapes;
+   repeats bit-identical; timed at phase 27's shapes (27b's polish, f64
+   B=4, too); each Hermite–Simpson launch's grid (blocks, intervals and
+   threads a block) and device time printed beside the per-(interval,
+   component) design's it replaced (PAIR_DESIGN_US);
 19. an f64 10-rung ladder at config #2 (B=2, from near the twin's truth,
-   rf0 = RM, pgtol 1e-8) through K6 and through the autograd action: A
-   within 1e-8 relative at every mutually converged rung;
+   rf0 = RM, pgtol 1e-8) through K6's value_and_grad (the fused launch)
+   and through the autograd action: K6's A within 1e-8 relative of the
+   autograd action's at every mutually converged rung;
 20. the facade at BASELINE config #2 as examples/lorenz96_d100_sh.py runs
-   it (engine='pallas', f32, 61 rungs, maxiter 800, one init): K6's
-   Hermite–Simpson forward and backward launched at least once per
-   evaluation, no other kernel but K7b (whose launches equal the
-   iterations where the loop is the fused one; the example's m = 10 lies
-   outside K7b's 2m + 1 <= 16, so the compact loop runs and K7b stays at
-   0), records (61,) finite, exit flags in {0, 1, 2}; its wall time, ms
-   an iteration, F and the interior RMSE printed, not held (one init
-   sits at the observability boundary); then the example's ensemble, B=8
-   members in f64 for rungs 0..9 through run_ladder_checkpointed with a
-   checkpoint every 2 rungs: K6 launched at least once per evaluation of
-   the slowest member per rung;
+   it (engine='pallas', f32, 61 rungs, maxiter 800, one init): one fused
+   launch an evaluation, K6's Hermite–Simpson forward once a rung for the
+   records and its backward never, no other kernel but K7b (whose launches
+   equal the iterations where the loop is the fused one; the example's m =
+   10 lies outside K7b's 2m + 1 <= 16, so the compact loop runs and K7b
+   stays at 0), records (61,) finite, exit flags in {0, 1, 2}; its wall
+   time, ms an iteration, F and the interior RMSE printed, not held (one
+   init sits at the observability boundary); then the example's ensemble,
+   B=8 members in f64 for rungs 0..9 through run_ladder_checkpointed with
+   a checkpoint every 2 rungs: the fused launch at least once per
+   evaluation of the slowest member per rung, the forward once a rung;
 21. the bench with BENCH_ENGINE=pallas: BENCH_SOLVER=xla (B=1, 101
    rungs, the fused loop, then the 20-rung f64 tail through K1 f64):
    final_A_tail64 within 1e-2 relative of 16.284792, K6's one-step
@@ -260,16 +265,19 @@ timed on its own line:
    N=3001, N_f = 6,001, the stimulus, Pidx [1..5], the boxes, RF0 1e-5,
    alpha 1.6, maxiter 5000, f64) through the facade with
    engine='pallas' (K6c) over its first 24 of 81 rungs and with
-   engine='xla' over the first 10: K6c launched at least once an
-   evaluation, no other kernel, A within 1e-8 at the first 10 rungs
+   engine='xla' over the first 10: one fused launch an evaluation and
+   K6c's forward once a rung (the records), no other kernel, A within
+   1e-8 at the first 10 rungs
    where both converged; walls, nfev and the estimates printed; (b)
    workflow.estimate on examples/nakl_ensemble.py's default campaign
    (B=64 from nakl_ensemble_inits(seed 3), rf0 1e-5·[1, 1e3, 1e3, 1e3],
    the f32 projection screen cut to 12 of 61 rungs with the snapshot at
    rung 8, the f64 polish of the top 4 up 2 extra rungs at the
    example's maxiter 2000), its action from
-   fe.select_action(engine='pallas'): K6d and K7a launched, a checkpoint
-   after every chunk, phase 1 resumed from its checkpoint after rung 4
+   fe.select_action(engine='pallas'): K6d's fused launch and K7a
+   launched, K6d's backward never alone, its launches counted by dtype
+   and batch (the f32 screen, the f64 polish), a checkpoint after every
+   chunk, phase 1 resumed from its checkpoint after rung 4
    bit-identical, the best member's parameters printed.
 
 The last two lines are one JSON object per kernel (name, route, source,
@@ -291,14 +299,16 @@ layout and smem_bytes the planner's at the main shape in f32, registers
 [registers, local bytes] per build, barriers_per_iteration phase 9's
 measured count, and K2's short_b4_ms / short_b264_ms phase 8's
 times in the three layouts; K6's
-launches those of its path, phase 21's xla bench for the one-step kernels
-and phase 20's facade for the Hermite–Simpson ones, its times phase
-18's, with K6d's batched_* at B=8 in f64 and the ensemble's launches,
-and the one-step kernels' nakl_* their NaKL errors and times (phase
-18); fe_sh_fwd_nakl / fe_sh_bwd_nakl are K6c/K6d on NaKL, their
-launches phase 27a's (batched_launches 27b's), their errors phase 18's
-NaKL checks and their times phase 18's at 27a's shape (f64, B=1;
-batched_* the screen's f32, B=64);
+launches those of its path, phase 21's xla bench for the one-step kernels,
+phase 20's facade for fe_sh_fwd (the records) and fe_sh_vag (the fused
+launch, every evaluation), its times phase 18's, with K6d's batched_* at
+B=8 in f64 and the ensemble's launches, and the one-step kernels'
+nakl_* their NaKL errors and times (phase 18);
+fe_sh_fwd_nakl / fe_sh_vag_nakl are K6c/K6d on NaKL, their launches
+phase 27a's (batched_launches 27b's, launches_by_shape its split by
+dtype and batch), their errors phase 18's NaKL checks and their times
+phase 18's at 27a's shape (f64, B=1; batched_* the screen's f32, B=64;
+polish_* the polish's f64, B=4);
 K5's launches phase 23's, its times phase 22's; K8's launches phase 25's
 BENCH_PACK=2 run's, its times phase 24's; K1's, K2's, K3's and K4's
 d400_max_rel_err their phase's check at D=400, K1's d400_ms and K2's
@@ -375,6 +385,19 @@ CONF3 = dict(N=3001, dt=0.04, sigma=1.0, seed=7, alpha=1.6, rf0=1e-5,
              extra_b=2, maxiter_b=400, polish_maxiter=2000, polish_top=4,
              gate_rf_scale=1000.0)
 PIDX3 = [1, 2, 3, 4, 5]
+# Device µs a launch of the per-(interval, component) design that the
+# Hermite–Simpson kernels replaced (sh_vag: its backward, fe_sh_bwd),
+# keyed (model, kernel, dtype, B), at the shapes phase 18 times: an
+# NVIDIA H100 80GB HBM3 at 700 W, the torch.profiler readings PERF.md §6
+# records
+PAIR_DESIGN_US = {("l96", "sh_fwd", "float32", 1): 6.41,
+                  ("l96", "sh_vag", "float32", 1): 6.43,
+                  ("l96", "sh_fwd", "float64", 8): 5.26,
+                  ("l96", "sh_vag", "float64", 8): 4.60,
+                  ("nakl", "sh_fwd", "float64", 1): 4.55,
+                  ("nakl", "sh_vag", "float64", 1): 23.21,
+                  ("nakl", "sh_fwd", "float32", 64): 14.89,
+                  ("nakl", "sh_vag", "float32", 64): 115.78}
 # the box of phase 12 (tests/test_solve_pallas.py's) and of the facade
 BOX_TEST = [(-6.0, 6.0)] * 20 + [(3.0, 6.0)]
 BOX_FACADE = [(-10.0, 10.0)] * 20 + [(2.0, 12.0)]
@@ -652,27 +675,41 @@ def plain_k6(X, pest, rf, c):
     from varanneal_tpu_torch.kernels import fe
     P = fe.full_params(pest, c)
     if c.sh:
-        out = fe.sh_bwd_reference(X, pest, rf, c)
+        out = fe.sh_vag_reference(X, pest, rf, c)
         return (fe.sh_fwd_reference(X, pest, rf, c),
-                fe.sh_join(*out[:3], c), fe.param_grad(out[3], P, c))
+                fe.sh_join(*out[1:4], c), fe.param_grad(out[4], P, c))
     g, gp = fe.onestep_bwd_reference(X, pest, rf, c)
     return (fe.onestep_fwd_reference(X, pest, rf, c), g,
             fe.param_grad(gp, P, c))
 
 
-def k6_times(fk, fp, ref_f, ref_b, X, pest, rf, c, kf, kb):
-    """Each of K6's two kernels of a disc at one shape: ms a launch by
-    CUDA events (1000 launches), device ms by torch.profiler (200), the
+def k6_kernels(c):
+    """(name, kernel wrapper, plain version) of each K6 kernel of c's
+    disc: the one-step pair, or Hermite–Simpson's forward and fused
+    value-and-gradient launch."""
+    from varanneal_tpu_torch.kernels import fe
+    if c.sh:
+        return (("sh_fwd", fe.sh_fwd_kernel, fe.sh_fwd_reference),
+                ("sh_vag", fe.sh_vag_kernel, fe.sh_vag_reference))
+    return (("onestep_fwd", fe.onestep_fwd_kernel, fe.onestep_fwd_reference),
+            ("onestep_bwd", fe.onestep_bwd_kernel,
+             fe.onestep_bwd_reference))
+
+
+def k6_times(X, pest, rf, c):
+    """Each K6 kernel of c's disc (k6_kernels) at one shape: ms a launch
+    by CUDA events (1000 launches), device ms by torch.profiler (200), the
     plain version's ms (200), and the bound (fe_work)."""
+    kerns = k6_kernels(c)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(200):
-            fk(X, pest, rf, c)
-            fp(X, pest, rf, c)
+            for _, fn_k, _ in kerns:
+                fn_k(X, pest, rf, c)
         torch.cuda.synchronize()
     out = {}
-    for kern, fn_k, fn_p in ((kf, fk, ref_f), (kb, fp, ref_b)):
+    for kern, fn_k, fn_p in kerns:
         rows = [(device_us(e), e.count) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and f"fe_{kern}" in e.key]
@@ -686,6 +723,98 @@ def k6_times(fk, fp, ref_f, ref_b, X, pest, rf, c, kf, kb):
     return out
 
 
+def print_k6_times(label, t, c, B):
+    """One line a kernel of k6_times' result, with its grid (sh_grid)."""
+    for kern, r in t.items():
+        w = r["work"]
+        kind = "fwd" if kern.endswith("fwd") else "bwd"
+        print(f"{label} {kern} {str(c.dtype)[6:]} ({c.disc}, D={c.D}, "
+              f"N_f={c.N_f}, B={B}; {sh_grid(c, B, kind)}): "
+              f"{r['ms']:.5f} ms a launch (CUDA events), device time "
+              + (f"{r['device_ms']:.5f} ms (torch.profiler)"
+                 if r["device_ms"] is not None
+                 else "not measured (no device events)")
+              + f"; plain {r['plain_ms']:.5f} ms; bound "
+              f"{r['bound'][0]:.3e} ms ({r['bound'][1]}: {w[0]} bytes, "
+              f"{w[1]} operations)"
+              + (f"; the per-pair design's device time "
+                 + ("(its backward) " if kern == "sh_vag" else "")
+                 + f"{PAIR_DESIGN_US[(c.model, kern, str(c.dtype)[6:], B)]}"
+                 " µs (PERF.md §6)"
+                 if (c.model, kern, str(c.dtype)[6:], B) in PAIR_DESIGN_US
+                 else ""))
+
+
+def _previous_sh_rows(c, kind, block_n):
+    """Intervals a block under the per-(interval, component) design that
+    fe_sh_fwd and fe_sh_vag replaced (its fe_sh_fwd and fe_sh_bwd):
+    block_n cut to the intervals there are (rounded up to 8), then by 8
+    until the staged rows (2bn + 1 forward, 5bn + 1 backward, of D values)
+    and its extras fit in 48 KB, for every B; 256 threads looped over the
+    block's pairs."""
+    def smem(bn):
+        rows = 2 * bn + 1 if kind == "fwd" else 5 * bn + 1
+        extra = 8 * c.NP + (c.NP + 2 * bn + 1 if c.model == "nakl" else 0)
+        return (rows * c.D + extra) * (torch.finfo(c.dtype).bits // 8)
+    bn = max(1, min(block_n, max(8, -(-c.M // 8) * 8)))
+    while bn > 8 and smem(bn) > 48 * 1024:
+        bn = max(8, bn - 8)
+    return bn
+
+
+def sh_grid(c, B, kind):
+    """The launch's grid at batch size B: blocks a member, intervals and
+    threads a block, intervals (pairs) a thread; under Hermite–Simpson
+    also at block_n 512 (make_action_pallas's default; the paths pass
+    select_action's 64), and the per-pair design's blocks a member at
+    both (_previous_sh_rows)."""
+    from varanneal_tpu_torch.kernels import fe
+    nb, bk = c.n_blocks(kind, B), c.rows(kind, B)
+    if not c.sh:
+        return f"{nb} blocks a member, {bk} rows a block"
+    thr = fe.sh_threads(c.model, bk, c.D)
+    per = 1 if fe._SH_ROW[c.model] else c.D
+    c512 = dataclasses.replace(c, block_n=512)
+    old = {n: _previous_sh_rows(c, kind, n) for n in (c.block_n, 512)}
+    return (f"{nb} blocks a member of {bk} intervals and {thr} threads, "
+            f"{-(-bk * per // thr)} {'interval' if per == 1 else 'pair'}"
+            f"(s) a thread ({c512.n_blocks(kind, B)} blocks at block_n "
+            f"512); the per-pair design: "
+            + ", ".join(f"{-(-c.M // r)} blocks of {r} intervals "
+                        f"({-(-r * c.D // 256)} pairs a thread) at block_n "
+                        f"{n}" for n, r in old.items()))
+
+
+def check_vag(X, pest, rf, c, tol, label):
+    """The fused launch (fe.sh_vag_kernel) against its plain version on
+    the same card tensors: value (partials summed) relative, the joined
+    gradient rows and the full parameter gradient over max|g|, each
+    within tol; a repeat bit-identical. Returns (max abs error, value rel
+    error, gradient rel error)."""
+    from varanneal_tpu_torch.kernels import fe
+    out = fe.sh_vag_kernel(X, pest, rf, c)
+    torch.cuda.synchronize()
+    ref = fe.sh_vag_reference(X, pest, rf, c)
+    P = fe.full_params(pest, c)
+    g_k, g_r = fe.sh_join(*out[1:4], c), fe.sh_join(*ref[1:4], c)
+    gp_k, gp_r = fe.param_grad(out[4], P, c), fe.param_grad(ref[4], P, c)
+    v_k, v_r = out[0].sum(1), ref[0].sum(1)
+    rel_v = float(torch.max(torch.abs(v_k - v_r) / torch.abs(v_r)))
+    scale = torch.maximum(torch.amax(torch.abs(g_r), dim=(1, 2)),
+                          torch.amax(torch.abs(gp_r), dim=1))
+    rel_g = float(torch.max(torch.maximum(
+        torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
+        torch.amax(torch.abs(gp_k - gp_r), dim=1)) / scale))
+    err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(out, ref))
+    check(rel_v <= tol and rel_g <= tol,
+          f"the fused launch {label} disagrees with its plain version: "
+          f"value {rel_v:.3e}, gradient {rel_g:.3e}")
+    again = fe.sh_vag_kernel(X, pest, rf, c)
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"the fused launch {label}: a repeat is not bit-identical")
+    return err, rel_v, rel_g
+
+
 def k6_nakl(dev, tw3):
     """Phase 18's NaKL part: K6 on config #3's twin against its plain
     versions on the card: Hermite–Simpson at N_f = 6,001 (K6c, B=1; K6d,
@@ -695,10 +824,11 @@ def k6_nakl(dev, tw3):
     (2e-5) on the value and on the gradient over max|g| (states and
     parameters), scalar and (N_f-1, 4) rf (the campaign's 1e-5·[1, 1e3,
     1e3, 1e3]) at beta 0 and 30, repeats bit-identical; then the kernels
-    timed at their paths' shapes. Returns (max abs errors, max relative
-    errors, times), keyed by kernel."""
+    timed at their paths' shapes. Under Hermite–Simpson the fused launch
+    (sh_vag) is held to its plain version at every shape too. Returns
+    (max abs errors, max relative errors, times), keyed by kernel."""
     from varanneal_tpu_torch.kernels import fe
-    err = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_bwd=0.0)
+    err = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_vag=0.0)
     rel = dict(err)
     rf_dir = np.array([1.0, 1e3, 1e3, 1e3])
     variants = ((PIDX3, False), (list(range(1, 19)), False),
@@ -706,7 +836,7 @@ def k6_nakl(dev, tw3):
     for disc, B in (("SimpsonHermite", 1), ("SimpsonHermite", 4),
                     ("SimpsonHermite", 8), ("SimpsonHermite", CONF3["B"]),
                     ("trapezoid", 2), ("euler", 2), ("forwardmap", 2)):
-        kf, kb = (("sh_fwd", "sh_bwd") if disc == "SimpsonHermite"
+        kf, kb = (("sh_fwd", "sh_vag") if disc == "SimpsonHermite"
                   else ("onestep_fwd", "onestep_bwd"))
         for pidx, log in variants:
             _, sp = config3_problem(disc, pidx, log, tw=tw3)
@@ -757,20 +887,30 @@ def k6_nakl(dev, tw3):
                               and torch.equal(gp_k, again[1]),
                               f"K6 NaKL {disc} {dtype}: a repeat is not "
                               "bit-identical")
+                        if c.sh:
+                            e_v, r_v, r_g = check_vag(
+                                X, pest, rf, c, tol,
+                                f"NaKL B={B} {dtype} beta={beta}")
+                            err["sh_vag"] = max(err["sh_vag"], e_v)
+                            rel["sh_vag"] = max(rel["sh_vag"], r_v, r_g)
+                            worst = [max(worst[0], r_v), max(worst[1], r_g)]
                 print(f"K6 NaKL {disc} N_f={sp.N_f} B={B}, {len(pidx)} "
                       f"estimated{' in the log model' if log else ''}, "
-                      f"{str(dtype)[6:]}, rows a block {c.bn_fwd}/"
-                      f"{c.bn_bwd}, scalar and (N_f-1, 4) rf at beta 0, 30: "
-                      f"value rel err {worst[0]:.3e}, gradient rel err "
-                      f"{worst[1]:.3e} of max|g| (bound {tol:g}); repeats "
-                      "bit-identical")
+                      f"{str(dtype)[6:]}, {sh_grid(c, B, 'bwd')}, scalar "
+                      f"and (N_f-1, 4) rf at beta 0, 30: value rel err "
+                      f"{worst[0]:.3e}, gradient rel err {worst[1]:.3e} of "
+                      f"max|g| (bound {tol:g})"
+                      + (", the fused launch included" if c.sh else "")
+                      + "; repeats bit-identical")
     # times at the paths' shapes: phase 27a's K6c (f64, B=1), phase 27b's
-    # screen through K6d (f32, B=64) and a one-step disc (trapezoid, f32,
-    # B=1), Pidx [1..5], scalar rf of beta 30
+    # screen (f32, B=64) and polish (f64, B=4) through K6d and a one-step
+    # disc (trapezoid, f32, B=1), Pidx [1..5], scalar rf of beta 30
     times = {}
     for tag, disc, dtype, B in (("path", "SimpsonHermite", torch.float64, 1),
                                 ("batched", "SimpsonHermite", torch.float32,
                                  CONF3["B"]),
+                                ("polish", "SimpsonHermite", torch.float64,
+                                 CONF3["polish_top"]),
                                 ("onestep", "trapezoid", torch.float32, 1)):
         _, sp = config3_problem(disc, tw=tw3)
         c = fe.fe_consts(sp, dtype, dev, block_n=64)
@@ -778,28 +918,8 @@ def k6_nakl(dev, tw3):
         X = Z[:, : sp.n_state].reshape(B, sp.N_f, sp.D)
         pest = Z[:, sp.n_state:]
         rf = _scalar_rf(CONF3["rf0"] * CONF3["alpha"] ** 30, dtype)
-        if c.sh:
-            t = k6_times(fe.sh_fwd_kernel, fe.sh_bwd_kernel,
-                         fe.sh_fwd_reference, fe.sh_bwd_reference, X, pest,
-                         rf, c, "sh_fwd", "sh_bwd")
-        else:
-            t = k6_times(fe.onestep_fwd_kernel, fe.onestep_bwd_kernel,
-                         fe.onestep_fwd_reference, fe.onestep_bwd_reference,
-                         X, pest, rf, c, "onestep_fwd", "onestep_bwd")
-        times[tag] = t
-        for kern, r in t.items():
-            w = r["work"]
-            nb = c.n_fwd_blocks if "fwd" in kern else c.n_bwd_blocks
-            print(f"K6 NaKL {kern} {str(dtype)[6:]} ({disc}, N_f={sp.N_f}, "
-                  f"B={B}, {nb} blocks): {r['ms']:.5f} ms a launch (CUDA "
-                  "events), "
-                  "device time "
-                  + (f"{r['device_ms']:.5f} ms (torch.profiler)"
-                     if r["device_ms"] is not None
-                     else "not measured (no device events)")
-                  + f"; plain {r['plain_ms']:.5f} ms; bound "
-                  f"{r['bound'][0]:.3e} ms ({r['bound'][1]}: {w[0]} bytes, "
-                  f"{w[1]} operations)")
+        times[tag] = k6_times(X, pest, rf, c)
+        print_k6_times("K6 NaKL", times[tag], c, B)
     return err, rel, times
 
 
@@ -865,14 +985,15 @@ def config3_facade(dev, tw3, zero_counts, run_counts):
               and bool(np.isfinite(ann.A_array).all())
               and set(np.unique(ann.exitflags)) <= {0, 1, 2},
               f"config #3 facade ({engine}): records or exit flags")
-        others = [k for k in cnt if k not in ("k6_sh_fwd", "k6_sh_bwd")]
+        others = [k for k in cnt if k not in ("k6_sh_fwd", "k6_sh_vag")]
         check(all(cnt[k] == 0 for k in others),
               f"config #3 facade ({engine}) launched another kernel: {cnt}")
     ck, cx = runs["pallas"]["cnt"], runs["xla"]["cnt"]
-    check(ck["k6_sh_fwd"] >= runs["pallas"]["nfev"] > 0
-          and ck["k6_sh_bwd"] >= runs["pallas"]["nfev"],
-          f"config #3 facade did not evaluate through K6c: {ck}")
-    check(cx["k6_sh_fwd"] == 0 and cx["k6_sh_bwd"] == 0,
+    check(ck["k6_sh_vag"] == runs["pallas"]["nfev"] > 0
+          and ck["k6_sh_fwd"] == CONF3["rungs_a"],
+          f"config #3 facade: one fused launch an evaluation and K6c's "
+          f"forward once a rung for the records, got {ck}")
+    check(cx["k6_sh_fwd"] == cx["k6_sh_vag"] == 0,
           f"config #3 facade (xla) launched K6: {cx}")
     ax, ak = runs["xla"]["ann"], runs["pallas"]["ann"]
     ek, Ak = ak.exitflags[:n_held], ak.A_array[:n_held]
@@ -966,10 +1087,24 @@ def config3_campaign(dev, zero_counts, run_counts):
         real_save(path, **arrays)
 
     ckmod._atomic_savez = spy
+    # the K6d launches by (dtype, B): the f32 screen's and the f64
+    # polish's, each wrapper call one launch
+    by_shape = {}
+    real = {k: getattr(fe, k) for k in ("sh_vag_kernel", "sh_fwd_kernel")}
+
+    def tallied(name):
+        def fn(X, *a):
+            key = f"{name[:6]} {str(X.dtype)[6:]} B={X.shape[0]}"
+            by_shape[key] = by_shape.get(key, 0) + 1
+            return real[name](X, *a)
+        return fn
+
     try:
         with tempfile.TemporaryDirectory() as tmp:
             stem = os.path.join(tmp, "c3")
             zero_counts()
+            for k in real:
+                setattr(fe, k, tallied(k))
             torch.cuda.synchronize()
             t_e = time.perf_counter()
             res = workflow.estimate(
@@ -980,6 +1115,8 @@ def config3_campaign(dev, zero_counts, run_counts):
                 meta=meta, device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_e
+            for k, fn in real.items():
+                setattr(fe, k, fn)
             cnt = run_counts()
             p1_writes = [i for nm, i in writes if nm == "c3_p1_ckpt.npz"]
             pol_writes = [i for nm, i in writes if nm == "c3_pol_ckpt.npz"]
@@ -995,6 +1132,8 @@ def config3_campaign(dev, zero_counts, run_counts):
             wall_r = time.perf_counter() - t_r
     finally:
         ckmod._atomic_savez = real_save
+        for k, fn in real.items():
+            setattr(fe, k, fn)
     r1, r2 = res.phase1, res.polish
     p_best = res.best[spec.n_state:spec.n_state + 5]
     codes = np.bincount(r1.status.ravel(), minlength=4)
@@ -1008,9 +1147,11 @@ def config3_campaign(dev, zero_counts, run_counts):
           f"{res.best_A:.6g}; estimates "
           + ", ".join(f"{NAKL_PNAMES[pi]} {p_best[j]:.4f} (truth "
                       f"{NAKL_P_TRUE[pi]})" for j, pi in enumerate(PIDX3))
-          + f"; phase 1 resumed from rung 4 in {wall_r:.2f} s")
-    check(cnt["k6_sh_fwd"] > 0 and cnt["k6_sh_bwd"] > 0 and cnt["k7a"] > 0,
-          f"config #3 campaign: K6d or K7a not launched: {cnt}")
+          + f"; phase 1 resumed from rung 4 in {wall_r:.2f} s; K6d "
+          f"launches by wrapper, dtype and batch {by_shape}")
+    check(cnt["k6_sh_fwd"] > 0 and cnt["k6_sh_vag"] > 0 and cnt["k7a"] > 0,
+          f"config #3 campaign: K6d's fused launch or K7a not launched: "
+          f"{cnt}")
     check(all(cnt[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k8",
                                     "k6_fwd", "k6_bwd")),
           f"config #3 campaign launched another kernel: {cnt}")
@@ -1024,8 +1165,10 @@ def config3_campaign(dev, zero_counts, run_counts):
     check(np.all(np.isfinite(r1.A)) and np.all(np.isfinite(r2.A))
           and np.isfinite(res.best_A),
           "config #3 campaign: records not finite")
+    check(sum(by_shape.values()) == cnt["k6_sh_vag"] + cnt["k6_sh_fwd"],
+          f"config #3 campaign: launches by shape {by_shape}, {cnt}")
     return dict(wall=wall, wall_resume=wall_r, nfev=int(r1.nfev.sum()),
-                launches=cnt, best_A=res.best_A,
+                launches=cnt, launches_by_shape=by_shape, best_A=res.best_A,
                 p_best=[float(v) for v in p_best])
 
 
@@ -1041,9 +1184,11 @@ def fe_work(kernel, c, B, diag):
     then 2 to square and sum (3 with a weight row); backward, per gradient
     entry: the residual, 1 to weight it, 3 for v, the adjoint, Jᵀv and 3
     for the row. Hermite–Simpson, per interval entry: forward three f, 6
-    each for S and H, 6 to weight and sum (3f + 18); backward the same
-    twice (S and H again in the second pass), 9 for v0, vm, v1 and their
-    weights, three adjoints, three Jᵀv and 9 for the triplet."""
+    each for S and H, 6 to weight and sum (3f + 18); backward three f and
+    12 for S and H, 9 for v0, vm, v1 and their weights, three adjoints,
+    three Jᵀv and 9 for the triplet; the fused launch (``sh_vag``) the
+    backward and 6 for the value's terms. The work is counted once per
+    node, whatever a design evaluates again."""
     s = torch.finfo(c.dtype).bits // 8
     f, jtv, ptv = (4, 7, 1) if c.model == "l96" else (12, 28, 23)
     n_x = B * c.N_f * c.D
@@ -1052,17 +1197,21 @@ def fe_work(kernel, c, B, diag):
     res = {"trapezoid": 2 * f + 4, "euler": f + 3,
            "forwardmap": f + 1}.get(c.disc, 0)
     if kernel == "onestep_fwd":
-        nbytes += B * c.n_fwd_blocks * s
+        nbytes += B * c.n_blocks("fwd") * s
         nops = B * (c.N_f - 1) * c.D * (res + 2 + int(diag))
     elif kernel == "onestep_bwd":
-        nbytes += n_x * s + B * c.NP * c.n_bwd_blocks * s
+        nbytes += n_x * s + B * c.NP * c.n_blocks("bwd") * s
         nops = B * c.N_f * c.D * (res + 7 + ptv + jtv)
     elif kernel == "sh_fwd":
-        nbytes += B * c.n_fwd_blocks * s
+        nbytes += B * c.n_blocks("fwd", B) * s
         nops = B * c.M * c.D * (3 * f + 18)
     else:
-        nbytes += 3 * B * c.M * c.D * s + B * c.NP * c.n_bwd_blocks * s
-        nops = B * c.M * c.D * (2 * (3 * f + 12) + 18 + 3 * (ptv + jtv))
+        nbytes += (3 * B * c.M * c.D * s
+                   + B * c.NP * c.n_blocks("bwd", B) * s)
+        nops = B * c.M * c.D * (3 * f + 12 + 18 + 3 * (ptv + jtv))
+        if kernel == "sh_vag":
+            nbytes += B * c.n_blocks("bwd", B) * s
+            nops += B * c.M * c.D * 6
     return nbytes, nops
 
 
@@ -2679,7 +2828,7 @@ def main():
         solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
         kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
         fe.FWD_LAUNCHES = fe.BWD_LAUNCHES = 0
-        fe.SH_FWD_LAUNCHES = fe.SH_BWD_LAUNCHES = 0
+        fe.SH_FWD_LAUNCHES = fe.SH_VAG_LAUNCHES = 0
 
     def run_counts():
         return dict(k1=ag.LAUNCHES, k4=ag.COMP_LAUNCHES, k5=ag.AGT_LAUNCHES,
@@ -2688,7 +2837,7 @@ def main():
                     k7a=kdir.DIR_LAUNCHES, k7b=kdir.STEP_LAUNCHES,
                     k6_fwd=fe.FWD_LAUNCHES, k6_bwd=fe.BWD_LAUNCHES,
                     k6_sh_fwd=fe.SH_FWD_LAUNCHES,
-                    k6_sh_bwd=fe.SH_BWD_LAUNCHES)
+                    k6_sh_vag=fe.SH_VAG_LAUNCHES)
 
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "data.npy"),
@@ -2885,14 +3034,14 @@ def main():
                for d in ("euler", "trapezoid", "forwardmap")]
     cases18 += [(spec2, tw2, CONF2["rf0"], CONF2["alpha"], CONF2["B"], both),
                 (spec18, tw18, 4e-6 * tw18["RM"], MAIN["alpha"], 4, both)]
-    err18 = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_bwd=0.0)
+    err18 = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_vag=0.0)
     rel18 = dict(err18)     # value (forward) and gradient (backward) rel
     rng18 = np.random.default_rng(18)
 
     for sp, tw_, rf0_, alpha_, B_, dtypes in cases18:
         draws18 = member_draws(sp, tw_, 0, B_)
         W18 = rng18.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
-        kf, kb = (("sh_fwd", "sh_bwd") if sp.disc == "SimpsonHermite"
+        kf, kb = (("sh_fwd", "sh_vag") if sp.disc == "SimpsonHermite"
                   else ("onestep_fwd", "onestep_bwd"))
         for dtype in dtypes:
             tol = 1e-12 if dtype == torch.float64 else 2e-5
@@ -2936,25 +3085,29 @@ def main():
                                           fe.fe_adjoint(X, pest, rf, c)[0]),
                           f"K6 {sp.disc} {dtype}: a repeat is not "
                           "bit-identical")
+                    if c.sh:
+                        e_v, r_v, r_g = check_vag(
+                            X, pest, rf, c, tol,
+                            f"D={sp.D} B={B_} {dtype} beta={beta}")
+                        err18["sh_vag"] = max(err18["sh_vag"], e_v)
+                        rel18["sh_vag"] = max(rel18["sh_vag"], r_v, r_g)
+                        worst = [max(worst[0], r_v), max(worst[1], r_g)]
             print(f"K6 {sp.disc} D={sp.D} N_f={sp.N_f} B={B_} "
-                  f"{str(dtype)[6:]}, rows a block {c.bn_fwd}/{c.bn_bwd} "
-                  f"(forward/backward), scalar and (N_f-1, D) rf at beta 0, "
-                  f"30, 60: value rel err {worst[0]:.3e}, gradient rel err "
-                  f"{worst[1]:.3e} of max|g| (bound {tol:g}); repeats "
-                  f"bit-identical")
+                  f"{str(dtype)[6:]}, {sh_grid(c, B_, 'bwd')}, scalar and "
+                  f"(N_f-1, D) rf at beta 0, 30, 60: value rel err "
+                  f"{worst[0]:.3e}, gradient rel err {worst[1]:.3e} of "
+                  f"max|g| (bound {tol:g})"
+                  + (", the fused launch included" if c.sh else "")
+                  + "; repeats bit-identical")
 
     # times at the paths' shape (one member, f32, scalar rf of beta 30,
     # rows a block as select_action builds them), against the bound, the
     # plain versions and the autograd action's value+grad (the yardstick;
     # no one PyTorch call computes K6's function)
     k6 = {}
-    for sp, tw_, rf0_, alpha_, kf, kb, fk, fp, ref_f, ref_b in (
-            (spec, tw, float(rf0), MAIN["alpha"], "onestep_fwd",
-             "onestep_bwd", fe.onestep_fwd_kernel, fe.onestep_bwd_kernel,
-             fe.onestep_fwd_reference, fe.onestep_bwd_reference),
-            (spec2, tw2, CONF2["rf0"], CONF2["alpha"], "sh_fwd", "sh_bwd",
-             fe.sh_fwd_kernel, fe.sh_bwd_kernel, fe.sh_fwd_reference,
-             fe.sh_bwd_reference)):
+    for sp, tw_, rf0_, alpha_ in ((spec, tw, float(rf0), MAIN["alpha"]),
+                                  (spec2, tw2, CONF2["rf0"],
+                                   CONF2["alpha"])):
         c = fe.fe_consts(sp, torch.float32, dev, block_n=64)
         Z1 = torch.tensor(member_draws(sp, tw_, 0, 1), dtype=torch.float32,
                           device=dev)
@@ -2966,24 +3119,14 @@ def main():
                                                       device=dev)[0])
         ms_ag = events_ms(lambda: vag_x(Z1, rf1), n=200)
         ms_k6a = events_ms(lambda: vag_k6(Z1, rf1), n=200)
-        t = k6_times(fk, fp, ref_f, ref_b, X1, p1, rf1, c, kf, kb)
+        t = k6_times(X1, p1, rf1, c)
         for kern, r in t.items():
             r.update(autograd_ms=ms_ag, action_ms=ms_k6a)
             k6[kern] = r
-            w = r["work"]
-            print(f"K6 {kern} f32 ({sp.disc}, D={sp.D}, N_f={sp.N_f}, one "
-                  f"member, {c.n_fwd_blocks if kern == kf else c.n_bwd_blocks}"
-                  f" blocks): {r['ms']:.5f} ms a launch (CUDA events), "
-                  f"device time "
-                  + (f"{r['device_ms']:.5f} ms (torch.profiler)"
-                     if r["device_ms"] is not None
-                     else "not measured (no device events)")
-                  + f"; plain {r['plain_ms']:.5f} ms; bound "
-                  f"{r['bound'][0]:.3e} ms ({r['bound'][1]}: {w[0]} bytes, "
-                  f"{w[1]} operations)")
-        print(f"K6 action value+grad ({sp.disc}, one member, f32): "
-              f"{ms_k6a:.5f} ms; the autograd action's {ms_ag:.5f} ms "
-              "(CUDA events, 200 calls each)")
+        print_k6_times("K6", t, c, 1)
+        print(f"K6 action value+grad ({sp.disc}, one member, f32, "
+              f"action.value_and_grad): {ms_k6a:.5f} ms; the autograd "
+              f"action's {ms_ag:.5f} ms (CUDA events, 200 calls each)")
     # K6d: the Hermite–Simpson kernels on a batch (the ensemble's path,
     # phase 20's B=8 in f64), at the shape phase 18 checks them
     c8 = fe.fe_consts(spec2, torch.float64, dev, block_n=64)
@@ -2992,18 +3135,8 @@ def main():
     X8 = Z8[:, : spec2.n_state].reshape(CONF2["B"], spec2.N_f, spec2.D)
     p8 = Z8[:, spec2.n_state:]
     rf8 = _scalar_rf(CONF2["rf0"] * CONF2["alpha"] ** 30, torch.float64)
-    k6d = k6_times(fe.sh_fwd_kernel, fe.sh_bwd_kernel, fe.sh_fwd_reference,
-                   fe.sh_bwd_reference, X8, p8, rf8, c8, "sh_fwd", "sh_bwd")
-    for kern, r in k6d.items():
-        w = r["work"]
-        print(f"K6d {kern} f64 (Hermite–Simpson, D={spec2.D}, "
-              f"N_f={spec2.N_f}, B={CONF2['B']}): {r['ms']:.5f} ms a launch "
-              "(CUDA events), device time "
-              + (f"{r['device_ms']:.5f} ms (torch.profiler)"
-                 if r["device_ms"] is not None
-                 else "not measured (no device events)")
-              + f"; plain {r['plain_ms']:.5f} ms; bound {r['bound'][0]:.3e}"
-              f" ms ({r['bound'][1]}: {w[0]} bytes, {w[1]} operations)")
+    k6d = k6_times(X8, p8, rf8, c8)
+    print_k6_times("K6d", k6d, c8, CONF2["B"])
     # NaKL on config #3's twin (the example's; phase 27a runs it too)
     tw3, _ = config3_problem()
     err18n, rel18n, k6n = k6_nakl(dev, tw3)
@@ -3017,32 +3150,40 @@ def main():
             size=tw2["traj"].shape)),
         np.array([tw2["F"] + 0.5 * rng19.normal()])) for _ in range(2)]),
         device=dev)
-    runs19, walls19 = [], []
-    zero_counts()
-    for mk in (fe.make_action_pallas, make_action):
-        a19, p19 = mk(spec2, device=dev)
+    # K6's action through its value_and_grad (the fused launch) and the
+    # autograd action, 10 rungs each
+    runs19, walls19, cnt19 = {}, {}, {}
+    for name19, (a19, p19) in (
+            ("fused", fe.make_action_pallas(spec2, device=dev)),
+            ("autograd", make_action(spec2, device=dev))):
+        zero_counts()
         t_19 = time.perf_counter()
-        runs19.append(make_ensemble_ladder(
+        runs19[name19] = make_ensemble_ladder(
             a19, p19, np.arange(10), float(tw2["RM"]), CONF2["alpha"],
-            opts=opts_t, device=dev)(xp19))
+            opts=opts_t, device=dev)(xp19)
         torch.cuda.synchronize()
-        walls19.append(time.perf_counter() - t_19)
-    cnt19 = run_counts()
-    st_k, st_p = runs19[0].status.cpu().numpy(), runs19[1].status.cpu().numpy()
-    A_k19, A_p19 = runs19[0].A.cpu().numpy(), runs19[1].A.cpu().numpy()
+        walls19[name19] = time.perf_counter() - t_19
+        cnt19[name19] = run_counts()
+    st_k = runs19["fused"].status.cpu().numpy()
+    A_k19 = runs19["fused"].A.cpu().numpy()
+    st_p = runs19["autograd"].status.cpu().numpy()
+    A_p19 = runs19["autograd"].A.cpu().numpy()
     both19 = (st_k <= 1) & (st_p <= 1)
     rel19 = np.where(both19, np.abs(A_k19 - A_p19) / np.abs(A_p19), 0.0)
+    c19 = cnt19["fused"]
     print(f"f64 ladder at config #2 (10 rungs, 2 members from near the "
-          f"truth, rf0 = RM, pgtol 1e-8): mutually converged rungs "
+          f"truth, rf0 = RM, pgtol 1e-8), K6's fused launch against the "
+          f"autograd action: mutually converged rungs "
           f"{int(both19.sum())}/{both19.size}; max rel A difference "
-          f"{rel19.max():.3e} (bound 1e-8); niter K6 "
-          f"{runs19[0].niter.sum().item()}, autograd "
-          f"{runs19[1].niter.sum().item()}; wall {walls19[0]:.2f} s vs "
-          f"{walls19[1]:.2f} s; launches {cnt19}")
+          f"{rel19.max():.3e} (bound 1e-8); niter "
+          f"{runs19['fused'].niter.sum().item()} vs "
+          f"{runs19['autograd'].niter.sum().item()}; wall "
+          f"{walls19['fused']:.2f} s vs {walls19['autograd']:.2f} s; "
+          f"launches {c19}")
     check(both19.mean() >= 0.8, f"too few converged rungs: {st_k} {st_p}")
-    check(np.all(rel19 <= 1e-8),
-          f"f64 ladder through K6 disagrees: {rel19}")
-    check(cnt19["k6_sh_bwd"] > 0, "the f64 ladder did not launch K6")
+    check(np.all(rel19 <= 1e-8), f"f64 ladder through K6 disagrees: {rel19}")
+    check(c19["k6_sh_vag"] > 0,
+          f"the f64 ladder through K6: no fused launch, {c19}")
     phase("19 f64 ladder K6 vs autograd", t0)
 
     # ---- 20. the facade at config #2 (path a), then the ensemble (path b) --
@@ -3089,9 +3230,11 @@ def main():
           "facade at config #2: records not (61,) and finite")
     check(set(np.unique(ann20.exitflags)) <= {0, 1, 2},
           f"facade at config #2: exit flags {ann20.exitflags}")
-    check(cnt20["k6_sh_fwd"] >= nfev20 > 0 and cnt20["k6_sh_bwd"] >= nfev20,
-          f"facade at config #2 did not evaluate through K6: {cnt20}, "
-          f"nfev {nfev20}")
+    check(cnt20["k6_sh_vag"] == nfev20 > 0
+          and cnt20["k6_sh_fwd"] == CONF2["n_beta"],
+          f"facade at config #2: one fused launch an evaluation and K6's "
+          f"forward once a rung for the records, got {cnt20}, nfev "
+          f"{nfev20}")
     check(cnt20["k7b"] == (niter20 if fused20 else 0)
           and cnt20["k7a"] == 0,
           f"facade at config #2: K7 launches {cnt20}, niter {niter20}")
@@ -3131,10 +3274,9 @@ def main():
     check(tuple(res_b.A.shape) == (CONF2["B"], 10)
           and bool(torch.isfinite(res_b.A).all()) and ck_next == 10,
           "ensemble at config #2: records or checkpoint wrong")
-    check(cnt_b["k6_sh_bwd"] >= lock_b > 0
-          and cnt_b["k6_sh_fwd"] >= lock_b + 10,
+    check(cnt_b["k6_sh_vag"] >= lock_b > 0 and cnt_b["k6_sh_fwd"] == 10,
           f"ensemble at config #2: K6 launches {cnt_b} for {lock_b} "
-          "evaluations of the slowest members")
+          "evaluations of the slowest members and 10 rungs' records")
     phase("20 facade and ensemble at config #2", t0)
 
     # ---- 21. the bench with BENCH_ENGINE=pallas ----------------------------
@@ -3620,11 +3762,13 @@ def main():
              ms=ms_k4, device_ms=dev_k4, plain_ms=ms_p4,
              bound_ms=bound_k4[0], bound_by=bound_k4[1],
              d400_max_rel_err=rel_k4_d400, **line)]
+    # the Hermite–Simpson kernels' launches: fe_sh_fwd's and fe_sh_vag's
+    # on phase 20's facade (the records; every evaluation)
     for kern, rep, also, n in (
             ("onestep_fwd", 138, (156,), bench21["xla"].launches["fe_fwd"]),
             ("onestep_bwd", 187, (), bench21["xla"].launches["fe_bwd"]),
             ("sh_fwd", 238, (472,), cnt20["k6_sh_fwd"]),
-            ("sh_bwd", 260, (502,), cnt20["k6_sh_bwd"])):
+            ("sh_vag", 260, (502,), cnt20["k6_sh_vag"])):
         e = dict(
             name=f"fe_{kern}",
             source="varanneal_tpu_torch/kernels/csrc/fe_kernel.cu",
@@ -3643,7 +3787,8 @@ def main():
                      batched_plain_ms=k6d[kern]["plain_ms"],
                      batched_bound_ms=k6d[kern]["bound"][0],
                      batched_bound_by=k6d[kern]["bound"][1])
-        else:                   # NaKL's one-step instantiations (phase 18)
+        else:
+            # NaKL: the one-step kernels at N_f = 3,001 (phase 18)
             t = k6n["onestep"][kern]
             e.update(nakl_max_abs_err=err18n[kern],
                      nakl_max_rel_err=rel18n[kern], nakl_ms=t["ms"],
@@ -3655,13 +3800,17 @@ def main():
     # K6c/K6d on NaKL with the stimulus (config #3): launches of phase
     # 27a's facade (K6c, f64, B=1) and 27b's campaign (K6d), times phase
     # 18's at those shapes (batched_*: the screen's f32 B=64)
-    for kern, rep, also in (("sh_fwd", 238, 472), ("sh_bwd", 260, 502)):
-        t, tb = k6n["path"][kern], k6n["batched"][kern]
+    # K6c/K6d on NaKL, the kernels config #3's paths launch: fe_sh_fwd for
+    # the records and the fused launch for every evaluation
+    for kern, rep, also in (("sh_fwd", 238, (472,)),
+                            ("sh_vag", 260, (502,))):
+        t, tb, tp = (k6n[k][kern] for k in ("path", "batched", "polish"))
         kernels.append(dict(
             name=f"fe_{kern}_nakl", model="nakl",
             source="varanneal_tpu_torch/kernels/csrc/fe_kernel.cu",
             replaces=f"varanneal_tpu/kernels/fe_pallas.py:{rep}",
-            replaces_also=[f"varanneal_tpu/kernels/fe_pallas.py:{also}"],
+            replaces_also=[f"varanneal_tpu/kernels/fe_pallas.py:{a}"
+                           for a in also],
             launches=out27a["launches"][f"k6_{kern}"],
             max_abs_err=err18n[kern], max_rel_err=rel18n[kern],
             ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
@@ -3669,7 +3818,11 @@ def main():
             batched_launches=out27b["launches"][f"k6_{kern}"],
             batched_ms=tb["ms"], batched_device_ms=tb["device_ms"],
             batched_plain_ms=tb["plain_ms"], batched_bound_ms=tb["bound"][0],
-            batched_bound_by=tb["bound"][1], **line))
+            batched_bound_by=tb["bound"][1],
+            polish_ms=tp["ms"], polish_device_ms=tp["device_ms"],
+            polish_plain_ms=tp["plain_ms"], polish_bound_ms=tp["bound"][0],
+            polish_bound_by=tp["bound"][1],
+            launches_by_shape=out27b["launches_by_shape"], **line))
     kernels.append(dict(
         name="l96_agt",
         source="varanneal_tpu_torch/kernels/csrc/agt_kernel.cu",

@@ -16,9 +16,12 @@ global memory). K7a and K7b
 (kernels/csrc/dir_kernel.cu) against their plain versions at the main
 shape (n = 3,221, m = 5) at every (head, hlen), within the bounds of
 tests/test_dir_pallas.py, with repeats bit-identical and an ended member
-left untouched. K6 (kernels/csrc/fe_kernel.cu), its four kernels against
+left untouched. K6 (kernels/csrc/fe_kernel.cu), its kernels against
 their plain versions at configs #1, #2 and #5's shapes (f64 1e-12, f32
-2e-5), and engine='pallas' through autograd on the card. K5
+2e-5), the fused Hermite–Simpson launch against its plain version and
+against the forward and backward (Lorenz-96 and NaKL), engine='pallas'
+through autograd on the card and its value_and_grad, one fused launch a
+call. K5
 (kernels/csrc/agt_kernel.cu) against its plain version over the three
 one-step rules × scalar and (N_f-1, D) rf (f64 1e-12, f32 2e-5), and K8
 (kernels/csrc/pack_kernel.cu) against K2, bit for bit at pack 2, and
@@ -492,7 +495,7 @@ def _fe_specs():
 
 def _k6_launches():
     return (fe.FWD_LAUNCHES + fe.BWD_LAUNCHES + fe.SH_FWD_LAUNCHES
-            + fe.SH_BWD_LAUNCHES)
+            + fe.SH_VAG_LAUNCHES)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
@@ -604,10 +607,10 @@ def test_fe_action_on_the_card(cuda):
     act_x, _ = make_action(spec, device=cuda)
     XP = torch.tensor(np.random.default_rng(3).normal(
         size=(2, spec.n_dof)), device=cuda)
-    n0 = (fe.SH_FWD_LAUNCHES, fe.SH_BWD_LAUNCHES)
+    n0 = (fe.SH_FWD_LAUNCHES, fe.SH_VAG_LAUNCHES)
     x = XP.clone().requires_grad_(True)
     (g,) = torch.autograd.grad(act(x, 1e-3).sum(), x)
-    assert (fe.SH_FWD_LAUNCHES, fe.SH_BWD_LAUNCHES) == (n0[0] + 1,
+    assert (fe.SH_FWD_LAUNCHES, fe.SH_VAG_LAUNCHES) == (n0[0] + 1,
                                                          n0[1] + 1)
     x2 = XP.clone().requires_grad_(True)
     A_x = act_x(x2, 1e-3)
@@ -616,6 +619,129 @@ def test_fe_action_on_the_card(cuda):
                                atol=0)
     assert float(torch.max(torch.abs(g - g_x))
                  / torch.max(torch.abs(g_x))) <= 1e-12
+
+
+def _sh_cases():
+    """Config #2's Hermite–Simpson shape (Lorenz-96 D=100, B=8) and
+    config #3's twin cut to N=601 (NaKL with its stimulus, Pidx [1..5],
+    B=3), each (spec, X, pest) drawn from numpy seed 9."""
+    from varanneal_tpu_torch.models import NAKL_P_TRUE, nakl
+    from varanneal_tpu_torch.twin import nakl_twin
+    rng = np.random.default_rng(9)
+    spec2, B2 = _fe_specs()[3]
+    out = [(spec2, rng.normal(2.0, 2.0, (B2, spec2.N_f, spec2.D)),
+            4.0 + rng.normal(size=(B2, 1)))]
+    tw = nakl_twin(N=601, dt=0.04, sigma=1.0, seed=7)
+    P = np.asarray(NAKL_P_TRUE, float)
+    spec3 = build_spec(nakl, 4, tw["V"], tw["t"], [0], 1.0,
+                       disc="SimpsonHermite", P=P, pidx=[1, 2, 3, 4, 5],
+                       stim=tw["stim"])
+    X = np.concatenate([rng.uniform(-75, -45, (3, spec3.N_f, 1)),
+                        rng.uniform(0.05, 0.95, (3, spec3.N_f, 3))], -1)
+    pest = P[[1, 2, 3, 4, 5]] * (1 + 0.05 * rng.normal(size=(3, 5)))
+    out.append((spec3, X, pest))
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_fe_sh_vag_matches_plain(cuda, dtype, tol):
+    """The fused Hermite–Simpson launch (fe_sh_vag) against its plain
+    version on the CPU and against fe_sh_fwd on the card: the value within
+    tol relative, the joined gradient rows and the full parameter gradient
+    within tol of max|g|, scalar and (N_f-1, D) rf; one launch; its
+    partials bit-equal to fe_sh_fwd's (one partition); repeats
+    bit-identical."""
+    for spec, X_np, p_np in _sh_cases():
+        c = fe.fe_consts(spec, dtype, cuda, block_n=64)
+        cc = fe.fe_consts(spec, dtype, "cpu", block_n=64)
+        X = torch.tensor(X_np, dtype=dtype, device=cuda)
+        pest = torch.tensor(p_np, dtype=dtype, device=cuda)
+        for rf in (1e-3, torch.tensor(np.full((spec.N_f - 1, spec.D),
+                                              1e-3), dtype=dtype,
+                                      device=cuda)):
+            n0 = fe.SH_VAG_LAUNCHES
+            out = fe.sh_vag_kernel(X, pest, rf, c)
+            torch.cuda.synchronize()
+            assert fe.SH_VAG_LAUNCHES == n0 + 1
+            rc = rf.cpu() if isinstance(rf, torch.Tensor) else rf
+            ref = fe.sh_vag_reference(X.cpu(), pest.cpu(), rc, cc)
+            v_k, v_r = out[0].sum(1).cpu(), ref[0].sum(1)
+            assert float(torch.max(torch.abs(v_k - v_r)
+                                   / v_r.abs())) <= tol
+            P = fe.full_params(pest.cpu(), cc)
+            g_k = fe.sh_join(*(t.cpu() for t in out[1:4]), cc)
+            g_r = fe.sh_join(*ref[1:4], cc)
+            gp_k = fe.param_grad(out[4].cpu(), P, cc)
+            gp_r = fe.param_grad(ref[4], P, cc)
+            s = torch.maximum(torch.amax(torch.abs(g_r), dim=(1, 2)),
+                              torch.amax(torch.abs(gp_r), dim=1))
+            assert float(torch.max(torch.amax(torch.abs(g_k - g_r),
+                                              dim=(1, 2)) / s)) <= tol
+            assert float(torch.max(torch.amax(torch.abs(gp_k - gp_r),
+                                              dim=1) / s)) <= tol
+            assert torch.equal(out[0], fe.sh_fwd_kernel(X, pest, rf, c))
+            again = fe.sh_vag_kernel(X, pest, rf, c)
+            assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_fe_value_and_grad_one_launch(cuda):
+    """K6's action.value_and_grad on the card: one fused launch a call
+    under Hermite–Simpson and no fe_sh_fwd; one forward
+    and one backward under a one-step disc; in f64 the value and gradient
+    within 1e-12 of the autograd action's."""
+    from varanneal_tpu_torch.ops import value_and_grad
+    for spec in (_fe_specs()[3][0], _fe_specs()[1][0]):
+        act, _ = fe.select_action(spec, 1e-3, engine="pallas",
+                                  dtype=torch.float64, device=cuda)
+        vag = value_and_grad(act)
+        assert vag is act.value_and_grad
+        XP = torch.tensor(np.random.default_rng(4).normal(
+            size=(2, spec.n_dof)), device=cuda)
+        n0 = (fe.SH_VAG_LAUNCHES, fe.SH_FWD_LAUNCHES, fe.FWD_LAUNCHES,
+              fe.BWD_LAUNCHES)
+        A, G = vag(XP, 1e-3)
+        torch.cuda.synchronize()
+        n1 = (fe.SH_VAG_LAUNCHES, fe.SH_FWD_LAUNCHES, fe.FWD_LAUNCHES,
+              fe.BWD_LAUNCHES)
+        want = ((1, 0, 0, 0) if spec.disc == "SimpsonHermite"
+                else (0, 0, 1, 1))
+        assert tuple(b - a for a, b in zip(n0, n1)) == want
+        A_x, G_x = value_and_grad(make_action(spec, device=cuda)[0])(
+            XP, 1e-3)
+        torch.testing.assert_close(A, A_x, rtol=1e-12, atol=0)
+        assert float(torch.max(torch.abs(G - G_x))
+                     / torch.max(torch.abs(G_x))) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fe_sh_envelope_edge(cuda, dtype):
+    """Lorenz-96 under Hermite–Simpson at the widest D the envelope takes
+    (one interval a block, its shared memory as fe._smem_bytes sizes it
+    for the envelope and the launch sizes it, 1,024 threads): both
+    launches run and match their plain versions; one wider is refused."""
+    spec = _fe_specs()[3][0]
+    edge = {torch.float64: 3624, torch.float32: 7256}[dtype]
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+    assert not fe.fe_kernel_supported(
+        dataclasses.replace(spec, D=edge + 1), 0.0, dtype)
+    wide = dataclasses.replace(spec, D=edge)
+    c = fe.fe_consts(wide, dtype, cuda)
+    assert c.rows("bwd", 1) == 1
+    rng = np.random.default_rng(5)
+    X = torch.tensor(rng.normal(2.0, 2.0, (1, wide.N_f, edge)), dtype=dtype,
+                     device=cuda)
+    pest = torch.tensor([[8.0]], dtype=dtype, device=cuda)
+    parts = fe.sh_fwd_kernel(X, pest, 1e-3, c)
+    out = fe.sh_vag_kernel(X, pest, 1e-3, c)
+    ref = fe.sh_vag_reference(X, pest, 1e-3, c)
+    assert torch.equal(parts, out[0])
+    v_r = ref[0].sum(1)
+    assert float(torch.max(torch.abs(out[0].sum(1) - v_r)
+                           / v_r.abs())) <= tol
+    g_k, g_r = fe.sh_join(*out[1:4], c), fe.sh_join(*ref[1:4], c)
+    assert float(torch.max(torch.abs(g_k - g_r))
+                 / torch.max(torch.abs(g_r))) <= tol
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),

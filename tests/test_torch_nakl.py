@@ -305,7 +305,8 @@ def test_fe_nakl_envelope_and_blocks():
     act, _ = fe.select_action(st, 1e-2, engine="pallas", device="cpu")
     assert act.engine == "pallas"
     c = fe.fe_consts(st, torch.float64, CPU, block_n=8)
-    assert (c.model, c.NP, c.M, c.n_fwd_blocks) == ("nakl", 19, 17, 3)
+    assert (c.model, c.NP, c.M, c.n_blocks("fwd", 2)) == ("nakl", 19, 17,
+                                                         3)
     X, pest = _draw(st, tw, 9, B=2)
     Xt, pt = torch.tensor(X), torch.tensor(pest)
     parts = fe.sh_fwd_reference(Xt, pt, 1e-2, c)
@@ -317,6 +318,6 @@ def test_fe_nakl_envelope_and_blocks():
                                rtol=1e-13)
     g_rows, gp = fe.fe_adjoint(Xt, pt, 1e-2, c)
     assert g_rows.shape == (2, st.N_f, 4) and gp.shape == (2, 19)
-    for kern in (fe.sh_fwd_kernel, fe.sh_bwd_kernel):
+    for kern in (fe.sh_fwd_kernel, fe.sh_vag_kernel):
         with pytest.raises(ValueError):
             kern(Xt, pt, 1e-2, c)

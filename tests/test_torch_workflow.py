@@ -542,7 +542,7 @@ def test_polish_retry_transient_fault(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("exc", [
     ValueError("shape bug"),
-    RuntimeError("fe_sh_bwd launch failed: cudaError 700 (an illegal "
+    RuntimeError("fe_sh_vag launch failed: cudaError 700 (an illegal "
                  "memory access was encountered)")])
 def test_polish_nontransient_fault_reraises(monkeypatch, exc):
     """A programming error and a kernel wrapper's failed launch re-raise

@@ -200,7 +200,7 @@ def main(device=None, env=None):
                     ladder=solve.LADDER_LAUNCHES,
                     pack=solve_pack.PACK_LAUNCHES,
                     fe_fwd=fe.FWD_LAUNCHES + fe.SH_FWD_LAUNCHES,
-                    fe_bwd=fe.BWD_LAUNCHES + fe.SH_BWD_LAUNCHES)
+                    fe_bwd=fe.BWD_LAUNCHES + fe.SH_VAG_LAUNCHES)
 
     def ladder_call():
         before = counts()

@@ -1,6 +1,6 @@
-"""K6 on Lorenz-96, this checkout's wrappers against another checkout's, on
-one card, in turns: each checkout's repeats bit for bit, the two
-checkouts' results side by side, and the times a call.
+"""K6 on Lorenz-96 and the facade over K6 on NaKL, this checkout against
+another checkout, on one card, in turns: each checkout's repeats bit for
+bit, the two checkouts' results side by side, and the times a call.
 
     python3 -m varanneal_tpu_torch.fe_ab OTHER_CHECKOUT OUT_DIR
 
@@ -8,24 +8,33 @@ checkouts' results side by side, and the times a call.
 parent commit unpacked by ``git archive`` into the git-ignored
 ``scratch_archive/``. As in ``solve_ab``, each turn is a child process
 that imports one checkout's ``varanneal_tpu_torch`` and drives only its
-public K6 API (``kernels.fe.fe_consts``, the four ``*_kernel`` wrappers
-and ``make_fe_pallas``); the turns run other, this, this, other, twice
-(the host's share of these times moves from turn to turn). The
-inputs come from fixed seeds at chip_smoke.py phase 18's timing shapes
-and phase 20's ensemble, with the scalar rf of rung 30:
+public API (``kernels.fe.fe_consts``, the ``*_kernel`` wrappers,
+``make_fe_pallas`` and ``api.Annealer``); the turns run other, this,
+this, other, twice (the host's share of these times moves from turn to
+turn). The inputs come from fixed seeds at chip_smoke.py phase 18's
+timing shapes and phase 20's ensemble, with the scalar rf of rung 30:
 
 - BASELINE config #1's trapezoid problem (Lorenz-96 D=20, N_data=161, F
   estimated), one member, float32: K6a and K6b;
 - config #2's Hermite–Simpson problem (D=100, N_data=121, F estimated),
   one member, float32: K6c; B=8 in float64: K6d;
-- config #2 with F fixed (nothing estimated), one member, float32;
+- config #2 with F fixed (nothing estimated), one member, float32.
 
-each kernel's wrapper alone, and ``make_fe_pallas``'s value and gradient
-(one forward and one backward launch, as the facade's loop calls them).
-The times are CUDA events around 1,000 calls (200 for the value and
-gradient), so they hold the wrapper's host work: these launches take a
-few µs of device time, less than the host's part. The parameter partials
-are compared as (B, blocks) rows, whatever shape a checkout returns.
+Each case times each kernel's wrapper alone (the Hermite–Simpson
+backward is ``sh_bwd_kernel`` where the checkout has one, else the fused
+launch with its value partials unread), the fused Hermite–Simpson launch
+(``sh_vag_kernel``) where the checkout has it, and
+``make_fe_pallas``'s value and gradient through autograd (one forward
+and one backward launch), then its graph-free ``value_and_grad`` where
+the checkout has it. The times are CUDA events around 1,000 calls (200
+for the value and gradient), so they hold the wrapper's host work: these
+launches take a few µs of device time, less than the host's part. The
+per-block partials are compared summed over their blocks, (B,) values
+and (B, NP) parameter gradients, since two checkouts may cut a member
+into other blocks; the gradient rows entry by entry. Last, BASELINE
+config #3 through the facade (NaKL, f64, ``engine='pallas'``, phase
+27a's problem cut to :data:`FACADE_RUNGS` rungs): its wall and ms a loop
+iteration, its records compared.
 ``solve_ab.run_turns`` and ``report`` run the turns and compare them: the
 exit code is 0 when every turn repeats its checkout's first turn bit for
 bit; differences between the two checkouts are reported, not failed.
@@ -35,6 +44,9 @@ import sys
 
 import numpy as np
 import torch
+
+#: Rungs of config #3's facade run (chip_smoke.py phase 27a runs 24).
+FACADE_RUNGS = 20
 
 
 def _events_ms(fn, n):
@@ -87,17 +99,27 @@ def child(checkout, out):
         rf = float(torch.tensor(rf0 * alpha ** 30, dtype=dtype))
         c = fe.fe_consts(sp, dtype, dev, block_n=64)
         if sp.disc == "SimpsonHermite":
-            fk, bk, kf, kb = (fe.sh_fwd_kernel, fe.sh_bwd_kernel, "sh_fwd",
-                              "sh_bwd")
+            # the backward: fe_sh_bwd where the checkout has it, else the
+            # fused launch's outputs without its value partials
+            bwd = getattr(fe, "sh_bwd_kernel", None) or (
+                lambda *a: fe.sh_vag_kernel(*a)[1:])
+            kerns = [("sh_fwd", fe.sh_fwd_kernel), ("sh_bwd", bwd)]
+            if hasattr(fe, "sh_vag_kernel"):
+                kerns.append(("sh_vag", fe.sh_vag_kernel))
         else:
-            fk, bk, kf, kb = (fe.onestep_fwd_kernel, fe.onestep_bwd_kernel,
-                              "onestep_fwd", "onestep_bwd")
-        bwd = list(bk(X, pest, rf, c))
-        bwd[-1] = bwd[-1].reshape(B, -1)
-        res[f"{kf} {name}"] = [fk(X, pest, rf, c)]
-        res[f"{kb} {name}"] = bwd
-        ms[f"{kf} {name}"] = _events_ms(lambda: fk(X, pest, rf, c), 1000)
-        ms[f"{kb} {name}"] = _events_ms(lambda: bk(X, pest, rf, c), 1000)
+            kerns = [("onestep_fwd", fe.onestep_fwd_kernel),
+                     ("onestep_bwd", fe.onestep_bwd_kernel)]
+        for kern, fn in kerns:
+            got = fn(X, pest, rf, c)
+            got = [got] if isinstance(got, torch.Tensor) else list(got)
+            # partials summed over their blocks: (B,) or (B, NP)
+            if kern.endswith("fwd") or kern == "sh_vag":
+                got[0] = got[0].sum(-1)
+            if not kern.endswith("fwd"):
+                got[-1] = got[-1].sum(-1)
+            res[f"{kern} {name}"] = got
+            ms[f"{kern} {name}"] = _events_ms(
+                lambda: fn(X, pest, rf, c), 1000)
         f = fe.make_fe_pallas(sp, block_n=64, device=dev)
         Xg = X.clone().requires_grad_(True)
         pg = pest.clone().requires_grad_(sp.NPest > 0)
@@ -109,10 +131,53 @@ def child(checkout, out):
 
         res[f"value+grad {name}"] = value_and_grad()
         ms[f"value+grad {name}"] = _events_ms(value_and_grad, 200)
+        if hasattr(f, "value_and_grad"):
+            res[f"value_and_grad {name}"] = list(
+                f.value_and_grad(X, pest, rf))
+            ms[f"value_and_grad {name}"] = _events_ms(
+                lambda: f.value_and_grad(X, pest, rf), 200)
     torch.cuda.synchronize()
+    res.update(_facade_config3(ms, dev))
     torch.save({"results": {k: [t.cpu() for t in v]
                             for k, v in res.items()}, "ms": ms}, out)
     return 0
+
+
+def _facade_config3(ms, dev):
+    """BASELINE config #3 through the facade as chip_smoke.py phase 27a
+    runs it (examples/nakl.py's problem, f64, engine='pallas'), cut to its
+    first FACADE_RUNGS rungs: the wall (a synchronize at each end), the
+    loop's iterations and ms an iteration into ``ms``; returns the
+    records (A by rung, niter, nfev) to compare."""
+    import time
+    from varanneal_tpu_torch.api import Annealer
+    from varanneal_tpu_torch.models import NAKL_P_TRUE, nakl
+    from varanneal_tpu_torch.twin import nakl_twin
+    tw = nakl_twin(N=3001, dt=0.04, sigma=1.0, seed=7)
+    P0 = np.asarray(NAKL_P_TRUE, float).copy()
+    P0[[1, 2, 3, 4, 5]] = [80.0, 40.0, 30.0, -60.0, 0.5]
+    X0 = np.column_stack([tw["V"][:, 0]] + [np.full(3001, 0.5)] * 3)
+    bounds = [(-150.0, 70.0), (0.0, 1.0), (0.0, 1.0), (0.0, 1.0),
+              (50.0, 200.0), (20.0, 80.0), (5.0, 60.0), (-100.0, -50.0),
+              (0.05, 1.0)]
+    ann = Annealer(device=dev)
+    ann.set_model(nakl, 4)
+    ann.set_data(tw["V"], stim=tw["stim"], t=tw["t"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ann.anneal(X0, P0, alpha=1.6, beta_array=np.arange(FACADE_RUNGS),
+               RM=1.0, RF0=1e-5, Lidx=[0], Pidx=[1, 2, 3, 4, 5],
+               disc="SimpsonHermite", bounds=bounds,
+               opt_args=dict(maxiter=5000), dtype=torch.float64,
+               engine="pallas")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    niter = int(ann.niter_array.sum())
+    tag = f"facade config #3 f64 rungs 0..{FACADE_RUNGS - 1}"
+    ms[f"{tag}: wall s"] = wall
+    ms[f"{tag}: ms an iteration"] = 1e3 * wall / max(niter, 1)
+    return {tag: [torch.tensor(ann.A_array), torch.tensor(ann.niter_array),
+                  torch.tensor(ann.nfev_array)]}
 
 
 def main(argv):

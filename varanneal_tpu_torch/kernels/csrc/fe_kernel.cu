@@ -9,8 +9,12 @@
 //   fe_onestep_bwd  <- _kern_bwd (:187, call :450);
 //   fe_sh_fwd       <- _kern_sh_fwd (:238, call :632) and the batched-grid
 //                      _kern_sh_fwd_b (:472, call :718);
-//   fe_sh_bwd       <- _kern_sh_bwd (:260, call :648) and _kern_sh_bwd_b
-//                      (:502, call :735).
+//   fe_sh_vag       <- _kern_sh_bwd (:260, call :648) and _kern_sh_bwd_b
+//                      (:502, call :735), with the value in the same
+//                      launch (the reference runs _kern_sh_fwd, then
+//                      _kern_sh_bwd in its custom_vjp): the backward's
+//                      outputs and fe_sh_fwd's partials, on the same
+//                      blocks.
 //
 // The batch is always on the grid (gridDim.y = B members, gridDim.x = time
 // blocks), so one kernel serves the Pallas kernel's B = 1 form and its
@@ -54,12 +58,24 @@
 // config #3 (NaKL, D=4, N_f=6,001) ~100-300 KB and ~2 MFLOP: well
 // under a microsecond at the card's rates, below the few microseconds a
 // launch costs. So the kernels are bound by launch latency and by the
-// serial depth of one block (stage, one or two passes, one reduction);
-// with few members most SMs are idle. The design keeps every pass a
-// strided loop over the block's (row, component) pairs with the model
-// evaluated from shared memory, and one fixed-order reduction (a warp
-// shuffle tree, then thread 0 over the warps in order; no atomics), so
-// repeated launches give bit-identical results.
+// serial depth of one thread (stage, one or two passes, one reduction);
+// with few members most SMs would sit idle. The one-step kernels keep
+// every pass a strided loop over a block's (row, component) pairs with
+// the model evaluated from shared memory, and a fixed-order reduction (a
+// warp shuffle tree, then thread 0 over the warps in order).
+//
+// The Hermite–Simpson kernels are laid out for the card instead: the
+// wrapper sizes the blocks from B·M and the SM count so that one member
+// covers the SMs (config #3 at B=1: 94 blocks of 32 intervals; config #2:
+// 120 blocks of one interval), and a thread takes one interval of a
+// row-level model (NaKL) or one (interval, component) pair of Lorenz-96,
+// with no loop over pairs at the configurations' shapes. A NaKL thread
+// evaluates each of its interval's three nodes once (three tanh and three
+// divisions a node, none again for Jᵀv or the parameter adjoint), so no
+// warp splits by component; the 19 parameter partials (and the value in
+// the fused launch) reduce by shuffle trees, then lane j of warp 0 sums
+// partial j's warp slots in order. No atomics anywhere, so repeated
+// launches give bit-identical results.
 //
 // The model is a template parameter with f, the transposed Jacobian
 // product and the parameter adjoint written by hand (no autodiff on the
@@ -88,10 +104,16 @@ constexpr int kWarps = kThreads / 32;
 enum Disc { kEuler = 0, kTrapezoid = 1, kForwardmap = 2 };
 enum ModelId { kL96 = 0, kNaKL = 1 };
 
-// Lorenz-96 with p = [F]: df_d/dF = 1, so F's adjoint is Σ_d v_d.
+// Lorenz-96 with p = [F]: df_d/dF = 1, so F's adjoint is Σ_d v_d. Its
+// Hermite–Simpson kernels map a thread to an (interval, component) pair
+// (kRow false): D runs to the thousands, and a component's f and Jᵀv read
+// its neighbours only.
 struct L96 {
     static constexpr int kNP = 1;
+    static constexpr int kNPX = 1;
     static constexpr bool kStim = false;
+    static constexpr bool kRow = false;
+    static constexpr int kMaxThreads = 1024;
     template <typename T>
     __device__ static T f(const T* x, int d, int D, const T* p, T) {
         return l96_f(x, d, D, p[0]);
@@ -109,9 +131,34 @@ struct L96 {
 };
 
 // NaKL (D = 4, 19 parameters, the stimulus as the injected current).
+// Its Hermite–Simpson kernels are row-level (kRow): a thread owns an
+// interval, evaluates each of its three nodes once (nakl_node: three tanh
+// and three divisions) and reuses those values in the residuals, Jᵀv and
+// the parameter adjoint, so no warp splits by component.
 struct NaKL {
     static constexpr int kNP = nakl::kNP;
+    static constexpr int kNPX = nakl::kNPX;
+    static constexpr int kD = 4;
     static constexpr bool kStim = true;
+    static constexpr bool kRow = true;
+    static constexpr int kMaxThreads = 256;
+    template <typename T>
+    using Node = nakl::Node<T>;
+    // entry j of the extended parameter row (nakl_node) from the 19
+    template <typename T>
+    __device__ static T param(const T* p, int j) {
+        return j < kNP ? p[j] : nakl::derived(p, j);
+    }
+    template <typename T>
+    __device__ static void node(const T* x, const T* px, T I, Node<T>& nd) {
+        nakl_node(x, px, I, nd);
+    }
+    template <typename T>
+    __device__ static void adjoint(const T* x, const T* px,
+                                   const Node<T>& nd, const T* v, T* jt,
+                                   T* acc) {
+        nakl_adjoint_row(x, px, nd, v, jt, acc);
+    }
     template <typename T>
     __device__ static T f(const T* x, int d, int, const T* p, T I) {
         return nakl_f(x, d, p, I);
@@ -244,13 +291,6 @@ __device__ __forceinline__ void sh_residuals(const T* xe0, int d, int D,
     *H = xm[d] - T(0.5) * (xe0[d] + xe1[d]) - h8 * (f0 - f1);
 }
 
-template <typename Model, typename T>
-__device__ __forceinline__ void sh_stims(const T* ss, int kk, T* s) {
-    s[0] = stim_of<Model>(ss, 2 * kk);
-    s[1] = stim_of<Model>(ss, 2 * kk + 1);
-    s[2] = stim_of<Model>(ss, 2 * kk + 2);
-}
-
 // K6a. Block i of member b: residual rows [i·bn, min(i·bn + bn, N_f - 1)),
 // staged rows i·bn .. i·bn + nr (nr + 1 rows). partials: (B, gridDim.x).
 template <typename T, typename Model, int kDisc, bool kDiagRf>
@@ -365,155 +405,326 @@ __global__ void __launch_bounds__(kThreads) fe_onestep_bwd(
     }
 }
 
-// K6c/K6d forward. Block i of member b: intervals [k0, k0 + nk), k0 = i·bk,
-// staged rows 2k0 .. 2k0 + 2nk. rf (diagonal form): (N_f - 1, D) rows, ws =
-// row 2k, wh = row 2k + 1. partials: (B, gridDim.x).
-template <typename T, typename Model, bool kDiagRf>
-__global__ void __launch_bounds__(kThreads) fe_sh_fwd(
+// ---------------------------------------------------------------------------
+// K6c/K6d, Hermite–Simpson. Block i of member b takes intervals
+// [k0, k0 + nk), k0 = i·bk, and stages rows 2k0 .. 2k0 + 2nk. The wrapper
+// picks bk from B·M and the card's SM count, and the threads a block
+// (kernels/fe.py, rows_per_block and sh_threads), so that one member
+// spreads over many SMs and a thread takes one interval (a row-level
+// model) or one (interval, component) pair (Lorenz-96) up to
+// Model::kMaxThreads, past which (Lorenz-96 at D > 1,024) a thread takes
+// more: every loop below strides by blockDim.x, so any whole number of
+// warps up to kMaxThreads is right. rf (diagonal form): (N_f - 1, D)
+// rows, ws = row 2k, wh = row 2k + 1. Outputs: partials (B, gridDim.x),
+// the triplet (g_e0, g_m, g_e1) each (B, M, D), gp (B, kNP, gridDim.x).
+
+// Shared memory of a block of nw warps, in values: the staged rows, the
+// reduction's slots (kNP + 1 a warp: the parameter partials and the
+// value), and for a row model its extended parameter row and the stimulus
+// of its rows; the Lorenz-96 fused launch also keeps S and H (pass 2
+// reads them) and v0, vm, v1 (Jᵀv reads them at other components).
+template <typename Model>
+constexpr size_t sh_smem_vals(bool grad, int bk, int D, int nw) {
+    size_t v = (size_t)(2 * bk + 1) * D + (size_t)nw * (Model::kNP + 1);
+    if (Model::kRow) {
+        v += Model::kNPX + 2 * bk + 1;
+    } else if (grad) {
+        v += (size_t)5 * bk * D;
+    }
+    return v;
+}
+
+// Sums N per-thread values over the block in a fixed order: a shuffle
+// tree in each warp, then lane j of warp 0 adds value j's warp sums in
+// warp order and calls out(j, sum) (N <= 32). No atomics, so a repeated
+// launch gives the same bits.
+template <typename T, int N, typename Out>
+__device__ __forceinline__ void block_reduce(T* v, T* red, const Out& out) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            v[j] += __shfl_down_sync(0xffffffffu, v[j], o);
+        }
+    }
+    if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) red[j * nw + warp] = v[j];
+    }
+    __syncthreads();
+    if (threadIdx.x < N) {
+        T s = T(0);
+        for (int w = 0; w < nw; ++w) s += red[threadIdx.x * nw + w];
+        out((int)threadIdx.x, s);
+    }
+}
+
+// The block's rows and, for a row model, its extended parameter row and
+// the stimulus of its rows (0 without one). Returns the parameter row
+// the model reads (Lorenz-96: member b's row of P in global memory). The
+// caller's barrier covers the copies.
+template <typename T, typename Model>
+__device__ __forceinline__ const T* sh_stage(
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim, int D, int k0, int nk,
+        T* sx, T* sp, T* ss) {
+    const T* xb = X + (size_t)blockIdx.y * x_bs + (size_t)2 * k0 * D;
+    for (int j = threadIdx.x; j < (2 * nk + 1) * D; j += blockDim.x) {
+        sx[j] = xb[j];
+    }
+    const T* prow = P + (size_t)blockIdx.y * p_bs;
+    if constexpr (Model::kRow) {
+        for (int j = threadIdx.x; j < Model::kNPX; j += blockDim.x) {
+            sp[j] = Model::param(prow, j);
+        }
+        for (int j = threadIdx.x; j < 2 * nk + 1; j += blockDim.x) {
+            ss[j] = stim ? stim[2 * k0 + j] : T(0);
+        }
+        return sp;
+    }
+    return prow;
+}
+
+template <typename T, bool kDiag>
+__device__ __forceinline__ void sh_weights(const T* __restrict__ rf, T rf_s,
+                                           int k, int d, int D, T* ws,
+                                           T* wh) {
+    if constexpr (kDiag) {
+        const size_t at = (size_t)2 * k * D + d;
+        *ws = rf[at];
+        *wh = rf[at + D];
+    } else {
+        *ws = rf_s;
+        *wh = rf_s;
+    }
+}
+
+// Row model: thread kk owns interval k0 + kk and evaluates its three
+// nodes once each (Model::node: f and what the adjoint reuses); the
+// backward forms S, H, WS, WH, v and then Jᵀv and the parameter partials
+// from the same node quantities, in registers, with no barrier between.
+// kGrad: false the forward (value partials), true the fused launch (the
+// value partials and the backward's outputs).
+template <typename T, typename Model, bool kDiag, bool kGrad>
+__device__ __forceinline__ void sh_rows(
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int M, T h6, T h8, T h46, int bk,
+        T* __restrict__ ge0, T* __restrict__ gm, T* __restrict__ ge1,
+        T* __restrict__ gp, T* __restrict__ partials) {
+    constexpr int D = Model::kD, NP = Model::kNP;
+    constexpr int NV = kGrad ? NP + 1 : 1;
+    using Node = typename Model::template Node<T>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nw = blockDim.x >> 5;
+    T* sx = reinterpret_cast<T*>(smem_raw);           // (2 bk + 1) * D
+    T* red = sx + (size_t)(2 * bk + 1) * D;            // nw * (NP + 1)
+    T* sp = red + (size_t)nw * (NP + 1);               // kNPX
+    T* ss = sp + Model::kNPX;                          // 2 bk + 1
+    const int k0 = blockIdx.x * bk;
+    const int nk = min(bk, M - k0);
+    const T* p = sh_stage<T, Model>(X, x_bs, P, p_bs, stim, D, k0, nk, sx,
+                                    sp, ss);
+    __syncthreads();
+    T acc[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = T(0);
+    for (int kk = threadIdx.x; kk < nk; kk += blockDim.x) {
+        const T* x0 = sx + (size_t)2 * kk * D;
+        const T* xm = x0 + D;
+        const T* x1 = xm + D;
+        Node n0, nm, n1;
+        Model::node(x0, p, ss[2 * kk], n0);
+        Model::node(xm, p, ss[2 * kk + 1], nm);
+        Model::node(x1, p, ss[2 * kk + 2], n1);
+        T WS[D], WH[D], v0[D], vm[D], v1[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            const T S = x1[d] - x0[d]
+                        - h6 * (n0.f[d] + T(4) * nm.f[d] + n1.f[d]);
+            const T H = xm[d] - T(0.5) * (x0[d] + x1[d])
+                        - h8 * (n0.f[d] - n1.f[d]);
+            T ws, wh;
+            sh_weights<T, kDiag>(rf, rf_s, k0 + kk, d, D, &ws, &wh);
+            acc[NV - 1] += ws * S * S + wh * H * H;
+            WS[d] = ws * S;
+            WH[d] = wh * H;
+            v0[d] = -h6 * WS[d] - h8 * WH[d];
+            vm[d] = -h46 * WS[d];
+            v1[d] = -h6 * WS[d] + h8 * WH[d];
+        }
+        if constexpr (kGrad) {
+            T j0[D], jm[D], j1[D];
+            Model::adjoint(x0, p, n0, v0, j0, acc);
+            Model::adjoint(xm, p, nm, vm, jm, acc);
+            Model::adjoint(x1, p, n1, v1, j1, acc);
+            const size_t out = ((size_t)blockIdx.y * M + k0 + kk) * D;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                ge0[out + d] = -WS[d] - T(0.5) * WH[d] + j0[d];
+                gm[out + d] = WH[d] + jm[d];
+                ge1[out + d] = WS[d] - T(0.5) * WH[d] + j1[d];
+            }
+        }
+    }
+    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    block_reduce<T, NV>(acc, red, [&](int j, T s) {
+        if (kGrad && j < NP) {
+            gp[((size_t)blockIdx.y * NP + j) * gridDim.x + blockIdx.x] = s;
+        } else {
+            partials[blk] = s;
+        }
+    });
+}
+
+// Lorenz-96: thread j owns pair (interval j / D, component j % D). Its
+// arithmetic a pair is the per-component design's, so each gradient
+// entry keeps its bits: pass 1 computes S and H, the value term and v0,
+// vm, v1, and keeps S and H in shared memory; pass 2, after a block
+// barrier (Jᵀv reads v at other components), reads S and H back and
+// weights them as that design's second pass did (kept as WS and WH,
+// nvcc contracts the triplet's sums otherwise, and its f32 entries move
+// by an ulp). F's partial sums the interval's three terms before adding
+// them, (a + b) + c.
+template <typename T, typename Model, bool kDiag, bool kGrad>
+__device__ __forceinline__ void sh_pairs(
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ rf, T rf_s, int M, int D,
+        T h6, T h8, T h46, int bk, T* __restrict__ ge0, T* __restrict__ gm,
+        T* __restrict__ ge1, T* __restrict__ gp, T* __restrict__ partials) {
+    static_assert(!Model::kStim, "the pair mapping reads no stimulus");
+    constexpr int NP = Model::kNP;
+    constexpr int NV = kGrad ? NP + 1 : 1;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nw = blockDim.x >> 5;
+    T* sx = reinterpret_cast<T*>(smem_raw);           // (2 bk + 1) * D
+    T* red = sx + (size_t)(2 * bk + 1) * D;            // nw * (NP + 1)
+    T* sS = red + (size_t)nw * (NP + 1);               // bk * D each
+    T* sH = sS + (size_t)bk * D;
+    T* v0 = sH + (size_t)bk * D;
+    T* vm = v0 + (size_t)bk * D;
+    T* v1 = vm + (size_t)bk * D;
+    const int k0 = blockIdx.x * bk;
+    const int nk = min(bk, M - k0);
+    const T* p = sh_stage<T, Model>(X, x_bs, P, p_bs, nullptr, D, k0, nk,
+                                    sx, nullptr, nullptr);
+    __syncthreads();
+    const T st[3] = {T(0), T(0), T(0)};
+    T acc[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = T(0);
+    for (int j = threadIdx.x; j < nk * D; j += blockDim.x) {
+        const int kk = j / D, d = j - kk * D;
+        const T* xe0 = sx + (size_t)2 * kk * D;
+        T S, H, ws, wh;
+        sh_residuals<T, Model>(xe0, d, D, p, st, h6, h8, &S, &H);
+        sh_weights<T, kDiag>(rf, rf_s, k0 + kk, d, D, &ws, &wh);
+        acc[NV - 1] += ws * S * S + wh * H * H;
+        if constexpr (kGrad) {
+            const T WS = ws * S, WH = wh * H;
+            const T a = -h6 * WS - h8 * WH;
+            const T b = -h46 * WS;
+            const T c = -h6 * WS + h8 * WH;
+            sS[j] = S;
+            sH[j] = H;
+            v0[j] = a;
+            vm[j] = b;
+            v1[j] = c;
+            T t[NP];
+#pragma unroll
+            for (int k = 0; k < NP; ++k) t[k] = T(0);
+            Model::ptv(xe0, d, D, p, st[0], a, t);
+            Model::ptv(xe0 + D, d, D, p, st[1], b, t);
+            Model::ptv(xe0 + 2 * D, d, D, p, st[2], c, t);
+#pragma unroll
+            for (int k = 0; k < NP; ++k) acc[k] += t[k];
+        }
+    }
+    if constexpr (kGrad) {
+        __syncthreads();
+        const size_t out0 = (size_t)blockIdx.y * M * D + (size_t)k0 * D;
+        for (int j = threadIdx.x; j < nk * D; j += blockDim.x) {
+            const int kk = j / D, e = j - kk * D;
+            const T* xe0 = sx + (size_t)2 * kk * D;
+            T ws, wh;
+            sh_weights<T, kDiag>(rf, rf_s, k0 + kk, e, D, &ws, &wh);
+            const T WS = ws * sS[j], WH = wh * sH[j];
+            const T* r0 = v0 + (size_t)kk * D;
+            const T* rm = vm + (size_t)kk * D;
+            const T* r1 = v1 + (size_t)kk * D;
+            ge0[out0 + j] = -WS - T(0.5) * WH
+                            + Model::jtv(xe0, [r0](int k) { return r0[k]; },
+                                         e, D, p);
+            gm[out0 + j] = WH + Model::jtv(xe0 + D,
+                                           [rm](int k) { return rm[k]; }, e,
+                                           D, p);
+            ge1[out0 + j] = WS - T(0.5) * WH
+                            + Model::jtv(xe0 + 2 * D,
+                                         [r1](int k) { return r1[k]; }, e, D,
+                                         p);
+        }
+    }
+    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    block_reduce<T, NV>(acc, red, [&](int j, T s) {
+        if (kGrad && j < NP) {
+            gp[((size_t)blockIdx.y * NP + j) * gridDim.x + blockIdx.x] = s;
+        } else {
+            partials[blk] = s;
+        }
+    });
+}
+
+template <typename T, typename Model, bool kDiag, bool kGrad>
+__device__ __forceinline__ void sh_block(
+        const T* X, long long x_bs, const T* P, long long p_bs,
+        const T* stim, const T* rf, T rf_s, int M, int D, T h6, T h8, T h46,
+        int bk, T* ge0, T* gm, T* ge1, T* gp, T* partials) {
+    if constexpr (Model::kRow) {
+        sh_rows<T, Model, kDiag, kGrad>(X, x_bs, P, p_bs, stim, rf, rf_s, M,
+                                        h6, h8, h46, bk, ge0, gm, ge1, gp,
+                                        partials);
+    } else {
+        sh_pairs<T, Model, kDiag, kGrad>(X, x_bs, P, p_bs, rf, rf_s, M, D,
+                                         h6, h8, h46, bk, ge0, gm, ge1, gp,
+                                         partials);
+    }
+}
+
+// K6c/K6d forward: the value's block partials Σ ws S² + wh H².
+template <typename T, typename Model, bool kDiag>
+__global__ void __launch_bounds__(Model::kMaxThreads) fe_sh_fwd(
         const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
         long long p_bs, const T* __restrict__ stim,
         const T* __restrict__ rf, T rf_s, int M, int D, T h6, T h8, int bk,
         T* __restrict__ partials) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sx = reinterpret_cast<T*>(smem_raw);           // (2 bk + 1) * D
-    T* red = sx + (size_t)(2 * bk + 1) * D;            // kWarps * kNP
-    T* sp = red + kWarps * Model::kNP;                 // kNP (NaKL)
-    T* ss = sp + (Model::kNP > 1 ? Model::kNP : 0);    // 2 bk + 1 (NaKL)
-    const int k0 = blockIdx.x * bk;
-    const int nk = min(bk, M - k0);
-    const T* p = stage_params<T, Model>(P, p_bs, stim, 2 * k0, 2 * nk + 1,
-                                        2 * M + 1, sp, ss);
-    const T* xb = X + (size_t)blockIdx.y * x_bs + (size_t)2 * k0 * D;
-    for (int j = threadIdx.x; j < (2 * nk + 1) * D; j += kThreads) {
-        sx[j] = xb[j];
-    }
-    __syncthreads();
-    T acc = T(0);
-    for (int j = threadIdx.x; j < nk * D; j += kThreads) {
-        const int kk = j / D, d = j - kk * D;
-        T S, H, st[3];
-        sh_stims<Model>(ss, kk, st);
-        sh_residuals<T, Model>(sx + (size_t)2 * kk * D, d, D, p, st, h6, h8,
-                               &S, &H);
-        T ws = rf_s, wh = rf_s;
-        if constexpr (kDiagRf) {
-            const size_t at = (size_t)2 * (k0 + kk) * D + d;
-            ws = rf[at];
-            wh = rf[at + D];
-        }
-        acc += ws * S * S + wh * H * H;
-    }
-    const T s = block_sum(acc, red);
-    if (threadIdx.x == 0) {
-        partials[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
-    }
+    sh_block<T, Model, kDiag, false>(X, x_bs, P, p_bs, stim, rf, rf_s, M, D,
+                                     h6, h8, T(0), bk, nullptr, nullptr,
+                                     nullptr, nullptr, partials);
 }
 
-// K6c/K6d backward: the triplet (g_e0, g_m, g_e1), each (B, M, D)
-// contiguous, and gp (B, kNP, gridDim.x), the block's partials
-// Σ (F_p(x_e0)ᵀ v0 + F_p(x_m)ᵀ vm + F_p(x_e1)ᵀ v1). Pass 1 writes v0, vm,
-// v1 to shared memory; pass 2, after a block barrier (Jᵀv reads v at
-// other components), recomputes S and H from the staged rows and forms
-// the triplet.
-template <typename T, typename Model, bool kDiagRf>
-__global__ void __launch_bounds__(kThreads) fe_sh_bwd(
+// K6c/K6d value and gradient in one launch: the value's block partials,
+// the triplet and the parameters' block partials
+// Σ (F_p(x_e0)ᵀ v0 + F_p(x_m)ᵀ vm + F_p(x_e1)ᵀ v1), the value from the
+// residuals the backward computes anyway.
+template <typename T, typename Model, bool kDiag>
+__global__ void __launch_bounds__(Model::kMaxThreads) fe_sh_vag(
         const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
         long long p_bs, const T* __restrict__ stim,
         const T* __restrict__ rf, T rf_s, int M, int D, T h6, T h8, T h46,
         int bk, T* __restrict__ ge0, T* __restrict__ gm, T* __restrict__ ge1,
-        T* __restrict__ gp) {
-    constexpr int NP = Model::kNP;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sx = reinterpret_cast<T*>(smem_raw);           // (2 bk + 1) * D
-    T* v0 = sx + (size_t)(2 * bk + 1) * D;             // bk * D each
-    T* vm = v0 + (size_t)bk * D;
-    T* v1 = vm + (size_t)bk * D;
-    T* red = v1 + (size_t)bk * D;                      // kWarps * kNP
-    T* sp = red + kWarps * NP;                         // kNP (NaKL)
-    T* ss = sp + (NP > 1 ? NP : 0);                    // 2 bk + 1 (NaKL)
-    const int k0 = blockIdx.x * bk;
-    const int nk = min(bk, M - k0);
-    const T* p = stage_params<T, Model>(P, p_bs, stim, 2 * k0, 2 * nk + 1,
-                                        2 * M + 1, sp, ss);
-    const T* xb = X + (size_t)blockIdx.y * x_bs + (size_t)2 * k0 * D;
-    for (int j = threadIdx.x; j < (2 * nk + 1) * D; j += kThreads) {
-        sx[j] = xb[j];
-    }
-    __syncthreads();
-    auto weights = [&](int kk, int d, T* ws, T* wh) {
-        *ws = rf_s;
-        *wh = rf_s;
-        if constexpr (kDiagRf) {
-            const size_t at = (size_t)2 * (k0 + kk) * D + d;
-            *ws = rf[at];
-            *wh = rf[at + D];
-        }
-    };
-    T acc[NP];
-#pragma unroll
-    for (int k = 0; k < NP; ++k) acc[k] = T(0);
-    for (int j = threadIdx.x; j < nk * D; j += kThreads) {
-        const int kk = j / D, d = j - kk * D;
-        const T* xe0 = sx + (size_t)2 * kk * D;
-        T S, H, ws, wh, st[3];
-        sh_stims<Model>(ss, kk, st);
-        sh_residuals<T, Model>(xe0, d, D, p, st, h6, h8, &S, &H);
-        weights(kk, d, &ws, &wh);
-        const T WS = ws * S, WH = wh * H;
-        const T a = -h6 * WS - h8 * WH;
-        const T b = -h46 * WS;
-        const T c = -h6 * WS + h8 * WH;
-        v0[j] = a;
-        vm[j] = b;
-        v1[j] = c;
-        // the interval's three terms summed first, then added: for
-        // Lorenz-96 acc += (a + b) + c, as the L96-only kernel did
-        T t[NP];
-#pragma unroll
-        for (int k = 0; k < NP; ++k) t[k] = T(0);
-        Model::ptv(xe0, d, D, p, st[0], a, t);
-        Model::ptv(xe0 + D, d, D, p, st[1], b, t);
-        Model::ptv(xe0 + 2 * D, d, D, p, st[2], c, t);
-#pragma unroll
-        for (int k = 0; k < NP; ++k) acc[k] += t[k];
-    }
-    __syncthreads();
-    const size_t out0 = (size_t)blockIdx.y * M * D + (size_t)k0 * D;
-    for (int j = threadIdx.x; j < nk * D; j += kThreads) {
-        const int kk = j / D, e = j - kk * D;
-        const T* xe0 = sx + (size_t)2 * kk * D;
-        T S, H, ws, wh, st[3];
-        sh_stims<Model>(ss, kk, st);
-        sh_residuals<T, Model>(xe0, e, D, p, st, h6, h8, &S, &H);
-        weights(kk, e, &ws, &wh);
-        const T WS = ws * S, WH = wh * H;
-        const T* r0 = v0 + (size_t)kk * D;
-        const T* rm = vm + (size_t)kk * D;
-        const T* r1 = v1 + (size_t)kk * D;
-        ge0[out0 + j] = -WS - T(0.5) * WH
-                        + Model::jtv(xe0, [r0](int k) { return r0[k]; }, e,
-                                     D, p);
-        gm[out0 + j] = WH + Model::jtv(xe0 + D,
-                                       [rm](int k) { return rm[k]; }, e, D,
-                                       p);
-        ge1[out0 + j] = WS - T(0.5) * WH
-                        + Model::jtv(xe0 + 2 * D,
-                                     [r1](int k) { return r1[k]; }, e, D, p);
-    }
-    T s[NP];
-    block_sum_n<T, NP>(acc, red, s);
-    if (threadIdx.x == 0) {
-        for (int k = 0; k < NP; ++k) {
-            gp[((size_t)blockIdx.y * NP + k) * gridDim.x + blockIdx.x] = s[k];
-        }
-    }
+        T* __restrict__ gp, T* __restrict__ partials) {
+    sh_block<T, Model, kDiag, true>(X, x_bs, P, p_bs, stim, rf, rf_s, M, D,
+                                    h6, h8, h46, bk, ge0, gm, ge1, gp,
+                                    partials);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where needed (a
 // launch above 48 KB without it is refused and never runs), then launch.
 template <typename K, typename... Args>
-int launch(K kernel, int n_blocks, int B, size_t smem, void* stream,
-           Args... args) {
+int launch(K kernel, int n_blocks, int B, int threads, size_t smem,
+           void* stream, Args... args) {
     if (smem > 48 * 1024) {
         // a refusal's error read back, so that the next launch does not
         // report it again
@@ -524,7 +735,7 @@ int launch(K kernel, int n_blocks, int B, size_t smem, void* stream,
             return (int)e;
         }
     }
-    kernel<<<dim3(n_blocks, B), kThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<dim3(n_blocks, B), threads, smem, (cudaStream_t)stream>>>(
         args...);
     return (int)cudaGetLastError();
 }
@@ -537,8 +748,8 @@ int onestep_fwd(const void* X, long long x_bs, const void* P, long long p_bs,
     const int n_blocks = (N_f - 1 + bn - 1) / bn;
     const size_t smem = ((size_t)(bn + 1) * D + extra_vals<Model>(bn + 1))
                         * sizeof(T);
-    return launch(fe_onestep_fwd<T, Model, kDisc, kDiag>, n_blocks, B, smem,
-                  stream, static_cast<const T*>(X), x_bs,
+    return launch(fe_onestep_fwd<T, Model, kDisc, kDiag>, n_blocks, B,
+                  kThreads, smem, stream, static_cast<const T*>(X), x_bs,
                   static_cast<const T*>(P), p_bs,
                   static_cast<const T*>(stim), static_cast<const T*>(rf),
                   (T)rf_s, N_f, D, (T)hc, bn, static_cast<T*>(partials));
@@ -552,46 +763,57 @@ int onestep_bwd(const void* X, long long x_bs, const void* P, long long p_bs,
     const int n_blocks = (N_f + bn - 1) / bn;
     const size_t smem = ((size_t)(3 * bn + 3) * D
                          + extra_vals<Model>(bn + 2)) * sizeof(T);
-    return launch(fe_onestep_bwd<T, Model, kDisc, kDiag>, n_blocks, B, smem,
-                  stream, static_cast<const T*>(X), x_bs,
+    return launch(fe_onestep_bwd<T, Model, kDisc, kDiag>, n_blocks, B,
+                  kThreads, smem, stream, static_cast<const T*>(X), x_bs,
                   static_cast<const T*>(P), p_bs,
                   static_cast<const T*>(stim), static_cast<const T*>(rf),
                   (T)rf_s, N_f, D, (T)hc, (T)a1, (T)c0, (T)c1, bn,
                   static_cast<T*>(gx), static_cast<T*>(gp));
 }
 
+constexpr int kBadArg = (int)cudaErrorInvalidValue;
+
+// Whether a Hermite–Simpson block may run ``threads``: whole warps, at
+// most the kernel's launch bound.
+template <typename Model>
+bool sh_threads_ok(int threads) {
+    return threads >= 32 && threads % 32 == 0
+           && threads <= Model::kMaxThreads;
+}
+
 template <typename T, typename Model, bool kDiag>
 int sh_fwd(const void* X, long long x_bs, const void* P, long long p_bs,
            const void* stim, const void* rf, double rf_s, int B, int M,
-           int D, double h6, double h8, int bk, void* partials,
+           int D, double h6, double h8, int bk, int threads, void* partials,
            void* stream) {
-    const int n_blocks = (M + bk - 1) / bk;
-    const size_t smem = ((size_t)(2 * bk + 1) * D
-                         + extra_vals<Model>(2 * bk + 1)) * sizeof(T);
-    return launch(fe_sh_fwd<T, Model, kDiag>, n_blocks, B, smem, stream,
-                  static_cast<const T*>(X), x_bs, static_cast<const T*>(P),
-                  p_bs, static_cast<const T*>(stim),
-                  static_cast<const T*>(rf), (T)rf_s, M, D, (T)h6, (T)h8,
-                  bk, static_cast<T*>(partials));
+    if (!sh_threads_ok<Model>(threads)) return kBadArg;
+    return launch(fe_sh_fwd<T, Model, kDiag>, (M + bk - 1) / bk, B, threads,
+                  sh_smem_vals<Model>(false, bk, D, threads / 32)
+                      * sizeof(T),
+                  stream, static_cast<const T*>(X), x_bs,
+                  static_cast<const T*>(P), p_bs,
+                  static_cast<const T*>(stim), static_cast<const T*>(rf),
+                  (T)rf_s, M, D, (T)h6, (T)h8, bk,
+                  static_cast<T*>(partials));
 }
 
 template <typename T, typename Model, bool kDiag>
-int sh_bwd(const void* X, long long x_bs, const void* P, long long p_bs,
+int sh_vag(const void* X, long long x_bs, const void* P, long long p_bs,
            const void* stim, const void* rf, double rf_s, int B, int M,
-           int D, double h6, double h8, double h46, int bk, void* ge0,
-           void* gm, void* ge1, void* gp, void* stream) {
-    const int n_blocks = (M + bk - 1) / bk;
-    const size_t smem = ((size_t)(5 * bk + 1) * D
-                         + extra_vals<Model>(2 * bk + 1)) * sizeof(T);
-    return launch(fe_sh_bwd<T, Model, kDiag>, n_blocks, B, smem, stream,
-                  static_cast<const T*>(X), x_bs, static_cast<const T*>(P),
-                  p_bs, static_cast<const T*>(stim),
-                  static_cast<const T*>(rf), (T)rf_s, M, D, (T)h6, (T)h8,
-                  (T)h46, bk, static_cast<T*>(ge0), static_cast<T*>(gm),
-                  static_cast<T*>(ge1), static_cast<T*>(gp));
+           int D, double h6, double h8, double h46, int bk, int threads,
+           void* ge0, void* gm, void* ge1, void* gp, void* partials,
+           void* stream) {
+    if (!sh_threads_ok<Model>(threads)) return kBadArg;
+    return launch(fe_sh_vag<T, Model, kDiag>, (M + bk - 1) / bk, B, threads,
+                  sh_smem_vals<Model>(true, bk, D, threads / 32) * sizeof(T),
+                  stream, static_cast<const T*>(X), x_bs,
+                  static_cast<const T*>(P), p_bs,
+                  static_cast<const T*>(stim), static_cast<const T*>(rf),
+                  (T)rf_s, M, D, (T)h6, (T)h8, (T)h46, bk,
+                  static_cast<T*>(ge0), static_cast<T*>(gm),
+                  static_cast<T*>(ge1), static_cast<T*>(gp),
+                  static_cast<T*>(partials));
 }
-
-constexpr int kBadArg = (int)cudaErrorInvalidValue;
 
 // The (model, disc, rf form) instantiation a call names; kBadArg for an
 // unknown code.
@@ -676,29 +898,32 @@ template <typename T>
 int sh_fwd_any(int model, int diag, const void* X, long long x_bs,
                const void* P, long long p_bs, const void* stim,
                const void* rf, double rf_s, int B, int M, int D, double h6,
-               double h8, int bk, void* partials, void* stream) {
+               double h8, int bk, int threads, void* partials,
+               void* stream) {
 #define VA_CALL(M_)                                                         \
     return diag ? sh_fwd<T, M_, true>(X, x_bs, P, p_bs, stim, rf, rf_s, B,  \
-                                      M, D, h6, h8, bk, partials, stream)   \
+                                      M, D, h6, h8, bk, threads, partials,  \
+                                      stream)                               \
                 : sh_fwd<T, M_, false>(X, x_bs, P, p_bs, stim, rf, rf_s, B, \
-                                       M, D, h6, h8, bk, partials, stream)
+                                       M, D, h6, h8, bk, threads, partials, \
+                                       stream)
     VA_MODELS(VA_CALL)
 #undef VA_CALL
 }
 
 template <typename T>
-int sh_bwd_any(int model, int diag, const void* X, long long x_bs,
+int sh_vag_any(int model, int diag, const void* X, long long x_bs,
                const void* P, long long p_bs, const void* stim,
                const void* rf, double rf_s, int B, int M, int D, double h6,
-               double h8, double h46, int bk, void* ge0, void* gm,
-               void* ge1, void* gp, void* stream) {
+               double h8, double h46, int bk, int threads, void* ge0,
+               void* gm, void* ge1, void* gp, void* partials, void* stream) {
 #define VA_CALL(M_)                                                         \
-    return diag ? sh_bwd<T, M_, true>(X, x_bs, P, p_bs, stim, rf, rf_s, B,  \
-                                      M, D, h6, h8, h46, bk, ge0, gm, ge1,  \
-                                      gp, stream)                           \
-                : sh_bwd<T, M_, false>(X, x_bs, P, p_bs, stim, rf, rf_s, B, \
-                                       M, D, h6, h8, h46, bk, ge0, gm, ge1, \
-                                       gp, stream)
+    return diag ? sh_vag<T, M_, true>(X, x_bs, P, p_bs, stim, rf, rf_s, B,  \
+                                      M, D, h6, h8, h46, bk, threads, ge0,  \
+                                      gm, ge1, gp, partials, stream)        \
+                : sh_vag<T, M_, false>(X, x_bs, P, p_bs, stim, rf, rf_s, B, \
+                                       M, D, h6, h8, h46, bk, threads, ge0, \
+                                       gm, ge1, gp, partials, stream)
     VA_MODELS(VA_CALL)
 #undef VA_CALL
 }
@@ -762,42 +987,50 @@ int va_fe_onestep_bwd_f64(int model, int disc, int diag, const void* X,
                                    bn, gx, gp, stream);
 }
 
+// Hermite–Simpson: bk intervals a block, ``threads`` a block (whole warps,
+// at most the model's launch bound; kBadArg otherwise).
 int va_fe_sh_fwd_f32(int model, int diag, const void* X, long long x_bs,
                      const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int M, int D,
-                     double h6, double h8, int bk, void* partials,
-                     void* stream) {
+                     double h6, double h8, int bk, int threads,
+                     void* partials, void* stream) {
     return sh_fwd_any<float>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
-                             B, M, D, h6, h8, bk, partials, stream);
+                             B, M, D, h6, h8, bk, threads, partials, stream);
 }
 
 int va_fe_sh_fwd_f64(int model, int diag, const void* X, long long x_bs,
                      const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int M, int D,
-                     double h6, double h8, int bk, void* partials,
-                     void* stream) {
+                     double h6, double h8, int bk, int threads,
+                     void* partials, void* stream) {
     return sh_fwd_any<double>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
-                              B, M, D, h6, h8, bk, partials, stream);
-}
-
-int va_fe_sh_bwd_f32(int model, int diag, const void* X, long long x_bs,
-                     const void* P, long long p_bs, const void* stim,
-                     const void* rf, double rf_s, int B, int M, int D,
-                     double h6, double h8, double h46, int bk, void* ge0,
-                     void* gm, void* ge1, void* gp, void* stream) {
-    return sh_bwd_any<float>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
-                             B, M, D, h6, h8, h46, bk, ge0, gm, ge1, gp,
-                             stream);
-}
-
-int va_fe_sh_bwd_f64(int model, int diag, const void* X, long long x_bs,
-                     const void* P, long long p_bs, const void* stim,
-                     const void* rf, double rf_s, int B, int M, int D,
-                     double h6, double h8, double h46, int bk, void* ge0,
-                     void* gm, void* ge1, void* gp, void* stream) {
-    return sh_bwd_any<double>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
-                              B, M, D, h6, h8, h46, bk, ge0, gm, ge1, gp,
+                              B, M, D, h6, h8, bk, threads, partials,
                               stream);
+}
+
+// The fused launch (fe_sh_vag): the triplet (B, M, D) each, the
+// parameters' block partials (B, NP, blocks) and the value's block
+// partials (B, blocks), as va_fe_sh_fwd's.
+int va_fe_sh_vag_f32(int model, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
+                     const void* rf, double rf_s, int B, int M, int D,
+                     double h6, double h8, double h46, int bk, int threads,
+                     void* ge0, void* gm, void* ge1, void* gp,
+                     void* partials, void* stream) {
+    return sh_vag_any<float>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
+                             B, M, D, h6, h8, h46, bk, threads, ge0, gm, ge1,
+                             gp, partials, stream);
+}
+
+int va_fe_sh_vag_f64(int model, int diag, const void* X, long long x_bs,
+                     const void* P, long long p_bs, const void* stim,
+                     const void* rf, double rf_s, int B, int M, int D,
+                     double h6, double h8, double h46, int bk, int threads,
+                     void* ge0, void* gm, void* ge1, void* gp,
+                     void* partials, void* stream) {
+    return sh_vag_any<double>(model, diag, X, x_bs, P, p_bs, stim, rf, rf_s,
+                              B, M, D, h6, h8, h46, bk, threads, ge0, gm,
+                              ge1, gp, partials, stream);
 }
 
 const char* va_fe_error_string(int code) {

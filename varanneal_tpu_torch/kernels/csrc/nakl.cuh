@@ -33,6 +33,15 @@
 // nakl_ptv touches a disjoint set of the 19 partials, and the sum of
 // nakl_ptv over the four components is the row's Σ_d df_d/dp_j v_d
 // (nakl_ptv_row).
+//
+// The row-level functions at the end (nakl_node, nakl_adjoint_row) serve a
+// kernel in which one thread owns a whole state row: nakl_node evaluates
+// the row's four f values and keeps each gate's th and 1/tau_a (one tanh
+// and one division a gate), and nakl_adjoint_row forms Jᵀv and the 19
+// parameter partials from them with no further tanh or division. They
+// read the parameter row extended by nakl_derive (1/Cm and the gates'
+// 1/dva after the 19 values), so that u and f_0 take a product where the
+// per-component functions divide.
 #pragma once
 
 namespace nakl {
@@ -159,4 +168,93 @@ __device__ __forceinline__ void nakl_ptv_row(const T* x, const V& v,
                                              const T* p, T I, T* acc) {
 #pragma unroll
     for (int d = 0; d < 4; ++d) nakl_ptv(x, d, p, I, v(d), acc);
+}
+
+namespace nakl {
+
+// The extended parameter row of the row-level functions: the 19 values,
+// then 1/Cm, then 1/dva of the gates m, h, n.
+constexpr int kICm = kNP;
+constexpr int kIdva = kNP + 1;
+constexpr int kNPX = kNP + 4;
+
+// Entry j (kNP <= j < kNPX) of the extended row from the 19 values p.
+template <typename T>
+__device__ __forceinline__ T derived(const T* p, int j) {
+    return T(1) / (j == kICm ? p[Cm] : p[7 + 4 * (j - kIdva) + 1]);
+}
+
+// One node's model quantities: f (4) and, per gate, th and 1/tau.
+template <typename T>
+struct Node {
+    T f[4];
+    T th[3];
+    T ti[3];
+};
+
+}  // namespace nakl
+
+// f at one row x (4 values) with the extended parameter row px and the
+// current I, keeping what nakl_adjoint_row needs: three tanh and three
+// divisions.
+template <typename T>
+__device__ __forceinline__ void nakl_node(const T* x, const T* px, T I,
+                                          nakl::Node<T>& nd) {
+    using namespace nakl;
+    const T V = x[0], m = x[1], h = x[2], n = x[3];
+    nd.f[0] = (px[gNa] * m * m * m * h * (px[ENa] - V)
+               + px[gK] * n * n * n * n * (px[EK] - V)
+               + px[gL] * (px[EL] - V) + I) * px[kICm];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        const T* g = px + 7 + 4 * a;
+        const T th = va_tanh((V - g[0]) * px[kIdva + a]);
+        const T ti = T(1) / (g[2] + g[3] * (T(1) - th * th));
+        nd.th[a] = th;
+        nd.ti[a] = ti;
+        nd.f[1 + a] = (T(0.5) * (T(1) + th) - x[1 + a]) * ti;
+    }
+}
+
+// (J(x)ᵀ v) into jt (4) and the 19 partials Σ_d df_d/dp_j v_d added to
+// acc, at the row x whose quantities nd holds (nakl_node).
+template <typename T>
+__device__ __forceinline__ void nakl_adjoint_row(const T* x, const T* px,
+                                                 const nakl::Node<T>& nd,
+                                                 const T* v, T* jt, T* acc) {
+    using namespace nakl;
+    const T V = x[0], m = x[1], h = x[2], n = x[3];
+    const T iCm = px[kICm];
+    const T m3 = m * m * m, n3 = n * n * n;
+    const T m3h = m3 * h, n4 = n3 * n;
+    const T eNa = px[ENa] - V, eK = px[EK] - V;
+    const T w = v[0] * iCm;
+    T j0 = -(px[gNa] * m3h + px[gK] * n4 + px[gL]) * w;
+    jt[1] = T(3) * px[gNa] * m * m * h * eNa * w;
+    jt[2] = px[gNa] * m3 * eNa * w;
+    jt[3] = T(4) * px[gK] * n3 * eK * w;
+    acc[Cm] += -nd.f[0] * w;
+    acc[gNa] += m3h * eNa * w;
+    acc[ENa] += px[gNa] * m3h * w;
+    acc[gK] += n4 * eK * w;
+    acc[EK] += px[gK] * n4 * w;
+    acc[gL] += (px[EL] - V) * w;
+    acc[EL] += px[gL] * w;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        const T* g = px + 7 + 4 * a;
+        const T idva = px[kIdva + a];
+        const T th = nd.th[a], ti = nd.ti[a], fa = nd.f[1 + a];
+        const T s = T(1) - th * th;
+        // df_a/dth · s / dva (df_a/dth = (1/2 + 2 ta1 th f_a) / tau)
+        const T dV = (T(0.5) + T(2) * g[3] * th * fa) * ti * s * idva;
+        const T va = v[1 + a];
+        j0 += dV * va;
+        jt[1 + a] -= va * ti;
+        acc[7 + 4 * a] += -dV * va;
+        acc[8 + 4 * a] += -dV * (V - g[0]) * idva * va;
+        acc[9 + 4 * a] += -fa * ti * va;
+        acc[10 + 4 * a] += -fa * s * ti * va;
+    }
+    jt[0] = j0;
 }

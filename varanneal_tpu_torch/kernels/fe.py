@@ -5,7 +5,7 @@ the bench evaluate.
 Counterpart of ``varanneal_tpu/kernels/fe_pallas.py`` (``fe_supported``,
 ``make_fe_pallas``, ``make_action_pallas``, ``pallas_preferred``,
 ``ag_preferred``, ``select_action``). Its seven ``pallas_call`` sites are
-replaced on the card by the four hand-written CUDA kernels of
+replaced on the card by the hand-written CUDA kernels of
 ``csrc/fe_kernel.cu`` (the source notes what bounds them and what their
 design does about that):
 
@@ -13,13 +13,19 @@ design does about that):
   partial sums of rf ⊙ r² for euler, trapezoid and forwardmap;
 - ``fe_onestep_bwd`` (K6b, ``_kern_bwd``): the hand-written adjoint, the
   gradient rows and the parameters' per-block partials;
-- ``fe_sh_fwd`` and ``fe_sh_bwd`` (K6c ``_kern_sh_fwd``/``_kern_sh_bwd``
-  and K6d, their batched-grid forms): Hermite–Simpson over blocks of
-  intervals, the backward as the (g_e0, g_m, g_e1) triplet that
+- ``fe_sh_fwd`` (K6c ``_kern_sh_fwd`` and K6d, its batched-grid form):
+  Hermite–Simpson's value over blocks of intervals;
+- ``fe_sh_vag`` (K6c ``_kern_sh_bwd`` and K6d, its batched-grid form):
+  Hermite–Simpson's value and gradient in one launch, fe_sh_fwd's
+  partials and the backward as the (g_e0, g_m, g_e1) triplet that
   :func:`sh_join` adds into the gradient by node, as the reference does.
 
 Every kernel runs on a (time block, member) grid, so B = 1 is K6c and
-B > 1 is K6d. The kernels take two models, each with f, Jᵀv and the
+B > 1 is K6d. The Hermite–Simpson kernels size their blocks from B·M and
+the card's SM count (:func:`rows_per_block`): a thread takes one
+interval of NaKL (each node's model evaluated once, reused by the
+residuals, Jᵀv and the parameter adjoint) or one (interval, component)
+pair of Lorenz-96. The kernels take two models, each with f, Jᵀv and the
 parameter adjoint written by hand: Lorenz-96 (``models.lorenz.lorenz96``)
 and NaKL (``models.nakl.nakl``, or a log-space model of
 ``models.nakl.nakl_log_model``; ``csrc/nakl.cuh``) with its stimulus.
@@ -35,12 +41,17 @@ independent of the hand-written one. The CPU path and the tests use them,
 and a wrapper takes its plain version only for tensors on the CPU: on a
 CUDA tensor it launches its kernel or raises. Each wrapper counts its
 launches (:data:`FWD_LAUNCHES`, :data:`BWD_LAUNCHES`,
-:data:`SH_FWD_LAUNCHES`, :data:`SH_BWD_LAUNCHES`).
+:data:`SH_FWD_LAUNCHES`, :data:`SH_VAG_LAUNCHES`).
 
 :func:`make_fe_pallas` returns ``fe(X, pest, rf)``, a
 ``torch.autograd.Function`` whose forward is one launch and whose
-backward is one launch, scaled by 2·g/norm as the reference's
-``custom_vjp``; :func:`make_action_pallas` keeps ME in plain PyTorch.
+backward is one launch (under Hermite–Simpson the fused one, its value
+unread), scaled by 2·g/norm as the reference's ``custom_vjp``, and
+``fe.value_and_grad``, the same value and gradient without autograd's
+graph (one fused launch under Hermite–Simpson);
+:func:`make_action_pallas` keeps ME in plain PyTorch and gives its
+action a ``value_and_grad`` (ME's gradient in closed form), which every
+ladder and solver loop takes (``ops.action.value_and_grad``).
 
 The engines of :func:`select_action`:
 
@@ -87,27 +98,40 @@ _MODEL_NP = {"l96": 1, "nakl": 19}
 _DTYPES = (torch.float32, torch.float64)
 
 #: Launches so far of fe_onestep_fwd (K6a), fe_onestep_bwd (K6b),
-#: fe_sh_fwd and fe_sh_bwd (K6c/K6d); each successful launch adds one.
+#: fe_sh_fwd and fe_sh_vag (K6c/K6d: Hermite–Simpson's value, and its
+#: value and gradient in one launch); each successful launch adds one.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 SH_FWD_LAUNCHES = 0
-SH_BWD_LAUNCHES = 0
+SH_VAG_LAUNCHES = 0
 
 #: Shared memory a block uses without opting in; above it the kernel opts
 #: in, up to ``ag.SMEM_LIMIT`` (227 KB).
 SMEM_DEFAULT = 48 * 1024
 _WARPS = 8                  # kWarps in csrc/fe_kernel.cu (256 threads)
-#: Staged rows of D values a block holds, per kernel, at bn rows (or
-#: intervals) a block: x rows plus the backward's wr and v rows.
+#: Staged rows of D values a one-step block holds at bn rows a block: x
+#: rows plus the backward's wr and v rows.
 _SMEM_ROWS = {"onestep_fwd": lambda bn: bn + 1,
-              "onestep_bwd": lambda bn: 3 * bn + 3,
-              "sh_fwd": lambda bn: 2 * bn + 1,
-              "sh_bwd": lambda bn: 5 * bn + 1}
-#: Model-grid rows whose stimulus a block stages (NaKL).
+              "onestep_bwd": lambda bn: 3 * bn + 3}
+#: Model-grid rows whose stimulus a one-step block stages (NaKL).
 _STIM_ROWS = {"onestep_fwd": lambda bn: bn + 1,
-              "onestep_bwd": lambda bn: bn + 2,
-              "sh_fwd": lambda bn: 2 * bn + 1,
-              "sh_bwd": lambda bn: 2 * bn + 1}
+              "onestep_bwd": lambda bn: bn + 2}
+
+#: The Hermite–Simpson grid (:func:`rows_per_block`, :func:`sh_threads`):
+#: blocks an SM the rule aims at, the card's SM count where no card is
+#: asked (an H100's), and per model the most threads a block runs (at
+#: most the kernel's launch bound, ``kMaxThreads`` in csrc/fe_kernel.cu,
+#: which refuses more), whether a thread owns an interval (row-level,
+#: ``kRow``) and the parameter row a block stages (``kNPX``: NaKL's 19
+#: values, 1/Cm and three 1/dva; the envelope's shared memory).
+SH_BLOCKS_PER_SM = 2
+DEFAULT_SMS = 132
+_SH_MAX_THREADS = {"l96": 1024, "nakl": 256}
+_SH_ROW = {"l96": False, "nakl": True}
+_SH_NPX = {"l96": 1, "nakl": 23}
+#: Lorenz-96's (interval, component) pairs a block takes at most, where D
+#: allows more than one interval.
+_SH_PAIRS = 256
 
 
 # ---------------------------------------------------------------------------
@@ -156,33 +180,80 @@ def reference_ag_supported(spec: ProblemSpec, rf,
             and _pad_to(spec.N_f, 8) * _pad_to(spec.D, 128) <= 2 ** 21)
 
 
+def sh_threads(model: str, bk: int, D: int) -> int:
+    """Threads a Hermite–Simpson block of ``bk`` intervals runs (the
+    launch takes it; the kernels stride by it): one interval a thread for
+    a row-level model, one (interval, component) pair for Lorenz-96, in
+    whole warps, at most the model's ``kMaxThreads``."""
+    want = bk if _SH_ROW[model] else bk * D
+    return min(_pad_to(want, 32), _SH_MAX_THREADS[model])
+
+
 def _smem_bytes(kernel: str, bn: int, D: int, dtype, model="l96") -> int:
-    """Bytes of shared memory a block of ``kernel`` takes (``extra_vals``
-    in csrc/fe_kernel.cu): its staged rows, the reduction's slots per
-    parameter partial and, for NaKL, the parameter row and the stimulus
-    rows."""
+    """Bytes of shared memory a block of ``kernel`` takes at ``bn`` rows
+    (intervals under Hermite–Simpson) a block, as the launch in
+    csrc/fe_kernel.cu sizes it (``extra_vals``, ``sh_smem_vals``), for
+    the envelope (:func:`fe_refusal`). One-step: the staged rows, the
+    reduction's slots per parameter partial and, for NaKL, the parameter
+    row and the stimulus rows. Hermite–Simpson: the staged rows, kNP + 1
+    slots a warp of :func:`sh_threads`, and a row model's extended
+    parameter row and stimulus, or Lorenz-96's S, H, v0, vm and v1 in the
+    fused launch."""
     NP = _MODEL_NP[model]
-    extra = _WARPS * NP
-    if model == "nakl":
-        extra += NP + _STIM_ROWS[kernel](bn)
-    return ((_SMEM_ROWS[kernel](bn) * D + extra)
-            * (torch.finfo(dtype).bits // 8))
+    if kernel in ("sh_fwd", "sh_vag"):
+        nw = sh_threads(model, bn, D) // 32
+        vals = (2 * bn + 1) * D + nw * (NP + 1)
+        if _SH_ROW[model]:
+            vals += _SH_NPX[model] + 2 * bn + 1
+        elif kernel == "sh_vag":
+            vals += 5 * bn * D
+    else:
+        extra = _WARPS * NP
+        if model == "nakl":
+            extra += NP + _STIM_ROWS[kernel](bn)
+        vals = _SMEM_ROWS[kernel](bn) * D + extra
+    return vals * (torch.finfo(dtype).bits // 8)
 
 
 def _kernels_of(disc):
     if disc == "SimpsonHermite":
-        return ("sh_fwd", "sh_bwd")
+        return ("sh_fwd", "sh_vag")
     return ("onestep_fwd", "onestep_bwd")
 
 
 def rows_per_block(kernel: str, n_rows: int, D: int, dtype,
-                   block_n: int, model="l96") -> int:
-    """Rows (intervals under Hermite–Simpson) a block of ``kernel`` takes:
-    ``block_n``, cut to the rows there are (rounded up to 8, at least 8,
-    as the reference's ``block_n``), then cut by 8 at a time, not below 8,
-    until the staged rows fit in :data:`SMEM_DEFAULT`; where even 8 rows
-    do not, the kernel opts in to more (up to ``ag.SMEM_LIMIT``,
-    :func:`fe_kernel_supported`)."""
+                   block_n: int, model="l96", B: int = 1,
+                   n_sm: int = DEFAULT_SMS) -> int:
+    """Rows (intervals under Hermite–Simpson) a block of ``kernel`` takes.
+
+    One-step kernels: ``block_n``, cut to the rows there are (rounded up
+    to 8, at least 8, as the reference's ``block_n``), then cut by 8 at a
+    time, not below 8, until the staged rows fit in :data:`SMEM_DEFAULT`;
+    where even 8 rows do not, the kernel opts in to more (up to
+    ``ag.SMEM_LIMIT``, :func:`fe_kernel_supported`).
+
+    Hermite–Simpson (``sh_fwd`` and the fused ``sh_vag``: one rule for
+    both, so their partials share the blocks), from the
+    batch's B·M intervals and the card's ``n_sm``: ``want`` =
+    ceil(B·M / (:data:`SH_BLOCKS_PER_SM` · n_sm)) intervals a block, so
+    that even one member covers the SMs. A row-level model (NaKL) rounds
+    ``want`` up to whole warps, between 32 and its 256 threads; Lorenz-96
+    takes ``want`` but at most 256 // D intervals (256 pairs a block, one
+    interval from D = 129 on). Either way at most ``block_n`` and M. So a
+    thread takes one interval (NaKL) or one (interval, component) pair
+    (Lorenz-96 up to D = 1,024; :func:`sh_threads`), and the staged rows
+    of Lorenz-96's one-interval block (8 rows of D in the backward) bound
+    its D (:func:`fe_kernel_supported`). The partition depends on B: a
+    member's value and parameter partials are summed in another order at
+    another batch size (its gradient rows are not sums and do not move).
+    """
+    if kernel in ("sh_fwd", "sh_vag"):
+        want = -(-int(B) * n_rows // (SH_BLOCKS_PER_SM * int(n_sm)))
+        if _SH_ROW[model]:
+            bk = min(_SH_MAX_THREADS[model], max(32, _pad_to(want, 32)))
+        else:
+            bk = max(1, min(want, _SH_PAIRS // D))
+        return max(1, min(bk, int(block_n), n_rows))
     bn = max(1, min(int(block_n), max(8, _pad_to(n_rows, 8))))
     while bn > 8 and _smem_bytes(kernel, bn, D, dtype,
                                  model) > SMEM_DEFAULT:
@@ -251,8 +322,12 @@ def fe_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
         return f"dtype {dtype}"
     if not _uniform_grid(spec):
         return "a non-uniform time grid"
-    if not all(_smem_bytes(k, 8, spec.D, dtype, model) <= ag.SMEM_LIMIT
-               for k in _kernels_of(spec.disc)):
+    if spec.disc == "SimpsonHermite":
+        if _smem_bytes("sh_vag", 1, spec.D, dtype, model) > ag.SMEM_LIMIT:
+            return (f"D = {spec.D}: one interval a block exceeds one "
+                    "block's shared memory")
+    elif not all(_smem_bytes(k, 8, spec.D, dtype, model) <= ag.SMEM_LIMIT
+                 for k in _kernels_of(spec.disc)):
         return (f"D = {spec.D}: 8 rows a block exceed one block's shared "
                 "memory")
     return None
@@ -269,11 +344,12 @@ def fe_kernel_supported(spec: ProblemSpec, rf=0.0,
       (N_f, S) ``stim_f``);
 
     and for both: constant parameters, any of the four discs, scalar or
-    (N_f-1, D) rf, a uniform grid, float32 or float64, and 8 rows a block
-    of every kernel of the disc within one block's shared memory
-    (``ag.SMEM_LIMIT``): for Lorenz-96 D up to 708 in float64 and 1,417
-    in float32 under Hermite–Simpson (its backward stages 41 rows), 1,075
-    and 2,152 for the one-step discs (27 rows)."""
+    (N_f-1, D) rf, a uniform grid, float32 or float64, and the smallest
+    block of every kernel of the disc within one block's shared memory
+    (``ag.SMEM_LIMIT``): for Lorenz-96 under Hermite–Simpson one interval
+    a block (its fused launch keeps 8 rows of D), D up to 3,624 in float64
+    and 7,256 in float32; for the one-step discs 8 rows a block (27 rows
+    in the backward), D up to 1,075 and 2,152."""
     return fe_refusal(spec, rf, dtype) is None
 
 
@@ -365,13 +441,16 @@ def select_action(spec: ProblemSpec, rf, engine: str = "auto",
 @dataclasses.dataclass(frozen=True)
 class FeConsts:
     """K6's constants for one problem, dtype and device. ``bn_fwd`` and
-    ``bn_bwd`` are rows a block (intervals under Hermite–Simpson).
-    ``P_base`` holds the full parameter vector on the estimation scale
-    (log coordinates logged). The tensors, made once on ``device`` by
-    :func:`fe_consts`: ``P_lin`` the (NP,) parameters on the linear scale
-    (log coordinates exponentiated), ``stim`` the (N_f,) injected current
-    or None, ``pidx_t`` the estimated indices, ``log_mask`` (NP,) and
-    ``pest_log`` (NPest,) the log coordinates (None without any)."""
+    ``bn_bwd`` are a one-step disc's rows a block (0 under
+    Hermite–Simpson, whose intervals a block follow the batch size:
+    :meth:`rows`); ``block_n`` caps them, ``n_sm`` is the card's SM count
+    (:data:`DEFAULT_SMS` off the card). ``P_base`` holds the full
+    parameter vector on the estimation scale (log coordinates logged).
+    The tensors, made once on ``device`` by :func:`fe_consts`: ``P_lin``
+    the (NP,) parameters on the linear scale (log coordinates
+    exponentiated), ``stim`` the (N_f,) injected current or None,
+    ``pidx_t`` the estimated indices, ``log_mask`` (NP,) and ``pest_log``
+    (NPest,) the log coordinates (None without any)."""
     disc: str
     N_f: int
     D: int
@@ -384,6 +463,8 @@ class FeConsts:
     norm: float             # D · (N_f - 1)
     bn_fwd: int
     bn_bwd: int
+    block_n: int
+    n_sm: int
     dtype: torch.dtype
     device: torch.device
     P_lin: torch.Tensor = dataclasses.field(compare=False, repr=False)
@@ -410,15 +491,25 @@ class FeConsts:
         kernels then read ``pest`` with no merge."""
         return self.pidx == tuple(range(self.NP)) and not self.log_idx
 
-    @property
-    def n_fwd_blocks(self) -> int:
-        rows = self.M if self.sh else self.N_f - 1
-        return -(-rows // self.bn_fwd)
+    def rows(self, kind: str, B: int = 1) -> int:
+        """Rows a block of the disc's forward (``kind='fwd'``) or backward
+        (``'bwd'``) at batch size B: ``bn_fwd``/``bn_bwd`` for a one-step
+        disc; under Hermite–Simpson the intervals a block of
+        :func:`rows_per_block`'s rule, one for the forward and the fused
+        launch."""
+        if self.sh:
+            return rows_per_block("sh_vag", self.M, self.D, self.dtype,
+                                  self.block_n, self.model, B, self.n_sm)
+        return self.bn_fwd if kind == "fwd" else self.bn_bwd
 
-    @property
-    def n_bwd_blocks(self) -> int:
-        rows = self.M if self.sh else self.N_f
-        return -(-rows // self.bn_bwd)
+    def n_blocks(self, kind: str, B: int = 1) -> int:
+        """Blocks a member of the disc's forward or backward launch at
+        batch size B: its partials' last axis."""
+        if self.sh:
+            rows = self.M
+        else:
+            rows = self.N_f - 1 if kind == "fwd" else self.N_f
+        return -(-rows // self.rows(kind, B))
 
     def coeffs(self):
         """The disc's constants as the reference forms them, each a Python
@@ -449,7 +540,8 @@ def fe_consts(spec: ProblemSpec, dtype, device, block_n: int = 512
     device = resolve_device(device)
     sh = spec.disc == "SimpsonHermite"
     M = (spec.N_f - 1) // 2 if sh else 0
-    fwd, bwd = _kernels_of(spec.disc)
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else DEFAULT_SMS)
     P_base = tuple(float(v) for v in np.asarray(spec.P_base))
     pidx, log_idx = tuple(spec.pidx), tuple(log_idx)
 
@@ -468,11 +560,12 @@ def fe_consts(spec: ProblemSpec, dtype, device, block_n: int = 512
         disc=spec.disc, N_f=spec.N_f, D=spec.D, M=M, model=model,
         pidx=pidx, log_idx=log_idx, P_base=P_base, h=float(spec.dt),
         norm=spec.D * (spec.N_f - 1),
-        bn_fwd=rows_per_block(fwd, M if sh else spec.N_f - 1, spec.D,
-                              dtype, block_n, model),
-        bn_bwd=rows_per_block(bwd, M if sh else spec.N_f, spec.D, dtype,
-                              block_n, model),
-        dtype=dtype, device=device, P_lin=P_lin,
+        bn_fwd=0 if sh else rows_per_block("onestep_fwd", spec.N_f - 1,
+                                           spec.D, dtype, block_n, model),
+        bn_bwd=0 if sh else rows_per_block("onestep_bwd", spec.N_f, spec.D,
+                                           dtype, block_n, model),
+        block_n=int(block_n), n_sm=int(n_sm), dtype=dtype, device=device,
+        P_lin=P_lin,
         stim=(None if spec.stim_f is None else on_dev(
             np.asarray(spec.stim_f, np.float64)[:, 0])),
         pidx_t=on_dev(np.asarray(pidx, np.int64), torch.long),
@@ -607,7 +700,7 @@ def _onestep_residuals(X, P, c: FeConsts):
 
 def onestep_fwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_onestep_fwd: X (B, N_f, D), pest (B, NPest), rf
-    a float or an (N_f-1, D) tensor -> partials (B, n_fwd_blocks)."""
+    a float or an (N_f-1, D) tensor -> partials (B, c.n_blocks('fwd'))."""
     r = _onestep_residuals(X, full_params(pest, c), c)
     if isinstance(rf, torch.Tensor):
         return _block_sums(rf * r * r, c.bn_fwd)
@@ -619,7 +712,8 @@ def onestep_bwd_reference(X, pest, rf, c: FeConsts):
     gx_m = wr_{m-1} - a1 wr_m - J(x_m)ᵀ v_m (B, N_f, D), with wr the
     weighted residuals (zero before the first row and after the last) and
     v_m = c0 wr_{m-1} + c1 wr_m, and the parameters' partials
-    -Σ_m F_p(x_m)ᵀ v_m per block of bn_bwd rows (B, NP, n_bwd_blocks)."""
+    -Σ_m F_p(x_m)ᵀ v_m per block of bn_bwd rows (B, NP,
+    c.n_blocks('bwd'))."""
     dt = X.dtype
     _, a1, c0, c1 = (_scalar(v, dt) for v in c.coeffs())
     P = full_params(pest, c)
@@ -655,20 +749,23 @@ def _sh_parts(X, P, rf, c: FeConsts):
 
 def sh_fwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_sh_fwd: partials Σ ws S² + wh H² per block of
-    bn_fwd intervals (B, n_fwd_blocks)."""
+    ``c.rows('fwd', B)`` intervals (B, ``c.n_blocks('fwd', B)``)."""
     _, S, H, ws, wh = _sh_parts(X, full_params(pest, c), rf, c)
-    return _block_sums(ws * S * S + wh * H * H, c.bn_fwd)
+    return _block_sums(ws * S * S + wh * H * H, c.rows("fwd", X.shape[0]))
 
 
-def sh_bwd_reference(X, pest, rf, c: FeConsts):
-    """Plain version of fe_sh_bwd: the unscaled triplet (g_e0, g_m, g_e1),
-    each (B, M, D), and the parameters' partials
-    Σ (F_p0ᵀ v0 + F_pmᵀ vm + F_p1ᵀ v1) per block of bn_bwd intervals
-    (B, NP, n_bwd_blocks)."""
+def sh_vag_reference(X, pest, rf, c: FeConsts):
+    """Plain version of the fused fe_sh_vag, ``(partials, g_e0, g_m, g_e1,
+    gp)``: fe_sh_fwd's partials (B, ``c.n_blocks('bwd', B)``), the
+    unscaled triplet, each (B, M, D), and the parameters' partials
+    Σ (F_p0ᵀ v0 + F_pmᵀ vm + F_p1ᵀ v1) (B, NP, blocks), on blocks of
+    ``c.rows('bwd', B)`` intervals."""
     dt = X.dtype
+    bk = c.rows("bwd", X.shape[0])
     h6, h8, h46 = (_scalar(v, dt) for v in c.coeffs())
     P = full_params(pest, c)
     (xe0, xm, xe1), S, H, ws, wh = _sh_parts(X, P, rf, c)
+    parts = _block_sums(ws * S * S + wh * H * H, bk)
     WS, WH = ws * S, wh * H
     v0 = -h6 * WS - h8 * WH
     vm = -h46 * WS
@@ -677,14 +774,13 @@ def sh_bwd_reference(X, pest, rf, c: FeConsts):
         ge0 = -WS - 0.5 * WH + _l96_jtv(xe0, v0)
         gm = WH + _l96_jtv(xm, vm)
         ge1 = WS - 0.5 * WH + _l96_jtv(xe1, v1)
-        return (ge0, gm, ge1,
-                _block_sums(v0 + vm + v1, c.bn_bwd)[:, None, :])
+        return parts, ge0, gm, ge1, _block_sums(v0 + vm + v1, bk)[:, None, :]
     M = c.M
     j0, p0 = _nakl_vjp(xe0, P, v0, c, slice(0, 2 * M, 2))
     jm, pm = _nakl_vjp(xm, P, vm, c, slice(1, 2 * M, 2))
     j1, p1 = _nakl_vjp(xe1, P, v1, c, slice(2, 2 * M + 1, 2))
-    return (-WS - 0.5 * WH + j0, WH + jm, WS - 0.5 * WH + j1,
-            _block_param_sums(p0 + pm + p1, c.bn_bwd))
+    return (parts, -WS - 0.5 * WH + j0, WH + jm, WS - 0.5 * WH + j1,
+            _block_param_sums(p0 + pm + p1, bk))
 
 
 def sh_join(ge0, gm, ge1, c: FeConsts):
@@ -718,11 +814,11 @@ def _lib():
             fn.argtypes = [I, I, I] + common + [Dbl, Dbl, Dbl, Dbl, I, P, P,
                                                 P]
             fn = getattr(lib, f"va_fe_sh_fwd_{t}")
-            fn.argtypes = [I, I] + common + [Dbl, Dbl, I, P, P]
-            fn = getattr(lib, f"va_fe_sh_bwd_{t}")
-            fn.argtypes = [I, I] + common + [Dbl, Dbl, Dbl, I, P, P, P, P,
-                                             P]
-            for k in ("onestep_fwd", "onestep_bwd", "sh_fwd", "sh_bwd"):
+            fn.argtypes = [I, I] + common + [Dbl, Dbl, I, I, P, P]
+            fn = getattr(lib, f"va_fe_sh_vag_{t}")
+            fn.argtypes = [I, I] + common + [Dbl, Dbl, Dbl, I, I, P, P, P, P,
+                                             P, P]
+            for k in ("onestep_fwd", "onestep_bwd", "sh_fwd", "sh_vag"):
                 getattr(lib, f"va_fe_{k}_{t}").restype = I
         lib.va_fe_error_string.restype = ctypes.c_char_p
         lib.va_fe_error_string.argtypes = [I]
@@ -789,13 +885,13 @@ def _check_disc(c: FeConsts, want_sh: bool, name: str):
 def onestep_fwd_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_onestep_fwd (K6a) on X (B, N_f, D), a CUDA tensor of c's
     dtype whose rows are contiguous, and pest (B, NPest); returns the
-    partials (B, n_fwd_blocks) on PyTorch's current stream, without
+    partials (B, c.n_blocks('fwd')) on PyTorch's current stream, without
     synchronizing. Raises on anything the kernel does not take and on a
     refused launch."""
     global FWD_LAUNCHES
     _check_disc(c, False, "fe_onestep_fwd")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
-    out = torch.empty(B, c.n_fwd_blocks, dtype=c.dtype, device=X.device)
+    out = torch.empty(B, c.n_blocks("fwd"), dtype=c.dtype, device=X.device)
     if B == 0:
         return out
     _call(X, _fn("onestep_fwd", c), "fe_onestep_fwd", _MODEL_CODE[c.model],
@@ -807,13 +903,13 @@ def onestep_fwd_kernel(X, pest, rf, c: FeConsts):
 
 def onestep_bwd_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_onestep_bwd (K6b): returns (gx (B, N_f, D), the
-    parameters' partials (B, NP, n_bwd_blocks)), unscaled, as
+    parameters' partials (B, NP, c.n_blocks('bwd'))), unscaled, as
     :func:`onestep_bwd_reference`."""
     global BWD_LAUNCHES
     _check_disc(c, False, "fe_onestep_bwd")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
     gx = torch.empty(B, c.N_f, c.D, dtype=c.dtype, device=X.device)
-    gp = torch.empty(B, c.NP, c.n_bwd_blocks, dtype=c.dtype,
+    gp = torch.empty(B, c.NP, c.n_blocks("bwd"), dtype=c.dtype,
                      device=X.device)
     if B == 0:
         return gx, gp
@@ -826,71 +922,104 @@ def onestep_bwd_kernel(X, pest, rf, c: FeConsts):
 
 def sh_fwd_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_sh_fwd (K6c, K6d for B > 1): returns the partials (B,
-    n_fwd_blocks)."""
+    c.n_blocks('fwd', B))."""
     global SH_FWD_LAUNCHES
     _check_disc(c, True, "fe_sh_fwd")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
-    out = torch.empty(B, c.n_fwd_blocks, dtype=c.dtype, device=X.device)
+    out = torch.empty(B, c.n_blocks("fwd", B), dtype=c.dtype,
+                      device=X.device)
     if B == 0:
         return out
     h6, h8, _ = c.coeffs()
+    bk = c.rows("fwd", B)
     _call(X, _fn("sh_fwd", c), "fe_sh_fwd", _MODEL_CODE[c.model], diag,
-          *common, h6, h8, c.bn_fwd, out.data_ptr())
+          *common, h6, h8, bk, sh_threads(c.model, bk, c.D), out.data_ptr())
     SH_FWD_LAUNCHES += 1
     return out
 
 
-def sh_bwd_kernel(X, pest, rf, c: FeConsts):
-    """Launch fe_sh_bwd (K6c, K6d for B > 1): returns the unscaled triplet
-    (g_e0, g_m, g_e1), each (B, M, D), and the parameters' partials (B,
-    NP, n_bwd_blocks), as :func:`sh_bwd_reference`."""
-    global SH_BWD_LAUNCHES
-    _check_disc(c, True, "fe_sh_bwd")
+def sh_vag_kernel(X, pest, rf, c: FeConsts):
+    """Launch fe_sh_vag (K6c, K6d for B > 1), the Hermite–Simpson value
+    and gradient in one launch: returns ``(partials, g_e0, g_m, g_e1,
+    gp)``, fe_sh_fwd's partials (B, c.n_blocks('bwd', B)), the unscaled
+    triplet, each (B, M, D), and the parameters' partials (B, NP,
+    blocks), as :func:`sh_vag_reference`."""
+    global SH_VAG_LAUNCHES
+    _check_disc(c, True, "fe_sh_vag")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
-    trip = [torch.empty(B, c.M, c.D, dtype=c.dtype, device=X.device)
+    nb = c.n_blocks("bwd", B)
+    out = [torch.empty(B, nb, dtype=c.dtype, device=X.device)]
+    out += [torch.empty(B, c.M, c.D, dtype=c.dtype, device=X.device)
             for _ in range(3)]
-    gp = torch.empty(B, c.NP, c.n_bwd_blocks, dtype=c.dtype,
-                     device=X.device)
+    out.append(torch.empty(B, c.NP, nb, dtype=c.dtype, device=X.device))
     if B == 0:
-        return (*trip, gp)
-    _call(X, _fn("sh_bwd", c), "fe_sh_bwd", _MODEL_CODE[c.model], diag,
-          *common, *c.coeffs(), c.bn_bwd, *(t.data_ptr() for t in trip),
-          gp.data_ptr())
-    SH_BWD_LAUNCHES += 1
-    return (*trip, gp)
+        return tuple(out)
+    bk = c.rows("bwd", B)
+    _call(X, _fn("sh_vag", c), "fe_sh_vag", _MODEL_CODE[c.model], diag,
+          *common, *c.coeffs(), bk, sh_threads(c.model, bk, c.D),
+          *(t.data_ptr() for t in out[1:] + out[:1]))
+    SH_VAG_LAUNCHES += 1
+    return tuple(out)
+
+
+def _on_cpu(X, c: FeConsts) -> bool:
+    if X.device.type != "cpu":
+        return False
+    if X.device != c.device:
+        raise ValueError(f"X is on {X.device}; the constants are on "
+                         f"{c.device}")
+    return True
 
 
 def fe_partials(X, pest, rf, c: FeConsts):
-    """The forward's per-block partials (B, n_fwd_blocks): the plain
-    version for a CPU tensor, the kernel for a CUDA tensor."""
-    if X.device.type == "cpu":
-        if X.device != c.device:
-            raise ValueError(f"X is on {X.device}; the constants are on "
-                             f"{c.device}")
+    """The forward's per-block partials (B, c.n_blocks('fwd', B)): the
+    plain version for a CPU tensor, the kernel for a CUDA tensor."""
+    if _on_cpu(X, c):
         return (sh_fwd_reference if c.sh else onestep_fwd_reference)(
             X, pest, rf, c)
     return (sh_fwd_kernel if c.sh else onestep_fwd_kernel)(X, pest, rf, c)
+
+
+def _joined(out, pest, c: FeConsts):
+    """(gradient rows, full parameter gradient) from a backward's outputs
+    (the triplet joined by node under Hermite–Simpson)."""
+    P = full_params(pest, c) if c.log_idx else None
+    gp = param_grad(out[-1], P, c)
+    if c.sh:
+        return sh_join(*out[:3], c), gp
+    return out[0], gp
 
 
 def fe_adjoint(X, pest, rf, c: FeConsts):
     """The backward's unscaled gradient rows (B, N_f, D) and the gradient
     over the full estimation-scale parameter vector (B, NP)
     (:func:`param_grad`): the plain version for a CPU tensor, the kernel
-    for a CUDA tensor; under Hermite–Simpson the triplet joined by
-    node."""
-    if X.device.type == "cpu":
-        if X.device != c.device:
-            raise ValueError(f"X is on {X.device}; the constants are on "
-                             f"{c.device}")
-        fn = sh_bwd_reference if c.sh else onestep_bwd_reference
-    else:
-        fn = sh_bwd_kernel if c.sh else onestep_bwd_kernel
-    out = fn(X, pest, rf, c)
-    P = full_params(pest, c) if c.log_idx else None
-    gp = param_grad(out[-1], P, c)
+    for a CUDA tensor; under Hermite–Simpson the fused launch, its value
+    partials unread, and the triplet joined by node."""
     if c.sh:
-        return sh_join(*out[:3], c), gp
-    return out[0], gp
+        fn = sh_vag_reference if _on_cpu(X, c) else sh_vag_kernel
+        return _joined(fn(X, pest, rf, c)[1:], pest, c)
+    fn = onestep_bwd_reference if _on_cpu(X, c) else onestep_bwd_kernel
+    return _joined(fn(X, pest, rf, c), pest, c)
+
+
+def fe_value_and_grad(X, pest, rf, c: FeConsts):
+    """FE per member (B,) and its gradients over X (B, N_f, D) and over
+    pest (B, NPest), scaled as :class:`_FE` scales them (2/norm; a log
+    coordinate through :func:`param_grad`): under Hermite–Simpson one
+    fused launch (fe_sh_vag), for a one-step disc the forward and the
+    backward launch; the plain versions for a CPU tensor."""
+    if c.sh:
+        fn = sh_vag_reference if _on_cpu(X, c) else sh_vag_kernel
+        parts, *out = fn(X, pest, rf, c)
+        g_rows, gp = _joined(out, pest, c)
+    else:
+        parts = fe_partials(X, pest, rf, c)
+        g_rows, gp = fe_adjoint(X, pest, rf, c)
+    scale = 2.0 / c.norm
+    gpest = (scale * pest_grad(gp, c) if c.pidx
+             else torch.zeros_like(pest))
+    return parts.sum(dim=1) / c.norm, scale * g_rows, gpest
 
 
 # ---------------------------------------------------------------------------
@@ -908,9 +1037,10 @@ def _rf_value(rf):
 class _FE(torch.autograd.Function):
     """FE per member: the forward is one launch (the partials summed and
     divided by norm, as the reference's ``jnp.sum(partials) / norm``); the
-    backward one launch, scaled by 2·g/norm. rf's gradient follows the
-    reference's rule: FE/rf for a scalar rf, through the plain model error
-    for an (N_f-1, D) rf, only when rf requires it. ``plain(X, pest, rf)``
+    backward one launch (:func:`fe_adjoint`), scaled by 2·g/norm. rf's
+    gradient follows the reference's rule: FE/rf for a scalar rf, through
+    the plain model error for an (N_f-1, D) rf, only when rf requires
+    it. ``plain(X, pest, rf)``
     is the plain model error (``ops.action.model_error``), which
     ``pallas_backward=False`` differentiates with autograd instead."""
 
@@ -960,9 +1090,12 @@ def make_fe_pallas(spec: ProblemSpec, block_n: int = 512,
     """``fe(X, pest, rf) -> FE`` through K6, batched over the leading dims
     of ``X`` (..., N_f, D) and ``pest`` (..., NPest); ``rf`` a Python
     float, a 0-d tensor or an (N_f-1, D) tensor shared by the batch.
-    Differentiable by autograd (see :class:`_FE`). ``block_n``: the most
-    rows a block (:func:`rows_per_block`). ``device=None`` means the CUDA
-    card. Raises ValueError outside :func:`fe_kernel_supported`."""
+    Differentiable by autograd (see :class:`_FE`). ``fe.value_and_grad(X,
+    pest, rf)`` returns (FE, dFE/dX, dFE/dpest), one member's gradient a
+    leading index, without autograd's graph (:func:`fe_value_and_grad`:
+    one launch under Hermite–Simpson; rf gets no gradient). ``block_n``:
+    the most rows a block (:func:`rows_per_block`). ``device=None`` means
+    the CUDA card. Raises ValueError outside :func:`fe_kernel_supported`."""
     device = resolve_device(device)
     if not fe_kernel_supported(spec, 0.0, torch.float32):
         raise ValueError("problem outside K6's envelope (see "
@@ -980,7 +1113,7 @@ def make_fe_pallas(spec: ProblemSpec, block_n: int = 512,
         return _action.model_error(sp, X, _action.merge_params(sp, pest),
                                    rf)
 
-    def fe(X, pest, rf):
+    def prep(X, pest, rf):
         c = c_of(X.dtype)
         lead = tuple(X.shape[:-2])
         X3 = X.reshape((-1, c.N_f, c.D))
@@ -993,9 +1126,21 @@ def make_fe_pallas(spec: ProblemSpec, block_n: int = 512,
                 raise ValueError("rf must be a scalar or (N_f-1, D)")
             elif not rf.requires_grad:
                 rf = float(rf)
+        return c, lead, X3, pest2, rf
+
+    def fe(X, pest, rf):
+        c, lead, X3, pest2, rf = prep(X, pest, rf)
         out = _FE.apply(X3, pest2, rf, c, pallas_backward, plain)
         return out.reshape(lead)
 
+    def value_and_grad(X, pest, rf):
+        c, lead, X3, pest2, rf = prep(X, pest, rf)
+        v, gx, gp = fe_value_and_grad(X3.detach(), pest2.detach(),
+                                      _rf_value(rf), c)
+        return (v.reshape(lead), gx.reshape(lead + (c.N_f, c.D)),
+                gp.reshape(lead + (spec.NPest,)))
+
+    fe.value_and_grad = value_and_grad
     return fe
 
 
@@ -1004,29 +1149,51 @@ def make_action_pallas(spec: ProblemSpec, block_n: int = 512,
     """``(action, action_parts)`` with K6's FE and ME in plain PyTorch (the
     reference keeps ME in XLA: a cheap strided gather), the contract of
     ``ops.action.make_action``, ``action.engine = 'pallas'``. The records
-    (``action_parts``) evaluate K6's forward too. ``device=None`` means
-    the CUDA card. Raises ValueError outside :func:`fe_kernel_supported`
+    (``action_parts``) evaluate K6's forward too.
+
+    With ``pallas_backward`` the action carries
+    ``action.value_and_grad(XP, rf) -> (A, dA/dXP)``, which
+    ``ops.action.value_and_grad`` (and so every ladder and solver loop)
+    takes instead of autograd: ME's gradient in closed form
+    (``ops.action.measurement_error_and_grad``), FE's from one fused
+    launch under Hermite–Simpson or from K6's forward and backward for a
+    one-step disc, with no graph. ``action`` itself stays differentiable
+    by autograd (:class:`_FE`). ``device=None`` means the CUDA card.
+    Raises ValueError outside :func:`fe_kernel_supported`
     (:func:`select_action` raises first, naming what waits)."""
     device = resolve_device(device)
     fe = make_fe_pallas(spec, block_n=block_n,
                         pallas_backward=pallas_backward, device=device)
     specs = {}
 
-    def action_parts(XP, rf):
+    def split(XP):
         if XP.device != device:
             raise ValueError(f"XP is on {XP.device}, the action on {device}")
         if XP.dtype not in specs:
             specs[XP.dtype] = _action.device_spec(spec, device, XP.dtype)
-        sp = specs[XP.dtype]
         lead = tuple(XP.shape[:-1])
         X = XP[..., : spec.n_state].reshape(lead + (spec.N_f, spec.D))
+        return specs[XP.dtype], lead, X, XP[..., spec.n_state:]
+
+    def action_parts(XP, rf):
+        sp, _, X, pest = split(XP)
         me = _action.measurement_error(sp, X)
-        fe_v = fe(X, XP[..., spec.n_state:],
-                  _action.rf_arg(rf, XP.dtype, device))
+        fe_v = fe(X, pest, _action.rf_arg(rf, XP.dtype, device))
         return me + fe_v, me, fe_v
 
     def action(XP, rf):
         return action_parts(XP, rf)[0]
 
+    def value_and_grad(XP, rf):
+        sp, lead, X, pest = split(XP.detach())
+        me, g_me = _action.measurement_error_and_grad(sp, X)
+        fe_v, g_x, g_p = fe.value_and_grad(
+            X, pest, _action.rf_arg(rf, XP.dtype, device))
+        g = torch.cat([(g_me + g_x).reshape(lead + (spec.n_state,)), g_p],
+                      dim=-1)
+        return me + fe_v, g
+
+    if pallas_backward:
+        action.value_and_grad = value_and_grad
     action.engine = "pallas"
     return action, action_parts

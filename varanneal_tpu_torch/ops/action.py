@@ -171,6 +171,27 @@ def measurement_error(spec: ProblemSpec, X, compensated=False):
     return _quad(spec.RM, diff, compensated) / (spec.L * spec.N_data)
 
 
+def measurement_error_and_grad(spec: ProblemSpec, X):
+    """(ME, dME/dX) in closed form, with no graph: ME as
+    :func:`measurement_error` gives it, and its gradient (..., N_f, D),
+    zero off the observed entries, 2·RM ⊙ (x_obs - Y) / (L·N_data) for a
+    scalar or (N_data, L) RM, (R + Rᵀ)(x_obs - Y) / (L·N_data) for an
+    (N_data, L, L) one."""
+    rows = slice(0, spec.obs_stride * spec.N_data, spec.obs_stride)
+    cols = list(spec.Lidx)
+    diff = X[..., rows, :][..., : spec.N_data, :][..., cols] - spec.Y
+    norm = spec.L * spec.N_data
+    R = spec.RM
+    if isinstance(R, torch.Tensor) and R.ndim == 3:
+        g_obs = torch.einsum("nkl,...nl->...nk", R + R.transpose(-1, -2),
+                             diff)
+    else:
+        g_obs = 2.0 * R * diff
+    g = torch.zeros_like(X)
+    g[..., rows, :][..., : spec.N_data, :][..., cols] = g_obs / norm
+    return measurement_error(spec, X), g
+
+
 def model_error(spec: ProblemSpec, X, P, rf, compensated=False):
     """FE = (1/(D*(N_f-1))) * quad(rf, residual rows)."""
     res = model_residuals(spec, X, P)
