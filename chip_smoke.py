@@ -22,32 +22,38 @@ timed on its own line:
    relative; then 1000 launches each of the kernel, the plain version and
    the autograd action's value+grad, timed with CUDA events, and the
    kernel at D=400;
-4. an f64 10-rung ladder (B=2, from near the twin's truth, rf0 = RM,
-   every rung solved to pgtol 1e-8) through the kernel and through the
-   plain version: the action at every mutually converged rung must agree
-   to 1e-8 relative;
+4. an f64 5-rung ladder (F64_RUNGS; B=2, from near the twin's truth,
+   rf0 = RM, every rung solved to pgtol 1e-8) through the kernel and
+   through the plain version: the action at every mutually converged
+   rung must agree to 1e-8 relative;
 5. the main path, as bench.py runs BASELINE config #1 with
-   BENCH_SOLVER=xla BENCH_ENGINE=ag BENCH_DIRECTION=compact: 101 f32
-   rungs (α=1.5, rf0=4e-6·RM, m=5, maxiter 500, maxls 20, pgtol 1e-4,
-   ftol 1e-6) over 4 members from random_ensemble_inits(seed=3), then the
-   20-rung f64 tail through K1 in f64 (maxiter 2000, pgtol 1e-8, ftol
-   2.22e-9). The kernel's launch count is zeroed just before and read
+   BENCH_SOLVER=xla BENCH_ENGINE=ag: 101 f32 rungs (α=1.5, rf0=4e-6·RM,
+   m=5, maxiter 500, maxls 20, pgtol 1e-4, ftol 1e-6) over 4 members
+   from random_ensemble_inits(seed=3), ``direction`` left at ``auto``,
+   which on the card resolves to the fused loop (K1 an evaluation, K7b
+   an iteration; phase 11 holds its counts and runs its 20-rung f64
+   tail). The kernels' launch counts are zeroed just before and read
    just after the f32 ladder: every evaluation of every rung rides one
-   launch, so the count must reach, per rung, the most evaluations any
-   member made;
+   K1 launch, so its count must reach, per rung, the most evaluations
+   any member made;
 6. K1 against its plain version on the main path's own minimizers (rungs
    0, 60, 100), where the gradient is a small difference of large terms
-   and the top rungs' residuals are f32 round-off: A and gradient within
-   4x the plain f32 version's own error against f64 on the same inputs
+   and the top rungs' residuals are f32 round-off: the kernel's error
+   against f64 at the minimizer, for A and for the gradient, within 4x
+   the plain f32 version's, whose error is taken as its median over 24
+   f32 neighbours of the minimizer (every entry moved by up to 2 ulps:
+   at the top rungs one point's error is one draw of f32 round-off; the
+   plain version's at the point and the kernel's median are printed)
    (the max abs kernel-vs-plain error goes into the kernel line),
-   and the first 50 iterations of rung 60 again under torch.profiler:
-   device busy share, K1's share of the wall time, the costliest device
-   kernels;
+   and the first 50 iterations of rung 60 again under torch.profiler
+   through the compact loop (``direction='compact'``, the plain
+   direction): device busy share, K1's share of the wall time, the
+   costliest device kernels;
 7. K2 and K3 against their plain versions in f64 at the main shape
    (phase 3's draws): short solves (maxiter 30, m=5, pgtol 1e-4, ftol
    1e-6, rf at β = 0, 50, 100) through K2, through K3 with one rung and
    through the plain version: identical niter, nfev and status per
-   member, x within 1e-8 relative; then phase 4's f64 10-rung ladder
+   member, x within 1e-8 relative; then phase 4's f64 5-rung ladder
    (4 members) through K3, through K2 via the ladder's rung_solver hook
    and through the plain ladder: A within 1e-8 relative at every
    mutually converged rung; K2 and K3 launched twice give the same bits;
@@ -90,8 +96,10 @@ timed on its own line:
    iterations is each kernel's barriers_per_iteration (measured); and K2
    at maxiter 0 (one evaluation and one reduction a member) must count
    2 group barriers for the evaluation;
-10. K7a and K7b against their plain versions in f32 at the main path's
-   n_dof (3,221), m=5 and m=7, four members a launch, every (head, hlen)
+10. K7a and K7b (one cluster of blocks a member, kernels/dir.py's
+   cluster_plan) against their plain versions in f32 at the main path's
+   n_dof (3,221; 7 blocks a member) and at n = 32,768 (8 blocks, every
+   fifth pair), m=5 and m=7, four members a launch, every (head, hlen)
    of the circular history: the direction within 2e-5 of its max|d|
    (tests/test_dir_pallas.py's bound for the Pallas step kernel) or, where
    larger, twice the plain f32 version's own error against f64 on the same
@@ -102,20 +110,21 @@ timed on its own line:
    printed),
    history rows and max|g| within 1e-6 relative, Σ|g| within 1e-5,
    good/head/hlen exact, a
-   member with run = 0 left bit-identical, repeats bit-identical; both
-   kernels and their plain versions timed with CUDA events at m=5 with a
-   full history, K7a also by torch.profiler;
+   member with run = 0 left bit-identical, repeats bit-identical; each
+   shape's cluster plan and the built kernels' registers printed; both
+   kernels and their plain versions timed with CUDA events and
+   torch.profiler at m=5 with a full history at both n;
 11. the fused generic loop on the main path: phase 5's ladder (B=4, 101
-   f32 rungs, K1's action) with ``direction`` left at ``auto``, which on
-   the card resolves to the fused loop: K7b's launches equal the loop's
-   iterations (per rung the most any member made), K7a's are 0 and K1's
-   at least the slowest member's evaluations per rung; then the 20-rung
-   f64 tail, whose final_A_tail64 of member 0 must lie within 1e-2
+   f32 rungs, K1's action, ``direction`` auto): K7b's launches equal the
+   loop's iterations (per rung the most any member made), K7a's are 0
+   and K1's at least the slowest member's evaluations per rung; then the
+   20-rung f64 tail through K1 in f64 (maxiter 2000, pgtol 1e-8, ftol
+   2.22e-9), whose final_A_tail64 of member 0 must lie within 1e-2
    relative of 16.284792. The first 50 iterations of rung 60 from phase
    5's rung-59 minimizer run again in a child process
-   (``chip_smoke.py --profile-loops``) under torch.profiler, through the
-   generic compact loop and through the fused loop: wall, device busy
-   share and K7b's device time per iteration;
+   (``chip_smoke.py --profile-loops``) under torch.profiler through the
+   fused loop (phase 6 profiles the compact loop): wall, device busy
+   share and K7b's device time per iteration beside the wall's;
 12. K2's bounded branch against its plain version: short solves (maxiter
    30) at β 0/50/100 from phase 3's draws in the box states (-6, 6),
    F (3, 6): in f64 identical niter/nfev/status and x within 1e-8
@@ -125,7 +134,7 @@ timed on its own line:
    spread, the kernel's distance from it, and each one's distance from
    the f64 solve (the kernel's at most twice the plain version's); every
    x feasible, some component at a bound, repeats bit-identical; then
-   phase 4's f64 10-rung ladder (4 members from near the truth, rf0 = RM,
+   phase 4's f64 5-rung ladder (4 members from near the truth, rf0 = RM,
    pgtol 1e-8, ftol off)
    in that box through K2's hook, through the plain version and through
    the generic projection loop: A within 1e-8 relative at every mutually
@@ -198,7 +207,7 @@ timed on its own line:
    B=4, too); each Hermite–Simpson launch's grid (blocks, intervals and
    threads a block) and device time printed beside the per-(interval,
    component) design's it replaced (PAIR_DESIGN_US);
-19. an f64 10-rung ladder at config #2 (B=2, from near the twin's truth,
+19. an f64 5-rung ladder at config #2 (B=2, from near the twin's truth,
    rf0 = RM, pgtol 1e-8) through K6's value_and_grad (the fused launch)
    and through the autograd action: K6's A within 1e-8 relative of the
    autograd action's at every mutually converged rung;
@@ -235,22 +244,28 @@ timed on its own line:
    ladder's minimizers of rungs 0, 60 and 100 within 4x the plain f32
    version's error against f64 (phase 6's rule);
 24. K8 (kernels/csrc/pack_kernel.cu) against K2 and its plain version:
-   phase 8's short solves at (B, pack) = (4, 2), (5, 2), (6, 3), (4, 4)
-   in f64 (identical counts, x within 1e-8) and f32 (identical counts, f
-   within 1e-4 or twice the plain version's card-vs-CPU spread), bit for
-   bit equal to K2 where the group is K2's 256 threads (packs of 2); in
-   phase 12's box at pack 2 (f32 f within 2e-3), bit for bit K2 bounded's;
-   one launch a call; at config #5's width (D=400, B=4, pack 2, f32 and
-   f64) bit for bit K2's; the built kernels' registers and local memory;
-   its time at packs 2 and 4 beside K2's, its plain version and its
-   bound;
+   the built kernels (G = 256, 64, 32; at G = 256 the global and on-chip
+   layouts' instantiations) within 255 registers, in f32 with no more
+   local memory than K2's kernel of the same chunk (the call frame of
+   solve_one's by-reference arguments) and no spill in ptxas's report;
+   phase 8's short solves at (B, pack) = (4, 2), (5, 2), (6, 3), (4, 4),
+   (8, 8) in f64 (identical counts, x within 1e-8) and f32 (identical
+   counts, f within 1e-4 or twice the plain version's card-vs-CPU
+   spread), bit for bit equal to K2 where the group is K2's 256 threads
+   (packs of 2, on K2's layout plan); in phase 12's box at pack 2 (f32 f
+   within 2e-3), bit for bit K2 bounded's; one launch a call; at config
+   #5's width (D=400, B=4, pack 2, f32 and f64) bit for bit K2's; its
+   time at packs 2 and 4 beside K2's, its plain version and its bound;
+   then, printed and not held, K2 against K8 at packs 2, 4 and 8, a
+   launch each, on these short solves (f32, the rf of beta 50) at B = 1,
+   2 and 4 times the SM count and at config #5's shape (D=400, B=1024),
+   each beside its bound;
 25. the bench with BENCH_PACK: BENCH_PACK=2 BENCH_NINIT=4 (ladder, 101 K8
    launches a call, no K1-K3 launch; at G = 256 its f32 ladder must equal
    phase 9's K2 ladder bit for bit, so no tail), BENCH_PACK=4 with the
    tail (final_A_tail64 within 1e-2 of 16.284792), each K8 launch of the
-   BENCH_PACK=2 run timed by CUDA events around it; then, printed and
-   not held, K2 against K8 at packs 2 and 4 at benchmarks/pack_ab.py's
-   scale (B=64, maxiter 150, 101 rungs), in s/init;
+   BENCH_PACK=2 run timed by CUDA events around it (phase 24 compares
+   packing with K2 a launch at the batches where it can pay);
 26. BASELINE config #5 as examples/ensemble_sweep.py runs it in full
    (CONF5: 1024 members from random_ensemble_inits(seed=12), Lorenz-96
    D=400, N_data=161, 160 observed, trapezoid, F estimated, f32, rf0 =
@@ -286,7 +301,8 @@ relative error on the scale its phase checks (value relative, gradient
 over max|g|, solve x or f relative, direction over max|d|; for K1 and
 K5 their draws' in phases 3 and 22, and beside it minimizer_err_ratio,
 phase 6's and 23's scale at the ladder's minimizers: the kernel's error
-against f64 over the plain f32 version's, bound 4), times,
+against f64 there over the plain f32 version's median over the
+neighbours, bound 4), times,
 bound; K4's launches are phase 15's first run's, its ms, device_ms,
 plain_ms and bound phase 14's; K3's ms and bound are those of phase 8's
 three-rung launch, and
@@ -345,6 +361,12 @@ JAX_FINAL_A_TAIL64 = 16.284792
 # largest reading of the kernel (6.9e-4) and of the plain version's
 # card-vs-CPU spread over six draws and five rungs (6.7e-4) on the H100
 F32_BOUNDED_F_TOL = 2e-3
+# rungs of the f64 ladders that hold a kernel's ladder against the plain
+# one's to 1e-8 (phases 4, 7, 12 and 19), solved to pgtol from near the
+# truth: every rung of them converges, and the plain ladders are
+# host-bound (tens of seconds for ten rungs), so five rungs keep the
+# check and the script inside its time limit on a slow host
+F64_RUNGS = 5
 
 MAIN = dict(D=20, N_data=161, n_obs=8, B=4, n_beta=101, alpha=1.5,
             tail=20)
@@ -535,6 +557,42 @@ def err_ratio(errs):
     the plain f32 version's, for A and for the gradient (errs = [kernel
     A, plain A, kernel g, plain g], each against f64); the bound is 4."""
     return max(errs[0] / max(errs[1], 1e-300), errs[2] / max(errs[3], 1e-300))
+
+
+def minimizer_errs(kernel, plain, XP, rf, c32, c64, n_near=24, seed=0):
+    """Phase 6's errors at a ladder's minimizers ``XP`` (B, n_dof), each
+    the largest deviation over the members from the f64 plain version:
+    the f32 kernel's at the minimizers themselves, and the plain f32
+    version's as its median over ``n_near`` f32 neighbours of them (every
+    entry moved by up to 2 ulps, a seeded draw). At the top rungs these
+    errors are f32 round-off of the residuals, and the plain version's at
+    one point is one draw of it: over a minimizer's neighbours it spreads
+    over one to two orders of magnitude. The median gives the plain
+    version's scale; the kernel stays held at the points the ladder made.
+    Returns ([kernel A, plain A, kernel g, plain g] as held, [plain A,
+    plain g] at the minimizers, [kernel A, kernel g] medians over the
+    neighbours, and the kernel's and the plain version's (A, g, A, g) at
+    the minimizers)."""
+    gen = torch.Generator().manual_seed(seed)
+    eps = torch.finfo(torch.float32).eps
+    pts = torch.cat([XP] + [
+        XP * (1 + eps * torch.randint(-2, 3, tuple(XP.shape),
+                                      generator=gen).to(XP))
+        for _ in range(n_near)])
+    A, G = kernel(pts, rf, c32)
+    A_r, G_r = plain(pts, rf, c32)
+    A_x, G_x = plain(pts.double(), rf, c64)
+
+    def e(u, ex):           # (n_near + 1,) largest deviation per point
+        return torch.amax(torch.abs(u.double() - ex).reshape(n_near + 1, -1),
+                          dim=1).cpu().numpy()
+    ka, pa, kg, pg = e(A, A_x), e(A_r, A_x), e(G, G_x), e(G_r, G_x)
+    B = XP.shape[0]
+    held = [float(ka[0]), float(np.median(pa[1:])), float(kg[0]),
+            float(np.median(pg[1:]))]
+    return (held, [float(pa[0]), float(pg[0])],
+            [float(np.median(ka[1:])), float(np.median(kg[1:]))],
+            (A[:B], G[:B], A_r[:B], G_r[:B]))
 
 
 def bound_of(nbytes, nops, dtype=torch.float32):
@@ -1352,10 +1410,10 @@ def profile_k3():
 
 def profile_loops(path):
     """The first 50 iterations of rung 60 from the rung-59 minimizers in
-    ``path`` (4 members, f32, K1's action), through the generic compact
-    loop and through the fused loop (direction auto, which takes K7b on
-    the card), each under torch.profiler after one warm run; prints one
-    JSON line. A process of its own, as profile_k3."""
+    ``path`` (4 members, f32, K1's action) through the fused loop
+    (direction auto, which takes K7b on the card; phase 6 profiles the
+    compact loop at the same rung) under torch.profiler after one warm
+    run; prints one JSON line. A process of its own, as profile_k3."""
     from varanneal_tpu_torch.anneal.ladder import rung_rf
     from varanneal_tpu_torch.kernels import ag
     from varanneal_tpu_torch.opt import LBFGSOptions, lbfgs_minimize
@@ -1366,7 +1424,7 @@ def profile_loops(path):
     vag = action.value_and_grad
     rf = rung_rf(np.float32(rf0), MAIN["alpha"], 60, torch.float32)
     out = {}
-    for direction in ("compact", "auto"):
+    for direction in ("auto",):
         opts = LBFGSOptions(m=5, maxiter=50, maxls=20, pgtol=1e-4,
                             ftol=1e-6, direction=direction)
         lbfgs_minimize(lambda z: vag(z, rf), xp, opts=opts, device=dev)
@@ -1653,7 +1711,7 @@ def main():
         device=dev)
     runs = []
     for a in (act64k, plain64):
-        runs.append(make_ensemble_ladder(a, parts64, np.arange(10),
+        runs.append(make_ensemble_ladder(a, parts64, np.arange(F64_RUNGS),
                                          float(tw["RM"]), MAIN["alpha"],
                                          opts=opts_t, device=dev)(xp2))
     stat_k = runs[0].status.cpu().numpy()
@@ -1673,59 +1731,47 @@ def main():
     # ---- 5. the main path ---------------------------------------------------
     t0 = time.perf_counter()
     action, parts = ag.make_action_ag(spec, device=dev, dtype=torch.float32)
-    opts = LBFGSOptions(m=5, maxiter=500, maxls=20, pgtol=1e-4, ftol=1e-6,
-                        direction="compact")
+    # direction left at auto: on the card the fused loop (K7b, phase 11)
+    opts_f = LBFGSOptions(m=5, maxiter=500, maxls=20, pgtol=1e-4, ftol=1e-6)
     ladder = make_ensemble_ladder(action, parts, np.arange(MAIN["n_beta"]),
-                                  np.float32(rf0), MAIN["alpha"], opts=opts,
-                                  store_paths=True, device=dev)
+                                  np.float32(rf0), MAIN["alpha"],
+                                  opts=opts_f, store_paths=True, device=dev)
     xp0 = torch.tensor(random_ensemble_inits(spec, MAIN["B"], seed=3,
                                              dtype=np.float32), device=dev)
-    ag.LAUNCHES = 0
+    check(kdir.dir_supported(xp0, opts_f.m),
+          "direction='auto' would not take the kernels on the main path")
+    ag.LAUNCHES = kdir.STEP_LAUNCHES = kdir.DIR_LAUNCHES = 0
     t_lad = time.perf_counter()
     res = ladder(xp0)
     torch.cuda.synchronize()
     wall_f32 = time.perf_counter() - t_lad
     launches = ag.LAUNCHES
+    launch_f = dict(k1=ag.LAUNCHES, k7b=kdir.STEP_LAUNCHES,
+                    k7a=kdir.DIR_LAUNCHES)
 
-    # the f64 tail through K1 in f64: the same function as the autograd
-    # action (phase 3 holds the two to 1e-12), ~70x cheaper an evaluation
-    t_tail = time.perf_counter()
+    # the f64 tail's action and options (phases 11 and 23 run tails): K1 in
+    # f64, the same function as the autograd action (phase 3 holds the
+    # two to 1e-12), ~70x cheaper an evaluation
     act64, parts64a = ag.make_action_ag(spec, device=dev,
                                         dtype=torch.float64)
     opts64 = LBFGSOptions(maxiter=2000, pgtol=1e-8, ftol=2.22e-9,
                           direction="compact")
-    tail = run_ladder(act64, parts64a, res.XP.double(),
-                      np.arange(MAIN["n_beta"] - MAIN["tail"],
-                                MAIN["n_beta"]), rf0, MAIN["alpha"],
-                      opts=opts64, store_paths=False, device=dev)
-    torch.cuda.synchronize()
-    wall_tail = time.perf_counter() - t_tail
 
     nfev = res.nfev.cpu().numpy()                  # (B, n_beta)
     total_nfev = int(nfev.sum())
     lockstep_nfev = int(nfev.max(axis=0).sum())
-    A_tail = tail.A.cpu().numpy()
-    final_A_tail64 = float(A_tail[0, -1])
-    print(f"main path f32 ladder: {MAIN['n_beta']} rungs x {MAIN['B']} "
-          f"members in {wall_f32:.2f} s; total nfev {total_nfev} (sum over "
-          f"members), per-rung max over members summed {lockstep_nfev}; "
-          f"K1 launches {launches}")
-    print(f"main path f64 tail: {MAIN['tail']} rungs in {wall_tail:.2f} s; "
-          f"nfev {int(tail.nfev.sum())}")
-    print(f"final_A_tail64 member 0: {final_A_tail64:.6f} (JAX on TPU v5e, "
-          f"BENCH_r05: {JAX_FINAL_A_TAIL64}); members: "
-          + ", ".join(f"{a:.6f}" for a in A_tail[:, -1])
-          + f"; mean {A_tail[:, -1].mean():.6f}")
+    print(f"main path f32 ladder (the fused loop): {MAIN['n_beta']} rungs "
+          f"x {MAIN['B']} members in {wall_f32:.2f} s; total nfev "
+          f"{total_nfev} (sum over members), per-rung max over members "
+          f"summed {lockstep_nfev}; launches {launch_f}")
     print(f"f32 ladder statuses (count per code 0..3): "
           f"{np.bincount(res.status.cpu().numpy().ravel(), minlength=4)}")
     check(launches >= lockstep_nfev > 0,
           f"main path did not go through K1: {launches} launches for "
           f"{lockstep_nfev} evaluations")
-    for nm, t in (("XP", res.XP), ("A", res.A), ("tail XP", tail.XP),
-                  ("tail A", tail.A)):
+    for nm, t in (("XP", res.XP), ("A", res.A)):
         check(bool(torch.isfinite(t).all()), f"non-finite {nm}")
-    check(tuple(res.A.shape) == (MAIN["B"], MAIN["n_beta"])
-          and tuple(tail.A.shape) == (MAIN["B"], MAIN["tail"]),
+    check(tuple(res.A.shape) == (MAIN["B"], MAIN["n_beta"]),
           "unexpected record shapes")
     phase("5 main path", t0)
 
@@ -1740,19 +1786,20 @@ def main():
     for k in (0, 60, MAIN["n_beta"] - 1):
         rf_k = rung_rf(np.float32(rf0), MAIN["alpha"], k, torch.float32)
         XP_k = res.paths[:, k].contiguous()
-        A, G = ag.ag_kernel(XP_k, rf_k, c32)
-        A_r, G_r = ag.ag_reference(XP_k, rf_k, c32)
-        A_x, G_x = ag.ag_reference(XP_k.double(), rf_k, c64m)
-        errs = [float(torch.max(torch.abs(u.double() - ex)))
-                for u, ex in ((A, A_x), (A_r, A_x), (G, G_x), (G_r, G_x))]
+        errs, at, med, (A, G, A_r, G_r) = minimizer_errs(
+            ag.ag_kernel, ag.ag_reference, XP_k, rf_k, c32, c64m)
         err = max(float(torch.max(torch.abs(A - A_r))),
                   float(torch.max(torch.abs(G - G_r))))
         max_abs = max(max_abs, err)
         ratio_k1 = max(ratio_k1, err_ratio(errs))
         print(f"K1 f32 at the main path's minimizer of rung {k}: max abs "
-              f"err vs plain {err:.3e}; error vs f64, kernel / plain f32: "
-              f"A {errs[0]:.3e} / {errs[1]:.3e}, gradient {errs[2]:.3e} / "
-              f"{errs[3]:.3e} (bound 4x plain)")
+              f"err vs plain {err:.3e}; error vs f64, the kernel's at the "
+              f"minimizer / the plain f32 version's median over 24 f32 "
+              f"neighbours: A {errs[0]:.3e} / {errs[1]:.3e}, gradient "
+              f"{errs[2]:.3e} / {errs[3]:.3e} (bound 4x plain; the plain "
+              f"version's at the minimizer A {at[0]:.3e}, gradient "
+              f"{at[1]:.3e}; the kernel's median A {med[0]:.3e}, gradient "
+              f"{med[1]:.3e})")
         check(errs[0] <= 4.0 * errs[1] and errs[2] <= 4.0 * errs[3],
               f"K1 disagrees with its plain version at rung {k}")
 
@@ -1766,7 +1813,8 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t_p = time.perf_counter()
         rp = lbfgs_minimize(lambda z: vag(z, rf_p), xp_p,
-                            opts=dataclasses.replace(opts, maxiter=50),
+                            opts=dataclasses.replace(opts_f, maxiter=50,
+                                                     direction="compact"),
                             device=dev)
         torch.cuda.synchronize()
         wall_p = (time.perf_counter() - t_p) * 1e6
@@ -1837,25 +1885,25 @@ def main():
         pack(spec, tw["traj"] + 0.3 * rng.normal(size=tw["traj"].shape),
              np.array([tw["F"] + 0.5 * rng.normal()]))
         for _ in range(MAIN["B"])]), device=dev)
-    rfs10 = np.array([rung_rf(float(tw["RM"]), MAIN["alpha"], b,
-                              torch.float64) for b in range(10)])
-    lad10 = solve.make_ladder_solver(spec, opts_t, 10, device=dev)
-    x_k3, r_k3 = lad10(xp4, rfs10)
+    rfs_t = np.array([rung_rf(float(tw["RM"]), MAIN["alpha"], b,
+                              torch.float64) for b in range(F64_RUNGS)])
+    lad_t = solve.make_ladder_solver(spec, opts_t, F64_RUNGS, device=dev)
+    x_k3, r_k3 = lad_t(xp4, rfs_t)
     torch.cuda.synchronize()
-    x_k3b, r_k3b = lad10(xp4, rfs10)
+    x_k3b, r_k3b = lad_t(xp4, rfs_t)
     torch.cuda.synchronize()
     check(torch.equal(x_k3, x_k3b)
           and all(torch.equal(r_k3[k], r_k3b[k]) for k in r_k3),
           "K3 repeated launch is not bit-identical")
     hook = make_ensemble_ladder(
-        act64k, parts64, np.arange(10), float(tw["RM"]), MAIN["alpha"],
-        opts=opts_t, rung_solver=solve.make_rung_solver(spec, opts_t,
-                                                        device=dev),
+        act64k, parts64, np.arange(F64_RUNGS), float(tw["RM"]),
+        MAIN["alpha"], opts=opts_t,
+        rung_solver=solve.make_rung_solver(spec, opts_t, device=dev),
         device=dev)(xp4)
     t_pl = time.perf_counter()
-    x_pl, r_pl = solve.ladder_reference(xp4, rfs10, c64m, opts_t)
+    x_pl, r_pl = solve.ladder_reference(xp4, rfs_t, c64m, opts_t)
     torch.cuda.synchronize()
-    print(f"f64 plain ladder (10 rungs, 4 members): "
+    print(f"f64 plain ladder ({F64_RUNGS} rungs, 4 members): "
           f"{time.perf_counter() - t_pl:.2f} s")
     ok_pl = r_pl["status"].cpu().numpy() <= 1
     A_pl = r_pl["A"].cpu().numpy()
@@ -1868,7 +1916,8 @@ def main():
         if nm == "K3":
             err_k3 = float(d[both].max())
             rel_k3 = max(rel_k3, float(rel[both].max()))
-        print(f"f64 10-rung ladder {nm} vs plain: mutually converged rungs "
+        print(f"f64 {F64_RUNGS}-rung ladder {nm} vs plain: mutually "
+              f"converged rungs "
               f"{int(both.sum())}/{both.size}; max rel A difference "
               f"{rel[both].max():.3e} (bound 1e-8)")
         check(both.mean() >= 0.8, f"{nm}: too few converged rungs")
@@ -2204,9 +2253,10 @@ def main():
     # ---- 10. K7a and K7b vs their plain versions ------------------------
     t0 = time.perf_counter()
     n = spec.n_dof
+    N_WIDE = 32768          # dir_predicate's widest n: 8 blocks a member
     rng = np.random.default_rng(10)
 
-    def histories(m, pairs):
+    def histories(m, pairs, n):
         H = np.zeros((len(pairs), 2 * m, n), np.float32)
         for b, (head, hlen) in enumerate(pairs):
             for j in range(hlen):
@@ -2239,152 +2289,179 @@ def main():
     e_k7 = [0.0, 0.0]       # worst error relative to max|d| of K7a, K7b
     n_el = 0                # members past the elementwise 2e-6 + 2e-5|d|
     n_pairs = 0
+    plans10 = {}
     for m in (5, 7):
-        pairs = [(h, l) for h in range(m) for l in range(m + 1)]
-        for i in range(0, len(pairs), MAIN["B"]):
-            batch = pairs[i:i + MAIN["B"]]
-            B = len(batch)
-            H = histories(m, batch)
-            hd, hl = i32([p[0] for p in batch]), i32([p[1] for p in batch])
-            g = f32(rng.normal(size=(B, n)))
-            d_k = kdir.compact_dir_kernel(g, H, hd, hl)
-            torch.cuda.synchronize()
-            d_p = kdir.compact_dir_reference(g, H, hd, hl)
-            d_64 = kdir.compact_dir_reference(g.double(), H.double(), hd, hl)
-            err = torch.abs(d_k - d_p)
-            err_k7a = max(err_k7a, float(err.max()))
-            n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(dim=1).sum())
-            e_k, bnd = dir_err(d_k, d_p, d_64)
-            rel_k7[0] = max(rel_k7[0], float((e_k / bnd).max()))
-            e_k7[0] = max(e_k7[0], float(e_k.max()))
-            check(bool(torch.all(e_k <= bnd)),
-                  f"K7a disagrees with its plain version at m={m}, "
-                  f"(head, hlen) in {batch}: {e_k.tolist()} vs {bnd.tolist()}")
-            check(torch.equal(d_k, kdir.compact_dir_kernel(g, H, hd, hl)),
-                  "K7a repeated launch is not bit-identical")
+        every = [(h, l) for h in range(m) for l in range(m + 1)]
+        for n_ in (n, N_WIDE):          # at N_WIDE every fifth pair
+            pairs = every if n_ == n else every[::5]
+            for i in range(0, len(pairs), MAIN["B"]):
+                batch = pairs[i:i + MAIN["B"]]
+                B = len(batch)
+                H = histories(m, batch, n_)
+                plans10[(m, n_)] = (kdir.launch_plan(H, False),
+                                    kdir.launch_plan(H, True))
+                hd = i32([p[0] for p in batch])
+                hl = i32([p[1] for p in batch])
+                g = f32(rng.normal(size=(B, n_)))
+                d_k = kdir.compact_dir_kernel(g, H, hd, hl)
+                torch.cuda.synchronize()
+                d_p = kdir.compact_dir_reference(g, H, hd, hl)
+                d_64 = kdir.compact_dir_reference(g.double(), H.double(), hd,
+                                                  hl)
+                err = torch.abs(d_k - d_p)
+                err_k7a = max(err_k7a, float(err.max()))
+                n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(
+                    dim=1).sum())
+                e_k, bnd = dir_err(d_k, d_p, d_64)
+                rel_k7[0] = max(rel_k7[0], float((e_k / bnd).max()))
+                e_k7[0] = max(e_k7[0], float(e_k.max()))
+                check(bool(torch.all(e_k <= bnd)),
+                      f"K7a disagrees with its plain version at m={m}, "
+                      f"n={n_}, (head, hlen) in {batch}: {e_k.tolist()} vs "
+                      f"{bnd.tolist()}")
+                check(torch.equal(d_k, kdir.compact_dir_kernel(g, H, hd, hl)),
+                      "K7a repeated launch is not bit-identical")
 
-            x_old, g_old = f32(rng.normal(size=(B, n))), g
-            x_new = x_old + f32(0.1 * rng.normal(size=(B, n)))
-            g_new = g_old + f32(0.1 * rng.normal(size=(B, n)))
-            if B > 3:           # a flat pair: the gate must refuse it
-                x_new[3] = x_old[3] + 1e-12
-                g_new[3] = g_old[3]
-            ls_ok = torch.tensor([True, False, True, True][:B], device=dev)
-            run = torch.tensor([True, True, False, True][:B], device=dev)
-            vecs = (x_old, x_new, g_old, g_new)
-            Hk, hk, lk = H.clone(), hd.clone(), hl.clone()
-            Hp, hp, lp = H.clone(), hd.clone(), hl.clone()
-            d_k, sc_k = kdir.fused_step_kernel(Hk, *vecs, hk, lk, ls_ok,
-                                               run)
+                x_old, g_old = f32(rng.normal(size=(B, n_))), g
+                x_new = x_old + f32(0.1 * rng.normal(size=(B, n_)))
+                g_new = g_old + f32(0.1 * rng.normal(size=(B, n_)))
+                if B > 3:           # a flat pair: the gate must refuse it
+                    x_new[3] = x_old[3] + 1e-12
+                    g_new[3] = g_old[3]
+                ls_ok = torch.tensor([True, False, True, True][:B],
+                                     device=dev)
+                run = torch.tensor([True, True, False, True][:B], device=dev)
+                vecs = (x_old, x_new, g_old, g_new)
+                Hk, hk, lk = H.clone(), hd.clone(), hl.clone()
+                Hp, hp, lp = H.clone(), hd.clone(), hl.clone()
+                d_k, sc_k = kdir.fused_step_kernel(Hk, *vecs, hk, lk, ls_ok,
+                                                   run)
+                torch.cuda.synchronize()
+                d_p, sc_p = kdir.fused_step_reference(Hp, *vecs, hp, lp,
+                                                      ls_ok, run)
+                d_64, _ = kdir.fused_step_reference(
+                    H.double(), *(v.double() for v in vecs), hd.clone(),
+                    hl.clone(), ls_ok, run)
+                err = torch.abs(d_k - d_p)
+                err_k7b = max(err_k7b, float(err.max()),
+                              float(torch.abs(Hk - Hp).max()))
+                n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(
+                    dim=1).sum())
+                e_k, bnd = dir_err(d_k[run], d_p[run], d_64[run])
+                rel_k7[1] = max(rel_k7[1], float((e_k / bnd).max()))
+                e_k7[1] = max(e_k7[1], float(e_k.max()))
+                ok = (torch.equal(hk, hp) and torch.equal(lk, lp)
+                      and torch.equal(sc_k[:, [0, 3, 4]], sc_p[:, [0, 3, 4]])
+                      and bool(torch.all(torch.abs(Hk - Hp)
+                                         <= 1e-6 * torch.abs(Hp)))
+                      and bool(torch.all(torch.abs(sc_k[:, 1] - sc_p[:, 1])
+                                         <= 1e-6 * torch.abs(sc_p[:, 1])))
+                      and bool(torch.all(torch.abs(sc_k[:, 2] - sc_p[:, 2])
+                                         <= 1e-5 * torch.abs(sc_p[:, 2])))
+                      and bool(torch.all(e_k <= bnd))
+                      and torch.equal(d_k[~run], d_p[~run]))
+                check(ok, f"K7b disagrees with its plain version at m={m}, "
+                      f"n={n_}, (head, hlen) in {batch}: good/head/hlen "
+                      f"{sc_k[:, [0, 3, 4]].tolist()} vs "
+                      f"{sc_p[:, [0, 3, 4]].tolist()}")
+                if B > 2:
+                    check(torch.equal(Hk[2], H[2]) and int(hk[2]) == int(hd[2])
+                          and int(lk[2]) == int(hl[2]),
+                          "K7b touched a member whose loop had ended")
+                if B > 3:
+                    check(float(sc_k[3, 0]) == 0.0, "K7b took a flat pair")
+                Hk2, hk2, lk2 = H.clone(), hd.clone(), hl.clone()
+                d_k2, sc_k2 = kdir.fused_step_kernel(Hk2, *vecs, hk2, lk2,
+                                                     ls_ok, run)
+                check(torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
+                      and torch.equal(Hk, Hk2),
+                      "K7b repeated launch is not bit-identical")
+                n_pairs += B
+    print(f"K7a/K7b f32 vs plain at n={n} and {N_WIDE}, m=5 and 7, {n_pairs}"
+          f" (head, hlen) cases: max abs err K7a {err_k7a:.3e}, K7b "
+          f"{err_k7b:.3e}; error / bound, relative to max|d|, K7a "
+          f"{rel_k7[0]:.3f}, K7b {rel_k7[1]:.3f} (bound: 2e-5, or twice the "
+          f"plain f32 version's own error against f64, at most 7.2e-5); "
+          f"{n_el} of the {2 * n_pairs} directions past the elementwise "
+          f"2e-6 + 2e-5|d|; good/head/hlen exact, ended member untouched, "
+          f"repeats bit-identical")
+    for (m, n_), (pa, pb) in sorted(plans10.items()):
+        print(f"K7 cluster plan, m={m}, n={n_}, B={MAIN['B']}: K7a {pa.size} "
+              f"blocks of {pa.width} columns, {pa.rows} rows on chip, "
+              f"{pa.smem_bytes} B; K7b {pb.size} blocks, {pb.rows} rows, "
+              f"{pb.smem_bytes} B")
+    k7_attrs = {(m, st): kdir.kernel_attrs(m, st) for m in (5, 7)
+                for st in (False, True)}
+    print("K7 built kernels (registers, local bytes): " + "; ".join(
+        f"{'K7b' if st else 'K7a'} m={m} {a['regs']}, {a['local_bytes']}"
+        for (m, st), a in k7_attrs.items()))
+
+    def k7_device_ms(fn, key):
+        """A kernel's device time a launch by torch.profiler over 200
+        calls of ``fn``, or None without device events."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(200):
+                fn()
             torch.cuda.synchronize()
-            d_p, sc_p = kdir.fused_step_reference(Hp, *vecs, hp, lp, ls_ok,
-                                                  run)
-            d_64, _ = kdir.fused_step_reference(
-                H.double(), *(v.double() for v in vecs), hd.clone(),
-                hl.clone(), ls_ok, run)
-            err = torch.abs(d_k - d_p)
-            err_k7b = max(err_k7b, float(err.max()),
-                          float(torch.abs(Hk - Hp).max()))
-            n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(dim=1).sum())
-            e_k, bnd = dir_err(d_k[run], d_p[run], d_64[run])
-            rel_k7[1] = max(rel_k7[1], float((e_k / bnd).max()))
-            e_k7[1] = max(e_k7[1], float(e_k.max()))
-            ok = (torch.equal(hk, hp) and torch.equal(lk, lp)
-                  and torch.equal(sc_k[:, [0, 3, 4]], sc_p[:, [0, 3, 4]])
-                  and bool(torch.all(torch.abs(Hk - Hp)
-                                     <= 1e-6 * torch.abs(Hp)))
-                  and bool(torch.all(torch.abs(sc_k[:, 1] - sc_p[:, 1])
-                                     <= 1e-6 * torch.abs(sc_p[:, 1])))
-                  and bool(torch.all(torch.abs(sc_k[:, 2] - sc_p[:, 2])
-                                     <= 1e-5 * torch.abs(sc_p[:, 2])))
-                  and bool(torch.all(e_k <= bnd))
-                  and torch.equal(d_k[~run], d_p[~run]))
-            check(ok, f"K7b disagrees with its plain version at m={m}, "
-                  f"(head, hlen) in {batch}: good/head/hlen "
-                  f"{sc_k[:, [0, 3, 4]].tolist()} vs "
-                  f"{sc_p[:, [0, 3, 4]].tolist()}")
-            if B > 2:
-                check(torch.equal(Hk[2], H[2]) and int(hk[2]) == int(hd[2])
-                      and int(lk[2]) == int(hl[2]),
-                      "K7b touched a member whose loop had ended")
-            if B > 3:
-                check(float(sc_k[3, 0]) == 0.0, "K7b took a flat pair")
-            Hk2, hk2, lk2 = H.clone(), hd.clone(), hl.clone()
-            d_k2, sc_k2 = kdir.fused_step_kernel(Hk2, *vecs, hk2, lk2,
-                                                 ls_ok, run)
-            check(torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
-                  and torch.equal(Hk, Hk2),
-                  "K7b repeated launch is not bit-identical")
-            n_pairs += B
-    print(f"K7a/K7b f32 vs plain at n={n}, m=5 and 7, {n_pairs} (head, "
-          f"hlen) cases: max abs err K7a {err_k7a:.3e}, K7b {err_k7b:.3e}; "
-          f"error / bound, relative to max|d|, K7a {rel_k7[0]:.3f}, K7b "
-          f"{rel_k7[1]:.3f} (bound: 2e-5, or twice the plain f32 version's "
-          f"own error against f64, at most 7.2e-5); {n_el} of the "
-          f"{2 * n_pairs} directions past the elementwise 2e-6 + "
-          f"2e-5|d|; good/head/hlen exact, "
-          f"ended member untouched, repeats bit-identical")
+        rows = [(device_us(e), e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and key in e.key]
+        return (rows[0][0] / rows[0][1] / 1e3 if rows and rows[0][0] > 0
+                else None)
+
     m = 5
-    H = histories(m, [(2, m)] * MAIN["B"])
-    hd, hl = i32([2] * MAIN["B"]), i32([m] * MAIN["B"])
-    g = f32(rng.normal(size=(MAIN["B"], n)))
-    ms_k7a = events_ms(lambda: kdir.compact_dir_kernel(g, H, hd, hl))
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(200):
-            kdir.compact_dir_kernel(g, H, hd, hl)
-        torch.cuda.synchronize()
-    k7a_dev = [(device_us(e), e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "dir_kernel" in e.key]
-    dev_k7a = (k7a_dev[0][0] / k7a_dev[0][1] / 1e3
-               if k7a_dev and k7a_dev[0][0] > 0 else None)
-    ms_p7a = events_ms(lambda: kdir.compact_dir_reference(g, H, hd, hl),
-                       n=200)
-    x_old = f32(rng.normal(size=(MAIN["B"], n)))
-    x_new = x_old + f32(0.1 * rng.normal(size=(MAIN["B"], n)))
-    g_new = g + f32(0.1 * rng.normal(size=(MAIN["B"], n)))
-    ones = torch.ones(MAIN["B"], dtype=torch.bool, device=dev)
-    Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
-    ms_k7b = events_ms(lambda: kdir.fused_step_kernel(
-        Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones))
-    Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
-    ms_p7b = events_ms(lambda: kdir.fused_step_reference(
-        Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones), n=200)
-    b7a = dir_work(MAIN["B"], n, m)
-    b7b = step_work(MAIN["B"], n, m, MAIN["B"])
-    bound_k7a, bound_k7b = bound_of(*b7a), bound_of(*b7b)
-    print(f"K7a f32 (B=4, n={n}, m=5, full history): {ms_k7a:.5f} ms a "
-          f"launch, plain {ms_p7a:.5f} ms (CUDA events), device time "
-          + (f"{dev_k7a:.5f} ms (torch.profiler)" if dev_k7a is not None
-             else "not measured (no device events)") + "; bound "
-          f"{bound_k7a[0]:.3e} ms ({bound_k7a[1]}: {b7a[0]} bytes, "
-          f"{b7a[1]} operations)")
-    print(f"K7b f32 (the same, every pair taken): {ms_k7b:.5f} ms a launch,"
-          f" plain {ms_p7b:.5f} ms; bound {bound_k7b[0]:.3e} ms "
-          f"({bound_k7b[1]}: {b7b[0]} bytes, {b7b[1]} operations)")
+    k7t = {}                # n -> the times of phase 10's table
+    for n_ in (n, N_WIDE):
+        H = histories(m, [(2, m)] * MAIN["B"], n_)
+        hd, hl = i32([2] * MAIN["B"]), i32([m] * MAIN["B"])
+        g = f32(rng.normal(size=(MAIN["B"], n_)))
+        x_old = f32(rng.normal(size=(MAIN["B"], n_)))
+        x_new = x_old + f32(0.1 * rng.normal(size=(MAIN["B"], n_)))
+        g_new = g + f32(0.1 * rng.normal(size=(MAIN["B"], n_)))
+        ones = torch.ones(MAIN["B"], dtype=torch.bool, device=dev)
+        t = dict(plan=plans10[(m, n_)])
+        t["k7a"] = events_ms(lambda: kdir.compact_dir_kernel(g, H, hd, hl))
+        t["k7a_dev"] = k7_device_ms(
+            lambda: kdir.compact_dir_kernel(g, H, hd, hl), "dir_kernel")
+        t["p7a"] = events_ms(
+            lambda: kdir.compact_dir_reference(g, H, hd, hl), n=200)
+        Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
+        t["k7b"] = events_ms(lambda: kdir.fused_step_kernel(
+            Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones))
+        Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
+        t["k7b_dev"] = k7_device_ms(lambda: kdir.fused_step_kernel(
+            Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones), "step_kernel")
+        Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
+        t["p7b"] = events_ms(lambda: kdir.fused_step_reference(
+            Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones), n=200)
+        t["w7a"] = dir_work(MAIN["B"], n_, m)
+        t["w7b"] = step_work(MAIN["B"], n_, m, MAIN["B"])
+        t["b7a"], t["b7b"] = bound_of(*t["w7a"]), bound_of(*t["w7b"])
+        k7t[n_] = t
+        for kk, nm in (("7a", "K7a"), ("7b", "K7b (every pair taken)")):
+            dv = t[f"k{kk}_dev"]
+            plan_ = t["plan"][kk == "7b"]
+            print(f"{nm} f32 (B=4, n={n_}, m=5, full history; "
+                  f"{plan_.size} blocks a member): {t[f'k{kk}']:.5f} ms a "
+                  f"launch, plain {t[f'p{kk}']:.5f} ms (CUDA events), device "
+                  "time " + (f"{dv:.5f} ms (torch.profiler)" if dv is not None
+                             else "not measured (no device events)")
+                  + f"; bound {t[f'b{kk}'][0]:.3e} ms ({t[f'b{kk}'][1]}: "
+                  f"{t[f'w{kk}'][0]} bytes, {t[f'w{kk}'][1]} operations)")
+    ms_k7a, dev_k7a, ms_p7a = (k7t[n][k] for k in ("k7a", "k7a_dev", "p7a"))
+    ms_k7b, dev_k7b, ms_p7b = (k7t[n][k] for k in ("k7b", "k7b_dev", "p7b"))
+    bound_k7a, bound_k7b = k7t[n]["b7a"], k7t[n]["b7b"]
     phase("10 K7a/K7b vs plain", t0)
 
     # ---- 11. the fused generic loop on the main path --------------------
     t0 = time.perf_counter()
-    opts_f = LBFGSOptions(m=5, maxiter=500, maxls=20, pgtol=1e-4, ftol=1e-6)
-    check(kdir.dir_supported(xp0, opts_f.m),
-          "direction='auto' would not take the kernels on the main path")
-    ladder_f = make_ensemble_ladder(
-        action, parts, np.arange(MAIN["n_beta"]), np.float32(rf0),
-        MAIN["alpha"], opts=opts_f, store_paths=False, device=dev)
-    ag.LAUNCHES = kdir.STEP_LAUNCHES = kdir.DIR_LAUNCHES = 0
-    t_lad = time.perf_counter()
-    res_f = ladder_f(xp0)
-    torch.cuda.synchronize()
-    wall_fused = time.perf_counter() - t_lad
-    launch_f = dict(k1=ag.LAUNCHES, k7b=kdir.STEP_LAUNCHES,
-                    k7a=kdir.DIR_LAUNCHES)
+    # phase 5's ladder ran it: its launches, then its f64 tail
+    res_f, wall_fused = res, wall_f32
     niter_f = res_f.niter.cpu().numpy()
     nfev_f = res_f.nfev.cpu().numpy()
     loop_iters = int(niter_f.max(axis=0).sum())
-    loop_iters5 = int(res.niter.cpu().numpy().max(axis=0).sum())
     lockstep_f = int(nfev_f.max(axis=0).sum())
     t_tail = time.perf_counter()
     tail_f = run_ladder(act64, parts64a, res_f.XP.double(),
@@ -2402,12 +2479,9 @@ def main():
           f"summed {lockstep_f}; launches {launch_f}; statuses per code "
           f"0..3 {np.bincount(res_f.status.cpu().numpy().ravel(), minlength=4).tolist()}")
     ms_iter_fused = 1e3 * wall_fused / loop_iters
-    print(f"fused loop vs phase 5's compact loop (same inputs, this card): "
-          f"{1e3 * wall_fused / loop_iters:.3f} vs "
-          f"{1e3 * wall_f32 / loop_iters5:.3f} ms a loop iteration, "
-          f"{1e3 * wall_fused / lockstep_f:.3f} vs "
-          f"{1e3 * wall_f32 / lockstep_nfev:.3f} ms a K1 launch "
-          f"({loop_iters} vs {loop_iters5} iterations)")
+    print(f"fused loop: {ms_iter_fused:.3f} ms a loop iteration, "
+          f"{1e3 * wall_fused / lockstep_f:.3f} ms a K1 launch of the "
+          f"slowest member (phase 6 profiles the compact loop)")
     print(f"fused loop f64 tail: {MAIN['tail']} rungs in {wall_tail_f:.2f} "
           f"s; final_A_tail64 member 0 {fa_f:.6f} vs JAX "
           f"{JAX_FINAL_A_TAIL64:.6f} (rel {rel_f:.3e}, bound 1e-2); "
@@ -2436,7 +2510,10 @@ def main():
               f"{r['wall_us'] / 1e3:.1f} ms ({r['wall_us'] / 1e3 / r['niter']:.3f} "
               f"ms an iteration), device busy {r['busy_us'] / 1e3:.2f} ms "
               f"({100 * r['busy_us'] / r['wall_us']:.1f} %), K1 "
-              f"{r['k1_us'] / 1e3:.2f} ms, K7b {r['k7b_us'] / 1e3:.3f} ms; "
+              f"{r['k1_us'] / 1e3:.2f} ms, K7b {r['k7b_us'] / 1e3:.3f} ms "
+              f"({r['k7b_us'] / r['niter']:.2f} us of device time an "
+              f"iteration, beside the wall's "
+              f"{r['wall_us'] / r['niter']:.1f} us); "
               f"{r['kernels']} device kernels")
     check(pl["auto"]["k7b_us"] > 0, "torch.profiler recorded no K7b time")
     phase("11 fused generic loop", t0)
@@ -2577,11 +2654,13 @@ def main():
             ("generic projection loop", dict(lower=lo_np, upper=hi_np))):
         t_l = time.perf_counter()
         runs[nm] = make_ensemble_ladder(
-            act64k, parts64, np.arange(10), float(tw["RM"]), MAIN["alpha"],
-            opts=opts_t, store_paths=True, device=dev, **kw)(xp4)
+            act64k, parts64, np.arange(F64_RUNGS), float(tw["RM"]),
+            MAIN["alpha"], opts=opts_t, store_paths=True, device=dev,
+            **kw)(xp4)
         torch.cuda.synchronize()
         r = runs[nm]
-        print(f"f64 bounded 10-rung ladder ({MAIN['B']} members) through "
+        print(f"f64 bounded {F64_RUNGS}-rung ladder ({MAIN['B']} members) "
+              f"through "
               f"{nm}: {time.perf_counter() - t_l:.2f} s, statuses per code "
               f"0..3 {np.bincount(r.status.cpu().numpy().ravel(), minlength=4).tolist()}, "
               f"niter {int(r.niter.sum())}")
@@ -2592,9 +2671,9 @@ def main():
     for nm in ("K2 via the hook", "generic projection loop"):
         both = ok_pl & (runs[nm].status.cpu().numpy() <= 1)
         rel = np.abs(runs[nm].A.cpu().numpy() - A_pl) / np.abs(A_pl)
-        print(f"f64 bounded 10-rung ladder {nm} vs plain: mutually "
-              f"converged rungs {int(both.sum())}/{both.size}; max rel A "
-              f"difference {rel[both].max():.3e} (bound 1e-8)")
+        print(f"f64 bounded {F64_RUNGS}-rung ladder {nm} vs plain: "
+              f"mutually converged rungs {int(both.sum())}/{both.size}; "
+              f"max rel A difference {rel[both].max():.3e} (bound 1e-8)")
         check(both.mean() >= 0.8, f"{nm}: too few converged rungs")
         check(np.all(rel[both] <= 1e-8),
               f"f64 bounded ladder through {nm} disagrees: {rel}")
@@ -3151,7 +3230,7 @@ def main():
         np.array([tw2["F"] + 0.5 * rng19.normal()])) for _ in range(2)]),
         device=dev)
     # K6's action through its value_and_grad (the fused launch) and the
-    # autograd action, 10 rungs each
+    # autograd action, F64_RUNGS rungs each
     runs19, walls19, cnt19 = {}, {}, {}
     for name19, (a19, p19) in (
             ("fused", fe.make_action_pallas(spec2, device=dev)),
@@ -3159,8 +3238,8 @@ def main():
         zero_counts()
         t_19 = time.perf_counter()
         runs19[name19] = make_ensemble_ladder(
-            a19, p19, np.arange(10), float(tw2["RM"]), CONF2["alpha"],
-            opts=opts_t, device=dev)(xp19)
+            a19, p19, np.arange(F64_RUNGS), float(tw2["RM"]),
+            CONF2["alpha"], opts=opts_t, device=dev)(xp19)
         torch.cuda.synchronize()
         walls19[name19] = time.perf_counter() - t_19
         cnt19[name19] = run_counts()
@@ -3171,7 +3250,8 @@ def main():
     both19 = (st_k <= 1) & (st_p <= 1)
     rel19 = np.where(both19, np.abs(A_k19 - A_p19) / np.abs(A_p19), 0.0)
     c19 = cnt19["fused"]
-    print(f"f64 ladder at config #2 (10 rungs, 2 members from near the "
+    print(f"f64 ladder at config #2 ({F64_RUNGS} rungs, 2 members from "
+          f"near the "
           f"truth, rf0 = RM, pgtol 1e-8), K6's fused launch against the "
           f"autograd action: mutually converged rungs "
           f"{int(both19.sum())}/{both19.size}; max rel A difference "
@@ -3466,17 +3546,18 @@ def main():
     for k in (0, 60, MAIN["n_beta"] - 1):
         rf_k = rung_rf(np.float32(rf0), MAIN["alpha"], k, torch.float32)
         XP_k = res23.paths[:, k].contiguous()
-        A, G = ag.agt_kernel(XP_k, rf_k, c5)
-        A_r, G_r = ag.agt_reference(XP_k, rf_k, c5)
-        A_x, G_x = ag.agt_reference(XP_k.double(), rf_k, c5d)
-        errs = [float(torch.max(torch.abs(u.double() - ex)))
-                for u, ex in ((A, A_x), (A_r, A_x), (G, G_x), (G_r, G_x))]
+        errs, at, med, (A, G, A_r, G_r) = minimizer_errs(
+            ag.agt_kernel, ag.agt_reference, XP_k, rf_k, c5, c5d)
         err_k5 = max(err_k5, float(torch.max(torch.abs(A - A_r))),
                      float(torch.max(torch.abs(G - G_r))))
         ratio_k5 = max(ratio_k5, err_ratio(errs))
         print(f"K5 f32 at the K5 ladder's minimizer of rung {k}: error vs "
-              f"f64, kernel / plain f32: A {errs[0]:.3e} / {errs[1]:.3e}, "
-              f"gradient {errs[2]:.3e} / {errs[3]:.3e} (bound 4x plain)")
+              f"f64, the kernel's at the minimizer / the plain f32 "
+              f"version's median over 24 f32 neighbours: A {errs[0]:.3e} / "
+              f"{errs[1]:.3e}, gradient {errs[2]:.3e} / {errs[3]:.3e} "
+              f"(bound 4x plain; the plain version's at the minimizer A "
+              f"{at[0]:.3e}, gradient {at[1]:.3e}; the kernel's median A "
+              f"{med[0]:.3e}, gradient {med[1]:.3e})")
         check(errs[0] <= 4.0 * errs[1] and errs[2] <= 4.0 * errs[3],
               f"K5 disagrees with its plain version at rung {k}")
     phase("23 K5 ladder", t0)
@@ -3487,19 +3568,51 @@ def main():
     for G_ in solve_pack.GROUPS:
         for dtype in (torch.float32, torch.float64):
             for bd in (False, True):
-                a = solve_pack.kernel_attrs(G_, dtype, bd)
-                pack_attrs[(G_, str(dtype)[6:], bd)] = a
-                print(f"K8 kernel G={G_} {str(dtype)[6:]} "
-                      f"{'bounded' if bd else 'unbounded'}: {a['regs']} "
-                      f"registers, {a['local_bytes']} bytes of local memory "
-                      f"(spills and stack), at most {a['max_threads']} "
-                      "threads a block")
+                # G = 256 takes K2's layouts: the global one's chunk and the
+                # on-chip one's
+                for lay in ((0, solve.VECTORS | solve.HISTORY) if G_ == 256
+                            else (0,)):
+                    a = solve_pack.kernel_attrs(G_, dtype, bd, lay)
+                    k2a = solve.kernel_attrs(False, dtype, bd, lay)
+                    pack_attrs[(G_, str(dtype)[6:], bd, lay)] = a
+                    print(f"K8 kernel G={G_} {str(dtype)[6:]} "
+                          f"{'bounded' if bd else 'unbounded'} layout {lay}: "
+                          f"{a['regs']} registers, {a['local_bytes']} bytes "
+                          f"of local memory (spills and stack; K2's kernel "
+                          f"of the same chunk {k2a['local_bytes']}), at most "
+                          f"{a['max_threads']} threads a block")
+                    check(a["regs"] <= 255 and a["max_threads"] >= 256,
+                          f"K8 G={G_}: {a}")
+                    check(dtype != torch.float32
+                          or a["local_bytes"] <= k2a["local_bytes"],
+                          f"K8 G={G_} f32 takes more local memory than K2's "
+                          f"call frame: {a} vs {k2a}")
+    # no f32 K8 kernel spills: ptxas's report of phase 2's build, each
+    # entry's spill stores and loads and those of the functions it calls
+    spills, entry = {}, None
+    for ln in built["pack_kernel"].log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif entry and "bytes spill stores" in ln:
+            st, ld = (int(x.split()[0]) for x in ln.split(",")[1:3])
+            spills[entry] = spills.get(entry, 0) + st + ld
+    f32_spills = {k: v for k, v in spills.items()
+                  if "l96_pack_kernelIf" in k}
+    if built["pack_kernel"].log:        # built here, not loaded from disk
+        print(f"K8 f32 kernels (ptxas): {len(f32_spills)} entries, spill "
+              f"bytes {sorted(set(f32_spills.values()))}; f64: "
+              + str(sorted(v for k, v in spills.items()
+                           if "l96_pack_kernelId" in k)))
+        check(len(f32_spills) == 8 and not any(f32_spills.values()),
+              f"K8 f32 kernels spill: {f32_spills}")
+    else:
+        print("K8 spills: not read (the library was loaded from disk)")
     err_k8 = rel_k8 = 0.0
     n8 = 0                  # K8 launches of this phase
     for dtype in (torch.float64, torch.float32):
         c = ag.ag_consts(spec, dev, dtype)
         c_cpu = ag.ag_consts(spec, "cpu", dtype)
-        for B_, kp in ((4, 2), (5, 2), (6, 3), (4, 4)):
+        for B_, kp in ((4, 2), (5, 2), (6, 3), (4, 4), (8, 8)):
             G_ = solve_pack.pack_group(kp)
             check(solve_pack.pack_supported(spec, 1.0, opts_s, kp, dtype,
                                             device=dev),
@@ -3614,6 +3727,44 @@ def main():
           f"{ms_k2_24:.4f} ms (CUDA events); plain {ms_p8:.4f} ms; bound "
           f"{bound_k8[0]:.3e} ms ({bound_k8[1]}: {bound_k8[2]} bytes, "
           f"{bound_k8[3]} operations)")
+    # where packing can pay: K2 against K8 at packs 2, 4 and 8, a launch
+    # each, on these short solves at B = 1, 2 and 4 times the SM count and
+    # at config #5's shape (D=400, B=1024): printed, not held
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ab24 = {}
+    for label, sp, tw_, c_, Bs in (
+            ("config #1", spec, tw, c32, (sms, 2 * sms, 4 * sms)),
+            ("config #5", spec5, tw5, ag.ag_consts(spec5, dev, torch.float32),
+             (1024,))):
+        rf_ab = rung_rf(np.float32(4e-6 * tw_["RM"]), MAIN["alpha"], 50,
+                        torch.float32)
+        for B_ in Bs:
+            Z = torch.tensor(member_draws(sp, tw_, 24, B_),
+                             dtype=torch.float32, device=dev)
+            reps = 1 if B_ >= 1024 else 3
+            row = {}
+            for kp in (1, 2, 4, 8):
+                def one(kp=kp):
+                    if kp == 1:
+                        return solve.solve_kernel(Z, rf_ab, c_, opts_s)
+                    return solve_pack.pack_kernel(Z, rf_ab, c_, opts_s, kp)
+                r_ab = one()            # the warm-up too
+                ms_ab = events_ms(one, n=reps, warm=0)
+                bnd_ab = solve_bound(sp, torch.float32, B_, 1,
+                                     int(r_ab.nfev.sum()),
+                                     int(r_ab.niter.sum()), opts_s.m,
+                                     rungs=1)
+                row[kp] = (ms_ab, bnd_ab, int(r_ab.nfev.sum()))
+            ab24[(label, B_)] = row
+            print(f"pack A/B ({label}, B={B_}, f32, maxiter 30, the rf of "
+                  f"beta 50, one launch): " + "; ".join(
+                      f"{'K2' if kp == 1 else f'K8 pack {kp} (G={solve_pack.pack_group(kp)})'}"
+                      f" {v[0]:.4f} ms (bound {v[1][0]:.3e} ms, {v[1][1]}; "
+                      f"nfev {v[2]})" for kp, v in row.items())
+                  + "; K2 / K8: " + ", ".join(
+                      f"pack {kp} {row[1][0] / row[kp][0]:.3f}x"
+                      for kp in (2, 4, 8)))
+            del Z
     phase("24 K8 vs K2 and plain", t0)
 
     # ---- 25. the bench with BENCH_PACK -------------------------------------
@@ -3661,24 +3812,6 @@ def main():
     print(f"K8 on its path (BENCH_PACK=2): {k8_main[0]:.4f} ms a launch, "
           f"{k8_main[1]:.3f} us an evaluation (CUDA events around each "
           "launch)")
-    # packing against K2 at pack_ab.py's scale (B=64, maxiter 150, 101
-    # rungs): printed, not held
-    ab = {}
-    for kp in (1, 2, 4):
-        with contextlib.redirect_stdout(io.StringIO()), \
-                contextlib.redirect_stderr(io.StringIO()):
-            run = bench.main(device=dev, env=dict(
-                BENCH_SOLVER="fused", BENCH_PACK=str(kp), BENCH_NINIT="64",
-                BENCH_MAXITER="150", BENCH_TAIL64="0"))
-        ab[kp] = (run.out["value"], run.total_nfev, run.launches)
-    print("pack A/B at B=64, maxiter 150, 101 f32 rungs (s/init, total nfev):"
-          + "; ".join(f" {'K2' if kp == 1 else f'K8 pack {kp}'} "
-                      f"{v[0]:.6f} s/init, nfev {v[1]}"
-                      for kp, v in ab.items())
-          + f"; K8 against K2: pack 2 {ab[1][0] / ab[2][0]:.3f}x, pack 4 "
-          f"{ab[1][0] / ab[4][0]:.3f}x")
-    check(ab[1][2]["rung"] > 0 and ab[2][2]["pack"] > 0
-          and ab[4][2]["pack"] > 0, f"pack A/B launches {ab}")
     phase("25 bench BENCH_PACK", t0)
 
     # ---- 26. BASELINE config #5 through K1's engine and K2 -----------------
@@ -3749,12 +3882,29 @@ def main():
              launches=facade["generic"][1]["k7a"], max_abs_err=err_k7a,
              max_rel_err=e_k7[0], ms=ms_k7a, device_ms=dev_k7a,
              plain_ms=ms_p7a, bound_ms=bound_k7a[0], bound_by=bound_k7a[1],
+             cluster=k7t[n]["plan"][0].size,
+             wide_n=N_WIDE, wide_cluster=k7t[N_WIDE]["plan"][0].size,
+             wide_ms=k7t[N_WIDE]["k7a"], wide_device_ms=k7t[N_WIDE]["k7a_dev"],
+             wide_plain_ms=k7t[N_WIDE]["p7a"],
+             wide_bound_ms=k7t[N_WIDE]["b7a"][0],
+             registers={f"m{m_}": [a["regs"], a["local_bytes"]]
+                        for (m_, st), a in k7_attrs.items() if not st},
              **line),
         dict(name="fused_step", source=src_dir,
              replaces="varanneal_tpu/kernels/dir_pallas.py:184",
              launches=launch_f["k7b"], max_abs_err=err_k7b,
-             max_rel_err=e_k7[1], ms=ms_k7b, plain_ms=ms_p7b,
-             bound_ms=bound_k7b[0], bound_by=bound_k7b[1], **line),
+             max_rel_err=e_k7[1], ms=ms_k7b, device_ms=dev_k7b,
+             plain_ms=ms_p7b, bound_ms=bound_k7b[0], bound_by=bound_k7b[1],
+             cluster=k7t[n]["plan"][1].size,
+             loop_device_us_per_iter=pl["auto"]["k7b_us"]
+             / pl["auto"]["niter"],
+             wide_n=N_WIDE, wide_cluster=k7t[N_WIDE]["plan"][1].size,
+             wide_ms=k7t[N_WIDE]["k7b"], wide_device_ms=k7t[N_WIDE]["k7b_dev"],
+             wide_plain_ms=k7t[N_WIDE]["p7b"],
+             wide_bound_ms=k7t[N_WIDE]["b7b"][0],
+             registers={f"m{m_}": [a["regs"], a["local_bytes"]]
+                        for (m_, st), a in k7_attrs.items() if st},
+             **line),
         dict(name="l96_ag_trap_comp",
              source="varanneal_tpu_torch/kernels/csrc/ag_kernel.cu",
              replaces="varanneal_tpu/kernels/ag_pallas.py:336",
@@ -3845,9 +3995,13 @@ def main():
         max_rel_err=rel_k8, ms=ms8[2], plain_ms=ms_p8,
         main_ms=k8_main[0], us_per_eval=k8_main[1],
         bound_ms=bound_k8[0], bound_by=bound_k8[1], pack4_ms=ms8[4],
-        k2_ms=ms_k2_24, registers={f"G{g}_{d}{'_bounded' if bd else ''}":
-                                   [a["regs"], a["local_bytes"]]
-                                   for (g, d, bd), a in pack_attrs.items()},
+        k2_ms=ms_k2_24, registers={
+            f"G{g}_{d}{'_bounded' if bd else ''}_layout{lay}":
+            [a["regs"], a["local_bytes"]]
+            for (g, d, bd, lay), a in pack_attrs.items()},
+        pack_ab={f"{lab} B={b_}": {f"pack{kp}": v[0]
+                                   for kp, v in row.items()}
+                 for (lab, b_), row in ab24.items()},
         **line))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -290,3 +290,47 @@ def test_direction_resolution():
         kdir.compact_dir_kernel(x32, torch.zeros(2, 10, 10),
                                 torch.zeros(2, dtype=torch.int32),
                                 torch.zeros(2, dtype=torch.int32))
+
+
+# (n, B) -> blocks a member of K7b at m = 5 on a card of 132 SMs: one
+# block for every 512 columns, at most 8, at most the SMs over B (one
+# block a member at B = 1024), at least as many as keep a slice's rows
+# in a block's shared memory (8 at n = 32,768)
+_CLUSTER_SIZE = {(1, 1): 1, (1, 4): 1, (1, 1024): 1,
+                 (37, 1): 1, (37, 4): 1, (37, 1024): 1,
+                 (3221, 1): 7, (3221, 4): 7, (3221, 1024): 1,
+                 (32768, 1): 8, (32768, 4): 8, (32768, 1024): 8}
+
+
+@pytest.mark.parametrize("n", [1, 37, 3221, 32768])
+@pytest.mark.parametrize("B", [1, 4, 1024])
+def test_cluster_plan(n, B):
+    """K7's launch plan (kernels/dir.py::cluster_plan), a pure function:
+    the cluster's blocks cover the n columns with none empty, within the
+    portable 8; a block's shared memory is its fixed area and the rows it
+    keeps, within 227 KB; at m <= 5 every row of a slice stays on chip
+    (the history, s, y and g read once), at m = 6 and 7 the history's
+    rows do up to n = 32,528 (m = 7 at n = 32,768: one row read again);
+    at the main shape (n = 3,221, B = 4) 7 blocks of 461 columns."""
+    assert kdir.cluster_plan(n, 5, B).size == _CLUSTER_SIZE[(n, B)]
+    for m in range(1, 8):
+        for step in (False, True):
+            p = kdir.cluster_plan(n, m, B, step)
+            assert 1 <= p.size <= kdir.MAX_CLUSTER
+            assert p.width == -(-n // p.size)
+            assert (p.size - 1) * p.width < n <= p.size * p.width
+            assert p.smem_bytes == (kdir.fixed_bytes(m, step)
+                                    + 4 * p.rows * p.width)
+            assert p.smem_bytes <= kdir.SMEM_LIMIT
+            rows = kdir.slice_rows(m, step)
+            if m <= 5:
+                assert p.rows == rows
+            elif m == 6 or n < 32768:
+                assert p.rows >= 2 * m
+            else:
+                assert p.size == 8 and p.rows == 13
+            if n <= 512 or B >= 133:        # one block a member fits
+                assert p.size == 1 or n == 32768
+    if (n, B) == (3221, 4):
+        assert kdir.cluster_plan(n, 5, B) == kdir.ClusterPlan(
+            7, 461, 13, kdir.fixed_bytes(5, True) + 4 * 13 * 461)

@@ -411,23 +411,34 @@ def _dir_close(d_k, d_p, d_64):
                                              max=7.2e-5)))
 
 
-@pytest.mark.parametrize("m", [5, 7])
-def test_dir_kernels_match_plain(cuda, m):
-    """K7a and K7b at n = 3,221 for every (head, hlen) of an m-history,
-    four members a launch, inputs from a seeded NumPy generator: the
-    direction as _dir_close says, history rows and max|g| rtol 1e-6, Σ|g|
-    rtol 1e-5, good/head/hlen exact; repeats bit-identical; a member with
-    run = 0 left as it was."""
-    n = 3221
-    rng = np.random.default_rng(m)
+@pytest.mark.parametrize("m,n,B", [
+    (5, 3221, 4), (7, 3221, 4), (5, 37, 4), (7, 37, 4), (5, 32768, 4),
+    (7, 32768, 4), (5, 3221, 1), (7, 3221, 133)])
+def test_dir_kernels_match_plain(cuda, m, n, B):
+    """K7a and K7b, one cluster of blocks a member (kernels/dir.py's
+    cluster_plan: 1 block at n = 37 and at B = 133, 4 at the main shape,
+    8 at n = 32,768, where at m = 7 one history row stays off chip), for
+    every (head, hlen) of an m-history (a subset at n = 32,768), B members
+    a launch, inputs from a seeded NumPy generator: the direction as
+    _dir_close says, history rows and max|g| rtol 1e-6, Σ|g| rtol 1e-5,
+    good/head/hlen exact; repeats bit-identical; every member with run = 0
+    left as it was; a block's shared memory as the plan counts it."""
+    rng = np.random.default_rng(m + n + B)
     pairs = [(h, l) for h in range(m) for l in range(m + 1)]
-    for i in range(0, len(pairs), 4):
-        batch = pairs[i:i + 4]
-        B = len(batch)
+    if n > 4096:
+        pairs = pairs[::5]
+    lib = kdir._lib()
+    batches = range(0, len(pairs), B) if B < len(pairs) else [0]
+    for i in batches:
+        batch = [pairs[(i + j) % len(pairs)] for j in range(B)]
         H = _histories(rng, m, batch, n, cuda)
-        hd = torch.tensor([p[0] for p in batch], dtype=torch.int32,
+        for step in (False, True):
+            p = kdir.launch_plan(H, step)
+            assert lib.va_dir_smem(m, int(step), p.width,
+                                   p.rows) == p.smem_bytes
+        hd = torch.tensor([q[0] for q in batch], dtype=torch.int32,
                           device=cuda)
-        hl = torch.tensor([p[1] for p in batch], dtype=torch.int32,
+        hl = torch.tensor([q[1] for q in batch], dtype=torch.int32,
                           device=cuda)
         g = torch.tensor(rng.normal(size=(B, n)), dtype=torch.float32,
                          device=cuda)
@@ -443,8 +454,9 @@ def test_dir_kernels_match_plain(cuda, m):
                          device=cuda) for _ in range(4))
         x_new = x_old + 0.1 * dx
         g_new = g_old + 0.1 * dg
-        ls_ok = torch.tensor([True, False, True, True][:B], device=cuda)
-        run = torch.tensor([True, True, False, True][:B], device=cuda)
+        idx = torch.arange(i, i + B, device=cuda)
+        ls_ok = idx % 4 != 1
+        run = idx % 4 != 2
         args = (x_old, x_new, g_old, g_new)
         Hk, hk, lk = H.clone(), hd.clone(), hl.clone()
         Hp, hp, lp = H.clone(), hd.clone(), hl.clone()
@@ -462,17 +474,18 @@ def test_dir_kernels_match_plain(cuda, m):
                                    atol=0)
         torch.testing.assert_close(sc_k[:, 2], sc_p[:, 2], rtol=1e-5,
                                    atol=0)
-        assert _dir_close(d_k[run], d_p[run], d_64[run])
+        if run.any():
+            assert _dir_close(d_k[run], d_p[run], d_64[run])
         assert torch.equal(d_k[~run], d_p[~run])
-        if B > 2:                      # member 2 has ended: untouched
-            assert torch.equal(Hk[2], H[2])
-            assert (int(hk[2]), int(lk[2])) == (int(hd[2]), int(hl[2]))
+        ended = ~run
+        assert torch.equal(Hk[ended], H[ended])       # untouched
+        assert torch.equal(hk[ended], hd[ended])
+        assert torch.equal(lk[ended], hl[ended])
         Hk2, hk2, lk2 = H.clone(), hd.clone(), hl.clone()
         d_k2, sc_k2 = kdir.fused_step_kernel(Hk2, *args, hk2, lk2, ls_ok,
                                              run)
         assert torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
         assert torch.equal(Hk, Hk2)
-
 
 
 def _fe_specs():
@@ -772,9 +785,15 @@ def test_agt_kernel_matches_plain(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_pack_kernel_matches_k2(cuda, dtype):
     """K8 (kernels/csrc/pack_kernel.cu): one launch a call; at pack 2
-    (G = 256) bit-identical to K2, the batch of 5 padded, unbounded and in
-    phase 12's box; at pack 3 (G = 128) K2's counts, f64 x within 1e-8
-    and f32 f within 1e-4 relative of the plain version's."""
+    (G = 256, K2's layout plan) bit-identical to K2, the batch of 5
+    padded, unbounded and in phase 12's box; at packs 3, 4 and 8 (G = 64,
+    64, 32) K2's counts, f64 x within 1e-8 and f32 f within 1e-4 relative
+    of the plain version's; the block's shared memory as pack_layout
+    counts it; every built kernel within 255 registers a
+    thread, and in f32 with no more local memory than K2's kernel of the
+    same chunk: the call frame of the non-inlined solve_one's
+    by-reference arguments (184 B; 200 B bounded), no spill (the first
+    port's packs of 3–8 spilled: 472 B)."""
     spec, tw = _main_spec()
     c = ag.ag_consts(spec, cuda, dtype)
     opts = LBFGSOptions(maxiter=30, m=5, pgtol=1e-4, ftol=1e-6)
@@ -789,15 +808,34 @@ def test_pack_kernel_matches_k2(cuda, dtype):
         assert solve_pack.PACK_LAUNCHES == n0 + 1
         r2 = solve.solve_kernel(Z, rf, c, opts, *box)
         assert all(torch.equal(u, v) for u, v in zip(r8, r2))
-    r3 = solve_pack.pack_kernel(Z, rf, c, opts, 3)
-    rp = solve_pack.pack_reference(Z, rf, c, opts, 3)
-    for k in ("niter", "nfev", "status"):
-        assert torch.equal(getattr(r3, k), getattr(rp, k))
-    if dtype == torch.float64:
-        scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
-        assert float(torch.max(torch.abs(r3.x - rp.x) / scale)) <= 1e-8
-    else:
-        assert float(torch.max(torch.abs(r3.f - rp.f)
-                               / torch.abs(rp.f))) <= 1e-4
-    assert solve_pack.pack_supported(spec, 1.0, opts, 4, dtype, device=cuda)
-    assert solve_pack.kernel_attrs(128, dtype)["max_threads"] >= 512
+    for pack in (3, 4, 8):
+        rk = solve_pack.pack_kernel(Z, rf, c, opts, pack)
+        rp = solve_pack.pack_reference(Z, rf, c, opts, pack)
+        for k in ("niter", "nfev", "status"):
+            assert torch.equal(getattr(rk, k), getattr(rp, k))
+        if dtype == torch.float64:
+            scale = torch.amax(torch.abs(rp.x), dim=1, keepdim=True)
+            assert float(torch.max(torch.abs(rk.x - rp.x) / scale)) <= 1e-8
+        else:
+            assert float(torch.max(torch.abs(rk.f - rp.f)
+                                   / torch.abs(rp.f))) <= 1e-4
+        assert solve_pack.pack_supported(spec, 1.0, opts, pack, dtype,
+                                         device=cuda)
+    lib = solve_pack._lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for pack in (1, 2, 3, 4, 8):       # the block's shared memory: C's
+        for B in (4, 264):
+            lay = solve_pack.pack_layout(spec, dtype, pack, 5, B, False, sms)
+            assert lib.va_l96_pack_smem(
+                spec.D, spec.n_dof, 5, pack, solve_pack.pack_group(pack),
+                lay.flags, int(dtype == torch.float64)) == lay.smem_bytes
+    for G in solve_pack.GROUPS:
+        for bounded in (False, True):
+            for layout in ((0, solve.VECTORS | solve.HISTORY) if G == 256
+                           else (0,)):
+                a = solve_pack.kernel_attrs(G, dtype, bounded, layout)
+                assert a["regs"] <= 255 and a["max_threads"] >= 256
+                k2 = solve.kernel_attrs(False, dtype, bounded, layout)
+                if dtype == torch.float32:
+                    assert a["local_bytes"] <= k2["local_bytes"], (
+                        G, bounded, layout, a, k2)

@@ -167,7 +167,7 @@ def test_envelope(problem):
     tw, sj, st = problem
     opts = LBFGSOptions(m=5)
     assert [solve_pack.pack_group(k) for k in range(10)] == [
-        None, 256, 256, 128, 128, 64, 64, 64, 64, None]
+        None, 256, 256, 64, 64, 32, 32, 32, 32, None]
     for k in range(1, 9):
         assert solve_pack.pack_supported(st, 1.0, opts, k, device=CPU)
         assert solve_pack.pack_supported(st, 1.0, opts, k, torch.float64,
@@ -180,24 +180,24 @@ def test_envelope(problem):
         st, np.ones((st.N_f - 1, st.D)), opts, 2, device=CPU)
     assert not solve_pack.pack_supported(
         dataclasses.replace(st, disc="euler"), 1.0, opts, 2, device=CPU)
-    # shared memory: eight f64 groups' rings at D = 400 pass 227 KB, so
-    # they go to the members' workspaces (the first port refused every
-    # pack whose (N_f - 1) * D residuals passed it); a pack of one keeps
-    # its rings on chip; past the 32-bit index range the pack is refused
-    tw2 = lorenz96_twin(D=400, N_data=9, n_obs=8)
-    big = build_spec(lorenz96, 400, tw2["Y"], tw2["t"], tw2["Lidx"],
+    # shared memory: eight f64 one-warp groups' rings at D = 700 pass 227
+    # KB, so they go to the members' workspaces (the first port refused
+    # every pack whose (N_f - 1) * D residuals passed it); a pack of one
+    # takes K2's plan; past the 32-bit index range the pack is refused
+    tw2 = lorenz96_twin(D=700, N_data=9, n_obs=8)
+    big = build_spec(lorenz96, 700, tw2["Y"], tw2["t"], tw2["Lidx"],
                      tw2["RM"], P=np.array([4.0]), pidx=[0])
-    assert solve_pack.smem_bytes(big, torch.float64, 8) > ag.SMEM_LIMIT
-    assert solve_pack.smem_bytes(big, torch.float64, 8, ring=False) \
-        <= ag.SMEM_LIMIT
-    assert solve_pack.pack_layout(big, torch.float64, 8) == solve.RING_OFF
-    assert solve_pack.pack_layout(big, torch.float64, 1) == 0
+    f64 = torch.float64
+    assert 8 * solve._smem_bytes(700, f64, 1) > ag.SMEM_LIMIT
+    lay = solve_pack.pack_layout(big, f64, 8, 5, 8)
+    assert lay.flags == solve.RING_OFF
+    assert lay.smem_bytes == 8 * solve._smem_bytes(700, f64, 1, ring=False)
+    assert lay.smem_bytes <= ag.SMEM_LIMIT
+    assert lay.work_elems == (15 * big.n_dof + 10 + ag.ring_elems(700, 1))
+    assert solve_pack.pack_layout(big, f64, 1, 5, 1) == solve.plan_layout(
+        700, big.n_dof, 5, f64, False, 1, 132)
     for k in (1, 4, 8):
-        assert solve_pack.pack_supported(big, 1.0, opts, k, torch.float64,
-                                         device=CPU)
-    c = ag.ag_consts(big, CPU, torch.float64)
-    assert solve_pack.work_elems(c, 5, 8, solve.RING_OFF) == (
-        15 * big.n_dof + 10 + ag.ring_elems(400, 2))
+        assert solve_pack.pack_supported(big, 1.0, opts, k, f64, device=CPU)
     huge = dataclasses.replace(st, N_f=2 ** 22, D=512)
     assert not solve_pack.pack_supported(huge, 1.0, opts, 2, device=CPU)
     with pytest.raises(ValueError):
@@ -213,22 +213,54 @@ def test_envelope(problem):
 
 
 def test_block_groups():
-    """At G = 256 (packs of 1 and 2) a block holds one member, so that it
-    keeps K2's 255 registers a thread; at G = 128 and 64 the pack's
-    groups share a block. Shared memory is counted for a block's groups,
-    so a pack of 2 needs one member's."""
+    """The group rule: packs of 1–2 run one member a block of 256 threads
+    (K2's arrangement), packs of 3–4 groups of 64 and packs of 5–8 groups
+    of 32 (one warp a member), so that no block has more than 256 threads
+    and every thread may keep 255 registers (65,536 / 256), as K2's do.
+    Packs of 1–2 take solve.plan_layout's plan itself (vectors, history
+    and box in shared memory at up to one member an SM, the global layout
+    above); packs of 3–8 keep every vector in the workspace and their
+    groups' areas in shared memory, the block's groups' times one
+    member's."""
+    assert [solve_pack.pack_group(k) for k in range(1, 9)] == [
+        256, 256, 64, 64, 32, 32, 32, 32]
     assert [solve_pack.block_groups(k) for k in range(1, 9)] == [
         1, 1, 3, 4, 5, 6, 7, 8]
+    assert solve_pack.PACK_MAX_THREADS * 255 <= 65536
+    for k in range(1, 9):
+        assert (solve_pack.block_groups(k) * solve_pack.pack_group(k)
+                <= solve_pack.PACK_MAX_THREADS)
+    tw = lorenz96_twin(D=20, N_data=161, n_obs=8)
+    main = build_spec(lorenz96, 20, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                      P=np.array([4.0]), pidx=[0])
+    n = main.n_dof
+    for dt in (torch.float32, torch.float64):
+        for bounded in (False, True):
+            for B in (4, 132, 133, 264):
+                for k in (1, 2):
+                    assert solve_pack.pack_layout(
+                        main, dt, k, 5, B, bounded, 132) == solve.plan_layout(
+                            20, n, 5, dt, bounded, B, 132)
+            for k in range(3, 9):
+                lay = solve_pack.pack_layout(main, dt, k, 5, 264, bounded)
+                G = solve_pack.pack_group(k)
+                assert lay == solve.Layout(
+                    0, k * solve._smem_bytes(20, dt, G // 32),
+                    15 * n + 10)
+    # the main shape in f32: K2's all-on-chip layout at up to one member an
+    # SM (~196 KB a block, no workspace), the global layout above it
+    lay = solve_pack.pack_layout(main, torch.float32, 2, 5, 4)
+    assert lay.flags == solve.VECTORS | solve.HISTORY
+    assert lay.work_elems == 0 and lay.smem_bytes <= ag.SMEM_LIMIT
+    assert solve_pack.pack_layout(main, torch.float32, 2, 5, 264).flags == 0
     tw = lorenz96_twin(D=400, N_data=9, n_obs=8)
     big = build_spec(lorenz96, 400, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
                      P=np.array([4.0]), pidx=[0])
     for dt in (torch.float32, torch.float64):
-        one = solve._smem_bytes(400, dt, 8)
-        assert solve_pack.smem_bytes(big, dt, 1) == one
-        assert solve_pack.smem_bytes(big, dt, 2) == one
-        assert solve_pack.smem_bytes(big, dt, 3) == 3 * solve._smem_bytes(
-            400, dt, 4)
-        assert solve_pack.pack_layout(big, dt, 2) == 0
+        assert solve_pack.pack_layout(big, dt, 3, 5, 6).smem_bytes == (
+            3 * solve._smem_bytes(400, dt, 2))
+        assert solve_pack.pack_layout(big, dt, 8, 5, 8).smem_bytes == (
+            8 * solve._smem_bytes(400, dt, 1))
 
 
 def test_bench_pack(capsys):

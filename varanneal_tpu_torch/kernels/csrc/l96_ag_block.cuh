@@ -108,7 +108,9 @@ struct BlockGroup {
 // G consecutive threads of the block (G a multiple of 32, so every warp
 // lies in one group): group threadIdx.x / G, synchronized by the named
 // barrier 1 + that index (barrier 0 is __syncthreads'), counting G
-// threads. Groups never wait for each other.
+// threads; a group of one warp (G = 32) by __syncwarp, which orders the
+// warp's shared and global memory accesses as the named barrier does.
+// Groups never wait for each other.
 template <int G>
 struct WarpGroup {
     static_assert(G % 32 == 0 && G >= 32 && G <= 1024, "warp-aligned G");
@@ -120,8 +122,11 @@ struct WarpGroup {
     }
     static __device__ __forceinline__ void sync() {
         VA_COUNT_BARRIER(rank());
-        asm volatile("bar.sync %0, %1;" : : "r"(id() + 1), "n"(G)
-                     : "memory");
+        if constexpr (G == 32)
+            __syncwarp();
+        else
+            asm volatile("bar.sync %0, %1;" : : "r"(id() + 1), "n"(G)
+                         : "memory");
     }
 };
 

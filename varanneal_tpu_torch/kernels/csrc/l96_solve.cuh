@@ -203,12 +203,13 @@ __host__ __device__ inline size_t work_elems(int n, int m, int D, int layout,
            + ((layout & kRingOffChip) ? l96_ag_ring_elems(D, warps) : 0);
 }
 
-// Shared memory of one whole-block member in elements under `layout`: the
-// group's area, then the groups on chip, in the order vectors, history,
-// bounds.
+// Shared memory of one member's group of `warps` warps (the whole block by
+// default) in elements under `layout`: the group's area, then the groups
+// on chip, in the order vectors, history, bounds.
 __host__ __device__ inline size_t layout_smem_elems(int D, int n, int m,
-                                                    int layout) {
-    return solve_smem_elems(D, kAgWarps, !(layout & kRingOffChip))
+                                                    int layout,
+                                                    int warps = kAgWarps) {
+    return solve_smem_elems(D, warps, !(layout & kRingOffChip))
            + ((layout & kVectorsOnChip) ? vectors_elems(n) : 0)
            + ((layout & kHistoryOnChip) ? history_elems(n, m) : 0)
            + ((layout & kBoundsOnChip) ? bounds_elems(n) : 0);

@@ -1,5 +1,6 @@
 """K7a and K7b: the compact-form L-BFGS direction, and the fused
-post-line-search step, one launch each per call.
+post-line-search step, one launch each per call, one cluster of thread
+blocks a member.
 
 Counterpart of ``varanneal_tpu/kernels/dir_pallas.py``
 (``compact_dir_pallas``, ``fused_step``, ``pallas_dir_supported``), whose
@@ -13,7 +14,10 @@ what their design does about it). Beside the kernels this module holds:
   from it with K7b's curvature gate and non-descent fallback;
 - :data:`DIR_LAUNCHES` and :data:`STEP_LAUNCHES`, plain counts of kernel
   launches;
-- :func:`dir_supported` and :func:`dir_predicate`, the envelope.
+- :func:`dir_supported` and :func:`dir_predicate`, the envelope;
+- :func:`cluster_plan`, the launch plan: the blocks of a member's
+  cluster, the columns each owns and the rows of its slice it keeps in
+  shared memory.
 
 The port keeps the history as the joint (B, 2m, n) tensor of
 ``opt/lbfgs.py`` (rows [0, m) the steps s, rows [m, 2m) the gradient
@@ -28,6 +32,8 @@ CUDA tensor it launches its kernel or raises; it never falls back.
 """
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -49,6 +55,111 @@ MAX_M = 7
 
 #: Columns of K7b's per-member scalar row.
 STEP_FIELDS = ("good", "pgn", "gnorm1", "head", "hlen", "sy", "dphi")
+
+
+#: Threads a block (kThreads in csrc/dir_kernel.cu) and its warps.
+THREADS = 256
+WARPS = THREADS // 32
+#: Most blocks a member's cluster takes: the portable cluster size.
+MAX_CLUSTER = 8
+#: Columns a block is meant to own: one block for every 512 columns (two a
+#: thread), so that a member's bytes pass through c SMs at once; at the
+#: main shape the launch gets shorter up to c = 8, each step less
+#: (PERF.md §6 gives the device times by cluster size).
+CLUSTER_COLS = 512
+#: Shared memory one H100 block can opt into (227 KB).
+SMEM_LIMIT = 232448
+
+
+def n_sums(m: int, step: bool) -> int:
+    """The sums a block accumulates in its read pass (Sums<M,
+    kStep>::kSums): the Gram of the history with g (m² + m(m+1)/2 + 2m)
+    and, for K7b, the new pair against every slot and g (3m + 2) and the
+    gate's five sums; K7b's max|g| is reduced apart."""
+    gram = m * m + m * (m + 1) // 2 + 2 * m
+    return gram + (3 * m + 7 if step else 0)
+
+
+def fixed_bytes(m: int, step: bool) -> int:
+    """A block's shared memory before its slice's rows (DirSmem, rounded up
+    to 16 bytes): the warps' partials (the sums padded to the warp's 32
+    lanes) and max|g|'s, preceded by two 8-byte mbarriers; the inbox of
+    every block's totals and the cluster's totals; the chronological (m,
+    m) system (R, YᵀY, D, Sᵀg, Yᵀg), the contraction weights, the
+    cluster's gᵀd partials and the gate's state."""
+    k = n_sums(m, step)
+    pad = -(-k // 32) * 32
+    tot = k + int(step)
+    words = (4 + WARPS * pad + WARPS + (MAX_CLUSTER + 1) * tot
+             + 2 * m * m + 3 * m + 2 * m + 1 + MAX_CLUSTER + 4)
+    return -(-4 * words // 16) * 16
+
+
+def slice_rows(m: int, step: bool) -> int:
+    """Rows of a slice: the 2m history rows, then s, y and g (K7a: g)."""
+    return 2 * m + (3 if step else 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """A launch of K7a or K7b: ``size`` blocks a member (the cluster), each
+    owning ``width`` contiguous columns (the last may own fewer), keeping
+    the first ``rows`` rows of its slice (:func:`slice_rows`' order) in
+    shared memory, ``smem_bytes`` a block."""
+    size: int
+    width: int
+    rows: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_plan(n: int, m: int, B: int, step: bool = True,
+                 sm_count: int = 132) -> ClusterPlan:
+    """The launch plan of K7b (``step``) or K7a for ``B`` members of ``n``
+    columns and an m-history on a card of ``sm_count`` SMs.
+
+    The cluster takes one block for every :data:`CLUSTER_COLS` columns, at
+    most :data:`MAX_CLUSTER`, and no more than the card's SMs over B (at B
+    >= 133 one block a member: the members fill the card); but at least as
+    many as a slice's rows need to fit in a block's shared memory (all of
+    them where some c <= 8 holds them, else the 2m history rows), so that
+    a block reads its slice once. The rows that fit are kept, in
+    :func:`slice_rows`' order; the kernel reads the rest again from
+    global memory (only past n ~ 30k at m = 6 and ~ 26k at m = 7)."""
+    rows_all = slice_rows(m, step)
+    fixed = fixed_bytes(m, step)
+
+    def fits(c, rows):
+        return fixed + 4 * rows * -(-n // c) <= SMEM_LIMIT
+
+    c_fit = next((c for rows in (rows_all, 2 * m)
+                  for c in range(1, MAX_CLUSTER + 1) if fits(c, rows)),
+                 MAX_CLUSTER)
+    c = max(c_fit, min(MAX_CLUSTER, -(-n // CLUSTER_COLS),
+                       max(1, sm_count // max(B, 1))))
+    return plan_of(n, m, c, step)
+
+
+def plan_of(n: int, m: int, c: int, step: bool = True) -> ClusterPlan:
+    """The plan with ``c`` blocks a member: ceil(n / c) columns a block and
+    as many of a slice's rows on chip as fit."""
+    W = -(-n // c)
+    fixed = fixed_bytes(m, step)
+    rows = min(slice_rows(m, step), (SMEM_LIMIT - fixed) // (4 * W))
+    return ClusterPlan(c, W, rows, fixed + 4 * rows * W)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_plan(H, step: bool = True) -> ClusterPlan:
+    """:func:`cluster_plan` of a launch on the (B, 2m, n) history ``H``,
+    with the SM count of the card that holds it (both cached: a launch
+    of the fused loop pays no planning on the host)."""
+    B, rows, n = H.shape
+    return cluster_plan(n, rows // 2, B, step, _sm_count(H.device))
 
 
 def dir_predicate(n, m, dtype) -> bool:
@@ -124,10 +235,15 @@ def _lib():
     if not getattr(lib, "_va_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.va_compact_dir_f32.restype = I
-        lib.va_compact_dir_f32.argtypes = [P, P, P, P, I, I, I, P, P]
+        lib.va_compact_dir_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, P,
+                                           P]
         lib.va_fused_step_f32.restype = I
         lib.va_fused_step_f32.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
-                                          P, P, P]
+                                          I, I, I, P, P, P]
+        lib.va_dir_smem.restype = ctypes.c_longlong
+        lib.va_dir_smem.argtypes = [I, I, I, I]
+        lib.va_dir_attrs.restype = I
+        lib.va_dir_attrs.argtypes = [I, I, P]
         lib.va_cuda_error_string.restype = ctypes.c_char_p
         lib.va_cuda_error_string.argtypes = [I]
         lib._va_typed = True
@@ -168,21 +284,36 @@ def _raise_on(rc, lib, what):
             f"({lib.va_cuda_error_string(rc).decode()})")
 
 
+def kernel_attrs(m: int, step: bool = True) -> dict:
+    """The built kernel's attributes, K7b (``step``) or K7a at m (building
+    it at first use; needs the card): registers a thread, local memory a
+    thread in bytes (spills and stack), the most threads a block can
+    launch with."""
+    lib = _lib()
+    out = (ctypes.c_int * 3)()
+    _raise_on(lib.va_dir_attrs(int(m), int(bool(step)), out), lib,
+              "cudaFuncGetAttributes of the direction")
+    return dict(regs=out[0], local_bytes=out[1], max_threads=out[2])
+
+
 def compact_dir_kernel(g, H, head, hlen):
-    """Launch K7a: one block per member. ``g`` (B, n), ``H`` (B, 2m, n)
-    float32 and ``head``/``hlen`` (B,) int32, all on one card. Returns d
-    (B, n) on PyTorch's current stream, without synchronizing."""
+    """Launch K7a: one cluster of blocks per member (:func:`launch_plan`).
+    ``g`` (B, n), ``H`` (B, 2m, n) float32 and ``head``/``hlen`` (B,)
+    int32, all on one card. Returns d (B, n) on PyTorch's current stream,
+    without synchronizing."""
     global DIR_LAUNCHES
     B, m, n = _check(H, (g,), (head, hlen))
     g = g.contiguous()
     d = torch.empty_like(g)
     if B:
         lib = _lib()
+        p = launch_plan(H, step=False)
         with torch.cuda.device(H.device):
             stream = torch.cuda.current_stream(H.device).cuda_stream
             rc = lib.va_compact_dir_f32(g.data_ptr(), H.data_ptr(),
                                         head.data_ptr(), hlen.data_ptr(), B,
-                                        m, n, d.data_ptr(), stream)
+                                        m, n, p.size, p.width, p.rows,
+                                        d.data_ptr(), stream)
         _raise_on(rc, lib, "direction")
         DIR_LAUNCHES += 1
     return d
@@ -190,11 +321,11 @@ def compact_dir_kernel(g, H, head, hlen):
 
 def fused_step_kernel(H, x_old, x_new, g_old, g_new, head, hlen, ls_ok,
                       run):
-    """Launch K7b: one block per member, :func:`fused_step_reference`'s
-    function. ``H`` (B, 2m, n), ``head`` and ``hlen`` (B,) int32 are
-    updated in place; ``ls_ok`` and ``run`` are (B,) flags, on the host or
-    the card. Returns (d (B, n), sc (B, 7)) on PyTorch's current stream,
-    without synchronizing."""
+    """Launch K7b: one cluster of blocks per member (:func:`launch_plan`),
+    :func:`fused_step_reference`'s function. ``H`` (B, 2m, n), ``head``
+    and ``hlen`` (B,) int32 are updated in place; ``ls_ok`` and ``run``
+    are (B,) flags, on the host or the card. Returns (d (B, n), sc (B, 7))
+    on PyTorch's current stream, without synchronizing."""
     global STEP_LAUNCHES
     B, m, n = _check(H, (x_old, x_new, g_old, g_new), (head, hlen))
     x_old, x_new, g_old, g_new = (v.contiguous()
@@ -206,13 +337,14 @@ def fused_step_kernel(H, x_old, x_new, g_old, g_new, head, hlen, ls_ok,
                      device=H.device)
     if B:
         lib = _lib()
+        p = launch_plan(H, step=True)
         with torch.cuda.device(H.device):
             stream = torch.cuda.current_stream(H.device).cuda_stream
             rc = lib.va_fused_step_f32(
                 H.data_ptr(), x_old.data_ptr(), x_new.data_ptr(),
                 g_old.data_ptr(), g_new.data_ptr(), head.data_ptr(),
-                hlen.data_ptr(), flags.data_ptr(), B, m, n, d.data_ptr(),
-                sc.data_ptr(), stream)
+                hlen.data_ptr(), flags.data_ptr(), B, m, n, p.size, p.width,
+                p.rows, d.data_ptr(), sc.data_ptr(), stream)
         _raise_on(rc, lib, "fused-step")
         STEP_LAUNCHES += 1
     return d, sc

@@ -17,8 +17,9 @@ bounds, by the projection algorithm. Beside the kernel this module holds:
   mask, the reference's lockstep semantics), the padding dropped;
 - :data:`PACK_LAUNCHES`, a plain count of kernel launches;
 - :func:`pack_supported` (the envelope), :func:`pack_group` (the group
-  size a pack gets) and :func:`kernel_attrs` (the built kernel's
-  registers, local memory and thread limit).
+  size a pack gets), :func:`pack_layout` (where a member's vectors live:
+  K2's own plan at packs of 1–2) and :func:`kernel_attrs` (the built
+  kernel's registers, local memory and thread limit).
 
 The reference's compile probe (``_compile_pack``/``_probe_ok``) has no
 counterpart: the envelope is analytic, the card's limits read from the
@@ -39,20 +40,28 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 #: Launches of the packed solve kernel (K8) so far.
 PACK_LAUNCHES = 0
 
-#: Threads a pack may have (kPackMaxThreads in csrc/pack_kernel.cu: the
-#: launch bound of its blocks at G = 128 and 64, 128 registers a thread).
-PACK_MAX_THREADS = 512
-#: Group sizes the kernel is built for, largest first.
-GROUPS = (256, 128, 64)
+#: Threads a block of packed groups may have (kPackMaxThreads in
+#: csrc/pack_kernel.cu, the launch bound of every K8 block): 65,536
+#: registers / 255 leave room for 256 threads, so each thread keeps up to
+#: 255 registers, as K2's and K3's do. At 512 threads (the first port's
+#: bound) a thread had 128 and the solver's walk spilled.
+PACK_MAX_THREADS = 256
+#: Group sizes the kernel is built for, largest first: 256 (one member a
+#: block, K2's arrangement), 64 and 32 (one warp).
+GROUPS = (256, 64, 32)
 #: The reference's cap on the history of a packed solve.
 MAX_M = 8
 
 
 def pack_group(pack: int):
-    """Threads a member gets in a pack of ``pack``: the largest of
-    :data:`GROUPS` with pack · G <= :data:`PACK_MAX_THREADS` (256 for
-    packs of 1–2, 128 for 3–4, 64 for 5–8), or None beyond."""
-    for G in GROUPS:
+    """Threads a member gets in a pack of ``pack``: 256 for packs of 1–2
+    (one member a block, K2's arrangement and bits), else the largest of
+    :data:`GROUPS` with pack · G <= :data:`PACK_MAX_THREADS` (64 for packs
+    of 3–4, 32 for 5–8), so that a block of the pack's groups keeps 255
+    registers a thread; None beyond."""
+    if pack in (1, 2):
+        return GROUPS[0]
+    for G in GROUPS[1:]:
         if pack >= 1 and pack * G <= PACK_MAX_THREADS:
             return G
     return None
@@ -60,36 +69,35 @@ def pack_group(pack: int):
 
 def block_groups(pack: int) -> int:
     """Groups (members) a block holds for a pack of ``pack``: one at G =
-    256, where a block of one group keeps K2's 255 registers a thread
-    (``block_groups`` in csrc/pack_kernel.cu), else the pack's."""
+    256 (``block_groups`` in csrc/pack_kernel.cu), else the pack's."""
     return 1 if pack_group(pack) == 256 else pack
 
 
-def smem_bytes(spec: ProblemSpec, dtype, pack: int, ring=True) -> int:
-    """Shared memory of one block of a pack of ``pack``: its
-    :func:`block_groups` groups' areas (the solver's partials, which the
-    evaluation's share, and alpha), each one member's of
-    :func:`pack_group`'s warps, with their rings when ``ring``. Every
-    vector stays in the global workspace (K2's global layout)."""
-    return block_groups(pack) * solve._smem_bytes(
-        spec.D, dtype, pack_group(pack) // 32, ring)
-
-
-def pack_layout(spec: ProblemSpec, dtype, pack: int) -> int:
-    """The layout flag of a pack launch: 0, or ``solve.RING_OFF`` where
-    a block's groups' rings do not fit in 227 KB with their areas (the
-    rings then go to the members' workspaces)."""
-    return (0 if smem_bytes(spec, dtype, pack) <= ag.SMEM_LIMIT
-            else solve.RING_OFF)
-
-
-def work_elems(c: ag.AgConsts, m: int, pack: int, flags: int) -> int:
-    """A member's workspace in elements: its vectors and history
-    (work_elems(n, m, D, layout, G / 32) of csrc/l96_solve.cuh) and, under
-    RING_OFF, its group's rings."""
-    return ((5 + 2 * m) * c.n_dof + 2 * m
-            + (ag.ring_elems(c.D, pack_group(pack) // 32)
-               if flags & solve.RING_OFF else 0))
+def pack_layout(spec: ProblemSpec, dtype, pack: int, m: int, B: int,
+                bounded=False, sm_count=132) -> solve.Layout:
+    """Where a pack launch of ``B`` members (the padded batch) keeps each
+    member's vectors, as a :class:`solve.Layout` (flags, a block's shared
+    memory, a member's workspace). Packs of 1–2 (G = 256, one member a
+    block) take K2's plan itself, :func:`solve.plan_layout` for ``B``
+    blocks on a card of ``sm_count`` SMs: vectors, history and box in
+    shared memory where they fit, at up to one member an SM. Packs of 3–8
+    keep every vector in the global workspace (k members' vectors do not
+    fit beside each other) and each group's area in shared memory: the
+    solver's partials, which the evaluation's share, alpha and its rings,
+    :func:`block_groups` times one member's of G / 32 warps; the rings go
+    to the workspaces (``solve.RING_OFF``) where they do not fit in 227
+    KB."""
+    G = pack_group(pack)
+    if G == 256:
+        return solve.plan_layout(spec.D, spec.n_dof, m, dtype, bounded, B,
+                                 sm_count)
+    warps, k = G // 32, block_groups(pack)
+    flags = (0 if k * solve._smem_bytes(spec.D, dtype, warps)
+             <= ag.SMEM_LIMIT else solve.RING_OFF)
+    work = (5 + 2 * m) * spec.n_dof + 2 * m + (
+        ag.ring_elems(spec.D, warps) if flags else 0)
+    return solve.Layout(flags, k * solve._smem_bytes(spec.D, dtype, warps,
+                                                     ring=not flags), work)
 
 
 def _lib():
@@ -103,23 +111,27 @@ def _lib():
             fn.restype = I
             fn.argtypes = common + [I, I, I, Dbl, P, P, I, P, P, P, P, P,
                                     P]
+        lib.va_l96_pack_smem.restype = ctypes.c_longlong
+        lib.va_l96_pack_smem.argtypes = [I, I, I, I, I, I, I]
         lib.va_l96_pack_attrs.restype = I
-        lib.va_l96_pack_attrs.argtypes = [I, I, I, P]
+        lib.va_l96_pack_attrs.argtypes = [I, I, I, I, P]
         lib.va_cuda_error_string.restype = ctypes.c_char_p
         lib.va_cuda_error_string.argtypes = [I]
         lib._va_typed = True
     return lib
 
 
-def kernel_attrs(G: int, dtype=torch.float32, bounded=False) -> dict:
-    """The built kernel's attributes for group size ``G`` (building it at
-    first use; needs the card): registers a thread, local memory a thread
-    in bytes (spills and stack), and the most threads a block can launch
-    with."""
+def kernel_attrs(G: int, dtype=torch.float32, bounded=False,
+                 layout=0) -> dict:
+    """The built kernel's attributes for group size ``G`` under the
+    layout's flags ``layout`` (at G = 256 the chunk follows the layout, as
+    K2's does) (building it at first use; needs the card): registers a
+    thread, local memory a thread in bytes (spills and stack), and the
+    most threads a block can launch with."""
     lib = _lib()
     out = (ctypes.c_int * 3)()
     rc = lib.va_l96_pack_attrs(int(G), int(dtype == torch.float64),
-                               int(bool(bounded)), out)
+                               int(bool(bounded)), int(layout), out)
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes of the packed-solve "
                            f"kernel failed: cudaError {rc} "
@@ -136,15 +148,15 @@ def pack_supported(spec: ProblemSpec, rf, opts: LBFGSOptions, pack: int,
     built kernel can launch (``cudaFuncGetAttributes``'
     maxThreadsPerBlock, read on the card; on the CPU, where the plain
     version runs, the kernel's launch bound).
-    Shared memory bounds nothing: the groups' rings go to the workspace
-    where they do not fit (:func:`pack_layout`). False outside it; it does
+    Shared memory bounds nothing: a member's vectors and the groups'
+    rings go to the workspace where they do not fit (:func:`pack_layout`). False outside it; it does
     not raise. ``device=None`` means the card."""
     G = pack_group(pack)
     if (G is None or not 1 <= opts.m <= MAX_M or opts.maxls < 1
             or np.ndim(rf) != 0 or not ag.ag_supported(spec, 0.0, dtype)):
         return False
     if resolve_device(device).type != "cuda":
-        return pack * G <= PACK_MAX_THREADS
+        return block_groups(pack) * G <= PACK_MAX_THREADS
     return (block_groups(pack) * G
             <= kernel_attrs(G, dtype, bounded)["max_threads"])
 
@@ -207,15 +219,19 @@ def pack_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
     fp = torch.empty(Bp, 2, dtype=XP.dtype, device=XP.device)
     cnt = torch.empty(Bp, 3, dtype=torch.int32, device=XP.device)
     if Bp:
-        flags = pack_layout(c, XP.dtype, pack)
-        work = torch.empty(Bp, work_elems(c, opts.m, pack, flags),
-                           dtype=XP.dtype, device=XP.device)
+        sms = torch.cuda.get_device_properties(
+            XP.device).multi_processor_count
+        lay = pack_layout(c, XP.dtype, pack, opts.m, Bp, lo is not None,
+                          sms)
+        work = torch.empty(Bp, max(lay.work_elems, 1), dtype=XP.dtype,
+                           device=XP.device)
         lib = _lib()
         fn = (lib.va_l96_pack_f32 if c.dtype == torch.float32
               else lib.va_l96_pack_f64)
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*solve._common_args(XPp, c, opts), int(pack), G, flags,
+            rc = fn(*solve._common_args(XPp, c, opts), int(pack), G,
+                    lay.flags,
                     float(rf), *bnd, work.data_ptr(), X.data_ptr(),
                     Gr.data_ptr(), fp.data_ptr(), cnt.data_ptr(), stream)
         solve._raise_on(rc, lib, "packed-solve")
