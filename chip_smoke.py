@@ -184,15 +184,19 @@ timed on its own line:
    short solves in its box through K1 f64 on the card and the plain
    version on the CPU: identical niter, nfev and status, x within 1e-8
    relative, feasible; its time per iteration;
-18. K6's kernels (kernels/csrc/fe_kernel.cu: the one-step pair, and
-   Hermite–Simpson's forward and fused value-and-gradient launch, which
-   also serves autograd's backward) against their plain versions on the card, at data-informed
-   draws (phase 3's pattern, numpy seed 0) and the rf of beta 0, 30, 60,
-   scalar and (N_f-1, D): config #1's shape (D=20, N=161, B=4) under
-   euler, trapezoid and forwardmap, config #2's (D=100, N_f=241,
-   Hermite–Simpson, B=8) and config #5's width (D=400, trapezoid, B=4),
-   each in f64 (value 1e-12 relative, gradient 1e-12 of max|g|) and f32
-   (2e-5, K1's limits), repeats bit-identical; each kernel at its path's
+18. K6's kernels (kernels/csrc/fe_kernel.cu: for each disc a value-only
+   launch and a fused value-and-gradient launch, which also serves
+   autograd's backward: fe_onestep_fwd and fe_onestep_vag, fe_sh_fwd and
+   fe_sh_vag) against their plain versions on the card, the fused
+   launch's value partials bit for bit the value-only launch's, at
+   data-informed draws (phase 3's pattern, numpy seed 0) and the rf of
+   beta 0, 30, 60, scalar and (N_f-1, D): config #1's shape (D=20, N=161,
+   B=1 and 4) under euler, trapezoid and forwardmap, config #2's (D=100,
+   N_f=241, Hermite–Simpson, B=8) and config #5's width (D=400,
+   trapezoid, B=4), each in f64 (value 1e-12 relative, gradient 1e-12 of
+   max|g|) and f32 (2e-5, K1's limits), repeats bit-identical; each
+   launch's grid (blocks, rows or intervals and threads a block)
+   printed; each kernel at its path's
    shape (one member, f32) timed by CUDA events and by torch.profiler,
    beside its plain version, its bound, and the autograd action's
    value+grad (the yardstick); the Hermite–Simpson kernels also at B=8 in
@@ -201,12 +205,13 @@ timed on its own line:
    adjoint of csrc/nakl.cuh against the plain versions (the torch model
    and torch.func.vjp) under Hermite–Simpson at N_f = 6,001 (B=1, and B=4,
    8 and 64: phase 27b's polish and screen batches) and the one-step discs
-   at N_f = 3,001, with Pidx [1..5], all 18 parameters and the 18 in the
-   log model, f64 (1e-12) and f32 (2e-5), scalar and (N_f-1, 4) rf,
-   repeats bit-identical; timed at phase 27's shapes (27b's polish, f64
-   B=4, too); each Hermite–Simpson launch's grid (blocks, intervals and
-   threads a block) and device time printed beside the per-(interval,
-   component) design's it replaced (PAIR_DESIGN_US);
+   at N_f = 3,001 (B=1 and 4), with Pidx [1..5], all 18 parameters and
+   the 18 in the log model, and for the one-step discs Pidx [1..5]
+   without the stimulus, f64 (1e-12) and f32 (2e-5), scalar and (N_f-1,
+   4) rf, repeats bit-identical; timed at phase 27's shapes (27b's
+   polish, f64 B=4, too) and at the one-step shape; each launch's device
+   time printed beside the design's it replaced (PAIR_DESIGN_US; the
+   one-step pair's two launches, ONESTEP_PAIR_US);
 19. an f64 5-rung ladder at config #2 (B=2, from near the twin's truth,
    rf0 = RM, pgtol 1e-8) through K6's value_and_grad (the fused launch)
    and through the autograd action: K6's A within 1e-8 relative of the
@@ -225,17 +230,23 @@ timed on its own line:
    evaluation of the slowest member per rung, the forward once a rung;
 21. the bench with BENCH_ENGINE=pallas: BENCH_SOLVER=xla (B=1, 101
    rungs, the fused loop, then the 20-rung f64 tail through K1 f64):
-   final_A_tail64 within 1e-2 relative of 16.284792, K6's one-step
-   kernels launched and K1 not during the f32 ladders; then
+   final_A_tail64 within 1e-2 relative of 16.284792, one fused one-step
+   launch (fe_onestep_vag) an evaluation and the value-only launch once a
+   rung (the records), K1 not launched during the f32 ladders; then
    BENCH_SOLVER=fused: 101 K2 launches a call and K6's forward only for
    the records;
-22. K5 (kernels/csrc/agt_kernel.cu) against its plain version at config
-   #1's shape (B=4, phase 3's draws) under the trapezoid rule, Euler and
-   a forward map, at observation stride 2 and at D=64 (trapezoid), each
-   with a scalar and an (N_f-1, D) rf at the rf of beta 0, 50, 100, in
-   f64 (1e-12) and f32 (2e-5), value and gradient over max|g|, repeats
-   bit-identical; its times by CUDA events and torch.profiler beside its
-   bound, its plain version, K1 and the autograd action on the same input;
+22. K5 (kernels/csrc/agt_kernel.cu) against its plain version (B=4,
+   phase 3's pattern of draws) under the trapezoid rule, Euler and a
+   forward map at config #1's shape (D=20, N=161), at D=40 and D=64 (the
+   wide walk), at D=64 with N_f=1,001 (past the first port's
+   shared-memory envelope, which refused it), and at observation stride
+   2, each with a scalar and an (N_f-1, D) rf at the rf of beta 0, 50,
+   100, in f64 (1e-12) and f32 (2e-5), value and gradient over max|g|,
+   one launch a call, repeats bit-identical; the built kernels' registers
+   and local memory (ptxas); its times by CUDA events and torch.profiler
+   (every rule and rf kind at D=20 and 64) beside its bound, its plain
+   version, and K1 (events and device time) and the autograd action on
+   the same input;
 23. the K5 ladder: config #1, one member (member 0 of phase 5's inits),
    101 f32 rungs through the fused loop over make_action_ag_t (K5 and
    K7b), then the 20-rung f64 tail through K5 in f64: final_A_tail64
@@ -315,7 +326,8 @@ layout and smem_bytes the planner's at the main shape in f32, registers
 [registers, local bytes] per build, barriers_per_iteration phase 9's
 measured count, and K2's short_b4_ms / short_b264_ms phase 8's
 times in the three layouts; K6's
-launches those of its path, phase 21's xla bench for the one-step kernels,
+launches those of its path, phase 21's xla bench for the one-step kernels
+(fe_onestep_fwd the records, fe_onestep_vag every evaluation),
 phase 20's facade for fe_sh_fwd (the records) and fe_sh_vag (the fused
 launch, every evaluation), its times phase 18's, with K6d's batched_* at
 B=8 in f64 and the ensemble's launches, and the one-step kernels'
@@ -325,7 +337,9 @@ phase 27a's (batched_launches 27b's, launches_by_shape its split by
 dtype and batch), their errors phase 18's NaKL checks and their times
 phase 18's at 27a's shape (f64, B=1; batched_* the screen's f32, B=64;
 polish_* the polish's f64, B=4);
-K5's launches phase 23's, its times phase 22's; K8's launches phase 25's
+K5's launches phase 23's, its times phase 22's (diag_* with an (N_f-1,
+D) rf; k1_ms and k1_device_ms K1's on the same input; d64_* at D=64);
+K8's launches phase 25's
 BENCH_PACK=2 run's, its times phase 24's; K1's, K2's, K3's and K4's
 d400_max_rel_err their phase's check at D=400, K1's d400_ms and K2's
 d400_short_ms phases 3's and 8's times there, K2's
@@ -340,6 +354,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -412,6 +427,13 @@ PIDX3 = [1, 2, 3, 4, 5]
 # keyed (model, kernel, dtype, B), at the shapes phase 18 times: an
 # NVIDIA H100 80GB HBM3 at 700 W, the torch.profiler readings PERF.md §6
 # records
+# Device µs of the one-step pair that fe_onestep_vag replaced (its forward
+# and its backward, two launches an evaluation), keyed (model, dtype, B),
+# at phase 18's one-step timing shapes (Lorenz-96 config #1, NaKL N_f =
+# 3,001, trapezoid): an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6's
+# kernel table (PR 13's readings)
+ONESTEP_PAIR_US = {("l96", "float32", 1): (2.42, 4.51),
+                   ("nakl", "float32", 1): (2.91, 7.14)}
 PAIR_DESIGN_US = {("l96", "sh_fwd", "float32", 1): 6.41,
                   ("l96", "sh_vag", "float32", 1): 6.43,
                   ("l96", "sh_fwd", "float64", 8): 5.26,
@@ -726,32 +748,75 @@ def nakl_draws(spec, tw, B, seed, log=False, dtype=np.float64):
                                dtype=dtype)
 
 
-def plain_k6(X, pest, rf, c):
-    """K6's plain versions on the same (card) tensors: the forward's
-    partials, the gradient rows and the full parameter gradient (B, NP),
-    as fe.fe_partials and fe.fe_adjoint return them."""
-    from varanneal_tpu_torch.kernels import fe
-    P = fe.full_params(pest, c)
-    if c.sh:
-        out = fe.sh_vag_reference(X, pest, rf, c)
-        return (fe.sh_fwd_reference(X, pest, rf, c),
-                fe.sh_join(*out[1:4], c), fe.param_grad(out[4], P, c))
-    g, gp = fe.onestep_bwd_reference(X, pest, rf, c)
-    return (fe.onestep_fwd_reference(X, pest, rf, c), g,
-            fe.param_grad(gp, P, c))
-
-
 def k6_kernels(c):
     """(name, kernel wrapper, plain version) of each K6 kernel of c's
-    disc: the one-step pair, or Hermite–Simpson's forward and fused
-    value-and-gradient launch."""
+    disc: its value-only launch and its fused value-and-gradient launch
+    (fe_onestep_fwd and fe_onestep_vag, or fe_sh_fwd and fe_sh_vag)."""
     from varanneal_tpu_torch.kernels import fe
     if c.sh:
         return (("sh_fwd", fe.sh_fwd_kernel, fe.sh_fwd_reference),
                 ("sh_vag", fe.sh_vag_kernel, fe.sh_vag_reference))
     return (("onestep_fwd", fe.onestep_fwd_kernel, fe.onestep_fwd_reference),
-            ("onestep_bwd", fe.onestep_bwd_kernel,
-             fe.onestep_bwd_reference))
+            ("onestep_vag", fe.onestep_vag_kernel,
+             fe.onestep_vag_reference))
+
+
+def fused_bits(d):
+    """check_k6's verdict on the two launches' value partials, in words."""
+    if d == 0.0:
+        return "the fused launch's value partials the value-only launch's bits"
+    return ("the fused launch's value sums within "
+            f"{d:.3e} of the value-only launch's, not its bits")
+
+
+def check_k6(X, pest, rf, c, tol, label):
+    """K6's two launches of c's disc against the fused launch's plain
+    version on the same card tensors: the value (the value-only launch's
+    partials summed) relative, the gradient rows (the Hermite–Simpson
+    triplet joined by node) and the full parameter gradient over max|g|,
+    each within tol; the fused launch's value partials bit for bit the
+    value-only launch's (required of the one-step pair; under
+    Hermite–Simpson reported, since nvcc contracts the value's terms of
+    fe_sh_fwd and fe_sh_vag differently on some inputs); repeats of both
+    bit-identical. Returns (max abs error of the value partials, of the
+    fused launch's outputs, value rel error, gradient rel error, the
+    largest relative difference between the two launches' value sums, 0
+    when their partials are the same bits)."""
+    from varanneal_tpu_torch.kernels import fe
+    (_, fwd, _), (_, vag, vag_ref) = k6_kernels(c)
+    p_k = fwd(X, pest, rf, c)
+    out = vag(X, pest, rf, c)
+    torch.cuda.synchronize()
+    ref = vag_ref(X, pest, rf, c)
+    P = fe.full_params(pest, c)
+
+    def rows(o):
+        return fe.sh_join(*o[1:4], c) if c.sh else o[1]
+    g_k, g_r = rows(out), rows(ref)
+    gp_k, gp_r = fe.param_grad(out[-1], P, c), fe.param_grad(ref[-1], P, c)
+    v_k, v_r = p_k.sum(1), ref[0].sum(1)
+    rel_v = float(torch.max(torch.abs(v_k - v_r) / torch.abs(v_r)))
+    scale = torch.maximum(torch.amax(torch.abs(g_r), dim=(1, 2)),
+                          torch.amax(torch.abs(gp_r), dim=1))
+    rel_g = float(torch.max(torch.maximum(
+        torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
+        torch.amax(torch.abs(gp_k - gp_r), dim=1)) / scale))
+    err_v = float(torch.max(torch.abs(p_k - ref[0])))
+    err_g = max(float(torch.max(torch.abs(a - b))) for a, b in zip(out, ref))
+    check(rel_v <= tol and rel_g <= tol,
+          f"K6 {label} disagrees with its plain version: value "
+          f"{rel_v:.3e}, gradient {rel_g:.3e}")
+    same = torch.equal(out[0], p_k)
+    check(same or c.sh,
+          f"K6 {label}: the fused launch's value partials are not the "
+          "value-only launch's bits")
+    d_bits = 0.0 if same else float(torch.max(
+        torch.abs(out[0].sum(1) - v_k) / torch.abs(v_k)))
+    check(torch.equal(p_k, fwd(X, pest, rf, c))
+          and all(torch.equal(a, b) for a, b in zip(out, vag(X, pest, rf,
+                                                               c))),
+          f"K6 {label}: a repeat is not bit-identical")
+    return err_v, err_g, rel_v, rel_g, d_bits
 
 
 def k6_times(X, pest, rf, c):
@@ -800,7 +865,13 @@ def print_k6_times(label, t, c, B):
                  + f"{PAIR_DESIGN_US[(c.model, kern, str(c.dtype)[6:], B)]}"
                  " µs (PERF.md §6)"
                  if (c.model, kern, str(c.dtype)[6:], B) in PAIR_DESIGN_US
-                 else ""))
+                 else "")
+              + ("; the one-step pair it replaced: forward + backward "
+                 + " + ".join(str(u) for u in ONESTEP_PAIR_US[
+                     (c.model, str(c.dtype)[6:], B)])
+                 + " µs of device time in two launches (PERF.md §6)"
+                 if kern == "onestep_vag" and (c.model, str(c.dtype)[6:], B)
+                 in ONESTEP_PAIR_US else ""))
 
 
 def _previous_sh_rows(c, kind, block_n):
@@ -827,77 +898,53 @@ def sh_grid(c, B, kind):
     select_action's 64), and the per-pair design's blocks a member at
     both (_previous_sh_rows)."""
     from varanneal_tpu_torch.kernels import fe
-    nb, bk = c.n_blocks(kind, B), c.rows(kind, B)
+    nb, bk = c.n_blocks(B), c.rows(B)
     if not c.sh:
-        return f"{nb} blocks a member, {bk} rows a block"
+        return (f"{nb} blocks a member of {bk} rows and "
+                f"{fe.onestep_threads(c.model, bk, c.D)} threads")
     thr = fe.sh_threads(c.model, bk, c.D)
-    per = 1 if fe._SH_ROW[c.model] else c.D
+    per = 1 if fe._ROW_MODEL[c.model] else c.D
     c512 = dataclasses.replace(c, block_n=512)
     old = {n: _previous_sh_rows(c, kind, n) for n in (c.block_n, 512)}
     return (f"{nb} blocks a member of {bk} intervals and {thr} threads, "
             f"{-(-bk * per // thr)} {'interval' if per == 1 else 'pair'}"
-            f"(s) a thread ({c512.n_blocks(kind, B)} blocks at block_n "
+            f"(s) a thread ({c512.n_blocks(B)} blocks at block_n "
             f"512); the per-pair design: "
             + ", ".join(f"{-(-c.M // r)} blocks of {r} intervals "
                         f"({-(-r * c.D // 256)} pairs a thread) at block_n "
                         f"{n}" for n, r in old.items()))
 
 
-def check_vag(X, pest, rf, c, tol, label):
-    """The fused launch (fe.sh_vag_kernel) against its plain version on
-    the same card tensors: value (partials summed) relative, the joined
-    gradient rows and the full parameter gradient over max|g|, each
-    within tol; a repeat bit-identical. Returns (max abs error, value rel
-    error, gradient rel error)."""
-    from varanneal_tpu_torch.kernels import fe
-    out = fe.sh_vag_kernel(X, pest, rf, c)
-    torch.cuda.synchronize()
-    ref = fe.sh_vag_reference(X, pest, rf, c)
-    P = fe.full_params(pest, c)
-    g_k, g_r = fe.sh_join(*out[1:4], c), fe.sh_join(*ref[1:4], c)
-    gp_k, gp_r = fe.param_grad(out[4], P, c), fe.param_grad(ref[4], P, c)
-    v_k, v_r = out[0].sum(1), ref[0].sum(1)
-    rel_v = float(torch.max(torch.abs(v_k - v_r) / torch.abs(v_r)))
-    scale = torch.maximum(torch.amax(torch.abs(g_r), dim=(1, 2)),
-                          torch.amax(torch.abs(gp_r), dim=1))
-    rel_g = float(torch.max(torch.maximum(
-        torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
-        torch.amax(torch.abs(gp_k - gp_r), dim=1)) / scale))
-    err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(out, ref))
-    check(rel_v <= tol and rel_g <= tol,
-          f"the fused launch {label} disagrees with its plain version: "
-          f"value {rel_v:.3e}, gradient {rel_g:.3e}")
-    again = fe.sh_vag_kernel(X, pest, rf, c)
-    check(all(torch.equal(a, b) for a, b in zip(out, again)),
-          f"the fused launch {label}: a repeat is not bit-identical")
-    return err, rel_v, rel_g
-
-
 def k6_nakl(dev, tw3):
     """Phase 18's NaKL part: K6 on config #3's twin against its plain
-    versions on the card: Hermite–Simpson at N_f = 6,001 (K6c, B=1; K6d,
-    B=4, 8 and CONF3['B']: phase 27b's polish and screen batches), the
-    one-step discs at N_f = 3,001 (B=2), each with Pidx [1..5],
-    all 18 estimated and the 18 in the log model, f64 (1e-12) and f32
+    versions on the card (check_k6): Hermite–Simpson at N_f = 6,001 (K6c,
+    B=1; K6d, B=4, 8 and CONF3['B']: phase 27b's polish and screen
+    batches), the one-step discs at N_f = 3,001 (B=1 and 4), each with
+    Pidx [1..5], all 18 estimated and the 18 in the log model, and for the
+    one-step discs Pidx [1..5] without the stimulus, f64 (1e-12) and f32
     (2e-5) on the value and on the gradient over max|g| (states and
     parameters), scalar and (N_f-1, 4) rf (the campaign's 1e-5·[1, 1e3,
-    1e3, 1e3]) at beta 0 and 30, repeats bit-identical; then the kernels
-    timed at their paths' shapes. Under Hermite–Simpson the fused launch
-    (sh_vag) is held to its plain version at every shape too. Returns
-    (max abs errors, max relative errors, times), keyed by kernel."""
+    1e3, 1e3]) at beta 0 and 30, the fused launch's value partials the
+    value-only launch's bits, repeats bit-identical; then the kernels
+    timed at their paths' shapes. Returns (max abs errors, max relative
+    errors, times), keyed by kernel."""
     from varanneal_tpu_torch.kernels import fe
-    err = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_vag=0.0)
+    err = dict(onestep_fwd=0.0, onestep_vag=0.0, sh_fwd=0.0, sh_vag=0.0)
     rel = dict(err)
     rf_dir = np.array([1.0, 1e3, 1e3, 1e3])
-    variants = ((PIDX3, False), (list(range(1, 19)), False),
-                (list(range(1, 19)), True))
-    for disc, B in (("SimpsonHermite", 1), ("SimpsonHermite", 4),
-                    ("SimpsonHermite", 8), ("SimpsonHermite", CONF3["B"]),
-                    ("trapezoid", 2), ("euler", 2), ("forwardmap", 2)):
+    variants = ((PIDX3, False, True), (list(range(1, 19)), False, True),
+                (list(range(1, 19)), True, True))
+    cases = [("SimpsonHermite", B) for B in (1, 4, 8, CONF3["B"])]
+    cases += [(d, B) for d in ("trapezoid", "euler", "forwardmap")
+              for B in (1, 4)]
+    for disc, B in cases:
         kf, kb = (("sh_fwd", "sh_vag") if disc == "SimpsonHermite"
-                  else ("onestep_fwd", "onestep_bwd"))
-        for pidx, log in variants:
+                  else ("onestep_fwd", "onestep_vag"))
+        for pidx, log, stim in variants + (
+                () if disc == "SimpsonHermite" else ((PIDX3, False, False),)):
             _, sp = config3_problem(disc, pidx, log, tw=tw3)
+            if not stim:
+                sp = dataclasses.replace(sp, stim_f=None)
             draws = nakl_draws(sp, tw3, B, 18, log)
             for dtype in (torch.float64, torch.float32):
                 tol = 1e-12 if dtype == torch.float64 else 2e-5
@@ -905,61 +952,33 @@ def k6_nakl(dev, tw3):
                 Z = torch.tensor(draws, dtype=dtype, device=dev)
                 X = Z[:, : sp.n_state].reshape(B, sp.N_f, sp.D)
                 pest = Z[:, sp.n_state:]
-                worst = [0.0, 0.0]
+                worst = [0.0, 0.0, 0.0]
                 for beta in (0, 30):
                     rf_b = _scalar_rf(CONF3["rf0"] * CONF3["alpha"] ** beta,
                                       dtype)
                     for rf in (rf_b, torch.tensor(np.broadcast_to(
                             rf_dir * rf_b, (sp.N_f - 1, 4)).copy(),
                             dtype=dtype, device=dev)):
-                        p_k = fe.fe_partials(X, pest, rf, c)
-                        g_k, gp_k = fe.fe_adjoint(X, pest, rf, c)
-                        torch.cuda.synchronize()
-                        p_r, g_r, gp_r = plain_k6(X, pest, rf, c)
-                        v_k, v_r = p_k.sum(1), p_r.sum(1)
-                        rel_v = float(torch.max(torch.abs(v_k - v_r)
-                                                / torch.abs(v_r)))
-                        scale = torch.maximum(
-                            torch.amax(torch.abs(g_r), dim=(1, 2)),
-                            torch.amax(torch.abs(gp_r), dim=1))
-                        rel_g = float(torch.max(torch.maximum(
-                            torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
-                            torch.amax(torch.abs(gp_k - gp_r), dim=1))
-                            / scale))
-                        worst = [max(worst[0], rel_v), max(worst[1], rel_g)]
-                        rel[kf] = max(rel[kf], rel_v)
-                        rel[kb] = max(rel[kb], rel_g)
-                        err[kf] = max(err[kf],
-                                      float(torch.max(torch.abs(p_k - p_r))))
-                        err[kb] = max(
-                            err[kb], float(torch.max(torch.abs(g_k - g_r))),
-                            float(torch.max(torch.abs(gp_k - gp_r))))
-                        check(rel_v <= tol and rel_g <= tol,
-                              f"K6 NaKL {disc} B={B} {len(pidx)} estimated"
-                              f"{' (log)' if log else ''} {dtype} disagrees "
-                              f"with its plain version at beta={beta}: "
-                              f"value {rel_v:.3e}, gradient {rel_g:.3e}")
-                        again = fe.fe_adjoint(X, pest, rf, c)
-                        check(torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
-                              and torch.equal(g_k, again[0])
-                              and torch.equal(gp_k, again[1]),
-                              f"K6 NaKL {disc} {dtype}: a repeat is not "
-                              "bit-identical")
-                        if c.sh:
-                            e_v, r_v, r_g = check_vag(
-                                X, pest, rf, c, tol,
-                                f"NaKL B={B} {dtype} beta={beta}")
-                            err["sh_vag"] = max(err["sh_vag"], e_v)
-                            rel["sh_vag"] = max(rel["sh_vag"], r_v, r_g)
-                            worst = [max(worst[0], r_v), max(worst[1], r_g)]
+                        e_v, e_g, r_v, r_g, d_b = check_k6(
+                            X, pest, rf, c, tol,
+                            f"NaKL {disc} B={B} {len(pidx)} estimated"
+                            f"{' (log)' if log else ''}"
+                            f"{'' if stim else ' (no stimulus)'} {dtype} "
+                            f"beta={beta}")
+                        worst = [max(worst[0], r_v), max(worst[1], r_g),
+                                 max(worst[2], d_b)]
+                        rel[kf] = max(rel[kf], r_v)
+                        rel[kb] = max(rel[kb], r_v, r_g)
+                        err[kf] = max(err[kf], e_v)
+                        err[kb] = max(err[kb], e_g)
                 print(f"K6 NaKL {disc} N_f={sp.N_f} B={B}, {len(pidx)} "
-                      f"estimated{' in the log model' if log else ''}, "
+                      f"estimated{' in the log model' if log else ''}"
+                      f"{'' if stim else ', no stimulus'}, "
                       f"{str(dtype)[6:]}, {sh_grid(c, B, 'bwd')}, scalar "
                       f"and (N_f-1, 4) rf at beta 0, 30: value rel err "
                       f"{worst[0]:.3e}, gradient rel err {worst[1]:.3e} of "
-                      f"max|g| (bound {tol:g})"
-                      + (", the fused launch included" if c.sh else "")
-                      + "; repeats bit-identical")
+                      f"max|g| (bound {tol:g}); {fused_bits(worst[2])}; "
+                      f"repeats bit-identical")
     # times at the paths' shapes: phase 27a's K6c (f64, B=1), phase 27b's
     # screen (f32, B=64) and polish (f64, B=4) through K6d and a one-step
     # disc (trapezoid, f32, B=1), Pidx [1..5], scalar rf of beta 30
@@ -1211,7 +1230,7 @@ def config3_campaign(dev, zero_counts, run_counts):
           f"config #3 campaign: K6d's fused launch or K7a not launched: "
           f"{cnt}")
     check(all(cnt[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k8",
-                                    "k6_fwd", "k6_bwd")),
+                                    "k6_fwd", "k6_vag")),
           f"config #3 campaign launched another kernel: {cnt}")
     n_chunks = len(range(0, snap, 2)) + len(range(snap, n_beta, 2))
     check(len(p1_writes) == n_chunks and p1_writes[-1] == n_beta
@@ -1239,9 +1258,9 @@ def fe_work(kernel, c, B, diag):
     and 1; NaKL about 12, 28 and 23, a tanh counted as one operation, so
     that the bound stays a lower one). One-step forward, per residual
     entry: the residual (trapezoid 2f + 4, euler f + 3, forwardmap f + 1),
-    then 2 to square and sum (3 with a weight row); backward, per gradient
-    entry: the residual, 1 to weight it, 3 for v, the adjoint, Jᵀv and 3
-    for the row. Hermite–Simpson, per interval entry: forward three f, 6
+    then 2 to square and sum (3 with a weight row); the fused launch
+    (``onestep_vag``) that and, per gradient entry, the residual, 1 to
+    weight it, 3 for v, the adjoint, Jᵀv and 3 for the row. Hermite–Simpson, per interval entry: forward three f, 6
     each for S and H, 6 to weight and sum (3f + 18); backward three f and
     12 for S and H, 9 for v0, vm, v1 and their weights, three adjoints,
     three Jᵀv and 9 for the triplet; the fused launch (``sh_vag``) the
@@ -1255,20 +1274,21 @@ def fe_work(kernel, c, B, diag):
     res = {"trapezoid": 2 * f + 4, "euler": f + 3,
            "forwardmap": f + 1}.get(c.disc, 0)
     if kernel == "onestep_fwd":
-        nbytes += B * c.n_blocks("fwd") * s
+        nbytes += B * c.n_blocks(B) * s
         nops = B * (c.N_f - 1) * c.D * (res + 2 + int(diag))
-    elif kernel == "onestep_bwd":
-        nbytes += n_x * s + B * c.NP * c.n_blocks("bwd") * s
-        nops = B * c.N_f * c.D * (res + 7 + ptv + jtv)
+    elif kernel == "onestep_vag":
+        nbytes += n_x * s + B * (c.NP + 1) * c.n_blocks(B) * s
+        nops = (B * c.N_f * c.D * (res + 7 + ptv + jtv)
+                + B * (c.N_f - 1) * c.D * (2 + int(diag)))
     elif kernel == "sh_fwd":
-        nbytes += B * c.n_blocks("fwd", B) * s
+        nbytes += B * c.n_blocks(B) * s
         nops = B * c.M * c.D * (3 * f + 18)
     else:
         nbytes += (3 * B * c.M * c.D * s
-                   + B * c.NP * c.n_blocks("bwd", B) * s)
+                   + B * c.NP * c.n_blocks(B) * s)
         nops = B * c.M * c.D * (3 * f + 12 + 18 + 3 * (ptv + jtv))
         if kernel == "sh_vag":
-            nbytes += B * c.n_blocks("bwd", B) * s
+            nbytes += B * c.n_blocks(B) * s
             nops += B * c.M * c.D * 6
     return nbytes, nops
 
@@ -1473,20 +1493,24 @@ def _nvcc(src, out, defines=()):
 
 
 def ptxas_diff(other):
-    """Build ag_kernel.cu (K1, K4) and solve_kernel.cu (K2, K3) of this
-    checkout and of the checkout at ``other`` with the port's nvcc flags,
-    and compare their -Xptxas -v reports: per source, the lines of
-    registers, barriers, spills and stack frames, in order, names dropped
-    (a template argument added to a __device__ function changes its
-    mangled name, not its code). Prints both and one JSON line; returns 0
-    when every source's lines are identical. Against a checkout from
-    before K2/K3's redesign for the card (the layout argument, one barrier
-    a reduction, fewer reductions), solve_kernel.cu is expected to differ;
-    ag_kernel.cu is not."""
+    """Build ag_kernel.cu (K1, K4), solve_kernel.cu (K2, K3),
+    pack_kernel.cu (K8) and agt_kernel.cu (K5) of this checkout and of the
+    checkout at ``other`` with the port's nvcc flags, all eight nvcc
+    processes together, and compare their -Xptxas -v reports: per source,
+    the lines of registers, barriers, spills and stack frames, in order,
+    names dropped (a template argument added to a __device__ function
+    changes its mangled name, not its code). Prints both and one JSON
+    line; returns 0 when the lines of K1-K4 and K8's sources are
+    identical (K5's are printed: its kernel may change by design).
+    Against a checkout from before K2/K3's redesign for the card (the
+    layout argument, one barrier a reduction, fewer reductions),
+    solve_kernel.cu is expected to differ; ag_kernel.cu is not."""
+    held = ("ag_kernel", "solve_kernel", "pack_kernel")
+    names = held + ("agt_kernel",)
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for name in ("ag_kernel", "solve_kernel"):
+        for name in names:
             for tag, root in (("this", ROOT), ("other", other)):
                 src = os.path.join(root, "varanneal_tpu_torch", "kernels",
                                    "csrc", name + ".cu")
@@ -1497,17 +1521,17 @@ def ptxas_diff(other):
             so, se = proc.communicate()
             check(proc.returncode == 0, f"nvcc failed for {key}:\n{se}")
             logs[key] = _ptxas_lines(so + se)
-    for name in ("ag_kernel", "solve_kernel"):
+    for name in names:
         (a, na), (b, nb) = logs[(name, "this")], logs[(name, "other")]
-        for tag, lines, names in (("this", a, na), ("other", b, nb)):
-            print(f"ptxas {name} ({tag}): {len(names)} functions")
+        for tag, lines, fnames in (("this", a, na), ("other", b, nb)):
+            print(f"ptxas {name} ({tag}): {len(fnames)} functions")
             for ln in lines:
                 print(f"  {ln}")
         result[name] = dict(identical=a == b,
                             same_multiset=sorted(a) == sorted(b),
-                            lines=len(a))
+                            lines=len(a), held=name in held)
     print(json.dumps(result))
-    return 0 if all(r["identical"] for r in result.values()) else 1
+    return 0 if all(result[n]["identical"] for n in held) else 1
 
 
 def phase(name, t0):
@@ -2906,7 +2930,7 @@ def main():
         solve_pack.PACK_LAUNCHES = 0
         solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
         kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
-        fe.FWD_LAUNCHES = fe.BWD_LAUNCHES = 0
+        fe.FWD_LAUNCHES = fe.ONESTEP_VAG_LAUNCHES = 0
         fe.SH_FWD_LAUNCHES = fe.SH_VAG_LAUNCHES = 0
 
     def run_counts():
@@ -2914,7 +2938,7 @@ def main():
                     k2=solve.RUNG_LAUNCHES, k3=solve.LADDER_LAUNCHES,
                     k8=solve_pack.PACK_LAUNCHES,
                     k7a=kdir.DIR_LAUNCHES, k7b=kdir.STEP_LAUNCHES,
-                    k6_fwd=fe.FWD_LAUNCHES, k6_bwd=fe.BWD_LAUNCHES,
+                    k6_fwd=fe.FWD_LAUNCHES, k6_vag=fe.ONESTEP_VAG_LAUNCHES,
                     k6_sh_fwd=fe.SH_FWD_LAUNCHES,
                     k6_sh_vag=fe.SH_VAG_LAUNCHES)
 
@@ -3107,77 +3131,48 @@ def main():
                         pidx=[0])
     both = (torch.float64, torch.float32)
     # (spec, twin, rf0, alpha, B, dtypes): config #1's data under the three
-    # one-step discs, config #2's shape, config #5's width
+    # one-step discs at B=1 and 4, config #2's shape, config #5's width
     cases18 = [(dataclasses.replace(spec, disc=d), tw, float(rf0),
-                MAIN["alpha"], MAIN["B"], both)
-               for d in ("euler", "trapezoid", "forwardmap")]
+                MAIN["alpha"], B_, both)
+               for d in ("euler", "trapezoid", "forwardmap")
+               for B_ in (1, MAIN["B"])]
     cases18 += [(spec2, tw2, CONF2["rf0"], CONF2["alpha"], CONF2["B"], both),
                 (spec18, tw18, 4e-6 * tw18["RM"], MAIN["alpha"], 4, both)]
-    err18 = dict(onestep_fwd=0.0, onestep_bwd=0.0, sh_fwd=0.0, sh_vag=0.0)
-    rel18 = dict(err18)     # value (forward) and gradient (backward) rel
+    err18 = dict(onestep_fwd=0.0, onestep_vag=0.0, sh_fwd=0.0, sh_vag=0.0)
+    rel18 = dict(err18)     # value (value-only), value and gradient (fused)
     rng18 = np.random.default_rng(18)
 
     for sp, tw_, rf0_, alpha_, B_, dtypes in cases18:
         draws18 = member_draws(sp, tw_, 0, B_)
         W18 = rng18.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
         kf, kb = (("sh_fwd", "sh_vag") if sp.disc == "SimpsonHermite"
-                  else ("onestep_fwd", "onestep_bwd"))
+                  else ("onestep_fwd", "onestep_vag"))
         for dtype in dtypes:
             tol = 1e-12 if dtype == torch.float64 else 2e-5
             c = fe.fe_consts(sp, dtype, dev, block_n=64)
             Z = torch.tensor(draws18, dtype=dtype, device=dev)
             X = Z[:, : sp.n_state].reshape(B_, sp.N_f, sp.D)
             pest = Z[:, sp.n_state:]
-            worst = [0.0, 0.0]
+            worst = [0.0, 0.0, 0.0]
             for beta in (0, 30, 60):
                 rf_b = _scalar_rf(rf0_ * alpha_ ** beta, dtype)
                 for rf in (rf_b, torch.tensor(W18 * rf_b, dtype=dtype,
                                               device=dev)):
-                    p_k = fe.fe_partials(X, pest, rf, c)
-                    g_k, gp_k = fe.fe_adjoint(X, pest, rf, c)
-                    torch.cuda.synchronize()
-                    p_r, g_r, gp_r = plain_k6(X, pest, rf, c)
-                    v_k, v_r = p_k.sum(1), p_r.sum(1)
-                    gF_k, gF_r = gp_k.sum(1), gp_r.sum(1)
-                    scale = torch.maximum(
-                        torch.amax(torch.abs(g_r), dim=(1, 2)),
-                        torch.abs(gF_r))
-                    rel_v = float(torch.max(torch.abs(v_k - v_r)
-                                            / torch.abs(v_r)))
-                    rel_g = float(torch.max(torch.maximum(
-                        torch.amax(torch.abs(g_k - g_r), dim=(1, 2)),
-                        torch.abs(gF_k - gF_r)) / scale))
-                    worst = [max(worst[0], rel_v), max(worst[1], rel_g)]
-                    rel18[kf] = max(rel18[kf], rel_v)
-                    rel18[kb] = max(rel18[kb], rel_g)
-                    err18[kf] = max(err18[kf],
-                                    float(torch.max(torch.abs(p_k - p_r))))
-                    err18[kb] = max(err18[kb],
-                                    float(torch.max(torch.abs(g_k - g_r))),
-                                    float(torch.max(torch.abs(gp_k - gp_r))))
-                    check(rel_v <= tol and rel_g <= tol,
-                          f"K6 {sp.disc} D={sp.D} {dtype} disagrees with "
-                          f"its plain version at beta={beta}: value "
-                          f"{rel_v:.3e}, gradient {rel_g:.3e}")
-                    check(torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
-                          and torch.equal(g_k,
-                                          fe.fe_adjoint(X, pest, rf, c)[0]),
-                          f"K6 {sp.disc} {dtype}: a repeat is not "
-                          "bit-identical")
-                    if c.sh:
-                        e_v, r_v, r_g = check_vag(
-                            X, pest, rf, c, tol,
-                            f"D={sp.D} B={B_} {dtype} beta={beta}")
-                        err18["sh_vag"] = max(err18["sh_vag"], e_v)
-                        rel18["sh_vag"] = max(rel18["sh_vag"], r_v, r_g)
-                        worst = [max(worst[0], r_v), max(worst[1], r_g)]
+                    e_v, e_g, r_v, r_g, d_b = check_k6(
+                        X, pest, rf, c, tol,
+                        f"{sp.disc} D={sp.D} B={B_} {dtype} beta={beta}")
+                    worst = [max(worst[0], r_v), max(worst[1], r_g),
+                             max(worst[2], d_b)]
+                    rel18[kf] = max(rel18[kf], r_v)
+                    rel18[kb] = max(rel18[kb], r_v, r_g)
+                    err18[kf] = max(err18[kf], e_v)
+                    err18[kb] = max(err18[kb], e_g)
             print(f"K6 {sp.disc} D={sp.D} N_f={sp.N_f} B={B_} "
                   f"{str(dtype)[6:]}, {sh_grid(c, B_, 'bwd')}, scalar and "
                   f"(N_f-1, D) rf at beta 0, 30, 60: value rel err "
                   f"{worst[0]:.3e}, gradient rel err {worst[1]:.3e} of "
-                  f"max|g| (bound {tol:g})"
-                  + (", the fused launch included" if c.sh else "")
-                  + "; repeats bit-identical")
+                  f"max|g| (bound {tol:g}); {fused_bits(worst[2])}; "
+                  f"repeats bit-identical")
 
     # times at the paths' shape (one member, f32, scalar rf of beta 30,
     # rows a block as select_action builds them), against the bound, the
@@ -3319,7 +3314,7 @@ def main():
           and cnt20["k7a"] == 0,
           f"facade at config #2: K7 launches {cnt20}, niter {niter20}")
     check(all(cnt20[k] == 0 for k in ("k1", "k2", "k3", "k4", "k6_fwd",
-                                      "k6_bwd")),
+                                      "k6_vag")),
           f"facade at config #2 launched another kernel: {cnt20}")
     # path (b): the example's run_ensemble, B=8 members, first 10 rungs, a
     # checkpoint every 2 (float64, as the example's x64 run)
@@ -3388,13 +3383,19 @@ def main():
             rel21 = abs(fa - JAX_FINAL_A_TAIL64) / JAX_FINAL_A_TAIL64
             print(f"bench pallas xla: final_A_tail64 {fa:.6f} vs JAX "
                   f"{JAX_FINAL_A_TAIL64:.6f} (rel {rel21:.3e}, bound 1e-2)")
-            check(L["fe_fwd"] > 0 and L["fe_bwd"] > 0 and L["rung"] == 0,
-                  f"bench pallas xla did not run through K6: {L}")
+            # the two ladder calls run the same bits: one fused launch an
+            # evaluation, the value-only launch once a rung (the records)
+            check(L["fe_vag"] == run.calls * run.total_nfev > 0
+                  and L["fe_fwd"] == MAIN["n_beta"] * run.calls
+                  and L["rung"] == 0,
+                  f"bench pallas xla: not one fused K6 launch an evaluation "
+                  f"and the forward once a rung: {L}, nfev "
+                  f"{run.total_nfev} a call")
             check(rel21 <= 1e-2, f"bench pallas xla: final_A_tail64 {fa}")
         else:
             check(L["rung"] == MAIN["n_beta"] * run.calls
                   and L["fe_fwd"] == MAIN["n_beta"] * run.calls
-                  and L["fe_bwd"] == 0,
+                  and L["fe_vag"] == 0,
                   f"bench pallas fused: K2 a rung and K6 for the records "
                   f"only, got {L}")
         bench21[solver_name] = run
@@ -3402,27 +3403,39 @@ def main():
 
     # ---- 22. K5 against its plain version ---------------------------------
     t0 = time.perf_counter()
-    # (spec, twin, label): config #1's data under the three one-step rules,
-    # observations every second model row, and the envelope's D = 64
+    # (spec, twin, label): the three one-step rules on config #1's data
+    # (D=20), at D=40 and D=64 (the wide walk), and at D=64 with N_f =
+    # 1,001, whose (N_f-1)·D f32 residuals (256 KB) the first port's
+    # design kept in shared memory and so refused; the trapezoid rule with
+    # observations every second model row
     dt1 = float(tw["t"][1] - tw["t"][0])
-    tw64 = lorenz96_twin(D=64, N_data=MAIN["N_data"], n_obs=16)
-    cases22 = [(dataclasses.replace(spec, disc=d), tw, d)
-               for d in ("trapezoid", "euler", "forwardmap")]
-    cases22 += [(build_spec(lorenz96, MAIN["D"], tw["Y"], tw["t"],
-                            tw["Lidx"], tw["RM"], disc="trapezoid",
-                            P=np.array([4.0]), pidx=[0], dt_model=dt1 / 2),
-                 tw, "trapezoid, obs_stride 2"),
-                (build_spec(lorenz96, 64, tw64["Y"], tw64["t"],
-                            tw64["Lidx"], tw64["RM"], disc="trapezoid",
-                            P=np.array([4.0]), pidx=[0]),
-                 tw64, "trapezoid, D=64")]
-    check(cases22[3][0].obs_stride == 2, "phase 22: stride-2 spec")
+    cases22 = []
+    for D_, N_, nobs_ in ((MAIN["D"], MAIN["N_data"], None),
+                          (40, MAIN["N_data"], 10), (64, MAIN["N_data"], 16),
+                          (64, 1001, 16)):
+        tw_ = tw if nobs_ is None else lorenz96_twin(D=D_, N_data=N_,
+                                                     n_obs=nobs_)
+        for d in ("trapezoid", "euler", "forwardmap"):
+            sp = (dataclasses.replace(spec, disc=d) if nobs_ is None
+                  else build_spec(lorenz96, D_, tw_["Y"], tw_["t"],
+                                  tw_["Lidx"], tw_["RM"], disc=d,
+                                  P=np.array([4.0]), pidx=[0]))
+            cases22.append((sp, tw_, f"{d}, D={D_}, N_f={sp.N_f}"))
+    cases22.append((build_spec(lorenz96, MAIN["D"], tw["Y"], tw["t"],
+                               tw["Lidx"], tw["RM"], disc="trapezoid",
+                               P=np.array([4.0]), pidx=[0],
+                               dt_model=dt1 / 2),
+                    tw, "trapezoid, obs_stride 2"))
+    check(cases22[-1][0].obs_stride == 2, "phase 22: stride-2 spec")
+    check((cases22[9][0].N_f - 1) * 64 * 4 > ag.SMEM_LIMIT,
+          "phase 22: the long case is not past the old shared-memory bound")
     err_k5 = rel_k5 = 0.0
     rng22 = np.random.default_rng(22)
     for sp, tw_, label in cases22:
         check(ag.agt_supported(sp, 1.0, torch.float32)
               and ag.agt_supported(sp, 1.0, torch.float64),
-              f"phase 22: {label} outside K5's envelope")
+              f"phase 22: {label} outside K5's envelope: "
+              f"{ag.agt_refusal(sp, 1.0)}")
         Zs = member_draws(sp, tw_, 0)
         W22 = rng22.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
         for dtype in (torch.float64, torch.float32):
@@ -3434,8 +3447,11 @@ def main():
                 rf_b = float(rf0 * MAIN["alpha"] ** beta)
                 for rf in (rf_b, torch.tensor(W22 * rf_b, dtype=dtype,
                                               device=dev)):
+                    n_k5 = ag.AGT_LAUNCHES
                     A, G = ag.agt_kernel(Z, rf, c)
                     torch.cuda.synchronize()
+                    check(ag.AGT_LAUNCHES == n_k5 + 1,
+                          f"K5 {label}: not one launch a call")
                     A_r, G_r = ag.agt_reference(Z, rf, c)
                     scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
                     rel = max(float(torch.max(torch.abs(A - A_r)
@@ -3451,35 +3467,76 @@ def main():
                           f"K5 {label} {dtype}: a repeat is not "
                           "bit-identical")
             rel_k5 = max(rel_k5, worst)
-            print(f"K5 {label} D={sp.D} N_f={sp.N_f} B={MAIN['B']} "
-                  f"{str(dtype)[6:]}, scalar and (N_f-1, D) rf at beta 0, "
-                  f"50, 100: worst rel err {worst:.3e} (value, and gradient "
-                  f"of max|g|; bound {tol:g}); repeats bit-identical")
-    # times at the main path's shape (trapezoid, f32, B=4, phase 3's draws,
-    # the rf of beta 50), against K1 and the autograd action on the same
-    # input, and the (N_f-1, D) rf's
-    c5 = ag.agt_consts(spec, dev, torch.float32)
+            print(f"K5 {label} B={MAIN['B']} {str(dtype)[6:]}, scalar and "
+                  f"(N_f-1, D) rf at beta 0, 50, 100: worst rel err "
+                  f"{worst:.3e} (value, and gradient of max|g|; bound "
+                  f"{tol:g}); one launch a call; repeats bit-identical")
+    # the built kernels' registers and local memory (ptxas's report of
+    # phase 2's build: l96_agt_kernel<dtype, rule, an (N_f-1, D) rf>)
+    regs22, entry22 = {}, None
+    for ln in built["agt_kernel"].log.splitlines():
+        m22 = re.search(r"l96_agt_kernelI([fd])Li(\d)ELb([01])E", ln)
+        if "Compiling entry function" in ln and m22:
+            entry22 = (("f32" if m22.group(1) == "f" else "f64")
+                       + f" rule {m22.group(2)}"
+                       + (" (N_f-1, D) rf" if m22.group(3) == "1"
+                          else " scalar rf"))
+        elif entry22 and "bytes stack frame" in ln:
+            regs22[entry22] = [ln.split(":")[-1].strip()]
+        elif entry22 and "Used" in ln and "registers" in ln:
+            regs22.setdefault(entry22, []).append(
+                ln.split("Used", 1)[1].strip())
+            entry22 = None
+    print("K5 kernels (ptxas; rule 0 trapezoid, 1 euler, 2 forwardmap): "
+          + ("; ".join(f"{k}: {' / '.join(v)}" for k, v in
+                       sorted(regs22.items()))
+             if regs22 else "not read (the library was loaded from disk)"))
+    # times at the main path's shape (f32, B=4, phase 3's draws, the rf of
+    # beta 50) under each rule and rf kind, at D=20 and D=64, against K1
+    # and the autograd action on the same input
     W5 = torch.tensor(rng22.uniform(0.5, 2.0, (spec.N_f - 1, spec.D)) * rf_t,
                       dtype=torch.float32, device=dev)
-    k5 = {}
-    for kind, rf in (("scalar", rf_t), ("diag", W5)):
+
+    def dev_ms(fn, key):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(200):
-                ag.agt_kernel(Z32, rf, c5)
+                fn()
             torch.cuda.synchronize()
         rows = [(device_us(e), e.count) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and "l96_agt" in e.key]
+                and key in e.key]
+        return (rows[0][0] / rows[0][1] / 1e3 if rows and rows[0][0] > 0
+                else None)
+
+    k5 = {}
+    c5 = ag.agt_consts(spec, dev, torch.float32)
+    for kind, rf in (("scalar", rf_t), ("diag", W5)):
         w = agt_work(spec, "trapezoid", MAIN["B"], kind == "diag")
         k5[kind] = dict(
             ms=events_ms(lambda: ag.agt_kernel(Z32, rf, c5)),
             plain_ms=events_ms(lambda: ag.agt_reference(Z32, rf, c5), n=200),
-            device_ms=(rows[0][0] / rows[0][1] / 1e3
-                       if rows and rows[0][0] > 0 else None),
+            device_ms=dev_ms(lambda: ag.agt_kernel(Z32, rf, c5), "l96_agt"),
             bound=bound_of(*w), work=w)
+    tw64 = cases22[6][1]
+    sp64 = cases22[6][0]
+    Z64_22 = torch.tensor(member_draws(sp64, tw64, 0), dtype=torch.float32,
+                          device=dev)
+    rf64 = float(np.float32(4e-6 * tw64["RM"] * MAIN["alpha"] ** 50))
+    W64 = torch.tensor(rng22.uniform(0.5, 2.0, (sp64.N_f - 1, 64)) * rf64,
+                       dtype=torch.float32, device=dev)
+    k5_rules = {}
+    for D_, sp0, Zr, rfs in ((MAIN["D"], spec, Z32, (rf_t, W5)),
+                             (64, sp64, Z64_22, (rf64, W64))):
+        for d in ("trapezoid", "euler", "forwardmap"):
+            c_r = ag.agt_consts(dataclasses.replace(sp0, disc=d), dev,
+                                torch.float32)
+            for kind, rf in zip(("scalar", "diag"), rfs):
+                k5_rules[f"D{D_} {d} {kind}"] = dev_ms(
+                    lambda: ag.agt_kernel(Zr, rf, c_r), "l96_agt")
     ms_k1_22 = events_ms(lambda: ag.ag_kernel(Z32, rf_t, c32))
+    dev_k1_22 = dev_ms(lambda: ag.ag_kernel(Z32, rf_t, c32), "l96_ag_trap")
     ms_ag_22 = events_ms(lambda: vag32(Z32, rf_t), n=200)
     for kind, r in k5.items():
         print(f"K5 f32 trapezoid, {kind} rf, B={MAIN['B']}: {r['ms']:.5f} ms "
@@ -3490,8 +3547,16 @@ def main():
               + f"; plain {r['plain_ms']:.5f} ms; bound {r['bound'][0]:.3e} "
               f"ms ({r['bound'][1]}: {r['work'][0]} bytes, {r['work'][1]} "
               f"operations)")
-    print(f"yardsticks on the same input: K1 {ms_k1_22:.5f} ms a launch, the "
-          f"autograd action's value+grad {ms_ag_22:.5f} ms (CUDA events)")
+    print("K5 f32 device time by rule and rf kind, B=4 (torch.profiler, ms): "
+          + ", ".join(f"{k} " + (f"{v:.5f}" if v is not None
+                                 else "not measured")
+                      for k, v in k5_rules.items()))
+    print(f"yardsticks on the same input: K1 {ms_k1_22:.5f} ms a launch, "
+          "device time "
+          + (f"{dev_k1_22:.5f} ms" if dev_k1_22 is not None
+             else "not measured")
+          + f"; the autograd action's value+grad {ms_ag_22:.5f} ms (CUDA "
+          "events)")
     phase("22 K5 vs plain", t0)
 
     # ---- 23. the K5 ladder -------------------------------------------------
@@ -3916,7 +3981,8 @@ def main():
     # on phase 20's facade (the records; every evaluation)
     for kern, rep, also, n in (
             ("onestep_fwd", 138, (156,), bench21["xla"].launches["fe_fwd"]),
-            ("onestep_bwd", 187, (), bench21["xla"].launches["fe_bwd"]),
+            ("onestep_vag", 450, (187, 384, 396),
+             bench21["xla"].launches["fe_vag"]),
             ("sh_fwd", 238, (472,), cnt20["k6_sh_fwd"]),
             ("sh_vag", 260, (502,), cnt20["k6_sh_vag"])):
         e = dict(
@@ -3984,7 +4050,9 @@ def main():
         plain_ms=k5["scalar"]["plain_ms"], bound_ms=k5["scalar"]["bound"][0],
         bound_by=k5["scalar"]["bound"][1], diag_ms=k5["diag"]["ms"],
         diag_device_ms=k5["diag"]["device_ms"],
-        diag_bound_ms=k5["diag"]["bound"][0], k1_ms=ms_k1_22,
+        diag_bound_ms=k5["diag"]["bound"][0], diag_plain_ms=k5["diag"][
+            "plain_ms"], k1_ms=ms_k1_22, k1_device_ms=dev_k1_22,
+        device_ms_by_rule=k5_rules, registers=regs22,
         autograd_ms=ms_ag_22, **line))
     kernels.append(dict(
         name="l96_pack_solve",

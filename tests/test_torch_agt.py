@@ -12,8 +12,11 @@ plain version runs here on the CPU) against the JAX package.
   JAX's K1 (make_action_ag, interpret mode, f32, 2e-5), not against JAX's
   K5, which puts the observations at model rows 0..N_data-1 there
   (ROADMAP.md §3);
-- the envelope (Hermite–Simpson and D = 65 refused) and the port's
-  ladder run through make_action_ag_t.
+- the envelope (Hermite–Simpson and D = 65 refused), ``agt_refusal``
+  naming each condition, a problem past the old shared-memory bound
+  (N_f = 1,001 at D = 64: (N_f-1)·D f32 residuals no block could hold)
+  inside it and against JAX's XLA action, and the port's ladder run
+  through make_action_ag_t.
 
 Both packages get the identical problem through
 ``ops.spec.spec_from_reference``; inputs come from numpy seeds."""
@@ -174,6 +177,69 @@ def test_envelope():
     if not torch.cuda.is_available():         # device=None means the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ag.make_action_ag_t(st)
+
+
+def test_agt_refusal_names_each_condition():
+    """agt_refusal names the first condition a problem fails, and
+    make_action_ag_t raises with that text; inside the envelope it is
+    None."""
+    tw, sj, st = _specs("trapezoid")
+    assert ag.agt_refusal(st, 1.0) is None
+    twn = lorenz96_twin(D=20, N_data=41, n_obs=8)
+    rep = build_spec(lorenz96, 20, twn["Y"][:, [0, 0, 1, 2, 3, 4, 5, 6]],
+                     twn["t"], [0, 0, 1, 2, 3, 4, 5, 6], twn["RM"],
+                     disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    big = dataclasses.replace(st, N_f=2**31 // st.D + 1)
+    for bad, rf, dtype, why in (
+            (dataclasses.replace(st, disc="SimpsonHermite"), 1.0,
+             torch.float32, "disc 'SimpsonHermite'"),
+            (dataclasses.replace(st, f=lorenz63), 1.0, torch.float32,
+             "model"),
+            (dataclasses.replace(st, D=65), 1.0, torch.float32, "D = 65"),
+            (dataclasses.replace(st, D=3), 1.0, torch.float32, "D = 3"),
+            (dataclasses.replace(st, P_base=np.array([4.0, 1.0])), 1.0,
+             torch.float32, "parameters"),
+            (st, np.ones((2, st.N_f - 1, st.D)), torch.float32,
+             "rf of shape"),
+            (dataclasses.replace(st, RM=np.ones((2, 3, 4, 5))), 1.0,
+             torch.float32, "RM rank 4"),
+            (st, 1.0, torch.float16, "dtype"),
+            (dataclasses.replace(st, t_f=np.asarray(st.t_f) ** 2), 1.0,
+             torch.float32, "non-uniform"),
+            (rep, 1.0, torch.float32, "repeated observed columns"),
+            (big, 1.0, torch.float32, "32-bit index range")):
+        got = ag.agt_refusal(bad, rf, dtype)
+        assert got is not None and why in got, (why, got)
+        assert not ag.agt_supported(bad, rf, dtype)
+    with pytest.raises(ValueError, match="D = 65"):
+        ag.make_action_ag_t(dataclasses.replace(st, D=65), device=CPU)
+
+
+def test_past_old_smem_bound_matches_xla():
+    """N_f = 1,001 at D = 64: the (N_f-1)·D f32 weighted residuals (256
+    KB) that the first port kept in one block's shared memory do not fit
+    there (227 KB), and the walk needs none of it, so K5's envelope takes
+    the problem, as the reference's agt_supported does. Its plain version
+    against JAX's XLA action and jax.grad in f64 to 1e-12, over the three
+    rules × scalar and (N_f-1, D) rf."""
+    tw = lorenz96_twin(D=64, N_data=1001, n_obs=16)
+    for disc in DISCS:
+        sj = build_spec_jax(lorenz96_jax, 64, tw["Y"], tw["t"], tw["Lidx"],
+                            tw["RM"], disc=disc, P=np.array([4.0]),
+                            pidx=[0])
+        st = spec_from_reference(
+            {f.name: getattr(sj, f.name) for f in dataclasses.fields(sj)},
+            lorenz96)
+        assert (st.N_f - 1) * st.D * 4 > ag.SMEM_LIMIT
+        assert ag_pallas.agt_supported(sj, jnp.float32(3.0))
+        assert ag.agt_supported(st, 3.0, torch.float32)
+        Z = _draws(st, tw, B=1)
+        for kind in ("scalar", "diag"):
+            rf = _rf(st, kind)
+            assert ag.agt_supported(st, rf, torch.float64)
+            Aj, Gj = _jax_vag(make_action_jax(sj)[0], jnp.asarray(Z), rf)
+            A, G = _port_vag(st, Z, rf, torch.float64)
+            _assert_close(A, G, Aj, Gj, 1e-12)
 
 
 @pytest.mark.parametrize("rf_kind", ["scalar", "diag"])

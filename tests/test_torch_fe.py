@@ -206,29 +206,34 @@ def test_backward_options_and_rf_gradient(disc):
 
 
 def test_blocks_and_envelope():
-    """Rows a block: for the one-step discs block_n cut to the rows there
-    are and to 48 KB of staged rows (config #5's width in f64 takes fewer
-    rows in the backward); under Hermite–Simpson the grid rule's
-    intervals (config #2, D=100: one interval a block at B=1, two at
-    B=8); the plain partials are (B, n_blocks) and sum to FE·norm; the
-    envelope's shared-memory edge (Hermite–Simpson: one interval a block
-    of Lorenz-96 in f64) and the kernels' wrappers, which take CUDA
-    tensors only."""
-    assert fe.rows_per_block("onestep_fwd", 240, 100, torch.float32,
-                             64) == 64
-    assert fe.rows_per_block("sh_fwd", 120, 100, torch.float32, 64) == 1
-    assert fe.rows_per_block("sh_vag", 120, 100, torch.float32, 64,
-                             B=8) == 2
-    assert fe.rows_per_block("onestep_bwd", 161, 400, torch.float64,
-                             64) == 8
-    assert fe.rows_per_block("onestep_fwd", 28, 6, torch.float64, 512) == 32
+    """Rows a block: for the one-step discs, as under Hermite–Simpson, the
+    grid rule's rows from the batch over the SMs, at most 256 pairs a
+    block (D=100: one row a block at B=1, two at B=64; config #5's width
+    one row; D=6 at B=64 seven rows), the value-only and the fused
+    launch alike; under Hermite–Simpson the grid rule's intervals (config
+    #2, D=100: one interval a block at B=1, two at B=8); the plain
+    partials are (B, n_blocks) and sum to FE·norm; the envelope's
+    shared-memory edges (one interval a block of Lorenz-96 in f64 under
+    Hermite–Simpson, one row a block under the trapezoid rule) and the
+    kernels' wrappers, which take CUDA tensors only."""
+    for kern in ("onestep_fwd", "onestep_vag"):
+        assert fe.rows_per_block(kern, 240, 100, 64) == 1
+        assert fe.rows_per_block(kern, 240, 100, 64, B=64) == 2
+        assert fe.rows_per_block(kern, 161, 400, 64) == 1
+        assert fe.rows_per_block(kern, 28, 6, 512, B=64) == 7
+    assert fe.rows_per_block("sh_fwd", 120, 100, 64) == 1
+    assert fe.rows_per_block("sh_vag", 120, 100, 64, B=8) == 2
     _, st, rng = _specs("SimpsonHermite", 23)
     for D, ok in ((3624, True), (3625, False)):
         wide = dataclasses.replace(st, D=D)
         assert fe.fe_kernel_supported(wide, 0.0, torch.float64) == ok
+    _, st1, _ = _specs("trapezoid", 23)
+    for D, ok in ((5798, True), (5799, False)):
+        wide = dataclasses.replace(st1, D=D)
+        assert fe.fe_kernel_supported(wide, 0.0, torch.float64) == ok
     c = fe.fe_consts(st, torch.float64, CPU, block_n=8)
     c = dataclasses.replace(c, n_sm=1)
-    assert (c.M, c.n_blocks("fwd", 2), c.n_blocks("bwd", 2)) == (22, 3, 3)
+    assert (c.M, c.n_blocks(2), c.n_blocks(2)) == (22, 3, 3)
     X = torch.tensor(rng.normal(size=(2, st.N_f, st.D)))
     pest = torch.tensor([[7.5], [8.0]])
     parts = fe.sh_fwd_reference(X, pest, 1e-2, c)
@@ -241,8 +246,9 @@ def test_blocks_and_envelope():
     for kern in (fe.sh_fwd_kernel, fe.sh_vag_kernel):
         with pytest.raises(ValueError):
             kern(X, pest, 1e-2, c)
-    with pytest.raises(ValueError):
-        fe.onestep_fwd_kernel(X, pest, 1e-2, c)
+    for kern in (fe.onestep_fwd_kernel, fe.onestep_vag_kernel):
+        with pytest.raises(ValueError):
+            kern(X, pest, 1e-2, c)
 
 
 def test_select_action_pallas_policy(monkeypatch):

@@ -21,9 +21,11 @@ their plain versions at configs #1, #2 and #5's shapes (f64 1e-12, f32
 2e-5), the fused Hermite–Simpson launch against its plain version and
 against the forward and backward (Lorenz-96 and NaKL), engine='pallas'
 through autograd on the card and its value_and_grad, one fused launch a
-call. K5
+call, and the fused one-step launch against its plain version and
+against the forward (Lorenz-96 and NaKL, the three rules). K5
 (kernels/csrc/agt_kernel.cu) against its plain version over the three
-one-step rules × scalar and (N_f-1, D) rf (f64 1e-12, f32 2e-5), and K8
+one-step rules × scalar and (N_f-1, D) rf at D = 20, 40 and 64 and at
+D = 64 with N = 1,001 (f64 1e-12, f32 2e-5), and K8
 (kernels/csrc/pack_kernel.cu) against K2, bit for bit at pack 2, and
 against its plain version at pack 3. Run on a machine with a card:
 
@@ -507,7 +509,7 @@ def _fe_specs():
 
 
 def _k6_launches():
-    return (fe.FWD_LAUNCHES + fe.BWD_LAUNCHES + fe.SH_FWD_LAUNCHES
+    return (fe.FWD_LAUNCHES + fe.ONESTEP_VAG_LAUNCHES + fe.SH_FWD_LAUNCHES
             + fe.SH_VAG_LAUNCHES)
 
 
@@ -700,8 +702,8 @@ def test_fe_sh_vag_matches_plain(cuda, dtype, tol):
 
 def test_fe_value_and_grad_one_launch(cuda):
     """K6's action.value_and_grad on the card: one fused launch a call
-    under Hermite–Simpson and no fe_sh_fwd; one forward
-    and one backward under a one-step disc; in f64 the value and gradient
+    and no value-only launch, fe_sh_vag under Hermite–Simpson and
+    fe_onestep_vag under a one-step disc; in f64 the value and gradient
     within 1e-12 of the autograd action's."""
     from varanneal_tpu_torch.ops import value_and_grad
     for spec in (_fe_specs()[3][0], _fe_specs()[1][0]):
@@ -712,13 +714,13 @@ def test_fe_value_and_grad_one_launch(cuda):
         XP = torch.tensor(np.random.default_rng(4).normal(
             size=(2, spec.n_dof)), device=cuda)
         n0 = (fe.SH_VAG_LAUNCHES, fe.SH_FWD_LAUNCHES, fe.FWD_LAUNCHES,
-              fe.BWD_LAUNCHES)
+              fe.ONESTEP_VAG_LAUNCHES)
         A, G = vag(XP, 1e-3)
         torch.cuda.synchronize()
         n1 = (fe.SH_VAG_LAUNCHES, fe.SH_FWD_LAUNCHES, fe.FWD_LAUNCHES,
-              fe.BWD_LAUNCHES)
+              fe.ONESTEP_VAG_LAUNCHES)
         want = ((1, 0, 0, 0) if spec.disc == "SimpsonHermite"
-                else (0, 0, 1, 1))
+                else (0, 0, 0, 1))
         assert tuple(b - a for a, b in zip(n0, n1)) == want
         A_x, G_x = value_and_grad(make_action(spec, device=cuda)[0])(
             XP, 1e-3)
@@ -740,7 +742,7 @@ def test_fe_sh_envelope_edge(cuda, dtype):
         dataclasses.replace(spec, D=edge + 1), 0.0, dtype)
     wide = dataclasses.replace(spec, D=edge)
     c = fe.fe_consts(wide, dtype, cuda)
-    assert c.rows("bwd", 1) == 1
+    assert c.rows(1) == 1
     rng = np.random.default_rng(5)
     X = torch.tensor(rng.normal(2.0, 2.0, (1, wide.N_f, edge)), dtype=dtype,
                      device=cuda)
@@ -757,29 +759,117 @@ def test_fe_sh_envelope_edge(cuda, dtype):
                  / torch.max(torch.abs(g_r))) <= tol
 
 
+def _agt_specs():
+    """K5's shapes: the main path's (D=20, N=161), D=40 and D=64 (the
+    wide walk), and D=64 at N=1,001, whose (N-1)·D f32 residuals (256 KB)
+    no block could hold."""
+    spec, tw = _main_spec()
+    out = [(spec, tw)]
+    for D, N, n_obs in ((40, 161, 10), (64, 161, 16), (64, 1001, 16)):
+        twd = lorenz96_twin(D=D, N_data=N, n_obs=n_obs)
+        out.append((build_spec(lorenz96, D, twd["Y"], twd["t"],
+                               twd["Lidx"], twd["RM"], disc="trapezoid",
+                               P=np.array([4.0]), pidx=[0]), twd))
+    return out
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 2e-5)])
 def test_agt_kernel_matches_plain(cuda, dtype, tol):
     """K5 (kernels/csrc/agt_kernel.cu) against its plain version at the main
-    path's shape, the three one-step rules × scalar and (N_f-1, D) rf:
-    value within tol relative, gradient within tol of max|g|; one launch
-    a call and bit-identical repeats."""
-    spec, tw = _main_spec()
-    Z = torch.tensor(_draw(spec, tw, 4), dtype=dtype, device=cuda)
-    W = np.random.default_rng(5).uniform(0.5, 2.0, (spec.N_f - 1, spec.D))
+    path's shape, at D = 40 and 64 and at D = 64 with N = 1,001, the three
+    one-step rules × scalar and (N_f-1, D) rf: value within tol relative,
+    gradient within tol of max|g|; one launch a call and bit-identical
+    repeats."""
+    for spec, tw in _agt_specs():
+        Z = torch.tensor(_draw(spec, tw, 4), dtype=dtype, device=cuda)
+        W = np.random.default_rng(5).uniform(0.5, 2.0,
+                                             (spec.N_f - 1, spec.D))
+        for disc in ("trapezoid", "euler", "forwardmap"):
+            c = ag.agt_consts(dataclasses.replace(spec, disc=disc), cuda,
+                              dtype)
+            for rf in (3.0, torch.tensor(3.0 * W, dtype=dtype, device=cuda)):
+                n0 = ag.AGT_LAUNCHES
+                A, G = ag.agt_kernel(Z, rf, c)
+                torch.cuda.synchronize()
+                assert ag.AGT_LAUNCHES == n0 + 1
+                A_r, G_r = ag.agt_reference(Z, rf, c)
+                assert float(torch.max(torch.abs(A - A_r)
+                                       / torch.abs(A_r))) <= tol
+                scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+                assert float(torch.max(torch.abs(G - G_r) / scale)) <= tol
+                A2, G2 = ag.agt_kernel(Z, rf, c)
+                assert torch.equal(A, A2) and torch.equal(G, G2)
+
+
+def _onestep_cases():
+    """Config #1's data under the three one-step rules (Lorenz-96 D=20,
+    N=161) and config #3's twin cut to N=601 under the three rules (NaKL,
+    Pidx [1..5], with its stimulus and without), each (spec, X, pest, rf
+    scale) from numpy seed 11."""
+    from varanneal_tpu_torch.models import NAKL_P_TRUE, nakl
+    from varanneal_tpu_torch.twin import nakl_twin
+    rng = np.random.default_rng(11)
+    spec, _ = _main_spec()
+    out = []
     for disc in ("trapezoid", "euler", "forwardmap"):
-        c = ag.agt_consts(dataclasses.replace(spec, disc=disc), cuda, dtype)
-        for rf in (3.0, torch.tensor(3.0 * W, dtype=dtype, device=cuda)):
-            n0 = ag.AGT_LAUNCHES
-            A, G = ag.agt_kernel(Z, rf, c)
-            torch.cuda.synchronize()
-            assert ag.AGT_LAUNCHES == n0 + 1
-            A_r, G_r = ag.agt_reference(Z, rf, c)
-            assert float(torch.max(torch.abs(A - A_r) / torch.abs(A_r))) <= tol
-            scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
-            assert float(torch.max(torch.abs(G - G_r) / scale)) <= tol
-            A2, G2 = ag.agt_kernel(Z, rf, c)
-            assert torch.equal(A, A2) and torch.equal(G, G2)
+        sp = dataclasses.replace(spec, disc=disc)
+        out.append((sp, rng.normal(2.0, 2.0, (4, sp.N_f, sp.D)),
+                    4.0 + rng.normal(size=(4, 1)), 3e-2))
+    tw = nakl_twin(N=601, dt=0.04, sigma=1.0, seed=7)
+    P = np.asarray(NAKL_P_TRUE, float)
+    for disc in ("trapezoid", "euler", "forwardmap"):
+        for stim in (tw["stim"], None):
+            sp = build_spec(nakl, 4, tw["V"], tw["t"], [0], 1.0, disc=disc,
+                            P=P, pidx=[1, 2, 3, 4, 5], stim=stim)
+            X = np.concatenate([rng.uniform(-75, -45, (4, sp.N_f, 1)),
+                                rng.uniform(0.05, 0.95, (4, sp.N_f, 3))], -1)
+            pest = P[[1, 2, 3, 4, 5]] * (1 + 0.05 * rng.normal(size=(4, 5)))
+            out.append((sp, X, pest, 2e-3))
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_fe_onestep_vag_matches_plain(cuda, dtype, tol):
+    """The fused one-step launch (fe_onestep_vag) against its plain version
+    on the CPU, Lorenz-96 and NaKL under the three rules × scalar and
+    (N_f-1, D) rf, B = 1 and 4: the value within tol relative, the
+    gradient rows and the full parameter gradient within tol of max|g|;
+    one launch a call; its partials bit-equal to fe_onestep_fwd's (one
+    partition); repeats bit-identical."""
+    for spec, X_np, p_np, rf0 in _onestep_cases():
+        c = fe.fe_consts(spec, dtype, cuda, block_n=64)
+        cc = fe.fe_consts(spec, dtype, "cpu", block_n=64)
+        W = np.random.default_rng(6).uniform(0.5, 2.0,
+                                             (spec.N_f - 1, spec.D))
+        for B in (1, 4):
+            X = torch.tensor(X_np[:B], dtype=dtype, device=cuda)
+            pest = torch.tensor(p_np[:B], dtype=dtype, device=cuda)
+            for rf in (rf0, torch.tensor(rf0 * W, dtype=dtype,
+                                         device=cuda)):
+                n0 = fe.ONESTEP_VAG_LAUNCHES
+                out = fe.onestep_vag_kernel(X, pest, rf, c)
+                torch.cuda.synchronize()
+                assert fe.ONESTEP_VAG_LAUNCHES == n0 + 1
+                rc = rf.cpu() if isinstance(rf, torch.Tensor) else rf
+                ref = fe.onestep_vag_reference(X.cpu(), pest.cpu(), rc, cc)
+                v_k, v_r = out[0].sum(1).cpu(), ref[0].sum(1)
+                assert float(torch.max(torch.abs(v_k - v_r)
+                                       / v_r.abs())) <= tol
+                P = fe.full_params(pest.cpu(), cc)
+                gp_k = fe.param_grad(out[2].cpu(), P, cc)
+                gp_r = fe.param_grad(ref[2], P, cc)
+                s = torch.maximum(torch.amax(torch.abs(ref[1]), dim=(1, 2)),
+                                  torch.amax(torch.abs(gp_r), dim=1))
+                assert float(torch.max(torch.amax(torch.abs(
+                    out[1].cpu() - ref[1]), dim=(1, 2)) / s)) <= tol
+                assert float(torch.max(torch.amax(
+                    torch.abs(gp_k - gp_r), dim=1) / s)) <= tol
+                assert torch.equal(out[0],
+                                   fe.onestep_fwd_kernel(X, pest, rf, c))
+                again = fe.onestep_vag_kernel(X, pest, rf, c)
+                assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

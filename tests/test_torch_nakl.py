@@ -305,7 +305,7 @@ def test_fe_nakl_envelope_and_blocks():
     act, _ = fe.select_action(st, 1e-2, engine="pallas", device="cpu")
     assert act.engine == "pallas"
     c = fe.fe_consts(st, torch.float64, CPU, block_n=8)
-    assert (c.model, c.NP, c.M, c.n_blocks("fwd", 2)) == ("nakl", 19, 17,
+    assert (c.model, c.NP, c.M, c.n_blocks(2)) == ("nakl", 19, 17,
                                                          3)
     X, pest = _draw(st, tw, 9, B=2)
     Xt, pt = torch.tensor(X), torch.tensor(pest)

@@ -193,14 +193,14 @@ def main(device=None, env=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    launches = dict(ag=0, rung=0, ladder=0, pack=0, fe_fwd=0, fe_bwd=0)
+    launches = dict(ag=0, rung=0, ladder=0, pack=0, fe_fwd=0, fe_vag=0)
 
     def counts():
         return dict(ag=ag.LAUNCHES, rung=solve.RUNG_LAUNCHES,
                     ladder=solve.LADDER_LAUNCHES,
                     pack=solve_pack.PACK_LAUNCHES,
                     fe_fwd=fe.FWD_LAUNCHES + fe.SH_FWD_LAUNCHES,
-                    fe_bwd=fe.BWD_LAUNCHES + fe.SH_VAG_LAUNCHES)
+                    fe_vag=fe.ONESTEP_VAG_LAUNCHES + fe.SH_VAG_LAUNCHES)
 
     def ladder_call():
         before = counts()

@@ -15,15 +15,15 @@ turn). The inputs come from fixed seeds at chip_smoke.py phase 18's
 timing shapes and phase 20's ensemble, with the scalar rf of rung 30:
 
 - BASELINE config #1's trapezoid problem (Lorenz-96 D=20, N_data=161, F
-  estimated), one member, float32: K6a and K6b;
+  estimated), one member and B=4, float32: K6a and K6b;
 - config #2's Hermite–Simpson problem (D=100, N_data=121, F estimated),
   one member, float32: K6c; B=8 in float64: K6d;
 - config #2 with F fixed (nothing estimated), one member, float32.
 
-Each case times each kernel's wrapper alone (the Hermite–Simpson
-backward is ``sh_bwd_kernel`` where the checkout has one, else the fused
-launch with its value partials unread), the fused Hermite–Simpson launch
-(``sh_vag_kernel``) where the checkout has it, and
+Each case times each kernel's wrapper alone (the backward is
+``sh_bwd_kernel`` or ``onestep_bwd_kernel`` where the checkout has one,
+else the fused launch with its value partials unread), the fused launch
+(``sh_vag_kernel``, ``onestep_vag_kernel``) where the checkout has it, and
 ``make_fe_pallas``'s value and gradient through autograd (one forward
 and one backward launch), then its graph-free ``value_and_grad`` where
 the checkout has it. The times are CUDA events around 1,000 calls (200
@@ -83,6 +83,8 @@ def child(checkout, out):
 
     cases = (("config #1 trapezoid f32 B=1", spec(tw1, 20, "trapezoid", [0]),
               f32, 1, 4e-6 * float(tw1["RM"]), 1.5),
+             ("config #1 trapezoid f32 B=4", spec(tw1, 20, "trapezoid", [0]),
+              f32, 4, 4e-6 * float(tw1["RM"]), 1.5),
              ("config #2 SH f32 B=1", spec(tw2, 100, "SimpsonHermite", [0]),
               f32, 1, 1e-4, 1.6),
              ("config #2 SH f64 B=8", spec(tw2, 100, "SimpsonHermite", [0]),
@@ -98,22 +100,21 @@ def child(checkout, out):
                             dtype=dtype, device=dev)
         rf = float(torch.tensor(rf0 * alpha ** 30, dtype=dtype))
         c = fe.fe_consts(sp, dtype, dev, block_n=64)
-        if sp.disc == "SimpsonHermite":
-            # the backward: fe_sh_bwd where the checkout has it, else the
-            # fused launch's outputs without its value partials
-            bwd = getattr(fe, "sh_bwd_kernel", None) or (
-                lambda *a: fe.sh_vag_kernel(*a)[1:])
-            kerns = [("sh_fwd", fe.sh_fwd_kernel), ("sh_bwd", bwd)]
-            if hasattr(fe, "sh_vag_kernel"):
-                kerns.append(("sh_vag", fe.sh_vag_kernel))
-        else:
-            kerns = [("onestep_fwd", fe.onestep_fwd_kernel),
-                     ("onestep_bwd", fe.onestep_bwd_kernel)]
+        # the backward: the checkout's lone backward where it has one, else
+        # the fused launch's outputs without its value partials
+        k = "sh" if sp.disc == "SimpsonHermite" else "onestep"
+        vag = getattr(fe, f"{k}_vag_kernel", None)
+        bwd = getattr(fe, f"{k}_bwd_kernel", None) or (
+            lambda *a, vag=vag: vag(*a)[1:])
+        kerns = [(f"{k}_fwd", getattr(fe, f"{k}_fwd_kernel")),
+                 (f"{k}_bwd", bwd)]
+        if vag is not None:
+            kerns.append((f"{k}_vag", vag))
         for kern, fn in kerns:
             got = fn(X, pest, rf, c)
             got = [got] if isinstance(got, torch.Tensor) else list(got)
             # partials summed over their blocks: (B,) or (B, NP)
-            if kern.endswith("fwd") or kern == "sh_vag":
+            if kern.endswith("fwd") or kern.endswith("vag"):
                 got[0] = got[0].sum(-1)
             if not kern.endswith("fwd"):
                 got[-1] = got[-1].sum(-1)

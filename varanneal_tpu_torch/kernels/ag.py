@@ -13,7 +13,8 @@ dtype of ``ops.action`` (float64 for an f32 path when torch's default
 dtype is float64), so that ``make_action_ag(compensated=True)`` returns
 the compensated action's value with K1's f32 gradient. K5 replaces
 ``_agt_kernel`` (``make_action_ag_t``, the reference's transposed-layout
-kernel for D <= 64) with ``csrc/agt_kernel.cu``: the action of
+kernel for D <= 64) with ``csrc/agt_kernel.cu``, K1's walk in time with
+the rule and the rf kind as template arguments: the action of
 ``ops.action.make_action`` under the trapezoid rule, Euler or a forward map
 with a scalar or (N_f-1, D) rf, observations at every ``obs_stride``-th
 model row (the reference's K5 puts them at rows 0..N_data-1 and takes
@@ -30,7 +31,8 @@ XLA action). Beside the kernels this module holds:
 - :data:`LAUNCHES` (K1), :data:`COMP_LAUNCHES` (K4) and
   :data:`AGT_LAUNCHES` (K5), plain counts of kernel launches;
 - :func:`ag_supported` and :func:`agt_supported`, the kernels' envelopes,
-  and :func:`ag_refusal`, the condition K1's envelope fails, in words.
+  and :func:`ag_refusal` and :func:`agt_refusal`, the condition each
+  fails, in words.
 
 :func:`action_and_grad` and :func:`action_and_grad_t` take the plain
 version only for tensors on the CPU. For a CUDA tensor they launch the
@@ -98,13 +100,6 @@ def ring_on_chip(D, dtype, compensated=False) -> bool:
     return _smem_bytes(D, dtype, compensated) <= SMEM_LIMIT
 
 
-def _agt_smem_bytes(N_f, D, dtype):
-    """l96_agt_smem_elems in bytes: the weighted residuals and the
-    reduction partials."""
-    return ((N_f - 1) * D + 3 * (_THREADS // 32)) * (
-        torch.finfo(dtype).bits // 8)
-
-
 def _uniform_grid(spec: ProblemSpec) -> bool:
     t_f = np.asarray(spec.t_f)
     ref = t_f[0] + spec.dt * np.arange(t_f.shape[0])
@@ -161,27 +156,50 @@ def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
     return ag_refusal(spec, rf, dtype, compensated) is None
 
 
+def agt_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
+    """The first condition of :func:`agt_supported` that ``spec`` fails, in
+    words, or None inside K5's envelope."""
+    if spec.disc not in AGT_DISCS:
+        return (f"disc {spec.disc!r} (K5 takes the trapezoid rule, euler "
+                f"and forwardmap)")
+    if spec.f is not lorenz96:
+        return (f"model {getattr(spec.f, '__name__', spec.f)!r} (K5 takes "
+                f"Lorenz-96, models.lorenz.lorenz96)")
+    if not 4 <= spec.D <= AGT_MAX_D:
+        return f"D = {spec.D} (K5 takes 4 <= D <= {AGT_MAX_D})"
+    if (spec.time_dep_p or spec.stim_f is not None or spec.NP != 1
+            or spec.pidx not in ((), (0,))):
+        return ("parameters (K5 takes the one constant F, estimated or "
+                "fixed, and no stimulus)")
+    if np.ndim(rf) != 0 and np.shape(rf) != (spec.N_f - 1, spec.D):
+        return (f"rf of shape {np.shape(rf)} (K5 takes a scalar or "
+                f"({spec.N_f - 1}, {spec.D}) rf)")
+    if np.ndim(spec.RM) not in (0, 2):
+        return (f"RM rank {np.ndim(spec.RM)} (K5 takes a scalar or "
+                f"(N_data, L) RM)")
+    if dtype not in _DTYPES:
+        return f"dtype {dtype} (K5 takes float32 or float64)"
+    if not _uniform_grid(spec):
+        return "a non-uniform time grid"
+    if len(set(np.asarray(spec.Lidx).tolist())) != spec.L:
+        return "repeated observed columns in Lidx"
+    if spec.n_dof > MAX_N_DOF:
+        return (f"size: n_dof = {spec.n_dof:,} values, above the kernels' "
+                f"32-bit index range of {MAX_N_DOF:,}")
+    return None
+
+
 def agt_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32) -> bool:
     """K5's envelope: Lorenz-96 (the port's ``models.lorenz.lorenz96``)
     with 4 <= D <= :data:`AGT_MAX_D`, the trapezoid rule, Euler or a
     forward map (Hermite–Simpson refused), no stimulus, constant
     parameters with NP == 1, rf scalar or (N_f-1, D), RM scalar or
-    (N_data, L), any uniform observation stride, a uniform grid, f32 or
-    f64, and the weighted residuals fitting in one block's shared memory.
-    A per-member (B, N_f-1, D) rf is outside it."""
-    return (spec.disc in AGT_DISCS
-            and spec.f is lorenz96
-            and 4 <= spec.D <= AGT_MAX_D
-            and not spec.time_dep_p
-            and spec.stim_f is None
-            and spec.NP == 1
-            and spec.pidx in ((), (0,))
-            and (np.ndim(rf) == 0
-                 or np.shape(rf) == (spec.N_f - 1, spec.D))
-            and np.ndim(spec.RM) in (0, 2)
-            and dtype in _DTYPES
-            and _uniform_grid(spec)
-            and _agt_smem_bytes(spec.N_f, spec.D, dtype) <= SMEM_LIMIT)
+    (N_data, L), any uniform observation stride, distinct observed
+    columns, a uniform grid, f32 or f64, and at most :data:`MAX_N_DOF`
+    values a member. A per-member (B, N_f-1, D) rf is outside it. Shared
+    memory bounds nothing: K1's walk keeps 6 rows of D a warp, whatever
+    N. :func:`agt_refusal` names the condition a problem fails."""
+    return agt_refusal(spec, rf, dtype) is None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,9 +242,10 @@ def ag_consts(spec: ProblemSpec, device, dtype,
 def agt_consts(spec: ProblemSpec, device, dtype) -> AgConsts:
     """K5's :class:`AgConsts` for ``spec`` (inside :func:`agt_supported`
     for a scalar rf), ``disc`` naming its discretization."""
-    if not agt_supported(spec, 0.0, dtype):
-        raise ValueError("problem outside K5's envelope (see "
-                         "agt_supported); use ops.action.make_action")
+    why = agt_refusal(spec, 0.0, dtype)
+    if why is not None:
+        raise ValueError(f"problem outside K5's envelope: {why} (see "
+                         f"agt_supported); use ops.action.make_action")
     return _consts(spec, device, dtype)
 
 
@@ -630,7 +649,7 @@ def make_action_ag_t(spec: ProblemSpec, device=None, dtype=torch.float32):
     and ``action.consts``; ``action_parts`` is the plain action
     (``ops.action``) for the records. rf is a scalar or (N_f-1, D).
     ``device=None`` means the CUDA card. Raises ValueError outside
-    :func:`agt_supported`."""
+    :func:`agt_supported`, naming the condition (:func:`agt_refusal`)."""
     device = resolve_device(device)
     c = agt_consts(spec, device, dtype)
 

@@ -5,8 +5,12 @@
 // Replaces varanneal_tpu/kernels/fe_pallas.py's seven pallas_call sites:
 //
 //   fe_onestep_fwd  <- _kern_scalar (:138, call :384) and _kern_diag
-//                      (:156, call :396): kDiagRf picks the rf form;
-//   fe_onestep_bwd  <- _kern_bwd (:187, call :450);
+//                      (:156, call :396): kDiag picks the rf form;
+//   fe_onestep_vag  <- _kern_bwd (:187, call :450), with the value in the
+//                      same launch (the reference runs _kern_scalar or
+//                      _kern_diag, then _kern_bwd in its custom_vjp): the
+//                      backward's outputs and fe_onestep_fwd's partials,
+//                      on the same blocks;
 //   fe_sh_fwd       <- _kern_sh_fwd (:238, call :632) and the batched-grid
 //                      _kern_sh_fwd_b (:472, call :718);
 //   fe_sh_vag       <- _kern_sh_bwd (:260, call :648) and _kern_sh_bwd_b
@@ -59,23 +63,22 @@
 // under a microsecond at the card's rates, below the few microseconds a
 // launch costs. So the kernels are bound by launch latency and by the
 // serial depth of one thread (stage, one or two passes, one reduction);
-// with few members most SMs would sit idle. The one-step kernels keep
-// every pass a strided loop over a block's (row, component) pairs with
-// the model evaluated from shared memory, and a fixed-order reduction (a
-// warp shuffle tree, then thread 0 over the warps in order).
-//
-// The Hermite–Simpson kernels are laid out for the card instead: the
-// wrapper sizes the blocks from B·M and the SM count so that one member
-// covers the SMs (config #3 at B=1: 94 blocks of 32 intervals; config #2:
-// 120 blocks of one interval), and a thread takes one interval of a
-// row-level model (NaKL) or one (interval, component) pair of Lorenz-96,
-// with no loop over pairs at the configurations' shapes. A NaKL thread
-// evaluates each of its interval's three nodes once (three tanh and three
-// divisions a node, none again for Jᵀv or the parameter adjoint), so no
-// warp splits by component; the 19 parameter partials (and the value in
-// the fused launch) reduce by shuffle trees, then lane j of warp 0 sums
-// partial j's warp slots in order. No atomics anywhere, so repeated
-// launches give bit-identical results.
+// with few members most SMs would sit idle. So the wrapper sizes the
+// blocks from the batch's rows (B·M intervals under Hermite–Simpson, B·N_f
+// rows for a one-step disc) and the SM count, so that one member covers
+// the SMs (config #3 at B=1: 94 blocks of 32 intervals; config #2: 120
+// blocks of one interval; config #1's one-step path: 161 blocks of one
+// row), and a thread takes one interval or row of a row-level model
+// (NaKL) or one (interval or row, component) pair of Lorenz-96, with no
+// loop over pairs at the configurations' shapes. A NaKL thread evaluates
+// each node it owns once (three tanh and three divisions a node, none
+// again for Jᵀv or the parameter adjoint), so no warp splits by
+// component. The value-and-gradient launches give the value's block
+// partials too, on the blocks of the value-only launch and with its
+// arithmetic, so the two agree bit for bit. The parameter partials and
+// the value reduce by shuffle trees, then lane j of warp 0 sums partial
+// j's warp slots in order. No atomics anywhere, so repeated launches give
+// bit-identical results.
 //
 // The model is a template parameter with f, the transposed Jacobian
 // product and the parameter adjoint written by hand (no autodiff on the
@@ -86,10 +89,9 @@
 // and the stimulus of its model-grid row (I; 0 without a stimulus), and
 // adds its parameter partials Σ_d df_d/dp_j v_d into kNP per-thread
 // accumulators, reduced in a fixed order per block (gp: (B, kNP, blocks)).
-// Lorenz-96 (kNP = 1) keeps F in a register, read from global memory, and
-// its arithmetic is the one of the L96-only kernels, bit for bit; NaKL
-// stages its 19 parameters and the stimulus rows of the block in shared
-// memory.
+// Lorenz-96 (kNP = 1) reads F from global memory, and its arithmetic is
+// the one of the L96-only kernels, bit for bit; NaKL stages its 19
+// parameters, extended by 1/Cm and the gates' 1/dva, in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -98,16 +100,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
 enum Disc { kEuler = 0, kTrapezoid = 1, kForwardmap = 2 };
 enum ModelId { kL96 = 0, kNaKL = 1 };
 
 // Lorenz-96 with p = [F]: df_d/dF = 1, so F's adjoint is Σ_d v_d. Its
-// Hermite–Simpson kernels map a thread to an (interval, component) pair
-// (kRow false): D runs to the thousands, and a component's f and Jᵀv read
-// its neighbours only.
+// kernels map a thread to an (interval or row, component) pair (kRow
+// false): D runs to the thousands, and a component's f and Jᵀv read its
+// neighbours only.
 struct L96 {
     static constexpr int kNP = 1;
     static constexpr int kNPX = 1;
@@ -131,10 +130,11 @@ struct L96 {
 };
 
 // NaKL (D = 4, 19 parameters, the stimulus as the injected current).
-// Its Hermite–Simpson kernels are row-level (kRow): a thread owns an
-// interval, evaluates each of its three nodes once (nakl_node: three tanh
-// and three divisions) and reuses those values in the residuals, Jᵀv and
-// the parameter adjoint, so no warp splits by component.
+// Its kernels are row-level (kRow): a thread owns an interval
+// (Hermite–Simpson) or a node (one-step), evaluates each of its nodes
+// once (nakl_node: three tanh and three divisions) and reuses those values
+// in the residuals, Jᵀv and the parameter adjoint, so no warp splits by
+// component.
 struct NaKL {
     static constexpr int kNP = nakl::kNP;
     static constexpr int kNPX = nakl::kNPX;
@@ -159,121 +159,32 @@ struct NaKL {
                                    T* acc) {
         nakl_adjoint_row(x, px, nd, v, jt, acc);
     }
-    template <typename T>
-    __device__ static T f(const T* x, int d, int, const T* p, T I) {
-        return nakl_f(x, d, p, I);
-    }
-    template <typename T, typename V>
-    __device__ static T jtv(const T* x, const V& v, int e, int,
-                            const T* p) {
-        return nakl_jtv(x, v, e, p);
-    }
-    template <typename T>
-    __device__ static void ptv(const T* x, int d, int, const T* p, T I,
-                               T v_d, T* acc) {
-        nakl_ptv(x, d, p, I, v_d, acc);
-    }
 };
 
-// Shared memory a block takes besides its rows of D values: the
-// reduction's kWarps slots per parameter partial, the parameter row
-// when it is staged (kNP > 1) and one stimulus value per staged row.
-template <typename Model>
-__host__ __device__ constexpr size_t extra_vals(int stim_rows) {
-    return (size_t)kWarps * Model::kNP
-           + (Model::kNP > 1 ? Model::kNP : 0)
-           + (Model::kStim ? stim_rows : 0);
-}
-
-// Block-wide sum in a fixed order: a warp shuffle tree, then thread 0
-// adds the warps' sums in order. The result is valid on thread 0.
-template <typename T>
-__device__ T block_sum(T v, T* red) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    T s = T(0);
-    if (threadIdx.x == 0) {
-        for (int w = 0; w < kWarps; ++w) s += red[w];
-    }
-    return s;
-}
-
-// block_sum of N values at once (red: N·kWarps); out valid on thread 0.
-template <typename T, int N>
-__device__ void block_sum_n(T* v, T* red, T* out) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-        for (int o = 16; o > 0; o >>= 1) {
-            v[j] += __shfl_down_sync(0xffffffffu, v[j], o);
-        }
-    }
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) red[j * kWarps + warp] = v[j];
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            T s = T(0);
-            for (int w = 0; w < kWarps; ++w) s += red[j * kWarps + w];
-            out[j] = s;
-        }
-    }
-}
-
-// The block's parameter row and stimulus rows. Lorenz-96 reads F from
-// global memory (p points at its row of P); NaKL copies its row to sp
-// and its n_rows stimulus values from model-grid row row0 on to ss (0
-// where stim is null or the row lies outside 0 .. n_grid - 1). The
-// caller's barrier after staging x covers these copies.
-template <typename T, typename Model>
-__device__ __forceinline__ const T* stage_params(
-        const T* __restrict__ P, long long p_bs, const T* __restrict__ stim,
-        int row0, int n_rows, int n_grid, T* sp, T* ss) {
-    const T* prow = P + (size_t)blockIdx.y * p_bs;
-    if constexpr (Model::kNP > 1) {
-        for (int j = threadIdx.x; j < Model::kNP; j += kThreads) {
-            sp[j] = prow[j];
-        }
-        prow = sp;
-    }
-    if constexpr (Model::kStim) {
-        for (int j = threadIdx.x; j < n_rows; j += kThreads) {
-            const int r = row0 + j;
-            ss[j] = (stim && r >= 0 && r < n_grid) ? stim[r] : T(0);
-        }
-    }
-    return prow;
-}
-
-template <typename Model, typename T>
-__device__ __forceinline__ T stim_of(const T* ss, int j) {
-    if constexpr (Model::kStim) {
-        return ss[j];
-    } else {
-        return T(0);
-    }
-}
-
-// One-step residual of component d from rows x0 = x_n, x1 = x_{n+1} (with
-// their currents s0, s1); hc is h/2 (trapezoid), h (euler), unused
+// One-step residual from x_n, x_{n+1} and f at both (f1 unread but under
+// the trapezoid rule); hc is h/2 (trapezoid), h (euler), unused
 // (forwardmap).
+template <typename T, int kDisc>
+__device__ __forceinline__ T step_residual(T x0, T x1, T f0, T f1, T hc) {
+    if constexpr (kDisc == kTrapezoid) {
+        return x1 - x0 - hc * (f0 + f1);
+    } else if constexpr (kDisc == kEuler) {
+        return x1 - x0 - hc * f0;
+    } else {
+        return x1 - f0;
+    }
+}
+
+// The same of component d from the rows x0 = x_n, x1 = x_{n+1} of a model
+// without a stimulus (Lorenz-96's pair mapping), f evaluated where the rule
+// reads it.
 template <typename T, typename Model, int kDisc>
 __device__ __forceinline__ T onestep_residual(const T* x0, const T* x1,
                                               int d, int D, const T* p,
-                                              T s0, T s1, T hc) {
-    const T f0 = Model::f(x0, d, D, p, s0);
-    if constexpr (kDisc == kTrapezoid) {
-        return x1[d] - x0[d] - hc * (f0 + Model::f(x1, d, D, p, s1));
-    } else if constexpr (kDisc == kEuler) {
-        return x1[d] - x0[d] - hc * f0;
-    } else {
-        return x1[d] - f0;
-    }
+                                              T hc) {
+    const T f0 = Model::f(x0, d, D, p, T(0));
+    const T f1 = kDisc == kTrapezoid ? Model::f(x1, d, D, p, T(0)) : T(0);
+    return step_residual<T, kDisc>(x0[d], x1[d], f0, f1, hc);
 }
 
 // Hermite–Simpson residual pair of component d on one interval (rows
@@ -289,120 +200,6 @@ __device__ __forceinline__ void sh_residuals(const T* xe0, int d, int D,
     const T f1 = Model::f(xe1, d, D, p, s[2]);
     *S = xe1[d] - xe0[d] - h6 * (f0 + T(4) * fm + f1);
     *H = xm[d] - T(0.5) * (xe0[d] + xe1[d]) - h8 * (f0 - f1);
-}
-
-// K6a. Block i of member b: residual rows [i·bn, min(i·bn + bn, N_f - 1)),
-// staged rows i·bn .. i·bn + nr (nr + 1 rows). partials: (B, gridDim.x).
-template <typename T, typename Model, int kDisc, bool kDiagRf>
-__global__ void __launch_bounds__(kThreads) fe_onestep_fwd(
-        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
-        long long p_bs, const T* __restrict__ stim,
-        const T* __restrict__ rf, T rf_s, int N_f, int D, T hc, int bn,
-        T* __restrict__ partials) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sx = reinterpret_cast<T*>(smem_raw);           // (bn + 1) * D
-    T* red = sx + (size_t)(bn + 1) * D;                // kWarps * kNP
-    T* sp = red + kWarps * Model::kNP;                 // kNP (NaKL)
-    T* ss = sp + (Model::kNP > 1 ? Model::kNP : 0);    // bn + 1 (NaKL)
-    const int r0 = blockIdx.x * bn;
-    const int nr = min(bn, N_f - 1 - r0);
-    const T* p = stage_params<T, Model>(P, p_bs, stim, r0, nr + 1, N_f,
-                                        sp, ss);
-    const T* xb = X + (size_t)blockIdx.y * x_bs + (size_t)r0 * D;
-    for (int j = threadIdx.x; j < (nr + 1) * D; j += kThreads) sx[j] = xb[j];
-    __syncthreads();
-    T acc = T(0);
-    for (int j = threadIdx.x; j < nr * D; j += kThreads) {
-        const int row = j / D, d = j - row * D;
-        const T* x0 = sx + (size_t)row * D;
-        const T r = onestep_residual<T, Model, kDisc>(
-            x0, x0 + D, d, D, p, stim_of<Model>(ss, row),
-            stim_of<Model>(ss, row + 1), hc);
-        if constexpr (kDiagRf) {
-            acc += rf[(size_t)r0 * D + j] * r * r;
-        } else {
-            acc += r * r;
-        }
-    }
-    const T s = block_sum(acc, red);
-    if (threadIdx.x == 0) {
-        partials[(size_t)blockIdx.y * gridDim.x + blockIdx.x] =
-            kDiagRf ? s : rf_s * s;
-    }
-}
-
-// K6b. Block i of member b: gradient rows m in [m0, m0 + nm), m0 = i·bn.
-// Shared memory holds x rows m0 - 1 .. m0 + nm (row j <-> x_{m0-1+j}),
-// wr rows (row j <-> w r of residual m0 - 1 + j, zero outside
-// 0 .. N_f - 2) and v rows (row j <-> v_{m0+j}). gx: (B, N_f, D)
-// contiguous; gp: (B, kNP, gridDim.x), the block's partials
-// -Σ_m F_p(x_m)ᵀ v_m.
-template <typename T, typename Model, int kDisc, bool kDiagRf>
-__global__ void __launch_bounds__(kThreads) fe_onestep_bwd(
-        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
-        long long p_bs, const T* __restrict__ stim,
-        const T* __restrict__ rf, T rf_s, int N_f, int D, T hc, T a1, T c0,
-        T c1, int bn, T* __restrict__ gx, T* __restrict__ gp) {
-    constexpr int NP = Model::kNP;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sx = reinterpret_cast<T*>(smem_raw);           // (bn + 2) * D
-    T* wr = sx + (size_t)(bn + 2) * D;                 // (bn + 1) * D
-    T* sv = wr + (size_t)(bn + 1) * D;                 // bn * D
-    T* red = sv + (size_t)bn * D;                      // kWarps * kNP
-    T* sp = red + kWarps * NP;                         // kNP (NaKL)
-    T* ss = sp + (NP > 1 ? NP : 0);                    // bn + 2 (NaKL)
-    const int m0 = blockIdx.x * bn;
-    const int nm = min(bn, N_f - m0);
-    const T* p = stage_params<T, Model>(P, p_bs, stim, m0 - 1, nm + 2, N_f,
-                                        sp, ss);
-    const T* xb = X + (size_t)blockIdx.y * x_bs;
-    for (int j = threadIdx.x; j < (nm + 2) * D; j += kThreads) {
-        const int row = m0 - 1 + j / D;
-        if (row >= 0 && row < N_f) sx[j] = xb[(long long)(m0 - 1) * D + j];
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < (nm + 1) * D; j += kThreads) {
-        const int row = j / D, d = j - row * D;
-        const int q = m0 - 1 + row;                    // residual row
-        T w = T(0);
-        if (q >= 0 && q <= N_f - 2) {
-            const T* x0 = sx + (size_t)row * D;
-            const T r = onestep_residual<T, Model, kDisc>(
-                x0, x0 + D, d, D, p, stim_of<Model>(ss, row),
-                stim_of<Model>(ss, row + 1), hc);
-            w = (kDiagRf ? rf[(size_t)q * D + d] : rf_s) * r;
-        }
-        wr[j] = w;
-    }
-    __syncthreads();
-    T acc[NP];
-#pragma unroll
-    for (int k = 0; k < NP; ++k) acc[k] = T(0);
-    for (int j = threadIdx.x; j < nm * D; j += kThreads) {
-        const int row = j / D, d = j - row * D;
-        const T v = c0 * wr[j] + c1 * wr[j + D];
-        sv[j] = v;
-        Model::ptv(sx + (size_t)(row + 1) * D, d, D, p,
-                   stim_of<Model>(ss, row + 1), v, acc);
-    }
-    // every row's v is read at other components by Jᵀv: a block barrier
-    __syncthreads();
-    T* gxb = gx + (size_t)blockIdx.y * N_f * D + (size_t)m0 * D;
-    for (int j = threadIdx.x; j < nm * D; j += kThreads) {
-        const int row = j / D, e = j - row * D;
-        const T* vrow = sv + (size_t)row * D;
-        const T jt = Model::jtv(sx + (size_t)(row + 1) * D,
-                                [vrow](int k) { return vrow[k]; }, e, D, p);
-        gxb[j] = wr[j] - a1 * wr[j + D] - jt;
-    }
-    T s[NP];
-    block_sum_n<T, NP>(acc, red, s);
-    if (threadIdx.x == 0) {
-        for (int k = 0; k < NP; ++k) {
-            gp[((size_t)blockIdx.y * NP + k) * gridDim.x + blockIdx.x] =
-                -s[k];
-        }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -720,6 +517,246 @@ __global__ void __launch_bounds__(Model::kMaxThreads) fe_sh_vag(
                                     partials);
 }
 
+// ---------------------------------------------------------------------------
+// K6a/K6b, the one-step discs. Block i of member b takes the gradient rows
+// [m0, m0 + nm), m0 = i·bn, nm = min(bn, N_f - m0), and for the value the
+// residual rows of the same indices below N_f - 1 (the last block may have
+// none; its partial is then 0). The wrapper picks bn from B·N_f and the
+// card's SM count and the threads a block (kernels/fe.py, rows_per_block
+// and onestep_threads). wr_q = w_q r_q is the weighted residual, zero
+// outside 0 .. N_f - 2; v_m = c0 wr_{m-1} + c1 wr_m; gx_m = wr_{m-1}
+// - a1 wr_m - J(x_m)ᵀ v_m; gp's partial -Σ_m F_p(x_m)ᵀ v_m. Outputs:
+// partials (B, gridDim.x), gx (B, N_f, D), gp (B, kNP, gridDim.x).
+
+// Shared memory of a one-step block of nw warps, in values: the
+// reduction's slots (kNP + 1 a warp); a row model's extended parameter
+// row; Lorenz-96's x rows m0 - 1 .. m0 + bn and wr rows m0 - 1 ..
+// m0 + bn - 1.
+template <typename Model>
+constexpr size_t onestep_smem_vals(int bn, int D, int nw) {
+    const size_t v = (size_t)nw * (Model::kNP + 1);
+    return Model::kRow ? v + Model::kNPX : v + (size_t)(2 * bn + 3) * D;
+}
+
+// Lorenz-96: a thread a (row, component) pair. The block stages its x rows
+// with the halo row m0 - 1, then computes the weighted residuals of rows
+// m0 - 1 .. m0 + nm - 1 (the halo row itself: no other block's work is
+// read) into shared memory, the value's terms and F's from its own rows;
+// after one barrier, a gradient entry forms v at the components Jᵀv reads
+// from the two wr rows, with no v array. F enters every component with
+// df_d/dF = 1, so its adjoint -Σ_m Σ_d v_m,d is -(c0 + c1) Σ_q Σ_d wr_q,d
+// (each wr row enters two v rows, once with c0 and once with c1), as K1
+// forms dA/dF. The value-only launch (kGrad false) walks the same pairs in
+// the same order, so its partials are the fused launch's bits.
+template <typename T, typename Model, int kDisc, bool kDiag, bool kGrad>
+__device__ __forceinline__ void onestep_pairs(
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ rf, T rf_s, int N_f, int D,
+        T hc, T a1, T c0, T c1, int bn, T* __restrict__ gx,
+        T* __restrict__ gp, T* __restrict__ partials) {
+    static_assert(!Model::kStim && Model::kNP == 1,
+                  "the pair mapping: one parameter with df_d/dp = 1");
+    constexpr int NP = Model::kNP;
+    constexpr int NV = kGrad ? NP + 1 : 1;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nw = blockDim.x >> 5;
+    T* sx = reinterpret_cast<T*>(smem_raw);           // (bn + 2) * D
+    T* wr = sx + (size_t)(bn + 2) * D;                 // (bn + 1) * D
+    T* red = wr + (size_t)(bn + 1) * D;                // nw * (NP + 1)
+    const int m0 = blockIdx.x * bn;
+    const int nm = min(bn, N_f - m0);
+    const T* p = P + (size_t)blockIdx.y * p_bs;
+    const T* xb = X + (size_t)blockIdx.y * x_bs + (long long)(m0 - 1) * D;
+    for (int j = threadIdx.x; j < (nm + 2) * D; j += blockDim.x) {
+        const int row = m0 - 1 + j / D;
+        sx[j] = row >= 0 && row < N_f ? xb[j] : T(0);
+    }
+    __syncthreads();
+    T acc[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k] = T(0);
+    // row j <-> residual m0 - 1 + j; the halo row j = 0 feeds the gradient
+    for (int j = threadIdx.x; j < (nm + 1) * D; j += blockDim.x) {
+        const int row = j / D, d = j - row * D;
+        const int q = m0 - 1 + row;
+        T w = T(0);
+        if (q >= 0 && q <= N_f - 2 && (kGrad || row > 0)) {
+            const T* x0 = sx + (size_t)row * D;
+            const T r = onestep_residual<T, Model, kDisc>(x0, x0 + D, d, D,
+                                                          p, hc);
+            if constexpr (kDiag) {
+                w = rf[(size_t)q * D + d] * r;
+                if (row > 0) acc[NV - 1] += w * r;
+            } else {
+                w = rf_s * r;
+                if (row > 0) acc[NV - 1] += r * r;
+            }
+            if (kGrad && row > 0) acc[0] += w;
+        }
+        if constexpr (kGrad) wr[j] = w;
+    }
+    if constexpr (kGrad) {
+        // Jᵀv reads every wr row at other components: one block barrier
+        __syncthreads();
+        T* gxb = gx + (size_t)blockIdx.y * N_f * D + (size_t)m0 * D;
+        for (int j = threadIdx.x; j < nm * D; j += blockDim.x) {
+            const int row = j / D, e = j - row * D;
+            const T* wp = wr + (size_t)row * D;       // wr_{m-1}
+            const T* wc = wp + D;                      // wr_m
+            const auto v = [wp, wc, c0, c1](int k) {
+                return c0 * wp[k] + c1 * wc[k];
+            };
+            gxb[j] = wp[e] - a1 * wc[e]
+                     - Model::jtv(sx + (size_t)(row + 1) * D, v, e, D, p);
+        }
+    }
+    block_reduce<T, NV>(acc, red, [&](int j, T s) {
+        if (kGrad && j < NP) {
+            gp[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = -(c0 + c1) * s;
+        } else {
+            partials[(size_t)blockIdx.y * gridDim.x + blockIdx.x] =
+                kDiag ? s : rf_s * s;
+        }
+    });
+}
+
+// Rows of a one-step warp of a row-level model: its 32 lanes hold the
+// nodes m - 1 .. m + 30 of its rows m .. m + 29, the two ends being the
+// halo nodes its residuals read.
+constexpr int kWarpRows = 30;
+
+// Row-level model (NaKL): warp w of the block owns rows [m0 + 30 w,
+// m0 + 30 w + 30) of the block's, and lane l node k = m0 + 30 w - 1 + l.
+// A lane loads its row of x and its current, evaluates its node once
+// (Model::node: f and what the adjoint reuses), takes x and f of node
+// k + 1 from the next lane to form residual k and wr_k, and wr_{k-1} from
+// the previous lane to form v_k, Jᵀv and the parameter adjoint of its
+// row: shuffles, no shared row and no barrier but the one after the
+// parameter row is staged. The value-only launch computes the same
+// residuals in the same order.
+template <typename T, typename Model, int kDisc, bool kDiag, bool kGrad>
+__device__ __forceinline__ void onestep_rows(
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int N_f, T hc, T a1, T c0, T c1,
+        int bn, T* __restrict__ gx, T* __restrict__ gp,
+        T* __restrict__ partials) {
+    constexpr int D = Model::kD, NP = Model::kNP;
+    constexpr int NV = kGrad ? NP + 1 : 1;
+    constexpr unsigned kAll = 0xffffffffu;
+    using Node = typename Model::template Node<T>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nw = blockDim.x >> 5;
+    T* red = reinterpret_cast<T*>(smem_raw);           // nw * (NP + 1)
+    T* sp = red + (size_t)nw * (NP + 1);               // kNPX
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int m0 = blockIdx.x * bn;
+    const int w0 = m0 + kWarpRows * warp;              // the warp's rows
+    const int w1 = min(w0 + kWarpRows, m0 + min(bn, N_f - m0));
+    const T* prow = P + (size_t)blockIdx.y * p_bs;
+    for (int j = threadIdx.x; j < Model::kNPX; j += blockDim.x) {
+        sp[j] = Model::param(prow, j);
+    }
+    const int k = w0 - 1 + lane;                       // the lane's node
+    const bool on = k >= 0 && k < N_f;
+    const T* xk = X + (size_t)blockIdx.y * x_bs + (long long)k * D;
+    T x[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = on ? xk[d] : T(0);
+    const T I = stim && on ? stim[k] : T(0);
+    __syncthreads();                                   // sp staged
+    Node nd;
+    Model::node(x, sp, I, nd);
+    // residual k from node k + 1, the next lane's
+    const bool res = lane < 31 && k >= 0 && k <= N_f - 2;
+    const bool own = lane >= 1 && k < w1;              // row k is ours
+    T acc[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = T(0);
+    T wr[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        const T x1 = __shfl_down_sync(kAll, x[d], 1);
+        const T f1 = __shfl_down_sync(kAll, nd.f[d], 1);
+        T w = T(0);
+        if (res) {
+            const T r = step_residual<T, kDisc>(x[d], x1, nd.f[d], f1, hc);
+            if constexpr (kDiag) {
+                w = rf[(size_t)k * D + d] * r;
+                if (own) acc[NV - 1] += w * r;
+            } else {
+                w = rf_s * r;
+                if (own) acc[NV - 1] += r * r;
+            }
+        }
+        wr[d] = w;
+    }
+    if constexpr (kGrad) {
+        T wp[D], v[D], jt[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            wp[d] = __shfl_up_sync(kAll, wr[d], 1);    // wr_{k-1}
+            v[d] = c0 * wp[d] + c1 * wr[d];
+        }
+        if (own) {
+            Model::adjoint(x, sp, nd, v, jt, acc);
+            T* out = gx + ((size_t)blockIdx.y * N_f + k) * D;
+#pragma unroll
+            for (int d = 0; d < D; ++d) out[d] = wp[d] - a1 * wr[d] - jt[d];
+        }
+    }
+    block_reduce<T, NV>(acc, red, [&](int j, T s) {
+        if (kGrad && j < NP) {
+            gp[((size_t)blockIdx.y * NP + j) * gridDim.x + blockIdx.x] = -s;
+        } else {
+            partials[(size_t)blockIdx.y * gridDim.x + blockIdx.x] =
+                kDiag ? s : rf_s * s;
+        }
+    });
+}
+
+template <typename T, typename Model, int kDisc, bool kDiag, bool kGrad>
+__device__ __forceinline__ void onestep_block(
+        const T* X, long long x_bs, const T* P, long long p_bs,
+        const T* stim, const T* rf, T rf_s, int N_f, int D, T hc, T a1,
+        T c0, T c1, int bn, T* gx, T* gp, T* partials) {
+    if constexpr (Model::kRow) {
+        onestep_rows<T, Model, kDisc, kDiag, kGrad>(
+            X, x_bs, P, p_bs, stim, rf, rf_s, N_f, hc, a1, c0, c1, bn, gx,
+            gp, partials);
+    } else {
+        onestep_pairs<T, Model, kDisc, kDiag, kGrad>(
+            X, x_bs, P, p_bs, rf, rf_s, N_f, D, hc, a1, c0, c1, bn, gx, gp,
+            partials);
+    }
+}
+
+// K6a: the value's block partials rf · Σ r² or Σ rf ⊙ r².
+template <typename T, typename Model, int kDisc, bool kDiag>
+__global__ void __launch_bounds__(Model::kMaxThreads) fe_onestep_fwd(
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int N_f, int D, T hc, int bn,
+        T* __restrict__ partials) {
+    onestep_block<T, Model, kDisc, kDiag, false>(
+        X, x_bs, P, p_bs, stim, rf, rf_s, N_f, D, hc, T(0), T(0), T(0), bn,
+        nullptr, nullptr, partials);
+}
+
+// K6b with K6a's value in one launch: the value's block partials, the
+// gradient rows and the parameters' block partials.
+template <typename T, typename Model, int kDisc, bool kDiag>
+__global__ void __launch_bounds__(Model::kMaxThreads) fe_onestep_vag(
+        const T* __restrict__ X, long long x_bs, const T* __restrict__ P,
+        long long p_bs, const T* __restrict__ stim,
+        const T* __restrict__ rf, T rf_s, int N_f, int D, T hc, T a1, T c0,
+        T c1, int bn, T* __restrict__ gx, T* __restrict__ gp,
+        T* __restrict__ partials) {
+    onestep_block<T, Model, kDisc, kDiag, true>(
+        X, x_bs, P, p_bs, stim, rf, rf_s, N_f, D, hc, a1, c0, c1, bn, gx, gp,
+        partials);
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where needed (a
 // launch above 48 KB without it is refused and never runs), then launch.
 template <typename K, typename... Args>
@@ -740,45 +777,47 @@ int launch(K kernel, int n_blocks, int B, int threads, size_t smem,
     return (int)cudaGetLastError();
 }
 
+constexpr int kBadArg = (int)cudaErrorInvalidValue;
+
+// Whether a block may run ``threads``: whole warps, at most the kernel's
+// launch bound.
+template <typename Model>
+bool threads_ok(int threads) {
+    return threads >= 32 && threads % 32 == 0
+           && threads <= Model::kMaxThreads;
+}
+
 template <typename T, typename Model, int kDisc, bool kDiag>
 int onestep_fwd(const void* X, long long x_bs, const void* P, long long p_bs,
                 const void* stim, const void* rf, double rf_s, int B,
-                int N_f, int D, double hc, int bn, void* partials,
-                void* stream) {
-    const int n_blocks = (N_f - 1 + bn - 1) / bn;
-    const size_t smem = ((size_t)(bn + 1) * D + extra_vals<Model>(bn + 1))
-                        * sizeof(T);
-    return launch(fe_onestep_fwd<T, Model, kDisc, kDiag>, n_blocks, B,
-                  kThreads, smem, stream, static_cast<const T*>(X), x_bs,
+                int N_f, int D, double hc, int bn, int threads,
+                void* partials, void* stream) {
+    if (!threads_ok<Model>(threads)) return kBadArg;
+    return launch(fe_onestep_fwd<T, Model, kDisc, kDiag>,
+                  (N_f + bn - 1) / bn, B, threads,
+                  onestep_smem_vals<Model>(bn, D, threads / 32) * sizeof(T),
+                  stream, static_cast<const T*>(X), x_bs,
                   static_cast<const T*>(P), p_bs,
                   static_cast<const T*>(stim), static_cast<const T*>(rf),
                   (T)rf_s, N_f, D, (T)hc, bn, static_cast<T*>(partials));
 }
 
 template <typename T, typename Model, int kDisc, bool kDiag>
-int onestep_bwd(const void* X, long long x_bs, const void* P, long long p_bs,
+int onestep_vag(const void* X, long long x_bs, const void* P, long long p_bs,
                 const void* stim, const void* rf, double rf_s, int B,
                 int N_f, int D, double hc, double a1, double c0, double c1,
-                int bn, void* gx, void* gp, void* stream) {
-    const int n_blocks = (N_f + bn - 1) / bn;
-    const size_t smem = ((size_t)(3 * bn + 3) * D
-                         + extra_vals<Model>(bn + 2)) * sizeof(T);
-    return launch(fe_onestep_bwd<T, Model, kDisc, kDiag>, n_blocks, B,
-                  kThreads, smem, stream, static_cast<const T*>(X), x_bs,
+                int bn, int threads, void* gx, void* gp, void* partials,
+                void* stream) {
+    if (!threads_ok<Model>(threads)) return kBadArg;
+    return launch(fe_onestep_vag<T, Model, kDisc, kDiag>,
+                  (N_f + bn - 1) / bn, B, threads,
+                  onestep_smem_vals<Model>(bn, D, threads / 32) * sizeof(T),
+                  stream, static_cast<const T*>(X), x_bs,
                   static_cast<const T*>(P), p_bs,
                   static_cast<const T*>(stim), static_cast<const T*>(rf),
                   (T)rf_s, N_f, D, (T)hc, (T)a1, (T)c0, (T)c1, bn,
-                  static_cast<T*>(gx), static_cast<T*>(gp));
-}
-
-constexpr int kBadArg = (int)cudaErrorInvalidValue;
-
-// Whether a Hermite–Simpson block may run ``threads``: whole warps, at
-// most the kernel's launch bound.
-template <typename Model>
-bool sh_threads_ok(int threads) {
-    return threads >= 32 && threads % 32 == 0
-           && threads <= Model::kMaxThreads;
+                  static_cast<T*>(gx), static_cast<T*>(gp),
+                  static_cast<T*>(partials));
 }
 
 template <typename T, typename Model, bool kDiag>
@@ -786,7 +825,7 @@ int sh_fwd(const void* X, long long x_bs, const void* P, long long p_bs,
            const void* stim, const void* rf, double rf_s, int B, int M,
            int D, double h6, double h8, int bk, int threads, void* partials,
            void* stream) {
-    if (!sh_threads_ok<Model>(threads)) return kBadArg;
+    if (!threads_ok<Model>(threads)) return kBadArg;
     return launch(fe_sh_fwd<T, Model, kDiag>, (M + bk - 1) / bk, B, threads,
                   sh_smem_vals<Model>(false, bk, D, threads / 32)
                       * sizeof(T),
@@ -803,7 +842,7 @@ int sh_vag(const void* X, long long x_bs, const void* P, long long p_bs,
            int D, double h6, double h8, double h46, int bk, int threads,
            void* ge0, void* gm, void* ge1, void* gp, void* partials,
            void* stream) {
-    if (!sh_threads_ok<Model>(threads)) return kBadArg;
+    if (!threads_ok<Model>(threads)) return kBadArg;
     return launch(fe_sh_vag<T, Model, kDiag>, (M + bk - 1) / bk, B, threads,
                   sh_smem_vals<Model>(true, bk, D, threads / 32) * sizeof(T),
                   stream, static_cast<const T*>(X), x_bs,
@@ -828,11 +867,12 @@ template <typename T, typename Model>
 int onestep_fwd_disc(int disc, int diag, const void* X, long long x_bs,
                      const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int N_f, int D,
-                     double hc, int bn, void* partials, void* stream) {
+                     double hc, int bn, int threads, void* partials,
+                     void* stream) {
 #define VA_FWD(DISC, DIAG)                                                  \
     return onestep_fwd<T, Model, DISC, DIAG>(X, x_bs, P, p_bs, stim, rf,    \
                                              rf_s, B, N_f, D, hc, bn,       \
-                                             partials, stream)
+                                             threads, partials, stream)
     switch (disc * 2 + (diag ? 1 : 0)) {
         case kEuler * 2: VA_FWD(kEuler, false);
         case kEuler * 2 + 1: VA_FWD(kEuler, true);
@@ -846,50 +886,54 @@ int onestep_fwd_disc(int disc, int diag, const void* X, long long x_bs,
 }
 
 template <typename T, typename Model>
-int onestep_bwd_disc(int disc, int diag, const void* X, long long x_bs,
+int onestep_vag_disc(int disc, int diag, const void* X, long long x_bs,
                      const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int N_f, int D,
                      double hc, double a1, double c0, double c1, int bn,
-                     void* gx, void* gp, void* stream) {
-#define VA_BWD(DISC, DIAG)                                                  \
-    return onestep_bwd<T, Model, DISC, DIAG>(X, x_bs, P, p_bs, stim, rf,    \
+                     int threads, void* gx, void* gp, void* partials,
+                     void* stream) {
+#define VA_VAG(DISC, DIAG)                                                  \
+    return onestep_vag<T, Model, DISC, DIAG>(X, x_bs, P, p_bs, stim, rf,    \
                                              rf_s, B, N_f, D, hc, a1, c0,   \
-                                             c1, bn, gx, gp, stream)
+                                             c1, bn, threads, gx, gp,       \
+                                             partials, stream)
     switch (disc * 2 + (diag ? 1 : 0)) {
-        case kEuler * 2: VA_BWD(kEuler, false);
-        case kEuler * 2 + 1: VA_BWD(kEuler, true);
-        case kTrapezoid * 2: VA_BWD(kTrapezoid, false);
-        case kTrapezoid * 2 + 1: VA_BWD(kTrapezoid, true);
-        case kForwardmap * 2: VA_BWD(kForwardmap, false);
-        case kForwardmap * 2 + 1: VA_BWD(kForwardmap, true);
+        case kEuler * 2: VA_VAG(kEuler, false);
+        case kEuler * 2 + 1: VA_VAG(kEuler, true);
+        case kTrapezoid * 2: VA_VAG(kTrapezoid, false);
+        case kTrapezoid * 2 + 1: VA_VAG(kTrapezoid, true);
+        case kForwardmap * 2: VA_VAG(kForwardmap, false);
+        case kForwardmap * 2 + 1: VA_VAG(kForwardmap, true);
         default: return kBadArg;
     }
-#undef VA_BWD
+#undef VA_VAG
 }
 
 template <typename T>
 int onestep_fwd_any(int model, int disc, int diag, const void* X,
                     long long x_bs, const void* P, long long p_bs,
                     const void* stim, const void* rf, double rf_s, int B,
-                    int N_f, int D, double hc, int bn, void* partials,
-                    void* stream) {
+                    int N_f, int D, double hc, int bn, int threads,
+                    void* partials, void* stream) {
 #define VA_CALL(M)                                                          \
     return onestep_fwd_disc<T, M>(disc, diag, X, x_bs, P, p_bs, stim, rf,   \
-                                  rf_s, B, N_f, D, hc, bn, partials, stream)
+                                  rf_s, B, N_f, D, hc, bn, threads,         \
+                                  partials, stream)
     VA_MODELS(VA_CALL)
 #undef VA_CALL
 }
 
 template <typename T>
-int onestep_bwd_any(int model, int disc, int diag, const void* X,
+int onestep_vag_any(int model, int disc, int diag, const void* X,
                     long long x_bs, const void* P, long long p_bs,
                     const void* stim, const void* rf, double rf_s, int B,
                     int N_f, int D, double hc, double a1, double c0,
-                    double c1, int bn, void* gx, void* gp, void* stream) {
+                    double c1, int bn, int threads, void* gx, void* gp,
+                    void* partials, void* stream) {
 #define VA_CALL(M)                                                          \
-    return onestep_bwd_disc<T, M>(disc, diag, X, x_bs, P, p_bs, stim, rf,   \
-                                  rf_s, B, N_f, D, hc, a1, c0, c1, bn, gx,  \
-                                  gp, stream)
+    return onestep_vag_disc<T, M>(disc, diag, X, x_bs, P, p_bs, stim, rf,   \
+                                  rf_s, B, N_f, D, hc, a1, c0, c1, bn,      \
+                                  threads, gx, gp, partials, stream)
     VA_MODELS(VA_CALL)
 #undef VA_CALL
 }
@@ -942,53 +986,57 @@ extern "C" {
 // on the model grid, or null (NaKL only; Lorenz-96 ignores it); rf:
 // (N_f - 1, D) contiguous for diag = 1, else null and rf_s the scalar.
 // disc: 0 euler, 1 trapezoid, 2 forwardmap. bn (bk): rows (intervals) a
-// block; the wrapper sizes the outputs for ceil(rows / bn) blocks, gp as
-// (B, NP, blocks).
+// block, ``threads`` a block (whole warps, at most the model's launch
+// bound; kBadArg otherwise); the wrapper sizes the outputs for
+// ceil(rows / bn) blocks (rows: N_f for a one-step disc, M under
+// Hermite–Simpson), gp as (B, NP, blocks).
 
 int va_fe_onestep_fwd_f32(int model, int disc, int diag, const void* X,
                           long long x_bs, const void* P, long long p_bs,
                           const void* stim, const void* rf, double rf_s,
                           int B, int N_f, int D, double hc, int bn,
-                          void* partials, void* stream) {
+                          int threads, void* partials, void* stream) {
     return onestep_fwd_any<float>(model, disc, diag, X, x_bs, P, p_bs, stim,
-                                  rf, rf_s, B, N_f, D, hc, bn, partials,
-                                  stream);
+                                  rf, rf_s, B, N_f, D, hc, bn, threads,
+                                  partials, stream);
 }
 
 int va_fe_onestep_fwd_f64(int model, int disc, int diag, const void* X,
                           long long x_bs, const void* P, long long p_bs,
                           const void* stim, const void* rf, double rf_s,
                           int B, int N_f, int D, double hc, int bn,
-                          void* partials, void* stream) {
+                          int threads, void* partials, void* stream) {
     return onestep_fwd_any<double>(model, disc, diag, X, x_bs, P, p_bs,
                                    stim, rf, rf_s, B, N_f, D, hc, bn,
-                                   partials, stream);
+                                   threads, partials, stream);
 }
 
-int va_fe_onestep_bwd_f32(int model, int disc, int diag, const void* X,
+// The fused launch (fe_onestep_vag): gx (B, N_f, D), the parameters'
+// block partials (B, NP, blocks) and the value's block partials (B,
+// blocks), as va_fe_onestep_fwd's.
+int va_fe_onestep_vag_f32(int model, int disc, int diag, const void* X,
                           long long x_bs, const void* P, long long p_bs,
                           const void* stim, const void* rf, double rf_s,
                           int B, int N_f, int D, double hc, double a1,
-                          double c0, double c1, int bn, void* gx, void* gp,
-                          void* stream) {
-    return onestep_bwd_any<float>(model, disc, diag, X, x_bs, P, p_bs, stim,
+                          double c0, double c1, int bn, int threads,
+                          void* gx, void* gp, void* partials, void* stream) {
+    return onestep_vag_any<float>(model, disc, diag, X, x_bs, P, p_bs, stim,
                                   rf, rf_s, B, N_f, D, hc, a1, c0, c1, bn,
-                                  gx, gp, stream);
+                                  threads, gx, gp, partials, stream);
 }
 
-int va_fe_onestep_bwd_f64(int model, int disc, int diag, const void* X,
+int va_fe_onestep_vag_f64(int model, int disc, int diag, const void* X,
                           long long x_bs, const void* P, long long p_bs,
                           const void* stim, const void* rf, double rf_s,
                           int B, int N_f, int D, double hc, double a1,
-                          double c0, double c1, int bn, void* gx, void* gp,
-                          void* stream) {
-    return onestep_bwd_any<double>(model, disc, diag, X, x_bs, P, p_bs,
+                          double c0, double c1, int bn, int threads,
+                          void* gx, void* gp, void* partials, void* stream) {
+    return onestep_vag_any<double>(model, disc, diag, X, x_bs, P, p_bs,
                                    stim, rf, rf_s, B, N_f, D, hc, a1, c0, c1,
-                                   bn, gx, gp, stream);
+                                   bn, threads, gx, gp, partials, stream);
 }
 
-// Hermite–Simpson: bk intervals a block, ``threads`` a block (whole warps,
-// at most the model's launch bound; kBadArg otherwise).
+// Hermite–Simpson.
 int va_fe_sh_fwd_f32(int model, int diag, const void* X, long long x_bs,
                      const void* P, long long p_bs, const void* stim,
                      const void* rf, double rf_s, int B, int M, int D,

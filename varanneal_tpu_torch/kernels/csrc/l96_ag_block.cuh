@@ -44,6 +44,28 @@
 // sum r and ME are summed in another order than the first port's (its
 // strided partials over the flat index).
 //
+// K5 (agt_kernel.cu) walks the same way under three one-step rules and
+// two kinds of rf. With w_n = rf (a scalar) or row n of an (N-1, D) rf,
+// q_n = w_n r_n, c = fe_norm, and the terms of a row outside
+// 0 <= n <= N-2 absent:
+//
+//   rule        r_n                                  Jᵀv's operand v_n
+//   trapezoid   x_{n+1} - x_n - (h/2)(f(x_n) + f(x_{n+1}))   q_{n-1} + q_n
+//   euler       x_{n+1} - x_n - h f(x_n)                      q_n
+//   forwardmap  x_{n+1} - f(x_n)                              q_n
+//
+//   gX_n  = 2c [q_{n-1} - q_n - k J(x_n)^T v_n]   (k = h/2, h), or
+//           2c [q_{n-1} - J(x_n)^T v_n]            under the forward map
+//   A     = me_norm sum W (x_obs - Y)^2 + c sum w r^2
+//   dA/dF = -2c h sum q, or -2c sum q under the forward map
+//
+// (2c carries rf's factor only for a scalar rf). f is computed once a row
+// under every rule: the residual of row n needs f(x_n) alone under Euler
+// and the forward map, and f(x_{n+1}) is the next row's f(x_n). With an
+// (N-1, D) rf each lane loads w_n with its row (in the register walk
+// kRowsAhead rows ahead, like x). K1-K4 and K8 take the trapezoid rule
+// with a scalar rf (l96_ag_block), whose code the rules leave as it was.
+//
 // With kComp (K4, ag_kernel.cu's compensated entry) the routine also
 // returns the two-float (hi, lo) sums of the unweighted terms: the ME terms
 // (W (x_obs - Y)) (x_obs - Y) and the FE terms r^2. The caller joins and
@@ -129,6 +151,35 @@ struct WarpGroup {
                          : "memory");
     }
 };
+
+// The one-step rules of the walk (ops/disc.py's names; K5's codes).
+enum WalkDisc { kWalkTrapezoid = 0, kWalkEuler = 1, kWalkForwardMap = 2 };
+
+// r_n of one column from x_n, x_{n+1} and f at both (hh = h/2).
+template <int kDisc, typename T>
+__device__ __forceinline__ T step_residual(T x0, T x1, T f0, T f1, T hh,
+                                           T h) {
+    if constexpr (kDisc == kWalkTrapezoid) {
+        return x1 - x0 - hh * (f0 + f1);
+    } else if constexpr (kDisc == kWalkEuler) {
+        return x1 - x0 - h * f0;
+    } else {
+        return x1 - f0;
+    }
+}
+
+// gX_n's model-error part from dq = q_{n-1} - q_n (q_{n-1} under the
+// forward map) and jt = (J(x_n)^T v_n).
+template <int kDisc, typename T>
+__device__ __forceinline__ T step_grad(T c2, T dq, T jt, T hh, T h) {
+    if constexpr (kDisc == kWalkTrapezoid) {
+        return c2 * (dq - hh * jt);
+    } else if constexpr (kDisc == kWalkEuler) {
+        return c2 * (dq - h * jt);
+    } else {
+        return c2 * (dq - jt);
+    }
+}
 
 // The problem's constants, shared by every member.
 template <typename T>
@@ -234,19 +285,25 @@ struct AgSums {
     T me;       // me_norm * sum W (x_obs - Y)^2
 };
 
-// A lane's partial sums along its walk.
-template <typename T, bool kComp>
+// A lane's partial sums along its walk, FE, sum r and ME in Acc (T for
+// K1-K4 and K8; K5 sums in double).
+template <typename T, bool kComp, typename Acc = T>
 struct AgPartials {
-    T fe = T(0), sr = T(0), me = T(0);
+    Acc fe = Acc(0), sr = Acc(0), me = Acc(0);
     T me_hi = T(0), me_lo = T(0), fe_hi = T(0), fe_lo = T(0);
 
     __device__ __forceinline__ void residual(T rr) {
-        fe += rr * rr;
-        sr += rr;
+        fe += Acc(rr) * Acc(rr);
+        sr += Acc(rr);
         if constexpr (kComp) two_join(fe_hi, fe_lo, mul_rn(rr, rr), T(0));
     }
+    // a residual weighted by its row of an (N-1, D) rf: q = w r
+    __device__ __forceinline__ void weighted(T q, T rr) {
+        fe += Acc(q) * Acc(rr);
+        sr += Acc(q);
+    }
     __device__ __forceinline__ void misfit(T w, T diff) {
-        me += w * diff * diff;
+        me += Acc(w) * Acc(diff) * Acc(diff);
         if constexpr (kComp) {
             two_join(me_hi, me_lo, mul_rn(mul_rn(w, diff), diff), T(0));
         }
@@ -257,6 +314,7 @@ struct AgPartials {
 template <typename T>
 struct WalkArgs {
     T F, hh, c2;
+    const T* rfd;   // the (N-1, D) rf (K5's kDiag), else unread
     int n0, n1;     // the warp's rows
     int rows;       // the most rows any warp of the group has
     unsigned lane;
@@ -330,11 +388,12 @@ __device__ __forceinline__ void gather5(T c, const int (&src)[4],
 // a.rows, and a step past the warp's rows stores and sums nothing, so the
 // loop around the shuffles has one trip count in the whole group and a
 // warp without rows needs no case of its own.
-template <typename T, bool kComp>
+template <typename T, bool kComp, int kDisc = kWalkTrapezoid,
+          bool kDiag = false, typename Acc = T>
 __device__ __forceinline__ void walk_regs(const L96Problem<T>& p,
                                           const T* x, T* g,
                                           const WalkArgs<T>& a,
-                                          AgPartials<T, kComp>& s) {
+                                          AgPartials<T, kComp, Acc>& s) {
     static_assert(kRowsAhead == 4 && kObsAhead == 2, "the unrolled group");
     const int N = p.N, D = p.D;
     const int d = (int)a.lane;
@@ -342,17 +401,28 @@ __device__ __forceinline__ void walk_regs(const L96Problem<T>& p,
     const int l = on ? p.lpos[d] : -1;
     const int src[4] = {l96_wrap(d - 2, D), l96_wrap(d - 1, D),
                         l96_wrap(d + 1, D), l96_wrap(d + 2, D)};
+    // w_n[d] of the (N-1, D) rf, 0 past its rows
+    auto weight = [&](int n) {
+        return on && n >= 0 && n < N - 1 ? a.rfd[(size_t)n * D + d] : T(0);
+    };
     T xa[5];                        // x_n[d-2..d+2]
     gather5(center(x, a.n0, d, D, on && a.n0 < N), src, xa);
     T fa = f5(xa, a.F);             // f(x_n)_d
     T xm[5];                        // the halo row, x_{n0-1}
     gather5(center(x, a.n0 - 1, d, D, on && a.n0 > 0), src, xm);
-    T r_prev = a.n0 > 0                 // r_{n-1, d}: the halo residual
-        ? xa[2] - xm[2] - a.hh * (f5(xm, a.F) + fa) : T(0);
+    T r_prev = a.n0 > 0                 // q_{n-1, d}: the halo residual
+        ? step_residual<kDisc>(xm[2], xa[2], f5(xm, a.F), fa, a.hh, p.h)
+        : T(0);
+    if constexpr (kDiag) r_prev *= weight(a.n0 - 1);
     T q[kRowsAhead];                // x_{n0+1+j}[d], then kRowsAhead on
 #pragma unroll
     for (int j = 0; j < kRowsAhead; ++j)
         q[j] = center(x, a.n0 + 1 + j, d, D, on && a.n0 + 1 + j < N);
+    T qw[kDiag ? kRowsAhead : 1];   // w_{n0+j}[d], then kRowsAhead on
+    if constexpr (kDiag) {
+#pragma unroll
+        for (int j = 0; j < kRowsAhead; ++j) qw[j] = weight(a.n0 + j);
+    }
     bool ob[kObsAhead];             // the rows' observations, in order
     T ow[kObsAhead], oy[kObsAhead];
     ObsCursor oc(a.n0, p.obs_stride);
@@ -367,8 +437,9 @@ __device__ __forceinline__ void walk_regs(const L96Problem<T>& p,
 #pragma unroll
     for (int j = 0; j < kObsAhead; ++j) obs_load(j);
 
-    // row n: x_{n+1} from q[jq] and the observation from slot jo, each
-    // slot then loaded with the row kRowsAhead (kObsAhead) further on
+    // row n: x_{n+1} (and w_n) from slot jq and the observation from slot
+    // jo, each slot then loaded with the row kRowsAhead (kObsAhead)
+    // further on
     auto row = [&](int n, int jq, int jo) {
         const bool mine = on && n < a.n1;
         const bool has_next = n + 1 < N;
@@ -376,21 +447,35 @@ __device__ __forceinline__ void walk_regs(const L96Problem<T>& p,
         gather5(q[jq], src, xb);
         q[jq] = center(x, n + 1 + kRowsAhead, d, D,
                        on && n + 1 + kRowsAhead < N);
+        T wn = T(0);
+        if constexpr (kDiag) {
+            wn = qw[jq];
+            qw[jq] = weight(n + kRowsAhead);
+        }
         const bool is_obs = ob[jo];
         const T wv = ow[jo], yv = oy[jo];
         obs_load(jo);
         const T fb = f5(xb, a.F);
-        const T rr = has_next ? xb[2] - xa[2] - a.hh * (fa + fb) : T(0);
-        if (mine && has_next) s.residual(rr);
-        // v_e = r_{n-1,e} + r_{n,e}, a missing row counting as zero
+        const T rr = has_next
+            ? step_residual<kDisc>(xa[2], xb[2], fa, fb, a.hh, p.h) : T(0);
+        const T qn = kDiag ? wn * rr : rr;      // q_n
+        if (mine && has_next) {
+            if constexpr (kDiag) {
+                s.weighted(qn, rr);
+            } else {
+                s.residual(rr);
+            }
+        }
+        // v_e of the rule, a missing row counting as zero
         const T rp = n > 0 ? r_prev : T(0);
-        const T v = rp + rr;
+        const T v = kDisc == kWalkTrapezoid ? rp + qn : qn;
         const T v_m1 = __shfl_sync(0xffffffffu, v, src[1]);
         const T v_p1 = __shfl_sync(0xffffffffu, v, src[2]);
         const T v_p2 = __shfl_sync(0xffffffffu, v, src[3]);
         const T jt = xa[0] * v_m1 + (xa[4] - xa[1]) * v_p1 - xa[3] * v_p2
                      - v;
-        T gx = a.c2 * (rp - rr - a.hh * jt);
+        T gx = step_grad<kDisc>(
+            a.c2, kDisc == kWalkForwardMap ? rp : rp - qn, jt, a.hh, p.h);
         const T diff = xa[2] - yv;
         gx = is_obs ? gx + T(2) * p.me_norm * wv * diff : gx;
         if (mine && is_obs) s.misfit(wv, diff);
@@ -398,7 +483,7 @@ __device__ __forceinline__ void walk_regs(const L96Problem<T>& p,
 #pragma unroll
         for (int i = 0; i < 5; ++i) xa[i] = xb[i];
         fa = fb;
-        r_prev = rr;
+        r_prev = qn;
     };
     for (int j = 0; j < a.rows; j += kRowsAhead) {
         row(a.n0 + j, 0, 0);
@@ -459,11 +544,12 @@ __device__ __forceinline__ void async_wait() {
 // works on row n. The stencil's many reads of a row then hit shared
 // memory. Where x is in shared memory already (K2/K3 with the vectors on
 // chip), or the ring is in global memory, the walk reads x where it lies.
-template <typename T, bool kComp>
+template <typename T, bool kComp, int kDisc = kWalkTrapezoid,
+          bool kDiag = false, typename Acc = T>
 __device__ __forceinline__ void walk_wide(const L96Problem<T>& p,
                                           const T* x, T* g, T* ring,
                                           const WalkArgs<T>& a,
-                                          AgPartials<T, kComp>& s) {
+                                          AgPartials<T, kComp, Acc>& s) {
     const int N = p.N, D = p.D;
     T* rp = ring;                   // r_{n-1}
     T* rc = ring + D;               // r_n
@@ -487,8 +573,11 @@ __device__ __forceinline__ void walk_wide(const L96Problem<T>& p,
         for (int d = (int)a.lane; d < D; d += 32) {
             const T f0 = l96_f(x0, d, D, a.F);
             fr[d] = f0;
-            if (a.n0 > 0)           // the halo residual r_{n0-1}
-                rp[d] = x0[d] - xm[d] - a.hh * (l96_f(xm, d, D, a.F) + f0);
+            if (a.n0 > 0) {         // the halo residual q_{n0-1}
+                const T r = step_residual<kDisc>(
+                    xm[d], x0[d], l96_f(xm, d, D, a.F), f0, a.hh, p.h);
+                rp[d] = kDiag ? a.rfd[(size_t)(a.n0 - 1) * D + d] * r : r;
+            }
         }
     }
     ObsCursor obs(a.n0, p.obs_stride);
@@ -502,47 +591,65 @@ __device__ __forceinline__ void walk_wide(const L96Problem<T>& p,
         const T* x0 = staged ? xs0 : x + (size_t)n * D;
         const T* x1 = staged ? xs1 : x0 + D;
         if (has_next) {
+            // x_{n+1}[d-2..d+1], x_n[d], f(x_n)_d and, with an (N-1, D)
+            // rf, w_n[d]
+            constexpr int kVals = kDiag ? 7 : 6;
+            const T* wrow = kDiag ? a.rfd + (size_t)n * D : nullptr;
             lane_pass<kResChunk>(
                 D, a.lane,
                 [&](int d) {
-                    return Vals<T, 6>{{x1[l96_wrap(d - 2, D)],
-                                       x1[l96_wrap(d - 1, D)], x1[d],
-                                       x1[l96_wrap(d + 1, D)], x0[d],
-                                       fr[d]}};
+                    Vals<T, kVals> v{{x1[l96_wrap(d - 2, D)],
+                                      x1[l96_wrap(d - 1, D)], x1[d],
+                                      x1[l96_wrap(d + 1, D)], x0[d],
+                                      fr[d]}};
+                    if constexpr (kDiag) v.v[6] = wrow[d];
+                    return v;
                 },
-                [&](int d, const Vals<T, 6>& v) {
+                [&](int d, const Vals<T, kVals>& v) {
                     const T f1 = (v.v[3] - v.v[0]) * v.v[1] - v.v[2] + a.F;
-                    const T rr = v.v[2] - v.v[4] - a.hh * (v.v[5] + f1);
-                    rc[d] = rr;
-                    fr[d] = f1;
-                    s.residual(rr);
+                    const T rr = step_residual<kDisc>(v.v[4], v.v[2], v.v[5],
+                                                      f1, a.hh, p.h);
+                    if constexpr (kDiag) {
+                        const T qd = v.v[6] * rr;
+                        rc[d] = qd;
+                        fr[d] = f1;
+                        s.weighted(qd, rr);
+                    } else {
+                        rc[d] = rr;
+                        fr[d] = f1;
+                        s.residual(rr);
+                    }
                 });
         }
         __syncwarp();
         const T* rpn = n > 0 ? rp : nullptr;
         const T* rcn = has_next ? rc : nullptr;
-        const RowPairSum<T> vs{rpn, rcn};
+        // Jᵀv's operand: q_{n-1} + q_n (trapezoid), q_n (Euler, forward map)
+        const RowPairSum<T> vs{kDisc == kWalkTrapezoid ? rpn : nullptr, rcn};
         const bool is_obs = obs.at(n, p.N_data);
         const int krow = obs.k * p.L;
         lane_pass<kGradChunk<T>>(
             D, a.lane,
             [&](int e) {
-                // x_n[e-2..e+2], v at e-1, e+1, e+2, e, r_{n-1} - r_n at
-                // e, and the observation's W and y
+                // x_n[e-2..e+2], v at e-1, e+1, e+2, e, q_{n-1} - q_n at
+                // e (q_{n-1} under the forward map), and the observation's
+                // W and y
                 const int l = is_obs ? p.lpos[e] : -1;
                 return Vals<T, 13>{{
                     x0[l96_wrap(e - 2, D)], x0[l96_wrap(e - 1, D)], x0[e],
                     x0[l96_wrap(e + 1, D)], x0[l96_wrap(e + 2, D)],
                     vs(l96_wrap(e - 1, D)), vs(l96_wrap(e + 1, D)),
                     vs(l96_wrap(e + 2, D)), vs(e),
-                    (rpn ? rpn[e] : T(0)) - (rcn ? rcn[e] : T(0)),
+                    kDisc == kWalkForwardMap
+                        ? (rpn ? rpn[e] : T(0))
+                        : (rpn ? rpn[e] : T(0)) - (rcn ? rcn[e] : T(0)),
                     l >= 0 ? p.W[krow + l] : T(0),
                     l >= 0 ? p.Y[krow + l] : T(0), T(l >= 0)}};
             },
             [&](int e, const Vals<T, 13>& v) {
                 const T jt = v.v[0] * v.v[5] + (v.v[4] - v.v[1]) * v.v[6]
                              - v.v[3] * v.v[7] - v.v[8];
-                T gx = a.c2 * (v.v[9] - a.hh * jt);
+                T gx = step_grad<kDisc>(a.c2, v.v[9], jt, a.hh, p.h);
                 if (v.v[12] != T(0)) {
                     const T diff = v.v[2] - v.v[11];
                     gx += T(2) * p.me_norm * v.v[10] * diff;
@@ -561,6 +668,89 @@ __device__ __forceinline__ void walk_wide(const L96Problem<T>& p,
         xs1 = xs2;
         xs2 = t;
     }
+}
+
+// The walk and the sums of one member under rule kDisc, at a scalar rf
+// or (kDiag) at the (N-1, D) rf rfd: l96_ag_block's contract (below),
+// with A = me_norm sum W (x_obs - Y)^2 + fe_norm sum w r^2. The sums
+// FE, sum r and ME, their partials in red and the value's combination
+// are in Acc, rounded to T once at the end; red holds l96_ag_red_elems
+// values of Acc. Inlined into its callers: l96_ag_block (K1-K4, K8; Acc
+// = T) and K5's kernel (Acc = double).
+template <typename T, bool kComp, typename Grp, int kDisc, bool kDiag,
+          typename Acc = T>
+__device__ __forceinline__ AgSums<T> l96_walk_block(
+        const L96Problem<T>& p, const T* x, T rf, const T* rfd, T* g,
+        T* ring, Acc* red, T* comp) {
+    constexpr int W = Grp::kWarps;
+    const unsigned lane = Grp::rank() & 31u;
+    const unsigned warp = Grp::rank() >> 5;
+    WalkArgs<T> a;
+    a.F = p.pslot >= 0 ? x[p.pslot] : p.F_fixed;
+    a.hh = p.h / T(2);
+    a.c2 = kDiag ? T(2) * p.fe_norm : T(2) * p.fe_norm * rf;
+    a.rfd = rfd;
+    a.lane = lane;
+    warp_rows<W>(p.N, warp, a.n0, a.n1, a.rows);
+    T* wring = ring + (size_t)warp * kRingRows * p.D;
+    AgPartials<T, kComp, Acc> s;
+    if (p.D <= kRegWalkMaxD)    // a warp without rows stores nothing
+        walk_regs<T, kComp, kDisc, kDiag, Acc>(p, x, g, a, s);
+    else if (a.n0 < a.n1)
+        walk_wide<T, kComp, kDisc, kDiag, Acc>(p, x, g, wring, a, s);
+    // fixed-order reduction: the warp's tree, then the warps in order
+    s.fe = warp_sum(s.fe);
+    s.sr = warp_sum(s.sr);
+    s.me = warp_sum(s.me);
+    if (lane == 0) {
+        red[warp] = s.fe;
+        red[W + warp] = s.sr;
+        red[2 * W + warp] = s.me;
+    }
+    if constexpr (kComp) {
+        warp_two_sum(s.me_hi, s.me_lo);
+        warp_two_sum(s.fe_hi, s.fe_lo);
+        if (lane == 0) {
+            T* cr = reinterpret_cast<T*>(red + kAgSums * W);
+            cr[warp] = s.me_hi;
+            cr[W + warp] = s.me_lo;
+            cr[2 * W + warp] = s.fe_hi;
+            cr[3 * W + warp] = s.fe_lo;
+        }
+    }
+    Grp::sync();   // the warps' partials (and every entry of g) complete
+    Acc fe_t = red[0], sr_t = red[W], me_t = red[2 * W];
+    for (int w = 1; w < W; ++w) {
+        fe_t += red[w];
+        sr_t += red[W + w];
+        me_t += red[2 * W + w];
+    }
+    if (p.pslot >= 0 && Grp::rank() == (unsigned)p.pslot % Grp::kSize)
+        g[p.pslot] = kDisc == kWalkForwardMap
+            ? T(-Acc(a.c2) * sr_t) : T(-Acc(a.c2) * Acc(p.h) * sr_t);
+    if constexpr (kComp) {
+        if (Grp::rank() == 0) {
+            // the warps' pairs joined in order
+            const T* cr = reinterpret_cast<const T*>(red + kAgSums * W);
+            T mh = cr[0], ml = cr[W];
+            T fh = cr[2 * W], fl = cr[3 * W];
+            for (int w = 1; w < W; ++w) {
+                two_join(mh, ml, cr[w], cr[W + w]);
+                two_join(fh, fl, cr[2 * W + w], cr[3 * W + w]);
+            }
+            comp[0] = mh;
+            comp[1] = ml;
+            comp[2] = fh;
+            comp[3] = fl;
+            comp[4] = T(0);
+            comp[5] = T(0);
+        }
+    }
+    // rounded apart, so that no kernel's contraction can fuse a product
+    // into the sum: K1's A and the solvers' f are the same bits
+    const Acc me = mul_rn(Acc(p.me_norm), me_t);
+    const Acc fe = kDiag ? fe_t : mul_rn(Acc(rf), fe_t);
+    return AgSums<T>{T(add_rn(me, mul_rn(Acc(p.fe_norm), fe))), T(me)};
 }
 
 // Action and gradient of the member at x (n_dof values) at scalar rf.
@@ -596,71 +786,6 @@ __device__ __noinline__ AgSums<T> l96_ag_block(const L96Problem<T>& problem,
                                                T* __restrict__ g, T* ring,
                                                T* red, T* comp = nullptr) {
     const L96Problem<T> p = problem;
-    constexpr int W = Grp::kWarps;
-    const unsigned lane = Grp::rank() & 31u;
-    const unsigned warp = Grp::rank() >> 5;
-    WalkArgs<T> a;
-    a.F = p.pslot >= 0 ? x[p.pslot] : p.F_fixed;
-    a.hh = p.h / T(2);
-    a.c2 = T(2) * p.fe_norm * rf;
-    a.lane = lane;
-    warp_rows<W>(p.N, warp, a.n0, a.n1, a.rows);
-    T* wring = ring + (size_t)warp * kRingRows * p.D;
-    AgPartials<T, kComp> s;
-    if (p.D <= kRegWalkMaxD)
-        walk_regs(p, x, g, a, s);   // a warp without rows stores nothing
-    else if (a.n0 < a.n1)
-        walk_wide(p, x, g, wring, a, s);
-
-    // fixed-order reduction: the warp's tree, then the warps in order
-    s.fe = warp_sum(s.fe);
-    s.sr = warp_sum(s.sr);
-    s.me = warp_sum(s.me);
-    if (lane == 0) {
-        red[warp] = s.fe;
-        red[W + warp] = s.sr;
-        red[2 * W + warp] = s.me;
-    }
-    if constexpr (kComp) {
-        warp_two_sum(s.me_hi, s.me_lo);
-        warp_two_sum(s.fe_hi, s.fe_lo);
-        if (lane == 0) {
-            T* cr = red + kAgSums * W;
-            cr[warp] = s.me_hi;
-            cr[W + warp] = s.me_lo;
-            cr[2 * W + warp] = s.fe_hi;
-            cr[3 * W + warp] = s.fe_lo;
-        }
-    }
-    Grp::sync();   // the warps' partials (and every entry of g) complete
-    T fe_t = red[0], sr_t = red[W], me_t = red[2 * W];
-    for (int w = 1; w < W; ++w) {
-        fe_t += red[w];
-        sr_t += red[W + w];
-        me_t += red[2 * W + w];
-    }
-    if (p.pslot >= 0 && Grp::rank() == (unsigned)p.pslot % Grp::kSize)
-        g[p.pslot] = -a.c2 * p.h * sr_t;
-    if constexpr (kComp) {
-        if (Grp::rank() == 0) {
-            // the warps' pairs joined in order
-            const T* cr = red + kAgSums * W;
-            T mh = cr[0], ml = cr[W];
-            T fh = cr[2 * W], fl = cr[3 * W];
-            for (int w = 1; w < W; ++w) {
-                two_join(mh, ml, cr[w], cr[W + w]);
-                two_join(fh, fl, cr[2 * W + w], cr[3 * W + w]);
-            }
-            comp[0] = mh;
-            comp[1] = ml;
-            comp[2] = fh;
-            comp[3] = fl;
-            comp[4] = T(0);
-            comp[5] = T(0);
-        }
-    }
-    // rounded apart, so that no kernel's contraction can fuse a product
-    // into the sum: K1's A and the solvers' f are the same bits
-    const T me = mul_rn(p.me_norm, me_t);
-    return AgSums<T>{add_rn(me, mul_rn(p.fe_norm, mul_rn(rf, fe_t))), me};
+    return l96_walk_block<T, kComp, Grp, kWalkTrapezoid, false>(
+        p, x, rf, nullptr, g, ring, red, comp);
 }

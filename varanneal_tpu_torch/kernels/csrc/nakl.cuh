@@ -1,8 +1,7 @@
 // The NaKL Hodgkin–Huxley neuron on the card: the vector field, the
 // transposed Jacobian product and the parameter adjoint, written by hand
-// (no autodiff on the card) from varanneal_tpu_torch/models/nakl.py.
-// K6 (fe_kernel.cu) evaluates them one (row, component) at a time; a
-// whole-problem kernel can call them the same way.
+// (no autodiff on the card) from varanneal_tpu_torch/models/nakl.py, for
+// kernels in which one thread owns a whole state row (K6, fe_kernel.cu).
 //
 // State x = [V, m, h, n]; p the 19 parameters in NAKL_PNAMES order; I the
 // injected current of the row (0 without a stimulus):
@@ -28,20 +27,12 @@
 //   df_a/dva = -df_a/dth * s / dva, df_a/ddva = -df_a/dth * s u / dva,
 //   df_a/dta0 = -f_a / tau_a, df_a/dta1 = -f_a s / tau_a
 //
-// Each component's f depends on its own parameter group only (V's on
-// p[0..6], gate a's on p[q..q+3]), so the per-component adjoint
-// nakl_ptv touches a disjoint set of the 19 partials, and the sum of
-// nakl_ptv over the four components is the row's Σ_d df_d/dp_j v_d
-// (nakl_ptv_row).
-//
-// The row-level functions at the end (nakl_node, nakl_adjoint_row) serve a
-// kernel in which one thread owns a whole state row: nakl_node evaluates
-// the row's four f values and keeps each gate's th and 1/tau_a (one tanh
-// and one division a gate), and nakl_adjoint_row forms Jᵀv and the 19
-// parameter partials from them with no further tanh or division. They
-// read the parameter row extended by nakl_derive (1/Cm and the gates'
-// 1/dva after the 19 values), so that u and f_0 take a product where the
-// per-component functions divide.
+// nakl_node evaluates the row's four f values and keeps each gate's th
+// and 1/tau_a (one tanh and one division a gate), and nakl_adjoint_row
+// forms Jᵀv and the 19 parameter partials Σ_d df_d/dp_j v_d from them
+// with no further tanh or division. They read the parameter row extended
+// by nakl::derived (1/Cm and the gates' 1/dva after the 19 values), so
+// that u and f_0 take a product where the model divides.
 #pragma once
 
 namespace nakl {
@@ -51,126 +42,6 @@ enum Param { Cm, gNa, ENa, gK, EK, gL, EL };
 
 __device__ __forceinline__ float va_tanh(float u) { return tanhf(u); }
 __device__ __forceinline__ double va_tanh(double u) { return tanh(u); }
-
-// The gate's tanh form at V: th, s = 1 - th^2, tau and f_a.
-template <typename T>
-struct Gate {
-    T u, th, s, tau, fa;
-};
-
-template <typename T>
-__device__ __forceinline__ Gate<T> gate(T V, T a, const T* g) {
-    Gate<T> r;
-    r.u = (V - g[0]) / g[1];
-    r.th = va_tanh(r.u);
-    r.s = T(1) - r.th * r.th;
-    r.tau = g[2] + g[3] * r.s;
-    r.fa = (T(0.5) * (T(1) + r.th) - a) / r.tau;
-    return r;
-}
-
-// df_a/dth.
-template <typename T>
-__device__ __forceinline__ T gate_dth(const Gate<T>& r, const T* g) {
-    return (T(0.5) + T(2) * g[3] * r.th * r.fa) / r.tau;
-}
-
-template <typename T>
-__device__ __forceinline__ T f0(const T* x, const T* p, T I) {
-    const T V = x[0], m = x[1], h = x[2], n = x[3];
-    return (p[gNa] * m * m * m * h * (p[ENa] - V)
-            + p[gK] * n * n * n * n * (p[EK] - V)
-            + p[gL] * (p[EL] - V) + I) / p[Cm];
-}
-
-// Gate parameter adjoint into acc[Q .. Q+3] (Q a constant, so that acc
-// stays in registers).
-template <int Q, typename T>
-__device__ __forceinline__ void gate_ptv(const T* x, int a, const T* p,
-                                         T v, T* acc) {
-    const T* g = p + Q;
-    const Gate<T> r = gate(x[0], x[a], g);
-    const T dth = gate_dth(r, g);
-    acc[Q] += -dth * r.s / g[1] * v;
-    acc[Q + 1] += -dth * r.s * r.u / g[1] * v;
-    acc[Q + 2] += -r.fa / r.tau * v;
-    acc[Q + 3] += -r.fa * r.s / r.tau * v;
-}
-
-}  // namespace nakl
-
-// f_d(x) for one state row x (4 values), parameters p (19) and current I.
-template <typename T>
-__device__ __forceinline__ T nakl_f(const T* x, int d, const T* p, T I) {
-    if (d == 0) return nakl::f0(x, p, I);
-    return nakl::gate(x[0], x[d], p + 7 + 4 * (d - 1)).fa;
-}
-
-// (J(x)^T v)_e; v is any callable k -> v_k (the stimulus is additive, so
-// it does not enter).
-template <typename T, typename V>
-__device__ __forceinline__ T nakl_jtv(const T* x, const V& v, int e,
-                                      const T* p) {
-    using namespace nakl;
-    const T Vm = x[0], m = x[1], h = x[2], n = x[3];
-    if (e == 0) {
-        T acc = -(p[gNa] * m * m * m * h + p[gK] * n * n * n * n + p[gL])
-                / p[Cm] * v(0);
-        for (int a = 1; a <= 3; ++a) {
-            const T* g = p + 7 + 4 * (a - 1);
-            const Gate<T> r = gate(Vm, x[a], g);
-            acc += gate_dth(r, g) * r.s / g[1] * v(a);
-        }
-        return acc;
-    }
-    const T* g = p + 7 + 4 * (e - 1);
-    const T tau = gate(Vm, x[e], g).tau;
-    T d0;
-    if (e == 1) {
-        d0 = T(3) * p[gNa] * m * m * h * (p[ENa] - Vm) / p[Cm];
-    } else if (e == 2) {
-        d0 = p[gNa] * m * m * m * (p[ENa] - Vm) / p[Cm];
-    } else {
-        d0 = T(4) * p[gK] * n * n * n * (p[EK] - Vm) / p[Cm];
-    }
-    return d0 * v(0) - v(e) / tau;
-}
-
-// Adds df_d/dp_j · v_d to acc[j] for the parameters component d depends
-// on; acc holds the 19 partials.
-template <typename T>
-__device__ __forceinline__ void nakl_ptv(const T* x, int d, const T* p,
-                                         T I, T v, T* acc) {
-    using namespace nakl;
-    if (d == 0) {
-        const T V = x[0], m = x[1], h = x[2], n = x[3];
-        const T mh3 = m * m * m * h, n4 = n * n * n * n;
-        const T w = v / p[Cm];
-        acc[Cm] += -f0(x, p, I) * w;
-        acc[gNa] += mh3 * (p[ENa] - V) * w;
-        acc[ENa] += p[gNa] * mh3 * w;
-        acc[gK] += n4 * (p[EK] - V) * w;
-        acc[EK] += p[gK] * n4 * w;
-        acc[gL] += (p[EL] - V) * w;
-        acc[EL] += p[gL] * w;
-    } else if (d == 1) {
-        gate_ptv<7>(x, 1, p, v, acc);
-    } else if (d == 2) {
-        gate_ptv<11>(x, 2, p, v, acc);
-    } else {
-        gate_ptv<15>(x, 3, p, v, acc);
-    }
-}
-
-// The row's parameter adjoint Σ_d df_d/dp_j · v_d, added to acc (19).
-template <typename T, typename V>
-__device__ __forceinline__ void nakl_ptv_row(const T* x, const V& v,
-                                             const T* p, T I, T* acc) {
-#pragma unroll
-    for (int d = 0; d < 4; ++d) nakl_ptv(x, d, p, I, v(d), acc);
-}
-
-namespace nakl {
 
 // The extended parameter row of the row-level functions: the 19 values,
 // then 1/Cm, then 1/dva of the gates m, h, n.

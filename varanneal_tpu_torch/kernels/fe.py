@@ -11,8 +11,10 @@ design does about that):
 
 - ``fe_onestep_fwd`` (K6a, ``_kern_scalar``/``_kern_diag``): per-block
   partial sums of rf ⊙ r² for euler, trapezoid and forwardmap;
-- ``fe_onestep_bwd`` (K6b, ``_kern_bwd``): the hand-written adjoint, the
-  gradient rows and the parameters' per-block partials;
+- ``fe_onestep_vag`` (K6b ``_kern_bwd``, with K6a's value): the one-step
+  value and gradient in one launch, fe_onestep_fwd's partials, the
+  hand-written adjoint's gradient rows and the parameters' per-block
+  partials;
 - ``fe_sh_fwd`` (K6c ``_kern_sh_fwd`` and K6d, its batched-grid form):
   Hermite–Simpson's value over blocks of intervals;
 - ``fe_sh_vag`` (K6c ``_kern_sh_bwd`` and K6d, its batched-grid form):
@@ -21,11 +23,13 @@ design does about that):
   :func:`sh_join` adds into the gradient by node, as the reference does.
 
 Every kernel runs on a (time block, member) grid, so B = 1 is K6c and
-B > 1 is K6d. The Hermite–Simpson kernels size their blocks from B·M and
-the card's SM count (:func:`rows_per_block`): a thread takes one
-interval of NaKL (each node's model evaluated once, reused by the
-residuals, Jᵀv and the parameter adjoint) or one (interval, component)
-pair of Lorenz-96. The kernels take two models, each with f, Jᵀv and the
+B > 1 is K6d. The kernels size their blocks from the batch's rows (B·M
+intervals, B·N_f rows) and the card's SM count (:func:`rows_per_block`):
+a thread takes one interval or row of NaKL (each node's model evaluated
+once, reused by the residuals, Jᵀv and the parameter adjoint) or one
+(interval or row, component) pair of Lorenz-96. A value-only launch and
+the fused one share their blocks, so their value partials agree bit for
+bit. The kernels take two models, each with f, Jᵀv and the
 parameter adjoint written by hand: Lorenz-96 (``models.lorenz.lorenz96``)
 and NaKL (``models.nakl.nakl``, or a log-space model of
 ``models.nakl.nakl_log_model``; ``csrc/nakl.cuh``) with its stimulus.
@@ -40,15 +44,15 @@ hand adjoint on ``torch.roll``, for NaKL it evaluates the port's torch
 independent of the hand-written one. The CPU path and the tests use them,
 and a wrapper takes its plain version only for tensors on the CPU: on a
 CUDA tensor it launches its kernel or raises. Each wrapper counts its
-launches (:data:`FWD_LAUNCHES`, :data:`BWD_LAUNCHES`,
+launches (:data:`FWD_LAUNCHES`, :data:`ONESTEP_VAG_LAUNCHES`,
 :data:`SH_FWD_LAUNCHES`, :data:`SH_VAG_LAUNCHES`).
 
 :func:`make_fe_pallas` returns ``fe(X, pest, rf)``, a
 ``torch.autograd.Function`` whose forward is one launch and whose
-backward is one launch (under Hermite–Simpson the fused one, its value
-unread), scaled by 2·g/norm as the reference's ``custom_vjp``, and
-``fe.value_and_grad``, the same value and gradient without autograd's
-graph (one fused launch under Hermite–Simpson);
+backward is one launch (the fused one, its value unread), scaled by
+2·g/norm as the reference's ``custom_vjp``, and ``fe.value_and_grad``,
+the same value and gradient without autograd's graph (one fused
+launch);
 :func:`make_action_pallas` keeps ME in plain PyTorch and gives its
 action a ``value_and_grad`` (ME's gradient in closed form), which every
 ladder and solver loop takes (``ops.action.value_and_grad``).
@@ -97,41 +101,34 @@ _MODEL_CODE = {"l96": 0, "nakl": 1}
 _MODEL_NP = {"l96": 1, "nakl": 19}
 _DTYPES = (torch.float32, torch.float64)
 
-#: Launches so far of fe_onestep_fwd (K6a), fe_onestep_bwd (K6b),
-#: fe_sh_fwd and fe_sh_vag (K6c/K6d: Hermite–Simpson's value, and its
-#: value and gradient in one launch); each successful launch adds one.
+#: Launches so far of fe_onestep_fwd (K6a), fe_onestep_vag (K6b with
+#: K6a's value in one launch), fe_sh_fwd and fe_sh_vag (K6c/K6d:
+#: Hermite–Simpson's value, and its value and gradient in one launch);
+#: each successful launch adds one.
 FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
+ONESTEP_VAG_LAUNCHES = 0
 SH_FWD_LAUNCHES = 0
 SH_VAG_LAUNCHES = 0
 
-#: Shared memory a block uses without opting in; above it the kernel opts
-#: in, up to ``ag.SMEM_LIMIT`` (227 KB).
-SMEM_DEFAULT = 48 * 1024
-_WARPS = 8                  # kWarps in csrc/fe_kernel.cu (256 threads)
-#: Staged rows of D values a one-step block holds at bn rows a block: x
-#: rows plus the backward's wr and v rows.
-_SMEM_ROWS = {"onestep_fwd": lambda bn: bn + 1,
-              "onestep_bwd": lambda bn: 3 * bn + 3}
-#: Model-grid rows whose stimulus a one-step block stages (NaKL).
-_STIM_ROWS = {"onestep_fwd": lambda bn: bn + 1,
-              "onestep_bwd": lambda bn: bn + 2}
-
-#: The Hermite–Simpson grid (:func:`rows_per_block`, :func:`sh_threads`):
-#: blocks an SM the rule aims at, the card's SM count where no card is
-#: asked (an H100's), and per model the most threads a block runs (at
-#: most the kernel's launch bound, ``kMaxThreads`` in csrc/fe_kernel.cu,
-#: which refuses more), whether a thread owns an interval (row-level,
-#: ``kRow``) and the parameter row a block stages (``kNPX``: NaKL's 19
-#: values, 1/Cm and three 1/dva; the envelope's shared memory).
-SH_BLOCKS_PER_SM = 2
+#: The grid (:func:`rows_per_block`, :func:`sh_threads`,
+#: :func:`onestep_threads`): blocks an SM the rule aims at, the card's SM
+#: count where no card is asked (an H100's), and per model the most
+#: threads a block runs (at most the kernel's launch bound,
+#: ``kMaxThreads`` in csrc/fe_kernel.cu, which refuses more), whether a
+#: thread owns an interval or row (row-level, ``kRow``) and the parameter
+#: row a block stages (``kNPX``: NaKL's 19 values, 1/Cm and three 1/dva;
+#: the envelope's shared memory).
+BLOCKS_PER_SM = 2
 DEFAULT_SMS = 132
-_SH_MAX_THREADS = {"l96": 1024, "nakl": 256}
-_SH_ROW = {"l96": False, "nakl": True}
-_SH_NPX = {"l96": 1, "nakl": 23}
-#: Lorenz-96's (interval, component) pairs a block takes at most, where D
-#: allows more than one interval.
-_SH_PAIRS = 256
+_MAX_THREADS = {"l96": 1024, "nakl": 256}
+_ROW_MODEL = {"l96": False, "nakl": True}
+_NPX = {"l96": 1, "nakl": 23}
+#: Lorenz-96's (interval or row, component) pairs a block takes at most,
+#: where D allows more than one.
+_MAX_PAIRS = 256
+#: Rows a one-step warp of a row-level model owns (``kWarpRows``): its
+#: 32 lanes hold those rows' nodes and the two halo nodes beside them.
+ONESTEP_WARP_ROWS = 30
 
 
 # ---------------------------------------------------------------------------
@@ -185,80 +182,84 @@ def sh_threads(model: str, bk: int, D: int) -> int:
     launch takes it; the kernels stride by it): one interval a thread for
     a row-level model, one (interval, component) pair for Lorenz-96, in
     whole warps, at most the model's ``kMaxThreads``."""
-    want = bk if _SH_ROW[model] else bk * D
-    return min(_pad_to(want, 32), _SH_MAX_THREADS[model])
+    want = bk if _ROW_MODEL[model] else bk * D
+    return min(_pad_to(want, 32), _MAX_THREADS[model])
+
+
+def onestep_threads(model: str, bn: int, D: int) -> int:
+    """Threads a one-step block of ``bn`` rows runs: a warp a
+    :data:`ONESTEP_WARP_ROWS` rows of a row-level model (its lanes the
+    rows' nodes and the two halo nodes), for Lorenz-96 one (row,
+    component) pair of the bn + 1 rows of weighted residuals (the halo row
+    the first), in whole warps, at most the model's ``kMaxThreads`` (past
+    which a thread takes more pairs)."""
+    if _ROW_MODEL[model]:
+        return 32 * -(-bn // ONESTEP_WARP_ROWS)
+    return min(_pad_to((bn + 1) * D, 32), _MAX_THREADS[model])
 
 
 def _smem_bytes(kernel: str, bn: int, D: int, dtype, model="l96") -> int:
     """Bytes of shared memory a block of ``kernel`` takes at ``bn`` rows
     (intervals under Hermite–Simpson) a block, as the launch in
-    csrc/fe_kernel.cu sizes it (``extra_vals``, ``sh_smem_vals``), for
-    the envelope (:func:`fe_refusal`). One-step: the staged rows, the
-    reduction's slots per parameter partial and, for NaKL, the parameter
-    row and the stimulus rows. Hermite–Simpson: the staged rows, kNP + 1
-    slots a warp of :func:`sh_threads`, and a row model's extended
-    parameter row and stimulus, or Lorenz-96's S, H, v0, vm and v1 in the
-    fused launch."""
+    csrc/fe_kernel.cu sizes it (``onestep_smem_vals``,
+    ``sh_smem_vals``), for the envelope (:func:`fe_refusal`): kNP + 1
+    slots a warp of the block's threads, a row model's extended parameter
+    row and, under Hermite–Simpson, its stimulus; Lorenz-96's staged rows
+    (one-step: 2bn + 3 rows of x and weighted residuals; Hermite–Simpson:
+    2bn + 1 rows of x, and S, H, v0, vm and v1 in the fused launch)."""
     NP = _MODEL_NP[model]
     if kernel in ("sh_fwd", "sh_vag"):
-        nw = sh_threads(model, bn, D) // 32
-        vals = (2 * bn + 1) * D + nw * (NP + 1)
-        if _SH_ROW[model]:
-            vals += _SH_NPX[model] + 2 * bn + 1
+        vals = (2 * bn + 1) * D + sh_threads(model, bn, D) // 32 * (NP + 1)
+        if _ROW_MODEL[model]:
+            vals += _NPX[model] + 2 * bn + 1
         elif kernel == "sh_vag":
             vals += 5 * bn * D
     else:
-        extra = _WARPS * NP
-        if model == "nakl":
-            extra += NP + _STIM_ROWS[kernel](bn)
-        vals = _SMEM_ROWS[kernel](bn) * D + extra
+        vals = onestep_threads(model, bn, D) // 32 * (NP + 1)
+        vals += _NPX[model] if _ROW_MODEL[model] else (2 * bn + 3) * D
     return vals * (torch.finfo(dtype).bits // 8)
 
 
 def _kernels_of(disc):
     if disc == "SimpsonHermite":
         return ("sh_fwd", "sh_vag")
-    return ("onestep_fwd", "onestep_bwd")
+    return ("onestep_fwd", "onestep_vag")
 
 
-def rows_per_block(kernel: str, n_rows: int, D: int, dtype,
-                   block_n: int, model="l96", B: int = 1,
-                   n_sm: int = DEFAULT_SMS) -> int:
-    """Rows (intervals under Hermite–Simpson) a block of ``kernel`` takes.
+def rows_per_block(kernel: str, n_rows: int, D: int, block_n: int,
+                   model="l96", B: int = 1, n_sm: int = DEFAULT_SMS) -> int:
+    """Rows (intervals under Hermite–Simpson) a block of ``kernel`` takes,
+    one rule for a disc's value-only launch and its fused one, so that
+    their value partials share the blocks. ``n_rows``: M intervals under
+    Hermite–Simpson, N_f gradient rows for a one-step disc.
 
-    One-step kernels: ``block_n``, cut to the rows there are (rounded up
-    to 8, at least 8, as the reference's ``block_n``), then cut by 8 at a
-    time, not below 8, until the staged rows fit in :data:`SMEM_DEFAULT`;
-    where even 8 rows do not, the kernel opts in to more (up to
-    ``ag.SMEM_LIMIT``, :func:`fe_kernel_supported`).
-
-    Hermite–Simpson (``sh_fwd`` and the fused ``sh_vag``: one rule for
-    both, so their partials share the blocks), from the
-    batch's B·M intervals and the card's ``n_sm``: ``want`` =
-    ceil(B·M / (:data:`SH_BLOCKS_PER_SM` · n_sm)) intervals a block, so
-    that even one member covers the SMs. A row-level model (NaKL) rounds
-    ``want`` up to whole warps, between 32 and its 256 threads; Lorenz-96
-    takes ``want`` but at most 256 // D intervals (256 pairs a block, one
-    interval from D = 129 on). Either way at most ``block_n`` and M. So a
-    thread takes one interval (NaKL) or one (interval, component) pair
-    (Lorenz-96 up to D = 1,024; :func:`sh_threads`), and the staged rows
-    of Lorenz-96's one-interval block (8 rows of D in the backward) bound
-    its D (:func:`fe_kernel_supported`). The partition depends on B: a
-    member's value and parameter partials are summed in another order at
-    another batch size (its gradient rows are not sums and do not move).
-    """
-    if kernel in ("sh_fwd", "sh_vag"):
-        want = -(-int(B) * n_rows // (SH_BLOCKS_PER_SM * int(n_sm)))
-        if _SH_ROW[model]:
-            bk = min(_SH_MAX_THREADS[model], max(32, _pad_to(want, 32)))
-        else:
-            bk = max(1, min(want, _SH_PAIRS // D))
-        return max(1, min(bk, int(block_n), n_rows))
-    bn = max(1, min(int(block_n), max(8, _pad_to(n_rows, 8))))
-    while bn > 8 and _smem_bytes(kernel, bn, D, dtype,
-                                 model) > SMEM_DEFAULT:
-        bn = max(8, bn - 8)
-    return bn
+    From the batch's B·n_rows and the card's ``n_sm``: ``want`` =
+    ceil(B·n_rows / (:data:`BLOCKS_PER_SM` · n_sm)) a block, so that
+    even one member covers the SMs. Lorenz-96 takes ``want`` but at most
+    256 // D (256 pairs a block, one from D = 129 on). A row-level model
+    (NaKL) rounds ``want`` up to whole warps: under Hermite–Simpson 32
+    intervals a warp, between 32 and its 256 threads; for a one-step disc
+    :data:`ONESTEP_WARP_ROWS` rows a warp, between one warp and eight.
+    Either way at most ``block_n`` and ``n_rows``. So a thread takes one
+    interval or row (NaKL) or one pair (Lorenz-96 up to D = 1,024 under
+    Hermite–Simpson, 512 one-step: :func:`sh_threads`,
+    :func:`onestep_threads`), and the staged rows of Lorenz-96's
+    one-interval or one-row block bound its D
+    (:func:`fe_kernel_supported`). The dtype sizes nothing: a block's
+    shared memory stays under the card's at every width the envelope
+    takes. The partition depends on B: a member's value and parameter
+    partials are summed in another order at another batch size (its
+    gradient rows are not sums and do not move)."""
+    want = -(-int(B) * n_rows // (BLOCKS_PER_SM * int(n_sm)))
+    if not _ROW_MODEL[model]:
+        bk = max(1, min(want, _MAX_PAIRS // D))
+    elif kernel in ("sh_fwd", "sh_vag"):
+        bk = min(_MAX_THREADS[model], max(32, _pad_to(want, 32)))
+    else:
+        per = ONESTEP_WARP_ROWS
+        bk = min(per * (_MAX_THREADS[model] // 32),
+                 max(per, -(-want // per) * per))
+    return max(1, min(bk, int(block_n), n_rows))
 
 
 def model_of(f):
@@ -322,14 +323,11 @@ def fe_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
         return f"dtype {dtype}"
     if not _uniform_grid(spec):
         return "a non-uniform time grid"
-    if spec.disc == "SimpsonHermite":
-        if _smem_bytes("sh_vag", 1, spec.D, dtype, model) > ag.SMEM_LIMIT:
-            return (f"D = {spec.D}: one interval a block exceeds one "
-                    "block's shared memory")
-    elif not all(_smem_bytes(k, 8, spec.D, dtype, model) <= ag.SMEM_LIMIT
-                 for k in _kernels_of(spec.disc)):
-        return (f"D = {spec.D}: 8 rows a block exceed one block's shared "
-                "memory")
+    if _smem_bytes(_kernels_of(spec.disc)[1], 1, spec.D, dtype,
+                   model) > ag.SMEM_LIMIT:
+        unit = "interval" if spec.disc == "SimpsonHermite" else "row"
+        return (f"D = {spec.D}: one {unit} a block exceeds one block's "
+                "shared memory")
     return None
 
 
@@ -345,11 +343,11 @@ def fe_kernel_supported(spec: ProblemSpec, rf=0.0,
 
     and for both: constant parameters, any of the four discs, scalar or
     (N_f-1, D) rf, a uniform grid, float32 or float64, and the smallest
-    block of every kernel of the disc within one block's shared memory
+    block of the disc's fused launch within one block's shared memory
     (``ag.SMEM_LIMIT``): for Lorenz-96 under Hermite–Simpson one interval
-    a block (its fused launch keeps 8 rows of D), D up to 3,624 in float64
-    and 7,256 in float32; for the one-step discs 8 rows a block (27 rows
-    in the backward), D up to 1,075 and 2,152."""
+    a block (8 rows of D), D up to 3,624 in float64 and 7,256 in float32;
+    for the one-step discs one row a block (5 rows of D), D up to 5,798
+    and 11,609."""
     return fe_refusal(spec, rf, dtype) is None
 
 
@@ -440,11 +438,9 @@ def select_action(spec: ProblemSpec, rf, engine: str = "auto",
 
 @dataclasses.dataclass(frozen=True)
 class FeConsts:
-    """K6's constants for one problem, dtype and device. ``bn_fwd`` and
-    ``bn_bwd`` are a one-step disc's rows a block (0 under
-    Hermite–Simpson, whose intervals a block follow the batch size:
-    :meth:`rows`); ``block_n`` caps them, ``n_sm`` is the card's SM count
-    (:data:`DEFAULT_SMS` off the card). ``P_base`` holds the full
+    """K6's constants for one problem, dtype and device. A block's rows
+    follow the batch size (:meth:`rows`); ``block_n`` caps them, ``n_sm``
+    is the card's SM count (:data:`DEFAULT_SMS` off the card). ``P_base`` holds the full
     parameter vector on the estimation scale (log coordinates logged).
     The tensors, made once on ``device`` by :func:`fe_consts`: ``P_lin``
     the (NP,) parameters on the linear scale (log coordinates
@@ -461,8 +457,6 @@ class FeConsts:
     P_base: tuple           # (NP,) floats
     h: float
     norm: float             # D · (N_f - 1)
-    bn_fwd: int
-    bn_bwd: int
     block_n: int
     n_sm: int
     dtype: torch.dtype
@@ -491,25 +485,21 @@ class FeConsts:
         kernels then read ``pest`` with no merge."""
         return self.pidx == tuple(range(self.NP)) and not self.log_idx
 
-    def rows(self, kind: str, B: int = 1) -> int:
-        """Rows a block of the disc's forward (``kind='fwd'``) or backward
-        (``'bwd'``) at batch size B: ``bn_fwd``/``bn_bwd`` for a one-step
-        disc; under Hermite–Simpson the intervals a block of
-        :func:`rows_per_block`'s rule, one for the forward and the fused
-        launch."""
-        if self.sh:
-            return rows_per_block("sh_vag", self.M, self.D, self.dtype,
-                                  self.block_n, self.model, B, self.n_sm)
-        return self.bn_fwd if kind == "fwd" else self.bn_bwd
+    def rows(self, B: int = 1) -> int:
+        """Rows (intervals under Hermite–Simpson) a block of the disc's
+        launches at batch size B, :func:`rows_per_block`'s rule: the
+        value-only and the fused launch share one partition."""
+        kernel = "sh_vag" if self.sh else "onestep_vag"
+        return rows_per_block(kernel, self.M if self.sh else self.N_f,
+                              self.D, self.block_n, self.model, B,
+                              self.n_sm)
 
-    def n_blocks(self, kind: str, B: int = 1) -> int:
-        """Blocks a member of the disc's forward or backward launch at
-        batch size B: its partials' last axis."""
-        if self.sh:
-            rows = self.M
-        else:
-            rows = self.N_f - 1 if kind == "fwd" else self.N_f
-        return -(-rows // self.rows(kind, B))
+    def n_blocks(self, B: int = 1) -> int:
+        """Blocks a member of the disc's launches at batch size B: their
+        partials' last axis (a one-step disc's N_f gradient rows over
+        :meth:`rows`; the residual rows are one fewer, so the last block
+        may hold none and its value partial is 0)."""
+        return -(-(self.M if self.sh else self.N_f) // self.rows(B))
 
     def coeffs(self):
         """The disc's constants as the reference forms them, each a Python
@@ -560,10 +550,6 @@ def fe_consts(spec: ProblemSpec, dtype, device, block_n: int = 512
         disc=spec.disc, N_f=spec.N_f, D=spec.D, M=M, model=model,
         pidx=pidx, log_idx=log_idx, P_base=P_base, h=float(spec.dt),
         norm=spec.D * (spec.N_f - 1),
-        bn_fwd=0 if sh else rows_per_block("onestep_fwd", spec.N_f - 1,
-                                           spec.D, dtype, block_n, model),
-        bn_bwd=0 if sh else rows_per_block("onestep_bwd", spec.N_f, spec.D,
-                                           dtype, block_n, model),
         block_n=int(block_n), n_sm=int(n_sm), dtype=dtype, device=device,
         P_lin=P_lin,
         stim=(None if spec.stim_f is None else on_dev(
@@ -671,11 +657,11 @@ def _nakl_vjp(X, P, v, c: FeConsts, sl):
     return vjp(v)
 
 
-def _block_sums(t, bn):
-    """(B, R, D) -> (B, ceil(R / bn)): the sum over each block of bn
-    rows."""
+def _block_sums(t, bn, nb=None):
+    """(B, R, D) -> (B, nb): the sum over each block of bn rows, nb =
+    ceil(R / bn) unless given (a block past the rows sums to 0)."""
     B, R, D = t.shape
-    nb = -(-R // bn)
+    nb = -(-R // bn) if nb is None else nb
     if nb * bn > R:
         t = torch.cat([t, t.new_zeros(B, nb * bn - R, D)], dim=1)
     return t.reshape(B, nb, bn * D).sum(dim=2)
@@ -698,37 +684,53 @@ def _onestep_residuals(X, P, c: FeConsts):
     return X[:, 1:] - fX[:, :-1]
 
 
+def _onestep_value(r, rf, c: FeConsts):
+    """The weighted residuals wr = rf ⊙ r and the value's partials per
+    block (B, c.n_blocks(B)) of rf·Σ r² (scalar rf) or Σ wr ⊙ r,
+    summed as both one-step launches sum them."""
+    B = r.shape[0]
+    bn, nb = c.rows(B), c.n_blocks(B)
+    if isinstance(rf, torch.Tensor):
+        wr = rf * r
+        return wr, _block_sums(wr * r, bn, nb)
+    rf_s = _scalar(rf, r.dtype)
+    return rf_s * r, rf_s * _block_sums(r * r, bn, nb)
+
+
 def onestep_fwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_onestep_fwd: X (B, N_f, D), pest (B, NPest), rf
-    a float or an (N_f-1, D) tensor -> partials (B, c.n_blocks('fwd'))."""
-    r = _onestep_residuals(X, full_params(pest, c), c)
-    if isinstance(rf, torch.Tensor):
-        return _block_sums(rf * r * r, c.bn_fwd)
-    return _scalar(rf, X.dtype) * _block_sums(r * r, c.bn_fwd)
+    a float or an (N_f-1, D) tensor -> partials (B, c.n_blocks(B))."""
+    return _onestep_value(_onestep_residuals(X, full_params(pest, c), c),
+                          rf, c)[1]
 
 
-def onestep_bwd_reference(X, pest, rf, c: FeConsts):
-    """Plain version of fe_onestep_bwd: the unscaled gradient rows
-    gx_m = wr_{m-1} - a1 wr_m - J(x_m)ᵀ v_m (B, N_f, D), with wr the
-    weighted residuals (zero before the first row and after the last) and
-    v_m = c0 wr_{m-1} + c1 wr_m, and the parameters' partials
-    -Σ_m F_p(x_m)ᵀ v_m per block of bn_bwd rows (B, NP,
-    c.n_blocks('bwd'))."""
+def onestep_vag_reference(X, pest, rf, c: FeConsts):
+    """Plain version of the fused fe_onestep_vag, ``(partials, gx, gp)``,
+    from one pass over the residuals: fe_onestep_fwd's partials (B,
+    c.n_blocks(B)), the unscaled gradient rows gx_m = wr_{m-1} -
+    a1 wr_m - J(x_m)ᵀ v_m (B, N_f, D), with wr the weighted residuals
+    (zero before the first row and after the last) and v_m = c0 wr_{m-1}
+    + c1 wr_m, and the parameters' partials -Σ_m F_p(x_m)ᵀ v_m per block
+    of ``c.rows(B)`` rows (B, NP, blocks); for Lorenz-96, whose F
+    has df_d/dF = 1, that is -(c0 + c1) Σ wr over the block's residual
+    rows, as the kernel forms it."""
     dt = X.dtype
     _, a1, c0, c1 = (_scalar(v, dt) for v in c.coeffs())
     P = full_params(pest, c)
-    r = _onestep_residuals(X, P, c)
-    wr = (rf if isinstance(rf, torch.Tensor) else _scalar(rf, dt)) * r
+    wr, parts = _onestep_value(_onestep_residuals(X, P, c), rf, c)
+    B = X.shape[0]
+    bn = c.rows(B)
     z = torch.zeros_like(wr[:, :1])
     wr_prev = torch.cat([z, wr], dim=1)
     wr_cur = torch.cat([wr, z], dim=1)
     v = c0 * wr_prev + c1 * wr_cur
     if c.model == "l96":
         gx = wr_prev - a1 * wr_cur - _l96_jtv(X, v)
-        return gx, -_block_sums(v, c.bn_bwd)[:, None, :]
+        gF = -(c0 + c1) * _block_sums(wr, bn, c.n_blocks(B))
+        return parts, gx, gF[:, None, :]
     jtv, pbar = _nakl_vjp(X, P, v, c, slice(None))
-    return (wr_prev - a1 * wr_cur - jtv,
-            -_block_param_sums(pbar, c.bn_bwd))
+    return (parts, wr_prev - a1 * wr_cur - jtv,
+            -_block_param_sums(pbar, bn))
 
 
 def _sh_parts(X, P, rf, c: FeConsts):
@@ -749,19 +751,19 @@ def _sh_parts(X, P, rf, c: FeConsts):
 
 def sh_fwd_reference(X, pest, rf, c: FeConsts):
     """Plain version of fe_sh_fwd: partials Σ ws S² + wh H² per block of
-    ``c.rows('fwd', B)`` intervals (B, ``c.n_blocks('fwd', B)``)."""
+    ``c.rows(B)`` intervals (B, ``c.n_blocks(B)``)."""
     _, S, H, ws, wh = _sh_parts(X, full_params(pest, c), rf, c)
-    return _block_sums(ws * S * S + wh * H * H, c.rows("fwd", X.shape[0]))
+    return _block_sums(ws * S * S + wh * H * H, c.rows(X.shape[0]))
 
 
 def sh_vag_reference(X, pest, rf, c: FeConsts):
     """Plain version of the fused fe_sh_vag, ``(partials, g_e0, g_m, g_e1,
-    gp)``: fe_sh_fwd's partials (B, ``c.n_blocks('bwd', B)``), the
+    gp)``: fe_sh_fwd's partials (B, ``c.n_blocks(B)``), the
     unscaled triplet, each (B, M, D), and the parameters' partials
     Σ (F_p0ᵀ v0 + F_pmᵀ vm + F_p1ᵀ v1) (B, NP, blocks), on blocks of
-    ``c.rows('bwd', B)`` intervals."""
+    ``c.rows(B)`` intervals."""
     dt = X.dtype
-    bk = c.rows("bwd", X.shape[0])
+    bk = c.rows(X.shape[0])
     h6, h8, h46 = (_scalar(v, dt) for v in c.coeffs())
     P = full_params(pest, c)
     (xe0, xm, xe1), S, H, ws, wh = _sh_parts(X, P, rf, c)
@@ -809,16 +811,16 @@ def _lib():
         common = [P, LL, P, LL, P, P, Dbl, I, I, I]
         for t in ("f32", "f64"):
             fn = getattr(lib, f"va_fe_onestep_fwd_{t}")
-            fn.argtypes = [I, I, I] + common + [Dbl, I, P, P]
-            fn = getattr(lib, f"va_fe_onestep_bwd_{t}")
-            fn.argtypes = [I, I, I] + common + [Dbl, Dbl, Dbl, Dbl, I, P, P,
-                                                P]
+            fn.argtypes = [I, I, I] + common + [Dbl, I, I, P, P]
+            fn = getattr(lib, f"va_fe_onestep_vag_{t}")
+            fn.argtypes = [I, I, I] + common + [Dbl, Dbl, Dbl, Dbl, I, I, P,
+                                                P, P, P]
             fn = getattr(lib, f"va_fe_sh_fwd_{t}")
             fn.argtypes = [I, I] + common + [Dbl, Dbl, I, I, P, P]
             fn = getattr(lib, f"va_fe_sh_vag_{t}")
             fn.argtypes = [I, I] + common + [Dbl, Dbl, Dbl, I, I, P, P, P, P,
                                              P, P]
-            for k in ("onestep_fwd", "onestep_bwd", "sh_fwd", "sh_vag"):
+            for k in ("onestep_fwd", "onestep_vag", "sh_fwd", "sh_vag"):
                 getattr(lib, f"va_fe_{k}_{t}").restype = I
         lib.va_fe_error_string.restype = ctypes.c_char_p
         lib.va_fe_error_string.argtypes = [I]
@@ -885,53 +887,60 @@ def _check_disc(c: FeConsts, want_sh: bool, name: str):
 def onestep_fwd_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_onestep_fwd (K6a) on X (B, N_f, D), a CUDA tensor of c's
     dtype whose rows are contiguous, and pest (B, NPest); returns the
-    partials (B, c.n_blocks('fwd')) on PyTorch's current stream, without
-    synchronizing. Raises on anything the kernel does not take and on a
-    refused launch."""
+    partials (B, c.n_blocks(B)) on PyTorch's current stream,
+    without synchronizing. Raises on anything the kernel does not take
+    and on a refused launch."""
     global FWD_LAUNCHES
     _check_disc(c, False, "fe_onestep_fwd")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
-    out = torch.empty(B, c.n_blocks("fwd"), dtype=c.dtype, device=X.device)
+    out = torch.empty(B, c.n_blocks(B), dtype=c.dtype,
+                      device=X.device)
     if B == 0:
         return out
+    bn = c.rows(B)
     _call(X, _fn("onestep_fwd", c), "fe_onestep_fwd", _MODEL_CODE[c.model],
-          _DISC_CODE[c.disc], diag, *common, c.coeffs()[0], c.bn_fwd,
-          out.data_ptr())
+          _DISC_CODE[c.disc], diag, *common, c.coeffs()[0], bn,
+          onestep_threads(c.model, bn, c.D), out.data_ptr())
     FWD_LAUNCHES += 1
     return out
 
 
-def onestep_bwd_kernel(X, pest, rf, c: FeConsts):
-    """Launch fe_onestep_bwd (K6b): returns (gx (B, N_f, D), the
-    parameters' partials (B, NP, c.n_blocks('bwd'))), unscaled, as
-    :func:`onestep_bwd_reference`."""
-    global BWD_LAUNCHES
-    _check_disc(c, False, "fe_onestep_bwd")
+def onestep_vag_kernel(X, pest, rf, c: FeConsts):
+    """Launch fe_onestep_vag (K6b with K6a's value), the one-step value
+    and gradient in one launch: returns ``(partials, gx, gp)``,
+    fe_onestep_fwd's partials (B, c.n_blocks(B)), the unscaled
+    gradient rows (B, N_f, D) and the parameters' partials (B, NP,
+    blocks), as :func:`onestep_vag_reference`."""
+    global ONESTEP_VAG_LAUNCHES
+    _check_disc(c, False, "fe_onestep_vag")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
-    gx = torch.empty(B, c.N_f, c.D, dtype=c.dtype, device=X.device)
-    gp = torch.empty(B, c.NP, c.n_blocks("bwd"), dtype=c.dtype,
-                     device=X.device)
+    nb = c.n_blocks(B)
+    out = (torch.empty(B, nb, dtype=c.dtype, device=X.device),
+           torch.empty(B, c.N_f, c.D, dtype=c.dtype, device=X.device),
+           torch.empty(B, c.NP, nb, dtype=c.dtype, device=X.device))
     if B == 0:
-        return gx, gp
-    _call(X, _fn("onestep_bwd", c), "fe_onestep_bwd", _MODEL_CODE[c.model],
-          _DISC_CODE[c.disc], diag, *common, *c.coeffs(), c.bn_bwd,
-          gx.data_ptr(), gp.data_ptr())
-    BWD_LAUNCHES += 1
-    return gx, gp
+        return out
+    bn = c.rows(B)
+    _call(X, _fn("onestep_vag", c), "fe_onestep_vag", _MODEL_CODE[c.model],
+          _DISC_CODE[c.disc], diag, *common, *c.coeffs(), bn,
+          onestep_threads(c.model, bn, c.D),
+          *(t.data_ptr() for t in out[1:] + out[:1]))
+    ONESTEP_VAG_LAUNCHES += 1
+    return out
 
 
 def sh_fwd_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_sh_fwd (K6c, K6d for B > 1): returns the partials (B,
-    c.n_blocks('fwd', B))."""
+    c.n_blocks(B))."""
     global SH_FWD_LAUNCHES
     _check_disc(c, True, "fe_sh_fwd")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
-    out = torch.empty(B, c.n_blocks("fwd", B), dtype=c.dtype,
+    out = torch.empty(B, c.n_blocks(B), dtype=c.dtype,
                       device=X.device)
     if B == 0:
         return out
     h6, h8, _ = c.coeffs()
-    bk = c.rows("fwd", B)
+    bk = c.rows(B)
     _call(X, _fn("sh_fwd", c), "fe_sh_fwd", _MODEL_CODE[c.model], diag,
           *common, h6, h8, bk, sh_threads(c.model, bk, c.D), out.data_ptr())
     SH_FWD_LAUNCHES += 1
@@ -941,20 +950,20 @@ def sh_fwd_kernel(X, pest, rf, c: FeConsts):
 def sh_vag_kernel(X, pest, rf, c: FeConsts):
     """Launch fe_sh_vag (K6c, K6d for B > 1), the Hermite–Simpson value
     and gradient in one launch: returns ``(partials, g_e0, g_m, g_e1,
-    gp)``, fe_sh_fwd's partials (B, c.n_blocks('bwd', B)), the unscaled
+    gp)``, fe_sh_fwd's partials (B, c.n_blocks(B)), the unscaled
     triplet, each (B, M, D), and the parameters' partials (B, NP,
     blocks), as :func:`sh_vag_reference`."""
     global SH_VAG_LAUNCHES
     _check_disc(c, True, "fe_sh_vag")
     X, B, diag, common, _P = _launch_args(X, pest, rf, c)
-    nb = c.n_blocks("bwd", B)
+    nb = c.n_blocks(B)
     out = [torch.empty(B, nb, dtype=c.dtype, device=X.device)]
     out += [torch.empty(B, c.M, c.D, dtype=c.dtype, device=X.device)
             for _ in range(3)]
     out.append(torch.empty(B, c.NP, nb, dtype=c.dtype, device=X.device))
     if B == 0:
         return tuple(out)
-    bk = c.rows("bwd", B)
+    bk = c.rows(B)
     _call(X, _fn("sh_vag", c), "fe_sh_vag", _MODEL_CODE[c.model], diag,
           *common, *c.coeffs(), bk, sh_threads(c.model, bk, c.D),
           *(t.data_ptr() for t in out[1:] + out[:1]))
@@ -972,7 +981,7 @@ def _on_cpu(X, c: FeConsts) -> bool:
 
 
 def fe_partials(X, pest, rf, c: FeConsts):
-    """The forward's per-block partials (B, c.n_blocks('fwd', B)): the
+    """The forward's per-block partials (B, c.n_blocks(B)): the
     plain version for a CPU tensor, the kernel for a CUDA tensor."""
     if _on_cpu(X, c):
         return (sh_fwd_reference if c.sh else onestep_fwd_reference)(
@@ -990,32 +999,32 @@ def _joined(out, pest, c: FeConsts):
     return out[0], gp
 
 
+def _fused(X, pest, rf, c: FeConsts):
+    """The disc's fused value-and-gradient launch (fe_sh_vag or
+    fe_onestep_vag), or its plain version for a CPU tensor."""
+    if _on_cpu(X, c):
+        fn = sh_vag_reference if c.sh else onestep_vag_reference
+    else:
+        fn = sh_vag_kernel if c.sh else onestep_vag_kernel
+    return fn(X, pest, rf, c)
+
+
 def fe_adjoint(X, pest, rf, c: FeConsts):
     """The backward's unscaled gradient rows (B, N_f, D) and the gradient
     over the full estimation-scale parameter vector (B, NP)
-    (:func:`param_grad`): the plain version for a CPU tensor, the kernel
-    for a CUDA tensor; under Hermite–Simpson the fused launch, its value
-    partials unread, and the triplet joined by node."""
-    if c.sh:
-        fn = sh_vag_reference if _on_cpu(X, c) else sh_vag_kernel
-        return _joined(fn(X, pest, rf, c)[1:], pest, c)
-    fn = onestep_bwd_reference if _on_cpu(X, c) else onestep_bwd_kernel
-    return _joined(fn(X, pest, rf, c), pest, c)
+    (:func:`param_grad`): the fused launch, its value partials unread,
+    the Hermite–Simpson triplet joined by node; the plain version for a
+    CPU tensor."""
+    return _joined(_fused(X, pest, rf, c)[1:], pest, c)
 
 
 def fe_value_and_grad(X, pest, rf, c: FeConsts):
     """FE per member (B,) and its gradients over X (B, N_f, D) and over
     pest (B, NPest), scaled as :class:`_FE` scales them (2/norm; a log
-    coordinate through :func:`param_grad`): under Hermite–Simpson one
-    fused launch (fe_sh_vag), for a one-step disc the forward and the
-    backward launch; the plain versions for a CPU tensor."""
-    if c.sh:
-        fn = sh_vag_reference if _on_cpu(X, c) else sh_vag_kernel
-        parts, *out = fn(X, pest, rf, c)
-        g_rows, gp = _joined(out, pest, c)
-    else:
-        parts = fe_partials(X, pest, rf, c)
-        g_rows, gp = fe_adjoint(X, pest, rf, c)
+    coordinate through :func:`param_grad`): one fused launch
+    (fe_sh_vag, fe_onestep_vag); the plain versions for a CPU tensor."""
+    parts, *out = _fused(X, pest, rf, c)
+    g_rows, gp = _joined(out, pest, c)
     scale = 2.0 / c.norm
     gpest = (scale * pest_grad(gp, c) if c.pidx
              else torch.zeros_like(pest))
@@ -1093,7 +1102,7 @@ def make_fe_pallas(spec: ProblemSpec, block_n: int = 512,
     Differentiable by autograd (see :class:`_FE`). ``fe.value_and_grad(X,
     pest, rf)`` returns (FE, dFE/dX, dFE/dpest), one member's gradient a
     leading index, without autograd's graph (:func:`fe_value_and_grad`:
-    one launch under Hermite–Simpson; rf gets no gradient). ``block_n``:
+    one fused launch; rf gets no gradient). ``block_n``:
     the most rows a block (:func:`rows_per_block`). ``device=None`` means
     the CUDA card. Raises ValueError outside :func:`fe_kernel_supported`."""
     device = resolve_device(device)
@@ -1156,8 +1165,7 @@ def make_action_pallas(spec: ProblemSpec, block_n: int = 512,
     ``ops.action.value_and_grad`` (and so every ladder and solver loop)
     takes instead of autograd: ME's gradient in closed form
     (``ops.action.measurement_error_and_grad``), FE's from one fused
-    launch under Hermite–Simpson or from K6's forward and backward for a
-    one-step disc, with no graph. ``action`` itself stays differentiable
+    launch, with no graph. ``action`` itself stays differentiable
     by autograd (:class:`_FE`). ``device=None`` means the CUDA card.
     Raises ValueError outside :func:`fe_kernel_supported`
     (:func:`select_action` raises first, naming what waits)."""
