@@ -217,13 +217,15 @@ timed on its own line:
    and through the autograd action: K6's A within 1e-8 relative of the
    autograd action's at every mutually converged rung;
 20. the facade at BASELINE config #2 as examples/lorenz96_d100_sh.py runs
-   it (engine='pallas', f32, 61 rungs, maxiter 800, one init): one fused
+   it (engine='pallas', f32, maxiter 800, one init), cut to the first 40
+   of its 61 rungs (CONF2['rungs_a']): one fused
    launch an evaluation, K6's Hermite–Simpson forward once a rung for the
    records and its backward never, no other kernel but K7b (whose launches
    equal the iterations where the loop is the fused one; the example's m =
    10 lies outside K7b's 2m + 1 <= 16, so the compact loop runs and K7b
-   stays at 0), records (61,) finite, exit flags in {0, 1, 2}; its wall
-   time, ms an iteration, F and the interior RMSE printed, not held (one
+   stays at 0), records (40,) finite, exit flags in {0, 1, 2}; its wall
+   time, ms an iteration, iterations per rung, F and the interior RMSE
+   printed, not held (one
    init sits at the observability boundary); then the example's ensemble,
    B=8 members in f64 for rungs 0..9 through run_ladder_checkpointed with
    a checkpoint every 2 rungs: the fused launch at least once per
@@ -286,7 +288,8 @@ timed on its own line:
    solver, and parallel.make_ensemble_ladder runs the ladder with one K2
    launch a rung (each timed by CUDA events around it); every record
    finite, every status in {0, 1, 2}; its wall time, ms an init, total
-   nfev and the final action's percentiles printed;
+   nfev and niter, the final action's percentiles and K2's bound a launch
+   (solve_bound from this run's evaluations and iterations) printed;
 27. BASELINE config #3 (CONF3): (a) examples/nakl.py's problem (NaKL,
    N=3001, N_f = 6,001, the stimulus, Pidx [1..5], the boxes, RF0 1e-5,
    alpha 1.6, maxiter 5000, f64) through the facade with
@@ -304,7 +307,33 @@ timed on its own line:
    launched, K6d's backward never alone, its launches counted by dtype
    and batch (the f32 screen, the f64 polish), a checkpoint after every
    chunk, phase 1 resumed from its checkpoint after rung 4
-   bit-identical, the best member's parameters printed.
+   bit-identical, the best member's parameters printed;
+28. BASELINE config #4 (CONF4, examples/nnet_train.py: the va_nnet
+   facade, [2, 16, 16, 1], tanh, M = 128, 31 rungs, alpha 2, RF0 1e-3,
+   seed 3): (a) f64 at gtol 1e-9 (the compact loop, no kernel), rungs
+   0..2 each from the card's minimizer of the rung before through three
+   iterations on the card and on the CPU (the same counts, A within 1e-8;
+   longer solves part from round-off on this over-parameterized
+   landscape); (b) f32 as the example runs it (maxcor 10: the compact
+   loop, no kernel), then with maxcor 5: the fused loop, K7b launches
+   equal to its iterations and no other kernel; train and test RMSE
+   printed beside the JAX package's on the CPU (JAX_CONF4_RMSE); (c) f32,
+   clamp_input and bounds_W=(-3, 3), 10 rungs, maxcor 5: the projection
+   loop, K7a launches equal to its iterations, every weight of every rung
+   in its box, X[0] the inputs; (d) (b)'s fused run over 10 rungs
+   checkpointed every 5, cut back to rung 5 and resumed: bit for bit the
+   uninterrupted run; (e) K7a and K7b at n = 4,817, m = 5, B = 1 and 4
+   against their plain versions at phase 10's tolerances (every (head,
+   hlen) pair), timed by CUDA events and torch.profiler beside their
+   bounds;
+29. the other inner solvers on config #1 through the facade (the Quick
+   start's problem and opt_args, unbounded, f32, one init): method 'LM',
+   'TNC' and 'CG' over the first 15 of 101 rungs (no kernel), 'CG' with
+   engine='ag' (K1 launches equal to the evaluations), the three again
+   over rung 50 from phase 5's rung-49 minimizer, 20 iterations each
+   (their time an iteration), and the bench with BENCH_INNER=lm BENCH_SOLVER=xla over 15
+   rungs (LM maxiter 50 a rung); every record finite, every exit flag 0,
+   1 or 2; walls, iterations and evaluations printed.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -343,7 +372,11 @@ K8's launches phase 25's
 BENCH_PACK=2 run's, its times phase 24's; K1's, K2's, K3's and K4's
 d400_max_rel_err their phase's check at D=400, K1's d400_ms and K2's
 d400_short_ms phases 3's and 8's times there, K2's
-barriers_per_evaluation phase 9's and its config5 phase 26's numbers)
+barriers_per_evaluation phase 9's and its config5 phase 26's numbers,
+config5_bound_ms phase 26's bound a launch; K1's ncg_launches and
+ncg_nfev phase 29's CG run over engine='ag'; K7a's and K7b's nnet_*
+phase 28's: launches and iterations on config #4's projection (K7a) and
+fused (K7b) runs, errors and times at n = 4,817, B = 1 and 4)
 and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero before that line.
@@ -387,9 +420,13 @@ MAIN = dict(D=20, N_data=161, n_obs=8, B=4, n_beta=101, alpha=1.5,
             tail=20)
 # BASELINE config #2 as examples/lorenz96_d100_sh.py runs it: Lorenz-96
 # D=100, 40 observed, sigma 1, N_data=121 under Hermite–Simpson, 61 rungs
-# at alpha 1.6 from RF0 = 1e-4, maxiter 800 (m stays the default 10)
+# at alpha 1.6 from RF0 = 1e-4, maxiter 800 (m stays the default 10);
+# phase 20's facade runs the first rungs_a of them: rungs 0..30 take a
+# few hundred evaluations in all and the later ones several hundred each,
+# so the cut from 61 keeps nine of those and frees what phases 28-29
+# take (host-bound, PERF.md §5)
 CONF2 = dict(D=100, N_data=121, n_obs=40, sigma=1.0, n_beta=61, alpha=1.6,
-             rf0=1e-4, maxiter=800, B=8)
+             rf0=1e-4, maxiter=800, B=8, rungs_a=40)
 # BASELINE config #5 as examples/ensemble_sweep.py runs it in full: 1024
 # members (random_ensemble_inits, seed 12) of Lorenz-96 D=400, N_data=161,
 # 160 observed, trapezoid, F estimated from 4.0, f32, rf0 = 4e-6·RM,
@@ -422,6 +459,28 @@ CONF3 = dict(N=3001, dt=0.04, sigma=1.0, seed=7, alpha=1.6, rf0=1e-5,
              extra_b=2, maxiter_b=400, polish_maxiter=2000, polish_top=4,
              gate_rf_scale=1000.0)
 PIDX3 = [1, 2, 3, 4, 5]
+# BASELINE config #4 as examples/nnet_train.py runs it: the va_nnet path,
+# structure [2, 16, 16, 1], tanh, M = 128 inputs from default_rng(11) on
+# the example's teacher map, 31 rungs, alpha 2, RM 1, RF0 1e-3, seed 3,
+# maxiter 1500 (gtol 1e-9 in f64; f32 with the f32 defaults); phase 28c's
+# clamped and bounded run takes 10 rungs, and the runs that hold K7a/K7b
+# take maxcor 5 (the example's default 10 is outside their 2m + 1 <= 16)
+CONF4 = dict(structure=(2, 16, 16, 1), M=128, n_beta=31, alpha=2.0, RM=1.0,
+             RF0=1e-3, seed=3, data_seed=11, n_test=256, maxiter=1500,
+             gtol64=1e-9, rungs_c=10, maxcor_k=5, rungs_cpu=3)
+# config #4's train / test RMSE from the JAX package on the CPU
+# (examples/nnet_train.py, and with --f32), to read beside the card's
+JAX_CONF4_RMSE = {"float64": (0.1054, 0.1093), "float32": (0.2107, 0.2218)}
+# phase 29: the other inner solvers through the facade on config #1
+# (the Quick start's problem and opt_args, unbounded, f32, one init) over
+# the first 15 of its 101 rungs, where every rung but the last converges
+# at its first gradient test, and over rung 50 from phase 5's rung-49
+# minimizer, where the solves work, cut to 20 iterations a solver (on the
+# H100 the port's LM and TNC take 130-240 ms an iteration there and ~140
+# and ~90 iterations to converge: 20 give each solver's time an iteration
+# within the phase's share of the time limit)
+INNER_RUNGS = 15
+INNER_MID, INNER_MID_MAXITER = 50, 20
 # Device µs a launch of the per-(interval, component) design that the
 # Hermite–Simpson kernels replaced (sh_vag: its backward, fe_sh_bwd),
 # keyed (model, kernel, dtype, B), at the shapes phase 18 times: an
@@ -648,6 +707,210 @@ def step_work(B, n, m, n_good):
     nbytes = (B * 4 * n * 4 + n_good * 2 * n * 4 + nbytes_d - B * n * 4
               - n_good * 2 * n * 4 + B * (7 * 4 + 4 * 2 + 4 * 2))
     return nbytes, nops_d + B * 13 * n
+
+
+def k7_histories(dev, rng, m, pairs, n):
+    """(B, 2m, n) f32 histories on the card, one a (head, hlen) pair:
+    hlen random pairs (s, y ≈ s) written chronologically into the
+    circular slots that end before head."""
+    H = np.zeros((len(pairs), 2 * m, n), np.float32)
+    for b, (head, hlen) in enumerate(pairs):
+        for j in range(hlen):
+            slot = (head - hlen + j) % m
+            sv = rng.normal(size=n)
+            H[b, slot], H[b, m + slot] = sv, rng.normal(size=n) * 0.3 + sv
+    return torch.tensor(H, device=dev)
+
+
+def dir_err(d_k, d_p, d_64):
+    """(kernel's error, its bound), each relative to the member's max|d|:
+    the bound is 2e-5 (tests/test_dir_pallas.py's for K7b) or twice the
+    plain f32 version's own error against f64 on the same inputs,
+    whichever is larger, and never more than 7.2e-5 (twice the 3.6e-5
+    that tests/test_torch_dir.py holds that error under at n = 3,221 and
+    m = 7 on the CPU)."""
+    s_p = torch.amax(torch.abs(d_p), dim=1).double()
+    e_k = torch.amax(torch.abs(d_k - d_p), dim=1).double() / s_p
+    w = torch.amax(torch.abs(d_p.double() - d_64), dim=1) / torch.amax(
+        torch.abs(d_64), dim=1)
+    return e_k, torch.clamp(2.0 * w, min=2e-5, max=7.2e-5)
+
+
+def k7_acc():
+    """The accumulators of k7_batch_check: max abs errors, worst error /
+    bound and worst error relative to max|d| (each [K7a, K7b]), the
+    directions past the elementwise 2e-6 + 2e-5|d|, the cases checked and
+    the cluster plans by (m, n)."""
+    return dict(err=[0.0, 0.0], rel=[0.0, 0.0], e=[0.0, 0.0], n_el=0,
+                n_pairs=0, plans={})
+
+
+def k7_batch_check(dev, rng, m, n, batch, acc):
+    """K7a and K7b against their plain versions on one launch of
+    len(batch) members, one (head, hlen) pair each (phase 10's check):
+    the direction within dir_err's bound, history rows and max|g| within
+    1e-6 relative, Σ|g| within 1e-5, good/head/hlen exact, a member with
+    run = 0 left bit-identical, a flat pair refused by the gate, repeats
+    bit-identical. Accumulates into ``acc`` (k7_acc)."""
+    from varanneal_tpu_torch.kernels import dir as kdir
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32, device=dev)
+    B = len(batch)
+    H = k7_histories(dev, rng, m, batch, n)
+    acc["plans"][(m, n)] = (kdir.launch_plan(H, False),
+                            kdir.launch_plan(H, True))
+    hd = i32([p[0] for p in batch])
+    hl = i32([p[1] for p in batch])
+    g = f32(rng.normal(size=(B, n)))
+    d_k = kdir.compact_dir_kernel(g, H, hd, hl)
+    torch.cuda.synchronize()
+    d_p = kdir.compact_dir_reference(g, H, hd, hl)
+    d_64 = kdir.compact_dir_reference(g.double(), H.double(), hd, hl)
+    err = torch.abs(d_k - d_p)
+    acc["err"][0] = max(acc["err"][0], float(err.max()))
+    acc["n_el"] += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(
+        dim=1).sum())
+    e_k, bnd = dir_err(d_k, d_p, d_64)
+    acc["rel"][0] = max(acc["rel"][0], float((e_k / bnd).max()))
+    acc["e"][0] = max(acc["e"][0], float(e_k.max()))
+    check(bool(torch.all(e_k <= bnd)),
+          f"K7a disagrees with its plain version at m={m}, n={n}, (head, "
+          f"hlen) in {batch}: {e_k.tolist()} vs {bnd.tolist()}")
+    check(torch.equal(d_k, kdir.compact_dir_kernel(g, H, hd, hl)),
+          "K7a repeated launch is not bit-identical")
+
+    x_old, g_old = f32(rng.normal(size=(B, n))), g
+    x_new = x_old + f32(0.1 * rng.normal(size=(B, n)))
+    g_new = g_old + f32(0.1 * rng.normal(size=(B, n)))
+    if B > 3:           # a flat pair: the gate must refuse it
+        x_new[3] = x_old[3] + 1e-12
+        g_new[3] = g_old[3]
+    ls_ok = torch.tensor([True, False, True, True][:B], device=dev)
+    run = torch.tensor([True, True, False, True][:B], device=dev)
+    vecs = (x_old, x_new, g_old, g_new)
+    Hk, hk, lk = H.clone(), hd.clone(), hl.clone()
+    Hp, hp, lp = H.clone(), hd.clone(), hl.clone()
+    d_k, sc_k = kdir.fused_step_kernel(Hk, *vecs, hk, lk, ls_ok, run)
+    torch.cuda.synchronize()
+    d_p, sc_p = kdir.fused_step_reference(Hp, *vecs, hp, lp, ls_ok, run)
+    d_64, _ = kdir.fused_step_reference(
+        H.double(), *(v.double() for v in vecs), hd.clone(), hl.clone(),
+        ls_ok, run)
+    err = torch.abs(d_k - d_p)
+    acc["err"][1] = max(acc["err"][1], float(err.max()),
+                        float(torch.abs(Hk - Hp).max()))
+    acc["n_el"] += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(
+        dim=1).sum())
+    e_k, bnd = dir_err(d_k[run], d_p[run], d_64[run])
+    acc["rel"][1] = max(acc["rel"][1], float((e_k / bnd).max()))
+    acc["e"][1] = max(acc["e"][1], float(e_k.max()))
+    ok = (torch.equal(hk, hp) and torch.equal(lk, lp)
+          and torch.equal(sc_k[:, [0, 3, 4]], sc_p[:, [0, 3, 4]])
+          and bool(torch.all(torch.abs(Hk - Hp) <= 1e-6 * torch.abs(Hp)))
+          and bool(torch.all(torch.abs(sc_k[:, 1] - sc_p[:, 1])
+                             <= 1e-6 * torch.abs(sc_p[:, 1])))
+          and bool(torch.all(torch.abs(sc_k[:, 2] - sc_p[:, 2])
+                             <= 1e-5 * torch.abs(sc_p[:, 2])))
+          and bool(torch.all(e_k <= bnd))
+          and torch.equal(d_k[~run], d_p[~run]))
+    check(ok, f"K7b disagrees with its plain version at m={m}, n={n}, "
+          f"(head, hlen) in {batch}: good/head/hlen "
+          f"{sc_k[:, [0, 3, 4]].tolist()} vs {sc_p[:, [0, 3, 4]].tolist()}")
+    if B > 2:
+        check(torch.equal(Hk[2], H[2]) and int(hk[2]) == int(hd[2])
+              and int(lk[2]) == int(hl[2]),
+              "K7b touched a member whose loop had ended")
+    if B > 3:
+        check(float(sc_k[3, 0]) == 0.0, "K7b took a flat pair")
+    Hk2, hk2, lk2 = H.clone(), hd.clone(), hl.clone()
+    d_k2, sc_k2 = kdir.fused_step_kernel(Hk2, *vecs, hk2, lk2, ls_ok, run)
+    check(torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
+          and torch.equal(Hk, Hk2),
+          "K7b repeated launch is not bit-identical")
+    acc["n_pairs"] += B
+
+
+def print_k7_checks(acc, where):
+    """k7_batch_check's readings over a phase, and the cluster plans."""
+    print(f"K7a/K7b f32 vs plain at {where}, {acc['n_pairs']} (head, hlen) "
+          f"cases: max abs err K7a {acc['err'][0]:.3e}, K7b "
+          f"{acc['err'][1]:.3e}; error / bound, relative to max|d|, K7a "
+          f"{acc['rel'][0]:.3f}, K7b {acc['rel'][1]:.3f} (bound: 2e-5, or "
+          f"twice the plain f32 version's own error against f64, at most "
+          f"7.2e-5); {acc['n_el']} of the {2 * acc['n_pairs']} directions "
+          f"past the elementwise 2e-6 + 2e-5|d|; good/head/hlen exact, "
+          f"ended member untouched, repeats bit-identical")
+    for (m, n_), (pa, pb) in sorted(acc["plans"].items()):
+        print(f"K7 cluster plan, m={m}, n={n_}: K7a {pa.size} blocks of "
+              f"{pa.width} columns, {pa.rows} rows on chip, {pa.smem_bytes}"
+              f" B; K7b {pb.size} blocks, {pb.rows} rows, {pb.smem_bytes} B")
+
+
+def device_ms_of(fn, key, n=200):
+    """A kernel's device time a launch by torch.profiler over ``n`` calls
+    of ``fn`` (the rows whose name holds ``key``), or None without device
+    events."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(device_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and key in e.key]
+    return (rows[0][0] / rows[0][1] / 1e3 if rows and rows[0][0] > 0
+            else None)
+
+
+def k7_times(dev, rng, n, m, B):
+    """K7a and K7b (every pair taken) at m with a full history on B
+    members of n columns: ms a launch by CUDA events, device ms by
+    torch.profiler, the plain versions' ms, the bounds (dir_work,
+    step_work); printed, and returned with the cluster plans."""
+    from varanneal_tpu_torch.kernels import dir as kdir
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+    H = k7_histories(dev, rng, m, [(2, m)] * B, n)
+    hd = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    hl = torch.full((B,), m, dtype=torch.int32, device=dev)
+    g = f32(rng.normal(size=(B, n)))
+    x_old = f32(rng.normal(size=(B, n)))
+    x_new = x_old + f32(0.1 * rng.normal(size=(B, n)))
+    g_new = g + f32(0.1 * rng.normal(size=(B, n)))
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    t = dict(plan=(kdir.launch_plan(H, False), kdir.launch_plan(H, True)))
+    t["k7a"] = events_ms(lambda: kdir.compact_dir_kernel(g, H, hd, hl))
+    t["k7a_dev"] = device_ms_of(
+        lambda: kdir.compact_dir_kernel(g, H, hd, hl), "dir_kernel")
+    t["p7a"] = events_ms(
+        lambda: kdir.compact_dir_reference(g, H, hd, hl), n=200)
+
+    def step(fn):
+        Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
+        return lambda: fn(Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones)
+    t["k7b"] = events_ms(step(kdir.fused_step_kernel))
+    t["k7b_dev"] = device_ms_of(step(kdir.fused_step_kernel), "step_kernel")
+    t["p7b"] = events_ms(step(kdir.fused_step_reference), n=200)
+    t["w7a"] = dir_work(B, n, m)
+    t["w7b"] = step_work(B, n, m, B)
+    t["b7a"], t["b7b"] = bound_of(*t["w7a"]), bound_of(*t["w7b"])
+    for kk, nm in (("7a", "K7a"), ("7b", "K7b (every pair taken)")):
+        dv = t[f"k{kk}_dev"]
+        plan_ = t["plan"][kk == "7b"]
+        print(f"{nm} f32 (B={B}, n={n}, m={m}, full history; "
+              f"{plan_.size} blocks a member): {t[f'k{kk}']:.5f} ms a "
+              f"launch, plain {t[f'p{kk}']:.5f} ms (CUDA events), device "
+              "time " + (f"{dv:.5f} ms (torch.profiler)" if dv is not None
+                         else "not measured (no device events)")
+              + f"; bound {t[f'b{kk}'][0]:.3e} ms ({t[f'b{kk}'][1]}: "
+              f"{t[f'w{kk}'][0]} bytes, {t[f'w{kk}'][1]} operations)")
+    return t
 
 
 def member_draws(spec, tw, seed, B=None):
@@ -1360,22 +1623,30 @@ def config5_ladder(dev, tw, spec):
         wall = time.perf_counter() - t_run
     launches = dict(rung=solve.RUNG_LAUNCHES, ladder=solve.LADDER_LAUNCHES,
                     ag=ag.LAUNCHES)
-    A, nfev, status = (torch.cat([getattr(r, k) for r in recs], dim=1)
-                       for k in ("A", "nfev", "status"))
+    A, nfev, niter, status = (torch.cat([getattr(r, k) for r in recs], dim=1)
+                              for k in ("A", "nfev", "niter", "status"))
     ms_launch, us_eval = per_launch(ev, nfev, 1)
+    # the least time of a launch from this run's work (solve_bound): every
+    # member's evaluations and iterations, over the 51 launches
+    bound = solve_bound(spec, torch.float32, CONF5["B"], CONF5["n_beta"],
+                        int(nfev.sum()), int(niter.sum()), opts.m, 1)
     final = A[:, -1].cpu().numpy()
     qs = np.percentile(final, [0, 25, 50, 75, 100])
     n_best = int(np.sum(final <= qs[0] * 1.01 + 1e-12))
     codes = np.bincount(status.cpu().numpy().ravel(), minlength=4)
     out = dict(wall_s=wall, ms_per_init=1e3 * wall / CONF5["B"],
-               nfev=int(nfev.sum()), launches=launches, ms=ms_launch,
-               us_per_eval=us_eval, percentiles=qs.tolist(), n_best=n_best,
+               nfev=int(nfev.sum()), niter=int(niter.sum()),
+               launches=launches, ms=ms_launch, us_per_eval=us_eval,
+               bound_ms=bound[0], bound_by=bound[1],
+               percentiles=qs.tolist(), n_best=n_best,
                maxiter=CONF5["maxiter"])
     print(f"config #5 (D={spec.D}, N={spec.N_f}, {CONF5['B']} members, "
           f"{CONF5['n_beta']} rungs in calls of {CONF5['chunk']}, maxiter "
           f"{CONF5['maxiter']}; engine {act.engine}, K2): wall {wall:.2f} s,"
           f" {out['ms_per_init']:.3f} ms/init/ladder, total nfev "
-          f"{out['nfev']}; K2 {ms_launch:.3f} ms a launch, {us_eval:.3f} us "
+          f"{out['nfev']}, niter {out['niter']}; K2 {ms_launch:.3f} ms a "
+          f"launch against a bound of {bound[0]:.4f} ms ({bound[1]}: "
+          f"{bound[2]} bytes, {bound[3]} operations a launch), {us_eval:.3f} us "
           f"an evaluation of the slowest member; launches {launches}; "
           f"statuses per code 0..3 {codes.tolist()}; final action "
           f"percentiles [min/25/50/75/max] "
@@ -1388,6 +1659,299 @@ def config5_ladder(dev, tw, spec):
           and bool(torch.isfinite(xp).all()),
           "config #5: records or endpoints not finite")
     check(codes[3] == 0, f"config #5: line-search failures {codes.tolist()}")
+    return out
+
+
+def conf4_data():
+    """examples/nnet_train.py's data: M inputs uniform on [-1, 1]² from
+    default_rng(11), the teacher map, then the n_test fresh inputs."""
+    rng = np.random.default_rng(CONF4["data_seed"])
+
+    def teacher(U):
+        return (np.sin(2.0 * U[:, :1]) * np.cos(1.5 * U[:, 1:])
+                + 0.25 * U[:, :1] * U[:, 1:])
+    U = rng.uniform(-1, 1, size=(CONF4["M"], 2))
+    U_t = rng.uniform(-1, 1, size=(CONF4["n_test"], 2))
+    return U, teacher(U), U_t, teacher(U_t)
+
+
+def config4_nnet(dev, zero_counts, run_counts):
+    """Phase 28: BASELINE config #4 through the va_nnet facade
+    (varanneal_tpu_torch.nnet.Annealer): (a) f64 at gtol 1e-9, the compact
+    loop and no kernel, its first rungs held rung by rung to the port on
+    the CPU (each from the card's minimizer of the rung before, three
+    iterations on each device: the same counts, A within 1e-8; longer
+    solves part from round-off on this over-parameterized landscape,
+    tests/test_torch_nnet.py); (b) f32 as the example runs it (maxcor 10:
+    the compact loop, no kernel), then with maxcor 5, the fused loop: K7b
+    launched once an iteration; (c) f32 with clamp_input and bounds_W=(-3,
+    3) over 10 rungs, maxcor 5: the projection loop, K7a once an
+    iteration, every weight in its box, X[0] the inputs; (d) (b)'s fused
+    run over 10 rungs checkpointed every 5, cut back to rung 5 and
+    resumed: bit for bit the uninterrupted run; (e) K7a and K7b at n =
+    4,817, m = 5, B = 1 and 4 against their plain versions
+    (k7_batch_check) and timed (k7_times). Returns the phase's numbers."""
+    from varanneal_tpu_torch import nnet
+    from varanneal_tpu_torch.anneal import run_ladder
+    from varanneal_tpu_torch.kernels import dir as kdir
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    U, Y, U_t, Y_t = conf4_data()
+    betas = np.arange(CONF4["n_beta"])
+    run_kw = dict(alpha=CONF4["alpha"], RM=CONF4["RM"], RF0=CONF4["RF0"],
+                  seed=CONF4["seed"])
+    out = {}
+
+    def make(device):
+        ann = nnet.Annealer(device=device)
+        ann.set_structure(CONF4["structure"])
+        ann.set_activation("tanh")
+        ann.set_input_data(U)
+        ann.set_output_data(Y)
+        return ann
+
+    def run(label, dtype, opt_args, beta_array=betas, **kw):
+        ann = make(dev)
+        zero_counts()
+        t = time.perf_counter()
+        ann.anneal(beta_array=beta_array, opt_args=opt_args, dtype=dtype,
+                   **run_kw, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        cnt = run_counts()
+        niter, nfev = int(ann.niter_array.sum()), int(ann.nfev_array.sum())
+        rm = [float(np.sqrt(np.mean((ann.predict(u) - y) ** 2)))
+              for u, y in ((U, Y), (U_t, Y_t))]
+        print(f"config #4 {label}: {len(beta_array)} rungs in {wall:.2f} s, "
+              f"niter {niter}, nfev {nfev} ({1e3 * wall / max(niter, 1):.3f}"
+              f" ms an iteration); exit flags per code 0..2 "
+              f"{np.bincount(ann.exitflags, minlength=3).tolist()}; train "
+              f"RMSE {rm[0]:.4f}, test RMSE {rm[1]:.4f}; final A "
+              f"{float(ann.A_array[-1]):.6g}; launches "
+              f"{ {k: v for k, v in cnt.items() if v} }")
+        check(ann.A_array.shape == (len(beta_array),)
+              and bool(np.isfinite(ann.A_array).all())
+              and bool(np.isfinite(ann.minpaths).all()),
+              f"config #4 {label}: records not finite")
+        check(set(np.unique(ann.exitflags).tolist()) <= {0, 1, 2},
+              f"config #4 {label}: exit flags {ann.exitflags}")
+        out[label] = dict(wall_s=wall, niter=niter, nfev=nfev, rmse=rm,
+                          launches=cnt)
+        return ann, cnt
+
+    # (a) f64: the compact loop, no kernel; the first rungs against the CPU
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        a64, cnt = run("f64", torch.float64,
+                       dict(maxiter=CONF4["maxiter"], gtol=CONF4["gtol64"]))
+        check(not any(cnt.values()), f"config #4 f64 launched {cnt}")
+        print(f"config #4 f64 RMSE beside the JAX package's on the CPU "
+              f"(train, test): {out['f64']['rmse']} vs "
+              f"{JAX_CONF4_RMSE['float64']}")
+        init = make("cpu")
+        init.anneal(beta_array=[0], opt_args=dict(maxiter=0), **run_kw)
+        starts = np.concatenate([init.minpaths[:1],
+                                 a64.minpaths[:CONF4["rungs_cpu"] - 1]])
+        facs = {d: nnet.nnet_action_factory(
+            CONF4["structure"], torch.tanh, lambda z: z, U, Y, 1.0, 1.0,
+            device=d) for d in (dev, "cpu")}
+        worst = 0.0
+        for k in range(CONF4["rungs_cpu"]):
+            recs = {}
+            for d, (act, parts, _, _) in facs.items():
+                recs[str(d)] = run_ladder(
+                    act, parts, torch.tensor(starts[k], device=d),
+                    betas[k:k + 1], CONF4["RF0"], CONF4["alpha"],
+                    opts=LBFGSOptions(maxiter=3, pgtol=CONF4["gtol64"]),
+                    store_paths=False, device=d)
+            rc, rh = recs[str(dev)], recs["cpu"]
+            a_c, a_h = float(rc.A[0]), float(rh.A[0])
+            worst = max(worst, abs(a_c - a_h) / abs(a_h))
+            check(all(int(getattr(rc, f)[0]) == int(getattr(rh, f)[0])
+                      for f in ("niter", "nfev", "status"))
+                  and abs(a_c - a_h) <= 1e-8 * abs(a_h),
+                  f"config #4 f64 rung {k}: the card {a_c} "
+                  f"({int(rc.nfev[0])} evaluations) against the CPU {a_h} "
+                  f"({int(rh.nfev[0])})")
+        print(f"config #4 f64, rungs 0..{CONF4['rungs_cpu'] - 1} each from "
+              f"the card's minimizer of the rung before, three iterations: "
+              f"the card and the CPU give the same counts, A within "
+              f"{worst:.3e} relative (bound 1e-8)")
+        out["f64"]["cpu_rel"] = worst
+    finally:
+        torch.set_default_dtype(old)
+
+    # (b) f32: the example (maxcor 10, the compact loop), then maxcor 5
+    _, cnt = run("f32", torch.float32, dict(maxiter=CONF4["maxiter"]))
+    check(not any(cnt.values()) and not kdir.dir_supported(
+        torch.zeros(1, 4817, device=dev), 10),
+          f"config #4 f32 (maxcor 10) launched {cnt}")
+    print(f"config #4 f32 RMSE beside the JAX package's on the CPU (train, "
+          f"test): {out['f32']['rmse']} vs {JAX_CONF4_RMSE['float32']}")
+    kern = dict(maxiter=CONF4["maxiter"], maxcor=CONF4["maxcor_k"])
+    a32, cnt = run("f32 fused", torch.float32, kern)
+    iters = out["f32 fused"]["niter"]
+    check(cnt["k7b"] == iters > 0 and cnt["k7a"] == 0
+          and sum(cnt.values()) == cnt["k7b"],
+          f"config #4 f32 fused: K7b launches {cnt['k7b']} against "
+          f"{iters} iterations; {cnt}")
+
+    # (c) clamped inputs, bounded weights: the projection loop over K7a
+    a_c, cnt = run("f32 clamped, bounded", torch.float32, kern,
+                   beta_array=betas[:CONF4["rungs_c"]], clamp_input=True,
+                   bounds_W=(-3.0, 3.0))
+    iters = out["f32 clamped, bounded"]["niter"]
+    W_all = [w for i in range(CONF4["rungs_c"]) for w in a_c.weights_at(i)[0]]
+    check(cnt["k7a"] == iters > 0 and cnt["k7b"] == 0
+          and sum(cnt.values()) == cnt["k7a"],
+          f"config #4 clamped: K7a launches {cnt['k7a']} against {iters} "
+          f"iterations; {cnt}")
+    check(all(np.all(np.abs(w) <= 3.0) for w in W_all)
+          and np.array_equal(a_c.activations_at(-1)[0], U)
+          and a_c.minpaths.shape[1] == 4817 - CONF4["M"] * 2,
+          "config #4 clamped: a weight outside its box or X[0] not U")
+    print(f"config #4 clamped, bounded: {sum(int(np.sum(np.abs(w) == 3.0)) for w in W_all)} "
+          f"weight entries at a bound over the rungs, every one in [-3, 3]")
+
+    # (d) a chunked checkpoint resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        b10 = betas[:10]
+        full = make(dev)
+        full.anneal(beta_array=b10, opt_args=kern, dtype=torch.float32,
+                    checkpoint_path=os.path.join(tmp, "full.npz"),
+                    checkpoint_every=5, **run_kw)
+        cut = os.path.join(tmp, "cut.npz")
+        make(dev).anneal(beta_array=b10[:5], opt_args=kern,
+                         dtype=torch.float32, checkpoint_path=cut,
+                         checkpoint_every=5, **run_kw)
+        with np.load(cut) as z:
+            payload = {k: z[k] for k in z.files}
+        payload["n_beta"] = np.asarray(10)
+        payload["betas"] = np.asarray(b10, np.float32)
+        np.savez(cut, **payload)
+        res = make(dev)
+        res.anneal(beta_array=b10, opt_args=kern, dtype=torch.float32,
+                   checkpoint_path=cut, checkpoint_every=5, **run_kw)
+    same = all(np.array_equal(getattr(full, k), getattr(res, k)) for k in
+               ("A_array", "niter_array", "nfev_array", "minpaths"))
+    print(f"config #4 checkpoint: 10 f32 fused rungs in chunks of 5, cut "
+          f"back to rung 5 and resumed: bit for bit the uninterrupted run "
+          f"{same}")
+    check(same, "config #4: the resumed checkpoint is not the "
+          "uninterrupted run's bits")
+
+    # (e) K7a/K7b at config #4's n, m = 5, B = 1 and 4
+    n4, m4 = int(a32.minpaths.shape[1]), CONF4["maxcor_k"]
+    check(n4 == 4817, f"config #4's n_dof is {n4}, not 4,817")
+    rng = np.random.default_rng(28)
+    acc = k7_acc()
+    every = [(h, l) for h in range(m4) for l in range(m4 + 1)]
+    for B in (1, 4):
+        for i in range(0, len(every), B):
+            k7_batch_check(dev, rng, m4, n4, every[i:i + B], acc)
+    print_k7_checks(acc, f"n={n4}, m={m4}, B = 1 and 4")
+    out["k7"] = acc
+    out["k7_times"] = {B: k7_times(dev, rng, n4, m4, B) for B in (1, 4)}
+    return out
+
+
+def nnet_k7(out28, key, label, i):
+    """K7a's (i = 0, ``key`` 'k7a') or K7b's (1, 'k7b') kernels-line fields
+    from phase 28: its launches on config #4's path ``label``, its errors
+    and its times at n = 4,817 (B = 1 and 4) beside its bound."""
+    t = out28["k7_times"]
+    kk = key[1:]
+    f = dict(nnet_launches=out28[label]["launches"][key],
+             nnet_iterations=out28[label]["niter"],
+             nnet_max_abs_err=out28["k7"]["err"][i],
+             nnet_max_rel_err=out28["k7"]["e"][i])
+    for B in (1, 4):
+        f.update({f"nnet_b{B}_ms": t[B][key], f"nnet_b{B}_device_ms":
+                  t[B][f"{key}_dev"], f"nnet_b{B}_plain_ms": t[B][f"p{kk}"],
+                  f"nnet_b{B}_bound_ms": t[B][f"b{kk}"][0]})
+    return f
+
+
+def config1_inner(dev, tw, spec, X0q, xp_mid, zero_counts, run_counts):
+    """Phase 29: the other inner solvers through the facade on config #1
+    (the Quick start's problem and opt_args, unbounded, f32, one init),
+    each over the first INNER_RUNGS of its 101 rungs: method 'LM',
+    'TNC' and 'CG' over the autograd action (no kernel), then 'CG' with
+    engine='ag', one K1 launch an evaluation; the three again over rung
+    INNER_MID from ``xp_mid``, phase 5's minimizer of the rung before
+    (init_to_data off), INNER_MID_MAXITER iterations each; then the
+    bench with BENCH_INNER=lm BENCH_SOLVER=xla. Every record finite, every
+    exit flag 0, 1 or 2. Returns the phase's numbers."""
+    from varanneal_tpu_torch import bench
+    from varanneal_tpu_torch.api import Annealer
+    from varanneal_tpu_torch.models import lorenz96
+    quick = dict(P0=np.array([4.0]), alpha=MAIN["alpha"], RM=tw["RM"],
+                 RF0=4e-6 * tw["RM"], Lidx=list(tw["Lidx"]), Pidx=[0],
+                 disc="trapezoid", beta_array=np.arange(INNER_RUNGS),
+                 opt_args=dict(maxiter=500, maxcor=5, maxls=20, gtol=1e-4,
+                               ftol=1e-6), dtype=torch.float32)
+    mid = dict(quick, beta_array=[INNER_MID],
+               opt_args=dict(quick["opt_args"], maxiter=INNER_MID_MAXITER),
+               P0=np.array([float(xp_mid[-1])]), init_to_data=False)
+    X_mid = np.asarray(xp_mid[: spec.n_state], np.float64).reshape(
+        spec.N_f, spec.D)
+    out = {}
+    for method, engine, X0_, kw in (
+            ("LM", "auto", X0q, quick), ("TNC", "auto", X0q, quick),
+            ("CG", "auto", X0q, quick), ("CG", "ag", X0q, quick),
+            ("LM", "auto", X_mid, mid), ("TNC", "auto", X_mid, mid),
+            ("CG", "auto", X_mid, mid)):
+        ann = Annealer(device=dev)
+        ann.set_model(lorenz96, MAIN["D"])
+        ann.set_data(tw["Y"], t=tw["t"])
+        zero_counts()
+        t = time.perf_counter()
+        ann.anneal(X0_, method=method, engine=engine, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        cnt = run_counts()
+        niter, nfev = int(ann.niter_array.sum()), int(ann.nfev_array.sum())
+        label = (f"{method}, engine={engine}, rungs "
+                 f"{int(kw['beta_array'][0])}..{int(kw['beta_array'][-1])}")
+        out[label] = dict(wall_s=wall, niter=niter, nfev=nfev, launches=cnt,
+                          final_A=float(ann.A_array[-1]))
+        print(f"phase 29 {label}: {len(kw['beta_array'])} rungs in "
+              f"{wall:.2f} s, niter"
+              f" {niter}, nfev {nfev} ({1e3 * wall / max(niter, 1):.3f} ms "
+              f"an iteration); exit flags per code 0..2 "
+              f"{np.bincount(ann.exitflags, minlength=3).tolist()}; A at "
+              f"the last rung {float(ann.A_array[-1]):.6g}; "
+              f"launches { {k: v for k, v in cnt.items() if v} }")
+        check(ann.A_array.shape == (len(kw["beta_array"]),)
+              and bool(np.isfinite(ann.A_array).all())
+              and bool(np.isfinite(ann.minpaths).all())
+              and set(np.unique(ann.exitflags).tolist()) <= {0, 1, 2},
+              f"phase 29 {label}: records or exit flags")
+        if engine == "ag":
+            check(cnt["k1"] == nfev and sum(cnt.values()) == nfev,
+                  f"phase 29 {label}: K1 launches {cnt['k1']} against "
+                  f"{nfev} evaluations; {cnt}")
+        else:
+            check(not any(cnt.values()), f"phase 29 {label} launched {cnt}")
+    zero_counts()
+    t = time.perf_counter()
+    b = bench.main(device=dev, env=dict(
+        BENCH_INNER="lm", BENCH_SOLVER="xla", BENCH_NBETA=str(INNER_RUNGS),
+        BENCH_TAIL64="0"))
+    wall = time.perf_counter() - t
+    niter, nfev = int(b.res.niter.sum()), int(b.res.nfev.sum())
+    out["bench lm"] = dict(wall_s=wall, call_s=b.wall, niter=niter,
+                           nfev=nfev, launches=run_counts())
+    print(f"phase 29 bench BENCH_INNER=lm BENCH_SOLVER=xla, {INNER_RUNGS} "
+          f"rungs: {wall:.2f} s for its two calls, the timed one "
+          f"{b.wall:.3f} s; niter {niter}, nfev {nfev} (LM maxiter "
+          f"{500 // 10} a rung); statuses per code 0..3 "
+          f"{np.bincount(b.res.status.cpu().numpy().ravel(), minlength=4).tolist()}")
+    check(tuple(b.res.A.shape) == (1, INNER_RUNGS)
+          and bool(torch.isfinite(b.res.A).all())
+          and bool(torch.all(b.res.niter <= 50))
+          and not any(run_counts().values()),
+          "phase 29 bench: records, maxiter // 10 or a kernel launched")
     return out
 
 
@@ -2279,201 +2843,24 @@ def main():
     n = spec.n_dof
     N_WIDE = 32768          # dir_predicate's widest n: 8 blocks a member
     rng = np.random.default_rng(10)
-
-    def histories(m, pairs, n):
-        H = np.zeros((len(pairs), 2 * m, n), np.float32)
-        for b, (head, hlen) in enumerate(pairs):
-            for j in range(hlen):
-                slot = (head - hlen + j) % m
-                sv = rng.normal(size=n)
-                H[b, slot], H[b, m + slot] = sv, rng.normal(size=n) * 0.3 + sv
-        return torch.tensor(H, device=dev)
-
-    def f32(a):
-        return torch.tensor(a, dtype=torch.float32, device=dev)
-
-    def i32(a):
-        return torch.tensor(a, dtype=torch.int32, device=dev)
-
-    def dir_err(d_k, d_p, d_64):
-        """(kernel's error, its bound), each relative to the member's
-        max|d|: the bound is 2e-5 (tests/test_dir_pallas.py's for K7b) or
-        twice the plain f32 version's own error against f64 on the same
-        inputs, whichever is larger, and never more than 7.2e-5 (twice
-        the 3.6e-5 that tests/test_torch_dir.py holds that error under at
-        this n and m = 7 on the CPU)."""
-        s_p = torch.amax(torch.abs(d_p), dim=1).double()
-        e_k = torch.amax(torch.abs(d_k - d_p), dim=1).double() / s_p
-        w = torch.amax(torch.abs(d_p.double() - d_64), dim=1) / torch.amax(
-            torch.abs(d_64), dim=1)
-        return e_k, torch.clamp(2.0 * w, min=2e-5, max=7.2e-5)
-
-    err_k7a = err_k7b = 0.0
-    rel_k7 = [0.0, 0.0]     # worst error / bound of K7a, K7b
-    e_k7 = [0.0, 0.0]       # worst error relative to max|d| of K7a, K7b
-    n_el = 0                # members past the elementwise 2e-6 + 2e-5|d|
-    n_pairs = 0
-    plans10 = {}
+    acc10 = k7_acc()
     for m in (5, 7):
         every = [(h, l) for h in range(m) for l in range(m + 1)]
         for n_ in (n, N_WIDE):          # at N_WIDE every fifth pair
             pairs = every if n_ == n else every[::5]
             for i in range(0, len(pairs), MAIN["B"]):
-                batch = pairs[i:i + MAIN["B"]]
-                B = len(batch)
-                H = histories(m, batch, n_)
-                plans10[(m, n_)] = (kdir.launch_plan(H, False),
-                                    kdir.launch_plan(H, True))
-                hd = i32([p[0] for p in batch])
-                hl = i32([p[1] for p in batch])
-                g = f32(rng.normal(size=(B, n_)))
-                d_k = kdir.compact_dir_kernel(g, H, hd, hl)
-                torch.cuda.synchronize()
-                d_p = kdir.compact_dir_reference(g, H, hd, hl)
-                d_64 = kdir.compact_dir_reference(g.double(), H.double(), hd,
-                                                  hl)
-                err = torch.abs(d_k - d_p)
-                err_k7a = max(err_k7a, float(err.max()))
-                n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(
-                    dim=1).sum())
-                e_k, bnd = dir_err(d_k, d_p, d_64)
-                rel_k7[0] = max(rel_k7[0], float((e_k / bnd).max()))
-                e_k7[0] = max(e_k7[0], float(e_k.max()))
-                check(bool(torch.all(e_k <= bnd)),
-                      f"K7a disagrees with its plain version at m={m}, "
-                      f"n={n_}, (head, hlen) in {batch}: {e_k.tolist()} vs "
-                      f"{bnd.tolist()}")
-                check(torch.equal(d_k, kdir.compact_dir_kernel(g, H, hd, hl)),
-                      "K7a repeated launch is not bit-identical")
-
-                x_old, g_old = f32(rng.normal(size=(B, n_))), g
-                x_new = x_old + f32(0.1 * rng.normal(size=(B, n_)))
-                g_new = g_old + f32(0.1 * rng.normal(size=(B, n_)))
-                if B > 3:           # a flat pair: the gate must refuse it
-                    x_new[3] = x_old[3] + 1e-12
-                    g_new[3] = g_old[3]
-                ls_ok = torch.tensor([True, False, True, True][:B],
-                                     device=dev)
-                run = torch.tensor([True, True, False, True][:B], device=dev)
-                vecs = (x_old, x_new, g_old, g_new)
-                Hk, hk, lk = H.clone(), hd.clone(), hl.clone()
-                Hp, hp, lp = H.clone(), hd.clone(), hl.clone()
-                d_k, sc_k = kdir.fused_step_kernel(Hk, *vecs, hk, lk, ls_ok,
-                                                   run)
-                torch.cuda.synchronize()
-                d_p, sc_p = kdir.fused_step_reference(Hp, *vecs, hp, lp,
-                                                      ls_ok, run)
-                d_64, _ = kdir.fused_step_reference(
-                    H.double(), *(v.double() for v in vecs), hd.clone(),
-                    hl.clone(), ls_ok, run)
-                err = torch.abs(d_k - d_p)
-                err_k7b = max(err_k7b, float(err.max()),
-                              float(torch.abs(Hk - Hp).max()))
-                n_el += int((err > 2e-6 + 2e-5 * torch.abs(d_p)).any(
-                    dim=1).sum())
-                e_k, bnd = dir_err(d_k[run], d_p[run], d_64[run])
-                rel_k7[1] = max(rel_k7[1], float((e_k / bnd).max()))
-                e_k7[1] = max(e_k7[1], float(e_k.max()))
-                ok = (torch.equal(hk, hp) and torch.equal(lk, lp)
-                      and torch.equal(sc_k[:, [0, 3, 4]], sc_p[:, [0, 3, 4]])
-                      and bool(torch.all(torch.abs(Hk - Hp)
-                                         <= 1e-6 * torch.abs(Hp)))
-                      and bool(torch.all(torch.abs(sc_k[:, 1] - sc_p[:, 1])
-                                         <= 1e-6 * torch.abs(sc_p[:, 1])))
-                      and bool(torch.all(torch.abs(sc_k[:, 2] - sc_p[:, 2])
-                                         <= 1e-5 * torch.abs(sc_p[:, 2])))
-                      and bool(torch.all(e_k <= bnd))
-                      and torch.equal(d_k[~run], d_p[~run]))
-                check(ok, f"K7b disagrees with its plain version at m={m}, "
-                      f"n={n_}, (head, hlen) in {batch}: good/head/hlen "
-                      f"{sc_k[:, [0, 3, 4]].tolist()} vs "
-                      f"{sc_p[:, [0, 3, 4]].tolist()}")
-                if B > 2:
-                    check(torch.equal(Hk[2], H[2]) and int(hk[2]) == int(hd[2])
-                          and int(lk[2]) == int(hl[2]),
-                          "K7b touched a member whose loop had ended")
-                if B > 3:
-                    check(float(sc_k[3, 0]) == 0.0, "K7b took a flat pair")
-                Hk2, hk2, lk2 = H.clone(), hd.clone(), hl.clone()
-                d_k2, sc_k2 = kdir.fused_step_kernel(Hk2, *vecs, hk2, lk2,
-                                                     ls_ok, run)
-                check(torch.equal(d_k, d_k2) and torch.equal(sc_k, sc_k2)
-                      and torch.equal(Hk, Hk2),
-                      "K7b repeated launch is not bit-identical")
-                n_pairs += B
-    print(f"K7a/K7b f32 vs plain at n={n} and {N_WIDE}, m=5 and 7, {n_pairs}"
-          f" (head, hlen) cases: max abs err K7a {err_k7a:.3e}, K7b "
-          f"{err_k7b:.3e}; error / bound, relative to max|d|, K7a "
-          f"{rel_k7[0]:.3f}, K7b {rel_k7[1]:.3f} (bound: 2e-5, or twice the "
-          f"plain f32 version's own error against f64, at most 7.2e-5); "
-          f"{n_el} of the {2 * n_pairs} directions past the elementwise "
-          f"2e-6 + 2e-5|d|; good/head/hlen exact, ended member untouched, "
-          f"repeats bit-identical")
-    for (m, n_), (pa, pb) in sorted(plans10.items()):
-        print(f"K7 cluster plan, m={m}, n={n_}, B={MAIN['B']}: K7a {pa.size} "
-              f"blocks of {pa.width} columns, {pa.rows} rows on chip, "
-              f"{pa.smem_bytes} B; K7b {pb.size} blocks, {pb.rows} rows, "
-              f"{pb.smem_bytes} B")
+                k7_batch_check(dev, rng, m, n_, pairs[i:i + MAIN["B"]],
+                               acc10)
+    print_k7_checks(acc10, f"n={n} and {N_WIDE}, m=5 and 7")
+    err_k7a, err_k7b = acc10["err"]
+    e_k7 = acc10["e"]
     k7_attrs = {(m, st): kdir.kernel_attrs(m, st) for m in (5, 7)
                 for st in (False, True)}
     print("K7 built kernels (registers, local bytes): " + "; ".join(
         f"{'K7b' if st else 'K7a'} m={m} {a['regs']}, {a['local_bytes']}"
         for (m, st), a in k7_attrs.items()))
-
-    def k7_device_ms(fn, key):
-        """A kernel's device time a launch by torch.profiler over 200
-        calls of ``fn``, or None without device events."""
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(200):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(device_us(e), e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and key in e.key]
-        return (rows[0][0] / rows[0][1] / 1e3 if rows and rows[0][0] > 0
-                else None)
-
     m = 5
-    k7t = {}                # n -> the times of phase 10's table
-    for n_ in (n, N_WIDE):
-        H = histories(m, [(2, m)] * MAIN["B"], n_)
-        hd, hl = i32([2] * MAIN["B"]), i32([m] * MAIN["B"])
-        g = f32(rng.normal(size=(MAIN["B"], n_)))
-        x_old = f32(rng.normal(size=(MAIN["B"], n_)))
-        x_new = x_old + f32(0.1 * rng.normal(size=(MAIN["B"], n_)))
-        g_new = g + f32(0.1 * rng.normal(size=(MAIN["B"], n_)))
-        ones = torch.ones(MAIN["B"], dtype=torch.bool, device=dev)
-        t = dict(plan=plans10[(m, n_)])
-        t["k7a"] = events_ms(lambda: kdir.compact_dir_kernel(g, H, hd, hl))
-        t["k7a_dev"] = k7_device_ms(
-            lambda: kdir.compact_dir_kernel(g, H, hd, hl), "dir_kernel")
-        t["p7a"] = events_ms(
-            lambda: kdir.compact_dir_reference(g, H, hd, hl), n=200)
-        Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
-        t["k7b"] = events_ms(lambda: kdir.fused_step_kernel(
-            Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones))
-        Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
-        t["k7b_dev"] = k7_device_ms(lambda: kdir.fused_step_kernel(
-            Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones), "step_kernel")
-        Hs, hs, ls_ = H.clone(), hd.clone(), hl.clone()
-        t["p7b"] = events_ms(lambda: kdir.fused_step_reference(
-            Hs, x_old, x_new, g, g_new, hs, ls_, ones, ones), n=200)
-        t["w7a"] = dir_work(MAIN["B"], n_, m)
-        t["w7b"] = step_work(MAIN["B"], n_, m, MAIN["B"])
-        t["b7a"], t["b7b"] = bound_of(*t["w7a"]), bound_of(*t["w7b"])
-        k7t[n_] = t
-        for kk, nm in (("7a", "K7a"), ("7b", "K7b (every pair taken)")):
-            dv = t[f"k{kk}_dev"]
-            plan_ = t["plan"][kk == "7b"]
-            print(f"{nm} f32 (B=4, n={n_}, m=5, full history; "
-                  f"{plan_.size} blocks a member): {t[f'k{kk}']:.5f} ms a "
-                  f"launch, plain {t[f'p{kk}']:.5f} ms (CUDA events), device "
-                  "time " + (f"{dv:.5f} ms (torch.profiler)" if dv is not None
-                             else "not measured (no device events)")
-                  + f"; bound {t[f'b{kk}'][0]:.3e} ms ({t[f'b{kk}'][1]}: "
-                  f"{t[f'w{kk}'][0]} bytes, {t[f'w{kk}'][1]} operations)")
+    k7t = {n_: k7_times(dev, rng, n_, m, MAIN["B"]) for n_ in (n, N_WIDE)}
     ms_k7a, dev_k7a, ms_p7a = (k7t[n][k] for k in ("k7a", "k7a_dev", "p7a"))
     ms_k7b, dev_k7b, ms_p7b = (k7t[n][k] for k in ("k7b", "k7b_dev", "p7b"))
     bound_k7a, bound_k7b = k7t[n]["b7a"], k7t[n]["b7b"]
@@ -3271,7 +3658,7 @@ def main():
     zero_counts()
     t_20 = time.perf_counter()
     ann20.anneal(X0_20, np.array([4.0]), alpha=CONF2["alpha"],
-                 beta_array=np.arange(CONF2["n_beta"]), RM=tw2["RM"],
+                 beta_array=np.arange(CONF2["rungs_a"]), RM=tw2["RM"],
                  RF0=CONF2["rf0"], Lidx=tw2["Lidx"], Pidx=[0],
                  disc="SimpsonHermite",
                  opt_args=dict(maxiter=CONF2["maxiter"]),
@@ -3290,8 +3677,8 @@ def main():
     # the example's opt_args leave m at 10, outside K7b's envelope
     # (2m + 1 <= 16, the reference's policy): the compact loop runs
     fused20 = kdir.dir_predicate(spec2.n_dof, 10, torch.float32)
-    print(f"facade at config #2 (engine='pallas', f32, {CONF2['n_beta']} "
-          f"rungs, maxiter {CONF2['maxiter']}, one init): wall "
+    print(f"facade at config #2 (engine='pallas', f32, the first "
+          f"{CONF2['rungs_a']} of {CONF2['n_beta']} rungs, maxiter {CONF2['maxiter']}, one init): wall "
           f"{wall20:.2f} s; niter {niter20}, nfev {nfev20}; "
           f"{1e3 * wall20 / max(niter20, 1):.3f} ms a loop iteration "
           f"({'fused' if fused20 else 'compact'} loop); F = {F20:.4f} "
@@ -3299,14 +3686,14 @@ def main():
           f"{rmse_unobs:.3f} (noise {tw2['sigma']}); final A "
           f"{float(ann20.A_array[-1]):.6g}; exit flags per code 0..2 "
           f"{np.bincount(ann20.exitflags, minlength=3).tolist()}; "
-          f"launches {cnt20}")
-    check(ann20.A_array.shape == (CONF2["n_beta"],)
+          f"niter per rung {ann20.niter_array.tolist()}; launches {cnt20}")
+    check(ann20.A_array.shape == (CONF2["rungs_a"],)
           and bool(np.isfinite(ann20.A_array).all()),
-          "facade at config #2: records not (61,) and finite")
+          "facade at config #2: records not (rungs_a,) and finite")
     check(set(np.unique(ann20.exitflags)) <= {0, 1, 2},
           f"facade at config #2: exit flags {ann20.exitflags}")
     check(cnt20["k6_sh_vag"] == nfev20 > 0
-          and cnt20["k6_sh_fwd"] == CONF2["n_beta"],
+          and cnt20["k6_sh_fwd"] == CONF2["rungs_a"],
           f"facade at config #2: one fused launch an evaluation and K6's "
           f"forward once a rung for the records, got {cnt20}, nfev "
           f"{nfev20}")
@@ -3891,6 +4278,18 @@ def main():
     t0 = time.perf_counter()
     out27b = config3_campaign(dev, zero_counts, run_counts)
     phase("27 config #3", t0)
+
+    # ---- 28. BASELINE config #4: the va_nnet path ------------------------
+    t0 = time.perf_counter()
+    out28 = config4_nnet(dev, zero_counts, run_counts)
+    phase("28 config #4", t0)
+
+    # ---- 29. LM, TNC and CG through the facade; the bench over LM ----------
+    t0 = time.perf_counter()
+    out29 = config1_inner(dev, tw, spec, X0q,
+                          res.paths[0, INNER_MID - 1].cpu().numpy(),
+                          zero_counts, run_counts)
+    phase("29 other inner solvers", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -3903,7 +4302,11 @@ def main():
              launches=launches, max_abs_err=max_abs, max_rel_err=rel_k1,
              minimizer_err_ratio=ratio_k1, ms=ms_kernel, plain_ms=ms_plain,
              bound_ms=bound_ms, bound_by=bound_by,
-             d400_max_rel_err=rel_k1_d400, d400_ms=ms_k1_d400, **line),
+             d400_max_rel_err=rel_k1_d400, d400_ms=ms_k1_d400,
+             ncg_launches=out29[f"CG, engine=ag, rungs 0..{INNER_RUNGS - 1}"]
+             ["launches"]["k1"],
+             ncg_nfev=out29[f"CG, engine=ag, rungs 0..{INNER_RUNGS - 1}"]
+             ["nfev"], **line),
         dict(name="l96_solve", source=src_solve,
              replaces="varanneal_tpu/kernels/solve_pallas.py:676",
              launches=paths["fused"][1]["rung"], max_abs_err=err_k2,
@@ -3924,7 +4327,7 @@ def main():
              barriers_per_iteration=barriers["K2"],
              barriers_per_evaluation=eval_barriers,
              d400_max_rel_err=rel_d400["K2"], d400_short_ms=ms_k2_d400,
-             config5=out26,
+             config5=out26, config5_bound_ms=out26["bound_ms"],
              short_b264_ms={nm: k2_wide[(264, nm)]
                             for nm in ("planner", "global", "on chip")},
              short_b4_ms={nm: k2_wide[(MAIN["B"], nm)]
@@ -3954,7 +4357,7 @@ def main():
              wide_bound_ms=k7t[N_WIDE]["b7a"][0],
              registers={f"m{m_}": [a["regs"], a["local_bytes"]]
                         for (m_, st), a in k7_attrs.items() if not st},
-             **line),
+             **nnet_k7(out28, "k7a", "f32 clamped, bounded", 0), **line),
         dict(name="fused_step", source=src_dir,
              replaces="varanneal_tpu/kernels/dir_pallas.py:184",
              launches=launch_f["k7b"], max_abs_err=err_k7b,
@@ -3969,7 +4372,7 @@ def main():
              wide_bound_ms=k7t[N_WIDE]["b7b"][0],
              registers={f"m{m_}": [a["regs"], a["local_bytes"]]
                         for (m_, st), a in k7_attrs.items() if st},
-             **line),
+             **nnet_k7(out28, "k7b", "f32 fused", 1), **line),
         dict(name="l96_ag_trap_comp",
              source="varanneal_tpu_torch/kernels/csrc/ag_kernel.cu",
              replaces="varanneal_tpu/kernels/ag_pallas.py:336",

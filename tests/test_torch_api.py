@@ -191,10 +191,10 @@ def test_build_bounds_matches_jax():
 
 
 # the kwargs that raised until the checkpointed ladder, the compensated
-# sums, the subspace L-BFGS-B and the FE kernels (K6) were ported; they
-# now run
+# sums, the subspace L-BFGS-B, the FE kernels (K6) and the other inner
+# solvers (LM/GN, TNC, CG/NCG) were ported; they now run
 _LANDED = ({"checkpoint_path"}, {"repeats"}, {"snapshot_beta"},
-           {"compensated"}, {"bounds", "opt_args"}, {"engine"})
+           {"compensated"}, {"bounds", "opt_args"}, {"engine"}, {"method"})
 
 
 @pytest.mark.parametrize("kwargs", [

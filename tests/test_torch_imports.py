@@ -32,6 +32,9 @@ def test_import_leaves_jax_out():
             "import varanneal_tpu_torch.kernels.fe\n"
             "import varanneal_tpu_torch.api, varanneal_tpu_torch.io\n"
             "import varanneal_tpu_torch.va_ode\n"
+            "import varanneal_tpu_torch.nnet, varanneal_tpu_torch.va_nnet\n"
+            "import varanneal_tpu_torch.opt.lm, varanneal_tpu_torch.opt.tnc\n"
+            "import varanneal_tpu_torch.opt.ncg\n"
             "import varanneal_tpu_torch.bench\n"
             "import varanneal_tpu_torch.anneal.checkpoint\n"
             "import varanneal_tpu_torch.opt.lbfgsb\n"

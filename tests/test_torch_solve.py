@@ -214,7 +214,7 @@ def test_bench_main_cpu(capsys, extra):
 @pytest.mark.parametrize("knob,raises", [
     (dict(BENCH_ENGINE="pallas", BENCH_SOLVER="xla"), False),
     (dict(BENCH_PACK="2", BENCH_NINIT="2"), False),
-    (dict(BENCH_INNER="lm", BENCH_SOLVER="xla"), True),
+    (dict(BENCH_INNER="lm", BENCH_SOLVER="xla"), False),
     (dict(BENCH_ENGINE="pallas", BENCH_SOLVER="fused"), False),
     (dict(BENCH_ENGINE="pallas", BENCH_PACK="2"), False),
     (dict(BENCH_PACK="2", BENCH_NINIT="2", BENCH_SOLVER="fused"), False),
@@ -225,8 +225,9 @@ def test_bench_main_cpu(capsys, extra):
     (dict(BENCH_PACK="2", BENCH_NINIT="2", BENCH_SOLVER="xla"), False)])
 def test_bench_waiting_paths_raise(knob, raises):
     """A knob raises only where bench.py would take a path the port does
-    not have yet (opt/lm); elsewhere bench.py ignores it, and so does
-    the port. BENCH_ENGINE=pallas runs K6 wherever the action is
+    not have yet (none is left: BENCH_INNER=lm runs opt/lm under xla);
+    elsewhere bench.py ignores it, and so does the port.
+    BENCH_ENGINE=pallas runs K6 wherever the action is
     evaluated. BENCH_PACK>1 with one init moves a ladder run onto K2 per
     rung, as in bench.py; with several inits it runs the packed solver
     (K8) under ladder and fused."""

@@ -31,9 +31,10 @@ The file is the reference's format v3, with the same npz keys
 reference's treedef string for a bare array (:data:`FLAT_TREEDEF`). So
 the file is how ladder state crosses between the two packages: a flat or
 batched checkpoint written by either resumes in the other, and files in
-the reference's v1 and v2 formats resume too. Tree-shaped decision
-variables (the nnet tree, the time-sharded tree) wait for ``nnet.py`` and
-``parallel/timeshard.py`` (ROADMAP.md §1 items 7 and 9).
+the reference's v1 and v2 formats resume too. The nnet facade
+checkpoints its flat vector (``nnet.py``, as the reference's does). The
+one tree-shaped decision variable, the time-sharded tree of
+``parallel/timeshard.py``, waits for ROADMAP.md §1 item 9.
 """
 
 import os
@@ -147,15 +148,16 @@ def run_ladder_checkpointed(action, action_parts, XP0, betas, rf0, alpha, *,
     ladder, the decision variable's structure and shape, and ``meta``;
     False overwrites it. ``batched_bounds=True`` (with ``batched``):
     ``lower``/``upper`` are (B, n_dof), one box per member. The other
-    keyword arguments (``rf_max``, ``rf_min``, ``rung_solver``) go to
-    :func:`run_ladder`. Returns per-rung records as tensors on the
+    keyword arguments (``inner``, ``residual_fn``, ``lm_opts``,
+    ``tnc_opts``, ``rf_max``, ``rf_min``, ``rung_solver``)
+    go to :func:`run_ladder`. Returns per-rung records as tensors on the
     ladder's device; ``result.snapshot`` holds the snapshot (or None).
     ``device=None`` means the CUDA card."""
     if isinstance(XP0, dict):
         raise NotImplementedError(
-            "tree-shaped decision variables (the nnet tree, ROADMAP.md §1 "
-            "item 7; the time-sharded tree, §1 item 9) wait for a later "
-            "slice of the port; see ROADMAP.md, 'Modules still to port'")
+            "tree-shaped decision variables (the time-sharded tree, "
+            "ROADMAP.md §1 item 9) wait for a later slice of the port; see "
+            "ROADMAP.md, 'Modules still to port'")
     opts = opts or LBFGSOptions()
     device = resolve_device(device)
     XP = torch.as_tensor(XP0).to(device)

@@ -9,12 +9,14 @@ PyTorch runs eagerly, so here they are a loop whose carry is the batch of
 decision vectors.
 
 ``rung_solver`` replaces the inner minimizer, as in the JAX ladder (the
-whole-rung kernel K2, ``kernels.solve.make_rung_solver``). Box bounds
-run the bounded L-BFGS (``opt.lbfgs``), and ``rf_max``/``rf_min`` cap
-and floor each rung's precision. :func:`aggregate_repeats` collapses the
-per-dispatch records of a ladder whose rungs were re-minimized several
-times (``anneal/checkpoint.py``) to per-rung records. The other inner
-solvers wait for later slices (ROADMAP.md).
+whole-rung kernel K2, ``kernels.solve.make_rung_solver``). ``inner``
+picks the minimizer otherwise: the L-BFGS family (``opt.lbfgs``, bounded
+by ``lower``/``upper``), Levenberg–Marquardt over a residual function
+(``opt.lm``), truncated Newton (``opt.tnc``) or nonlinear CG
+(``opt.ncg``, unbounded). ``rf_max``/``rf_min`` cap and floor each
+rung's precision. :func:`aggregate_repeats` collapses the per-dispatch
+records of a ladder whose rungs were re-minimized several times
+(``anneal/checkpoint.py``) to per-rung records.
 """
 
 import math
@@ -26,6 +28,9 @@ import torch
 from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.ops.action import value_and_grad
 from varanneal_tpu_torch.opt.lbfgs import LBFGSOptions, lbfgs_minimize
+from varanneal_tpu_torch.opt.lm import LMOptions, lm_minimize
+from varanneal_tpu_torch.opt.ncg import NCGOptions, ncg_minimize
+from varanneal_tpu_torch.opt.tnc import TNCOptions, autograd_hvp, tnc_minimize
 
 
 class LadderResult(NamedTuple):
@@ -33,7 +38,7 @@ class LadderResult(NamedTuple):
     A: torch.Tensor         # (B, Nbeta) action at each β's minimizer
     ME: torch.Tensor        # (B, Nbeta)
     FE: torch.Tensor        # (B, Nbeta)
-    status: torch.Tensor    # (B, Nbeta) raw L-BFGS status codes
+    status: torch.Tensor    # (B, Nbeta) raw solver status codes
     niter: torch.Tensor     # (B, Nbeta)
     nfev: torch.Tensor      # (B, Nbeta) action+grad evaluations
     pgnorm: torch.Tensor    # (B, Nbeta)
@@ -91,8 +96,10 @@ def rung_rf(rf0, alpha, beta, dtype, rf_min=None, rf_max=None):
 
 def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
                lower=None, upper=None, opts: Optional[LBFGSOptions] = None,
-               store_paths: bool = True, rf_max=None, rf_min=None,
-               rung_solver=None, device=None) -> LadderResult:
+               store_paths: bool = True, inner: str = "lbfgs",
+               residual_fn=None, lm_opts=None, tnc_opts=None,
+               rf_max=None, rf_min=None, rung_solver=None,
+               device=None) -> LadderResult:
     """Run the annealing ladder from the initial decision vectors ``XP0``
     ((B, n_dof), or (n_dof,) for one member, whose records then drop the
     batch axis). ``action`` is batched (``ops.action.make_action`` or
@@ -106,9 +113,40 @@ def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
     (n_dof,) box bounds (``api.build_bounds``), ±inf for a free side.
     ``rf_max``/``rf_min``: per-component cap and floor on RF(β), shaped
     like ``rf0`` or broadcastable against it (see :func:`rung_rf`).
-    ``device=None`` means the CUDA card."""
+
+    ``inner``: 'lbfgs' (default); 'lm', the matrix-free Gauss–Newton /
+    Levenberg–Marquardt solver (``opt.lm``, which needs ``residual_fn(XP,
+    rf)``, ``opt.lm.make_residual_fn``; ``lm_opts``); 'tnc', truncated
+    Newton with bound projection (``opt.tnc``; ``tnc_opts``, by default
+    ``opts``' maxiter, ftol, pgtol and maxls), whose Hessian-vector
+    products are the double backward of ``action_parts``' action (the
+    autograd action of the problem for the 'xla' and 'ag' engines; K6's
+    records, ``action.engine == 'pallas'``, have no second derivative and
+    raise); or 'ncg',
+    nonlinear CG, unbounded (``opt.ncg``, from ``opts``' maxiter, ftol,
+    pgtol and maxls). ``device=None`` means the CUDA card."""
     opts = opts or LBFGSOptions()
     device = resolve_device(device)
+    if inner == "lm":
+        if residual_fn is None:
+            raise ValueError("inner='lm' requires residual_fn")
+        lm_opts = lm_opts or LMOptions()
+    elif inner == "ncg":
+        if lower is not None or upper is not None:
+            raise ValueError("inner='ncg' does not support bounds")
+        ncg_opts = NCGOptions(maxiter=opts.maxiter, ftol=opts.ftol,
+                              pgtol=opts.pgtol, maxls=opts.maxls)
+    elif inner == "tnc":
+        tnc_opts = tnc_opts or TNCOptions(maxiter=opts.maxiter,
+                                          ftol=opts.ftol, pgtol=opts.pgtol,
+                                          maxls=opts.maxls)
+        if getattr(action, "engine", None) == "pallas":
+            raise ValueError(
+                "inner='tnc' takes Hessian-vector products by autograd of "
+                "action_parts, and K6's (engine='pallas') has no second "
+                "derivative; pass engine='xla' or 'ag'")
+    elif inner != "lbfgs":
+        raise ValueError(f"unknown inner solver {inner!r}")
     XP = torch.as_tensor(XP0).to(device)
     one = XP.ndim == 1
     if one:
@@ -123,6 +161,18 @@ def run_ladder(action, action_parts, XP0, betas, rf0, alpha, *,
             rf, device=device).to(XP.dtype)
         if rung_solver is not None:
             res = rung_solver(XP, rf_t)
+        elif inner == "lm":
+            res = lm_minimize(lambda z: residual_fn(z, rf_t), XP,
+                              lower=lower, upper=upper, opts=lm_opts,
+                              device=device)
+        elif inner == "ncg":
+            res = ncg_minimize(lambda z: vag(z, rf_t), XP, opts=ncg_opts,
+                               device=device)
+        elif inner == "tnc":
+            res = tnc_minimize(
+                lambda z: vag(z, rf_t), XP,
+                hvp=autograd_hvp(lambda z: action_parts(z, rf_t)[0]),
+                lower=lower, upper=upper, opts=tnc_opts, device=device)
         else:
             res = lbfgs_minimize(lambda z: vag(z, rf_t), XP, lower=lower,
                                  upper=upper, opts=opts, device=device)

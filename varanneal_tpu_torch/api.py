@@ -28,10 +28,25 @@ plain PyTorch path, where ``solver='auto'`` takes the generic loop, as
 the JAX facade does off the TPU. ``anneal``'s signature stays the
 reference's.
 
+``method`` takes the reference's inner solvers: 'L-BFGS-B' (default),
+'LM'/'GN' (matrix-free Levenberg–Marquardt over
+``opt.lm.make_residual_fn``), 'TNC' (truncated Newton with bound
+projection) and 'CG'/'NCG' (nonlinear CG, unbounded);
+``opt_args['cg_iters']`` sets the LM/TNC inner CG depth. They run on
+the generic loop's footing, through the action ``select_action`` picks:
+NCG evaluates it (K1 once an evaluation under ``engine='ag'``), LM only
+takes its records from it, and TNC takes its Hessian-vector products by
+autograd of the records action, the autograd action of the same problem
+under 'xla' and 'ag' (the reference's TNC over its 'ag' kernel
+differentiates the kernel itself; the port's kernels have no second
+derivative). Under ``engine='pallas'`` the records are K6's, so TNC
+raises ValueError, as the reference's fails in JAX's forward-mode rule
+of ``pallas_call``.
+
 What waits for later slices (ROADMAP.md) raises NotImplementedError
-naming its item: ``method`` LM/GN/TNC/CG/NCG (§1 item 6), and
-``engine='pallas'`` for a problem outside K6's envelope (a model other
-than Lorenz-96 and NaKL, §1 item 8; the error names the condition).
+naming its item: ``engine='pallas'`` for a problem outside K6's
+envelope (a model other than Lorenz-96 and NaKL, §1 item 8; the error
+names the condition).
 
 Exit flags are mapped to SciPy-like codes: 0 converged (pgtol or ftol),
 1 maxiter exhausted, 2 line-search failure.
@@ -54,6 +69,8 @@ from varanneal_tpu_torch.ops.action import make_action, pack
 from varanneal_tpu_torch.ops.spec import (_insert_midpoints, _interp_grid,
                                           build_spec, canonical_R)
 from varanneal_tpu_torch.opt.lbfgs import LBFGSOptions
+from varanneal_tpu_torch.opt.lm import LMOptions, make_residual_fn
+from varanneal_tpu_torch.opt.tnc import TNCOptions
 
 _STATUS_TO_SCIPY = np.array([0, 0, 1, 2])  # CONV_GRAD/CONV_FTOL/MAXITER/LS_FAIL
 
@@ -69,12 +86,6 @@ def _np_dtype(dtype):
     if dtype not in (np.float32, np.float64):
         raise ValueError("dtype must be float32 or float64")
     return dtype
-
-
-def _waits(what, item):
-    return NotImplementedError(
-        f"{what} waits for a later slice of the port; see ROADMAP.md, "
-        f"'Modules still to port', {item}")
 
 
 def make_lbfgs_options(opt_args: Optional[dict],
@@ -231,9 +242,10 @@ class Annealer:
         loop), 'generic' or 'fused' (K2 wherever ``solve_supported`` holds,
         else a warning and the generic loop). ``compensated``,
         ``checkpoint_path``/``checkpoint_every``/``resume``, ``repeats``,
-        ``snapshot_beta`` and ``checkpoint_meta`` act as the reference's
-        (see the module docstring). The kwargs of the module docstring's
-        list raise NotImplementedError."""
+        ``snapshot_beta`` and ``checkpoint_meta`` act as the reference's;
+        ``method`` and ``opt_args['cg_iters']`` as the module docstring
+        says. The kwargs of the module docstring's list raise
+        NotImplementedError."""
         if self.f is None or self.data is None:
             raise RuntimeError("call set_model and set_data before anneal")
         if action != "A_gaussian":
@@ -241,9 +253,6 @@ class Annealer:
         if method not in ("L-BFGS-B", "LBFGS", "LM", "GN", "CG", "NCG",
                           "TNC"):
             raise ValueError(f"unsupported method {method!r}")
-        if method not in ("L-BFGS-B", "LBFGS"):
-            raise _waits(f"method={method!r} (opt/lm, opt/tnc, opt/ncg)",
-                         "item 6")
         del adolcID
         dtype = _np_dtype(torch.get_default_dtype() if dtype is None
                           else dtype)
@@ -284,7 +293,7 @@ class Annealer:
         rf_min = None if RF_min is None else canon(RF_min, "RF_min")
         lower, upper = build_bounds(spec, bounds, dtype)
         opt_args = dict(opt_args or {})
-        opt_args.pop("cg_iters", None)     # the LM/TNC inner-CG depth
+        cg_iters = opt_args.pop("cg_iters", None)   # LM/TNC inner-CG depth
         opts = make_lbfgs_options(opt_args, dtype)
         betas = np.asarray(beta_array, dtype=dtype)
 
@@ -317,6 +326,20 @@ class Annealer:
         else:
             act, parts = select_action(spec, rf0, engine=engine,
                                        dtype=tdtype, device=device)
+        inner_kw = dict(inner="lbfgs")
+        cg_kw = {} if cg_iters is None else dict(cg_iters=int(cg_iters))
+        if method in ("LM", "GN"):
+            inner_kw = dict(inner="lm",
+                            residual_fn=make_residual_fn(spec, device),
+                            lm_opts=LMOptions(maxiter=opts.maxiter,
+                                              ftol=opts.ftol,
+                                              pgtol=opts.pgtol, **cg_kw))
+        elif method in ("CG", "NCG"):
+            inner_kw = dict(inner="ncg")
+        elif method == "TNC":
+            inner_kw.update(inner="tnc", tnc_opts=TNCOptions(
+                maxiter=opts.maxiter, ftol=opts.ftol, pgtol=opts.pgtol,
+                maxls=opts.maxls, **cg_kw))
         rung_solver = pick_rung_solver(
             spec, rf_gate, opts, solver=solver, lower=lower, upper=upper,
             dtype=tdtype, compensated=compensated, engine=engine,
@@ -327,7 +350,7 @@ class Annealer:
         xp0 = torch.as_tensor(XP0, device=device)
         kw = dict(lower=lower, upper=upper, opts=opts,
                   store_paths=track_paths, rf_max=rf_max, rf_min=rf_min,
-                  rung_solver=rung_solver, device=device)
+                  rung_solver=rung_solver, device=device, **inner_kw)
         if (checkpoint_path is not None or repeats > 1
                 or snapshot_beta is not None):
             res = run_ladder_checkpointed(

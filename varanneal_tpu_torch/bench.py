@@ -37,14 +37,17 @@ Env knobs, as bench.py's where the port has the path:
   ``# BENCH_PACK unsupported here; k=1 fused`` on stderr and takes K2;
   with one init a ``ladder`` run goes through K2 per rung instead of K3.
 
+- ``BENCH_INNER=lbfgs|lm``: as in bench.py, ``lm`` under ``xla`` runs
+  the ladder's inner solve on the matrix-free Levenberg–Marquardt solver
+  (``opt.lm``, ``maxiter // 10`` iterations a rung over
+  ``opt.lm.make_residual_fn``, the engine's action for the records);
+  under ``ladder`` and ``fused`` bench.py ignores it, and so does the
+  port.
+
 The engine is read where the action is evaluated: every evaluation
 under ``xla``, and the per-rung records under ``fused`` (and ``ladder``
 when it runs per rung); K3 under ``ladder`` evaluates in its own launch.
-Where bench.py would take a path the port does not have yet, the run
-raises NotImplementedError (ROADMAP.md): ``BENCH_INNER=lm`` under ``xla``
-(``opt/lm``); elsewhere bench.py ignores the knob and so does the port.
-bench.py's
-CPU fallback has no counterpart: without a card the run fails and exits
+bench.py's CPU fallback has no counterpart: without a card the run fails and exits
 non-zero. ``main(device="cpu")`` runs the plain versions on the CPU, for
 tests.
 """
@@ -66,16 +69,12 @@ from varanneal_tpu_torch.kernels import ag, fe, solve, solve_pack
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec
 from varanneal_tpu_torch.opt import LBFGSOptions
+from varanneal_tpu_torch.opt.lm import LMOptions, make_residual_fn
 from varanneal_tpu_torch.parallel import (make_ensemble_ladder,
                                           random_ensemble_inits)
 from varanneal_tpu_torch.twin import lorenz96_twin
 
 ALPHA = 1.5
-
-
-def _waits(what):
-    return NotImplementedError(
-        f"{what} waits for a later slice of the port; see ROADMAP.md")
 
 
 def card_line():
@@ -115,8 +114,6 @@ def main(device=None, env=None):
     if bench_solver not in ("ladder", "fused", "xla"):
         raise ValueError(f"unknown BENCH_SOLVER {bench_solver!r}")
     pack = int(env.get("BENCH_PACK", "1"))
-    if bench_solver == "xla" and env.get("BENCH_INNER", "lbfgs") == "lm":
-        raise _waits("BENCH_INNER=lm (opt/lm)")
     if bench_solver == "ladder" and pack > 1:
         bench_solver = "fused"     # bench.py: K2 per rung, not K3
 
@@ -155,7 +152,13 @@ def main(device=None, env=None):
         action, parts = fe.select_action(spec, float(rf0), engine=engine,
                                       dtype=dtype, device=device)
         kw = {}
-        if pack_solver is not None:
+        if bench_solver == "xla" and env.get("BENCH_INNER",
+                                             "lbfgs") == "lm":
+            kw = dict(inner="lm",
+                      residual_fn=make_residual_fn(spec, device),
+                      lm_opts=LMOptions(maxiter=maxiter // 10, ftol=ftol,
+                                        pgtol=pgtol))
+        elif pack_solver is not None:
             kw = dict(rung_solver=pack_solver)
         elif bench_solver == "fused":
             if not solve.solve_supported(spec, float(rf0), opts,

@@ -24,22 +24,23 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 def make_ensemble_ladder(action, action_parts, betas, rf0, alpha, *,
                          lower=None, upper=None,
                          opts: Optional[LBFGSOptions] = None,
-                         store_paths: bool = False, rf_max=None,
-                         rf_min=None, rung_solver=None, device=None):
+                         store_paths: bool = False, device=None,
+                         **ladder_kwargs):
     """Build a function mapping a batch of initial decision vectors
     (B, n_dof) to a batched LadderResult (records (B, Nbeta)) on one
-    device. ``lower``/``upper``, ``rf_max``/``rf_min`` and ``rung_solver``
-    (the whole-rung kernel, ``kernels.solve.make_rung_solver``) are passed
-    to ``run_ladder``. ``device=None`` means the CUDA card."""
+    device. ``lower``/``upper`` and the other keyword arguments
+    (``rf_max``/``rf_min``, ``rung_solver``, the whole-rung kernel of
+    ``kernels.solve.make_rung_solver``, and ``inner`` with its
+    ``residual_fn``/``lm_opts``/``tnc_opts``) are passed to
+    ``run_ladder``. ``device=None`` means the CUDA card."""
     opts = opts or LBFGSOptions()
     device = resolve_device(device)
 
     def batched(xp0):
         return run_ladder(action, action_parts, xp0, betas, rf0, alpha,
                           lower=lower, upper=upper, opts=opts,
-                          store_paths=store_paths, rf_max=rf_max,
-                          rf_min=rf_min, rung_solver=rung_solver,
-                          device=device)
+                          store_paths=store_paths, device=device,
+                          **ladder_kwargs)
 
     return batched
 
