@@ -117,9 +117,9 @@ timed on its own line:
 11. the fused generic loop on the main path: phase 5's ladder (B=4, 101
    f32 rungs, K1's action, ``direction`` auto): K7b's launches equal the
    loop's iterations (per rung the most any member made), K7a's are 0
-   and K1's at least the slowest member's evaluations per rung; then the
-   20-rung f64 tail through K1 in f64 (maxiter 2000, pgtol 1e-8, ftol
-   2.22e-9), whose final_A_tail64 of member 0 must lie within 1e-2
+   and K1's at least the slowest member's evaluations per rung; then
+   member 0's 20-rung f64 tail through K1 in f64 (maxiter 2000, pgtol
+   1e-8, ftol 2.22e-9), whose final_A_tail64 must lie within 1e-2
    relative of 16.284792. The first 50 iterations of rung 60 from phase
    5's rung-59 minimizer run again in a child process
    (``chip_smoke.py --profile-loops``) under torch.profiler through the
@@ -333,7 +333,43 @@ timed on its own line:
    over rung 50 from phase 5's rung-49 minimizer, 20 iterations each
    (their time an iteration), and the bench with BENCH_INNER=lm BENCH_SOLVER=xla over 15
    rungs (LM maxiter 50 a rung); every record finite, every exit flag 0,
-   1 or 2; walls, iterations and evaluations printed.
+   1 or 2; walls, iterations and evaluations printed;
+30. the built-in row models on K6 (ROW): Colpitts on its twin at full
+   width (colpitts_twin's defaults: N_data = 801, dt 0.05, sigma 0.05,
+   x1 observed) and Lorenz-63 on a path of the port's RK4 (l63_twin):
+   (a) the four K6 kernels against their plain versions (check_k6) over
+   the four discs, B = 1 with eta or rho estimated and B = 4 with every
+   parameter, f64 (1e-12) and f32 (2e-5), scalar and (N_f-1, 3) rf at
+   beta 0, 12 and 24; (b) the kernels timed at one member in f32 (trapezoid,
+   N_f = 801; Hermite–Simpson, N_f = 1,601; k6_times) beside the
+   autograd action's value and gradient; (c) the Colpitts facade ladder
+   of the reference's test (tests/test_models_examples.py: its twin,
+   N_data = 161, sigma 0.02; alpha 1.5, beta 0..24, RF0 = 1e-4·RM, gtol
+   1e-9, maxiter 400, eta estimated from 4.0), f64, engine='pallas': eta
+   within 5 % of 6.2723, fe_onestep_vag launched at least once an
+   evaluation; its rungs 1..ROW['rungs_xla'] again, each from its
+   minimizer of the rung before, through ROW['held_maxiter'] iterations
+   under engine='pallas' and under engine='xla': the same niter and
+   nfev, A within 1e-8 (its rungs stop on ftol in flat valleys: two
+   f64 loops from one start part at round-off within a few hundred
+   iterations and end 0.2-3 % apart in A, and a fresh solve from a
+   stopped rung moves A by up to 1 %, so short solves from one start
+   are held, as phase 28(a) holds config #4);
+   (d) Lorenz-63 facade ladders
+   (ROW['l63_rungs'] rungs, f64, engine='pallas', trapezoid and
+   Hermite–Simpson); (e) the runner on a colpitts config (the
+   full-width twin, Hermite–Simpson, engine 'pallas',
+   ROW['runner_rungs'] rungs, f64) with its three files;
+31. diag, profiling and support: forward_sensitivity on the card on the
+   Colpitts twin's first ROW['fs_N'] observations (sub 10, the four
+   parameters; timed; all 801 took 65 s on the card) against the CPU on
+   its first ROW['fs_cpu_N'] (the integration is causal: the CPU run at
+   that N gives the same rows as at the longer one) to 1e-10 of their
+   largest entry; profiling.trace around phase 30's facade
+   ladder cut to its first ROW['traced_rungs'] rungs at maxiter
+   ROW['traced_maxiter']: a trace file
+   naming the fe_onestep_vag kernel, and ladder_stats of that run; the
+   port's support matrix printed.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -376,7 +412,12 @@ barriers_per_evaluation phase 9's and its config5 phase 26's numbers,
 config5_bound_ms phase 26's bound a launch; K1's ncg_launches and
 ncg_nfev phase 29's CG run over engine='ag'; K7a's and K7b's nnet_*
 phase 28's: launches and iterations on config #4's projection (K7a) and
-fused (K7b) runs, errors and times at n = 4,817, B = 1 and 4)
+fused (K7b) runs, errors and times at n = 4,817, B = 1 and 4; K6's four
+entries' colpitts_* and l63_* phase 30's: launches on its paths (the
+one-step kernels the facade ladders', the Hermite–Simpson ones the
+runner's on Colpitts and the Hermite–Simpson ladder's on Lorenz-63),
+errors over its checks, and times at one member in f32 with the
+autograd action's beside them)
 and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero before that line.
@@ -481,6 +522,33 @@ JAX_CONF4_RMSE = {"float64": (0.1054, 0.1093), "float32": (0.2107, 0.2218)}
 # within the phase's share of the time limit)
 INNER_RUNGS = 15
 INNER_MID, INNER_MID_MAXITER = 50, 20
+# phase 30: K6 on Colpitts' twin at its full width (colpitts_twin's
+# defaults: N_data 801, dt 0.05, sigma 0.05, x1 observed) and on
+# Lorenz-63 (L63_P) on a path of the port's RK4 (dt 0.01, x0 and x2
+# observed with sigma 1); the facade ladder of the reference's test
+# (tests/test_models_examples.py: its twin, N_data = fac_N and sigma
+# fac_sigma, alpha 1.5, beta 0..24, RF0 = 1e-4·RM, maxiter 400, gtol
+# 1e-9, eta from 4.0, X0 from default_rng(4); on the N_data = 801,
+# sigma 0.05 twin the JAX package itself lands eta 6.2 % off, PERF.md
+# §6), then its rungs 1..rungs_xla again, each from its minimizer of
+# the rung before through held_maxiter iterations, through K6 and the
+# autograd action (its rungs stop on ftol in flat valleys, from which a
+# fresh solve moves A by up to 1 %: short solves from one start are
+# what two f64 actions share); l63_rungs rungs a
+# Lorenz-63 ladder from near the truth; the runner's colpitts on the
+# full-width twin over runner_rungs rungs; phase 31's forward
+# sensitivity at sub fs_sub on the full-width twin's first fs_N
+# observations (jacfwd over the Python RK4 loop is host-bound: 65 s on
+# the card for all 801, PERF.md §6), held to the CPU over the first
+# fs_cpu_N, and the trace over traced_rungs rungs at traced_maxiter (a
+# trace of every host op: ~0.4 MB an iteration)
+ROW = dict(N_data=801, fac_N=161, fac_sigma=0.02, alpha=1.5, n_beta=25,
+           rf0=1e-4, maxiter=400, gtol=1e-9, eta0=4.0, rungs_xla=4,
+           held_maxiter=5,
+           l63_dt=0.01, l63_sigma=1.0, l63_rungs=5, runner_rungs=3,
+           fs_N=101, fs_sub=10, fs_cpu_N=41, traced_rungs=2,
+           traced_maxiter=20)
+L63_P = (10.0, 28.0, 8.0 / 3.0)
 # Device µs a launch of the per-(interval, component) design that the
 # Hermite–Simpson kernels replaced (sh_vag: its backward, fe_sh_bwd),
 # keyed (model, kernel, dtype, B), at the shapes phase 18 times: an
@@ -1512,14 +1580,393 @@ def config3_campaign(dev, zero_counts, run_counts):
                 p_best=[float(v) for v in p_best])
 
 
+def l63_twin(N, dt, sigma, seed=5):
+    """A Lorenz-63 twin (L63_P) by the port's RK4: a path on the attractor
+    (1,000 steps of spin-up), x0 and x2 observed with noise sigma."""
+    from varanneal_tpu_torch.twin import _rk4_np
+    P = np.asarray(L63_P)
+
+    def fnp(x):
+        return np.array([P[0] * (x[1] - x[0]), x[0] * (P[1] - x[2]) - x[1],
+                         x[0] * x[1] - P[2] * x[2]])
+    rng = np.random.default_rng(seed)
+    x0 = _rk4_np(fnp, rng.normal(size=3) + [1.0, 1.0, 20.0], dt, 1000)[-1]
+    traj = _rk4_np(fnp, x0, dt, N - 1)
+    Lidx = [0, 2]
+    Y = traj[:, Lidx] + sigma * rng.normal(size=(N, 2))
+    return dict(traj=traj, Y=Y, t=dt * np.arange(N), Lidx=Lidx,
+                RM=1.0 / sigma ** 2, sigma=sigma)
+
+
+def row_twins():
+    """Phase 30's twins: Colpitts' at its defaults, Lorenz-63's, and the
+    reference test's Colpitts twin (key 'facade')."""
+    from varanneal_tpu_torch.twin import colpitts_twin
+    return {"colpitts": colpitts_twin(N_data=ROW["N_data"]),
+            "l63": l63_twin(ROW["N_data"], ROW["l63_dt"], ROW["l63_sigma"]),
+            "facade": colpitts_twin(N_data=ROW["fac_N"],
+                                    sigma=ROW["fac_sigma"])}
+
+
+def row_spec(model, tw, disc, pidx):
+    from varanneal_tpu_torch.models import (COLPITTS_P_TRUE, colpitts,
+                                            lorenz63)
+    from varanneal_tpu_torch.ops import build_spec
+    f, P = ((colpitts, COLPITTS_P_TRUE) if model == "colpitts"
+            else (lorenz63, L63_P))
+    return build_spec(f, 3, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                      disc=disc, P=np.asarray(P, float), pidx=pidx)
+
+
+def row_draws(spec, tw, B, seed):
+    """(X (B, N_f, 3), pest (B, NPest)) as NumPy: the twin's path on the
+    model grid, jittered by 5 % of each component's spread, and the
+    estimated parameters 5 % off their base values."""
+    rng = np.random.default_rng(seed)
+    traj = tw["traj"]
+    s = np.arange(spec.N_f) * (traj.shape[0] - 1) / (spec.N_f - 1)
+    X = np.stack([np.interp(s, np.arange(traj.shape[0]), traj[:, d])
+                  for d in range(3)], axis=-1)
+    X = X + 0.05 * np.std(traj, axis=0) * rng.normal(size=(B,) + X.shape)
+    pb = np.asarray(spec.P_base)[list(spec.pidx)]
+    return X, pb + 0.05 * np.abs(pb) * rng.normal(size=(B, len(pb)))
+
+
+def k6_row_models(dev, tws):
+    """Phase 30 (a) and (b): K6 on Colpitts and Lorenz-63 against the
+    plain versions (check_k6) over the four discs, B = 1 (eta or rho
+    estimated) and 4 (every parameter), f64 and f32, scalar and (N_f-1, 3) rf at beta 0, 12, 24; then the
+    kernels timed at one member in f32 (trapezoid and Hermite–Simpson,
+    scalar rf of beta 12) beside the autograd action's value and
+    gradient. Returns (max abs errors, max relative errors, times), each
+    keyed by model, then kernel (times by disc too)."""
+    from varanneal_tpu_torch.kernels import fe
+    from varanneal_tpu_torch.ops import make_action, value_and_grad
+    pidxs = {"colpitts": ([3], [0, 1, 2, 3]), "l63": ([1], [0, 1, 2])}
+    kerns = ("onestep_fwd", "onestep_vag", "sh_fwd", "sh_vag")
+    models = ("colpitts", "l63")
+    err = {m: dict.fromkeys(kerns, 0.0) for m in models}
+    rel = {m: dict.fromkeys(kerns, 0.0) for m in models}
+    W = np.random.default_rng(30).uniform(0.5, 2.0, (2 * ROW["N_data"] - 2,
+                                                     3))
+    for model in models:
+        tw = tws[model]
+        for disc in ("euler", "trapezoid", "forwardmap", "SimpsonHermite"):
+            kf, kb = (("sh_fwd", "sh_vag") if disc == "SimpsonHermite"
+                      else ("onestep_fwd", "onestep_vag"))
+            for B, pidx in zip((1, 4), pidxs[model]):
+                sp = row_spec(model, tw, disc, pidx)
+                Xn, pn = row_draws(sp, tw, B, 31)
+                for dtype in (torch.float64, torch.float32):
+                    tol = 1e-12 if dtype == torch.float64 else 2e-5
+                    worst = [0.0, 0.0, 0.0]
+                    c = fe.fe_consts(sp, dtype, dev, block_n=64)
+                    X = torch.tensor(Xn, dtype=dtype, device=dev)
+                    pest = torch.tensor(pn, dtype=dtype, device=dev)
+                    for beta in (0, 12, 24):
+                        rf_b = _scalar_rf(ROW["rf0"] * tw["RM"]
+                                          * ROW["alpha"] ** beta, dtype)
+                        for rf in (rf_b, torch.tensor(
+                                W[:sp.N_f - 1] * rf_b, dtype=dtype,
+                                device=dev)):
+                            e_v, e_g, r_v, r_g, d_b = check_k6(
+                                X, pest, rf, c, tol,
+                                f"{model} {disc} B={B} pidx {pidx} "
+                                f"{dtype} beta={beta}")
+                            worst = [max(worst[0], r_v), max(worst[1], r_g),
+                                     max(worst[2], d_b)]
+                            rel[model][kf] = max(rel[model][kf], r_v)
+                            rel[model][kb] = max(rel[model][kb], r_v, r_g)
+                            err[model][kf] = max(err[model][kf], e_v)
+                            err[model][kb] = max(err[model][kb], e_g)
+                    print(f"K6 {model} {disc} N_f={sp.N_f} B={B} "
+                          f"{str(dtype)[6:]}, {sh_grid(c, B, 'bwd')}, pidx "
+                          f"{pidx}, scalar and (N_f-1, 3) rf at beta 0, 12, "
+                          f"24: value rel err {worst[0]:.3e}, gradient rel "
+                          f"err {worst[1]:.3e} of max|g| (bound {tol:g}); "
+                          f"{fused_bits(worst[2])}; repeats bit-identical")
+    times = {m: {} for m in models}
+    for model in models:
+        tw = tws[model]
+        for disc in ("trapezoid", "SimpsonHermite"):
+            sp = row_spec(model, tw, disc, pidxs[model][0])
+            c = fe.fe_consts(sp, torch.float32, dev, block_n=64)
+            Xn, pn = row_draws(sp, tw, 1, 32)
+            X = torch.tensor(Xn, dtype=torch.float32, device=dev)
+            pest = torch.tensor(pn, dtype=torch.float32, device=dev)
+            Z = torch.cat([X.reshape(1, -1), pest], dim=1)
+            rf = _scalar_rf(ROW["rf0"] * tw["RM"] * ROW["alpha"] ** 12,
+                            torch.float32)
+            vag_x = value_and_grad(make_action(sp, device=dev)[0])
+            vag_k6 = value_and_grad(fe.make_action_pallas(
+                sp, block_n=64, device=dev)[0])
+            ms_ag = events_ms(lambda: vag_x(Z, rf), n=200)
+            ms_k6a = events_ms(lambda: vag_k6(Z, rf), n=200)
+            t = k6_times(X, pest, rf, c)
+            for r in t.values():
+                r.update(autograd_ms=ms_ag, action_ms=ms_k6a)
+            times[model].update(t)
+            print_k6_times(f"K6 {model}", t, c, 1)
+            print(f"K6 {model} action value+grad ({disc}, one member, f32, "
+                  f"action.value_and_grad): {ms_k6a:.5f} ms; the autograd "
+                  f"action's {ms_ag:.5f} ms (CUDA events, 200 calls each)")
+    return err, rel, times
+
+
+def colpitts_annealer(dev, tw):
+    from varanneal_tpu_torch.api import Annealer
+    from varanneal_tpu_torch.models import colpitts
+    ann = Annealer(device=dev)
+    ann.set_model(colpitts, 3)
+    ann.set_data(tw["Y"], t=tw["t"])
+    return ann
+
+
+def colpitts_start(tw):
+    """The reference test's start: X0 from default_rng(4), the truth's
+    parameters with eta at ROW['eta0']."""
+    from varanneal_tpu_torch.models import COLPITTS_P_TRUE
+    X0 = np.random.default_rng(4).normal(size=(tw["t"].shape[0], 3))
+    P0 = np.asarray(COLPITTS_P_TRUE, float).copy()
+    P0[3] = ROW["eta0"]
+    return X0, P0
+
+
+def colpitts_anneal(ann, tw, betas, engine, maxiter=None, start=None):
+    """The reference test's anneal over ``betas`` (from colpitts_start, or
+    from ``start`` = (X0, P0) as given, with init_to_data off)."""
+    X0, P0 = colpitts_start(tw) if start is None else start
+    return ann.anneal(X0, P0, alpha=ROW["alpha"], beta_array=betas,
+                      RM=tw["RM"], RF0=ROW["rf0"] * tw["RM"],
+                      Lidx=tw["Lidx"], Pidx=[3],
+                      opt_args=dict(maxiter=maxiter or ROW["maxiter"],
+                                    gtol=ROW["gtol"]),
+                      dtype=torch.float64, engine=engine,
+                      init_to_data=start is None)
+
+
+def row_paths(dev, tws, zero_counts, run_counts):
+    """Phase 30 (c)-(e): the Colpitts facade ladder through K6 and its
+    first rungs through the autograd action, the Lorenz-63 ladders, the
+    runner's colpitts. Returns the launches and walls by path."""
+    from varanneal_tpu_torch import __main__ as runner
+    from varanneal_tpu_torch.api import Annealer
+    from varanneal_tpu_torch.models import COLPITTS_P_TRUE, lorenz63
+    tw = tws["facade"]
+    out = {}
+    runs = {}
+    ak = colpitts_annealer(dev, tw)
+    zero_counts()
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    colpitts_anneal(ak, tw, np.arange(ROW["n_beta"]), "pallas")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_a
+    cnt = run_counts()
+    nfev, niter = int(ak.nfev_array.sum()), int(ak.niter_array.sum())
+    eta = float(ak.minpaths_P[-1][0])
+    out["colpitts_pallas"] = dict(wall=wall, nfev=nfev, niter=niter,
+                                  launches=cnt, eta=eta)
+    print(f"Colpitts facade, engine='pallas' (f64, N_data={ROW['fac_N']}, "
+          f"sigma {ROW['fac_sigma']}, {ROW['n_beta']} rungs, maxiter "
+          f"{ROW['maxiter']}, gtol {ROW['gtol']:g}): wall {wall:.2f} s; "
+          f"niter {niter}, nfev {nfev}, {1e3 * wall / max(niter, 1):.3f} ms "
+          "a loop iteration; exit flags per code 0..2 "
+          f"{np.bincount(ak.exitflags, minlength=3).tolist()}; niter per "
+          f"rung {ak.niter_array.tolist()}; eta {eta:.5f} (truth "
+          f"{COLPITTS_P_TRUE[3]}); final A {float(ak.A_array[-1]):.6g}; "
+          f"launches {cnt}")
+    others = [k for k in cnt if k not in ("k6_fwd", "k6_vag")]
+    check(bool(np.isfinite(ak.A_array).all())
+          and set(np.unique(ak.exitflags)) <= {0, 1, 2}
+          and all(cnt[k] == 0 for k in others)
+          and cnt["k6_vag"] >= nfev > 0,
+          f"Colpitts facade: records, exit flags or launches {cnt}")
+    check(abs(eta - COLPITTS_P_TRUE[3]) / COLPITTS_P_TRUE[3] < 0.05,
+          f"Colpitts facade: eta {eta} not within 5 % of "
+          f"{COLPITTS_P_TRUE[3]}")
+    # rungs 1..rungs_xla again, each from the K6 ladder's minimizer of
+    # the rung before, cut to held_maxiter iterations, through K6 and
+    # through the autograd action
+    held = {}
+    t_a = time.perf_counter()
+    for k in range(1, ROW["rungs_xla"] + 1):
+        P0 = colpitts_start(tw)[1]
+        P0[3] = ak.minpaths_P[k - 1][0]
+        for engine in ("pallas", "xla"):
+            a = colpitts_annealer(dev, tw)
+            zero_counts()
+            colpitts_anneal(a, tw, np.array([k]), engine, ROW["held_maxiter"],
+                            start=(ak.minpaths_X[k - 1], P0))
+            held[(k, engine)] = (float(a.A_array[0]), int(a.niter_array[0]),
+                                 int(a.nfev_array[0]), run_counts())
+    wall_x = time.perf_counter() - t_a
+    relA = [abs(held[(k, "pallas")][0] / held[(k, "xla")][0] - 1)
+            for k in range(1, ROW["rungs_xla"] + 1)]
+    same = all(held[(k, "pallas")][1:3] == held[(k, "xla")][1:3]
+               for k in range(1, ROW["rungs_xla"] + 1))
+    print(f"Colpitts facade, rungs 1..{ROW['rungs_xla']} each from the K6 "
+          f"ladder's minimizer of the rung before, {ROW['held_maxiter']} "
+          f"iterations, K6 against the autograd action: {wall_x:.2f} s; "
+          f"niter/nfev the same {same}; max rel A difference "
+          f"{max(relA):.3e} (bound 1e-8); per rung (A, niter, nfev) "
+          + "; ".join(f"{k}: {held[(k, 'pallas')][:3]} vs "
+                      f"{held[(k, 'xla')][:3]}"
+                      for k in range(1, ROW["rungs_xla"] + 1)))
+    check(same and max(relA) <= 1e-8
+          and all(held[(k, "pallas")][3]["k6_vag"] >= held[(k, "pallas")][2]
+                  and held[(k, "xla")][3]["k6_vag"] == 0
+                  for k in range(1, ROW["rungs_xla"] + 1)),
+          f"Colpitts facade: K6 and the autograd action disagree from the "
+          f"same start: {held}")
+    out["colpitts_xla"] = dict(max_rel_A=max(relA), wall=wall_x)
+    # Lorenz-63 ladders through K6, from near the truth
+    tw63 = tws["l63"]
+    X0 = tw63["traj"] + 0.1 * np.random.default_rng(7).normal(
+        size=tw63["traj"].shape)
+    for disc in ("trapezoid", "SimpsonHermite"):
+        ann = Annealer(device=dev)
+        ann.set_model(lorenz63, 3)
+        ann.set_data(tw63["Y"], t=tw63["t"])
+        zero_counts()
+        t_a = time.perf_counter()
+        ann.anneal(X0, np.array([10.0, 24.0, 8.0 / 3.0]), alpha=2.0,
+                   beta_array=np.arange(ROW["l63_rungs"]), RM=tw63["RM"],
+                   RF0=tw63["RM"], Lidx=tw63["Lidx"], Pidx=[1], disc=disc,
+                   opt_args=dict(maxiter=ROW["maxiter"]),
+                   dtype=torch.float64, engine="pallas")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_a
+        cnt = run_counts()
+        nfev = int(ann.nfev_array.sum())
+        key = "k6_sh_vag" if disc == "SimpsonHermite" else "k6_vag"
+        out[f"l63_{disc}"] = dict(wall=wall, nfev=nfev, launches=cnt,
+                                  rho=float(ann.minpaths_P[-1][0]))
+        print(f"Lorenz-63 facade, engine='pallas', {disc} (f64, N_data="
+              f"{ROW['N_data']}, {ROW['l63_rungs']} rungs, rho from 24): "
+              f"wall {wall:.2f} s; nfev {nfev}; exit flags "
+              f"{ann.exitflags.tolist()}; rho {out[f'l63_{disc}']['rho']:.5f}"
+              f" (truth {L63_P[1]}); launches {cnt}")
+        check(bool(np.isfinite(ann.A_array).all()) and cnt[key] >= nfev > 0,
+              f"Lorenz-63 facade ({disc}): records or launches {cnt}")
+    # the runner's colpitts: Hermite–Simpson through K6, f64 in process
+    with tempfile.TemporaryDirectory() as tmp:
+        tw = tws["colpitts"]
+        X0c, P0c = colpitts_start(tw)
+        np.save(os.path.join(tmp, "data.npy"),
+                np.column_stack([tw["t"], tw["Y"]]))
+        np.save(os.path.join(tmp, "x0.npy"), X0c)
+        res = os.path.join(tmp, "run")
+        cfg = dict(model={"name": "colpitts", "D": 3},
+                   data={"file": os.path.join(tmp, "data.npy")},
+                   X0=os.path.join(tmp, "x0.npy"), P0=P0c.tolist(), out=res,
+                   alpha=ROW["alpha"], beta_array={"stop": ROW["runner_rungs"]},
+                   RM=float(tw["RM"]), RF0=float(ROW["rf0"] * tw["RM"]),
+                   Lidx=list(tw["Lidx"]), Pidx=[3], disc="SimpsonHermite",
+                   engine="pallas", opt_args={"maxiter": ROW["maxiter"],
+                                              "gtol": ROW["gtol"]})
+        path = os.path.join(tmp, "cfg.json")
+        with open(path, "w") as fh:
+            json.dump(cfg, fh)
+        zero_counts()
+        t_a = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = runner.main([path, "--device", str(dev)])
+        finally:
+            torch.set_default_dtype(torch.float32)
+        wall = time.perf_counter() - t_a
+        cnt = run_counts()
+        paths = np.load(res + "_paths.npy")
+        ae = np.loadtxt(res + "_action_errors.dat")
+        N_f = 2 * ROW["N_data"] - 1
+        out["runner"] = dict(wall=wall, launches=cnt)
+        print(f"runner, colpitts config (Hermite–Simpson, engine 'pallas', "
+              f"f64, {ROW['runner_rungs']} rungs): rc {rc}, wall "
+              f"{wall:.2f} s, paths {paths.shape}, action errors "
+              f"{ae.shape}, final A {ae[-1, 1]:.6g}; launches {cnt}")
+        check(rc == 0 and paths.shape == (ROW["runner_rungs"], N_f, 4)
+              and ae.shape[0] == ROW["runner_rungs"]
+              and bool(np.isfinite(ae).all()) and cnt["k6_sh_vag"] > 0,
+              f"runner on colpitts: rc {rc}, {paths.shape}, {cnt}")
+    return out
+
+
+def diag_profiling_support(dev, tws):
+    """Phase 31: forward_sensitivity on the card against the CPU (its
+    first ROW['fs_cpu_N'] observations), profiling.trace around the
+    Colpitts facade ladder's first ROW['traced_rungs'] rungs, the support
+    matrix printed. Returns the phase's numbers."""
+    from varanneal_tpu_torch import diag, profiling, support
+    from varanneal_tpu_torch.models import (COLPITTS_P_TRUE,
+                                            COLPITTS_PNAMES, colpitts)
+    tw = tws["colpitts"]
+    x0 = tw["traj"][0]
+    walls = {}
+    for where, dev_, N in (("card", dev, ROW["fs_N"]),
+                           ("cpu", "cpu", ROW["fs_cpu_N"])):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        S = diag.forward_sensitivity(colpitts, x0, tw["t"][:N],
+                                     COLPITTS_P_TRUE, sub=ROW["fs_sub"],
+                                     device=dev_)
+        walls[where] = (time.perf_counter() - t_a, S)
+    S_k, S_c = walls["card"][1], walls["cpu"][1]
+    n = S_c.shape[0]
+    rel = float(np.max(np.abs(S_k[:n] - S_c)) / np.max(np.abs(S_c)))
+    rep = diag.fisher_report(S_k, sigma=tw["sigma"], names=COLPITTS_PNAMES)
+    print(f"forward_sensitivity, Colpitts twin (its first {ROW['fs_N']} "
+          f"of {ROW['N_data']} observations, sub "
+          f"{ROW['fs_sub']}, four parameters) on the card: "
+          f"{walls['card'][0]:.2f} s, S {S_k.shape}, finite "
+          f"{bool(np.isfinite(S_k).all())}; the CPU over the first {n} "
+          f"observations {walls['cpu'][0]:.2f} s; max difference there "
+          f"{rel:.3e} of max|S| (bound 1e-10); Fisher CRLB (relative) "
+          + ", ".join(f"{nm} {v:.3e}" for nm, v in zip(COLPITTS_PNAMES,
+                                                        rep.crlb)))
+    check(S_k.shape == (ROW["fs_N"], 4) and bool(np.isfinite(S_k).all())
+          and rel <= 1e-10,
+          f"forward_sensitivity: card vs CPU {rel:.3e}, {S_k.shape}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = colpitts_annealer(dev, tws["facade"])
+        t_a = time.perf_counter()
+        with profiling.trace(tmp):
+            with profiling.annotate("colpitts-ladder"):
+                res = colpitts_anneal(ann, tws["facade"],
+                                      np.arange(ROW["traced_rungs"]),
+                                      "pallas", ROW["traced_maxiter"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_a
+        files = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        text = open(files[0]).read() if len(files) == 1 else ""
+        stats = profiling.ladder_stats(res)
+        print(f"profiling.trace around the Colpitts facade ladder (rungs "
+              f"0..{ROW['traced_rungs'] - 1} at maxiter "
+              f"{ROW['traced_maxiter']}, K6): {wall:.2f} s with the "
+              f"trace written, {len(text)} bytes; fe_onestep_vag named "
+              f"{text.count('fe_onestep_vag')} times, the annotation "
+              f"{text.count('colpitts-ladder')}; ladder_stats "
+              + json.dumps({k: (v.tolist() if isinstance(v, np.ndarray)
+                                else v) for k, v in stats.items()}))
+        check(len(files) == 1 and "fe_onestep_vag" in text
+              and "colpitts-ladder" in text
+              and stats["n_beta"] == ROW["traced_rungs"],
+              f"profiling.trace: files {files}, stats {stats}")
+    print("the port's support matrix (support.markdown_table()):")
+    print(support.markdown_table())
+    return dict(fs_card_s=walls["card"][0], fs_cpu_s=walls["cpu"][0],
+                fs_rel=rel, trace_s=wall)
+
+
 def fe_work(kernel, c, B, diag):
     """Bytes and operations of one launch of K6's ``kernel`` on B members
     (``c``: the kernels' constants): X and the parameter rows read once,
     the stimulus (NaKL) and an (N_f-1, D) rf read once when present, the
     outputs written once; the kernel's arithmetic, counted per entry from
     the model's f, Jᵀv and parameter adjoint a component (Lorenz-96 4, 7
-    and 1; NaKL about 12, 28 and 23, a tanh counted as one operation, so
-    that the bound stays a lower one). One-step forward, per residual
+    and 1; NaKL about 12, 28 and 23; Colpitts 3, 3 and 3; Lorenz-63 2, 3
+    and 2; a tanh or exp counted as one operation and fractions rounded
+    down, so that the bound stays a lower one). One-step forward, per residual
     entry: the residual (trapezoid 2f + 4, euler f + 3, forwardmap f + 1),
     then 2 to square and sum (3 with a weight row); the fused launch
     (``onestep_vag``) that and, per gradient entry, the residual, 1 to
@@ -1530,7 +1977,8 @@ def fe_work(kernel, c, B, diag):
     backward and 6 for the value's terms. The work is counted once per
     node, whatever a design evaluates again."""
     s = torch.finfo(c.dtype).bits // 8
-    f, jtv, ptv = (4, 7, 1) if c.model == "l96" else (12, 28, 23)
+    f, jtv, ptv = {"l96": (4, 7, 1), "nakl": (12, 28, 23),
+                   "colpitts": (3, 3, 3), "l63": (2, 3, 2)}[c.model]
     n_x = B * c.N_f * c.D
     nbytes = (n_x * s + B * c.NP * s + int(diag) * (c.N_f - 1) * c.D * s
               + int(c.stim is not None) * c.N_f * s)
@@ -2875,7 +3323,9 @@ def main():
     loop_iters = int(niter_f.max(axis=0).sum())
     lockstep_f = int(nfev_f.max(axis=0).sum())
     t_tail = time.perf_counter()
-    tail_f = run_ladder(act64, parts64a, res_f.XP.double(),
+    # the tail of member 0 alone, the member its check reads (all four in
+    # lockstep took 44.79 s on a slow host, CHANGES.md)
+    tail_f = run_ladder(act64, parts64a, res_f.XP[:1].double(),
                         np.arange(MAIN["n_beta"] - MAIN["tail"],
                                   MAIN["n_beta"]), rf0, MAIN["alpha"],
                         opts=opts64, store_paths=False, device=dev)
@@ -2895,8 +3345,7 @@ def main():
           f"slowest member (phase 6 profiles the compact loop)")
     print(f"fused loop f64 tail: {MAIN['tail']} rungs in {wall_tail_f:.2f} "
           f"s; final_A_tail64 member 0 {fa_f:.6f} vs JAX "
-          f"{JAX_FINAL_A_TAIL64:.6f} (rel {rel_f:.3e}, bound 1e-2); "
-          "members " + ", ".join(f"{a:.6f}" for a in A_tf[:, -1]))
+          f"{JAX_FINAL_A_TAIL64:.6f} (rel {rel_f:.3e}, bound 1e-2)")
     check(launch_f["k7b"] == loop_iters > 0,
           f"K7b launches {launch_f['k7b']} != loop iterations {loop_iters}")
     check(launch_f["k7a"] == 0, "the fused loop launched K7a")
@@ -4290,6 +4739,18 @@ def main():
                           res.paths[0, INNER_MID - 1].cpu().numpy(),
                           zero_counts, run_counts)
     phase("29 other inner solvers", t0)
+
+    # ---- 30. the built-in row models on K6: Colpitts and Lorenz-63 ---------
+    t0 = time.perf_counter()
+    tws = row_twins()
+    err30, rel30, k6r = k6_row_models(dev, tws)
+    out30 = row_paths(dev, tws, zero_counts, run_counts)
+    phase("30 built-in models on K6", t0)
+
+    # ---- 31. diag, profiling, support --------------------------------------
+    t0 = time.perf_counter()
+    out31 = diag_profiling_support(dev, tws)
+    phase("31 diag, profiling, support", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -4399,6 +4860,25 @@ def main():
             plain_ms=k6[kern]["plain_ms"], bound_ms=k6[kern]["bound"][0],
             bound_by=k6[kern]["bound"][1],
             autograd_ms=k6[kern]["autograd_ms"], **line)
+        # Colpitts and Lorenz-63 (phase 30): launches on their paths (the
+        # one-step kernels the facade ladders', the Hermite–Simpson ones
+        # the runner's (Colpitts) and the Hermite–Simpson ladder's
+        # (Lorenz-63)), errors over the checks, times at one member in f32
+        ck = ("k6_fwd" if kern == "onestep_fwd" else "k6_vag"
+              if kern == "onestep_vag" else f"k6_{kern}")
+        sh = kern.startswith("sh_")
+        for m, path in (("colpitts", "runner" if sh else "colpitts_pallas"),
+                        ("l63", "l63_SimpsonHermite" if sh
+                         else "l63_trapezoid")):
+            t = k6r[m][kern]
+            e.update({f"{m}_launches": out30[path]["launches"][ck],
+                      f"{m}_max_abs_err": err30[m][kern],
+                      f"{m}_max_rel_err": rel30[m][kern],
+                      f"{m}_ms": t["ms"], f"{m}_device_ms": t["device_ms"],
+                      f"{m}_plain_ms": t["plain_ms"],
+                      f"{m}_bound_ms": t["bound"][0],
+                      f"{m}_bound_by": t["bound"][1],
+                      f"{m}_autograd_ms": t["autograd_ms"]})
         if kern in k6d:         # K6d: B=8, f64, the ensemble's launches
             e.update(batched_launches=cnt_b[f"k6_{kern}"],
                      batched_ms=k6d[kern]["ms"],

@@ -138,16 +138,3 @@ def test_runner_in_process_compensated_checkpointed(tmp_path):
                                   out[0])
     np.testing.assert_array_equal(
         np.loadtxt(tmp_path / "run_action_errors.dat"), out[1])
-
-
-@pytest.mark.parametrize("name", ["colpitts"])
-def test_runner_waiting_models_raise(name, tmp_path):
-    _data(tmp_path)
-    cfg = dict(model={"name": name, "D": 4},
-               data={"file": str(tmp_path / "data.npy")}, P0=[1.0],
-               alpha=1.5, beta_array={"stop": 2}, RM=1.0, RF0=1.0,
-               Lidx=[0])
-    path = tmp_path / "cfg.json"
-    path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.main([str(path), "--f32", "--device", "cpu"])

@@ -274,11 +274,14 @@ def test_select_action_pallas_policy(monkeypatch):
     for bad in (st_tdp, bent):
         with pytest.raises(ValueError, match="pallas"):
             fe.select_action(bad, 1e-2, engine="pallas", device="cpu")
-    st63 = build_spec(lorenz63, 3, Y, t, [0, 2], 4.0,
-                      P=np.array([10.0, 28.0, 8 / 3]), pidx=[0])
+    def user_f(t, x, p):
+        return lorenz63(t, x, p) - x
+
+    st_user = build_spec(user_f, 3, Y, t, [0, 2], 4.0,
+                         P=np.array([10.0, 28.0, 8 / 3]), pidx=[0])
     stim = build_spec(lorenz96, 6, Y, t, [0, 2], 4.0, P=np.array([8.0]),
                       pidx=[0], stim=np.ones((N, 1)))
-    for bad, item in ((st63, "item 8"), (stim, "with a stimulus")):
+    for bad, item in ((st_user, "§2a item 3"), (stim, "with a stimulus")):
         with pytest.raises(NotImplementedError, match=item):
             fe.select_action(bad, 1e-2, engine="pallas", device="cpu")
     # engine='auto' as the card decides it (the actions are built lazily,

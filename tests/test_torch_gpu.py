@@ -22,7 +22,8 @@ their plain versions at configs #1, #2 and #5's shapes (f64 1e-12, f32
 against the forward and backward (Lorenz-96 and NaKL), engine='pallas'
 through autograd on the card and its value_and_grad, one fused launch a
 call, and the fused one-step launch against its plain version and
-against the forward (Lorenz-96 and NaKL, the three rules). K5
+against the forward (Lorenz-96 and NaKL, the three rules), and the
+four kernels on Colpitts and Lorenz-63 against their plain versions. K5
 (kernels/csrc/agt_kernel.cu) against its plain version over the three
 one-step rules × scalar and (N_f-1, D) rf at D = 20, 40 and 64 and at
 D = 64 with N = 1,001 (f64 1e-12, f32 2e-5), and K8
@@ -609,6 +610,79 @@ def test_fe_nakl_kernels_match_plain(cuda, dtype, tol):
                 assert torch.equal(p_k, fe.fe_partials(X, pest, rf, c))
                 assert torch.equal(g_k, again[0])
                 assert torch.equal(gp_k, again[1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_fe_row_models_match_plain(cuda, dtype, tol):
+    """K6 on Colpitts (its twin cut to N=201, eta or all four estimated)
+    and Lorenz-63 (an RK4 path, rho or all three): the four discs, scalar
+    and (N_f-1, 3) rf, B = 1 and 3, the kernels against their plain
+    versions (the torch model, torch.func.vjp) on the CPU: the value
+    within tol relative, the gradient rows and the full parameter
+    gradient within tol of max|g|; one launch each; repeats
+    bit-identical."""
+    from varanneal_tpu_torch.models import (COLPITTS_P_TRUE, colpitts,
+                                            lorenz63)
+    from varanneal_tpu_torch.twin import _rk4_np, colpitts_twin
+    tw = colpitts_twin(N_data=201)
+    P63 = np.array([10.0, 28.0, 8.0 / 3.0])
+
+    def l63_np(x):
+        return np.array([P63[0] * (x[1] - x[0]), x[0] * (P63[1] - x[2])
+                         - x[1], x[0] * x[1] - P63[2] * x[2]])
+    x63 = _rk4_np(l63_np, _rk4_np(l63_np, [1.0, 1.0, 20.0], 0.01,
+                                  500)[-1], 0.01, 200)
+    rng = np.random.default_rng(6)
+    problems = (
+        (colpitts, tw["traj"], tw["Y"], tw["t"], tw["Lidx"],
+         np.asarray(COLPITTS_P_TRUE), ([3], [0, 1, 2, 3])),
+        (lorenz63, x63, x63[:, [0, 2]], 0.01 * np.arange(201), [0, 2], P63,
+         ([1], [0, 1, 2])))
+    for f, traj, Y, t, Lidx, P, pidxs in problems:
+        for disc in ("euler", "trapezoid", "forwardmap", "SimpsonHermite"):
+            for pidx in pidxs:
+                spec = build_spec(f, 3, Y, t, Lidx, 1.0, disc=disc, P=P,
+                                  pidx=pidx)
+                c = fe.fe_consts(spec, dtype, cuda, block_n=64)
+                cc = fe.fe_consts(spec, dtype, "cpu", block_n=64)
+                s_ = np.arange(spec.N_f) * 200 / (spec.N_f - 1)
+                Xn = np.stack([np.interp(s_, np.arange(201), traj[:, d])
+                               for d in range(3)], axis=-1)
+                for B in (1, 3):
+                    X = torch.tensor(Xn + 0.05 * np.std(traj, axis=0)
+                                     * rng.normal(size=(B, spec.N_f, 3)),
+                                     dtype=dtype, device=cuda)
+                    pb = P[pidx]
+                    pest = torch.tensor(pb + 0.05 * np.abs(pb) * rng.normal(
+                        size=(B, len(pidx))), dtype=dtype, device=cuda)
+                    for rf in (1e-2, torch.tensor(rng.uniform(
+                            0.5, 2.0, (spec.N_f - 1, 3)), dtype=dtype,
+                            device=cuda)):
+                        n0 = _k6_launches()
+                        p_k = fe.fe_partials(X, pest, rf, c)
+                        g_k, gp_k = fe.fe_adjoint(X, pest, rf, c)
+                        torch.cuda.synchronize()
+                        assert _k6_launches() == n0 + 2
+                        rc = rf.cpu() if isinstance(rf, torch.Tensor) else rf
+                        p_r = fe.fe_partials(X.cpu(), pest.cpu(), rc, cc)
+                        g_r, gp_r = fe.fe_adjoint(X.cpu(), pest.cpu(), rc,
+                                                  cc)
+                        v_k, v_r = p_k.sum(1).cpu(), p_r.sum(1)
+                        assert float(torch.max(torch.abs(v_k - v_r)
+                                               / v_r.abs())) <= tol
+                        sc = torch.maximum(
+                            torch.amax(torch.abs(g_r), dim=(1, 2)),
+                            torch.amax(torch.abs(gp_r), dim=1))
+                        assert float(torch.max(torch.amax(torch.abs(
+                            g_k.cpu() - g_r), dim=(1, 2)) / sc)) <= tol
+                        assert float(torch.max(torch.amax(torch.abs(
+                            gp_k.cpu() - gp_r), dim=1) / sc)) <= tol
+                        again = fe.fe_adjoint(X, pest, rf, c)
+                        assert torch.equal(p_k, fe.fe_partials(X, pest, rf,
+                                                               c))
+                        assert torch.equal(g_k, again[0])
+                        assert torch.equal(gp_k, again[1])
 
 
 def test_fe_action_on_the_card(cuda):

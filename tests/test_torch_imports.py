@@ -43,6 +43,9 @@ def test_import_leaves_jax_out():
             "import varanneal_tpu_torch.workflow\n"
             "import varanneal_tpu_torch.ops.multi\n"
             "import varanneal_tpu_torch.models.nakl\n"
+            "import varanneal_tpu_torch.models.colpitts\n"
+            "import varanneal_tpu_torch.diag, varanneal_tpu_torch.profiling\n"
+            "import varanneal_tpu_torch.support\n"
             "import varanneal_tpu_torch.parallel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"

@@ -18,5 +18,7 @@ __version__ = "0.1.0"
 from varanneal_tpu_torch import models, ops, opt, anneal, parallel  # noqa: F401
 from varanneal_tpu_torch import io, va_ode, va_nnet  # noqa: F401
 from varanneal_tpu_torch import workflow  # noqa: F401  (staged estimation)
+from varanneal_tpu_torch import diag, profiling, support  # noqa: F401
 from varanneal_tpu_torch.api import Annealer  # noqa: F401
-from varanneal_tpu_torch.twin import lorenz96_twin, nakl_twin  # noqa: F401
+from varanneal_tpu_torch.twin import (  # noqa: F401
+    colpitts_twin, lorenz96_twin, nakl_twin)

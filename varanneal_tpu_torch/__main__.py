@@ -5,7 +5,7 @@ The counterpart of ``python -m varanneal_tpu`` (``varanneal_tpu/__main__.py``)
 on the port. The JSON config holds the ``AnnealConfig`` fields plus:
 
   "model":  {"name": one of the port's models ("lorenz96", "lorenz63",
-             "nakl"), "D": state dimension};
+             "nakl", "colpitts"), "D": state dimension};
   "data":   {"file": "...", "stim_file": "...", "nstart": 0, "N": null}
             (``set_data_fromfile`` semantics: column 0 is time);
   "X0":     optional .npy path for the initial path (default: zeros, with
@@ -29,11 +29,6 @@ import sys
 import numpy as np
 import torch
 
-# models named in the reference's runner that the port has not yet, with
-# their ROADMAP.md items
-_WAITING_MODELS = {"colpitts": "§1 item 8 (models/colpitts.py)"}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m varanneal_tpu_torch")
     ap.add_argument("config", help="JSON config file")
@@ -55,11 +50,6 @@ def main(argv=None):
 
     model_name = raw["model"]["name"]
     D = int(raw["model"]["D"])
-    if model_name in _WAITING_MODELS:
-        raise NotImplementedError(
-            f"model {model_name!r} waits for a later slice of the port; see "
-            f"ROADMAP.md, 'Modules still to port', "
-            f"{_WAITING_MODELS[model_name]}")
     f = getattr(models, model_name)
 
     ann = Annealer(device=args.device)

@@ -45,8 +45,8 @@ of ``pallas_call``.
 
 What waits for later slices (ROADMAP.md) raises NotImplementedError
 naming its item: ``engine='pallas'`` for a problem outside K6's
-envelope (a model other than Lorenz-96 and NaKL, §1 item 8; the error
-names the condition).
+envelope (a user model, which needs a hand-written f, Jᵀv and
+parameter adjoint: §2a item 3; the error names the condition).
 
 Exit flags are mapped to SciPy-like codes: 0 converged (pgtol or ftol),
 1 maxiter exhausted, 2 line-search failure.

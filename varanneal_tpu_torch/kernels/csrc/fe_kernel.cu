@@ -92,16 +92,22 @@
 // Lorenz-96 (kNP = 1) reads F from global memory, and its arithmetic is
 // the one of the L96-only kernels, bit for bit; NaKL stages its 19
 // parameters, extended by 1/Cm and the gates' 1/dva, in shared memory.
+// Colpitts (colpitts.cuh) and Lorenz-63 (l63.cuh), D = 3 and 4 or 3
+// parameters, take NaKL's row-level paths with no stimulus: a thread an
+// interval or node, each node's f (and Colpitts' exp(-x1)) evaluated once
+// and reused by Jᵀv and the parameter adjoint.
 
 #include <cuda_runtime.h>
 
+#include "colpitts.cuh"
+#include "l63.cuh"
 #include "l96_ag.cuh"
 #include "nakl.cuh"
 
 namespace {
 
 enum Disc { kEuler = 0, kTrapezoid = 1, kForwardmap = 2 };
-enum ModelId { kL96 = 0, kNaKL = 1 };
+enum ModelId { kL96 = 0, kNaKL = 1, kColpitts = 2, kL63 = 3 };
 
 // Lorenz-96 with p = [F]: df_d/dF = 1, so F's adjoint is Σ_d v_d. Its
 // kernels map a thread to an (interval or row, component) pair (kRow
@@ -158,6 +164,59 @@ struct NaKL {
                                    const Node<T>& nd, const T* v, T* jt,
                                    T* acc) {
         nakl_adjoint_row(x, px, nd, v, jt, acc);
+    }
+};
+
+// Colpitts (D = 3, p = [alpha, gamma, q, eta], no stimulus): row-level
+// as NaKL, its node f and e = exp(-x1) (colpitts_node).
+struct Colpitts {
+    static constexpr int kNP = colpitts::kNP;
+    static constexpr int kNPX = kNP;
+    static constexpr int kD = 3;
+    static constexpr bool kStim = false;
+    static constexpr bool kRow = true;
+    static constexpr int kMaxThreads = 256;
+    template <typename T>
+    using Node = colpitts::Node<T>;
+    template <typename T>
+    __device__ static T param(const T* p, int j) {
+        return p[j];
+    }
+    template <typename T>
+    __device__ static void node(const T* x, const T* px, T, Node<T>& nd) {
+        colpitts_node(x, px, nd);
+    }
+    template <typename T>
+    __device__ static void adjoint(const T* x, const T* px,
+                                   const Node<T>& nd, const T* v, T* jt,
+                                   T* acc) {
+        colpitts_adjoint_row(x, px, nd, v, jt, acc);
+    }
+};
+
+// Lorenz-63 (D = 3, p = [sigma, rho, beta], no stimulus): row-level as
+// NaKL, its node f alone (l63_node).
+struct L63 {
+    static constexpr int kNP = l63::kNP;
+    static constexpr int kNPX = kNP;
+    static constexpr int kD = 3;
+    static constexpr bool kStim = false;
+    static constexpr bool kRow = true;
+    static constexpr int kMaxThreads = 256;
+    template <typename T>
+    using Node = l63::Node<T>;
+    template <typename T>
+    __device__ static T param(const T* p, int j) {
+        return p[j];
+    }
+    template <typename T>
+    __device__ static void node(const T* x, const T* px, T, Node<T>& nd) {
+        l63_node(x, px, nd);
+    }
+    template <typename T>
+    __device__ static void adjoint(const T* x, const T* px, const Node<T>&,
+                                   const T* v, T* jt, T* acc) {
+        l63_adjoint_row(x, px, v, jt, acc);
     }
 };
 
@@ -625,8 +684,9 @@ __device__ __forceinline__ void onestep_pairs(
 // halo nodes its residuals read.
 constexpr int kWarpRows = 30;
 
-// Row-level model (NaKL): warp w of the block owns rows [m0 + 30 w,
-// m0 + 30 w + 30) of the block's, and lane l node k = m0 + 30 w - 1 + l.
+// Row-level model (NaKL, Colpitts, Lorenz-63): warp w of the block owns
+// rows [m0 + 30 w, m0 + 30 w + 30) of the block's, and lane l node
+// k = m0 + 30 w - 1 + l.
 // A lane loads its row of x and its current, evaluates its node once
 // (Model::node: f and what the adjoint reuses), takes x and f of node
 // k + 1 from the next lane to form residual k and wr_k, and wr_{k-1} from
@@ -860,6 +920,8 @@ int sh_vag(const void* X, long long x_bs, const void* P, long long p_bs,
     switch (model) {                                                        \
         case kL96: CALL(L96);                                               \
         case kNaKL: CALL(NaKL);                                             \
+        case kColpitts: CALL(Colpitts);                                     \
+        case kL63: CALL(L63);                                               \
         default: return kBadArg;                                            \
     }
 
@@ -980,10 +1042,11 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 = cudaSuccess). Pointers
 // are device pointers. model: 0 Lorenz-96 (1 parameter), 1 NaKL (D = 4,
-// 19 parameters). X: member b's (N_f, D) state rows start at X + b·x_bs,
+// 19 parameters), 2 Colpitts (D = 3, 4 parameters), 3 Lorenz-63 (D = 3,
+// 3 parameters). X: member b's (N_f, D) state rows start at X + b·x_bs,
 // rows contiguous; P: member b's full (linear) parameter row at P + b·p_bs
 // (p_bs = 0: one row for every member); stim: the (N_f,) injected current
-// on the model grid, or null (NaKL only; Lorenz-96 ignores it); rf:
+// on the model grid, or null (NaKL only; the other models ignore it); rf:
 // (N_f - 1, D) contiguous for diag = 1, else null and rf_s the scalar.
 // disc: 0 euler, 1 trapezoid, 2 forwardmap. bn (bk): rows (intervals) a
 // block, ``threads`` a block (whole warps, at most the model's launch

@@ -25,23 +25,26 @@ design does about that):
 Every kernel runs on a (time block, member) grid, so B = 1 is K6c and
 B > 1 is K6d. The kernels size their blocks from the batch's rows (B·M
 intervals, B·N_f rows) and the card's SM count (:func:`rows_per_block`):
-a thread takes one interval or row of NaKL (each node's model evaluated
-once, reused by the residuals, Jᵀv and the parameter adjoint) or one
+a thread takes one interval or row of a row-level model (NaKL, Colpitts,
+Lorenz-63: each node's model evaluated once, reused by the residuals, Jᵀv and the parameter adjoint) or one
 (interval or row, component) pair of Lorenz-96. A value-only launch and
 the fused one share their blocks, so their value partials agree bit for
-bit. The kernels take two models, each with f, Jᵀv and the
-parameter adjoint written by hand: Lorenz-96 (``models.lorenz.lorenz96``)
-and NaKL (``models.nakl.nakl``, or a log-space model of
-``models.nakl.nakl_log_model``; ``csrc/nakl.cuh``) with its stimulus.
+bit. The kernels take four models, each with f, Jᵀv and the
+parameter adjoint written by hand: Lorenz-96 (``models.lorenz.lorenz96``),
+NaKL (``models.nakl.nakl``, or a log-space model of
+``models.nakl.nakl_log_model``; ``csrc/nakl.cuh``) with its stimulus,
+Colpitts (``models.colpitts.colpitts``; ``csrc/colpitts.cuh``) and
+Lorenz-63 (``models.lorenz.lorenz63``; ``csrc/l63.cuh``). NaKL, Colpitts
+and Lorenz-63 are row-level models: a thread owns an interval or row.
 The wrapper merges the estimated values into the fixed parameters
 (:func:`full_params`, the reference's ``_merge``), exponentiates a log
 model's coordinates before the launch and applies the chain rule to
 their gradient after it, so a kernel always sees linear parameters.
 Beside each kernel is its plain PyTorch version (``*_reference``), which
 returns the same per-block partials: for Lorenz-96 it spells out the same
-hand adjoint on ``torch.roll``, for NaKL it evaluates the port's torch
-``nakl`` and takes the adjoint with ``torch.func.vjp``, a derivation
-independent of the hand-written one. The CPU path and the tests use them,
+hand adjoint on ``torch.roll``, for a row-level model it evaluates the
+port's torch model and takes the adjoint with ``torch.func.vjp``, a
+derivation independent of the hand-written one. The CPU path and the tests use them,
 and a wrapper takes its plain version only for tensors on the CPU: on a
 CUDA tensor it launches its kernel or raises. Each wrapper counts its
 launches (:data:`FWD_LAUNCHES`, :data:`ONESTEP_VAG_LAUNCHES`,
@@ -84,7 +87,8 @@ import torch
 
 from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.kernels import ag
-from varanneal_tpu_torch.models.lorenz import lorenz96
+from varanneal_tpu_torch.models.colpitts import colpitts
+from varanneal_tpu_torch.models.lorenz import lorenz63, lorenz96
 from varanneal_tpu_torch.models.nakl import nakl
 from varanneal_tpu_torch.ops import action as _action
 from varanneal_tpu_torch.ops.spec import ProblemSpec
@@ -97,8 +101,11 @@ _DISCS = _ONE_STEP + ("SimpsonHermite",)
 _DISC_CODE = {"euler": 0, "trapezoid": 1, "forwardmap": 2}
 #: The kernels' models (``ModelId`` in csrc/fe_kernel.cu) and their
 #: parameter counts.
-_MODEL_CODE = {"l96": 0, "nakl": 1}
-_MODEL_NP = {"l96": 1, "nakl": 19}
+_MODEL_CODE = {"l96": 0, "nakl": 1, "colpitts": 2, "l63": 3}
+_MODEL_NP = {"l96": 1, "nakl": 19, "colpitts": 4, "l63": 3}
+#: The port's torch model of each row-level model: the plain versions
+#: evaluate it and take its adjoint with torch.func.vjp.
+_ROW_F = {"nakl": nakl, "colpitts": colpitts, "l63": lorenz63}
 _DTYPES = (torch.float32, torch.float64)
 
 #: Launches so far of fe_onestep_fwd (K6a), fe_onestep_vag (K6b with
@@ -117,12 +124,12 @@ SH_VAG_LAUNCHES = 0
 #: ``kMaxThreads`` in csrc/fe_kernel.cu, which refuses more), whether a
 #: thread owns an interval or row (row-level, ``kRow``) and the parameter
 #: row a block stages (``kNPX``: NaKL's 19 values, 1/Cm and three 1/dva;
-#: the envelope's shared memory).
+#: Colpitts' and Lorenz-63's own values; the envelope's shared memory).
 BLOCKS_PER_SM = 2
 DEFAULT_SMS = 132
-_MAX_THREADS = {"l96": 1024, "nakl": 256}
-_ROW_MODEL = {"l96": False, "nakl": True}
-_NPX = {"l96": 1, "nakl": 23}
+_MAX_THREADS = {"l96": 1024, "nakl": 256, "colpitts": 256, "l63": 256}
+_ROW_MODEL = {"l96": False, "nakl": True, "colpitts": True, "l63": True}
+_NPX = {"l96": 1, "nakl": 23, "colpitts": 4, "l63": 3}
 #: Lorenz-96's (interval or row, component) pairs a block takes at most,
 #: where D allows more than one.
 _MAX_PAIRS = 256
@@ -237,11 +244,11 @@ def rows_per_block(kernel: str, n_rows: int, D: int, block_n: int,
     ceil(B·n_rows / (:data:`BLOCKS_PER_SM` · n_sm)) a block, so that
     even one member covers the SMs. Lorenz-96 takes ``want`` but at most
     256 // D (256 pairs a block, one from D = 129 on). A row-level model
-    (NaKL) rounds ``want`` up to whole warps: under Hermite–Simpson 32
+    (NaKL, Colpitts, Lorenz-63) rounds ``want`` up to whole warps: under Hermite–Simpson 32
     intervals a warp, between 32 and its 256 threads; for a one-step disc
     :data:`ONESTEP_WARP_ROWS` rows a warp, between one warp and eight.
     Either way at most ``block_n`` and ``n_rows``. So a thread takes one
-    interval or row (NaKL) or one pair (Lorenz-96 up to D = 1,024 under
+    interval or row (a row-level model) or one pair (Lorenz-96 up to D = 1,024 under
     Hermite–Simpson, 512 one-step: :func:`sh_threads`,
     :func:`onestep_threads`), and the staged rows of Lorenz-96's
     one-interval or one-row block bound its D
@@ -262,14 +269,20 @@ def rows_per_block(kernel: str, n_rows: int, D: int, block_n: int,
     return max(1, min(bk, int(block_n), n_rows))
 
 
+#: The kernels' models by the port's vector field.
+_MODEL_OF = {lorenz96: "l96", nakl: "nakl", colpitts: "colpitts",
+             lorenz63: "l63"}
+#: A D = 3 model's name in a refusal.
+_NAME_3 = {"colpitts": "Colpitts", "l63": "Lorenz-63"}
+
+
 def model_of(f):
     """``(model, log_idx)`` of a vector field the kernels take: ('l96', ())
-    for ``lorenz96``, ('nakl', ()) for ``nakl``, ('nakl', log_idx) for a
+    for ``lorenz96``, ('nakl', ()) for ``nakl``, ('colpitts', ()) for
+    ``colpitts``, ('l63', ()) for ``lorenz63``, ('nakl', log_idx) for a
     model of ``nakl_log_model``; None for any other."""
-    if f is lorenz96:
-        return "l96", ()
-    if f is nakl:
-        return "nakl", ()
+    if f in _MODEL_OF:
+        return _MODEL_OF[f], ()
     log_idx = getattr(f, "log_idx", None)
     if getattr(f, "base", None) is nakl and isinstance(log_idx, tuple):
         return "nakl", log_idx
@@ -281,10 +294,22 @@ def fe_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
     or None where it does (:func:`fe_kernel_supported`)."""
     m = model_of(spec.f)
     if m is None:
-        return ("the model is neither Lorenz-96 (models.lorenz96) nor NaKL "
-                "(models.nakl or a model of models.nakl_log_model)")
+        return ("the model is neither Lorenz-96 (models.lorenz96), NaKL "
+                "(models.nakl or a model of models.nakl_log_model), Colpitts "
+                "(models.colpitts) nor Lorenz-63 (models.lorenz63)")
     model, log_idx = m
-    if model == "l96":
+    if model in _NAME_3:
+        name, NP = _NAME_3[model], _MODEL_NP[model]
+        if spec.D != 3:
+            return f"{name} with D = {spec.D} (its state has 3 components)"
+        if spec.NP != NP:
+            return f"{name} with NP = {spec.NP} (it has {NP} parameters)"
+        if (len(set(spec.pidx)) != len(spec.pidx)
+                or not all(0 <= j < NP for j in spec.pidx)):
+            return f"{name} with pidx {spec.pidx}"
+        if spec.stim_f is not None:
+            return f"{name} with a stimulus"
+    elif model == "l96":
         if spec.D < 4:
             return f"Lorenz-96 with D = {spec.D} < 4"
         if spec.stim_f is not None:
@@ -340,6 +365,9 @@ def fe_kernel_supported(spec: ProblemSpec, rf=0.0,
     - NaKL (``models.nakl.nakl`` or a model of ``nakl_log_model``, D = 4,
       NP = 19, any ``pidx``), with or without a stimulus (column 0 of an
       (N_f, S) ``stim_f``);
+    - Colpitts (``models.colpitts.colpitts``, D = 3, NP = 4) and
+      Lorenz-63 (``models.lorenz.lorenz63``, D = 3, NP = 3), any distinct
+      ``pidx``, without a stimulus;
 
     and for both: constant parameters, any of the four discs, scalar or
     (N_f-1, D) rf, a uniform grid, float32 or float64, and the smallest
@@ -380,7 +408,8 @@ def _k6_waits(spec: ProblemSpec, rf, dtype):
         "the time-blocked FE kernels K6 do not take this problem: "
         f"{fe_refusal(spec, rf, dtype)} (kernels.fe.fe_kernel_supported); "
         "the reference runs K6 here, which waits for a later slice of the "
-        "port: see ROADMAP.md, §1 item 8 (other models)")
+        "port: see ROADMAP.md, §2a item 3 (user models: a hand-written f, "
+        "Jᵀv and parameter adjoint each)")
 
 
 def select_action(spec: ProblemSpec, rf, engine: str = "auto",
@@ -412,8 +441,7 @@ def select_action(spec: ProblemSpec, rf, engine: str = "auto",
                     "reference runs its whole-problem kernel K1 here, and "
                     f"the port's K1 refuses this problem: {why}. Its "
                     "widening waits for a later slice: see ROADMAP.md §2a "
-                    "item 2 and §1 items 5 and 8; pass engine='xla' for "
-                    "the autograd action")
+                    "item 2; pass engine='xla' for the autograd action")
             engine = "ag"
         elif pallas_preferred(spec, rf, dtype, device):
             engine = "pallas"
@@ -451,7 +479,7 @@ class FeConsts:
     N_f: int
     D: int
     M: int                  # Hermite–Simpson intervals, (N_f - 1) // 2
-    model: str              # 'l96' or 'nakl'
+    model: str              # 'l96', 'nakl', 'colpitts' or 'l63'
     pidx: tuple             # estimated parameters (indices into NP)
     log_idx: tuple          # coordinates estimated in log space
     P_base: tuple           # (NP,) floats
@@ -633,27 +661,28 @@ def _stim_rows(c: FeConsts, X, sl):
     return None if c.stim is None else c.stim.to(X.dtype)[sl, None]
 
 
-def _nakl_rows(X, P, stim):
-    """The port's torch ``nakl`` on rows X (B, R, 4) with parameter rows P
-    (B, NP) or (B, R, NP) and currents ``stim`` (R, 1) or None."""
+def _model_rows(X, P, stim, c: FeConsts):
+    """The port's torch model of a row-level model on rows X (B, R, D)
+    with parameter rows P (B, NP) or (B, R, NP) and currents ``stim``
+    (R, 1) or None."""
     Pr = P[:, None, :] if P.ndim == 2 else P
-    return nakl(None, X, Pr if stim is None else (Pr, stim))
+    return _ROW_F[c.model](None, X, Pr if stim is None else (Pr, stim))
 
 
 def _fX(X, P, c: FeConsts, sl=slice(None)):
     """f on the rows X (B, R, D) (model-grid rows ``sl``)."""
     if c.model == "l96":
         return _l96(X, P[:, :1].reshape(-1, 1, 1))
-    return _nakl_rows(X, P, _stim_rows(c, X, sl))
+    return _model_rows(X, P, _stim_rows(c, X, sl), c)
 
 
-def _nakl_vjp(X, P, v, c: FeConsts, sl):
+def _row_vjp(X, P, v, c: FeConsts, sl):
     """(J(x)ᵀ v per row (B, R, D), the rows' parameter adjoints
-    Σ_d df_d/dp v_d (B, R, NP)) of NaKL at rows X (model-grid rows
-    ``sl``), by torch.func.vjp of the torch model."""
+    Σ_d df_d/dp v_d (B, R, NP)) of a row-level model at rows X
+    (model-grid rows ``sl``), by torch.func.vjp of the torch model."""
     stim = _stim_rows(c, X, sl)
     Pr = P[:, None, :].expand(X.shape[0], X.shape[1], P.shape[-1])
-    _, vjp = torch.func.vjp(lambda x, p: _nakl_rows(x, p, stim), X, Pr)
+    _, vjp = torch.func.vjp(lambda x, p: _model_rows(x, p, stim, c), X, Pr)
     return vjp(v)
 
 
@@ -728,7 +757,7 @@ def onestep_vag_reference(X, pest, rf, c: FeConsts):
         gx = wr_prev - a1 * wr_cur - _l96_jtv(X, v)
         gF = -(c0 + c1) * _block_sums(wr, bn, c.n_blocks(B))
         return parts, gx, gF[:, None, :]
-    jtv, pbar = _nakl_vjp(X, P, v, c, slice(None))
+    jtv, pbar = _row_vjp(X, P, v, c, slice(None))
     return (parts, wr_prev - a1 * wr_cur - jtv,
             -_block_param_sums(pbar, bn))
 
@@ -778,9 +807,9 @@ def sh_vag_reference(X, pest, rf, c: FeConsts):
         ge1 = WS - 0.5 * WH + _l96_jtv(xe1, v1)
         return parts, ge0, gm, ge1, _block_sums(v0 + vm + v1, bk)[:, None, :]
     M = c.M
-    j0, p0 = _nakl_vjp(xe0, P, v0, c, slice(0, 2 * M, 2))
-    jm, pm = _nakl_vjp(xm, P, vm, c, slice(1, 2 * M, 2))
-    j1, p1 = _nakl_vjp(xe1, P, v1, c, slice(2, 2 * M + 1, 2))
+    j0, p0 = _row_vjp(xe0, P, v0, c, slice(0, 2 * M, 2))
+    jm, pm = _row_vjp(xm, P, vm, c, slice(1, 2 * M, 2))
+    j1, p1 = _row_vjp(xe1, P, v1, c, slice(2, 2 * M + 1, 2))
     return (parts, -WS - 0.5 * WH + j0, WH + jm, WS - 0.5 * WH + j1,
             _block_param_sums(p0 + pm + p1, bk))
 

@@ -1,11 +1,11 @@
 """Twin-experiment data for the port (NumPy only).
 
-A copy of the Lorenz-96 and NaKL parts of ``varanneal_tpu/twin.py``
-(``rk4_path``, ``_rk4_np``, ``lorenz96_twin``, ``nakl_np_single``,
-``nakl_twin``), so that a seed gives bit-identical data in both packages
-without the port importing the JAX package. Data generation is a
-host-side loop of tiny steps, so it stays NumPy: the torch model is never
-called from it. The Colpitts twin waits for the port of its model.
+A copy of ``varanneal_tpu/twin.py`` (``rk4_path``, ``_rk4_np``,
+``lorenz96_twin``, ``nakl_np_single``, ``nakl_twin``, ``colpitts_np``,
+``colpitts_twin``), so that a seed gives bit-identical data in both
+packages without the port importing the JAX package. Data generation is
+a host-side loop of tiny steps, so it stays NumPy: the torch model is
+never called from it.
 """
 
 import numpy as np
@@ -132,3 +132,31 @@ def nakl_twin(N=3001, dt=0.04, sigma=1.0, seed=7, seg=150, i_max=35.0,
     traj = np.asarray(out)[::sub]
     V = traj[:, 0:1] + sigma * rng.normal(size=(N, 1))
     return dict(traj=traj, V=V, stim=stim, t=t, sigma=sigma)
+
+
+def colpitts_np(x, p):
+    """NumPy Colpitts tendency for a single state (3,); p as in
+    models.colpitts."""
+    alpha, gamma, q, eta = p[:4]
+    return np.array([alpha * x[1],
+                     -gamma * (x[0] + x[2]) - q * x[1],
+                     eta * (x[1] + 1.0 - np.exp(-x[0]))])
+
+
+def colpitts_twin(N_data=801, dt=0.05, sigma=0.05, seed=11, spin=4000,
+                  Lidx=(0,)):
+    """Colpitts twin data: the chaotic attractor at the standard operating
+    point, x1 observed (the literature's choice) with additive Gaussian
+    noise. Returns dict(traj, Y, t, Lidx, RM, sigma, dt)."""
+    from varanneal_tpu_torch.models.colpitts import COLPITTS_P_TRUE
+
+    rng = np.random.default_rng(seed)
+    p = np.asarray(COLPITTS_P_TRUE)
+    fnp = lambda x: colpitts_np(x, p)                  # noqa: E731
+    x0 = _rk4_np(fnp, np.array([0.1, 0.1, 0.1]), dt, spin)[-1]
+    traj = _rk4_np(fnp, x0, dt, N_data - 1)
+    Lidx = sorted(Lidx)
+    Y = traj[:, Lidx] + sigma * rng.normal(size=(N_data, len(Lidx)))
+    t = dt * np.arange(N_data)
+    return dict(traj=traj, Y=Y, t=t, Lidx=Lidx, RM=1.0 / sigma ** 2,
+                sigma=sigma, dt=dt)
