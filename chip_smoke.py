@@ -10,7 +10,10 @@ timed on its own line:
 2. build: K1 and K4 (kernels/csrc/ag_kernel.cu), K2/K3
    (kernels/csrc/solve_kernel.cu), K7a/K7b (kernels/csrc/dir_kernel.cu),
    K6 (kernels/csrc/fe_kernel.cu), K5 (kernels/csrc/agt_kernel.cu) and
-   K8 (kernels/csrc/pack_kernel.cu), one nvcc each, started together,
+   K8 (kernels/csrc/pack_kernel.cu), one nvcc each, started together
+   (K1-K4 under Lorenz-96's other rules, kernels/csrc/ag_rules_kernel.cu,
+   solve_rules_f32.cu and solve_rules_f64.cu, build in a thread that
+   phase 32 joins),
    into plain-C shared libraries, with nvcc's -Xptxas -v report
    (registers, spills, shared memory); with them a measuring build of
    solve_kernel.cu that counts the group barriers its kernels pass
@@ -217,7 +220,7 @@ timed on its own line:
    and through the autograd action: K6's A within 1e-8 relative of the
    autograd action's at every mutually converged rung;
 20. the facade at BASELINE config #2 as examples/lorenz96_d100_sh.py runs
-   it (engine='pallas', f32, maxiter 800, one init), cut to the first 40
+   it (engine='pallas', f32, maxiter 800, one init), cut to the first 35
    of its 61 rungs (CONF2['rungs_a']): one fused
    launch an evaluation, K6's Hermite–Simpson forward once a rung for the
    records and its backward never, no other kernel but K7b (whose launches
@@ -369,7 +372,34 @@ timed on its own line:
    ladder cut to its first ROW['traced_rungs'] rungs at maxiter
    ROW['traced_maxiter']: a trace file
    naming the fe_onestep_vag kernel, and ladder_stats of that run; the
-   port's support matrix printed.
+   port's support matrix printed;
+32. K1-K4 over Lorenz-96's rules (RULE32; rules_phase): (a) the
+   -Xptxas -v lines of ag_kernel.cu, solve_kernel.cu and pack_kernel.cu
+   (the trapezoid rule with a scalar rf) held to the parent's
+   (PTXAS_HELD); (b) K1 and K4 under the four rules x a scalar and an
+   (N_f-1, D) rf (less the trapezoid/scalar pair, phases 3 and 14's)
+   against their plain versions at the main shape, f32 (2e-5) and f64
+   (1e-12), B = 1 and 4, rf at beta 0 and 100, one launch a call and
+   repeats bit-identical; (c) each new entry's time at the main shape
+   (f32, B=4, rf of beta 50): CUDA events, device time (torch.profiler),
+   the plain version, the autograd action's value+grad, the bound; (d)
+   config #5's width (D=400, 160 observed, B=4) under Euler: engine='auto'
+   takes K1 for both rf kinds, held to the plain version; (e) config #2
+   through the facade with engine='ag' over its first RULE32['conf2']
+   rungs (f32, m 10: the generic loop over K1, as the reference's
+   solver='auto' keeps m > 8), K1's launches at least nfev, the records
+   finite, and K1 against the K6 action on config #2's draws at beta 0,
+   20 and 40 (both kernels; 4e-5, twice each one's own bound); (f) the
+   same rungs through solver='fused' at m 5 (K2), and K2 short solves
+   there against the plain solve; (g) K2 (both rf kinds, bounded or not)
+   and K3 (three rungs) short solves at the main shape under each rule
+   against the plain solve: equal niter, nfev and status, f64 f to 1e-8,
+   f32 f to 1e-4 or twice the plain solve's card-vs-CPU spread, bounded
+   f32 F32_BOUNDED_F_TOL; (h) the paths that launch K4 (the facade with
+   compensated=True under Hermite–Simpson), K2 with an (N_f-1, D) rf (the
+   facade under Euler with solver='fused') and K3 (make_ladder_solver
+   under Hermite–Simpson), each with the counts zeroed before it and read
+   after.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -425,6 +455,7 @@ script exits non-zero before that line.
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -432,6 +463,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -464,10 +496,12 @@ MAIN = dict(D=20, N_data=161, n_obs=8, B=4, n_beta=101, alpha=1.5,
 # at alpha 1.6 from RF0 = 1e-4, maxiter 800 (m stays the default 10);
 # phase 20's facade runs the first rungs_a of them: rungs 0..30 take a
 # few hundred evaluations in all and the later ones several hundred each,
-# so the cut from 61 keeps nine of those and frees what phases 28-29
-# take (host-bound, PERF.md §5)
+# so the cut from 61 keeps four of those (rungs 31..34; rungs 35..39, cut
+# for phase 32, took 2,538 of rungs 0..39's 3,625 iterations on the
+# H100) and frees what phases 28-29 and 32 take (host-bound, PERF.md §5;
+# phase 32 runs this problem through the facade again, on K1)
 CONF2 = dict(D=100, N_data=121, n_obs=40, sigma=1.0, n_beta=61, alpha=1.6,
-             rf0=1e-4, maxiter=800, B=8, rungs_a=40)
+             rf0=1e-4, maxiter=800, B=8, rungs_a=35)
 # BASELINE config #5 as examples/ensemble_sweep.py runs it in full: 1024
 # members (random_ensemble_inits, seed 12) of Lorenz-96 D=400, N_data=161,
 # 160 observed, trapezoid, F estimated from 4.0, f32, rf0 = 4e-6·RM,
@@ -569,6 +603,29 @@ PAIR_DESIGN_US = {("l96", "sh_fwd", "float32", 1): 6.41,
                   ("nakl", "sh_vag", "float64", 1): 23.21,
                   ("nakl", "sh_fwd", "float32", 64): 14.89,
                   ("nakl", "sh_vag", "float32", 64): 115.78}
+# phase 32: rf rungs of the checks (b) and of the times (c); config #2's
+# rungs through the facade (e, f: rungs 0..12 converge at their first
+# gradient test, 13..27 take ~150 iterations in all), its m there (the
+# example's 10) and K2's (f); the short solves' maxiter (g), K3's maxiter
+# a rung, rungs and first rung (beta_t, or ladder_beta's for a rule: the
+# forward map's f32 ladders part from round-off alone from these draws
+# at rungs 50..52, two f32 ladders of 12 iterations a rung 6.3 % apart,
+# the plain solve on the H100 against the CPU, and the kernel's 2.3e-3
+# from the plain one's at 6 a rung; from rung 15 they stay well-posed);
+# the rungs of the paths (h)
+RULE32 = dict(betas=(0, 100), beta_t=50, conf2=28, conf2_m=10, fused_m=5,
+              short_maxiter=12, ladder_maxiter=4, ladder_rungs=3,
+              ladder_beta={"forwardmap": 15}, path_rungs=3,
+              k6_betas=(0, 20, 40))
+RULES = ("trapezoid", "euler", "forwardmap", "SimpsonHermite")
+# The -Xptxas -v lines (_ptxas_lines) of the sources of K1-K4 under the
+# trapezoid rule with a scalar rf, and of K8, as their parent commit built
+# them on the H100 (sha256 of the lines joined, its first 16 digits, and
+# the count): phase 32 holds this build's to them, so that the rules'
+# code in the shared headers leaves those kernels as they were
+PTXAS_HELD = {"ag_kernel": ("70fb52ae83e33fe1", 12),
+              "solve_kernel": ("86e73e93ad03d09c", 48),
+              "pack_kernel": ("090ac56947cc49aa", 64)}
 # the box of phase 12 (tests/test_solve_pallas.py's) and of the facade
 BOX_TEST = [(-6.0, 6.0)] * 20 + [(3.0, 6.0)]
 BOX_FACADE = [(-10.0, 10.0)] * 20 + [(2.0, 12.0)]
@@ -650,7 +707,7 @@ def count_barriers(lib, fn):
     check(lib.va_barriers_read(ctypes.byref(n), 1) == 0,
           "resetting the barrier count failed")
     old = solve._lib
-    solve._lib = lambda: lib
+    solve._lib = lambda *a, **k: lib
     try:
         out = fn()
     finally:
@@ -2403,6 +2460,521 @@ def config1_inner(dev, tw, spec, X0q, xp_mid, zero_counts, run_counts):
     return out
 
 
+def rule_work(spec, disc, B, diag, comp=False):
+    """Bytes and operations of one launch of K1's rules' entries (K4's with
+    ``comp``) on B members: X read once, Y, W, lidx and lpos read once, an
+    (N_f-1, D) rf read once when ``diag``, A and the gradient (and K4's six
+    sums) written once; per residual entry of a one-step rule agt_work's
+    counts; per Hermite–Simpson interval and column f at two rows (10), the
+    two residuals (12), their weights with a diagonal rf (2) and the sums
+    (5), per even row the adjoint's v (5), Jᵀv (7) and its combination (5),
+    per odd row Jᵀv and 3; 9 per observation for ME and its gradient; with
+    ``comp`` a TwoSum (8) per ME and FE term."""
+    if disc != "SimpsonHermite":
+        nbytes, nops = agt_work(spec, disc, B, diag)
+        if comp:
+            n_obs = spec.N_data * spec.L
+            nbytes += B * 6 * 4
+            nops += B * 8 * ((spec.N_f - 1) * spec.D + n_obs)
+        return nbytes, nops
+    s = 4
+    n_obs = spec.N_data * spec.L
+    M = (spec.N_f - 1) // 2
+    nbytes = (2 * B * spec.n_dof * s + 2 * n_obs * s + 4 * (spec.L + spec.D)
+              + B * s + int(diag) * (spec.N_f - 1) * spec.D * s
+              + int(comp) * B * 6 * s)
+    nops = B * (M * spec.D * (27 + 2 * int(diag))
+                + (M + 1) * spec.D * 17 + M * spec.D * 10 + 9 * n_obs
+                + int(comp) * 8 * (2 * M * spec.D + n_obs))
+    return nbytes, nops
+
+
+def rules_phase(dev, tw, built, zero_counts, run_counts):
+    """Phase 32 (the module docstring's (a)-(h)): K1-K4 over Lorenz-96's
+    rules. ``tw`` is the main path's twin, ``built`` phase 2's libraries,
+    ``zero_counts``/``run_counts`` phase 15's counters. Returns the
+    kernels line's entries' numbers."""
+    from varanneal_tpu_torch.anneal.ladder import rung_rf
+    from varanneal_tpu_torch.api import Annealer
+    from varanneal_tpu_torch.kernels import ag, fe, solve
+    from varanneal_tpu_torch.models import lorenz96
+    from varanneal_tpu_torch.ops import build_spec, make_action
+    from varanneal_tpu_torch.ops import value_and_grad
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    from varanneal_tpu_torch.twin import lorenz96_twin
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(32)
+
+    def counts():
+        # phase 15's counts and the rules' entries' launches by key
+        return dict(run_counts(),
+                    rules=dict(ag.RULE_LAUNCHES, **solve.RULE_LAUNCHES))
+    out = dict(k1={}, k4={}, k2={}, k3={}, paths={})
+
+    # (a) the trapezoid/scalar sources compile as their parent's
+    for name, (digest, n_lines) in PTXAS_HELD.items():
+        log = built[name].log
+        if not log:
+            print(f"ptxas {name}: not read (the library was loaded from "
+                  "disk); not held")
+            continue
+        lines, _ = _ptxas_lines(log)
+        got = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+        print(f"ptxas {name}: {len(lines)} lines, sha256 {got} (the "
+              f"parent's {digest}, {n_lines} lines)")
+        check(got == digest and len(lines) == n_lines,
+              f"phase 32: {name}'s ptxas lines differ from the parent's")
+    out["ptxas_held"] = True
+
+    specs = {d: build_spec(lorenz96, MAIN["D"], tw["Y"], tw["t"],
+                           tw["Lidx"], tw["RM"], disc=d, P=np.array([4.0]),
+                           pidx=[0]) for d in RULES}
+    rf0 = 4e-6 * tw["RM"]
+    pairs = [(d, diag) for d in RULES for diag in (False, True)
+             if d != "trapezoid" or diag]
+
+    def rel_err(A, G, A_r, G_r):
+        scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+        return (max(float(torch.max(torch.abs(A - A_r) / torch.abs(A_r))),
+                    float(torch.max(torch.abs(G - G_r) / scale))),
+                max(float(torch.max(torch.abs(A - A_r))),
+                    float(torch.max(torch.abs(G - G_r)))))
+
+    # (b) K1 and K4 against their plain versions
+    W = {d: rng.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
+         for d, sp in specs.items()}
+    for d, diag in pairs:
+        sp = specs[d]
+        Zs = member_draws(sp, tw, 32)
+        for comp in (False, True):
+            key = ag.rule_key(d, diag, comp)
+            worst = err = 0.0
+            for dtype in (f64, f32):
+                tol = 1e-12 if dtype == f64 else 2e-5
+                c = ag.ag_consts(sp, dev, dtype)
+                for B in (1, MAIN["B"]):
+                    Z = torch.tensor(Zs[:B], dtype=dtype, device=dev)
+                    for beta in RULE32["betas"]:
+                        rf_b = float(rf0 * MAIN["alpha"] ** beta)
+                        rf = (torch.tensor(W[d] * rf_b, dtype=dtype,
+                                           device=dev) if diag else rf_b)
+                        n0 = ag.RULE_LAUNCHES.get(key, 0)
+                        o1 = ag.ag_kernel(Z, rf, c, comp)
+                        o2 = ag.ag_kernel(Z, rf, c, comp)
+                        torch.cuda.synchronize()
+                        check(ag.RULE_LAUNCHES.get(key, 0) == n0 + 2,
+                              f"phase 32: {key} not one launch a call")
+                        check(all(torch.equal(a, b) for a, b in zip(o1, o2)),
+                              f"phase 32: {key} {dtype} repeat not "
+                              "bit-identical")
+                        ref = ag.ag_reference(Z, rf, c, comp)
+                        r, e = rel_err(o1[0], o1[1], ref[0], ref[1])
+                        if comp:
+                            A_c = ag.combine(o1[2], rf, c)
+                            A_cr = ag.combine(ref[2], rf, c)
+                            r = max(r, float(torch.max(
+                                torch.abs(A_c - A_cr) / torch.abs(A_cr))))
+                        check(r <= tol, f"phase 32: {key} {dtype} B={B} "
+                              f"beta={beta} disagrees with its plain "
+                              f"version: {r:.3e} (bound {tol:g})")
+                        worst, err = max(worst, r), max(err, e)
+            out["k4" if comp else "k1"][key] = dict(max_rel_err=worst,
+                                                    max_abs_err=err)
+            print(f"K{'4' if comp else '1'} {key}: f32 and f64, B=1 and "
+                  f"{MAIN['B']}, beta {RULE32['betas']}: worst rel err "
+                  f"{worst:.3e} (value, gradient of max|g|"
+                  + (", the combined value" if comp else "")
+                  + "; bounds 2e-5 f32, 1e-12 f64); one launch a call; "
+                  "repeats bit-identical")
+
+    # (c) times at the main shape, f32, B=4, the rf of beta_t
+    rf_t = float(np.float32(rf0 * MAIN["alpha"] ** RULE32["beta_t"]))
+    for d, diag in pairs:
+        sp = specs[d]
+        c = ag.ag_consts(sp, dev, f32)
+        Z = torch.tensor(member_draws(sp, tw, 0), dtype=f32, device=dev)
+        rf = (torch.tensor(W[d] * rf_t, dtype=f32, device=dev) if diag
+              else rf_t)
+        vag = value_and_grad(make_action(sp, device=dev)[0])
+        for comp in (False, True):
+            key = ag.rule_key(d, diag, comp)
+            r = out["k4" if comp else "k1"][key]
+            r["ms"] = events_ms(lambda: ag.ag_kernel(Z, rf, c, comp))
+            r["device_ms"] = device_ms_of(
+                lambda: ag.ag_kernel(Z, rf, c, comp), "l96_ag_rule")
+            r["plain_ms"] = events_ms(
+                lambda: ag.ag_reference(Z, rf, c, comp), n=50, warm=5)
+            w = rule_work(sp, d, MAIN["B"], diag, comp)
+            r["bound_ms"], r["bound_by"] = bound_of(*w)
+            if not comp:
+                r["autograd_ms"] = events_ms(lambda: vag(Z, rf), n=50,
+                                             warm=5)
+            dv = r["device_ms"]
+            print(f"K{'4' if comp else '1'} {key} f32 B={MAIN['B']}: "
+                  f"{r['ms']:.5f} ms a launch (CUDA events), device time "
+                  + (f"{dv:.5f} ms (torch.profiler)" if dv is not None
+                     else "not measured (no device events)")
+                  + f"; plain {r['plain_ms']:.5f} ms"
+                  + (f"; autograd action's value+grad "
+                     f"{r['autograd_ms']:.5f} ms" if not comp else "")
+                  + f"; bound {r['bound_ms']:.3e} ms ({r['bound_by']}: "
+                  f"{w[0]} bytes, {w[1]} operations)")
+
+    # (d) config #5's width under Euler: engine='auto' takes K1
+    tw5 = lorenz96_twin(D=CONF5["D"], N_data=CONF5["N_data"],
+                        n_obs=CONF5["n_obs"])
+    sp5 = build_spec(lorenz96, CONF5["D"], tw5["Y"], tw5["t"], tw5["Lidx"],
+                     tw5["RM"], disc="euler", P=np.array([4.0]), pidx=[0])
+    check(fe.ag_preferred(sp5, 1.0, f32, dev),
+          "phase 32: config #5's width under Euler is not in K1's regime")
+    Z5 = torch.tensor(member_draws(sp5, tw5, 5), dtype=f32, device=dev)
+    rf5 = float(np.float32(4e-6 * tw5["RM"] * 1.5 ** 50))
+    W5 = torch.tensor(rng.uniform(0.5, 2.0, (sp5.N_f - 1, sp5.D)) * rf5,
+                      dtype=f32, device=dev)
+    out["d400"] = {}
+    for kind, rf in (("scalar", rf5), ("diag", W5)):
+        act, _ = fe.select_action(sp5, rf if kind == "scalar" else
+                                  W5.cpu().numpy(), engine="auto",
+                                  dtype=f32, device=dev)
+        check(act.engine == "ag", f"phase 32: engine='auto' at D=400 "
+              f"under Euler took {act.engine!r}")
+        zero_counts()
+        A, G = act.value_and_grad(Z5, rf)
+        torch.cuda.synchronize()
+        cnt = counts()
+        check(cnt["k1"] == 1 and sum(cnt["rules"].values()) == 1,
+              f"phase 32: D=400 Euler {kind}: launches {cnt}")
+        A_r, G_r = ag.ag_reference(Z5, rf, act.consts)
+        r, _ = rel_err(A, G, A_r, G_r)
+        check(r <= 2e-5, f"phase 32: D=400 Euler {kind} rf: {r:.3e}")
+        out["paths"][f"d400_{kind}"] = cnt["rules"]
+        out["d400"][kind] = dict(
+            max_rel_err=r, ms=events_ms(lambda: act.value_and_grad(Z5, rf)),
+            device_ms=device_ms_of(lambda: act.value_and_grad(Z5, rf),
+                                   "l96_ag_rule"))
+        print(f"engine='auto' at config #5's width under Euler, {kind} rf, "
+              f"B={MAIN['B']}: K1 ({cnt['k1']} launch), rel err {r:.3e}; "
+              f"{out['d400'][kind]['ms']:.5f} ms a call, device "
+              + (f"{out['d400'][kind]['device_ms']:.5f} ms"
+                 if out["d400"][kind]["device_ms"] is not None
+                 else "not measured"))
+
+    # (e) config #2 through the facade with engine='ag'
+    tw2, spec2 = config2_problem()
+    X0_2 = np.random.default_rng(1).uniform(-10, 10, size=(
+        CONF2["N_data"], CONF2["D"]))
+    R2 = RULE32["conf2"]
+
+    def conf2_anneal(**kw):
+        ann = Annealer(device=dev)
+        ann.set_model(lorenz96, CONF2["D"])
+        ann.set_data(tw2["Y"], t=tw2["t"])
+        zero_counts()
+        t_ = time.perf_counter()
+        ann.anneal(X0_2, np.array([4.0]), alpha=CONF2["alpha"],
+                   beta_array=np.arange(R2), RM=tw2["RM"],
+                   RF0=CONF2["rf0"], Lidx=tw2["Lidx"], Pidx=[0],
+                   disc="SimpsonHermite", dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        return ann, time.perf_counter() - t_, counts()
+    ann_e, wall_e, cnt_e = conf2_anneal(
+        opt_args=dict(maxiter=CONF2["maxiter"], maxcor=RULE32["conf2_m"]),
+        engine="ag")
+    nfev_e = int(ann_e.nfev_array.sum())
+    sh_key = ag.rule_key("SimpsonHermite", False)
+    print(f"config #2 through the facade, engine='ag', f32, m "
+          f"{RULE32['conf2_m']}, rungs 0..{R2 - 1}: wall {wall_e:.2f} s; "
+          f"niter {int(ann_e.niter_array.sum())}, nfev {nfev_e}; final A "
+          f"{float(ann_e.A_array[-1]):.6g}; exit flags "
+          f"{ann_e.exitflags.tolist()}; launches {cnt_e}")
+    check(bool(np.isfinite(ann_e.A_array).all())
+          and bool(np.isfinite(ann_e.minpaths).all()),
+          "phase 32: config #2 facade records not finite")
+    check(cnt_e["rules"].get(sh_key, 0) >= nfev_e > 0 and cnt_e["k2"] == 0,
+          f"phase 32: config #2 facade: K1 launches {cnt_e} for nfev "
+          f"{nfev_e} (m {RULE32['conf2_m']} keeps the generic loop)")
+    out["paths"]["conf2_ag"] = cnt_e["rules"]
+    # K1 against the K6 action on config #2's draws
+    Z2 = torch.tensor(member_draws(spec2, tw2, 2, B=CONF2["B"]),
+                      dtype=f32, device=dev)
+    c2 = ag.ag_consts(spec2, dev, f32)
+    act6, _ = fe.select_action(spec2, CONF2["rf0"], engine="pallas",
+                               dtype=f32, device=dev)
+    k1_k6 = 0.0
+    for beta in RULE32["k6_betas"]:
+        rf = rung_rf(CONF2["rf0"], CONF2["alpha"], beta, f32)
+        A1, G1 = ag.action_and_grad(Z2, rf, c2)
+        A6, G6 = act6.value_and_grad(Z2, rf)
+        A_r, G_r = ag.ag_reference(Z2, rf, c2)
+        r1, _ = rel_err(A1, G1, A_r, G_r)
+        r16, _ = rel_err(A1, G1, A6, G6)
+        check(r1 <= 2e-5 and r16 <= 4e-5,
+              f"phase 32: config #2 beta={beta}: K1 vs plain {r1:.3e}, "
+              f"K1 vs K6 {r16:.3e}")
+        k1_k6 = max(k1_k6, r16)
+    out["k1_vs_k6"] = k1_k6
+    cw = ag.ag_consts(spec2, dev, f32)
+    rf2 = rung_rf(CONF2["rf0"], CONF2["alpha"], 20, f32)
+    Zw = Z2[:MAIN["B"]].contiguous()
+    out["conf2_time"] = dict(
+        ms=events_ms(lambda: ag.ag_kernel(Zw, rf2, cw)),
+        device_ms=device_ms_of(lambda: ag.ag_kernel(Zw, rf2, cw),
+                               "l96_ag_rule"),
+        plain_ms=events_ms(lambda: ag.ag_reference(Zw, rf2, cw), n=200),
+        autograd_ms=events_ms(lambda: value_and_grad(
+            make_action(spec2, device=dev)[0])(Zw, rf2), n=200),
+        bound=bound_of(*rule_work(spec2, "SimpsonHermite", MAIN["B"],
+                                  False)))
+    t2 = out["conf2_time"]
+    print(f"K1 against the K6 action on config #2's {CONF2['B']} draws at "
+          f"beta {RULE32['k6_betas']} (f32): worst rel err {k1_k6:.3e} "
+          f"(bound 4e-5); K1 Hermite–Simpson at config #2, B={MAIN['B']}: "
+          f"{t2['ms']:.5f} ms a launch, device "
+          + (f"{t2['device_ms']:.5f} ms" if t2["device_ms"] is not None
+             else "not measured")
+          + f", plain {t2['plain_ms']:.5f} ms, autograd "
+          f"{t2['autograd_ms']:.5f} ms, bound {t2['bound'][0]:.3e} ms "
+          f"({t2['bound'][1]})")
+
+    # (f) the same rungs through solver='fused' at m 5: K2
+    ann_f, wall_f, cnt_f = conf2_anneal(
+        opt_args=dict(maxiter=CONF2["maxiter"], maxcor=RULE32["fused_m"]),
+        engine="ag", solver="fused")
+    k2_key = "K2/" + sh_key
+    print(f"config #2 through the facade, solver='fused', m "
+          f"{RULE32['fused_m']}, rungs 0..{R2 - 1}: wall {wall_f:.2f} s; "
+          f"niter {int(ann_f.niter_array.sum())}, nfev "
+          f"{int(ann_f.nfev_array.sum())}; final A "
+          f"{float(ann_f.A_array[-1]):.6g}; launches {cnt_f}")
+    check(cnt_f["k2"] == R2 and cnt_f["rules"].get(k2_key, 0) == R2
+          and bool(np.isfinite(ann_f.A_array).all()),
+          f"phase 32: config #2 fused: launches {cnt_f}")
+    out["paths"]["conf2_fused"] = cnt_f["rules"]
+    opts5 = LBFGSOptions(maxiter=RULE32["short_maxiter"],
+                         m=RULE32["fused_m"], pgtol=1e-4, ftol=1e-6)
+    Zs2 = Z2[:2].contiguous()
+    rf2s = rung_rf(CONF2["rf0"], CONF2["alpha"], 30, f32)
+    rk = solve.solve_kernel(Zs2, rf2s, c2, opts5)
+    rr = solve.solve_reference(Zs2, rf2s, c2, opts5)
+    rc = solve.solve_reference(Zs2.cpu(), rf2s, ag.ag_consts(
+        spec2, "cpu", f32), opts5)
+    check(all(torch.equal(getattr(rk, k).cpu(), getattr(rr, k).cpu())
+              for k in ("niter", "nfev", "status")),
+          f"phase 32: K2 at config #2: counts {rk.niter.tolist()} "
+          f"{rk.nfev.tolist()} {rk.status.tolist()} against "
+          f"{rr.niter.tolist()} {rr.nfev.tolist()} {rr.status.tolist()}")
+    e2 = float(torch.max(torch.abs(rk.f - rr.f) / torch.abs(rr.f)))
+    wit2 = float(torch.max(torch.abs(rr.f.cpu() - rc.f) / torch.abs(rc.f)))
+    check(e2 <= max(1e-4, 2 * wit2), f"phase 32: K2 at config #2 f "
+          f"{e2:.3e} (witness {wit2:.3e})")
+    out["k2"]["conf2"] = dict(max_rel_err=e2, witness=wit2)
+    print(f"K2 short solves at config #2 (B=2, m {RULE32['fused_m']}, "
+          f"maxiter {RULE32['short_maxiter']}, beta 30): counts equal "
+          f"{rk.niter.tolist()} {rk.nfev.tolist()} {rk.status.tolist()}; "
+          f"f rel err {e2:.3e} (the plain solve card vs CPU {wit2:.3e})")
+
+    # (g) K2 and K3 short solves at the main shape under each rule
+    opts = LBFGSOptions(maxiter=RULE32["short_maxiter"], m=5, pgtol=1e-4,
+                        ftol=1e-6)
+    opts3 = dataclasses.replace(opts, maxiter=RULE32["ladder_maxiter"])
+    rf_s = float(rf0 * MAIN["alpha"] ** RULE32["beta_t"])
+    for d in RULES:
+        sp = specs[d]
+        Zs = member_draws(sp, tw, 33)
+        for dtype in (f64, f32):
+            c = ag.ag_consts(sp, dev, dtype)
+            c_cpu = ag.ag_consts(sp, "cpu", dtype)
+            Z = torch.tensor(Zs, dtype=dtype, device=dev)
+            for diag in (False, True):
+                if d == "trapezoid" and not diag:
+                    continue        # phases 7, 8 and 12's
+                rf = (torch.tensor(W[d] * rf_s, dtype=dtype, device=dev)
+                      if diag else float(torch.tensor(rf_s, dtype=dtype)))
+                for bounded in (False, True):
+                    lo = hi = None
+                    if bounded:
+                        lo, hi = (torch.full((sp.n_dof,), v, dtype=dtype,
+                                             device=dev) for v in (-6.0, 6.0))
+                    key = f"K2/{ag.rule_key(d, diag)}"
+                    rk = solve.solve_kernel(Z, rf, c, opts, lo, hi)
+                    rk2 = solve.solve_kernel(Z, rf, c, opts, lo, hi)
+                    rr = solve.solve_reference(Z, rf, c, opts, lo, hi)
+                    torch.cuda.synchronize()
+                    cnt_ok = all(torch.equal(getattr(rk, k),
+                                             getattr(rr, k))
+                                 for k in ("niter", "nfev", "status"))
+                    e = float(torch.max(torch.abs(rk.f - rr.f)
+                                        / torch.abs(rr.f)))
+                    if dtype == f64:
+                        tol = 1e-8
+                    elif bounded:
+                        tol = F32_BOUNDED_F_TOL
+                    else:
+                        rc = solve.solve_reference(
+                            Z.cpu(), rf.cpu() if diag else rf, c_cpu, opts)
+                        tol = max(1e-4, 2 * float(torch.max(
+                            torch.abs(rr.f.cpu() - rc.f)
+                            / torch.abs(rc.f))))
+                    lab = (f"{key} {str(dtype)[6:]}"
+                           + (" bounded" if bounded else ""))
+                    print(f"{lab}: niter {rk.niter.tolist()} nfev "
+                          f"{rk.nfev.tolist()} status {rk.status.tolist()} "
+                          f"(plain {rr.niter.tolist()} {rr.nfev.tolist()} "
+                          f"{rr.status.tolist()}); f rel err {e:.3e} "
+                          f"(bound {tol:.3g})")
+                    check(cnt_ok and e <= tol and torch.equal(rk.x, rk2.x),
+                          f"phase 32: {lab} against its plain version")
+                    r = out["k2"].setdefault(key, dict(max_rel_err=0.0,
+                                                       max_abs_err=0.0))
+                    r["max_rel_err"] = max(r["max_rel_err"], e)
+                    r["max_abs_err"] = max(r["max_abs_err"], float(
+                        torch.max(torch.abs(rk.f - rr.f))))
+            if d == "trapezoid":
+                continue            # K3 under the trapezoid rule: phase 7
+            b3 = RULE32["ladder_beta"].get(d, RULE32["beta_t"])
+            rfs = np.array([rung_rf(rf0, MAIN["alpha"], b, dtype)
+                            for b in range(b3, b3 + RULE32["ladder_rungs"])])
+            rfs_t = torch.tensor(rfs, dtype=dtype, device=dev)
+            xk, rec = solve.ladder_kernel(Z, rfs_t, c, opts3)
+            xr, recr = solve.ladder_reference(Z, rfs, c, opts3)
+            torch.cuda.synchronize()
+            cnt_ok = all(torch.equal(rec[k], recr[k])
+                         for k in ("niter", "nfev", "status"))
+            e = float(torch.max(torch.abs(rec["A"] - recr["A"])
+                                / torch.abs(recr["A"])))
+            if dtype == f64:
+                tol = 1e-8
+            else:
+                _, recc = solve.ladder_reference(Z.cpu(), rfs, c_cpu, opts3)
+                tol = max(1e-4, 2 * float(torch.max(
+                    torch.abs(recr["A"].cpu() - recc["A"])
+                    / torch.abs(recc["A"]))))
+            key = f"K3/{ag.rule_key(d, False)}"
+            print(f"{key} {str(dtype)[6:]}, rungs {b3}.."
+                  f"{b3 + RULE32['ladder_rungs'] - 1} of maxiter "
+                  f"{RULE32['ladder_maxiter']}: "
+                  f"niter {rec['niter'].tolist()} (plain "
+                  f"{recr['niter'].tolist()}); A rel err {e:.3e} (bound "
+                  f"{tol:.3g})")
+            check(cnt_ok and e <= tol, f"phase 32: {key} {dtype} against "
+                  "its plain version")
+            r = out["k3"].setdefault(key, dict(max_rel_err=0.0,
+                                               max_abs_err=0.0))
+            r["max_rel_err"] = max(r["max_rel_err"], e)
+            r["max_abs_err"] = max(r["max_abs_err"], float(
+                torch.max(torch.abs(rec["A"] - recr["A"]))))
+    # K2's and K3's times at the main shape (f32, B=4, the rf of beta_t)
+    for d in RULES:
+        sp = specs[d]
+        c = ag.ag_consts(sp, dev, f32)
+        Z = torch.tensor(member_draws(sp, tw, 33), dtype=f32, device=dev)
+        for diag in (False, True):
+            if d == "trapezoid" and not diag:
+                continue
+            rf = (torch.tensor(W[d] * rf_t, dtype=f32, device=dev)
+                  if diag else rf_t)
+            key = f"K2/{ag.rule_key(d, diag)}"
+            res = solve.solve_kernel(Z, rf, c, opts)
+            r = out["k2"][key]
+            r["ms"] = events_ms(lambda: solve.solve_kernel(Z, rf, c, opts),
+                                n=20, warm=2)
+            r["device_ms"] = device_ms_of(
+                lambda: solve.solve_kernel(Z, rf, c, opts),
+                "l96_solve_kernel", n=10)
+            r["plain_ms"] = events_ms(
+                lambda: solve.solve_reference(Z, rf, c, opts), n=3, warm=1)
+            b = solve_bound(sp, f32, MAIN["B"], 1, int(res.nfev.sum()),
+                            int(res.niter.sum()), opts.m, 1)
+            if diag:
+                b = bound_of(b[2] + (sp.N_f - 1) * sp.D * 4, b[3])
+            r["bound_ms"], r["bound_by"] = b[0], b[1]
+            if d != "trapezoid" and not diag:
+                b3 = RULE32["ladder_beta"].get(d, RULE32["beta_t"])
+                rfs_t = torch.tensor(
+                    [rung_rf(rf0, MAIN["alpha"], bb, f32) for bb in range(
+                        b3, b3 + RULE32["ladder_rungs"])], dtype=f32,
+                    device=dev)
+                k3 = out["k3"][f"K3/{ag.rule_key(d, False)}"]
+                _, rec = solve.ladder_kernel(Z, rfs_t, c, opts3)
+                k3["ms"] = events_ms(
+                    lambda: solve.ladder_kernel(Z, rfs_t, c, opts3), n=10,
+                    warm=2)
+                k3["device_ms"] = device_ms_of(
+                    lambda: solve.ladder_kernel(Z, rfs_t, c, opts3),
+                    "l96_ladder_kernel", n=5)
+                k3["plain_ms"] = events_ms(
+                    lambda: solve.ladder_reference(Z, rfs_t.cpu().numpy(),
+                                                   c, opts3), n=2, warm=1)
+                b3 = solve_bound(sp, f32, MAIN["B"], 1,
+                                 int(rec["nfev"].sum()),
+                                 int(rec["niter"].sum()), opts.m,
+                                 RULE32["ladder_rungs"])
+                k3["bound_ms"], k3["bound_by"] = b3[0], b3[1]
+    for fam in ("k2", "k3"):
+        for key, r in out[fam].items():
+            if "ms" in r:
+                dv = r["device_ms"]
+                print(f"{key} f32 B={MAIN['B']} short solve: {r['ms']:.4f} ms "
+                      "a launch (CUDA events), device time "
+                      + (f"{dv:.4f} ms" if dv is not None
+                         else "not measured")
+                      + f"; plain {r['plain_ms']:.2f} ms; bound "
+                      f"{r['bound_ms']:.3e} ms ({r['bound_by']})")
+
+    # (h) the paths of K4, K2 with an (N_f-1, D) rf, and K3
+    def facade(disc, **kw):
+        ann = Annealer(device=dev)
+        ann.set_model(lorenz96, MAIN["D"])
+        ann.set_data(tw["Y"], t=tw["t"])
+        zero_counts()
+        ann.anneal(np.random.default_rng(3).normal(
+                       2.0, 2.0, (MAIN["N_data"], MAIN["D"])),
+                   np.array([4.0]), alpha=MAIN["alpha"],
+                   beta_array=np.arange(RULE32["path_rungs"]) + 20,
+                   RM=tw["RM"], Lidx=tw["Lidx"], Pidx=[0], disc=disc,
+                   dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        cnt = counts()
+        check(bool(np.isfinite(ann.A_array).all()),
+              f"phase 32: the {disc} facade's records are not finite")
+        return ann, cnt
+    ann_c, cnt_c = facade("SimpsonHermite", RF0=rf0, engine="ag",
+                          compensated=True,
+                          opt_args=dict(maxiter=200, maxcor=5))
+    comp_key = ag.rule_key("SimpsonHermite", False, True)
+    print(f"K4 path: the facade, Hermite–Simpson, compensated=True, "
+          f"engine='ag', rungs 20..{19 + RULE32['path_rungs']}: nfev "
+          f"{int(ann_c.nfev_array.sum())}; launches {cnt_c}")
+    check(cnt_c["rules"].get(comp_key, 0) >= int(ann_c.nfev_array.sum())
+          > 0, f"phase 32: K4 path launches {cnt_c}")
+    out["paths"]["k4"] = cnt_c["rules"]
+    rfd0 = rf0 * np.asarray(W["euler"], np.float32)
+    ann_d, cnt_d = facade("euler", RF0=rfd0, engine="ag", solver="fused",
+                          opt_args=dict(maxiter=200, maxcor=5))
+    print(f"K2 path with an (N_f-1, D) rf: the facade, Euler, "
+          f"solver='fused', rungs 20..{19 + RULE32['path_rungs']}: launches "
+          f"{cnt_d}")
+    check(cnt_d["rules"].get("K2/euler/diag", 0) == RULE32["path_rungs"],
+          f"phase 32: K2 diag path launches {cnt_d}")
+    out["paths"]["k2_diag"] = cnt_d["rules"]
+    sp_sh = specs["SimpsonHermite"]
+    lad = solve.make_ladder_solver(sp_sh, opts, RULE32["ladder_rungs"],
+                                   device=dev)
+    Zl = torch.tensor(member_draws(sp_sh, tw, 34), dtype=f32, device=dev)
+    zero_counts()
+    _, rec_l = lad(Zl, [rung_rf(rf0, MAIN["alpha"], b, f32)
+                        for b in range(RULE32["ladder_rungs"])])
+    torch.cuda.synchronize()
+    cnt_l = counts()
+    print(f"K3 path: make_ladder_solver under Hermite–Simpson, "
+          f"{RULE32['ladder_rungs']} rungs, B={MAIN['B']}: launches {cnt_l}")
+    check(cnt_l["rules"].get("K3/SimpsonHermite/scalar", 0) == 1
+          and bool(torch.isfinite(rec_l["A"]).all()),
+          f"phase 32: K3 path launches {cnt_l}")
+    out["paths"]["k3"] = cnt_l["rules"]
+    return out
+
+
 def profile_k3():
     """One K3 call of the new path (f32, every rung, B members from
     random_ensemble_inits(seed=3)), timed by CUDA events and run again
@@ -2504,11 +3076,17 @@ def _nvcc(src, out, defines=()):
                             stderr=subprocess.PIPE, text=True)
 
 
+#: The sources of K1-K4's other rules, which a checkout from
+#: before them lacks: their ptxas lines are printed, not compared.
+RULE_SOURCES = ("ag_rules_kernel", "solve_rules_f32", "solve_rules_f64")
+
+
 def ptxas_diff(other):
     """Build ag_kernel.cu (K1, K4), solve_kernel.cu (K2, K3),
     pack_kernel.cu (K8) and agt_kernel.cu (K5) of this checkout and of the
-    checkout at ``other`` with the port's nvcc flags, all eight nvcc
-    processes together, and compare their -Xptxas -v reports: per source,
+    checkout at ``other`` with the port's nvcc flags, with the rules'
+    sources (:data:`RULE_SOURCES`) of this one, all nvcc processes
+    together, and compare their -Xptxas -v reports: per source,
     the lines of registers, barriers, spills and stack frames, in order,
     names dropped (a template argument added to a __device__ function
     changes its mangled name, not its code). Prints both and one JSON
@@ -2522,17 +3100,24 @@ def ptxas_diff(other):
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for name in names:
+        for name in names + RULE_SOURCES:
             for tag, root in (("this", ROOT), ("other", other)):
                 src = os.path.join(root, "varanneal_tpu_torch", "kernels",
                                    "csrc", name + ".cu")
-                procs[(name, tag)] = _nvcc(
-                    src, os.path.join(tmp, f"{name}-{tag}.so"))
+                if os.path.exists(src):
+                    procs[(name, tag)] = _nvcc(
+                        src, os.path.join(tmp, f"{name}-{tag}.so"))
         logs = {}
         for key, proc in procs.items():
             so, se = proc.communicate()
             check(proc.returncode == 0, f"nvcc failed for {key}:\n{se}")
             logs[key] = _ptxas_lines(so + se)
+    for name in RULE_SOURCES:
+        lines, fnames = logs[(name, "this")]
+        print(f"ptxas {name} (this; printed, not compared): "
+              f"{len(fnames)} functions")
+        for ln in lines:
+            print(f"  {ln}")
     for name in names:
         (a, na), (b, nb) = logs[(name, "this")], logs[(name, "other")]
         for tag, lines, fnames in (("this", a, na), ("other", b, nb)):
@@ -2544,6 +3129,17 @@ def ptxas_diff(other):
                             lines=len(a), held=name in held)
     print(json.dumps(result))
     return 0 if all(result[n]["identical"] for n in held) else 1
+
+
+def print_build(built):
+    """Each library's nvcc time and its -Xptxas -v lines."""
+    for b in built.values():
+        print(f"nvcc build of {b.path.name}: {b.seconds:.2f} s "
+              f"(the {len(built)} builds run in parallel)")
+        for line in b.log.splitlines():
+            if ("Compiling entry" in line or "Function properties" in line
+                    or "Used" in line or "bytes stack frame" in line):
+                print(f"ptxas {b.name}:", line.strip())
 
 
 def phase(name, t0):
@@ -2600,15 +3196,20 @@ def main():
     bar_path = str(_build.BUILD_DIR / "libsolve_kernel-barriers.so")
     bar_proc = _nvcc(str(_build.CSRC / "solve_kernel.cu"), bar_path,
                      ("-DVA_COUNT_BARRIERS",))
+    # the rules' libraries, which phase 32 alone launches, build in a
+    # thread while phases 3-31 run (their nvcc take ~2x the six's)
+    rules_build = {}
+
+    def build_rules():
+        try:
+            rules_build.update(_build.build(list(RULE_SOURCES)))
+        except Exception as e:          # raised again by phase 32
+            rules_build["error"] = e
+    rules_thread = threading.Thread(target=build_rules)
+    rules_thread.start()
     built = _build.build(["ag_kernel", "solve_kernel", "dir_kernel",
                           "fe_kernel", "agt_kernel", "pack_kernel"])
-    for b in built.values():
-        print(f"nvcc build of {b.path.name}: {b.seconds:.2f} s "
-              "(the six builds run in parallel)")
-        for line in b.log.splitlines():
-            if ("Compiling entry" in line or "Function properties" in line
-                    or "Used" in line or "bytes stack frame" in line):
-                print(f"ptxas {b.name}:", line.strip())
+    print_build(built)
     bar_err = bar_proc.communicate()[1]
     check(bar_proc.returncode == 0,
           f"nvcc failed for the barrier-counting build:\n{bar_err}")
@@ -3763,6 +4364,8 @@ def main():
 
     def zero_counts():
         ag.LAUNCHES = ag.COMP_LAUNCHES = ag.AGT_LAUNCHES = 0
+        ag.RULE_LAUNCHES.clear()
+        solve.RULE_LAUNCHES.clear()
         solve_pack.PACK_LAUNCHES = 0
         solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
         kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
@@ -4288,7 +4891,7 @@ def main():
                     torch.cuda.synchronize()
                     check(ag.AGT_LAUNCHES == n_k5 + 1,
                           f"K5 {label}: not one launch a call")
-                    A_r, G_r = ag.agt_reference(Z, rf, c)
+                    A_r, G_r = ag.ag_reference(Z, rf, c)
                     scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
                     rel = max(float(torch.max(torch.abs(A - A_r)
                                               / torch.abs(A_r))),
@@ -4352,7 +4955,7 @@ def main():
         w = agt_work(spec, "trapezoid", MAIN["B"], kind == "diag")
         k5[kind] = dict(
             ms=events_ms(lambda: ag.agt_kernel(Z32, rf, c5)),
-            plain_ms=events_ms(lambda: ag.agt_reference(Z32, rf, c5), n=200),
+            plain_ms=events_ms(lambda: ag.ag_reference(Z32, rf, c5), n=200),
             device_ms=dev_ms(lambda: ag.agt_kernel(Z32, rf, c5), "l96_agt"),
             bound=bound_of(*w), work=w)
     tw64 = cases22[6][1]
@@ -4448,7 +5051,7 @@ def main():
         rf_k = rung_rf(np.float32(rf0), MAIN["alpha"], k, torch.float32)
         XP_k = res23.paths[:, k].contiguous()
         errs, at, med, (A, G, A_r, G_r) = minimizer_errs(
-            ag.agt_kernel, ag.agt_reference, XP_k, rf_k, c5, c5d)
+            ag.agt_kernel, ag.ag_reference, XP_k, rf_k, c5, c5d)
         err_k5 = max(err_k5, float(torch.max(torch.abs(A - A_r))),
                      float(torch.max(torch.abs(G - G_r))))
         ratio_k5 = max(ratio_k5, err_ratio(errs))
@@ -4751,6 +5354,16 @@ def main():
     t0 = time.perf_counter()
     out31 = diag_profiling_support(dev, tws)
     phase("31 diag, profiling, support", t0)
+
+    # ---- 32. K1-K4 over Lorenz-96's rules -----------------------------------
+    t0 = time.perf_counter()
+    rules_thread.join()
+    if "error" in rules_build:
+        raise rules_build.pop("error")
+    print_build(rules_build)
+    built.update(rules_build)
+    out32 = rules_phase(dev, tw, built, zero_counts, run_counts)
+    phase("32 K1-K4 over Lorenz-96's rules", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -4954,6 +5567,42 @@ def main():
                                    for kp, v in row.items()}
                  for (lab, b_), row in ab24.items()},
         **line))
+    # K1-K4 under Lorenz-96's other rules (phase 32): launches on its
+    # paths (32d-32h, each with the counts zeroed before it), errors over
+    # its checks, times at the main shape (f32, B=4) under
+    # Hermite–Simpson with a scalar rf, and each entry's own under
+    # "entries" (keys rule/rf kind[/comp])
+    path_rules = {}
+    for cnt32 in out32["paths"].values():
+        for k, v in cnt32.items():
+            path_rules[k] = path_rules.get(k, 0) + v
+    for fam, nm, src, rep, pre, main_key in (
+            ("k1", "l96_ag_rule", "ag_rules_kernel", "ag_pallas.py:279", "",
+             "SimpsonHermite/scalar"),
+            ("k4", "l96_ag_rule_comp", "ag_rules_kernel", "ag_pallas.py:336",
+             "", "SimpsonHermite/scalar/comp"),
+            ("k2", "l96_solve_rule", "solve_rules_f32",
+             "solve_pallas.py:676", "K2/", "K2/SimpsonHermite/scalar"),
+            ("k3", "l96_ladder_rule", "solve_rules_f32",
+             "solve_pallas.py:951", "K3/", "K3/SimpsonHermite/scalar")):
+        ents = {k: dict(v, path_launches=path_rules.get(k, 0))
+                for k, v in out32[fam].items() if k.startswith(pre)}
+        top = out32[fam][main_key]
+        kernels.append(dict(
+            name=nm, source=f"varanneal_tpu_torch/kernels/csrc/{src}.cu",
+            replaces=f"varanneal_tpu/kernels/{rep}",
+            launches=sum(e["path_launches"] for e in ents.values()),
+            max_abs_err=max(e["max_abs_err"] for e in ents.values()),
+            max_rel_err=max(e["max_rel_err"] for e in ents.values()),
+            ms=top["ms"], device_ms=top["device_ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], entries=ents,
+            **({"config2": out32["conf2_time"],
+                "k1_vs_k6_max_rel_err": out32["k1_vs_k6"],
+                "d400_euler": out32["d400"]} if fam == "k1" else {}),
+            **({"config2_short": out32["k2"]["conf2"]} if fam == "k2"
+               else {}),
+            **line))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -154,8 +154,10 @@ def test_wrapper_dispatch_and_autograd_on_cpu():
     z = Z.clone().requires_grad_(True)
     (3.0 * action(z, 2.0).sum()).backward()
     np.testing.assert_allclose(z.grad.numpy(), 3.0 * G.numpy(), rtol=1e-15)
-    with pytest.raises(ValueError, match="scalar rf"):
-        action.value_and_grad(Z, torch.ones(st.N_f - 1, st.D))
+    # a per-member (B, N_f-1, D) rf is outside K1 (a scalar or one
+    # (N_f-1, D) rf is in it)
+    with pytest.raises(ValueError, match=r"\(N_f-1, D\)"):
+        action.value_and_grad(Z, torch.ones(2, st.N_f - 1, st.D))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ag.make_action_ag(st)
@@ -164,14 +166,16 @@ def test_wrapper_dispatch_and_autograd_on_cpu():
 def test_envelope():
     sj, st, tw = _specs(N=21)
     assert ag.ag_supported(st, 1.0)
-    assert not ag.ag_supported(st, np.ones((st.N_f - 1, st.D)))
+    assert ag.ag_supported(st, np.ones((st.N_f - 1, st.D)))
+    assert not ag.ag_supported(st, np.ones((2, st.N_f - 1, st.D)))
     rng = np.random.default_rng(5)
     kw = dict(P=np.array([4.0]), pidx=[0])
     Y, t, Lidx = tw["Y"], tw["t"], tw["Lidx"]
+    rep = list(Lidx[:-1]) + [Lidx[0]]
     others = [
-        build_spec(lorenz96, 20, Y, t, Lidx, 4.0, disc="euler", **kw),
+        build_spec(lorenz96, 20, Y, t, rep, 4.0, disc="euler", **kw),
         build_spec(lorenz96, 20, Y, t, Lidx, 4.0, disc="SimpsonHermite",
-                   **kw),
+                   stim=rng.normal(size=(Y.shape[0], 1)), **kw),
         build_spec(lorenz96, 20, Y, t, Lidx, rng.uniform(1, 2, (8, 8)),
                    disc="trapezoid", R_time_dependent=False, **kw),
         build_spec(lorenz96, 20, Y, t, Lidx, 4.0, disc="trapezoid",
@@ -214,8 +218,13 @@ def test_refusal_names_the_condition():
     kw = dict(P=np.array([4.0]), pidx=[0])
     Y, t, Lidx = tw["Y"], tw["t"], tw["Lidx"]
     euler = build_spec(lorenz96, 20, Y, t, Lidx, 4.0, disc="euler", **kw)
-    assert "disc 'euler'" in ag.ag_refusal(euler, 1.0)
-    assert "rf rank 2" in ag.ag_refusal(st, np.ones((st.N_f - 1, st.D)))
+    assert ag.ag_refusal(euler, np.ones((st.N_f - 1, st.D))) is None
+    rep = build_spec(lorenz96, 20, Y, t, list(Lidx[:-1]) + [Lidx[0]], 4.0,
+                     disc="euler", **kw)
+    assert "repeated observed columns" in ag.ag_refusal(rep, 1.0)
+    assert "fault 6" in ag.ag_refusal(rep, 1.0)
+    assert "rf of shape (2, 20, 20)" in ag.ag_refusal(
+        st, np.ones((2, st.N_f - 1, st.D)))
     l63 = build_spec(lorenz63, 3, Y[:, :2], t, [0, 1], 4.0,
                      disc="trapezoid", P=np.array([10.0, 28.0, 8 / 3]),
                      pidx=[0])

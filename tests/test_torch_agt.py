@@ -1,5 +1,5 @@
 """K5 of the port (varanneal_tpu_torch/kernels/ag.py: make_action_ag_t,
-agt_reference, agt_supported; the kernel is csrc/agt_kernel.cu, whose
+ag_reference, agt_supported; the kernel is csrc/agt_kernel.cu, whose
 plain version runs here on the CPU) against the JAX package.
 
 - f64: the plain version against JAX's XLA action (ops.action.make_action)
@@ -12,6 +12,8 @@ plain version runs here on the CPU) against the JAX package.
   JAX's K1 (make_action_ag, interpret mode, f32, 2e-5), not against JAX's
   K5, which puts the observations at model rows 0..N_data-1 there
   (ROADMAP.md §3);
+- the reference's K1 with a repeated observed column, which leaves the
+  XLA action's function (ROADMAP.md §3, fault 6; the port refuses it);
 - the envelope (Hermite–Simpson and D = 65 refused), ``agt_refusal``
   naming each condition, a problem past the old shared-memory bound
   (N_f = 1,001 at D = 64: (N_f-1)·D f32 residuals no block could hold)
@@ -302,3 +304,44 @@ def test_reference_k5_faults_not_carried_over(case):
         return
     A, G = _port_vag(st, z, 1.0, torch.float32)
     _assert_close(A, G, A_x, G_x, 2e-5)
+
+
+def test_reference_k1_repeated_columns_fault():
+    """The reference's K1 (ag_pallas.make_action_ag, interpret mode)
+    leaves the XLA action's function where its predicate admits repeated
+    observed columns (ROADMAP.md §3, fault 6): the trapezoid rule with
+    Lidx the twin's 8 columns and its first column again (Y's first
+    column repeated to match), D = 20, N_data = 21, F estimated, one
+    normal draw from default_rng(0), rf = 1, f32. Its host-side
+    embedding writes each observed column once, so the repeated one
+    counts once in its ME where the XLA action counts it twice. The
+    port's K1 refuses repeated columns, naming the fault. Run with -s
+    for the numbers."""
+    tw = lorenz96_twin(D=20, N_data=21, n_obs=8)
+    Lidx = list(tw["Lidx"]) + [int(tw["Lidx"][0])]
+    Y = np.concatenate([tw["Y"], tw["Y"][:, :1]], axis=1)
+    sj = build_spec_jax(lorenz96_jax, 20, Y, tw["t"], Lidx, tw["RM"],
+                        disc="trapezoid", P=np.array([4.0]), pidx=[0])
+    st = spec_from_reference(
+        {f.name: getattr(sj, f.name) for f in dataclasses.fields(sj)},
+        lorenz96)
+    z = np.random.default_rng(0).normal(size=(1, sj.n_dof)).astype(
+        np.float32)
+    assert ag_pallas.ag_supported(sj, jnp.float32(1.0))
+    A_k, G_k = _jax_vag(ag_pallas.make_action_ag(sj)[0], jnp.asarray(z),
+                        np.float32(1.0))
+    A_x, G_x = _jax_vag(make_action_jax(sj)[0], jnp.asarray(z),
+                        np.float32(1.0))
+    g_err = float(np.max(np.abs(np.asarray(G_k) - np.asarray(G_x)))
+                  / np.max(np.abs(np.asarray(G_x))))
+    print(f"repeated observed column: the reference's K1 A = "
+          f"{float(A_k[0]):.6f}, the XLA action's {float(A_x[0]):.6f}; its "
+          f"gradient off by {g_err:.3f} of max|g|")
+    assert abs(float(A_k[0]) - float(A_x[0])) > 1e-2 * abs(float(A_x[0]))
+    why = ag.ag_refusal(st, 1.0)
+    assert why is not None and "repeated observed columns" in why
+    assert "fault 6" in why
+    # the port's plain action (what the facade runs instead) is the XLA
+    # action's function
+    A_p = make_action(st, device=CPU)[0](torch.tensor(z), 1.0)
+    np.testing.assert_allclose(float(A_p[0]), float(A_x[0]), rtol=2e-5)

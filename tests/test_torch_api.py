@@ -25,7 +25,7 @@ from varanneal_tpu.models import lorenz96 as lorenz96_jax
 
 import varanneal_tpu_torch
 from varanneal_tpu_torch import api, io, va_ode
-from varanneal_tpu_torch.kernels import fe, solve
+from varanneal_tpu_torch.kernels import ag, fe, solve
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec
 from varanneal_tpu_torch.opt import LBFGSOptions
@@ -253,9 +253,9 @@ def test_facade_surface(tmp_path):
 
 def test_select_action_policy(monkeypatch):
     """engine='auto' takes K1 only in the reference's regime (a one-step
-    disc, D >= 256, f32, on the card), raises where the reference would
-    run a kernel the port lacks, and is the autograd action below it;
-    engine='pallas' takes K6."""
+    disc, D >= 256, f32, on the card), under any one-step rule; raises
+    where the reference would run a kernel the port lacks (a user model),
+    and is the autograd action below it; engine='pallas' takes K6."""
     X0, Y, t = _twin()
     st = build_spec(lorenz96, D, Y, t, LIDX, 6.25, P=np.array([6.0]),
                     pidx=[0])
@@ -270,8 +270,14 @@ def test_select_action_policy(monkeypatch):
         fe.select_action(st, 0.01, engine="fast", device="cpu")
     st_e = build_spec(lorenz96, D, Y, t, LIDX, 6.25, P=np.array([6.0]),
                       pidx=[0], disc="euler")
+    act, _ = fe.select_action(st_e, 0.01, engine="ag", device="cpu",
+                              dtype=torch.float64)
+    assert act.engine == "ag"
+    # K1 still refuses repeated observed columns (ROADMAP.md §3, fault 6)
+    st_r = build_spec(lorenz96, D, Y[:, [0, 1, 0]], t, (0, 1, 0), 6.25,
+                      P=np.array([6.0]), pidx=[0], disc="euler")
     with pytest.raises(ValueError):
-        fe.select_action(st_e, 0.01, engine="ag", device="cpu")
+        fe.select_action(st_r, 0.01, engine="ag", device="cpu")
     # the regime itself needs the card: decide it as the card would
     big = lambda disc: build_spec(            # noqa: E731
         lorenz96, 256, np.zeros((5, 2)), 0.025 * np.arange(5), (0, 1), 1.0,
@@ -283,9 +289,16 @@ def test_select_action_policy(monkeypatch):
     assert not fe.ag_preferred(st, 0.01)
     assert not fe.ag_preferred(big("SimpsonHermite"), 0.01)
     # the reference's ag_supported holds at euler, so the reference runs
-    # K1 there, which the port's K1 does not cover yet
+    # K1 there, and so does the port (the regime's choice: K1, which
+    # takes the problem)
+    assert fe.ag_preferred(big("euler"), 0.01)
+    assert ag.ag_refusal(big("euler"), 0.01) is None
+    # a user model there: the reference runs K1, the port's K1 refuses it
+    user = build_spec(lambda tt, x, p: lorenz96(tt, x, p), 256,
+                      np.zeros((5, 2)), 0.025 * np.arange(5), (0, 1), 1.0,
+                      P=np.array([8.0]), pidx=[0], disc="euler")
     with pytest.raises(NotImplementedError, match="K1"):
-        fe.select_action(big("euler"), 0.01)
+        fe.select_action(user, 0.01)
 
 
 def test_config5_takes_k1_and_k2(monkeypatch):
@@ -418,8 +431,12 @@ def test_pick_rung_solver_policy(monkeypatch):
         with pytest.warns(UserWarning):
             assert pick(st, 0.01, o, solver="fused", device="cpu",
                         **kw) is None
-    with pytest.warns(UserWarning):             # rf the kernel cannot take
-        assert pick(st, np.ones((N_DATA - 1, D)), opts, solver="fused",
+    # an (N_f-1, D) rf is K2's (its rules' entries); a per-member one is
+    # an rf the kernel cannot take
+    assert callable(pick(st, np.ones((N_DATA - 1, D)), opts, solver="fused",
+                         device="cpu"))
+    with pytest.warns(UserWarning):
+        assert pick(st, np.ones((2, N_DATA - 1, D)), opts, solver="fused",
                     device="cpu") is None
     with pytest.raises(ValueError):
         pick(st, 0.01, opts, solver="always", device="cpu")

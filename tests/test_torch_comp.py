@@ -269,7 +269,8 @@ def test_facade_compensated_matches_jax(engine, interpret, f64_default):
 
 def test_facade_compensated_engines_refused():
     """engine='pallas' refuses compensated=True with the reference's
-    message; engine='ag' outside K4's envelope refuses too."""
+    message; engine='ag' outside K4's envelope refuses too (repeated
+    observed columns: ROADMAP.md §3, fault 6)."""
     tw = lorenz96_twin(D=20, N_data=21, n_obs=8)
     X0 = np.zeros((21, 20))
     ann = varanneal_tpu_torch.Annealer(device="cpu")
@@ -280,5 +281,7 @@ def test_facade_compensated_engines_refused():
               opt_args=dict(maxiter=5), compensated=True)
     with pytest.raises(ValueError, match="not the blocked FE kernel"):
         ann.anneal(X0, engine="pallas", **kw)
+    rep = list(tw["Lidx"][:-1]) + [tw["Lidx"][0]]
     with pytest.raises(ValueError, match="engine='ag' unsupported"):
-        ann.anneal(X0, engine="ag", disc="euler", **kw)
+        ann.anneal(X0, engine="ag", disc="euler",
+                   **dict(kw, Lidx=rep))

@@ -171,18 +171,6 @@ def test_profiling_trace_and_ladder_stats(tmp_path):
 #: (feature, column) -> (port's cell, reference's cell, why: the ROADMAP.md
 #: item that will port it, or where the port serves more).
 DIFFERENCES = {
-    ("SimpsonHermite", "ag"): ("error", "served", "§2a item 2 (b)"),
-    ("SimpsonHermite", "fused"): ("fallback", "served", "§2a item 2 (b)"),
-    ("SimpsonHermite", "auto"): ("xla + generic", "xla + fused",
-                                 "§2a item 2 (b)"),
-    ("diag RF (N-1, D)", "ag"): ("error", "served", "§2a item 2 (a)"),
-    ("diag RF (N-1, D)", "fused"): ("fallback", "served", "§2a item 2 (a)"),
-    ("diag RF (N-1, D)", "auto"): ("xla + generic", "xla + fused",
-                                   "§2a item 2 (a)"),
-    ("campaign-length record (N=1001 SH)", "ag"): ("error", "served",
-                                                   "§2a item 2 (b)"),
-    ("campaign-length record (N=1001 SH)", "fused"): ("fallback", "served",
-                                                      "§2a item 2 (b)"),
     ("f64", "ag"): ("served", "error", "wider: the port's K1 takes f64"),
     ("f64", "fused"): ("served", "fallback",
                        "wider: the port's K2 takes f64"),
@@ -211,8 +199,9 @@ def test_support_matrix_against_reference():
 def test_support_waits_and_readme(monkeypatch):
     """A ``waits`` cell is what select_action raises NotImplementedError
     for, naming the same item: K6 on a user model, and engine='auto' on
-    the card where the reference takes K1 and the port's K1 refuses
-    (euler, D=256, f32). README.md's table is ``markdown_table()``."""
+    the card where the reference takes K1 and the port's K1 refuses (a
+    user model at D=256 under euler, f32: §2a item 2 (d)). README.md's
+    table is ``markdown_table()``."""
     rng = np.random.default_rng(1)
     Y, t = rng.normal(size=(5, 2)), 0.025 * np.arange(5)
     user = build_spec(lambda t, x, p: -x, 3, Y, t, [0, 1], 1.0,
@@ -220,14 +209,15 @@ def test_support_waits_and_readme(monkeypatch):
     assert support._pallas_cell(user, 1.0, torch.float64) == support.WAITS_K6
     with pytest.raises(NotImplementedError, match="§2a item 3"):
         fe.select_action(user, 1.0, engine="pallas", device="cpu")
-    wide = build_spec(lorenz96, 256, Y, t, [0, 1], 1.0, P=np.array([8.0]),
-                      pidx=[0], disc="euler")
+    wide = build_spec(lambda tt, x, p: lorenz96(tt, x, p), 256, Y, t,
+                      [0, 1], 1.0, P=np.array([8.0]), pidx=[0],
+                      disc="euler")
     with support._card_policy() as card:
         assert support._auto_engine(wide, 0.01, torch.float32,
                                     card) == support.WAITS_K1
     monkeypatch.setattr(fe, "resolve_device",
                         lambda d=None: torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match="§2a item 2"):
+    with pytest.raises(NotImplementedError, match=r"§2a item 2 \(d\)"):
         fe.select_action(wide, 0.01, engine="auto")
     readme = (ROOT / "README.md").read_text()
     m = re.search(r"<!-- support-matrix:begin -->\n(.*?)\n"

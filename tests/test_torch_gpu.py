@@ -28,7 +28,11 @@ four kernels on Colpitts and Lorenz-63 against their plain versions. K5
 one-step rules × scalar and (N_f-1, D) rf at D = 20, 40 and 64 and at
 D = 64 with N = 1,001 (f64 1e-12, f32 2e-5), and K8
 (kernels/csrc/pack_kernel.cu) against K2, bit for bit at pack 2, and
-against its plain version at pack 3. Run on a machine with a card:
+against its plain version at pack 3; K1 and K4's rules' entries
+(kernels/csrc/ag_rules_kernel.cu) under the four rules × scalar and
+(N_f-1, D) rf against their plain version, and K2 under
+Hermite–Simpson with an (N_f-1, D) rf (kernels/csrc/solve_rules_f32.cu)
+against the plain solve. Run on a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
@@ -867,7 +871,7 @@ def test_agt_kernel_matches_plain(cuda, dtype, tol):
                 A, G = ag.agt_kernel(Z, rf, c)
                 torch.cuda.synchronize()
                 assert ag.AGT_LAUNCHES == n0 + 1
-                A_r, G_r = ag.agt_reference(Z, rf, c)
+                A_r, G_r = ag.ag_reference(Z, rf, c)
                 assert float(torch.max(torch.abs(A - A_r)
                                        / torch.abs(A_r))) <= tol
                 scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
@@ -1003,3 +1007,83 @@ def test_pack_kernel_matches_k2(cuda, dtype):
                 if dtype == torch.float32:
                     assert a["local_bytes"] <= k2["local_bytes"], (
                         G, bounded, layout, a, k2)
+
+
+def _rule_specs():
+    """The main path's data under the four rules (D=20, N=161) and a
+    Hermite–Simpson problem in the wide walk (D=40, N_data=21)."""
+    spec, tw = _main_spec()
+    out = [(build_spec(lorenz96, 20, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                       disc=d, P=np.array([4.0]), pidx=[0]), tw)
+           for d in ("trapezoid", "euler", "forwardmap", "SimpsonHermite")]
+    tw40 = lorenz96_twin(D=40, N_data=21, n_obs=16)
+    out.append((build_spec(lorenz96, 40, tw40["Y"], tw40["t"], tw40["Lidx"],
+                           tw40["RM"], disc="SimpsonHermite",
+                           P=np.array([4.0]), pidx=[0]), tw40))
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_rule_entries_match_plain(cuda, dtype, tol):
+    """K1 and K4's rules' entries (kernels/csrc/ag_rules_kernel.cu) against
+    their plain version under each rule × scalar and (N_f-1, D) rf (less
+    the trapezoid/scalar pair, ag_kernel.cu's): value within tol relative,
+    gradient within tol of max|g|, K4's combined value within tol; one
+    launch a call, counted under its rule, and bit-identical repeats."""
+    for spec, tw in _rule_specs():
+        Z = torch.tensor(_draw(spec, tw, 4), dtype=dtype, device=cuda)
+        W = np.random.default_rng(6).uniform(0.5, 2.0,
+                                             (spec.N_f - 1, spec.D))
+        c = ag.ag_consts(spec, cuda, dtype)
+        for rf in (3.0, torch.tensor(3.0 * W, dtype=dtype, device=cuda)):
+            diag = not isinstance(rf, float)
+            if spec.disc == "trapezoid" and not diag:
+                continue
+            for comp in (False, True):
+                key = ag.rule_key(spec.disc, diag, comp)
+                n0 = ag.RULE_LAUNCHES.get(key, 0)
+                out = ag.ag_kernel(Z, rf, c, comp)
+                torch.cuda.synchronize()
+                assert ag.RULE_LAUNCHES[key] == n0 + 1
+                ref = ag.ag_reference(Z, rf, c, comp)
+                assert float(torch.max(torch.abs(out[0] - ref[0])
+                                       / torch.abs(ref[0]))) <= tol
+                scale = torch.amax(torch.abs(ref[1]), dim=1, keepdim=True)
+                assert float(torch.max(torch.abs(out[1] - ref[1])
+                                       / scale)) <= tol
+                if comp:
+                    A_c, A_r = (ag.combine(o[2], rf, c) for o in (out, ref))
+                    assert float(torch.max(torch.abs(A_c - A_r)
+                                           / torch.abs(A_r))) <= tol
+                again = ag.ag_kernel(Z, rf, c, comp)
+                assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_sh_diag_rung_solve_matches_plain(cuda):
+    """K2 (kernels/csrc/solve_rules_f32.cu) under Hermite–Simpson with
+    an (N_f-1, D) rf, f32, short solves from data-informed draws at the
+    main path's rung 50 (rf0 · 1.5^50 · W): the plain solve's niter, nfev
+    and status, f within 1e-4 relative, and bit-identical repeats. (At rf
+    1e-2 · W the problem is nearly flat and a solve ends on pgtol 1e-4 at
+    a borderline |g|: on the H100 the kernel stopped one member at 9
+    iterations with |g| 8.98e-5, the plain solve at 11 with 5.2e-5, as
+    two f32 summation orders may.)"""
+    spec, tw = _rule_specs()[3]
+    Z = torch.tensor(_draw(spec, tw, 4, seed=2), dtype=torch.float32,
+                     device=cuda)
+    W = np.random.default_rng(7).uniform(0.5, 2.0, (spec.N_f - 1, spec.D))
+    rf = torch.tensor(4e-6 * tw["RM"] * 1.5 ** 50 * W, dtype=torch.float32,
+                      device=cuda)
+    c = ag.ag_consts(spec, cuda, torch.float32)
+    opts = LBFGSOptions(maxiter=12, m=5, pgtol=1e-4, ftol=1e-6)
+    n0 = solve.RULE_LAUNCHES.get("K2/SimpsonHermite/diag", 0)
+    rk = solve.solve_kernel(Z, rf, c, opts)
+    torch.cuda.synchronize()
+    assert solve.RULE_LAUNCHES["K2/SimpsonHermite/diag"] == n0 + 1
+    rp = solve.solve_reference(Z, rf, c, opts)
+    for k in ("niter", "nfev", "status"):
+        assert torch.equal(getattr(rk, k), getattr(rp, k))
+    assert float(torch.max(torch.abs(rk.f - rp.f) / torch.abs(rp.f))) <= 1e-4
+    again = solve.solve_kernel(Z, rf, c, opts)
+    assert torch.equal(rk.x, again.x) and torch.equal(rk.f, again.f)

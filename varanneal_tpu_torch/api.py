@@ -297,8 +297,8 @@ class Annealer:
         opts = make_lbfgs_options(opt_args, dtype)
         betas = np.asarray(beta_array, dtype=dtype)
 
-        # the kernels take a scalar rf: gate on the shape the rungs' rf
-        # takes once the caps and floors are applied
+        # the kernels' envelopes depend on the rf's shape: gate on the
+        # shape the rungs' rf takes once the caps and floors are applied
         rf_shape = np.broadcast(*(r for r in (rf0, rf_max, rf_min)
                                   if r is not None))
         rf_gate = rf0 if rf_shape.ndim == 0 else np.zeros(rf_shape.shape)

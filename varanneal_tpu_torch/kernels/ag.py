@@ -1,35 +1,42 @@
 """K1, K4 and K5: the fused Lorenz-96 action + gradient, one launch per
-evaluation: K1 (trapezoid, scalar rf), K4 (K1 with compensated sums) and
-K5 (small D, three one-step rules, scalar or (N_f-1, D) rf).
+evaluation: K1 (the four rules, a scalar or (N_f-1, D) rf), K4 (K1 with
+compensated sums) and K5 (small D, three one-step rules, scalar or
+(N_f-1, D) rf).
 
 Counterpart of ``varanneal_tpu/kernels/ag_pallas.py`` (``ag_supported``,
 ``embed_consts``, ``make_action_ag``, ``_combine``), whose ``_ag_kernel``
 this replaces on the card with the hand-written CUDA kernels in
-``csrc/ag_kernel.cu`` (the source notes what bounds them and what their
-design does about that). K4 is ``_ag_kernel(comp=True)``: K1's value and
-gradient plus a (B, 6) row of two-float sums of the ME terms and of the
-unweighted FE terms, which :func:`combine` joins and scales in the combine
-dtype of ``ops.action`` (float64 for an f32 path when torch's default
-dtype is float64), so that ``make_action_ag(compensated=True)`` returns
-the compensated action's value with K1's f32 gradient. K5 replaces
-``_agt_kernel`` (``make_action_ag_t``, the reference's transposed-layout
-kernel for D <= 64) with ``csrc/agt_kernel.cu``, K1's walk in time with
-the rule and the rf kind as template arguments: the action of
-``ops.action.make_action`` under the trapezoid rule, Euler or a forward map
-with a scalar or (N_f-1, D) rf, observations at every ``obs_stride``-th
-model row (the reference's K5 puts them at rows 0..N_data-1 and takes
-Hermite–Simpson for a forward map: ROADMAP.md §3; the port follows the
-XLA action). Beside the kernels this module holds:
+``csrc/ag_kernel.cu`` (the trapezoid rule with a scalar rf) and
+``csrc/ag_rules_kernel.cu`` (Euler, the forward map, Hermite–Simpson and
+the trapezoid rule, each with a scalar or (N_f-1, D) rf, less the
+trapezoid/scalar pair); the sources note what bounds them and what their
+design does about that. K4 is ``_ag_kernel(comp=True)``: K1's value and
+gradient plus a (B, 6) row of two-float sums of the ME terms and of the FE
+terms (unweighted under a scalar rf, weighted under an (N_f-1, D) one; the
+Hermite plane apart under Hermite–Simpson), which :func:`combine` joins
+and scales in the combine dtype of ``ops.action`` (float64 for an f32 path
+when torch's default dtype is float64), so that
+``make_action_ag(compensated=True)`` returns the compensated action's
+value with K1's f32 gradient. K5 replaces ``_agt_kernel``
+(``make_action_ag_t``, the reference's transposed-layout kernel for D <=
+64) with ``csrc/agt_kernel.cu``, K1's walk in time with the rule and the
+rf kind as template arguments: the action of ``ops.action.make_action``
+under the trapezoid rule, Euler or a forward map with a scalar or
+(N_f-1, D) rf, observations at every ``obs_stride``-th model row (the
+reference's K5 puts them at rows 0..N_data-1 and takes Hermite–Simpson
+for a forward map: ROADMAP.md §3; the port follows the XLA action).
+Beside the kernels this module holds:
 
-- :func:`ag_reference`, a plain PyTorch version that spells out the same
-  hand adjoint (f, Jᵀv, the two-residual gradient) rather than calling
-  autograd, so the CPU tests check the arithmetic the CUDA code does;
-  with ``compensated=True`` it also returns K4's row, the same terms
-  summed by ``ops.action.comp_sum_pair``;
-- :func:`agt_reference`, K5's plain version, the same hand adjoint per
-  discretization;
+- :func:`ag_reference`, the one plain PyTorch version of K1, K4 and K5
+  under every rule and rf kind (and of the evaluation inside K2/K3): it
+  spells out the same hand adjoint (f, Jᵀv, the residuals' gradient)
+  rather than calling autograd, so the CPU tests check the arithmetic the
+  CUDA code does; with ``compensated=True`` it also returns K4's row, the
+  same terms summed by ``ops.action.comp_sum_pair``;
 - :data:`LAUNCHES` (K1), :data:`COMP_LAUNCHES` (K4) and
-  :data:`AGT_LAUNCHES` (K5), plain counts of kernel launches;
+  :data:`AGT_LAUNCHES` (K5), plain counts of kernel launches, and
+  :data:`RULE_LAUNCHES`, K1's and K4's launches of the rules' entries by
+  rule and rf kind;
 - :func:`ag_supported` and :func:`agt_supported`, the kernels' envelopes,
   and :func:`ag_refusal` and :func:`agt_refusal`, the condition each
   fails, in words.
@@ -56,7 +63,13 @@ LAUNCHES = 0
 COMP_LAUNCHES = 0
 #: K5 (one-step, small D) launches so far; each successful launch adds one.
 AGT_LAUNCHES = 0
+#: K1's and K4's launches of the rules' entries (csrc/ag_rules_kernel.cu)
+#: so far, by "<disc>/<rf kind>" ("scalar" or "diag") and "comp" for K4;
+#: each also counts in LAUNCHES or COMP_LAUNCHES.
+RULE_LAUNCHES = {}
 
+#: The walk's rules and their codes (WalkDisc in csrc/l96_ag_block.cuh).
+DISCS = {"trapezoid": 0, "euler": 1, "forwardmap": 2, "SimpsonHermite": 3}
 #: K5's discretizations and their codes in csrc/agt_kernel.cu.
 AGT_DISCS = {"trapezoid": 0, "euler": 1, "forwardmap": 2}
 #: K5's largest D (the reference's small-D limit).
@@ -71,8 +84,9 @@ _DTYPES = (torch.float32, torch.float64)
 #: csrc/l96_ag_block.cuh).
 RING_ROWS = 6
 #: The routine's sums a warp, plain and with K4's (hi, lo) pairs
-#: (kAgSums, kAgCompSums).
-AG_SUMS, AG_COMP_SUMS = 3, 7
+#: (kAgSums, kAgCompSums), and with the rules' entries' pairs, the Hermite
+#: plane's among them (kAgRuleCompSums).
+AG_SUMS, AG_COMP_SUMS, AG_RULE_COMP_SUMS = 3, 7, 9
 #: Most values of a member's decision vector: the kernels index it with
 #: 32-bit ints.
 MAX_N_DOF = 2**31 - 1
@@ -84,25 +98,33 @@ def ring_elems(D, warps=_WARPS):
     return RING_ROWS * D * warps
 
 
-def _smem_bytes(D, dtype, compensated=False):
+def _smem_bytes(D, dtype, compensated=False, rules=False):
     """l96_ag_smem_elems in bytes: the warps' partials (with K4's (hi, lo)
-    partials when ``compensated``) and their rings. It does not grow with
-    N."""
-    parts = (AG_COMP_SUMS if compensated else AG_SUMS) * _WARPS
+    partials when ``compensated``; ``rules``: those of the rules' entries)
+    and their rings. It does not grow with N."""
+    comp = AG_RULE_COMP_SUMS if rules else AG_COMP_SUMS
+    parts = (comp if compensated else AG_SUMS) * _WARPS
     return (parts + ring_elems(D)) * (torch.finfo(dtype).bits // 8)
 
 
-def ring_on_chip(D, dtype, compensated=False) -> bool:
+def ring_on_chip(D, dtype, compensated=False, rules=False) -> bool:
     """Whether K1/K4's rings fit in a block's shared memory with the
     partials (D up to 1,210 in float32 and 604 in float64, 1,209 and
-    604 with K4's partials); where they do not, the wrapper passes a
-    workspace of :func:`ring_elems` a member."""
-    return _smem_bytes(D, dtype, compensated) <= SMEM_LIMIT
+    604 with K4's partials, 1,209 and 603 with those of the rules'
+    entries); where they do not, the wrapper passes a workspace of
+    :func:`ring_elems` a member."""
+    return _smem_bytes(D, dtype, compensated, rules) <= SMEM_LIMIT
+
+
+def _grid_dt(spec: ProblemSpec) -> float:
+    """The model grid's row spacing: dt, or dt/2 on Hermite–Simpson's
+    doubled grid (``ops/spec.py``)."""
+    return spec.dt / 2.0 if spec.disc == "SimpsonHermite" else spec.dt
 
 
 def _uniform_grid(spec: ProblemSpec) -> bool:
     t_f = np.asarray(spec.t_f)
-    ref = t_f[0] + spec.dt * np.arange(t_f.shape[0])
+    ref = t_f[0] + _grid_dt(spec) * np.arange(t_f.shape[0])
     return bool(np.allclose(t_f, ref, rtol=1e-12, atol=1e-9))
 
 
@@ -113,28 +135,39 @@ def ag_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
     nothing more: its larger partials only move the rings off chip
     sooner."""
     del compensated
-    if spec.disc != "trapezoid":
-        return f"disc {spec.disc!r} (K1 takes the trapezoid rule)"
+    if spec.disc not in DISCS:
+        return (f"disc {spec.disc!r} (K1 takes the trapezoid rule, euler, "
+                f"forwardmap and SimpsonHermite)")
     if spec.f is not lorenz96:
         return (f"model {getattr(spec.f, '__name__', spec.f)!r} (K1 takes "
-                f"Lorenz-96, models.lorenz.lorenz96)")
+                f"Lorenz-96, models.lorenz.lorenz96; the other models wait "
+                f"for ROADMAP.md §2a item 2 (d))")
     if spec.D < 4:
         return f"D = {spec.D} (Lorenz-96 needs D >= 4)"
-    if (spec.time_dep_p or spec.stim_f is not None or spec.NP != 1
-            or spec.pidx not in ((), (0,))):
+    if spec.stim_f is not None:
+        return ("a stimulus (K1 takes none; it waits for ROADMAP.md §2a "
+                "item 2 (d))")
+    if (spec.time_dep_p or spec.NP != 1 or spec.pidx not in ((), (0,))):
         return ("parameters (K1 takes the one constant F, estimated or "
-                "fixed, and no stimulus)")
-    if np.ndim(rf) != 0:
-        return f"rf rank {np.ndim(rf)} (K1 takes a scalar rf)"
+                "fixed)")
+    if np.ndim(rf) != 0 and np.shape(rf) != (spec.N_f - 1, spec.D):
+        return (f"rf of shape {np.shape(rf)} (K1 takes a scalar or "
+                f"({spec.N_f - 1}, {spec.D}) rf; a per-member rf is "
+                f"outside it)")
     if np.ndim(spec.RM) not in (0, 2):
         return (f"RM rank {np.ndim(spec.RM)} (K1 takes a scalar or "
                 f"(N_data, L) RM)")
     if dtype not in _DTYPES:
         return f"dtype {dtype} (K1 takes float32 or float64)"
+    if spec.disc == "SimpsonHermite" and spec.N_f % 2 != 1:
+        return (f"N_f = {spec.N_f} under Hermite–Simpson (K1 takes whole "
+                f"intervals: an odd N_f)")
     if not _uniform_grid(spec):
         return "a non-uniform time grid"
     if len(set(np.asarray(spec.Lidx).tolist())) != spec.L:
-        return "repeated observed columns in Lidx"
+        return ("repeated observed columns in Lidx (the reference's K1 "
+                "takes them and departs from the XLA action there: "
+                "ROADMAP.md §3, fault 6)")
     if spec.n_dof > MAX_N_DOF:
         return (f"size: n_dof = {spec.n_dof:,} values, above the kernels' "
                 f"32-bit index range of {MAX_N_DOF:,}")
@@ -143,16 +176,17 @@ def ag_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
 
 def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
                  compensated=False) -> bool:
-    """The kernels' envelope: trapezoid rule, Lorenz-96 (the port's
-    ``models.lorenz.lorenz96``) with constant parameters and no stimulus,
-    F estimated or fixed, scalar rf, scalar or (N_data, L) RM, distinct
-    observed columns, a uniform grid, f32 or f64, and at most
-    :data:`MAX_N_DOF` values a member. Shared memory bounds nothing: the
-    routine walks the path in time and keeps 6 rows of D a warp, on chip
-    where they fit (:func:`ring_on_chip`) and else in a workspace, so N
-    and D are free up to the index range (the reference's K1 stops at 2²¹
-    padded values). :func:`ag_refusal` names the condition a problem
-    fails."""
+    """The kernels' envelope: Lorenz-96 (the port's
+    ``models.lorenz.lorenz96``) under any of the four rules (an odd N_f
+    under Hermite–Simpson), constant parameters and no stimulus, F
+    estimated or fixed, a scalar or (N_f-1, D) rf, a scalar or (N_data, L)
+    RM, distinct observed columns, a uniform grid, f32 or f64, and at most
+    :data:`MAX_N_DOF` values a member. A per-member (B, N_f-1, D) rf is
+    outside it. Shared memory bounds nothing: the routine walks the path
+    in time and keeps 6 rows of D a warp, on chip where they fit
+    (:func:`ring_on_chip`) and else in a workspace, so N and D are free
+    up to the index range (the reference's K1 stops at 2²¹ padded values).
+    :func:`ag_refusal` names the condition a problem fails."""
     return ag_refusal(spec, rf, dtype, compensated) is None
 
 
@@ -290,66 +324,163 @@ def measurement_error(X, c: AgConsts):
     return diff, _scalar(c.me_norm, X.dtype) * me
 
 
+def _rf_arg(rf, c: AgConsts):
+    """(scalar, None) for a scalar rf, else (0.0, the (N_f-1, D) rf as a
+    contiguous tensor of c's dtype on c's device). Raises for any other
+    shape: a per-member (B, N_f-1, D) rf is outside K1, K2 and K5."""
+    if isinstance(rf, torch.Tensor) and rf.ndim == 0:
+        return float(rf), None
+    if not isinstance(rf, torch.Tensor):
+        arr = np.asarray(rf, dtype=np.float64)
+        if arr.ndim == 0:
+            return float(arr), None
+        rf = torch.as_tensor(arr)
+    if tuple(rf.shape) != (c.N - 1, c.D):
+        raise ValueError(f"the kernels take a scalar or an (N_f-1, D) = "
+                         f"({c.N - 1}, {c.D}) rf; got {tuple(rf.shape)}")
+    return 0.0, rf.to(device=c.device, dtype=c.dtype).contiguous()
+
+
+def _jtv(X, v):
+    """(J(x)ᵀ v) row by row (l96_ag.cuh's l96_jtv)."""
+    return (_roll(X, 2) * _roll(v, 1)
+            + (_roll(X, -2) - _roll(X, 1)) * _roll(v, -1)
+            - _roll(X, -1) * _roll(v, -2)
+            - v)
+
+
+def _onestep_terms(X, f, rfd, c: AgConsts, h, hh):
+    """The one-step rules' residual terms and state adjoint (before 2c)
+    (see csrc/l96_ag_block.cuh): (fe terms (B, N-1, D), Σ q, its
+    multiplier in dA/dF, gX / 2c, None: no second plane)."""
+    if c.disc == "trapezoid":
+        r = X[:, 1:] - X[:, :-1] - hh * (f[:, :-1] + f[:, 1:])
+    elif c.disc == "euler":
+        r = X[:, 1:] - X[:, :-1] - h * f[:, :-1]
+    else:
+        r = X[:, 1:] - f[:, :-1]
+    q = r if rfd is None else rfd * r            # w_n r_n
+    zero = torch.zeros_like(q[:, :1])
+    qp = torch.cat([zero, q], dim=1)          # q_{n-1}, zero at n = 0
+    qc = torch.cat([q, zero], dim=1)          # q_n, zero at n = N-1
+    v = qp + qc if c.disc == "trapezoid" else qc
+    jtv = _jtv(X, v)
+    if c.disc == "trapezoid":
+        gX = qp - qc - hh * jtv
+    elif c.disc == "euler":
+        gX = qp - qc - h * jtv
+    else:
+        gX = qp - jtv
+    return q * r, torch.sum(q, dim=(1, 2)), (
+        1.0 if c.disc == "forwardmap" else h), gX, None
+
+
+def _sh_terms(X, f, rfd, c: AgConsts, h):
+    """Hermite–Simpson's residual terms and state adjoint (before 2c) on
+    the doubled grid, interval k over rows 2k..2k+2 (``ops/disc.py``):
+
+        s_k = x_{2k+2} - x_{2k} - (h/6)(f_{2k} + 4 f_{2k+1} + f_{2k+2})
+        m_k = x_{2k+1} - (x_{2k} + x_{2k+2})/2 - (h/8)(f_{2k} - f_{2k+2})
+
+    weighted by rf (a scalar) or by rows 2k and 2k+1 of the (N_f-1, D) rf:
+    a_k = w_s s_k, b_k = w_m m_k (zero outside 0..M-1). With v_k =
+    (h/6)(a_{k-1} + a_k) + (h/8)(b_k - b_{k-1}):
+
+        gX_{2k}   = a_{k-1} - a_k - (b_{k-1} + b_k)/2 - J(x_{2k})ᵀ v_k
+        gX_{2k+1} = b_k - (2h/3) J(x_{2k+1})ᵀ a_k
+
+    and dA/dF = -2c h Σ a (the Hermite terms cancel: ∂f/∂F = 1).
+    Returns (Simpson terms, Σ a, h, gX / 2c, Hermite terms)."""
+    dt = X.dtype
+    M = (c.N - 1) // 2
+    h6 = _scalar(h / 6.0, dt)
+    h8 = _scalar(h / 8.0, dt)
+    h23 = _scalar(2.0 * h / 3.0, dt)
+    xe, xm, xo = X[:, 0:2 * M:2], X[:, 1:2 * M:2], X[:, 2:2 * M + 1:2]
+    fe, fm, fo = f[:, 0:2 * M:2], f[:, 1:2 * M:2], f[:, 2:2 * M + 1:2]
+    s = xo - xe - h6 * (fe + 4.0 * fm + fo)
+    m = xm - 0.5 * (xe + xo) - h8 * (fe - fo)
+    if rfd is None:
+        a, b = s, m
+    else:
+        a, b = rfd[0:2 * M:2] * s, rfd[1:2 * M:2] * m
+    zero = torch.zeros_like(a[:, :1])
+    ap, ac = torch.cat([zero, a], dim=1), torch.cat([a, zero], dim=1)
+    bp, bc = torch.cat([zero, b], dim=1), torch.cat([b, zero], dim=1)
+    v = h6 * (ap + ac) + h8 * (bc - bp)
+    gX = torch.zeros_like(X)
+    gX[:, 0:2 * M + 1:2] = ap - ac - 0.5 * (bp + bc) - _jtv(
+        X[:, 0:2 * M + 1:2], v)
+    gX[:, 1:2 * M:2] = b - h23 * _jtv(xm, a)
+    return a * s, torch.sum(a, dim=(1, 2)), h, gX, b * m
+
+
 def ag_reference(XP, rf, c: AgConsts, compensated=False):
-    """Plain PyTorch action and gradient with the kernel's hand adjoint.
-    ``XP`` (B, n_dof) -> (A (B,), dA/dXP (B, n_dof)); with
-    ``compensated`` also K4's row (B, 6): the two-float sums
-    [me_hi, me_lo, fe_hi, fe_lo, 0, 0] of the ME terms (W·diff)·diff and
-    of the unweighted FE terms r·r, by ``ops.action.comp_sum_pair``."""
+    """Plain PyTorch action and gradient with the kernels' hand adjoint,
+    under ``c.disc`` at a scalar or (N_f-1, D) ``rf``: K1's, K4's, K5's
+    and the evaluation of K2/K3. ``XP`` (B, n_dof) -> (A (B,), dA/dXP (B,
+    n_dof)); with ``compensated`` also K4's row (B, 6): the two-float sums
+    [me_hi, me_lo, fe1_hi, fe1_lo, fe2_hi, fe2_lo] of the ME terms
+    (W·diff)·diff, of the FE terms (r·r under a scalar rf, (w·r)·r under an
+    (N_f-1, D) one; Hermite–Simpson's Simpson plane) and of the Hermite
+    plane (zero under a one-step rule), by ``ops.action.comp_sum_pair``."""
     B = XP.shape[0]
     dt = XP.dtype
+    rf_s, rfd = _rf_arg(rf, c)
     X = XP[:, : c.n_state].reshape(B, c.N, c.D)
     F = (XP[:, c.pslot].reshape(B, 1, 1) if c.pslot >= 0
          else _scalar(c.F_fixed, dt))
     h = _scalar(c.h, dt)
     hh = _scalar(h / 2.0, dt)
-    rf = _scalar(rf, dt)
     me_norm = _scalar(c.me_norm, dt)
     fe_norm = _scalar(c.fe_norm, dt)
 
-    # forward: residuals, FE, sum r, ME
     f = (_roll(X, -1) - _roll(X, 2)) * _roll(X, 1) - X + F
-    r = X[:, 1:] - X[:, :-1] - hh * (f[:, :-1] + f[:, 1:])
-    fe = torch.sum(r * r, dim=(1, 2))
-    sr = torch.sum(r, dim=(1, 2))
+    if c.disc == "SimpsonHermite":
+        t1, sq, kF, gX, t2 = _sh_terms(X, f, rfd, c, h)
+        fe = torch.sum(t1, dim=(1, 2)) + torch.sum(t2, dim=(1, 2))
+    else:
+        t1, sq, kF, gX, t2 = _onestep_terms(X, f, rfd, c, h, hh)
+        fe = torch.sum(t1, dim=(1, 2))
     diff, me = measurement_error(X, c)
-    A = me + fe_norm * (rf * fe)
-
-    # adjoint: gX_n = 2c [r_{n-1} - r_n - (h/2) J(x_n)^T (r_{n-1} + r_n)]
-    zero = torch.zeros_like(r[:, :1])
-    rp = torch.cat([zero, r], dim=1)          # r_{n-1}, zero at n = 0
-    rc = torch.cat([r, zero], dim=1)          # r_n, zero at n = N-1
-    v = rp + rc
-    jtv = (_roll(X, 2) * _roll(v, 1)
-           + (_roll(X, -2) - _roll(X, 1)) * _roll(v, -1)
-           - _roll(X, -1) * _roll(v, -2)
-           - v)
-    c2 = 2.0 * fe_norm * rf
-    gX = c2 * (rp - rc - hh * jtv)
+    if rfd is None:
+        rf_s = _scalar(rf_s, dt)
+        A = me + fe_norm * (rf_s * fe)
+        c2 = 2.0 * fe_norm * rf_s
+    else:
+        A = me + fe_norm * fe
+        c2 = 2.0 * fe_norm
+    gX = c2 * gX
     gX[:, c.obs_rows[:, None], c.lidx.long()[None, :]] += (
         2.0 * me_norm * c.W * diff)
     parts = [gX.reshape(B, c.n_state)]
     if c.pslot >= 0:
-        parts.append((-c2 * h * sr)[:, None])
+        parts.append((-c2 * kF * sq)[:, None])
     G = torch.cat(parts, dim=1)
     if not compensated:
         return A, G
     me_hi, me_lo = _action.comp_sum_pair(c.W * diff * diff, 2)
-    fe_hi, fe_lo = _action.comp_sum_pair(r * r, 2)
-    z = torch.zeros_like(me_hi)
-    return A, G, torch.stack([me_hi, me_lo, fe_hi, fe_lo, z, z], dim=1)
+    fe_hi, fe_lo = _action.comp_sum_pair(t1, 2)
+    if t2 is None:
+        f2_hi = f2_lo = torch.zeros_like(me_hi)
+    else:
+        f2_hi, f2_lo = _action.comp_sum_pair(t2, 2)
+    return A, G, torch.stack([me_hi, me_lo, fe_hi, fe_lo, f2_hi, f2_lo],
+                             dim=1)
 
 
 def combine(C, rf, c: AgConsts):
     """The compensated action from K4's rows ``C`` (B, 6), the reference's
-    ``_combine``: me = (c0 + c1)·me_norm, fe = rf·(c2 + c3 + c4 + c5),
+    ``_combine``: me = (c0 + c1)·me_norm, fe = c2 + c3 + c4 + c5, times rf
+    for a scalar rf (an (N_f-1, D) rf's weights are in the terms already),
     A = me + fe·fe_norm, in ``ops.action.combine_dtype`` of C's dtype, rf
     rounded to C's dtype first as the kernel receives it."""
     dt = _action.combine_dtype(C.dtype)
-    rf = _scalar(rf, C.dtype)
     C = C.to(dt)
     me = (C[:, 0] + C[:, 1]) * c.me_norm
-    fe = rf * (C[:, 2] + C[:, 3] + C[:, 4] + C[:, 5])
+    fe = C[:, 2] + C[:, 3] + C[:, 4] + C[:, 5]
+    if np.ndim(rf) == 0:
+        fe = _scalar(rf, C.dtype) * fe
     return me + fe * c.fe_norm
 
 
@@ -372,19 +503,51 @@ def _lib():
     return lib
 
 
+def _rules_lib():
+    from varanneal_tpu_torch.kernels import _build
+    lib = _build.load("ag_rules_kernel").lib
+    if not getattr(lib, "_va_typed", False):
+        P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        args = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl,
+                Dbl, Dbl, P, I, P, P, P]
+        for fn in (lib.va_l96_ag_rule_f32, lib.va_l96_ag_rule_f64):
+            fn.restype = I
+            fn.argtypes = args + [P]
+        for fn in (lib.va_l96_ag_rule_comp_f32, lib.va_l96_ag_rule_comp_f64):
+            fn.restype = I
+            fn.argtypes = args + [P, P]
+        lib.va_cuda_error_string.restype = ctypes.c_char_p
+        lib.va_cuda_error_string.argtypes = [I]
+        lib._va_typed = True
+    return lib
+
+
+def rule_key(disc, diag, compensated=False) -> str:
+    """The key of :data:`RULE_LAUNCHES` for one rules' entry."""
+    return (f"{disc}/{'diag' if diag else 'scalar'}"
+            + ("/comp" if compensated else ""))
+
+
 def ag_kernel(XP, rf, c: AgConsts, compensated=False):
     """Launch K1 (K4 when ``compensated``) on ``XP`` (B, n_dof), a
-    contiguous CUDA tensor of ``c``'s dtype on ``c``'s device. Returns
-    (A, dA/dXP), and K4's (B, 6) row when ``compensated``, on PyTorch's
-    current stream, without synchronizing. Raises on anything the kernel
-    does not take and on a refused launch."""
+    contiguous CUDA tensor of ``c``'s dtype on ``c``'s device, at a scalar
+    or (N_f-1, D) ``rf``: the trapezoid rule with a scalar rf through
+    ``csrc/ag_kernel.cu``, every other pair of ``c.disc`` and rf kind
+    through ``csrc/ag_rules_kernel.cu``. Returns (A, dA/dXP), and K4's
+    (B, 6) row when ``compensated``, on PyTorch's current stream, without
+    synchronizing. Raises on anything the kernel does not take and on a
+    refused launch."""
     global LAUNCHES, COMP_LAUNCHES
+    if c.disc not in DISCS:
+        raise ValueError(f"K1 does not take disc {c.disc!r}")
     if XP.device.type != "cuda" or XP.device != c.device:
         raise ValueError(f"XP is on {XP.device}; the kernel's constants "
                          f"are on {c.device}")
     if XP.dtype != c.dtype or XP.ndim != 2 or XP.shape[1] != c.n_dof:
         raise ValueError(f"XP must be (B, {c.n_dof}) {c.dtype}; got "
                          f"{tuple(XP.shape)} {XP.dtype}")
+    rf_s, rfd = _rf_arg(rf, c)
+    rule = c.disc != "trapezoid" or rfd is not None
     XP = XP.contiguous()
     B = XP.shape[0]
     A = torch.empty(B, dtype=c.dtype, device=XP.device)
@@ -393,30 +556,43 @@ def ag_kernel(XP, rf, c: AgConsts, compensated=False):
          else None)
     if B == 0:
         return (A, G, C) if compensated else (A, G)
-    lib = _lib()
+    lib = _rules_lib() if rule else _lib()
     f32 = c.dtype == torch.float32
     # the rings in a workspace where they do not fit on chip (NULL: there)
-    work = (None if ring_on_chip(c.D, c.dtype, compensated)
+    work = (None if ring_on_chip(c.D, c.dtype, compensated, rule)
             else torch.empty(B, ring_elems(c.D), dtype=c.dtype,
                              device=XP.device))
-    if compensated:
-        fn = (lib.va_l96_ag_trap_comp_f32 if f32
-              else lib.va_l96_ag_trap_comp_f64)
-        outs = (A.data_ptr(), G.data_ptr(), C.data_ptr())
+    outs = (A.data_ptr(), G.data_ptr()) + (
+        (C.data_ptr(),) if compensated else ())
+    if rule:
+        fn = {(True, False): lib.va_l96_ag_rule_f32,
+              (False, False): lib.va_l96_ag_rule_f64,
+              (True, True): lib.va_l96_ag_rule_comp_f32,
+              (False, True): lib.va_l96_ag_rule_comp_f64}[
+                  (f32, bool(compensated))]
+        extra = (DISCS[c.disc], None if rfd is None else rfd.data_ptr())
     else:
-        fn = lib.va_l96_ag_trap_f32 if f32 else lib.va_l96_ag_trap_f64
-        outs = (A.data_ptr(), G.data_ptr())
+        fn = {(True, False): lib.va_l96_ag_trap_f32,
+              (False, False): lib.va_l96_ag_trap_f64,
+              (True, True): lib.va_l96_ag_trap_comp_f32,
+              (False, True): lib.va_l96_ag_trap_comp_f64}[
+                  (f32, bool(compensated))]
+        extra = ()
     with torch.cuda.device(XP.device):
         stream = torch.cuda.current_stream(XP.device).cuda_stream
         rc = fn(XP.data_ptr(), B, c.n_dof, c.N, c.D, c.pslot, c.F_fixed,
                 c.Y.data_ptr(), c.W.data_ptr(), c.lidx.data_ptr(),
                 c.lpos.data_ptr(), c.N_data, c.L, c.obs_stride, c.h,
-                float(rf), c.me_norm, c.fe_norm,
-                None if work is None else work.data_ptr(), *outs, stream)
+                rf_s, c.me_norm, c.fe_norm,
+                None if work is None else work.data_ptr(), *extra, *outs,
+                stream)
     if rc != 0:
         raise RuntimeError(
             f"ag kernel launch failed: cudaError {rc} "
             f"({lib.va_cuda_error_string(rc).decode()})")
+    if rule:
+        key = rule_key(c.disc, rfd is not None, compensated)
+        RULE_LAUNCHES[key] = RULE_LAUNCHES.get(key, 0) + 1
     if compensated:
         COMP_LAUNCHES += 1
         return A, G, C
@@ -428,8 +604,6 @@ def action_and_grad(XP, rf, c: AgConsts, compensated=False):
     """(A, dA/dXP) for ``XP`` (..., n_dof): the plain version for a CPU
     tensor, the kernel for a CUDA tensor. ``compensated``: K4, and A is
     the combined value (:func:`combine`), the gradient K1's."""
-    if np.ndim(rf) != 0:
-        raise ValueError("the ag kernel takes a scalar rf only")
     lead = tuple(XP.shape[:-1])
     XP2 = XP.reshape(-1, c.n_dof)
     if XP.device.type == "cpu":
@@ -495,81 +669,6 @@ def make_action_ag(spec: ProblemSpec, device=None, dtype=torch.float32,
 # K5: the one-step action at small D (make_action_ag_t)
 # ---------------------------------------------------------------------------
 
-def _agt_rf(rf, c: AgConsts):
-    """(scalar, None) for a scalar rf, else (0.0, the (N_f-1, D) rf as a
-    contiguous tensor of c's dtype on c's device). Raises for any other
-    shape: a per-member (B, N_f-1, D) rf is outside K5."""
-    if isinstance(rf, torch.Tensor) and rf.ndim == 0:
-        return float(rf), None
-    if not isinstance(rf, torch.Tensor):
-        arr = np.asarray(rf, dtype=np.float64)
-        if arr.ndim == 0:
-            return float(arr), None
-        rf = torch.as_tensor(arr)
-    if tuple(rf.shape) != (c.N - 1, c.D):
-        raise ValueError(f"K5 takes a scalar or an (N_f-1, D) = "
-                         f"({c.N - 1}, {c.D}) rf; got {tuple(rf.shape)}")
-    return 0.0, rf.to(device=c.device, dtype=c.dtype).contiguous()
-
-
-def agt_reference(XP, rf, c: AgConsts):
-    """K5's plain PyTorch version, with the kernel's hand adjoint for
-    ``c.disc``. ``XP`` (B, n_dof), ``rf`` scalar or (N_f-1, D) ->
-    (A (B,), dA/dXP (B, n_dof))."""
-    B = XP.shape[0]
-    dt = XP.dtype
-    rf_s, rfd = _agt_rf(rf, c)
-    X = XP[:, : c.n_state].reshape(B, c.N, c.D)
-    F = (XP[:, c.pslot].reshape(B, 1, 1) if c.pslot >= 0
-         else _scalar(c.F_fixed, dt))
-    h = _scalar(c.h, dt)
-    hh = _scalar(h / 2.0, dt)
-    me_norm = _scalar(c.me_norm, dt)
-    fe_norm = _scalar(c.fe_norm, dt)
-
-    f = (_roll(X, -1) - _roll(X, 2)) * _roll(X, 1) - X + F
-    if c.disc == "trapezoid":
-        r = X[:, 1:] - X[:, :-1] - hh * (f[:, :-1] + f[:, 1:])
-    elif c.disc == "euler":
-        r = X[:, 1:] - X[:, :-1] - h * f[:, :-1]
-    else:
-        r = X[:, 1:] - f[:, :-1]
-    q = r if rfd is None else rfd * r            # w_n r_n
-    fe = torch.sum(q * r, dim=(1, 2))
-    sw = torch.sum(q, dim=(1, 2))
-    diff, me = measurement_error(X, c)
-    if rfd is None:
-        rf_s = _scalar(rf_s, dt)
-        A = me + fe_norm * (rf_s * fe)
-        c2 = 2.0 * fe_norm * rf_s
-    else:
-        A = me + fe_norm * fe
-        c2 = 2.0 * fe_norm
-
-    # adjoint: gX_n = 2c [q_{n-1} - q_n - k J(x_n)^T v_n] (see the .cuh)
-    zero = torch.zeros_like(q[:, :1])
-    qp = torch.cat([zero, q], dim=1)          # q_{n-1}, zero at n = 0
-    qc = torch.cat([q, zero], dim=1)          # q_n, zero at n = N-1
-    v = qp + qc if c.disc == "trapezoid" else qc
-    jtv = (_roll(X, 2) * _roll(v, 1)
-           + (_roll(X, -2) - _roll(X, 1)) * _roll(v, -1)
-           - _roll(X, -1) * _roll(v, -2)
-           - v)
-    if c.disc == "trapezoid":
-        gX = c2 * (qp - qc - hh * jtv)
-    elif c.disc == "euler":
-        gX = c2 * (qp - qc - h * jtv)
-    else:
-        gX = c2 * (qp - jtv)
-    gX[:, c.obs_rows[:, None], c.lidx.long()[None, :]] += (
-        2.0 * me_norm * c.W * diff)
-    parts = [gX.reshape(B, c.n_state)]
-    if c.pslot >= 0:
-        dF = -c2 * sw if c.disc == "forwardmap" else -c2 * h * sw
-        parts.append(dF[:, None])
-    return A, torch.cat(parts, dim=1)
-
-
 def _agt_lib():
     from varanneal_tpu_torch.kernels import _build
     lib = _build.load("agt_kernel").lib
@@ -600,7 +699,7 @@ def agt_kernel(XP, rf, c: AgConsts):
     if XP.dtype != c.dtype or XP.ndim != 2 or XP.shape[1] != c.n_dof:
         raise ValueError(f"XP must be (B, {c.n_dof}) {c.dtype}; got "
                          f"{tuple(XP.shape)} {XP.dtype}")
-    rf_s, rfd = _agt_rf(rf, c)
+    rf_s, rfd = _rf_arg(rf, c)
     XP = XP.contiguous()
     B = XP.shape[0]
     A = torch.empty(B, dtype=c.dtype, device=XP.device)
@@ -635,7 +734,7 @@ def action_and_grad_t(XP, rf, c: AgConsts):
         if XP.device != c.device:
             raise ValueError(f"XP is on {XP.device}; the constants are on "
                              f"{c.device}")
-        A, G = agt_reference(XP2, rf, c)
+        A, G = ag_reference(XP2, rf, c)
     else:
         A, G = agt_kernel(XP2, rf, c)
     return A.reshape(lead), G.reshape(lead + (c.n_dof,))

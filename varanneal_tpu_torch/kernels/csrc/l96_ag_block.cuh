@@ -64,7 +64,31 @@
 // and the forward map, and f(x_{n+1}) is the next row's f(x_n). With an
 // (N-1, D) rf each lane loads w_n with its row (in the register walk
 // kRowsAhead rows ahead, like x). K1-K4 and K8 take the trapezoid rule
-// with a scalar rf (l96_ag_block), whose code the rules leave as it was.
+// with a scalar rf through l96_ag_block, whose code the rules leave as it
+// was; K1-K4's other rules go through l96_rule_block.
+//
+// Hermite-Simpson (kWalkSimpsonHermite) lives on the doubled grid, N =
+// 2M + 1 rows, interval k over rows 2k..2k+2 (ops/disc.py):
+//
+//   s_k = x_{2k+2} - x_{2k} - (h/6)(f_{2k} + 4 f_{2k+1} + f_{2k+2})
+//   m_k = x_{2k+1} - (x_{2k} + x_{2k+2})/2 - (h/8)(f_{2k} - f_{2k+2})
+//
+// a_k = w_s s_k, b_k = w_m m_k with w_s = w_m = 1 for a scalar rf (rf
+// in 2c) or rows 2k and 2k+1 of the (N-1, D) rf; a and b are zero
+// outside 0 <= k <= M-1. With v_k = (h/6)(a_{k-1} + a_k) + (h/8)(b_k -
+// b_{k-1}):
+//
+//   gX_{2k}   = 2c [a_{k-1} - a_k - (b_{k-1} + b_k)/2 - J(x_{2k})^T v_k]
+//   gX_{2k+1} = 2c [b_k - (2h/3) J(x_{2k+1})^T a_k]
+//   A         = me_norm sum W (x_obs - Y)^2 + c sum (a s + b m)
+//   dA/dF     = -2c h sum a    (the Hermite terms cancel: df/dF = 1)
+//
+// The walk goes by steps, not rows: step k takes rows 2k and 2k+1 (row
+// 2M alone at step M), and the warps split the M + 1 steps. A step forms
+// interval k's residuals from f at rows 2k+1 and 2k+2 (f_{2k} is the last
+// step's f_{2k+2}), then the two rows' gradients; interval k-1's a and b
+// carry over from the last step, and a warp computes its first step's
+// halo interval itself. f is computed once a row.
 //
 // With kComp (K4, ag_kernel.cu's compensated entry) the routine also
 // returns the two-float (hi, lo) sums of the unweighted terms: the ME terms
@@ -86,9 +110,11 @@ constexpr int kAgWarps = kAgThreads / 32;
 // row and three rows of x (the register walk keeps none).
 constexpr int kRingRows = 6;
 // The routine's sums: FE, sum r and ME; with kComp also the (hi, lo) pairs
-// of the ME and FE terms.
+// of the ME and FE terms; under Hermite-Simpson also the Hermite plane's
+// pair (kAgRuleCompSums, which the rules' entries allocate).
 constexpr int kAgSums = 3;
 constexpr int kAgCompSums = 7;
+constexpr int kAgRuleCompSums = 9;
 // Widest D the register walk takes: one column a lane.
 constexpr int kRegWalkMaxD = 32;
 // Rows of x and of the observations the register walk loads ahead of use.
@@ -152,8 +178,14 @@ struct WarpGroup {
     }
 };
 
-// The one-step rules of the walk (ops/disc.py's names; K5's codes).
-enum WalkDisc { kWalkTrapezoid = 0, kWalkEuler = 1, kWalkForwardMap = 2 };
+// The rules of the walk (ops/disc.py's names; K5's and the rules'
+// entries' codes).
+enum WalkDisc {
+    kWalkTrapezoid = 0,
+    kWalkEuler = 1,
+    kWalkForwardMap = 2,
+    kWalkSimpsonHermite = 3
+};
 
 // r_n of one column from x_n, x_{n+1} and f at both (hh = h/2).
 template <int kDisc, typename T>
@@ -286,21 +318,35 @@ struct AgSums {
 };
 
 // A lane's partial sums along its walk, FE, sum r and ME in Acc (T for
-// K1-K4 and K8; K5 sums in double).
+// K1-K4 and K8; K5 sums in double); with kComp the (hi, lo) pairs of the
+// ME terms, the FE terms and (Hermite-Simpson) the Hermite plane's terms.
 template <typename T, bool kComp, typename Acc = T>
 struct AgPartials {
     Acc fe = Acc(0), sr = Acc(0), me = Acc(0);
     T me_hi = T(0), me_lo = T(0), fe_hi = T(0), fe_lo = T(0);
+    T f2_hi = T(0), f2_lo = T(0);
 
     __device__ __forceinline__ void residual(T rr) {
         fe += Acc(rr) * Acc(rr);
         sr += Acc(rr);
         if constexpr (kComp) two_join(fe_hi, fe_lo, mul_rn(rr, rr), T(0));
     }
-    // a residual weighted by its row of an (N-1, D) rf: q = w r
+    // a residual weighted by its row of an (N-1, D) rf: q = w r (K4's
+    // term the weighted q r, as the reference's diag mode sums it)
     __device__ __forceinline__ void weighted(T q, T rr) {
         fe += Acc(q) * Acc(rr);
         sr += Acc(q);
+        if constexpr (kComp) two_join(fe_hi, fe_lo, mul_rn(q, rr), T(0));
+    }
+    // a Hermite-Simpson interval's column: a = w_s s, b = w_m m
+    __device__ __forceinline__ void interval(T a, T sres, T b, T mres) {
+        fe += Acc(a) * Acc(sres);
+        fe += Acc(b) * Acc(mres);
+        sr += Acc(a);
+        if constexpr (kComp) {
+            two_join(fe_hi, fe_lo, mul_rn(a, sres), T(0));
+            two_join(f2_hi, f2_lo, mul_rn(b, mres), T(0));
+        }
     }
     __device__ __forceinline__ void misfit(T w, T diff) {
         me += Acc(w) * Acc(diff) * Acc(diff);
@@ -670,13 +716,242 @@ __device__ __forceinline__ void walk_wide(const L96Problem<T>& p,
     }
 }
 
+// Hermite-Simpson's constants of a walk: h/6, h/8 and 2h/3 in T.
+template <typename T>
+struct ShCoeffs {
+    T h6, h8, h23;
+    __device__ __forceinline__ explicit ShCoeffs(T h)
+        : h6(h / T(6)), h8(h / T(8)), h23(T(2) * h / T(3)) {}
+};
+
+// Interval k's residuals at one column from x and f at its three rows.
+template <typename T>
+__device__ __forceinline__ void sh_residuals(T x0, T x1, T x2, T f0, T f1,
+                                             T f2, const ShCoeffs<T>& k,
+                                             T& sres, T& mres) {
+    sres = x2 - x0 - k.h6 * ((f0 + T(4) * f1) + f2);
+    mres = x1 - T(0.5) * (x0 + x2) - k.h8 * (f0 - f2);
+}
+
+// The register walk under Hermite-Simpson, D <= kRegWalkMaxD: lane d's
+// column, steps [a.n0, a.n1) (the note at the top). A step loads the
+// centers of its two new rows one step ahead; the stencils come from the
+// other lanes by shuffles, so the walk touches no shared memory. Every
+// lane of a warp runs the same steps.
+template <typename T, bool kComp, bool kDiag, typename Acc>
+__device__ __forceinline__ void walk_regs_sh(const L96Problem<T>& p,
+                                             const T* x, T* g,
+                                             const WalkArgs<T>& a,
+                                             AgPartials<T, kComp, Acc>& s) {
+    const int N = p.N, D = p.D, M = (p.N - 1) / 2;
+    const int d = (int)a.lane;
+    const bool on = d < D;
+    const int l = on ? p.lpos[d] : -1;
+    const int src[4] = {l96_wrap(d - 2, D), l96_wrap(d - 1, D),
+                        l96_wrap(d + 1, D), l96_wrap(d + 2, D)};
+    const ShCoeffs<T> k6(p.h);
+    auto weight = [&](int n) {
+        return on && n >= 0 && n < N - 1 ? a.rfd[(size_t)n * D + d] : T(0);
+    };
+    ObsCursor oc(2 * a.n0, p.obs_stride);
+    // the observation term of row n at this column (misfit summed by the
+    // row's owner, which every row walked here is)
+    auto obs_grad = [&](int n, T xc, T gx) {
+        if (l >= 0 && oc.at(n, p.N_data)) {
+            const T wv = p.W[oc.k * p.L + l];
+            const T diff = xc - p.Y[oc.k * p.L + l];
+            gx += T(2) * p.me_norm * wv * diff;
+            s.misfit(wv, diff);
+        }
+        oc.pass(n, p.obs_stride);
+        return gx;
+    };
+    T xa[5];                        // x_{2k}[d-2..d+2]
+    gather5(center(x, 2 * a.n0, d, D, on && 2 * a.n0 < N), src, xa);
+    T fa = f5(xa, a.F);             // f(x_{2k})_d
+    T ap = T(0), bp = T(0);         // a_{k-1}, b_{k-1} at d
+    if (a.n0 > 0) {                 // the halo interval k0 - 1
+        T xl[5], xh[5];
+        gather5(center(x, 2 * a.n0 - 2, d, D, on), src, xl);
+        gather5(center(x, 2 * a.n0 - 1, d, D, on), src, xh);
+        T sres, mres;
+        sh_residuals(xl[2], xh[2], xa[2], f5(xl, a.F), f5(xh, a.F), fa, k6,
+                     sres, mres);
+        ap = kDiag ? weight(2 * a.n0 - 2) * sres : sres;
+        bp = kDiag ? weight(2 * a.n0 - 1) * mres : mres;
+    }
+    // the centers of the next step's rows 2k+1 and 2k+2
+    auto ahead = [&](int k, int j) {
+        const int n = 2 * k + j;
+        return center(x, n, d, D, on && k < M && n < N);
+    };
+    T c1 = ahead(a.n0, 1), c2 = ahead(a.n0, 2);
+    for (int k = a.n0; k < a.n1; ++k) {
+        const bool has_int = k < M;
+        T xm[5], xo[5];             // x_{2k+1}, x_{2k+2}
+        gather5(c1, src, xm);
+        gather5(c2, src, xo);
+        c1 = ahead(k + 1, 1);
+        c2 = ahead(k + 1, 2);
+        const T fm = f5(xm, a.F), fo = f5(xo, a.F);
+        T ak = T(0), bk = T(0);
+        if (has_int) {
+            T sres, mres;
+            sh_residuals(xa[2], xm[2], xo[2], fa, fm, fo, k6, sres, mres);
+            ak = kDiag ? weight(2 * k) * sres : sres;
+            bk = kDiag ? weight(2 * k + 1) * mres : mres;
+            if (on) s.interval(ak, sres, bk, mres);
+        }
+        // row 2k: J(x_{2k})^T v with v = (h/6)(a_{k-1} + a_k)
+        // + (h/8)(b_k - b_{k-1})
+        const T v = k6.h6 * (ap + ak) + k6.h8 * (bk - bp);
+        const T v_m1 = __shfl_sync(0xffffffffu, v, src[1]);
+        const T v_p1 = __shfl_sync(0xffffffffu, v, src[2]);
+        const T v_p2 = __shfl_sync(0xffffffffu, v, src[3]);
+        const T jt = xa[0] * v_m1 + (xa[4] - xa[1]) * v_p1 - xa[3] * v_p2
+                     - v;
+        T gx = a.c2 * ((ap - ak) - T(0.5) * (bp + bk) - jt);
+        gx = obs_grad(2 * k, xa[2], gx);
+        if (on) g[(size_t)(2 * k) * D + d] = gx;
+        if (has_int) {
+            // row 2k+1: b_k - (2h/3) J(x_{2k+1})^T a_k
+            const T a_m1 = __shfl_sync(0xffffffffu, ak, src[1]);
+            const T a_p1 = __shfl_sync(0xffffffffu, ak, src[2]);
+            const T a_p2 = __shfl_sync(0xffffffffu, ak, src[3]);
+            const T jt1 = xm[0] * a_m1 + (xm[4] - xm[1]) * a_p1
+                          - xm[3] * a_p2 - ak;
+            T gx1 = a.c2 * (bk - k6.h23 * jt1);
+            gx1 = obs_grad(2 * k + 1, xm[2], gx1);
+            if (on) g[(size_t)(2 * k + 1) * D + d] = gx1;
+        }
+#pragma unroll
+        for (int i = 0; i < 5; ++i) xa[i] = xo[i];
+        fa = fo;
+        ap = ak;
+        bp = bk;
+    }
+}
+
+// The wide walk under Hermite-Simpson, D > kRegWalkMaxD: steps [a.n0,
+// a.n1), the lane's columns d = lane + 32 j; x read where it lies (global
+// or shared memory). The ring holds a_{k-1}, b_{k-1}, a_k, b_k and
+// f(x_{2k}) at every column (5 of its kRingRows rows). A step's first pass
+// forms interval k's residuals at the lane's columns (f_{2k+2} replacing
+// f_{2k} in the ring), the second the gradients of rows 2k and 2k+1,
+// whose stencils read the ring's a and b at neighbouring columns, after a
+// __syncwarp; one more ends the step's reads.
+template <typename T, bool kComp, bool kDiag, typename Acc>
+__device__ __forceinline__ void walk_wide_sh(const L96Problem<T>& p,
+                                             const T* x, T* g, T* ring,
+                                             const WalkArgs<T>& a,
+                                             AgPartials<T, kComp, Acc>& s) {
+    const int D = p.D, M = (p.N - 1) / 2;
+    const ShCoeffs<T> k6(p.h);
+    T* ap = ring;                   // a_{k-1}
+    T* bp = ring + D;               // b_{k-1}
+    T* ac = ring + 2 * D;           // a_k
+    T* bc = ring + 3 * D;           // b_k
+    T* fr = ring + 4 * D;           // f(x_{2k})
+    {
+        const T* x0 = x + (size_t)(2 * a.n0) * D;
+        for (int d = (int)a.lane; d < D; d += 32) {
+            const T f0 = l96_f(x0, d, D, a.F);
+            fr[d] = f0;
+            if (a.n0 > 0) {         // the halo interval k0 - 1
+                const T* xl = x0 - 2 * (size_t)D;
+                const T* xh = x0 - (size_t)D;
+                T sres, mres;
+                sh_residuals(xl[d], xh[d], x0[d], l96_f(xl, d, D, a.F),
+                             l96_f(xh, d, D, a.F), f0, k6, sres, mres);
+                const size_t n = (size_t)(2 * a.n0 - 2) * D + d;
+                ap[d] = kDiag ? a.rfd[n] * sres : sres;
+                bp[d] = kDiag ? a.rfd[n + D] * mres : mres;
+            }
+        }
+    }
+    ObsCursor obs(2 * a.n0, p.obs_stride);
+    // one row's gradient pass: gx = base(e) - J(x_n)^T v at e, where the
+    // stencil reads v at e-1, e+1, e+2 and e; the observation term added
+    auto grad_row = [&](int n, auto base, auto v) {
+        const T* xr = x + (size_t)n * D;
+        const bool is_obs = obs.at(n, p.N_data);
+        const int krow = obs.k * p.L;
+        for (int e = (int)a.lane; e < D; e += 32) {
+            const T jt = l96_jtv(xr, v, e, D);
+            T gx = a.c2 * (base(e) - jt);
+            const int l = is_obs ? p.lpos[e] : -1;
+            if (l >= 0) {
+                const T wv = p.W[krow + l];
+                const T diff = xr[e] - p.Y[krow + l];
+                gx += T(2) * p.me_norm * wv * diff;
+                s.misfit(wv, diff);
+            }
+            g[(size_t)n * D + e] = gx;
+        }
+        obs.pass(n, p.obs_stride);
+    };
+    for (int k = a.n0; k < a.n1; ++k) {
+        const bool has_int = k < M;
+        if (has_int) {
+            const T* x0 = x + (size_t)(2 * k) * D;
+            const T* x1 = x0 + D;
+            const T* x2 = x1 + D;
+            for (int d = (int)a.lane; d < D; d += 32) {
+                const T f1 = l96_f(x1, d, D, a.F);
+                const T f2 = l96_f(x2, d, D, a.F);
+                T sres, mres;
+                sh_residuals(x0[d], x1[d], x2[d], fr[d], f1, f2, k6, sres,
+                             mres);
+                const size_t n = (size_t)(2 * k) * D + d;
+                const T ak = kDiag ? a.rfd[n] * sres : sres;
+                const T bk = kDiag ? a.rfd[n + D] * mres : mres;
+                ac[d] = ak;
+                bc[d] = bk;
+                fr[d] = f2;
+                s.interval(ak, sres, bk, mres);
+            }
+        }
+        __syncwarp();
+        const T* app = k > 0 ? ap : nullptr;
+        const T* bpp = k > 0 ? bp : nullptr;
+        const T* acc = has_int ? ac : nullptr;
+        const T* bcc = has_int ? bc : nullptr;
+        auto at = [](const T* r, int e) { return r ? r[e] : T(0); };
+        // row 2k
+        grad_row(
+            2 * k,
+            [&](int e) {
+                return (at(app, e) - at(acc, e))
+                       - T(0.5) * (at(bpp, e) + at(bcc, e));
+            },
+            [&](int e) {
+                return k6.h6 * (at(app, e) + at(acc, e))
+                       + k6.h8 * (at(bcc, e) - at(bpp, e));
+            });
+        if (has_int) {              // row 2k+1
+            grad_row(
+                2 * k + 1, [&](int e) { return bc[e]; },
+                [&](int e) { return k6.h23 * ac[e]; });
+        }
+        __syncwarp();
+        T* t = ap;
+        ap = ac;
+        ac = t;
+        t = bp;
+        bp = bc;
+        bc = t;
+    }
+}
+
 // The walk and the sums of one member under rule kDisc, at a scalar rf
 // or (kDiag) at the (N-1, D) rf rfd: l96_ag_block's contract (below),
-// with A = me_norm sum W (x_obs - Y)^2 + fe_norm sum w r^2. The sums
-// FE, sum r and ME, their partials in red and the value's combination
-// are in Acc, rounded to T once at the end; red holds l96_ag_red_elems
-// values of Acc. Inlined into its callers: l96_ag_block (K1-K4, K8; Acc
-// = T) and K5's kernel (Acc = double).
+// with A = me_norm sum W (x_obs - Y)^2 + fe_norm sum w r^2 (Hermite-
+// Simpson: the note at the top). The sums FE, sum r and ME, their
+// partials in red and the value's combination are in Acc, rounded to T
+// once at the end; red holds l96_ag_red_elems values of Acc (with kComp
+// under Hermite-Simpson kAgRuleCompSums a warp, the Hermite plane's pair
+// in comp[4..5]). Inlined into its callers: l96_ag_block and
+// l96_rule_block (K1-K4, K8; Acc = T) and K5's kernel (Acc = double).
 template <typename T, bool kComp, typename Grp, int kDisc, bool kDiag,
           typename Acc = T>
 __device__ __forceinline__ AgSums<T> l96_walk_block(
@@ -691,13 +966,22 @@ __device__ __forceinline__ AgSums<T> l96_walk_block(
     a.c2 = kDiag ? T(2) * p.fe_norm : T(2) * p.fe_norm * rf;
     a.rfd = rfd;
     a.lane = lane;
-    warp_rows<W>(p.N, warp, a.n0, a.n1, a.rows);
     T* wring = ring + (size_t)warp * kRingRows * p.D;
     AgPartials<T, kComp, Acc> s;
-    if (p.D <= kRegWalkMaxD)    // a warp without rows stores nothing
-        walk_regs<T, kComp, kDisc, kDiag, Acc>(p, x, g, a, s);
-    else if (a.n0 < a.n1)
-        walk_wide<T, kComp, kDisc, kDiag, Acc>(p, x, g, wring, a, s);
+    if constexpr (kDisc == kWalkSimpsonHermite) {
+        // the warps split the M + 1 steps of the doubled grid
+        warp_rows<W>((p.N + 1) / 2, warp, a.n0, a.n1, a.rows);
+        if (p.D <= kRegWalkMaxD)
+            walk_regs_sh<T, kComp, kDiag, Acc>(p, x, g, a, s);
+        else if (a.n0 < a.n1)
+            walk_wide_sh<T, kComp, kDiag, Acc>(p, x, g, wring, a, s);
+    } else {
+        warp_rows<W>(p.N, warp, a.n0, a.n1, a.rows);
+        if (p.D <= kRegWalkMaxD)    // a warp without rows stores nothing
+            walk_regs<T, kComp, kDisc, kDiag, Acc>(p, x, g, a, s);
+        else if (a.n0 < a.n1)
+            walk_wide<T, kComp, kDisc, kDiag, Acc>(p, x, g, wring, a, s);
+    }
     // fixed-order reduction: the warp's tree, then the warps in order
     s.fe = warp_sum(s.fe);
     s.sr = warp_sum(s.sr);
@@ -716,6 +1000,14 @@ __device__ __forceinline__ AgSums<T> l96_walk_block(
             cr[W + warp] = s.me_lo;
             cr[2 * W + warp] = s.fe_hi;
             cr[3 * W + warp] = s.fe_lo;
+        }
+        if constexpr (kDisc == kWalkSimpsonHermite) {
+            warp_two_sum(s.f2_hi, s.f2_lo);
+            if (lane == 0) {
+                T* cr = reinterpret_cast<T*>(red + kAgSums * W);
+                cr[4 * W + warp] = s.f2_hi;
+                cr[5 * W + warp] = s.f2_lo;
+            }
         }
     }
     Grp::sync();   // the warps' partials (and every entry of g) complete
@@ -742,8 +1034,16 @@ __device__ __forceinline__ AgSums<T> l96_walk_block(
             comp[1] = ml;
             comp[2] = fh;
             comp[3] = fl;
-            comp[4] = T(0);
-            comp[5] = T(0);
+            if constexpr (kDisc == kWalkSimpsonHermite) {
+                T h2 = cr[4 * W], l2 = cr[5 * W];
+                for (int w = 1; w < W; ++w)
+                    two_join(h2, l2, cr[4 * W + w], cr[5 * W + w]);
+                comp[4] = h2;
+                comp[5] = l2;
+            } else {
+                comp[4] = T(0);
+                comp[5] = T(0);
+            }
         }
     }
     // rounded apart, so that no kernel's contraction can fuse a product
@@ -788,4 +1088,70 @@ __device__ __noinline__ AgSums<T> l96_ag_block(const L96Problem<T>& problem,
     const L96Problem<T> p = problem;
     return l96_walk_block<T, kComp, Grp, kWalkTrapezoid, false>(
         p, x, rf, nullptr, g, ring, red, comp);
+}
+
+// The problem of the rules' entries: the rule (WalkDisc) and, for an
+// (N-1, D) rf, its rows (rfd; nullptr for a scalar rf).
+template <typename T>
+struct L96RuleProblem : L96Problem<T> {
+    int disc;
+    const T* rfd;
+};
+
+// One rule and rf kind of l96_rule_block, not inlined: each pair gets its
+// own registers (in one body with the others, its walk's registers added
+// to theirs and the solver's, and the kernels spilled).
+template <typename T, bool kComp, typename Grp, int kDisc, bool kDiag>
+__device__ __noinline__ AgSums<T> l96_rule_walk(
+        const L96Problem<T>& problem, const T* x, T rf, const T* rfd,
+        T* __restrict__ g, T* ring, T* red, T* comp) {
+    const L96Problem<T> p = problem;
+    return l96_walk_block<T, kComp, Grp, kDisc, kDiag>(p, x, rf, rfd, g,
+                                                       ring, red, comp);
+}
+
+// l96_ag_block under the problem's rule and rf kind, chosen at run time
+// (one body for each rule and rf kind, l96_rule_walk, which K1's and K4's
+// rules' entries and K2/K3's evaluation call alike, so they run the same
+// machine code). Every pair but the trapezoid rule with a scalar rf,
+// which is l96_ag_block's: the entries refuse it (rule_ok), so a
+// trapezoid problem here has its (N-1, D) rf. red: l96_ag_red_elems(kComp)
+// values, or with kComp kAgRuleCompSums a warp (the Hermite plane's pair);
+// comp[4..5] the Hermite plane's (hi, lo) under Hermite-Simpson, else
+// zero.
+template <typename T, bool kComp = false, typename Grp = BlockGroup>
+__device__ __forceinline__ AgSums<T> l96_rule_block(
+        const L96RuleProblem<T>& p, const T* x, T rf, T* __restrict__ g,
+        T* ring, T* red, T* comp = nullptr) {
+    const T* rfd = p.rfd;
+    switch (p.disc) {
+        case kWalkEuler:
+            return rfd ? l96_rule_walk<T, kComp, Grp, kWalkEuler, true>(
+                             p, x, rf, rfd, g, ring, red, comp)
+                       : l96_rule_walk<T, kComp, Grp, kWalkEuler, false>(
+                             p, x, rf, nullptr, g, ring, red, comp);
+        case kWalkForwardMap:
+            return rfd
+                ? l96_rule_walk<T, kComp, Grp, kWalkForwardMap, true>(
+                      p, x, rf, rfd, g, ring, red, comp)
+                : l96_rule_walk<T, kComp, Grp, kWalkForwardMap, false>(
+                      p, x, rf, nullptr, g, ring, red, comp);
+        case kWalkSimpsonHermite:
+            return rfd
+                ? l96_rule_walk<T, kComp, Grp, kWalkSimpsonHermite, true>(
+                      p, x, rf, rfd, g, ring, red, comp)
+                : l96_rule_walk<T, kComp, Grp, kWalkSimpsonHermite, false>(
+                      p, x, rf, nullptr, g, ring, red, comp);
+        default:
+            return l96_rule_walk<T, kComp, Grp, kWalkTrapezoid, true>(
+                p, x, rf, rfd, g, ring, red, comp);
+    }
+}
+
+// The rules' entries take a rule of the walk with whole intervals under
+// Hermite-Simpson, and the trapezoid rule only with an (N-1, D) rf.
+__host__ inline bool rule_ok(int disc, int N, bool diag) {
+    return disc >= kWalkTrapezoid && disc <= kWalkSimpsonHermite
+           && (disc != kWalkSimpsonHermite || N % 2 == 1)
+           && (disc != kWalkTrapezoid || diag);
 }

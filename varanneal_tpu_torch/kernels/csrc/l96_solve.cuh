@@ -371,6 +371,22 @@ __device__ __forceinline__ void evaluate(const L96Problem<T>& p, const T* x,
     me = s.me;
 }
 
+// The same under the problem's rule and rf kind (the rules' entries of
+// solve_rules_f32.cu and _f64.cu): the routine l96_rule_block, whose
+// partials take the same area.
+template <typename Grp, typename T>
+__device__ __forceinline__ void evaluate(const L96RuleProblem<T>& p,
+                                         const T* x, T rf, T* g, Smem<T>& sm,
+                                         T& f, T& me) {
+    Grp::sync();
+    T* red = sm.red + sm.turn * (kMaxRed * Grp::kWarps);
+    sm.turn ^= 1;
+    const AgSums<T> s =
+        l96_rule_block<T, false, Grp>(p, x, rf, g, sm.ring, red);
+    f = s.A;
+    me = s.me;
+}
+
 // _cubic_min: minimizer of the cubic Hermite interpolant on [a, b], with
 // the NaN-safe fall back to bisection.
 template <typename T>
@@ -393,9 +409,9 @@ struct LineSearch {
 
 // The strong-Wolfe bracket/zoom line search of _solve_one.line_search
 // (solve_pallas.py), one evaluation per step, along d from x.
-template <typename Grp, int kChunk, typename T>
+template <typename Grp, int kChunk, typename T, typename Prob>
 __device__ __forceinline__ LineSearch<T> line_search(
-        const L96Problem<T>& p, T rf, const SolveOpts<T>& o,
+        const Prob& p, T rf, const SolveOpts<T>& o,
         const Bufs<T>& w, T f0, T me0, T dphi0, T a_init, Smem<T>& sm) {
     const int n = p.n_dof;
     const T big = big_value<T>();
@@ -504,9 +520,9 @@ __device__ __forceinline__ LineSearch<T> line_search(
 // w.x along w.d, the trial point P(x + a d) in w.xt and its gradient in
 // w.gt. ok: the last trial decreased f enough (it is then the new
 // point); nfev counts every trial, the first included.
-template <typename Grp, int kChunk, typename T>
+template <typename Grp, int kChunk, typename T, typename Prob>
 __device__ __forceinline__ LineSearch<T> proj_line_search(
-        const L96Problem<T>& p, T rf, const SolveOpts<T>& o,
+        const Prob& p, T rf, const SolveOpts<T>& o,
         const Bufs<T>& w, const Box<T>& bx, T f0, T me0, T a_init,
         Smem<T>& sm) {
     const int n = p.n_dof;
@@ -660,9 +676,11 @@ struct SolveResult {
 // leaving the minimizer in w.x and its gradient in w.g (the pointers may
 // swap on the way), inside the box bx when kBounded. A fresh history
 // every call. kChunk: the entries a vector pass loads together
-// (chunk_of the layout).
-template <typename Grp, bool kBounded, int kChunk, typename T>
-__device__ __noinline__ SolveResult<T> solve_one(const L96Problem<T>& p,
+// (chunk_of the layout). Prob: L96Problem<T> (the trapezoid rule, a
+// scalar rf) or L96RuleProblem<T> (the problem's rule and rf kind).
+template <typename Grp, bool kBounded, int kChunk, typename T,
+          typename Prob>
+__device__ __noinline__ SolveResult<T> solve_one(const Prob& p,
                                                  T rf, const SolveOpts<T>& o,
                                                  Bufs<T>& w, const Box<T>& bx,
                                                  Smem<T> sm) {

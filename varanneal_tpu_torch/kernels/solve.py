@@ -1,14 +1,18 @@
 """K2 and K3: the whole L-BFGS rung solve (unbounded, or bounded by the
 projection algorithm), and a whole warm-started ladder of unbounded
-rungs, each in one launch.
+rungs, each in one launch, under Lorenz-96's four rules.
 
 Counterpart of ``varanneal_tpu/kernels/solve_pallas.py``
 (``solve_supported``, ``ladder_supported``, ``solve_preferred``,
-``pick_rung_solver``, ``make_rung_solver``, ``make_ladder_solver``) for
-the scalar-rf case, whose ``_solve_kernel`` and ``_ladder_kernel`` this
-replaces on the card with the hand-written CUDA kernels in
-``csrc/solve_kernel.cu`` (the source notes what bounds them and what
-their design does about it). Beside the kernels this module holds:
+``pick_rung_solver``, ``make_rung_solver``, ``make_ladder_solver``),
+whose ``_solve_kernel`` and ``_ladder_kernel`` this replaces on the card
+with the hand-written CUDA kernels in ``csrc/solve_kernel.cu`` (the
+trapezoid rule with a scalar rf) and ``csrc/solve_rules_f32.cu`` /
+``solve_rules_f64.cu`` (the other rules, and K2's (N_f-1, D) rf; their
+notes are ``csrc/l96_solve_rules.cuh``'s: what bounds them and what
+their design does about it). K2 takes a scalar or (N_f-1, D)
+rf, K3 a scalar rf, as the reference's. Beside the kernels this module
+holds:
 
 - :func:`solve_reference` and :func:`ladder_reference`, the plain
   versions: the port's batched ``opt/lbfgs.lbfgs_minimize`` with
@@ -16,7 +20,8 @@ their design does about it). Beside the kernels this module holds:
   K1's plain ``ag_reference``, and its loop over rungs with the same
   records;
 - :data:`RUNG_LAUNCHES` and :data:`LADDER_LAUNCHES`, plain counts of
-  kernel launches;
+  kernel launches, and :data:`RULE_LAUNCHES`, the rules' entries'
+  launches by kernel, rule and rf kind;
 - :func:`solve_supported` and :func:`ladder_supported`, the envelope,
   and :func:`solve_preferred` and :func:`pick_rung_solver`, the policy
   of the facade's ``solver=``;
@@ -55,6 +60,10 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 RUNG_LAUNCHES = 0
 #: Launches of the ladder kernel (K3) so far.
 LADDER_LAUNCHES = 0
+#: Launches of the rules' entries (csrc/solve_rules_*.cu) so far, by
+#: "K2/<disc>/<rf kind>" and "K3/<disc>/scalar"; each also counts in
+#: RUNG_LAUNCHES or LADDER_LAUNCHES.
+RULE_LAUNCHES = {}
 
 #: Largest history the kernels take (kMaxM in csrc/l96_solve.cuh).
 MAX_M = 16
@@ -140,33 +149,34 @@ def solve_refusal(spec: ProblemSpec, rf, opts: LBFGSOptions,
                   dtype=torch.float32):
     """The first condition of :func:`solve_supported` that fails, in
     words, or None inside the envelope."""
-    if np.ndim(rf) != 0:
-        return f"rf rank {np.ndim(rf)} (the solve kernels take a scalar rf)"
     if not 1 <= opts.m <= MAX_M:
         return f"m = {opts.m} (the solve kernels take 1 <= m <= {MAX_M})"
     if opts.maxls < 1:
         return f"maxls = {opts.maxls} (at least 1)"
-    return ag.ag_refusal(spec, 0.0, dtype)
+    return ag.ag_refusal(spec, rf, dtype)
 
 
 def solve_supported(spec: ProblemSpec, rf, opts: LBFGSOptions,
                     dtype=torch.float32) -> bool:
     """The rung-solve kernel's envelope, bounded or not: K1's
-    (:func:`ag.ag_supported`), scalar rf, 1 <= m <= :data:`MAX_M` and
-    maxls >= 1. Shared memory bounds nothing: the group's own area is 112
-    values plus the evaluation's rings, which go to the workspace where
-    they do not fit, and the vectors, the history and the bounds go to
-    shared memory only where they fit (:func:`plan_layout`).
-    :func:`solve_refusal` names the condition a problem fails."""
+    (:func:`ag.ag_supported`: the four rules, a scalar or (N_f-1, D) rf),
+    1 <= m <= :data:`MAX_M` and maxls >= 1. Shared memory bounds
+    nothing: the group's own area is 112 values plus the evaluation's
+    rings, which go to the workspace where they do not fit, and the
+    vectors, the history and the bounds go to shared memory only where
+    they fit (:func:`plan_layout`). :func:`solve_refusal` names the
+    condition a problem fails."""
     return solve_refusal(spec, rf, opts, dtype) is None
 
 
 def ladder_supported(spec: ProblemSpec, rf, opts: LBFGSOptions,
                      dtype=torch.float32, n_rungs: int = 1) -> bool:
-    """The ladder kernel's envelope: the rung solve's, for n_rungs >= 1.
-    One launch runs every rung; a caller that wants shorter launches
-    builds a solver for fewer rungs and chains the calls."""
-    return n_rungs >= 1 and solve_supported(spec, rf, opts, dtype=dtype)
+    """The ladder kernel's envelope: the rung solve's at a scalar rf (the
+    reference's ``ladder_supported``), for n_rungs >= 1. One launch runs
+    every rung; a caller that wants shorter launches builds a solver for
+    fewer rungs and chains the calls."""
+    return (n_rungs >= 1 and np.ndim(rf) == 0
+            and solve_supported(spec, rf, opts, dtype=dtype))
 
 
 def solve_reference(XP, rf, c: ag.AgConsts, opts: LBFGSOptions,
@@ -202,45 +212,73 @@ def ladder_reference(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions):
 
 
 def typed(lib):
-    """``lib`` (a ctypes library built from csrc/solve_kernel.cu) with its
-    functions' argument and result types set."""
+    """``lib`` (a ctypes library built from csrc/solve_kernel.cu or
+    csrc/solve_rules_f32.cu / solve_rules_f64.cu) with its functions'
+    argument and result types set."""
     if not getattr(lib, "_va_typed", False):
         P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         common = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl, Dbl,
                   I, I, I, Dbl, Dbl, Dbl, Dbl]
-        for fn in (lib.va_l96_solve_f32, lib.va_l96_solve_f64):
+        if hasattr(lib, "va_l96_solve_rule_attrs"):
+            sfx = "f32" if hasattr(lib, "va_l96_solve_rule_f32") else "f64"
+            fn = getattr(lib, f"va_l96_solve_rule_{sfx}")
             fn.restype = I
-            fn.argtypes = common + [I, Dbl, P, P, I, P, P, P, P, P, P]
-        for fn in (lib.va_l96_ladder_f32, lib.va_l96_ladder_f64):
+            fn.argtypes = common + [I, I, Dbl, P, P, P, I, P, P, P, P, P, P]
+            fn = getattr(lib, f"va_l96_ladder_rule_{sfx}")
             fn.restype = I
-            fn.argtypes = common + [I, P, I, P, P, P, P, P]
-        lib.va_l96_solve_smem.restype = ctypes.c_longlong
-        lib.va_l96_solve_smem.argtypes = [I, I, I, I, I]
-        lib.va_l96_solve_attrs.restype = I
-        lib.va_l96_solve_attrs.argtypes = [I, I, I, I, P]
+            fn.argtypes = common + [I, I, P, I, P, P, P, P, P]
+            lib.va_l96_solve_rule_attrs.restype = I
+            lib.va_l96_solve_rule_attrs.argtypes = [I, I, I, P]
+        else:
+            for fn in (lib.va_l96_solve_f32, lib.va_l96_solve_f64):
+                fn.restype = I
+                fn.argtypes = common + [I, Dbl, P, P, I, P, P, P, P, P, P]
+            for fn in (lib.va_l96_ladder_f32, lib.va_l96_ladder_f64):
+                fn.restype = I
+                fn.argtypes = common + [I, P, I, P, P, P, P, P]
+            lib.va_l96_solve_smem.restype = ctypes.c_longlong
+            lib.va_l96_solve_smem.argtypes = [I, I, I, I, I]
+            lib.va_l96_solve_attrs.restype = I
+            lib.va_l96_solve_attrs.argtypes = [I, I, I, I, P]
         lib.va_cuda_error_string.restype = ctypes.c_char_p
         lib.va_cuda_error_string.argtypes = [I]
         lib._va_typed = True
     return lib
 
 
-def _lib():
+def _lib(rules=False, dtype=torch.float32):
+    """The library of csrc/solve_kernel.cu, or with ``rules`` that of
+    ``dtype``'s rules' entries (csrc/solve_rules_f32.cu or
+    solve_rules_f64.cu)."""
     from varanneal_tpu_torch.kernels import _build
-    return typed(_build.load("solve_kernel").lib)
+    name = ("solve_rules_" + ("f32" if dtype == torch.float32 else "f64")
+            if rules else "solve_kernel")
+    return typed(_build.load(name).lib)
+
+
+def _is_rule(c: ag.AgConsts, rfd) -> bool:
+    """Whether a launch goes to the rules' entries: a rule other than the
+    trapezoid rule, or an (N_f-1, D) rf."""
+    return c.disc != "trapezoid" or rfd is not None
 
 
 def kernel_attrs(ladder: bool, dtype=torch.float32, bounded=False,
-                 layout=0) -> dict:
-    """The attributes of the built kernel, K3 (``ladder``) or K2, that a
-    launch under the layout's flags ``layout`` runs (building it at first
-    use; needs the card): registers a thread, local memory a thread in
-    bytes (spills and stack), the most threads a block can launch with,
-    and the threads a launch takes."""
-    lib = _lib()
+                 layout=0, rules=False) -> dict:
+    """The attributes of the built kernel, K3 (``ladder``) or K2 (of the
+    rules' entries with ``rules``), that a launch under the layout's flags
+    ``layout`` runs (building it at first use; needs the card): registers
+    a thread, local memory a thread in bytes (spills and stack), the most
+    threads a block can launch with, and the threads a launch takes."""
+    lib = _lib(rules, dtype)
     out = (ctypes.c_int * 4)()
-    rc = lib.va_l96_solve_attrs(int(bool(ladder)),
-                                int(dtype == torch.float64),
-                                int(bool(bounded)), int(layout), out)
+    if rules:
+        rc = lib.va_l96_solve_rule_attrs(int(bool(ladder)),
+                                         int(bool(bounded)), int(layout),
+                                         out)
+    else:
+        rc = lib.va_l96_solve_attrs(int(bool(ladder)),
+                                    int(dtype == torch.float64),
+                                    int(bool(bounded)), int(layout), out)
     _raise_on(rc, lib, "cudaFuncGetAttributes of the solve")
     return dict(regs=out[0], local_bytes=out[1], max_threads=out[2],
                 threads=out[3])
@@ -311,18 +349,25 @@ def _check_bounds(lower, upper, XP):
     return tuple(out)
 
 
+def _count_rule(key):
+    RULE_LAUNCHES[key] = RULE_LAUNCHES.get(key, 0) + 1
+
+
 def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
                  upper=None, _layout=None):
     """Launch K2 on ``XP`` (B, n_dof), a CUDA tensor of ``c``'s dtype on
-    ``c``'s device: one block per member solves the rung at scalar ``rf``,
-    inside the box ``lower``/``upper`` ((n_dof,) or (B, n_dof), ±inf for a
-    free side) when given, in :func:`plan_layout`'s layout (``_layout``:
-    other flags, for tests and measurements; the results are the same
-    bits in every layout). Returns an LBFGSResult on PyTorch's current stream, without
-    synchronizing. Raises on anything the kernel does not take and on a
-    refused launch."""
+    ``c``'s device: one block per member solves the rung under ``c.disc``
+    at a scalar or (N_f-1, D) ``rf``, inside the box ``lower``/``upper``
+    ((n_dof,) or (B, n_dof), ±inf for a free side) when given, in
+    :func:`plan_layout`'s layout (``_layout``: other flags, for tests and
+    measurements; the results are the same bits in every layout). Returns
+    an LBFGSResult on PyTorch's current stream, without synchronizing.
+    Raises on anything the kernel does not take and on a refused
+    launch."""
     global RUNG_LAUNCHES
     _check_input(XP, c, opts)
+    rf_s, rfd = ag._rf_arg(rf, c)
+    rule = _is_rule(c, rfd)
     XP = XP.contiguous()
     B = XP.shape[0]
     lo, hi = _check_bounds(lower, upper, XP)
@@ -336,16 +381,25 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
     if B:
         lay = launch_layout(XP, c, opts, lo is not None, _layout)
         work = _workspace(XP, lay)
-        lib = _lib()
-        fn = (lib.va_l96_solve_f32 if c.dtype == torch.float32
-              else lib.va_l96_solve_f64)
+        lib = _lib(rule, c.dtype)
+        f32 = c.dtype == torch.float32
+        if rule:
+            fn = lib.va_l96_solve_rule_f32 if f32 else \
+                lib.va_l96_solve_rule_f64
+            rf_args = (ag.DISCS[c.disc], rf_s,
+                       None if rfd is None else rfd.data_ptr())
+        else:
+            fn = lib.va_l96_solve_f32 if f32 else lib.va_l96_solve_f64
+            rf_args = (rf_s,)
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*_common_args(XP, c, opts), lay.flags, float(rf), *bnd,
+            rc = fn(*_common_args(XP, c, opts), lay.flags, *rf_args, *bnd,
                     work.data_ptr(), X.data_ptr(), G.data_ptr(),
                     fp.data_ptr(), cnt.data_ptr(), stream)
         _raise_on(rc, lib, "rung-solve")
         RUNG_LAUNCHES += 1
+        if rule:
+            _count_rule("K2/" + ag.rule_key(c.disc, rfd is not None))
     return LBFGSResult(x=X, f=fp[:, 0], g=G, niter=cnt[:, 0],
                        nfev=cnt[:, 1], status=cnt[:, 2], pgnorm=fp[:, 1])
 
@@ -354,9 +408,9 @@ def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions,
                   _layout=None):
     """Launch K3 on ``XP`` (B, n_dof): one block per member runs every
     rung of ``rfs`` (k,) (a tensor of ``c``'s dtype on its device),
-    warm-started. ``_layout`` as for :func:`solve_kernel`. Returns
-    (XP_out, records) on PyTorch's current stream, without
-    synchronizing."""
+    warm-started, under ``c.disc``. ``_layout`` as for
+    :func:`solve_kernel`. Returns (XP_out, records) on PyTorch's current
+    stream, without synchronizing."""
     global LADDER_LAUNCHES
     _check_input(XP, c, opts)
     if (rfs.dtype != c.dtype or rfs.device != c.device or rfs.ndim != 1
@@ -372,16 +426,25 @@ def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions,
     if B:
         lay = launch_layout(XP, c, opts, False, _layout)
         work = _workspace(XP, lay)
-        lib = _lib()
-        fn = (lib.va_l96_ladder_f32 if c.dtype == torch.float32
-              else lib.va_l96_ladder_f64)
+        rule = _is_rule(c, None)
+        lib = _lib(rule, c.dtype)
+        f32 = c.dtype == torch.float32
+        if rule:
+            fn = lib.va_l96_ladder_rule_f32 if f32 else \
+                lib.va_l96_ladder_rule_f64
+            disc = (ag.DISCS[c.disc],)
+        else:
+            fn = lib.va_l96_ladder_f32 if f32 else lib.va_l96_ladder_f64
+            disc = ()
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*_common_args(XP, c, opts), lay.flags, rfs.data_ptr(), k,
-                    work.data_ptr(), X.data_ptr(), rec.data_ptr(),
-                    rec_i.data_ptr(), stream)
+            rc = fn(*_common_args(XP, c, opts), lay.flags, *disc,
+                    rfs.data_ptr(), k, work.data_ptr(), X.data_ptr(),
+                    rec.data_ptr(), rec_i.data_ptr(), stream)
         _raise_on(rc, lib, "ladder")
         LADDER_LAUNCHES += 1
+        if rule:
+            _count_rule("K3/" + ag.rule_key(c.disc, False))
     recs = dict(A=rec[..., 0], ME=rec[..., 1], FE=rec[..., 0] - rec[..., 1],
                 pgnorm=rec[..., 2], niter=rec_i[..., 0], nfev=rec_i[..., 1],
                 status=rec_i[..., 2])
@@ -404,8 +467,6 @@ class _Consts:
 
 
 def _check_envelope(spec, rf, opts):
-    if np.ndim(rf) != 0:
-        raise ValueError("the solve kernels take a scalar rf only")
     if not any(solve_supported(spec, rf, opts, dtype=dt)
                for dt in ag._DTYPES):
         raise ValueError(f"problem outside the solve kernels' envelope: "
@@ -443,26 +504,26 @@ def make_rung_solver(spec: ProblemSpec, opts: LBFGSOptions, lower=None,
                      upper=None, device=None):
     """Build ``solve(XP, rf) -> LBFGSResult`` running the whole L-BFGS
     rung solve in one launch (one block per member of ``XP`` (B, n_dof)):
-    the ``rung_solver=`` hook of ``anneal.run_ladder``. ``lower``/
-    ``upper``: flat (n_dof,) bounds as ``api.build_bounds`` gives them
-    (a missing side and ±inf entries are free); the kernel then runs the
-    projection algorithm. ``device=None`` means the CUDA card. Raises
-    outside :func:`solve_supported`."""
+    the ``rung_solver=`` hook of ``anneal.run_ladder``. ``rf``: a scalar
+    or the rung's (N_f-1, D) rf. ``lower``/``upper``: flat (n_dof,)
+    bounds as ``api.build_bounds`` gives them (a missing side and ±inf
+    entries are free); the kernel then runs the projection algorithm.
+    ``device=None`` means the CUDA card. Raises outside
+    :func:`solve_supported`."""
     _check_envelope(spec, 0.0, opts)
     consts = _Consts(spec, resolve_device(device))
     bounds = flat_bounds(spec, lower, upper, consts.device)
 
     def solve(XP, rf):
-        if np.ndim(rf) != 0:
-            raise ValueError("the rung-solve kernel takes a scalar rf only")
         c = consts(XP.dtype)
         lo, hi = bounds(XP)
+        rf = float(rf) if np.ndim(rf) == 0 else rf
         if XP.device.type == "cpu":
             if XP.device != c.device:
                 raise ValueError(f"XP is on {XP.device}; the solver is on "
                                  f"{c.device}")
-            return solve_reference(XP, float(rf), c, opts, lo, hi)
-        return solve_kernel(XP, float(rf), c, opts, lo, hi)
+            return solve_reference(XP, rf, c, opts, lo, hi)
+        return solve_kernel(XP, rf, c, opts, lo, hi)
 
     solve.consts = consts
     return solve
@@ -473,15 +534,22 @@ def make_rung_solver(spec: ProblemSpec, opts: LBFGSOptions, lower=None,
 #: parity with the generic loop on the TPU. Kept as the reference's
 #: policy; the H100 measurement at larger N is queued (ROADMAP.md).
 PREFERRED_MAX_N_PAD = 1024
+#: The reference's cap on the history for ``solver='auto'``: its
+#: ``solve_supported`` refuses m > 8 (``solve_pallas.py:216``), so its
+#: ``solve_preferred`` keeps m = 9..16 on the generic loop; the port's
+#: kernels take up to :data:`MAX_M` under ``solver='fused'``.
+PREFERRED_MAX_M = 8
 
 
 def solve_preferred(spec: ProblemSpec, rf, opts: LBFGSOptions,
                     dtype=torch.float32, device=None) -> bool:
     """``solver='auto'`` takes the rung-solve kernel: on the card, inside
-    :func:`solve_supported`, with the grid padded to 8 rows at most
-    :data:`PREFERRED_MAX_N_PAD` (the reference's policy). False off the
-    card, as the reference's is off the TPU."""
+    :func:`solve_supported`, with m at most :data:`PREFERRED_MAX_M` and
+    the grid padded to 8 rows at most :data:`PREFERRED_MAX_N_PAD` (the
+    reference's policy). False off the card, as the reference's is off
+    the TPU."""
     return (resolve_device(device).type == "cuda"
+            and opts.m <= PREFERRED_MAX_M
             and solve_supported(spec, rf, opts, dtype=dtype)
             and -(-spec.N_f // 8) * 8 <= PREFERRED_MAX_N_PAD)
 
@@ -535,8 +603,9 @@ def make_ladder_solver(spec: ProblemSpec, opts: LBFGSOptions, n_rungs: int,
                        device=None):
     """Build ``ladder(XP, rfs) -> (XP_out, records)`` running ``n_rungs``
     warm-started scalar-rf unbounded solves in one launch (one block per
-    member of ``XP`` (B, n_dof)). ``rfs``: the (n_rungs,) rung values (the
-    caller computes them, as ``anneal.ladder.rung_rf`` does). ``records``:
+    member of ``XP`` (B, n_dof)), under the problem's rule. ``rfs``: the
+    (n_rungs,) rung values (the caller computes them, as
+    ``anneal.ladder.rung_rf`` does). ``records``:
     dict of (B, n_rungs) tensors A, ME, FE = A - ME, pgnorm, niter, nfev,
     status, A being the action at the rung's minimizer. ``device=None``
     means the CUDA card. Raises outside :func:`ladder_supported`."""

@@ -139,10 +139,23 @@ def kernel_attrs(G: int, dtype=torch.float32, bounded=False,
     return dict(regs=out[0], local_bytes=out[1], max_threads=out[2])
 
 
+def pack_refusal(spec: ProblemSpec, rf):
+    """The rule or rf kind K8 does not take, in words, or None: K8 takes
+    the trapezoid rule with a scalar rf, where K1/K2 take four rules and
+    an (N_f-1, D) rf too."""
+    if spec.disc != "trapezoid" or np.ndim(rf) != 0:
+        kind = "a scalar" if np.ndim(rf) == 0 else f"a {np.shape(rf)}"
+        return (f"disc {spec.disc!r} with {kind} rf (K8 takes the "
+                f"trapezoid rule with a scalar rf; the other rules and the "
+                f"(N_f-1, D) rf wait for ROADMAP.md §2a item 2 (e))")
+    return None
+
+
 def pack_supported(spec: ProblemSpec, rf, opts: LBFGSOptions, pack: int,
                    dtype=torch.float32, bounded=False, device=None) -> bool:
     """The packed kernel's envelope, with the reference's policy: pack >=
-    1, m <= :data:`MAX_M` (and maxls >= 1), a scalar rf and K1's envelope
+    1, m <= :data:`MAX_M` (and maxls >= 1), the trapezoid rule with a
+    scalar rf (:func:`pack_refusal`) and K1's envelope
     (:func:`ag.ag_supported`). The TPU's VMEM model becomes the card's
     limit: a block's threads (:func:`block_groups` · G) within what the
     built kernel can launch (``cudaFuncGetAttributes``'
@@ -153,7 +166,8 @@ def pack_supported(spec: ProblemSpec, rf, opts: LBFGSOptions, pack: int,
     not raise. ``device=None`` means the card."""
     G = pack_group(pack)
     if (G is None or not 1 <= opts.m <= MAX_M or opts.maxls < 1
-            or np.ndim(rf) != 0 or not ag.ag_supported(spec, 0.0, dtype)):
+            or pack_refusal(spec, rf) is not None
+            or not ag.ag_supported(spec, 0.0, dtype)):
         return False
     if resolve_device(device).type != "cuda":
         return block_groups(pack) * G <= PACK_MAX_THREADS
@@ -199,6 +213,9 @@ def pack_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
     take and on a refused launch."""
     global PACK_LAUNCHES
     solve._check_input(XP, c, opts)
+    if c.disc != "trapezoid" or np.ndim(rf) != 0:
+        raise ValueError("the packed-solve kernel takes the trapezoid rule "
+                         "with a scalar rf (ROADMAP.md §2a item 2 (e))")
     G = pack_group(pack)
     if G is None:
         raise ValueError(f"pack must be 1..{PACK_MAX_THREADS // GROUPS[-1]}"
@@ -254,6 +271,10 @@ def make_packed_rung_solver(spec: ProblemSpec, opts: LBFGSOptions,
     the CUDA card. Raises outside the solve kernels' envelope or for a
     pack without a group size."""
     solve._check_envelope(spec, 0.0, opts)
+    why = pack_refusal(spec, 0.0)
+    if why is not None:
+        raise ValueError(f"problem outside the packed-solve kernel's "
+                         f"envelope: {why}")
     if pack_group(pack) is None:
         raise ValueError(f"pack must be 1..{PACK_MAX_THREADS // GROUPS[-1]}"
                          f"; got {pack}")
