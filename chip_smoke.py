@@ -12,8 +12,9 @@ timed on its own line:
    K6 (kernels/csrc/fe_kernel.cu), K5 (kernels/csrc/agt_kernel.cu) and
    K8 (kernels/csrc/pack_kernel.cu), one nvcc each, started together
    (K1-K4 under Lorenz-96's other rules, kernels/csrc/ag_rules_kernel.cu,
-   solve_rules_f32.cu and solve_rules_f64.cu, build in a thread that
-   phase 32 joins),
+   solve_rules_f32.cu and solve_rules_f64.cu, and on the row-level
+   models, ag_models_kernel.cu and the six solve_models_<model>_<dtype>.cu,
+   build in a thread that phase 32 joins),
    into plain-C shared libraries, with nvcc's -Xptxas -v report
    (registers, spills, shared memory); with them a measuring build of
    solve_kernel.cu that counts the group barriers its kernels pass
@@ -375,8 +376,8 @@ timed on its own line:
    port's support matrix printed;
 32. K1-K4 over Lorenz-96's rules (RULE32; rules_phase): (a) the
    -Xptxas -v lines of ag_kernel.cu, solve_kernel.cu and pack_kernel.cu
-   (the trapezoid rule with a scalar rf) held to the parent's
-   (PTXAS_HELD); (b) K1 and K4 under the four rules x a scalar and an
+   (the trapezoid rule with a scalar rf) and of fe_kernel.cu held to the
+   parent's (PTXAS_HELD); (b) K1 and K4 under the four rules x a scalar and an
    (N_f-1, D) rf (less the trapezoid/scalar pair, phases 3 and 14's)
    against their plain versions at the main shape, f32 (2e-5) and f64
    (1e-12), B = 1 and 4, rf at beta 0 and 100, one launch a call and
@@ -399,7 +400,33 @@ timed on its own line:
    compensated=True under Hermite–Simpson), K2 with an (N_f-1, D) rf (the
    facade under Euler with solver='fused') and K3 (make_ladder_solver
    under Hermite–Simpson), each with the counts zeroed before it and read
-   after.
+   after;
+33. K1-K4 on the row-level models (MODELS33; models_phase): (d) K1 and
+   K4 on NaKL (examples/nakl.py's problem at N = 512 data rows: N_f
+   1,023, the stimulus, Pidx [1..5]), Colpitts and Lorenz-63 (phase 30's
+   twins, N_data 801) under each rule × scalar and (N_f-1, D) rf against
+   their plain versions, f32 (2e-5) and f64 (1e-12), B = 1 and 4, rf at
+   two rungs, one launch a call and repeats bit-identical; K2 short
+   solves under each rule (a scalar rf unbounded, an (N_f-1, D) rf in a
+   box) and a K3 ladder a model against the plain solve, f64 and f32,
+   from near a minimizer (equal niter, nfev and status; f64 f to 1e-8;
+   f32 f to 1e-4 or twice the plain solve's card-vs-CPU spread; bounded
+   f32 F32_BOUNDED_F_TOL, or no farther from the f64 solve than twice the
+   plain version); (a) NaKL's record through the facade, f32, m 5,
+   solver='auto' (the reference's K2 regime, N_pad 1,024): K2 bounded,
+   one launch a rung, and the generic projection loop over K6
+   (engine='pallas') on the first rungs, A within F32_BOUNDED_F_TOL at
+   the mutually converged ones; then 32 members of nakl_ensemble_inits
+   with the screen's (N_f-1, 4) rf through K2; (b) BASELINE config #3
+   (N_f 6,001, f32) through the facade with engine='ag' (K1's launches
+   equal nfev), and K1 against K6c's fused launch on draws at three rungs
+   (4e-5); (c) the reference test's Colpitts facade in f32 (m 5) through
+   solver='auto' (K2), the K4 path (the compensated Lorenz-63 facade with
+   engine='ag') and the K3 path (make_ladder_solver on Colpitts); (e) K1
+   and K4 at NaKL's record and at config #3, K1 on Colpitts and
+   Lorenz-63, each beside K6's fused launch and the autograd action, and
+   K2 and K3 short solves at NaKL's record: CUDA events, device time
+   (torch.profiler), the plain version, the bound; K2/K3's registers.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -447,7 +474,11 @@ entries' colpitts_* and l63_* phase 30's: launches on its paths (the
 one-step kernels the facade ladders', the Hermite–Simpson ones the
 runner's on Colpitts and the Hermite–Simpson ladder's on Lorenz-63),
 errors over its checks, and times at one member in f32 with the
-autograd action's beside them)
+autograd action's beside them; row_ag, row_ag_comp, row_solve and
+row_ladder are K1, K4, K2 and K3 on the row-level models (phase 33):
+launches on its paths, errors over its checks, times at NaKL's record
+(K1 and K4 also conf3_*, colpitts_*, l63_*), each model, rule and rf
+kind under entries)
 and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero before that line.
@@ -618,14 +649,42 @@ RULE32 = dict(betas=(0, 100), beta_t=50, conf2=28, conf2_m=10, fused_m=5,
               ladder_beta={"forwardmap": 15}, path_rungs=3,
               k6_betas=(0, 20, 40))
 RULES = ("trapezoid", "euler", "forwardmap", "SimpsonHermite")
+# phase 33: NaKL's record at N = nakl_N data rows (examples/nakl.py's
+# problem; N_f 1,023, N_pad 1,024: the reference's K2 regime) through the
+# facade over rungs 0..nakl_rungs-1 (K2; from rung 14 on the solves work,
+# 59 to 443 iterations at rungs 17..23), and over rungs 0..nakl_held-1
+# through the generic loop over K6, held there (rungs 4..13 take 1 to 6
+# iterations; from rung 14 two correct f32 solvers, the two-loop and the
+# compact direction, stop at other points of flat valleys: 5 % apart in
+# A at rung 14 and up to 1.7x by rung 23, the plain K2 against the
+# generic loop over the autograd action on the CPU); the ensemble of
+# ens_B members over ens_rungs rungs at maxiter ens_maxiter;
+# config #3 through K1 over conf3_rungs rungs (27a runs 24 through K6)
+# and K1 against K6c at k6_betas; the checks' rungs
+# (betas), each model's rung for the short solves and the times
+# (beta_t), their maxiter, K3's rungs, maxiter and rule a model, the
+# paths' rungs, the facades' history m (the facade's default 10 keeps the
+# generic loop under solver='auto', as the reference's m <= 8 gate does)
+# and how near a minimizer the short solves start (near)
+MODELS33 = dict(nakl_N=512, nakl_rungs=36, nakl_held=14, ens_B=32,
+                ens_rungs=4, ens_maxiter=200, conf3_rungs=18,
+                k6_betas=(0, 40, 80), betas=(0, 40),
+                beta_t={"nakl": 20, "colpitts": 12, "l63": 4},
+                short_maxiter=10, ladder_rungs=3, ladder_maxiter=5,
+                ladder_rule={"nakl": "SimpsonHermite",
+                             "colpitts": "euler", "l63": "forwardmap"},
+                path_rungs=3, m=5, near=0.1)
 # The -Xptxas -v lines (_ptxas_lines) of the sources of K1-K4 under the
-# trapezoid rule with a scalar rf, and of K8, as their parent commit built
-# them on the H100 (sha256 of the lines joined, its first 16 digits, and
-# the count): phase 32 holds this build's to them, so that the rules'
-# code in the shared headers leaves those kernels as they were
+# trapezoid rule with a scalar rf, of K8 and of K6, as their parent commit
+# built them on the H100 (sha256 of the lines joined, its first 16
+# digits, and the count; K6's read from the parent's final call's build
+# log): phase 32 holds this build's to them, so that the rules' and the
+# row models' code in the shared headers leaves those kernels as they
+# were
 PTXAS_HELD = {"ag_kernel": ("70fb52ae83e33fe1", 12),
               "solve_kernel": ("86e73e93ad03d09c", 48),
-              "pack_kernel": ("090ac56947cc49aa", 64)}
+              "pack_kernel": ("090ac56947cc49aa", 64),
+              "fe_kernel": ("a2822308a807c7a7", 256)}
 # the box of phase 12 (tests/test_solve_pallas.py's) and of the facade
 BOX_TEST = [(-6.0, 6.0)] * 20 + [(3.0, 6.0)]
 BOX_FACADE = [(-10.0, 10.0)] * 20 + [(2.0, 12.0)]
@@ -726,11 +785,13 @@ def k1_ops(spec):
             + 5 * n_obs)
 
 
-def solve_bound(spec, dtype, B, launches, nfev, niter, m, rungs):
+def solve_bound(spec, dtype, B, launches, nfev, niter, m, rungs,
+                eval_ops=None):
     """Least time of one solve-kernel launch, from the work this run's
     data needed: each input read and each output written once over HBM;
-    the operations of ``nfev`` evaluations (K1's arithmetic plus the trial
-    point and the directional derivative, 4 per entry) and ``niter``
+    the operations of ``nfev`` evaluations (K1's arithmetic, k1_ops or a
+    member's ``eval_ops``, plus the trial point and the directional
+    derivative, 4 per entry) and ``niter``
     iterations (the two-loop direction over a full m-history, 12 per
     entry and pair, and 15 per entry for the step, the curvature gate,
     the history write and the norms) over the card's rate for ``dtype``,
@@ -744,7 +805,8 @@ def solve_bound(spec, dtype, B, launches, nfev, niter, m, rungs):
     else:               # K3: x and the (rungs, 3) + (rungs, 3) records
         outputs = B * n * s + B * rungs * (3 * s + 12)
     nbytes = inputs + outputs
-    nops = (nfev * (k1_ops(spec) + 4 * n)
+    ev = k1_ops(spec) if eval_ops is None else eval_ops
+    nops = (nfev * (ev + 4 * n)
             + niter * n * (12 * m + 15)) // launches
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_FLOPS[dtype] * 1e3
@@ -1789,16 +1851,21 @@ def colpitts_start(tw):
     return X0, P0
 
 
-def colpitts_anneal(ann, tw, betas, engine, maxiter=None, start=None):
+def colpitts_anneal(ann, tw, betas, engine, maxiter=None, start=None,
+                    dtype=torch.float64, maxcor=None):
     """The reference test's anneal over ``betas`` (from colpitts_start, or
-    from ``start`` = (X0, P0) as given, with init_to_data off)."""
+    from ``start`` = (X0, P0) as given, with init_to_data off), in
+    ``dtype`` (the test's float64 unless given), at history ``maxcor``
+    (the facade's 10 unless given)."""
     X0, P0 = colpitts_start(tw) if start is None else start
     return ann.anneal(X0, P0, alpha=ROW["alpha"], beta_array=betas,
                       RM=tw["RM"], RF0=ROW["rf0"] * tw["RM"],
                       Lidx=tw["Lidx"], Pidx=[3],
                       opt_args=dict(maxiter=maxiter or ROW["maxiter"],
-                                    gtol=ROW["gtol"]),
-                      dtype=torch.float64, engine=engine,
+                                    gtol=ROW["gtol"],
+                                    **({} if maxcor is None
+                                       else dict(maxcor=maxcor))),
+                      dtype=dtype, engine=engine,
                       init_to_data=start is None)
 
 
@@ -2975,6 +3042,633 @@ def rules_phase(dev, tw, built, zero_counts, run_counts):
     return out
 
 
+def row_work(spec, model, disc, B, diag, comp=False, dtype=torch.float32):
+    """Bytes and operations of one launch of K1 on a row-level model (K4's
+    with ``comp``) on B members: X read once and the gradient written
+    once, Y and W, lpos, the parameter row and its maps read once, the
+    stimulus (NaKL) and an (N_f-1, D) rf read once where present, A (and
+    K4's six sums) written once; per node the model's f, Jᵀv and
+    parameter adjoint a component (fe_work's counts: NaKL 12, 28 and 23,
+    Colpitts 3, 3 and 3, Lorenz-63 2, 3 and 2); one-step, per residual
+    entry the residual's own operations (trapezoid 4, euler 3, forwardmap
+    1), 2 for the sum and 1 for a weight, per gradient entry 6 (v and the
+    row); Hermite–Simpson, per interval entry 12 for the two residuals, 2
+    weights and 4 for the sums, per row entry 5 (v and the row); 9 per
+    observation for ME and its gradient; with ``comp`` a TwoSum (8) per ME
+    and FE term. Each node counted once, whatever the walk evaluates
+    again."""
+    s = torch.finfo(dtype).bits // 8
+    f, jtv, ptv = {"nakl": (12, 28, 23), "colpitts": (3, 3, 3),
+                   "l63": (2, 3, 2)}[model]
+    D, N, NP = spec.D, spec.N_f, spec.NP
+    n_obs = spec.N_data * spec.L
+    nbytes = (2 * B * spec.n_dof * s + 2 * n_obs * s + 4 * D
+              + NP * (s + 4) + 4 * spec.NPest + B * s
+              + int(spec.stim_f is not None) * N * s
+              + int(diag) * (N - 1) * D * s + int(comp) * B * 6 * s)
+    node = N * D * (f + jtv + ptv)
+    if disc == "SimpsonHermite":
+        M = (N - 1) // 2
+        terms = M * D * (12 + 2 * int(diag) + 4) + N * D * 5
+        n_fe = 2 * M * D
+    else:
+        res = {"trapezoid": 4, "euler": 3, "forwardmap": 1}[disc]
+        terms = (N - 1) * D * (res + 2 + int(diag)) + N * D * 6
+        n_fe = (N - 1) * D
+    nops = B * (node + terms + 9 * n_obs + int(comp) * 8 * (n_fe + n_obs))
+    return nbytes, nops
+
+
+def models_phase(dev, built, zero_counts, run_counts):
+    """Phase 33 (the module docstring's (a)-(e)): K1-K4 on the row-level
+    models. ``built`` phase 2's libraries, ``zero_counts``/``run_counts``
+    phase 15's counters. Returns the kernels line's entries' numbers."""
+    from varanneal_tpu_torch.anneal.ladder import rung_rf
+    from varanneal_tpu_torch.api import Annealer, build_bounds
+    from varanneal_tpu_torch.kernels import ag, fe, solve
+    from varanneal_tpu_torch.models import (NAKL_P_TRUE, lorenz63, nakl,
+                                            nakl_ensemble_inits,
+                                            nakl_param_boxes)
+    from varanneal_tpu_torch.ops import make_action, value_and_grad
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    from varanneal_tpu_torch.parallel import make_ensemble_ladder
+    from varanneal_tpu_torch.twin import nakl_twin
+    f32, f64 = torch.float32, torch.float64
+    M33 = MODELS33
+    rng = np.random.default_rng(33)
+
+    def counts():
+        # phase 15's counts and the row models' launches by key
+        return dict(run_counts(),
+                    models=dict(ag.MODEL_LAUNCHES, **solve.MODEL_LAUNCHES))
+    out = dict(k1={}, k4={}, k2={}, k3={}, paths={}, times={})
+
+    def rel_err(A, G, A_r, G_r):
+        scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+        return (max(float(torch.max(torch.abs(A - A_r) / torch.abs(A_r))),
+                    float(torch.max(torch.abs(G - G_r) / scale))),
+                max(float(torch.max(torch.abs(A - A_r))),
+                    float(torch.max(torch.abs(G - G_r)))))
+
+    # the problems: examples/nakl.py's at N = nakl_N (its stimulus, V
+    # observed, Pidx [1..5]), config #3 itself, Colpitts and Lorenz-63 on
+    # phase 30's twins (Colpitts' full width, every parameter estimated;
+    # Lorenz-63 rho)
+    tw_n = nakl_twin(N=M33["nakl_N"], dt=CONF3["dt"], sigma=CONF3["sigma"],
+                     seed=CONF3["seed"])
+    tws = row_twins()
+    specs, draws, rf0s = {}, {}, {}
+    for d in RULES:
+        specs[("nakl", d)] = config3_problem(disc=d, tw=tw_n)[1]
+        draws[("nakl", d)] = nakl_draws(specs[("nakl", d)], tw_n, 4, 33)
+        for m, pidx in (("colpitts", [0, 1, 2, 3]), ("l63", [1])):
+            sp = specs[(m, d)] = row_spec(m, tws[m], d, pidx)
+            X, pest = row_draws(sp, tws[m], 4, 33)
+            draws[(m, d)] = np.concatenate(
+                [X.reshape(4, sp.n_state), pest], axis=1)
+    check(specs[("nakl", "SimpsonHermite")].N_f == 2 * M33["nakl_N"] - 1,
+          "phase 33: NaKL's record is not N_f = 1,023")
+    # rf at rung beta: RF0 alpha^beta (NaKL's and Lorenz-63's RF0 a
+    # multiple of RM, Colpitts' the reference test's), scalar or times
+    # the rule's (N_f-1, D) weights
+    # the short solves start near a minimizer: the draws pulled to
+    # M33['near'] of their distance from what they jitter (the twin's path
+    # on the model grid, the parameters' base values), where two f32
+    # solves part by rounding alone (from the draws themselves, 10
+    # iterations of Colpitts under Euler part by 3.6e-2 in f under the
+    # kernel's and the plain version's orders of summation)
+    centers = {}
+    for (m, d), sp in specs.items():
+        traj = tw_n["traj"] if m == "nakl" else tws[m]["traj"]
+        at = np.arange(sp.N_f) * (traj.shape[0] - 1) / (sp.N_f - 1)
+        path = np.stack([np.interp(at, np.arange(traj.shape[0]),
+                                   traj[:, j]) for j in range(sp.D)], -1)
+        centers[(m, d)] = np.concatenate(
+            [path.reshape(-1), np.asarray(sp.P_base)[list(sp.pidx)]])
+
+    def near(key, B=2):
+        return centers[key] + M33["near"] * (draws[key][:B] - centers[key])
+    rf0s = {"nakl": (CONF3["rf0"], CONF3["alpha"]),
+            "colpitts": (ROW["rf0"] * tws["colpitts"]["RM"], ROW["alpha"]),
+            "l63": (tws["l63"]["RM"], 2.0)}
+    W = {k: rng.uniform(0.5, 2.0, (sp.N_f - 1, sp.D))
+         for k, sp in specs.items()}
+
+    def rf_of(key, beta, dtype, diag):
+        r0, alpha = rf0s[key[0]]
+        r = float(r0 * alpha ** beta)
+        return (torch.tensor(W[key] * r, dtype=dtype, device=dev) if diag
+                else _scalar_rf(r, dtype))
+    pairs = [(d, diag) for d in RULES for diag in (False, True)]
+
+    # (d) K1 and K4: every entry against its plain version
+    for m in ag.ROW_MODELS:
+        for d, diag in pairs:
+            key0 = (m, d)
+            sp = specs[key0]
+            for comp in (False, True):
+                mk = ag.model_key(m, d, diag, comp)
+                worst = err = 0.0
+                for dtype in (f64, f32):
+                    tol = 1e-12 if dtype == f64 else 2e-5
+                    c = ag.ag_consts(sp, dev, dtype)
+                    for B in (1, 4):
+                        Z = torch.tensor(draws[key0][:B], dtype=dtype,
+                                         device=dev)
+                        for beta in M33["betas"]:
+                            rf = rf_of(key0, beta, dtype, diag)
+                            n0 = ag.MODEL_LAUNCHES.get(mk, 0)
+                            o1 = ag.ag_kernel(Z, rf, c, comp)
+                            o2 = ag.ag_kernel(Z, rf, c, comp)
+                            torch.cuda.synchronize()
+                            check(ag.MODEL_LAUNCHES.get(mk, 0) == n0 + 2,
+                                  f"phase 33: {mk} not one launch a call")
+                            check(all(torch.equal(a, b)
+                                      for a, b in zip(o1, o2)),
+                                  f"phase 33: {mk} {dtype} repeat not "
+                                  "bit-identical")
+                            ref = ag.ag_reference(Z, rf, c, comp)
+                            r, e = rel_err(o1[0], o1[1], ref[0], ref[1])
+                            if comp:
+                                A_c = ag.combine(o1[2], rf, c)
+                                A_cr = ag.combine(ref[2], rf, c)
+                                r = max(r, float(torch.max(
+                                    torch.abs(A_c - A_cr) / torch.abs(A_cr))))
+                            check(r <= tol, f"phase 33: {mk} {dtype} B={B} "
+                                  f"beta={beta} disagrees with its plain "
+                                  f"version: {r:.3e} (bound {tol:g})")
+                            worst, err = max(worst, r), max(err, e)
+                out["k4" if comp else "k1"][mk] = dict(max_rel_err=worst,
+                                                       max_abs_err=err)
+        print(f"K1/K4 on {m}: {len(pairs)} rule and rf pairs, f32 and f64, "
+              f"B=1 and 4, beta {M33['betas']}: worst rel err "
+              + ", ".join(f"{k} {v['max_rel_err']:.3e}"
+                          for fam in ("k1", "k4")
+                          for k, v in out[fam].items() if k.startswith(m))
+              + " (bounds 2e-5 f32, 1e-12 f64); one launch a call; repeats "
+              "bit-identical")
+
+    # K2 and K3 short solves against their plain versions: each model in
+    # each dtype under each rule, a scalar rf unbounded and an (N_f-1, D)
+    # rf in the box, then a short K3 ladder under one rule a model
+    opts = LBFGSOptions(maxiter=M33["short_maxiter"], m=5, pgtol=1e-4,
+                        ftol=1e-6)
+    opts3 = dataclasses.replace(opts, maxiter=M33["ladder_maxiter"])
+    boxes = {"nakl": CONF3["bounds"],
+             "colpitts": [(-5.0, 40.0), (-3.0, 5.0), (-70.0, 10.0)]
+             + [(0.0, 100.0)] * 4,
+             "l63": [(-40.0, 60.0)] * 3 + [(0.0, 60.0)]}
+    for m in ag.ROW_MODELS:
+        bt = M33["beta_t"][m]
+        for d in RULES:
+            key0 = (m, d)
+            sp = specs[key0]
+            for dtype in (f64, f32):
+                c = ag.ag_consts(sp, dev, dtype)
+                c_cpu = ag.ag_consts(sp, "cpu", dtype)
+                Z = torch.tensor(near(key0), dtype=dtype, device=dev)
+                for diag, bounded in ((False, False), (True, True)):
+                    rf = rf_of(key0, bt, dtype, diag)
+                    lo = hi = None
+                    if bounded:
+                        lo, hi = (torch.as_tensor(b, device=dev).to(dtype)
+                                  for b in build_bounds(sp, boxes[m],
+                                                        np.float64))
+                        Z = torch.maximum(torch.minimum(Z, hi), lo)
+                    mk = "K2/" + ag.model_key(m, d, diag)
+                    rk = solve.solve_kernel(Z, rf, c, opts, lo, hi)
+                    rk2 = solve.solve_kernel(Z, rf, c, opts, lo, hi)
+                    rr = solve.solve_reference(Z, rf, c, opts, lo, hi)
+                    torch.cuda.synchronize()
+                    cnt_ok = all(torch.equal(getattr(rk, k), getattr(rr, k))
+                                 for k in ("niter", "nfev", "status"))
+                    e = float(torch.max(torch.abs(rk.f - rr.f)
+                                        / torch.abs(rr.f)))
+                    ok, how = cnt_ok, ""
+                    if dtype == f64:
+                        ok = ok and e <= 1e-8
+                    elif not bounded:
+                        rc = solve.solve_reference(
+                            Z.cpu(), rf.cpu() if diag else rf, c_cpu, opts)
+                        wit = float(torch.max(torch.abs(rr.f.cpu() - rc.f)
+                                              / torch.abs(rc.f)))
+                        ok = ok and e <= max(1e-4, 2 * wit)
+                        how = f" (the plain solve card vs CPU {wit:.3e})"
+                    else:
+                        # bounded f32 (How parity is judged): counts and a
+                        # fixed 2e-3, or no farther from the f64 solve
+                        # than twice the plain version
+                        ok = ok and e <= F32_BOUNDED_F_TOL
+                        if not ok:
+                            c64 = ag.ag_consts(sp, dev, f64)
+                            r64 = solve.solve_reference(
+                                Z.double(), rf.double() if diag else
+                                float(rf), c64, opts, lo.double(),
+                                hi.double())
+                            dk = torch.abs(rk.f.double() - r64.f)
+                            dp = torch.abs(rr.f.double() - r64.f)
+                            ok = bool(torch.all(
+                                dk <= 2 * dp + 1e-6 * torch.abs(r64.f)))
+                            how = (f" (counts or f outside 2e-3; from the "
+                                   f"f64 solve: kernel {dk.tolist()}, "
+                                   f"plain {dp.tolist()})")
+                    lab = (f"{mk} {str(dtype)[6:]}"
+                           + (" bounded" if bounded else ""))
+                    print(f"{lab}: niter {rk.niter.tolist()} nfev "
+                          f"{rk.nfev.tolist()} status {rk.status.tolist()} "
+                          f"(plain {rr.niter.tolist()} {rr.nfev.tolist()} "
+                          f"{rr.status.tolist()}); f rel err {e:.3e}{how}")
+                    check(ok and torch.equal(rk.x, rk2.x),
+                          f"phase 33: {lab} against its plain version")
+                    r = out["k2"].setdefault(mk, dict(max_rel_err=0.0,
+                                                      max_abs_err=0.0))
+                    r["max_rel_err"] = max(r["max_rel_err"], e)
+                    r["max_abs_err"] = max(r["max_abs_err"], float(
+                        torch.max(torch.abs(rk.f - rr.f))))
+            if d != M33["ladder_rule"][m]:
+                continue
+            for dtype in (f64, f32):
+                c = ag.ag_consts(sp, dev, dtype)
+                Z = torch.tensor(near(key0), dtype=dtype, device=dev)
+                rfs = np.array([rung_rf(rf0s[m][0], rf0s[m][1], b, dtype)
+                                for b in range(bt, bt + M33["ladder_rungs"])])
+                xk, rec = solve.ladder_kernel(
+                    Z, torch.tensor(rfs, dtype=dtype, device=dev), c, opts3)
+                xr, recr = solve.ladder_reference(Z, rfs, c, opts3)
+                torch.cuda.synchronize()
+                cnt_ok = all(torch.equal(rec[k], recr[k])
+                             for k in ("niter", "nfev", "status"))
+                e = float(torch.max(torch.abs(rec["A"] - recr["A"])
+                                    / torch.abs(recr["A"])))
+                if dtype == f64:
+                    tol = 1e-8
+                else:
+                    _, recc = solve.ladder_reference(
+                        Z.cpu(), rfs, ag.ag_consts(sp, "cpu", dtype), opts3)
+                    tol = max(1e-4, 2 * float(torch.max(
+                        torch.abs(recr["A"].cpu() - recc["A"])
+                        / torch.abs(recc["A"]))))
+                mk = "K3/" + ag.model_key(m, d, False)
+                print(f"{mk} {str(dtype)[6:]}, rungs {bt}.."
+                      f"{bt + M33['ladder_rungs'] - 1} of maxiter "
+                      f"{M33['ladder_maxiter']}: niter "
+                      f"{rec['niter'].tolist()} (plain "
+                      f"{recr['niter'].tolist()}); A rel err {e:.3e} "
+                      f"(bound {tol:.3g})")
+                check(cnt_ok and e <= tol, f"phase 33: {mk} {dtype} "
+                      "against its plain version")
+                r = out["k3"].setdefault(mk, dict(max_rel_err=0.0,
+                                                  max_abs_err=0.0))
+                r["max_rel_err"] = max(r["max_rel_err"], e)
+                r["max_abs_err"] = max(r["max_abs_err"], float(
+                    torch.max(torch.abs(rec["A"] - recr["A"]))))
+
+    # (a) NaKL's records in the reference's K2 regime: examples/nakl.py's
+    # problem at N = nakl_N through the facade with its defaults (f32,
+    # solver='auto': K2 bounded, one launch a rung), then through the
+    # generic projection loop over K6 (engine='pallas') on the first
+    # rungs, held where both converged
+    N = M33["nakl_N"]
+    sp_n = specs[("nakl", "SimpsonHermite")]
+    P0 = np.asarray(NAKL_P_TRUE, float).copy()
+    P0[PIDX3] = CONF3["P0"]
+    X0 = np.column_stack([tw_n["V"][:, 0], np.full(N, 0.5), np.full(N, 0.5),
+                          np.full(N, 0.5)])
+
+    def nakl_facade(n_rung, **kw):
+        ann = Annealer(device=dev)
+        ann.set_model(nakl, 4)
+        ann.set_data(tw_n["V"], stim=tw_n["stim"], t=tw_n["t"])
+        zero_counts()
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        ann.anneal(X0, P0, alpha=CONF3["alpha"],
+                   beta_array=np.arange(n_rung),
+                   RM=1.0 / tw_n["sigma"] ** 2, RF0=CONF3["rf0"], Lidx=[0],
+                   Pidx=PIDX3, disc="SimpsonHermite", bounds=CONF3["bounds"],
+                   opt_args=dict(maxiter=CONF3["maxiter_a"],
+                                 maxcor=M33["m"]),
+                   dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_a
+        cnt = counts()
+        check(bool(np.isfinite(ann.A_array).all())
+              and set(np.unique(ann.exitflags)) <= {0, 1, 2},
+              f"phase 33: the NaKL facade {kw}: records or exit flags")
+        return ann, wall, cnt
+    k2_key = "K2/" + ag.model_key("nakl", "SimpsonHermite", False)
+    check(solve.solve_preferred(sp_n, CONF3["rf0"],
+                                LBFGSOptions(m=M33["m"]), f32, dev),
+          "phase 33: NaKL at N_pad 1,024 is not in solver='auto''s regime")
+    with launch_events(solve, "solve_kernel") as ev_n:
+        ann_k, wall_k, cnt_k = nakl_facade(M33["nakl_rungs"])
+    k2_launch = per_launch(ev_n, ann_k.nfev_array, 1)
+    niter_k = int(ann_k.niter_array.sum())
+    print(f"NaKL facade (examples/nakl.py at N = {N}, N_f {sp_n.N_f}, f32, "
+          f"m {M33['m']}, solver='auto'), rungs 0..{M33['nakl_rungs'] - 1}: "
+          f"wall {wall_k:.2f} s; niter {niter_k}, nfev "
+          f"{int(ann_k.nfev_array.sum())}; K2 {k2_launch[0]:.4f} ms a "
+          f"launch, {1e3 * k2_launch[0] * len(ev_n) / max(niter_k, 1):.2f} "
+          f"µs an iteration (CUDA events); exit flags "
+          f"{ann_k.exitflags.tolist()}; final A {float(ann_k.A_array[-1]):.6g}"
+          f"; launches {cnt_k}")
+    check(cnt_k["k2"] == M33["nakl_rungs"]
+          and cnt_k["models"].get(k2_key, 0) == M33["nakl_rungs"]
+          and cnt_k["k1"] == 0 and cnt_k["k6_sh_vag"] == 0,
+          f"phase 33: the NaKL facade did not take K2 once a rung: {cnt_k}")
+    out["paths"]["nakl_facade"] = cnt_k["models"]
+    print("NaKL facade, iterations a rung: "
+          f"{ann_k.niter_array.tolist()}")
+    # the same facade through the generic projection loop over K6
+    # (engine='pallas') over its first nakl_held rungs, held at the
+    # mutually converged ones (How parity is judged: bounded f32)
+    held = M33["nakl_held"]
+    ann_g, wall_g, cnt_g = nakl_facade(held, engine="pallas")
+    niter_g = int(ann_g.niter_array.sum())
+    check(cnt_g["k2"] == 0 and cnt_g["k6_sh_vag"] >= int(
+        ann_g.nfev_array.sum()) > 0,
+          f"phase 33: the generic NaKL facade's launches {cnt_g}")
+    conv = (ann_g.exitflags == 0) & (ann_k.exitflags[:held] == 0)
+    relA = np.where(conv, np.abs(ann_k.A_array[:held] - ann_g.A_array)
+                    / np.abs(ann_g.A_array), 0.0)
+    print(f"NaKL facade through the generic projection loop over K6 "
+          f"(engine='pallas'), rungs 0..{held - 1}: wall {wall_g:.2f} s, "
+          f"niter {ann_g.niter_array.tolist()}; exit flags "
+          f"{ann_g.exitflags.tolist()}; K2 against it at the "
+          f"{int(conv.sum())} mutually converged rungs: max rel A "
+          f"difference {relA.max():.3e} (bound {F32_BOUNDED_F_TOL:g})")
+    check(conv.mean() >= 0.8 and relA.max() <= F32_BOUNDED_F_TOL,
+          f"phase 33: K2 and the generic loop on NaKL: {relA}, exit flags "
+          f"{ann_k.exitflags[:held]} {ann_g.exitflags}")
+    out["nakl_facade"] = dict(
+        wall_s=wall_k, niter=niter_k, k2_ms=k2_launch[0],
+        k2_us_per_iter=1e3 * k2_launch[0] * len(ev_n) / max(niter_k, 1),
+        generic_wall_s=wall_g, generic_niter=niter_g,
+        max_rel_A=float(relA.max()), converged=int(conv.sum()))
+    # the B = ens_B ensemble of nakl_ensemble_inits with the screen's
+    # (N_f-1, 4) rf through K2 (maxiter ens_maxiter a rung)
+    pb, _ = nakl_param_boxes(PIDX3)
+    xp_e = nakl_ensemble_inits(np.random.default_rng(CONF3["ens_seed"]),
+                               M33["ens_B"], pb, [model_grid_v(sp_n, tw_n)],
+                               pidx=PIDX3, dtype=np.float32)
+    rf_dir = np.array([1.0] + [CONF3["gate_rf_scale"]] * 3)
+    rf0_e = np.ascontiguousarray(np.broadcast_to(
+        CONF3["rf0"] * rf_dir, (sp_n.N_f - 1, 4))).astype(np.float32)
+    opts_e = LBFGSOptions(maxiter=M33["ens_maxiter"], m=5, pgtol=1e-4,
+                          ftol=1e-6)
+    lo_e, hi_e = build_bounds(sp_n, CONF3["bounds"], np.float32)
+    act_e, parts_e = make_action(sp_n, device=dev)
+    ladder_e = make_ensemble_ladder(
+        act_e, parts_e, np.arange(M33["ens_rungs"]), rf0_e, CONF3["alpha"],
+        lower=lo_e, upper=hi_e, opts=opts_e, device=dev,
+        rung_solver=solve.make_rung_solver(sp_n, opts_e, lower=lo_e,
+                                           upper=hi_e, device=dev))
+    zero_counts()
+    t_e = time.perf_counter()
+    res_e = ladder_e(torch.tensor(xp_e, device=dev))
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t_e
+    cnt_e = counts()
+    ke = "K2/" + ag.model_key("nakl", "SimpsonHermite", True)
+    print(f"NaKL ensemble, B={M33['ens_B']} from nakl_ensemble_inits, the "
+          f"screen's (N_f-1, 4) rf, rungs 0..{M33['ens_rungs'] - 1}, maxiter "
+          f"{M33['ens_maxiter']}: wall {wall_e:.2f} s; niter "
+          f"{int(res_e.niter.sum())}; statuses "
+          f"{np.bincount(res_e.status.cpu().numpy().ravel(), minlength=4).tolist()}"
+          f"; launches {cnt_e}")
+    check(cnt_e["models"].get(ke, 0) == M33["ens_rungs"]
+          and bool(torch.isfinite(res_e.A).all()),
+          f"phase 33: the NaKL ensemble: launches {cnt_e}")
+    out["paths"]["nakl_ensemble"] = cnt_e["models"]
+    out["nakl_ensemble"] = dict(wall_s=wall_e, niter=int(res_e.niter.sum()))
+
+    # (b) BASELINE config #3's problem (N_f 6,001, f32) through K1
+    # (engine='ag') over its first conf3_rungs rungs: K1's launches equal
+    # nfev; K1 against K6c's fused launch on draws at beta k6_betas
+    tw3, sp3 = config3_problem()
+    check(fe.reference_ag_supported(sp3, CONF3["rf0"], f32),
+          "phase 33: the reference's K1 does not take config #3")
+    ann3 = Annealer(device=dev)
+    ann3.set_model(nakl, 4)
+    ann3.set_data(tw3["V"], stim=tw3["stim"], t=tw3["t"])
+    P03 = np.asarray(NAKL_P_TRUE, float).copy()
+    P03[PIDX3] = CONF3["P0"]
+    N3 = CONF3["N"]
+    X03 = np.column_stack([tw3["V"][:, 0], np.full(N3, 0.5),
+                           np.full(N3, 0.5), np.full(N3, 0.5)])
+    zero_counts()
+    t_3 = time.perf_counter()
+    ann3.anneal(X03, P03, alpha=CONF3["alpha"],
+                beta_array=np.arange(M33["conf3_rungs"]),
+                RM=1.0 / tw3["sigma"] ** 2, RF0=CONF3["rf0"], Lidx=[0],
+                Pidx=PIDX3, disc="SimpsonHermite", bounds=CONF3["bounds"],
+                opt_args=dict(maxiter=CONF3["maxiter_a"]),
+                dtype=torch.float32, engine="ag")
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t_3
+    cnt3 = counts()
+    nfev3, niter3 = int(ann3.nfev_array.sum()), int(ann3.niter_array.sum())
+    k1_key = ag.model_key("nakl", "SimpsonHermite", False)
+    print(f"config #3 through the facade, engine='ag' (f32, N_f {sp3.N_f}),"
+          f" rungs 0..{M33['conf3_rungs'] - 1}: wall {wall3:.2f} s; niter "
+          f"{niter3}, nfev {nfev3} ({1e3 * wall3 / max(niter3, 1):.3f} ms a "
+          f"loop iteration); exit flags {ann3.exitflags.tolist()}; final A "
+          f"{float(ann3.A_array[-1]):.6g}; launches {cnt3}")
+    check(bool(np.isfinite(ann3.A_array).all())
+          and cnt3["models"].get(k1_key, 0) == cnt3["k1"] == nfev3 > 0
+          and cnt3["k2"] == 0 and cnt3["k6_sh_vag"] == 0,
+          f"phase 33: config #3 on K1: launches {cnt3} for nfev {nfev3}")
+    out["paths"]["conf3_ag"] = cnt3["models"]
+    out["conf3"] = dict(wall_s=wall3, niter=niter3, nfev=nfev3,
+                        ms_per_iter=1e3 * wall3 / max(niter3, 1))
+    c3 = ag.ag_consts(sp3, dev, f32)
+    act6, _ = fe.select_action(sp3, CONF3["rf0"], engine="pallas",
+                               dtype=f32, device=dev)
+    Z3 = torch.tensor(nakl_draws(sp3, tw3, 2, 34), dtype=f32, device=dev)
+    k1_k6 = 0.0
+    for beta in M33["k6_betas"]:
+        rf = rung_rf(CONF3["rf0"], CONF3["alpha"], beta, f32)
+        A1, G1 = ag.action_and_grad(Z3, rf, c3)
+        A6, G6 = act6.value_and_grad(Z3, rf)
+        A_r, G_r = ag.ag_reference(Z3, rf, c3)
+        r1, _ = rel_err(A1, G1, A_r, G_r)
+        r16, _ = rel_err(A1, G1, A6, G6)
+        check(r1 <= 2e-5 and r16 <= 4e-5,
+              f"phase 33: config #3 beta={beta}: K1 vs plain {r1:.3e}, K1 "
+              f"vs K6c {r16:.3e}")
+        k1_k6 = max(k1_k6, r16)
+    out["k1_vs_k6"] = k1_k6
+    print(f"K1 against K6c's fused launch on config #3's draws at beta "
+          f"{M33['k6_betas']} (f32): worst rel err {k1_k6:.3e} (bound 4e-5)")
+
+    # (c) Colpitts and Lorenz-63: the reference test's Colpitts facade in
+    # f32 through solver='auto' (K2), the paths of K4 (the compensated
+    # facade on Lorenz-63, engine='ag') and K3 (make_ladder_solver)
+    tw_f = tws["facade"]
+    ak = colpitts_annealer(dev, tw_f)
+    zero_counts()
+    t_c = time.perf_counter()
+    colpitts_anneal(ak, tw_f, np.arange(ROW["n_beta"]), "auto",
+                    dtype=torch.float32, maxcor=M33["m"])
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t_c
+    cnt_c = counts()
+    kc = "K2/" + ag.model_key("colpitts", "trapezoid", False)
+    eta = float(ak.minpaths_P[-1][0])
+    print(f"Colpitts facade (the reference test's, f32, m {M33['m']}, "
+          f"solver='auto'): "
+          f"wall {wall_c:.2f} s; niter {int(ak.niter_array.sum())}; exit "
+          f"flags {np.bincount(ak.exitflags, minlength=3).tolist()}; eta "
+          f"{eta:.5f} (truth 6.2723, the f64 K6 ladder's in phase 30); "
+          f"launches {cnt_c}")
+    check(cnt_c["models"].get(kc, 0) == ROW["n_beta"] == cnt_c["k2"]
+          and bool(np.isfinite(ak.A_array).all()),
+          f"phase 33: the Colpitts facade did not take K2: {cnt_c}")
+    out["paths"]["colpitts_facade"] = cnt_c["models"]
+    out["colpitts_facade"] = dict(wall_s=wall_c, eta=eta,
+                                  niter=int(ak.niter_array.sum()))
+    tw63 = tws["l63"]
+    a63 = Annealer(device=dev)
+    a63.set_model(lorenz63, 3)
+    a63.set_data(tw63["Y"], t=tw63["t"])
+    zero_counts()
+    a63.anneal(tw63["traj"] + 0.1 * np.random.default_rng(7).normal(
+                   size=tw63["traj"].shape),
+               np.array([10.0, 24.0, 8.0 / 3.0]), alpha=2.0,
+               beta_array=np.arange(M33["path_rungs"]), RM=tw63["RM"],
+               RF0=tw63["RM"], Lidx=tw63["Lidx"], Pidx=[1],
+               disc="SimpsonHermite", opt_args=dict(maxiter=200),
+               dtype=torch.float32, engine="ag", compensated=True)
+    torch.cuda.synchronize()
+    cnt_4 = counts()
+    k4_key = ag.model_key("l63", "SimpsonHermite", False, True)
+    nfev4 = int(a63.nfev_array.sum())
+    print(f"K4 path: the Lorenz-63 facade, Hermite–Simpson, "
+          f"compensated=True, engine='ag', rungs 0..{M33['path_rungs'] - 1}"
+          f": nfev {nfev4}; launches {cnt_4}")
+    check(cnt_4["models"].get(k4_key, 0) >= nfev4 > 0
+          and bool(np.isfinite(a63.A_array).all()),
+          f"phase 33: the K4 path's launches {cnt_4}")
+    out["paths"]["k4"] = cnt_4["models"]
+    sp_l = specs[("colpitts", "euler")]
+    lad = solve.make_ladder_solver(sp_l, opts3, M33["ladder_rungs"],
+                                   device=dev)
+    Zl = torch.tensor(near(("colpitts", "euler"), 4), dtype=f32, device=dev)
+    zero_counts()
+    _, rec_l = lad(Zl, [rung_rf(rf0s["colpitts"][0], rf0s["colpitts"][1], b,
+                                f32) for b in range(M33["ladder_rungs"])])
+    torch.cuda.synchronize()
+    cnt_l = counts()
+    print(f"K3 path: make_ladder_solver on Colpitts under Euler, "
+          f"{M33['ladder_rungs']} rungs, B=4: launches {cnt_l}")
+    check(cnt_l["models"].get("K3/colpitts/euler/scalar", 0) == 1
+          and bool(torch.isfinite(rec_l["A"]).all()),
+          f"phase 33: the K3 path's launches {cnt_l}")
+    out["paths"]["k3"] = cnt_l["models"]
+
+    # (e) times (f32, B=1): K1 and K4 at NaKL's record (N_f 1,023) and at
+    # config #3 (N_f 6,001), beside K6's fused launch and the autograd
+    # action; K1 on Colpitts and Lorenz-63 at phase 30's twins
+    # (trapezoid); K2 and K3 short solves at NaKL's record
+    for label, sp, key0, beta in (
+            ("nakl", sp_n, ("nakl", "SimpsonHermite"), M33["beta_t"]["nakl"]),
+            ("conf3", sp3, None, M33["beta_t"]["nakl"]),
+            ("colpitts", specs[("colpitts", "trapezoid")],
+             ("colpitts", "trapezoid"), M33["beta_t"]["colpitts"]),
+            ("l63", specs[("l63", "trapezoid")], ("l63", "trapezoid"),
+             M33["beta_t"]["l63"])):
+        model = "nakl" if label == "conf3" else label
+        c = ag.ag_consts(sp, dev, f32)
+        Z = (Z3[:1].contiguous() if key0 is None else torch.tensor(
+            draws[key0][:1], dtype=f32, device=dev))
+        r0, alpha = rf0s[model]
+        rf = _scalar_rf(r0 * alpha ** beta, f32)
+        act6, _ = fe.select_action(sp, rf, engine="pallas", dtype=f32,
+                                   device=dev)
+        vag = value_and_grad(make_action(sp, device=dev)[0])
+        t = out["times"][label] = {}
+        for comp in ((False, True) if label in ("nakl", "conf3")
+                     else (False,)):
+            w = row_work(sp, model, sp.disc, 1, False, comp)
+            t["k4" if comp else "k1"] = dict(
+                ms=events_ms(lambda: ag.ag_kernel(Z, rf, c, comp), n=500),
+                device_ms=device_ms_of(lambda: ag.ag_kernel(Z, rf, c, comp),
+                                       "row_ag_kernel"),
+                plain_ms=events_ms(lambda: ag.ag_reference(Z, rf, c, comp),
+                                   n=50, warm=5),
+                bound=bound_of(*w), work=w)
+        k6 = "fe_sh_vag" if sp.disc == "SimpsonHermite" else "fe_onestep_vag"
+        t["k6_fused_ms"] = events_ms(lambda: act6.value_and_grad(Z, rf),
+                                     n=500)
+        t["k6_fused_device_ms"] = device_ms_of(
+            lambda: act6.value_and_grad(Z, rf), k6)
+        t["autograd_ms"] = events_ms(lambda: vag(Z, rf), n=50, warm=5)
+        for fam, r in ((f, t[f]) for f in ("k1", "k4") if f in t):
+            dv = r["device_ms"]
+            print(f"{fam.upper()} on {label} (N_f {sp.N_f}, {sp.disc}, f32, "
+                  f"B=1): {r['ms']:.5f} ms a launch (CUDA events), device "
+                  + (f"{dv:.5f} ms" if dv is not None else "not measured")
+                  + f"; plain {r['plain_ms']:.5f} ms; bound "
+                  f"{r['bound'][0]:.3e} ms ({r['bound'][1]}: {r['work'][0]} "
+                  f"bytes, {r['work'][1]} operations)")
+        dv = t["k6_fused_device_ms"]
+        print(f"  beside it: K6's fused launch ({k6}) {t['k6_fused_ms']:.5f} "
+              f"ms a call, device "
+              + (f"{dv:.5f} ms" if dv is not None else "not measured")
+              + f"; the autograd action's value+grad {t['autograd_ms']:.5f} ms")
+    c = ag.ag_consts(sp_n, dev, f32)
+    Zk = torch.tensor(near(("nakl", "SimpsonHermite"), 1), dtype=f32,
+                      device=dev)
+    bt = M33["beta_t"]["nakl"]
+    rf = rung_rf(CONF3["rf0"], CONF3["alpha"], bt, f32)
+    res = solve.solve_kernel(Zk, rf, c, opts)
+    w = row_work(sp_n, "nakl", "SimpsonHermite", 1, False)
+    b2 = solve_bound(sp_n, f32, 1, 1, int(res.nfev.sum()),
+                     int(res.niter.sum()), opts.m, 1, eval_ops=w[1])
+    out["times"]["k2"] = dict(
+        ms=events_ms(lambda: solve.solve_kernel(Zk, rf, c, opts), n=20,
+                     warm=2),
+        device_ms=device_ms_of(lambda: solve.solve_kernel(Zk, rf, c, opts),
+                               "l96_solve_kernel", n=10),
+        plain_ms=events_ms(lambda: solve.solve_reference(Zk, rf, c, opts),
+                           n=3, warm=1),
+        bound=b2[:2], niter=int(res.niter.sum()))
+    rfs = torch.tensor([rung_rf(CONF3["rf0"], CONF3["alpha"], b, f32)
+                        for b in range(bt, bt + M33["ladder_rungs"])],
+                       dtype=f32, device=dev)
+    _, rec = solve.ladder_kernel(Zk, rfs, c, opts3)
+    b3 = solve_bound(sp_n, f32, 1, 1, int(rec["nfev"].sum()),
+                     int(rec["niter"].sum()), opts.m, M33["ladder_rungs"],
+                     eval_ops=w[1])
+    out["times"]["k3"] = dict(
+        ms=events_ms(lambda: solve.ladder_kernel(Zk, rfs, c, opts3), n=10,
+                     warm=2),
+        device_ms=device_ms_of(lambda: solve.ladder_kernel(Zk, rfs, c, opts3),
+                               "l96_ladder_kernel", n=5),
+        plain_ms=events_ms(lambda: solve.ladder_reference(
+            Zk, rfs.cpu().numpy(), c, opts3), n=2, warm=1),
+        bound=b3[:2], niter=int(rec["niter"].sum()))
+    for fam in ("k2", "k3"):
+        r = out["times"][fam]
+        dv = r["device_ms"]
+        print(f"{fam.upper()} on NaKL's record (N_f {sp_n.N_f}, f32, B=1, a "
+              f"short solve of {r['niter']} iterations): {r['ms']:.4f} ms a "
+              f"launch (CUDA events), device "
+              + (f"{dv:.4f} ms" if dv is not None else "not measured")
+              + f" ({1e3 * (dv or r['ms']) / max(r['niter'], 1):.2f} µs an "
+              f"iteration); plain {r['plain_ms']:.2f} ms; bound "
+              f"{r['bound'][0]:.3e} ms ({r['bound'][1]})")
+    out["registers"] = {
+        f"{m}_{str(dt)[6:]}_{'K3' if lad_ else 'K2'}": [a["regs"],
+                                                         a["local_bytes"]]
+        for m in ag.ROW_MODELS for dt in (f32, f64) for lad_ in (False, True)
+        for a in [solve.kernel_attrs(lad_, dt, False, solve.VECTORS
+                                     | solve.HISTORY, model=m)]}
+    print(f"K2/K3 on the row models, registers and local bytes a thread "
+          f"(on-chip layout): {out['registers']}")
+    return out
+
+
 def profile_k3():
     """One K3 call of the new path (f32, every rung, B members from
     random_ensemble_inits(seed=3)), timed by CUDA events and run again
@@ -3079,28 +3773,34 @@ def _nvcc(src, out, defines=()):
 #: The sources of K1-K4's other rules, which a checkout from
 #: before them lacks: their ptxas lines are printed, not compared.
 RULE_SOURCES = ("ag_rules_kernel", "solve_rules_f32", "solve_rules_f64")
+#: The sources of K1-K4 on the row-level models (phase 33), which a
+#: checkout from before them lacks: printed, not compared.
+MODEL_SOURCES = ("ag_models_kernel",) + tuple(
+    f"solve_models_{m}_{t}" for m in ("nakl", "colpitts", "l63")
+    for t in ("f32", "f64"))
 
 
 def ptxas_diff(other):
     """Build ag_kernel.cu (K1, K4), solve_kernel.cu (K2, K3),
-    pack_kernel.cu (K8) and agt_kernel.cu (K5) of this checkout and of the
-    checkout at ``other`` with the port's nvcc flags, with the rules'
-    sources (:data:`RULE_SOURCES`) of this one, all nvcc processes
-    together, and compare their -Xptxas -v reports: per source,
-    the lines of registers, barriers, spills and stack frames, in order,
-    names dropped (a template argument added to a __device__ function
-    changes its mangled name, not its code). Prints both and one JSON
-    line; returns 0 when the lines of K1-K4 and K8's sources are
-    identical (K5's are printed: its kernel may change by design).
+    pack_kernel.cu (K8), fe_kernel.cu (K6) and agt_kernel.cu (K5) of this
+    checkout and of the checkout at ``other`` with the port's nvcc flags,
+    with the rules' and the row models' sources (:data:`RULE_SOURCES`,
+    :data:`MODEL_SOURCES`) of this one, all nvcc processes together, and
+    compare their -Xptxas -v reports: per source, the lines of registers,
+    barriers, spills and stack frames, in order, names dropped (a
+    template argument added to a __device__ function changes its mangled
+    name, not its code). Prints both and one JSON line; returns 0 when
+    the lines of K1-K4, K8 and K6's sources are identical (K5's are
+    printed: its kernel may change by design).
     Against a checkout from before K2/K3's redesign for the card (the
     layout argument, one barrier a reduction, fewer reductions),
     solve_kernel.cu is expected to differ; ag_kernel.cu is not."""
-    held = ("ag_kernel", "solve_kernel", "pack_kernel")
+    held = ("ag_kernel", "solve_kernel", "pack_kernel", "fe_kernel")
     names = held + ("agt_kernel",)
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for name in names + RULE_SOURCES:
+        for name in names + RULE_SOURCES + MODEL_SOURCES:
             for tag, root in (("this", ROOT), ("other", other)):
                 src = os.path.join(root, "varanneal_tpu_torch", "kernels",
                                    "csrc", name + ".cu")
@@ -3112,7 +3812,7 @@ def ptxas_diff(other):
             so, se = proc.communicate()
             check(proc.returncode == 0, f"nvcc failed for {key}:\n{se}")
             logs[key] = _ptxas_lines(so + se)
-    for name in RULE_SOURCES:
+    for name in RULE_SOURCES + MODEL_SOURCES:
         lines, fnames = logs[(name, "this")]
         print(f"ptxas {name} (this; printed, not compared): "
               f"{len(fnames)} functions")
@@ -3202,7 +3902,8 @@ def main():
 
     def build_rules():
         try:
-            rules_build.update(_build.build(list(RULE_SOURCES)))
+            rules_build.update(_build.build(list(RULE_SOURCES
+                                                 + MODEL_SOURCES)))
         except Exception as e:          # raised again by phase 32
             rules_build["error"] = e
     rules_thread = threading.Thread(target=build_rules)
@@ -4366,6 +5067,8 @@ def main():
         ag.LAUNCHES = ag.COMP_LAUNCHES = ag.AGT_LAUNCHES = 0
         ag.RULE_LAUNCHES.clear()
         solve.RULE_LAUNCHES.clear()
+        ag.MODEL_LAUNCHES.clear()
+        solve.MODEL_LAUNCHES.clear()
         solve_pack.PACK_LAUNCHES = 0
         solve.RUNG_LAUNCHES = solve.LADDER_LAUNCHES = 0
         kdir.DIR_LAUNCHES = kdir.STEP_LAUNCHES = 0
@@ -5364,6 +6067,11 @@ def main():
     built.update(rules_build)
     out32 = rules_phase(dev, tw, built, zero_counts, run_counts)
     phase("32 K1-K4 over Lorenz-96's rules", t0)
+
+    # ---- 33. K1-K4 on NaKL, Colpitts and Lorenz-63 ------------------------
+    t0 = time.perf_counter()
+    out33 = models_phase(dev, built, zero_counts, run_counts)
+    phase("33 K1-K4 on the row-level models", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -5603,6 +6311,60 @@ def main():
             **({"config2_short": out32["k2"]["conf2"]} if fam == "k2"
                else {}),
             **line))
+    # K1-K4 on the row-level models (phase 33): launches on its paths
+    # (the counts zeroed before each), errors over its checks, times at
+    # NaKL's record (N_f 1,023, f32, B=1; K1 also at config #3 and on
+    # Colpitts and Lorenz-63), and each entry's own under "entries" (keys
+    # [K2/ or K3/]model/rule/rf kind[/comp])
+    path_models = {}
+    for cnt33 in out33["paths"].values():
+        for k, v in cnt33.items():
+            path_models[k] = path_models.get(k, 0) + v
+    t33 = out33["times"]
+    for fam, nm, src, rep, t in (
+            ("k1", "row_ag", "ag_models_kernel", "ag_pallas.py:279",
+             t33["nakl"]["k1"]),
+            ("k4", "row_ag_comp", "ag_models_kernel", "ag_pallas.py:336",
+             t33["nakl"]["k4"]),
+            ("k2", "row_solve", "solve_models_nakl_f32",
+             "solve_pallas.py:676", t33["k2"]),
+            ("k3", "row_ladder", "solve_models_nakl_f32",
+             "solve_pallas.py:951", t33["k3"])):
+        ents = {k: dict(v, path_launches=path_models.get(k, 0))
+                for k, v in out33[fam].items()}
+        extra = {}
+        for lab, tl in t33.items():
+            if fam in ("k1", "k4") and fam in tl:
+                r = tl[fam]
+                extra.update({f"{lab}_ms": r["ms"],
+                              f"{lab}_device_ms": r["device_ms"],
+                              f"{lab}_plain_ms": r["plain_ms"],
+                              f"{lab}_bound_ms": r["bound"][0],
+                              f"{lab}_bound_by": r["bound"][1]})
+        if fam == "k1":
+            extra.update(
+                k1_vs_k6_max_rel_err=out33["k1_vs_k6"], conf3=out33["conf3"],
+                k6_fused_ms={lab: [t33[lab]["k6_fused_ms"],
+                                   t33[lab]["k6_fused_device_ms"]]
+                             for lab in t33 if lab not in ("k2", "k3")},
+                autograd_ms={lab: t33[lab]["autograd_ms"] for lab in t33
+                             if lab not in ("k2", "k3")})
+        if fam == "k2":
+            extra.update(nakl_facade=out33["nakl_facade"],
+                         nakl_ensemble=out33["nakl_ensemble"],
+                         colpitts_facade=out33["colpitts_facade"])
+        if fam in ("k2", "k3"):
+            extra.update(registers={k: v for k, v in out33["registers"].items()
+                                    if k.endswith(fam.upper())})
+        kernels.append(dict(
+            name=nm, source=f"varanneal_tpu_torch/kernels/csrc/{src}.cu",
+            replaces=f"varanneal_tpu/kernels/{rep}",
+            launches=sum(e["path_launches"] for e in ents.values()),
+            max_abs_err=max(e["max_abs_err"] for e in ents.values()),
+            max_rel_err=max(e["max_rel_err"] for e in ents.values()),
+            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound"][0], bound_by=t["bound"][1], entries=ents,
+            **extra, **line))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -181,7 +181,8 @@ def test_envelope():
         build_spec(lorenz96, 20, Y, t, Lidx, 4.0, disc="trapezoid",
                    P=rng.uniform(7, 9, (21, 1)), pidx=[0]),
         build_spec(lorenz63, 3, Y[:, :2], t, [0, 1], 4.0, disc="trapezoid",
-                   P=np.array([10.0, 28.0, 8 / 3]), pidx=[0]),
+                   P=np.array([10.0, 28.0, 8 / 3]), pidx=[0],
+                   stim=rng.normal(size=(Y.shape[0], 1))),
         build_spec(lambda tt, x, p: lorenz96(tt, x, p), 20, Y, t, Lidx,
                    4.0, disc="trapezoid", **kw),
     ]
@@ -225,10 +226,11 @@ def test_refusal_names_the_condition():
     assert "fault 6" in ag.ag_refusal(rep, 1.0)
     assert "rf of shape (2, 20, 20)" in ag.ag_refusal(
         st, np.ones((2, st.N_f - 1, st.D)))
-    l63 = build_spec(lorenz63, 3, Y[:, :2], t, [0, 1], 4.0,
-                     disc="trapezoid", P=np.array([10.0, 28.0, 8 / 3]),
-                     pidx=[0])
-    assert "model" in ag.ag_refusal(l63, 1.0)
+    user = build_spec(lambda tt, x, p: lorenz63(tt, x, p), 3, Y[:, :2], t,
+                      [0, 1], 4.0, disc="trapezoid",
+                      P=np.array([10.0, 28.0, 8 / 3]), pidx=[0])
+    assert "model" in ag.ag_refusal(user, 1.0)
+    assert "§2a item 2 (f)" in ag.ag_refusal(user, 1.0)
     assert "float16" in ag.ag_refusal(st, 1.0, torch.float16)
     for N_f, D in ((2, 60000), (161, 400), (14000, 4096)):
         wide = dataclasses.replace(st, N_f=N_f, D=D)

@@ -174,8 +174,6 @@ DIFFERENCES = {
     ("f64", "ag"): ("served", "error", "wider: the port's K1 takes f64"),
     ("f64", "fused"): ("served", "fallback",
                        "wider: the port's K2 takes f64"),
-    ("f64", "auto"): ("xla + fused", "xla + generic",
-                      "wider: the port's K2 takes f64"),
 }
 COLUMNS = ("fe", "ag", "fused", "auto")
 
@@ -200,7 +198,7 @@ def test_support_waits_and_readme(monkeypatch):
     """A ``waits`` cell is what select_action raises NotImplementedError
     for, naming the same item: K6 on a user model, and engine='auto' on
     the card where the reference takes K1 and the port's K1 refuses (a
-    user model at D=256 under euler, f32: §2a item 2 (d)). README.md's
+    user model at D=256 under euler, f32: §2a item 2 (f)). README.md's
     table is ``markdown_table()``."""
     rng = np.random.default_rng(1)
     Y, t = rng.normal(size=(5, 2)), 0.025 * np.arange(5)
@@ -217,7 +215,7 @@ def test_support_waits_and_readme(monkeypatch):
                                     card) == support.WAITS_K1
     monkeypatch.setattr(fe, "resolve_device",
                         lambda d=None: torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match=r"§2a item 2 \(d\)"):
+    with pytest.raises(NotImplementedError, match=r"§2a item 2 \(f\)"):
         fe.select_action(wide, 0.01, engine="auto")
     readme = (ROOT / "README.md").read_text()
     m = re.search(r"<!-- support-matrix:begin -->\n(.*?)\n"

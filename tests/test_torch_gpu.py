@@ -32,7 +32,11 @@ against its plain version at pack 3; K1 and K4's rules' entries
 (kernels/csrc/ag_rules_kernel.cu) under the four rules × scalar and
 (N_f-1, D) rf against their plain version, and K2 under
 Hermite–Simpson with an (N_f-1, D) rf (kernels/csrc/solve_rules_f32.cu)
-against the plain solve. Run on a machine with a card:
+against the plain solve; K1 and K4 on NaKL, Colpitts and Lorenz-63
+(kernels/csrc/ag_models_kernel.cu) under the four rules × both rf kinds
+against their plain version, and K2/K3 on them
+(kernels/csrc/solve_models_*.cu) against the plain solve in f64. Run on
+a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
@@ -1087,3 +1091,144 @@ def test_sh_diag_rung_solve_matches_plain(cuda):
     assert float(torch.max(torch.abs(rk.f - rp.f) / torch.abs(rp.f))) <= 1e-4
     again = solve.solve_kernel(Z, rf, c, opts)
     assert torch.equal(rk.x, again.x) and torch.equal(rk.f, again.f)
+
+
+def _row_problem(model, disc, N=41, jitter=0.05):
+    """A row-level model's problem at N data rows and 4 draws near its
+    path (the states within ``jitter`` of their spread, the estimated
+    parameters within ``jitter``): NaKL's twin (V observed, the
+    stimulus, Pidx [1..5]), Colpitts' (x1 observed, every parameter) and
+    a Lorenz-63 path (x0 and x2 observed, rho)."""
+    from varanneal_tpu_torch.models import (COLPITTS_P_TRUE, NAKL_P_TRUE,
+                                            colpitts, lorenz63, nakl)
+    from varanneal_tpu_torch.twin import _rk4_np, colpitts_twin, nakl_twin
+    rng = np.random.default_rng(19)
+    if model == "nakl":
+        tw = nakl_twin(N=N, dt=0.04, sigma=1.0, seed=7, seg=8)
+        spec = build_spec(nakl, 4, tw["V"], tw["t"], [0], 1.0, disc=disc,
+                          P=np.asarray(NAKL_P_TRUE), pidx=[1, 2, 3, 4, 5],
+                          stim=tw["stim"])
+        traj = tw["traj"]
+    elif model == "colpitts":
+        tw = colpitts_twin(N_data=N)
+        spec = build_spec(colpitts, 3, tw["Y"], tw["t"], tw["Lidx"], tw["RM"],
+                          disc=disc, P=np.asarray(COLPITTS_P_TRUE),
+                          pidx=[0, 1, 2, 3])
+        traj = tw["traj"]
+    else:
+        P = np.array([10.0, 28.0, 8.0 / 3.0])
+
+        def fnp(x):
+            return np.array([P[0] * (x[1] - x[0]), x[0] * (P[1] - x[2]) - x[1],
+                             x[0] * x[1] - P[2] * x[2]])
+        x0 = _rk4_np(fnp, np.array([1.0, 1.0, 20.0]), 0.01, 500)[-1]
+        traj = _rk4_np(fnp, x0, 0.01, N - 1)
+        spec = build_spec(lorenz63, 3, traj[:, [0, 2]] + rng.normal(
+            size=(N, 2)), 0.01 * np.arange(N), [0, 2], 1.0, disc=disc, P=P,
+            pidx=[1])
+    at = np.arange(spec.N_f) * (traj.shape[0] - 1) / (spec.N_f - 1)
+    path = np.stack([np.interp(at, np.arange(traj.shape[0]), traj[:, j])
+                     for j in range(spec.D)], -1)
+    pb = np.asarray(spec.P_base)[list(spec.pidx)]
+    Z = [np.concatenate([
+        (path + jitter * np.std(traj, 0) * rng.normal(size=path.shape)
+         ).reshape(-1), pb * (1 + jitter * rng.normal(size=pb.shape))])
+        for _ in range(4)]
+    return spec, np.stack(Z)
+
+
+ROW_MODELS = ("nakl", "colpitts", "l63")
+RULES = ("trapezoid", "euler", "forwardmap", "SimpsonHermite")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 2e-5)])
+def test_row_entries_match_plain(cuda, dtype, tol):
+    """K1 and K4 on the row-level models (kernels/csrc/ag_models_kernel.cu)
+    against their plain version under each rule × scalar and (N_f-1, D)
+    rf: value within tol relative, gradient within tol of max|g|, K4's
+    combined value within tol; one launch a call, counted under its
+    model, rule and rf kind, and bit-identical repeats."""
+    for model in ROW_MODELS:
+        for disc in RULES:
+            spec, Z = _row_problem(model, disc)
+            Z = torch.tensor(Z, dtype=dtype, device=cuda)
+            W = np.random.default_rng(6).uniform(0.5, 2.0,
+                                                 (spec.N_f - 1, spec.D))
+            c = ag.ag_consts(spec, cuda, dtype)
+            for rf in (0.5, torch.tensor(0.5 * W, dtype=dtype, device=cuda)):
+                diag = not isinstance(rf, float)
+                for comp in (False, True):
+                    key = ag.model_key(model, disc, diag, comp)
+                    n0 = ag.MODEL_LAUNCHES.get(key, 0)
+                    out = ag.ag_kernel(Z, rf, c, comp)
+                    torch.cuda.synchronize()
+                    assert ag.MODEL_LAUNCHES[key] == n0 + 1
+                    ref = ag.ag_reference(Z, rf, c, comp)
+                    assert float(torch.max(torch.abs(out[0] - ref[0])
+                                           / torch.abs(ref[0]))) <= tol, key
+                    scale = torch.amax(torch.abs(ref[1]), dim=1,
+                                       keepdim=True)
+                    assert float(torch.max(torch.abs(out[1] - ref[1])
+                                           / scale)) <= tol, key
+                    if comp:
+                        A_c, A_r = (ag.combine(o[2], rf, c)
+                                    for o in (out, ref))
+                        assert float(torch.max(torch.abs(A_c - A_r)
+                                               / torch.abs(A_r))) <= tol
+                    again = ag.ag_kernel(Z, rf, c, comp)
+                    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("model", ROW_MODELS)
+def test_row_solves_match_plain(cuda, model):
+    """K2 and K3 on a row-level model (kernels/csrc/solve_models_*.cu)
+    against their plain versions in f64: short solves under each rule,
+    a scalar rf unbounded and an (N_f-1, D) rf bounded, and a 3-rung
+    ladder under Hermite–Simpson of 5 iterations a rung from nearer the
+    path (chip_smoke.py phase 33's K3 check): the same niter, nfev and
+    status, f and A within 1e-8 relative, one launch a call,
+    bit-identical repeats. (From the short solves' draws at 10
+    iterations a rung, Colpitts' ladder parted by 1.7e-8 of A ~ 0.003 at
+    its third rung on the H100, 3.5e-11 absolute: unconverged f64
+    iterates under two orders of summation; NaKL's and Colpitts' rungs
+    at this size do not reach pgtol 1e-8 in 1,000 iterations, so the
+    converged-rung rule of test_ladder_kernel_matches_plain has no rung
+    to hold.)"""
+    opts = LBFGSOptions(maxiter=10, m=5, pgtol=1e-8, ftol=1e-12)
+    for disc in RULES:
+        spec, Z = _row_problem(model, disc)
+        Z = torch.tensor(Z[:2], device=cuda)
+        c = ag.ag_consts(spec, cuda, torch.float64)
+        W = np.random.default_rng(8).uniform(0.5, 2.0,
+                                             (spec.N_f - 1, spec.D))
+        lo = torch.amin(Z, 0) - 0.05 * torch.abs(torch.amin(Z, 0)) - 1e-3
+        hi = torch.amax(Z, 0) + 0.05 * torch.abs(torch.amax(Z, 0)) + 1e-3
+        for rf, box in ((0.5, (None, None)),
+                        (torch.tensor(0.5 * W, device=cuda), (lo, hi))):
+            diag = box[0] is not None
+            key = "K2/" + ag.model_key(model, disc, diag)
+            n0 = solve.MODEL_LAUNCHES.get(key, 0)
+            rk = solve.solve_kernel(Z, rf, c, opts, *box)
+            torch.cuda.synchronize()
+            assert solve.MODEL_LAUNCHES[key] == n0 + 1
+            rp = solve.solve_reference(Z, rf, c, opts, *box)
+            for k in ("niter", "nfev", "status"):
+                assert torch.equal(getattr(rk, k), getattr(rp, k)), (key, k)
+            assert float(torch.max(torch.abs(rk.f - rp.f)
+                                   / torch.abs(rp.f))) <= 1e-8, key
+            again = solve.solve_kernel(Z, rf, c, opts, *box)
+            assert torch.equal(rk.x, again.x)
+    # the ladder as chip_smoke.py phase 33 holds K3: from nearer the path
+    # (a tenth of the short solves' jitter), 5 iterations a rung
+    Z = torch.tensor(_row_problem(model, "SimpsonHermite", jitter=0.005)[1]
+                     [:2], device=cuda)
+    opts = LBFGSOptions(maxiter=5, m=5, pgtol=1e-8, ftol=1e-12)
+    rfs = np.array([0.5, 1.0, 2.0])
+    xk, rec = solve.ladder_kernel(Z, torch.tensor(rfs, device=cuda), c,
+                                  opts)
+    xr, recr = solve.ladder_reference(Z, rfs, c, opts)
+    for k in ("niter", "nfev", "status"):
+        assert torch.equal(rec[k], recr[k]), k
+    assert float(torch.max(torch.abs(rec["A"] - recr["A"])
+                           / torch.abs(recr["A"]))) <= 1e-8

@@ -30,6 +30,7 @@ def test_import_leaves_jax_out():
             "import varanneal_tpu_torch.kernels.solve_pack\n"
             "import varanneal_tpu_torch.kernels.dir\n"
             "import varanneal_tpu_torch.kernels.fe\n"
+            "import varanneal_tpu_torch.kernels.rowmodel\n"
             "import varanneal_tpu_torch.api, varanneal_tpu_torch.io\n"
             "import varanneal_tpu_torch.va_ode\n"
             "import varanneal_tpu_torch.nnet, varanneal_tpu_torch.va_nnet\n"

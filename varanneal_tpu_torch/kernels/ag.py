@@ -1,7 +1,8 @@
-"""K1, K4 and K5: the fused Lorenz-96 action + gradient, one launch per
-evaluation: K1 (the four rules, a scalar or (N_f-1, D) rf), K4 (K1 with
-compensated sums) and K5 (small D, three one-step rules, scalar or
-(N_f-1, D) rf).
+"""K1, K4 and K5: the fused action + gradient, one launch per
+evaluation: K1 (Lorenz-96 and the built-in row-level models NaKL,
+Colpitts and Lorenz-63, the four rules, a scalar or (N_f-1, D) rf), K4
+(K1 with compensated sums) and K5 (Lorenz-96 at small D, three one-step
+rules, scalar or (N_f-1, D) rf).
 
 Counterpart of ``varanneal_tpu/kernels/ag_pallas.py`` (``ag_supported``,
 ``embed_consts``, ``make_action_ag``, ``_combine``), whose ``_ag_kernel``
@@ -9,8 +10,11 @@ this replaces on the card with the hand-written CUDA kernels in
 ``csrc/ag_kernel.cu`` (the trapezoid rule with a scalar rf) and
 ``csrc/ag_rules_kernel.cu`` (Euler, the forward map, Hermite–Simpson and
 the trapezoid rule, each with a scalar or (N_f-1, D) rf, less the
-trapezoid/scalar pair); the sources note what bounds them and what their
-design does about that. K4 is ``_ag_kernel(comp=True)``: K1's value and
+trapezoid/scalar pair), both on Lorenz-96, and ``csrc/ag_models_kernel.cu``
+(NaKL with or without its stimulus, Colpitts and Lorenz-63 under every
+rule and rf kind: a walk in time by thread, ``csrc/row_ag_block.cuh``);
+the sources note what bounds them and what their design does about
+that. K4 is ``_ag_kernel(comp=True)``: K1's value and
 gradient plus a (B, 6) row of two-float sums of the ME terms and of the FE
 terms (unweighted under a scalar rf, weighted under an (N_f-1, D) one; the
 Hermite plane apart under Hermite–Simpson), which :func:`combine` joins
@@ -28,15 +32,20 @@ for a forward map: ROADMAP.md §3; the port follows the XLA action).
 Beside the kernels this module holds:
 
 - :func:`ag_reference`, the one plain PyTorch version of K1, K4 and K5
-  under every rule and rf kind (and of the evaluation inside K2/K3): it
-  spells out the same hand adjoint (f, Jᵀv, the residuals' gradient)
-  rather than calling autograd, so the CPU tests check the arithmetic the
-  CUDA code does; with ``compensated=True`` it also returns K4's row, the
-  same terms summed by ``ops.action.comp_sum_pair``;
+  under every rule and rf kind, on every model K1 takes (and of the
+  evaluation inside K2/K3): it spells out each rule's adjoint (the
+  residuals' gradient, Jᵀv at each node and the parameter adjoint) rather
+  than calling autograd on the action, so the CPU tests check the
+  arithmetic the CUDA code does; the model's f, Jᵀv and parameter
+  adjoint are ``kernels/rowmodel.py``'s (Lorenz-96's stencils, a row-level
+  model's torch function and its ``torch.func.vjp``); with
+  ``compensated=True`` it also returns K4's row, the same terms summed by
+  ``ops.action.comp_sum_pair``;
 - :data:`LAUNCHES` (K1), :data:`COMP_LAUNCHES` (K4) and
-  :data:`AGT_LAUNCHES` (K5), plain counts of kernel launches, and
-  :data:`RULE_LAUNCHES`, K1's and K4's launches of the rules' entries by
-  rule and rf kind;
+  :data:`AGT_LAUNCHES` (K5), plain counts of kernel launches,
+  :data:`RULE_LAUNCHES`, K1's and K4's launches of Lorenz-96's rules'
+  entries by rule and rf kind, and :data:`MODEL_LAUNCHES`, their
+  launches on the row-level models by model, rule and rf kind;
 - :func:`ag_supported` and :func:`agt_supported`, the kernels' envelopes,
   and :func:`ag_refusal` and :func:`agt_refusal`, the condition each
   fails, in words.
@@ -48,12 +57,13 @@ kernel or raise; they never fall back.
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from varanneal_tpu_torch._device import resolve_device
-from varanneal_tpu_torch.models.lorenz import lorenz96
+from varanneal_tpu_torch.kernels import rowmodel
 from varanneal_tpu_torch.ops import action as _action
 from varanneal_tpu_torch.ops.spec import ProblemSpec
 
@@ -67,6 +77,13 @@ AGT_LAUNCHES = 0
 #: so far, by "<disc>/<rf kind>" ("scalar" or "diag") and "comp" for K4;
 #: each also counts in LAUNCHES or COMP_LAUNCHES.
 RULE_LAUNCHES = {}
+#: K1's and K4's launches on the row-level models
+#: (csrc/ag_models_kernel.cu) so far, by "<model>/<disc>/<rf kind>" and
+#: "/comp" for K4 (:func:`model_key`); each also counts in LAUNCHES or
+#: COMP_LAUNCHES.
+MODEL_LAUNCHES = {}
+#: The row-level models of K1-K4 (csrc/row_models.cuh).
+ROW_MODELS = ("nakl", "colpitts", "l63")
 
 #: The walk's rules and their codes (WalkDisc in csrc/l96_ag_block.cuh).
 DISCS = {"trapezoid": 0, "euler": 1, "forwardmap": 2, "SimpsonHermite": 3}
@@ -107,6 +124,24 @@ def _smem_bytes(D, dtype, compensated=False, rules=False):
     return (parts + ring_elems(D)) * (torch.finfo(dtype).bits // 8)
 
 
+def row_area_elems(model, compensated=False, warps=_WARPS):
+    """row_area_elems of csrc/row_ag_block.cuh: a row-level model's staged
+    parameter row and the warps' partials (FE, ME and the NP parameter
+    sums; with K4's pairs six more a warp)."""
+    sums = 2 + rowmodel.MODEL_NP[model] + (6 if compensated else 0)
+    return rowmodel.MODEL_NPX[model] + sums * warps
+
+
+def ring_cols(c) -> int:
+    """The width whose rings (:func:`ring_elems`) K2/K3 give a problem's
+    evaluation (``ring_cols`` of the CUDA sources): Lorenz-96's D, or for
+    a row-level model the fewest columns whose rings hold its area."""
+    if c.model == "l96":
+        return c.D
+    per = RING_ROWS * _WARPS
+    return -(-row_area_elems(c.model) // per)
+
+
 def ring_on_chip(D, dtype, compensated=False, rules=False) -> bool:
     """Whether K1/K4's rings fit in a block's shared memory with the
     partials (D up to 1,210 in float32 and 604 in float64, 1,209 and
@@ -138,18 +173,32 @@ def ag_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
     if spec.disc not in DISCS:
         return (f"disc {spec.disc!r} (K1 takes the trapezoid rule, euler, "
                 f"forwardmap and SimpsonHermite)")
-    if spec.f is not lorenz96:
+    m = rowmodel.model_of(spec.f)
+    if m is None:
         return (f"model {getattr(spec.f, '__name__', spec.f)!r} (K1 takes "
-                f"Lorenz-96, models.lorenz.lorenz96; the other models wait "
-                f"for ROADMAP.md §2a item 2 (d))")
-    if spec.D < 4:
-        return f"D = {spec.D} (Lorenz-96 needs D >= 4)"
-    if spec.stim_f is not None:
-        return ("a stimulus (K1 takes none; it waits for ROADMAP.md §2a "
-                "item 2 (d))")
-    if (spec.time_dep_p or spec.NP != 1 or spec.pidx not in ((), (0,))):
-        return ("parameters (K1 takes the one constant F, estimated or "
-                "fixed)")
+                f"Lorenz-96, NaKL, Colpitts and Lorenz-63, each with its "
+                f"f, Jᵀv and parameter adjoint written by hand; a user "
+                f"model waits for ROADMAP.md §2a item 2 (f))")
+    model, log_idx = m
+    if model == "l96":
+        if spec.D < 4:
+            return f"D = {spec.D} (Lorenz-96 needs D >= 4)"
+        if spec.stim_f is not None:
+            return "a stimulus (K1 takes none on Lorenz-96)"
+        if (spec.time_dep_p or spec.NP != 1
+                or spec.pidx not in ((), (0,))):
+            return ("parameters (K1 takes the one constant F, estimated "
+                    "or fixed)")
+    else:
+        if log_idx:
+            return ("the log-space NaKL model (models.nakl_log_model): the "
+                    "reference's K1 takes it and cannot launch it "
+                    "(ROADMAP.md §3, reference fault 7)")
+        if spec.time_dep_p:
+            return "time-dependent parameters (K1 takes constant ones)"
+        why = rowmodel.row_model_refusal(spec, model)
+        if why is not None:
+            return why
     if np.ndim(rf) != 0 and np.shape(rf) != (spec.N_f - 1, spec.D):
         return (f"rf of shape {np.shape(rf)} (K1 takes a scalar or "
                 f"({spec.N_f - 1}, {spec.D}) rf; a per-member rf is "
@@ -177,16 +226,23 @@ def ag_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
 def ag_supported(spec: ProblemSpec, rf=0.0, dtype=torch.float32,
                  compensated=False) -> bool:
     """The kernels' envelope: Lorenz-96 (the port's
-    ``models.lorenz.lorenz96``) under any of the four rules (an odd N_f
-    under Hermite–Simpson), constant parameters and no stimulus, F
-    estimated or fixed, a scalar or (N_f-1, D) rf, a scalar or (N_data, L)
-    RM, distinct observed columns, a uniform grid, f32 or f64, and at most
-    :data:`MAX_N_DOF` values a member. A per-member (B, N_f-1, D) rf is
-    outside it. Shared memory bounds nothing: the routine walks the path
-    in time and keeps 6 rows of D a warp, on chip where they fit
-    (:func:`ring_on_chip`) and else in a workspace, so N and D are free
-    up to the index range (the reference's K1 stops at 2²¹ padded values).
-    :func:`ag_refusal` names the condition a problem fails."""
+    ``models.lorenz.lorenz96``, D >= 4, no stimulus, F estimated or
+    fixed), NaKL (``models.nakl.nakl``, with or without its stimulus:
+    column 0 of an (N_f, S) ``stim_f``), Colpitts
+    (``models.colpitts.colpitts``) and Lorenz-63
+    (``models.lorenz.lorenz63``), those three with any distinct ``pidx``
+    (``kernels.fe.fe_refusal``'s model conditions, less NaKL's log-space
+    model: reference fault 7), under any of the four rules (an odd N_f
+    under Hermite–Simpson), constant parameters, a scalar or (N_f-1, D)
+    rf, a scalar or (N_data, L) RM, distinct observed columns, a uniform
+    grid, f32 or f64, and at most :data:`MAX_N_DOF` values a member. A
+    per-member (B, N_f-1, D) rf is outside it. Shared memory bounds
+    nothing: Lorenz-96's routine walks the path in time and keeps 6 rows
+    of D a warp, on chip where they fit (:func:`ring_on_chip`) and else in
+    a workspace, and a row-level model's walk keeps its nodes in
+    registers, so N and D are free up to the index range (the reference's
+    K1 stops at 2²¹ padded values). :func:`ag_refusal` names the
+    condition a problem fails."""
     return ag_refusal(spec, rf, dtype, compensated) is None
 
 
@@ -196,7 +252,7 @@ def agt_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
     if spec.disc not in AGT_DISCS:
         return (f"disc {spec.disc!r} (K5 takes the trapezoid rule, euler "
                 f"and forwardmap)")
-    if spec.f is not lorenz96:
+    if rowmodel.model_of(spec.f) != ("l96", ()):
         return (f"model {getattr(spec.f, '__name__', spec.f)!r} (K5 takes "
                 f"Lorenz-96, models.lorenz.lorenz96)")
     if not 4 <= spec.D <= AGT_MAX_D:
@@ -261,6 +317,29 @@ class AgConsts:
     device: torch.device
     dtype: torch.dtype
     disc: str = "trapezoid"
+    # the model ('l96' or a row-level model) and, for a row-level model,
+    # its parameters (rowmodel's names: the fixed row P_lin, the
+    # estimated pidx; pmap each parameter's position among the estimated
+    # or -1) and its stimulus (the (N_f,) current, or None)
+    model: str = "l96"
+    pidx: tuple = ()
+    P_base: tuple = ()
+    P_lin: Optional[torch.Tensor] = None
+    pidx_t: Optional[torch.Tensor] = None
+    pidx_k: Optional[torch.Tensor] = None     # pidx as the kernels read it
+    pmap: Optional[torch.Tensor] = None
+    stim: Optional[torch.Tensor] = None
+    log_mask = None             # K1 takes no log-space model
+    pest_log = None
+
+    @property
+    def NP(self) -> int:
+        return len(self.P_base)
+
+    @property
+    def direct(self) -> bool:
+        """Whether the estimated values are the parameter row itself."""
+        return self.model != "l96" and self.pidx == tuple(range(self.NP))
 
 
 def ag_consts(spec: ProblemSpec, device, dtype,
@@ -293,10 +372,25 @@ def _consts(spec, device, dtype):
     def t(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dt)
 
+    model = rowmodel.model_of(spec.f)[0]
+    P_base = tuple(float(v) for v in np.asarray(spec.P_base))
+    row = {}
+    if model != "l96":
+        pidx = tuple(int(j) for j in spec.pidx)
+        pmap = np.full(len(P_base), -1, np.int32)
+        pmap[list(pidx)] = np.arange(len(pidx), dtype=np.int32)
+        row = dict(
+            model=model, pidx=pidx, P_base=P_base,
+            P_lin=t(np.asarray(P_base), dtype),
+            pidx_t=t(np.asarray(pidx, np.int64), torch.long),
+            pidx_k=t(np.asarray(pidx, np.int32), torch.int32),
+            pmap=t(pmap, torch.int32),
+            stim=(None if spec.stim_f is None else t(
+                np.asarray(spec.stim_f, np.float64)[:, 0], dtype)))
     return AgConsts(
         N=spec.N_f, D=spec.D, n_state=spec.n_state, n_dof=spec.n_dof,
-        pslot=spec.n_state if spec.NPest else -1,
-        F_fixed=float(np.asarray(spec.P_base)[0]),
+        pslot=spec.n_state if spec.NPest and model == "l96" else -1,
+        F_fixed=P_base[0],
         obs_stride=spec.obs_stride, N_data=spec.N_data, L=L, h=spec.dt,
         me_norm=1.0 / (L * spec.N_data),
         fe_norm=1.0 / (spec.D * (spec.N_f - 1)),
@@ -304,16 +398,12 @@ def _consts(spec, device, dtype):
         lidx=t(np.asarray(spec.Lidx, np.int32), torch.int32),
         lpos=t(lpos, torch.int32),
         obs_rows=t(np.arange(spec.N_data) * spec.obs_stride, torch.int64),
-        device=resolve_device(device), dtype=dtype, disc=spec.disc)
+        device=resolve_device(device), dtype=dtype, disc=spec.disc, **row)
 
 
 def _scalar(v, dtype):
     """A Python float rounded to ``dtype``, as the kernel receives it."""
     return float(torch.tensor(float(v), dtype=dtype))
-
-
-def _roll(x, k):
-    return torch.roll(x, k, dims=-1)
 
 
 def measurement_error(X, c: AgConsts):
@@ -341,18 +431,13 @@ def _rf_arg(rf, c: AgConsts):
     return 0.0, rf.to(device=c.device, dtype=c.dtype).contiguous()
 
 
-def _jtv(X, v):
-    """(J(x)ᵀ v) row by row (l96_ag.cuh's l96_jtv)."""
-    return (_roll(X, 2) * _roll(v, 1)
-            + (_roll(X, -2) - _roll(X, 1)) * _roll(v, -1)
-            - _roll(X, -1) * _roll(v, -2)
-            - v)
-
-
-def _onestep_terms(X, f, rfd, c: AgConsts, h, hh):
-    """The one-step rules' residual terms and state adjoint (before 2c)
-    (see csrc/l96_ag_block.cuh): (fe terms (B, N-1, D), Σ q, its
-    multiplier in dA/dF, gX / 2c, None: no second plane)."""
+def _onestep_terms(X, f, rfd, c: AgConsts, h, hh, vjp):
+    """The one-step rules' residual terms and adjoints (before 2c) (see
+    csrc/l96_ag_block.cuh and csrc/row_ag_block.cuh): (fe terms (B, N-1,
+    D), Σ q, its multiplier in dA/dF (Lorenz-96), gX / 2c, None: no second
+    plane, Σ over nodes of the parameter adjoint at v_n times the rule's
+    k (a row-level model, else None)); ``vjp(rows, v, sl)`` gives Jᵀv and
+    the rows' parameter adjoints (None for Lorenz-96)."""
     if c.disc == "trapezoid":
         r = X[:, 1:] - X[:, :-1] - hh * (f[:, :-1] + f[:, 1:])
     elif c.disc == "euler":
@@ -364,18 +449,19 @@ def _onestep_terms(X, f, rfd, c: AgConsts, h, hh):
     qp = torch.cat([zero, q], dim=1)          # q_{n-1}, zero at n = 0
     qc = torch.cat([q, zero], dim=1)          # q_n, zero at n = N-1
     v = qp + qc if c.disc == "trapezoid" else qc
-    jtv = _jtv(X, v)
+    jtv, pbar = vjp(X, v, slice(None))
     if c.disc == "trapezoid":
-        gX = qp - qc - hh * jtv
+        gX, k = qp - qc - hh * jtv, hh
     elif c.disc == "euler":
-        gX = qp - qc - h * jtv
+        gX, k = qp - qc - h * jtv, h
     else:
-        gX = qp - jtv
+        gX, k = qp - jtv, 1.0
+    pg = None if pbar is None else k * torch.sum(pbar, dim=1)
     return q * r, torch.sum(q, dim=(1, 2)), (
-        1.0 if c.disc == "forwardmap" else h), gX, None
+        1.0 if c.disc == "forwardmap" else h), gX, None, pg
 
 
-def _sh_terms(X, f, rfd, c: AgConsts, h):
+def _sh_terms(X, f, rfd, c: AgConsts, h, vjp):
     """Hermite–Simpson's residual terms and state adjoint (before 2c) on
     the doubled grid, interval k over rows 2k..2k+2 (``ops/disc.py``):
 
@@ -389,8 +475,10 @@ def _sh_terms(X, f, rfd, c: AgConsts, h):
         gX_{2k}   = a_{k-1} - a_k - (b_{k-1} + b_k)/2 - J(x_{2k})ᵀ v_k
         gX_{2k+1} = b_k - (2h/3) J(x_{2k+1})ᵀ a_k
 
-    and dA/dF = -2c h Σ a (the Hermite terms cancel: ∂f/∂F = 1).
-    Returns (Simpson terms, Σ a, h, gX / 2c, Hermite terms)."""
+    and dA/dF = -2c h Σ a (the Hermite terms cancel: ∂f/∂F = 1); a
+    row-level model's dA/dp = -2c Σ (F_p(x_{2k})ᵀ v_k + (2h/3)
+    F_p(x_{2k+1})ᵀ a_k). Returns (Simpson terms, Σ a, h, gX / 2c, Hermite
+    terms, the parameter sum or None), as :func:`_onestep_terms`."""
     dt = X.dtype
     M = (c.N - 1) // 2
     h6 = _scalar(h / 6.0, dt)
@@ -409,10 +497,13 @@ def _sh_terms(X, f, rfd, c: AgConsts, h):
     bp, bc = torch.cat([zero, b], dim=1), torch.cat([b, zero], dim=1)
     v = h6 * (ap + ac) + h8 * (bc - bp)
     gX = torch.zeros_like(X)
-    gX[:, 0:2 * M + 1:2] = ap - ac - 0.5 * (bp + bc) - _jtv(
-        X[:, 0:2 * M + 1:2], v)
-    gX[:, 1:2 * M:2] = b - h23 * _jtv(xm, a)
-    return a * s, torch.sum(a, dim=(1, 2)), h, gX, b * m
+    jt_e, pb_e = vjp(X[:, 0:2 * M + 1:2], v, slice(0, 2 * M + 1, 2))
+    gX[:, 0:2 * M + 1:2] = ap - ac - 0.5 * (bp + bc) - jt_e
+    jt_m, pb_m = vjp(xm, a, slice(1, 2 * M, 2))
+    gX[:, 1:2 * M:2] = b - h23 * jt_m
+    pg = None if pb_e is None else (torch.sum(pb_e, dim=1)
+                                    + h23 * torch.sum(pb_m, dim=1))
+    return a * s, torch.sum(a, dim=(1, 2)), h, gX, b * m, pg
 
 
 def ag_reference(XP, rf, c: AgConsts, compensated=False):
@@ -423,24 +514,37 @@ def ag_reference(XP, rf, c: AgConsts, compensated=False):
     [me_hi, me_lo, fe1_hi, fe1_lo, fe2_hi, fe2_lo] of the ME terms
     (W·diff)·diff, of the FE terms (r·r under a scalar rf, (w·r)·r under an
     (N_f-1, D) one; Hermite–Simpson's Simpson plane) and of the Hermite
-    plane (zero under a one-step rule), by ``ops.action.comp_sum_pair``."""
+    plane (zero under a one-step rule), by ``ops.action.comp_sum_pair``.
+    Lorenz-96's F gradient is -2c k Σ q (∂f/∂F = 1); a row-level model's
+    estimated parameters take the parameter adjoint summed over the
+    rule's nodes (:func:`_onestep_terms`, :func:`_sh_terms`)."""
     B = XP.shape[0]
     dt = XP.dtype
     rf_s, rfd = _rf_arg(rf, c)
     X = XP[:, : c.n_state].reshape(B, c.N, c.D)
-    F = (XP[:, c.pslot].reshape(B, 1, 1) if c.pslot >= 0
-         else _scalar(c.F_fixed, dt))
     h = _scalar(c.h, dt)
     hh = _scalar(h / 2.0, dt)
     me_norm = _scalar(c.me_norm, dt)
     fe_norm = _scalar(c.fe_norm, dt)
 
-    f = (_roll(X, -1) - _roll(X, 2)) * _roll(X, 1) - X + F
+    if c.model == "l96":
+        F = (XP[:, c.pslot].reshape(B, 1, 1) if c.pslot >= 0
+             else _scalar(c.F_fixed, dt))
+        f = rowmodel.l96_f(X, F)
+
+        def vjp(rows, v, sl):
+            return rowmodel.l96_jtv(rows, v), None
+    else:
+        P = rowmodel.full_params(XP[:, c.n_state:], c)
+        f = rowmodel.f_rows(X, P, c)
+
+        def vjp(rows, v, sl):
+            return rowmodel.row_vjp(rows, P, v, c, sl)
     if c.disc == "SimpsonHermite":
-        t1, sq, kF, gX, t2 = _sh_terms(X, f, rfd, c, h)
+        t1, sq, kF, gX, t2, pg = _sh_terms(X, f, rfd, c, h, vjp)
         fe = torch.sum(t1, dim=(1, 2)) + torch.sum(t2, dim=(1, 2))
     else:
-        t1, sq, kF, gX, t2 = _onestep_terms(X, f, rfd, c, h, hh)
+        t1, sq, kF, gX, t2, pg = _onestep_terms(X, f, rfd, c, h, hh, vjp)
         fe = torch.sum(t1, dim=(1, 2))
     diff, me = measurement_error(X, c)
     if rfd is None:
@@ -456,6 +560,8 @@ def ag_reference(XP, rf, c: AgConsts, compensated=False):
     parts = [gX.reshape(B, c.n_state)]
     if c.pslot >= 0:
         parts.append((-c2 * kF * sq)[:, None])
+    elif c.pidx:
+        parts.append(-c2 * pg.index_select(1, c.pidx_t))
     G = torch.cat(parts, dim=1)
     if not compensated:
         return A, G
@@ -522,6 +628,52 @@ def _rules_lib():
     return lib
 
 
+def _models_lib():
+    from varanneal_tpu_torch.kernels import _build
+    lib = _build.load("ag_models_kernel").lib
+    if not getattr(lib, "_va_typed", False):
+        P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        args = [P, I] + ROW_ARGTYPES + [Dbl, P, P]
+        for m in ROW_MODELS:
+            for t in ("f32", "f64"):
+                fn = getattr(lib, f"va_{m}_ag_{t}")
+                fn.restype = I
+                fn.argtypes = args + [P]
+                fn = getattr(lib, f"va_{m}_ag_comp_{t}")
+                fn.restype = I
+                fn.argtypes = args + [P, P]
+        lib.va_cuda_error_string.restype = ctypes.c_char_p
+        lib.va_cuda_error_string.argtypes = [I]
+        lib._va_typed = True
+    return lib
+
+
+#: The argument types of a row-level model's problem (VA_ROW_ARGS in
+#: csrc/row_ag_block.cuh), as :func:`row_args` gives them.
+ROW_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+    ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [ctypes.c_int] + [
+    ctypes.c_void_p] * 5 + [ctypes.c_int]
+
+
+def row_args(c: AgConsts, rfd):
+    """A row-level model's problem as the entries take it (VA_ROW_ARGS):
+    n_dof, N, Y, W, lpos, N_data, L, obs_stride, h, me_norm, fe_norm,
+    the rule, the (N_f-1, D) rf or NULL, the stimulus or NULL, the
+    parameter row, each parameter's position among the estimated, the
+    estimated parameters and their count."""
+    return (c.n_dof, c.N, c.Y.data_ptr(), c.W.data_ptr(), c.lpos.data_ptr(),
+            c.N_data, c.L, c.obs_stride, c.h, c.me_norm, c.fe_norm,
+            DISCS[c.disc], None if rfd is None else rfd.data_ptr(),
+            None if c.stim is None else c.stim.data_ptr(),
+            c.P_lin.data_ptr(), c.pmap.data_ptr(), c.pidx_k.data_ptr(),
+            len(c.pidx))
+
+
+def model_key(model, disc, diag, compensated=False) -> str:
+    """The key of :data:`MODEL_LAUNCHES` for one row-level model's entry."""
+    return f"{model}/{rule_key(disc, diag, compensated)}"
+
+
 def rule_key(disc, diag, compensated=False) -> str:
     """The key of :data:`RULE_LAUNCHES` for one rules' entry."""
     return (f"{disc}/{'diag' if diag else 'scalar'}"
@@ -531,9 +683,10 @@ def rule_key(disc, diag, compensated=False) -> str:
 def ag_kernel(XP, rf, c: AgConsts, compensated=False):
     """Launch K1 (K4 when ``compensated``) on ``XP`` (B, n_dof), a
     contiguous CUDA tensor of ``c``'s dtype on ``c``'s device, at a scalar
-    or (N_f-1, D) ``rf``: the trapezoid rule with a scalar rf through
-    ``csrc/ag_kernel.cu``, every other pair of ``c.disc`` and rf kind
-    through ``csrc/ag_rules_kernel.cu``. Returns (A, dA/dXP), and K4's
+    or (N_f-1, D) ``rf``: on Lorenz-96 the trapezoid rule with a scalar
+    rf through ``csrc/ag_kernel.cu``, every other pair of ``c.disc`` and
+    rf kind through ``csrc/ag_rules_kernel.cu``; a row-level model
+    through ``csrc/ag_models_kernel.cu``. Returns (A, dA/dXP), and K4's
     (B, 6) row when ``compensated``, on PyTorch's current stream, without
     synchronizing. Raises on anything the kernel does not take and on a
     refused launch."""
@@ -556,6 +709,8 @@ def ag_kernel(XP, rf, c: AgConsts, compensated=False):
          else None)
     if B == 0:
         return (A, G, C) if compensated else (A, G)
+    if c.model != "l96":
+        return _row_kernel(XP, rf_s, rfd, c, A, G, C)
     lib = _rules_lib() if rule else _lib()
     f32 = c.dtype == torch.float32
     # the rings in a workspace where they do not fit on chip (NULL: there)
@@ -594,6 +749,31 @@ def ag_kernel(XP, rf, c: AgConsts, compensated=False):
         key = rule_key(c.disc, rfd is not None, compensated)
         RULE_LAUNCHES[key] = RULE_LAUNCHES.get(key, 0) + 1
     if compensated:
+        COMP_LAUNCHES += 1
+        return A, G, C
+    LAUNCHES += 1
+    return A, G
+
+
+def _row_kernel(XP, rf_s, rfd, c: AgConsts, A, G, C):
+    """K1/K4 on a row-level model (ag_kernel's launch for it)."""
+    global LAUNCHES, COMP_LAUNCHES
+    lib = _models_lib()
+    comp = C is not None
+    fn = getattr(lib, f"va_{c.model}_ag_{'comp_' if comp else ''}"
+                 + ("f32" if c.dtype == torch.float32 else "f64"))
+    outs = (A.data_ptr(), G.data_ptr()) + ((C.data_ptr(),) if comp else ())
+    with torch.cuda.device(XP.device):
+        stream = torch.cuda.current_stream(XP.device).cuda_stream
+        rc = fn(XP.data_ptr(), XP.shape[0], *row_args(c, rfd), rf_s,
+                *outs, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"ag kernel launch failed: cudaError {rc} "
+            f"({lib.va_cuda_error_string(rc).decode()})")
+    key = model_key(c.model, c.disc, rfd is not None, comp)
+    MODEL_LAUNCHES[key] = MODEL_LAUNCHES.get(key, 0) + 1
+    if comp:
         COMP_LAUNCHES += 1
         return A, G, C
     LAUNCHES += 1

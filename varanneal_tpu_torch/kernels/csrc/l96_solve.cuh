@@ -60,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include "l96_ag_block.cuh"
+#include "row_ag_block.cuh"
 
 namespace {
 
@@ -387,6 +388,30 @@ __device__ __forceinline__ void evaluate(const L96RuleProblem<T>& p,
     me = s.me;
 }
 
+// The same for a row-level model (solve_models_*.cu): the walk by thread
+// of row_ag_block.cuh under the problem's rule and rf kind, whose
+// partials and staged parameter row take the group's ring area
+// (ring_cols), not a partials area of sm.red; the leading barrier also
+// ends every read of that area by the last evaluation.
+template <typename Grp, typename T, typename Model>
+__device__ __forceinline__ void evaluate(const RowProblem<Model, T>& p,
+                                         const T* x, T rf, T* g, Smem<T>& sm,
+                                         T& f, T& me) {
+    Grp::sync();
+    const AgSums<T> s =
+        row_rule_block<Model, T, false, Grp>(p, x, rf, g, sm.ring);
+    f = s.A;
+    me = s.me;
+}
+
+// The width of the rings that a problem's evaluation takes in the group's
+// area (l96_ag_ring_elems): Lorenz-96's D (a row-level model's is
+// row_ag_block.cuh's ring_cols).
+template <typename T>
+__host__ __device__ inline int ring_cols(const L96Problem<T>& p) {
+    return p.D;
+}
+
 // _cubic_min: minimizer of the cubic Hermite interpolant on [a, b], with
 // the NaN-safe fall back to bisection.
 template <typename T>
@@ -677,7 +702,8 @@ struct SolveResult {
 // swap on the way), inside the box bx when kBounded. A fresh history
 // every call. kChunk: the entries a vector pass loads together
 // (chunk_of the layout). Prob: L96Problem<T> (the trapezoid rule, a
-// scalar rf) or L96RuleProblem<T> (the problem's rule and rf kind).
+// scalar rf), L96RuleProblem<T> (the problem's rule and rf kind) or
+// RowProblem<Model, T> (a row-level model).
 template <typename Grp, bool kBounded, int kChunk, typename T,
           typename Prob>
 __device__ __noinline__ SolveResult<T> solve_one(const Prob& p,

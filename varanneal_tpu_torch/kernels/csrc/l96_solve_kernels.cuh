@@ -1,9 +1,10 @@
 // The kernels of K2 and K3 and their launches, generic over the problem
 // type Prob: L96Problem<T> (the trapezoid rule with a scalar rf;
-// solve_kernel.cu's entries) or L96RuleProblem<T> (the problem's rule and
-// rf kind; l96_solve_rules.cuh's). solve_kernel.cu's notes say what they
+// solve_kernel.cu's entries), L96RuleProblem<T> (the problem's rule and
+// rf kind; l96_solve_rules.cuh's) or RowProblem<Model, T> (a row-level
+// model; row_solve.cuh's). solve_kernel.cu's notes say what they
 // compute, what bounds them and how; the body is l96_solve.cuh's
-// solve_one.
+// solve_one. A problem's evaluation area is sized by ring_cols(p).
 
 #pragma once
 
@@ -34,10 +35,10 @@ __global__ void __launch_bounds__(kThreads) l96_solve_kernel(
     T* s = reinterpret_cast<T*>(smem_raw);
     const int n = p.n_dof;
     const int b = blockIdx.x;
-    T* work_b = work + (size_t)b * work_elems(n, o.m, p.D, layout);
-    const Smem<T> sm = group_smem(s, work_b, n, o.m, p.D, layout);
-    T* chip =
-        s + solve_smem_elems(p.D, kAgWarps, !(layout & kRingOffChip));
+    const int cols = ring_cols(p);
+    T* work_b = work + (size_t)b * work_elems(n, o.m, cols, layout);
+    const Smem<T> sm = group_smem(s, work_b, n, o.m, cols, layout);
+    T* chip = s + solve_smem_elems(cols, kAgWarps, !(layout & kRingOffChip));
     Bufs<T> w = member_bufs(chip, work_b, n, o.m, layout);
     Box<T> bx{nullptr, nullptr};
     if (kBounded) {
@@ -84,11 +85,12 @@ __global__ void __launch_bounds__(kThreads) l96_ladder_kernel(
     T* s = reinterpret_cast<T*>(smem_raw);
     const int n = p.n_dof;
     const int b = blockIdx.x;
-    T* work_b = work + (size_t)b * work_elems(n, o.m, p.D, layout);
-    const Smem<T> sm = group_smem(s, work_b, n, o.m, p.D, layout);
+    const int cols = ring_cols(p);
+    T* work_b = work + (size_t)b * work_elems(n, o.m, cols, layout);
+    const Smem<T> sm = group_smem(s, work_b, n, o.m, cols, layout);
     Bufs<T> w = member_bufs(
-        s + solve_smem_elems(p.D, kAgWarps, !(layout & kRingOffChip)), work_b,
-        n, o.m, layout);
+        s + solve_smem_elems(cols, kAgWarps, !(layout & kRingOffChip)),
+        work_b, n, o.m, layout);
     for (int k = threadIdx.x; k < n; k += kThreads)
         w.x[k] = XP[(size_t)b * n + k];
     const Box<T> none{nullptr, nullptr};
@@ -160,7 +162,7 @@ int launch_solve(const Prob& p, const SolveOpts<T>& o, int B, int layout,
             || !layout_ok(layout, lo != nullptr))
         return (int)cudaErrorInvalidValue;
     const size_t smem =
-        layout_smem_elems(p.D, p.n_dof, o.m, layout) * sizeof(T);
+        layout_smem_elems(ring_cols(p), p.n_dof, o.m, layout) * sizeof(T);
     return lo ? launch_solve_kernel<T, true>(p, o, rf, layout, XP, lo, hi,
                                              bnd_stride, work, X_out,
                                              G_out, fp_out, cnt_out, B,
@@ -195,7 +197,7 @@ int launch_ladder(const Prob& p, const SolveOpts<T>& o, int B, int layout,
     if (o.m < 1 || o.m > kMaxM || !layout_ok(layout, false))
         return (int)cudaErrorInvalidValue;
     const size_t smem =
-        layout_smem_elems(p.D, p.n_dof, o.m, layout) * sizeof(T);
+        layout_smem_elems(ring_cols(p), p.n_dof, o.m, layout) * sizeof(T);
     if (chunk_of(layout) == 1)
         return launch_ladder_kernel<T, 1>(p, o, layout, rfs, k_rungs, XP,
                                           work, X_out, rec, rec_i, B, smem,

@@ -49,6 +49,13 @@ constexpr int kICm = kNP;
 constexpr int kIdva = kNP + 1;
 constexpr int kNPX = kNP + 4;
 
+// The value whose inverse entry j (kNP <= j < kNPX) of the extended row
+// is: Cm, or the gate's dva (derived's index, for a row that is not an
+// array).
+__host__ __device__ constexpr int derived_of(int j) {
+    return j == kICm ? Cm : 7 + 4 * (j - kIdva) + 1;
+}
+
 // Entry j (kNP <= j < kNPX) of the extended row from the 19 values p.
 template <typename T>
 __device__ __forceinline__ T derived(const T* p, int j) {

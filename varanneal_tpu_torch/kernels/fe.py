@@ -87,9 +87,9 @@ import torch
 
 from varanneal_tpu_torch._device import resolve_device
 from varanneal_tpu_torch.kernels import ag
-from varanneal_tpu_torch.models.colpitts import colpitts
-from varanneal_tpu_torch.models.lorenz import lorenz63, lorenz96
-from varanneal_tpu_torch.models.nakl import nakl
+from varanneal_tpu_torch.kernels.rowmodel import (
+    MODEL_NP, MODEL_NPX, f_rows, full_params, l96_jtv, model_of, param_grad,
+    param_rows, pest_grad, row_model_refusal, row_vjp)
 from varanneal_tpu_torch.ops import action as _action
 from varanneal_tpu_torch.ops.spec import ProblemSpec
 
@@ -99,13 +99,9 @@ AUTO_MIN_D = 256
 _ONE_STEP = ("euler", "trapezoid", "forwardmap")
 _DISCS = _ONE_STEP + ("SimpsonHermite",)
 _DISC_CODE = {"euler": 0, "trapezoid": 1, "forwardmap": 2}
-#: The kernels' models (``ModelId`` in csrc/fe_kernel.cu) and their
-#: parameter counts.
+#: The kernels' models (``ModelId`` in csrc/fe_kernel.cu); their
+#: parameter counts are ``rowmodel.MODEL_NP``.
 _MODEL_CODE = {"l96": 0, "nakl": 1, "colpitts": 2, "l63": 3}
-_MODEL_NP = {"l96": 1, "nakl": 19, "colpitts": 4, "l63": 3}
-#: The port's torch model of each row-level model: the plain versions
-#: evaluate it and take its adjoint with torch.func.vjp.
-_ROW_F = {"nakl": nakl, "colpitts": colpitts, "l63": lorenz63}
 _DTYPES = (torch.float32, torch.float64)
 
 #: Launches so far of fe_onestep_fwd (K6a), fe_onestep_vag (K6b with
@@ -122,14 +118,13 @@ SH_VAG_LAUNCHES = 0
 #: count where no card is asked (an H100's), and per model the most
 #: threads a block runs (at most the kernel's launch bound,
 #: ``kMaxThreads`` in csrc/fe_kernel.cu, which refuses more), whether a
-#: thread owns an interval or row (row-level, ``kRow``) and the parameter
-#: row a block stages (``kNPX``: NaKL's 19 values, 1/Cm and three 1/dva;
-#: Colpitts' and Lorenz-63's own values; the envelope's shared memory).
+#: thread owns an interval or row (row-level, ``kRow``); the parameter
+#: row a block stages is ``rowmodel.MODEL_NPX``'s (``kNPX``; the
+#: envelope's shared memory).
 BLOCKS_PER_SM = 2
 DEFAULT_SMS = 132
 _MAX_THREADS = {"l96": 1024, "nakl": 256, "colpitts": 256, "l63": 256}
 _ROW_MODEL = {"l96": False, "nakl": True, "colpitts": True, "l63": True}
-_NPX = {"l96": 1, "nakl": 23, "colpitts": 4, "l63": 3}
 #: Lorenz-96's (interval or row, component) pairs a block takes at most,
 #: where D allows more than one.
 _MAX_PAIRS = 256
@@ -214,16 +209,16 @@ def _smem_bytes(kernel: str, bn: int, D: int, dtype, model="l96") -> int:
     row and, under Hermite–Simpson, its stimulus; Lorenz-96's staged rows
     (one-step: 2bn + 3 rows of x and weighted residuals; Hermite–Simpson:
     2bn + 1 rows of x, and S, H, v0, vm and v1 in the fused launch)."""
-    NP = _MODEL_NP[model]
+    NP = MODEL_NP[model]
     if kernel in ("sh_fwd", "sh_vag"):
         vals = (2 * bn + 1) * D + sh_threads(model, bn, D) // 32 * (NP + 1)
         if _ROW_MODEL[model]:
-            vals += _NPX[model] + 2 * bn + 1
+            vals += MODEL_NPX[model] + 2 * bn + 1
         elif kernel == "sh_vag":
             vals += 5 * bn * D
     else:
         vals = onestep_threads(model, bn, D) // 32 * (NP + 1)
-        vals += _NPX[model] if _ROW_MODEL[model] else (2 * bn + 3) * D
+        vals += MODEL_NPX[model] if _ROW_MODEL[model] else (2 * bn + 3) * D
     return vals * (torch.finfo(dtype).bits // 8)
 
 
@@ -269,26 +264,6 @@ def rows_per_block(kernel: str, n_rows: int, D: int, block_n: int,
     return max(1, min(bk, int(block_n), n_rows))
 
 
-#: The kernels' models by the port's vector field.
-_MODEL_OF = {lorenz96: "l96", nakl: "nakl", colpitts: "colpitts",
-             lorenz63: "l63"}
-#: A D = 3 model's name in a refusal.
-_NAME_3 = {"colpitts": "Colpitts", "l63": "Lorenz-63"}
-
-
-def model_of(f):
-    """``(model, log_idx)`` of a vector field the kernels take: ('l96', ())
-    for ``lorenz96``, ('nakl', ()) for ``nakl``, ('colpitts', ()) for
-    ``colpitts``, ('l63', ()) for ``lorenz63``, ('nakl', log_idx) for a
-    model of ``nakl_log_model``; None for any other."""
-    if f in _MODEL_OF:
-        return _MODEL_OF[f], ()
-    log_idx = getattr(f, "log_idx", None)
-    if getattr(f, "base", None) is nakl and isinstance(log_idx, tuple):
-        return "nakl", log_idx
-    return None
-
-
 def fe_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
     """Why the port's K6 does not take this problem (the condition named),
     or None where it does (:func:`fe_kernel_supported`)."""
@@ -298,18 +273,7 @@ def fe_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
                 "(models.nakl or a model of models.nakl_log_model), Colpitts "
                 "(models.colpitts) nor Lorenz-63 (models.lorenz63)")
     model, log_idx = m
-    if model in _NAME_3:
-        name, NP = _NAME_3[model], _MODEL_NP[model]
-        if spec.D != 3:
-            return f"{name} with D = {spec.D} (its state has 3 components)"
-        if spec.NP != NP:
-            return f"{name} with NP = {spec.NP} (it has {NP} parameters)"
-        if (len(set(spec.pidx)) != len(spec.pidx)
-                or not all(0 <= j < NP for j in spec.pidx)):
-            return f"{name} with pidx {spec.pidx}"
-        if spec.stim_f is not None:
-            return f"{name} with a stimulus"
-    elif model == "l96":
+    if model == "l96":
         if spec.D < 4:
             return f"Lorenz-96 with D = {spec.D} < 4"
         if spec.stim_f is not None:
@@ -318,21 +282,9 @@ def fe_refusal(spec: ProblemSpec, rf=0.0, dtype=torch.float32):
             return (f"Lorenz-96 with NP = {spec.NP}, pidx {spec.pidx} (the "
                     "kernels take p = [F])")
     else:
-        if spec.D != 4:
-            return f"NaKL with D = {spec.D} (its state is [V, m, h, n])"
-        if spec.NP != 19:
-            return f"NaKL with NP = {spec.NP} (it has 19 parameters)"
-        if (len(set(spec.pidx)) != len(spec.pidx)
-                or not all(0 <= j < 19 for j in spec.pidx)):
-            return f"NaKL with pidx {spec.pidx}"
-        if not all(0 <= j < 19 for j in log_idx):
-            return f"NaKL with log coordinates {log_idx}"
-        if spec.stim_f is not None and (
-                np.ndim(spec.stim_f) != 2
-                or np.shape(spec.stim_f)[0] != spec.N_f
-                or np.shape(spec.stim_f)[1] < 1):
-            return (f"a stimulus of shape {np.shape(spec.stim_f)} (the "
-                    f"kernels read column 0 of ({spec.N_f}, S))")
+        why = row_model_refusal(spec, model, log_idx)
+        if why is not None:
+            return why
     if spec.time_dep_p:
         return "time-dependent parameters"
     if spec.disc not in _DISCS:
@@ -586,104 +538,9 @@ def fe_consts(spec: ProblemSpec, dtype, device, block_n: int = 512
         log_mask=log_mask, pest_log=pest_log)
 
 
-def full_params(pest, c: FeConsts):
-    """The parameter rows, (B, NP) in ``pest``'s dtype: the estimated
-    values ``pest`` (B, NPest) merged into the fixed ones at ``pidx`` (the
-    reference's ``_merge``), a log model's coordinates exponentiated
-    (linear parameters). ``pest`` itself where :attr:`FeConsts.direct`
-    holds, ``P_lin`` broadcast where nothing is estimated."""
-    if c.direct:
-        return pest
-    B = pest.shape[0]
-    P_lin = c.P_lin.to(pest.dtype)
-    if not c.pidx:
-        return P_lin.expand(B, c.NP)
-    v = pest if c.pest_log is None else torch.where(
-        c.pest_log, torch.exp(pest), pest)
-    return P_lin.expand(B, c.NP).clone().index_copy_(1, c.pidx_t, v)
-
-
-def param_rows(pest, c: FeConsts):
-    """(P, row stride) as the kernels read the parameter rows: ``pest``
-    with its own stride where :attr:`FeConsts.direct` holds, ``P_lin``
-    with stride 0 where nothing is estimated, else the merged rows of
-    :func:`full_params`."""
-    if not c.pidx:
-        return c.P_lin, 0
-    P = full_params(pest, c)
-    if c.NP > 1 and P.stride(1) != 1:
-        P = P.contiguous()
-    return P, P.stride(0)
-
-
-def param_grad(gp, P, c: FeConsts):
-    """The gradient over the full estimation-scale parameter vector (B, NP)
-    from the kernels' per-block partials ``gp`` (B, NP, blocks), summed
-    over blocks in order; a log coordinate's gradient times its linear
-    value ``P`` (:func:`full_params`), the chain rule through exp."""
-    g = gp.sum(dim=-1)
-    if c.log_mask is not None:
-        g = torch.where(c.log_mask, g * P, g)
-    return g
-
-
-def pest_grad(g, c: FeConsts):
-    """The gradient over the estimated values (B, NPest) from the full one
-    (B, NP): its columns at ``pidx``."""
-    return g if c.direct else g.index_select(1, c.pidx_t)
-
-
 def _scalar(v, dtype):
     """A Python float rounded to ``dtype``, as the kernel receives it."""
     return float(torch.tensor(float(v), dtype=dtype))
-
-
-def _roll(x, k):
-    return torch.roll(x, k, dims=-1)
-
-
-def _l96(X, F):
-    """Lorenz-96's f on every row of X (..., D): l96_f."""
-    return (_roll(X, -1) - _roll(X, 2)) * _roll(X, 1) - X + F
-
-
-def _l96_jtv(X, v):
-    """(J(x)ᵀ v) on every row: l96_jtv."""
-    return (_roll(X, 2) * _roll(v, 1)
-            + (_roll(X, -2) - _roll(X, 1)) * _roll(v, -1)
-            - _roll(X, -1) * _roll(v, -2)
-            - v)
-
-
-def _stim_rows(c: FeConsts, X, sl):
-    """The injected current of model-grid rows ``sl`` as an (R, 1) tensor
-    on X's device, or None without a stimulus."""
-    return None if c.stim is None else c.stim.to(X.dtype)[sl, None]
-
-
-def _model_rows(X, P, stim, c: FeConsts):
-    """The port's torch model of a row-level model on rows X (B, R, D)
-    with parameter rows P (B, NP) or (B, R, NP) and currents ``stim``
-    (R, 1) or None."""
-    Pr = P[:, None, :] if P.ndim == 2 else P
-    return _ROW_F[c.model](None, X, Pr if stim is None else (Pr, stim))
-
-
-def _fX(X, P, c: FeConsts, sl=slice(None)):
-    """f on the rows X (B, R, D) (model-grid rows ``sl``)."""
-    if c.model == "l96":
-        return _l96(X, P[:, :1].reshape(-1, 1, 1))
-    return _model_rows(X, P, _stim_rows(c, X, sl), c)
-
-
-def _row_vjp(X, P, v, c: FeConsts, sl):
-    """(J(x)ᵀ v per row (B, R, D), the rows' parameter adjoints
-    Σ_d df_d/dp v_d (B, R, NP)) of a row-level model at rows X
-    (model-grid rows ``sl``), by torch.func.vjp of the torch model."""
-    stim = _stim_rows(c, X, sl)
-    Pr = P[:, None, :].expand(X.shape[0], X.shape[1], P.shape[-1])
-    _, vjp = torch.func.vjp(lambda x, p: _model_rows(x, p, stim, c), X, Pr)
-    return vjp(v)
 
 
 def _block_sums(t, bn, nb=None):
@@ -704,7 +561,7 @@ def _block_param_sums(pbar, bn):
 
 def _onestep_residuals(X, P, c: FeConsts):
     dt = X.dtype
-    fX = _fX(X, P, c)
+    fX = f_rows(X, P, c)
     hc = _scalar(c.coeffs()[0], dt)
     if c.disc == "trapezoid":
         return X[:, 1:] - X[:, :-1] - hc * (fX[:, :-1] + fX[:, 1:])
@@ -754,10 +611,10 @@ def onestep_vag_reference(X, pest, rf, c: FeConsts):
     wr_cur = torch.cat([wr, z], dim=1)
     v = c0 * wr_prev + c1 * wr_cur
     if c.model == "l96":
-        gx = wr_prev - a1 * wr_cur - _l96_jtv(X, v)
+        gx = wr_prev - a1 * wr_cur - l96_jtv(X, v)
         gF = -(c0 + c1) * _block_sums(wr, bn, c.n_blocks(B))
         return parts, gx, gF[:, None, :]
-    jtv, pbar = _row_vjp(X, P, v, c, slice(None))
+    jtv, pbar = row_vjp(X, P, v, c, slice(None))
     return (parts, wr_prev - a1 * wr_cur - jtv,
             -_block_param_sums(pbar, bn))
 
@@ -766,7 +623,7 @@ def _sh_parts(X, P, rf, c: FeConsts):
     dt = X.dtype
     h6, h8, _ = (_scalar(v, dt) for v in c.coeffs())
     M = c.M
-    fX = _fX(X, P, c)
+    fX = f_rows(X, P, c)
     xe0, xm, xe1 = X[:, 0:2 * M:2], X[:, 1:2 * M:2], X[:, 2:2 * M + 1:2]
     f0, fm, f1 = fX[:, 0:2 * M:2], fX[:, 1:2 * M:2], fX[:, 2:2 * M + 1:2]
     S = xe1 - xe0 - h6 * (f0 + 4.0 * fm + f1)
@@ -802,14 +659,14 @@ def sh_vag_reference(X, pest, rf, c: FeConsts):
     vm = -h46 * WS
     v1 = -h6 * WS + h8 * WH
     if c.model == "l96":
-        ge0 = -WS - 0.5 * WH + _l96_jtv(xe0, v0)
-        gm = WH + _l96_jtv(xm, vm)
-        ge1 = WS - 0.5 * WH + _l96_jtv(xe1, v1)
+        ge0 = -WS - 0.5 * WH + l96_jtv(xe0, v0)
+        gm = WH + l96_jtv(xm, vm)
+        ge1 = WS - 0.5 * WH + l96_jtv(xe1, v1)
         return parts, ge0, gm, ge1, _block_sums(v0 + vm + v1, bk)[:, None, :]
     M = c.M
-    j0, p0 = _row_vjp(xe0, P, v0, c, slice(0, 2 * M, 2))
-    jm, pm = _row_vjp(xm, P, vm, c, slice(1, 2 * M, 2))
-    j1, p1 = _row_vjp(xe1, P, v1, c, slice(2, 2 * M + 1, 2))
+    j0, p0 = row_vjp(xe0, P, v0, c, slice(0, 2 * M, 2))
+    jm, pm = row_vjp(xm, P, vm, c, slice(1, 2 * M, 2))
+    j1, p1 = row_vjp(xe1, P, v1, c, slice(2, 2 * M + 1, 2))
     return (parts, -WS - 0.5 * WH + j0, WH + jm, WS - 0.5 * WH + j1,
             _block_param_sums(p0 + pm + p1, bk))
 

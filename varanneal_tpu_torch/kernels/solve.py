@@ -1,6 +1,8 @@
 """K2 and K3: the whole L-BFGS rung solve (unbounded, or bounded by the
 projection algorithm), and a whole warm-started ladder of unbounded
-rungs, each in one launch, under Lorenz-96's four rules.
+rungs, each in one launch, under the four rules, on Lorenz-96 and on the
+built-in row-level models (NaKL with or without its stimulus, Colpitts,
+Lorenz-63).
 
 Counterpart of ``varanneal_tpu/kernels/solve_pallas.py``
 (``solve_supported``, ``ladder_supported``, ``solve_preferred``,
@@ -10,9 +12,11 @@ with the hand-written CUDA kernels in ``csrc/solve_kernel.cu`` (the
 trapezoid rule with a scalar rf) and ``csrc/solve_rules_f32.cu`` /
 ``solve_rules_f64.cu`` (the other rules, and K2's (N_f-1, D) rf; their
 notes are ``csrc/l96_solve_rules.cuh``'s: what bounds them and what
-their design does about it). K2 takes a scalar or (N_f-1, D)
-rf, K3 a scalar rf, as the reference's. Beside the kernels this module
-holds:
+their design does about it), and on the row-level models with
+``csrc/solve_models_<model>_<f32|f64>.cu`` (every rule and rf kind;
+notes in ``csrc/row_solve.cuh``: the same kernels, each evaluation K1's
+walk by thread). K2 takes a scalar or (N_f-1, D) rf, K3 a scalar rf, as
+the reference's. Beside the kernels this module holds:
 
 - :func:`solve_reference` and :func:`ladder_reference`, the plain
   versions: the port's batched ``opt/lbfgs.lbfgs_minimize`` with
@@ -20,8 +24,9 @@ holds:
   K1's plain ``ag_reference``, and its loop over rungs with the same
   records;
 - :data:`RUNG_LAUNCHES` and :data:`LADDER_LAUNCHES`, plain counts of
-  kernel launches, and :data:`RULE_LAUNCHES`, the rules' entries'
-  launches by kernel, rule and rf kind;
+  kernel launches, :data:`RULE_LAUNCHES`, the Lorenz-96 rules' entries'
+  launches by kernel, rule and rf kind, and :data:`MODEL_LAUNCHES`, the
+  row-level models' by kernel, model, rule and rf kind;
 - :func:`solve_supported` and :func:`ladder_supported`, the envelope,
   and :func:`solve_preferred` and :func:`pick_rung_solver`, the policy
   of the facade's ``solver=``;
@@ -64,6 +69,10 @@ LADDER_LAUNCHES = 0
 #: "K2/<disc>/<rf kind>" and "K3/<disc>/scalar"; each also counts in
 #: RUNG_LAUNCHES or LADDER_LAUNCHES.
 RULE_LAUNCHES = {}
+#: Launches on the row-level models (csrc/solve_models_*.cu) so far, by
+#: "K2/<model>/<disc>/<rf kind>" and "K3/<model>/<disc>/scalar"; each also
+#: counts in RUNG_LAUNCHES or LADDER_LAUNCHES.
+MODEL_LAUNCHES = {}
 
 #: Largest history the kernels take (kMaxM in csrc/l96_solve.cuh).
 MAX_M = 16
@@ -212,14 +221,30 @@ def ladder_reference(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions):
 
 
 def typed(lib):
-    """``lib`` (a ctypes library built from csrc/solve_kernel.cu or
-    csrc/solve_rules_f32.cu / solve_rules_f64.cu) with its functions'
-    argument and result types set."""
+    """``lib`` (a ctypes library built from csrc/solve_kernel.cu,
+    csrc/solve_rules_f32.cu / solve_rules_f64.cu or a
+    csrc/solve_models_*.cu) with its functions' argument and result types
+    set."""
     if not getattr(lib, "_va_typed", False):
         P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         common = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl, Dbl,
                   I, I, I, Dbl, Dbl, Dbl, Dbl]
-        if hasattr(lib, "va_l96_solve_rule_attrs"):
+        opts = [I, I, I, Dbl, Dbl, Dbl, Dbl]
+        models = [(m, t) for m in ag.ROW_MODELS for t in ("f32", "f64")
+                  if hasattr(lib, f"va_{m}_solve_{t}")]
+        if models:
+            m, t = models[0]
+            row = [P, I] + ag.ROW_ARGTYPES + opts + [I]
+            fn = getattr(lib, f"va_{m}_solve_{t}")
+            fn.restype = I
+            fn.argtypes = row + [Dbl, P, P, I, P, P, P, P, P, P]
+            fn = getattr(lib, f"va_{m}_ladder_{t}")
+            fn.restype = I
+            fn.argtypes = row + [P, I, P, P, P, P, P]
+            fn = getattr(lib, f"va_{m}_solve_attrs_{t}")
+            fn.restype = I
+            fn.argtypes = [I, I, I, P]
+        elif hasattr(lib, "va_l96_solve_rule_attrs"):
             sfx = "f32" if hasattr(lib, "va_l96_solve_rule_f32") else "f64"
             fn = getattr(lib, f"va_l96_solve_rule_{sfx}")
             fn.restype = I
@@ -246,13 +271,20 @@ def typed(lib):
     return lib
 
 
-def _lib(rules=False, dtype=torch.float32):
+def _sfx(dtype):
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+def _lib(rules=False, dtype=torch.float32, model="l96"):
     """The library of csrc/solve_kernel.cu, or with ``rules`` that of
     ``dtype``'s rules' entries (csrc/solve_rules_f32.cu or
-    solve_rules_f64.cu)."""
+    solve_rules_f64.cu), or that of a row-level ``model`` in ``dtype``
+    (csrc/solve_models_<model>_<f32|f64>.cu)."""
     from varanneal_tpu_torch.kernels import _build
-    name = ("solve_rules_" + ("f32" if dtype == torch.float32 else "f64")
-            if rules else "solve_kernel")
+    if model != "l96":
+        name = f"solve_models_{model}_{_sfx(dtype)}"
+    else:
+        name = "solve_rules_" + _sfx(dtype) if rules else "solve_kernel"
     return typed(_build.load(name).lib)
 
 
@@ -263,15 +295,19 @@ def _is_rule(c: ag.AgConsts, rfd) -> bool:
 
 
 def kernel_attrs(ladder: bool, dtype=torch.float32, bounded=False,
-                 layout=0, rules=False) -> dict:
+                 layout=0, rules=False, model="l96") -> dict:
     """The attributes of the built kernel, K3 (``ladder``) or K2 (of the
-    rules' entries with ``rules``), that a launch under the layout's flags
-    ``layout`` runs (building it at first use; needs the card): registers
-    a thread, local memory a thread in bytes (spills and stack), the most
-    threads a block can launch with, and the threads a launch takes."""
-    lib = _lib(rules, dtype)
+    rules' entries with ``rules``, of a row-level ``model``'s), that a
+    launch under the layout's flags ``layout`` runs (building it at first
+    use; needs the card): registers a thread, local memory a thread in
+    bytes (spills and stack), the most threads a block can launch with,
+    and the threads a launch takes."""
+    lib = _lib(rules, dtype, model)
     out = (ctypes.c_int * 4)()
-    if rules:
+    if model != "l96":
+        rc = getattr(lib, f"va_{model}_solve_attrs_{_sfx(dtype)}")(
+            int(bool(ladder)), int(bool(bounded)), int(layout), out)
+    elif rules:
         rc = lib.va_l96_solve_rule_attrs(int(bool(ladder)),
                                          int(bool(bounded)), int(layout),
                                          out)
@@ -296,12 +332,18 @@ def _check_input(XP, c: ag.AgConsts, opts: LBFGSOptions):
                          f"{tuple(XP.shape)} {XP.dtype}")
 
 
-def _common_args(XP, c: ag.AgConsts, opts: LBFGSOptions):
+def _common_args(XP, c: ag.AgConsts, opts: LBFGSOptions, rfd=None):
+    """The entries' leading arguments: Lorenz-96's problem (VA_SOLVE_ARGS)
+    or a row-level model's (VA_ROW_ARGS, its (N_f-1, D) rf ``rfd`` among
+    them), then the options."""
+    o = (opts.m, opts.maxiter, opts.maxls, opts.c1, opts.c2, opts.pgtol,
+         opts.ftol)
+    if c.model != "l96":
+        return (XP.data_ptr(), XP.shape[0], *ag.row_args(c, rfd), *o)
     return (XP.data_ptr(), XP.shape[0], c.n_dof, c.N, c.D, c.pslot,
             c.F_fixed, c.Y.data_ptr(), c.W.data_ptr(), c.lidx.data_ptr(),
             c.lpos.data_ptr(), c.N_data, c.L, c.obs_stride, c.h,
-            c.me_norm, c.fe_norm, opts.m, opts.maxiter, opts.maxls,
-            opts.c1, opts.c2, opts.pgtol, opts.ftol)
+            c.me_norm, c.fe_norm, *o)
 
 
 def _raise_on(rc, lib, what):
@@ -327,9 +369,10 @@ def launch_layout(XP, c: ag.AgConsts, opts: LBFGSOptions, bounded=False,
     if layout is None:
         sms = torch.cuda.get_device_properties(
             XP.device).multi_processor_count
-        layout = plan_layout(c.D, n, opts.m, XP.dtype, bounded, B,
-                             sms).flags
-    return layout_of(int(layout), c.D, n, opts.m, XP.dtype, bounded)
+        layout = plan_layout(ag.ring_cols(c), n, opts.m, XP.dtype, bounded,
+                             B, sms).flags
+    return layout_of(int(layout), ag.ring_cols(c), n, opts.m, XP.dtype,
+                     bounded)
 
 
 def _check_bounds(lower, upper, XP):
@@ -351,6 +394,10 @@ def _check_bounds(lower, upper, XP):
 
 def _count_rule(key):
     RULE_LAUNCHES[key] = RULE_LAUNCHES.get(key, 0) + 1
+
+
+def _count_model(key):
+    MODEL_LAUNCHES[key] = MODEL_LAUNCHES.get(key, 0) + 1
 
 
 def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
@@ -381,9 +428,12 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
     if B:
         lay = launch_layout(XP, c, opts, lo is not None, _layout)
         work = _workspace(XP, lay)
-        lib = _lib(rule, c.dtype)
+        lib = _lib(rule, c.dtype, c.model)
         f32 = c.dtype == torch.float32
-        if rule:
+        if c.model != "l96":
+            fn = getattr(lib, f"va_{c.model}_solve_{_sfx(c.dtype)}")
+            rf_args = (rf_s,)
+        elif rule:
             fn = lib.va_l96_solve_rule_f32 if f32 else \
                 lib.va_l96_solve_rule_f64
             rf_args = (ag.DISCS[c.disc], rf_s,
@@ -393,12 +443,15 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
             rf_args = (rf_s,)
         with torch.cuda.device(XP.device):
             stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*_common_args(XP, c, opts), lay.flags, *rf_args, *bnd,
-                    work.data_ptr(), X.data_ptr(), G.data_ptr(),
+            rc = fn(*_common_args(XP, c, opts, rfd), lay.flags, *rf_args,
+                    *bnd, work.data_ptr(), X.data_ptr(), G.data_ptr(),
                     fp.data_ptr(), cnt.data_ptr(), stream)
         _raise_on(rc, lib, "rung-solve")
         RUNG_LAUNCHES += 1
-        if rule:
+        if c.model != "l96":
+            _count_model("K2/" + ag.model_key(c.model, c.disc,
+                                              rfd is not None))
+        elif rule:
             _count_rule("K2/" + ag.rule_key(c.disc, rfd is not None))
     return LBFGSResult(x=X, f=fp[:, 0], g=G, niter=cnt[:, 0],
                        nfev=cnt[:, 1], status=cnt[:, 2], pgnorm=fp[:, 1])
@@ -427,9 +480,12 @@ def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions,
         lay = launch_layout(XP, c, opts, False, _layout)
         work = _workspace(XP, lay)
         rule = _is_rule(c, None)
-        lib = _lib(rule, c.dtype)
+        lib = _lib(rule, c.dtype, c.model)
         f32 = c.dtype == torch.float32
-        if rule:
+        if c.model != "l96":
+            fn = getattr(lib, f"va_{c.model}_ladder_{_sfx(c.dtype)}")
+            disc = ()
+        elif rule:
             fn = lib.va_l96_ladder_rule_f32 if f32 else \
                 lib.va_l96_ladder_rule_f64
             disc = (ag.DISCS[c.disc],)
@@ -443,7 +499,9 @@ def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions,
                     rec.data_ptr(), rec_i.data_ptr(), stream)
         _raise_on(rc, lib, "ladder")
         LADDER_LAUNCHES += 1
-        if rule:
+        if c.model != "l96":
+            _count_model("K3/" + ag.model_key(c.model, c.disc, False))
+        elif rule:
             _count_rule("K3/" + ag.rule_key(c.disc, False))
     recs = dict(A=rec[..., 0], ME=rec[..., 1], FE=rec[..., 0] - rec[..., 1],
                 pgnorm=rec[..., 2], niter=rec_i[..., 0], nfev=rec_i[..., 1],
@@ -543,12 +601,16 @@ PREFERRED_MAX_M = 8
 
 def solve_preferred(spec: ProblemSpec, rf, opts: LBFGSOptions,
                     dtype=torch.float32, device=None) -> bool:
-    """``solver='auto'`` takes the rung-solve kernel: on the card, inside
-    :func:`solve_supported`, with m at most :data:`PREFERRED_MAX_M` and
-    the grid padded to 8 rows at most :data:`PREFERRED_MAX_N_PAD` (the
-    reference's policy). False off the card, as the reference's is off
-    the TPU."""
+    """``solver='auto'`` takes the rung-solve kernel: on the card, in
+    float32, inside :func:`solve_supported`, with m at most
+    :data:`PREFERRED_MAX_M` and the grid padded to 8 rows at most
+    :data:`PREFERRED_MAX_N_PAD` (the reference's policy: its
+    ``solve_supported`` asks ``ag_supported``, which takes float32 only,
+    so float64 stays on the generic loop; ``solver='fused'`` takes K2 in
+    float64 too). False off the card, as the reference's is off the
+    TPU."""
     return (resolve_device(device).type == "cuda"
+            and dtype == torch.float32
             and opts.m <= PREFERRED_MAX_M
             and solve_supported(spec, rf, opts, dtype=dtype)
             and -(-spec.N_f // 8) * 8 <= PREFERRED_MAX_N_PAD)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from varanneal_tpu_torch._device import resolve_device
-from varanneal_tpu_torch.kernels import ag, solve
+from varanneal_tpu_torch.kernels import ag, rowmodel, solve
 from varanneal_tpu_torch.opt.lbfgs import LBFGSOptions, LBFGSResult
 from varanneal_tpu_torch.ops.spec import ProblemSpec
 
@@ -140,9 +140,13 @@ def kernel_attrs(G: int, dtype=torch.float32, bounded=False,
 
 
 def pack_refusal(spec: ProblemSpec, rf):
-    """The rule or rf kind K8 does not take, in words, or None: K8 takes
-    the trapezoid rule with a scalar rf, where K1/K2 take four rules and
-    an (N_f-1, D) rf too."""
+    """The model, rule or rf kind K8 does not take, in words, or None: K8
+    takes Lorenz-96 under the trapezoid rule with a scalar rf, where K1/K2
+    take the row-level models, four rules and an (N_f-1, D) rf too."""
+    model = rowmodel.model_of(spec.f)
+    if model is not None and model[0] != "l96":
+        return (f"the {model[0]} model (K8 takes Lorenz-96; the row-level "
+                f"models wait for ROADMAP.md §2a item 2 (e))")
     if spec.disc != "trapezoid" or np.ndim(rf) != 0:
         kind = "a scalar" if np.ndim(rf) == 0 else f"a {np.shape(rf)}"
         return (f"disc {spec.disc!r} with {kind} rf (K8 takes the "

@@ -193,8 +193,9 @@ def support_matrix() -> List[MatrixRow]:
         note="engine='ag' runs K4 (two-float sums); auto and K6 stay on "
              "the compensated autograd action")
     add("f64", _l96_spec(dtype=np.float64), 1.0, dtype=torch.float64,
-        note="K1, K2 and K6 take float64 on the card; the auto engine "
-             "stays the autograd action (its regime is float32)")
+        note="K1, K2 and K6 take float64 on the card when forced; auto "
+             "stays on the autograd action and the generic loop (the "
+             "reference's gates are float32)")
     add("multi-protocol joint estimation", base, rf, multi=True,
         note="ops.multi composes per-protocol autograd actions")
     add("campaign-length record (N=1001 SH)",
