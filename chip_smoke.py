@@ -12,9 +12,11 @@ timed on its own line:
    K6 (kernels/csrc/fe_kernel.cu), K5 (kernels/csrc/agt_kernel.cu) and
    K8 (kernels/csrc/pack_kernel.cu), one nvcc each, started together
    (K1-K4 under Lorenz-96's other rules, kernels/csrc/ag_rules_kernel.cu,
-   solve_rules_f32.cu and solve_rules_f64.cu, and on the row-level
-   models, ag_models_kernel.cu and the six solve_models_<model>_<dtype>.cu,
-   build in a thread that phase 32 joins),
+   solve_rules_f32.cu and solve_rules_f64.cu, on the row-level models,
+   ag_models_kernel.cu and the six solve_models_<model>_<dtype>.cu, and
+   K8 off the trapezoid rule with a scalar rf, pack_rules_<dtype>.cu and
+   the six pack_models_<model>_<dtype>.cu, build in a thread that phase
+   32 joins),
    into plain-C shared libraries, with nvcc's -Xptxas -v report
    (registers, spills, shared memory); with them a measuring build of
    solve_kernel.cu that counts the group barriers its kernels pass
@@ -426,7 +428,45 @@ timed on its own line:
    and K4 at NaKL's record and at config #3, K1 on Colpitts and
    Lorenz-63, each beside K6's fused launch and the autograd action, and
    K2 and K3 short solves at NaKL's record: CUDA events, device time
-   (torch.profiler), the plain version, the bound; K2/K3's registers.
+   (torch.profiler), the plain version, the bound; K2/K3's registers;
+34. K8 over K2's envelope (PACK34; pack_phase): (d) the new kernels'
+   registers and local memory (within 255 registers, launchable at 256
+   threads), the spills in ptxas's report and the eight libraries' cold
+   build times; (c) short solves at B = 3 and 5 and packs 1, 2, 3, 4 and
+   8 (pack_short_cases: Lorenz-96 at config #1's data under Euler, the
+   forward map and Hermite–Simpson with both rf kinds and the trapezoid
+   rule with the (N_f-1, D) rf, in the box ±6 too; NaKL with and without
+   its stimulus, Colpitts and Lorenz-63 at phase 33's problems under a
+   one-step rule and Hermite–Simpson with both rf kinds, NaKL in CONF3's
+   box too) against the plain version: the same niter, nfev and status,
+   f64 x within 1e-8, f32 f within max(1e-4, twice the plain version's
+   card-vs-CPU spread), bounded f32 F32_BOUNDED_F_TOL or no farther from
+   the f64 solve than twice the plain version; packs 1-2 (G = 256) K2's
+   bits, repeats bit-identical, one launch a call counted under its rule
+   or model; (a) config #3's screen (CONF3's campaign problem: N_f 6,001,
+   Hermite–Simpson, the stimulus, B = 64, the (N_f-1, 4) rf0, the boxes,
+   f32, the projection algorithm, m 5, maxiter 400) through
+   workflow.phase1 with make_packed_rung_solver at pack 8 (G = 32) and
+   with K2's rung solver over its first PACK34['screen_rungs'] rungs: one
+   K8 launch a rung, finite records, rung 0 against K2's under the
+   bounded-f32 rule (the same counts and A within 2e-3, or no farther
+   from the f64 solve than twice K2), the other rungs printed; walls, ms
+   a launch and µs an iteration; then the screen's rung 0 from its start
+   and rung PACK34['iter_beta'] from its last state (where its members
+   iterate tens of times: the slowest at least 10) through K8, K2 and the
+   plain version on the same inputs, K8 held to both by the bounded-f32
+   rule (bounded_f32_held), each timed beside the bound; (b) the f64
+   polish of its top 4 through workflow.polish with K8 at pack 4 (G = 64)
+   and with K2 over one more rung (m 5, pgtol 1e-10): one launch a rung;
+   at maxiter 30 the same counts and A within 1e-8, and each K8 launch
+   against the plain version on the inputs it was given (the same counts,
+   x within 1e-8); at maxiter 2000 A within 1e-8 at mutually converged
+   rungs (the rest printed); (e) the Lorenz-96 path: run_ladder with
+   make_packed_rung_solver (pack 4) under Hermite–Simpson with an
+   (N_f-1, D) rf from rung PACK34['path_beta'], where its members
+   iterate, one launch a rung, and the other libraries' paths; K8 and K2
+   timed on the path's first rung beside the plain version and the
+   bound.
 
 The last two lines are one JSON object per kernel (name, route, source,
 the TPU kernel it replaces, launches on its path, max abs error, max
@@ -478,7 +518,11 @@ autograd action's beside them; row_ag, row_ag_comp, row_solve and
 row_ladder are K1, K4, K2 and K3 on the row-level models (phase 33):
 launches on its paths, errors over its checks, times at NaKL's record
 (K1 and K4 also conf3_*, colpitts_*, l63_*), each model, rule and rf
-kind under entries)
+kind under entries; row_pack and l96_pack_rule are K8 on the row-level
+models and under Lorenz-96's other rules (phase 34): launches on its
+paths (the screen and polish; the Lorenz-96 path), errors over its
+short solves, times on the screen's rung 0 and the path's with K2's
+beside them (k2_ms), registers, build times, each key under entries)
 and the
 result line {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero before that line.
@@ -674,6 +718,33 @@ MODELS33 = dict(nakl_N=512, nakl_rungs=36, nakl_held=14, ens_B=32,
                 ladder_rule={"nakl": "SimpsonHermite",
                              "colpitts": "euler", "l63": "forwardmap"},
                 path_rungs=3, m=5, near=0.1)
+# phase 34: K8 over K2's envelope. (a) config #3's screen (CONF3's
+# campaign problem, B = 64, maxiter 400) through K8 at pack screen_pack (G
+# = 32, 8 blocks) and through K2 over rungs 0..screen_rungs-1; (b) the
+# f64 polish of its top 4 through K8 at pack polish_pack (G = 64, one
+# block) and through K2 over polish_rungs rung(s) beyond the screen's
+# last (m 5: K8 takes m <= 8, the example's polish runs m 10 on the
+# generic loop), at CONF3's maxiter 2000 (read: on the H100 no member
+# converged in either, and the two ended 7.5e-3 apart in A, as two f64
+# solves of NaKL part from rounding) and at polish_held_maxiter (held);
+# (c) short solves (maxiter short_maxiter) at each B of Bs and each pack
+# of packs (and pack 1): Lorenz-96 at config #1's data at the rf of rung
+# l96_beta, the row-level models at phase 33's problems and rungs; (e)
+# the Lorenz-96 path: run_ladder through K8 at pack path_pack under
+# Hermite–Simpson with an (N_f-1, D) rf, B = path_B, path_rungs rungs
+# from path_beta, and the other libraries' paths (Lorenz-96 in f64 from
+# path_beta, Colpitts and Lorenz-63 in both dtypes) over path2_rungs
+# rungs. iter_beta: the screen's rung at which K8, K2 and the plain
+# version are held and timed from its last state (on the H100 there the
+# slowest member takes 33 iterations and the median 11, with K2's counts;
+# from rung 14 on, f32 solves of K8 and K2 part); path_beta: where the
+# path's draws take 71-157 iterations at maxiter 200 (from rung 40 on,
+# each stops at maxiter); polish_held_maxiter: at 100 K8 and the plain
+# version part to 1.4e-5 in x, at 30 they agree to 4e-13
+PACK34 = dict(screen_rungs=4, screen_pack=8, iter_beta=12, polish_rungs=1,
+              polish_pack=4, polish_held_maxiter=30, Bs=(3, 5),
+              packs=(2, 3, 4, 8), short_maxiter=10, l96_beta=50, path_B=8,
+              path_pack=4, path_beta=30, path_rungs=5, path2_rungs=2)
 # The -Xptxas -v lines (_ptxas_lines) of the sources of K1-K4 under the
 # trapezoid rule with a scalar rf, of K8 and of K6, as their parent commit
 # built them on the H100 (sha256 of the lines joined, its first 16
@@ -1541,33 +1612,21 @@ def config3_facade(dev, tw3, zero_counts, run_counts):
         max_rel_A=float(rel.max()), converged=int(conv.sum()))
 
 
-def config3_campaign(dev, zero_counts, run_counts):
-    """Phase 27b: workflow.estimate on examples/nakl_ensemble.py's default
-    problem, built as the example builds it, with its action from
-    fe.select_action(engine='pallas'): the f32 screen of B=64 members
-    (K6d and, through the projection loop, K7a), the snapshot, and the f64
-    polish of the top 4 (K6d in f64). Checks the launches, a checkpoint
-    after every chunk, phase 1 resumed from its checkpoint after rung 4
-    giving the same bits, finite records; prints the best member's
-    parameters against the truth. Returns the phase's numbers."""
-    from varanneal_tpu_torch import workflow
-    from varanneal_tpu_torch.anneal import checkpoint as ckmod
+def conf3_campaign_problem(dev):
+    """examples/nakl_ensemble.py's default problem as phase 27b builds it
+    (CONF3): ``make_problem(dtype) -> (action, parts, lower, upper,
+    spec)`` (workflow.estimate's), the action fe.select_action's under
+    engine='pallas' (K6d); the B = 64 members of nakl_ensemble_inits
+    (float32) and the (N_f-1, 4) rf0, 1e-5·[1, 1e3, 1e3, 1e3]
+    (float32)."""
     from varanneal_tpu_torch.api import build_bounds
     from varanneal_tpu_torch.kernels import fe
-    from varanneal_tpu_torch.models import (NAKL_P_TRUE, NAKL_PNAMES,
-                                            NAKL_STATE_BOUNDS,
+    from varanneal_tpu_torch.models import (NAKL_STATE_BOUNDS,
                                             nakl_ensemble_inits,
                                             nakl_log_model,
                                             nakl_param_boxes)
     from varanneal_tpu_torch.ops import build_spec
-    from varanneal_tpu_torch.opt import LBFGSOptions
     from varanneal_tpu_torch.twin import nakl_twin
-    n_beta, snap, extra = CONF3["rungs_b"], CONF3["snap_b"], CONF3["extra_b"]
-    print(f"config #3 cut (phase 27b): screen rungs 0..{n_beta - 1} of "
-          f"{CONF3['n_beta_b']}, snapshot at rung {snap} (the example's "
-          f"{CONF3['n_beta_b'] - 21}), polish {extra} extra rungs (10); "
-          f"the polish's maxiter {CONF3['polish_maxiter']}, the screen's "
-          f"maxiter {CONF3['maxiter_b']} and B={CONF3['B']} not cut")
     tw = nakl_twin(N=CONF3["N"], dt=CONF3["dt"], sigma=CONF3["sigma"],
                    seed=CONF3["seed"], seg=75, i_min=-25.0, i_max=60.0)
     pbounds, log_idx = nakl_param_boxes(PIDX3)
@@ -1588,14 +1647,39 @@ def config3_campaign(dev, zero_counts, run_counts):
         lo, hi = build_bounds(spec, bounds, dtype)
         return act, parts, lo, hi, spec
 
-    act32, parts32, lo32, hi32, spec = make_problem(np.float32)
-    check(act32.engine == "pallas", "config #3 campaign: not K6's engine")
+    spec = make_problem(np.float32)[4]
     xp0 = nakl_ensemble_inits(np.random.default_rng(CONF3["ens_seed"]),
                               CONF3["B"], pbounds,
                               [model_grid_v(spec, tw)], pidx=PIDX3,
                               dtype=np.float32)
     rf0 = np.ascontiguousarray(np.broadcast_to(
         CONF3["rf0"] * rf_dir, (spec.N_f - 1, 4))).astype(np.float32)
+    return make_problem, xp0, rf0
+
+
+def config3_campaign(dev, zero_counts, run_counts):
+    """Phase 27b: workflow.estimate on examples/nakl_ensemble.py's default
+    problem, built as the example builds it, with its action from
+    fe.select_action(engine='pallas'): the f32 screen of B=64 members
+    (K6d and, through the projection loop, K7a), the snapshot, and the f64
+    polish of the top 4 (K6d in f64). Checks the launches, a checkpoint
+    after every chunk, phase 1 resumed from its checkpoint after rung 4
+    giving the same bits, finite records; prints the best member's
+    parameters against the truth. Returns the phase's numbers."""
+    from varanneal_tpu_torch import workflow
+    from varanneal_tpu_torch.anneal import checkpoint as ckmod
+    from varanneal_tpu_torch.kernels import fe
+    from varanneal_tpu_torch.models import NAKL_P_TRUE, NAKL_PNAMES
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    n_beta, snap, extra = CONF3["rungs_b"], CONF3["snap_b"], CONF3["extra_b"]
+    print(f"config #3 cut (phase 27b): screen rungs 0..{n_beta - 1} of "
+          f"{CONF3['n_beta_b']}, snapshot at rung {snap} (the example's "
+          f"{CONF3['n_beta_b'] - 21}), polish {extra} extra rungs (10); "
+          f"the polish's maxiter {CONF3['polish_maxiter']}, the screen's "
+          f"maxiter {CONF3['maxiter_b']} and B={CONF3['B']} not cut")
+    make_problem, xp0, rf0 = conf3_campaign_problem(dev)
+    act32, parts32, lo32, hi32, spec = make_problem(np.float32)
+    check(act32.engine == "pallas", "config #3 campaign: not K6's engine")
     betas = np.arange(n_beta, dtype=np.float32)
     opts = LBFGSOptions(maxiter=CONF3["maxiter_b"], m=5, pgtol=1e-4,
                         ftol=1e-6, bounded_algo="projection")
@@ -3079,37 +3163,19 @@ def row_work(spec, model, disc, B, diag, comp=False, dtype=torch.float32):
     return nbytes, nops
 
 
-def models_phase(dev, built, zero_counts, run_counts):
-    """Phase 33 (the module docstring's (a)-(e)): K1-K4 on the row-level
-    models. ``built`` phase 2's libraries, ``zero_counts``/``run_counts``
-    phase 15's counters. Returns the kernels line's entries' numbers."""
-    from varanneal_tpu_torch.anneal.ladder import rung_rf
-    from varanneal_tpu_torch.api import Annealer, build_bounds
-    from varanneal_tpu_torch.kernels import ag, fe, solve
-    from varanneal_tpu_torch.models import (NAKL_P_TRUE, lorenz63, nakl,
-                                            nakl_ensemble_inits,
-                                            nakl_param_boxes)
-    from varanneal_tpu_torch.ops import make_action, value_and_grad
-    from varanneal_tpu_torch.opt import LBFGSOptions
-    from varanneal_tpu_torch.parallel import make_ensemble_ladder
+def row_problems(dev, n_draws=4):
+    """Phase 33's problems of the row-level models, which phase 34 solves
+    again: examples/nakl.py's problem at N = MODELS33['nakl_N'] (its
+    stimulus, V observed, Pidx [1..5]) and Colpitts and Lorenz-63 on phase
+    30's twins, under each rule (``specs`` by (model, rule)); ``n_draws``
+    draws each (``draws``), ``near(key, B)`` (B of them pulled to
+    MODELS33['near'] of their distance from the path), each model's rf0
+    and alpha (``rf0s``), the (N_f-1, D) weights ``W`` and ``rf_of(key,
+    beta, dtype, diag)``, the rf of rung ``beta`` on the card."""
+    import types
     from varanneal_tpu_torch.twin import nakl_twin
-    f32, f64 = torch.float32, torch.float64
     M33 = MODELS33
     rng = np.random.default_rng(33)
-
-    def counts():
-        # phase 15's counts and the row models' launches by key
-        return dict(run_counts(),
-                    models=dict(ag.MODEL_LAUNCHES, **solve.MODEL_LAUNCHES))
-    out = dict(k1={}, k4={}, k2={}, k3={}, paths={}, times={})
-
-    def rel_err(A, G, A_r, G_r):
-        scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
-        return (max(float(torch.max(torch.abs(A - A_r) / torch.abs(A_r))),
-                    float(torch.max(torch.abs(G - G_r) / scale))),
-                max(float(torch.max(torch.abs(A - A_r))),
-                    float(torch.max(torch.abs(G - G_r)))))
-
     # the problems: examples/nakl.py's at N = nakl_N (its stimulus, V
     # observed, Pidx [1..5]), config #3 itself, Colpitts and Lorenz-63 on
     # phase 30's twins (Colpitts' full width, every parameter estimated;
@@ -3120,12 +3186,13 @@ def models_phase(dev, built, zero_counts, run_counts):
     specs, draws, rf0s = {}, {}, {}
     for d in RULES:
         specs[("nakl", d)] = config3_problem(disc=d, tw=tw_n)[1]
-        draws[("nakl", d)] = nakl_draws(specs[("nakl", d)], tw_n, 4, 33)
+        draws[("nakl", d)] = nakl_draws(specs[("nakl", d)], tw_n, n_draws,
+                                        33)
         for m, pidx in (("colpitts", [0, 1, 2, 3]), ("l63", [1])):
             sp = specs[(m, d)] = row_spec(m, tws[m], d, pidx)
-            X, pest = row_draws(sp, tws[m], 4, 33)
+            X, pest = row_draws(sp, tws[m], n_draws, 33)
             draws[(m, d)] = np.concatenate(
-                [X.reshape(4, sp.n_state), pest], axis=1)
+                [X.reshape(n_draws, sp.n_state), pest], axis=1)
     check(specs[("nakl", "SimpsonHermite")].N_f == 2 * M33["nakl_N"] - 1,
           "phase 33: NaKL's record is not N_f = 1,023")
     # rf at rung beta: RF0 alpha^beta (NaKL's and Lorenz-63's RF0 a
@@ -3159,6 +3226,43 @@ def models_phase(dev, built, zero_counts, run_counts):
         r = float(r0 * alpha ** beta)
         return (torch.tensor(W[key] * r, dtype=dtype, device=dev) if diag
                 else _scalar_rf(r, dtype))
+    return types.SimpleNamespace(tw_n=tw_n, tws=tws, specs=specs,
+                                 draws=draws, rf0s=rf0s, W=W, rf_of=rf_of,
+                                 near=near)
+
+
+def models_phase(dev, built, zero_counts, run_counts):
+    """Phase 33 (the module docstring's (a)-(e)): K1-K4 on the row-level
+    models. ``built`` phase 2's libraries, ``zero_counts``/``run_counts``
+    phase 15's counters. Returns the kernels line's entries' numbers."""
+    from varanneal_tpu_torch.anneal.ladder import rung_rf
+    from varanneal_tpu_torch.api import Annealer, build_bounds
+    from varanneal_tpu_torch.kernels import ag, fe, solve
+    from varanneal_tpu_torch.models import (NAKL_P_TRUE, lorenz63, nakl,
+                                            nakl_ensemble_inits,
+                                            nakl_param_boxes)
+    from varanneal_tpu_torch.ops import make_action, value_and_grad
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    from varanneal_tpu_torch.parallel import make_ensemble_ladder
+    f32, f64 = torch.float32, torch.float64
+    M33 = MODELS33
+
+    def counts():
+        # phase 15's counts and the row models' launches by key
+        return dict(run_counts(),
+                    models=dict(ag.MODEL_LAUNCHES, **solve.MODEL_LAUNCHES))
+    out = dict(k1={}, k4={}, k2={}, k3={}, paths={}, times={})
+
+    def rel_err(A, G, A_r, G_r):
+        scale = torch.amax(torch.abs(G_r), dim=1, keepdim=True)
+        return (max(float(torch.max(torch.abs(A - A_r) / torch.abs(A_r))),
+                    float(torch.max(torch.abs(G - G_r) / scale))),
+                max(float(torch.max(torch.abs(A - A_r))),
+                    float(torch.max(torch.abs(G - G_r)))))
+
+    rp = row_problems(dev)
+    tw_n, tws, specs, draws = rp.tw_n, rp.tws, rp.specs, rp.draws
+    rf0s, rf_of, near = rp.rf0s, rp.rf_of, rp.near
     pairs = [(d, diag) for d in RULES for diag in (False, True)]
 
     # (d) K1 and K4: every entry against its plain version
@@ -3669,6 +3773,600 @@ def models_phase(dev, built, zero_counts, run_counts):
     return out
 
 
+def pack_short_cases(tw, rp):
+    """Phase 34 (c)'s problems, as (label, spec, draws (B, n_dof), rf, box
+    (lo, hi) as NumPy or None): Lorenz-96 at config #1's data under Euler,
+    the forward map and Hermite–Simpson with a scalar and an (N_f-1, D)
+    rf and under the trapezoid rule with the (N_f-1, D) rf (its scalar rf
+    is phase 24's), from phase 3's pattern of draws at the rf of rung
+    PACK34['l96_beta'], each again at the (N_f-1, D) rf in the box ±6;
+    and phase 33's problems of the row-level models (``rp``,
+    row_problems: near a minimizer, at each model's rung
+    MODELS33['beta_t']) under a one-step rule and Hermite–Simpson with
+    both rf kinds, NaKL with and without its stimulus, with it again in
+    CONF3's box at the (N_f-1, D) rf."""
+    from varanneal_tpu_torch.api import build_bounds
+    from varanneal_tpu_torch.models import lorenz96
+    from varanneal_tpu_torch.ops import build_spec
+    B = max(PACK34["Bs"])
+    rng = np.random.default_rng(34)
+    cases = []
+    r = float(4e-6 * tw["RM"] * MAIN["alpha"] ** PACK34["l96_beta"])
+    for d in RULES:
+        sp = build_spec(lorenz96, MAIN["D"], tw["Y"], tw["t"], tw["Lidx"],
+                        tw["RM"], disc=d, P=np.array([4.0]), pidx=[0])
+        Z = member_draws(sp, tw, 34, B)
+        w = rng.uniform(0.5, 2.0, (sp.N_f - 1, sp.D)) * r
+        box = (np.full(sp.n_dof, -6.0), np.full(sp.n_dof, 6.0))
+        for rf, bx in ((r, None), (w, None), (w, box)):
+            if d != "trapezoid" or np.ndim(rf):
+                cases.append((f"l96/{d}", sp, Z, rf, bx))
+    for m, d1 in (("nakl", "trapezoid"), ("nakl_nostim", "euler"),
+                  ("colpitts", "forwardmap"), ("l63", "euler")):
+        base = m.split("_")[0]
+        for d in (d1, "SimpsonHermite"):
+            sp = rp.specs[(base, d)]
+            if m == "nakl_nostim":
+                sp = dataclasses.replace(sp, stim_f=None)
+            r = float(rp.rf0s[base][0]
+                      * rp.rf0s[base][1] ** MODELS33["beta_t"][base])
+            w = rp.W[(base, d)] * r
+            var = [(r, None), (w, None)]
+            if m == "nakl":
+                var.append((w, tuple(np.asarray(b) for b in build_bounds(
+                    sp, CONF3["bounds"], np.float64))))
+            for rf, bx in var:
+                cases.append((f"{m}/{d}", sp, rp.near((base, d), B), rf, bx))
+    return cases
+
+
+def bounded_f32_held(rk, rr, f64_f):
+    """The bounded-f32 rule of ROADMAP "How parity is judged" for a
+    kernel's result ``rk`` against a reference's ``rr`` (LBFGSResults on
+    the same inputs): the same niter, nfev and status and f within
+    F32_BOUNDED_F_TOL relative, or else every member's f no farther from
+    the f64 solve's f (``f64_f()``, called only then) than twice the
+    reference's. Returns (held, words)."""
+    same = all(torch.equal(getattr(rk, k), getattr(rr, k))
+               for k in ("niter", "nfev", "status"))
+    e = float(torch.max(torch.abs(rk.f - rr.f) / torch.abs(rr.f)))
+    if same and e <= F32_BOUNDED_F_TOL:
+        return True, f"the same counts, f rel err {e:.3e} (bound 2e-3)"
+    f64 = f64_f()
+    dk = torch.abs(rk.f.double() - f64)
+    dp = torch.abs(rr.f.double() - f64)
+    near = dk <= 2 * dp + 1e-6 * torch.abs(f64)
+    return bool(torch.all(near)), (
+        f"the same counts {same}, f rel err {e:.3e}; "
+        f"{int(near.sum())}/{near.numel()} members no farther from the "
+        f"f64 solve than twice the reference (kernel {float(dk.max()):.3e},"
+        f" reference {float(dp.max()):.3e} at most)")
+
+
+def pack_phase(dev, tw, built, zero_counts, run_counts):
+    """Phase 34 (the module docstring's (a)-(e)): K8 over K2's envelope.
+    ``tw`` is the main path's twin, ``built`` phase 2's libraries,
+    ``zero_counts``/``run_counts`` phase 15's counters. Returns the
+    kernels line's entries' numbers."""
+    from varanneal_tpu_torch import workflow
+    from varanneal_tpu_torch.anneal import run_ladder
+    from varanneal_tpu_torch.kernels import ag, solve, solve_pack
+    from varanneal_tpu_torch.models import lorenz96
+    from varanneal_tpu_torch.ops import build_spec, make_action
+    from varanneal_tpu_torch.opt import LBFGSOptions
+    f32, f64 = torch.float32, torch.float64
+    P34 = PACK34
+    out = dict(entries={}, paths={}, times={})
+
+    def counts():
+        # phase 15's counts and the launches by rule and model
+        return dict(run_counts(),
+                    keys=dict(solve.RULE_LAUNCHES, **solve.MODEL_LAUNCHES))
+
+    # (d) the built kernels: registers and local memory, the spills in
+    # ptxas's report, and the eight libraries' cold build
+    regs, spills = {}, {}
+    for fam in ("l96_rule", "nakl", "colpitts", "l63"):
+        for dt in (f32, f64):
+            for G in (64, 32):
+                for bd in (False, True):
+                    a = solve_pack.kernel_attrs(G, dt, bd, 0, fam)
+                    key = (f"{fam}_{str(dt)[6:]}_G{G}"
+                           + ("_bounded" if bd else ""))
+                    regs[key] = [a["regs"], a["local_bytes"]]
+                    check(a["regs"] <= 255 and a["max_threads"] >= 256,
+                          f"phase 34: K8 {key}: {a}")
+    for name in PACK_SOURCES:
+        entry = None
+        for ln in built[name].log.splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif entry and "bytes spill stores" in ln:
+                st, ld = (int(x.split()[0]) for x in ln.split(",")[1:3])
+                spills[entry] = spills.get(entry, 0) + st + ld
+    by_src = {name: sorted(v for k, v in spills.items()
+                           if k in built[name].log) for name in PACK_SOURCES}
+    build_s = {name: built[name].seconds for name in PACK_SOURCES}
+    print(f"K8's new kernels (pack_rules_*.cu, pack_models_*.cu; G = 64 "
+          f"and 32, bounded or not): registers and local bytes a thread "
+          f"{regs}; spill bytes (stores + loads) an entry by source "
+          f"{by_src}; cold nvcc builds {build_s} s (in the build thread "
+          f"with the rules' and the row models' ten)")
+    out.update(registers=regs, spills=by_src, build_s=build_s)
+
+    # (c) short solves against the plain version, and packs 1-2 against K2
+    opts = LBFGSOptions(maxiter=P34["short_maxiter"], m=5, pgtol=1e-4,
+                        ftol=1e-6)
+    rp = row_problems(dev, n_draws=max(P34["Bs"]))
+    n_checks = 0
+    for label, sp, Zs, rf_np, box in pack_short_cases(tw, rp):
+        diag = np.ndim(rf_np) == 2
+        model = label.split("/")[0].split("_")[0]
+        key = "K8/" + (ag.rule_key(sp.disc, diag) if model == "l96"
+                       else ag.model_key(model, sp.disc, diag))
+        for dtype in (f64, f32):
+            c = ag.ag_consts(sp, dev, dtype)
+            c_cpu = ag.ag_consts(sp, "cpu", dtype)
+            rf = (torch.tensor(rf_np, dtype=dtype, device=dev) if diag
+                  else _scalar_rf(rf_np, dtype))
+            lo = hi = None
+            if box is not None:
+                lo, hi = (torch.tensor(b, dtype=dtype, device=dev)
+                          for b in box)
+            for B in P34["Bs"]:
+                Z = torch.tensor(Zs[:B], dtype=dtype, device=dev)
+                if lo is not None:
+                    Z = torch.maximum(torch.minimum(Z, hi), lo)
+                r2 = solve.solve_kernel(Z, rf, c, opts, lo, hi)
+                rr = solve.solve_reference(Z, rf, c, opts, lo, hi)
+                torch.cuda.synchronize()
+                wit = None
+                if dtype == f32 and lo is None:
+                    rc = solve.solve_reference(
+                        Z.cpu(), rf.cpu() if diag else rf, c_cpu, opts)
+                    wit = float(torch.max(torch.abs(rr.f.cpu() - rc.f)
+                                          / torch.abs(rc.f)))
+                worst = 0.0
+                for kp in (1,) + tuple(P34["packs"]):
+                    n0 = solve_pack.PACK_LAUNCHES
+                    k0 = solve.RULE_LAUNCHES.get(key, 0) + \
+                        solve.MODEL_LAUNCHES.get(key, 0)
+                    rk = solve_pack.pack_kernel(Z, rf, c, opts, kp, lo, hi)
+                    rk2 = solve_pack.pack_kernel(Z, rf, c, opts, kp, lo, hi)
+                    torch.cuda.synchronize()
+                    n_checks += 1
+                    k1 = solve.RULE_LAUNCHES.get(key, 0) + \
+                        solve.MODEL_LAUNCHES.get(key, 0)
+                    check(solve_pack.PACK_LAUNCHES == n0 + 2 and k1 == k0 + 2,
+                          f"phase 34: {key} pack {kp}: not one launch a call,"
+                          f" counted under its key")
+                    check(all(torch.equal(u, v) for u, v in zip(rk, rk2)),
+                          f"phase 34: {label} {key} {dtype} B={B} pack {kp}:"
+                          f" repeat not bit-identical")
+                    if solve_pack.pack_group(kp) == 256:
+                        check(all(torch.equal(u, v) for u, v in zip(rk, r2)),
+                              f"phase 34: {label} {key} {dtype} B={B} pack "
+                              f"{kp} is not K2's bits")
+                    cnt_ok = all(torch.equal(getattr(rk, k), getattr(rr, k))
+                                 for k in ("niter", "nfev", "status"))
+                    e = float(torch.max(torch.abs(rk.f - rr.f)
+                                        / torch.abs(rr.f)))
+                    ok, how = cnt_ok, ""
+                    if dtype == f64:
+                        scale = torch.amax(torch.abs(rr.x), dim=1,
+                                           keepdim=True)
+                        ex = float(torch.max(torch.abs(rk.x - rr.x) / scale))
+                        ok = ok and ex <= 1e-8
+                        how = f"; x rel err {ex:.3e} (bound 1e-8)"
+                    elif lo is None:
+                        tol = max(1e-4, 2 * wit)
+                        ok = ok and e <= tol
+                        how = f" (bound {tol:.3g}: plain card vs CPU " \
+                              f"{wit:.3e})"
+                    else:
+                        c64 = ag.ag_consts(sp, dev, f64)
+                        ok, how = bounded_f32_held(rk, rr, lambda: (
+                            solve.solve_reference(
+                                Z.double(), rf.double() if diag
+                                else float(rf), c64, opts, lo.double(),
+                                hi.double()).f))
+                        how = f" ({how})"
+                    lab = (f"{label} {key} {str(dtype)[6:]} B={B} pack {kp} "
+                           f"(G={solve_pack.pack_group(kp)})"
+                           + (" bounded" if lo is not None else ""))
+                    if not ok or kp == P34["packs"][-1]:
+                        print(f"{lab}: niter {rk.niter.tolist()} nfev "
+                              f"{rk.nfev.tolist()} status "
+                              f"{rk.status.tolist()} (plain "
+                              f"{rr.niter.tolist()} {rr.nfev.tolist()} "
+                              f"{rr.status.tolist()}); f rel err {e:.3e}"
+                              f"{how}")
+                    check(ok, f"phase 34: {lab} against its plain version")
+                    worst = max(worst, e)
+                    r = out["entries"].setdefault(key, dict(
+                        max_rel_err=0.0, max_abs_err=0.0))
+                    r["max_rel_err"] = max(r["max_rel_err"], e)
+                    r["max_abs_err"] = max(r["max_abs_err"], float(
+                        torch.max(torch.abs(rk.f - rr.f))))
+    print(f"K8 short solves: {n_checks} (problem, dtype, B, pack) checks "
+          f"at packs 1 and {list(P34['packs'])}, B {list(P34['Bs'])}, "
+          f"maxiter {P34['short_maxiter']}: the plain version's counts, "
+          f"f64 x within 1e-8, f32 f within max(1e-4, twice the plain "
+          f"version's card-vs-CPU spread), bounded f32 within 2e-3 or the "
+          f"f64 rule; packs 1-2 K2's bits; repeats bit-identical; worst f "
+          f"rel err by key "
+          + ", ".join(f"{k} {v['max_rel_err']:.2e}"
+                      for k, v in out["entries"].items()))
+
+    # (a) config #3's screen through K8 (pack 8: G = 32, 8 blocks) and
+    # through K2 (64 blocks), rungs 0..screen_rungs-1
+    make_problem, xp0, rf0 = conf3_campaign_problem(dev)
+    act32, parts32, lo32, hi32, spec = make_problem(np.float32)
+    betas = np.arange(P34["screen_rungs"], dtype=np.float32)
+    opts_s = LBFGSOptions(maxiter=CONF3["maxiter_b"], m=5, pgtol=1e-4,
+                          ftol=1e-6, bounded_algo="projection")
+    check(solve_pack.pack_supported(spec, rf0, opts_s, P34["screen_pack"],
+                                    f32, True, dev),
+          "phase 34: config #3's screen outside K8's envelope")
+    k8_key = "K8/" + ag.model_key("nakl", "SimpsonHermite", True)
+    screen = {}
+    for name in ("K8", "K2"):
+        rs = (solve_pack.make_packed_rung_solver(
+                  spec, opts_s, P34["screen_pack"], lo32, hi32, device=dev)
+              if name == "K8" else
+              solve.make_rung_solver(spec, opts_s, lo32, hi32, device=dev))
+        mod, attr = ((solve_pack, "pack_kernel") if name == "K8"
+                     else (solve, "solve_kernel"))
+        zero_counts()
+        torch.cuda.synchronize()
+        with launch_events(mod, attr) as ev:
+            t_s = time.perf_counter()
+            r1 = workflow.phase1(act32, parts32, xp0, betas, rf0,
+                                 CONF3["alpha"], lower=lo32, upper=hi32,
+                                 opts=opts_s, rung_solver=rs, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_s
+        cnt = counts()
+        total = events_total_ms(ev)
+        worst_it = int(r1.niter.max(axis=0).sum())
+        screen[name] = dict(r1=r1, wall=wall, cnt=cnt, rs=rs,
+                            ms=total / max(len(ev), 1),
+                            us_iter=1e3 * total / max(worst_it, 1),
+                            niter=int(r1.niter.sum()),
+                            nfev=int(r1.nfev.sum()))
+        print(f"config #3 screen through {name} (B={CONF3['B']}, N_f "
+              f"{spec.N_f}, f32, the projection algorithm, m 5, maxiter "
+              f"{CONF3['maxiter_b']}, rungs 0..{P34['screen_rungs'] - 1}"
+              + (f", pack {P34['screen_pack']}, G = "
+                 f"{solve_pack.pack_group(P34['screen_pack'])}"
+                 if name == "K8" else "")
+              + f"): wall {wall:.3f} s; {screen[name]['ms']:.3f} ms a "
+              f"launch (CUDA events), {screen[name]['us_iter']:.2f} µs an "
+              f"iteration of the slowest member; niter a rung "
+              f"{r1.niter.sum(axis=0).tolist()} (slowest member "
+              f"{r1.niter.max(axis=0).tolist()}); statuses "
+              f"{np.bincount(r1.status.ravel(), minlength=4).tolist()}; "
+              f"launches {cnt}")
+        check(bool(np.all(np.isfinite(r1.A))),
+              f"phase 34: the screen through {name}: records not finite")
+    c8, c2 = screen["K8"]["cnt"], screen["K2"]["cnt"]
+    check(c8["k8"] == P34["screen_rungs"] and c8["k2"] == 0
+          and c8["keys"].get(k8_key, 0) == P34["screen_rungs"],
+          f"phase 34: the screen did not take K8 once a rung: {c8}")
+    check(c2["k2"] == P34["screen_rungs"] and c2["k8"] == 0,
+          f"phase 34: the K2 screen's launches {c2}")
+    out["paths"]["screen"] = c8["keys"]
+    a8, a2 = screen["K8"]["r1"], screen["K2"]["r1"]
+    same = ((a8.niter == a2.niter) & (a8.nfev == a2.nfev)
+            & (a8.status == a2.status))
+    rel = np.abs(a8.A - a2.A) / np.abs(a2.A)
+    held = same[:, 0] & (rel[:, 0] <= F32_BOUNDED_F_TOL)
+    print(f"config #3 screen, K8 against K2: rung 0, {int(held.sum())}/"
+          f"{held.size} members with the same counts and A within 2e-3 "
+          f"(max rel A {rel[:, 0].max():.3e}); members with K2's counts a "
+          f"rung {same.sum(axis=0).tolist()}, max rel A difference a rung "
+          f"{[float(f'{v:.3e}') for v in rel.max(axis=0)]} (rungs 1.. "
+          f"read, not held)")
+    if not held.all():
+        # the rest against the f64 solve of rung 0 from the same start: no
+        # farther from it than twice K2
+        _, _, lo64, hi64, sp64 = make_problem(np.float64)
+        c64 = ag.ag_consts(sp64, dev, f64)
+        Zb = torch.tensor(xp0[~held], dtype=f64, device=dev)
+        lo_t, hi_t = (torch.tensor(b, dtype=f64, device=dev)
+                      for b in (lo64, hi64))
+        Zb = torch.maximum(torch.minimum(Zb, hi_t), lo_t)
+        r64 = solve.solve_reference(
+            Zb, torch.tensor(rf0, dtype=f64, device=dev), c64, opts_s,
+            lo_t, hi_t)
+        f64_ = r64.f.cpu().numpy()
+        dk = np.abs(a8.A[~held, 0] - f64_)
+        dp = np.abs(a2.A[~held, 0] - f64_)
+        print(f"  the other {int((~held).sum())} members from the f64 "
+              f"solve: K8 {dk.tolist()}, K2 {dp.tolist()}")
+        check(bool(np.all(dk <= 2 * dp + 1e-6 * np.abs(f64_))),
+              "phase 34: the screen's rung 0 through K8 against K2")
+    out["screen"] = {n: dict(wall=v["wall"], ms=v["ms"],
+                             us_iter=v["us_iter"], niter=v["niter"],
+                             nfev=v["nfev"]) for n, v in screen.items()}
+    out["screen"]["rung0_held"] = int(held.sum())
+
+    # (b) the f64 polish of the screen's top 4 through K8 (pack 4: G = 64,
+    # one block) and through K2, polish_rungs rung(s) beyond the screen:
+    # at CONF3's maxiter 2000 (read: NaKL's f64 solves part from rounding
+    # in flat valleys and end apart unless both converge) and at
+    # polish_held_maxiter (held: the same counts, A within 1e-8)
+    act64, parts64, lo64, hi64, spec64 = make_problem(np.float64)
+    c64 = ag.ag_consts(spec64, dev, f64)
+    lo64_t, hi64_t = (torch.tensor(b, dtype=f64, device=dev)
+                      for b in (lo64, hi64))
+    picks = np.argsort(a8.A[:, -1])[:CONF3["polish_top"]]
+    pol_betas = betas[-1] + np.arange(1, P34["polish_rungs"] + 1)
+    rf0_64 = rf0.astype(np.float64)
+    polish = {}
+    for tag, maxiter in (("held", P34["polish_held_maxiter"]),
+                         ("full", CONF3["polish_maxiter"])):
+        opts64 = LBFGSOptions(maxiter=maxiter, m=5, pgtol=1e-10,
+                              ftol=1e-14, bounded_algo="projection")
+        for name in ("K8", "K2"):
+            rs = (solve_pack.make_packed_rung_solver(
+                      spec64, opts64, P34["polish_pack"], lo64, hi64,
+                      device=dev)
+                  if name == "K8" else
+                  solve.make_rung_solver(spec64, opts64, lo64, hi64,
+                                         device=dev))
+            log = []
+
+            def logged(XP, rf, rs=rs, log=log):
+                res = rs(XP, rf)
+                log.append((XP.clone(), rf, res))
+                return res
+            zero_counts()
+            torch.cuda.synchronize()
+            t_p = time.perf_counter()
+            r2 = workflow.polish(act64, parts64, a8.XP, pol_betas, rf0_64,
+                                 CONF3["alpha"], lower=lo64, upper=hi64,
+                                 opts=opts64, picks=picks,
+                                 batch=len(picks), dtype=np.float64,
+                                 rung_solver=logged, device=dev)
+            torch.cuda.synchronize()
+            run = polish[(tag, name)] = dict(
+                A=r2.A, wall=time.perf_counter() - t_p, cnt=counts(),
+                log=log, opts=opts64,
+                **{k: np.stack([getattr(r, k).cpu().numpy()
+                                for _, _, r in log], 1)
+                   for k in ("niter", "nfev", "status")})
+            print(f"config #3 polish through {name} (the screen's top "
+                  f"{len(picks)} {picks.tolist()}, f64, m 5, maxiter "
+                  f"{maxiter}, pgtol 1e-10, rung(s) {pol_betas.tolist()}"
+                  + (f", pack {P34['polish_pack']}" if name == "K8" else "")
+                  + f"): wall {run['wall']:.3f} s; niter "
+                  f"{run['niter'].tolist()}, statuses "
+                  f"{run['status'].tolist()}; A {r2.A.tolist()}; launches "
+                  f"{run['cnt']}")
+            check(bool(np.all(np.isfinite(r2.A))),
+                  f"phase 34: the polish through {name}: records not finite")
+            k8p = run["cnt"]["keys"].get(k8_key, 0)
+            check((run["cnt"]["k8"] == k8p == P34["polish_rungs"]
+                   and run["cnt"]["k2"] == 0) if name == "K8" else
+                  run["cnt"]["k2"] == P34["polish_rungs"],
+                  f"phase 34: the polish through {name} did not take it once "
+                  f"a rung: {run['cnt']}")
+    h8, h2 = polish[("held", "K8")], polish[("held", "K2")]
+    same_h = all(np.array_equal(h8[k], h2[k])
+                 for k in ("niter", "nfev", "status"))
+    rel_h = np.abs(h8["A"] - h2["A"]) / np.abs(h2["A"])
+    p8, p2 = polish[("full", "K8")], polish[("full", "K2")]
+    both = (p8["status"] <= 1) & (p2["status"] <= 1)
+    relp = np.abs(p8["A"] - p2["A"]) / np.abs(p2["A"])
+    print(f"config #3 polish, K8 against K2: at maxiter "
+          f"{P34['polish_held_maxiter']} the same counts {same_h}, max rel "
+          f"A difference {rel_h.max():.3e} (bound 1e-8); at maxiter "
+          f"{CONF3['polish_maxiter']} mutually converged rungs "
+          f"{int(both.sum())}/{both.size}, max rel A difference there "
+          f"{relp[both].max() if both.any() else float('nan'):.3e} (bound "
+          f"1e-8), elsewhere {relp.max():.3e} (read)")
+    check(same_h and np.all(rel_h <= 1e-8),
+          "phase 34: the short polish through K8 against K2")
+    # the short polish's K8 launches against the plain version on the
+    # inputs each was given: the same counts, x within 1e-8
+    for XP_in, rf_in, rk in h8["log"]:
+        rf_p = (float(rf_in) if np.ndim(rf_in) == 0 else
+                torch.as_tensor(rf_in, dtype=f64, device=dev))
+        rr = solve_pack.pack_reference(XP_in, rf_p, c64, h8["opts"],
+                                       P34["polish_pack"], lo64_t, hi64_t)
+        same_p = all(torch.equal(getattr(rk, k), getattr(rr, k))
+                     for k in ("niter", "nfev", "status"))
+        ex = float(torch.max(torch.abs(rk.x - rr.x) / torch.amax(
+            torch.abs(rr.x), dim=1, keepdim=True)))
+        print(f"config #3 polish at maxiter {P34['polish_held_maxiter']}, "
+              f"K8 against its plain version on the same inputs: the same "
+              f"counts {same_p}, x rel err {ex:.3e} (bound 1e-8)")
+        check(same_p and ex <= 1e-8,
+              "phase 34: the short polish through K8 against its plain "
+              "version")
+    check(np.all(relp[both] <= 1e-8),
+          f"phase 34: the polish through K8 against K2: {relp}")
+    out["paths"]["polish"] = p8["cnt"]["keys"]
+    out["polish"] = dict(
+        wall={f"{t}_{n}": v["wall"] for (t, n), v in polish.items()},
+        held_max_rel_A=float(rel_h.max()), converged=int(both.sum()),
+        max_rel_A=float(relp.max()))
+
+    # (e) the Lorenz-96 path: run_ladder through K8 under Hermite–Simpson
+    # with an (N_f-1, D) rf, the records from the autograd action
+    sp_h = build_spec(lorenz96, MAIN["D"], tw["Y"], tw["t"], tw["Lidx"],
+                      tw["RM"], disc="SimpsonHermite", P=np.array([4.0]),
+                      pidx=[0])
+    act_h, parts_h = make_action(sp_h, device=dev)
+    W_h = np.random.default_rng(35).uniform(0.5, 2.0,
+                                            (sp_h.N_f - 1, sp_h.D))
+    Zh = torch.tensor(member_draws(sp_h, tw, 3, P34["path_B"]), dtype=f32,
+                      device=dev)
+    opts_h = LBFGSOptions(maxiter=200, m=5, pgtol=1e-4, ftol=1e-6)
+    rs_h = solve_pack.make_packed_rung_solver(sp_h, opts_h, P34["path_pack"],
+                                              device=dev)
+    r0_h = (4e-6 * float(tw["RM"]) * W_h).astype(np.float32)
+    betas_h = P34["path_beta"] + np.arange(P34["path_rungs"])
+    zero_counts()
+    torch.cuda.synchronize()
+    res_h = run_ladder(act_h, parts_h, Zh, betas_h, r0_h, MAIN["alpha"],
+                       opts=opts_h, store_paths=False, rung_solver=rs_h,
+                       device=dev)
+    torch.cuda.synchronize()
+    cnt_h = counts()
+    kh = "K8/" + ag.rule_key("SimpsonHermite", True)
+    print(f"Lorenz-96 path (run_ladder, Hermite–Simpson, (N_f-1, D) rf, "
+          f"f32, B={P34['path_B']}, pack {P34['path_pack']}, rungs "
+          f"{betas_h[0]}..{betas_h[-1]}): niter "
+          f"{res_h.niter.sum(dim=0).tolist()}; launches {cnt_h}")
+    check(cnt_h["k8"] == P34["path_rungs"]
+          and cnt_h["keys"].get(kh, 0) == P34["path_rungs"]
+          and cnt_h["k2"] == 0 and bool(torch.isfinite(res_h.A).all()),
+          f"phase 34: the Lorenz-96 path's launches {cnt_h}")
+    out["paths"]["l96"] = cnt_h["keys"]
+    # the other libraries' paths, path2_rungs rungs each from the short
+    # solves' rung: Lorenz-96's in f64, Colpitts' (phase 33's problem
+    # under the forward map) and Lorenz-63's (under Euler) in f32 and f64
+    sp_c = rp.specs[("colpitts", "forwardmap")]
+    sp_l = rp.specs[("l63", "euler")]
+    for sp, Zs, model, dtype, kp in (
+            (sp_h, member_draws(sp_h, tw, 3, 5), None, f64, 8),
+            (sp_c, rp.near(("colpitts", "forwardmap"), 5), "colpitts", f32,
+             3),
+            (sp_c, rp.near(("colpitts", "forwardmap"), 5), "colpitts", f64,
+             8),
+            (sp_l, rp.near(("l63", "euler"), 5), "l63", f32, 8),
+            (sp_l, rp.near(("l63", "euler"), 5), "l63", f64, 3)):
+        act_p, parts_p = make_action(sp, device=dev)
+        if model is None:
+            r0, alpha, b0 = r0_h, MAIN["alpha"], P34["path_beta"]
+            key = kh
+        else:
+            (r0, alpha), b0 = rp.rf0s[model], MODELS33["beta_t"][model]
+            key = "K8/" + ag.model_key(model, sp.disc, False)
+        rs_p = solve_pack.make_packed_rung_solver(sp, opts_h, kp,
+                                                  device=dev)
+        zero_counts()
+        torch.cuda.synchronize()
+        res_p = run_ladder(act_p, parts_p,
+                           torch.tensor(Zs, dtype=dtype, device=dev),
+                           np.arange(b0, b0 + P34["path2_rungs"]), r0,
+                           alpha, opts=opts_h, store_paths=False,
+                           rung_solver=rs_p, device=dev)
+        torch.cuda.synchronize()
+        cnt_p = counts()
+        lab = f"{model or 'l96'}_{str(dtype)[6:]}"
+        print(f"K8 path {lab} (run_ladder, {sp.disc}, B=5, pack {kp}, rungs "
+              f"{b0}..{b0 + P34['path2_rungs'] - 1}): niter "
+              f"{res_p.niter.sum(dim=0).tolist()}; launches {cnt_p}")
+        check(cnt_p["k8"] == cnt_p["keys"].get(key, 0) == P34["path2_rungs"]
+              and cnt_p["k2"] == 0 and bool(torch.isfinite(res_p.A).all()),
+              f"phase 34: the path {lab}'s launches {cnt_p}")
+        out["paths"][lab] = cnt_p["keys"]
+
+    # the screen's rung 0 from its start and rung iter_beta from its last
+    # state (where its members iterate tens of times) through K8, K2 and
+    # the plain version on the same inputs: K8 held to the plain version
+    # and to K2 by the bounded-f32 rule, each launch's time by CUDA events,
+    # the bound from this run's evaluations; K8 on the Lorenz-96 path's
+    # first rung (pack 4) likewise
+    from varanneal_tpu_torch.anneal.ladder import rung_rf
+    c32 = ag.ag_consts(spec, dev, f32)
+    lo_t, hi_t = (torch.tensor(b, dtype=f32, device=dev)
+                  for b in (lo32, hi32))
+    for tag, beta, Zs in (("screen", 0, xp0),
+                          ("screen_iter", P34["iter_beta"], a8.XP)):
+        Z = torch.tensor(Zs, dtype=f32, device=dev)
+        Z = torch.maximum(torch.minimum(Z, hi_t), lo_t)
+        rf_t = torch.tensor(rung_rf(rf0, CONF3["alpha"], beta, f32),
+                            dtype=f32, device=dev)
+        rk = solve_pack.pack_kernel(Z, rf_t, c32, opts_s,
+                                    P34["screen_pack"], lo_t, hi_t)
+        r2 = solve.solve_kernel(Z, rf_t, c32, opts_s, lo_t, hi_t)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        rr = solve_pack.pack_reference(Z, rf_t, c32, opts_s,
+                                       P34["screen_pack"], lo_t, hi_t)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t_plain)
+        memo = {}
+
+        def f64_f(Z=Z, rf_t=rf_t, memo=memo):
+            # the f64 solve of the same rung from the same start, once
+            if "f" not in memo:
+                memo["f"] = solve.solve_reference(
+                    Z.double(), rf_t.double(), c64, opts_s, lo64_t,
+                    hi64_t).f
+            return memo["f"]
+        ok_p, how_p = bounded_f32_held(rk, rr, f64_f)
+        ok_2, how_2 = bounded_f32_held(rk, r2, f64_f)
+        lab = (f"config #3's screen, rung {beta} from "
+               + ("its start" if beta == 0 else "the screen's last state")
+               + f", B={CONF3['B']}, pack {P34['screen_pack']}")
+        print(f"{lab}: K8 niter {int(rk.niter.sum())} in all (slowest "
+              f"member {int(rk.niter.max())}, median "
+              f"{int(rk.niter.median())}), statuses "
+              f"{torch.bincount(rk.status, minlength=4).tolist()}; against "
+              f"the plain version: {how_p}; against K2: {how_2}")
+        check(ok_p, f"phase 34: {lab}: K8 against its plain version")
+        check(ok_2, f"phase 34: {lab}: K8 against K2")
+        if beta:
+            check(int(rk.niter.max()) >= 10,
+                  f"phase 34: {lab}: the slowest member took "
+                  f"{int(rk.niter.max())} iterations, not tens")
+        w = row_work(spec, "nakl", "SimpsonHermite", 1, True)
+        b8 = solve_bound(spec, f32, CONF3["B"], 1, int(rk.nfev.sum()),
+                         int(rk.niter.sum()), 5, 1, eval_ops=w[1])
+        b8 = bound_of(b8[2] + (spec.N_f - 1) * spec.D * 4
+                      + 2 * spec.n_dof * 4, b8[3])
+        out["times"][tag] = dict(
+            ms=events_ms(lambda: solve_pack.pack_kernel(
+                Z, rf_t, c32, opts_s, P34["screen_pack"], lo_t, hi_t),
+                n=3, warm=1),
+            device_ms=device_ms_of(lambda: solve_pack.pack_kernel(
+                Z, rf_t, c32, opts_s, P34["screen_pack"], lo_t, hi_t),
+                "l96_pack_kernel", n=2),
+            k2_ms=events_ms(lambda: solve.solve_kernel(
+                Z, rf_t, c32, opts_s, lo_t, hi_t), n=3, warm=1),
+            plain_ms=plain_ms, bound=b8, niter=int(rk.niter.max()))
+    c_h = ag.ag_consts(sp_h, dev, f32)
+    rf_h = torch.tensor(rung_rf(r0_h, MAIN["alpha"], P34["path_beta"], f32),
+                        dtype=f32, device=dev)
+    res_t = solve_pack.pack_kernel(Zh, rf_h, c_h, opts_h, P34["path_pack"])
+    bh = solve_bound(sp_h, f32, P34["path_B"], 1, int(res_t.nfev.sum()),
+                     int(res_t.niter.sum()), 5, 1)
+    bh = bound_of(bh[2] + (sp_h.N_f - 1) * sp_h.D * 4, bh[3])
+    out["times"]["l96"] = dict(
+        ms=events_ms(lambda: solve_pack.pack_kernel(
+            Zh, rf_h, c_h, opts_h, P34["path_pack"]), n=5, warm=1),
+        device_ms=device_ms_of(lambda: solve_pack.pack_kernel(
+            Zh, rf_h, c_h, opts_h, P34["path_pack"]), "l96_pack_kernel",
+            n=3),
+        k2_ms=events_ms(lambda: solve.solve_kernel(Zh, rf_h, c_h, opts_h),
+                        n=5, warm=1),
+        plain_ms=events_ms(lambda: solve_pack.pack_reference(
+            Zh, rf_h, c_h, opts_h, P34["path_pack"]), n=1, warm=0),
+        bound=bh, niter=int(res_t.niter.max()))
+    where = {"screen": "config #3's screen, rung 0, B=64, pack 8",
+             "screen_iter": f"config #3's screen, rung {P34['iter_beta']} "
+                            f"from its last state, B=64, pack 8",
+             "l96": f"the Lorenz-96 path's rung {P34['path_beta']}, B=8, "
+                    f"pack 4"}
+    for lab, t in out["times"].items():
+        dv = t["device_ms"]
+        print(f"K8 time ({where[lab]}, f32, slowest member {t['niter']} "
+              f"iterations): "
+              f"{t['ms']:.4f} ms a launch (CUDA events; "
+              f"{1e3 * t['ms'] / max(t['niter'], 1):.2f} µs an iteration of "
+              f"the slowest member), device "
+              + (f"{dv:.4f} ms" if dv is not None else "not measured")
+              + f"; K2 {t['k2_ms']:.4f} ms (ratio K8/K2 "
+              f"{t['ms'] / t['k2_ms']:.3f}); plain {t['plain_ms']:.2f} ms; "
+              f"bound {t['bound'][0]:.3e} ms ({t['bound'][1]})")
+    return out
+
+
 def profile_k3():
     """One K3 call of the new path (f32, every rung, B members from
     random_ensemble_inits(seed=3)), timed by CUDA events and run again
@@ -3780,12 +4478,21 @@ MODEL_SOURCES = ("ag_models_kernel",) + tuple(
     for t in ("f32", "f64"))
 
 
+#: The sources of K8 off Lorenz-96's trapezoid rule with a scalar rf
+#: (phase 34), which a checkout from before them lacks: printed, not
+#: compared.
+PACK_SOURCES = ("pack_rules_f32", "pack_rules_f64") + tuple(
+    f"pack_models_{m}_{t}" for m in ("nakl", "colpitts", "l63")
+    for t in ("f32", "f64"))
+
+
 def ptxas_diff(other):
     """Build ag_kernel.cu (K1, K4), solve_kernel.cu (K2, K3),
     pack_kernel.cu (K8), fe_kernel.cu (K6) and agt_kernel.cu (K5) of this
     checkout and of the checkout at ``other`` with the port's nvcc flags,
-    with the rules' and the row models' sources (:data:`RULE_SOURCES`,
-    :data:`MODEL_SOURCES`) of this one, all nvcc processes together, and
+    with the rules', the row models' and K8's new sources
+    (:data:`RULE_SOURCES`, :data:`MODEL_SOURCES`, :data:`PACK_SOURCES`)
+    of this one, all nvcc processes together, and
     compare their -Xptxas -v reports: per source, the lines of registers,
     barriers, spills and stack frames, in order, names dropped (a
     template argument added to a __device__ function changes its mangled
@@ -3800,7 +4507,7 @@ def ptxas_diff(other):
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for name in names + RULE_SOURCES + MODEL_SOURCES:
+        for name in names + RULE_SOURCES + MODEL_SOURCES + PACK_SOURCES:
             for tag, root in (("this", ROOT), ("other", other)):
                 src = os.path.join(root, "varanneal_tpu_torch", "kernels",
                                    "csrc", name + ".cu")
@@ -3812,7 +4519,7 @@ def ptxas_diff(other):
             so, se = proc.communicate()
             check(proc.returncode == 0, f"nvcc failed for {key}:\n{se}")
             logs[key] = _ptxas_lines(so + se)
-    for name in RULE_SOURCES + MODEL_SOURCES:
+    for name in RULE_SOURCES + MODEL_SOURCES + PACK_SOURCES:
         lines, fnames = logs[(name, "this")]
         print(f"ptxas {name} (this; printed, not compared): "
               f"{len(fnames)} functions")
@@ -3896,14 +4603,15 @@ def main():
     bar_path = str(_build.BUILD_DIR / "libsolve_kernel-barriers.so")
     bar_proc = _nvcc(str(_build.CSRC / "solve_kernel.cu"), bar_path,
                      ("-DVA_COUNT_BARRIERS",))
-    # the rules' libraries, which phase 32 alone launches, build in a
-    # thread while phases 3-31 run (their nvcc take ~2x the six's)
+    # the rules', the row models' and K8's new libraries, which phases
+    # 32-34 alone launch, build in a thread while phases 3-31 run (their
+    # nvcc take ~2x the six's)
     rules_build = {}
 
     def build_rules():
         try:
-            rules_build.update(_build.build(list(RULE_SOURCES
-                                                 + MODEL_SOURCES)))
+            rules_build.update(_build.build(list(
+                RULE_SOURCES + MODEL_SOURCES + PACK_SOURCES)))
         except Exception as e:          # raised again by phase 32
             rules_build["error"] = e
     rules_thread = threading.Thread(target=build_rules)
@@ -5804,12 +6512,13 @@ def main():
             st, ld = (int(x.split()[0]) for x in ln.split(",")[1:3])
             spills[entry] = spills.get(entry, 0) + st + ld
     f32_spills = {k: v for k, v in spills.items()
-                  if "l96_pack_kernelIf" in k}
+                  if re.search(r"l96_pack_kernelI.*L96ProblemIfE", k)}
     if built["pack_kernel"].log:        # built here, not loaded from disk
         print(f"K8 f32 kernels (ptxas): {len(f32_spills)} entries, spill "
               f"bytes {sorted(set(f32_spills.values()))}; f64: "
               + str(sorted(v for k, v in spills.items()
-                           if "l96_pack_kernelId" in k)))
+                           if re.search(r"l96_pack_kernelI.*L96ProblemIdE",
+                                        k))))
         check(len(f32_spills) == 8 and not any(f32_spills.values()),
               f"K8 f32 kernels spill: {f32_spills}")
     else:
@@ -6072,6 +6781,11 @@ def main():
     t0 = time.perf_counter()
     out33 = models_phase(dev, built, zero_counts, run_counts)
     phase("33 K1-K4 on the row-level models", t0)
+
+    # ---- 34. K8 over K2's envelope, config #3's screen and polish --------
+    t0 = time.perf_counter()
+    out34 = pack_phase(dev, tw, built, zero_counts, run_counts)
+    phase("34 K8 over K2's envelope", t0)
     print(f"total: {time.perf_counter() - t_all:.2f} s")
 
     line = dict(route="cuda", library_ms=None)
@@ -6365,6 +7079,38 @@ def main():
             ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][0], bound_by=t["bound"][1], entries=ents,
             **extra, **line))
+    # K8 over K2's envelope (phase 34): launches on its paths (config #3's
+    # screen and polish through the row models' entries, the Lorenz-96
+    # path through the rules'), errors over its short solves, times on
+    # the screen's rung 0 (row_pack) and the Lorenz-96 path's (f32) beside
+    # K2's, and each entry's own under "entries" (keys K8/[model/]rule/rf
+    # kind)
+    for nm, src, l96_, t in (
+            ("row_pack", "pack_models_nakl_f32", False,
+             out34["times"]["screen"]),
+            ("l96_pack_rule", "pack_rules_f32", True, out34["times"]["l96"])):
+        paths = out34["paths"]
+        ents = {k: dict(v, path_launches=sum(c.get(k, 0)
+                                             for c in paths.values()))
+                for k, v in out34["entries"].items()
+                if (k.count("/") == 2) == l96_}
+        kernels.append(dict(
+            name=nm, source=f"varanneal_tpu_torch/kernels/csrc/{src}.cu",
+            replaces="varanneal_tpu/kernels/solve_pack_pallas.py:126",
+            replaces_also=["varanneal_tpu/kernels/solve_pack_pallas.py:682"],
+            launches=sum(e["path_launches"] for e in ents.values()),
+            max_abs_err=max(e["max_abs_err"] for e in ents.values()),
+            max_rel_err=max(e["max_rel_err"] for e in ents.values()),
+            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound"][0], bound_by=t["bound"][1], k2_ms=t["k2_ms"],
+            entries=ents,
+            registers={k: v for k, v in out34["registers"].items()
+                       if k.startswith("l96_rule") == l96_},
+            build_s={k: v for k, v in out34["build_s"].items()
+                     if k.startswith("pack_rules") == l96_},
+            **({"screen": out34["screen"], "polish": out34["polish"]}
+               if nm == "row_pack" else {}),
+            **line))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

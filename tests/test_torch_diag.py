@@ -35,7 +35,7 @@ from varanneal_tpu import twin as twin_jax
 
 from varanneal_tpu_torch import diag, models, profiling, support
 from varanneal_tpu_torch.anneal import run_ladder
-from varanneal_tpu_torch.kernels import fe
+from varanneal_tpu_torch.kernels import fe, solve_pack
 from varanneal_tpu_torch.models import lorenz96
 from varanneal_tpu_torch.ops import build_spec, make_action
 from varanneal_tpu_torch.opt import LBFGSOptions
@@ -221,3 +221,25 @@ def test_support_waits_and_readme(monkeypatch):
     m = re.search(r"<!-- support-matrix:begin -->\n(.*?)\n"
                   r"<!-- support-matrix:end -->", readme, re.S)
     assert m and m.group(1) == support.markdown_table()
+
+
+def test_support_notes_match_pack_envelope():
+    """The matrix's notes on K8 (the packed rung solve) follow its
+    envelope: the Hermite–Simpson row's problem and the (N_f-1, D) rf
+    row's are inside ``solve_pack.pack_supported`` at packs 2–8, and the
+    notes name K8 among the kernels that serve them (they said K8 took
+    the trapezoid rule with a scalar rf, its envelope before it took
+    K2's)."""
+    notes = {r.feature: r.note for r in support.support_matrix()}
+    opts = LBFGSOptions(m=5)
+    sh = support._l96_spec(disc="SimpsonHermite")
+    base = support._l96_spec()
+    for k in (2, 4, 8):
+        assert solve_pack.pack_supported(sh, 1.0, opts, k, device="cpu")
+        assert solve_pack.pack_supported(
+            base, np.ones((base.N_f - 1, base.D), np.float32), opts, k,
+            device="cpu")
+    for feature in ("SimpsonHermite", "diag RF (N-1, D)"):
+        assert "K8" in notes[feature].split(";")[0], notes[feature]
+        assert "trapezoid" not in notes[feature]
+

@@ -993,7 +993,7 @@ def test_pack_kernel_matches_k2(cuda, dtype):
                                    / torch.abs(rp.f))) <= 1e-4
         assert solve_pack.pack_supported(spec, 1.0, opts, pack, dtype,
                                          device=cuda)
-    lib = solve_pack._lib()
+    lib = solve_pack._entries("l96")[0]
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for pack in (1, 2, 3, 4, 8):       # the block's shared memory: C's
         for B in (4, 264):
@@ -1093,8 +1093,8 @@ def test_sh_diag_rung_solve_matches_plain(cuda):
     assert torch.equal(rk.x, again.x) and torch.equal(rk.f, again.f)
 
 
-def _row_problem(model, disc, N=41, jitter=0.05):
-    """A row-level model's problem at N data rows and 4 draws near its
+def _row_problem(model, disc, N=41, jitter=0.05, B=4):
+    """A row-level model's problem at N data rows and B draws near its
     path (the states within ``jitter`` of their spread, the estimated
     parameters within ``jitter``): NaKL's twin (V observed, the
     stimulus, Pidx [1..5]), Colpitts' (x1 observed, every parameter) and
@@ -1133,7 +1133,7 @@ def _row_problem(model, disc, N=41, jitter=0.05):
     Z = [np.concatenate([
         (path + jitter * np.std(traj, 0) * rng.normal(size=path.shape)
          ).reshape(-1), pb * (1 + jitter * rng.normal(size=pb.shape))])
-        for _ in range(4)]
+        for _ in range(B)]
     return spec, np.stack(Z)
 
 
@@ -1232,3 +1232,100 @@ def test_row_solves_match_plain(cuda, model):
         assert torch.equal(rec[k], recr[k]), k
     assert float(torch.max(torch.abs(rec["A"] - recr["A"])
                            / torch.abs(recr["A"]))) <= 1e-8
+
+
+def _pack_vs_plain(rk, rp, dtype, what):
+    """K8's counts equal the plain version's; f64 f within 1e-8, f32 f
+    within 1e-4 relative."""
+    for k in ("niter", "nfev", "status"):
+        assert torch.equal(getattr(rk, k), getattr(rp, k)), (what, k)
+    tol = 1e-8 if dtype == torch.float64 else 1e-4
+    assert float(torch.max(torch.abs(rk.f - rp.f)
+                           / torch.abs(rp.f))) <= tol, what
+    assert bool(torch.isfinite(rk.x).all()), what
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pack_nakl_neighbour_groups(cuda, dtype):
+    """K8 on NaKL with its stimulus (kernels/csrc/pack_models_nakl_*.cu)
+    at a pack of 8 (G = 32: eight one-warp groups a block) over B = 9
+    members, two blocks, the second padded: every member, each group's
+    neighbours included, equals the plain version (counts exact; f64 f
+    within 1e-8, f32 within 1e-4), under Hermite–Simpson at an (N_f-1,
+    4) rf and under the trapezoid rule at a scalar rf. A group's area is
+    sized for its one warp (ag.ring_cols(c, 1)): at K2's eight warps'
+    width NaKL's staged row and partials would run into the next group's
+    area."""
+    opts = LBFGSOptions(maxiter=10, m=5, pgtol=1e-8, ftol=1e-12)
+    for disc in ("SimpsonHermite", "trapezoid"):
+        spec, Z = _row_problem("nakl", disc, B=9)
+        Z = torch.tensor(Z, dtype=dtype, device=cuda)
+        c = ag.ag_consts(spec, cuda, dtype)
+        W = np.random.default_rng(8).uniform(0.5, 2.0,
+                                             (spec.N_f - 1, spec.D))
+        rf = (torch.tensor(0.5 * W, dtype=dtype, device=cuda)
+              if disc == "SimpsonHermite" else 0.5)
+        key = "K8/" + ag.model_key("nakl", disc, disc == "SimpsonHermite")
+        n0 = solve.MODEL_LAUNCHES.get(key, 0)
+        rk = solve_pack.pack_kernel(Z, rf, c, opts, 8)
+        torch.cuda.synchronize()
+        assert solve.MODEL_LAUNCHES[key] == n0 + 1
+        rp = solve_pack.pack_reference(Z, rf, c, opts, 8)
+        _pack_vs_plain(rk, rp, dtype, (disc, "pack 8"))
+        again = solve_pack.pack_kernel(Z, rf, c, opts, 8)
+        assert all(torch.equal(a, b) for a, b in zip(rk, again))
+
+
+@pytest.mark.parametrize("model", ROW_MODELS + ("l96",))
+def test_pack_over_k2_envelope(cuda, model):
+    """K8 off Lorenz-96's trapezoid rule with a scalar rf
+    (kernels/csrc/pack_rules_*.cu, pack_models_*.cu) in f64 under each
+    rule, a scalar rf unbounded and an (N_f-1, D) rf in a box: at packs 3
+    and 5 (G = 64, 32) the plain version's counts and f within 1e-8, one
+    launch a call counted under its rule or model; at pack 2 (G = 256)
+    bit for bit K2 of the same problem, which it launches; the built
+    kernels within 255 registers a thread and launchable at 256
+    threads."""
+    opts = LBFGSOptions(maxiter=10, m=5, pgtol=1e-8, ftol=1e-12)
+    dtype = torch.float64
+    for disc in RULES:
+        if model == "l96":
+            spec, tw = _rule_specs()[RULES.index(disc)]
+            Z = _draw(spec, tw, 5)
+        else:
+            spec, Z = _row_problem(model, disc, B=5)
+        Z = torch.tensor(Z, dtype=dtype, device=cuda)
+        c = ag.ag_consts(spec, cuda, dtype)
+        W = np.random.default_rng(8).uniform(0.5, 2.0,
+                                             (spec.N_f - 1, spec.D))
+        lo = torch.amin(Z, 0) - 0.05 * torch.abs(torch.amin(Z, 0)) - 1e-3
+        hi = torch.amax(Z, 0) + 0.05 * torch.abs(torch.amax(Z, 0)) + 1e-3
+        r0 = 3.0 if model == "l96" else 0.5
+        for rf, box in ((r0, (None, None)),
+                        (torch.tensor(r0 * W, device=cuda), (lo, hi))):
+            diag = box[0] is not None
+            if model == "l96" and disc == "trapezoid" and not diag:
+                continue                  # pack_kernel.cu's pair
+            key = "K8/" + (ag.model_key(model, disc, diag)
+                           if model != "l96" else ag.rule_key(disc, diag))
+            counts = (solve.MODEL_LAUNCHES if model != "l96"
+                      else solve.RULE_LAUNCHES)
+            for pack in (3, 5):
+                n0 = counts.get(key, 0)
+                rk = solve_pack.pack_kernel(Z, rf, c, opts, pack, *box)
+                torch.cuda.synchronize()
+                assert counts[key] == n0 + 1
+                rp = solve_pack.pack_reference(Z, rf, c, opts, pack, *box)
+                _pack_vs_plain(rk, rp, dtype, (key, pack))
+            n2 = solve.RUNG_LAUNCHES
+            r8 = solve_pack.pack_kernel(Z, rf, c, opts, 2, *box)
+            assert solve.RUNG_LAUNCHES == n2          # counted as K8's
+            r2 = solve.solve_kernel(Z, rf, c, opts, *box)
+            assert all(torch.equal(u, v) for u, v in zip(r8, r2)), key
+    fam = "l96_rule" if model == "l96" else model
+    for dt in (torch.float32, torch.float64):
+        for G in (64, 32):
+            for bounded in (False, True):
+                a = solve_pack.kernel_attrs(G, dt, bounded, 0, fam)
+                assert a["regs"] <= 255 and a["max_threads"] >= 256, a
+

@@ -176,10 +176,16 @@ def test_envelope(problem):
     assert not solve_pack.pack_supported(st, 1.0, opts, 9, device=CPU)
     assert not solve_pack.pack_supported(st, 1.0, LBFGSOptions(m=9), 2,
                                          device=CPU)
-    assert not solve_pack.pack_supported(
+    # K2's envelope: the (N_f - 1, D) rf and the other rules are in; an rf
+    # of another shape is out, as it is out of K1's
+    assert solve_pack.pack_supported(
         st, np.ones((st.N_f - 1, st.D)), opts, 2, device=CPU)
-    assert not solve_pack.pack_supported(
+    assert solve_pack.pack_supported(
         dataclasses.replace(st, disc="euler"), 1.0, opts, 2, device=CPU)
+    assert not solve_pack.pack_supported(
+        st, np.ones((st.N_f, st.D)), opts, 2, device=CPU)
+    assert "rf of shape" in solve_pack.pack_refusal(
+        st, np.ones((st.N_f, st.D)), opts)
     # shared memory: eight f64 one-warp groups' rings at D = 700 pass 227
     # KB, so they go to the members' workspaces (the first port refused
     # every pack whose (N_f - 1) * D residuals passed it); a pack of one
@@ -202,9 +208,12 @@ def test_envelope(problem):
     assert not solve_pack.pack_supported(huge, 1.0, opts, 2, device=CPU)
     with pytest.raises(ValueError):
         solve_pack.make_packed_rung_solver(st, opts, 9, device=CPU)
-    s = solve_pack.make_packed_rung_solver(st, opts, 2, device=CPU)
-    with pytest.raises(ValueError):            # diagonal rf
-        s(torch.zeros(2, st.n_dof), np.ones((st.N_f - 1, st.D)))
+    s = solve_pack.make_packed_rung_solver(st, LBFGSOptions(m=5, maxiter=2),
+                                           2, device=CPU)
+    r = s(torch.zeros(3, st.n_dof), np.ones((st.N_f - 1, st.D)))
+    assert tuple(r.x.shape) == (3, st.n_dof)   # the (N_f - 1, D) rf runs
+    with pytest.raises(ValueError):            # an rf of another shape
+        s(torch.zeros(2, st.n_dof), np.ones((st.N_f, st.D)))
     if not torch.cuda.is_available():         # device=None means the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             solve_pack.make_packed_rung_solver(st, opts, 2)

@@ -154,15 +154,31 @@ def test_row_layouts():
 
 
 def test_pack_refuses_row_models():
-    """K8 (the packed solve) takes Lorenz-96 alone: the row-level models,
-    which K1/K2 now take, name §2a item 2 (e), and pack_supported is
-    False for them under the trapezoid rule with a scalar rf."""
+    """K8 (the packed solve) takes K2's envelope: the three row-level
+    models under each rule with a scalar and an (N_f-1, D) rf, in f32 and
+    f64, at packs 1–8; it still refuses the log-space NaKL model, naming
+    reference fault 7 (the reference's K1 takes that model and cannot
+    launch it, ROADMAP.md §3), and m above the reference's 8. The parent
+    refused the three models here (ROADMAP.md §2a item 2 (e))."""
+    from tests import test_torch_nakl as tn
+    from varanneal_tpu_torch import models
     from varanneal_tpu_torch.kernels import solve_pack
+    opts = LBFGSOptions(m=5)
     for model in MODELS:
-        _, st, _ = problem(model, "trapezoid", B=1)
-        assert ag.ag_supported(st, 1.0)
-        why = solve_pack.pack_refusal(st, 1.0)
-        assert "§2a item 2 (e)" in why and model in why
-        assert not solve_pack.pack_supported(st, 1.0, LBFGSOptions(m=5), 2,
-                                             device="cpu")
-    assert solve_pack.pack_refusal(support._l96_spec(), 1.0) is None
+        for disc in DISCS:
+            _, st, _ = problem(model, disc, B=1)
+            for rf in (1.0, _rf("diag", st)):
+                for dt in (torch.float32, torch.float64):
+                    assert solve_pack.pack_refusal(st, rf, opts, dt) is None
+                    for k in (1, 2, 3, 8):
+                        assert solve_pack.pack_supported(st, rf, opts, k, dt,
+                                                         device="cpu")
+            assert "m = 9" in solve_pack.pack_refusal(st, 1.0,
+                                                      LBFGSOptions(m=9))
+    _, st, _ = problem("nakl", "trapezoid", B=1)
+    log = dataclasses.replace(st, f=models.nakl_log_model(tn.LOG_IDX)[0])
+    assert "fault 7" in solve_pack.pack_refusal(log, 1.0, opts)
+    assert not solve_pack.pack_supported(log, 1.0, opts, 2, device="cpu")
+    with pytest.raises(ValueError, match="fault 7"):
+        solve_pack.make_packed_rung_solver(log, opts, 4, device="cpu")
+    assert solve_pack.pack_refusal(support._l96_spec(), 1.0, opts) is None

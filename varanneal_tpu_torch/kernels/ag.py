@@ -132,14 +132,19 @@ def row_area_elems(model, compensated=False, warps=_WARPS):
     return rowmodel.MODEL_NPX[model] + sums * warps
 
 
-def ring_cols(c) -> int:
-    """The width whose rings (:func:`ring_elems`) K2/K3 give a problem's
-    evaluation (``ring_cols`` of the CUDA sources): Lorenz-96's D, or for
-    a row-level model the fewest columns whose rings hold its area."""
-    if c.model == "l96":
+def ring_cols(c, warps=_WARPS) -> int:
+    """The width whose rings (:func:`ring_elems`) a group of ``warps``
+    warps gives a problem's evaluation (``ring_cols`` of the CUDA
+    sources; K2/K3's eight by default, K8's groups one or two):
+    Lorenz-96's D, or for a row-level model the fewest columns whose
+    rings hold its area at that many warps. ``c``: the kernel's constants
+    (:class:`AgConsts`) or the problem (``ProblemSpec``)."""
+    model = (c.model if isinstance(c, AgConsts)
+             else rowmodel.model_of(c.f)[0])
+    if model == "l96":
         return c.D
-    per = RING_ROWS * _WARPS
-    return -(-row_area_elems(c.model) // per)
+    per = RING_ROWS * warps
+    return -(-row_area_elems(model, warps=warps) // per)
 
 
 def ring_on_chip(D, dtype, compensated=False, rules=False) -> bool:

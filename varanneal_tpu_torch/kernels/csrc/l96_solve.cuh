@@ -404,11 +404,12 @@ __device__ __forceinline__ void evaluate(const RowProblem<Model, T>& p,
     me = s.me;
 }
 
-// The width of the rings that a problem's evaluation takes in the group's
-// area (l96_ag_ring_elems): Lorenz-96's D (a row-level model's is
-// row_ag_block.cuh's ring_cols).
+// The width of the rings that a problem's evaluation takes in the area of
+// a group of `warps` warps (l96_ag_ring_elems): Lorenz-96's D, whatever
+// the group (a row-level model's is row_ag_block.cuh's ring_cols).
 template <typename T>
-__host__ __device__ inline int ring_cols(const L96Problem<T>& p) {
+__host__ __device__ inline int ring_cols(const L96Problem<T>& p,
+                                         int /*warps*/ = kAgWarps) {
     return p.D;
 }
 

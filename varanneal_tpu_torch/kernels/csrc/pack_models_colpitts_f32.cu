@@ -1,0 +1,13 @@
+// K8 on Colpitts in float32: the kernel at G = 64 and 32, its notes and the
+// entries' arguments are pack_kernels.cuh's and pack_kernel.cu's; each
+// evaluation is row_ag_block.cuh's walk by thread over the group.
+
+#include <cuda_runtime.h>
+
+#include "pack_kernels.cuh"
+
+extern "C" {
+
+VA_ROW_PACK_ENTRIES(Colpitts, float, colpitts, f32)
+
+}  // extern "C"

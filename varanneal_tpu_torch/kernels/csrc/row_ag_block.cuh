@@ -92,12 +92,16 @@ __host__ __device__ inline size_t row_area_elems(bool comp,
     return Model::kNPX + (size_t)(row_sums<Model>() + (comp ? 6 : 0)) * warps;
 }
 
-// The width whose rings (l96_ag_ring_elems) hold a group's area: the
-// solvers size and place a problem's evaluation area by it.
+// The width whose rings (l96_ag_ring_elems) hold the area of a group of
+// `warps` warps: the solvers size and place a problem's evaluation area
+// by it. The area's partials grow with the warps and its staged row does
+// not, so a width for K2's eight warps is too narrow for one or two (K8's
+// groups of 32 and 64 threads): each group size takes its own.
 template <typename Model, typename T>
-__host__ __device__ inline int ring_cols(const RowProblem<Model, T>&) {
-    const size_t per = (size_t)kRingRows * kAgWarps;
-    return (int)((row_area_elems<Model>(false) + per - 1) / per);
+__host__ __device__ inline int ring_cols(const RowProblem<Model, T>&,
+                                         int warps = kAgWarps) {
+    const size_t per = (size_t)kRingRows * warps;
+    return (int)((row_area_elems<Model>(false, warps) + per - 1) / per);
 }
 
 // Rows [a, b) of count for the thread of rank t of a group of `size`,

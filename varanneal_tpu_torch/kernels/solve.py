@@ -65,13 +65,17 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 RUNG_LAUNCHES = 0
 #: Launches of the ladder kernel (K3) so far.
 LADDER_LAUNCHES = 0
-#: Launches of the rules' entries (csrc/solve_rules_*.cu) so far, by
-#: "K2/<disc>/<rf kind>" and "K3/<disc>/scalar"; each also counts in
-#: RUNG_LAUNCHES or LADDER_LAUNCHES.
+#: Launches under Lorenz-96's other rules and the (N_f-1, D) rf so far
+#: (csrc/solve_rules_*.cu; K8's csrc/pack_rules_*.cu), by
+#: "K2/<disc>/<rf kind>", "K3/<disc>/scalar" and "K8/<disc>/<rf kind>";
+#: each also counts in RUNG_LAUNCHES, LADDER_LAUNCHES or
+#: solve_pack.PACK_LAUNCHES.
 RULE_LAUNCHES = {}
-#: Launches on the row-level models (csrc/solve_models_*.cu) so far, by
-#: "K2/<model>/<disc>/<rf kind>" and "K3/<model>/<disc>/scalar"; each also
-#: counts in RUNG_LAUNCHES or LADDER_LAUNCHES.
+#: Launches on the row-level models so far (csrc/solve_models_*.cu; K8's
+#: csrc/pack_models_*.cu), by "K2/<model>/<disc>/<rf kind>",
+#: "K3/<model>/<disc>/scalar" and "K8/<model>/<disc>/<rf kind>"; each
+#: also counts in RUNG_LAUNCHES, LADDER_LAUNCHES or
+#: solve_pack.PACK_LAUNCHES.
 MODEL_LAUNCHES = {}
 
 #: Largest history the kernels take (kMaxM in csrc/l96_solve.cuh).
@@ -414,7 +418,6 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
     global RUNG_LAUNCHES
     _check_input(XP, c, opts)
     rf_s, rfd = ag._rf_arg(rf, c)
-    rule = _is_rule(c, rfd)
     XP = XP.contiguous()
     B = XP.shape[0]
     lo, hi = _check_bounds(lower, upper, XP)
@@ -427,34 +430,54 @@ def solve_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, lower=None,
     cnt = torch.empty(B, 3, dtype=torch.int32, device=XP.device)
     if B:
         lay = launch_layout(XP, c, opts, lo is not None, _layout)
-        work = _workspace(XP, lay)
-        lib = _lib(rule, c.dtype, c.model)
-        f32 = c.dtype == torch.float32
-        if c.model != "l96":
-            fn = getattr(lib, f"va_{c.model}_solve_{_sfx(c.dtype)}")
-            rf_args = (rf_s,)
-        elif rule:
-            fn = lib.va_l96_solve_rule_f32 if f32 else \
-                lib.va_l96_solve_rule_f64
-            rf_args = (ag.DISCS[c.disc], rf_s,
-                       None if rfd is None else rfd.data_ptr())
-        else:
-            fn = lib.va_l96_solve_f32 if f32 else lib.va_l96_solve_f64
-            rf_args = (rf_s,)
-        with torch.cuda.device(XP.device):
-            stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*_common_args(XP, c, opts, rfd), lay.flags, *rf_args,
-                    *bnd, work.data_ptr(), X.data_ptr(), G.data_ptr(),
-                    fp.data_ptr(), cnt.data_ptr(), stream)
-        _raise_on(rc, lib, "rung-solve")
+        launch_k2(XP, rf_s, rfd, c, opts, lay, bnd, X, G, fp, cnt)
         RUNG_LAUNCHES += 1
-        if c.model != "l96":
-            _count_model("K2/" + ag.model_key(c.model, c.disc,
-                                              rfd is not None))
-        elif rule:
-            _count_rule("K2/" + ag.rule_key(c.disc, rfd is not None))
+        _count_key("K2", c, rfd)
     return LBFGSResult(x=X, f=fp[:, 0], g=G, niter=cnt[:, 0],
                        nfev=cnt[:, 1], status=cnt[:, 2], pgnorm=fp[:, 1])
+
+
+def _count_key(kernel, c: ag.AgConsts, rfd):
+    """Count a launch of ``kernel`` ("K2", "K3" or "K8") in
+    :data:`MODEL_LAUNCHES` (a row-level model) or :data:`RULE_LAUNCHES`
+    (Lorenz-96 under another rule or an (N_f-1, D) rf); Lorenz-96's
+    trapezoid rule with a scalar rf counts in neither."""
+    if c.model != "l96":
+        _count_model(f"{kernel}/"
+                     + ag.model_key(c.model, c.disc, rfd is not None))
+    elif _is_rule(c, rfd):
+        _count_rule(f"{kernel}/" + ag.rule_key(c.disc, rfd is not None))
+
+
+def launch_k2(XP, rf_s, rfd, c: ag.AgConsts, opts: LBFGSOptions,
+              lay: Layout, bnd, X, G, fp, cnt):
+    """One launch of K2's entry for ``c`` (the trapezoid rule with a
+    scalar rf, another rule or rf kind, or a row-level model) on ``XP``
+    (B, n_dof), contiguous, B >= 1, in the layout ``lay``, the box ``bnd``
+    (lo, hi, stride) and the scalar rf ``rf_s`` or the (N_f-1, D) rf
+    ``rfd``, into the outputs X, G, fp, cnt. Counts nothing; raises on a
+    refused launch. K8 (kernels/solve_pack.py) launches K2 here for its
+    packs of 1–2 off the trapezoid rule with a scalar rf."""
+    rule = _is_rule(c, rfd)
+    work = _workspace(XP, lay)
+    lib = _lib(rule, c.dtype, c.model)
+    f32 = c.dtype == torch.float32
+    if c.model != "l96":
+        fn = getattr(lib, f"va_{c.model}_solve_{_sfx(c.dtype)}")
+        rf_args = (rf_s,)
+    elif rule:
+        fn = lib.va_l96_solve_rule_f32 if f32 else lib.va_l96_solve_rule_f64
+        rf_args = (ag.DISCS[c.disc], rf_s,
+                   None if rfd is None else rfd.data_ptr())
+    else:
+        fn = lib.va_l96_solve_f32 if f32 else lib.va_l96_solve_f64
+        rf_args = (rf_s,)
+    with torch.cuda.device(XP.device):
+        stream = torch.cuda.current_stream(XP.device).cuda_stream
+        rc = fn(*_common_args(XP, c, opts, rfd), lay.flags, *rf_args, *bnd,
+                work.data_ptr(), X.data_ptr(), G.data_ptr(), fp.data_ptr(),
+                cnt.data_ptr(), stream)
+    _raise_on(rc, lib, "rung-solve")
 
 
 def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions,
@@ -499,10 +522,7 @@ def ladder_kernel(XP, rfs, c: ag.AgConsts, opts: LBFGSOptions,
                     rec.data_ptr(), rec_i.data_ptr(), stream)
         _raise_on(rc, lib, "ladder")
         LADDER_LAUNCHES += 1
-        if c.model != "l96":
-            _count_model("K3/" + ag.model_key(c.model, c.disc, False))
-        elif rule:
-            _count_rule("K3/" + ag.rule_key(c.disc, False))
+        _count_key("K3", c, None)
     recs = dict(A=rec[..., 0], ME=rec[..., 1], FE=rec[..., 0] - rec[..., 1],
                 pgnorm=rec[..., 2], niter=rec_i[..., 0], nfev=rec_i[..., 1],
                 status=rec_i[..., 2])

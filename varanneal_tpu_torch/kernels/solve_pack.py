@@ -1,25 +1,42 @@
 """K8: the packed-member whole rung solve, ``pack`` members a launch's
 block (one a block at packs of 1 and 2, see :func:`block_groups`), each
-solved by its own warp-aligned group of threads.
+solved by its own warp-aligned group of threads, over K2's envelope: the
+four rules with a scalar or (N_f-1, D) rf, on Lorenz-96 and on the
+row-level models (NaKL with or without its stimulus, Colpitts,
+Lorenz-63), unbounded or bounded, at m <= 8.
 
 Counterpart of ``varanneal_tpu/kernels/solve_pack_pallas.py``
 (``pack_supported``, ``make_packed_rung_solver``), whose ``_pack_kernel``
-this replaces on the card with the hand-written CUDA kernel in
-``csrc/pack_kernel.cu`` (the source notes what bounds it and why its
-groups do not run in lockstep). The reference's contract is the
-function: per member the iterates, niter, nfev and status of the
-one-member kernel (K2, ``kernels/solve.py``), unbounded or, with flat
-bounds, by the projection algorithm. Beside the kernel this module holds:
+this replaces on the card with the hand-written CUDA kernel of
+``csrc/pack_kernels.cuh`` (``csrc/pack_kernel.cu`` notes what bounds it
+and why its groups do not run in lockstep): Lorenz-96 under the
+trapezoid rule with a scalar rf through ``csrc/pack_kernel.cu``, its
+other rules and the (N_f-1, D) rf through ``csrc/pack_rules_<f32|f64>.cu``
+and the row-level models through ``csrc/pack_models_<model>_<f32|f64>.cu``.
+At packs of 1–2 a member has the whole block (G = 256), which is K2's
+arrangement and bits: there the trapezoid rule with a scalar rf keeps
+``pack_kernel.cu``'s own G = 256 kernel, and every other problem
+launches its K2 entry (``solve.launch_k2``) on the padded batch,
+counted as K8's, so that no third copy of K2 is built. The reference's
+contract is the function: per member the iterates, niter, nfev and
+status of the one-member kernel (K2, ``kernels/solve.py``), unbounded
+or, with flat bounds, by the projection algorithm. Beside the kernel
+this module holds:
 
 - :func:`pack_reference`, the plain version: the batch padded to a
   multiple of the pack as the kernel's wrapper pads it, then
   ``solve.solve_reference`` (the batched loop with a per-member done
-  mask, the reference's lockstep semantics), the padding dropped;
-- :data:`PACK_LAUNCHES`, a plain count of kernel launches;
-- :func:`pack_supported` (the envelope), :func:`pack_group` (the group
-  size a pack gets), :func:`pack_layout` (where a member's vectors live:
-  K2's own plan at packs of 1–2) and :func:`kernel_attrs` (the built
-  kernel's registers, local memory and thread limit).
+  mask, the reference's lockstep semantics, over ``ag.ag_reference``'s
+  rules and models), the padding dropped;
+- :data:`PACK_LAUNCHES`, a plain count of kernel launches, and, by rule
+  and model, the keys "K8/..." of ``solve.RULE_LAUNCHES`` and
+  ``solve.MODEL_LAUNCHES``;
+- :func:`pack_supported` and :func:`pack_refusal` (the envelope),
+  :func:`pack_group` (the group size a pack gets), :func:`pack_layout`
+  (where a member's vectors live: K2's own plan at packs of 1–2; a
+  group's area sized for its warps, ``ag.ring_cols``) and
+  :func:`kernel_attrs` (the built kernel's registers, local memory and
+  thread limit).
 
 The reference's compile probe (``_compile_pack``/``_probe_ok``) has no
 counterpart: the envelope is analytic, the card's limits read from the
@@ -41,7 +58,7 @@ from varanneal_tpu_torch.ops.spec import ProblemSpec
 PACK_LAUNCHES = 0
 
 #: Threads a block of packed groups may have (kPackMaxThreads in
-#: csrc/pack_kernel.cu, the launch bound of every K8 block): 65,536
+#: csrc/pack_kernels.cuh, the launch bound of every K8 block): 65,536
 #: registers / 255 leave room for 256 threads, so each thread keeps up to
 #: 255 registers, as K2's and K3's do. At 512 threads (the first port's
 #: bound) a thread had 128 and the solver's walk spilled.
@@ -69,114 +86,151 @@ def pack_group(pack: int):
 
 def block_groups(pack: int) -> int:
     """Groups (members) a block holds for a pack of ``pack``: one at G =
-    256 (``block_groups`` in csrc/pack_kernel.cu), else the pack's."""
+    256 (``block_groups`` in csrc/pack_kernels.cuh), else the pack's."""
     return 1 if pack_group(pack) == 256 else pack
 
 
-def pack_layout(spec: ProblemSpec, dtype, pack: int, m: int, B: int,
-                bounded=False, sm_count=132) -> solve.Layout:
+def pack_layout(spec, dtype, pack: int, m: int, B: int, bounded=False,
+                sm_count=132) -> solve.Layout:
     """Where a pack launch of ``B`` members (the padded batch) keeps each
     member's vectors, as a :class:`solve.Layout` (flags, a block's shared
-    memory, a member's workspace). Packs of 1–2 (G = 256, one member a
-    block) take K2's plan itself, :func:`solve.plan_layout` for ``B``
-    blocks on a card of ``sm_count`` SMs: vectors, history and box in
-    shared memory where they fit, at up to one member an SM. Packs of 3–8
-    keep every vector in the global workspace (k members' vectors do not
-    fit beside each other) and each group's area in shared memory: the
-    solver's partials, which the evaluation's share, alpha and its rings,
-    :func:`block_groups` times one member's of G / 32 warps; the rings go
-    to the workspaces (``solve.RING_OFF``) where they do not fit in 227
-    KB."""
+    memory, a member's workspace); ``spec`` the problem (``ProblemSpec``)
+    or the kernel's constants (``ag.AgConsts``). Packs of 1–2 (G = 256,
+    one member a block) take K2's plan itself, :func:`solve.plan_layout`
+    for ``B`` blocks on a card of ``sm_count`` SMs: vectors, history and
+    box in shared memory where they fit, at up to one member an SM.
+    Packs of 3–8 keep every vector in the global workspace (k members'
+    vectors do not fit beside each other) and each group's area in shared
+    memory: the solver's partials, which the evaluation's share, alpha and
+    the evaluation's rings (a row-level model's area in their place),
+    :func:`block_groups` times one member's of G / 32 warps, the rings
+    ``ag.ring_cols(spec, G // 32)`` columns wide; the rings go to the
+    workspaces (``solve.RING_OFF``) where they do not fit in 227 KB."""
     G = pack_group(pack)
     if G == 256:
-        return solve.plan_layout(spec.D, spec.n_dof, m, dtype, bounded, B,
-                                 sm_count)
+        return solve.plan_layout(ag.ring_cols(spec), spec.n_dof, m, dtype,
+                                 bounded, B, sm_count)
     warps, k = G // 32, block_groups(pack)
-    flags = (0 if k * solve._smem_bytes(spec.D, dtype, warps)
+    cols = ag.ring_cols(spec, warps)
+    flags = (0 if k * solve._smem_bytes(cols, dtype, warps)
              <= ag.SMEM_LIMIT else solve.RING_OFF)
     work = (5 + 2 * m) * spec.n_dof + 2 * m + (
-        ag.ring_elems(spec.D, warps) if flags else 0)
-    return solve.Layout(flags, k * solve._smem_bytes(spec.D, dtype, warps,
+        ag.ring_elems(cols, warps) if flags else 0)
+    return solve.Layout(flags, k * solve._smem_bytes(cols, dtype, warps,
                                                      ring=not flags), work)
 
 
-def _lib():
+def _family(model: str, disc: str, diag: bool) -> str:
+    """The library family of a problem: "l96" (Lorenz-96 under the
+    trapezoid rule with a scalar rf, csrc/pack_kernel.cu), "l96_rule"
+    (its other rules and the (N_f-1, D) rf, csrc/pack_rules_<f32|f64>.cu)
+    or the row-level ``model``'s name
+    (csrc/pack_models_<model>_<f32|f64>.cu); ``diag``: an (N_f-1, D) rf."""
+    if model != "l96":
+        return model
+    return "l96_rule" if disc != "trapezoid" or diag else "l96"
+
+
+def _entries(family: str, dtype=torch.float32):
+    """(lib, launch, attrs) of ``family``'s library in ``dtype``, with
+    their argument and result types set: the launch entry, and
+    ``attrs(G, bounded, layout, out)``, the built kernel's attributes."""
     from varanneal_tpu_torch.kernels import _build
-    lib = _build.load("pack_kernel").lib
-    if not getattr(lib, "_va_typed", False):
-        P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        common = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl, Dbl,
-                  I, I, I, Dbl, Dbl, Dbl, Dbl]
-        for fn in (lib.va_l96_pack_f32, lib.va_l96_pack_f64):
-            fn.restype = I
-            fn.argtypes = common + [I, I, I, Dbl, P, P, I, P, P, P, P, P,
-                                    P]
-        lib.va_l96_pack_smem.restype = ctypes.c_longlong
-        lib.va_l96_pack_smem.argtypes = [I, I, I, I, I, I, I]
-        lib.va_l96_pack_attrs.restype = I
-        lib.va_l96_pack_attrs.argtypes = [I, I, I, I, P]
+    t = solve._sfx(dtype)
+    lib = _build.load("pack_kernel" if family == "l96" else
+                      f"pack_rules_{t}" if family == "l96_rule" else
+                      f"pack_models_{family}_{t}").lib
+    P, I, Dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    if family == "l96":
+        launch = getattr(lib, f"va_l96_pack_{t}")
+        f64 = int(dtype == torch.float64)
+
+        def attrs(G, bounded, layout, out):
+            return lib.va_l96_pack_attrs(G, f64, bounded, layout, out)
+    else:
+        launch = getattr(lib, f"va_{family}_pack_{t}")
+        attrs = getattr(lib, f"va_{family}_pack_attrs_{t}")
+    if not getattr(launch, "_va_typed", False):
+        l96 = [P, I, I, I, I, I, Dbl, P, P, P, P, I, I, I, Dbl, Dbl, Dbl]
+        opts = [I, I, I, Dbl, Dbl, Dbl, Dbl]
+        tail = [P, P, I, P, P, P, P, P, P]      # the box, work, outputs
+        if family == "l96":
+            launch.argtypes = l96 + opts + [I, I, I, Dbl] + tail
+            lib.va_l96_pack_smem.restype = ctypes.c_longlong
+            lib.va_l96_pack_smem.argtypes = [I, I, I, I, I, I, I]
+            lib.va_l96_pack_attrs.argtypes = [I, I, I, I, P]
+            lib.va_l96_pack_attrs.restype = I
+        else:
+            launch.argtypes = ((l96 + opts + [I, I, I, I, Dbl, P]
+                                if family == "l96_rule" else
+                                [P, I] + ag.ROW_ARGTYPES + opts
+                                + [I, I, I, Dbl]) + tail)
+            attrs.argtypes = [I, I, I, P]
+            attrs.restype = I
+        launch.restype = I
         lib.va_cuda_error_string.restype = ctypes.c_char_p
         lib.va_cuda_error_string.argtypes = [I]
-        lib._va_typed = True
-    return lib
+        launch._va_typed = True
+    return lib, launch, attrs
 
 
-def kernel_attrs(G: int, dtype=torch.float32, bounded=False,
-                 layout=0) -> dict:
+def kernel_attrs(G: int, dtype=torch.float32, bounded=False, layout=0,
+                 family="l96") -> dict:
     """The built kernel's attributes for group size ``G`` under the
-    layout's flags ``layout`` (at G = 256 the chunk follows the layout, as
-    K2's does) (building it at first use; needs the card): registers a
-    thread, local memory a thread in bytes (spills and stack), and the
-    most threads a block can launch with."""
-    lib = _lib()
+    layout's flags ``layout`` (building it at first use; needs the card):
+    registers a thread, local memory a thread in bytes (spills and
+    stack), and the most threads a block can launch with. ``family``:
+    the problem's library (:func:`_family`); at G = 256 off "l96", the K2
+    entry that a pack of 1–2 launches (``solve.kernel_attrs``; its chunk
+    follows the layout, as at G = 256 on Lorenz-96's trapezoid rule)."""
+    if G == 256 and family != "l96":
+        a = solve.kernel_attrs(False, dtype, bounded, layout,
+                               family == "l96_rule",
+                               "l96" if family == "l96_rule" else family)
+        return dict(regs=a["regs"], local_bytes=a["local_bytes"],
+                    max_threads=a["max_threads"])
+    lib, _, attrs = _entries(family, dtype)
     out = (ctypes.c_int * 3)()
-    rc = lib.va_l96_pack_attrs(int(G), int(dtype == torch.float64),
-                               int(bool(bounded)), int(layout), out)
-    if rc != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes of the packed-solve "
-                           f"kernel failed: cudaError {rc} "
-                           f"({lib.va_cuda_error_string(rc).decode()})")
+    rc = attrs(int(G), int(bool(bounded)), int(layout), out)
+    solve._raise_on(rc, lib, "cudaFuncGetAttributes of the packed-solve")
     return dict(regs=out[0], local_bytes=out[1], max_threads=out[2])
 
 
-def pack_refusal(spec: ProblemSpec, rf):
-    """The model, rule or rf kind K8 does not take, in words, or None: K8
-    takes Lorenz-96 under the trapezoid rule with a scalar rf, where K1/K2
-    take the row-level models, four rules and an (N_f-1, D) rf too."""
-    model = rowmodel.model_of(spec.f)
-    if model is not None and model[0] != "l96":
-        return (f"the {model[0]} model (K8 takes Lorenz-96; the row-level "
-                f"models wait for ROADMAP.md §2a item 2 (e))")
-    if spec.disc != "trapezoid" or np.ndim(rf) != 0:
-        kind = "a scalar" if np.ndim(rf) == 0 else f"a {np.shape(rf)}"
-        return (f"disc {spec.disc!r} with {kind} rf (K8 takes the "
-                f"trapezoid rule with a scalar rf; the other rules and the "
-                f"(N_f-1, D) rf wait for ROADMAP.md §2a item 2 (e))")
-    return None
+def pack_refusal(spec: ProblemSpec, rf, opts: LBFGSOptions,
+                 dtype=torch.float32):
+    """The first condition of :func:`pack_supported`'s problem and options
+    that ``spec`` fails, in words, or None: K2's
+    (``solve.solve_refusal``: the four rules, a scalar or (N_f-1, D) rf,
+    Lorenz-96 and the three row-level models, less the log-space NaKL
+    model, reference fault 7) and m <= :data:`MAX_M`, the reference's
+    envelope (its ``pack_supported`` asks its K1's ``ag_supported``)."""
+    if opts.m > MAX_M:
+        return (f"m = {opts.m} (the packed solve takes m <= {MAX_M}, as "
+                f"the reference's)")
+    return solve.solve_refusal(spec, rf, opts, dtype)
 
 
 def pack_supported(spec: ProblemSpec, rf, opts: LBFGSOptions, pack: int,
                    dtype=torch.float32, bounded=False, device=None) -> bool:
     """The packed kernel's envelope, with the reference's policy: pack >=
-    1, m <= :data:`MAX_M` (and maxls >= 1), the trapezoid rule with a
-    scalar rf (:func:`pack_refusal`) and K1's envelope
-    (:func:`ag.ag_supported`). The TPU's VMEM model becomes the card's
-    limit: a block's threads (:func:`block_groups` · G) within what the
-    built kernel can launch (``cudaFuncGetAttributes``'
+    1 with a group size (:func:`pack_group`) and K2's envelope at m <=
+    :data:`MAX_M` (:func:`pack_refusal`). The TPU's VMEM model becomes
+    the card's limit: a block's threads (:func:`block_groups` · G) within
+    what the built kernel can launch (``cudaFuncGetAttributes``'
     maxThreadsPerBlock, read on the card; on the CPU, where the plain
-    version runs, the kernel's launch bound).
-    Shared memory bounds nothing: a member's vectors and the groups'
-    rings go to the workspace where they do not fit (:func:`pack_layout`). False outside it; it does
+    version runs, the kernel's launch bound). Shared memory bounds
+    nothing: a member's vectors and the groups' rings go to the workspace
+    where they do not fit (:func:`pack_layout`). False outside it; it does
     not raise. ``device=None`` means the card."""
     G = pack_group(pack)
-    if (G is None or not 1 <= opts.m <= MAX_M or opts.maxls < 1
-            or pack_refusal(spec, rf) is not None
-            or not ag.ag_supported(spec, 0.0, dtype)):
+    if G is None or pack_refusal(spec, rf, opts, dtype) is not None:
         return False
     if resolve_device(device).type != "cuda":
         return block_groups(pack) * G <= PACK_MAX_THREADS
+    fam = _family(rowmodel.model_of(spec.f)[0], spec.disc,
+                  np.ndim(rf) != 0)
     return (block_groups(pack) * G
-            <= kernel_attrs(G, dtype, bounded)["max_threads"])
+            <= kernel_attrs(G, dtype, bounded, 0, fam)["max_threads"])
 
 
 def _pad(t, pad):
@@ -210,20 +264,25 @@ def pack_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
     """Launch K8 on ``XP`` (B, n_dof), a CUDA tensor of ``c``'s dtype on
     ``c``'s device: the batch padded to a multiple of ``pack``, one group
     of :func:`pack_group` threads a member, :func:`block_groups` groups a
-    block, at scalar
-    ``rf``, inside the box ``lower``/``upper`` ((n_dof,) or (B, n_dof))
-    when given. Returns the B members' LBFGSResult on PyTorch's current
-    stream, without synchronizing. Raises on anything the kernel does not
-    take and on a refused launch."""
+    block, at a scalar or (N_f-1, D) ``rf`` under ``c.disc``, inside the
+    box ``lower``/``upper`` ((n_dof,) or (B, n_dof)) when given. Packs of
+    1–2 off Lorenz-96's trapezoid rule with a scalar rf launch the
+    problem's K2 entry on the padded batch (``solve.launch_k2``: K8 at G =
+    256 is K2's arrangement and bits), counted here and not as K2's.
+    Returns the B members' LBFGSResult on PyTorch's current stream,
+    without synchronizing. Raises on anything the kernel does not take
+    and on a refused launch."""
     global PACK_LAUNCHES
     solve._check_input(XP, c, opts)
-    if c.disc != "trapezoid" or np.ndim(rf) != 0:
-        raise ValueError("the packed-solve kernel takes the trapezoid rule "
-                         "with a scalar rf (ROADMAP.md §2a item 2 (e))")
+    if opts.m > MAX_M:
+        raise ValueError(f"the packed-solve kernel takes m <= {MAX_M}; got "
+                         f"{opts.m}")
     G = pack_group(pack)
     if G is None:
         raise ValueError(f"pack must be 1..{PACK_MAX_THREADS // GROUPS[-1]}"
                          f"; got {pack}")
+    rf_s, rfd = ag._rf_arg(rf, c)
+    fam = _family(c.model, c.disc, rfd is not None)
     B = XP.shape[0]
     pad = (-B) % pack
     lo, hi = solve._check_bounds(lower, upper, XP)
@@ -244,19 +303,25 @@ def pack_kernel(XP, rf, c: ag.AgConsts, opts: LBFGSOptions, pack: int,
             XP.device).multi_processor_count
         lay = pack_layout(c, XP.dtype, pack, opts.m, Bp, lo is not None,
                           sms)
-        work = torch.empty(Bp, max(lay.work_elems, 1), dtype=XP.dtype,
-                           device=XP.device)
-        lib = _lib()
-        fn = (lib.va_l96_pack_f32 if c.dtype == torch.float32
-              else lib.va_l96_pack_f64)
-        with torch.cuda.device(XP.device):
-            stream = torch.cuda.current_stream(XP.device).cuda_stream
-            rc = fn(*solve._common_args(XPp, c, opts), int(pack), G,
-                    lay.flags,
-                    float(rf), *bnd, work.data_ptr(), X.data_ptr(),
-                    Gr.data_ptr(), fp.data_ptr(), cnt.data_ptr(), stream)
-        solve._raise_on(rc, lib, "packed-solve")
+        outs = (X.data_ptr(), Gr.data_ptr(), fp.data_ptr(), cnt.data_ptr())
+        if G == 256 and fam != "l96":
+            solve.launch_k2(XPp, rf_s, rfd, c, opts, lay, bnd, X, Gr, fp,
+                            cnt)
+        else:
+            work = torch.empty(Bp, max(lay.work_elems, 1), dtype=XP.dtype,
+                               device=XP.device)
+            lib, fn, _ = _entries(fam, c.dtype)
+            rf_args = ((ag.DISCS[c.disc], rf_s,
+                        None if rfd is None else rfd.data_ptr())
+                       if fam == "l96_rule" else (rf_s,))
+            with torch.cuda.device(XP.device):
+                stream = torch.cuda.current_stream(XP.device).cuda_stream
+                rc = fn(*solve._common_args(XPp, c, opts, rfd), int(pack),
+                        G, lay.flags, *rf_args, *bnd, work.data_ptr(),
+                        *outs, stream)
+            solve._raise_on(rc, lib, "packed-solve")
         PACK_LAUNCHES += 1
+        solve._count_key("K8", c, rfd)
     return _cut(LBFGSResult(x=X, f=fp[:, 0], g=Gr, niter=cnt[:, 0],
                             nfev=cnt[:, 1], status=cnt[:, 2],
                             pgnorm=fp[:, 1]), B)
@@ -269,16 +334,17 @@ def make_packed_rung_solver(spec: ProblemSpec, opts: LBFGSOptions,
     ``rung_solver=`` hook with the reference's semantics: a batch (B,
     n_dof) not a multiple of ``pack`` is padded by repeating its last
     member and the padding's outputs are dropped; an unbatched (n_dof,)
-    call runs a pack of one. ``lower``/``upper``: flat (n_dof,) bounds
-    (``api.build_bounds``; a missing side and ±inf entries free), under
-    which the kernel runs the projection algorithm. ``device=None`` means
-    the CUDA card. Raises outside the solve kernels' envelope or for a
-    pack without a group size."""
+    call runs a pack of one. ``rf``: a scalar or the rung's (N_f-1, D)
+    rf, as ``solve.make_rung_solver`` takes it. ``lower``/``upper``: flat
+    (n_dof,) bounds (``api.build_bounds``; a missing side and ±inf
+    entries free), under which the kernel runs the projection algorithm.
+    ``device=None`` means the CUDA card. Raises outside the packed
+    kernel's envelope (:func:`pack_refusal` in some dtype) or for a pack
+    without a group size."""
     solve._check_envelope(spec, 0.0, opts)
-    why = pack_refusal(spec, 0.0)
-    if why is not None:
+    if opts.m > MAX_M:
         raise ValueError(f"problem outside the packed-solve kernel's "
-                         f"envelope: {why}")
+                         f"envelope: {pack_refusal(spec, 0.0, opts)}")
     if pack_group(pack) is None:
         raise ValueError(f"pack must be 1..{PACK_MAX_THREADS // GROUPS[-1]}"
                          f"; got {pack}")
@@ -286,21 +352,19 @@ def make_packed_rung_solver(spec: ProblemSpec, opts: LBFGSOptions,
     bounds = solve.flat_bounds(spec, lower, upper, consts.device)
 
     def run(XP, rf):
-        if np.ndim(rf) != 0:
-            raise ValueError("the packed-solve kernel takes a scalar rf "
-                             "only")
         one = XP.ndim == 1
         XP2 = XP[None] if one else XP
         c = consts(XP.dtype)
         lo, hi = bounds(XP)
+        rf = float(rf) if np.ndim(rf) == 0 else rf
         k = 1 if one else int(pack)
         if XP.device.type == "cpu":
             if XP.device != c.device:
                 raise ValueError(f"XP is on {XP.device}; the solver is on "
                                  f"{c.device}")
-            res = pack_reference(XP2, float(rf), c, opts, k, lo, hi)
+            res = pack_reference(XP2, rf, c, opts, k, lo, hi)
         else:
-            res = pack_kernel(XP2, float(rf), c, opts, k, lo, hi)
+            res = pack_kernel(XP2, rf, c, opts, k, lo, hi)
         return LBFGSResult(*(v[0] for v in res)) if one else res
 
     return run

@@ -175,11 +175,10 @@ def support_matrix() -> List[MatrixRow]:
         note="bounded_algo='subspace' keeps the generic L-BFGS-B; "
              "solver='fused' warns")
     add("SimpsonHermite", _l96_spec(disc="SimpsonHermite"), rf,
-        note="K6, K1 and K2 serve Hermite–Simpson; K3 too at a scalar "
-             "rf; K8 takes the trapezoid rule (ROADMAP §2a item 2 (e))")
+        note="K6, K1, K2 and K8 serve Hermite–Simpson; K3 too at a "
+             "scalar rf")
     add("diag RF (N-1, D)", base, np.ones((20, 20), np.float32),
-        note="K6, K1 and K2 take the (N_f-1, D) rf; K3 and K8 a scalar "
-             "rf")
+        note="K6, K1, K2 and K8 take the (N_f-1, D) rf; K3 a scalar rf")
     add("matrix RF (N-1, D, D)", base, np.ones((3, 20, 20), np.float32),
         note="rank-3 rf: the autograd action only")
     add("time-dependent parameters", _l96_spec(P=np.full((21, 1), 4.0)),
